@@ -1,4 +1,5 @@
-"""Core framework: IR, registry, scope, executor."""
+"""Core framework: IR, registry, scope, executor, autodiff."""
+from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from .executor import CPUPlace, CUDAPlace, Executor, Place  # noqa: F401
 from .program import (  # noqa: F401
     Block,

@@ -6,21 +6,35 @@ Counterpart of ``paddle_tpu.core.executor`` (reference
 
 The JAX package traces the whole block into one jitted step. PyTorch runs
 eagerly, so the port interprets the op list in order: each op's registered
-function takes torch tensors on the run's device and returns new ones. This
-slice is forward only (startup programs and inference programs): autodiff,
-update fusion, the scanned multi-step loops and the observability hooks
-come with the training slice.
+function takes torch tensors on the run's device and returns new ones.
+
+Training. A program that holds an `autodiff` op (``append_backward``,
+``gradients``, ``Optimizer.minimize``) and is not run as a test runs its
+forward with torch.autograd recording: the autodiff targets enter as leaf
+tensors that require grad (parameters fresh from the scope every run),
+inputs in an op's ``nondiff_inputs`` and vars flagged ``stop_gradient`` are
+detached where an op reads them (requested targets excepted), and the AMP
+casts of ``contrib.mixed_precision`` happen inside the graph, so cotangents
+flow back through them to the f32 master weights. The `autodiff` op is
+``torch.autograd.grad`` over its targets (the JAX package's reverse walk of
+its vjp tape, ``_run_autodiff``); the graph is freed there, and every op
+after it (the optimizer updates) runs under ``torch.no_grad()``.
+
+Not ported yet: the update-group fusion, remat groups, the scanned
+multi-step drivers and the observability hooks (ROADMAP "Left out by
+slice 2").
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
 
 from . import registry
 from .dtypes import dtype_str, from_numpy, to_numpy
-from .program import Block, Program, Variable, default_main_program
+from .program import (Block, Program, Variable, default_main_program,
+                      grad_var_name)
 from .scope import Scope, _scope
 
 _RNG_STATE = "@RNG_STATE@"
@@ -72,19 +86,34 @@ def cuda_device(device_id: int = 0, hint: str = "") -> torch.device:
 
 
 class ExecContext:
-    """Per-run context handed to op implementations."""
+    """Per-run context handed to op implementations.
+
+    `amp` is the program's mixed-precision config ({'dtype', 'white_list',
+    'black_list'}) or None. `needed` is the set of var names some op reads
+    or the caller fetches (None = everything is needed); `wants(slot)` tells
+    the running op whether an optional output is read at all."""
 
     def __init__(self, device=None, generator: Optional[torch.Generator] = None,
-                 is_test: bool = False):
+                 is_test: bool = False, amp=None, needed=None):
         self.device = torch.device(device or "cpu")
         self._gen = generator
         self.is_test = is_test
+        self.amp = amp
+        self.needed = needed
+        self.training = False  # autograd records the forward
+        self.targets: Set[str] = set()  # names the autodiff op reads grads of
+        self.out_names: Dict[str, List[str]] = {}  # outputs of the running op
 
     def rng(self) -> torch.Generator:
         """The run's seeded generator; each draw advances it."""
         if self._gen is None:
             self._gen = torch.Generator(self.device).manual_seed(0)
         return self._gen
+
+    def wants(self, slot: str) -> bool:
+        """Whether an output of the running op's `slot` is read later."""
+        return self.needed is None or any(
+            n in self.needed for n in self.out_names.get(slot, []))
 
 
 def convert_feed_value(block, name: str, val, device) -> torch.Tensor:
@@ -118,11 +147,54 @@ def convert_feed_value(block, name: str, val, device) -> torch.Tensor:
     return t
 
 
+def _amp_cast(vals_by_slot, op_type, amp):
+    """AMP cast insertion at run time (the reference's cast-op graph pass,
+    contrib/mixed_precision/fp16_utils.py, as the JAX package's _amp_cast
+    does it): white-list ops take their float inputs in the low-precision
+    dtype, black-list ops in f32. In training the casts are part of the
+    autograd graph, so the cotangents are cast back on the way."""
+    if amp is None:
+        return vals_by_slot
+    if op_type in amp["white_list"]:
+        dt = torch.bfloat16 if amp["dtype"] == "bfloat16" else torch.float16
+    elif op_type in amp["black_list"]:
+        dt = torch.float32
+    else:
+        return vals_by_slot
+
+    def cast(v):
+        return v.to(dt) if v.is_floating_point() and v.dtype != dt else v
+
+    return {s: [cast(v) for v in vs] for s, vs in vals_by_slot.items()}
+
+
+def _stops_gradient(block: Block, name: str, ctx: ExecContext) -> bool:
+    # explicitly requested targets always receive grads (calc_gradient
+    # semantics) even if flagged stop_gradient (e.g. data vars)
+    if name in ctx.targets:
+        return False
+    v = block._find_var_recursive(name)
+    return bool(v is not None and v.stop_gradient)
+
+
 def _run_op(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
     opdef = registry.get_op(op.type)
     in_vals = {slot: [env[n] for n in names]
                for slot, names in op.inputs.items()}
-    out = opdef.fn(ctx, in_vals, op.attrs)
+    if ctx.training and opdef.differentiable:
+        for slot, names in op.inputs.items():
+            nondiff = slot in opdef.nondiff_inputs
+            in_vals[slot] = [
+                v.detach() if v.requires_grad and (
+                    nondiff or _stops_gradient(op.block, n, ctx)) else v
+                for n, v in zip(names, in_vals[slot])]
+    in_vals = _amp_cast(in_vals, op.type, ctx.amp)
+    ctx.out_names = op.outputs
+    if opdef.differentiable:
+        out = opdef.fn(ctx, in_vals, op.attrs)
+    else:
+        with torch.no_grad():
+            out = opdef.fn(ctx, in_vals, op.attrs)
     for slot in sorted(op.outputs):
         vals = out.get(slot, [])
         names = op.outputs[slot]
@@ -131,12 +203,80 @@ def _run_op(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
                 f"op {op.type}: slot {slot} returned {len(vals)} values, "
                 f"declared {len(names)}")
         for n, v in zip(names, vals):
+            if v is None:  # an optional output nothing reads (ctx.wants)
+                continue
+            if ctx.training and n in ctx.targets and not v.requires_grad \
+                    and v.is_floating_point():
+                # a requested intermediate the graph does not reach yet:
+                # make it a leaf so the autodiff op can differentiate w.r.t. it
+                v = v.detach().requires_grad_()
             env[n] = v
+
+
+def _conform_seed(seed: torch.Tensor, target: torch.Tensor, name: str):
+    """A target_gradient seed reshaped or broadcast to its target (e.g. a
+    [1] seed for a scalar target), as the JAX package conforms it."""
+    if seed.shape == target.shape:
+        return seed
+    if seed.numel() == target.numel():
+        return seed.reshape(target.shape)
+    if seed.numel() == 1:
+        return seed.reshape(()).expand(target.shape)
+    raise ValueError(f"target_gradient for {name!r} has shape "
+                     f"{tuple(seed.shape)}, target has {tuple(target.shape)}")
+
+
+def _run_autodiff(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
+    """The `autodiff` op: torch.autograd.grad of the loss (or of several
+    seeded targets, the `gradients` form) with respect to `targets`, written
+    to `<target>@GRAD`. A target the loss does not reach gets zeros. The
+    graph is freed (no retain_graph)."""
+    targets: Sequence[str] = op.attrs["targets"]
+    seeds: Dict[str, torch.Tensor] = {}
+    if "loss_names" in op.attrs:  # calc_gradient: one seed per target
+        init_names = op.attrs.get("init_grad_names") or [None] * len(
+            op.attrs["loss_names"])
+        for ln, ig in zip(op.attrs["loss_names"], init_names):
+            seed = (torch.ones_like(env[ln]) if ig is None
+                    else _conform_seed(env[ig], env[ln], ln))
+            seeds[ln] = seeds[ln] + seed if ln in seeds else seed
+    else:
+        ln = op.attrs["loss_name"]
+        init_name = op.attrs.get("init_grad_name")
+        seeds[ln] = (env[init_name] if init_name is not None
+                     else torch.ones_like(env[ln]))
+    outs = [n for n in seeds if env[n].requires_grad]
+    wrt = [t for t in dict.fromkeys(targets) if env[t].requires_grad]
+    grads = {}
+    if outs and wrt:
+        got = torch.autograd.grad(
+            [env[n] for n in outs],
+            [env[t] for t in wrt],
+            grad_outputs=[seeds[n].to(env[n].dtype) for n in outs],
+            allow_unused=True)
+        grads = {t: g for t, g in zip(wrt, got) if g is not None}
+    for t in targets:
+        g = grads.get(t)
+        env[grad_var_name(t)] = (torch.zeros_like(env[t]).detach()
+                                 if g is None else g)
+
+
+def _autodiff_targets(block: Block) -> Set[str]:
+    names: Set[str] = set()
+    for op in block.ops:
+        if op.type == "autodiff":
+            names.update(op.attrs["targets"])
+    return names
 
 
 def _run_block(block: Block, env: Dict[str, torch.Tensor], ctx: ExecContext):
     for op in block.ops:
-        _run_op(op, env, ctx)
+        if op.type == "autodiff":
+            _run_autodiff(op, env, ctx)
+            # the update ops that follow record no graph
+            torch.set_grad_enabled(False)
+        else:
+            _run_op(op, env, ctx)
 
 
 class Executor:
@@ -181,15 +321,25 @@ class Executor:
             gen = torch.Generator(self.device).manual_seed(
                 program.random_seed or 0)
             scope.set_var(_RNG_STATE, gen)
-        with torch.no_grad():
-            _run_block(block, env, ExecContext(self.device, gen))
+        needed = set(fetch_names).union(
+            n for op in block.ops for n in op.input_names())
+        ctx = ExecContext(self.device, gen, amp=getattr(program, "_amp", None),
+                          needed=needed)
+        ctx.targets = _autodiff_targets(block)
+        ctx.training = bool(ctx.targets)
+        for n in ctx.targets:
+            v = env.get(n)
+            if v is not None and v.is_floating_point():
+                env[n] = v.detach().requires_grad_()  # a fresh leaf each run
+        with torch.set_grad_enabled(ctx.training):
+            _run_block(block, env, ctx)
         for n in persistables:
             if n in env:
-                scope.set_var(n, env[n])
+                scope.set_var(n, env[n].detach())
         fetches = [env[n] for n in fetch_names]
         if return_numpy:
             return [to_numpy(f) for f in fetches]
-        return fetches
+        return [f.detach() for f in fetches]
 
 
 __all__ = ["Place", "CPUPlace", "CUDAPlace", "ExecContext", "Executor",

@@ -400,8 +400,8 @@ def grad_var_name(name: str) -> str:
 # ---------------------------------------------------------------------------
 # Remat units: model-block boundaries. Ops appended inside `remat_unit(name)`
 # are tagged with `__remat_unit__ = name`, exactly as in the JAX package, so
-# both DSLs emit the same attrs. In this forward-only port the tag is only a
-# tag; the training slice turns a unit into one torch.utils.checkpoint region.
+# both DSLs emit the same attrs. In the port the tag is only a tag so far;
+# turning a unit into one torch.utils.checkpoint region is queued (ROADMAP).
 _REMAT_UNIT_STACK: List[str] = []
 
 REMAT_UNIT_ATTR = "__remat_unit__"

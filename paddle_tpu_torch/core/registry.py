@@ -22,8 +22,9 @@ Implementation contract::
 - `ctx`:  ExecContext — device, seeded torch.Generator, is_test flag.
 - returns dict slot -> list of values matching the op's output slots.
 
-The differentiable/nondiff/grad_fn metadata is kept so op definitions read
-the same as the reference's; this forward-only slice never reads it.
+In training the executor reads the metadata: a non-differentiable op runs
+under ``torch.no_grad()``, and inputs in `nondiff_inputs` are detached. The
+`grad_fn` hook is kept for the sparse-row gradients (not ported yet).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a): out = softmax(q·kᵀ·scale +
-// bias [, causal]) · v, and lse = the row log-sum-exp, without materializing
-// the [Tq, Tk] score matrix.
+// bias [, causal]) [, dropout] · v, and lse = the row log-sum-exp, without
+// materializing the [Tq, Tk] score matrix.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas_kernels/flash_attention.py:
 // _fwd_kernel (via _flash_fwd_pallas) and _fwd_kernel_onepass (via
@@ -8,6 +8,9 @@
 // scores are -1e30 (not -inf), the running max starts at -1e30, a row whose
 // sum is 0 divides by 1, lse = m + log(l). Keys past the ragged end of Tk
 // take no part at all. Accumulation and lse are f32; out has the input type.
+// Attention dropout (philox.cuh) drops p after the row sum is taken, so lse
+// is over the undropped p, as in the TPU kernel; kept p is scaled by
+// 1 / (1 - rate) before p·v.
 //
 // Design. One CTA owns a 64-row q tile of one (batch, head) and walks the
 // K/V tiles (64 keys each) in a loop, keeping the running max and sum in f32
@@ -37,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // _NEG_INF of the JAX package
@@ -58,6 +63,7 @@ struct FwdParams {
   long long b_sb, b_sh, b_sq, b_sk;
   float sm_scale;
   int causal;
+  flash::Dropout drop;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -100,6 +106,7 @@ flash_fwd_f32_kernel(FwdParams p) {
   float* sK = sQ + kBlockQ * kPad;        // [64][D+1]
   float* sV = sK + kBlockK * kPad;        // [64][D]
   float* sP = sV + kBlockK * D;           // [64][65]
+  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sP + kBlockQ * kPitchP);
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
@@ -147,6 +154,7 @@ flash_fwd_f32_kernel(FwdParams p) {
       dk[0] = xk.x; dk[1] = xk.y; dk[2] = xk.z; dk[3] = xk.w;
       *reinterpret_cast<float4*>(sV + r * D + c) = xv;
     }
+    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
     __syncthreads();
 
     float s[4][4];
@@ -185,8 +193,12 @@ flash_fwd_f32_kernel(FwdParams p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float e = expf(s[i][j] - m_new);
-        sum += e;
-        sP[(ty * 4 + i) * kPitchP + tx + 16 * j] = e;
+        sum += e;  // the row sum is over the undropped p
+        float pv = e;
+        if (p.drop.on)
+          pv = sKeep[(ty * 4 + i) * flash::kKeepPitch + tx + 16 * j]
+                   ? e * p.drop.scale : 0.f;
+        sP[(ty * 4 + i) * kPitchP + tx + 16 * j] = pv;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -256,6 +268,7 @@ flash_fwd_bf16_kernel(FwdParams p) {
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][D+8]
   __nv_bfloat16* sK = sQ + kBlockQ * kPadQK;                         // [64][D+8]
   __nv_bfloat16* sVt = sK + kBlockK * kPadQK;                        // [D][72]
+  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sVt + D * kPadVt);     // [64][68]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -320,6 +333,7 @@ flash_fwd_bf16_kernel(FwdParams p) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) sVt[(c + e) * kPadVt + r] = ve[e];
     }
+    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 128);
     __syncthreads();
 
     // S = Q·Kᵀ for 16 rows x 64 keys: 8 n-blocks of 8 keys
@@ -367,6 +381,16 @@ flash_fwd_bf16_kernel(FwdParams p) {
       sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
       l[r] = l[r] * corr[r] + sum[r];
     }
+    if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
+#pragma unroll
+      for (int nb = 0; nb < kBlockK / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row_l = r0 + 8 * (e >> 1), col_l = nb * 8 + tig * 2 + (e & 1);
+          s[nb][e] = sKeep[row_l * flash::kKeepPitch + col_l]
+                         ? s[nb][e] * p.drop.scale : 0.f;
+        }
+    }
 #pragma unroll
     for (int nb = 0; nb < D / 8; ++nb) {
       o[nb][0] *= corr[0]; o[nb][1] *= corr[0];
@@ -410,12 +434,14 @@ flash_fwd_bf16_kernel(FwdParams p) {
 template <int D>
 size_t smem_bytes_f32() {
   return sizeof(float) * (2 * kBlockQ * (D + 1) + kBlockK * D +
-                          kBlockQ * (kBlockK + 1));
+                          kBlockQ * (kBlockK + 1)) +
+         kBlockQ * flash::kKeepPitch;
 }
 
 template <int D>
 size_t smem_bytes_bf16() {
-  return sizeof(__nv_bfloat16) * (2 * kBlockQ * (D + 8) + D * (kBlockK + 8));
+  return sizeof(__nv_bfloat16) * (2 * kBlockQ * (D + 8) + D * (kBlockK + 8)) +
+         kBlockQ * flash::kKeepPitch;
 }
 
 // Opts a kernel into its dynamic shared memory once per device, then
@@ -446,7 +472,9 @@ unsigned configured_bf16_64 = 0, configured_bf16_128 = 0;
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head dim
-// is contiguous. Returns a cudaError_t (0 = launched).
+// is contiguous. With dropout != 0, `seed` points at one int64 on the device
+// and a score is dropped iff its Philox word < `threshold`; kept p is scaled
+// by `drop_scale`. Returns a cudaError_t (0 = launched).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* bias, void* out, float* lse, int B, int H,
                         int Tq, int Tk, int D, long long q_sb, long long q_sh,
@@ -455,7 +483,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         long long v_st, long long o_sb, long long o_sh,
                         long long o_st, long long b_sb, long long b_sh,
                         long long b_sq, long long b_sk, float sm_scale,
-                        int causal, int dtype, void* stream) {
+                        int causal, int dtype, const long long* seed,
+                        unsigned threshold, float drop_scale, int dropout,
+                        void* stream) {
   FwdParams p;
   p.q = q; p.k = k; p.v = v; p.bias = bias; p.out = out; p.lse = lse;
   p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk;
@@ -466,6 +496,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   p.b_sb = b_sb; p.b_sh = b_sh; p.b_sq = b_sq; p.b_sk = b_sk;
   p.sm_scale = sm_scale;
   p.causal = causal;
+  p.drop.seed = seed;
+  p.drop.threshold = threshold;
+  p.drop.scale = drop_scale;
+  p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
     return launch(flash_fwd_f32_kernel<64>, &configured_f32_64, p, 256,

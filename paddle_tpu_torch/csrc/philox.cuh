@@ -1,0 +1,75 @@
+// Attention dropout for the flash-attention kernels: counter-based
+// Philox-4x32-10 (Salmon et al., SC'11; the Random123 rounds and constants).
+//
+// Replaces the TPU core PRNG of paddle_tpu/ops/pallas_kernels/
+// flash_attention.py (_keep_mask, reseeded per logical (b, q-block, k-block)
+// through _block_index). Here the keep bit of score (bh, i, j) is a pure
+// function of (seed, bh, i, j): word j % 4 of Philox with key (seed mod 2^32,
+// seed >> 32) and counter (j / 4, i, bh, 0). So the forward kernel, both
+// backward kernels and the plain PyTorch versions
+// (ops/kernels/flash_attention.py, dropout_keep_mask) draw the same mask
+// whatever their tile sizes. Dropping follows the JAX rule: drop iff the
+// word is below round(rate * 2^32); a kept p is scaled by 1 / (1 - rate).
+//
+// Cost: one Philox call gives the bits of 4 scores, so a CTA fills the keep
+// bytes of its 64x64 tile cooperatively (1024 calls, 10 rounds of two
+// 32-bit multiplies each) into shared memory before the tile's math; the
+// kernels then read one byte per score.
+#pragma once
+
+#include <stdint.h>
+
+namespace flash {
+
+constexpr int kKeepPitch = 68;  // bytes per row of a 64-wide keep tile
+
+struct Dropout {
+  const long long* seed;  // device pointer: drawn on the card, no host sync
+  uint32_t threshold;     // drop iff the 32-bit word < threshold
+  float scale;            // 1 / (1 - rate)
+  int on;
+};
+
+__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
+                                               uint32_t c2, uint32_t c3,
+                                               uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// keep[r * kKeepPitch + c] = keep bit of score (bh, q0 + r, k0 + c) for the
+// 64x64 tile at (q0, k0); k0 is a multiple of 64. Rows and columns past the
+// ragged end are filled too and never read.
+__device__ __forceinline__ void fill_keep_tile(uint8_t* keep, const Dropout& d,
+                                               int bh, int q0, int k0,
+                                               int tid, int nthreads) {
+  const unsigned long long s = static_cast<unsigned long long>(*d.seed);
+  const uint32_t key0 = static_cast<uint32_t>(s);
+  const uint32_t key1 = static_cast<uint32_t>(s >> 32);
+  for (int idx = tid; idx < 64 * 16; idx += nthreads) {
+    const int r = idx >> 4, c4 = idx & 15;
+    const uint4 w = philox4x32_10(static_cast<uint32_t>((k0 >> 2) + c4),
+                                  static_cast<uint32_t>(q0 + r),
+                                  static_cast<uint32_t>(bh), 0u, key0, key1);
+    const uint32_t t = d.threshold;
+    const uint32_t packed = (w.x >= t ? 1u : 0u) | (w.y >= t ? 1u << 8 : 0u) |
+                            (w.z >= t ? 1u << 16 : 0u) |
+                            (w.w >= t ? 1u << 24 : 0u);
+    *reinterpret_cast<uint32_t*>(keep + r * kKeepPitch + c4 * 4) = packed;
+  }
+}
+
+}  // namespace flash

@@ -82,9 +82,11 @@ def load_vars(executor, dirname: str, main_program: Optional[Program] = None,
 def load_params_from_numpy(arrays: Dict[str, np.ndarray],
                            scope: Optional[Scope] = None, device=None):
     """Set each array as a tensor of the same name in `scope` (the current
-    scope by default), on `device` (the CPU by default). This carries a
-    parameter set across from the JAX package, whose params are named the
-    same way; ml_dtypes bfloat16 arrays go through a uint16 view."""
+    scope by default), on `device` (the CPU by default). This carries every
+    persistable across from the JAX package, whose vars are named the same
+    way: parameters, optimizer state (Adam moments, beta powers), the
+    learning-rate var, loss-scaling counters. ml_dtypes bfloat16 arrays go
+    through a uint16 view."""
     scope = scope or _scope()
     for name, arr in arrays.items():
         scope.set_var(name, from_numpy(arr, device=device))

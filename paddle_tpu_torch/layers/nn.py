@@ -1,5 +1,5 @@
-"""Layers DSL — the subset of ``paddle_tpu.layers.nn`` the serving slice
-uses, emitting the same ops, attrs and var descs (reference
+"""Layers DSL — the subset of ``paddle_tpu.layers.nn`` the BERT serving and
+training slices use, emitting the same ops, attrs and var descs (reference
 ``python/paddle/fluid/layers/nn.py``)."""
 from __future__ import annotations
 
@@ -151,4 +151,27 @@ def flash_attention(q: Variable, k: Variable, v: Variable,
         attrs["num_heads"] = int(num_heads)
     helper.append_op(type="flash_attention", inputs=inputs,
                      outputs={"Out": [out.name]}, attrs=attrs)
+    return out
+
+
+def softmax_with_cross_entropy(logits: Variable, label: Variable,
+                               soft_label: bool = False, ignore_index: int = -100,
+                               return_softmax: bool = False, axis: int = -1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    sm = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": [logits.name], "Label": [label.name]},
+                     outputs={"Loss": [loss.name], "Softmax": [sm.name]},
+                     attrs={"soft_label": soft_label, "ignore_index": ignore_index,
+                            "axis": axis})
+    if return_softmax:
+        return loss, sm
+    return loss
+
+
+def mean(x: Variable, name=None) -> Variable:
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=())
+    helper.append_op(type="mean", inputs={"X": [x.name]}, outputs={"Out": [out.name]}, attrs={})
     return out

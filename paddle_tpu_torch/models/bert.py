@@ -2,9 +2,10 @@
 ``paddle_tpu.models.bert``.
 
 Both DSLs name every parameter the same way, so a parameter set carries
-across one to one (``io.load_params_from_numpy``). The serving slice ports
-the encoder; the pretraining loss and program builder (softmax cross
-entropy, reductions, an optimizer) come with the training slice.
+across one to one (``io.load_params_from_numpy``), optimizer state included.
+The encoder serves through the inference Predictor; ``build_pretrain_program``
+builds the masked-LM pretraining step the JAX package's bench trains
+(``Executor.run`` with an optimizer, f32 or bf16 AMP).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .. import layers
-from ..core.program import remat_unit
+from ..core.program import Program, program_guard, remat_unit
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..param_attr import ParamAttr
 
@@ -155,12 +156,50 @@ def bert_encoder(cfg: BertConfig, src_ids, pos_ids, sent_ids, input_mask,
                        scale=10000.0)
     mask4 = layers.unsqueeze(neg, [1])
     x = emb
-    # each transformer block is one remat unit (a tag in this forward-only
-    # slice; the same attr the JAX package's builder emits)
+    # each transformer block is one remat unit (the same attr the JAX
+    # package's builder emits; the port runs it as a tag only, since remat
+    # is not ported yet)
     for i in range(cfg.num_layers):
         with remat_unit(f"bert_layer_{i}"):
             x = encoder_layer(cfg, x, mask4, i, is_test)
     return x
+
+
+def bert_pretrain_loss(cfg: BertConfig, seq_out, mlm_labels, input_mask):
+    """Masked-LM loss averaged over the labelled positions (label -100 is
+    ignored). The decoder has its own output matrix (``mlm_out.w``), not
+    tied to the word embedding, as in the JAX package."""
+    logits = layers.fc(seq_out, cfg.vocab_size, num_flatten_dims=2,
+                       param_attr=_attr(cfg, "mlm_out.w", _tp(cfg, None, "tp")),
+                       bias_attr=ParamAttr(name="mlm_out.b",
+                                           initializer=ConstantInitializer(0.0),
+                                           shard_spec=_tp(cfg, "tp")))
+    loss = layers.softmax_with_cross_entropy(logits, mlm_labels, ignore_index=-100)
+    # mean over non-ignored tokens
+    valid = layers.cast(layers.not_equal(
+        mlm_labels, layers.fill_constant([1], "int64", -100)), "float32")
+    total = layers.reduce_sum(layers.elementwise_mul(loss, valid))
+    denom = layers.reduce_sum(valid)
+    return layers.elementwise_div(total, denom)
+
+
+def build_pretrain_program(cfg: BertConfig, batch_size: int, seq_len: int,
+                           optimizer_factory=None, is_test=False):
+    """Build (main, startup, feeds, fetch) for a full pretrain step."""
+    main = Program()
+    startup = Program()
+    with program_guard(main, startup):
+        src = layers.data("src_ids", [seq_len], dtype="int64")
+        pos = layers.data("pos_ids", [seq_len], dtype="int64")
+        sent = layers.data("sent_ids", [seq_len], dtype="int64")
+        mask = layers.data("input_mask", [seq_len], dtype="float32")
+        labels = layers.data("mlm_labels", [seq_len, 1], dtype="int64")
+        seq_out = bert_encoder(cfg, src, pos, sent, mask, is_test)
+        loss = bert_pretrain_loss(cfg, seq_out, labels, mask)
+        if optimizer_factory is not None:
+            opt = optimizer_factory()
+            opt.minimize(loss)
+    return main, startup, ["src_ids", "pos_ids", "sent_ids", "input_mask", "mlm_labels"], loss
 
 
 def param_count(cfg: BertConfig) -> int:

@@ -42,14 +42,21 @@ def _fused_fc(ctx, inputs, attrs):
 
 @register_op("flash_attention", nondiff_inputs=["BiasQK"])
 def _flash_attention(ctx, inputs, attrs):
-    """Memory-efficient fused attention: the Hopper kernel on a CUDA tensor,
-    its plain version on a CPU tensor; see ops/kernels/flash_attention.py."""
+    """Memory-efficient fused attention: the Hopper kernels on a CUDA tensor,
+    their plain versions on a CPU tensor; see ops/kernels/flash_attention.py.
+    With dropout in training, one seed per call is drawn from the run's
+    generator (on the run's device, so no host sync) and the backward
+    regenerates the same mask from it."""
     (q,) = inputs["Q"]
     (k,) = inputs["K"]
     (v,) = inputs["V"]
     bias = opt_input(inputs, "BiasQK")
     is_test = attrs.get("is_test", False) or ctx.is_test
     rate = 0.0 if is_test else attrs.get("dropout_prob", 0.0)
+    seed = 0
+    if rate > 0.0:
+        seed = torch.randint(0, 2 ** 62, (1,), generator=ctx.rng(),
+                             device=ctx.device, dtype=torch.int64)
     if q.ndim == 3:
         # packed [B, T, H] layout, read in place through strides
         if "num_heads" not in attrs:
@@ -58,7 +65,7 @@ def _flash_attention(ctx, inputs, attrs):
                 "num_heads attr — pass num_heads= to layers.flash_attention")
         return one(_fa.flash_attention_packed(
             q, k, v, attrs["num_heads"], bias=bias,
-            causal=attrs.get("causal", False), dropout_rate=rate))
+            causal=attrs.get("causal", False), dropout_rate=rate, seed=seed))
     return one(_fa.flash_attention(
         q, k, v, bias=bias, causal=attrs.get("causal", False),
-        dropout_rate=rate))
+        dropout_rate=rate, seed=seed))

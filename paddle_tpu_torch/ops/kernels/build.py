@@ -3,12 +3,14 @@
 Each source under ``paddle_tpu_torch/csrc/`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``. Libraries go to ``paddle_tpu_torch/_build/`` (git-ignored), keyed
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads as is. Nothing is built at import time.
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source rebuilds and an unchanged one loads as is. Nothing is
+built at import time.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -24,7 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel library name -> its source file under csrc/
-SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu"}
+SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # seconds each library took to build in this process (absent = loaded as is)
@@ -43,8 +46,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, SOURCES[name])] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

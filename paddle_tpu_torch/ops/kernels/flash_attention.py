@@ -1,26 +1,41 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain version.
+"""Flash attention, forward and backward: hand-written Hopper kernels, their
+plain versions, and the autograd function that joins them.
 
-Replaces the forward TPU kernels of
-``paddle_tpu/ops/pallas_kernels/flash_attention.py``: ``_fwd_kernel``
-(via ``_flash_fwd_pallas``) and ``_fwd_kernel_onepass`` (via
-``_flash_fwd_pallas_onepass``), reached through ``_flash_fwd_dispatch`` from
-``flash_attention_packed`` and ``flash_attention``. The CUDA source is
-``paddle_tpu_torch/csrc/flash_attention_fwd.cu``; its header says how it is
-laid out for the card and what bounds it (memory in bf16, FMA issue in f32).
+Replaces the TPU kernels of ``paddle_tpu/ops/pallas_kernels/flash_attention.py``:
 
-- ``flash_attention_fwd_plain`` is the plain PyTorch version of the same
-  function, with the JAX package's edge semantics: masked scores are -1e30,
-  the running max starts at -1e30, a zero row sum divides by 1 and
-  lse = m + log(l). The CPU tests use it; on the card it is the kernel's
-  yardstick.
-- ``flash_attention_fwd`` is the wrapper: a CPU tensor takes the plain
-  version, a CUDA tensor launches the kernel or raises. It counts its
-  launches in ``flash_attention_fwd.launches``.
+- forward: ``_fwd_kernel`` (via ``_flash_fwd_pallas``) and
+  ``_fwd_kernel_onepass`` (via ``_flash_fwd_pallas_onepass``), reached through
+  ``_flash_fwd_dispatch``; CUDA source ``csrc/flash_attention_fwd.cu``.
+- backward: ``_bwd_dq_kernel`` + ``_bwd_dkv_kernel`` (via
+  ``_flash_bwd_pallas``) and ``_bwd_kernel_onepass`` (via
+  ``_flash_bwd_pallas_onepass``); CUDA source ``csrc/flash_attention_bwd.cu``.
+
+Each source's header says how it is laid out for the card and what bounds it.
+
+- ``flash_attention_fwd_plain`` / ``flash_attention_bwd_plain`` are the plain
+  PyTorch versions with the JAX package's edge semantics: masked scores are
+  -1e30, the running max starts at -1e30, a zero row sum divides by 1,
+  lse = m + log(l); the backward mirrors ``_flash_bwd_jax`` (delta = Σ dO·out,
+  p recomputed from lse, ds = p·(dp − delta), operands rounded to the input
+  dtype where the TPU kernels round them, f32 accumulation). The CPU tests use
+  them; on the card they are the kernels' yardstick.
+- ``flash_attention_fwd`` / ``flash_attention_bwd`` are the wrappers: a CPU
+  tensor takes the plain version, a CUDA tensor launches the kernel or raises.
+  Each counts its launches in ``.launches``.
+- ``_FlashAttention`` is the ``torch.autograd.Function`` that joins them, as
+  ``_flash_core``'s ``custom_vjp`` does in the JAX package.
+
+Attention dropout: the keep bit of score (bh, i, j) is a pure function of
+(seed, bh, i, j): word j % 4 of Philox-4x32-10 with key (seed mod 2³², seed >>
+32) and counter (j // 4, i, bh, 0), kept iff it is ≥ round(rate·2³²) (the JAX
+rule, ``_keep_mask``), and a kept p is scaled by 1/(1 − rate). The kernels and
+the plain versions draw the same mask bit for bit, whatever their tiling. The
+TPU kernels' core-PRNG bits cannot be reproduced, so dropout is never
+compared bit for bit with the JAX package. lse is taken over the undropped p.
 
 Tensors are [B, nh, T, d] views with any strides and a contiguous head dim,
 so the packed [B, T, nh·d] layout is read in place (the TPU needed head
 fold/unfold copies only because Mosaic cannot take a 64-wide minor block).
-Dropout inside attention arrives with the training slice.
 """
 from __future__ import annotations
 
@@ -31,22 +46,67 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the head dims the CUDA kernel is instantiated for
+HEAD_DIMS = (64, 128)  # the head dims the CUDA kernels are instantiated for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+_M32 = 0xFFFFFFFF
+
+# Philox-4x32-10 constants (Salmon et al., SC'11; Random123)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
-def flash_attention_fwd_plain(q, k, v, bias=None, causal: bool = False,
-                              sm_scale: Optional[float] = None
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """softmax(q·kᵀ·sm_scale + bias [, causal]) · v in plain PyTorch.
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit words of a·m for int64 tensors a < 2³² and a 32-bit
+    constant m, without overflowing int64: m is split into 16-bit halves."""
+    p_lo = a * (m & 0xFFFF)
+    p_hi = a * (m >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _M32
 
-    q [B, nh, Tq, d], k/v [B, nh, Tk, d]; bias broadcastable to
-    [B, nh, Tq, Tk]. Scores, sums and lse are f32; p is rounded to v's dtype
-    before p·v, as the TPU kernels do. Returns (out [B, nh, Tq, d] in q's
-    dtype, lse [B, nh, Tq] f32)."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox-4x32-10 on int64 tensors holding 32-bit counter words
+    (broadcastable); the key is two 32-bit ints. Returns the 4 output words
+    as int64 tensors. The CUDA kernels run the same rounds (csrc/philox.cuh)."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _M32
+            k1 = (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(rate: float) -> int:
+    """Drop iff the 32-bit word is below this (``_keep_mask``'s rule)."""
+    return int(round(rate * 4294967296.0)) & _M32
+
+
+def _seed_int(seed) -> int:
+    return int(seed.reshape(-1)[0]) if isinstance(seed, torch.Tensor) \
+        else int(seed)
+
+
+def dropout_keep_mask(seed, rate: float, b: int, nh: int, tq: int, tk: int,
+                      device=None) -> torch.Tensor:
+    """The [B, nh, Tq, Tk] keep mask of attention dropout, in plain PyTorch
+    integer arithmetic; the kernels draw the same bits."""
+    s = _seed_int(seed)
+    dev = torch.device(device or "cpu")
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)
+    j4 = (tk + 3) // 4
+    words = philox4x32(ar(j4)[None, None, :], ar(tq)[None, :, None],
+                       ar(b * nh)[:, None, None],
+                       torch.zeros((), dtype=torch.int64, device=dev),
+                       s & _M32, (s >> 32) & _M32)
+    words = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    bits = words.reshape(b * nh, tq, 4 * j4)[..., :tk]
+    return (bits >= dropout_threshold(rate)).reshape(b, nh, tq, tk)
+
+
+def _scores(q, k, bias, causal, sm_scale):
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     if bias is not None:
         s = s + bias.float()
@@ -54,94 +114,241 @@ def flash_attention_fwd_plain(q, k, v, bias=None, causal: bool = False,
         tq, tk = s.shape[-2:]
         keep = torch.ones(tq, tk, dtype=torch.bool, device=s.device).tril()
         s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
+def _dropped(x, keep, rate):
+    return torch.where(keep, x * (1.0 / (1.0 - rate)), torch.zeros_like(x))
+
+
+def flash_attention_fwd_plain(q, k, v, bias=None, causal: bool = False,
+                              sm_scale: Optional[float] = None,
+                              dropout_rate: float = 0.0, seed=0
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """softmax(q·kᵀ·sm_scale + bias [, causal]) [, dropout] · v in plain
+    PyTorch.
+
+    q [B, nh, Tq, d], k/v [B, nh, Tk, d]; bias broadcastable to
+    [B, nh, Tq, Tk]. Scores, sums and lse are f32; p is rounded to v's dtype
+    before p·v, as the TPU kernels do. Returns (out [B, nh, Tq, d] in q's
+    dtype, lse [B, nh, Tq] f32)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, bias, causal, sm_scale)
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    if dropout_rate > 0.0:
+        b, nh, tq, tk = s.shape
+        p = _dropped(p, dropout_keep_mask(seed, dropout_rate, b, nh, tq, tk,
+                                          q.device), dropout_rate)
     out = torch.matmul(p.to(v.dtype).float(), v.float()) / l_safe
     return out.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
 
 
-def _check(q, k, v, bias):
+def flash_attention_bwd_plain(q, k, v, out, lse, g, bias=None,
+                              causal: bool = False,
+                              sm_scale: Optional[float] = None,
+                              dropout_rate: float = 0.0, seed=0,
+                              dbias: Optional[str] = None):
+    """The flash backward in plain PyTorch, mirroring ``_flash_bwd_jax``.
+
+    delta = Σ dO·out; p = exp(s − lse); dv = p_dropᵀ·dO; dp = dO·vᵀ
+    (drop-scaled); ds = p·(dp − delta); dq = ds·k·scale; dk = dsᵀ·q·scale.
+    p_drop, ds and dO are rounded to q's dtype before their products, the
+    accumulation is f32. `dbias` is None, "per_q" ([B, nh, Tq, Tk] f32, ds
+    itself) or "col" ([B, nh, Tk] f32, ds summed over the queries).
+    Returns (dq, dk, dv, dbias) with dq/dk/dv in the input dtypes."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    cdt = q.dtype
+    gc = g.to(cdt).float()
+    delta = (g.float() * out.float()).sum(-1, keepdim=True)
+    p = torch.exp(_scores(q, k, bias, causal, sm_scale) - lse[..., None])
+    dp = torch.matmul(gc, v.to(cdt).float().transpose(-1, -2))
+    p_d = p
+    if dropout_rate > 0.0:
+        b, nh, tq, tk = p.shape
+        keep = dropout_keep_mask(seed, dropout_rate, b, nh, tq, tk, q.device)
+        p_d = _dropped(p, keep, dropout_rate)
+        dp = _dropped(dp, keep, dropout_rate)
+    dv = torch.matmul(p_d.to(cdt).float().transpose(-1, -2), gc)
+    ds = p * (dp - delta)
+    ds_c = ds.to(cdt).float()
+    dk = torch.matmul(ds_c.transpose(-1, -2), q.float()) * sm_scale
+    dq = torch.matmul(ds_c, k.float()) * sm_scale
+    db = {None: None, "per_q": ds, "col": ds.sum(-2)}[dbias]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), db
+
+
+def _check(q, k, v, bias, name="flash_attention_fwd"):
     if not (q.device == k.device == v.device):
-        raise ValueError(f"flash_attention_fwd: q, k, v on different devices "
+        raise ValueError(f"{name}: q, k, v on different devices "
                          f"({q.device}, {k.device}, {v.device})")
     if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_attention_fwd: q, k, v must share one dtype "
-                        f"of float32/bfloat16, got {q.dtype}, {k.dtype}, "
+        raise TypeError(f"{name}: q, k, v must share one dtype of "
+                        f"float32/bfloat16, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("flash_attention_fwd: q, k, v must be [B, nh, T, d]")
+        raise ValueError(f"{name}: q, k, v must be [B, nh, T, d]")
     b, nh, _, d = q.shape
     if (k.shape[:2] != (b, nh) or k.shape[-1] != d or v.shape != k.shape):
-        raise ValueError(f"flash_attention_fwd: shapes do not match: q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}")
+        raise ValueError(f"{name}: shapes do not match: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if bias is not None and bias.device != q.device:
-        raise ValueError(f"flash_attention_fwd: bias on {bias.device}, q on "
-                         f"{q.device}")
+        raise ValueError(f"{name}: bias on {bias.device}, q on {q.device}")
+
+
+def _check_rate(dropout_rate: float):
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"flash_attention: dropout_rate must be in [0, 1), "
+                         f"got {dropout_rate}")
+
+
+def _route(q, name):
+    """True for the kernel (a CUDA tensor), False for the plain version (a
+    CPU tensor); any other device raises."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    return True
 
 
 def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
-                        sm_scale: Optional[float] = None
+                        sm_scale: Optional[float] = None,
+                        dropout_rate: float = 0.0, seed=0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention forward: the plain version for a CPU tensor, the Hopper
     kernel for a CUDA tensor (or an error; never a fallback). Same
-    arguments and results as `flash_attention_fwd_plain`."""
+    arguments and results as `flash_attention_fwd_plain`; `seed` is an int
+    or a one-element int64 tensor (on the card it stays there: the kernel
+    reads it, so drawing it needs no host sync)."""
     _check(q, k, v, bias)
+    _check_rate(dropout_rate)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, bias, causal, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: no kernel for device "
-                         f"{q.device}")
-    return _launch(q, k, v, bias, causal, sm_scale)
+    if not _route(q, "flash_attention_fwd"):
+        return flash_attention_fwd_plain(q, k, v, bias, causal, sm_scale,
+                                         dropout_rate, seed)
+    return _launch_fwd(q, k, v, bias, causal, sm_scale, dropout_rate, seed)
 
 
 flash_attention_fwd.launches = 0
 
 
-def _bind():
+def flash_attention_bwd(q, k, v, out, lse, g, bias=None, causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        dropout_rate: float = 0.0, seed=0,
+                        dbias: Optional[str] = None):
+    """Attention backward: the plain version for a CPU tensor, the Hopper
+    kernels (one dq launch and one dk/dv launch, counted as one) for a CUDA
+    tensor, or an error. Same arguments and results as
+    `flash_attention_bwd_plain`."""
+    _check(q, k, v, bias, "flash_attention_bwd")
+    _check_rate(dropout_rate)
+    if dbias not in (None, "per_q", "col"):
+        raise ValueError(f"flash_attention_bwd: dbias must be None, 'per_q' "
+                         f"or 'col', got {dbias!r}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _route(q, "flash_attention_bwd"):
+        return flash_attention_bwd_plain(q, k, v, out, lse, g, bias, causal,
+                                         sm_scale, dropout_rate, seed, dbias)
+    return _launch_bwd(q, k, v, out, lse, g, bias, causal, sm_scale,
+                       dropout_rate, seed, dbias)
+
+
+flash_attention_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches (ctypes; the libraries are built at first use)
+# ---------------------------------------------------------------------------
+
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U32, _F32 = ctypes.c_uint, ctypes.c_float
+# seed pointer, threshold, 1/(1 - rate), dropout on
+_DROPOUT_ARGS = [_PTR, _U32, _F32, _I32]
+
+
+def _bind(name, argtypes):
     from . import build
 
-    lib = build.load("flash_attention_fwd")
-    fn = lib.flash_attention_fwd
+    lib = build.load(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([ptr] * 6 + [i32] * 5 + [i64] * 16
-                       + [ctypes.c_float, i32, i32, ptr])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, bias, causal, sm_scale):
+def _kernel_shape_checks(name, q):
+    b, nh, _, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} has no CUDA kernel instance; "
+                         f"supported: {HEAD_DIMS}")
+    if b * nh > _MAX_GRID_Y:
+        raise ValueError(f"{name}: B·nh = {b * nh} exceeds {_MAX_GRID_Y}")
+
+
+def _kernel_layout_ok(t) -> bool:
+    vec = 16 // t.element_size()  # the kernels load 16-byte vectors
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in t.stride()[:3]))
+
+
+def _packed_like(b, nh, t, d, dtype, device):
+    """An empty [B, nh, T, d] view of [B, T, nh, d] memory: the packed layout
+    the next op reads without a copy."""
+    return torch.empty((b, t, nh, d), dtype=dtype,
+                       device=device).transpose(1, 2)
+
+
+def _dropout_args(q, dropout_rate, seed):
+    if dropout_rate <= 0.0:
+        return None, 0, 1.0, 0, None
+    if isinstance(seed, torch.Tensor):
+        seed_t = seed.to(device=q.device, dtype=torch.int64).reshape(-1)[:1]
+    else:
+        seed_t = torch.tensor([int(seed)], dtype=torch.int64, device=q.device)
+    return (seed_t.data_ptr(), dropout_threshold(dropout_rate),
+            1.0 / (1.0 - dropout_rate), 1, seed_t)
+
+
+def _bias_args(bias, q, tq, tk):
+    b, nh = q.shape[:2]
+    if bias is None:
+        return None, (0, 0, 0, 0), None
+    bias = bias.to(q.dtype).expand(b, nh, tq, tk)
+    return bias.data_ptr(), bias.stride(), bias
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           f"{lib.flash_attention_error_string(err).decode()}")
+
+
+def _launch_fwd(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
+    _kernel_shape_checks("flash_attention_fwd", q)
     b, nh, tq, d = q.shape
     tk = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {d} has no CUDA "
-                         f"kernel instance; supported: {HEAD_DIMS}")
-    if b * nh > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention_fwd: B·nh = {b * nh} exceeds "
-                         f"{_MAX_GRID_Y}")
-    vec = 16 // q.element_size()  # the kernel loads 16-byte vectors
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.stride(-1) != 1 or t.data_ptr() % 16
-                or any(s % vec for s in t.stride()[:3])):
+        if not _kernel_layout_ok(t):
             raise ValueError(
                 f"flash_attention_fwd: {name} needs a contiguous head dim, a "
-                f"16-byte aligned base and strides that are multiples of "
-                f"{vec} elements; got strides {t.stride()}")
-    out = torch.empty((b, tq, nh, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+                f"16-byte aligned base and strides that are multiples of 16 "
+                f"bytes; got strides {t.stride()}")
+    out = _packed_like(b, nh, tq, d, q.dtype, q.device)
     lse = torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
-    bias_ptr, bias_strides = None, (0, 0, 0, 0)
-    if bias is not None:
-        bias = bias.to(q.dtype).expand(b, nh, tq, tk)
-        bias_ptr, bias_strides = bias.data_ptr(), bias.stride()
-    lib = _bind()
+    bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
+    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    lib = _bind("flash_attention_fwd", [_PTR] * 6 + [_I32] * 5 + [_I64] * 16
+                + [_F32, _I32, _I32] + _DROPOUT_ARGS + [_PTR])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
@@ -149,33 +356,119 @@ def _launch(q, k, v, bias, causal, sm_scale):
             out.data_ptr(), lse.data_ptr(), b, nh, tq, tk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], *bias_strides, float(sm_scale), int(causal),
-            _DTYPE_CODE[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention_fwd: kernel launch failed: "
-            f"{lib.flash_attention_error_string(err).decode()}")
+            _DTYPE_CODE[q.dtype], seed_ptr, thr, inv, drop, stream)
+    _raise_on(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
 
 
-def _check_dropout(dropout_rate: float):
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "flash_attention: attention dropout in training arrives with the "
-            "training slice; pass dropout_rate=0 (or is_test=True)")
+def _launch_bwd(q, k, v, out, lse, g, bias, causal, sm_scale, dropout_rate,
+                seed, dbias):
+    _kernel_shape_checks("flash_attention_bwd", q)
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    # q/k/v arrive as views of the fused qkv projection and dO in whatever
+    # layout autograd built (an expanded or transposed gradient included):
+    # a tensor whose strides break the kernels' 16-byte vector loads is
+    # copied to a contiguous one here, never handed to the plain version
+    q, k, v, g = (t if _kernel_layout_ok(t) else t.contiguous()
+                  for t in (q, k, v, g.to(q.dtype)))
+    # delta = Σ_d dO·out, one plain reduction before the launch, as the JAX
+    # package computes it outside its kernels (_bwd_host_prep)
+    delta = (g.float() * out.float()).sum(-1).contiguous()
+    lse = lse.contiguous()
+    dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
+    dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
+    dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
+    db = None
+    if dbias == "per_q":
+        db = torch.empty((b, nh, tq, tk), dtype=torch.float32,
+                         device=q.device)
+    elif dbias == "col":
+        db = torch.empty((b, nh, tk), dtype=torch.float32, device=q.device)
+    bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
+    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    lib = _bind("flash_attention_bwd", [_PTR] * 12 + [_I32] * 5 + [_I64] * 25
+                + [_F32, _I32, _I32] + _DROPOUT_ARGS + [_PTR])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), bias_ptr, dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            db.data_ptr() if dbias == "per_q" else None,
+            db.data_ptr() if dbias == "col" else None,
+            b, nh, tq, tk, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+            *dv.stride()[:3], *bias_strides, float(sm_scale), int(causal),
+            _DTYPE_CODE[q.dtype], seed_ptr, thr, inv, drop, stream)
+    _raise_on(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv, db
+
+
+# ---------------------------------------------------------------------------
+# Autograd: forward and backward joined (``_flash_core``'s custom_vjp)
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """out = flash_attention_fwd(q, k, v, bias, ...); the backward runs
+    flash_attention_bwd with the same dropout seed, so it regenerates the
+    forward's mask. dbias is computed only when the bias needs a gradient,
+    in the column-sum form for a bias broadcast over the queries, and summed
+    back over every broadcast dim to the bias's shape."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, sm_scale, dropout_rate, seed):
+        out, lse = flash_attention_fwd(q, k, v, bias, causal, sm_scale,
+                                       dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, bias, out, lse, seed)
+        ctx.args = (causal, sm_scale, dropout_rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, lse, seed = ctx.saved_tensors
+        causal, sm_scale, rate = ctx.args
+        form = None
+        if bias is not None and ctx.needs_input_grad[3]:
+            form = "col" if bias.shape[-2] == 1 else "per_q"
+        dq, dk, dv, db = flash_attention_bwd(q, k, v, out, lse, g, bias,
+                                             causal, sm_scale, rate, seed,
+                                             form)
+        if db is not None:
+            if form == "col":
+                db = db.unsqueeze(-2)
+            for ax in range(4):
+                if bias.shape[ax] == 1 and db.shape[ax] != 1:
+                    db = db.sum(ax, keepdim=True)
+            db = db.to(bias.dtype)
+        return dq, dk, dv, db, None, None, None, None
+
+
+def _attend(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
+    _check_rate(dropout_rate)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.tensor([int(seed)], dtype=torch.int64)
+    if bias is not None:
+        bias = bias.reshape((1,) * (4 - bias.ndim) + tuple(bias.shape))
+    return _FlashAttention.apply(q, k, v, bias, bool(causal),
+                                 float(sm_scale), float(dropout_rate), seed)
 
 
 def flash_attention_packed(q, k, v, num_heads: int, bias=None,
                            causal: bool = False,
                            sm_scale: Optional[float] = None,
-                           dropout_rate: float = 0.0):
+                           dropout_rate: float = 0.0, seed=0):
     """Attention on packed [B, T, H] tensors (H = nh·d), read in place
-    through strides. bias (optional) is the additive [B, 1, T] mask, indexed
-    per batch. Returns [B, T, H]."""
+    through strides; differentiable. bias (optional) is the additive
+    [B, 1, T] mask, indexed per batch. Returns [B, T, H]."""
     b_, t, hdim = q.shape
     if hdim % num_heads:
         raise ValueError(f"hidden {hdim} not divisible by heads {num_heads}")
-    _check_dropout(dropout_rate)
     if bias is not None:
         if bias.ndim != 3 or bias.shape[1] != 1:
             raise ValueError(
@@ -187,16 +480,15 @@ def flash_attention_packed(q, k, v, num_heads: int, bias=None,
     def heads(x):  # [B, T, nh·d] -> [B, nh, T, d] view
         return x.unflatten(-1, (num_heads, d)).transpose(1, 2)
 
-    out, _ = flash_attention_fwd(heads(q), heads(k), heads(v), bias, causal,
-                                 sm_scale)
+    out = _attend(heads(q), heads(k), heads(v), bias, causal, sm_scale,
+                  dropout_rate, seed)
     return out.transpose(1, 2).reshape(b_, t, hdim)
 
 
 def flash_attention(q, k, v, bias=None, causal: bool = False,
                     sm_scale: Optional[float] = None,
-                    dropout_rate: float = 0.0):
+                    dropout_rate: float = 0.0, seed=0):
     """Attention on [B, H, T, D] tensors; bias is additive and broadcastable
-    to [B, H, T, T] (e.g. the BERT mask [B, 1, 1, T]). Returns [B, H, T, D]."""
-    _check_dropout(dropout_rate)
-    out, _ = flash_attention_fwd(q, k, v, bias, causal, sm_scale)
-    return out
+    to [B, H, T, T] (e.g. the BERT mask [B, 1, 1, T]); differentiable.
+    Returns [B, H, T, D]."""
+    return _attend(q, k, v, bias, causal, sm_scale, dropout_rate, seed)

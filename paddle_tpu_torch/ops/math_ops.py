@@ -1,6 +1,7 @@
 """Elementwise + linear-algebra ops (counterpart of
 ``paddle_tpu.ops.math_ops``; reference ``operators/elementwise/``,
-``matmul_op.cc``, ``mul_op.cc``, ``scale_op.cc``)."""
+``matmul_op.cc``, ``mul_op.cc``, ``scale_op.cc``, ``sum_op.cc``,
+``clip_op.cc``, ``clip_by_norm_op.cc``, ``squared_l2_norm_op.cc``)."""
 from __future__ import annotations
 
 import math
@@ -76,3 +77,45 @@ def _mul(ctx, inputs, attrs):
     y2 = y.reshape(math.prod(y.shape[:ync]), -1)
     out = torch.matmul(x2, y2)
     return one(out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:])))
+
+
+@register_op("sum")
+def _sum(ctx, inputs, attrs):
+    xs = inputs["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return one(out)
+
+
+@register_op("clip")
+def _clip(ctx, inputs, attrs):
+    (x,) = inputs["X"]
+    return one(torch.clamp(x, attrs.get("min"), attrs.get("max")))
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, inputs, attrs):
+    (x,) = inputs["X"]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(x * x))
+    return one(torch.where(norm > max_norm, x * (max_norm / norm), x))
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, inputs, attrs):
+    (x,) = inputs["X"]
+    return one(torch.sum(x * x).reshape((1,)))
+
+
+def _unary(name, fn):
+    @register_op(name)
+    def _impl(ctx, inputs, attrs, _fn=fn):
+        (x,) = inputs["X"]
+        return one(_fn(x))
+    return _impl
+
+
+_unary("sqrt", torch.sqrt)
+_unary("square", torch.square)
+_unary("sign", torch.sign)

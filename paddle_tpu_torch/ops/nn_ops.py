@@ -1,6 +1,7 @@
-"""Normalization, dropout and embedding ops (counterpart of the matching
-registrations in ``paddle_tpu.ops.nn_ops``; reference layer_norm_op.cc,
-dropout_op.cc, lookup_table_op.cc)."""
+"""Normalization, dropout, embedding and loss ops (counterpart of the
+matching registrations in ``paddle_tpu.ops.nn_ops``; reference
+layer_norm_op.cc, dropout_op.cc, lookup_table_op.cc,
+softmax_with_cross_entropy_op.cc)."""
 from __future__ import annotations
 
 import torch
@@ -48,6 +49,17 @@ def _dropout(ctx, inputs, attrs):
     return {"Out": [y], "Mask": [mask]}
 
 
+def _check_dense(w, attrs):
+    """A sparse table's gradient is a SelectedRows of the touched rows in the
+    JAX package; the port has only the dense gradient so far."""
+    if attrs.get("is_sparse") and w.requires_grad:
+        raise NotImplementedError(
+            "lookup_table: training an is_sparse table (SelectedRows "
+            "gradients and the row-update optimizers) is not ported yet; it "
+            "arrives with the DeepFM slice — build the embedding with "
+            "is_sparse=False")
+
+
 def _gather_rows(w, idx, attrs):
     out = w[idx]
     padding_idx = attrs.get("padding_idx", -1)
@@ -66,6 +78,7 @@ def _lookup_table(ctx, inputs, attrs):
             "lookup_table: packed / deferred-row tables are not ported yet")
     (w,) = inputs["W"]
     (ids,) = inputs["Ids"]
+    _check_dense(w, attrs)
     squeeze_last = ids.ndim >= 2 and ids.shape[-1] == 1
     return one(_gather_rows(w, ids[..., 0] if squeeze_last else ids, attrs))
 
@@ -74,4 +87,64 @@ def _lookup_table(ctx, inputs, attrs):
 def _lookup_table_v2(ctx, inputs, attrs):
     (w,) = inputs["W"]
     (ids,) = inputs["Ids"]
+    _check_dense(w, attrs)
     return one(_gather_rows(w, ids, attrs))
+
+
+class _HardLabelCE(torch.autograd.Function):
+    """Memory-lean hard-label cross entropy (``_hard_label_ce`` of the JAX
+    package): takes low-precision logits as they are, reduces in f32, and
+    saves only (logits, idx, lse) for the backward, which rebuilds
+    p = exp(logits − lse) and returns (p − onehot)·g in the logits' dtype.
+    Rows whose label is `ignore` get loss 0 and gradient 0."""
+
+    @staticmethod
+    def forward(ctx, logits, idx, axis, ignore):
+        ax = axis % logits.ndim
+        m = logits.amax(dim=ax, keepdim=True).float()
+        lse = m + torch.log(torch.exp(logits.float() - m).sum(ax, True))
+        safe = idx if ignore is None else idx.masked_fill(idx == ignore, 0)
+        picked = torch.gather(logits, ax, safe.unsqueeze(ax)).float()
+        loss = lse - picked
+        if ignore is not None:
+            loss = loss.masked_fill((idx == ignore).unsqueeze(ax), 0.0)
+        ctx.save_for_backward(logits, safe, lse)
+        ctx.ax = ax
+        ctx.dropped = None if ignore is None else (idx == ignore)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, safe, lse = ctx.saved_tensors
+        ax = ctx.ax
+        p = torch.exp(logits.float() - lse)
+        p.scatter_add_(ax, safe.unsqueeze(ax),
+                       -torch.ones_like(safe, dtype=p.dtype).unsqueeze(ax))
+        if ctx.dropped is not None:
+            g = g.masked_fill(ctx.dropped.unsqueeze(ax), 0.0)
+        return (p * g).to(logits.dtype), None, None, None
+
+
+@register_op("softmax_with_cross_entropy", nondiff_inputs=["Label"])
+def _softmax_with_cross_entropy(ctx, inputs, attrs):
+    """Loss keeps a singleton class axis. The Softmax output is computed
+    only when a later op or a fetch reads it (XLA drops it in the JAX
+    package): at BERT's MLM head it is a full-vocab f32 tensor."""
+    (logits,) = inputs["Logits"]
+    (label,) = inputs["Label"]
+    axis = attrs.get("axis", -1)
+    ax = axis % logits.ndim
+    if not attrs.get("soft_label", False):
+        idx = label
+        if idx.ndim == logits.ndim and idx.shape[ax] == 1:
+            idx = idx.squeeze(ax)
+        loss = _HardLabelCE.apply(logits, idx.long(), axis,
+                                  attrs.get("ignore_index", -100))
+        softmax = (torch.softmax(logits.float(), dim=ax)
+                   if ctx.wants("Softmax") else None)
+        return {"Loss": [loss], "Softmax": [softmax]}
+    # soft-label path: the op is AMP-white-listed (inputs may arrive bf16),
+    # so upcast — a vocab-length bf16 accumulation would lose ~3 digits
+    logp = torch.log_softmax(logits.float(), dim=ax)
+    loss = -torch.sum(label.float() * logp, dim=ax, keepdim=True)
+    return {"Loss": [loss], "Softmax": [torch.exp(logp)]}

@@ -1,12 +1,16 @@
-"""paddle_tpu_torch flash-attention forward against the JAX package.
+"""paddle_tpu_torch flash attention, forward and backward, against the JAX
+package.
 
-The port's plain PyTorch version is held against the JAX package's CPU
-fallback (`_flash_fwd_jax`, reached through `flash_attention_packed` /
-`flash_attention`) and against the Pallas kernels run by the interpreter
-(`_flash_fwd_pallas(..., interpret=True)`, as tests/test_flash_attention.py
-runs them). f32 throughout, rtol = atol = 2e-5: the two sum in different
-orders. The hand-written CUDA kernel runs only on a card (the `cuda` tests
-and chip_smoke.py)."""
+The port's plain PyTorch versions are held against the JAX package's CPU
+fallback (`_flash_fwd_jax` / `_flash_bwd_jax`, and the public entries) and
+against the Pallas kernels run by the interpreter, as
+tests/test_flash_attention.py runs them. f32 throughout: forward
+rtol = atol = 2e-5, backward 2e-4 (the JAX backward test's own tolerance);
+the two sum in different orders. Attention dropout draws Philox bits the
+TPU kernels cannot reproduce, so it is checked by its known-answer vectors,
+its keep rate, determinism per seed and gradients consistent with its mask,
+never bit for bit against the JAX package. The hand-written CUDA kernels run
+only on a card (the `cuda` tests and chip_smoke.py)."""
 import importlib
 
 import numpy as np
@@ -24,6 +28,7 @@ jfa = importlib.import_module("paddle_tpu.ops.pallas_kernels.flash_attention")
 # seen to compute some batches of a CPU matmul ~1e-4 off.
 torch.set_num_threads(1)
 TOL = dict(rtol=2e-5, atol=2e-5)
+BWD_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 @pytest.fixture(autouse=True)
@@ -182,21 +187,178 @@ def test_wrapper_checks_and_counts_only_kernel_launches():
                                    bias=torch.zeros(1, 8, 8))
 
 
-def test_dropout_outside_is_test_raises():
+def test_dropout_in_training_runs_in_the_op():
+    """The op draws one seed per call from the run's generator when training
+    with dropout, so two contexts with equal generators agree and the
+    output differs from no dropout; at test time it serves undropped."""
     from paddle_tpu_torch.core.executor import ExecContext
     from paddle_tpu_torch.core.registry import get_op
 
-    x = torch.zeros(1, 8, 128)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention_packed(x, x, x, 2, dropout_rate=0.1)
+    x = torch.from_numpy(_rand((2, 8, 128), 50))
     fn = get_op("flash_attention").fn
     attrs = {"dropout_prob": 0.1, "is_test": False, "num_heads": 2}
-    with pytest.raises(NotImplementedError):
-        fn(ExecContext("cpu"), {"Q": [x], "K": [x], "V": [x]}, attrs)
-    # at test time the same op serves without dropout
-    out = fn(ExecContext("cpu", is_test=True), {"Q": [x], "K": [x], "V": [x]},
-             attrs)["Out"][0]
-    assert out.shape == x.shape
+    ins = {"Q": [x], "K": [x * 0.5], "V": [x]}
+
+    def run(ctx):
+        return fn(ctx, ins, attrs)["Out"][0]
+
+    a = run(ExecContext("cpu", torch.Generator().manual_seed(3)))
+    b = run(ExecContext("cpu", torch.Generator().manual_seed(3)))
+    c = run(ExecContext("cpu", torch.Generator().manual_seed(4)))
+    ref = run(ExecContext("cpu", is_test=True))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c) and not torch.equal(a, ref)
+    assert ref.shape == x.shape
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        tfa.flash_attention_packed(x, x, x, 2, dropout_rate=1.0)
+
+
+def test_philox_known_answers():
+    """Philox-4x32-10 known-answer vectors (Random123 kat_vectors)."""
+    t = lambda *w: [torch.tensor(x, dtype=torch.int64) for x in w]
+    for ctr, key, want in (
+            ((0, 0, 0, 0), (0, 0),
+             (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+            ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+             (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+            ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+             (0xA4093822, 0x299F31D0),
+             (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))):
+        got = tfa.philox4x32(*t(*ctr), *key)
+        assert [int(w) for w in got] == list(want)
+
+
+def test_dropout_mask_is_seeded_and_keeps_the_rate():
+    b, nh, t = 2, 3, 96
+    m1 = tfa.dropout_keep_mask(7, 0.1, b, nh, t, t)
+    assert m1.shape == (b, nh, t, t) and m1.dtype == torch.bool
+    assert torch.equal(m1, tfa.dropout_keep_mask(torch.tensor([7]), 0.1, b,
+                                                 nh, t, t))
+    assert not torch.equal(m1, tfa.dropout_keep_mask(8, 0.1, b, nh, t, t))
+    n = m1.numel()
+    rate = m1.float().mean().item()
+    assert abs(rate - 0.9) < 5 * np.sqrt(0.9 * 0.1 / n)
+    # a pure function of (seed, bh, i, j): a bigger tile sees the same bits
+    big = tfa.dropout_keep_mask(7, 0.1, b, nh, t + 5, t + 7)
+    assert torch.equal(big[..., :t, :t], m1)
+    # the threshold rule: drop iff the word < round(rate * 2^32)
+    assert tfa.dropout_threshold(0.1) == 429496730
+    assert tfa.dropout_keep_mask(7, 0.0, 1, 1, 4, 4).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dropout_grads_follow_the_mask(causal):
+    """Forward and backward with dropout equal dense attention with the
+    same keep mask applied to the normalized probabilities."""
+    b, nh, t, d, rate, seed = 1, 2, 40, 16, 0.25, 1234
+    q, k, v = (torch.from_numpy(_rand((b, nh, t, d), 60 + i))
+               .requires_grad_() for i in range(3))
+    bias = torch.from_numpy(_rand((b, 1, 1, t), 63)).requires_grad_()
+    out = tfa.flash_attention(q, k, v, bias, causal, dropout_rate=rate,
+                              seed=seed)
+    g = torch.from_numpy(_rand((b, nh, t, d), 64))
+    got = torch.autograd.grad(out, (q, k, v, bias), g)
+
+    qq, kk, vv, bb = (x.detach().double().requires_grad_()
+                      for x in (q, k, v, bias))
+    s = qq @ kk.transpose(-1, -2) / np.sqrt(d) + bb
+    if causal:
+        s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(),
+                          tfa.NEG_INF)
+    keep = tfa.dropout_keep_mask(seed, rate, b, nh, t, t)
+    p = torch.where(keep, torch.softmax(s, -1) / (1 - rate),
+                    torch.zeros_like(s))
+    ref_out = p @ vv
+    want = torch.autograd.grad(ref_out, (qq, kk, vv, bb), g.double())
+    np.testing.assert_allclose(out.detach().numpy(), ref_out.detach().numpy(),
+                               rtol=2e-5, atol=2e-5)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), w.numpy(), **BWD_TOL)
+
+
+def _port_bwd_folded(q, k, v, bias, causal, g, dbias):
+    tq = lambda x: torch.tensor(x)[None]   # [1, BH, T, d]
+    b = None if bias is None else torch.tensor(bias)[None]
+    sm = 1.0 / np.sqrt(q.shape[-1])
+    out, lse = tfa.flash_attention_fwd(tq(q), tq(k), tq(v), b, causal, sm)
+    res = tfa.flash_attention_bwd(tq(q), tq(k), tq(v), out, lse, tq(g), b,
+                                  causal, sm, dbias=dbias)
+    return [None if r is None else r[0].numpy() for r in res]
+
+
+@pytest.mark.parametrize("bias_kind", [None, "row", "full"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_plain_matches_jax_fallback(bias_kind, causal):
+    """Against `_flash_bwd_jax`, several K blocks deep: dq, dk, dv and dbias
+    (ds per query for a full bias; its column sum for the row mask)."""
+    bh, t, d = 3, 96, 32
+    q, k, v, g = (_rand((bh, t, d), 70 + i) for i in range(4))
+    bias = _bias(bias_kind, bh, t)
+    sm = 1.0 / np.sqrt(d)
+    jb = None if bias is None else jnp.array(bias)
+    out, lse = jfa._flash_fwd_jax(jnp.array(q), jnp.array(k), jnp.array(v),
+                                  jb, sm, causal, 32)
+    want = [None if x is None else np.asarray(x) for x in jfa._flash_bwd_jax(
+        (jnp.array(q), jnp.array(k), jnp.array(v), jb, None, out, lse),
+        jnp.array(g), sm_scale=sm, causal=causal, block_k=32,
+        dropout_rate=0.0, has_bias=bias is not None)]
+    form = {None: None, "row": "col", "full": "per_q"}[bias_kind]
+    got = _port_bwd_folded(q, k, v, bias, causal, g, form)
+    for a, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(a, w, **BWD_TOL)
+    if bias_kind == "full":
+        np.testing.assert_allclose(got[3], want[3], **BWD_TOL)
+    elif bias_kind == "row":
+        np.testing.assert_allclose(got[3], want[3].sum(1), **BWD_TOL)
+    else:
+        assert got[3] is None
+
+
+@pytest.mark.parametrize("causal,bias_kind", [
+    (False, "none"), (True, "none"), (False, "mask"), (True, "mask"),
+    (False, "full"), (True, "full")])
+@pytest.mark.parametrize("force_general", [False, True])
+def test_bwd_matches_pallas_interpret(causal, bias_kind, force_general,
+                                      monkeypatch):
+    """jax.grad through the Pallas kernels in interpret mode (the one-pass
+    grouped kernel, or with _pick_group pinned to 1 the general dq and dk/dv
+    kernels incl. the column-sum dbias), as tests/test_flash_attention.py
+    runs them, against torch.autograd through the port's flash_attention:
+    dq, dk, dv and dbias (per query for a full bias, the column-sum form for
+    the [B,1,1,T] mask)."""
+    import jax
+
+    if force_general:
+        monkeypatch.setattr(jfa, "_pick_group", lambda *a, **k: 1)
+    monkeypatch.setattr(jfa, "FORCE_PALLAS_INTERPRET", True)
+    b, h, t, d = 1, 2, 128, 64
+    q, k, v = (_rand((b, h, t, d), 80 + i) for i in range(3))
+    bias = None
+    if bias_kind == "mask":
+        bias = np.where(np.random.RandomState(9).rand(b, 1, 1, t) > 0.3,
+                        0.0, -1e4).astype(np.float32)
+    elif bias_kind == "full":
+        bias = 0.1 * _rand((b, h, t, t), 87)
+    assert jfa._pallas_ok(t, d)
+
+    def jloss(*args):
+        bb = args[3] if len(args) > 3 else None
+        return jnp.sum(jfa.flash_attention(*args[:3], bias=bb,
+                                           causal=causal) ** 2)
+
+    args = [jnp.array(x) for x in (q, k, v)] + (
+        [] if bias is None else [jnp.array(bias)])
+    want = jax.grad(jloss, tuple(range(len(args))))(*args)
+    targs = [torch.from_numpy(x.copy()).requires_grad_()
+             for x in (q, k, v) + (() if bias is None else (bias,))]
+    out = tfa.flash_attention(*targs[:3],
+                              bias=targs[3] if len(targs) > 3 else None,
+                              causal=causal)
+    got = torch.autograd.grad((out ** 2).sum(), targs)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **BWD_TOL)
 
 
 def test_gpu_request_without_cuda_raises(tmp_path):
@@ -246,3 +408,44 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, per_q, t, d):
     ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, bias, causal)
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("causal,bias_kind,t,d,rate", [
+    (False, "mask", 128, 64, 0.0), (False, "mask", 128, 64, 0.1),
+    (True, None, 200, 64, 0.0), (False, "perq", 100, 64, 0.0),
+    (True, "perq", 130, 128, 0.2)])
+def test_cuda_bwd_kernel_matches_plain(dtype, tol, causal, bias_kind, t, d,
+                                       rate):
+    """The backward kernels against their plain version on the card, dbias
+    included, with the same dropout seed; max |err| <= tol · max |plain|."""
+    _cuda_or_skip()
+    g = torch.Generator("cuda").manual_seed(1)
+    b, nh = 2, 3
+    qkv = torch.randn(b, t, 3 * nh * d, generator=g, device="cuda").to(dtype)
+    q, k, v = (x.unflatten(-1, (nh, d)).transpose(1, 2)
+               for x in qkv.split(nh * d, dim=-1))
+    bias, form = None, None
+    if bias_kind == "perq":
+        bias = torch.randn(b, nh, t, t, generator=g, device="cuda").to(dtype)
+        form = "per_q"
+    elif bias_kind == "mask":
+        bias = torch.zeros(b, 1, 1, t, device="cuda", dtype=dtype)
+        bias[..., 3 * t // 4:] = -1e4
+        form = "col"
+    out, lse = tfa.flash_attention_fwd(q, k, v, bias, causal, None, rate, 5)
+    dout = torch.randn(b, nh, t, d, generator=g, device="cuda").to(dtype)
+    before = tfa.flash_attention_bwd.launches
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, bias, causal, None,
+                                  rate, 5, form)
+    assert tfa.flash_attention_bwd.launches == before + 1
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, dout, bias,
+                                         causal, None, rate, 5, form)
+    for a, w in zip(got, want):
+        if w is None:
+            assert a is None
+            continue
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= tol * w.float().abs().max().item(), err

@@ -147,6 +147,67 @@ for _act in ("relu", "tanh", "sigmoid", "gelu"):
                    {"X": [_r(2, 3, 4)], "Y": [_r(4, seed=1)]},
                    {"functor_list": ["elementwise_add", _act], "axis": -1}))
 
+# the training slice: losses, reductions, comparisons, the ops regularizers
+# and clipping emit, and the optimizer updates
+_LABELS = _ids(4, 6, 1, hi=7, seed=4)
+_LABELS[1, 2, 0] = -100   # ignored positions
+_LABELS[3, :, 0] = -100
+CASES += [
+    ("softmax_with_cross_entropy_ignore", "softmax_with_cross_entropy",
+     {"Logits": [_r(4, 6, 7, scale=2)], "Label": [_LABELS]},
+     {"ignore_index": -100, "axis": -1}),
+    ("softmax_with_cross_entropy_soft", "softmax_with_cross_entropy",
+     {"Logits": [_r(3, 5)], "Label": [_pos(3, 5, seed=1) / 5]},
+     {"soft_label": True}),
+    ("reduce_sum_all", "reduce_sum", {"X": [_r(2, 3, 4)]},
+     {"reduce_all": True}),
+    ("reduce_sum_dims_keep", "reduce_sum", {"X": [_r(2, 3, 4)]},
+     {"dim": [0, 2], "keep_dim": True}),
+    ("reduce_mean_dim", "reduce_mean", {"X": [_r(2, 3, 4)]}, {"dim": [1]}),
+    ("mean", "mean", {"X": [_r(2, 3, 4)]}, {}),
+    ("sum", "sum", {"X": [X34, _r(3, 4, seed=1), _r(3, 4, seed=2)]}, {}),
+    ("clip", "clip", {"X": [X34]}, {"min": -0.5, "max": 0.7}),
+    ("clip_by_norm", "clip_by_norm", {"X": [X34]}, {"max_norm": 1.0}),
+    ("squared_l2_norm", "squared_l2_norm", {"X": [X34]}, {}),
+    ("sqrt", "sqrt", {"X": [_pos(3, 4)]}, {}),
+    ("square", "square", {"X": [X34]}, {}),
+    ("sign", "sign", {"X": [X34]}, {}),
+    ("logical_not", "logical_not", {"X": [_r(3, 4) > 0]}, {}),
+    ("update_loss_scaling_finite", "update_loss_scaling",
+     {"Grads": [X34, _r(5, seed=1)], "LossScaling": [np.float32([1024.0])],
+      "GoodSteps": [np.int32([2])], "BadSteps": [np.int32([1])]},
+     {"incr_every_n_steps": 3, "decr_every_n_nan_or_inf": 2,
+      "incr_ratio": 2.0, "decr_ratio": 0.5}),
+    ("update_loss_scaling_inf", "update_loss_scaling",
+     {"Grads": [np.where(X34 > 1.0, np.inf, X34).astype(np.float32)],
+      "LossScaling": [np.float32([1024.0])],
+      "GoodSteps": [np.int32([2])], "BadSteps": [np.int32([1])]},
+     {"decr_every_n_nan_or_inf": 2, "decr_ratio": 0.5}),
+]
+for _op in ("equal", "not_equal", "less_than", "less_equal", "greater_than",
+            "greater_equal"):
+    CASES.append((_op, _op, {"X": [_ids(3, 4, hi=3)], "Y": [_ids(4, hi=3,
+                                                                 seed=1)]}, {}))
+for _op in ("logical_and", "logical_or", "logical_xor"):
+    CASES.append((_op, _op, {"X": [_r(3, 4) > 0], "Y": [_r(3, 4, seed=1) > 0]},
+                  {}))
+_LR = np.float32([0.01])
+_ADAM_IN = {"Param": [_r(3, 4)], "Grad": [_r(3, 4, seed=1)],
+            "Moment1": [_r(3, 4, seed=2, scale=0.1)],
+            "Moment2": [_pos(3, 4, seed=3) * 0.01],
+            "Beta1Pow": [np.float32([0.9 ** 3])],
+            "Beta2Pow": [np.float32([0.999 ** 3])], "LearningRate": [_LR]}
+CASES += [
+    ("sgd", "sgd", {"Param": [X34], "Grad": [_r(3, 4, seed=1)],
+                    "LearningRate": [_LR]}, {}),
+    ("adam", "adam", _ADAM_IN, {"beta1": 0.9, "beta2": 0.999,
+                                "epsilon": 1e-8}),
+    ("adamw", "adamw", _ADAM_IN, {"beta1": 0.9, "beta2": 0.999,
+                                  "epsilon": 1e-8, "coeff": 0.05}),
+    ("lamb", "lamb", _ADAM_IN, {"beta1": 0.9, "beta2": 0.999,
+                                "epsilon": 1e-6, "weight_decay": 0.01}),
+]
+
 
 def test_cases_cover_every_ported_op():
     covered = {op for _, op, _, _ in CASES} | set(RANDOM_OPS)

@@ -162,7 +162,9 @@ def test_int64_feeds_stay_int64():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models.bert, "
-            "paddle_tpu_torch.ops.kernels.build; "
+            "paddle_tpu_torch.ops.kernels.build, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.contrib.mixed_precision, "
+            "paddle_tpu_torch.core.backward; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
