@@ -28,6 +28,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              launches per step, GPU-vs-CPU agreement at dropout 0 and bf16
              against f32; prints the step time, device-busy share, top
              kernels and peak memory.
+6. bn kernels — the fused batch-norm kernels (K1 stats, K2 apply, K3
+             backward reduce + dx, K4 1x1-conv GEMM with the statistics of
+             its stored output) against their plain versions, f32 and bf16,
+             at ResNet-50 B=128 shapes; times each kernel, its plain version
+             and one PyTorch library call where one computes the same
+             function.
+7. resnet  — main path 3: ResNet-50 training at full width (B=128,
+             3x224x224, 1000 classes) with PDTPU_CONV_BN_FUSION=pallas and
+             PDTPU_BN_MODE=pallas, built with the port's DSL from seed 2024
+             under mixed_precision.decorate(Momentum(0.1, 0.9), "bfloat16")
+             and run by Executor(CUDAPlace(0)) for 13 steps (2; 1 + 4
+             profiled; 6 warm) on one repeated batch: losses, step time, img/s, device
+             busy share, device ms by kernel kind, peak memory, and the
+             fused-BN launches per step (36 conv+stats, 36 + 17 apply, 17
+             stats, 53 backward reduce, 53 dx). Then the same in f32 at B=32,
+             and one f32 step at 64x64, B=16 (every fused-BN kernel launches
+             there) against CPUPlace() from the same weights: the loss within
+             1e-5, the gradients within twice the spread a one-ulp change of
+             the input makes on the CPU.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. Exits non-zero without a result
 when torch sees no CUDA device or the port is not beside this script.
@@ -64,6 +83,27 @@ FA_BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
 FA_BWD_REPLACES = ("paddle_tpu/ops/pallas_kernels/flash_attention.py:648 "
                    "(_flash_bwd_pallas -> _bwd_dq_kernel :511, "
                    "_bwd_dkv_kernel :574; _bwd_kernel_onepass :350)")
+BN_SOURCE = "paddle_tpu_torch/csrc/fused_bn.cu"
+BN_REPLACES = {
+    "fused_bn_stats": "paddle_tpu/ops/pallas_kernels/fused_bn.py:129 "
+                      "(bn_stats -> _stats_kernel :116)",
+    "fused_bn_apply": "paddle_tpu/ops/pallas_kernels/fused_bn.py:176, :454 "
+                      "(bn_apply, _apply2d -> _apply_kernel :162)",
+    "fused_bn_bwd": "paddle_tpu/ops/pallas_kernels/fused_bn.py:279 "
+                    "(_bn_bwd_2d -> _bwd_reduce_kernel :210, "
+                    "_bwd_dx_kernel :232)",
+    "fused_conv_stats": "paddle_tpu/ops/pallas_kernels/fused_bn.py:430 "
+                        "(_conv_stats -> _conv_stats_kernel :409)"}
+# y, dx, dres: max |err| <= tol * max |plain| (f32: the kernels sum in other
+# orders; bf16: a differently summed f32 may round to the neighbouring bf16).
+# mean/var: per channel |err| <= 1e-5 * E[x^2] (var) and 1e-5 * sqrt(E[x^2])
+# (mean): a one-pass var is E[x^2] - mean^2, so its rounding scales with
+# E[x^2], not with var. dgamma/dbeta: max |err| <= 1e-5 * max |plain|.
+BN_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+BN_STAT_TOL = 1e-5
+RESNET_B, RESNET_HW = 128, 224
+RESNET_PER_STEP = {"conv_stats": 36, "apply2d": 36, "bn_apply": 17,
+                   "bn_stats": 17, "bn_bwd_reduce": 53, "bn_bwd_dx": 53}
 LN_VOCAB = 10.3260   # ln 30522: the loss of a uniform prediction
 LR = 1e-4            # the JAX package's bench recipe; the loss falls by
 #                      ~0.3 a step on a repeated batch at full width
@@ -97,10 +137,10 @@ def _device_us(evt):
     return 0.0
 
 
-def profile_device(fn, iters=10):
+def profile_device(fn, iters=10, counts=None):
     """Device time by kernel name over `iters` calls of fn, from
     torch.profiler: ({name: us per call}, wall us per call, device
-    events per call)."""
+    events per call). `counts`, if given, gets {name: launches per call}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,6 +160,8 @@ def profile_device(fn, iters=10):
                 and "cuda" in str(evt.device_type).lower():
             per[evt.key] = per.get(evt.key, 0.0) + us / iters
             events += evt.count
+            if counts is not None:
+                counts[evt.key] = counts.get(evt.key, 0) + evt.count / iters
     return per, wall, events / iters
 
 
@@ -136,6 +178,26 @@ def category(name):
         return "flash fwd (hand kernel)"
     if "flash_bwd" in n:
         return "flash bwd (hand kernels)"
+    if "conv_stats_" in n:
+        return "fused conv+stats K4 (hand kernel)"
+    if "colsum_kernel" in n:
+        # template flag BWD: colsum_kernel<T, false, ...> is K1
+        return ("fused BN bwd reduce K3 (hand kernel)"
+                if "colsum_kernel<" in n and ", true," in n.split(">")[0]
+                else "fused BN stats K1 (hand kernel)")
+    if "finish_kernel" in n:
+        return "fused BN partial sums K1/K3/K4 (hand kernel)"
+    if "apply_kernel" in n:
+        return "fused BN apply K2 (hand kernel)"
+    if "bwd_dx_kernel" in n:
+        return "fused BN bwd dx K3 (hand kernel)"
+    if any(k in n for k in ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                            "implicit")):
+        return "convolutions (cuDNN)"
+    if "nchwtonhwc" in n or "nhwctonchw" in n:
+        return "layout transforms"
+    if "pool" in n:
+        return "pooling"
     if "gemm" in n or "xmma" in n or "nvjet" in n:
         return "GEMMs (cuBLAS)"
     if "memcpy" in n or "memset" in n:
@@ -155,12 +217,14 @@ def profile_record(label, fn, iters):
     the kinds above do not name."""
     import torch
 
-    per, wall_us, events = profile_device(fn, iters=iters)
+    counts = {}
+    per, wall_us, events = profile_device(fn, iters=iters, counts=counts)
     busy = sum(per.values())
     ranked = sorted(per.items(), key=lambda kv: -kv[1])
-    cats = {}
+    cats, cat_n = {}, {}
     for name, us in per.items():
         cats[category(name)] = cats.get(category(name), 0.0) + us / 1e3
+        cat_n[category(name)] = cat_n.get(category(name), 0) + counts[name]
     return {"call": label, "wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us if wall_us else None,
@@ -168,9 +232,13 @@ def profile_record(label, fn, iters):
             "peak_memory_MiB": torch.cuda.max_memory_allocated() / 2**20,
             "by_category_ms": dict(sorted(cats.items(),
                                           key=lambda kv: -kv[1])),
+            "by_category_events": cat_n,
             "top_kernels_ms": [[k[:90], us / 1e3] for k, us in ranked[:10]],
             "top_other_kernels_ms": [[k[:90], us / 1e3] for k, us in ranked
-                                     if category(k) == "other"][:5]}
+                                     if category(k) == "other"][:5],
+            "copy_kernels_per_call": [
+                [k[:90], counts[k], us / 1e3] for k, us in ranked
+                if category(k) == "dtype casts and copies"][:6]}
 
 
 def max_err(got, want, tol):
@@ -657,6 +725,390 @@ def phase_train(fluid, fa):
         raise AssertionError("GPU and CPU training steps disagree")
     return launches
 
+# ---------------------------------------------------------------------------
+# fused batch-norm kernels (ResNet-50)
+# ---------------------------------------------------------------------------
+
+def bn_errs(pairs, name):
+    """Errors of kernel outputs against their plain versions. pairs: (label,
+    got, want, kind) with kind "y" (max |err| / max |plain|, limit
+    BN_TOL), "mean"/"var" (per channel, against E[x^2], given as a fifth
+    element) or "sum" (max |err| / max |plain|, limit BN_STAT_TOL).
+    Returns ({label: the normalized error}, {label: max |err|}, all
+    within their limits)."""
+    errs, abs_errs, ok = {}, {}, True
+    for label, got, want, kind, *extra in pairs:
+        g, w = got.float(), want.float()
+        d = (g - w).abs()
+        abs_errs[label] = float(d.max())
+        if kind in ("mean", "var"):
+            ex2 = extra[0]
+            scale = ex2 if kind == "var" else ex2.sqrt()
+            e = float((d / scale.clamp_min(1e-30)).max())
+        else:
+            e = float(d.max() / w.abs().max().clamp_min(1e-30))
+        errs[label] = e
+        ok &= e <= (BN_TOL[name] if kind == "y" else BN_STAT_TOL)
+    return errs, abs_errs, ok
+
+
+def nhwc_randn(shape, dtype, gen, offset=0.0, positive=False):
+    """An NCHW tensor stored channels-last, as the port keeps activations:
+    |randn| (post-relu) or randn + offset."""
+    import torch
+
+    x = torch.randn(shape, generator=gen, device="cuda")
+    x = x.abs() if positive else x + offset
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def phase_kernel_bn(fb):
+    """Each fused-BN kernel against its plain version at ResNet-50 B=128
+    shapes, f32 and bf16, with timings. Returns {(kernel, dtype): record}
+    of the shape each kernel's JSON entry quotes."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    records = {}
+    B = RESNET_B
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        isz = torch.tensor([], dtype=dtype).element_size()
+        peak = PEAK_FLOPS[name]
+
+        # K4 (+ K2 apply2d, K3 on its output): 1x1 convs of the bottlenecks
+        for label, ci, hw, co, st, res, quote in (
+                ("stage1 .a 256->64 @56", 256, 56, 64, 1, False, True),
+                ("stage1 .c 64->256 @56 +res", 64, 56, 256, 1, True, False),
+                ("stage2 .sc 256->512 @56 s2", 256, 56, 512, 2, False,
+                 False),
+                ("stage4 .c 512->2048 @7 +res", 512, 7, 2048, 1, True,
+                 False)):
+            x = nhwc_randn((B, ci, hw, hw), dtype, gen, positive=True)
+            w = (torch.randn(co, ci, 1, 1, generator=gen, device="cuda")
+                 * (2.0 / ci) ** 0.5 + 0.01).to(dtype)
+            xs = x[:, :, ::st, ::st]
+            m = B * (hw // st) ** 2
+            y2, mean, var = fb.conv_stats(xs, w)
+            py2, pmean, pvar = fb.conv_stats_plain(xs, w)
+            torch.cuda.synchronize()
+            ex2 = pvar + pmean * pmean
+            errs, abs_errs, ok = bn_errs([("y", y2, py2, "y"),
+                                          ("mean", mean, pmean, "mean", ex2),
+                                          ("var", var, pvar, "var", ex2)],
+                                         name)
+            x2 = fb.to2d(xs)
+            ms, plain_ms, library_ms = (device_ms(fn) for fn in (
+                lambda: fb.conv_stats(xs, w),
+                lambda: fb.conv_stats_plain(xs, w),
+                lambda: torch.matmul(x2, w.reshape(co, ci).t())))
+            flops = 2.0 * m * ci * co
+            nbytes = (m * ci + ci * co + m * co) * isz + 2 * co * 4
+            bound_ms, bound_by = bound(flops, nbytes, name)
+            rec = {"kernel": "fused_conv_stats", "dtype": name,
+                   "shape": f"{label}: M={m} Ci={ci} Co={co}",
+                   "max_err": errs, "max_abs_err": abs_errs, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library": "torch.matmul (GEMM alone)", "flops": flops, "bytes": nbytes,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            log("kernel bn " + json.dumps(rec))
+            if not ok:
+                raise AssertionError(f"fused_conv_stats {name} {label} "
+                                     f"disagrees with its plain version: "
+                                     f"{errs}")
+            if quote:
+                records[("fused_conv_stats", name)] = rec
+
+            # K2 on the conv output, and K3 on the same tensors
+            inv = torch.rsqrt(var + 1e-5)
+            scale = torch.rand(co, generator=gen, device="cuda") + 0.5
+            bias = torch.randn(co, generator=gen, device="cuda") * 0.1
+            res2 = (fb.to2d(nhwc_randn((B, co, hw // st, hw // st), dtype,
+                                       gen)) if res else None)
+            act = "" if label.startswith("stage2 .sc") else "relu"
+            a2 = fb.apply2d(y2, mean, inv, scale, bias, act, res2)
+            pa2 = fb.apply_plain(y2, mean, inv * scale, bias, act, res2)
+            # dy correlated with the input, so that dgamma and dbeta are
+            # sums without cancellation
+            dy = (torch.randn(y2.shape, generator=gen, device="cuda") * 0.5
+                  + 0.3 * y2.float()).to(dtype)
+            ysave = a2 if act == "relu" else None
+            db, dg = fb.bn_bwd_reduce(dy, y2, ysave, mean, inv)
+            pdb, pdg = fb.bwd_reduce_plain(dy, y2, ysave, mean, inv)
+            dx, dres = fb.bn_bwd_dx(dy, y2, ysave, mean, inv, inv * scale,
+                                    pdb, pdg, float(m), res)
+            pdx, pdres = fb.bwd_dx_plain(dy, y2, ysave, mean, inv,
+                                         inv * scale, pdb, pdg, float(m), res)
+            torch.cuda.synchronize()
+            pairs = [("apply", a2, pa2, "y"), ("dbeta", db, pdb, "sum"),
+                     ("dgamma", dg, pdg, "sum"), ("dx", dx, pdx, "y")]
+            if res:
+                pairs.append(("dres", dres, pdres, "y"))
+            errs, abs_errs, ok = bn_errs(pairs, name)
+            log(f"kernel bn {name} {label} apply/backward act={act!r} "
+                f"res={res}: normalized {json.dumps(errs)} max abs "
+                f"{json.dumps(abs_errs)}")
+            if not ok:
+                raise AssertionError(f"fused BN apply/backward {name} {label}"
+                                     f" disagrees with its plain version")
+            if act == "":
+                # the shortcut BN: no relu, no residual, so one PyTorch call
+                # computes each function (inference batch_norm; cuDNN's
+                # training backward)
+                a4 = fb.from2d(y2, (B, co, hw // st, hw // st))
+                ms, plain_ms, library_ms = (device_ms(fn) for fn in (
+                    lambda: fb.apply2d(y2, mean, inv, scale, bias),
+                    lambda: fb.apply_plain(y2, mean, inv * scale, bias),
+                    lambda: F.batch_norm(a4, mean, var, scale, bias, False,
+                                         0.0, 1e-5)))
+                nbytes = 2 * m * co * isz + 3 * co * 4
+                bound_ms, bound_by = bound(4.0 * m * co, nbytes, name)
+                records[("fused_bn_apply", name)] = rec = {
+                    "kernel": "fused_bn_apply", "dtype": name,
+                    "shape": f"{label} BN: M={m} C={co}, no relu/res",
+                    "max_err": {"apply": errs["apply"]},
+                    "max_abs_err": {"apply": abs_errs["apply"]}, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "library": "F.batch_norm(training=False)",
+                    "bytes": nbytes, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+                log("kernel bn " + json.dumps(rec))
+                dy4 = fb.from2d(dy, a4.shape)
+
+                def k3():
+                    d_b, d_g = fb.bn_bwd_reduce(dy, y2, None, mean, inv)
+                    return fb.bn_bwd_dx(dy, y2, None, mean, inv, inv * scale,
+                                        d_b, d_g, float(m), False)
+
+                def k3_plain():
+                    d_b, d_g = fb.bwd_reduce_plain(dy, y2, None, mean, inv)
+                    return fb.bwd_dx_plain(dy, y2, None, mean, inv,
+                                           inv * scale, d_b, d_g, float(m),
+                                           False)
+
+                ms, plain_ms, library_ms = (device_ms(fn) for fn in (
+                    k3, k3_plain,
+                    lambda: torch.ops.aten.native_batch_norm_backward(
+                        dy4, a4, scale, None, None, mean, inv, True, 1e-5,
+                        [True, True, True])))
+                nbytes = 3 * m * co * isz + 5 * co * 4
+                bound_ms, bound_by = bound(10.0 * m * co, nbytes, name)
+                records[("fused_bn_bwd", name)] = rec = {
+                    "kernel": "fused_bn_bwd", "dtype": name,
+                    "shape": f"{label} BN: M={m} C={co}, no relu/res",
+                    "max_err": {k: errs[k] for k in ("dbeta", "dgamma",
+                                                     "dx")},
+                    "max_abs_err": {k: abs_errs[k] for k in
+                                    ("dbeta", "dgamma", "dx")},
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "library": "aten.native_batch_norm_backward",
+                    "bytes": nbytes, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+                log("kernel bn " + json.dumps(rec))
+
+        # K1 stats and K2 bn_apply at the stem (C=64, 112^2) and stage 4
+        # (.b, C=512, 7^2)
+        for label, c, hw, quote in (("stem C=64 @112", 64, 112, True),
+                                    ("stage4 .b C=512 @7", 512, 7, False)):
+            x = nhwc_randn((B, c, hw, hw), dtype, gen, offset=0.5)
+            mean, var = fb.bn_stats(x)
+            pmean, pvar = fb.stats_plain(fb.to2d(x))
+            inv = torch.rsqrt(var + 1e-5)
+            scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+            bias = torch.randn(c, generator=gen, device="cuda") * 0.1
+            y = fb.bn_apply(x, mean, inv, scale, bias, "relu")
+            py = fb.apply_plain(fb.to2d(x), mean, inv * scale, bias, "relu")
+            torch.cuda.synchronize()
+            ex2 = pvar + pmean * pmean
+            errs, abs_errs, ok = bn_errs(
+                [("mean", mean, pmean, "mean", ex2),
+                 ("var", var, pvar, "var", ex2),
+                 ("apply", fb.to2d(y), py, "y")], name)
+            m = B * hw * hw
+            ms, plain_ms, library_ms = (device_ms(fn) for fn in (
+                lambda: fb.bn_stats(x),
+                lambda: fb.stats_plain(fb.to2d(x)),
+                lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0)))
+            nbytes = m * c * isz + 2 * c * 4
+            bound_ms, bound_by = bound(3.0 * m * c, nbytes, name)
+            rec = {"kernel": "fused_bn_stats", "dtype": name,
+                   "shape": f"{label}: M={m} C={c}", "max_err": errs,
+                   "max_abs_err": abs_errs,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library": "torch.var_mean", "bytes": nbytes,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            log("kernel bn " + json.dumps(rec))
+            if not ok:
+                raise AssertionError(f"fused BN stats/apply {name} {label} "
+                                     f"disagrees with its plain version: "
+                                     f"{errs}")
+            if quote:
+                records[("fused_bn_stats", name)] = rec
+    return records
+
+
+def resnet_program(fluid, resnet, b, hw, amp, classes=1000):
+    """The JAX bench's ResNet-50 recipe (7x7 stem): resnet → softmax CE →
+    mean → Momentum(0.1, 0.9), under bf16 AMP when `amp`. Built with
+    PDTPU_CONV_BN_FUSION=pallas (36 fused_conv_bn ops)."""
+    os.environ["PDTPU_CONV_BN_FUSION"] = "pallas"
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 2024
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", [3, hw, hw])
+        label = fluid.layers.data("label", [1], dtype="int64")
+        logits = resnet.resnet(img, 50, classes)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        opt = fluid.optimizer.Momentum(0.1, 0.9)
+        if amp:
+            opt = fluid.contrib.mixed_precision.decorate(
+                opt, dtype="bfloat16", use_dynamic_loss_scaling=False)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def resnet_feed(b, hw, seed=2024, classes=1000, device="cuda"):
+    """One batch from `seed`, put on the card once (a loader that prefetches
+    to the device hands the executor tensors already there)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    return {"img": torch.tensor(rng.randn(b, 3, hw, hw).astype("float32"),
+                                device=device),
+            "label": torch.tensor(rng.randint(0, classes, (b, 1)),
+                                  dtype=torch.int64, device=device)}
+
+
+def bn_counts(fb):
+    return {k: getattr(fb, k).launches for k in RESNET_PER_STEP}
+
+
+def reset_bn_counts(fb):
+    for k in RESNET_PER_STEP:
+        getattr(fb, k).launches = 0
+
+
+def run_resnet(fluid, fb, b, amp, label):
+    """One training run of the recipe: 2 steps, 1 + 4 profiled, 6 warm.
+    Returns (the fused-BN launches of the run, the record)."""
+    import torch
+    from paddle_tpu_torch.models import resnet
+
+    main, startup, loss = resnet_program(fluid, resnet, b, RESNET_HW, amp)
+    feed = resnet_feed(b, RESNET_HW)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_bn_counts(fb)                        # main path starts
+        losses = []
+
+        def step():
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+            losses.append(float(lv))
+
+        first_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            step()
+            first_ms.append((time.perf_counter() - t0) * 1e3)
+        rec = profile_record(f"resnet50 {label} step B={b} {RESNET_HW}^2",
+                             step, 4)
+        warm = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            step()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        counts = bn_counts(fb)                     # main path ends
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    steps = len(losses)
+    med = float(np.median(warm))
+    rec.update({"steps": steps, "losses": losses,
+                "first_steps_ms": first_ms, "warm_step_ms": warm,
+                "median_ms": med, "range_ms": [min(warm), max(warm)],
+                "img_per_s": b / med * 1e3,
+                "device_busy_share_of_median": rec["device_busy_ms"] / med,
+                "peak_memory_MiB_run": peak,
+                "ops_per_step": len(main.global_block().ops),
+                "fused_bn_launches": counts})
+    log("resnet " + json.dumps(rec))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"resnet {label}: losses {losses}")
+    per_step = {k: v / steps for k, v in counts.items()}
+    if per_step != {k: float(v) for k, v in RESNET_PER_STEP.items()}:
+        raise AssertionError(f"resnet {label}: fused-BN launches per step "
+                             f"{per_step}, expected {RESNET_PER_STEP}")
+    return counts, rec
+
+
+def phase_resnet(fluid, fb):
+    """Main path 3: ResNet-50 training with both switches on, bf16 AMP at
+    B=128 and f32 at B=32; then GPU against CPU. Returns the launches of
+    each run."""
+    os.environ["PDTPU_BN_MODE"] = "pallas"
+    launches = {}
+    launches["bfloat16"], _ = run_resnet(fluid, fb, RESNET_B, True,
+                                         "bf16 AMP")
+    launches["float32"], _ = run_resnet(fluid, fb, 32, False, "f32")
+
+    # GPU against CPU: f32 at 64x64, B=16, where every fused-BN gate of
+    # stages 1-2 and the stem passes, so each kernel launches on the card.
+    # The gradients of a depth-50 net at random init are chaotic: on the
+    # CPU alone, multiplying the input by (1 + 1e-7 * randn), about one
+    # ulp, moves them by ~2 % (relative L2). So the card's gradients are
+    # held to the CPU's within twice what that one-ulp change of the input
+    # does to the CPU's own (median and worst over the parameters), and the
+    # loss within 1e-5.
+    from paddle_tpu_torch.models import resnet
+
+    main, startup, loss = resnet_program(fluid, resnet, 16, 64, False)
+    feed = {k: v.cpu().numpy() for k, v in resnet_feed(16, 64).items()}
+    nudged = dict(feed, img=(feed["img"] * (1.0 + 1e-7 * np.random.RandomState(
+        5).randn(*feed["img"].shape))).astype("float32"))
+    grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    gpu_scope = fluid.Scope()
+    with fluid.scope_guard(gpu_scope):
+        exe.run(startup)
+    state = {v.name: gpu_scope.find_np(v.name) for v in main.list_vars()
+             if v.persistable and gpu_scope.has_var(v.name)}
+    reset_bn_counts(fb)
+    gpu = exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                  scope=gpu_scope)
+    on_card = bn_counts(fb)
+    cpu_runs = []
+    for f in (feed, nudged):
+        cpu_scope = fluid.Scope()
+        fluid.io.load_params_from_numpy(state, scope=cpu_scope)
+        cpu_runs.append(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=f, fetch_list=[loss] + grads, scope=cpu_scope))
+    cpu, cpu_nudged = cpu_runs
+    loss_rel = abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    card = [rel_l2(a, b) for a, b in zip(gpu[1:], cpu[1:])]
+    ulp = [rel_l2(a, b) for a, b in zip(cpu_nudged[1:], cpu[1:])]
+    worst = sorted(zip(card, grads), reverse=True)[:5]
+    summary = {"card_vs_cpu": {"median": float(np.median(card)),
+                               "max": max(card)},
+               "cpu_one_ulp_input": {"median": float(np.median(ulp)),
+                                     "max": max(ulp)},
+               "worst_card_vs_cpu": worst}
+    log(f"resnet GPU vs CPU (depth 50, 64x64, B=16, f32): loss "
+        f"{float(gpu[0])} vs {float(cpu[0])} relative {loss_rel:.3e} (tol "
+        f"1e-5); grads of {len(grads)} parameters, relative L2 "
+        f"{json.dumps(summary)} (tol: 2x the CPU's one-ulp spread); "
+        f"fused-BN launches on the card {json.dumps(on_card)}")
+    if not all(on_card.values()):
+        raise AssertionError("a fused-BN kernel did not launch in the GPU "
+                             "vs CPU step")
+    if loss_rel > 1e-5 or np.median(card) > 2 * np.median(ulp) \
+            or max(card) > 2 * max(ulp):
+        raise AssertionError("GPU and CPU ResNet-50 steps disagree")
+    return launches
+
+
 
 def main():
     import torch
@@ -674,6 +1126,7 @@ def main():
     from paddle_tpu_torch.core.executor import cuda_device
     from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
 
     # 1. device
     cuda_device(0)  # TF32 off for the f32 comparisons
@@ -704,6 +1157,12 @@ def main():
     # 5. train (main path 2)
     train_launches = phase_train(fluid, fa)
 
+    # 6. fused batch-norm kernels
+    bn_records = phase_kernel_bn(fb)
+
+    # 7. resnet (main path 3)
+    bn_launches = phase_resnet(fluid, fb)
+
     kernels = []
     for name in ("float32", "bfloat16"):
         rec = records[(name, 512)]
@@ -729,6 +1188,20 @@ def main():
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
             "shape": f"B={B} nh={NH} T=512 d={D}"})
+    for kname, count_keys in (("fused_bn_stats", ("bn_stats",)),
+                              ("fused_bn_apply", ("bn_apply", "apply2d")),
+                              ("fused_bn_bwd", ("bn_bwd_reduce",)),
+                              ("fused_conv_stats", ("conv_stats",))):
+        for name in ("float32", "bfloat16"):
+            rec = bn_records[(kname, name)]
+            kernels.append({
+                "name": f"{kname}[{name}]", "route": "cuda",
+                "source": BN_SOURCE, "replaces": BN_REPLACES[kname],
+                "launches": sum(bn_launches[name][k] for k in count_keys),
+                "max_abs_err": max(rec["max_abs_err"].values()),
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"], "shape": rec["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

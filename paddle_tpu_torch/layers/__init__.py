@@ -1,16 +1,23 @@
 """Layers DSL (reference python/paddle/fluid/layers/): the subset the BERT
-serving and training slices use."""
+and ResNet slices use."""
+from .metric_op import accuracy  # noqa: F401
 from .nn import (  # noqa: F401
+    batch_norm,
+    conv2d,
     data,
     dropout,
     embedding,
     fc,
     flash_attention,
+    fused_conv_bn,
     layer_norm,
     matmul,
     mean,
+    pool2d,
+    relu,
     softmax,
     softmax_with_cross_entropy,
+    topk,
 )
 from .ops import (  # noqa: F401
     elementwise_add,

@@ -1,5 +1,5 @@
-"""Layers DSL — the subset of ``paddle_tpu.layers.nn`` the BERT serving and
-training slices use, emitting the same ops, attrs and var descs (reference
+"""Layers DSL — the subset of ``paddle_tpu.layers.nn`` the BERT and ResNet
+slices use, emitting the same ops, attrs and var descs (reference
 ``python/paddle/fluid/layers/nn.py``)."""
 from __future__ import annotations
 
@@ -9,8 +9,20 @@ import numpy as np
 
 from ..core.dtypes import convert_dtype
 from ..core.program import Variable, default_main_program
-from ..initializer import ConstantInitializer, XavierInitializer
+from ..initializer import (ConstantInitializer, NormalInitializer,
+                           XavierInitializer)
 from ..layer_helper import LayerHelper
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+def _conv_out_dim(size, k, pad, stride, dilation=1):
+    if size is None or size < 0:
+        return -1
+    eff = dilation * (k - 1) + 1
+    return (size + 2 * pad - eff) // stride + 1
 
 
 def data(name: str, shape: Sequence[int], dtype="float32", lod_level: int = 0,
@@ -69,6 +81,155 @@ def embedding(input: Variable, size: Sequence[int], is_sparse: bool = False,
     return out
 
 
+def conv2d(input: Variable, num_filters: int, filter_size, stride=1, padding=0,
+           dilation=1, groups: int = 1, param_attr=None, bias_attr=None,
+           use_cudnn: bool = True, act: Optional[str] = None, name=None,
+           data_format: str = "NCHW") -> Variable:
+    helper = LayerHelper("conv2d", name=name)
+    fh, fw = _pair(filter_size)
+    num_channels = input.shape[1] if input.shape else None
+    # fan-in init (reference layers/nn.py:2404: std = sqrt(2/(k*k*C_in)))
+    w = helper.create_parameter(
+        param_attr, shape=[num_filters, num_channels // groups, fh, fw],
+        dtype=input.dtype,
+        default_initializer=NormalInitializer(
+            0.0, (2.0 / (fh * fw * num_channels)) ** 0.5))
+    sh, sw = _pair(stride)
+    ph, pw = _pair(padding)
+    dh, dw = _pair(dilation)
+    out_shape = None
+    if input.shape is not None and len(input.shape) == 4:
+        out_shape = (input.shape[0], num_filters,
+                     _conv_out_dim(input.shape[2], fh, ph, sh, dh),
+                     _conv_out_dim(input.shape[3], fw, pw, sw, dw))
+    out = helper.create_variable_for_type_inference(input.dtype, out_shape)
+    helper.append_op(
+        type="conv2d", inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Out": [out.name]},
+        attrs={"strides": [sh, sw], "paddings": [ph, pw],
+               "dilations": [dh, dw], "groups": groups})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, shape=[num_filters],
+                                    dtype=input.dtype, is_bias=True)
+        tmp = helper.create_variable_for_type_inference(input.dtype, out_shape)
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out.name], "Y": [b.name]},
+                         outputs={"Out": [tmp.name]}, attrs={"axis": 1})
+        out = tmp
+    return helper.append_activation(out, act)
+
+
+def pool2d(input: Variable, pool_size=2, pool_type: str = "max", pool_stride=None,
+           pool_padding=0, global_pooling: bool = False, use_cudnn: bool = True,
+           ceil_mode: bool = False, exclusive: bool = True, name=None) -> Variable:
+    helper = LayerHelper("pool2d", name=name)
+    kh, kw = _pair(pool_size)
+    sh, sw = _pair(pool_stride if pool_stride is not None else pool_size)
+    ph, pw = _pair(pool_padding)
+    out_shape = None
+    if input.shape is not None and len(input.shape) == 4:
+        if global_pooling:
+            out_shape = (input.shape[0], input.shape[1], 1, 1)
+        else:
+            out_shape = (input.shape[0], input.shape[1],
+                         _conv_out_dim(input.shape[2], kh, ph, sh),
+                         _conv_out_dim(input.shape[3], kw, pw, sw))
+    out = helper.create_variable_for_type_inference(input.dtype, out_shape)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+        attrs={"pooling_type": pool_type, "ksize": [kh, kw],
+               "strides": [sh, sw], "paddings": [ph, pw],
+               "global_pooling": global_pooling, "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input: Variable, act: Optional[str] = None, is_test: bool = False,
+               momentum: float = 0.9, epsilon: float = 1e-5, param_attr=None,
+               bias_attr=None, data_layout: str = "NCHW", name=None,
+               moving_mean_name=None, moving_variance_name=None,
+               use_global_stats: bool = False) -> Variable:
+    helper = LayerHelper("batch_norm", name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(param_attr, shape=[c], dtype=input.dtype,
+                                    default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, shape=[c], dtype=input.dtype, is_bias=True)
+    mean = helper.create_global_variable([c], input.dtype, name=moving_mean_name,
+                                         initializer=ConstantInitializer(0.0))
+    var = helper.create_global_variable([c], input.dtype, name=moving_variance_name,
+                                        initializer=ConstantInitializer(1.0))
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape)
+    saved_mean = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(input.dtype, stop_gradient=True)
+    # relu folds into the op itself (fused_bn_add_activation analog): the
+    # fused-BN kernel applies it in the same pass instead of a separate
+    # elementwise op
+    fold_act = act if act == "relu" else None
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input.name], "Scale": [scale.name], "Bias": [bias.name],
+                "Mean": [mean.name], "Variance": [var.name]},
+        outputs={"Y": [out.name], "MeanOut": [mean.name], "VarianceOut": [var.name],
+                 "SavedMean": [saved_mean.name], "SavedVariance": [saved_var.name]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "act": fold_act or "",
+               "is_test": is_test or use_global_stats, "data_layout": data_layout})
+    return out if fold_act else helper.append_activation(out, act)
+
+
+def fused_conv_bn(input: Variable, num_filters: int, stride: int = 1,
+                  act: Optional[str] = None,
+                  residual: Optional[Variable] = None,
+                  is_test: bool = False, momentum: float = 0.9,
+                  epsilon: float = 1e-5, param_attr=None, bn_param_attr=None,
+                  bn_bias_attr=None, moving_mean_name=None,
+                  moving_variance_name=None, name=None) -> Variable:
+    """Fused 1×1 conv (no bias) + batch_norm (+relu, +residual) as ONE op,
+    for the ResNet bottleneck tail; run by the fused conv+BN Hopper kernels
+    on the card and by a bitwise-equal composition where their gate does
+    not admit the shapes (ops/kernels/fused_bn.py). Used by models/resnet.py
+    when ``PDTPU_CONV_BN_FUSION`` is set."""
+    helper = LayerHelper("fused_conv_bn", name=name)
+    num_channels = input.shape[1]
+    w = helper.create_parameter(
+        param_attr, shape=[num_filters, num_channels, 1, 1],
+        dtype=input.dtype,
+        default_initializer=NormalInitializer(
+            0.0, (2.0 / num_channels) ** 0.5))
+    scale = helper.create_parameter(
+        bn_param_attr, shape=[num_filters], dtype=input.dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bn_bias_attr, shape=[num_filters],
+                                   dtype=input.dtype, is_bias=True)
+    mean = helper.create_global_variable(
+        [num_filters], input.dtype, name=moving_mean_name,
+        initializer=ConstantInitializer(0.0))
+    var = helper.create_global_variable(
+        [num_filters], input.dtype, name=moving_variance_name,
+        initializer=ConstantInitializer(1.0))
+    out_shape = None
+    if input.shape is not None and len(input.shape) == 4:
+        out_shape = (input.shape[0], num_filters,
+                     _conv_out_dim(input.shape[2], 1, 0, stride),
+                     _conv_out_dim(input.shape[3], 1, 0, stride))
+    out = helper.create_variable_for_type_inference(input.dtype, out_shape)
+    saved_mean = helper.create_variable_for_type_inference(
+        input.dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        input.dtype, stop_gradient=True)
+    ins = {"Input": [input.name], "Filter": [w.name], "Scale": [scale.name],
+           "Bias": [bias.name], "Mean": [mean.name], "Variance": [var.name]}
+    if residual is not None:
+        ins["Residual"] = [residual.name]
+    helper.append_op(
+        type="fused_conv_bn", inputs=ins,
+        outputs={"Y": [out.name], "MeanOut": [mean.name],
+                 "VarianceOut": [var.name], "SavedMean": [saved_mean.name],
+                 "SavedVariance": [saved_var.name]},
+        attrs={"stride": int(stride), "epsilon": epsilon,
+               "momentum": momentum, "act": act or "", "is_test": is_test})
+    return out
+
+
 def layer_norm(input: Variable, scale: bool = True, shift: bool = True,
                begin_norm_axis: int = 1, epsilon: float = 1e-5,
                param_attr=None, bias_attr=None, act=None, name=None) -> Variable:
@@ -106,6 +267,21 @@ def dropout(x: Variable, dropout_prob: float, is_test: bool = False, seed=None,
                      attrs={"dropout_prob": dropout_prob, "is_test": is_test,
                             "dropout_implementation": dropout_implementation})
     return out
+
+
+def relu(x, name=None):
+    from .ops import _activation_layer
+    return _activation_layer("relu", x, {}, name)
+
+
+def topk(input: Variable, k: int, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64", stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [values.name], "Indices": [indices.name]},
+                     attrs={"k": k})
+    return values, indices
 
 
 def softmax(input: Variable, axis: int = -1, use_cudnn: bool = False, name=None) -> Variable:

@@ -3,6 +3,7 @@ from . import activation_ops  # noqa: F401
 from . import compare_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
 from . import math_ops  # noqa: F401
+from . import metric_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import reduce_ops  # noqa: F401

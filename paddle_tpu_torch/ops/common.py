@@ -28,6 +28,43 @@ def opt_input(inputs, slot):
     return vs[0]
 
 
+def conv2d_nchw(x, w, strides=(1, 1), padding=(0, 0), dilations=(1, 1),
+                groups: int = 1):
+    """F.conv2d of an NCHW x by an OIHW w, with x kept channels-last in
+    memory: cuDNN then returns a channels-last output, the layout in which
+    the fused batch-norm kernels read an activation's (N·H·W, C) matrix
+    without a copy. `padding` is (ph, pw) or (top, bottom, left, right).
+    The conv2d op and fused_conv_bn's plain composition both call this, so
+    they compute bitwise the same."""
+    x = x.contiguous(memory_format=torch.channels_last)
+    if len(padding) == 4:
+        top, bottom, left, right = padding
+        if top != bottom or left != right:
+            x = F.pad(x, (left, right, top, bottom))
+            padding = (0, 0)
+        else:
+            padding = (top, left)
+    return F.conv2d(x, w, None, tuple(strides), tuple(padding),
+                    tuple(dilations), groups)
+
+
+def bn_batch_stats_xla1(x, axes):
+    """Training batch norm's default statistics (the "xla1" mode): f32 mean
+    and one-pass var = max(E[x²] − mean², 0) over `axes`."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=axes)
+    var = torch.clamp_min(torch.mean(xf * xf, dim=axes) - mean * mean, 0.0)
+    return mean, var
+
+
+def bn_normalize(x, mean, var, scale, bias, eps, shape):
+    """((x − mean)·rsqrt(var + eps)·scale + bias) in f32, returned in x's
+    dtype; the per-channel vectors are reshaped to `shape`."""
+    inv = torch.rsqrt(var.float().reshape(shape) + eps)
+    return ((x.float() - mean.float().reshape(shape)) * inv
+            * scale.reshape(shape) + bias.reshape(shape)).to(x.dtype)
+
+
 def _identity(x):
     return x
 

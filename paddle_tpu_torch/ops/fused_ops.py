@@ -4,12 +4,14 @@ reference ``operators/fused/``)."""
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
 from ..core.registry import register_op
 from .common import act_map, bcast_y, one, opt_input
 from .kernels import flash_attention as _fa
+from .kernels import fused_bn as _fbn
 
 _ACTS = act_map()
 
@@ -38,6 +40,54 @@ def _fused_fc(ctx, inputs, attrs):
         b.reshape(1, -1), x2, w)
     out = _ACTS[attrs.get("activation_type", "")](out)
     return one(out.reshape(lead + (w.shape[-1],)))
+
+
+@register_op("fused_conv_bn", nondiff_inputs=["Mean", "Variance"])
+def _fused_conv_bn(ctx, inputs, attrs):
+    """1×1-conv + batch_norm (+relu, +residual) as one op, the ResNet
+    bottleneck tail: the Hopper kernels on a CUDA tensor, their plain
+    versions on a CPU tensor (ops/kernels/fused_bn.py), for the shapes
+    ``conv_bn_supports`` admits; otherwise the plain composition with the
+    exact math of the separate conv2d + batch_norm ("xla1") (+add+relu)
+    ops, bitwise equal end to end. ``PDTPU_CONV_BN_FUSION=xla`` (read at
+    run time) forces the composition."""
+    (x,) = inputs["Input"]
+    (w,) = inputs["Filter"]
+    (scale,) = inputs["Scale"]
+    (bias,) = inputs["Bias"]
+    (mean,) = inputs["Mean"]
+    (var,) = inputs["Variance"]
+    residual = opt_input(inputs, "Residual")
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    act = attrs.get("act", "")
+    stride = int(attrs.get("stride", 1))
+    is_test = attrs.get("is_test", False) or ctx.is_test
+    mode = os.environ.get("PDTPU_CONV_BN_FUSION", "pallas")
+    # AMP casts the activations at the op boundary but does not know this
+    # op's Filter slot: round the f32 master weight to the compute dtype
+    # here, as the unfused conv2d gets it from its cast (scale, bias and the
+    # statistics stay f32)
+    w = w.to(x.dtype)
+
+    if is_test:
+        y, _, _ = _fbn.conv_bn_xla(x, w, scale, bias, eps, act, stride,
+                                   residual, use_mean=mean, use_var=var)
+        return {"Y": [y], "MeanOut": [mean], "VarianceOut": [var],
+                "SavedMean": [mean], "SavedVariance": [var]}
+
+    if mode != "xla" and _fbn.conv_bn_supports(x.shape, w.shape, stride):
+        y, bmean, bvar = _fbn.fused_conv_bn_act(
+            x, w, scale, bias, eps, act, stride, residual is not None,
+            residual)
+    else:
+        y, bmean, bvar = _fbn.conv_bn_xla(x, w, scale, bias, eps, act,
+                                          stride, residual)
+    mean_out = momentum * mean + (1.0 - momentum) * bmean
+    var_out = momentum * var + (1.0 - momentum) * bvar
+    return {"Y": [y], "MeanOut": [mean_out.detach()],
+            "VarianceOut": [var_out.detach()],
+            "SavedMean": [bmean.detach()], "SavedVariance": [bvar.detach()]}
 
 
 @register_op("flash_attention", nondiff_inputs=["BiasQK"])

@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel library name -> its source file under csrc/
 SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "fused_bn": "fused_bn.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # seconds each library took to build in this process (absent = loaded as is)

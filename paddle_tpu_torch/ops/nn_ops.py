@@ -1,13 +1,137 @@
-"""Normalization, dropout, embedding and loss ops (counterpart of the
-matching registrations in ``paddle_tpu.ops.nn_ops``; reference
-layer_norm_op.cc, dropout_op.cc, lookup_table_op.cc,
-softmax_with_cross_entropy_op.cc)."""
+"""Conv, pooling, normalization, dropout, embedding and loss ops
+(counterpart of the matching registrations in ``paddle_tpu.ops.nn_ops``;
+reference conv_op.cc, pool_op.cc, batch_norm_op.cc, layer_norm_op.cc,
+dropout_op.cc, lookup_table_op.cc, softmax_with_cross_entropy_op.cc).
+
+Convolutions are ``F.conv2d`` (cuDNN on the card), as the JAX package leaves
+them to XLA outside any Pallas kernel; 4-D activations are kept channels-last
+in memory (``common.conv2d_nchw``) so that the fused batch-norm kernels read
+them in place."""
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
-from .common import one
+from .common import (act_map, bn_batch_stats_xla1, bn_normalize, conv2d_nchw,
+                     one)
+from .kernels import fused_bn
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+def _same_pads(size, k, s, d):
+    """lax "SAME" padding of one spatial dim: (low, high)."""
+    out = -(-size // s)
+    total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+@register_op("conv2d", nondiff_inputs=[])
+def _conv2d(ctx, inputs, attrs):
+    (x,) = inputs["Input"]
+    (w,) = inputs["Filter"]
+    strides = _pair(attrs.get("strides", [1, 1]))
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    dilations = _pair(attrs.get("dilations", [1, 1]))
+    groups = int(attrs.get("groups", 1))
+    pad_alg = attrs.get("padding_algorithm", "EXPLICIT")
+    if pad_alg == "SAME":
+        (t, b), (l, r) = (_same_pads(x.shape[2 + i], w.shape[2 + i],
+                                     strides[i], dilations[i])
+                          for i in range(2))
+        padding = (t, b, l, r)
+    elif pad_alg == "VALID":
+        padding = (0, 0)
+    else:
+        padding = pads  # (ph, pw) or (top, bottom, left, right)
+    return one(conv2d_nchw(x, w, strides, padding, dilations, groups))
+
+
+@register_op("pool2d")
+def _pool2d(ctx, inputs, attrs):
+    """pool_op.cc: max pools pad with -inf; exclusive average pools divide
+    by the count of real elements in the window."""
+    (x,) = inputs["X"]
+    ptype = attrs.get("pooling_type", "max")
+    ksize = _pair(attrs.get("ksize", [2, 2]))
+    strides = _pair(attrs.get("strides", ksize))
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    if attrs.get("global_pooling", False) or attrs.get("adaptive", False) \
+            and _pair(attrs.get("ksize")) == (1, 1):
+        if ptype == "max":
+            return one(torch.amax(x, dim=(2, 3), keepdim=True))
+        return one(torch.mean(x, dim=(2, 3), keepdim=True))
+    if ptype == "max":
+        return one(F.max_pool2d(x, ksize, strides, pads))
+    return one(F.avg_pool2d(
+        x, ksize, strides, pads,
+        count_include_pad=not attrs.get("exclusive", True)))
+
+
+@register_op("batch_norm", nondiff_inputs=["Mean", "Variance"])
+def _batch_norm(ctx, inputs, attrs):
+    """batch_norm_op.cc: batch statistics and a running-stat update in
+    training, frozen statistics in test. ``PDTPU_BN_MODE`` (read at run
+    time, as in the JAX package) picks the training statistics:
+    "xla1" (default) one-pass f32, "xla2" two-pass, "pallas" the fused-BN
+    kernels (``fused_bn_act``, relu folded in), "pallas_stats" the
+    statistics kernel with a frozen-stats gradient (a perf probe). The
+    kernels take only NCHW inputs that pass ``fused_bn.supports``; on a CPU
+    tensor they run as their plain versions."""
+    (x,) = inputs["X"]
+    (scale,) = inputs["Scale"]
+    (bias,) = inputs["Bias"]
+    (mean,) = inputs["Mean"]
+    (var,) = inputs["Variance"]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    is_test = attrs.get("is_test", False) or ctx.is_test
+    layout = attrs.get("data_layout", "NCHW")
+    act = attrs.get("act", "")  # folded by layers.batch_norm (fused-BN path)
+    bn_mode = os.environ.get("PDTPU_BN_MODE", "xla1")
+    ch_axis = 1 if layout == "NCHW" else x.ndim - 1
+    axes = tuple(i for i in range(x.ndim) if i != ch_axis)
+    shape = [1] * x.ndim
+    shape[ch_axis] = x.shape[ch_axis]
+
+    def outs(y, mean_out, var_out, saved_mean, saved_var):
+        return {"Y": [y], "MeanOut": [mean_out.detach()],
+                "VarianceOut": [var_out.detach()],
+                "SavedMean": [saved_mean.detach()],
+                "SavedVariance": [saved_var.detach()]}
+
+    if is_test:
+        y = bn_normalize(x, mean, var, scale, bias, eps, shape)
+        return outs(act_map()[act](y), mean, var, mean, var)
+    if (bn_mode.startswith("pallas") and layout == "NCHW"
+            and act in ("", "relu") and fused_bn.supports(x.shape, x.dtype)):
+        if bn_mode == "pallas_stats":
+            bmean, bvar = fused_bn.bn_stats(x.detach())
+            y = bn_normalize(x, bmean, bvar, scale, bias, eps, shape)
+            y = act_map()[act](y)
+        else:
+            y, bmean, bvar = fused_bn.fused_bn_act(x, scale, bias, eps, act,
+                                                   False)
+        return outs(y, momentum * mean + (1.0 - momentum) * bmean,
+                    momentum * var + (1.0 - momentum) * bvar, bmean, bvar)
+    # statistics always in f32; x itself stays in its own dtype (the op is
+    # AMP-gray, so a bf16 conv trunk never round-trips through f32 memory)
+    if bn_mode == "xla2":
+        use_mean = torch.mean(x.float(), dim=axes)
+        use_var = torch.var(x.float(), dim=axes, correction=0)
+    else:
+        use_mean, use_var = bn_batch_stats_xla1(x, axes)
+    y = bn_normalize(x, use_mean, use_var, scale, bias, eps, shape)
+    return outs(act_map()[act](y), momentum * mean + (1.0 - momentum)
+                * use_mean, momentum * var + (1.0 - momentum) * use_var,
+                use_mean, use_var)
 
 
 @register_op("layer_norm")

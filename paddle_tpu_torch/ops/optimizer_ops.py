@@ -1,6 +1,7 @@
 """Optimizer update ops (counterpart of the dense registrations in
 ``paddle_tpu.ops.optimizer_ops``; reference
-``paddle/fluid/operators/optimizers/``: sgd_op.cc, adam_op.cc, lamb_op.cc).
+``paddle/fluid/operators/optimizers/``: sgd_op.cc, momentum_op.cc,
+adam_op.cc, lamb_op.cc).
 
 All are non-differentiable state-update ops: they read Param/Grad/
 accumulators and return the updated values under the same var names, which
@@ -27,6 +28,23 @@ def _sgd(ctx, inputs, attrs):
     (p,) = inputs["Param"]
     (g,) = inputs["Grad"]
     return {"ParamOut": [p - _lr(inputs) * g.to(p.dtype)]}
+
+
+@register_op("momentum", differentiable=False)
+def _momentum(ctx, inputs, attrs):
+    """momentum_op.cc: v = mu·v + g; p -= lr·v, or with Nesterov
+    p -= (g + mu·v)·lr."""
+    (p,) = inputs["Param"]
+    (g,) = inputs["Grad"]
+    (v,) = inputs["Velocity"]
+    mu = attrs["mu"]
+    lr = _lr(inputs)
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": [p_out], "VelocityOut": [v_out]}
 
 
 def _adam_moments(inputs, attrs, p, g):

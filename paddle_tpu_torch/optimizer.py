@@ -127,6 +127,32 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": [p.name]}, attrs={})
 
 
+class MomentumOptimizer(Optimizer):
+    """optimizer.py:531 MomentumOptimizer: one `velocity` accumulator per
+    parameter."""
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None, grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [p.name], "Grad": [g.name], "Velocity": [v.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class _AdamLike(Optimizer):
     op_type = "adam"
 
@@ -187,6 +213,7 @@ class LambOptimizer(_AdamLike):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
 AdamW = AdamWOptimizer
 Lamb = LambOptimizer

@@ -208,6 +208,60 @@ CASES += [
                                 "epsilon": 1e-6, "weight_decay": 0.01}),
 ]
 
+# the ResNet slice: convolution, pooling, normalization (the frozen-stats
+# paths here; the training paths are in test_torch_fused_bn.py), Momentum,
+# top_k and accuracy
+_IMG = _r(2, 4, 8, 8)
+_CONV_W = _r(6, 4, 3, 3, seed=1, scale=0.3)
+_BN_IN = {"Scale": [_pos(6, seed=2)], "Bias": [_r(6, seed=3)],
+          "Mean": [_r(6, seed=4, scale=0.1)], "Variance": [_pos(6, seed=5)]}
+_VEL_IN = {"Param": [X34], "Grad": [_r(3, 4, seed=1)],
+           "Velocity": [_r(3, 4, seed=2, scale=0.1)], "LearningRate": [_LR]}
+CASES += [
+    ("conv2d_pad_stride2", "conv2d", {"Input": [_IMG], "Filter": [_CONV_W]},
+     {"strides": [2, 2], "paddings": [1, 1]}),
+    ("conv2d_same_stride2", "conv2d", {"Input": [_r(2, 4, 7, 7)],
+                                       "Filter": [_CONV_W]},
+     {"strides": [2, 2], "padding_algorithm": "SAME"}),
+    ("conv2d_valid", "conv2d", {"Input": [_IMG], "Filter": [_CONV_W]},
+     {"padding_algorithm": "VALID"}),
+    ("conv2d_asym_pad", "conv2d", {"Input": [_IMG], "Filter": [_CONV_W]},
+     {"paddings": [0, 1, 2, 1]}),
+    ("conv2d_groups_dilation", "conv2d",
+     {"Input": [_IMG], "Filter": [_r(6, 2, 3, 3, seed=1)]},
+     {"groups": 2, "dilations": [2, 2], "paddings": [2, 2]}),
+    ("pool2d_max_pad", "pool2d", {"X": [_IMG]},
+     {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+      "paddings": [1, 1]}),
+    ("pool2d_avg_exclusive_pad", "pool2d", {"X": [_IMG]},
+     {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+      "paddings": [1, 1], "exclusive": True}),
+    ("pool2d_avg_inclusive_pad", "pool2d", {"X": [_IMG]},
+     {"pooling_type": "avg", "ksize": [3, 3], "strides": [1, 1],
+      "paddings": [1, 1], "exclusive": False}),
+    ("pool2d_global_avg", "pool2d", {"X": [_IMG]},
+     {"pooling_type": "avg", "global_pooling": True}),
+    ("pool2d_global_max", "pool2d", {"X": [_IMG]},
+     {"pooling_type": "max", "global_pooling": True}),
+    ("batch_norm_is_test_relu", "batch_norm",
+     dict(_BN_IN, X=[_r(2, 6, 5, 5)]),
+     {"is_test": True, "act": "relu", "epsilon": 1e-5}),
+    ("batch_norm_is_test_nhwc", "batch_norm",
+     dict(_BN_IN, X=[_r(2, 5, 5, 6)]),
+     {"is_test": True, "data_layout": "NHWC"}),
+    ("fused_conv_bn_is_test", "fused_conv_bn",
+     dict(_BN_IN, Input=[_IMG], Filter=[_r(6, 4, 1, 1, seed=6)],
+          Residual=[_r(2, 6, 4, 4, seed=7)]),
+     {"stride": 2, "act": "relu", "is_test": True}),
+    ("momentum", "momentum", _VEL_IN, {"mu": 0.9}),
+    ("momentum_nesterov", "momentum", _VEL_IN,
+     {"mu": 0.9, "use_nesterov": True}),
+    ("top_k", "top_k", {"X": [_r(4, 7)]}, {"k": 3}),
+    ("accuracy", "accuracy",
+     {"Indices": [_ids(5, 3, hi=6)], "Label": [_ids(5, 1, hi=6, seed=1)]},
+     {}),
+]
+
 
 def test_cases_cover_every_ported_op():
     covered = {op for _, op, _, _ in CASES} | set(RANDOM_OPS)
