@@ -47,6 +47,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              there) against CPUPlace() from the same weights: the loss within
              1e-5, the gradients within twice the spread a one-ulp change of
              the input makes on the CPU.
+8. sparse kernels — the block-sparse packed-segment attention kernels
+             (forward, dq, dk/dv) against their plain versions at the NMT
+             shapes (B=16, nh=16, d=64, T=256, segment rows packed by
+             reader.pack_by_tokens from the JAX bench's seeded WMT-like
+             stream): encoder self (one all-pad row: exact zeros),
+             decoder causal self, cross, and cross at Tq=192 != Tk=256; f32
+             and bf16, dropout 0 and 0.1; the kernels with an all-ones tile
+             table bitwise equal to them with the computed one (dropout on);
+             times each kernel, its plain version and F.scaled_dot_product_
+             attention with the dense boolean mask, and the bound over the
+             visible (i, j) pairs.
+9. nmt     — main path 4: Transformer-big (d_model 1024, 16 heads, d_ff
+             4096, 6+6 layers, vocab 32000, dropout 0.1) packed-sparse
+             training, nmt.build_train_program(cfg, 256, 256, packed=True,
+             attn="sparse") under mixed_precision.decorate(Adam(1e-4),
+             "bfloat16") by Executor(CUDAPlace(0)) from seed 2024: 10 steps
+             (2; 1 + 1 profiled; 6 timed) over 3 packed batches of B=16 rows
+             in turn. Checks finite losses that start near ln 32000 and
+             fall on a repeated batch, and 18 forward and 18 backward sparse
+             launches a step; prints step time, non-pad target tokens/s,
+             device busy share, device ms by kernel kind and peak memory.
+             Then one f32 step at 2+2 layers (full width, B=4, T=128,
+             dropout 0) on CUDAPlace(0) and CPUPlace() from the same
+             weights: the loss within 1e-5, every gradient within 1e-4
+             relative L2 (or twice the CPU's own one-ulp spread where that
+             is larger); its sparse launches are the f32 kernels' count.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. Exits non-zero without a result
 when torch sees no CUDA device or the port is not beside this script.
@@ -104,6 +130,16 @@ BN_STAT_TOL = 1e-5
 RESNET_B, RESNET_HW = 128, 224
 RESNET_PER_STEP = {"conv_stats": 36, "apply2d": 36, "bn_apply": 17,
                    "bn_stats": 17, "bn_bwd_reduce": 53, "bn_bwd_dx": 53}
+FAS_SOURCE = "paddle_tpu_torch/csrc/flash_attention_sparse.cu"
+FAS_REPLACES = ("paddle_tpu/ops/pallas_kernels/flash_attention.py:1249 "
+                "(_flash_fwd_pallas_sparse -> _fwd_kernel_sparse :1196)")
+FAS_BWD_REPLACES = ("paddle_tpu/ops/pallas_kernels/flash_attention.py:1402 "
+                    "(_flash_bwd_pallas_sparse -> _bwd_dq_kernel_sparse "
+                    ":1299, _bwd_dkv_kernel_sparse :1346)")
+# the JAX bench's first packed NMT shape (bench.py:1180): B rows of T tokens
+NMT_B, NMT_T, NMT_NH = 16, 256, 16
+NMT_PER_STEP = 18    # 6 encoder self + 6 decoder causal self + 6 cross
+LN_NMT_VOCAB = 10.3735   # ln 32000
 LN_VOCAB = 10.3260   # ln 30522: the loss of a uniform prediction
 LR = 1e-4            # the JAX package's bench recipe; the loss falls by
 #                      ~0.3 a step on a repeated batch at full width
@@ -166,14 +202,23 @@ def profile_device(fn, iters=10, counts=None):
 
 
 def device_ms(fn):
-    """ms of device time per call of fn, summed over its kernels."""
-    per, _, _ = profile_device(fn)
+    """ms of device time per call of fn, summed over its kernels. A
+    profiler session that reports no device event (seen once in a run) is
+    repeated, up to three sessions."""
+    for _ in range(3):
+        per, _, _ = profile_device(fn)
+        if per:
+            break
     return sum(per.values()) / 1e3
 
 
 def category(name):
     """The kind of a kernel, from its name."""
     n = name.lower()
+    if "sparse_fwd" in n:
+        return "flash sparse fwd (hand kernel)"
+    if "sparse_dq" in n or "sparse_dkv" in n:
+        return "flash sparse bwd (hand kernels)"
     if "flash_fwd" in n:
         return "flash fwd (hand kernel)"
     if "flash_bwd" in n:
@@ -1108,6 +1153,355 @@ def phase_resnet(fluid, fb):
         raise AssertionError("GPU and CPU ResNet-50 steps disagree")
     return launches
 
+# ---------------------------------------------------------------------------
+# block-sparse attention kernels and Transformer-big NMT
+# ---------------------------------------------------------------------------
+
+def wmt_stream(vocab, max_sent=128, n=200000, seed=0):
+    """The JAX bench's seeded WMT14 en-de-like pair stream (bench.py:1199):
+    log-normal lengths, mean about 26 tokens; nothing is downloaded."""
+    def gen():
+        rng = np.random.RandomState(seed)
+        for _ in range(n):
+            ls = int(np.clip(rng.lognormal(3.1, 0.55), 4, max_sent))
+            lt = int(np.clip(ls * rng.uniform(0.8, 1.25), 4, max_sent))
+            yield (rng.randint(1, vocab, ls).astype("int32"),
+                   rng.randint(1, vocab, lt).astype("int32"))
+    return gen
+
+
+def nmt_batches(b, t, n_batches, vocab=32000):
+    """n_batches stacks of b rows packed by the port's reader.pack_by_tokens
+    (Ts = Tt = t), each with its count of non-pad target tokens."""
+    from paddle_tpu_torch import reader
+
+    batches, rows = [], []
+    for row in reader.pack_by_tokens(wmt_stream(vocab), t, t)():
+        rows.append(row)
+        if len(rows) == b:
+            stack = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+            batches.append((stack, int((stack["lbl_ids"] != 0).sum())))
+            rows = []
+            if len(batches) == n_batches:
+                return batches
+    raise AssertionError("the stream ran out of pairs")
+
+
+def packed_heads(b, t, nh, d, dtype, gen):
+    """A [B, nh, T, d] view of one [B, T, nh·d] projection, as the NMT fc
+    outputs reach the attention op."""
+    import torch
+
+    x = torch.randn(b, t, nh * d, generator=gen, device="cuda").to(dtype)
+    return heads(x, nh)
+
+
+def sparse_case(fas, name, q_seg, k_seg, causal, dtype, gen, pad_row):
+    """One block-sparse case against the plain versions, at dropout 0 and
+    0.1, with the bitwise skip check at 0.1 and exact zeros on the pad row.
+    Returns (inputs for timing, {check: max abs err}, skip and fill
+    statistics)."""
+    import torch
+
+    dt = str(dtype).split(".")[1]
+    b, tq = q_seg.shape
+    tk = k_seg.shape[1]
+    se = fas.pack_se(q_seg, k_seg)
+    vis = fas.compute_block_vis(se, tq, tk, causal=causal)
+    q = packed_heads(b, tq, NMT_NH, D, dtype, gen)
+    k, v = (packed_heads(b, tk, NMT_NH, D, dtype, gen) for _ in range(2))
+    dout = packed_heads(b, tq, NMT_NH, D, dtype, gen)
+    errs = {}
+    for rate in (0.0, DROPOUT):
+        out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis, causal,
+                                                  None, rate, 91)
+        ref_out, ref_lse = fas.flash_attention_sparse_fwd_plain(
+            q, k, v, se, vis, causal, None, rate, 91)
+        got = fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se, vis,
+                                             causal, None, rate, 91)
+        want = fas.flash_attention_sparse_bwd_plain(
+            q, k, v, out, lse, dout, se, vis, causal, None, rate, 91)
+        torch.cuda.synchronize()
+        e_out, ok_out = max_err(out, ref_out, TOL[dt])
+        e_lse, ok_lse = max_err(lse, ref_lse, TOL[dt])
+        e_bwd, ok_bwd = bwd_errs(got, want, dt)
+        errs[f"dropout={rate}"] = dict(out=e_out, lse=e_lse, **e_bwd)
+        if not (ok_out and ok_lse and ok_bwd):
+            raise AssertionError(f"sparse {name} {dt} dropout={rate} "
+                                 f"disagrees with its plain version: {errs}")
+        if pad_row is not None:
+            if (out[pad_row].any() or (lse[pad_row] != -1e30).any()
+                    or any(g[pad_row].any() for g in got)):
+                raise AssertionError(f"sparse {name} {dt}: the all-pad row "
+                                     f"is not exactly zero")
+        if rate > 0.0:
+            # every tile processed: bitwise the same as skipping
+            ones = torch.ones_like(vis)
+            out1, lse1 = fas.flash_attention_sparse_fwd(
+                q, k, v, se, ones, causal, None, rate, 91)
+            got1 = fas.flash_attention_sparse_bwd(q, k, v, out1, lse1, dout,
+                                                  se, ones, causal, None,
+                                                  rate, 91)
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in
+                    zip((out, lse) + tuple(got), (out1, lse1) + tuple(got1))]
+            if not all(same):
+                raise AssertionError(f"sparse {name} {dt}: skipping tiles is "
+                                     f"not bitwise invisible "
+                                     f"(out, lse, dq, dk, dv: {same})")
+    mask = fas._mask(se, None, tq, tk, causal)
+    stats = {"visible_pairs": int(mask.sum()) * NMT_NH,
+             "pair_density": float(mask.float().mean()),
+             "tiles_skipped": 1.0 - float(vis.float().mean()),
+             "q_fill": float((q_seg > 0).float().mean()),
+             "k_fill": float((k_seg > 0).float().mean())}
+    return (q, k, v, dout, se, vis, mask, causal), errs, stats
+
+
+def sparse_timing(fas, dt, inputs, stats):
+    """Device ms of the kernels, their plain versions and SDPA with the
+    dense boolean mask, and the bound over the visible pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, dout, se, vis, mask, causal = inputs
+    out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis, causal)
+    fwd = dict(zip(("ms", "dropout_ms", "plain_ms", "library_ms"), (
+        device_ms(fn) for fn in (
+            lambda: fas.flash_attention_sparse_fwd(q, k, v, se, vis, causal),
+            lambda: fas.flash_attention_sparse_fwd(q, k, v, se, vis, causal,
+                                                   None, DROPOUT, 91),
+            lambda: fas.flash_attention_sparse_fwd_plain(q, k, v, se, vis,
+                                                         causal),
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   attn_mask=mask)))))
+    lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+    bwd = dict(zip(("ms", "dropout_ms", "plain_ms", "library_ms",
+                    "library_fwd_bwd_ms"), (device_ms(fn) for fn in (
+        lambda: fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se,
+                                               vis, causal),
+        lambda: fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se,
+                                               vis, causal, None, DROPOUT,
+                                               91),
+        lambda: fas.flash_attention_sparse_bwd_plain(q, k, v, out, lse, dout,
+                                                     se, vis, causal),
+        lambda: torch.autograd.grad(lout, (lq, lk, lv), dout,
+                                    retain_graph=True),
+        lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask),
+            (lq, lk, lv), dout)))))
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    isz = q.element_size()
+    pairs = stats["visible_pairs"]
+    small = se.numel() * 4 + vis.numel() * 4
+    fwd_bytes = (2 * tq + 2 * tk) * b * nh * d * isz + b * nh * tq * 4 + small
+    bwd_bytes = ((4 * tq + 4 * tk) * b * nh * d * isz + 2 * b * nh * tq * 4
+                 + small)
+    for rec, flops, nbytes in ((fwd, 4.0 * d * pairs, fwd_bytes),
+                               (bwd, 10.0 * d * pairs, bwd_bytes)):
+        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dt)
+        rec.update(flops=flops, bytes=nbytes)
+    return fwd, bwd
+
+
+def phase_kernel_sparse(fas):
+    """The block-sparse kernels against their plain versions at the NMT
+    shapes, f32 and bf16. Returns {(kernel, dtype): record} of the encoder
+    self-attention shape the JSON entries quote."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    ((stack, _),) = nmt_batches(NMT_B, NMT_T, 1)
+    src = torch.tensor(stack["src_seg"], device="cuda")
+    tgt = torch.tensor(stack["tgt_seg"], device="cuda")
+    src_pad = src.clone()
+    src_pad[-1] = 0                       # one all-pad row
+    cases = (("encoder self", src_pad, src_pad, False, NMT_B - 1),
+             ("decoder causal self", tgt, tgt, True, None),
+             ("cross", tgt, src, False, None),
+             (f"cross Tq={NMT_T - 64} Tk={NMT_T}", tgt[:, :NMT_T - 64], src,
+              False, None))
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        for name, q_seg, k_seg, causal, pad_row in cases:
+            inputs, errs, stats = sparse_case(fas, name, q_seg, k_seg, causal,
+                                              dtype, gen, pad_row)
+            rec = {"case": name, "dtype": dt, "B": NMT_B, "nh": NMT_NH,
+                   "Tq": q_seg.shape[1], "Tk": k_seg.shape[1], "d": D,
+                   "causal": causal, "max_abs_err": errs, **stats}
+            if q_seg.shape[1] == NMT_T:   # the main path's shapes: timed
+                fwd, bwd = sparse_timing(fas, dt, inputs, stats)
+                rec.update(fwd=fwd, bwd=bwd)
+                if name == "encoder self":
+                    for kname, r, keys in (("fwd", fwd, ("out", "lse")),
+                                           ("bwd", bwd, ("dq", "dk", "dv"))):
+                        e = max(x[key] for x in errs.values() for key in keys)
+                        records[(kname, dt)] = dict(r, max_abs_err=e)
+            log("kernel sparse " + json.dumps(rec))
+    return records
+
+
+def nmt_program(fluid, nmt, cfg, t, amp):
+    """The JAX bench's NMT recipe: packed-sparse rows, Adam(1e-4), under
+    bf16 AMP when `amp`."""
+    def opt():
+        o = fluid.optimizer.Adam(LR)
+        if amp:
+            o = fluid.contrib.mixed_precision.decorate(
+                o, dtype="bfloat16", use_dynamic_loss_scaling=False)
+        return o
+
+    main, startup, _, loss = nmt.build_train_program(
+        cfg, t, t, packed=True, attn="sparse", optimizer_factory=opt)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def nmt_feed(stack, device):
+    """A packed batch as the program's feeds, put on `device` once (a loader
+    that prefetches to the device hands the executor tensors already
+    there)."""
+    import torch
+
+    ints = {"src_ids": torch.int64, "tgt_ids": torch.int64,
+            "src_pos": torch.int64, "tgt_pos": torch.int64,
+            "src_seg": torch.int32, "tgt_seg": torch.int32}
+    feed = {k: torch.tensor(stack[k], dtype=dt, device=device)
+            for k, dt in ints.items()}
+    feed["lbl_ids"] = torch.tensor(stack["lbl_ids"][..., None],
+                                   dtype=torch.int64, device=device)
+    return feed
+
+
+def sparse_counts(fas):
+    return {"fwd": fas.flash_attention_sparse_fwd.launches,
+            "bwd": fas.flash_attention_sparse_bwd.launches}
+
+
+def reset_sparse_counts(fas):
+    fas.flash_attention_sparse_fwd.launches = 0
+    fas.flash_attention_sparse_bwd.launches = 0
+
+
+def phase_nmt(fluid, fas):
+    """Main path 4: Transformer-big packed-sparse bf16 AMP training, then
+    one f32 step at 2+2 layers against the CPU. Returns the sparse launches
+    per dtype."""
+    import torch
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+
+    cfg = nmt.TransformerConfig()
+    main, startup, loss = nmt_program(fluid, nmt, cfg, NMT_T, True)
+    batches = [(nmt_feed(stack, "cuda"), non_pad)
+               for stack, non_pad in nmt_batches(NMT_B, NMT_T, 3)]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    losses, step_ms, tokens = [], [], []
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_sparse_counts(fas)                   # main path starts
+
+        def step():
+            i = len(losses) % len(batches)
+            feed, non_pad = batches[i]
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            tokens.append(non_pad)
+            losses.append((i, float(lv)))
+
+        for _ in range(2):
+            step()
+        rec = profile_record(f"nmt transformer-big bf16 step B={NMT_B} "
+                             f"T={NMT_T}", step, 1)
+        for _ in range(6):
+            step()
+        counts = sparse_counts(fas)                # main path ends
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    steps = len(losses)
+    warm, warm_tok = step_ms[-6:], tokens[-6:]
+    med = float(np.median(warm))
+    rec.update({"steps": steps, "losses": losses, "first_steps_ms":
+                step_ms[:2], "warm_step_ms": warm, "median_ms": med,
+                "range_ms": [min(warm), max(warm)],
+                "non_pad_target_tokens_per_s": sum(warm_tok) / sum(warm)
+                * 1e3, "non_pad_target_tokens_per_batch": [
+                    n for _, n in batches],
+                "target_fill": [n / (NMT_B * NMT_T) for _, n in batches],
+                "device_busy_share_of_median": rec["device_busy_ms"] / med,
+                "peak_memory_MiB_run": peak,
+                "ops_per_step": len(main.global_block().ops),
+                "sparse_launches": counts})
+    log("nmt " + json.dumps(rec))
+    vals = [lv for _, lv in losses]
+    first0 = next(lv for i, lv in losses if i == 0)
+    last0 = [lv for i, lv in losses if i == 0][-1]
+    if not np.isfinite(vals).all() or abs(vals[0] - LN_NMT_VOCAB) > 0.5 \
+            or not last0 < first0:
+        raise AssertionError(f"nmt: losses {losses} (want finite, the first "
+                             f"within 0.5 of {LN_NMT_VOCAB}, batch 0's loss "
+                             f"falling when it comes again)")
+    if counts != {"fwd": NMT_PER_STEP * steps, "bwd": NMT_PER_STEP * steps}:
+        raise AssertionError(f"nmt: sparse launches {counts} in {steps} "
+                             f"steps, expected {NMT_PER_STEP} each a step")
+    launches = {"bfloat16": counts}
+
+    # GPU against CPU: f32, full width cut to 2+2 layers, B=4, T=128,
+    # dropout 0. Held to 1e-4 relative L2 a gradient, or to twice what a
+    # one-ulp change of the source embedding does to the CPU's own
+    # gradients where that spread is larger.
+    small = nmt.TransformerConfig(n_enc=2, n_dec=2, dropout=0.0)
+    main, startup, loss = nmt_program(fluid, nmt, small, 128, False)
+    ((stack, _),) = nmt_batches(4, 128, 1)
+    feed = {k: v.numpy() for k, v in nmt_feed(stack, "cpu").items()}
+    grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    gpu_scope = fluid.Scope()
+    with fluid.scope_guard(gpu_scope):
+        exe.run(startup)
+    state = {v.name: gpu_scope.find_np(v.name) for v in main.list_vars()
+             if v.persistable and gpu_scope.has_var(v.name)}
+    reset_sparse_counts(fas)                       # f32 path starts
+    gpu = exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                  scope=gpu_scope)
+    launches["float32"] = sparse_counts(fas)       # f32 path ends
+    nudged = dict(state)
+    emb = state["src_embedding"]
+    nudged["src_embedding"] = (emb * (1.0 + 1e-7 * np.random.RandomState(
+        5).randn(*emb.shape))).astype("float32")
+    cpu_runs = []
+    for st in (state, nudged):
+        cpu_scope = fluid.Scope()
+        fluid.io.load_params_from_numpy(st, scope=cpu_scope)
+        cpu_runs.append(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=[loss] + grads, scope=cpu_scope))
+    cpu, cpu_nudged = cpu_runs
+    loss_rel = abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    card = [rel_l2(a, b) for a, b in zip(gpu[1:], cpu[1:])]
+    ulp = [rel_l2(a, b) for a, b in zip(cpu_nudged[1:], cpu[1:])]
+    limit = max(1e-4, 2 * max(ulp))
+    summary = {"card_vs_cpu": {"median": float(np.median(card)),
+                               "max": max(card)},
+               "cpu_one_ulp_embedding": {"median": float(np.median(ulp)),
+                                         "max": max(ulp)},
+               "limit": limit,
+               "worst_card_vs_cpu": sorted(zip(card, grads),
+                                           reverse=True)[:5]}
+    log(f"nmt GPU vs CPU (2+2 layers, full width, B=4, T=128, f32, dropout "
+        f"0): loss {float(gpu[0])} vs {float(cpu[0])} relative "
+        f"{loss_rel:.3e} (tol 1e-5); grads of {len(grads)} parameters, "
+        f"relative L2 {json.dumps(summary)}; sparse launches on the card "
+        f"{json.dumps(launches['float32'])}")
+    if launches["float32"] != {"fwd": 6, "bwd": 6}:
+        raise AssertionError("the f32 step did not launch the sparse kernels "
+                             "6 + 6 times")
+    if loss_rel > 1e-5 or max(card) > limit:
+        raise AssertionError("GPU and CPU NMT steps disagree")
+    return launches
+
 
 
 def main():
@@ -1126,6 +1520,7 @@ def main():
     from paddle_tpu_torch.core.executor import cuda_device
     from paddle_tpu_torch.ops.kernels import build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import flash_attention_sparse as fas
     from paddle_tpu_torch.ops.kernels import fused_bn as fb
 
     # 1. device
@@ -1162,6 +1557,12 @@ def main():
 
     # 7. resnet (main path 3)
     bn_launches = phase_resnet(fluid, fb)
+
+    # 8. block-sparse attention kernels
+    sparse_records = phase_kernel_sparse(fas)
+
+    # 9. nmt (main path 4)
+    nmt_launches = phase_nmt(fluid, fas)
 
     kernels = []
     for name in ("float32", "bfloat16"):
@@ -1202,6 +1603,18 @@ def main():
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"], "shape": rec["shape"]})
+    for kname, replaces in (("fwd", FAS_REPLACES), ("bwd", FAS_BWD_REPLACES)):
+        for name in ("float32", "bfloat16"):
+            rec = sparse_records[(kname, name)]
+            kernels.append({
+                "name": f"flash_attention_sparse_{kname}[{name}]",
+                "route": "cuda", "source": FAS_SOURCE, "replaces": replaces,
+                "launches": nmt_launches[name][kname],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "shape": f"encoder self B={NMT_B} nh={NMT_NH} T={NMT_T} "
+                         f"d={D}"})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Layers DSL — the subset of ``paddle_tpu.layers.nn`` the BERT and ResNet
-slices use, emitting the same ops, attrs and var descs (reference
+"""Layers DSL — the subset of ``paddle_tpu.layers.nn`` the BERT, ResNet and
+Transformer NMT slices use, emitting the same ops, attrs and var descs (reference
 ``python/paddle/fluid/layers/nn.py``)."""
 from __future__ import annotations
 
@@ -327,6 +327,30 @@ def flash_attention(q: Variable, k: Variable, v: Variable,
         attrs["num_heads"] = int(num_heads)
     helper.append_op(type="flash_attention", inputs=inputs,
                      outputs={"Out": [out.name]}, attrs=attrs)
+    return out
+
+
+def flash_attention_sparse(q: Variable, k: Variable, v: Variable,
+                           num_heads: int, q_seg: Variable, k_seg: Variable,
+                           causal: bool = False, dropout_prob: float = 0.0,
+                           is_test: bool = False, name=None) -> Variable:
+    """Block-sparse packed-segment attention on [B, T, H·D] rows.
+
+    Instead of a dense additive [B, 1, Tq, Tk] mask this takes the packed
+    segment-id rows themselves (reader.pack_by_tokens layout: 1-based
+    contiguous ids, 0 = pad tail); visibility is carried as a compact
+    per-row key-range descriptor and fully masked key tiles are skipped by
+    the forward and backward Hopper kernels (their plain versions on the
+    CPU). See ops/kernels/flash_attention_sparse.py."""
+    helper = LayerHelper("flash_attention_sparse", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype, shape=q.shape)
+    helper.append_op(
+        type="flash_attention_sparse",
+        inputs={"Q": [q.name], "K": [k.name], "V": [v.name],
+                "QSeg": [q_seg.name], "KSeg": [k_seg.name]},
+        outputs={"Out": [out.name]},
+        attrs={"num_heads": int(num_heads), "causal": causal,
+               "dropout_prob": dropout_prob, "is_test": is_test})
     return out
 
 

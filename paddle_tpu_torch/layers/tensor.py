@@ -1,8 +1,10 @@
 """Tensor-manipulation layers — the subset of ``paddle_tpu.layers.tensor``
-the serving slice uses (reference python/paddle/fluid/layers/tensor.py)."""
+the ported models use (reference python/paddle/fluid/layers/tensor.py)."""
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
+
+import numpy as np
 
 from ..core.dtypes import convert_dtype, dtype_str
 from ..core.program import Variable
@@ -71,6 +73,32 @@ def unsqueeze(input: Variable, axes: Sequence[int], name=None) -> Variable:
     helper.append_op(type="unsqueeze", inputs={"X": [input.name]},
                      outputs={"Out": [out.name]}, attrs={"axes": list(axes)})
     return out
+
+
+def gather(input: Variable, index: Variable, overwrite: bool = True) -> Variable:
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather", inputs={"X": [input.name], "Index": [index.name]},
+                     outputs={"Out": [out.name]}, attrs={})
+    return out
+
+
+def assign(input, output: Optional[Variable] = None) -> Variable:
+    """A numpy array becomes an assign_value op (the values ride in the
+    attrs); a Variable is copied by an assign op."""
+    helper = LayerHelper("assign")
+    if isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype, input.shape)
+        helper.append_op(type="assign_value", outputs={"Out": [output.name]},
+                         attrs={"values": input.reshape(-1).tolist(),
+                                "shape": list(input.shape), "dtype": str(input.dtype)})
+        return output
+    if output is None:
+        output = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op(type="assign", inputs={"X": [input.name]},
+                     outputs={"Out": [output.name]}, attrs={})
+    return output
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None) -> Variable:

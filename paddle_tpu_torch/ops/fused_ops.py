@@ -11,6 +11,7 @@ import torch
 from ..core.registry import register_op
 from .common import act_map, bcast_y, one, opt_input
 from .kernels import flash_attention as _fa
+from .kernels import flash_attention_sparse as _fas
 from .kernels import fused_bn as _fbn
 
 _ACTS = act_map()
@@ -90,6 +91,19 @@ def _fused_conv_bn(ctx, inputs, attrs):
             "SavedMean": [bmean.detach()], "SavedVariance": [bvar.detach()]}
 
 
+def _attention_dropout(ctx, attrs):
+    """(rate, seed) of an attention op's dropout: rate 0 in test; in training
+    one seed per call drawn from the run's generator on the run's device (no
+    host sync), from which the backward regenerates the same mask."""
+    is_test = attrs.get("is_test", False) or ctx.is_test
+    rate = 0.0 if is_test else attrs.get("dropout_prob", 0.0)
+    seed = 0
+    if rate > 0.0:
+        seed = torch.randint(0, 2 ** 62, (1,), generator=ctx.rng(),
+                             device=ctx.device, dtype=torch.int64)
+    return rate, seed
+
+
 @register_op("flash_attention", nondiff_inputs=["BiasQK"])
 def _flash_attention(ctx, inputs, attrs):
     """Memory-efficient fused attention: the Hopper kernels on a CUDA tensor,
@@ -101,12 +115,7 @@ def _flash_attention(ctx, inputs, attrs):
     (k,) = inputs["K"]
     (v,) = inputs["V"]
     bias = opt_input(inputs, "BiasQK")
-    is_test = attrs.get("is_test", False) or ctx.is_test
-    rate = 0.0 if is_test else attrs.get("dropout_prob", 0.0)
-    seed = 0
-    if rate > 0.0:
-        seed = torch.randint(0, 2 ** 62, (1,), generator=ctx.rng(),
-                             device=ctx.device, dtype=torch.int64)
+    rate, seed = _attention_dropout(ctx, attrs)
     if q.ndim == 3:
         # packed [B, T, H] layout, read in place through strides
         if "num_heads" not in attrs:
@@ -119,3 +128,22 @@ def _flash_attention(ctx, inputs, attrs):
     return one(_fa.flash_attention(
         q, k, v, bias=bias, causal=attrs.get("causal", False),
         dropout_rate=rate, seed=seed))
+
+
+@register_op("flash_attention_sparse", nondiff_inputs=["QSeg", "KSeg"])
+def _flash_attention_sparse(ctx, inputs, attrs):
+    """Block-sparse packed-segment attention on [B, T, H] q/k/v: visibility
+    travels as the int32 segment-id rows QSeg [B, Tq] and KSeg [B, Tk]
+    instead of a dense [B, 1, Tq, Tk] mask, and fully masked 64x64 tiles are
+    skipped by the forward and both backward kernels (the Hopper kernels on
+    a CUDA tensor, their plain versions on a CPU tensor); see
+    ops/kernels/flash_attention_sparse.py. Dropout as flash_attention's."""
+    (q,) = inputs["Q"]
+    (k,) = inputs["K"]
+    (v,) = inputs["V"]
+    (q_seg,) = inputs["QSeg"]
+    (k_seg,) = inputs["KSeg"]
+    rate, seed = _attention_dropout(ctx, attrs)
+    return one(_fas.flash_attention_packed_sparse(
+        q, k, v, attrs["num_heads"], q_seg, k_seg,
+        causal=attrs.get("causal", False), dropout_rate=rate, seed=seed))

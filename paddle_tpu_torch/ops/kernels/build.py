@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel library name -> its source file under csrc/
 SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
+           "flash_attention_sparse": "flash_attention_sparse.cu",
            "fused_bn": "fused_bn.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

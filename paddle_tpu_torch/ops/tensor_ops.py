@@ -1,7 +1,7 @@
 """Tensor manipulation + creation ops (counterpart of
 ``paddle_tpu.ops.tensor_ops``; reference reshape_op.cc, transpose_op.cc,
-split_op.cc, unsqueeze_op.cc, cast_op.cc, assign_op.cc, fill_constant_op.cc,
-assign_value_op.cc and the random initializer ops).
+split_op.cc, unsqueeze_op.cc, gather_op.cc, cast_op.cc, assign_op.cc,
+fill_constant_op.cc, assign_value_op.cc and the random initializer ops).
 
 The random ops draw from the run's seeded ``torch.Generator``
 (``ctx.rng()``); the same seed gives other numbers than the JAX package's
@@ -56,6 +56,19 @@ def _unsqueeze(ctx, inputs, attrs):
     for a in sorted(attrs["axes"]):
         out = out.unsqueeze(a)
     return one(out)
+
+
+@register_op("gather", nondiff_inputs=["Index"])
+def _gather(ctx, inputs, attrs):
+    """Rows of X at Index (an [N, 1] index is squeezed to [N]). XLA clamps
+    an out-of-range index silently; torch raises. The NMT model sizes its
+    position table to cover the longest row, so neither happens there."""
+    (x,) = inputs["X"]
+    (index,) = inputs["Index"]
+    idx = index[..., 0] if index.ndim == 2 and index.shape[-1] == 1 else index
+    axis = attrs.get("axis", 0) % x.ndim
+    rows = torch.index_select(x, axis, idx.reshape(-1).long())
+    return one(rows.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:]))
 
 
 @register_op("cast")

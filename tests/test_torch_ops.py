@@ -262,6 +262,25 @@ CASES += [
      {}),
 ]
 
+# the NMT slice: the position-table gather and block-sparse attention on
+# packed rows (segment ids 1-based and contiguous, 0 = pad; row 0 all pad)
+_SEG = np.array([[0] * 16, [1] * 5 + [2] * 7 + [0] * 4], np.int32)
+_KSEG = np.array([[0] * 24, [1] * 9 + [2] * 11 + [0] * 4], np.int32)
+CASES += [
+    ("gather_rows", "gather", {"X": [_r(10, 4)], "Index": [_ids(6, hi=10)]},
+     {}),
+    ("gather_index_n1", "gather",
+     {"X": [_r(10, 4)], "Index": [_ids(6, 1, hi=10, seed=1)]}, {}),
+    ("flash_attention_sparse_causal", "flash_attention_sparse",
+     {"Q": [_r(2, 16, 32)], "K": [_r(2, 16, 32, seed=1)],
+      "V": [_r(2, 16, 32, seed=2)], "QSeg": [_SEG], "KSeg": [_SEG]},
+     {"num_heads": 2, "causal": True, "is_test": True, "dropout_prob": 0.1}),
+    ("flash_attention_sparse_cross", "flash_attention_sparse",
+     {"Q": [_r(2, 16, 32)], "K": [_r(2, 24, 32, seed=1)],
+      "V": [_r(2, 24, 32, seed=2)], "QSeg": [_SEG], "KSeg": [_KSEG]},
+     {"num_heads": 2}),
+]
+
 
 def test_cases_cover_every_ported_op():
     covered = {op for _, op, _, _ in CASES} | set(RANDOM_OPS)

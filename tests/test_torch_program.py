@@ -163,8 +163,11 @@ def test_int64_feeds_stay_int64():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models.bert, "
             "paddle_tpu_torch.models.resnet, "
+            "paddle_tpu_torch.models.transformer_nmt, "
+            "paddle_tpu_torch.reader, "
             "paddle_tpu_torch.ops.kernels.build, "
             "paddle_tpu_torch.ops.kernels.fused_bn, "
+            "paddle_tpu_torch.ops.kernels.flash_attention_sparse, "
             "paddle_tpu_torch.layers.metric_op, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.contrib.mixed_precision, "
             "paddle_tpu_torch.core.backward; "
