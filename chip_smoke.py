@@ -73,6 +73,40 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              weights: the loss within 1e-5, every gradient within 1e-4
              relative L2 (or twice the CPU's own one-ulp spread where that
              is larger); its sparse launches are the f32 kernels' count.
+10. sparse adagrad kernels — rows 12-14 against their plain versions, bit
+             for bit, at the main paths' shapes: the sparse-Adagrad update
+             on the [33,554,432, 128] u16 DeepFM table with one step's
+             106,496 merged slots (uniform ids: a few duplicates, so a
+             SENTINEL tail; spare lanes zeroed; the all-sentinel call leaves
+             the table as it was), the row gather and scatter at n = 65,536
+             on the [368,640, 128] hot-cache slab with a padded duplicate
+             tail; times each kernel, its plain version and
+             index_select / index_copy_ with the L2 cache flushed before
+             each call.
+11. deepfm  — main path 5: DeepFM at the JAX bench's TPU shape (vocab
+             33,554,432, 26 fields, embed 16, hidden 400x3, B=4096) with
+             fm_t packed on exact Adagrad (an 8.59 GB u16 table) and the
+             dense net on Adam, deepfm.build_train_program(...,
+             packed_rows=...) → Executor(CUDAPlace(0)) from seed 2024: 2 +
+             1 profiled + 6 timed steps on one repeated batch of uniform ids
+             (finite losses that fall, one row-12 launch a step; examples/s,
+             step ms, device busy share, kernels by kind, peak memory).
+             Then 2 steps from one state fused and {"fused": False}, and
+             fused twice: equal losses and bit-equal tables.
+12. ps hot cache — main path 6: the same model through
+             ps.PsEmbeddingTier over ShardedTable.build_in_process on
+             RangeSpec.even(33,554,432, 4), 24 Zipf(1.5) batches
+             (RandomState(11)), the first 4 warm-up, push_depth 1: the
+             streaming arm (hot_rows 0) and the hot arm (hot_rows 2^18, a
+             [368,640, 128] slab). Prints the steady lookup hit rate,
+             examples/s of both arms and the speedup, evictions and
+             write-back bytes; requires equal losses in both arms and row
+             13/14 launches in the hot arm.
+13. deepfm GPU vs CPU — the JAX bench's CPU shape (vocab 10,000, B=64,
+             f32) 3 steps on the card and on CPUPlace() from one state: the
+             losses within 1e-5, untouched table rows bit for bit, the dense
+             parameters and the touched payloads within twice the CPU's own
+             spread under a one-ulp change of the dense input.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. Exits non-zero without a result
 when torch sees no CUDA device or the port is not beside this script.
@@ -143,6 +177,24 @@ LN_NMT_VOCAB = 10.3735   # ln 32000
 LN_VOCAB = 10.3260   # ln 30522: the loss of a uniform prediction
 LR = 1e-4            # the JAX package's bench recipe; the loss falls by
 #                      ~0.3 a step on a repeated batch at full width
+SA_SOURCE = "paddle_tpu_torch/csrc/sparse_adagrad.cu"
+SA_REPLACES = {
+    "sparse_adagrad_update": "paddle_tpu/ops/pallas_kernels/sparse_adagrad.py"
+                             ":160 (fused_adagrad_update -> _kernel :130)",
+    "sparse_row_gather": "paddle_tpu/ops/pallas_kernels/sparse_adagrad.py:231 "
+                         "(fused_row_gather -> _copy_row_kernel :226)",
+    "sparse_row_scatter": "paddle_tpu/ops/pallas_kernels/sparse_adagrad.py"
+                          ":263 (fused_row_scatter -> _scatter_row_kernel "
+                          ":258)"}
+# the JAX bench's DeepFM TPU shape (bench.py:467-488): Criteo-scale vocab,
+# 26 fields, embed_dim 16 + 1 first-order column, B = 4096
+DEEPFM_VOCAB, DEEPFM_VIS, DEEPFM_B = 33_554_432, 17, 4096
+DEEPFM_ROWS = DEEPFM_B * 26          # rows_per_step
+# its hot-cache arm (bench.py:514-612): hot_rows = 2^18, 24 Zipf steps,
+# the first 4 warm-up; the slab is [hot_rows + rows_per_step, 128]
+HOT_ROWS, HOT_STEPS, HOT_WARMUP = 1 << 18, 24, 4
+HOT_SLAB_ROWS = HOT_ROWS + DEEPFM_ROWS
+HOT_ROW_SLOTS = 65536                # rows 13-14 at a power-of-two bucket
 
 
 def log(msg):
@@ -212,9 +264,36 @@ def device_ms(fn):
     return sum(per.values()) / 1e3
 
 
+def cold_device_ms(fn, iters=10):
+    """ms of device time per call of fn with the L2 cache flushed before
+    each call (a 64 MB in-place bitwise_not, whose own kernel is left out of
+    the sum): a row kernel called back to back on the same rows would
+    otherwise find them in the 50 MB L2 and beat the HBM bound."""
+    import torch
+
+    buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def call():
+        buf.bitwise_not_()
+        fn()
+
+    for _ in range(3):
+        per, _, _ = profile_device(call, iters)
+        per = {k: v for k, v in per.items() if "bitwise_not" not in k}
+        if per:
+            break
+    return sum(per.values()) / 1e3
+
+
 def category(name):
     """The kind of a kernel, from its name."""
     n = name.lower()
+    if "::adagrad_kernel(" in n:
+        return "sparse adagrad row 12 (hand kernel)"
+    if "::gather_kernel(" in n or "::scatter_kernel(" in n:
+        return "row gather/scatter 13-14 (hand kernels)"
+    if "segment_reduce" in n:
+        return "duplicate merge: segment sums"
     if "sparse_fwd" in n:
         return "flash sparse fwd (hand kernel)"
     if "sparse_dq" in n or "sparse_dkv" in n:
@@ -253,6 +332,12 @@ def category(name):
         return "reductions"
     if "elementwise" in n:
         return "elementwise"
+    # kinds named since the DeepFM phase; before it, these kernels (BERT's
+    # and NMT's embedding-grad sorts, NMT's searchsorted) counted as other
+    if "radix" in n or "sort" in n:
+        return "sorts"
+    if "index" in n and ("select" in n or "put" in n):
+        return "indexed gathers/stores"
     return "other"
 
 
@@ -1503,6 +1588,420 @@ def phase_nmt(fluid, fas):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# sparse-Adagrad and row kernels, DeepFM and the PS hot-row cache
+# ---------------------------------------------------------------------------
+
+
+def packed_table(fsa, v, vis, gen, chunk=1 << 20):
+    """A [v, 128] packed table on the card with payload [p | G] from `gen`
+    (p ~ N(0, 1), G = |N(0, 1)|), built in row chunks."""
+    import torch
+
+    table = torch.empty((v, fsa.PACK_LANES), dtype=torch.int16, device="cuda")
+    for start in range(0, v, chunk):
+        n = min(chunk, v - start)
+        rows = torch.randn(n, 2 * vis, generator=gen, device="cuda")
+        rows[:, vis:] = rows[:, vis:].abs()
+        table[start:start + n] = fsa.i16(fsa.pack_rows(rows))
+    return table.view(torch.uint16)
+
+
+def equal16(a, b):
+    """Bitwise equality of two packed tensors (through int16 views)."""
+    import torch
+
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def phase_kernel_sparse_adagrad(fsa, dr):
+    """Rows 12–14 against their plain versions on the card at the main
+    path's shapes, bit for bit. Returns {kernel: record}."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(12)
+    records = {}
+    # row 12: the DeepFM table and one step's ids (uniform over the vocab:
+    # ~170 duplicates, so a SENTINEL tail), merged as the op merges them
+    table = packed_table(fsa, DEEPFM_VOCAB, DEEPFM_VIS, gen)
+    ids = torch.tensor(np.random.RandomState(0).randint(
+        0, DEEPFM_VOCAB, DEEPFM_ROWS), device="cuda")
+    grows = torch.randn(DEEPFM_ROWS, DEEPFM_VIS, generator=gen, device="cuda")
+    uids, utot, _ = dr.uniq_merge(ids, grows, DEEPFM_ROWS)
+    nu = int((uids != fsa.SENTINEL).sum())
+    lr = torch.tensor(0.05, device="cuda")
+    # spare lanes nonzero on the touched rows, so their zeroing shows
+    valid = uids[:nu]
+    fsa.i16(table)[valid, 4 * DEEPFM_VIS:] = 7
+    plain = table.clone()
+    fsa.fused_adagrad_update(table, uids, utot, lr, vis=DEEPFM_VIS, eps=1e-6)
+    fsa.fused_adagrad_update_plain(plain, uids, utot, lr, DEEPFM_VIS, 1e-6)
+    torch.cuda.synchronize()
+    same = equal16(table, plain)
+    spare_zero = not bool(fsa.i16(table)[valid, 4 * DEEPFM_VIS:].any())
+    del plain
+    # the all-sentinel call leaves the table as it was
+    before = table.clone()
+    fsa.fused_adagrad_update(
+        table, torch.full_like(uids, fsa.SENTINEL), utot, lr,
+        vis=DEEPFM_VIS, eps=1e-6)
+    torch.cuda.synchronize()
+    untouched = equal16(table, before)
+    ms, plain_ms = (cold_device_ms(fn) for fn in (
+        lambda: fsa.fused_adagrad_update(table, uids, utot, lr,
+                                         vis=DEEPFM_VIS, eps=1e-6),
+        lambda: fsa.fused_adagrad_update_plain(table, uids, utot, lr,
+                                               DEEPFM_VIS, 1e-6)))
+    # each valid slot reads its id, its summed gradient and the payload of
+    # its row and writes the whole row; a SENTINEL slot reads its id
+    nbytes = nu * (8 + 4 * DEEPFM_VIS + 8 * DEEPFM_VIS + 2 * fsa.PACK_LANES) \
+        + (DEEPFM_ROWS - nu) * 8
+    bound_ms, bound_by = bound(6.0 * nu * DEEPFM_VIS, nbytes, "float32")
+    records["sparse_adagrad_update"] = rec = {
+        "shape": f"table [{DEEPFM_VOCAB}, 128] u16, {DEEPFM_ROWS} slots "
+                 f"({nu} valid), vis {DEEPFM_VIS}",
+        "bitwise_equal_plain": same, "spare_lanes_zero": spare_zero,
+        "all_sentinel_untouched": untouched, "max_abs_err": 0.0 if same
+        else None, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "library": None, "bytes": nbytes, "bound_ms": bound_ms,
+        "bound_by": bound_by}
+    log("kernel sparse_adagrad " + json.dumps(rec))
+    if not (same and spare_zero and untouched):
+        raise AssertionError(f"sparse_adagrad_update disagrees with its "
+                             f"plain version: {rec}")
+    del table, before
+
+    # rows 13 and 14: the hot cache's slab, n = 65,536 slots padded by
+    # repeating the last one (the cache's bucket rule)
+    slab = torch.randint(-2 ** 15, 2 ** 15, (HOT_SLAB_ROWS, fsa.PACK_LANES),
+                         generator=gen, device="cuda",
+                         dtype=torch.int16).view(torch.uint16)
+    n = HOT_ROW_SLOTS
+    perm = torch.randperm(HOT_SLAB_ROWS, generator=gen, device="cuda")
+    slots = perm[:n].clone()
+    slots[n - n // 8:] = slots[n - n // 8 - 1]        # padded duplicate tail
+    src = torch.arange(n, device="cuda")
+    src[n - n // 8:] = n - n // 8 - 1
+    got = fsa.fused_row_gather(slab, slots)
+    want = fsa.fused_row_gather_plain(slab, slots)
+    rows = torch.randint(-2 ** 15, 2 ** 15, (n, fsa.PACK_LANES),
+                         generator=gen, device="cuda",
+                         dtype=torch.int16).view(torch.uint16)
+    a, b = slab.clone(), slab.clone()
+    fsa.fused_row_scatter(a, slots, rows, src)
+    fsa.fused_row_scatter_plain(b, slots, rows, src)
+    torch.cuda.synchronize()
+    checks = {"sparse_row_gather": equal16(got, want),
+              "sparse_row_scatter": equal16(a, b)}
+    del a, b
+    # the padded tail repeats one slot (and one src): a row is read (and
+    # written) once per distinct slot, the gather's output once per slot,
+    # and every slot's ids are read
+    row_bytes = 2 * fsa.PACK_LANES
+    n_slots, n_src = int(slots.unique().numel()), int(src.unique().numel())
+    s16 = fsa.i16(slab)
+    for kname, fn, plain_fn, lib_fn, lib, nbytes in (
+            ("sparse_row_gather",
+             lambda: fsa.fused_row_gather(slab, slots),
+             lambda: fsa.fused_row_gather_plain(slab, slots),
+             lambda: s16.index_select(0, slots), "Tensor.index_select",
+             (n_slots + n) * row_bytes + n * 8),
+            ("sparse_row_scatter",
+             lambda: fsa.fused_row_scatter(slab, slots, rows, src),
+             lambda: fsa.fused_row_scatter_plain(slab, slots, rows, src),
+             lambda: s16.index_copy_(0, slots, fsa.i16(rows)),
+             "Tensor.index_copy_", (n_src + n_slots) * row_bytes + n * 16)):
+        ms, plain_ms, library_ms = (cold_device_ms(f) for f in (
+            fn, plain_fn, lib_fn))
+        bound_ms, bound_by = bound(0.0, nbytes, "float32")
+        records[kname] = rec = {
+            "shape": f"slab [{HOT_SLAB_ROWS}, 128] u16, n={n} (last "
+                     f"{n // 8} repeat the last slot)",
+            "bitwise_equal_plain": checks[kname],
+            "max_abs_err": 0.0 if checks[kname] else None, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library": lib,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by}
+        log("kernel sparse_rows " + json.dumps({kname: rec}))
+    if not all(checks.values()):
+        raise AssertionError(f"row kernels disagree with their plain "
+                             f"versions: {checks}")
+    return records
+
+
+def deepfm_program(fluid, deepfm, vocab, rows, fused=True):
+    """The JAX bench's DeepFM recipe: one fm_t table of 17 visible columns
+    on exact Adagrad in the packed layout, the dense net on Adam."""
+    from paddle_tpu_torch.core import unique_name
+
+    with unique_name.guard():
+        main, startup, _, loss, _ = deepfm.build_train_program(
+            vocab_size=vocab, is_sparse=True, fused_table=True,
+            embedding_optimizer="adagrad",
+            packed_rows={"rows_per_step": rows, "fused": fused})
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def deepfm_feed(rng, b, vocab, device=None, zipf=None):
+    """One batch: uniform ids (or Zipf(`zipf`) ids folded into the vocab,
+    as the JAX bench draws them), dense features and 0/1 labels."""
+    import torch
+
+    ids = (rng.randint(0, vocab, (b, 26)) if zipf is None
+           else (rng.zipf(zipf, (b, 26)) - 1) % vocab).astype("int64")
+    feed = {"sparse_ids": ids, "dense": rng.rand(b, 13).astype("float32"),
+            "label": rng.randint(0, 2, (b, 1)).astype("float32")}
+    if device is None:
+        return feed
+    return {k: torch.tensor(v, device=device) for k, v in feed.items()}
+
+
+def clone_state(scope, names):
+    return {n: scope.find_var(n).clone() for n in names
+            if scope.find_var(n) is not None}
+
+
+def run_from(fluid, exe, main, loss, state, feed, steps):
+    """`steps` steps of `main` from a copy of `state`; (losses, scope)."""
+    scope = fluid.Scope()
+    for n, t in state.items():
+        scope.set_var(n, t.clone())
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(steps)]
+    return losses, scope
+
+
+def phase_deepfm(fluid, fsa):
+    """Main path 5: full-width DeepFM on packed-row exact Adagrad, 2 + 1
+    profiled + 6 timed steps on one repeated batch; then fused against
+    unfused and two fused runs from one state, 2 steps each. Returns the
+    row-12 launches of the main run."""
+    import torch
+    from paddle_tpu_torch.models import deepfm
+
+    main, startup, loss = deepfm_program(fluid, deepfm, DEEPFM_VOCAB,
+                                         DEEPFM_ROWS)
+    feed = deepfm_feed(np.random.RandomState(0), DEEPFM_B, DEEPFM_VOCAB,
+                       "cuda")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    state = clone_state(scope, persist)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+
+    def step():
+        t1 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(float(lv))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+
+    fsa.fused_adagrad_update.launches = 0          # main path starts
+    for _ in range(2):
+        step()
+    rec = profile_record(f"deepfm step B={DEEPFM_B} vocab={DEEPFM_VOCAB}",
+                         step, 1)
+    for _ in range(6):
+        step()
+    launches = fsa.fused_adagrad_update.launches   # main path ends
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steps = len(losses)
+    warm = step_ms[-6:]
+    med = float(np.median(warm))
+    table = scope.find_var("fm_t")
+    rec.update({"steps": steps, "losses": losses, "startup_s": startup_s,
+                "table": f"{tuple(table.shape)} {table.dtype}, "
+                         f"{table.numel() * 2 / 1e9:.2f} GB",
+                "first_steps_ms": step_ms[:2], "warm_step_ms": warm,
+                "median_ms": med, "range_ms": [min(warm), max(warm)],
+                "examples_per_s": DEEPFM_B / med * 1e3,
+                "device_busy_share_of_median": rec["device_busy_ms"] / med,
+                "peak_memory_MiB_run": peak,
+                "ops_per_step": len(main.global_block().ops),
+                "sparse_adagrad_launches": launches})
+    log("deepfm " + json.dumps(rec))
+    del scope, table
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"deepfm: losses {losses} (want finite and "
+                             f"falling on the repeated batch)")
+    if launches != steps:
+        raise AssertionError(f"deepfm: {launches} sparse-Adagrad launches in "
+                             f"{steps} steps, expected one a step")
+
+    # fused against unfused, and two fused runs, from one state
+    unfused_main, _, unfused_loss = deepfm_program(
+        fluid, deepfm, DEEPFM_VOCAB, DEEPFM_ROWS, fused=False)
+    la, sa = run_from(fluid, exe, main, loss, state, feed, 2)
+    lu, su = run_from(fluid, exe, unfused_main, unfused_loss, state, feed, 2)
+    fused_eq = la == lu and equal16(sa.find_var("fm_t"), su.find_var("fm_t"))
+    del su
+    lb, sb = run_from(fluid, exe, main, loss, state, feed, 2)
+    repeat_eq = la == lb and equal16(sa.find_var("fm_t"),
+                                     sb.find_var("fm_t"))
+    del sa, sb, state
+    log(f"deepfm fused vs unfused (2 steps from one state): losses {la} vs "
+        f"{lu}, tables equal: {fused_eq}; two fused runs: losses {la} vs "
+        f"{lb}, tables equal: {repeat_eq}")
+    if not (fused_eq and repeat_eq):
+        raise AssertionError("deepfm: fused and unfused (or two fused runs) "
+                             "differ")
+    return launches
+
+
+def ps_arm(fluid, deepfm, exe, feeds, hot_rows):
+    """One arm of the JAX bench's hot-cache A/B: the DeepFM step through
+    PsEmbeddingTier over four in-process shards of the full vocab, 4
+    warm-up steps then timed ones. Returns (ms per step, losses, cache
+    stats with the steady-state lookup hit rate)."""
+    import torch
+    from paddle_tpu_torch.ps import (PsEmbeddingTier, PsTableBinding,
+                                     RangeSpec, ShardedTable)
+
+    table = ShardedTable.build_in_process(
+        "fm_t", RangeSpec.even(DEEPFM_VOCAB, 4))
+    main, startup, loss = deepfm_program(
+        fluid, deepfm, hot_rows + DEEPFM_ROWS if hot_rows else DEEPFM_ROWS,
+        DEEPFM_ROWS)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    tier = PsEmbeddingTier(main, [PsTableBinding("fm_t", table,
+                                                 ["sparse_ids"])],
+                           pull_ahead=0, push_depth=1, hot_rows=hot_rows,
+                           place=fluid.CUDAPlace(0))
+    losses, st_warm, t0 = [], None, None
+    try:
+        for i, prep in enumerate(tier.steps(lambda: iter(feeds))):
+            (lv,) = tier.run_step(exe, prep, fetch_list=[loss], scope=scope)
+            losses.append(float(lv))
+            if i + 1 == HOT_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st_warm = tier.stats()["fm_t"].get("hot_cache")
+        tier.flush()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (len(feeds) - HOT_WARMUP)
+        st = tier.stats()["fm_t"].get("hot_cache")
+    finally:
+        tier.close()
+    if st is not None:
+        dh = st["lookup_hits"] - st_warm["lookup_hits"]
+        dm = st["lookup_misses"] - st_warm["lookup_misses"]
+        st = dict(st, steady_lookup_hit_rate=dh / (dh + dm) if dh + dm
+                  else None)
+    return ms, losses, st
+
+
+def phase_ps_hot_cache(fluid, fsa):
+    """Main path 6: the PS tier's device-resident hot-row cache against
+    the streaming tier on a Zipf(1.5) id stream (the JAX bench's arm).
+    Returns the row-kernel launches of the hot arm."""
+    from paddle_tpu_torch.models import deepfm
+
+    rng = np.random.RandomState(11)
+    feeds = [deepfm_feed(rng, DEEPFM_B, DEEPFM_VOCAB, zipf=1.5)
+             for _ in range(HOT_STEPS)]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    ms_stream, losses_stream, _ = ps_arm(fluid, deepfm, exe, feeds, 0)
+    for k in fsa.KERNELS:                            # hot path starts
+        k.launches = 0
+    ms_hot, losses_hot, st = ps_arm(fluid, deepfm, exe, feeds, HOT_ROWS)
+    launches = {k.__name__: k.launches for k in fsa.KERNELS}  # ends
+    rec = {"hot_rows": HOT_ROWS, "zipf_a": 1.5, "steps": HOT_STEPS,
+           "warmup": HOT_WARMUP, "push_depth": 1, "pull_ahead": 0,
+           "hit_rate": st["steady_lookup_hit_rate"],
+           "cold_hit_rate": st["lookup_hit_rate"],
+           "row_hit_rate": st["hit_rate"], "evictions": st["evictions"],
+           "writeback_bytes": st["writeback_bytes"],
+           "examples_per_s": DEEPFM_B / ms_hot * 1e3,
+           "streaming_examples_per_s": DEEPFM_B / ms_stream * 1e3,
+           "step_ms": ms_hot, "streaming_step_ms": ms_stream,
+           "speedup_vs_streaming": ms_stream / ms_hot,
+           "bitwise_equal": losses_stream == losses_hot,
+           "losses": losses_hot, "launches": launches}
+    log("ps hot cache " + json.dumps(rec))
+    if not rec["bitwise_equal"]:
+        raise AssertionError(f"ps hot cache: losses differ from the "
+                             f"streaming arm: {losses_hot} vs "
+                             f"{losses_stream}")
+    if not (launches["fused_row_gather"] and launches["fused_row_scatter"]
+            and launches["fused_adagrad_update"] == HOT_STEPS):
+        raise AssertionError(f"ps hot cache: row kernels launched "
+                             f"{launches}")
+    return launches
+
+
+def phase_deepfm_gpu_vs_cpu(fluid):
+    """DeepFM at the JAX bench's CPU shape (vocab 10,000, B=64, f32), 3
+    steps on CUDAPlace(0) and on CPUPlace() from the same state. The
+    table's touched payloads and the dense parameters are held to the CPU's
+    within twice what a one-ulp change of the dense input does to the
+    CPU's own; untouched rows bit for bit."""
+    import torch
+    from paddle_tpu_torch.models import deepfm
+
+    vocab, b = 10_000, 64
+    main, startup, loss = deepfm_program(fluid, deepfm, vocab, b * 26)
+    rng = np.random.RandomState(3)
+    feeds = [deepfm_feed(rng, b, vocab) for _ in range(3)]
+    nudged = [dict(f, dense=(f["dense"] * (1.0 + 1e-7 * np.random.RandomState(
+        5).randn(*f["dense"].shape))).astype("float32")) for f in feeds]
+    gpu_scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=gpu_scope)
+    names = [v.name for v in main.list_vars() if v.persistable
+             and gpu_scope.has_var(v.name)]
+    state = {n: gpu_scope.find_np(n) for n in names}
+    gpu_losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=gpu_scope)[0]) for f in feeds]
+    runs = []
+    for fs in (feeds, nudged):
+        cpu_scope = fluid.Scope()
+        fluid.io.load_params_from_numpy(state, scope=cpu_scope)
+        cpu_exe = fluid.Executor(fluid.CPUPlace())
+        runs.append(([float(cpu_exe.run(main, feed=f, fetch_list=[loss],
+                                        scope=cpu_scope)[0]) for f in fs],
+                     {n: cpu_scope.find_np(n) for n in names}))
+    (cpu_losses, cpu), (_, cpu_nudged) = runs
+    gpu = {n: gpu_scope.find_np(n) for n in names}
+    touched = np.unique(np.concatenate([f["sparse_ids"].ravel()
+                                        for f in feeds]))
+    untouched = np.setdiff1d(np.arange(vocab), touched)
+
+    def payload(t):
+        return t[touched, :68].copy().view(np.float32)
+
+    dense = [n for n in names if n != "fm_t" and gpu[n].dtype == np.float32
+             and gpu[n].size > 1]
+    card = {n: rel_l2(gpu[n], cpu[n]) for n in dense}
+    card["fm_t payload"] = rel_l2(payload(gpu["fm_t"]), payload(cpu["fm_t"]))
+    spread = {n: rel_l2(cpu_nudged[n], cpu[n]) for n in dense}
+    spread["fm_t payload"] = rel_l2(payload(cpu_nudged["fm_t"]),
+                                    payload(cpu["fm_t"]))
+    limit = 2 * max(spread.values())
+    loss_rel = max(abs(g - c) / abs(c) for g, c in zip(gpu_losses,
+                                                       cpu_losses))
+    same_untouched = bool((gpu["fm_t"][untouched]
+                           == cpu["fm_t"][untouched]).all())
+    rec = {"vocab": vocab, "B": b, "steps": 3, "gpu_losses": gpu_losses,
+           "cpu_losses": cpu_losses, "loss_rel_max": loss_rel,
+           "untouched_rows_bitwise": same_untouched,
+           "card_vs_cpu_rel_l2_max": max(card.values()),
+           "touched_payload_rel_l2": card["fm_t payload"],
+           "cpu_one_ulp_spread_max": max(spread.values()),
+           "touched_payload_one_ulp_spread": spread["fm_t payload"],
+           "limit": limit,
+           "worst": sorted(card.items(), key=lambda kv: -kv[1])[:4]}
+    log("deepfm GPU vs CPU " + json.dumps(rec))
+    del gpu_scope
+    torch.cuda.empty_cache()
+    if loss_rel > 1e-5 or not same_untouched or max(card.values()) > limit:
+        raise AssertionError("GPU and CPU DeepFM steps disagree")
+
 
 def main():
     import torch
@@ -1522,6 +2021,8 @@ def main():
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import flash_attention_sparse as fas
     from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    from paddle_tpu_torch.ops import deferred_rows as dr
+    from paddle_tpu_torch.ops.kernels import sparse_adagrad as fsa
 
     # 1. device
     cuda_device(0)  # TF32 off for the f32 comparisons
@@ -1563,6 +2064,20 @@ def main():
 
     # 9. nmt (main path 4)
     nmt_launches = phase_nmt(fluid, fas)
+
+    # 10. sparse-Adagrad and row kernels
+    sa_records = phase_kernel_sparse_adagrad(fsa, dr)
+
+    # 11. deepfm (main path 5)
+    sa_launches = {"sparse_adagrad_update": phase_deepfm(fluid, fsa)}
+
+    # 12. ps hot cache (main path 6)
+    hot = phase_ps_hot_cache(fluid, fsa)
+    sa_launches.update(sparse_row_gather=hot["fused_row_gather"],
+                       sparse_row_scatter=hot["fused_row_scatter"])
+
+    # 13. deepfm GPU vs CPU
+    phase_deepfm_gpu_vs_cpu(fluid)
 
     kernels = []
     for name in ("float32", "bfloat16"):
@@ -1615,6 +2130,17 @@ def main():
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "shape": f"encoder self B={NMT_B} nh={NMT_NH} T={NMT_T} "
                          f"d={D}"})
+    for kname, dt in (("sparse_adagrad_update", "float32"),
+                      ("sparse_row_gather", "uint16"),
+                      ("sparse_row_scatter", "uint16")):
+        rec = sa_records[kname]
+        kernels.append({
+            "name": f"{kname}[{dt}]", "route": "cuda", "source": SA_SOURCE,
+            "replaces": SA_REPLACES[kname], "launches": sa_launches[kname],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": rec["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

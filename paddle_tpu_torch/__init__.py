@@ -31,6 +31,7 @@ from . import io  # noqa: F401
 from . import ir  # noqa: F401
 from . import inference  # noqa: F401
 from . import reader  # noqa: F401
+from . import ps  # noqa: F401
 from .core import (  # noqa: F401
     Block,
     CPUPlace,

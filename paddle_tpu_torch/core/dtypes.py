@@ -53,10 +53,25 @@ def itemsize(dtype) -> int:
     return torch.empty((), dtype=convert_dtype(dtype)).element_size()
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """`t` on `device` (itself when it is there already). A uint16 tensor
+    (a packed row table) moves as an int16 view of the same bits: torch's
+    uint16 has few kernels."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(device).view(torch.uint16)
+    return t.to(device)
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Host copy of a tensor. bfloat16 comes back as an ml_dtypes bfloat16
-    array (the type the JAX package pickles), through a uint16 view."""
-    t = t.detach().cpu()
+    """Host copy of a tensor (a copy on the CPU too: packed tables are
+    updated in place). bfloat16 comes back as an ml_dtypes bfloat16 array
+    (the type the JAX package pickles), through a uint16 view; uint16 comes
+    back as uint16, through an int16 view."""
+    t = t.detach()
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to("cpu", copy=True).numpy().view(
+            np.uint16)
+    t = t.to("cpu", copy=True)
     if t.dtype != torch.bfloat16:
         return t.numpy()
     import ml_dtypes  # only needed for bf16 state; raises if absent
@@ -73,4 +88,6 @@ def from_numpy(a, device=None, dtype=None) -> torch.Tensor:
             torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a, copy=True))
-    return t.to(device=device, dtype=convert_dtype(dtype) if dtype else None)
+    if dtype is not None and convert_dtype(dtype) != t.dtype:
+        t = t.to(convert_dtype(dtype))
+    return t if device is None else to_device(t, device)

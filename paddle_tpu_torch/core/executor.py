@@ -20,6 +20,15 @@ flow back through them to the f32 master weights. The `autodiff` op is
 its vjp tape, ``_run_autodiff``); the graph is freed there, and every op
 after it (the optimizer updates) runs under ``torch.no_grad()``.
 
+Sparse gradients. An op with a ``grad_fn`` hook (``lookup_table`` built
+with ``is_sparse=True``) whose table is an autodiff target does not record
+its table read in the graph: it runs on detached inputs, its outputs enter
+as fresh leaves, and the `autodiff` op differentiates with respect to those
+leaves and hands their cotangents to the hook, which returns the table's
+gradient as a ``SelectedRows`` (``core/selected_rows.py``). No
+``[vocab, dim]`` gradient is built, and a packed uint16 table, which torch
+cannot differentiate, still gets its rows.
+
 Not ported yet: the update-group fusion, remat groups, the scanned
 multi-step drivers and the observability hooks (ROADMAP "Left out by
 slice 2").
@@ -32,7 +41,7 @@ import numpy as np
 import torch
 
 from . import registry
-from .dtypes import dtype_str, from_numpy, to_numpy
+from .dtypes import dtype_str, from_numpy, to_device, to_numpy
 from .program import (Block, Program, Variable, default_main_program,
                       grad_var_name)
 from .scope import Scope, _scope
@@ -103,6 +112,9 @@ class ExecContext:
         self.training = False  # autograd records the forward
         self.targets: Set[str] = set()  # names the autodiff op reads grads of
         self.out_names: Dict[str, List[str]] = {}  # outputs of the running op
+        # (op, its detached inputs, its output leaves by slot, grad hook)
+        # of each sparse-gradient op this run (see _run_sparse_site)
+        self.sparse_sites: List[tuple] = []
 
     def rng(self) -> torch.Generator:
         """The run's seeded generator; each draw advances it."""
@@ -177,10 +189,54 @@ def _stops_gradient(block: Block, name: str, ctx: ExecContext) -> bool:
     return bool(v is not None and v.stop_gradient)
 
 
+def _sparse_hook(op, opdef, ctx: ExecContext):
+    """The op's hand-written gradient when it applies this run: training,
+    the op has a ``grad_fn`` that accepts these attrs, and one of its
+    inputs is an autodiff target."""
+    if not ctx.training or opdef.grad_fn is None:
+        return None
+    if not any(n in ctx.targets for n in op.input_names()):
+        return None
+    return opdef.grad_fn(op.attrs)
+
+
+def _store_outputs(op, out, env):
+    for slot in sorted(op.outputs):
+        vals = out.get(slot, [])
+        names = op.outputs[slot]
+        if len(names) != len(vals):
+            raise RuntimeError(
+                f"op {op.type}: slot {slot} returned {len(vals)} values, "
+                f"declared {len(names)}")
+        for n, v in zip(names, vals):
+            if v is not None:  # an optional output nothing reads (ctx.wants)
+                env[n] = v
+
+
+def _run_sparse_site(op, opdef, hook, in_vals, env, ctx: ExecContext):
+    """Run an op whose gradient is hand-written (the JAX package's
+    ``opdef.grad_fn`` path): no graph through its inputs; its float outputs
+    become leaves that the autodiff op differentiates, and the hook turns
+    their cotangents into the inputs' gradients."""
+    ins = {s: [v.detach() for v in vs] for s, vs in in_vals.items()}
+    ctx.out_names = op.outputs
+    with torch.no_grad():
+        out = opdef.fn(ctx, _amp_cast(ins, op.type, ctx.amp), op.attrs)
+    leaves = {s: [v.detach().requires_grad_() if v is not None
+                  and v.is_floating_point() else v for v in vs]
+              for s, vs in out.items()}
+    ctx.sparse_sites.append((op, ins, leaves, hook))
+    _store_outputs(op, leaves, env)
+
+
 def _run_op(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
     opdef = registry.get_op(op.type)
     in_vals = {slot: [env[n] for n in names]
                for slot, names in op.inputs.items()}
+    hook = _sparse_hook(op, opdef, ctx)
+    if hook is not None:
+        _run_sparse_site(op, opdef, hook, in_vals, env, ctx)
+        return
     if ctx.training and opdef.differentiable:
         for slot, names in op.inputs.items():
             nondiff = slot in opdef.nondiff_inputs
@@ -247,18 +303,43 @@ def _run_autodiff(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
                      else torch.ones_like(env[ln]))
     outs = [n for n in seeds if env[n].requires_grad]
     wrt = [t for t in dict.fromkeys(targets) if env[t].requires_grad]
-    grads = {}
-    if outs and wrt:
+    leaves = [v for _, _, lv, _ in ctx.sparse_sites
+              for vs in lv.values() for v in vs
+              if v is not None and v.requires_grad]
+    grads, leaf_grads = {}, {}
+    if outs and (wrt or leaves):
         got = torch.autograd.grad(
             [env[n] for n in outs],
-            [env[t] for t in wrt],
+            [env[t] for t in wrt] + leaves,
             grad_outputs=[seeds[n].to(env[n].dtype) for n in outs],
             allow_unused=True)
         grads = {t: g for t, g in zip(wrt, got) if g is not None}
+        leaf_grads = {id(v): g for v, g in zip(leaves, got[len(wrt):])}
+    sparse = _sparse_grads(ctx, leaf_grads, set(targets))
     for t in targets:
-        g = grads.get(t)
+        g, s = grads.get(t), sparse.get(t)
+        if s is not None:
+            g = s if g is None else s + g
         env[grad_var_name(t)] = (torch.zeros_like(env[t]).detach()
                                  if g is None else g)
+
+
+def _sparse_grads(ctx: ExecContext, leaf_grads, targets) -> Dict[str, object]:
+    """Each sparse site's hook applied to its outputs' cotangents (zeros
+    where the loss does not reach an output); the targets' gradients
+    summed over sites."""
+    out: Dict[str, object] = {}
+    for op, ins, leaves, hook in ctx.sparse_sites:
+        cots = {s: [None if v is None else (
+            leaf_grads.get(id(v)) if leaf_grads.get(id(v)) is not None
+            else torch.zeros_like(v)) for v in vs]
+            for s, vs in leaves.items()}
+        got = hook(ctx, ins, op.attrs, leaves, cots)
+        for slot, names in op.inputs.items():
+            for n, g in zip(names, got.get(slot) or []):
+                if g is not None and n in targets:
+                    out[n] = g if n not in out else out[n] + g
+    return out
 
 
 def _autodiff_targets(block: Block) -> Set[str]:
@@ -313,7 +394,7 @@ class Executor:
         for n in persistables:
             val = scope.find_var(n)
             if val is not None:
-                env[n] = val.to(self.device)
+                env[n] = to_device(val, self.device)
         for name, val in (feed or {}).items():
             env[name] = convert_feed_value(block, name, val, self.device)
         gen = scope.find_var(_RNG_STATE)

@@ -1,5 +1,5 @@
-"""Layers DSL — the subset of ``paddle_tpu.layers.nn`` the BERT, ResNet and
-Transformer NMT slices use, emitting the same ops, attrs and var descs (reference
+"""Layers DSL — the subset of ``paddle_tpu.layers.nn`` the BERT, ResNet,
+Transformer NMT and DeepFM slices use, emitting the same ops, attrs and var descs (reference
 ``python/paddle/fluid/layers/nn.py``)."""
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import numpy as np
 from ..core.dtypes import convert_dtype
 from ..core.program import Variable, default_main_program
 from ..initializer import (ConstantInitializer, NormalInitializer,
-                           XavierInitializer)
+                           RowPackInitializer, XavierInitializer)
 from ..layer_helper import LayerHelper
 
 
@@ -63,18 +63,37 @@ def fc(input: Variable, size: int, num_flatten_dims: int = 1, param_attr=None,
 
 def embedding(input: Variable, size: Sequence[int], is_sparse: bool = False,
               is_distributed: bool = False, padding_idx: Optional[int] = None,
-              param_attr=None, dtype="float32", name=None) -> Variable:
-    """layers/nn.py embedding → lookup_table op (dense table)."""
+              param_attr=None, dtype="float32", name=None,
+              row_pack: bool = False) -> Variable:
+    """layers/nn.py embedding → lookup_table op. is_sparse=True makes the
+    table's gradient a SelectedRows of the looked-up rows.
+
+    row_pack=True stores the table as a [vocab, 128] uint16 packed
+    row-major array: each row bit-splits up to 64 f32 values (embedding +
+    optional optimizer state columns), updated row by row by a
+    ``*_row_packed`` optimizer (SGD/Adagrad/Adam with packed_rows=...). It
+    requires is_sparse=True; size[-1] counts the f32 values per row
+    INCLUDING state columns."""
     helper = LayerHelper("embedding", name=name)
     attrs = {"padding_idx": -1 if padding_idx is None else padding_idx,
              "is_sparse": is_sparse, "is_distributed": is_distributed}
-    w = helper.create_parameter(param_attr, shape=list(size), dtype=dtype,
-                                default_initializer=XavierInitializer())
+    if row_pack:
+        from ..ops.deferred_rows import PACK_LANES
+        if not is_sparse:
+            raise ValueError("row_pack=True requires is_sparse=True")
+        w = helper.create_parameter(
+            param_attr, shape=[size[0], PACK_LANES], dtype="uint16",
+            default_initializer=RowPackInitializer(size[-1], size[-1]))
+        attrs["row_pack_dt"] = int(size[-1])
+    else:
+        w = helper.create_parameter(param_attr, shape=list(size), dtype=dtype,
+                                    default_initializer=XavierInitializer())
     out_shape = None
     if input.shape is not None:
         ids_shape = input.shape[:-1] if input.shape[-1] == 1 else input.shape
         out_shape = tuple(ids_shape) + (size[-1],)
-    out = helper.create_variable_for_type_inference(dtype, out_shape)
+    out = helper.create_variable_for_type_inference(
+        "float32" if row_pack else dtype, out_shape)
     helper.append_op(
         type="lookup_table", inputs={"W": [w.name], "Ids": [input.name]},
         outputs={"Out": [out.name]}, attrs=attrs)
@@ -374,4 +393,25 @@ def mean(x: Variable, name=None) -> Variable:
     helper = LayerHelper("mean", name=name)
     out = helper.create_variable_for_type_inference(x.dtype, shape=())
     helper.append_op(type="mean", inputs={"X": [x.name]}, outputs={"Out": [out.name]}, attrs={})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False) -> Variable:
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x.name], "Label": [label.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out
+
+
+def square_error_cost(input: Variable, label: Variable) -> Variable:
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": [input.name], "Label": [label.name]},
+                     outputs={"Out": [out.name]}, attrs={})
     return out

@@ -20,6 +20,32 @@ def cast(x: Variable, dtype) -> Variable:
     return out
 
 
+def concat(input: Sequence[Variable], axis: int = 0, name=None) -> Variable:
+    helper = LayerHelper("concat", name=name)
+    shape = None
+    if all(v.shape is not None for v in input):
+        shape = list(input[0].shape)
+        ax = axis if axis >= 0 else len(shape) + axis
+        if all(v.shape[ax] is not None and v.shape[ax] >= 0 for v in input):
+            shape[ax] = sum(v.shape[ax] for v in input)
+        else:
+            shape[ax] = -1
+    out = helper.create_variable_for_type_inference(input[0].dtype, shape)
+    helper.append_op(type="concat", inputs={"X": [v.name for v in input]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def slice(input: Variable, axes, starts, ends, name=None) -> Variable:
+    helper = LayerHelper("slice", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="slice", inputs={"Input": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out
+
+
 def split(input: Variable, num_or_sections, dim: int = -1, name=None) -> List[Variable]:
     helper = LayerHelper("split", name=name)
     if isinstance(num_or_sections, int):

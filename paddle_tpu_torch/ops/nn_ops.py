@@ -15,9 +15,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows
 from .common import (act_map, bn_batch_stats_xla1, bn_normalize, conv2d_nchw,
                      one)
 from .kernels import fused_bn
+from .kernels.sparse_adagrad import take_rows, unpack_rows
 
 
 def _pair(v, n=2):
@@ -173,15 +175,35 @@ def _dropout(ctx, inputs, attrs):
     return {"Out": [y], "Mask": [mask]}
 
 
-def _check_dense(w, attrs):
-    """A sparse table's gradient is a SelectedRows of the touched rows in the
-    JAX package; the port has only the dense gradient so far."""
-    if attrs.get("is_sparse") and w.requires_grad:
-        raise NotImplementedError(
-            "lookup_table: training an is_sparse table (SelectedRows "
-            "gradients and the row-update optimizers) is not ported yet; it "
-            "arrives with the DeepFM slice — build the embedding with "
-            "is_sparse=False")
+def _lookup_sparse_grad(attrs):
+    """lookup_table_op.cc is_sparse=True GradOpMaker analog: the table's
+    cotangent is SelectedRows (ids, dOut rows), never a [vocab, dim] dense
+    gradient. The executor differentiates with respect to the lookup's
+    output and hands its cotangent here, which is also how a packed uint16
+    table (no autograd through integers) gets its rows. Packed tables keep
+    f32 gradient rows; padding_idx rows get zero gradient."""
+    if not attrs.get("is_sparse"):
+        return None  # dense path: autograd through the gather
+
+    def grad(ctx, inputs, attrs2, outputs, out_cots):
+        (w,) = inputs["W"]
+        (ids,) = inputs["Ids"]
+        (g,) = out_cots["Out"]
+        flat_ids = _squeezed(ids).reshape(-1).long()
+        rows = g.reshape(-1, g.shape[-1])
+        if not attrs2.get("row_pack_dt"):
+            rows = rows.to(w.dtype)
+        padding_idx = attrs2.get("padding_idx", -1)
+        if padding_idx is not None and padding_idx >= 0:
+            rows = rows.masked_fill((flat_ids == padding_idx)[:, None], 0.0)
+        return {"W": [SelectedRows(flat_ids, rows, w.shape[0])],
+                "Ids": [None]}
+
+    return grad
+
+
+def _squeezed(ids):
+    return ids[..., 0] if ids.ndim >= 2 and ids.shape[-1] == 1 else ids
 
 
 def _gather_rows(w, idx, attrs):
@@ -192,26 +214,37 @@ def _gather_rows(w, idx, attrs):
     return out
 
 
-@register_op("lookup_table", nondiff_inputs=["Ids"])
+@register_op("lookup_table", nondiff_inputs=["Ids"],
+             grad_fn=_lookup_sparse_grad)
 def _lookup_table(ctx, inputs, attrs):
-    """lookup_table_op.cc: W[ids]; padding_idx rows produce zeros. Only the
-    dense table: packed row-major tables and the deferred-row inputs come
-    with the DeepFM slice."""
-    if attrs.get("row_pack_dt") or "PendingPos" in inputs:
+    """lookup_table_op.cc: W[ids]; padding_idx rows produce zeros. With
+    ``row_pack_dt`` the table is a packed row-major [V, 128] uint16 array
+    (``ops/deferred_rows.py``): a full-row gather (a copy), then a
+    bit-exact unpack of the dt f32 values. The deferred-row inputs
+    (PendingPos/PendingCum) are not ported."""
+    if "PendingPos" in inputs:
         raise NotImplementedError(
-            "lookup_table: packed / deferred-row tables are not ported yet")
+            "lookup_table: deferred-row tables (PendingPos, deferred_rows=) "
+            "are not ported yet (ROADMAP A7, left out by slice 5)")
     (w,) = inputs["W"]
     (ids,) = inputs["Ids"]
-    _check_dense(w, attrs)
-    squeeze_last = ids.ndim >= 2 and ids.shape[-1] == 1
-    return one(_gather_rows(w, ids[..., 0] if squeeze_last else ids, attrs))
+    idx = _squeezed(ids)
+    rp_dt = attrs.get("row_pack_dt")
+    if not rp_dt:
+        return one(_gather_rows(w, idx, attrs))
+    out = unpack_rows(take_rows(w, idx.reshape(-1)), int(rp_dt))
+    out = out.reshape(tuple(idx.shape) + (int(rp_dt),))
+    padding_idx = attrs.get("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out.masked_fill((idx == padding_idx)[..., None], 0.0)
+    return one(out)
 
 
-@register_op("lookup_table_v2", nondiff_inputs=["Ids"])
+@register_op("lookup_table_v2", nondiff_inputs=["Ids"],
+             grad_fn=_lookup_sparse_grad)
 def _lookup_table_v2(ctx, inputs, attrs):
     (w,) = inputs["W"]
     (ids,) = inputs["Ids"]
-    _check_dense(w, attrs)
     return one(_gather_rows(w, ids, attrs))
 
 
@@ -272,3 +305,26 @@ def _softmax_with_cross_entropy(ctx, inputs, attrs):
     logp = torch.log_softmax(logits.float(), dim=ax)
     loss = -torch.sum(label.float() * logp, dim=ax, keepdim=True)
     return {"Loss": [loss], "Softmax": [torch.exp(logp)]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", nondiff_inputs=["Label"])
+def _sigmoid_ce(ctx, inputs, attrs):
+    """max(x, 0) − x·label + log(1 + exp(−|x|)); label == ignore_index gives
+    0; `normalize` divides by the count of labels that are not ignored."""
+    (x,) = inputs["X"]
+    (label,) = inputs["Label"]
+    loss = (torch.maximum(x, torch.zeros_like(x)) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    ignore = attrs.get("ignore_index", -100)
+    loss = torch.where(label == ignore, torch.zeros_like(loss), loss)
+    if attrs.get("normalize", False):
+        n = torch.clamp_min((label != ignore).to(loss.dtype).sum(), 1.0)
+        loss = loss / n
+    return one(loss)
+
+
+@register_op("square_error_cost", nondiff_inputs=["Label"])
+def _square_error_cost(ctx, inputs, attrs):
+    (x,) = inputs["X"]
+    (label,) = inputs["Label"]
+    return one(torch.square(x - label))

@@ -7,15 +7,19 @@ All are non-differentiable state-update ops: they read Param/Grad/
 accumulators and return the updated values under the same var names, which
 the executor writes back to the scope. The executor runs them under
 ``torch.no_grad()`` after the autodiff op, so the updates record no graph.
-Only dense gradients are ported: a sparse (``is_sparse``) embedding raises
-in training (``nn_ops.lookup_table``), and the SelectedRows row-update
-kernels come with the DeepFM slice.
+A ``SelectedRows`` gradient (an ``is_sparse`` embedding) updates only the
+touched rows of sgd, adam (lazy mode) and adagrad: duplicates are merged
+first (``SelectedRows.merged``: every duplicate position carries its id's
+full sum), so the row writes are the same whichever duplicate lands last.
+The packed-table row ops are in ``ops/deferred_rows.py``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows
+from .kernels.sparse_adagrad import sqrt_rn
 
 
 def _lr(inputs):
@@ -27,6 +31,11 @@ def _lr(inputs):
 def _sgd(ctx, inputs, attrs):
     (p,) = inputs["Param"]
     (g,) = inputs["Grad"]
+    if isinstance(g, SelectedRows):
+        # sgd_op.cc SelectedRows kernel: touched rows only
+        ids, rows = g.merged()
+        return {"ParamOut": [p.index_copy(
+            0, ids, p[ids] - _lr(inputs) * rows.to(p.dtype))]}
     return {"ParamOut": [p - _lr(inputs) * g.to(p.dtype)]}
 
 
@@ -71,6 +80,24 @@ def _adam(ctx, inputs, attrs):
     eps = attrs.get("epsilon", 1e-8)
     lr_t = _lr(inputs) * torch.sqrt(1 - b2p.reshape(())) / (
         1 - b1p.reshape(()))
+    if isinstance(g, SelectedRows):
+        # adam_op.cc SelectedRows kernel (lazy mode): only touched rows
+        # advance; duplicates are merged first (adam is nonlinear in g)
+        (m,) = inputs["Moment1"]
+        (v,) = inputs["Moment2"]
+        b1 = attrs.get("beta1", 0.9)
+        b2 = attrs.get("beta2", 0.999)
+        ids, rows = g.merged()
+        rows = rows.to(p.dtype)
+        m_r = b1 * m[ids] + (1 - b1) * rows
+        v_r = b2 * v[ids] + (1 - b2) * rows * rows
+        p_r = p[ids] - lr_t * m_r / (torch.sqrt(v_r) + eps)
+        return {
+            "ParamOut": [p.index_copy(0, ids, p_r)],
+            "Moment1Out": [m.index_copy(0, ids, m_r)],
+            "Moment2Out": [v.index_copy(0, ids, v_r)],
+            "Beta1PowOut": [b1p_out], "Beta2PowOut": [b2p_out],
+        }
     m_out, v_out = _adam_moments(inputs, attrs, p, g)
     p_out = p - lr_t * m_out / (torch.sqrt(v_out) + eps)
     return {
@@ -119,3 +146,27 @@ def _lamb(ctx, inputs, attrs):
         "Moment2Out": [v_out], "Beta1PowOut": [b1p_out],
         "Beta2PowOut": [b2p_out],
     }
+
+
+@register_op("adagrad", differentiable=False)
+def _adagrad(ctx, inputs, attrs):
+    """adagrad_op.cc: m += g², p -= lr·g/(√m + eps); a SelectedRows
+    gradient is merged first (SparseAdagradFunctor) and advances only the
+    touched rows. The square root is the correctly rounded one, as in
+    ``adagrad_row_packed``, so a dense table and a packed one take the same
+    steps bit for bit."""
+    (p,) = inputs["Param"]
+    (g,) = inputs["Grad"]
+    (m,) = inputs["Moment"]
+    eps = attrs.get("epsilon", 1e-6)
+    lr = _lr(inputs)
+    if isinstance(g, SelectedRows):
+        ids, rows = g.merged()
+        rows = rows.to(p.dtype)
+        m_r = m[ids] + rows * rows
+        p_r = p[ids] - lr * rows / (sqrt_rn(m_r) + eps)
+        return {"ParamOut": [p.index_copy(0, ids, p_r)],
+                "MomentOut": [m.index_copy(0, ids, m_r)]}
+    m_out = m + g * g
+    return {"ParamOut": [p - lr * g / (sqrt_rn(m_out) + eps)],
+            "MomentOut": [m_out]}

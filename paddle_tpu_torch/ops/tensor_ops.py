@@ -1,6 +1,6 @@
 """Tensor manipulation + creation ops (counterpart of
 ``paddle_tpu.ops.tensor_ops``; reference reshape_op.cc, transpose_op.cc,
-split_op.cc, unsqueeze_op.cc, gather_op.cc, cast_op.cc, assign_op.cc,
+concat_op.cc, slice_op.cc, split_op.cc, unsqueeze_op.cc, gather_op.cc, cast_op.cc, assign_op.cc,
 fill_constant_op.cc, assign_value_op.cc and the random initializer ops).
 
 The random ops draw from the run's seeded ``torch.Generator``
@@ -31,6 +31,25 @@ def _reshape(ctx, inputs, attrs):
 def _transpose(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(x.permute(*attrs["axis"]))
+
+
+@register_op("concat")
+def _concat(ctx, inputs, attrs):
+    return one(torch.cat(inputs["X"], dim=attrs.get("axis", 0)))
+
+
+@register_op("slice")
+def _slice(ctx, inputs, attrs):
+    """slice_op.cc: [start, end) along each of `axes`; negative bounds
+    count from the end and both are clamped to the dim."""
+    (x,) = inputs["Input"]
+    idx = [slice(None)] * x.ndim
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    return one(x[tuple(idx)])
 
 
 @register_op("split")

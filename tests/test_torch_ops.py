@@ -22,7 +22,10 @@ from paddle_tpu_torch.core.executor import ExecContext as TorchCtx
 torch.set_num_threads(1)
 
 RANDOM_OPS = ("uniform_random", "gaussian_random",
-              "truncated_gaussian_random")
+              "truncated_gaussian_random", "rowpack_init")
+# ops whose gradient input is a SelectedRows: test_packed_row_op_matches_jax
+SELECTED_ROWS_OPS = ("sgd_row_packed", "adagrad_row_packed",
+                     "adam_row_packed")
 
 
 @pytest.fixture(autouse=True)
@@ -282,8 +285,38 @@ CASES += [
 ]
 
 
+# the DeepFM slice: concat/slice, the CTR loss, dense Adagrad, the packed
+# row-major table's lookup and state-column init
+_PACKED = np.random.RandomState(9).randint(0, 2 ** 16, (10, 128)).astype(
+    np.uint16)
+_PACKED[:, :12] = _r(10, 6).view(np.uint16)   # 6 finite f32 values a row
+_SIG_LABEL = (_pos(4, 3, seed=1) > 1.0).astype(np.float32)
+_SIG_LABEL[1, 2] = -100.0
+CASES += [
+    ("concat", "concat", {"X": [_r(2, 3), _r(2, 5, seed=1)]}, {"axis": 1}),
+    ("slice_neg", "slice", {"Input": [_r(2, 3, 8)]},
+     {"axes": [2, 1], "starts": [-6, 0], "ends": [7, -1]}),
+    ("sigmoid_ce", "sigmoid_cross_entropy_with_logits",
+     {"X": [_r(4, 3, scale=3)], "Label": [_SIG_LABEL]}, {}),
+    ("sigmoid_ce_normalize", "sigmoid_cross_entropy_with_logits",
+     {"X": [_r(4, 3, scale=3)], "Label": [_SIG_LABEL]},
+     {"normalize": True, "ignore_index": -100}),
+    ("square_error_cost", "square_error_cost",
+     {"X": [X34], "Label": [_r(3, 4, seed=1)]}, {}),
+    ("adagrad", "adagrad", {"Param": [X34], "Grad": [_r(3, 4, seed=1)],
+                            "Moment": [_pos(3, 4, seed=2)],
+                            "LearningRate": [_LR]}, {"epsilon": 1e-6}),
+    ("lookup_table_row_pack", "lookup_table",
+     {"W": [_PACKED], "Ids": [_ids(2, 3, 1)]},
+     {"row_pack_dt": 6, "padding_idx": 4}),
+    ("rowpack_init_state_cols", "rowpack_init_state_cols",
+     {"Param": [_PACKED]}, {"vis": 3, "dt": 6, "value": 0.1}),
+]
+
+
 def test_cases_cover_every_ported_op():
-    covered = {op for _, op, _, _ in CASES} | set(RANDOM_OPS)
+    covered = ({op for _, op, _, _ in CASES} | set(RANDOM_OPS)
+               | set(SELECTED_ROWS_OPS))
     assert covered == set(treg.registered_ops())
     # the port registers nothing the JAX package does not have
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())
@@ -340,3 +373,71 @@ def test_random_ops_distribution_and_seed(op_type, attrs, check):
     assert check(a)
     np.testing.assert_array_equal(a, b)
     assert not np.array_equal(a, a2)
+
+
+@pytest.mark.parametrize("op_type", SELECTED_ROWS_OPS)
+def test_packed_row_op_matches_jax(op_type):
+    """The packed-table update ops on a SelectedRows gradient with
+    duplicates, against the JAX ops (the unfused branch: no Pallas)."""
+    from paddle_tpu.core.selected_rows import SelectedRows as JRows
+    from paddle_tpu_torch.core.selected_rows import SelectedRows as TRows
+
+    mult = {"sgd_row_packed": 1, "adagrad_row_packed": 2,
+            "adam_row_packed": 3}[op_type]
+    vis, q = 3, 8
+    rows = _r(10, vis * mult, seed=5)
+    rows[:, vis:] = np.abs(rows[:, vis:])
+    table = np.zeros((10, 128), np.uint16)
+    table[:, :2 * vis * mult] = rows.view(np.uint16)
+    ids = np.array([4, 1, 4, 9, 0, 1, 1, 7])
+    fwd = rows[ids]
+    grows = _r(q, vis * mult, seed=6)
+    inputs = {"Param": [table], "FwdRows": [fwd], "LearningRate": [_LR],
+              "Beta1Pow": [np.float32([0.9 ** 2])],
+              "Beta2Pow": [np.float32([0.999 ** 2])]}
+    attrs = {"vis": vis, "rows_per_step": 12, "fused": False,
+             "epsilon": 1e-6}
+    want = jreg.get_op(op_type).fn(
+        JaxCtx(None), dict({s: [jnp.asarray(a) for a in v]
+                            for s, v in inputs.items()},
+                           Grad=[JRows(jnp.asarray(ids, jnp.int32),
+                                       jnp.asarray(grows), 10)]), attrs)
+    got = treg.get_op(op_type).fn(
+        TorchCtx("cpu"), dict({s: [torch.from_numpy(a.copy()) for a in v]
+                               for s, v in inputs.items()},
+                              Grad=[TRows(torch.from_numpy(ids),
+                                          torch.from_numpy(grows), 10)]),
+        attrs)
+    assert sorted(got) == sorted(want)
+    w = np.asarray(want["ParamOut"][0])
+    g = to_numpy(got["ParamOut"][0])
+    assert g.dtype == np.uint16
+    np.testing.assert_array_equal(g[:, 2 * vis * mult:],
+                                  w[:, 2 * vis * mult:])
+    np.testing.assert_allclose(g[:, :2 * vis * mult].copy().view(np.float32),
+                               w[:, :2 * vis * mult].copy().view(np.float32),
+                               rtol=1e-5, atol=1e-6)
+    for slot in set(want) - {"ParamOut"}:
+        np.testing.assert_allclose(to_numpy(got[slot][0]),
+                                   np.asarray(want[slot][0]), rtol=1e-6)
+
+
+def test_rowpack_init_distribution_and_seed():
+    """Visible columns uniform in [low, high), state columns at their value,
+    spare lanes zero; the same numbers for the same seed."""
+    attrs = {"height": 3000, "vis": 5, "dt": 10, "low": -0.5, "high": 0.5,
+             "state_value": 0.25}
+    fn = treg.get_op("rowpack_init").fn
+
+    def draw(seed):
+        ctx = TorchCtx("cpu", torch.Generator().manual_seed(seed))
+        return to_numpy(fn(ctx, {}, attrs)["Out"][0])
+
+    a = draw(3)
+    assert a.dtype == np.uint16 and a.shape == (3000, 128)
+    vals = a[:, :20].copy().view(np.float32)
+    assert vals[:, :5].min() >= -0.5 and vals[:, :5].max() < 0.5
+    assert abs(vals[:, :5].mean()) < 0.02
+    assert (vals[:, 5:] == 0.25).all() and not a[:, 20:].any()
+    np.testing.assert_array_equal(a, draw(3))
+    assert not np.array_equal(a, draw(4))

@@ -164,6 +164,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models.bert, "
             "paddle_tpu_torch.models.resnet, "
             "paddle_tpu_torch.models.transformer_nmt, "
+            "paddle_tpu_torch.models.deepfm, paddle_tpu_torch.ps, "
+            "paddle_tpu_torch.faults, "
+            "paddle_tpu_torch.observability.tracer, "
+            "paddle_tpu_torch.ops.deferred_rows, "
+            "paddle_tpu_torch.ops.kernels.sparse_adagrad, "
             "paddle_tpu_torch.reader, "
             "paddle_tpu_torch.ops.kernels.build, "
             "paddle_tpu_torch.ops.kernels.fused_bn, "
