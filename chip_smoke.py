@@ -12,8 +12,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              T in {128, 512}, the [B,1,T] mask) and at edge cases: the
              flash forward and backward, in f32 and bf16, with and without
              attention dropout (same seed as the plain version), dbias in
-             both forms, the dropout keep rate and seed dependence; times
-             each kernel, its plain version and one PyTorch library call.
+             both forms, causal, ragged T, d=128, the dropout keep rate and
+             seed dependence; two backward calls bitwise equal; the bf16
+             backward's delta kernel; B·nh = 65,600 (the flat grid); d=32
+             through the op (the plain route, counted) and d=256 (raises).
+             Times each kernel, its plain version and one PyTorch library
+             call, with each kernel's ratio to that call and share of its
+             bound; logs the bf16 flash kernels' registers, spills, dynamic
+             shared memory and HGMMA count.
 4. serve   — main path 1: BERT-base at full width (vocab 30522, hidden 768,
              12 layers, 12 heads, ffn 3072) built with the port's DSL from a
              seed, saved with io.save_inference_model, served by
@@ -25,8 +31,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              bert.build_pretrain_program → Executor(CUDAPlace(0)).run:
              4 Adam steps in f32 (B=8, T=128) and 4 in bf16 AMP (B=8,
              T=512). Checks the losses, 12 forward and 12 backward flash
-             launches per step, GPU-vs-CPU agreement at dropout 0 and bf16
-             against f32; prints the step time, device-busy share, top
+             launches per step and no plain-route flash call, GPU-vs-CPU
+             agreement at dropout 0 and bf16 against f32; prints the step
+             time, device-busy share, the flash kernels' device ms, top
              kernels and peak memory.
 6. bn kernels — the fused batch-norm kernels (K1 stats, K2 apply, K3
              backward reduce + dx, K4 1x1-conv GEMM with the statistics of
@@ -408,6 +415,58 @@ def bound(flops, nbytes, name):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def log_wgmma_build(build):
+    """ptxas's registers, shared memory and spills for each bf16 flash
+    kernel by name, and, where the toolkit has cuobjdump, the count of
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions in each library."""
+    import ctypes
+    import re
+
+    for lib in ("flash_attention_fwd", "flash_attention_bwd"):
+        fn = None
+        for line in build.build_log(lib).splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)'?", line)
+            if m:   # _ZN...flash_fwd_bf16_kernelILi64EE... -> ..._kernel<64>
+                k = re.search(r"(flash_[fb]wd_\w+?_kernel)ILi(\d+)E",
+                              m.group(1))
+                fn = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            elif fn and "bf16" in fn and ("Used" in line or "spill" in line
+                                          or "Performance" in line):
+                log(f"build {lib} {fn}: {line.split(':', 1)[-1].strip()}")
+        lib_so = build.load(lib)
+        query = getattr(lib_so, f"{lib}_bf16_smem")
+        query.argtypes = [ctypes.c_int] * (2 if lib.endswith("fwd") else 3)
+        query.restype = ctypes.c_int
+        for d in (64, 128):   # bias mode 1 = the [B,1,1,T] mask, 2 = per q
+            if lib == "flash_attention_fwd":
+                smem = {f"fwd mode {m}": query(d, m) for m in (1, 2)}
+            else:
+                smem = {f"{k} mode {m}": query(i, d, m)
+                        for i, k in enumerate(("dq", "dkv")) for m in (1, 2)}
+            log(f"build {lib}: bf16 d={d} dynamic shared memory {smem} "
+                f"bytes a CTA")
+        cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                 "bin", "cuobjdump")
+        if os.path.exists(cuobjdump):
+            sass = subprocess.run([cuobjdump, "-sass", build._target(lib)],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+            log(f"build {lib}: {sass.count('HGMMA')} HGMMA and "
+                f"{sass.count('UTMALDG')} UTMALDG instructions (cuobjdump)")
+        else:
+            log(f"build {lib}: no cuobjdump in the toolkit, HGMMA not counted")
+
+
+def ratios(rec):
+    """Each kernel time against its library call and its bound, from the
+    same run: ms / library_ms, and bound_ms / ms (the share of the bound)."""
+    for key in ("ms", "dropout_ms"):
+        rec[f"{key}_vs_library"] = rec[key] / rec["library_ms"]
+        rec[f"{key}_bound_share"] = rec["bound_ms"] / rec[key]
+    return rec
+
+
 def phase_kernel(fa):
     """Flash forward against its plain version, without and with dropout;
     returns the record of the main-path shapes per (dtype, T)."""
@@ -463,31 +522,43 @@ def phase_kernel(fa):
                    "launch_ms": launch_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "flops": flops, "bytes": nbytes,
                    "bound_ms": bound_ms, "bound_by": bound_by}
-            log("kernel fwd " + json.dumps(rec))
+            log("kernel fwd " + json.dumps(ratios(rec)))
             if not (ok_out and ok_lse and ok_dout and ok_dlse):
                 raise AssertionError(f"flash_attention_fwd {name} T={t} "
                                      f"disagrees with its plain version: {rec}")
             records[(name, t)] = rec
 
-        # edge cases at small shapes: causal, a per-q bias, ragged T, d=128
-        for label, (b, nh, tq, d), causal, per_q in (
-                ("causal", (2, 3, 200, 64), True, False),
-                ("per_q_bias", (2, 3, 128, 64), False, True),
-                ("ragged_T", (2, 2, 100, 64), False, False),
-                ("d128_causal_ragged", (2, 2, 130, 128), True, True)):
+        # edge cases at small shapes: causal, a per-q bias, ragged T, d=128,
+        # one and four key tiles with the mask, d=128 causal with dropout
+        for label, (b, nh, tq, d), causal, kind, rate in (
+                ("causal", (2, 3, 200, 64), True, None, 0.0),
+                ("per_q_bias", (2, 3, 128, 64), False, "per_q", 0.0),
+                ("ragged_T", (2, 2, 100, 64), False, None, 0.0),
+                ("d128_causal_ragged", (2, 2, 130, 128), True, "per_q", 0.0),
+                ("T64_mask", (2, 3, 64, 64), False, "mask", 0.0),
+                ("T256_mask_dropout", (2, 3, 256, 64), False, "mask",
+                 DROPOUT),
+                ("ragged_T130_mask", (2, 3, 130, 64), False, "mask", 0.0),
+                ("d128_causal_dropout0.2", (2, 3, 130, 128), True, None,
+                 0.2)):
             q, k, v = qkv_inputs(b, nh, tq, d, dtype, gen)
             bias = None
-            if per_q:
+            if kind == "per_q":
                 bias = torch.randn(b, nh, tq, tq, generator=gen,
                                    device="cuda").to(dtype)
-            out, lse = fa.flash_attention_fwd(q, k, v, bias, causal)
+            elif kind == "mask":
+                bias = bert_mask(b, tq, dtype)
+            out, lse = fa.flash_attention_fwd(q, k, v, bias, causal, None,
+                                              rate, 13)
             ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, bias,
-                                                            causal)
+                                                            causal, None,
+                                                            rate, 13)
             torch.cuda.synchronize()
             e_out, ok_out = max_err(out, ref_out, tol)
             e_lse, ok_lse = max_err(lse, ref_lse, tol)
-            log(f"kernel fwd edge {name} {label} B={b} nh={nh} T={tq} d={d}: "
-                f"max_abs_err out {e_out:.3e} lse {e_lse:.3e} (tol {tol})")
+            log(f"kernel fwd edge {name} {label} B={b} nh={nh} T={tq} d={d} "
+                f"dropout={rate}: max_abs_err out {e_out:.3e} lse "
+                f"{e_lse:.3e} (tol {tol})")
             if not (ok_out and ok_lse):
                 raise AssertionError(f"flash_attention_fwd {name} {label} "
                                      f"disagrees with its plain version")
@@ -555,6 +626,14 @@ def phase_kernel_bwd(fa):
                     raise AssertionError(f"flash_attention_bwd {name} T={t} "
                                          f"dropout={rate} disagrees with its "
                                          f"plain version: {e}")
+                # every output is written by one CTA: a second call gives
+                # the same bits
+                again = fa.flash_attention_bwd(q, k, v, out, lse, dout, bias,
+                                               False, None, rate, 91)
+                if not all(torch.equal(a, b) for a, b in zip(got[:3],
+                                                              again[:3])):
+                    raise AssertionError(f"flash_attention_bwd {name} T={t} "
+                                         f"dropout={rate}: two calls differ")
             out, lse = fa.flash_attention_fwd(q, k, v, bias)
             ms, drop_ms, plain_ms = (device_ms(fn) for fn in (
                 lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, bias),
@@ -578,7 +657,7 @@ def phase_kernel_bwd(fa):
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
                    "bound_by": bound_by}
-            log("kernel bwd " + json.dumps(rec))
+            log("kernel bwd " + json.dumps(ratios(rec)))
             records[(name, t)] = rec
 
         # edge cases: causal, per-q bias (dbias per query), ragged T with
@@ -588,7 +667,13 @@ def phase_kernel_bwd(fa):
                 ("per_q_bias", (2, 3, 128, 64), False, "per_q", 0.0),
                 ("ragged_T_mask", (2, 2, 100, 64), False, "col", 0.0),
                 ("d128_causal_ragged", (2, 2, 130, 128), True, "per_q",
-                 DROPOUT)):
+                 DROPOUT),
+                ("T64_mask", (2, 3, 64, 64), False, "col", 0.0),
+                ("T256_mask_dropout", (2, 3, 256, 64), False, "col",
+                 DROPOUT),
+                ("ragged_T130_mask", (2, 3, 130, 64), False, "col", 0.0),
+                ("d128_causal_dropout0.2", (2, 3, 128, 128), True, None,
+                 0.2)):
             q, k, v = qkv_inputs(b, nh, tq, d, dtype, gen)
             bias = None
             if kind == "per_q":
@@ -606,12 +691,79 @@ def phase_kernel_bwd(fa):
                                                 causal, None, rate, 5, kind)
             torch.cuda.synchronize()
             e, ok = bwd_errs(got, want, name)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, dout, bias,
+                                           causal, None, rate, 5, kind)
+            same = all(a is None or torch.equal(a, c)
+                       for a, c in zip(got, again))
             log(f"kernel bwd edge {name} {label} B={b} nh={nh} T={tq} d={d} "
-                f"dropout={rate}: max_abs_err {json.dumps(e)}")
-            if not ok:
+                f"dropout={rate}: max_abs_err {json.dumps(e)}; a second call "
+                f"bitwise equal: {same}")
+            if not ok or not same:
                 raise AssertionError(f"flash_attention_bwd {name} {label} "
                                      f"disagrees with its plain version")
     return records
+
+
+def phase_kernel_routes(fa):
+    """The bf16 backward's delta kernel against its plain version; the flat
+    grid at B·nh = 65,600 (forward and backward against the plain versions);
+    d = 32 through the flash_attention op takes the plain route on the card
+    (counted, as the JAX package takes its XLA path), d = 256 raises."""
+    import torch
+    from paddle_tpu_torch.core.executor import ExecContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    out, dout, _ = qkv_inputs(B, NH, 512, D, torch.bfloat16, gen)
+    e, ok = max_err(fa.flash_attention_delta(out, dout),
+                    fa.flash_attention_delta_plain(out, dout), 1e-4)
+    log(f"kernel delta bf16 B={B} nh={NH} T=512 d={D}: max_abs_err {e:.3e} "
+        f"(tol 1e-4)")
+    if not ok:
+        raise AssertionError("the delta kernel disagrees with its plain "
+                             "version")
+
+    b, nh, t = 50, 1312, 64        # B·nh = 65,600 > 65,535
+    q, k, v = qkv_inputs(b, nh, t, D, torch.bfloat16, gen)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    ro, rl = fa.flash_attention_fwd_plain(q, k, v)
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    errs, ok = bwd_errs(fa.flash_attention_bwd(q, k, v, o, lse, g),
+                        fa.flash_attention_bwd_plain(q, k, v, o, lse, g),
+                        "bfloat16")
+    e_o, ok_o = max_err(o, ro, TOL["bfloat16"])
+    e_l, ok_l = max_err(lse, rl, TOL["bfloat16"])
+    log(f"kernel grid B·nh={b * nh} T={t} bf16: fwd max_abs_err out "
+        f"{e_o:.3e} lse {e_l:.3e}; bwd {json.dumps(errs)}")
+    if not (ok and ok_o and ok_l):
+        raise AssertionError("the flat grid at B·nh = 65,600 disagrees")
+    del q, k, v, o, lse, ro, rl, g
+
+    # BERT with hidden 384 and 12 heads: d = 32 through the op
+    x = torch.randn(2, 128, 384, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_fwd.plain_on_cuda)
+    y = get_op("flash_attention").fn(
+        ExecContext("cuda", is_test=True), {"Q": [x], "K": [x], "V": [x]},
+        {"num_heads": 12})["Out"][0]
+    ref = fa.flash_attention_fwd_plain(heads(x, 12), heads(x, 12),
+                                       heads(x, 12))[0]
+    e, ok = max_err(heads(y, 12), ref, 0.0)
+    after = (fa.flash_attention_fwd.launches,
+             fa.flash_attention_fwd.plain_on_cuda)
+    log(f"op flash_attention d=32 on the card: plain route, launches "
+        f"{after[0] - before[0]}, plain-route calls {after[1] - before[1]}, "
+        f"max_abs_err to the plain version {e:.3e}")
+    if after != (before[0], before[1] + 1) or not ok:
+        raise AssertionError("d = 32 did not take the counted plain route")
+    try:
+        fa.flash_attention_fwd(*qkv_inputs(1, 1, 64, 256, torch.bfloat16,
+                                           gen))
+    except ValueError as err:
+        log(f"d=256 raises before any launch: {err}")
+    else:
+        raise AssertionError("d = 256 did not raise")
 
 
 def build_bert(fluid, bert, seq_len):
@@ -662,6 +814,7 @@ def phase_serve(fluid, fa):
         launches = {}
 
         fa.flash_attention_fwd.launches = 0          # main path starts
+        fa.flash_attention_fwd.plain_on_cuda = 0
         pred = inference.create_predictor(inference.Config(d))
         names = [r["pass"] for r in pred.pass_report["passes"]]
         if names != inference.Config().pass_builder().all_passes():
@@ -697,6 +850,9 @@ def phase_serve(fluid, fa):
         (bf16_out,) = bf16.run(check)                # main path ends
         launches["bfloat16"] = fa.flash_attention_fwd.launches - before
         launches["float32"] = before
+        if fa.flash_attention_fwd.plain_on_cuda:
+            raise AssertionError(f"serve: {fa.flash_attention_fwd.plain_on_cuda}"
+                                 f" flash calls took the plain route")
         if launches["bfloat16"] != 12:
             raise AssertionError(f"bf16 forward launched the flash kernel "
                                  f"{launches['bfloat16']} times")
@@ -773,6 +929,8 @@ def phase_train(fluid, fa):
             exe.run(startup)
             fa.flash_attention_fwd.launches = 0       # main path starts
             fa.flash_attention_bwd.launches = 0
+            fa.flash_attention_fwd.plain_on_cuda = 0
+            fa.flash_attention_bwd.plain_on_cuda = 0
             step_ms = []
             vals = []
             for _ in range(4):
@@ -782,7 +940,12 @@ def phase_train(fluid, fa):
                 vals.append(float(lv))
             launches[("fwd", name)] = fa.flash_attention_fwd.launches
             launches[("bwd", name)] = fa.flash_attention_bwd.launches
+            plain = (fa.flash_attention_fwd.plain_on_cuda,
+                     fa.flash_attention_bwd.plain_on_cuda)
             # main path ends
+            if plain != (0, 0):
+                raise AssertionError(f"train {name}: flash calls took the "
+                                     f"plain route (fwd, bwd) {plain}")
             losses[name] = vals
             log(f"train {name} B={B} T={t} amp={amp} dropout={DROPOUT} "
                 f"lr={LR} ops/step={len(main.global_block().ops)}: losses "
@@ -805,6 +968,12 @@ def phase_train(fluid, fa):
                                  lambda: exe.run(main, feed=feed,
                                                  fetch_list=[loss]), 2)
             log("train profile " + json.dumps(rec))
+            flash_ms = sum(ms for kind, ms in rec["by_category_ms"].items()
+                           if kind.startswith("flash fwd")
+                           or kind.startswith("flash bwd"))
+            log(f"train {name}: flash kernels {flash_ms:.4f} device ms a "
+                f"step (PERF.md §5: 1.415 f32 and 7.027 bf16 with the "
+                f"earlier mma.sync kernels)")
             # warm steps without the profiler, whose own host work inflates
             # the wall time of the profiled steps: the step time a user
             # sees, and the device-busy share against it
@@ -2042,10 +2211,12 @@ def main():
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build {name}: {line.strip()}")
+    log_wgmma_build(build)
 
     # 3. kernel
     records = phase_kernel(fa)
     bwd_records = phase_kernel_bwd(fa)
+    phase_kernel_routes(fa)
 
     # 4. serve (main path 1)
     launches = phase_serve(fluid, fa)
@@ -2091,6 +2262,9 @@ def main():
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            "dropout_ms": rec["dropout_ms"],
+            "vs_library": rec["ms_vs_library"],
+            "bound_share": rec["ms_bound_share"],
             "shape": f"B={B} nh={NH} T=512 d={D}"})
     for name in ("float32", "bfloat16"):
         rec = bwd_records[(name, 512)]
@@ -2103,6 +2277,9 @@ def main():
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            "dropout_ms": rec["dropout_ms"],
+            "vs_library": rec["ms_vs_library"],
+            "bound_share": rec["ms_bound_share"],
             "shape": f"B={B} nh={NH} T=512 d={D}"})
     for kname, count_keys in (("fused_bn_stats", ("bn_stats",)),
                               ("fused_bn_apply", ("bn_apply", "apply2d")),

@@ -5,9 +5,9 @@
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas_kernels/flash_attention.py:
 // _bwd_dq_kernel + _bwd_dkv_kernel (via _flash_bwd_pallas) and
-// _bwd_kernel_onepass (via _flash_bwd_pallas_onepass). The math is theirs:
-//   delta = Σ_d dO·out            (one plain reduction before the launch,
-//                                  as _bwd_host_prep computes it)
+// _bwd_kernel_onepass (via _flash_bwd_pallas_onepass), with delta from
+// _bwd_host_prep. The math is theirs:
+//   delta = Σ_d dO·out
 //   p  = exp(s − lse)             s = q·kᵀ·scale + bias, causal −1e30
 //   dv = p_dropᵀ·dO               dp = dO·vᵀ, drop-scaled
 //   ds = p·(dp − delta)           dk = dsᵀ·q·scale     dq = ds·k·scale
@@ -19,39 +19,49 @@
 // kernel). Keys past a ragged Tk and queries past a ragged Tq contribute
 // exactly 0.
 //
-// Design. Two kernels, as the TPU split has them, so every output is
-// written by one CTA and the result is deterministic (no atomics):
-//   dq kernel:   one CTA per (b·h, 64-row q tile) walks the 64-key tiles
-//                and keeps dq in registers;
-//   dk/dv kernel: one CTA per (b·h, 64-key tile) walks the 64-row q tiles
-//                (from the diagonal on when causal) and keeps dk, dv and the
-//                column sum of ds in registers.
-// Both recompute s, p and dp = dO·vᵀ. q, k, v, dO and the outputs are
-// addressed through (batch, head, token) strides with a contiguous head dim,
-// so the q/k/v thirds of the fused qkv projection and the packed [B, T, H]
-// gradients are read and written in place.
-//   bf16: 4 warps; mma.sync m16n8k16 (bf16 in, f32 accumulate) for all five
-//         products. The dk/dv kernel computes sᵀ = k·qᵀ directly, so p and ds
-//         come out of the accumulators already in the A-fragment layout of
-//         dv += p_dropᵀ·dO and dk += dsᵀ·q; k (for dq) and q, dO (for dk, dv)
-//         are also stored transposed in shared memory as B operands.
-//   f32:  256 threads, a 4x4 register tile of the 64x64 score block each,
-//         FMA on the CUDA cores (TF32 off, for parity with the CPU).
+// Two kernels, as the TPU split has them, so every output is written by one
+// CTA and two calls give the same bits (no atomics):
+//   dq kernel:    one CTA per (64-row q tile, b·h) walks the 64-key tiles
+//                 and keeps dq in registers;
+//   dk/dv kernel: one CTA per (64-key tile, b·h) walks the 64-row q tiles
+//                 (from the diagonal on when causal) and keeps dk, dv and
+//                 the column sum of ds in registers.
+// Both recompute s, p and dp = dO·vᵀ: 7 products instead of 5. The grids
+// are the (tile, b·h) pairs flattened onto blockIdx.x.
 //
 // Bound. Five products of 2·Tq·Tk·d flops per head (s, dp, dv, dk, dq) over
 // the bytes of q, k, v, out, dO, dq, dk, dv, lse and delta: in bf16 about
 // 0.4·T flops a byte (50 at T = 128, 200 at T = 512), under the H100's ~295
 // flop/byte tensor-core ridge, so a perfect bf16 kernel is memory bound at
 // T = 128 and close to the ridge at T = 512; in f32 (0.2·T flops a byte
-// against a ~20 flop/byte FMA ridge) it is compute bound. Recomputing s and
-// dp in both kernels costs 7 products instead of 5. This first kernel uses
-// mma.sync from shared memory tiles, without wgmma, TMA or software
-// pipelining, so it stays far from either roof; its times are in PERF.md.
+// against a ~20 flop/byte FMA ridge) it is compute bound.
+//
+// bf16 design (what it does about the bound). delta comes from one small
+// kernel that reads out and dO in bf16 (~12.6 MB at BERT's T = 512). Every
+// product is a wgmma with operands as TMA writes them (hopper.cuh), and no
+// operand is transposed in shared memory:
+//   dq kernel:    S = Q·Kᵀ and dP = dO·Vᵀ (all K-major), then dQ += dS·K
+//                 with dS in registers and K read MN-major;
+//   dk/dv kernel: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then dV += Pᵀ·dO and
+//                 dK += dSᵀ·Q with Pᵀ and dSᵀ in registers and dO, Q read
+//                 MN-major.
+// Thread 0 of the one warpgroup starts TMA copies into a ring of two
+// stages, one tile ahead of the math: K, V (and the bias) for the dq
+// kernel; Q, dO, lse, delta (and the bias) for the dk/dv kernel. The
+// per-query bias arrives as a 64x64 block with its tile, the mask's row once
+// per key tile; dropout bits are drawn in registers (keep_bits_rows /
+// keep_bits_cols). As in the forward, the element loops have no branch
+// (selects; the bias in registers once a tile; ex2.approx), the per-query
+// dbias is stored after the loop, and the stages are sized by the bias
+// mode, so more CTAs share an SM.
+//   f32: 256 threads, a 4x4 register tile of the 64x64 score block each,
+//        FMA on the CUDA cores (TF32 off, for parity with the CPU).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -86,29 +96,24 @@ struct BwdParams {
   flash::Dropout drop;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // p = exp(s − lse) of (row, col) from the raw q·k dot product; exactly 0 past
 // the ragged ends.
-template <typename T>
 __device__ __forceinline__ float prob(const BwdParams& p, float acc,
-                                      const T* bias, int row, int col,
+                                      const float* bias, int row, int col,
                                       float lse) {
   if (row >= p.Tq || col >= p.Tk) return 0.f;
   float s = acc * p.sm_scale;
-  if (bias != nullptr) s += to_float(bias[row * p.b_sq + col * p.b_sk]);
+  if (bias != nullptr) s += bias[row * p.b_sq + col * p.b_sk];
   if (p.causal && col > row) s = kNegInf;
   return expf(s - lse);
 }
 
 // Key tiles a q tile needs: causal rows see no key past their own index.
-__device__ __forceinline__ int num_k_tiles(const BwdParams& p, int q0) {
-  int n = (p.Tk + kTile - 1) / kTile;
-  if (p.causal) {
-    int last_row = min(q0 + kTile, p.Tq) - 1;
+__device__ __forceinline__ int num_k_tiles(int Tq, int Tk, int causal,
+                                           int q0) {
+  int n = (Tk + kTile - 1) / kTile;
+  if (causal) {
+    int last_row = min(q0 + kTile, Tq) - 1;
     n = min(n, last_row / kTile + 1);
   }
   return n;
@@ -116,15 +121,15 @@ __device__ __forceinline__ int num_k_tiles(const BwdParams& p, int q0) {
 
 // Zeroes the per-query dbias of the key tiles a causal q tile skips (the
 // TPU dq kernel writes zeros for its skipped blocks too).
-__device__ __forceinline__ void zero_skipped_dbias(const BwdParams& p, int bh,
-                                                   int q0, int n_tiles,
-                                                   int tid, int nthreads) {
-  const int c0 = n_tiles * kTile, ncols = p.Tk - c0;
-  if (p.dbias == nullptr || ncols <= 0) return;
+__device__ __forceinline__ void zero_skipped_dbias(float* dbias, int Tq,
+                                                   int Tk, int bh, int q0,
+                                                   int n_tiles, int tid,
+                                                   int nthreads) {
+  const int c0 = n_tiles * kTile, ncols = Tk - c0;
+  if (dbias == nullptr || ncols <= 0) return;
   for (int idx = tid; idx < kTile * ncols; idx += nthreads) {
     const int r = idx / ncols, c = idx % ncols;
-    if (q0 + r < p.Tq)
-      p.dbias[((long long)bh * p.Tq + q0 + r) * p.Tk + c0 + c] = 0.f;
+    if (q0 + r < Tq) dbias[((long long)bh * Tq + q0 + r) * Tk + c0 + c] = 0.f;
   }
 }
 
@@ -199,8 +204,9 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_f32_kernel(BwdParams p) {
   uint8_t* sKeep = reinterpret_cast<uint8_t*>(sDelta + kTile);
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kTile;
+  const int n_q = (p.Tq + kTile - 1) / kTile;  // grid: (tile, b·h) flat
+  const int bh = blockIdx.x / n_q, b = bh / p.H, h = bh % p.H;
+  const int q0 = (blockIdx.x % n_q) * kTile;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -222,7 +228,7 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_f32_kernel(BwdParams p) {
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
 
-  const int n_tiles = num_k_tiles(p, q0);
+  const int n_tiles = num_k_tiles(p.Tq, p.Tk, p.causal, q0);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's sK/sV/sDS/sKeep are consumed
@@ -265,7 +271,7 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_f32_kernel(BwdParams p) {
           acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
     }
   }
-  zero_skipped_dbias(p, bh, q0, n_tiles, tid, 256);
+  zero_skipped_dbias(p.dbias, p.Tq, p.Tk, bh, q0, n_tiles, tid, 256);
 
   float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
@@ -293,8 +299,9 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_f32_kernel(BwdParams p) {
   uint8_t* sKeep = reinterpret_cast<uint8_t*>(sDelta + kTile);
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.x * kTile;
+  const int n_k = (p.Tk + kTile - 1) / kTile;  // grid: (tile, b·h) flat
+  const int bh = blockIdx.x / n_k, b = bh / p.H, h = bh % p.H;
+  const int k0 = (blockIdx.x % n_k) * kTile;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -390,319 +397,475 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_f32_kernel(BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync.m16n8k16. In a fragment, g = lane / 4
-// and t = lane % 4; accumulator element e of an n-block sits at row
-// g + 8·(e / 2), column 2t + e % 2.
+// bf16: delta, then wgmma on TMA-loaded tiles.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 rows from r0, 16 columns from c) of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int pitch,
-                                       int r0, int c) {
-  a[0] = ld_u32(tile + r0 * pitch + c);
-  a[1] = ld_u32(tile + (r0 + 8) * pitch + c);
-  a[2] = ld_u32(tile + r0 * pitch + c + 8);
-  a[3] = ld_u32(tile + (r0 + 8) * pitch + c + 8);
-}
-
-// The accumulators of n-blocks 2kk and 2kk+1 are exactly the A fragment of
-// the 16-wide k step kk of the next product.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&x)[8][4], int kk) {
-  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-}
-
-// Loads a 64-row tile of a [T, D] bf16 matrix into `dst` (row pitch D+8)
-// and, when `dst_t` is given, its transpose into `dst_t` (row pitch 72);
-// rows past `valid` are zero.
+// delta[bh, i] = Σ_d dO·out from the bf16 tensors: D/8 lanes a row, one
+// 16-byte vector of each tensor a lane, summed in f32.
 template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               __nv_bfloat16* dst_t,
-                                               const __nv_bfloat16* src,
-                                               long long st, int valid,
-                                               int tid) {
-  constexpr int kVec = D / 8, kPadT = kTile + 8;
-  for (int i = tid; i < kTile * kVec; i += 128) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) x = *reinterpret_cast<const uint4*>(src + r * st + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = x;
-    if (dst_t != nullptr) {
-      const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&x);
+__global__ void __launch_bounds__(256) flash_bwd_delta_bf16_kernel(
+    const __nv_bfloat16* out, const __nv_bfloat16* g, float* delta, int H,
+    int T, int pitch, long long rows, long long o_sb, long long o_sh,
+    long long o_st, long long g_sb, long long g_sh, long long g_st) {
+  constexpr int kLanes = D / 8;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = idx / kLanes;
+  const int c = static_cast<int>(idx % kLanes) * 8;
+  float acc = 0.f;
+  long long bh = 0;
+  int i = 0;
+  if (row < rows) {
+    bh = row / T;
+    i = static_cast<int>(row % T);
+    const long long b = bh / H, h = bh % H;
+    const uint4 xo = *reinterpret_cast<const uint4*>(
+        out + b * o_sb + h * o_sh + i * o_st + c);
+    const uint4 xg = *reinterpret_cast<const uint4*>(
+        g + b * g_sb + h * g_sh + i * g_st + c);
+    const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(&xo);
+    const __nv_bfloat162* pg = reinterpret_cast<const __nv_bfloat162*>(&xg);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) dst_t[(c + e) * kPadT + r] = xe[e];
+    for (int j = 0; j < 4; ++j) {
+      const float2 a = __bfloat1622float2(po[j]), e = __bfloat1622float2(pg[j]);
+      acc = fmaf(a.x, e.x, acc);
+      acc = fmaf(a.y, e.y, acc);
     }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && c == 0) delta[bh * pitch + i] = acc;
+}
+
+struct Bf16BwdParams {
+  CUtensorMap tq, tk, tv, tg;  // [B, H, T, D]: boxes of 64 rows x 64 values
+  CUtensorMap tb;              // bias [Bb, Hb, Qb, Tk]: 1 or 64 rows x 64 keys
+  CUtensorMap tlse, tdelta;    // [1, 1, B*H, Tq] f32: boxes of 64 values
+  const float* lse;
+  const float* delta;
+  int lse_pitch, delta_pitch;  // floats between the rows of lse / delta
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  float* dbias;      // per-query dbias [B*H, Tq, Tk] or nullptr
+  float* dbias_col;  // column-sum dbias [B*H, Tk] or nullptr
+  int B, H, Tq, Tk;
+  long long dq_sb, dq_sh, dq_st;
+  long long dk_sb, dk_sh, dk_st;
+  long long dv_sb, dv_sh, dv_st;
+  int bias_mode;       // 0 none, 1 one row for all queries, 2 per query
+  int bias_b, bias_h;  // 1 = the bias is broadcast over batch / heads
+  float sm_scale;
+  int causal;
+  flash::Dropout drop;
+};
+
+__device__ __forceinline__ void seed_keys(const flash::Dropout& d,
+                                          uint32_t* key0, uint32_t* key1) {
+  *key0 = *key1 = 0;
+  if (d.on) {
+    const unsigned long long s = static_cast<unsigned long long>(*d.seed);
+    *key0 = static_cast<uint32_t>(s);
+    *key1 = static_cast<uint32_t>(s >> 32);
   }
 }
 
-// Stores a warp's 16 x D f32 accumulators (times `scale`) as bf16 rows
-// r0 and r0+8 of a [T, D] matrix, skipping rows past `limit`.
+// The bias of score (q row, key col) of a 64x64 block from its swizzled
+// shared-memory tile ([q][key] bf16).
+__device__ __forceinline__ float bias_at(const unsigned char* tile, int row,
+                                         int col) {
+  return __bfloat162float(
+      *reinterpret_cast<const __nv_bfloat16*>(tile + hopper::swz(row, col)));
+}
+
+// Stores a warpgroup's 64 x D f32 accumulator (times `scale`) as bf16 rows
+// row0 + r0 and row0 + r0 + 8 of a [T, D] matrix, skipping rows past `limit`.
 template <int D>
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst,
-                                                long long st,
-                                                const float (&acc)[D / 8][4],
-                                                int row0, int limit, int tig,
-                                                float scale) {
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long st,
+                                           const float (&acc)[D / 2],
+                                           int row0, int limit, int t,
+                                           float scale) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
     if (row >= limit) continue;
-    __nv_bfloat16* out = dst + row * st + tig * 2;
+    __nv_bfloat16* out = dst + row * st + 2 * t;
 #pragma unroll
     for (int nb = 0; nb < D / 8; ++nb)
       *reinterpret_cast<__nv_bfloat162*>(out + nb * 8) =
-          __floats2bfloat162_rn(acc[nb][2 * r] * scale,
-                                acc[nb][2 * r + 1] * scale);
+          __floats2bfloat162_rn(acc[4 * nb + 2 * hh] * scale,
+                                acc[4 * nb + 2 * hh + 1] * scale);
   }
 }
 
+// dq kernel: Q and dO stay; K, V and the bias slot (sized by the bias
+// mode) stream through two stages. Byte offsets from the 1024-aligned base.
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(BwdParams p) {
-  constexpr int kPadQK = D + 8, kPadT = kTile + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][D+8]
-  __nv_bfloat16* sG = sQ + kTile * kPadQK;                           // [64][D+8]
-  __nv_bfloat16* sK = sG + kTile * kPadQK;                           // [64][D+8]
-  __nv_bfloat16* sV = sK + kTile * kPadQK;                           // [64][D+8]
-  __nv_bfloat16* sKt = sV + kTile * kPadQK;                          // [D][72]
-  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sKt + D * kPadT);     // [64][68]
+struct DqLayout {
+  static constexpr int kTile = D / 64 * hopper::kBoxBytes;  // [64][D]
+  static __host__ __device__ constexpr int stage(int bias_mode) {
+    return 2 * kTile + hopper::bias_slot(bias_mode);
+  }
+  static __host__ __device__ constexpr int bars(int bias_mode) {
+    return 2 * kTile + 2 * stage(bias_mode);
+  }
+  static constexpr size_t smem(int bias_mode) {
+    return bars(bias_mode) + 3 * sizeof(uint64_t) + 1024;
+  }
+};
+
+template <int D>
+__device__ __forceinline__ void load_dq_stage(const Bf16BwdParams& p,
+                                         unsigned char* smem, uint64_t* bars,
+                                         int kt, int q0, int b, int h) {
+  using L = DqLayout<D>;
+  unsigned char* st = smem + 2 * L::kTile + (kt & 1) * L::stage(p.bias_mode);
+  uint64_t* bar = &bars[kt & 1];
+  hopper::mbar_expect_tx(
+      bar, 2 * L::kTile + (p.bias_mode == 2 ? hopper::kBoxBytes
+                           : p.bias_mode == 1 ? 128 : 0));
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    hopper::tma_load(st + c * hopper::kBoxBytes, &p.tk, bar, c * 64,
+                     kt * kTile, h, b);
+    hopper::tma_load(st + L::kTile + c * hopper::kBoxBytes, &p.tv, bar,
+                     c * 64, kt * kTile, h, b);
+  }
+  if (p.bias_mode)
+    hopper::tma_load(st + 2 * L::kTile, &p.tb, bar, kt * kTile,
+                     p.bias_mode == 2 ? q0 : 0, p.bias_h ? 0 : h,
+                     p.bias_b ? 0 : b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
+  using L = DqLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::smem_base(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sG = smem + L::kTile;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + L::bars(p.bias_mode));  // 2 + Q/dO
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kTile;
-  using bf = __nv_bfloat16;
-  const bf* q = static_cast<const bf*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf* k = static_cast<const bf*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf* v = static_cast<const bf*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf* gd = static_cast<const bf*>(p.dout) + b * p.g_sb + h * p.g_sh;
-  const bf* bias = p.bias == nullptr ? nullptr
-      : static_cast<const bf*>(p.bias) + b * p.b_sb + h * p.b_sh;
+  const int g = lane / 4, t = lane % 4;
+  const int n_q = (p.Tq + kTile - 1) / kTile;
+  const int bh = blockIdx.x / n_q, q0 = (blockIdx.x % n_q) * kTile;
+  const int b = bh / p.H, h = bh % p.H;
+  const int n_tiles = num_k_tiles(p.Tq, p.Tk, p.causal, q0);
 
-  load_tile_bf16<D>(sQ, nullptr, q + q0 * p.q_st, p.q_st, p.Tq - q0, tid);
-  load_tile_bf16<D>(sG, nullptr, gd + q0 * p.g_st, p.g_st, p.Tq - q0, tid);
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bars[2], 2 * L::kTile);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      hopper::tma_load(sQ + c * hopper::kBoxBytes, &p.tq, &bars[2], c * 64,
+                       q0, h, b);
+      hopper::tma_load(sG + c * hopper::kBoxBytes, &p.tg, &bars[2], c * 64,
+                       q0, h, b);
+    }
+    load_dq_stage<D>(p, smem, bars, 0, q0, b, h);
+    if (n_tiles > 1) load_dq_stage<D>(p, smem, bars, 1, q0, b, h);
+  }
+  uint32_t key0, key1;
+  seed_keys(p.drop, &key0, &key1);
+  const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
 
   const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   float lse[2], delta[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + 8 * r;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r0 + 8 * hh;
     const bool ok = row < p.Tq;
-    lse[r] = ok ? p.lse[(long long)bh * p.Tq + row] : 0.f;
-    delta[r] = ok ? p.delta[(long long)bh * p.Tq + row] : 0.f;
+    lse[hh] = ok ? p.lse[(long long)bh * p.lse_pitch + row] : 0.f;
+    delta[hh] = ok ? p.delta[(long long)bh * p.delta_pitch + row] : 0.f;
   }
-  float acc[D / 8][4];
+  float dq[D / 2], s[32], dp[32];
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb)
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  hopper::mbar_wait(&bars[2], 0);
 
-  const int n_tiles = num_k_tiles(p, q0);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile_bf16<D>(sK, sKt, k + k0 * p.k_st, p.k_st, p.Tk - k0, tid);
-    load_tile_bf16<D>(sV, nullptr, v + k0 * p.v_st, p.v_st, p.Tk - k0, tid);
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 128);
-    __syncthreads();
+    const unsigned char* sK =
+        smem + 2 * L::kTile + (kt & 1) * L::stage(p.bias_mode);
+    const unsigned char* sV = sK + L::kTile;
+    const unsigned char* sB = sK + 2 * L::kTile;
+    hopper::mbar_wait(&bars[kt & 1], (kt >> 1) & 1);
 
-    // S = Q·Kᵀ and dP = dO·Vᵀ for 16 rows x 64 keys: 8 n-blocks of 8 keys
-    float s[kTile / 8][4], dp[kTile / 8][4];
+    // S = Q·Kᵀ and dP = dO·Vᵀ, all K-major
+    hopper::pin(s);
+    hopper::pin(dp);
+    hopper::wg_fence();
 #pragma unroll
-    for (int nb = 0; nb < kTile / 8; ++nb)
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::mma_ss<64, 0>(s, hopper::desc_kmajor(sQ, ks),
+                            hopper::desc_kmajor(sK, ks), ks > 0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::mma_ss<64, 0>(dp, hopper::desc_kmajor(sG, ks),
+                            hopper::desc_kmajor(sV, ks), ks > 0);
+    hopper::wg_commit();
+    hopper::wg_wait_all();
+    hopper::pin(s);
+    hopper::pin(dp);
+
+    // ds = p·(dp − delta), in place of s (selects, no branch)
+    const uint32_t keep =
+        p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold, bh,
+                                          q0 + r0, k0, t)
+                  : ~0u;
+    float bv[32];
+    hopper::bias_rows(bv, sB, p.bias_mode, r0, t);
+    const int k_left = p.Tk - k0;  // keys of this tile inside Tk
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t aq[4], ag[4];
-      load_a(aq, sQ, kPadQK, r0, ks * 16 + tig * 2);
-      load_a(ag, sG, kPadQK, r0, ks * 16 + tig * 2);
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * t + (i & 1);
+      const int row = q0 + r0 + 8 * hh;
+      float x = fmaf(s[i], p.sm_scale, bv[i]);
+      x = p.causal && k0 + c > row ? kNegInf : x;
+      float pr = hopper::ex2((x - lse[hh]) * hopper::kLog2e);
+      pr = row < p.Tq && c < k_left ? pr : 0.f;
+      const float dpv = (keep >> i) & 1u ? dp[i] * drop_scale : 0.f;
+      s[i] = pr * (dpv - delta[hh]);
+    }
+    if (p.dbias != nullptr) {  // the per-query dbias is ds itself
 #pragma unroll
-      for (int nb = 0; nb < kTile / 8; ++nb) {
-        const bf* krow = sK + (nb * 8 + g) * kPadQK + ks * 16 + tig * 2;
-        const bf* vrow = sV + (nb * 8 + g) * kPadQK + ks * 16 + tig * 2;
-        mma_bf16_16816(s[nb], aq, ld_u32(krow), ld_u32(krow + 8));
-        mma_bf16_16816(dp[nb], ag, ld_u32(vrow), ld_u32(vrow + 8));
+      for (int i = 0; i < 32; ++i) {
+        const int row = q0 + r0 + 8 * ((i >> 1) & 1);
+        const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        if (row < p.Tq && col < p.Tk)
+          p.dbias[((long long)bh * p.Tq + row) * p.Tk + col] = s[i];
       }
     }
 
-    // ds = p·(dp − delta), in place of s
+    // dQ += dS·K: dS from registers, K MN-major
+    uint32_t a[4][4];
+    hopper::acc_to_a(a, s);
+    hopper::pin(dq);
+    hopper::pin(a);
+    hopper::wg_fence();
 #pragma unroll
-    for (int nb = 0; nb < kTile / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row_l = r0 + 8 * (e >> 1), col_l = nb * 8 + tig * 2 + (e & 1);
-        const int row = q0 + row_l, col = k0 + col_l;
-        const float pr = prob(p, s[nb][e], bias, row, col, lse[e >> 1]);
-        float dpv = dp[nb][e];
-        if (p.drop.on)
-          dpv = sKeep[row_l * flash::kKeepPitch + col_l] ? dpv * p.drop.scale
-                                                         : 0.f;
-        s[nb][e] = pr * (dpv - delta[e >> 1]);
-        if (p.dbias != nullptr && row < p.Tq && col < p.Tk)
-          p.dbias[((long long)bh * p.Tq + row) * p.Tk + col] = s[nb][e];
-      }
-
-    // dQ += dS·K: B operand from the transposed K tile
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-#pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
-        const bf* ktrow = sKt + (nb * 8 + g) * kPadT + kk * 16 + tig * 2;
-        mma_bf16_16816(acc[nb], a, ld_u32(ktrow), ld_u32(ktrow + 8));
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::mma_rs<D, 1>(dq, a[kk], hopper::desc_mnmajor(sK, kk), 1);
+    hopper::wg_commit();
+    hopper::wg_wait_all();
+    hopper::pin(dq);
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && kt + 2 < n_tiles) load_dq_stage<D>(p, smem, bars, kt + 2, q0, b, h);
   }
-  zero_skipped_dbias(p, bh, q0, n_tiles, tid, 128);
+  zero_skipped_dbias(p.dbias, p.Tq, p.Tk, bh, q0, n_tiles, tid, 128);
+  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, dq, q0 + r0, p.Tq,
+                t, p.sm_scale);
+}
 
-  bf* dq = static_cast<bf*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  store_rows_bf16<D>(dq, p.dq_st, acc, q0 + r0, p.Tq, tig, p.sm_scale);
+// dk/dv kernel: K, V (and the mask's key slice) stay; Q, dO, lse and delta
+// (256 bytes each) and the per-query bias block stream through two stages.
+// Byte offsets from the 1024-aligned base.
+template <int D>
+struct DkvLayout {
+  static constexpr int kTile = D / 64 * hopper::kBoxBytes;  // [64][D]
+  static constexpr int kRowBias = 2 * kTile;                // after K, V
+  static constexpr int kStages = kRowBias + 1024;
+  static constexpr int kRows = 2 * kTile;                   // lse, delta
+  static __host__ __device__ constexpr int stage(int bias_mode) {
+    return 2 * kTile + 1024 + (bias_mode == 2 ? hopper::kBoxBytes : 0);
+  }
+  static __host__ __device__ constexpr int bars(int bias_mode) {
+    return kStages + 2 * stage(bias_mode);
+  }
+  static constexpr size_t smem(int bias_mode) {
+    return bars(bias_mode) + 3 * sizeof(uint64_t) + 1024;
+  }
+};
+
+template <int D>
+__device__ __forceinline__ void load_dkv_stage(const Bf16BwdParams& p,
+                                          unsigned char* smem, uint64_t* bars,
+                                          int j, int q0, int k0, int bh,
+                                          int b, int h) {
+  using L = DkvLayout<D>;
+  unsigned char* st = smem + L::kStages + (j & 1) * L::stage(p.bias_mode);
+  uint64_t* bar = &bars[j & 1];
+  hopper::mbar_expect_tx(
+      bar, 2 * L::kTile + (p.bias_mode == 2 ? hopper::kBoxBytes : 0) + 512);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    hopper::tma_load(st + c * hopper::kBoxBytes, &p.tq, bar, c * 64, q0, h,
+                     b);
+    hopper::tma_load(st + L::kTile + c * hopper::kBoxBytes, &p.tg, bar,
+                     c * 64, q0, h, b);
+  }
+  if (p.bias_mode == 2)
+    hopper::tma_load(st + L::kRows + 1024, &p.tb, bar, k0, q0,
+                     p.bias_h ? 0 : h, p.bias_b ? 0 : b);
+  unsigned char* rows = st + L::kRows;
+  hopper::tma_load(rows, &p.tlse, bar, q0, bh, 0, 0);
+  hopper::tma_load(rows + 256, &p.tdelta, bar, q0, bh, 0, 0);
 }
 
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(BwdParams p) {
-  constexpr int kPadQK = D + 8, kPadT = kTile + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][D+8]
-  __nv_bfloat16* sV = sK + kTile * kPadQK;                           // [64][D+8]
-  __nv_bfloat16* sQ = sV + kTile * kPadQK;                           // [64][D+8]
-  __nv_bfloat16* sG = sQ + kTile * kPadQK;                           // [64][D+8]
-  __nv_bfloat16* sQt = sG + kTile * kPadQK;                          // [D][72]
-  __nv_bfloat16* sGt = sQt + D * kPadT;                              // [D][72]
-  float* sL = reinterpret_cast<float*>(sGt + D * kPadT);            // [64]
-  float* sDelta = sL + kTile;                                        // [64]
-  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sDelta + kTile);      // [64][68]
+__global__ void __launch_bounds__(128, D == 64 ? 3 : 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
+  using L = DkvLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::smem_base(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + L::kTile;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + L::bars(p.bias_mode));  // 2 + K/V
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.x * kTile;
-  using bf = __nv_bfloat16;
-  const bf* q = static_cast<const bf*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf* k = static_cast<const bf*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf* v = static_cast<const bf*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf* gd = static_cast<const bf*>(p.dout) + b * p.g_sb + h * p.g_sh;
-  const bf* bias = p.bias == nullptr ? nullptr
-      : static_cast<const bf*>(p.bias) + b * p.b_sb + h * p.b_sh;
+  const int g = lane / 4, t = lane % 4;
+  const int n_k = (p.Tk + kTile - 1) / kTile;
+  const int bh = blockIdx.x / n_k, k0 = (blockIdx.x % n_k) * kTile;
+  const int b = bh / p.H, h = bh % p.H;
+  const int nq = (p.Tq + kTile - 1) / kTile;
+  const int iq0 = p.causal ? k0 / kTile : 0;
+  const int n_tiles = nq - iq0;  // <= 0: no query sees these keys
 
-  load_tile_bf16<D>(sK, nullptr, k + k0 * p.k_st, p.k_st, p.Tk - k0, tid);
-  load_tile_bf16<D>(sV, nullptr, v + k0 * p.v_st, p.v_st, p.Tk - k0, tid);
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bars[2],
+                           2 * L::kTile + (p.bias_mode == 1 ? 128 : 0));
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      hopper::tma_load(sK + c * hopper::kBoxBytes, &p.tk, &bars[2], c * 64,
+                       k0, h, b);
+      hopper::tma_load(sV + c * hopper::kBoxBytes, &p.tv, &bars[2], c * 64,
+                       k0, h, b);
+    }
+    if (p.bias_mode == 1)
+      hopper::tma_load(smem + L::kRowBias, &p.tb, &bars[2], k0, 0,
+                       p.bias_h ? 0 : h, p.bias_b ? 0 : b);
+    if (n_tiles > 0) load_dkv_stage<D>(p, smem, bars, 0, iq0 * kTile, k0, bh, b, h);
+    if (n_tiles > 1)
+      load_dkv_stage<D>(p, smem, bars, 1, (iq0 + 1) * kTile, k0, bh, b, h);
+  }
+  uint32_t key0, key1;
+  seed_keys(p.drop, &key0, &key1);
+  const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
 
   const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[D / 2], dv[D / 2], st_[32], dpt[32];
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb)
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nb][e] = dv[nb][e] = 0.f;
+  for (int i = 0; i < 32; ++i) st_[i] = dpt[i] = 0.f;
   float dbc[2] = {0.f, 0.f};  // column sums of ds for keys r0, r0 + 8
+  hopper::mbar_wait(&bars[2], 0);
+  float row_bias[2] = {0.f, 0.f};
+  if (p.bias_mode == 1)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      row_bias[hh] = bias_at(smem + L::kRowBias, 0, r0 + 8 * hh);
 
-  const int nq = (p.Tq + kTile - 1) / kTile;
-  for (int iq = p.causal ? k0 / kTile : 0; iq < nq; ++iq) {
-    const int q0 = iq * kTile;
-    __syncthreads();  // every warp is done with the previous q tile
-    load_tile_bf16<D>(sQ, sQt, q + q0 * p.q_st, p.q_st, p.Tq - q0, tid);
-    load_tile_bf16<D>(sG, sGt, gd + q0 * p.g_st, p.g_st, p.Tq - q0, tid);
-    if (tid < kTile) {
-      const bool ok = q0 + tid < p.Tq;
-      sL[tid] = ok ? p.lse[(long long)bh * p.Tq + q0 + tid] : 0.f;
-      sDelta[tid] = ok ? p.delta[(long long)bh * p.Tq + q0 + tid] : 0.f;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int q0 = (iq0 + j) * kTile;
+    const unsigned char* sQ =
+        smem + L::kStages + (j & 1) * L::stage(p.bias_mode);
+    const unsigned char* sG = sQ + L::kTile;
+    const float* sL = reinterpret_cast<const float*>(sQ + L::kRows);
+    const float* sD = sL + 64;
+    const unsigned char* sB = sQ + L::kRows + 1024;
+    hopper::mbar_wait(&bars[j & 1], (j >> 1) & 1);
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, all K-major (row = key, column = query)
+    hopper::pin(st_);
+    hopper::pin(dpt);
+    hopper::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::mma_ss<64, 0>(st_, hopper::desc_kmajor(sK, ks),
+                            hopper::desc_kmajor(sQ, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::mma_ss<64, 0>(dpt, hopper::desc_kmajor(sV, ks),
+                            hopper::desc_kmajor(sG, ks), ks > 0);
+    hopper::wg_commit();
+    hopper::wg_wait_all();
+    hopper::pin(st_);
+    hopper::pin(dpt);
+
+    // p_drop in place of sᵀ, ds in place of dpᵀ (selects, no branch)
+    const uint32_t keep =
+        p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop.threshold, bh,
+                                          k0 + r0, q0, lane)
+                  : ~0u;
+    float bv[32];
+    if (p.bias_mode == 2) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        bv[i] = bias_at(sB, (i >> 2) * 8 + 2 * t + (i & 1),
+                        r0 + 8 * ((i >> 1) & 1));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) bv[i] = row_bias[(i >> 1) & 1];
     }
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 128);
-    __syncthreads();
-
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ for 16 keys x 64 queries
-    float st[kTile / 8][4], dpt[kTile / 8][4];
+    const int q_left = p.Tq - q0;  // queries of this tile inside Tq
 #pragma unroll
-    for (int nb = 0; nb < kTile / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t ak[4], av[4];
-      load_a(ak, sK, kPadQK, r0, ks * 16 + tig * 2);
-      load_a(av, sV, kPadQK, r0, ks * 16 + tig * 2);
-#pragma unroll
-      for (int nb = 0; nb < kTile / 8; ++nb) {
-        const bf* qrow = sQ + (nb * 8 + g) * kPadQK + ks * 16 + tig * 2;
-        const bf* grow = sG + (nb * 8 + g) * kPadQK + ks * 16 + tig * 2;
-        mma_bf16_16816(st[nb], ak, ld_u32(qrow), ld_u32(qrow + 8));
-        mma_bf16_16816(dpt[nb], av, ld_u32(grow), ld_u32(grow + 8));
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * t + (i & 1);
+      const int key = k0 + r0 + 8 * hh;
+      float x = fmaf(st_[i], p.sm_scale, bv[i]);
+      x = p.causal && key > q0 + c ? kNegInf : x;
+      float pr = hopper::ex2((x - sL[c]) * hopper::kLog2e);
+      pr = c < q_left && key < p.Tk ? pr : 0.f;
+      const bool kept = (keep >> i) & 1u;
+      const float ds = pr * ((kept ? dpt[i] * drop_scale : 0.f) - sD[c]);
+      st_[i] = kept ? pr * drop_scale : 0.f;
+      dpt[i] = ds;
+      dbc[hh] += ds;
     }
 
-    // p_drop in place of sᵀ, ds in place of dpᵀ (row = key, column = query)
+    // dV += P_dropᵀ·dO and dK += dSᵀ·Q: A from registers, dO and Q MN-major
+    uint32_t ap[4][4], ads[4][4];
+    hopper::acc_to_a(ap, st_);
+    hopper::acc_to_a(ads, dpt);
+    hopper::pin(dv);
+    hopper::pin(dk);
+    hopper::pin(ap);
+    hopper::pin(ads);
+    hopper::wg_fence();
 #pragma unroll
-    for (int nb = 0; nb < kTile / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key_l = r0 + 8 * (e >> 1), q_l = nb * 8 + tig * 2 + (e & 1);
-        const float pr = prob(p, st[nb][e], bias, q0 + q_l, k0 + key_l,
-                              sL[q_l]);
-        float pd = pr, dpv = dpt[nb][e];
-        if (p.drop.on) {
-          const bool keep = sKeep[q_l * flash::kKeepPitch + key_l];
-          pd = keep ? pr * p.drop.scale : 0.f;
-          dpv = keep ? dpv * p.drop.scale : 0.f;
-        }
-        const float ds = pr * (dpv - sDelta[q_l]);
-        st[nb][e] = pd;
-        dpt[nb][e] = ds;
-        dbc[e >> 1] += ds;
-      }
-
-    // dV += P_dropᵀ·dO and dK += dSᵀ·Q over the 64 queries
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t ap[4], ads[4];
-      acc_to_a(ap, st, kk);
-      acc_to_a(ads, dpt, kk);
-#pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
-        const bf* gtrow = sGt + (nb * 8 + g) * kPadT + kk * 16 + tig * 2;
-        const bf* qtrow = sQt + (nb * 8 + g) * kPadT + kk * 16 + tig * 2;
-        mma_bf16_16816(dv[nb], ap, ld_u32(gtrow), ld_u32(gtrow + 8));
-        mma_bf16_16816(dk[nb], ads, ld_u32(qtrow), ld_u32(qtrow + 8));
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper::mma_rs<D, 1>(dv, ap[kk], hopper::desc_mnmajor(sG, kk), 1);
+      hopper::mma_rs<D, 1>(dk, ads[kk], hopper::desc_mnmajor(sQ, kk), 1);
     }
+    hopper::wg_commit();
+    hopper::wg_wait_all();
+    hopper::pin(dv);
+    hopper::pin(dk);
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && j + 2 < n_tiles)
+      load_dkv_stage<D>(p, smem, bars, j + 2, (iq0 + j + 2) * kTile, k0, bh, b, h);
   }
 
   if (p.dbias_col != nullptr) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      dbc[r] += __shfl_xor_sync(0xffffffffu, dbc[r], 1);
-      dbc[r] += __shfl_xor_sync(0xffffffffu, dbc[r], 2);
-      const int key = k0 + r0 + 8 * r;
-      if (tig == 0 && key < p.Tk)
-        p.dbias_col[(long long)bh * p.Tk + key] = dbc[r];
+    for (int hh = 0; hh < 2; ++hh) {
+      dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 1);
+      dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 2);
+      const int key = k0 + r0 + 8 * hh;
+      if (t == 0 && key < p.Tk)
+        p.dbias_col[(long long)bh * p.Tk + key] = dbc[hh];
     }
   }
-  bf* dkp = static_cast<bf*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  bf* dvp = static_cast<bf*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-  store_rows_bf16<D>(dkp, p.dk_st, dk, k0 + r0, p.Tk, tig, p.sm_scale);
-  store_rows_bf16<D>(dvp, p.dv_st, dv, k0 + r0, p.Tk, tig, 1.f);
+  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, dk, k0 + r0, p.Tk,
+                t, p.sm_scale);
+  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, dv, k0 + r0, p.Tk,
+                t, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -720,67 +883,74 @@ size_t smem_dkv_f32() {
   return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) +
                           2 * kTile) + kKeepBytes;
 }
-template <int D>
-size_t smem_dq_bf16() {
-  return sizeof(__nv_bfloat16) * (4 * kTile * (D + 8) + D * (kTile + 8)) +
-         kKeepBytes;
-}
-template <int D>
-size_t smem_dkv_bf16() {
-  return sizeof(__nv_bfloat16) * (4 * kTile * (D + 8) + 2 * D * (kTile + 8)) +
-         sizeof(float) * 2 * kTile + kKeepBytes;
-}
 
-// Opts a kernel into its dynamic shared memory once per device, then
-// launches it on `stream` over (tiles, B·H).
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, unsigned* configured, const BwdParams& p,
-                   int tiles, int threads, size_t smem, cudaStream_t stream) {
+// Opts a kernel into `max_smem` of dynamic shared memory once per device,
+// then launches it with `smem` on `stream` over `blocks` CTAs (tiles x B·H,
+// flattened).
+template <typename Kernel, typename Params>
+cudaError_t launch(Kernel kernel, unsigned* configured, const Params& p,
+                   unsigned blocks, int threads, size_t smem,
+                   size_t max_smem, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned bit = 1u << (dev & 31);
   if (!(*configured & bit)) {
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_smem);
     if (err != cudaSuccess) return err;
     *configured |= bit;  // idempotent: a racing second setter is harmless
   }
-  kernel<<<dim3(tiles, p.B * p.H), threads, smem, stream>>>(p);
+  kernel<<<blocks, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 unsigned configured[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 
+template <typename Params>
+void grids(const Params& p, unsigned* nq, unsigned* nk) {
+  const unsigned bh = (unsigned)(p.B * p.H);
+  *nq = (unsigned)((p.Tq + kTile - 1) / kTile) * bh;
+  *nk = (unsigned)((p.Tk + kTile - 1) / kTile) * bh;
+}
+
 template <int D>
-cudaError_t launch_pair(const BwdParams& p, int dtype, cudaStream_t s) {
-  const int nq = (p.Tq + kTile - 1) / kTile, nk = (p.Tk + kTile - 1) / kTile;
-  const int slot = (dtype * 2 + (D == 128)) * 2;
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch(flash_bwd_dq_f32_kernel<D>, &configured[slot], p, nq, 256,
-                 smem_dq_f32<D>(), s);
-    if (err != cudaSuccess) return err;
-    return launch(flash_bwd_dkv_f32_kernel<D>, &configured[slot + 1], p, nk,
-                  256, smem_dkv_f32<D>(), s);
-  }
-  err = launch(flash_bwd_dq_bf16_kernel<D>, &configured[slot], p, nq, 128,
-               smem_dq_bf16<D>(), s);
+cudaError_t launch_f32(const BwdParams& p, cudaStream_t s) {
+  unsigned nq, nk;
+  grids(p, &nq, &nk);
+  const int slot = (D == 128) * 2;
+  cudaError_t err = launch(flash_bwd_dq_f32_kernel<D>, &configured[slot], p,
+                           nq, 256, smem_dq_f32<D>(), smem_dq_f32<D>(), s);
+  if (err != cudaSuccess) return err;
+  return launch(flash_bwd_dkv_f32_kernel<D>, &configured[slot + 1], p, nk,
+                256, smem_dkv_f32<D>(), smem_dkv_f32<D>(), s);
+}
+
+template <int D>
+cudaError_t launch_bf16(const Bf16BwdParams& p, cudaStream_t s) {
+  unsigned nq, nk;
+  grids(p, &nq, &nk);
+  const int slot = 4 + (D == 128) * 2;
+  cudaError_t err = launch(flash_bwd_dq_bf16_kernel<D>, &configured[slot], p,
+                           nq, 128, DqLayout<D>::smem(p.bias_mode),
+                           DqLayout<D>::smem(2), s);
   if (err != cudaSuccess) return err;
   return launch(flash_bwd_dkv_bf16_kernel<D>, &configured[slot + 1], p, nk,
-                128, smem_dkv_bf16<D>(), s);
+                128, DkvLayout<D>::smem(p.bias_mode), DkvLayout<D>::smem(2),
+                s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head dim
-// is contiguous. lse and delta are [B*H, Tq] f32. dbias (per query,
-// [B*H, Tq, Tk] f32) and dbias_col ([B*H, Tk] f32) may be null. Dropout as
-// in flash_attention_fwd. Launches the dq kernel, then the dk/dv kernel, on
-// `stream`. Returns a cudaError_t (0 = launched).
-int flash_attention_bwd(
+// float32. Strides are in elements; the head dim is contiguous. lse and
+// delta are [B*H, Tq] f32. dbias (per query, [B*H, Tq, Tk] f32) and
+// dbias_col ([B*H, Tk] f32) may be null. With dropout != 0, `seed` points at
+// one int64 on the device and a score is dropped iff its Philox word <
+// `threshold`; kept p is scaled by `drop_scale`. Launches the dq kernel,
+// then the dk/dv kernel, on `stream`. Returns a cudaError_t (0 = launched).
+int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const void* bias, void* dq,
     void* dk, void* dv, float* dbias, float* dbias_col, int B, int H, int Tq,
@@ -790,7 +960,7 @@ int flash_attention_bwd(
     long long g_st, long long dq_sb, long long dq_sh, long long dq_st,
     long long dk_sb, long long dk_sh, long long dk_st, long long dv_sb,
     long long dv_sh, long long dv_st, long long b_sb, long long b_sh,
-    long long b_sq, long long b_sk, float sm_scale, int causal, int dtype,
+    long long b_sq, long long b_sk, float sm_scale, int causal,
     const long long* seed, unsigned threshold, float drop_scale, int dropout,
     void* stream) {
   BwdParams p;
@@ -813,10 +983,99 @@ int flash_attention_bwd(
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((dtype != 0 && dtype != 1) || (D != 64 && D != 128))
-    return (int)cudaErrorInvalidValue;
-  return D == 64 ? (int)launch_pair<64>(p, dtype, s)
-                 : (int)launch_pair<128>(p, dtype, s);
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  return D == 64 ? (int)launch_f32<64>(p, s) : (int)launch_f32<128>(p, s);
+}
+
+// bfloat16 delta[bh, i] = Σ_d dO·out into rows `pitch` floats apart.
+// Strides are in elements; 16-byte aligned rows. Returns a cudaError_t.
+int flash_attention_bwd_delta_bf16(const void* out, const void* g,
+                                   float* delta, int B, int H, int T, int D,
+                                   int pitch, long long o_sb, long long o_sh,
+                                   long long o_st, long long g_sb,
+                                   long long g_sh, long long g_st,
+                                   void* stream) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * H * T;
+  const unsigned blocks = (unsigned)((rows * (D / 8) + 255) / 256);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(out);
+  const __nv_bfloat16* gg = static_cast<const __nv_bfloat16*>(g);
+  if (D == 64)
+    flash_bwd_delta_bf16_kernel<64><<<blocks, 256, 0, s>>>(
+        o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st, g_sb, g_sh, g_st);
+  else
+    flash_bwd_delta_bf16_kernel<128><<<blocks, 256, 0, s>>>(
+        o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st, g_sb, g_sh, g_st);
+  return (int)cudaGetLastError();
+}
+
+// bfloat16. `tensors` holds the tensor descriptions (hopper::kDescLen int64
+// each) of q, k, v, dO, the bias (ignored when bias_mode is 0), lse and
+// delta (both [1, 1, B*H, Tq] f32) in that order. Output strides are in
+// elements; dbias / dbias_col and dropout as in flash_attention_bwd_f32.
+// Launches the dq kernel, then the dk/dv kernel. Returns a cudaError_t.
+int flash_attention_bwd_bf16(
+    const long long* tensors, void* dq, void* dk, void* dv, float* dbias,
+    float* dbias_col, int B, int H, int Tq, int Tk, int D, long long dq_sb,
+    long long dq_sh, long long dq_st, long long dk_sb, long long dk_sh,
+    long long dk_st, long long dv_sb, long long dv_sh, long long dv_st,
+    int bias_mode, float sm_scale, int causal, const long long* seed,
+    unsigned threshold, float drop_scale, int dropout, void* stream) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  constexpr int n = hopper::kDescLen;
+  const long long* bias = tensors + 4 * n;
+  const long long* lse = tensors + 5 * n;
+  const long long* delta = tensors + 6 * n;
+  Bf16BwdParams p;
+  CUtensorMap* maps[4] = {&p.tq, &p.tk, &p.tv, &p.tg};
+  cudaError_t err;
+  for (int i = 0; i < 4; ++i)
+    if ((err = hopper::make_map(maps[i], tensors + i * n, true, 64, 64)) !=
+        cudaSuccess)
+      return (int)err;
+  if (bias_mode != 0 &&
+      (err = hopper::make_map(&p.tb, bias, true, 64,
+                              bias_mode == 2 ? 64 : 1)) != cudaSuccess)
+    return (int)err;
+  if ((err = hopper::make_map(&p.tlse, lse, false, 64, 1)) != cudaSuccess ||
+      (err = hopper::make_map(&p.tdelta, delta, false, 64, 1)) != cudaSuccess)
+    return (int)err;
+  p.lse = reinterpret_cast<const float*>(lse[0]);
+  p.delta = reinterpret_cast<const float*>(delta[0]);
+  p.lse_pitch = (int)(lse[5] / 4);  // the byte stride of the rows
+  p.delta_pitch = (int)(delta[5] / 4);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dbias = dbias;
+  p.dbias_col = dbias_col;
+  p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk;
+  p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_st = dq_st;
+  p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_st = dk_st;
+  p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_st = dv_st;
+  p.bias_mode = bias_mode;
+  p.bias_h = bias[3] == 1;  // dims innermost first: (Tk, Qb, Hb, Bb)
+  p.bias_b = bias[4] == 1;
+  p.sm_scale = sm_scale;
+  p.causal = causal;
+  p.drop.seed = seed;
+  p.drop.threshold = threshold;
+  p.drop.scale = drop_scale;
+  p.drop.on = dropout;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 64 ? (int)launch_bf16<64>(p, s) : (int)launch_bf16<128>(p, s);
+}
+
+// Dynamic shared memory of a bf16 kernel (0 = dq, 1 = dk/dv) at head dim
+// D and a bias mode, in bytes.
+int flash_attention_bwd_bf16_smem(int kernel, int D, int bias_mode) {
+  if (D != 64 && D != 128) return 0;
+  if (kernel == 0)
+    return D == 64 ? (int)DqLayout<64>::smem(bias_mode)
+                   : (int)DqLayout<128>::smem(bias_mode);
+  return D == 64 ? (int)DkvLayout<64>::smem(bias_mode)
+                 : (int)DkvLayout<128>::smem(bias_mode);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -12,34 +12,46 @@
 // is over the undropped p, as in the TPU kernel; kept p is scaled by
 // 1 / (1 - rate) before p·v.
 //
-// Design. One CTA owns a 64-row q tile of one (batch, head) and walks the
-// K/V tiles (64 keys each) in a loop, keeping the running max and sum in f32
-// registers: the loop takes the place of the TPU grid's sequential K axis.
-// q, k, v and out are addressed through (batch, head, token) strides with a
-// contiguous head dim, so the packed [B, T, nh·d] layout -- and the q/k/v
-// thirds of a fused qkv projection -- are read in place, with no head
-// fold/unfold copies. The bias is addressed through four strides (0 on a
-// broadcast dim), so the BERT mask [B, 1, Tk] is read per batch rather than
-// broadcast over heads in memory. Any Tq and Tk: the ragged tile edge is
-// masked in the kernel.
-//   bf16: 4 warps, 16 q rows each; q·kᵀ and p·v on the tensor cores through
-//         mma.sync m16n8k16 (bf16 in, f32 accumulate). p is rounded to bf16
-//         before p·v, as the TPU kernel casts p to v's dtype.
-//   f32:  256 threads, a 4x4 register tile each, FMA on the CUDA cores; TF32
-//         would lose the f32 parity the tests hold it to.
+// One CTA owns a 64-row q tile of one (batch, head) and walks the 64-key
+// tiles in a loop, keeping the running max and sum in f32 registers: the
+// loop takes the place of the TPU grid's sequential K axis. The grid is the
+// (q tile, batch·head) pairs flattened onto blockIdx.x, so B·nh has no
+// 65,535 cap. q, k, v and out are addressed through (batch, head, token)
+// strides with a contiguous head dim, so the packed [B, T, nh·d] layout --
+// and the q/k/v thirds of a fused qkv projection -- are read in place.
 //
 // Bound. The work is 4·B·nh·Tq·Tk·d flops over the bytes of q, k, v, out,
 // lse and the bias: about T/2 flops a byte in bf16 (64 at T = 128, 256 at
 // T = 512), under the H100's ~295 flop/byte tensor-core ridge, so a perfect
 // bf16 kernel is memory bound; in f32 (T/4 flops a byte against a ~20
-// flop/byte ridge for 67 TFLOP/s of FMA) it is compute bound. This first
-// kernel uses mma.sync, not wgmma/TMA/warp specialisation, so it stays far
-// from either roof; its times are in PERF.md.
+// flop/byte ridge for 67 TFLOP/s of FMA) it is compute bound.
+//
+// bf16 design (what it does about the bound). The products run on wgmma
+// with operands in shared memory as TMA writes them (hopper.cuh): S = Q·Kᵀ
+// with both K-major, then O += P·V with P converted to bf16 in registers as
+// the A operand and V read MN-major through the transpose flag, so V is
+// never transposed. Thread 0 of the one warpgroup starts TMA copies into a
+// ring of two stages (K, V and the bias rows of a key tile each) with
+// mbarriers, one key tile ahead of the math, so the next tile's bytes
+// arrive while this one is computed; TMA zero-fills rows past Tk and Tq.
+// The bias comes with the tile: the 64-key slice of the mask for a bias
+// shared by the queries, a 64x64 block for a per-query one; no score reads
+// device memory. Dropout keep bits are drawn in registers for the lane's
+// own accumulator elements (flash::keep_bits_rows). The score loop has no
+// branch: the ragged edge, the causal mask and dropout are selects and the
+// bias comes into registers once a tile; exp is ex2.approx. With products
+// this cheap, that per-element work is what bounds a CTA, so it is kept
+// lean, and the stages are sized by the bias mode (no per-query slot for
+// the mask) so that more CTAs share an SM and hide each other's latency.
+// 64-row tiles keep the grid at 192 CTAs for BERT's T = 128 (B·nh = 96).
+//   f32: 256 threads, a 4x4 register tile each, FMA on the CUDA cores; TF32
+//        would lose the f32 parity the tests hold it to.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -66,28 +78,23 @@ struct FwdParams {
   flash::Dropout drop;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // Score of (row, col) after scale, bias and the masks; -inf past Tk.
-template <typename T>
 __device__ __forceinline__ float finish_score(const FwdParams& p, float acc,
-                                              const T* bias, int row, int col) {
+                                              const float* bias, int row,
+                                              int col) {
   if (col >= p.Tk) return -INFINITY;
   float s = acc * p.sm_scale;
-  if (bias != nullptr && row < p.Tq)
-    s += to_float(bias[row * p.b_sq + col * p.b_sk]);
+  if (bias != nullptr && row < p.Tq) s += bias[row * p.b_sq + col * p.b_sk];
   if (p.causal && col > row) s = kNegInf;
   return s;
 }
 
-// Last K tile a q tile needs: causal rows see no key past their own index.
-__device__ __forceinline__ int num_k_tiles(const FwdParams& p, int q0) {
-  int n = (p.Tk + kBlockK - 1) / kBlockK;
-  if (p.causal) {
-    int last_row = min(q0 + kBlockQ, p.Tq) - 1;
+// Key tiles a q tile needs: causal rows see no key past their own index.
+__device__ __forceinline__ int num_k_tiles(int Tq, int Tk, int causal,
+                                           int q0) {
+  int n = (Tk + kBlockK - 1) / kBlockK;
+  if (causal) {
+    int last_row = min(q0 + kBlockQ, Tq) - 1;
     n = min(n, last_row / kBlockK + 1);
   }
   return n;
@@ -110,9 +117,10 @@ flash_fwd_f32_kernel(FwdParams p) {
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y;
+  const int n_q = (p.Tq + kBlockQ - 1) / kBlockQ;  // grid: (tile, b·h) flat
+  const int bh = blockIdx.x / n_q;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = (blockIdx.x % n_q) * kBlockQ;
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -139,7 +147,7 @@ flash_fwd_f32_kernel(FwdParams p) {
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
   }
 
-  const int n_tiles = num_k_tiles(p, q0);
+  const int n_tiles = num_k_tiles(p.Tq, p.Tk, p.causal, q0);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // the previous tile's sK/sV/sP are consumed
@@ -239,195 +247,205 @@ flash_fwd_f32_kernel(FwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync.m16n8k16.
+// bf16: wgmma on TMA-loaded tiles.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct Bf16FwdParams {
+  CUtensorMap tq, tk, tv;  // [B, H, T, D]: boxes of 64 rows x 64 values
+  CUtensorMap tb;          // bias [Bb, Hb, Qb, Tk]: 1 or 64 rows x 64 keys
+  __nv_bfloat16* out;
+  float* lse;              // [B*H, lse_pitch]
+  int B, H, Tq, Tk, lse_pitch;
+  long long o_sb, o_sh, o_st;
+  int bias_mode;           // 0 none, 1 one row for all queries, 2 per query
+  int bias_b, bias_h;      // 1 = the bias is broadcast over batch / heads
+  float sm_scale;
+  int causal;
+  flash::Dropout drop;
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// Byte offsets from the 1024-aligned base: Q, then two stages of K, V and
+// the bias slot (sized by the bias mode, so a call without a per-query
+// bias leaves room for more CTAs on an SM), then the barriers.
+template <int D>
+struct FwdLayout {
+  static constexpr int kTile = D / 64 * hopper::kBoxBytes;  // [64][D]
+  static __host__ __device__ constexpr int stage(int bias_mode) {
+    return 2 * kTile + hopper::bias_slot(bias_mode);
+  }
+  static __host__ __device__ constexpr int bars(int bias_mode) {
+    return kTile + 2 * stage(bias_mode);
+  }
+  static constexpr size_t smem(int bias_mode) {
+    return bars(bias_mode) + 3 * sizeof(uint64_t) + 1024;
+  }
+};
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Thread 0: the copies of key tile kt (K, V, the bias rows) into stage
+// kt % 2, completing that stage's barrier.
+template <int D>
+__device__ __forceinline__ void load_kv_stage(const Bf16FwdParams& p,
+                                         unsigned char* smem, uint64_t* bars,
+                                         int kt, int q0, int b, int h) {
+  using L = FwdLayout<D>;
+  unsigned char* st = smem + L::kTile + (kt & 1) * L::stage(p.bias_mode);
+  uint64_t* bar = &bars[kt & 1];
+  const uint32_t bias_bytes =
+      p.bias_mode == 2 ? hopper::kBoxBytes : p.bias_mode == 1 ? 128 : 0;
+  hopper::mbar_expect_tx(bar, 2 * L::kTile + bias_bytes);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    hopper::tma_load(st + c * hopper::kBoxBytes, &p.tk, bar, c * 64,
+                     kt * kBlockK, h, b);
+    hopper::tma_load(st + L::kTile + c * hopper::kBoxBytes, &p.tv, bar,
+                     c * 64, kt * kBlockK, h, b);
+  }
+  if (p.bias_mode)
+    hopper::tma_load(st + 2 * L::kTile, &p.tb, bar, kt * kBlockK,
+                     p.bias_mode == 2 ? q0 : 0, p.bias_h ? 0 : h,
+                     p.bias_b ? 0 : b);
 }
 
 template <int D>
 __global__ void __launch_bounds__(128)
-flash_fwd_bf16_kernel(FwdParams p) {
-  constexpr int kPadQK = D + 8;          // row pitch (elements) of sQ, sK
-  constexpr int kPadVt = kBlockK + 8;    // row pitch of the transposed V
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][D+8]
-  __nv_bfloat16* sK = sQ + kBlockQ * kPadQK;                         // [64][D+8]
-  __nv_bfloat16* sVt = sK + kBlockK * kPadQK;                        // [D][72]
-  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sVt + D * kPadVt);     // [64][68]
+flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
+  using L = FwdLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::smem_base(smem_raw);
+  unsigned char* sQ = smem;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + L::bars(p.bias_mode));  // 2 + Q
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;  // mma group id, thread in group
-  const int bh = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n_q = (p.Tq + kBlockQ - 1) / kBlockQ;
+  const int bh = blockIdx.x / n_q, q0 = (blockIdx.x % n_q) * kBlockQ;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int n_tiles = num_k_tiles(p.Tq, p.Tk, p.causal, q0);
 
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* bias = p.bias == nullptr ? nullptr
-      : static_cast<const __nv_bfloat16*>(p.bias) + b * p.b_sb + h * p.b_sh;
-
-  constexpr int kVec = D / 8;  // 16-byte vectors per row
-  for (int i = tid; i < kBlockQ * kVec; i += 128) {
-    int r = i / kVec, c = (i % kVec) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.Tq)
-      x = *reinterpret_cast<const uint4*>(q + (q0 + r) * p.q_st + c);
-    *reinterpret_cast<uint4*>(sQ + r * kPadQK + c) = x;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::mbar_fence_init();
   }
   __syncthreads();
-
-  // this warp's 16 q rows as mma A fragments, for every 16-wide d step
-  uint32_t qf[D / 16][4];
-  const int r0 = warp * 16 + g;
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bars[2], L::kTile);
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int c = ks * 16 + tig * 2;
-    qf[ks][0] = ld_u32(sQ + r0 * kPadQK + c);
-    qf[ks][1] = ld_u32(sQ + (r0 + 8) * kPadQK + c);
-    qf[ks][2] = ld_u32(sQ + r0 * kPadQK + c + 8);
-    qf[ks][3] = ld_u32(sQ + (r0 + 8) * kPadQK + c + 8);
+    for (int c = 0; c < D / 64; ++c)
+      hopper::tma_load(sQ + c * hopper::kBoxBytes, &p.tq, &bars[2], c * 64,
+                       q0, h, b);
+    load_kv_stage<D>(p, smem, bars, 0, q0, b, h);
+    if (n_tiles > 1) load_kv_stage<D>(p, smem, bars, 1, q0, b, h);
+  }
+  uint32_t key0 = 0, key1 = 0;
+  if (p.drop.on) {
+    const unsigned long long sd = static_cast<unsigned long long>(*p.drop.seed);
+    key0 = static_cast<uint32_t>(sd);
+    key1 = static_cast<uint32_t>(sd >> 32);
   }
 
-  // rows (q0 + r0) and (q0 + r0 + 8): index 0 and 1 below
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
+  float o[D / 2], s[32];
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb)
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[nb][e] = 0.f;
-  const int rows[2] = {q0 + r0, q0 + r0 + 8};
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  hopper::mbar_wait(&bars[2], 0);
 
-  const int n_tiles = num_k_tiles(p, q0);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous sK/sVt
-    for (int i = tid; i < kBlockK * kVec; i += 128) {
-      int r = i / kVec, c = (i % kVec) * 8;
-      uint4 xk = make_uint4(0u, 0u, 0u, 0u), xv = xk;
-      if (k0 + r < p.Tk) {
-        xk = *reinterpret_cast<const uint4*>(k + (k0 + r) * p.k_st + c);
-        xv = *reinterpret_cast<const uint4*>(v + (k0 + r) * p.v_st + c);
-      }
-      *reinterpret_cast<uint4*>(sK + r * kPadQK + c) = xk;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&xv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sVt[(c + e) * kPadVt + r] = ve[e];
-    }
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 128);
-    __syncthreads();
+    const unsigned char* st = smem + L::kTile + (kt & 1) * L::stage(p.bias_mode);
+    const unsigned char* sB = st + 2 * L::kTile;
+    hopper::mbar_wait(&bars[kt & 1], (kt >> 1) & 1);
 
-    // S = Q·Kᵀ for 16 rows x 64 keys: 8 n-blocks of 8 keys
-    float s[kBlockK / 8][4];
+    // S = Q·Kᵀ, both K-major
+    hopper::pin(s);
+    hopper::wg_fence();
 #pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-      const __nv_bfloat16* krow = sK + (nb * 8 + g) * kPadQK + tig * 2;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        mma_bf16_16816(s[nb], qf[ks], ld_u32(krow + ks * 16),
-                       ld_u32(krow + ks * 16 + 8));
-    }
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::mma_ss<64, 0>(s, hopper::desc_kmajor(sQ, ks),
+                            hopper::desc_kmajor(st, ks), ks > 0);
+    hopper::wg_commit();
+    hopper::wg_wait_all();
+    hopper::pin(s);
 
-    // online softmax; element e of an n-block is row (e / 2), key tig*2+e%2
+    // scale, bias and masks (selects, no branch); the tile's row max
+    float bv[32];
+    hopper::bias_rows(bv, sB, p.bias_mode, r0, t);
+    const int k_left = p.Tk - k0;  // keys of this tile inside Tk
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nb * 8 + tig * 2 + (e & 1);
-        s[nb][e] = finish_score(p, s[nb][e], bias, rows[e >> 1], col);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int c = (i >> 2) * 8 + 2 * t + (i & 1);
+      const int row = q0 + r0 + 8 * ((i >> 1) & 1);
+      float x = fmaf(s[i], p.sm_scale, bv[i]);
+      x = p.causal && k0 + c > row ? kNegInf : x;
+      s[i] = c < k_left ? x : -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+
+    // online softmax over the 4 lanes that share a row
     float corr[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      corr[hh] = hopper::ex2((m[hh] - m_new) * hopper::kLog2e);
+      m[hh] = m_new;
     }
 #pragma unroll
-    for (int nb = 0; nb < kBlockK / 8; ++nb)
+    for (int i = 0; i < 32; ++i) {
+      s[i] = hopper::ex2((s[i] - m[(i >> 1) & 1]) * hopper::kLog2e);
+      sum[(i >> 1) & 1] += s[i];
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nb][e] = expf(s[nb][e] - m[e >> 1]);
-        sum[e >> 1] += s[nb][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * corr[r] + sum[r];
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+      l[hh] = l[hh] * corr[hh] + sum[hh];
     }
     if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
+      const uint32_t keep = flash::keep_bits_rows(
+          key0, key1, p.drop.threshold, bh, q0 + r0, k0, t);
 #pragma unroll
-      for (int nb = 0; nb < kBlockK / 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row_l = r0 + 8 * (e >> 1), col_l = nb * 8 + tig * 2 + (e & 1);
-          s[nb][e] = sKeep[row_l * flash::kKeepPitch + col_l]
-                         ? s[nb][e] * p.drop.scale : 0.f;
-        }
+      for (int i = 0; i < 32; ++i)
+        s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
     }
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb) {
-      o[nb][0] *= corr[0]; o[nb][1] *= corr[0];
-      o[nb][2] *= corr[1]; o[nb][3] *= corr[1];
-    }
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
-    // O += P·V: the S accumulators of n-blocks 2kk and 2kk+1 are exactly
-    // the A fragment of the 16-key step kk
+    // O += P·V: P from registers, V MN-major
+    uint32_t a[4][4];
+    hopper::acc_to_a(a, s);
+    hopper::pin(o);
+    hopper::pin(a);
+    hopper::wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
-        const __nv_bfloat16* vrow = sVt + (nb * 8 + g) * kPadVt + kk * 16 + tig * 2;
-        mma_bf16_16816(o[nb], a, ld_u32(vrow), ld_u32(vrow + 8));
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::mma_rs<D, 1>(o, a[kk], hopper::desc_mnmajor(st + L::kTile, kk),
+                           1);
+    hopper::wg_commit();
+    hopper::wg_wait_all();
+    hopper::pin(o);
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && kt + 2 < n_tiles) load_kv_stage<D>(p, smem, bars, kt + 2, q0, b, h);
   }
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + b * p.o_sb + h * p.o_sh;
+  __nv_bfloat16* out = p.out + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= p.Tq) continue;
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r0 + 8 * hh;
+    if (row >= p.Tq) continue;
+    const float l_safe = l[hh] == 0.f ? 1.f : l[hh];
     const float inv = 1.f / l_safe;
-    __nv_bfloat16* orow = out + rows[r] * p.o_st + tig * 2;
+    __nv_bfloat16* orow = out + row * p.o_st + 2 * t;
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb) {
-      __nv_bfloat162 val = __floats2bfloat162_rn(o[nb][2 * r] * inv,
-                                                 o[nb][2 * r + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) = val;
-    }
-    if (tig == 0) p.lse[(long long)bh * p.Tq + rows[r]] = m[r] + logf(l_safe);
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) =
+          __floats2bfloat162_rn(o[4 * nb + 2 * hh] * inv,
+                                o[4 * nb + 2 * hh + 1] * inv);
+    if (t == 0) p.lse[(long long)bh * p.lse_pitch + row] = m[hh] + logf(l_safe);
   }
 }
 
@@ -438,29 +456,25 @@ size_t smem_bytes_f32() {
          kBlockQ * flash::kKeepPitch;
 }
 
-template <int D>
-size_t smem_bytes_bf16() {
-  return sizeof(__nv_bfloat16) * (2 * kBlockQ * (D + 8) + D * (kBlockK + 8)) +
-         kBlockQ * flash::kKeepPitch;
-}
-
-// Opts a kernel into its dynamic shared memory once per device, then
-// launches it on `stream`.
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, unsigned* configured, const FwdParams& p,
-                   int threads, size_t smem, cudaStream_t stream) {
+// Opts a kernel into `max_smem` of dynamic shared memory once per device,
+// then launches it with `smem` on `stream` over the flat (q tile, B·H) grid.
+template <typename Kernel, typename Params>
+cudaError_t launch(Kernel kernel, unsigned* configured, const Params& p,
+                   int threads, size_t smem, size_t max_smem,
+                   cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned bit = 1u << (dev & 31);
   if (!(*configured & bit)) {
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_smem);
     if (err != cudaSuccess) return err;
     *configured |= bit;  // idempotent: a racing second setter is harmless
   }
-  dim3 grid((p.Tq + kBlockQ - 1) / kBlockQ, p.B * p.H);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  const unsigned blocks =
+      (unsigned)((p.Tq + kBlockQ - 1) / kBlockQ) * (unsigned)(p.B * p.H);
+  kernel<<<blocks, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -471,21 +485,21 @@ unsigned configured_bf16_64 = 0, configured_bf16_128 = 0;
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head dim
-// is contiguous. With dropout != 0, `seed` points at one int64 on the device
-// and a score is dropped iff its Philox word < `threshold`; kept p is scaled
-// by `drop_scale`. Returns a cudaError_t (0 = launched).
-int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        const void* bias, void* out, float* lse, int B, int H,
-                        int Tq, int Tk, int D, long long q_sb, long long q_sh,
-                        long long q_st, long long k_sb, long long k_sh,
-                        long long k_st, long long v_sb, long long v_sh,
-                        long long v_st, long long o_sb, long long o_sh,
-                        long long o_st, long long b_sb, long long b_sh,
-                        long long b_sq, long long b_sk, float sm_scale,
-                        int causal, int dtype, const long long* seed,
-                        unsigned threshold, float drop_scale, int dropout,
-                        void* stream) {
+// float32. Strides are in elements; the head dim is contiguous. With
+// dropout != 0, `seed` points at one int64 on the device and a score is
+// dropped iff its Philox word < `threshold`; kept p is scaled by
+// `drop_scale`. Returns a cudaError_t (0 = launched).
+int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
+                            const void* bias, void* out, float* lse, int B,
+                            int H, int Tq, int Tk, int D, long long q_sb,
+                            long long q_sh, long long q_st, long long k_sb,
+                            long long k_sh, long long k_st, long long v_sb,
+                            long long v_sh, long long v_st, long long o_sb,
+                            long long o_sh, long long o_st, long long b_sb,
+                            long long b_sh, long long b_sq, long long b_sk,
+                            float sm_scale, int causal, const long long* seed,
+                            unsigned threshold, float drop_scale, int dropout,
+                            void* stream) {
   FwdParams p;
   p.q = q; p.k = k; p.v = v; p.bias = bias; p.out = out; p.lse = lse;
   p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk;
@@ -501,19 +515,68 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
+  if (D == 64)
     return launch(flash_fwd_f32_kernel<64>, &configured_f32_64, p, 256,
-                  smem_bytes_f32<64>(), s);
-  if (dtype == 0 && D == 128)
+                  smem_bytes_f32<64>(), smem_bytes_f32<64>(), s);
+  if (D == 128)
     return launch(flash_fwd_f32_kernel<128>, &configured_f32_128, p, 256,
-                  smem_bytes_f32<128>(), s);
-  if (dtype == 1 && D == 64)
-    return launch(flash_fwd_bf16_kernel<64>, &configured_bf16_64, p, 128,
-                  smem_bytes_bf16<64>(), s);
-  if (dtype == 1 && D == 128)
-    return launch(flash_fwd_bf16_kernel<128>, &configured_bf16_128, p, 128,
-                  smem_bytes_bf16<128>(), s);
+                  smem_bytes_f32<128>(), smem_bytes_f32<128>(), s);
   return (int)cudaErrorInvalidValue;
+}
+
+// bfloat16. `tensors` holds the tensor descriptions (hopper::kDescLen int64
+// each) of q, k, v and the bias (ignored when bias_mode is 0) in that
+// order; out strides are in elements; lse rows are lse_pitch floats apart.
+// Dropout as in flash_attention_fwd_f32. Returns a cudaError_t.
+int flash_attention_fwd_bf16(const long long* tensors, void* out, float* lse,
+                             int lse_pitch, int B, int H, int Tq, int Tk,
+                             int D, long long o_sb, long long o_sh,
+                             long long o_st, int bias_mode, float sm_scale,
+                             int causal, const long long* seed,
+                             unsigned threshold, float drop_scale,
+                             int dropout, void* stream) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  Bf16FwdParams p;
+  const long long* bias = tensors + 3 * hopper::kDescLen;
+  cudaError_t err;
+  if ((err = hopper::make_map(&p.tq, tensors, true, 64, 64)) != cudaSuccess ||
+      (err = hopper::make_map(&p.tk, tensors + hopper::kDescLen, true, 64,
+                              64)) != cudaSuccess ||
+      (err = hopper::make_map(&p.tv, tensors + 2 * hopper::kDescLen, true, 64,
+                              64)) != cudaSuccess)
+    return (int)err;
+  if (bias_mode != 0 &&
+      (err = hopper::make_map(&p.tb, bias, true, 64,
+                              bias_mode == 2 ? 64 : 1)) != cudaSuccess)
+    return (int)err;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = lse;
+  p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk; p.lse_pitch = lse_pitch;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
+  p.bias_mode = bias_mode;
+  p.bias_h = bias[3] == 1;  // dims innermost first: (Tk, Qb, Hb, Bb)
+  p.bias_b = bias[4] == 1;
+  p.sm_scale = sm_scale;
+  p.causal = causal;
+  p.drop.seed = seed;
+  p.drop.threshold = threshold;
+  p.drop.scale = drop_scale;
+  p.drop.on = dropout;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 64 ? (int)launch(flash_fwd_bf16_kernel<64>, &configured_bf16_64,
+                               p, 128, FwdLayout<64>::smem(bias_mode),
+                               FwdLayout<64>::smem(2), s)
+                 : (int)launch(flash_fwd_bf16_kernel<128>,
+                               &configured_bf16_128, p, 128,
+                               FwdLayout<128>::smem(bias_mode),
+                               FwdLayout<128>::smem(2), s);
+}
+
+// Dynamic shared memory of the bf16 kernel at head dim D and a bias mode,
+// in bytes.
+int flash_attention_fwd_bf16_smem(int D, int bias_mode) {
+  return D == 64 ? (int)FwdLayout<64>::smem(bias_mode)
+                 : D == 128 ? (int)FwdLayout<128>::smem(bias_mode) : 0;
 }
 
 const char* flash_attention_error_string(int err) {

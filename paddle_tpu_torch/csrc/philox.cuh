@@ -11,10 +11,11 @@
 // whatever their tile sizes. Dropping follows the JAX rule: drop iff the
 // word is below round(rate * 2^32); a kept p is scaled by 1 / (1 - rate).
 //
-// Cost: one Philox call gives the bits of 4 scores, so a CTA fills the keep
-// bytes of its 64x64 tile cooperatively (1024 calls, 10 rounds of two
-// 32-bit multiplies each) into shared memory before the tile's math; the
-// kernels then read one byte per score.
+// Cost: one Philox call gives the bits of 4 scores, so a 64x64 tile takes
+// 1024 calls (10 rounds of two 32-bit multiplies each). The block-sparse
+// kernels fill the tile's keep bytes cooperatively into shared memory
+// (fill_keep_tile) and read one byte per score; the dense bf16 wgmma
+// kernels draw them in registers (keep_bits_rows / keep_bits_cols).
 #pragma once
 
 #include <stdint.h>
@@ -70,6 +71,74 @@ __device__ __forceinline__ void fill_keep_tile(uint8_t* keep, const Dropout& d,
                             (w.w >= t ? 1u << 24 : 0u);
     *reinterpret_cast<uint32_t*>(keep + r * kKeepPitch + c4 * 4) = packed;
   }
+}
+
+// Keep bits in registers, for the wgmma kernels: bit i of the result is the
+// keep bit of accumulator register i of a 64x64 block (register 4·nb + 2·h
+// + e of lane (g, t) of warp w: row 16w + g + 8h, column 8·nb + 2t + e).
+// Each lane runs 8 Philox calls a block, the 1024 calls of the block spread
+// over its 128 threads, and takes the words its neighbours drew by
+// shuffles: no shared memory, no barrier.
+
+__device__ __forceinline__ uint32_t keep_nibble(const uint4& w, uint32_t t) {
+  return (w.x >= t ? 1u : 0u) | (w.y >= t ? 2u : 0u) | (w.z >= t ? 4u : 0u) |
+         (w.w >= t ? 8u : 0u);
+}
+
+// Rows are queries (row0 = the lane's first query), columns the 64 keys
+// from k0. Lanes t and t^1 hold the same 4-key groups: the even lane draws
+// them for row0, the odd one for row0 + 8, and they swap.
+__device__ __forceinline__ uint32_t keep_bits_rows(uint32_t key0,
+                                                   uint32_t key1, uint32_t thr,
+                                                   int bh, int row0, int k0,
+                                                   int t) {
+  const int par = t & 1;
+  uint32_t mine = 0;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+    const uint4 w = philox4x32_10(
+        static_cast<uint32_t>((k0 >> 2) + 2 * nb + (t >> 1)),
+        static_cast<uint32_t>(row0 + 8 * par), static_cast<uint32_t>(bh), 0u,
+        key0, key1);
+    mine |= keep_nibble(w, thr) << (4 * nb);
+  }
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+  // words 2·par and 2·par + 1 of each nibble are this lane's two columns;
+  // row half 0 keeps them at bits 4·nb + {0, 1}, row half 1 at + {2, 3}
+  const uint32_t h0 = par ? other : mine, h1 = par ? mine : other;
+  return ((h0 >> (2 * par)) & 0x33333333u) |
+         (((h1 >> (2 * par)) & 0x33333333u) << 2);
+}
+
+// Rows are keys (row0 = the lane's first key, k0 + 16w + g), columns the 64
+// queries from q0. The four lanes g = 4a..4a+3 of one t hold the four keys
+// of a group: lane m = g % 4 draws the groups of row half m / 2 for the
+// column parity m % 2, and each takes word g % 4 of the others'.
+__device__ __forceinline__ uint32_t keep_bits_cols(uint32_t key0,
+                                                   uint32_t key1, uint32_t thr,
+                                                   int bh, int row0, int q0,
+                                                   int lane) {
+  const int g = lane >> 2, t = lane & 3, m = g & 3;
+  const int h = m >> 1, e = m & 1;
+  uint32_t mine = 0;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+    const uint4 w = philox4x32_10(
+        static_cast<uint32_t>((row0 - m + 8 * h) >> 2),
+        static_cast<uint32_t>(q0 + 8 * nb + 2 * t + e),
+        static_cast<uint32_t>(bh), 0u, key0, key1);
+    mine |= keep_nibble(w, thr) << (4 * nb);
+  }
+  // lane j of the four drew register 2·h + e of every n-block; this lane's
+  // key is word m of each nibble
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t from =
+        __shfl_sync(0xffffffffu, mine, (lane & ~12) | (j << 2));
+    bits |= ((from >> m) & 0x11111111u) << j;
+  }
+  return bits;
 }
 
 }  // namespace flash

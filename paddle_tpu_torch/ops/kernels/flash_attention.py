@@ -19,9 +19,20 @@ Each source's header says how it is laid out for the card and what bounds it.
   p recomputed from lse, ds = p·(dp − delta), operands rounded to the input
   dtype where the TPU kernels round them, f32 accumulation). The CPU tests use
   them; on the card they are the kernels' yardstick.
-- ``flash_attention_fwd`` / ``flash_attention_bwd`` are the wrappers: a CPU
-  tensor takes the plain version, a CUDA tensor launches the kernel or raises.
-  Each counts its launches in ``.launches``.
+- ``flash_attention_fwd`` / ``flash_attention_bwd`` are the wrappers.
+  ``flash_route`` decides from the shape, dtype and device type, as the JAX
+  package's ``_pallas_ok`` does: a CPU tensor takes the plain version; on
+  the card a head dim that is not a multiple of 64 takes the plain version
+  (the JAX package's XLA path; counted in ``.plain_on_cuda``), d = 64 or
+  128 launches the kernel, and d = 192 or 256 raises. A launch that fails
+  raises: there is no fallback. Each counts its calls that launch in
+  ``.launches`` (the bf16 backward's delta, dq and dk/dv kernels count one).
+- ``flash_attention_delta_plain`` is ``_bwd_host_prep``'s delta; the bf16
+  backward computes it with a kernel of its own (``flash_attention_delta``).
+- bf16 tensors reach the kernels through TMA tensor maps (``_tma_desc``:
+  dims and byte strides; a tensor off the 16-byte grid is copied first), the
+  bias as its compact broadcast shape (``_bias_tile``), lse and delta as
+  rows on the 16-byte grid (``_padded_rows``).
 - ``_FlashAttention`` is the ``torch.autograd.Function`` that joins them, as
   ``_flash_core``'s ``custom_vjp`` does in the JAX package.
 
@@ -33,9 +44,9 @@ the plain versions draw the same mask bit for bit, whatever their tiling. The
 TPU kernels' core-PRNG bits cannot be reproduced, so dropout is never
 compared bit for bit with the JAX package. lse is taken over the undropped p.
 
-Tensors are [B, nh, T, d] views with any strides and a contiguous head dim,
-so the packed [B, T, nh·d] layout is read in place (the TPU needed head
-fold/unfold copies only because Mosaic cannot take a 64-wide minor block).
+Tensors are [B, nh, T, d] views with a contiguous head dim, so the packed
+[B, T, nh·d] layout is read in place (the TPU needed head fold/unfold copies
+only because Mosaic cannot take a 64-wide minor block).
 """
 from __future__ import annotations
 
@@ -48,7 +59,6 @@ import torch
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the head dims the CUDA kernels are instantiated for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Y = 65535
 _M32 = 0xFFFFFFFF
 
 # Philox-4x32-10 constants (Salmon et al., SC'11; Random123)
@@ -147,6 +157,13 @@ def flash_attention_fwd_plain(q, k, v, bias=None, causal: bool = False,
     return out.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
 
 
+def flash_attention_delta_plain(out, g) -> torch.Tensor:
+    """delta = Σ_d dO·out in f32 ([B, nh, T]), as ``_bwd_host_prep``
+    computes it; the bf16 backward's delta kernel computes the same from
+    the bf16 tensors."""
+    return (g.float() * out.float()).sum(-1)
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, g, bias=None,
                               causal: bool = False,
                               sm_scale: Optional[float] = None,
@@ -164,7 +181,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, bias=None,
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     cdt = q.dtype
     gc = g.to(cdt).float()
-    delta = (g.float() * out.float()).sum(-1, keepdim=True)
+    delta = flash_attention_delta_plain(out, g)[..., None]
     p = torch.exp(_scores(q, k, bias, causal, sm_scale) - lse[..., None])
     dp = torch.matmul(gc, v.to(cdt).float().transpose(-1, -2))
     p_d = p
@@ -206,46 +223,76 @@ def _check_rate(dropout_rate: float):
                          f"got {dropout_rate}")
 
 
-def _route(q, name):
-    """True for the kernel (a CUDA tensor), False for the plain version (a
-    CPU tensor); any other device raises."""
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {q.device}")
-    return True
+def flash_route(q_shape, dtype, device_type: str) -> str:
+    """Where a call on q of `q_shape` ([B, nh, Tq, d]), `dtype` and device
+    type goes: "kernel", "plain", or a ValueError before any launch.
+
+    A CPU tensor takes the plain version. On the card the head dim decides,
+    as ``_pallas_ok`` decides in the JAX package: d % 64 != 0 takes the plain
+    version (the JAX package's blockwise XLA path), d in HEAD_DIMS the
+    kernel, and another multiple of 64 (192, 256: Pallas shapes with no CUDA
+    kernel) raises. B·nh has no limit: the grids are flat."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention: no kernel for dtype {dtype}")
+    if device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device type "
+                         f"{device_type}")
+    d = q_shape[-1]
+    if d % 64:
+        return "plain"
+    if d in HEAD_DIMS:
+        return "kernel"
+    raise ValueError(f"flash_attention: q of shape {tuple(q_shape)} has head "
+                     f"dim {d}, which has no CUDA kernel; the kernels take "
+                     f"head dims {HEAD_DIMS}, and the plain version takes "
+                     f"those that are not multiples of 64")
+
+
+def _use_kernel(fn, q) -> bool:
+    """flash_route for q; a plain call on the card is counted on `fn`."""
+    route = flash_route(q.shape, q.dtype, q.device.type)
+    if route == "plain" and q.device.type == "cuda":
+        fn.plain_on_cuda += 1
+    return route == "kernel"
 
 
 def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
                         sm_scale: Optional[float] = None,
                         dropout_rate: float = 0.0, seed=0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward: the plain version for a CPU tensor, the Hopper
-    kernel for a CUDA tensor (or an error; never a fallback). Same
-    arguments and results as `flash_attention_fwd_plain`; `seed` is an int
-    or a one-element int64 tensor (on the card it stays there: the kernel
-    reads it, so drawing it needs no host sync)."""
+    """Attention forward: the plain version for a CPU tensor or a head dim
+    `flash_route` sends there, else the Hopper kernel (or an error; never a
+    fallback). Same arguments and results as `flash_attention_fwd_plain`;
+    `seed` is an int or a one-element int64 tensor (on the card it stays
+    there: the kernel reads it, so drawing it needs no host sync)."""
     _check(q, k, v, bias)
     _check_rate(dropout_rate)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _route(q, "flash_attention_fwd"):
+    if not _use_kernel(flash_attention_fwd, q):
         return flash_attention_fwd_plain(q, k, v, bias, causal, sm_scale,
                                          dropout_rate, seed)
-    return _launch_fwd(q, k, v, bias, causal, sm_scale, dropout_rate, seed)
+    if q.dtype == torch.bfloat16:
+        return _launch_fwd_bf16(q, k, v, bias, causal, sm_scale, dropout_rate,
+                                seed)
+    return _launch_fwd_f32(q, k, v, bias, causal, sm_scale, dropout_rate,
+                           seed)
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.plain_on_cuda = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, bias=None, causal: bool = False,
                         sm_scale: Optional[float] = None,
                         dropout_rate: float = 0.0, seed=0,
                         dbias: Optional[str] = None):
-    """Attention backward: the plain version for a CPU tensor, the Hopper
-    kernels (one dq launch and one dk/dv launch, counted as one) for a CUDA
-    tensor, or an error. Same arguments and results as
-    `flash_attention_bwd_plain`."""
+    """Attention backward: routed as `flash_attention_fwd`; on the card the
+    Hopper kernels (bf16: the delta kernel, the dq kernel and the dk/dv
+    kernel, counted as one launch), or an error. Same arguments and results
+    as `flash_attention_bwd_plain`."""
     _check(q, k, v, bias, "flash_attention_bwd")
     _check_rate(dropout_rate)
     if dbias not in (None, "per_q", "col"):
@@ -253,14 +300,37 @@ def flash_attention_bwd(q, k, v, out, lse, g, bias=None, causal: bool = False,
                          f"or 'col', got {dbias!r}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _route(q, "flash_attention_bwd"):
+    if not _use_kernel(flash_attention_bwd, q):
         return flash_attention_bwd_plain(q, k, v, out, lse, g, bias, causal,
                                          sm_scale, dropout_rate, seed, dbias)
-    return _launch_bwd(q, k, v, out, lse, g, bias, causal, sm_scale,
-                       dropout_rate, seed, dbias)
+    if q.dtype == torch.bfloat16:
+        return _launch_bwd_bf16(q, k, v, out, lse, g, bias, causal, sm_scale,
+                                dropout_rate, seed, dbias)
+    return _launch_bwd_f32(q, k, v, out, lse, g, bias, causal, sm_scale,
+                           dropout_rate, seed, dbias)
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.plain_on_cuda = 0
+
+
+def flash_attention_delta(out, g) -> torch.Tensor:
+    """delta = Σ_d dO·out ([B, nh, T] f32): the bf16 backward's first kernel
+    for bf16 CUDA tensors, the plain version for CPU tensors; anything else
+    raises. `flash_attention_bwd` runs the kernel itself; this entry lets a
+    check hold it against `flash_attention_delta_plain`."""
+    if out.device.type == "cpu":
+        return flash_attention_delta_plain(out, g)
+    if out.device.type != "cuda" or out.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_delta: the kernel takes bf16 CUDA "
+                         f"tensors, got {out.dtype} on {out.device}")
+    b, nh, t, _ = out.shape
+    out, g = (x if _tma_desc(x) else x.contiguous()
+              for x in (out, g.to(out.dtype)))
+    with torch.cuda.device(out.device):
+        rows = _launch_delta(out, g, torch.cuda.current_stream(
+            out.device).cuda_stream)
+    return rows[:, :t].view(b, nh, t)
 
 
 # ---------------------------------------------------------------------------
@@ -271,13 +341,14 @@ _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U32, _F32 = ctypes.c_uint, ctypes.c_float
 # seed pointer, threshold, 1/(1 - rate), dropout on
 _DROPOUT_ARGS = [_PTR, _U32, _F32, _I32]
+_DESC_LEN = 8  # csrc/hopper.cuh kDescLen
 
 
-def _bind(name, argtypes):
+def _bind(lib_name, fn_name, argtypes):
     from . import build
 
-    lib = build.load(name)
-    fn = getattr(lib, name)
+    lib = build.load(lib_name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -286,19 +357,82 @@ def _bind(name, argtypes):
     return lib
 
 
-def _kernel_shape_checks(name, q):
-    b, nh, _, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} has no CUDA kernel instance; "
-                         f"supported: {HEAD_DIMS}")
-    if b * nh > _MAX_GRID_Y:
-        raise ValueError(f"{name}: B·nh = {b * nh} exceeds {_MAX_GRID_Y}")
-
-
 def _kernel_layout_ok(t) -> bool:
-    vec = 16 // t.element_size()  # the kernels load 16-byte vectors
+    vec = 16 // t.element_size()  # the f32 kernels load 16-byte vectors
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s % vec == 0 for s in t.stride()[:3]))
+
+
+def _tma_desc(t) -> Optional[list]:
+    """How the bf16 kernels' TMA reads the 4-D tensor t in place: [data
+    pointer, the 4 dims innermost first, the byte strides of dims 1..3], as
+    csrc/hopper.cuh's make_map takes it. None where TMA cannot: a last dim
+    that is not contiguous, a base or a stride off the 16-byte grid, or a
+    stride of 0 on a dim longer than 1. A dim of size 1 is given the stride a
+    contiguous tensor would have (TMA never steps along it)."""
+    if t.ndim != 4 or t.stride(-1) != 1 or t.data_ptr() % 16:
+        return None
+    es = t.element_size()
+    strides, span = [], t.shape[3] * es
+    for ax in (2, 1, 0):
+        n, s = t.shape[ax], t.stride(ax) * es
+        if n == 1:
+            s = -(-span // 16) * 16
+        elif s <= 0 or s % 16 or s >= 1 << 40:
+            return None
+        strides.append(s)
+        span = s * n
+    return [t.data_ptr(), t.shape[3], t.shape[2], t.shape[1], t.shape[0],
+            *strides]
+
+
+def _padded_rows(x, rows: int, cols: int):
+    """x (rows·cols f32 values, row-major) as a [1, 1, rows, cols] view whose
+    rows start on the 16-byte grid, as TMA reads them; copied only when x's
+    own layout is not one."""
+    try:
+        v = x.view(1, 1, rows, cols)
+        if _tma_desc(v) is not None:
+            return v
+    except RuntimeError:
+        pass
+    buf = torch.empty((rows, -(-cols // 4) * 4), dtype=x.dtype,
+                      device=x.device)[:, :cols]
+    buf.copy_(x.reshape(rows, cols))
+    return buf.view(1, 1, rows, cols)
+
+
+def _bias_tile(bias, q, tq, tk):
+    """(mode, description, tensor) of the additive bias for the bf16
+    kernels. Mode 0 = none, 1 = one row of Tk for every query (the BERT
+    mask), 2 = a row per query. The tensor keeps its broadcast dims at size
+    1, so the mask is read per batch; it is copied only to put its rows on
+    the 16-byte grid TMA reads (a ragged Tk, a broadcast key dim)."""
+    if bias is None:
+        return 0, [0] * _DESC_LEN, None
+    b, nh = q.shape[:2]
+    bias = bias.to(q.dtype)
+    bias = bias.reshape((1,) * (4 - bias.ndim) + tuple(bias.shape))
+    if any(n not in (1, want) for n, want in zip(bias.shape,
+                                                  (b, nh, tq, tk))):
+        raise ValueError(f"flash_attention: bias of shape {tuple(bias.shape)}"
+                         f" does not broadcast to {(b, nh, tq, tk)}")
+    for ax in range(3):  # an expanded dim is read as the one row it repeats
+        if bias.stride(ax) == 0:
+            bias = bias.narrow(ax, 0, 1)
+    bias = bias.expand(*bias.shape[:3], tk)
+    desc = _tma_desc(bias)
+    if desc is None:
+        pad = torch.empty((*bias.shape[:3], -(-tk // 8) * 8),
+                          dtype=bias.dtype, device=bias.device)[..., :tk]
+        bias = pad.copy_(bias)
+        desc = _tma_desc(bias)
+    return (2 if bias.shape[2] > 1 else 1), desc, bias
+
+
+def _descs(*tensors):
+    return (ctypes.c_longlong * (_DESC_LEN * len(tensors)))(
+        *(x for t in tensors for x in t))
 
 
 def _packed_like(b, nh, t, d, dtype, device):
@@ -333,38 +467,84 @@ def _raise_on(lib, err, name):
                            f"{lib.flash_attention_error_string(err).decode()}")
 
 
-def _launch_fwd(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
-    _kernel_shape_checks("flash_attention_fwd", q)
+def _layout_error(name, which, t, needs):
+    return ValueError(f"{name}: {which} needs {needs}; got strides "
+                      f"{t.stride()}")
+
+
+def _launch_fwd_f32(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
     b, nh, tq, d = q.shape
     tk = k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _kernel_layout_ok(t):
-            raise ValueError(
-                f"flash_attention_fwd: {name} needs a contiguous head dim, a "
-                f"16-byte aligned base and strides that are multiples of 16 "
-                f"bytes; got strides {t.stride()}")
+            raise _layout_error(
+                "flash_attention_fwd", name, t, "a contiguous head dim, a "
+                "16-byte aligned base and strides that are multiples of 16 "
+                "bytes")
     out = _packed_like(b, nh, tq, d, q.dtype, q.device)
     lse = torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
     bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
     seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
-    lib = _bind("flash_attention_fwd", [_PTR] * 6 + [_I32] * 5 + [_I64] * 16
-                + [_F32, _I32, _I32] + _DROPOUT_ARGS + [_PTR])
+    lib = _bind("flash_attention_fwd", "flash_attention_fwd_f32",
+                [_PTR] * 6 + [_I32] * 5 + [_I64] * 16 + [_F32, _I32]
+                + _DROPOUT_ARGS + [_PTR])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
+        err = lib.flash_attention_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
             out.data_ptr(), lse.data_ptr(), b, nh, tq, tk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], *bias_strides, float(sm_scale), int(causal),
-            _DTYPE_CODE[q.dtype], seed_ptr, thr, inv, drop, stream)
+            seed_ptr, thr, inv, drop, stream)
     _raise_on(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
 
 
-def _launch_bwd(q, k, v, out, lse, g, bias, causal, sm_scale, dropout_rate,
-                seed, dbias):
-    _kernel_shape_checks("flash_attention_bwd", q)
+def _launch_fwd_bf16(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    descs = []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        desc = _tma_desc(t)
+        if desc is None:
+            raise _layout_error(
+                "flash_attention_fwd", name, t, "a contiguous head dim, a "
+                "16-byte aligned base and non-zero strides that are "
+                "multiples of 16 bytes")
+        descs.append(desc)
+    out = _packed_like(b, nh, tq, d, q.dtype, q.device)
+    # lse rows start on the 16-byte grid, so the backward's TMA reads them
+    pitch = -(-tq // 4) * 4
+    lse_rows = torch.empty((b * nh, pitch), dtype=torch.float32,
+                           device=q.device)
+    mode, bias_desc, _bias = _bias_tile(bias, q, tq, tk)
+    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    lib = _bind("flash_attention_fwd", "flash_attention_fwd_bf16",
+                [_PTR, _PTR, _PTR] + [_I32] * 6 + [_I64] * 3
+                + [_I32, _F32, _I32] + _DROPOUT_ARGS + [_PTR])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd_bf16(
+            _descs(*descs, bias_desc), out.data_ptr(), lse_rows.data_ptr(),
+            pitch, b, nh, tq, tk, d, *out.stride()[:3], mode,
+            float(sm_scale), int(causal), seed_ptr, thr, inv, drop, stream)
+    _raise_on(lib, err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse_rows[:, :tq].view(b, nh, tq)
+
+
+def _dbias_out(dbias, b, nh, tq, tk, device):
+    if dbias == "per_q":
+        return torch.empty((b, nh, tq, tk), dtype=torch.float32,
+                           device=device)
+    if dbias == "col":
+        return torch.empty((b, nh, tk), dtype=torch.float32, device=device)
+    return None
+
+
+def _launch_bwd_f32(q, k, v, out, lse, g, bias, causal, sm_scale,
+                    dropout_rate, seed, dbias):
     b, nh, tq, d = q.shape
     tk = k.shape[2]
     # q/k/v arrive as views of the fused qkv projection and dO in whatever
@@ -375,24 +555,20 @@ def _launch_bwd(q, k, v, out, lse, g, bias, causal, sm_scale, dropout_rate,
                   for t in (q, k, v, g.to(q.dtype)))
     # delta = Σ_d dO·out, one plain reduction before the launch, as the JAX
     # package computes it outside its kernels (_bwd_host_prep)
-    delta = (g.float() * out.float()).sum(-1).contiguous()
+    delta = flash_attention_delta_plain(out, g).contiguous()
     lse = lse.contiguous()
     dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
     dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
     dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
-    db = None
-    if dbias == "per_q":
-        db = torch.empty((b, nh, tq, tk), dtype=torch.float32,
-                         device=q.device)
-    elif dbias == "col":
-        db = torch.empty((b, nh, tk), dtype=torch.float32, device=q.device)
+    db = _dbias_out(dbias, b, nh, tq, tk, q.device)
     bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
     seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
-    lib = _bind("flash_attention_bwd", [_PTR] * 12 + [_I32] * 5 + [_I64] * 25
-                + [_F32, _I32, _I32] + _DROPOUT_ARGS + [_PTR])
+    lib = _bind("flash_attention_bwd", "flash_attention_bwd_f32",
+                [_PTR] * 12 + [_I32] * 5 + [_I64] * 25 + [_F32, _I32]
+                + _DROPOUT_ARGS + [_PTR])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd(
+        err = lib.flash_attention_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), bias_ptr, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
@@ -402,7 +578,59 @@ def _launch_bwd(q, k, v, out, lse, g, bias, causal, sm_scale, dropout_rate,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
             *dv.stride()[:3], *bias_strides, float(sm_scale), int(causal),
-            _DTYPE_CODE[q.dtype], seed_ptr, thr, inv, drop, stream)
+            seed_ptr, thr, inv, drop, stream)
+    _raise_on(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv, db
+
+
+def _launch_delta(out, g, stream):
+    """The delta kernel into [B·nh, pitch] f32 rows (pitch = Tq rounded up
+    to 4 floats: the 16-byte grid the dk/dv kernel's TMA reads)."""
+    b, nh, t, d = out.shape
+    pitch = -(-t // 4) * 4
+    rows = torch.empty((b * nh, pitch), dtype=torch.float32,
+                       device=out.device)
+    lib = _bind("flash_attention_bwd", "flash_attention_bwd_delta_bf16",
+                [_PTR] * 3 + [_I32] * 5 + [_I64] * 6 + [_PTR])
+    err = lib.flash_attention_bwd_delta_bf16(
+        out.data_ptr(), g.data_ptr(), rows.data_ptr(), b, nh, t, d, pitch,
+        *out.stride()[:3], *g.stride()[:3], stream)
+    _raise_on(lib, err, "flash_attention_bwd")
+    return rows
+
+
+def _launch_bwd_bf16(q, k, v, out, lse, g, bias, causal, sm_scale,
+                     dropout_rate, seed, dbias):
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    # a tensor TMA cannot read in place (an expanded or transposed gradient)
+    # is copied to a contiguous one, never handed to the plain version
+    q, k, v, g, out = (t if _tma_desc(t) else t.contiguous()
+                       for t in (q, k, v, g.to(q.dtype), out))
+    dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
+    dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
+    dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
+    db = _dbias_out(dbias, b, nh, tq, tk, q.device)
+    mode, bias_desc, _bias = _bias_tile(bias, q, tq, tk)
+    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    lse_v = _padded_rows(lse, b * nh, tq)
+    lib = _bind("flash_attention_bwd", "flash_attention_bwd_bf16",
+                [_PTR] * 6 + [_I32] * 5 + [_I64] * 9 + [_I32, _F32, _I32]
+                + _DROPOUT_ARGS + [_PTR])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        delta_v = _launch_delta(out, g, stream)[:, :tq].view(1, 1, b * nh,
+                                                             tq)
+        descs = _descs(*(_tma_desc(t) for t in (q, k, v, g)), bias_desc,
+                       _tma_desc(lse_v), _tma_desc(delta_v))
+        err = lib.flash_attention_bwd_bf16(
+            descs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            db.data_ptr() if dbias == "per_q" else None,
+            db.data_ptr() if dbias == "col" else None,
+            b, nh, tq, tk, d, *dq.stride()[:3], *dk.stride()[:3],
+            *dv.stride()[:3], mode, float(sm_scale), int(causal), seed_ptr,
+            thr, inv, drop, stream)
     _raise_on(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv, db

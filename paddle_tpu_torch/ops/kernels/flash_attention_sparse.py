@@ -46,9 +46,21 @@ from typing import Optional, Tuple
 import torch
 
 from .flash_attention import (HEAD_DIMS, NEG_INF, _DROPOUT_ARGS, _DTYPE_CODE,
-                              _MAX_GRID_Y, _check_rate, _dropout_args,
-                              _dropped, _kernel_layout_ok, _packed_like,
-                              _raise_on, _route, dropout_keep_mask)
+                              _check_rate, _dropout_args, _dropped,
+                              _kernel_layout_ok, _packed_like, _raise_on,
+                              dropout_keep_mask)
+
+_MAX_GRID_Y = 65535  # the kernels' grid is (tiles, B·nh)
+
+
+def _route(q, name):
+    """True for the kernel (a CUDA tensor), False for the plain version (a
+    CPU tensor); any other device raises."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    return True
 
 TILE = 64  # q rows and keys per tile of the CUDA kernels
 

@@ -10,10 +10,14 @@ from ..core.registry import register_op
 
 @register_op("top_k")
 def _top_k(ctx, inputs, attrs):
-    """The k largest values along the last axis and their int64 indices."""
+    """The k largest values along the last axis and their int64 indices.
+    Ties go to the lower index, as ``lax.top_k`` breaks them: a stable
+    descending sort, then the first k (``torch.topk`` orders ties
+    differently, and differently on the CPU and the card)."""
     (x,) = inputs["X"]
-    vals, idx = torch.topk(x, attrs["k"], dim=-1)
-    return {"Out": [vals], "Indices": [idx]}
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    k = attrs["k"]
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
 
 
 @register_op("accuracy", differentiable=False)

@@ -389,7 +389,8 @@ def _cuda_or_skip():
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("causal,per_q,t,d", [
     (False, False, 128, 64), (True, False, 200, 64), (False, True, 100, 64),
-    (True, True, 130, 128)])
+    (True, True, 130, 128), (False, False, 64, 64), (False, False, 256, 64),
+    (False, False, 130, 64)])
 def test_cuda_kernel_matches_plain(dtype, tol, causal, per_q, t, d):
     _cuda_or_skip()
     g = torch.Generator("cuda").manual_seed(0)
@@ -416,7 +417,9 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, per_q, t, d):
 @pytest.mark.parametrize("causal,bias_kind,t,d,rate", [
     (False, "mask", 128, 64, 0.0), (False, "mask", 128, 64, 0.1),
     (True, None, 200, 64, 0.0), (False, "perq", 100, 64, 0.0),
-    (True, "perq", 130, 128, 0.2)])
+    (True, "perq", 130, 128, 0.2), (False, "mask", 64, 64, 0.0),
+    (False, "mask", 256, 64, 0.1), (False, "mask", 130, 64, 0.0),
+    (True, None, 128, 128, 0.2)])
 def test_cuda_bwd_kernel_matches_plain(dtype, tol, causal, bias_kind, t, d,
                                        rate):
     """The backward kernels against their plain version on the card, dbias
@@ -449,3 +452,265 @@ def test_cuda_bwd_kernel_matches_plain(dtype, tol, causal, bias_kind, t, d,
             continue
         err = (a.float() - w.float()).abs().max().item()
         assert err <= tol * w.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("device_type", ["cpu", "cuda"])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256])
+def test_flash_route_mirrors_pallas_ok(d, device_type, monkeypatch):
+    """The port's static route: a CPU tensor takes the plain version; on the
+    card d % 64 != 0 takes it too (the JAX package's XLA path), d = 64 and
+    128 the kernels, and d = 192 and 256 (Pallas shapes without a CUDA
+    kernel) raise before any launch, naming the shape."""
+    shape = (2, 3, 128, d)
+    if device_type == "cpu":
+        want = "plain"
+    elif d % 64:
+        want = "plain"
+    elif d in (64, 128):
+        want = "kernel"
+    else:
+        with pytest.raises(ValueError, match=r"\(2, 3, 128, %d\)" % d):
+            tfa.flash_route(shape, torch.bfloat16, device_type)
+        want = None
+    for dtype in (torch.float32, torch.bfloat16):
+        if want is not None:
+            assert tfa.flash_route(shape, dtype, device_type) == want
+    # the card's choice is _pallas_ok's head-dim rule (Pallas forced on)
+    monkeypatch.setattr(jfa, "FORCE_PALLAS_INTERPRET", True)
+    assert jfa._pallas_ok(128, d) == (d % 64 == 0)
+
+
+def test_flash_route_rejects_other_dtypes_and_devices():
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.flash_route((1, 1, 8, 64), torch.float16, "cuda")
+    with pytest.raises(ValueError, match="device type"):
+        tfa.flash_route((1, 1, 8, 64), torch.float32, "meta")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 96])
+def test_head_dims_without_kernel_match_jax(d, causal, monkeypatch):
+    """At d = 32 and 96 the JAX op takes its blockwise XLA path; the port's
+    op the plain version (on the card too): out, dq, dk and dv agree with
+    jax.grad through jfa.flash_attention (f32, BWD_TOL), the [B,1,1,T] mask
+    included."""
+    import jax
+
+    monkeypatch.setattr(jfa, "FORCE_PALLAS_INTERPRET", True)
+    b, h, t = 2, 2, 64
+    assert not jfa._pallas_ok(t, d)
+    q, k, v = (_rand((b, h, t, d), 90 + i) for i in range(3))
+    mask = np.where(np.random.RandomState(4).rand(b, 1, 1, t) > 0.25, 0.0,
+                    -1e4).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(jfa.flash_attention(q_, k_, v_, bias=jnp.array(mask),
+                                           causal=causal) ** 2)
+
+    jargs = [jnp.array(x) for x in (q, k, v)]
+    want_out = np.asarray(jfa.flash_attention(*jargs, bias=jnp.array(mask),
+                                              causal=causal))
+    want = jax.grad(jloss, (0, 1, 2))(*jargs)
+    targs = [torch.from_numpy(x.copy()).requires_grad_() for x in (q, k, v)]
+    out = tfa.flash_attention(*targs, bias=torch.from_numpy(mask),
+                              causal=causal)
+    got = torch.autograd.grad((out ** 2).sum(), targs)
+    np.testing.assert_allclose(out.detach().numpy(), want_out, **TOL)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **BWD_TOL)
+
+
+def test_op_at_head_dim_32_runs_the_plain_version():
+    """The flash_attention op of a BERT with hidden 384 and 12 heads (d=32):
+    no kernel launch, and on the CPU no plain-on-card count."""
+    from paddle_tpu_torch.core.executor import ExecContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    x = torch.from_numpy(_rand((2, 16, 384), 95))
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_fwd.plain_on_cuda)
+    out = get_op("flash_attention").fn(
+        ExecContext("cpu", is_test=True), {"Q": [x], "K": [x], "V": [x]},
+        {"num_heads": 12})["Out"][0]
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_fwd.plain_on_cuda) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_delta_plain_matches_bwd_host_prep(dtype):
+    """delta = Σ_d dO·out, against the JAX package's _bwd_host_prep (its
+    lane-replicated delta), from f32 or bf16 out and dO."""
+    bh, t, d = 3, 40, 64
+    out, g, q = (_rand((bh, t, d), 100 + i) for i in range(3))
+    lse = _rand((bh, t), 103)
+    out_t, g_t = (torch.from_numpy(x).to(dtype) for x in (out, g))
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    _, _, delta_r = jfa._bwd_host_prep(
+        jnp.array(q).astype(jdt), jnp.array(out_t.float().numpy()).astype(jdt),
+        jnp.array(lse), jnp.array(g_t.float().numpy()).astype(jdt))
+    want = np.asarray(delta_r)[..., 0]
+    got = tfa.flash_attention_delta_plain(out_t[None], g_t[None])[0]
+    assert got.dtype == torch.float32 and got.shape == (bh, t)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # the CPU entry of the delta kernel is its plain version
+    torch.testing.assert_close(tfa.flash_attention_delta(out_t[None],
+                                                         g_t[None])[0], got)
+
+
+def test_tma_desc_of_fused_qkv_views_and_broadcast_dims():
+    """The tensor-map description of the bf16 kernels: a q/k/v third of the
+    fused [B, T, 3·nh·d] projection is read in place (dims innermost first,
+    byte strides of T, nh, B); a size-1 dim gets a contiguous stride; a
+    stride off the 16-byte grid, a broadcast (0) stride or a non-contiguous
+    last dim gives None."""
+    b, t, nh, d = 2, 100, 3, 64
+    qkv = torch.zeros(b, t, 3 * nh * d, dtype=torch.bfloat16)
+    q, k, v = (x.unflatten(-1, (nh, d)).transpose(1, 2)
+               for x in qkv.split(nh * d, dim=-1))
+    desc = tfa._tma_desc(k)
+    assert desc[0] == k.data_ptr() and desc[0] - q.data_ptr() == nh * d * 2
+    assert desc[1:5] == [d, t, nh, b]
+    assert desc[5:] == [3 * nh * d * 2, d * 2, t * 3 * nh * d * 2]
+    one = torch.zeros(1, 1, 1, 70, dtype=torch.bfloat16)
+    assert tfa._tma_desc(one)[5:] == [144, 144, 144]
+    assert tfa._tma_desc(torch.zeros(1, 2, 3, 70, dtype=torch.bfloat16)) \
+        is None                                          # 140-byte rows
+    assert tfa._tma_desc(torch.zeros(2, 1, 1, 64).expand(2, 4, 1, 64)) \
+        is None                                          # stride 0, size 4
+    assert tfa._tma_desc(torch.zeros(1, 1, 64, 8).transpose(2, 3)) is None
+    assert tfa._tma_desc(torch.zeros(1, 64)) is None     # not 4-D
+
+
+def test_padded_rows_copies_only_off_the_grid():
+    """lse and delta as [1, 1, B·nh, Tq] rows that start on the 16-byte
+    grid: the forward's own padded lse is viewed in place, a ragged
+    contiguous one is copied to rows of a multiple of 4 floats."""
+    rows = torch.arange(6 * 8, dtype=torch.float32).reshape(6, 8)
+    lse = rows[:, :7].view(2, 3, 7)          # the bf16 forward's layout
+    v = tfa._padded_rows(lse, 6, 7)
+    assert v.data_ptr() == lse.data_ptr() and v.stride()[2:] == (8, 1)
+    ragged = torch.randn(2, 3, 7)
+    w = tfa._padded_rows(ragged, 6, 7)
+    assert w.data_ptr() != ragged.data_ptr() and w.stride()[2:] == (8, 1)
+    torch.testing.assert_close(w.reshape(2, 3, 7), ragged, rtol=0, atol=0)
+    assert tfa._tma_desc(w)[1:3] == [7, 6]
+
+
+@pytest.mark.parametrize("shape,mode,compact,copied", [
+    ((2, 1, 1, 128), 1, (2, 1, 1, 128), False),     # the BERT mask
+    ((2, 1, 1, 100), 1, (2, 1, 1, 100), True),      # ragged Tk: rows padded
+    ((2, 3, 128, 128), 2, (2, 3, 128, 128), False),  # per query
+    ((128, 128), 2, (1, 1, 128, 128), False),        # per query, shared
+    ((2, 1, 128, 1), 2, (2, 1, 128, 128), True),     # broadcast over keys
+])
+def test_bias_tile_keeps_broadcast_dims(shape, mode, compact, copied):
+    b, nh, tq, tk = 2, 3, 128, shape[-1] if shape[-1] > 1 else 128
+    q = torch.zeros(b, nh, tq, 64, dtype=torch.bfloat16)
+    bias = torch.randn(*shape).to(torch.bfloat16)
+    got_mode, desc, t = tfa._bias_tile(bias, q, tq, tk)
+    assert got_mode == mode and tuple(t.shape) == compact
+    assert t.dtype == torch.bfloat16 and desc == tfa._tma_desc(t)
+    assert (t.data_ptr() != bias.data_ptr()) == copied
+    torch.testing.assert_close(t.float().expand(b, nh, tq, tk),
+                               bias.float().expand(b, nh, tq, tk),
+                               rtol=0, atol=0)
+    # an expanded bias is read as the row it repeats, without a copy
+    full = torch.zeros(b, 1, 1, 128, dtype=torch.bfloat16).expand(b, nh, tq,
+                                                                  128)
+    _, _, tf = tfa._bias_tile(full, q, tq, 128)
+    assert tf.shape == (b, 1, 1, 128) and tf.data_ptr() == full.data_ptr()
+    assert tfa._bias_tile(None, q, tq, tk)[0] == 0
+    with pytest.raises(ValueError, match="broadcast"):
+        tfa._bias_tile(torch.zeros(3, 1, 1, tk), q, tq, tk)
+
+
+def _cuda_qkv(b, nh, t, d, dtype, seed):
+    """q, k, v as [B, nh, T, d] views of one fused [B, T, 3·nh·d] projection
+    on the card."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    qkv = torch.randn(b, t, 3 * nh * d, generator=g, device="cuda").to(dtype)
+    return [x.unflatten(-1, (nh, d)).transpose(1, 2)
+            for x in qkv.split(nh * d, dim=-1)], g
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_d128_causal_dropout_matches_plain():
+    _cuda_or_skip()
+    (q, k, v), _ = _cuda_qkv(2, 3, 130, 128, torch.bfloat16, 2)
+    out, lse = tfa.flash_attention_fwd(q, k, v, None, True, None, 0.2, 9)
+    ref_out, ref_lse = tfa.flash_attention_fwd_plain(q, k, v, None, True,
+                                                     None, 0.2, 9)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_grid_past_65535_heads():
+    """B·nh = 65,600 at T = 64: the flat grids launch (the old (tile, B·nh)
+    grid capped B·nh at 65,535); forward and backward against the plain
+    versions."""
+    _cuda_or_skip()
+    (q, k, v), g = _cuda_qkv(50, 1312, 64, 64, torch.bfloat16, 3)
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    ref_out, _ = tfa.flash_attention_fwd_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, dout)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    for a, w in zip(got[:3], want[:3]):
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= 3e-2 * w.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["col", "per_q"])
+def test_cuda_bwd_is_bitwise_repeatable(form):
+    """Every output is written by one CTA in a fixed order: two calls give
+    equal dq, dk, dv and dbias bit for bit (dropout on)."""
+    _cuda_or_skip()
+    (q, k, v), g = _cuda_qkv(2, 3, 200, 64, torch.bfloat16, 4)
+    if form == "col":
+        bias = torch.zeros(2, 1, 1, 200, device="cuda", dtype=q.dtype)
+        bias[..., 150:] = -1e4
+    else:
+        bias = torch.randn(2, 3, 200, 200, generator=g,
+                           device="cuda").to(q.dtype)
+    out, lse = tfa.flash_attention_fwd(q, k, v, bias, False, None, 0.1, 7)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    first = tfa.flash_attention_bwd(q, k, v, out, lse, dout, bias, False,
+                                    None, 0.1, 7, form)
+    second = tfa.flash_attention_bwd(q, k, v, out, lse, dout, bias, False,
+                                     None, 0.1, 7, form)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(512, 64), (130, 128)])
+def test_cuda_delta_kernel_matches_plain(t, d):
+    _cuda_or_skip()
+    (out, dout, _), _ = _cuda_qkv(2, 3, t, d, torch.bfloat16, 5)
+    got = tfa.flash_attention_delta(out, dout)
+    want = tfa.flash_attention_delta_plain(out, dout)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim_32_takes_the_plain_route():
+    """d = 32 on the card: the plain version, counted, no launch; d = 256
+    raises before any launch."""
+    _cuda_or_skip()
+    (q, k, v), _ = _cuda_qkv(2, 12, 128, 32, torch.bfloat16, 6)
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_fwd.plain_on_cuda)
+    out = tfa.flash_attention(q, k, v)
+    assert out.shape == q.shape
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_fwd.plain_on_cuda) == (before[0],
+                                                       before[1] + 1)
+    (q, k, v), _ = _cuda_qkv(1, 1, 64, 256, torch.bfloat16, 6)
+    with pytest.raises(ValueError, match="head dim 256"):
+        tfa.flash_attention_fwd(q, k, v)

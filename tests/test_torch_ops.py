@@ -60,6 +60,9 @@ def _ids(*shape, hi=10, seed=0):
 
 
 X34 = _r(3, 4)
+# three tied ones among 1000 columns, the rest tied at 0
+_TIES_1000 = np.zeros((1, 1000), np.float32)
+_TIES_1000[0, [5, 17, 900]] = 1.0
 _ACT_ATTRS = {"relu6": {"threshold": 1.0}, "leaky_relu": {"alpha": 0.1},
               "elu": {"alpha": 0.5}, "swish": {"beta": 1.5}}
 
@@ -260,6 +263,10 @@ CASES += [
     ("momentum_nesterov", "momentum", _VEL_IN,
      {"mu": 0.9, "use_nesterov": True}),
     ("top_k", "top_k", {"X": [_r(4, 7)]}, {"k": 3}),
+    # ties: the lower index first, as lax.top_k orders them
+    ("top_k_ties", "top_k",
+     {"X": [np.array([[1, 3, 3, 2, 3]], np.float32)]}, {"k": 2}),
+    ("top_k_ties_wide", "top_k", {"X": [_TIES_1000]}, {"k": 5}),
     ("accuracy", "accuracy",
      {"Indices": [_ids(5, 3, hi=6)], "Label": [_ids(5, 1, hi=6, seed=1)]},
      {}),
