@@ -14,12 +14,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              attention dropout (same seed as the plain version), dbias in
              both forms, causal, ragged T, d=128, the dropout keep rate and
              seed dependence; two backward calls bitwise equal; the bf16
-             backward's delta kernel; B·nh = 65,600 (the flat grid); d=32
-             through the op (the plain route, counted) and d=256 (raises).
-             Times each kernel, its plain version and one PyTorch library
-             call, with each kernel's ratio to that call and share of its
-             bound; logs the bf16 flash kernels' registers, spills, dynamic
-             shared memory and HGMMA count.
+             backward's delta kernel at d = 64 to 256; B·nh = 65,600 (the
+             flat grid); d=32 through the op (the plain route, counted) and
+             d=320 (raises). Head dims 192 and 256 through every flash
+             kernel family (dense forward and backward, sparse forward and
+             backward; f32 and bf16, dropout 0.1; B=2, nh=2, T=256): the
+             kernels, not the plain route, within the main tolerances, with
+             their times. Times each kernel, its plain version and one
+             PyTorch library call, with each kernel's ratio to that call and
+             share of its bound; logs the bf16 flash kernels' registers,
+             spills, dynamic shared memory and HGMMA count (the sparse
+             backward's too).
 4. serve   — main path 1: BERT-base at full width (vocab 30522, hidden 768,
              12 layers, 12 heads, ffn 3072) built with the port's DSL from a
              seed, saved with io.save_inference_model, served by
@@ -60,11 +65,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              reader.pack_by_tokens from the JAX bench's seeded WMT-like
              stream): encoder self (one all-pad row: exact zeros),
              decoder causal self, cross, and cross at Tq=192 != Tk=256; f32
-             and bf16, dropout 0 and 0.1; the kernels with an all-ones tile
-             table bitwise equal to them with the computed one (dropout on);
-             times each kernel, its plain version and F.scaled_dot_product_
-             attention with the dense boolean mask, and the bound over the
-             visible (i, j) pairs.
+             and bf16, dropout 0 and 0.1; two backward calls bitwise equal;
+             the kernels with an all-ones tile table bitwise equal to them
+             with the computed one (dropout on); times each kernel, its
+             plain version and F.scaled_dot_product_attention with the dense
+             boolean mask (and the bf16 backward's delta kernel alone), and
+             the bound over the visible (i, j) pairs. Then the sparse route:
+             B·nh = 65,600 through the kernels (flat grids), T = 96 and
+             d = 32 through the counted plain route.
 9. nmt     — main path 4: Transformer-big (d_model 1024, 16 heads, d_ff
              4096, 6+6 layers, vocab 32000, dropout 0.1) packed-sparse
              training, nmt.build_train_program(cfg, 256, 256, packed=True,
@@ -72,8 +80,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              "bfloat16") by Executor(CUDAPlace(0)) from seed 2024: 10 steps
              (2; 1 + 1 profiled; 6 timed) over 3 packed batches of B=16 rows
              in turn. Checks finite losses that start near ln 32000 and
-             fall on a repeated batch, and 18 forward and 18 backward sparse
-             launches a step; prints step time, non-pad target tokens/s,
+             fall on a repeated batch, 18 forward and 18 backward sparse
+             launches a step and no plain-route sparse call; prints whether
+             the segment rows reach pack_se contiguous, step time, non-pad
+             target tokens/s,
              device busy share, device ms by kernel kind and peak memory.
              Then one f32 step at 2+2 layers (full width, B=4, T=128,
              dropout 0) on CUDAPlace(0) and CPUPlace() from the same
@@ -115,8 +125,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              parameters and the touched payloads within twice the CPU's own
              spread under a one-ulp change of the dense input.
 The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}. Exits non-zero without a result
-when torch sees no CUDA device or the port is not beside this script.
+limit, and {"ok": true, "device": {...}}; the line before them gives the
+script's wall seconds. Exits non-zero without a result when torch sees no
+CUDA device or the port is not beside this script.
 """
 import json
 import os
@@ -130,6 +141,7 @@ import numpy as np
 B, NH, D = 8, 12, 64
 HIDDEN = NH * D
 SEQS = (128, 512)
+WIDE_D = (192, 256)   # head dims past the models' d = 64: shape checks only
 # forward out/lse: rtol = atol
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # backward dq/dk/dv/dbias. f32: rtol = atol = 2e-5 (tighter than 1e-4: the
@@ -261,14 +273,18 @@ def profile_device(fn, iters=10, counts=None):
 
 
 def device_ms(fn):
-    """ms of device time per call of fn, summed over its kernels. A
-    profiler session that reports no device event (seen once in a run) is
-    repeated, up to three sessions."""
-    for _ in range(3):
+    """ms of device time per call of fn, summed over its kernels: the
+    median of three profiler sessions that report device events (a session
+    has come back with none, and once with a fraction of them), from at
+    most six."""
+    sums = []
+    for _ in range(6):
         per, _, _ = profile_device(fn)
         if per:
+            sums.append(sum(per.values()) / 1e3)
+        if len(sums) == 3:
             break
-    return sum(per.values()) / 1e3
+    return float(np.median(sums)) if sums else 0.0
 
 
 def cold_device_ms(fn, iters=10):
@@ -303,8 +319,10 @@ def category(name):
         return "duplicate merge: segment sums"
     if "sparse_fwd" in n:
         return "flash sparse fwd (hand kernel)"
-    if "sparse_dq" in n or "sparse_dkv" in n:
+    if "sparse_bwd" in n or "sparse_dq" in n or "sparse_dkv" in n:
         return "flash sparse bwd (hand kernels)"
+    if "delta_bf16" in n:   # the bf16 backwards' delta, dense and sparse
+        return "flash bwd delta (hand kernel)"
     if "flash_fwd" in n:
         return "flash fwd (hand kernel)"
     if "flash_bwd" in n:
@@ -417,29 +435,38 @@ def bound(flops, nbytes, name):
 
 def log_wgmma_build(build):
     """ptxas's registers, shared memory and spills for each bf16 flash
-    kernel by name, and, where the toolkit has cuobjdump, the count of
-    HGMMA (wgmma) and UTMALDG (TMA load) instructions in each library."""
+    kernel by name (the dense ones and the sparse backward), and, where the
+    toolkit has cuobjdump, the count of HGMMA (wgmma) and UTMALDG (TMA
+    load) instructions in each library."""
     import ctypes
     import re
 
-    for lib in ("flash_attention_fwd", "flash_attention_bwd"):
+    for lib in ("flash_attention_fwd", "flash_attention_bwd",
+                "flash_attention_sparse"):
         fn = None
         for line in build.build_log(lib).splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '?(\w+)'?", line)
             if m:   # _ZN...flash_fwd_bf16_kernelILi64EE... -> ..._kernel<64>
-                k = re.search(r"(flash_[fb]wd_\w+?_kernel)ILi(\d+)E",
-                              m.group(1))
-                fn = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+                k = re.search(r"((?:flash|sparse)_[fb]wd_\w+?_kernel)ILi(\d+)"
+                              r"E(?:Li(\d+)E)?", m.group(1))
+                fn = (f"{k.group(1)}<{k.group(2)}"
+                      f"{', ' + k.group(3) if k.group(3) else ''}>"
+                      if k else m.group(1))
             elif fn and "bf16" in fn and ("Used" in line or "spill" in line
                                           or "Performance" in line):
                 log(f"build {lib} {fn}: {line.split(':', 1)[-1].strip()}")
         lib_so = build.load(lib)
-        query = getattr(lib_so, f"{lib}_bf16_smem")
-        query.argtypes = [ctypes.c_int] * (2 if lib.endswith("fwd") else 3)
+        sparse = lib == "flash_attention_sparse"
+        query = getattr(lib_so, f"{lib}_bwd_bf16_smem" if sparse
+                        else f"{lib}_bf16_smem")
+        query.argtypes = [ctypes.c_int] * (1 if sparse else 2
+                                           if lib.endswith("fwd") else 3)
         query.restype = ctypes.c_int
-        for d in (64, 128):   # bias mode 1 = the [B,1,1,T] mask, 2 = per q
-            if lib == "flash_attention_fwd":
+        for d in (64, 128) + WIDE_D:   # bias mode 1 = the mask, 2 = per q
+            if sparse:
+                smem = {"bwd": query(d)}
+            elif lib == "flash_attention_fwd":
                 smem = {f"fwd mode {m}": query(d, m) for m in (1, 2)}
             else:
                 smem = {f"{k} mode {m}": query(i, d, m)
@@ -705,23 +732,25 @@ def phase_kernel_bwd(fa):
 
 
 def phase_kernel_routes(fa):
-    """The bf16 backward's delta kernel against its plain version; the flat
-    grid at B·nh = 65,600 (forward and backward against the plain versions);
-    d = 32 through the flash_attention op takes the plain route on the card
-    (counted, as the JAX package takes its XLA path), d = 256 raises."""
+    """The bf16 backward's delta kernel against its plain version (d = 64
+    to 256); the flat grid at B·nh = 65,600 (forward and backward against
+    the plain versions); d = 32 through the flash_attention op takes the
+    plain route on the card (counted, as the JAX package takes its XLA
+    path), d = 320 raises."""
     import torch
     from paddle_tpu_torch.core.executor import ExecContext
     from paddle_tpu_torch.core.registry import get_op
 
     gen = torch.Generator("cuda").manual_seed(2)
-    out, dout, _ = qkv_inputs(B, NH, 512, D, torch.bfloat16, gen)
-    e, ok = max_err(fa.flash_attention_delta(out, dout),
-                    fa.flash_attention_delta_plain(out, dout), 1e-4)
-    log(f"kernel delta bf16 B={B} nh={NH} T=512 d={D}: max_abs_err {e:.3e} "
-        f"(tol 1e-4)")
-    if not ok:
-        raise AssertionError("the delta kernel disagrees with its plain "
-                             "version")
+    for d in (D, 128) + WIDE_D:
+        out, dout, _ = qkv_inputs(B, NH, 512, d, torch.bfloat16, gen)
+        e, ok = max_err(fa.flash_attention_delta(out, dout),
+                        fa.flash_attention_delta_plain(out, dout), 1e-4)
+        log(f"kernel delta bf16 B={B} nh={NH} T=512 d={d}: max_abs_err "
+            f"{e:.3e} (tol 1e-4)")
+        if not ok:
+            raise AssertionError(f"the delta kernel disagrees with its plain "
+                                 f"version at d = {d}")
 
     b, nh, t = 50, 1312, 64        # B·nh = 65,600 > 65,535
     q, k, v = qkv_inputs(b, nh, t, D, torch.bfloat16, gen)
@@ -758,12 +787,118 @@ def phase_kernel_routes(fa):
     if after != (before[0], before[1] + 1) or not ok:
         raise AssertionError("d = 32 did not take the counted plain route")
     try:
-        fa.flash_attention_fwd(*qkv_inputs(1, 1, 64, 256, torch.bfloat16,
+        fa.flash_attention_fwd(*qkv_inputs(1, 1, 64, 320, torch.bfloat16,
                                            gen))
     except ValueError as err:
-        log(f"d=256 raises before any launch: {err}")
+        log(f"d=320 raises before any launch: {err}")
     else:
-        raise AssertionError("d = 256 did not raise")
+        raise AssertionError("d = 320 did not raise")
+
+
+def flash_counts(fa, fas):
+    """Launches and plain-route calls of the four flash wrappers."""
+    return [(f.launches, f.plain_on_cuda) for f in (
+        fa.flash_attention_fwd, fa.flash_attention_bwd,
+        fas.flash_attention_sparse_fwd, fas.flash_attention_sparse_bwd)]
+
+
+def phase_kernel_wide(fa, fas):
+    """Head dims 192 and 256 (which the JAX package sends to Pallas)
+    through every flash kernel family, f32 and bf16, with dropout, against
+    the plain versions at B=2, nh=2, T=256: the dense forward and backward
+    with the [B,1,1,T] mask (column-sum dbias), the sparse forward and
+    backward on two packed NMT rows, causal; each call one kernel launch
+    and no plain-route call; the sparse backward bitwise repeatable.
+    Returns the records with the kernels' and plain versions' times."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(6)
+    b, nh, t = 2, 2, 256
+    ((stack, _),) = nmt_batches(b, t, 1)
+    seg = torch.tensor(stack["tgt_seg"], device="cuda")
+    se = fas.pack_se(seg, seg)
+    vis = fas.compute_block_vis(se, t, t, causal=True)
+    mask = fas._mask(se, None, t, t, True)
+    records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for d in WIDE_D:
+            q, k, v = qkv_inputs(b, nh, t, d, dtype, gen)
+            dout = heads(torch.randn(b, t, nh * d, generator=gen,
+                                     device="cuda").to(dtype), nh)
+            bias = bert_mask(b, t, dtype)
+            before = flash_counts(fa, fas)
+            out, lse = fa.flash_attention_fwd(q, k, v, bias, False, None,
+                                              DROPOUT, 17)
+            ref = fa.flash_attention_fwd_plain(q, k, v, bias, False, None,
+                                               DROPOUT, 17)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, dout, bias, False,
+                                         None, DROPOUT, 17, "col")
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, bias,
+                                                False, None, DROPOUT, 17,
+                                                "col")
+            s_out, s_lse = fas.flash_attention_sparse_fwd(
+                q, k, v, se, vis, True, None, DROPOUT, 17)
+            s_ref = fas.flash_attention_sparse_fwd_plain(
+                q, k, v, se, vis, True, None, DROPOUT, 17)
+            s_got = fas.flash_attention_sparse_bwd(
+                q, k, v, s_out, s_lse, dout, se, vis, True, None, DROPOUT, 17)
+            s_want = fas.flash_attention_sparse_bwd_plain(
+                q, k, v, s_out, s_lse, dout, se, vis, True, None, DROPOUT, 17)
+            s_again = fas.flash_attention_sparse_bwd(
+                q, k, v, s_out, s_lse, dout, se, vis, True, None, DROPOUT, 17)
+            torch.cuda.synchronize()
+            after = flash_counts(fa, fas)
+            errs, ok = {}, True
+            for label, (gt, wt) in (("fwd", ((out, lse), ref)),
+                                    ("sparse_fwd", ((s_out, s_lse), s_ref))):
+                e = [max_err(x, y, TOL[name]) for x, y in zip(gt, wt)]
+                errs[label] = max(x[0] for x in e)
+                ok &= all(x[1] for x in e)
+            for label, gt, wt in (("bwd", got, want),
+                                  ("sparse_bwd", s_got, s_want)):
+                e, good = bwd_errs(gt, wt, name)
+                errs[label] = max(e.values())
+                ok &= good
+            same = all(torch.equal(x, y) for x, y in zip(s_got, s_again))
+            # launches: dense fwd and bwd once, sparse fwd once, sparse bwd
+            # twice; no plain-route call
+            want_counts = [(n + add, p) for (n, p), add in
+                           zip(before, (1, 1, 1, 2))]
+            times = {}
+            for label, fn in (
+                    ("fwd_ms", lambda: fa.flash_attention_fwd(q, k, v, bias)),
+                    ("fwd_plain_ms",
+                     lambda: fa.flash_attention_fwd_plain(q, k, v, bias)),
+                    ("bwd_ms", lambda: fa.flash_attention_bwd(
+                        q, k, v, out, lse, dout, bias)),
+                    ("bwd_plain_ms", lambda: fa.flash_attention_bwd_plain(
+                        q, k, v, out, lse, dout, bias)),
+                    ("sparse_fwd_ms", lambda: fas.flash_attention_sparse_fwd(
+                        q, k, v, se, vis, True)),
+                    ("sparse_fwd_plain_ms",
+                     lambda: fas.flash_attention_sparse_fwd_plain(
+                         q, k, v, se, vis, True)),
+                    ("sparse_bwd_ms", lambda: fas.flash_attention_sparse_bwd(
+                        q, k, v, s_out, s_lse, dout, se, vis, True)),
+                    ("sparse_bwd_plain_ms",
+                     lambda: fas.flash_attention_sparse_bwd_plain(
+                         q, k, v, s_out, s_lse, dout, se, vis, True)),
+                    ("sdpa_fwd_ms", lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask))):
+                times[label] = device_ms(fn)
+            rec = {"dtype": name, "B": b, "nh": nh, "T": t, "d": d,
+                   "max_abs_err": errs, "tol_fwd": TOL[name],
+                   "tol_bwd": BWD_TOL[name], "sparse_bwd_repeatable": same,
+                   "counts_before": before, "counts_after": after, **times}
+            log("kernel wide " + json.dumps(rec))
+            if not ok or not same or after != want_counts:
+                raise AssertionError(f"head dim {d} {name}: the kernels "
+                                     f"disagree with their plain versions or "
+                                     f"did not launch: {rec}")
+            records.append(rec)
+    return records
 
 
 def build_bert(fluid, bert, seq_len):
@@ -1452,9 +1587,9 @@ def packed_heads(b, t, nh, d, dtype, gen):
 
 def sparse_case(fas, name, q_seg, k_seg, causal, dtype, gen, pad_row):
     """One block-sparse case against the plain versions, at dropout 0 and
-    0.1, with the bitwise skip check at 0.1 and exact zeros on the pad row.
-    Returns (inputs for timing, {check: max abs err}, skip and fill
-    statistics)."""
+    0.1, with two backward calls bitwise equal, the bitwise skip check at
+    0.1 and exact zeros on the pad row. Returns (inputs for timing, {check:
+    max abs err}, skip and fill statistics)."""
     import torch
 
     dt = str(dtype).split(".")[1]
@@ -1483,6 +1618,11 @@ def sparse_case(fas, name, q_seg, k_seg, causal, dtype, gen, pad_row):
         if not (ok_out and ok_lse and ok_bwd):
             raise AssertionError(f"sparse {name} {dt} dropout={rate} "
                                  f"disagrees with its plain version: {errs}")
+        again = fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se,
+                                               vis, causal, None, rate, 91)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"sparse {name} {dt} dropout={rate}: two "
+                                 f"backward calls differ")
         if pad_row is not None:
             if (out[pad_row].any() or (lse[pad_row] != -1e30).any()
                     or any(g[pad_row].any() for g in got)):
@@ -1514,9 +1654,11 @@ def sparse_case(fas, name, q_seg, k_seg, causal, dtype, gen, pad_row):
 
 def sparse_timing(fas, dt, inputs, stats):
     """Device ms of the kernels, their plain versions and SDPA with the
-    dense boolean mask, and the bound over the visible pairs."""
+    dense boolean mask (and, in bf16, of the backward's delta kernel
+    alone), and the bound over the visible pairs."""
     import torch
     import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     q, k, v, dout, se, vis, mask, causal = inputs
     out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis, causal)
@@ -1545,6 +1687,9 @@ def sparse_timing(fas, dt, inputs, stats):
         lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask),
             (lq, lk, lv), dout)))))
+    if dt == "bfloat16":
+        bwd["delta_ms"] = device_ms(lambda: fa.flash_attention_delta(out,
+                                                                     dout))
     b, nh, tq, d = q.shape
     tk = k.shape[2]
     isz = q.element_size()
@@ -1598,6 +1743,75 @@ def phase_kernel_sparse(fas):
     return records
 
 
+def phase_sparse_routes(fas):
+    """The sparse route on the card: B·nh = 65,600 through the kernels
+    (flat grids: forward and both backward kernels against the plain
+    versions, bf16), and T = 96 and d = 32 through the plain versions,
+    counted in .plain_on_cuda, with no launch (the JAX package's XLA path
+    there)."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    rng = np.random.RandomState(7)
+
+    def case(b, nh, t, d):
+        seg = np.zeros((b, t), np.int32)
+        for i in range(1, b):   # row 0 all pad; two to four segments a row
+            cuts = np.sort(rng.choice(np.arange(4, t - 4), rng.randint(1, 4),
+                                      replace=False))
+            seg[i] = np.searchsorted(cuts, np.arange(t), side="right") + 1
+            seg[i, t - rng.randint(0, 8):] = 0
+        seg = torch.tensor(seg, device="cuda")
+        se = fas.pack_se(seg, seg)
+        vis = fas.compute_block_vis(se, t, t)
+        q, k, v, dout = (packed_heads(b, t, nh, d, torch.bfloat16, gen)
+                         for _ in range(4))
+        return q, k, v, dout, se, vis
+
+    def counts():
+        return [(f.launches, f.plain_on_cuda) for f in (
+            fas.flash_attention_sparse_fwd, fas.flash_attention_sparse_bwd)]
+
+    b, nh, t = 4100, 16, 64          # B·nh = 65,600 > 65,535
+    q, k, v, dout, se, vis = case(b, nh, t, D)
+    before = counts()
+    out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis)
+    got = fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se, vis)
+    after = counts()
+    ref_out, ref_lse = fas.flash_attention_sparse_fwd_plain(q, k, v, se, vis)
+    want = fas.flash_attention_sparse_bwd_plain(q, k, v, out, lse, dout, se,
+                                                vis)
+    torch.cuda.synchronize()
+    e_o, ok_o = max_err(out, ref_out, TOL["bfloat16"])
+    e_l, ok_l = max_err(lse, ref_lse, TOL["bfloat16"])
+    errs, ok = bwd_errs(got, want, "bfloat16")
+    log(f"kernel sparse grid B·nh={b * nh} T={t} bf16: fwd max_abs_err out "
+        f"{e_o:.3e} lse {e_l:.3e}; bwd {json.dumps(errs)}; (launches, plain "
+        f"calls) {before} -> {after}")
+    if not (ok and ok_o and ok_l) or after != [(n + 1, p) for n, p in
+                                               before]:
+        raise AssertionError("the sparse kernels at B·nh = 65,600 disagree "
+                             "or did not launch")
+    del q, k, v, dout, out, lse, got, want, ref_out, ref_lse
+
+    for t, d in ((96, D), (128, 32)):
+        q, k, v, dout, se, vis = case(4, 2, t, d)
+        before = counts()
+        out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis)
+        got = fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se, vis)
+        after = counts()
+        ref = fas.flash_attention_sparse_fwd_plain(q, k, v, se, vis)
+        want = fas.flash_attention_sparse_bwd_plain(q, k, v, out, lse, dout,
+                                                    se, vis)
+        same = all(torch.equal(a, b) for a, b in
+                   zip((out, lse) + tuple(got), tuple(ref) + tuple(want)))
+        log(f"sparse route T={t} d={d} on the card: (launches, plain calls) "
+            f"{before} -> {after}; equal to the plain versions: {same}")
+        if after != [(n, p + 1) for n, p in before] or not same:
+            raise AssertionError(f"sparse T={t} d={d} did not take the "
+                                 f"counted plain route")
+
+
 def nmt_program(fluid, nmt, cfg, t, amp):
     """The JAX bench's NMT recipe: packed-sparse rows, Adam(1e-4), under
     bf16 AMP when `amp`."""
@@ -1632,12 +1846,15 @@ def nmt_feed(stack, device):
 
 def sparse_counts(fas):
     return {"fwd": fas.flash_attention_sparse_fwd.launches,
-            "bwd": fas.flash_attention_sparse_bwd.launches}
+            "bwd": fas.flash_attention_sparse_bwd.launches,
+            "plain_fwd": fas.flash_attention_sparse_fwd.plain_on_cuda,
+            "plain_bwd": fas.flash_attention_sparse_bwd.plain_on_cuda}
 
 
 def reset_sparse_counts(fas):
-    fas.flash_attention_sparse_fwd.launches = 0
-    fas.flash_attention_sparse_bwd.launches = 0
+    for fn in (fas.flash_attention_sparse_fwd,
+               fas.flash_attention_sparse_bwd):
+        fn.launches = fn.plain_on_cuda = 0
 
 
 def phase_nmt(fluid, fas):
@@ -1668,8 +1885,22 @@ def phase_nmt(fluid, fas):
             tokens.append(non_pad)
             losses.append((i, float(lv)))
 
-        for _ in range(2):
+        # the first step records whether the segment rows reach pack_se
+        # contiguous (searchsorted copies a non-contiguous input per call)
+        contiguous, pack_se = [], fas.pack_se
+
+        def recording(q_seg, k_seg):
+            contiguous.append((q_seg.is_contiguous(), k_seg.is_contiguous()))
+            return pack_se(q_seg, k_seg)
+
+        fas.pack_se = recording
+        try:
             step()
+        finally:
+            fas.pack_se = pack_se
+        log(f"nmt: pack_se inputs contiguous (q_seg, k_seg) in step 1: "
+            f"{sorted(set(contiguous))} over {len(contiguous)} calls")
+        step()
         rec = profile_record(f"nmt transformer-big bf16 step B={NMT_B} "
                              f"T={NMT_T}", step, 1)
         for _ in range(6):
@@ -1699,9 +1930,11 @@ def phase_nmt(fluid, fas):
         raise AssertionError(f"nmt: losses {losses} (want finite, the first "
                              f"within 0.5 of {LN_NMT_VOCAB}, batch 0's loss "
                              f"falling when it comes again)")
-    if counts != {"fwd": NMT_PER_STEP * steps, "bwd": NMT_PER_STEP * steps}:
+    if counts != {"fwd": NMT_PER_STEP * steps, "bwd": NMT_PER_STEP * steps,
+                  "plain_fwd": 0, "plain_bwd": 0}:
         raise AssertionError(f"nmt: sparse launches {counts} in {steps} "
-                             f"steps, expected {NMT_PER_STEP} each a step")
+                             f"steps, expected {NMT_PER_STEP} each a step "
+                             f"and no plain-route call")
     launches = {"bfloat16": counts}
 
     # GPU against CPU: f32, full width cut to 2+2 layers, B=4, T=128,
@@ -1749,7 +1982,8 @@ def phase_nmt(fluid, fas):
         f"{loss_rel:.3e} (tol 1e-5); grads of {len(grads)} parameters, "
         f"relative L2 {json.dumps(summary)}; sparse launches on the card "
         f"{json.dumps(launches['float32'])}")
-    if launches["float32"] != {"fwd": 6, "bwd": 6}:
+    if launches["float32"] != {"fwd": 6, "bwd": 6, "plain_fwd": 0,
+                               "plain_bwd": 0}:
         raise AssertionError("the f32 step did not launch the sparse kernels "
                              "6 + 6 times")
     if loss_rel > 1e-5 or max(card) > limit:
@@ -2175,6 +2409,7 @@ def phase_deepfm_gpu_vs_cpu(fluid):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -2217,6 +2452,7 @@ def main():
     records = phase_kernel(fa)
     bwd_records = phase_kernel_bwd(fa)
     phase_kernel_routes(fa)
+    phase_kernel_wide(fa, fas)
 
     # 4. serve (main path 1)
     launches = phase_serve(fluid, fa)
@@ -2232,6 +2468,7 @@ def main():
 
     # 8. block-sparse attention kernels
     sparse_records = phase_kernel_sparse(fas)
+    phase_sparse_routes(fas)
 
     # 9. nmt (main path 4)
     nmt_launches = phase_nmt(fluid, fas)
@@ -2305,6 +2542,9 @@ def main():
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "dropout_ms": rec["dropout_ms"],
+                **({"delta_ms": rec["delta_ms"]} if "delta_ms" in rec
+                   else {}),
                 "shape": f"encoder self B={NMT_B} nh={NMT_NH} T={NMT_T} "
                          f"d={D}"})
     for kname, dt in (("sparse_adagrad_update", "float32"),
@@ -2318,6 +2558,7 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"]})
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

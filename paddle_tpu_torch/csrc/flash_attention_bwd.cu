@@ -27,7 +27,12 @@
 //                 (from the diagonal on when causal) and keeps dk, dv and
 //                 the column sum of ds in registers.
 // Both recompute s, p and dp = dO·vᵀ: 7 products instead of 5. The grids
-// are the (tile, b·h) pairs flattened onto blockIdx.x.
+// are the (tile, b·h) pairs flattened onto blockIdx.x. Head dims 64, 128,
+// 192 and 256: above 128 a CTA owns one 64-wide chunk of its outputs' head
+// dim (a third grid factor, the chunk fastest), recomputing s and dp over
+// the full head dim; the f32 kernels then also stream the head dim through
+// shared memory in 64-wide chunks, in the same summation order, since four
+// 64 x 256 f32 tiles would not fit.
 //
 // Bound. Five products of 2·Tq·Tk·d flops per head (s, dp, dv, dk, dq) over
 // the bytes of q, k, v, out, dO, dq, dk, dv, lse and delta: in bf16 about
@@ -138,37 +143,35 @@ __device__ __forceinline__ void zero_skipped_dbias(float* dbias, int Tq,
 // columns tx+16j of the 64x64 block.
 // ---------------------------------------------------------------------------
 
-// Loads a 64-row tile of a [T, D] f32 matrix (row stride `st`) into shared
-// memory with row pitch D+1; rows past `valid` are zero.
-template <int D>
+// Loads a 64-row tile of W columns of a [T, D] f32 matrix (row stride `st`)
+// into shared memory with row pitch W+1; rows past `valid` are zero.
+template <int W>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               long long st, int valid,
                                               int tid) {
-  constexpr int kVec = D / 4;
+  constexpr int kVec = W / 4;
   for (int i = tid; i < kTile * kVec; i += 256) {
     const int r = i / kVec, c = (i % kVec) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < valid) x = *reinterpret_cast<const float4*>(src + r * st + c);
-    float* d = dst + r * (D + 1) + c;
+    float* d = dst + r * (W + 1) + c;
     d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
   }
 }
 
-// s = a·bᵀ and t = c·dᵀ for the thread's 4x4 block, from 64-row tiles.
-template <int D>
+// s += a·bᵀ and t += c·dᵀ for the thread's 4x4 block, over the W columns of
+// 64-row tiles (pitch W+1). Chunks of the head dim taken in order sum in
+// the same order as one pass over it.
+template <int W>
 __device__ __forceinline__ void two_products_f32(const float* sA,
                                                  const float* sB,
                                                  const float* sC,
                                                  const float* sD, int ty,
                                                  int tx, float (&s)[4][4],
                                                  float (&t)[4][4]) {
-  constexpr int kPad = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
+  constexpr int kPad = W + 1;
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < W; ++d) {
     float av[4], bv[4], cv[4], dv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -190,23 +193,27 @@ __device__ __forceinline__ void two_products_f32(const float* sA,
   }
 }
 
-template <int D>
+// The dq kernel for the DC-wide output chunk a CTA owns (DC = D up to
+// d = 128: Q and dO stay in shared memory; above that every tile streams in
+// DC-wide chunks and K's own chunk is loaded again for dQ += dS·K).
+template <int D, int DC>
 __global__ void __launch_bounds__(256) flash_bwd_dq_f32_kernel(BwdParams p) {
-  constexpr int kPad = D + 1, kPitchS = kTile + 1;
+  constexpr int kPad = DC + 1, kPitchS = kTile + 1, kChunks = D / DC;
   extern __shared__ __align__(16) float smem_f32[];
-  float* sQ = smem_f32;             // [64][D+1]
-  float* sG = sQ + kTile * kPad;    // [64][D+1]  dO
-  float* sK = sG + kTile * kPad;    // [64][D+1]
-  float* sV = sK + kTile * kPad;    // [64][D+1]
+  float* sQ = smem_f32;             // [64][DC+1]
+  float* sG = sQ + kTile * kPad;    // [64][DC+1]  dO
+  float* sK = sG + kTile * kPad;    // [64][DC+1]
+  float* sV = sK + kTile * kPad;    // [64][DC+1]
   float* sDS = sV + kTile * kPad;   // [64][65]
   float* sL = sDS + kTile * kPitchS;
   float* sDelta = sL + kTile;
   uint8_t* sKeep = reinterpret_cast<uint8_t*>(sDelta + kTile);
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int n_q = (p.Tq + kTile - 1) / kTile;  // grid: (tile, b·h) flat
-  const int bh = blockIdx.x / n_q, b = bh / p.H, h = bh % p.H;
-  const int q0 = (blockIdx.x % n_q) * kTile;
+  const int n_q = (p.Tq + kTile - 1) / kTile;  // grid: (chunk, tile, b·h)
+  const int oc = blockIdx.x % kChunks, cell = blockIdx.x / kChunks;
+  const int bh = cell / n_q, b = bh / p.H, h = bh % p.H;
+  const int q0 = (cell % n_q) * kTile;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -214,31 +221,48 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_f32_kernel(BwdParams p) {
   const float* bias = p.bias == nullptr ? nullptr
       : static_cast<const float*>(p.bias) + b * p.b_sb + h * p.b_sh;
 
-  load_tile_f32<D>(sQ, q + q0 * p.q_st, p.q_st, p.Tq - q0, tid);
-  load_tile_f32<D>(sG, g + q0 * p.g_st, p.g_st, p.Tq - q0, tid);
+  if (kChunks == 1) {
+    load_tile_f32<DC>(sQ, q + q0 * p.q_st, p.q_st, p.Tq - q0, tid);
+    load_tile_f32<DC>(sG, g + q0 * p.g_st, p.g_st, p.Tq - q0, tid);
+  }
   if (tid < kTile) {
     const bool ok = q0 + tid < p.Tq;
     sL[tid] = ok ? p.lse[(long long)bh * p.Tq + q0 + tid] : 0.f;
     sDelta[tid] = ok ? p.delta[(long long)bh * p.Tq + q0 + tid] : 0.f;
   }
+  float* dbias = oc == 0 ? p.dbias : nullptr;  // written by one chunk
 
-  float acc[4][D / 16];
+  float acc[4][DC / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DC / 16; ++j) acc[i][j] = 0.f;
 
   const int n_tiles = num_k_tiles(p.Tq, p.Tk, p.causal, q0);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's sK/sV/sDS/sKeep are consumed
-    load_tile_f32<D>(sK, k + k0 * p.k_st, p.k_st, p.Tk - k0, tid);
-    load_tile_f32<D>(sV, v + k0 * p.v_st, p.v_st, p.Tk - k0, tid);
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
-    two_products_f32<D>(sQ, sK, sG, sV, ty, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c = 0; c < kChunks; ++c) {
+      __syncthreads();  // the previous products and dQ step are done
+      if (kChunks > 1) {
+        load_tile_f32<DC>(sQ, q + q0 * p.q_st + c * DC, p.q_st, p.Tq - q0,
+                          tid);
+        load_tile_f32<DC>(sG, g + q0 * p.g_st + c * DC, p.g_st, p.Tq - q0,
+                          tid);
+      }
+      load_tile_f32<DC>(sK, k + k0 * p.k_st + c * DC, p.k_st, p.Tk - k0,
+                        tid);
+      load_tile_f32<DC>(sV, v + k0 * p.v_st + c * DC, p.v_st, p.Tk - k0,
+                        tid);
+      if (c == 0 && p.drop.on)
+        flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
+      __syncthreads();
+      two_products_f32<DC>(sQ, sK, sG, sV, ty, tx, s, dp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -252,46 +276,53 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_f32_kernel(BwdParams p) {
                                                          : 0.f;
         const float ds = pr * (dpv - sDelta[row_l]);
         sDS[row_l * kPitchS + col_l] = ds;
-        if (p.dbias != nullptr && row < p.Tq && col < p.Tk)
-          p.dbias[((long long)bh * p.Tq + row) * p.Tk + col] = ds;
+        if (dbias != nullptr && row < p.Tq && col < p.Tk)
+          dbias[((long long)bh * p.Tq + row) * p.Tk + col] = ds;
       }
+    if (kChunks > 1 && oc != kChunks - 1) {
+      __syncthreads();  // every thread is done with the last chunk's sK
+      load_tile_f32<DC>(sK, k + k0 * p.k_st + oc * DC, p.k_st, p.Tk - k0,
+                        tid);
+    }
     __syncthreads();
 
 #pragma unroll 4
     for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[4], kv[D / 16];
+      float dsv[4], kv[DC / 16];
 #pragma unroll
       for (int i = 0; i < 4; ++i) dsv[i] = sDS[(ty * 4 + i) * kPitchS + kk];
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) kv[j] = sK[kk * kPad + tx + 16 * j];
+      for (int j = 0; j < DC / 16; ++j) kv[j] = sK[kk * kPad + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < D / 16; ++j)
+        for (int j = 0; j < DC / 16; ++j)
           acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
     }
   }
-  zero_skipped_dbias(p.dbias, p.Tq, p.Tk, bh, q0, n_tiles, tid, 256);
+  zero_skipped_dbias(dbias, p.Tq, p.Tk, bh, q0, n_tiles, tid, 256);
 
-  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + oc * DC;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= p.Tq) continue;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
+    for (int j = 0; j < DC / 16; ++j)
       dq[row * p.dq_st + tx + 16 * j] = acc[i][j] * p.sm_scale;
   }
 }
 
-template <int D>
+// The dk/dv kernel for the DC-wide output chunk a CTA owns; streamed as the
+// dq kernel.
+template <int D, int DC>
 __global__ void __launch_bounds__(256) flash_bwd_dkv_f32_kernel(BwdParams p) {
-  constexpr int kPad = D + 1, kPitchS = kTile + 1;
+  constexpr int kPad = DC + 1, kPitchS = kTile + 1, kChunks = D / DC;
   extern __shared__ __align__(16) float smem_f32[];
-  float* sK = smem_f32;             // [64][D+1]
-  float* sV = sK + kTile * kPad;    // [64][D+1]
-  float* sQ = sV + kTile * kPad;    // [64][D+1]
-  float* sG = sQ + kTile * kPad;    // [64][D+1]  dO
+  float* sK = smem_f32;             // [64][DC+1]
+  float* sV = sK + kTile * kPad;    // [64][DC+1]
+  float* sQ = sV + kTile * kPad;    // [64][DC+1]
+  float* sG = sQ + kTile * kPad;    // [64][DC+1]  dO
   float* sP = sG + kTile * kPad;    // [64 q][65]  p_drop
   float* sDS = sP + kTile * kPitchS;  // [64 q][65]
   float* sL = sDS + kTile * kPitchS;
@@ -299,9 +330,10 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_f32_kernel(BwdParams p) {
   uint8_t* sKeep = reinterpret_cast<uint8_t*>(sDelta + kTile);
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int n_k = (p.Tk + kTile - 1) / kTile;  // grid: (tile, b·h) flat
-  const int bh = blockIdx.x / n_k, b = bh / p.H, h = bh % p.H;
-  const int k0 = (blockIdx.x % n_k) * kTile;
+  const int n_k = (p.Tk + kTile - 1) / kTile;  // grid: (chunk, tile, b·h)
+  const int oc = blockIdx.x % kChunks, cell = blockIdx.x / kChunks;
+  const int bh = cell / n_k, b = bh / p.H, h = bh % p.H;
+  const int k0 = (cell % n_k) * kTile;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -309,33 +341,51 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_f32_kernel(BwdParams p) {
   const float* bias = p.bias == nullptr ? nullptr
       : static_cast<const float*>(p.bias) + b * p.b_sb + h * p.b_sh;
 
-  load_tile_f32<D>(sK, k + k0 * p.k_st, p.k_st, p.Tk - k0, tid);
-  load_tile_f32<D>(sV, v + k0 * p.v_st, p.v_st, p.Tk - k0, tid);
+  if (kChunks == 1) {
+    load_tile_f32<DC>(sK, k + k0 * p.k_st, p.k_st, p.Tk - k0, tid);
+    load_tile_f32<DC>(sV, v + k0 * p.v_st, p.v_st, p.Tk - k0, tid);
+  }
 
-  float dk[4][D / 16], dv[4][D / 16];
+  float dk[4][DC / 16], dv[4][DC / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int j = 0; j < DC / 16; ++j) dk[i][j] = dv[i][j] = 0.f;
   float dbc = 0.f;  // column sum of ds for key k0 + tid (tid < 64)
 
   const int nq = (p.Tq + kTile - 1) / kTile;
   for (int iq = p.causal ? k0 / kTile : 0; iq < nq; ++iq) {
     const int q0 = iq * kTile;
-    __syncthreads();  // the previous q tile is consumed
-    load_tile_f32<D>(sQ, q + q0 * p.q_st, p.q_st, p.Tq - q0, tid);
-    load_tile_f32<D>(sG, g + q0 * p.g_st, p.g_st, p.Tq - q0, tid);
-    if (tid < kTile) {
-      const bool ok = q0 + tid < p.Tq;
-      sL[tid] = ok ? p.lse[(long long)bh * p.Tq + q0 + tid] : 0.f;
-      sDelta[tid] = ok ? p.delta[(long long)bh * p.Tq + q0 + tid] : 0.f;
-    }
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
-    __syncthreads();
-
     // rows = queries ty*4+i, columns = keys tx+16j
     float s[4][4], dp[4][4];
-    two_products_f32<D>(sQ, sK, sG, sV, ty, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c = 0; c < kChunks; ++c) {
+      __syncthreads();  // the previous products and updates are done
+      if (kChunks > 1) {
+        load_tile_f32<DC>(sK, k + k0 * p.k_st + c * DC, p.k_st, p.Tk - k0,
+                          tid);
+        load_tile_f32<DC>(sV, v + k0 * p.v_st + c * DC, p.v_st, p.Tk - k0,
+                          tid);
+      }
+      load_tile_f32<DC>(sQ, q + q0 * p.q_st + c * DC, p.q_st, p.Tq - q0,
+                        tid);
+      load_tile_f32<DC>(sG, g + q0 * p.g_st + c * DC, p.g_st, p.Tq - q0,
+                        tid);
+      if (c == 0) {
+        if (tid < kTile) {
+          const bool ok = q0 + tid < p.Tq;
+          sL[tid] = ok ? p.lse[(long long)bh * p.Tq + q0 + tid] : 0.f;
+          sDelta[tid] = ok ? p.delta[(long long)bh * p.Tq + q0 + tid] : 0.f;
+        }
+        if (p.drop.on)
+          flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
+      }
+      __syncthreads();
+      two_products_f32<DC>(sQ, sK, sG, sV, ty, tx, s, dp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -352,6 +402,13 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_f32_kernel(BwdParams p) {
         sP[row_l * kPitchS + col_l] = pd;
         sDS[row_l * kPitchS + col_l] = pr * (dpv - sDelta[row_l]);
       }
+    if (kChunks > 1 && oc != kChunks - 1) {
+      __syncthreads();  // every thread is done with the last chunk's sQ/sG
+      load_tile_f32<DC>(sQ, q + q0 * p.q_st + oc * DC, p.q_st, p.Tq - q0,
+                        tid);
+      load_tile_f32<DC>(sG, g + q0 * p.g_st + oc * DC, p.g_st, p.Tq - q0,
+                        tid);
+    }
     __syncthreads();
 
     if (p.dbias_col != nullptr && tid < kTile)
@@ -359,37 +416,37 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_f32_kernel(BwdParams p) {
     // dv += p_dropᵀ·dO and dk += dsᵀ·q: rows = keys ty*4+i, cols = d
 #pragma unroll 2
     for (int qq = 0; qq < kTile; ++qq) {
-      float pv[4], dsv[4], gv[D / 16], qv[D / 16];
+      float pv[4], dsv[4], gv[DC / 16], qv[DC / 16];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         pv[i] = sP[qq * kPitchS + ty * 4 + i];
         dsv[i] = sDS[qq * kPitchS + ty * 4 + i];
       }
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
+      for (int j = 0; j < DC / 16; ++j) {
         gv[j] = sG[qq * kPad + tx + 16 * j];
         qv[j] = sQ[qq * kPad + tx + 16 * j];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
+        for (int j = 0; j < DC / 16; ++j) {
           dv[i][j] = fmaf(pv[i], gv[j], dv[i][j]);
           dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
         }
     }
   }
 
-  if (p.dbias_col != nullptr && tid < kTile && k0 + tid < p.Tk)
+  if (p.dbias_col != nullptr && oc == 0 && tid < kTile && k0 + tid < p.Tk)
     p.dbias_col[(long long)bh * p.Tk + k0 + tid] = dbc;
-  float* dkp = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  float* dvp = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  float* dkp = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh + oc * DC;
+  float* dvp = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + oc * DC;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
     if (key >= p.Tk) continue;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
+    for (int j = 0; j < DC / 16; ++j) {
       dkp[key * p.dk_st + tx + 16 * j] = dk[i][j] * p.sm_scale;
       dvp[key * p.dv_st + tx + 16 * j] = dv[i][j];
     }
@@ -400,14 +457,23 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_f32_kernel(BwdParams p) {
 // bf16: delta, then wgmma on TMA-loaded tiles.
 // ---------------------------------------------------------------------------
 
-// delta[bh, i] = Σ_d dO·out from the bf16 tensors: D/8 lanes a row, one
-// 16-byte vector of each tensor a lane, summed in f32.
+// Lanes of the delta kernel a row: a power of two, D/8 up to d = 128, then
+// 8 (d = 192) or 16 (d = 256).
+template <int D>
+__host__ __device__ constexpr int delta_lanes() {
+  return D <= 128 ? D / 8 : D % 128 == 0 ? 16 : 8;
+}
+
+// delta[bh, i] = Σ_d dO·out from the bf16 tensors: kLanes lanes a row, kVec
+// 16-byte vectors of each tensor a lane, 8·kLanes values apart, summed in
+// f32.
 template <int D>
 __global__ void __launch_bounds__(256) flash_bwd_delta_bf16_kernel(
     const __nv_bfloat16* out, const __nv_bfloat16* g, float* delta, int H,
     int T, int pitch, long long rows, long long o_sb, long long o_sh,
     long long o_st, long long g_sb, long long g_sh, long long g_st) {
-  constexpr int kLanes = D / 8;
+  constexpr int kLanes = delta_lanes<D>();
+  constexpr int kVec = D / 8 / kLanes;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = idx / kLanes;
   const int c = static_cast<int>(idx % kLanes) * 8;
@@ -418,17 +484,22 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_bf16_kernel(
     bh = row / T;
     i = static_cast<int>(row % T);
     const long long b = bh / H, h = bh % H;
-    const uint4 xo = *reinterpret_cast<const uint4*>(
-        out + b * o_sb + h * o_sh + i * o_st + c);
-    const uint4 xg = *reinterpret_cast<const uint4*>(
-        g + b * g_sb + h * g_sh + i * g_st + c);
-    const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(&xo);
-    const __nv_bfloat162* pg = reinterpret_cast<const __nv_bfloat162*>(&xg);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 a = __bfloat1622float2(po[j]), e = __bfloat1622float2(pg[j]);
-      acc = fmaf(a.x, e.x, acc);
-      acc = fmaf(a.y, e.y, acc);
+    for (int u = 0; u < kVec; ++u) {
+      const int cu = c + u * 8 * kLanes;
+      const uint4 xo = *reinterpret_cast<const uint4*>(
+          out + b * o_sb + h * o_sh + i * o_st + cu);
+      const uint4 xg = *reinterpret_cast<const uint4*>(
+          g + b * g_sb + h * g_sh + i * g_st + cu);
+      const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(&xo);
+      const __nv_bfloat162* pg = reinterpret_cast<const __nv_bfloat162*>(&xg);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a = __bfloat1622float2(po[j]),
+                     e = __bfloat1622float2(pg[j]);
+        acc = fmaf(a.x, e.x, acc);
+        acc = fmaf(a.y, e.y, acc);
+      }
     }
   }
 #pragma unroll
@@ -537,7 +608,7 @@ __device__ __forceinline__ void load_dq_stage(const Bf16BwdParams& p,
                      p.bias_b ? 0 : b);
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
   using L = DqLayout<D>;
@@ -551,9 +622,12 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int n_q = (p.Tq + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_q, q0 = (blockIdx.x % n_q) * kTile;
+  // grid: (chunk, q tile, b·h) flat, the chunk fastest
+  const int oc = blockIdx.x % (D / DC), cell = blockIdx.x / (D / DC);
+  const int bh = cell / n_q, q0 = (cell % n_q) * kTile;
   const int b = bh / p.H, h = bh % p.H;
   const int n_tiles = num_k_tiles(p.Tq, p.Tk, p.causal, q0);
+  float* dbias = oc == 0 ? p.dbias : nullptr;  // written by one chunk
 
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) hopper::mbar_init(&bars[i], 1);
@@ -585,9 +659,9 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
     lse[hh] = ok ? p.lse[(long long)bh * p.lse_pitch + row] : 0.f;
     delta[hh] = ok ? p.delta[(long long)bh * p.delta_pitch + row] : 0.f;
   }
-  float dq[D / 2], s[32], dp[32];
+  float dq[DC / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) dq[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
   hopper::mbar_wait(&bars[2], 0);
@@ -636,17 +710,17 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
       const float dpv = (keep >> i) & 1u ? dp[i] * drop_scale : 0.f;
       s[i] = pr * (dpv - delta[hh]);
     }
-    if (p.dbias != nullptr) {  // the per-query dbias is ds itself
+    if (dbias != nullptr) {  // the per-query dbias is ds itself
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int row = q0 + r0 + 8 * ((i >> 1) & 1);
         const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
         if (row < p.Tq && col < p.Tk)
-          p.dbias[((long long)bh * p.Tq + row) * p.Tk + col] = s[i];
+          dbias[((long long)bh * p.Tq + row) * p.Tk + col] = s[i];
       }
     }
 
-    // dQ += dS·K: dS from registers, K MN-major
+    // dQ += dS·K over this CTA's chunk: dS from registers, K MN-major
     uint32_t a[4][4];
     hopper::acc_to_a(a, s);
     hopper::pin(dq);
@@ -654,16 +728,19 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
     hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      hopper::mma_rs<D, 1>(dq, a[kk], hopper::desc_mnmajor(sK, kk), 1);
+      hopper::mma_rs<DC, 1>(
+          dq, a[kk],
+          hopper::desc_mnmajor(sK + oc * (DC / 64) * hopper::kBoxBytes, kk),
+          1);
     hopper::wg_commit();
     hopper::wg_wait_all();
     hopper::pin(dq);
     __syncthreads();  // every warp is done with this stage
     if (tid == 0 && kt + 2 < n_tiles) load_dq_stage<D>(p, smem, bars, kt + 2, q0, b, h);
   }
-  zero_skipped_dbias(p.dbias, p.Tq, p.Tk, bh, q0, n_tiles, tid, 128);
-  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_st, dq, q0 + r0, p.Tq,
-                t, p.sm_scale);
+  zero_skipped_dbias(dbias, p.Tq, p.Tk, bh, q0, n_tiles, tid, 128);
+  store_rows<DC>(p.dq + b * p.dq_sb + h * p.dq_sh + oc * DC, p.dq_st, dq,
+                 q0 + r0, p.Tq, t, p.sm_scale);
 }
 
 // dk/dv kernel: K, V (and the mask's key slice) stay; Q, dO, lse and delta
@@ -711,7 +788,7 @@ __device__ __forceinline__ void load_dkv_stage(const Bf16BwdParams& p,
   hopper::tma_load(rows + 256, &p.tdelta, bar, q0, bh, 0, 0);
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(128, D == 64 ? 3 : 1)
 flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
   using L = DkvLayout<D>;
@@ -725,7 +802,9 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int n_k = (p.Tk + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_k, k0 = (blockIdx.x % n_k) * kTile;
+  // grid: (chunk, key tile, b·h) flat, the chunk fastest
+  const int oc = blockIdx.x % (D / DC), cell = blockIdx.x / (D / DC);
+  const int bh = cell / n_k, k0 = (cell % n_k) * kTile;
   const int b = bh / p.H, h = bh % p.H;
   const int nq = (p.Tq + kTile - 1) / kTile;
   const int iq0 = p.causal ? k0 / kTile : 0;
@@ -758,9 +837,9 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
   const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
 
   const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8
-  float dk[D / 2], dv[D / 2], st_[32], dpt[32];
+  float dk[DC / 2], dv[DC / 2], st_[32], dpt[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) st_[i] = dpt[i] = 0.f;
   float dbc[2] = {0.f, 0.f};  // column sums of ds for keys r0, r0 + 8
@@ -829,7 +908,8 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
       dbc[hh] += ds;
     }
 
-    // dV += P_dropᵀ·dO and dK += dSᵀ·Q: A from registers, dO and Q MN-major
+    // dV += P_dropᵀ·dO and dK += dSᵀ·Q over this CTA's chunk: A from
+    // registers, dO and Q MN-major
     uint32_t ap[4][4], ads[4][4];
     hopper::acc_to_a(ap, st_);
     hopper::acc_to_a(ads, dpt);
@@ -838,10 +918,13 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
     hopper::pin(ap);
     hopper::pin(ads);
     hopper::wg_fence();
+    constexpr int kChunkOff = DC / 64 * hopper::kBoxBytes;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      hopper::mma_rs<D, 1>(dv, ap[kk], hopper::desc_mnmajor(sG, kk), 1);
-      hopper::mma_rs<D, 1>(dk, ads[kk], hopper::desc_mnmajor(sQ, kk), 1);
+      hopper::mma_rs<DC, 1>(dv, ap[kk],
+                            hopper::desc_mnmajor(sG + oc * kChunkOff, kk), 1);
+      hopper::mma_rs<DC, 1>(dk, ads[kk],
+                            hopper::desc_mnmajor(sQ + oc * kChunkOff, kk), 1);
     }
     hopper::wg_commit();
     hopper::wg_wait_all();
@@ -852,7 +935,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
       load_dkv_stage<D>(p, smem, bars, j + 2, (iq0 + j + 2) * kTile, k0, bh, b, h);
   }
 
-  if (p.dbias_col != nullptr) {
+  if (p.dbias_col != nullptr && oc == 0) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 1);
@@ -862,10 +945,10 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
         p.dbias_col[(long long)bh * p.Tk + key] = dbc[hh];
     }
   }
-  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_st, dk, k0 + r0, p.Tk,
-                t, p.sm_scale);
-  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_st, dv, k0 + r0, p.Tk,
-                t, 1.f);
+  store_rows<DC>(p.dk + b * p.dk_sb + h * p.dk_sh + oc * DC, p.dk_st, dk,
+                 k0 + r0, p.Tk, t, p.sm_scale);
+  store_rows<DC>(p.dv + b * p.dv_sb + h * p.dv_sh + oc * DC, p.dv_st, dv,
+                 k0 + r0, p.Tk, t, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -873,14 +956,14 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
 // ---------------------------------------------------------------------------
 constexpr size_t kKeepBytes = kTile * flash::kKeepPitch;
 
-template <int D>
+template <int DC>
 size_t smem_dq_f32() {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * (kTile + 1) +
+  return sizeof(float) * (4 * kTile * (DC + 1) + kTile * (kTile + 1) +
                           2 * kTile) + kKeepBytes;
 }
-template <int D>
+template <int DC>
 size_t smem_dkv_f32() {
-  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) +
+  return sizeof(float) * (4 * kTile * (DC + 1) + 2 * kTile * (kTile + 1) +
                           2 * kTile) + kKeepBytes;
 }
 
@@ -905,39 +988,60 @@ cudaError_t launch(Kernel kernel, unsigned* configured, const Params& p,
   return cudaGetLastError();
 }
 
-unsigned configured[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+// two flag words per (dtype, head dim): index 2·(D/64 - 1), bf16 from 8
+unsigned configured[16] = {};
 
-template <typename Params>
+// The CTAs of the dq and dk/dv grids: (chunk, tile, B·H) flattened.
+template <int D, typename Params>
 void grids(const Params& p, unsigned* nq, unsigned* nk) {
-  const unsigned bh = (unsigned)(p.B * p.H);
+  const unsigned bh = (unsigned)(p.B * p.H) * (D / hopper::chunk_of<D>());
   *nq = (unsigned)((p.Tq + kTile - 1) / kTile) * bh;
   *nk = (unsigned)((p.Tk + kTile - 1) / kTile) * bh;
 }
 
 template <int D>
 cudaError_t launch_f32(const BwdParams& p, cudaStream_t s) {
+  constexpr int DC = hopper::chunk_of<D>();
   unsigned nq, nk;
-  grids(p, &nq, &nk);
-  const int slot = (D == 128) * 2;
-  cudaError_t err = launch(flash_bwd_dq_f32_kernel<D>, &configured[slot], p,
-                           nq, 256, smem_dq_f32<D>(), smem_dq_f32<D>(), s);
+  grids<D>(p, &nq, &nk);
+  const int slot = 2 * (D / 64 - 1);
+  cudaError_t err = launch(flash_bwd_dq_f32_kernel<D, DC>, &configured[slot],
+                           p, nq, 256, smem_dq_f32<DC>(), smem_dq_f32<DC>(),
+                           s);
   if (err != cudaSuccess) return err;
-  return launch(flash_bwd_dkv_f32_kernel<D>, &configured[slot + 1], p, nk,
-                256, smem_dkv_f32<D>(), smem_dkv_f32<D>(), s);
+  return launch(flash_bwd_dkv_f32_kernel<D, DC>, &configured[slot + 1], p,
+                nk, 256, smem_dkv_f32<DC>(), smem_dkv_f32<DC>(), s);
 }
 
 template <int D>
 cudaError_t launch_bf16(const Bf16BwdParams& p, cudaStream_t s) {
+  constexpr int DC = hopper::chunk_of<D>();
   unsigned nq, nk;
-  grids(p, &nq, &nk);
-  const int slot = 4 + (D == 128) * 2;
-  cudaError_t err = launch(flash_bwd_dq_bf16_kernel<D>, &configured[slot], p,
-                           nq, 128, DqLayout<D>::smem(p.bias_mode),
+  grids<D>(p, &nq, &nk);
+  const int slot = 8 + 2 * (D / 64 - 1);
+  cudaError_t err = launch(flash_bwd_dq_bf16_kernel<D, DC>, &configured[slot],
+                           p, nq, 128, DqLayout<D>::smem(p.bias_mode),
                            DqLayout<D>::smem(2), s);
   if (err != cudaSuccess) return err;
-  return launch(flash_bwd_dkv_bf16_kernel<D>, &configured[slot + 1], p, nk,
-                128, DkvLayout<D>::smem(p.bias_mode), DkvLayout<D>::smem(2),
-                s);
+  return launch(flash_bwd_dkv_bf16_kernel<D, DC>, &configured[slot + 1], p,
+                nk, 128, DkvLayout<D>::smem(p.bias_mode),
+                DkvLayout<D>::smem(2), s);
+}
+
+bool head_dim_ok(int D) {
+  return D == 64 || D == 128 || D == 192 || D == 256;
+}
+
+template <int D>
+void launch_delta(const __nv_bfloat16* out, const __nv_bfloat16* g,
+                  float* delta, int H, int T, int pitch, long long rows,
+                  long long o_sb, long long o_sh, long long o_st,
+                  long long g_sb, long long g_sh, long long g_st,
+                  cudaStream_t s) {
+  const unsigned blocks =
+      (unsigned)((rows * delta_lanes<D>() + 255) / 256);
+  flash_bwd_delta_bf16_kernel<D><<<blocks, 256, 0, s>>>(
+      out, g, delta, H, T, pitch, rows, o_sb, o_sh, o_st, g_sb, g_sh, g_st);
 }
 
 }  // namespace
@@ -983,8 +1087,13 @@ int flash_attention_bwd_f32(
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  return D == 64 ? (int)launch_f32<64>(p, s) : (int)launch_f32<128>(p, s);
+  switch (D) {
+    case 64: return (int)launch_f32<64>(p, s);
+    case 128: return (int)launch_f32<128>(p, s);
+    case 192: return (int)launch_f32<192>(p, s);
+    case 256: return (int)launch_f32<256>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // bfloat16 delta[bh, i] = Σ_d dO·out into rows `pitch` floats apart.
@@ -995,18 +1104,30 @@ int flash_attention_bwd_delta_bf16(const void* out, const void* g,
                                    long long o_st, long long g_sb,
                                    long long g_sh, long long g_st,
                                    void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * H * T;
-  const unsigned blocks = (unsigned)((rows * (D / 8) + 255) / 256);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(out);
   const __nv_bfloat16* gg = static_cast<const __nv_bfloat16*>(g);
-  if (D == 64)
-    flash_bwd_delta_bf16_kernel<64><<<blocks, 256, 0, s>>>(
-        o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st, g_sb, g_sh, g_st);
-  else
-    flash_bwd_delta_bf16_kernel<128><<<blocks, 256, 0, s>>>(
-        o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st, g_sb, g_sh, g_st);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      launch_delta<64>(o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st,
+                       g_sb, g_sh, g_st, s);
+      break;
+    case 128:
+      launch_delta<128>(o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st,
+                        g_sb, g_sh, g_st, s);
+      break;
+    case 192:
+      launch_delta<192>(o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st,
+                        g_sb, g_sh, g_st, s);
+      break;
+    case 256:
+      launch_delta<256>(o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st,
+                        g_sb, g_sh, g_st, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1022,7 +1143,7 @@ int flash_attention_bwd_bf16(
     long long dk_st, long long dv_sb, long long dv_sh, long long dv_st,
     int bias_mode, float sm_scale, int causal, const long long* seed,
     unsigned threshold, float drop_scale, int dropout, void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (!head_dim_ok(D)) return (int)cudaErrorInvalidValue;
   constexpr int n = hopper::kDescLen;
   const long long* bias = tensors + 4 * n;
   const long long* lse = tensors + 5 * n;
@@ -1064,18 +1185,32 @@ int flash_attention_bwd_bf16(
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? (int)launch_bf16<64>(p, s) : (int)launch_bf16<128>(p, s);
+  switch (D) {
+    case 64: return (int)launch_bf16<64>(p, s);
+    case 128: return (int)launch_bf16<128>(p, s);
+    case 192: return (int)launch_bf16<192>(p, s);
+    default: return (int)launch_bf16<256>(p, s);
+  }
 }
 
 // Dynamic shared memory of a bf16 kernel (0 = dq, 1 = dk/dv) at head dim
 // D and a bias mode, in bytes.
 int flash_attention_bwd_bf16_smem(int kernel, int D, int bias_mode) {
-  if (D != 64 && D != 128) return 0;
-  if (kernel == 0)
-    return D == 64 ? (int)DqLayout<64>::smem(bias_mode)
-                   : (int)DqLayout<128>::smem(bias_mode);
-  return D == 64 ? (int)DkvLayout<64>::smem(bias_mode)
-                 : (int)DkvLayout<128>::smem(bias_mode);
+  switch (D) {
+    case 64:
+      return (int)(kernel ? DkvLayout<64>::smem(bias_mode)
+                          : DqLayout<64>::smem(bias_mode));
+    case 128:
+      return (int)(kernel ? DkvLayout<128>::smem(bias_mode)
+                          : DqLayout<128>::smem(bias_mode));
+    case 192:
+      return (int)(kernel ? DkvLayout<192>::smem(bias_mode)
+                          : DqLayout<192>::smem(bias_mode));
+    case 256:
+      return (int)(kernel ? DkvLayout<256>::smem(bias_mode)
+                          : DqLayout<256>::smem(bias_mode));
+    default: return 0;
+  }
 }
 
 const char* flash_attention_error_string(int err) {

@@ -44,8 +44,14 @@
 // lean, and the stages are sized by the bias mode (no per-query slot for
 // the mask) so that more CTAs share an SM and hide each other's latency.
 // 64-row tiles keep the grid at 192 CTAs for BERT's T = 128 (B·nh = 96).
+// Head dims 64, 128, 192 and 256. Above 128 the O accumulator would not fit
+// in registers beside S, so a CTA owns one 64-wide chunk of the head dim
+// (a third grid factor): it computes S and the softmax over the full head
+// dim, as every chunk of its q tile does bit for bit, and loads only its
+// chunk of V.
 //   f32: 256 threads, a 4x4 register tile each, FMA on the CUDA cores; TF32
-//        would lose the f32 parity the tests hold it to.
+//        would lose the f32 parity the tests hold it to. At d = 256 its
+//        tiles take 218 KB of the 227 KB a CTA may have.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -263,14 +269,16 @@ struct Bf16FwdParams {
   flash::Dropout drop;
 };
 
-// Byte offsets from the 1024-aligned base: Q, then two stages of K, V and
-// the bias slot (sized by the bias mode, so a call without a per-query
-// bias leaves room for more CTAs on an SM), then the barriers.
-template <int D>
+// Byte offsets from the 1024-aligned base: Q, then two stages of K, the
+// CTA's chunk of V and the bias slot (sized by the bias mode, so a call
+// without a per-query bias leaves room for more CTAs on an SM), then the
+// barriers.
+template <int D, int DC>
 struct FwdLayout {
-  static constexpr int kTile = D / 64 * hopper::kBoxBytes;  // [64][D]
+  static constexpr int kTile = D / 64 * hopper::kBoxBytes;    // [64][D]
+  static constexpr int kVTile = DC / 64 * hopper::kBoxBytes;  // [64][DC]
   static __host__ __device__ constexpr int stage(int bias_mode) {
-    return 2 * kTile + hopper::bias_slot(bias_mode);
+    return kTile + kVTile + hopper::bias_slot(bias_mode);
   }
   static __host__ __device__ constexpr int bars(int bias_mode) {
     return kTile + 2 * stage(bias_mode);
@@ -280,35 +288,37 @@ struct FwdLayout {
   }
 };
 
-// Thread 0: the copies of key tile kt (K, V, the bias rows) into stage
-// kt % 2, completing that stage's barrier.
-template <int D>
+// Thread 0: the copies of key tile kt (K, V's chunk oc, the bias rows) into
+// stage kt % 2, completing that stage's barrier.
+template <int D, int DC>
 __device__ __forceinline__ void load_kv_stage(const Bf16FwdParams& p,
                                          unsigned char* smem, uint64_t* bars,
-                                         int kt, int q0, int b, int h) {
-  using L = FwdLayout<D>;
+                                         int kt, int q0, int b, int h,
+                                         int oc) {
+  using L = FwdLayout<D, DC>;
   unsigned char* st = smem + L::kTile + (kt & 1) * L::stage(p.bias_mode);
   uint64_t* bar = &bars[kt & 1];
   const uint32_t bias_bytes =
       p.bias_mode == 2 ? hopper::kBoxBytes : p.bias_mode == 1 ? 128 : 0;
-  hopper::mbar_expect_tx(bar, 2 * L::kTile + bias_bytes);
+  hopper::mbar_expect_tx(bar, L::kTile + L::kVTile + bias_bytes);
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c) {
+  for (int c = 0; c < D / 64; ++c)
     hopper::tma_load(st + c * hopper::kBoxBytes, &p.tk, bar, c * 64,
                      kt * kBlockK, h, b);
+#pragma unroll
+  for (int c = 0; c < DC / 64; ++c)
     hopper::tma_load(st + L::kTile + c * hopper::kBoxBytes, &p.tv, bar,
-                     c * 64, kt * kBlockK, h, b);
-  }
+                     oc * DC + c * 64, kt * kBlockK, h, b);
   if (p.bias_mode)
-    hopper::tma_load(st + 2 * L::kTile, &p.tb, bar, kt * kBlockK,
+    hopper::tma_load(st + L::kTile + L::kVTile, &p.tb, bar, kt * kBlockK,
                      p.bias_mode == 2 ? q0 : 0, p.bias_h ? 0 : h,
                      p.bias_b ? 0 : b);
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(128)
 flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
-  using L = FwdLayout<D>;
+  using L = FwdLayout<D, DC>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::smem_base(smem_raw);
   unsigned char* sQ = smem;
@@ -318,7 +328,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int n_q = (p.Tq + kBlockQ - 1) / kBlockQ;
-  const int bh = blockIdx.x / n_q, q0 = (blockIdx.x % n_q) * kBlockQ;
+  // grid: (chunk, q tile, b·h) flat, the chunk fastest
+  const int oc = blockIdx.x % (D / DC), cell = blockIdx.x / (D / DC);
+  const int bh = cell / n_q, q0 = (cell % n_q) * kBlockQ;
   const int b = bh / p.H, h = bh % p.H;
   const int n_tiles = num_k_tiles(p.Tq, p.Tk, p.causal, q0);
 
@@ -333,8 +345,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
     for (int c = 0; c < D / 64; ++c)
       hopper::tma_load(sQ + c * hopper::kBoxBytes, &p.tq, &bars[2], c * 64,
                        q0, h, b);
-    load_kv_stage<D>(p, smem, bars, 0, q0, b, h);
-    if (n_tiles > 1) load_kv_stage<D>(p, smem, bars, 1, q0, b, h);
+    load_kv_stage<D, DC>(p, smem, bars, 0, q0, b, h, oc);
+    if (n_tiles > 1) load_kv_stage<D, DC>(p, smem, bars, 1, q0, b, h, oc);
   }
   uint32_t key0 = 0, key1 = 0;
   if (p.drop.on) {
@@ -345,9 +357,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
 
   const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[D / 2], s[32];
+  float o[DC / 2], s[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   hopper::mbar_wait(&bars[2], 0);
@@ -355,7 +367,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlockK;
     const unsigned char* st = smem + L::kTile + (kt & 1) * L::stage(p.bias_mode);
-    const unsigned char* sB = st + 2 * L::kTile;
+    const unsigned char* sB = st + L::kTile + L::kVTile;
     hopper::mbar_wait(&bars[kt & 1], (kt >> 1) & 1);
 
     // S = Q·Kᵀ, both K-major
@@ -413,7 +425,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
         s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < DC / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
     // O += P·V: P from registers, V MN-major
     uint32_t a[4][4];
@@ -423,16 +435,17 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
     hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      hopper::mma_rs<D, 1>(o, a[kk], hopper::desc_mnmajor(st + L::kTile, kk),
-                           1);
+      hopper::mma_rs<DC, 1>(o, a[kk],
+                            hopper::desc_mnmajor(st + L::kTile, kk), 1);
     hopper::wg_commit();
     hopper::wg_wait_all();
     hopper::pin(o);
     __syncthreads();  // every warp is done with this stage
-    if (tid == 0 && kt + 2 < n_tiles) load_kv_stage<D>(p, smem, bars, kt + 2, q0, b, h);
+    if (tid == 0 && kt + 2 < n_tiles)
+      load_kv_stage<D, DC>(p, smem, bars, kt + 2, q0, b, h, oc);
   }
 
-  __nv_bfloat16* out = p.out + b * p.o_sb + h * p.o_sh;
+  __nv_bfloat16* out = p.out + b * p.o_sb + h * p.o_sh + oc * DC;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = q0 + r0 + 8 * hh;
@@ -441,11 +454,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
     const float inv = 1.f / l_safe;
     __nv_bfloat16* orow = out + row * p.o_st + 2 * t;
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb)
+    for (int nb = 0; nb < DC / 8; ++nb)
       *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) =
           __floats2bfloat162_rn(o[4 * nb + 2 * hh] * inv,
                                 o[4 * nb + 2 * hh + 1] * inv);
-    if (t == 0) p.lse[(long long)bh * p.lse_pitch + row] = m[hh] + logf(l_safe);
+    if (t == 0 && oc == 0)
+      p.lse[(long long)bh * p.lse_pitch + row] = m[hh] + logf(l_safe);
   }
 }
 
@@ -457,11 +471,12 @@ size_t smem_bytes_f32() {
 }
 
 // Opts a kernel into `max_smem` of dynamic shared memory once per device,
-// then launches it with `smem` on `stream` over the flat (q tile, B·H) grid.
+// then launches it with `smem` on `stream` over the flat (chunk, q tile,
+// B·H) grid.
 template <typename Kernel, typename Params>
 cudaError_t launch(Kernel kernel, unsigned* configured, const Params& p,
                    int threads, size_t smem, size_t max_smem,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, unsigned chunks = 1) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -472,14 +487,33 @@ cudaError_t launch(Kernel kernel, unsigned* configured, const Params& p,
     if (err != cudaSuccess) return err;
     *configured |= bit;  // idempotent: a racing second setter is harmless
   }
-  const unsigned blocks =
-      (unsigned)((p.Tq + kBlockQ - 1) / kBlockQ) * (unsigned)(p.B * p.H);
+  const unsigned blocks = (unsigned)((p.Tq + kBlockQ - 1) / kBlockQ) *
+                          (unsigned)(p.B * p.H) * chunks;
   kernel<<<blocks, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-unsigned configured_f32_64 = 0, configured_f32_128 = 0;
-unsigned configured_bf16_64 = 0, configured_bf16_128 = 0;
+// one flag word per (dtype, head dim): index D / 64 - 1, bf16 from 4
+unsigned configured[8] = {};
+
+template <int D>
+cudaError_t launch_f32(const FwdParams& p, cudaStream_t s) {
+  return launch(flash_fwd_f32_kernel<D>, &configured[D / 64 - 1], p, 256,
+                smem_bytes_f32<D>(), smem_bytes_f32<D>(), s);
+}
+
+template <int D>
+cudaError_t launch_bf16(const Bf16FwdParams& p, cudaStream_t s) {
+  constexpr int DC = hopper::chunk_of<D>();
+  using L = FwdLayout<D, DC>;
+  return launch(flash_fwd_bf16_kernel<D, DC>, &configured[3 + D / 64], p, 128,
+                L::smem(p.bias_mode), L::smem(2), s, D / DC);
+}
+
+template <int D>
+int smem_bf16(int bias_mode) {
+  return (int)FwdLayout<D, hopper::chunk_of<D>()>::smem(bias_mode);
+}
 
 }  // namespace
 
@@ -515,13 +549,13 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch(flash_fwd_f32_kernel<64>, &configured_f32_64, p, 256,
-                  smem_bytes_f32<64>(), smem_bytes_f32<64>(), s);
-  if (D == 128)
-    return launch(flash_fwd_f32_kernel<128>, &configured_f32_128, p, 256,
-                  smem_bytes_f32<128>(), smem_bytes_f32<128>(), s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return (int)launch_f32<64>(p, s);
+    case 128: return (int)launch_f32<128>(p, s);
+    case 192: return (int)launch_f32<192>(p, s);
+    case 256: return (int)launch_f32<256>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // bfloat16. `tensors` holds the tensor descriptions (hopper::kDescLen int64
@@ -535,7 +569,8 @@ int flash_attention_fwd_bf16(const long long* tensors, void* out, float* lse,
                              int causal, const long long* seed,
                              unsigned threshold, float drop_scale,
                              int dropout, void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128 && D != 192 && D != 256)
+    return (int)cudaErrorInvalidValue;
   Bf16FwdParams p;
   const long long* bias = tensors + 3 * hopper::kDescLen;
   cudaError_t err;
@@ -563,20 +598,24 @@ int flash_attention_fwd_bf16(const long long* tensors, void* out, float* lse,
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? (int)launch(flash_fwd_bf16_kernel<64>, &configured_bf16_64,
-                               p, 128, FwdLayout<64>::smem(bias_mode),
-                               FwdLayout<64>::smem(2), s)
-                 : (int)launch(flash_fwd_bf16_kernel<128>,
-                               &configured_bf16_128, p, 128,
-                               FwdLayout<128>::smem(bias_mode),
-                               FwdLayout<128>::smem(2), s);
+  switch (D) {
+    case 64: return (int)launch_bf16<64>(p, s);
+    case 128: return (int)launch_bf16<128>(p, s);
+    case 192: return (int)launch_bf16<192>(p, s);
+    default: return (int)launch_bf16<256>(p, s);
+  }
 }
 
 // Dynamic shared memory of the bf16 kernel at head dim D and a bias mode,
 // in bytes.
 int flash_attention_fwd_bf16_smem(int D, int bias_mode) {
-  return D == 64 ? (int)FwdLayout<64>::smem(bias_mode)
-                 : D == 128 ? (int)FwdLayout<128>::smem(bias_mode) : 0;
+  switch (D) {
+    case 64: return smem_bf16<64>(bias_mode);
+    case 128: return smem_bf16<128>(bias_mode);
+    case 192: return smem_bf16<192>(bias_mode);
+    case 256: return smem_bf16<256>(bias_mode);
+    default: return 0;
+  }
 }
 
 const char* flash_attention_error_string(int err) {

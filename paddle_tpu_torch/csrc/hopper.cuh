@@ -31,6 +31,14 @@ namespace hopper {
 constexpr int kRows = 64;               // rows of an operand tile
 constexpr int kBoxBytes = kRows * 128;  // one [64][64] bf16 box
 
+// The columns of the output's head dim a flash CTA owns: all of them up to
+// d = 128; above that 64, since the accumulators of a wider head dim do not
+// fit in registers beside S (nor, in f32, the tiles in shared memory).
+template <int D>
+__host__ __device__ constexpr int chunk_of() {
+  return D <= 128 ? D : 64;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

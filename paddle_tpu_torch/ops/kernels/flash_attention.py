@@ -23,10 +23,11 @@ Each source's header says how it is laid out for the card and what bounds it.
   ``flash_route`` decides from the shape, dtype and device type, as the JAX
   package's ``_pallas_ok`` does: a CPU tensor takes the plain version; on
   the card a head dim that is not a multiple of 64 takes the plain version
-  (the JAX package's XLA path; counted in ``.plain_on_cuda``), d = 64 or
-  128 launches the kernel, and d = 192 or 256 raises. A launch that fails
-  raises: there is no fallback. Each counts its calls that launch in
-  ``.launches`` (the bf16 backward's delta, dq and dk/dv kernels count one).
+  (the JAX package's XLA path; counted in ``.plain_on_cuda``), d = 64, 128,
+  192 or 256 launches the kernel, and a larger multiple of 64 raises. A
+  launch that fails raises: there is no fallback. Each counts its calls that
+  launch in ``.launches`` (the bf16 backward's delta, dq and dk/dv kernels
+  count one).
 - ``flash_attention_delta_plain`` is ``_bwd_host_prep``'s delta; the bf16
   backward computes it with a kernel of its own (``flash_attention_delta``).
 - bf16 tensors reach the kernels through TMA tensor maps (``_tma_desc``:
@@ -34,7 +35,10 @@ Each source's header says how it is laid out for the card and what bounds it.
   bias as its compact broadcast shape (``_bias_tile``), lse and delta as
   rows on the 16-byte grid (``_padded_rows``).
 - ``_FlashAttention`` is the ``torch.autograd.Function`` that joins them, as
-  ``_flash_core``'s ``custom_vjp`` does in the JAX package.
+  ``_flash_core``'s ``custom_vjp`` does in the JAX package. The public
+  entries (``flash_attention_packed``, ``flash_attention``) raise the JAX
+  entries' ``ValueError`` for a sequence length with no power-of-two block
+  divisor ≥ 8 (``check_block_divisor``); the wrappers take any T.
 
 Attention dropout: the keep bit of score (bh, i, j) is a pure function of
 (seed, bh, i, j): word j % 4 of Philox-4x32-10 with key (seed mod 2³², seed >>
@@ -57,7 +61,10 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the head dims the CUDA kernels are instantiated for
+HEAD_DIMS = (64, 128, 192, 256)  # the CUDA kernels' head dims
+# _pick_blocks' block candidates in the JAX package: every one is a
+# multiple of 8, so a length has one iff it is a multiple of 8
+_BLOCKS = (512, 256, 128, 64, 32, 16, 8)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
 
@@ -230,8 +237,8 @@ def flash_route(q_shape, dtype, device_type: str) -> str:
     A CPU tensor takes the plain version. On the card the head dim decides,
     as ``_pallas_ok`` decides in the JAX package: d % 64 != 0 takes the plain
     version (the JAX package's blockwise XLA path), d in HEAD_DIMS the
-    kernel, and another multiple of 64 (192, 256: Pallas shapes with no CUDA
-    kernel) raises. B·nh has no limit: the grids are flat."""
+    kernel, and another multiple of 64 (320 and up: Pallas shapes with no
+    CUDA kernel) raises. B·nh has no limit: the grids are flat."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: no kernel for dtype {dtype}")
     if device_type == "cpu":
@@ -248,6 +255,20 @@ def flash_route(q_shape, dtype, device_type: str) -> str:
                      f"dim {d}, which has no CUDA kernel; the kernels take "
                      f"head dims {HEAD_DIMS}, and the plain version takes "
                      f"those that are not multiples of 64")
+
+
+def pick_block(t: int) -> Optional[int]:
+    """The largest of _pick_blocks' candidates dividing t, or None."""
+    return next((b for b in _BLOCKS if t % b == 0), None)
+
+
+def check_block_divisor(t: int, name: str) -> None:
+    """The JAX entries' raise (``_flash_fwd_dispatch``,
+    ``_flash_sparse_fwd_dispatch``) for a sequence length that has no
+    power-of-two block divisor ≥ 8, on either device, before any launch."""
+    if pick_block(t) is None:
+        raise ValueError(f"{name}: seq len {t} has no power-of-two block "
+                         f"divisor ≥8; pad the sequence")
 
 
 def _use_kernel(fn, q) -> bool:
@@ -677,6 +698,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def _attend(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
     _check_rate(dropout_rate)
+    check_block_divisor(q.shape[2], "flash_attention")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not isinstance(seed, torch.Tensor):

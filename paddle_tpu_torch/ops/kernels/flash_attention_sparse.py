@@ -27,9 +27,16 @@ query gets out = 0 and lse = -1e30, and pad rows get zero gradients.
   table, so they honour a skip exactly as the kernels do). The CPU tests use
   them; on the card they are the kernels' yardstick.
 - ``flash_attention_sparse_fwd`` / ``flash_attention_sparse_bwd`` are the
-  wrappers: a CPU tensor takes the plain version, a CUDA tensor launches the
-  kernels or raises. Each counts its launches in ``.launches`` (the backward's
-  dq and dk/dv kernels count as one).
+  wrappers. ``sparse_route`` decides from the shapes, dtype and device type,
+  as the JAX package's ``_sparse_pallas_ok`` does: a CPU tensor takes the
+  plain version; on the card Tq or Tk not a multiple of 64, or a head dim
+  that is not a multiple of 64, takes the plain version too (the JAX
+  package's blockwise XLA path; counted in ``.plain_on_cuda``), d = 64, 128,
+  192 or 256 launches the kernels, and a larger multiple of 64 raises. Each
+  counts its launches in ``.launches`` (a backward counts one: f32 launches
+  a dq and a dk/dv kernel; bf16 the dense bf16 backward's delta kernel, then
+  one kernel whose CTAs compute dk/dv or dq). The bf16 backward reads its
+  tensors through TMA tensor maps (``_tma_desc``).
 - ``_FlashAttentionSparse`` is the ``torch.autograd.Function`` that joins
   them, as the ``custom_vjp`` ``_flash_sparse_core`` does in the JAX package;
   ``flash_attention_packed_sparse`` is the [B, T, nh·d] entry point.
@@ -45,24 +52,35 @@ from typing import Optional, Tuple
 
 import torch
 
-from .flash_attention import (HEAD_DIMS, NEG_INF, _DROPOUT_ARGS, _DTYPE_CODE,
-                              _check_rate, _dropout_args, _dropped,
-                              _kernel_layout_ok, _packed_like, _raise_on,
-                              dropout_keep_mask)
-
-_MAX_GRID_Y = 65535  # the kernels' grid is (tiles, B·nh)
-
-
-def _route(q, name):
-    """True for the kernel (a CUDA tensor), False for the plain version (a
-    CPU tensor); any other device raises."""
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {q.device}")
-    return True
+from .flash_attention import (NEG_INF, _DROPOUT_ARGS, _DTYPE_CODE, _I64,
+                              _check_rate, _descs, _dropout_args, _dropped,
+                              _kernel_layout_ok, _launch_delta, _packed_like,
+                              _padded_rows, _raise_on, _tma_desc,
+                              check_block_divisor, dropout_keep_mask,
+                              flash_route)
 
 TILE = 64  # q rows and keys per tile of the CUDA kernels
+
+
+def sparse_route(q_shape, tk: int, dtype, device_type: str) -> str:
+    """Where a call on q of `q_shape` ([B, nh, Tq, d]) and Tk keys goes:
+    "kernel", "plain", or an error before any launch, as
+    ``_sparse_pallas_ok`` decides in the JAX package: on the card Tq or Tk
+    without a power-of-two block divisor ≥ 64 (not a multiple of 64) takes
+    the plain version whatever the head dim (the JAX package's blockwise
+    XLA path); otherwise `flash_route`'s rule. The forward and the backward
+    of a call take the same route. B·nh has no limit."""
+    if device_type == "cuda" and (q_shape[2] % TILE or tk % TILE):
+        return "plain"
+    return flash_route(q_shape, dtype, device_type)
+
+
+def _use_kernel(fn, q, tk) -> bool:
+    """sparse_route for q; a plain call on the card is counted on `fn`."""
+    route = sparse_route(q.shape, tk, q.dtype, q.device.type)
+    if route == "plain" and q.device.type == "cuda":
+        fn.plain_on_cuda += 1
+    return route == "kernel"
 
 
 def pack_se(q_seg: torch.Tensor, k_seg: torch.Tensor) -> torch.Tensor:
@@ -231,17 +249,17 @@ def flash_attention_sparse_fwd(q, k, v, se, vis, causal: bool = False,
                                sm_scale: Optional[float] = None,
                                dropout_rate: float = 0.0, seed=0
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Block-sparse forward: the plain version for a CPU tensor, the Hopper
-    kernel for a CUDA tensor (or an error; never a fallback). Same
-    arguments and results as `flash_attention_sparse_fwd_plain`; on the
-    card `vis` must be the 64x64 table and `seed` may be a one-element
-    int64 tensor there (the kernel reads it, so drawing it needs no host
-    sync)."""
+    """Block-sparse forward: the plain version for a CPU tensor or a shape
+    `sparse_route` sends there, else the Hopper kernel (or an error; never a
+    fallback). Same arguments and results as
+    `flash_attention_sparse_fwd_plain`; on the card `vis` must be the 64x64
+    table and `seed` may be a one-element int64 tensor there (the kernel
+    reads it, so drawing it needs no host sync)."""
     _check(q, k, v, se, vis, causal, "flash_attention_sparse_fwd")
     _check_rate(dropout_rate)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _route(q, "flash_attention_sparse_fwd"):
+    if not _use_kernel(flash_attention_sparse_fwd, q, k.shape[2]):
         return flash_attention_sparse_fwd_plain(q, k, v, se, vis, causal,
                                                 sm_scale, dropout_rate, seed)
     return _launch_fwd(q, k, v, se, vis, causal, sm_scale, dropout_rate,
@@ -249,29 +267,31 @@ def flash_attention_sparse_fwd(q, k, v, se, vis, causal: bool = False,
 
 
 flash_attention_sparse_fwd.launches = 0
+flash_attention_sparse_fwd.plain_on_cuda = 0
 
 
 def flash_attention_sparse_bwd(q, k, v, out, lse, g, se, vis,
                                causal: bool = False,
                                sm_scale: Optional[float] = None,
                                dropout_rate: float = 0.0, seed=0):
-    """Block-sparse backward: the plain version for a CPU tensor, the
-    Hopper kernels (one dq launch and one dk/dv launch, counted as one) for
-    a CUDA tensor, or an error. Same arguments and results as
-    `flash_attention_sparse_bwd_plain`."""
+    """Block-sparse backward: routed as `flash_attention_sparse_fwd`; on
+    the card the Hopper kernels (counted as one launch), or an error. Same
+    arguments and results as `flash_attention_sparse_bwd_plain`."""
     _check(q, k, v, se, vis, causal, "flash_attention_sparse_bwd")
     _check_rate(dropout_rate)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _route(q, "flash_attention_sparse_bwd"):
+    if not _use_kernel(flash_attention_sparse_bwd, q, k.shape[2]):
         return flash_attention_sparse_bwd_plain(q, k, v, out, lse, g, se,
                                                 vis, causal, sm_scale,
                                                 dropout_rate, seed)
-    return _launch_bwd(q, k, v, out, lse, g, se, vis, causal, sm_scale,
-                       dropout_rate, seed)
+    launch = _launch_bwd_bf16 if q.dtype == torch.bfloat16 else _launch_bwd
+    return launch(q, k, v, out, lse, g, se, vis, causal, sm_scale,
+                  dropout_rate, seed)
 
 
 flash_attention_sparse_bwd.launches = 0
+flash_attention_sparse_bwd.plain_on_cuda = 0
 
 
 # ---------------------------------------------------------------------------
@@ -292,11 +312,14 @@ def _lib():
             [_PTR] * 7 + [_I32] * 5 + [_STRIDES_PTR] * 4 + [_F32, _I32, _I32]
             + _DROPOUT_ARGS + [_PTR])
         lib.flash_attention_sparse_bwd.argtypes = (
-            [_PTR] * 11 + [_I32] * 5 + [_STRIDES_PTR] * 7
-            + [_F32, _I32, _I32]
+            [_PTR] * 11 + [_I32] * 5 + [_STRIDES_PTR] * 7 + [_F32, _I32]
+            + _DROPOUT_ARGS + [_PTR])
+        lib.flash_attention_sparse_bwd_bf16.argtypes = (
+            [_PTR] * 5 + [_I32] * 5 + [_I64] * 9 + [_F32, _I32]
             + _DROPOUT_ARGS + [_PTR])
         for fn in (lib.flash_attention_sparse_fwd,
-                   lib.flash_attention_sparse_bwd):
+                   lib.flash_attention_sparse_bwd,
+                   lib.flash_attention_sparse_bwd_bf16):
             fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -307,17 +330,9 @@ def _strides(t):
     return _STRIDES(*t.stride()[:3])
 
 
-def _kernel_checks(name, q, k, vis):
-    b, nh, tq, d = q.shape
-    tk = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} has no CUDA kernel instance; "
-                         f"supported: {HEAD_DIMS}")
-    if tq % TILE or tk % TILE:
-        raise ValueError(f"{name}: Tq={tq} and Tk={tk} must be multiples of "
-                         f"the kernels' {TILE}-token tile; pad the rows")
-    if b * nh > _MAX_GRID_Y:
-        raise ValueError(f"{name}: B·nh = {b * nh} exceeds {_MAX_GRID_Y}")
+def _kernel_checks(name, vis):
+    """What sparse_route leaves to the launch: the kernels walk the tile
+    table, so it must be given."""
     if vis is None:
         raise ValueError(f"{name}: the kernels need the tile table of "
                          f"compute_block_vis")
@@ -332,7 +347,7 @@ def _layout(ts):
 
 def _launch_fwd(q, k, v, se, vis, causal, sm_scale, dropout_rate, seed):
     name = "flash_attention_sparse_fwd"
-    _kernel_checks(name, q, k, vis)
+    _kernel_checks(name, vis)
     b, nh, tq, d = q.shape
     tk = k.shape[2]
     q, k, v = _layout((q, k, v))
@@ -357,13 +372,13 @@ def _launch_fwd(q, k, v, se, vis, causal, sm_scale, dropout_rate, seed):
 def _launch_bwd(q, k, v, out, lse, g, se, vis, causal, sm_scale,
                 dropout_rate, seed):
     name = "flash_attention_sparse_bwd"
-    _kernel_checks(name, q, k, vis)
+    _kernel_checks(name, vis)
     b, nh, tq, d = q.shape
     tk = k.shape[2]
     q, k, v, g = _layout((q, k, v, g.to(q.dtype)))
     se, vis = se.contiguous(), vis.to(torch.int32).contiguous()
-    # delta = Σ_d dO·out, one plain reduction before the launch, as the JAX
-    # package computes it outside its kernels (_bwd_host_prep)
+    # f32: delta = Σ_d dO·out, one plain reduction before the launch, as the
+    # JAX package computes it outside its kernels (_bwd_host_prep)
     delta = (g.float() * out.float()).sum(-1).contiguous()
     lse = lse.contiguous()
     dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
@@ -379,8 +394,43 @@ def _launch_bwd(q, k, v, out, lse, g, se, vis, causal, sm_scale,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, nh, tq, tk, d,
             _strides(q), _strides(k), _strides(v), _strides(g),
             _strides(dq), _strides(dk), _strides(dv), float(sm_scale),
-            int(causal), _DTYPE_CODE[q.dtype], seed_ptr, thr, inv, drop,
-            stream)
+            int(causal), seed_ptr, thr, inv, drop, stream)
+    _raise_on(lib, err, name)
+    flash_attention_sparse_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _launch_bwd_bf16(q, k, v, out, lse, g, se, vis, causal, sm_scale,
+                     dropout_rate, seed):
+    """The bf16 backward: the delta kernel, then one wgmma kernel of dk/dv
+    and dq CTAs, which read q, k, v, dO, lse, delta and se through TMA
+    maps."""
+    name = "flash_attention_sparse_bwd"
+    _kernel_checks(name, vis)
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    # a tensor TMA cannot read in place (an expanded or transposed gradient)
+    # is copied to a contiguous one, never handed to the plain version
+    q, k, v, g, out = (t if _tma_desc(t) else t.contiguous()
+                       for t in (q, k, v, g.to(q.dtype), out))
+    se, vis = se.contiguous(), vis.to(torch.int32).contiguous()
+    dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
+    dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
+    dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
+    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    lse_v = _padded_rows(lse, b * nh, tq)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        delta_v = _launch_delta(out, g, stream)[:, :tq].view(1, 1, b * nh,
+                                                             tq)
+        descs = _descs(*(_tma_desc(t) for t in (q, k, v, g, lse_v, delta_v,
+                                                se.view(1, 1, b, tq))))
+        err = lib.flash_attention_sparse_bwd_bf16(
+            descs, vis.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, nh, tq, tk, d, *dq.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3], float(sm_scale), int(causal),
+            seed_ptr, thr, inv, drop, stream)
     _raise_on(lib, err, name)
     flash_attention_sparse_bwd.launches += 1
     return dq, dk, dv
@@ -447,6 +497,7 @@ def flash_attention_packed_sparse(q, k, v, num_heads: int, q_seg, k_seg,
         raise ValueError(
             f"flash_attention_sparse: seg shapes {tuple(q_seg.shape)}/"
             f"{tuple(k_seg.shape)} do not match q/k [{b_}, {tq}]/[{b_}, {tk}]")
+    check_block_divisor(tk, "flash_attention_sparse")
     if dropout_rate == 0.0:
         seed = 0
     if not isinstance(seed, torch.Tensor):

@@ -390,7 +390,7 @@ def _cuda_or_skip():
 @pytest.mark.parametrize("causal,per_q,t,d", [
     (False, False, 128, 64), (True, False, 200, 64), (False, True, 100, 64),
     (True, True, 130, 128), (False, False, 64, 64), (False, False, 256, 64),
-    (False, False, 130, 64)])
+    (False, False, 130, 64), (False, True, 128, 192), (True, False, 130, 256)])
 def test_cuda_kernel_matches_plain(dtype, tol, causal, per_q, t, d):
     _cuda_or_skip()
     g = torch.Generator("cuda").manual_seed(0)
@@ -419,7 +419,8 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, per_q, t, d):
     (True, None, 200, 64, 0.0), (False, "perq", 100, 64, 0.0),
     (True, "perq", 130, 128, 0.2), (False, "mask", 64, 64, 0.0),
     (False, "mask", 256, 64, 0.1), (False, "mask", 130, 64, 0.0),
-    (True, None, 128, 128, 0.2)])
+    (True, None, 128, 128, 0.2), (False, "mask", 128, 192, 0.1),
+    (True, "perq", 130, 256, 0.0)])
 def test_cuda_bwd_kernel_matches_plain(dtype, tol, causal, bias_kind, t, d,
                                        rate):
     """The backward kernels against their plain version on the card, dbias
@@ -455,18 +456,18 @@ def test_cuda_bwd_kernel_matches_plain(dtype, tol, causal, bias_kind, t, d,
 
 
 @pytest.mark.parametrize("device_type", ["cpu", "cuda"])
-@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256, 320])
 def test_flash_route_mirrors_pallas_ok(d, device_type, monkeypatch):
     """The port's static route: a CPU tensor takes the plain version; on the
-    card d % 64 != 0 takes it too (the JAX package's XLA path), d = 64 and
-    128 the kernels, and d = 192 and 256 (Pallas shapes without a CUDA
-    kernel) raise before any launch, naming the shape."""
+    card d % 64 != 0 takes it too (the JAX package's XLA path), d = 64, 128,
+    192 and 256 the kernels, and d = 320 (a Pallas shape without a CUDA
+    kernel) raises before any launch, naming the shape."""
     shape = (2, 3, 128, d)
     if device_type == "cpu":
         want = "plain"
     elif d % 64:
         want = "plain"
-    elif d in (64, 128):
+    elif d in (64, 128, 192, 256):
         want = "kernel"
     else:
         with pytest.raises(ValueError, match=r"\(2, 3, 128, %d\)" % d):
@@ -478,6 +479,66 @@ def test_flash_route_mirrors_pallas_ok(d, device_type, monkeypatch):
     # the card's choice is _pallas_ok's head-dim rule (Pallas forced on)
     monkeypatch.setattr(jfa, "FORCE_PALLAS_INTERPRET", True)
     assert jfa._pallas_ok(128, d) == (d % 64 == 0)
+
+
+@pytest.mark.parametrize("entry", ["packed", "4d"])
+@pytest.mark.parametrize("t", [100, 36, 200])
+def test_no_block_divisor_raises_as_jax(entry, t):
+    """The public entries raise where JAX's do (_flash_fwd_dispatch): a
+    sequence length with no power-of-two block divisor ≥ 8 (T = 100, 36),
+    before any launch; T = 200 (block 8) computes in both packages. The
+    wrappers below the entries keep taking any T."""
+    b, nh, d = 2, 2, 8
+    x = _rand((b, t, nh * d), 30) if entry == "packed" else \
+        _rand((b, nh, t, d), 30)
+    if entry == "packed":
+        jcall = lambda: jfa.flash_attention_packed(*[jnp.array(x)] * 3, nh)
+        tcall = lambda: tfa.flash_attention_packed(*[torch.tensor(x)] * 3,
+                                                   nh)
+    else:
+        jcall = lambda: jfa.flash_attention(*[jnp.array(x)] * 3)
+        tcall = lambda: tfa.flash_attention(*[torch.tensor(x)] * 3)
+    if t % 8:
+        msg = r"seq len %d has no power-of-two block divisor" % t
+        with pytest.raises(ValueError, match=msg):
+            jcall()
+        with pytest.raises(ValueError, match=msg):
+            tcall()
+        assert tfa.pick_block(t) is None
+    else:
+        np.testing.assert_allclose(tcall().numpy(), np.asarray(jcall()),
+                                   **TOL)
+        assert tfa.pick_block(t) == jfa._pick_blocks(t)[0]
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_head_dims_match_pallas_interpret(d, monkeypatch):
+    """d = 192 and 256 go to the kernels on the card, as JAX sends them to
+    Pallas: the port's op against jax.grad through the Pallas kernels in
+    interpret mode, f32, at T = 64 with the [B,1,1,T] mask: out (TOL) and
+    dq, dk, dv (BWD_TOL)."""
+    import jax
+
+    monkeypatch.setattr(jfa, "FORCE_PALLAS_INTERPRET", True)
+    b, h, t = 1, 2, 64
+    assert jfa._pallas_ok(t, d)
+    q, k, v = (_rand((b, h, t, d), 40 + i, 0.5) for i in range(3))
+    mask = np.where(np.random.RandomState(7).rand(b, 1, 1, t) > 0.25, 0.0,
+                    -1e4).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(jfa.flash_attention(q_, k_, v_, bias=jnp.array(mask))
+                       ** 2)
+
+    jargs = [jnp.array(x) for x in (q, k, v)]
+    want_out = np.asarray(jfa.flash_attention(*jargs, bias=jnp.array(mask)))
+    want = jax.grad(jloss, (0, 1, 2))(*jargs)
+    targs = [torch.from_numpy(x.copy()).requires_grad_() for x in (q, k, v)]
+    out = tfa.flash_attention(*targs, bias=torch.from_numpy(mask))
+    got = torch.autograd.grad((out ** 2).sum(), targs)
+    np.testing.assert_allclose(out.detach().numpy(), want_out, **TOL)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **BWD_TOL)
 
 
 def test_flash_route_rejects_other_dtypes_and_devices():
@@ -689,7 +750,8 @@ def test_cuda_bwd_is_bitwise_repeatable(form):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,d", [(512, 64), (130, 128)])
+@pytest.mark.parametrize("t,d", [(512, 64), (130, 128), (128, 192),
+                                 (64, 256)])
 def test_cuda_delta_kernel_matches_plain(t, d):
     _cuda_or_skip()
     (out, dout, _), _ = _cuda_qkv(2, 3, t, d, torch.bfloat16, 5)
@@ -700,7 +762,7 @@ def test_cuda_delta_kernel_matches_plain(t, d):
 
 @pytest.mark.cuda
 def test_cuda_head_dim_32_takes_the_plain_route():
-    """d = 32 on the card: the plain version, counted, no launch; d = 256
+    """d = 32 on the card: the plain version, counted, no launch; d = 320
     raises before any launch."""
     _cuda_or_skip()
     (q, k, v), _ = _cuda_qkv(2, 12, 128, 32, torch.bfloat16, 6)
@@ -711,6 +773,6 @@ def test_cuda_head_dim_32_takes_the_plain_route():
     assert (tfa.flash_attention_fwd.launches,
             tfa.flash_attention_fwd.plain_on_cuda) == (before[0],
                                                        before[1] + 1)
-    (q, k, v), _ = _cuda_qkv(1, 1, 64, 256, torch.bfloat16, 6)
-    with pytest.raises(ValueError, match="head dim 256"):
+    (q, k, v), _ = _cuda_qkv(1, 1, 64, 320, torch.bfloat16, 6)
+    with pytest.raises(ValueError, match="head dim 320"):
         tfa.flash_attention_fwd(q, k, v)

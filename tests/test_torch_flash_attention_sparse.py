@@ -219,10 +219,12 @@ def test_dropout_deterministic_scaled_and_seeded():
 
 @pytest.mark.parametrize("case", ["heads", "rate_high", "rate_negative",
                                   "no_seed", "causal_cross", "seg_shape",
-                                  "tk_overflow"])
+                                  "tk_overflow", "no_block"])
 def test_value_errors(case):
     """Every ValueError of JAX's flash_attention_packed_sparse, and the
-    16-bit descriptor overflow of _pack_se."""
+    16-bit descriptor overflow of _pack_se. no_block: Tk = 100 has no
+    power-of-two block divisor ≥ 8, and both packages raise the same words
+    (_flash_sparse_fwd_dispatch), even with Tq = 96, which has one."""
     b, t, nh, d = 2, 16, 2, 8
     x = torch.zeros(b, t, nh * d)
     seg = torch.ones(b, t, dtype=torch.int32)
@@ -230,7 +232,21 @@ def test_value_errors(case):
     match = {"heads": "not divisible", "rate_high": "dropout_rate",
              "rate_negative": "dropout_rate", "no_seed": "requires a seed",
              "causal_cross": "causal requires", "seg_shape": "seg shapes",
-             "tk_overflow": "overflows"}[case]
+             "tk_overflow": "overflows",
+             "no_block": "seq len 100 has no power-of-two block divisor"}[case]
+    if case == "no_block":
+        import jax.numpy as jnp
+
+        q = np.zeros((b, 96, nh * d), np.float32)
+        kv = np.zeros((b, 100, nh * d), np.float32)
+        q_seg, k_seg = np.ones((b, 96), np.int32), np.ones((b, 100), np.int32)
+        with pytest.raises(ValueError, match=match):
+            _jfa().flash_attention_packed_sparse(
+                jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv), nh, q_seg,
+                k_seg)
+        call.update(q=torch.tensor(q), k=torch.tensor(kv),
+                    v=torch.tensor(kv), q_seg=torch.tensor(q_seg),
+                    k_seg=torch.tensor(k_seg))
     if case == "heads":
         call["num_heads"] = 3
     elif case in ("rate_high", "rate_negative"):
@@ -244,13 +260,165 @@ def test_value_errors(case):
                     causal=True)
     elif case == "seg_shape":
         call["q_seg"] = seg[:, :-1]
-    else:
+    elif case == "tk_overflow":
         long = torch.ones(b, 1 << 15, dtype=torch.int32)
         with pytest.raises(ValueError, match=match):
             fas.pack_se(seg, long)
         return
     with pytest.raises(ValueError, match=match):
         fas.flash_attention_packed_sparse(**call)
+
+
+@pytest.mark.parametrize("device_type", ["cpu", "cuda"])
+@pytest.mark.parametrize("t", [64, 96, 256])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256, 320])
+def test_sparse_route_mirrors_sparse_pallas_ok(d, t, device_type,
+                                               monkeypatch):
+    """The port's static route for the sparse op: a CPU tensor takes the
+    plain version; on the card Tq or Tk not a multiple of 64 (T = 96: no
+    power-of-two block ≥ 64) or d % 64 != 0 takes it too (the JAX package's
+    blockwise XLA path), d = 64 to 256 the kernels, and d = 320 raises
+    before any launch, naming the shape. The card's choice is
+    _sparse_pallas_ok's (Pallas forced on), for self (Tq = Tk) and for cross
+    attention against 256 keys, both ways round."""
+    fa = _jfa()
+    monkeypatch.setattr(fa, "FORCE_PALLAS_INTERPRET", True)
+    for tq, tk in ((t, t), (t, 256), (256, t)):
+        shape = (2, 3, tq, d)
+        pallas = fa._sparse_pallas_ok(tq, tk, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            if device_type == "cpu":
+                assert fas.sparse_route(shape, tk, dtype, "cpu") == "plain"
+            elif pallas and d not in tfa.HEAD_DIMS:
+                with pytest.raises(ValueError,
+                                   match=r"\(2, 3, %d, %d\)" % (tq, d)):
+                    fas.sparse_route(shape, tk, dtype, device_type)
+            else:
+                want = "kernel" if pallas else "plain"
+                assert fas.sparse_route(shape, tk, dtype, device_type) == want
+    assert (d == 320) == (d % 64 == 0 and d not in tfa.HEAD_DIMS)
+
+
+def test_sparse_route_rejects_other_dtypes_and_devices():
+    with pytest.raises(TypeError, match="dtype"):
+        fas.sparse_route((1, 1, 64, 64), 64, torch.float16, "cuda")
+    with pytest.raises(ValueError, match="device type"):
+        fas.sparse_route((1, 1, 64, 64), 64, torch.float32, "meta")
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_head_dims_match_jax_pallas_interpret(d):
+    """d = 192 and 256, which the card sends to the kernels as JAX sends
+    them to Pallas: JAX's Pallas kernels in interpret mode against the
+    port, f32, at the 64-token tiles (T = 128), causal, out and all three
+    gradients."""
+    fa = _jfa()
+    b, t, nh = 2, 128, 1
+    seg = _uneven_segs(b, t, np.random.RandomState(12), max_seg=3)
+    q, k, v, dy = (0.5 * _rand((b, t, nh * d), 30 + i) for i in range(4))
+    fa.FORCE_PALLAS_INTERPRET = True
+    try:
+        assert fa._sparse_pallas_ok(t, t, d)
+        ref = _jax(q, k, v, nh, seg, seg, dy, True)
+    finally:
+        fa.FORCE_PALLAS_INTERPRET = False
+    _assert_match(_port(q, k, v, nh, seg, seg, dy, True), ref,
+                  pad_rows=(0,))
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no "
+                    "CPU mode")
+
+
+def _cuda_case(b, t, nh, d, dtype, seed, causal=False):
+    """Packed [B, nh, T, d] q, k, v, dO views on the card with a real
+    packed-segment descriptor and tile table."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    seg = torch.tensor(_uneven_segs(b, t, np.random.RandomState(seed),
+                                    max_seg=3), device="cuda")
+    se = fas.pack_se(seg, seg)
+    vis = fas.compute_block_vis(se, t, t, causal=causal)
+    q, k, v, dout = (torch.randn(b, t, nh * d, generator=g, device="cuda")
+                     .to(dtype).unflatten(-1, (nh, d)).transpose(1, 2)
+                     for _ in range(4))
+    return q, k, v, dout, se, vis
+
+
+def _close(got, want, tol):
+    for a, w in zip(got, want):
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= tol * max(w.float().abs().max().item(), 1.0), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,fwd_tol,bwd_tol", [
+    (torch.float32, 2e-5, 2e-5), (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("d,causal,rate", [
+    (64, False, 0.0), (64, True, 0.1), (128, False, 0.1), (192, True, 0.0),
+    (256, False, 0.1)])
+def test_cuda_kernels_match_plain(dtype, fwd_tol, bwd_tol, d, causal, rate):
+    """The sparse kernels against their plain versions on the card at
+    every head dim, with dropout from the same seed; the backward is
+    bitwise repeatable and an all-ones tile table changes no bit."""
+    _cuda_or_skip()
+    q, k, v, dout, se, vis = _cuda_case(2, 256, 2, d, dtype, 3, causal)
+    before = (fas.flash_attention_sparse_fwd.launches,
+              fas.flash_attention_sparse_bwd.launches)
+    out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis, causal, None,
+                                              rate, 7)
+    got = fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se, vis,
+                                         causal, None, rate, 7)
+    assert (fas.flash_attention_sparse_fwd.launches,
+            fas.flash_attention_sparse_bwd.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    ref = fas.flash_attention_sparse_fwd_plain(q, k, v, se, vis, causal,
+                                               None, rate, 7)
+    want = fas.flash_attention_sparse_bwd_plain(q, k, v, out, lse, dout, se,
+                                                vis, causal, None, rate, 7)
+    _close((out, lse), ref, fwd_tol)
+    _close(got, want, bwd_tol)
+    again = fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se, vis,
+                                           causal, None, rate, 7)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ones = torch.ones_like(vis)
+    out1, lse1 = fas.flash_attention_sparse_fwd(q, k, v, se, ones, causal,
+                                                None, rate, 7)
+    got1 = fas.flash_attention_sparse_bwd(q, k, v, out1, lse1, dout, se, ones,
+                                          causal, None, rate, 7)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse) + tuple(got),
+                                                 (out1, lse1) + tuple(got1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(96, 64), (128, 32)])
+def test_cuda_plain_route_is_counted(t, d):
+    """T = 96 and d = 32 on the card: the plain versions, counted in
+    .plain_on_cuda, no launch."""
+    _cuda_or_skip()
+    q, k, v, dout, se, vis = _cuda_case(2, t, 2, d, torch.bfloat16, 4)
+    before = [(f.launches, f.plain_on_cuda) for f in (
+        fas.flash_attention_sparse_fwd, fas.flash_attention_sparse_bwd)]
+    out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis)
+    fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se, vis)
+    after = [(f.launches, f.plain_on_cuda) for f in (
+        fas.flash_attention_sparse_fwd, fas.flash_attention_sparse_bwd)]
+    assert after == [(n, p + 1) for n, p in before]
+
+
+@pytest.mark.cuda
+def test_cuda_grid_past_65535_heads():
+    """B·nh = 65,600 launches the forward and both backward kernels on the
+    flat grid and agrees with the plain versions."""
+    _cuda_or_skip()
+    q, k, v, dout, se, vis = _cuda_case(4100, 64, 16, 64, torch.bfloat16, 5)
+    out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis)
+    _close((out, lse), fas.flash_attention_sparse_fwd_plain(q, k, v, se, vis),
+           2e-2)
+    _close(fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se, vis),
+           fas.flash_attention_sparse_bwd_plain(q, k, v, out, lse, dout, se,
+                                                vis), 1e-2)
 
 
 def test_kernel_wrappers_route_by_device():
