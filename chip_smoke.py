@@ -13,8 +13,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              flash forward and backward, in f32 and bf16, with and without
              attention dropout (same seed as the plain version), dbias in
              both forms, causal, ragged T, d=128, the dropout keep rate and
-             seed dependence; two backward calls bitwise equal; the bf16
-             backward's delta kernel at d = 64 to 256; B·nh = 65,600 (the
+             seed dependence; two backward calls bitwise equal; the
+             backward's delta kernel (f32 and bf16) at d = 64 to 256, and
+             the f32 one timed beside the plain chain it replaced;
+             B·nh = 65,600 (the
              flat grid); d=32 through the op (the plain route, counted) and
              d=320 (raises). Head dims 192 and 256 through every flash
              kernel family (dense forward and backward, sparse forward and
@@ -22,9 +24,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              kernels, not the plain route, within the main tolerances, with
              their times. Times each kernel, its plain version and one
              PyTorch library call, with each kernel's ratio to that call and
-             share of its bound; logs the bf16 flash kernels' registers,
-             spills, dynamic shared memory and HGMMA count (the sparse
-             backward's too).
+             share of its bound (the f32 backward's bound is its 3xTF32
+             one, the FMA bound beside it); logs the bf16 flash kernels' registers, spills, dynamic
+             shared memory and HGMMA count (the sparse backward's too), and
+             the f32 backward's and K2's registers and spills and the f32
+             backward's HMMA count.
 4. serve   — main path 1: BERT-base at full width (vocab 30522, hidden 768,
              12 layers, 12 heads, ffn 3072) built with the port's DSL from a
              seed, saved with io.save_inference_model, served by
@@ -36,7 +40,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              bert.build_pretrain_program → Executor(CUDAPlace(0)).run:
              4 Adam steps in f32 (B=8, T=128) and 4 in bf16 AMP (B=8,
              T=512). Checks the losses, 12 forward and 12 backward flash
-             launches per step and no plain-route flash call, GPU-vs-CPU
+             launches per step and no plain-route flash call (nor a call of
+             the plain delta), GPU-vs-CPU
              agreement at dropout 0 and bf16 against f32; prints the step
              time, device-busy share, the flash kernels' device ms, top
              kernels and peak memory.
@@ -45,7 +50,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              its stored output) against their plain versions, f32 and bf16,
              at ResNet-50 B=128 shapes; times each kernel, its plain version
              and one PyTorch library call where one computes the same
-             function.
+             function; K2 at the stem (C=64, relu), stage 2 .sc (C=512, no
+             relu or residual: the library's shape) and stage 4 (C=2048,
+             residual and relu), each with its bound.
 7. resnet  — main path 3: ResNet-50 training at full width (B=128,
              3x224x224, 1000 classes) with PDTPU_CONV_BN_FUSION=pallas and
              PDTPU_BN_MODE=pallas, built with the port's DSL from seed 2024
@@ -153,6 +160,7 @@ BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 DROPOUT = 0.1
 # H100 SXM data sheet peaks (dense): bf16 tensor cores, f32 FMA, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TF32_PEAK_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 FA_SOURCE = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
 FA_REPLACES = ("paddle_tpu/ops/pallas_kernels/flash_attention.py:172 "
@@ -321,7 +329,7 @@ def category(name):
         return "flash sparse fwd (hand kernel)"
     if "sparse_bwd" in n or "sparse_dq" in n or "sparse_dkv" in n:
         return "flash sparse bwd (hand kernels)"
-    if "delta_bf16" in n:   # the bf16 backwards' delta, dense and sparse
+    if "bwd_delta" in n:   # the backwards' delta kernel, dense and sparse
         return "flash bwd delta (hand kernel)"
     if "flash_fwd" in n:
         return "flash fwd (hand kernel)"
@@ -427,35 +435,56 @@ def bert_mask(b, t, dtype):
     return mask
 
 
-def bound(flops, nbytes, name):
-    t_ops = flops / PEAK_FLOPS[name] * 1e3
+def bound(flops, nbytes, name, peak=None):
+    t_ops = flops / (peak or PEAK_FLOPS[name]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def kernel_label(mangled):
+    """A readable name of a flash or K2 kernel from its mangled one, e.g.
+    _ZN...flash_fwd_bf16_kernelILi64EE... -> flash_fwd_bf16_kernel<64>;
+    None for another kernel."""
+    import re
+
+    k = re.search(r"((?:flash|sparse)_[fb]wd_\w+?_kernel)ILi(\d+)E"
+                  r"(?:Li(\d+)E)?", mangled)
+    if k:
+        return (f"{k.group(1)}<{k.group(2)}"
+                f"{', ' + k.group(3) if k.group(3) else ''}>")
+    k = re.search(r"apply_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])E",
+                  mangled)
+    if k:
+        return (f"apply_kernel<{'float' if k.group(1) == 'f' else 'bf16'}, "
+                f"res={k.group(2)}, relu={k.group(3)}>")
+    return None
+
+
 def log_wgmma_build(build):
     """ptxas's registers, shared memory and spills for each bf16 flash
-    kernel by name (the dense ones and the sparse backward), and, where the
-    toolkit has cuobjdump, the count of HGMMA (wgmma) and UTMALDG (TMA
-    load) instructions in each library."""
+    kernel by name (the dense ones and the sparse backward), the f32 flash
+    backward kernel (dk/dv and dq CTAs in one) and K2's apply_kernel; where
+    the toolkit has cuobjdump, the count of HGMMA (wgmma) and UTMALDG (TMA
+    load) instructions in each flash library and of HMMA (mma.sync)
+    instructions in each f32 backward kernel."""
     import ctypes
     import re
 
     for lib in ("flash_attention_fwd", "flash_attention_bwd",
-                "flash_attention_sparse"):
+                "flash_attention_sparse", "fused_bn"):
         fn = None
         for line in build.build_log(lib).splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '?(\w+)'?", line)
-            if m:   # _ZN...flash_fwd_bf16_kernelILi64EE... -> ..._kernel<64>
-                k = re.search(r"((?:flash|sparse)_[fb]wd_\w+?_kernel)ILi(\d+)"
-                              r"E(?:Li(\d+)E)?", m.group(1))
-                fn = (f"{k.group(1)}<{k.group(2)}"
-                      f"{', ' + k.group(3) if k.group(3) else ''}>"
-                      if k else m.group(1))
-            elif fn and "bf16" in fn and ("Used" in line or "spill" in line
-                                          or "Performance" in line):
+            if m:
+                fn = kernel_label(m.group(1)) or m.group(1)
+            elif fn and ("bf16" in fn or "flash_bwd_f32" in fn
+                         or "apply_kernel" in fn) \
+                    and ("Used" in line or "spill" in line
+                         or "Performance" in line):
                 log(f"build {lib} {fn}: {line.split(':', 1)[-1].strip()}")
+        if lib == "fused_bn":
+            continue
         lib_so = build.load(lib)
         sparse = lib == "flash_attention_sparse"
         query = getattr(lib_so, f"{lib}_bwd_bf16_smem" if sparse
@@ -481,6 +510,11 @@ def log_wgmma_build(build):
                                   check=True).stdout
             log(f"build {lib}: {sass.count('HGMMA')} HGMMA and "
                 f"{sass.count('UTMALDG')} UTMALDG instructions (cuobjdump)")
+            for section in sass.split("Function : ")[1:]:
+                name = kernel_label(section.split(None, 1)[0]) or ""
+                if lib == "flash_attention_bwd" and "_f32_kernel" in name:
+                    log(f"build {lib} {name}: {section.count('HMMA')} HMMA "
+                        f"instructions (cuobjdump)")
         else:
             log(f"build {lib}: no cuobjdump in the toolkit, HGMMA not counted")
 
@@ -679,11 +713,19 @@ def phase_kernel_bwd(fa):
                       + 2 * B * NH * t * 4                  # lse, delta
                       + bias.numel() * bias.element_size())
             bound_ms, bound_by = bound(flops, nbytes, name)
+            extra = {}
+            if name == "float32":
+                # the f32 kernels run three TF32 products per product on
+                # the tensor cores (3xTF32): that is their least time; the
+                # CUDA-core FMA bound stays beside it
+                extra["bound_fma_ms"] = bound_ms
+                bound_ms, bound_by = bound(3 * flops, nbytes, name,
+                                           TF32_PEAK_FLOPS)
             rec = {"dtype": name, "B": B, "nh": NH, "T": t, "d": D,
                    "max_abs_err": errs, "ms": ms, "dropout_ms": drop_ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
-                   "bound_by": bound_by}
+                   "bound_by": bound_by, **extra}
             log("kernel bwd " + json.dumps(ratios(rec)))
             records[(name, t)] = rec
 
@@ -742,15 +784,30 @@ def phase_kernel_routes(fa):
     from paddle_tpu_torch.core.registry import get_op
 
     gen = torch.Generator("cuda").manual_seed(2)
-    for d in (D, 128) + WIDE_D:
-        out, dout, _ = qkv_inputs(B, NH, 512, d, torch.bfloat16, gen)
-        e, ok = max_err(fa.flash_attention_delta(out, dout),
-                        fa.flash_attention_delta_plain(out, dout), 1e-4)
-        log(f"kernel delta bf16 B={B} nh={NH} T=512 d={d}: max_abs_err "
-            f"{e:.3e} (tol 1e-4)")
-        if not ok:
-            raise AssertionError(f"the delta kernel disagrees with its plain "
-                                 f"version at d = {d}")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for d in (D, 128) + WIDE_D:
+            out, dout, _ = qkv_inputs(B, NH, 512, d, dtype, gen)
+            e, ok = max_err(fa.flash_attention_delta(out, dout),
+                            fa.flash_attention_delta_plain(out, dout), 1e-4)
+            log(f"kernel delta {name} B={B} nh={NH} T=512 d={d}: max_abs_err"
+                f" {e:.3e} (tol 1e-4)")
+            if not ok:
+                raise AssertionError(f"the delta kernel disagrees with its "
+                                     f"plain version at {name} d = {d}")
+    # the f32 delta kernel beside the plain chain (multiply, sum) it
+    # replaced on the f32 backward's path, at BERT f32's shapes; L2 flushed
+    # before each call, since out and dO (25 MB at T=512) would stay in it
+    for t in SEQS:
+        out, dout, _ = qkv_inputs(B, NH, t, D, torch.float32, gen)
+        ms, plain_ms = (cold_device_ms(fn) for fn in (
+            lambda: fa.flash_attention_delta(out, dout),
+            lambda: fa.flash_attention_delta_plain(out, dout)))
+        nbytes = 2 * out.numel() * 4 + B * NH * t * 4
+        log("kernel delta " + json.dumps({
+            "dtype": "float32", "B": B, "nh": NH, "T": t, "d": D, "ms": ms,
+            "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}))
 
     b, nh, t = 50, 1312, 64        # B·nh = 65,600 > 65,535
     q, k, v = qkv_inputs(b, nh, t, D, torch.bfloat16, gen)
@@ -1062,25 +1119,35 @@ def phase_train(fluid, fa):
         scope = fluid.Scope()
         with fluid.scope_guard(scope):
             exe.run(startup)
+            # delta comes from the delta kernel on the card: a call of its
+            # plain version during the main path is counted here
+            delta_plain, plain_delta_calls = fa.flash_attention_delta_plain, []
+            fa.flash_attention_delta_plain = lambda *a: (
+                plain_delta_calls.append(1), delta_plain(*a))[1]
             fa.flash_attention_fwd.launches = 0       # main path starts
             fa.flash_attention_bwd.launches = 0
             fa.flash_attention_fwd.plain_on_cuda = 0
             fa.flash_attention_bwd.plain_on_cuda = 0
             step_ms = []
             vals = []
-            for _ in range(4):
-                t0 = time.perf_counter()
-                (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                vals.append(float(lv))
+            try:
+                for _ in range(4):
+                    t0 = time.perf_counter()
+                    (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    vals.append(float(lv))
+            finally:
+                fa.flash_attention_delta_plain = delta_plain
             launches[("fwd", name)] = fa.flash_attention_fwd.launches
             launches[("bwd", name)] = fa.flash_attention_bwd.launches
             plain = (fa.flash_attention_fwd.plain_on_cuda,
-                     fa.flash_attention_bwd.plain_on_cuda)
+                     fa.flash_attention_bwd.plain_on_cuda,
+                     len(plain_delta_calls))
             # main path ends
-            if plain != (0, 0):
+            if plain != (0, 0, 0):
                 raise AssertionError(f"train {name}: flash calls took the "
-                                     f"plain route (fwd, bwd) {plain}")
+                                     f"plain route (fwd, bwd, delta) "
+                                     f"{plain}")
             losses[name] = vals
             log(f"train {name} B={B} T={t} amp={amp} dropout={DROPOUT} "
                 f"lr={LR} ops/step={len(main.global_block().ops)}: losses "
@@ -1196,6 +1263,34 @@ def nhwc_randn(shape, dtype, gen, offset=0.0, positive=False):
     return x.to(dtype).contiguous(memory_format=torch.channels_last)
 
 
+def k2_time(fb, label, x2, mean, inv, scale, bias, act, res2, name,
+            library=None):
+    """K2 (apply2d) at one (M, C) shape: its device ms beside its plain
+    version's, its bound and, where one PyTorch call computes the same
+    function (no relu, no residual), that call's (`library`)."""
+    import torch
+
+    m, c = x2.shape
+    ms, plain_ms = (device_ms(fn) for fn in (
+        lambda: fb.apply2d(x2, mean, inv, scale, bias, act, res2),
+        lambda: fb.apply_plain(x2, mean, inv * scale, bias, act, res2)))
+    has_res = res2 is not None
+    nbytes = (2 + has_res) * m * c * x2.element_size() + 3 * c * 4
+    flops = (4.0 + has_res + (act == "relu")) * m * c
+    bound_ms, bound_by = bound(flops, nbytes, name)
+    rec = {"kernel": "fused_bn_apply", "dtype": name,
+           "shape": f"{label}: M={m} C={c}, act={act!r} res={has_res}",
+           "geometry": fb.apply_geometry(
+               m, c, x2.element_size(), torch.cuda.get_device_properties(
+                   x2.device).multi_processor_count),
+           "ms": ms, "plain_ms": plain_ms,
+           "library_ms": device_ms(library) if library else None,
+           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / ms}
+    log("kernel bn k2 " + json.dumps(rec))
+    return rec
+
+
 def phase_kernel_bn(fb):
     """Each fused-BN kernel against its plain version at ResNet-50 B=128
     shapes, f32 and bf16, with timings. Returns {(kernel, dtype): record}
@@ -1286,27 +1381,22 @@ def phase_kernel_bn(fb):
             if not ok:
                 raise AssertionError(f"fused BN apply/backward {name} {label}"
                                      f" disagrees with its plain version")
+            if label.startswith("stage4"):   # K2 with residual and relu
+                k2_time(fb, label, y2, mean, inv, scale, bias, act, res2,
+                        name)
             if act == "":
                 # the shortcut BN: no relu, no residual, so one PyTorch call
                 # computes each function (inference batch_norm; cuDNN's
                 # training backward)
                 a4 = fb.from2d(y2, (B, co, hw // st, hw // st))
-                ms, plain_ms, library_ms = (device_ms(fn) for fn in (
-                    lambda: fb.apply2d(y2, mean, inv, scale, bias),
-                    lambda: fb.apply_plain(y2, mean, inv * scale, bias),
-                    lambda: F.batch_norm(a4, mean, var, scale, bias, False,
-                                         0.0, 1e-5)))
-                nbytes = 2 * m * co * isz + 3 * co * 4
-                bound_ms, bound_by = bound(4.0 * m * co, nbytes, name)
-                records[("fused_bn_apply", name)] = rec = {
-                    "kernel": "fused_bn_apply", "dtype": name,
-                    "shape": f"{label} BN: M={m} C={co}, no relu/res",
-                    "max_err": {"apply": errs["apply"]},
-                    "max_abs_err": {"apply": abs_errs["apply"]}, "ms": ms,
-                    "plain_ms": plain_ms, "library_ms": library_ms,
-                    "library": "F.batch_norm(training=False)",
-                    "bytes": nbytes, "bound_ms": bound_ms,
-                    "bound_by": bound_by}
+                rec = k2_time(fb, f"{label} BN", y2, mean, inv, scale, bias,
+                              "", None, name,
+                              lambda: F.batch_norm(a4, mean, var, scale,
+                                                   bias, False, 0.0, 1e-5))
+                rec.update(max_err={"apply": errs["apply"]},
+                           max_abs_err={"apply": abs_errs["apply"]},
+                           library="F.batch_norm(training=False)")
+                records[("fused_bn_apply", name)] = rec
                 log("kernel bn " + json.dumps(rec))
                 dy4 = fb.from2d(dy, a4.shape)
 
@@ -1379,6 +1469,9 @@ def phase_kernel_bn(fb):
                                      f"{errs}")
             if quote:
                 records[("fused_bn_stats", name)] = rec
+                # K2 at the stem, with relu
+                k2_time(fb, label, fb.to2d(x), mean, inv, scale, bias,
+                        "relu", None, name)
     return records
 
 
@@ -2517,6 +2610,8 @@ def main():
             "dropout_ms": rec["dropout_ms"],
             "vs_library": rec["ms_vs_library"],
             "bound_share": rec["ms_bound_share"],
+            **({"bound_fma_ms": rec["bound_fma_ms"]} if "bound_fma_ms" in rec
+               else {}),
             "shape": f"B={B} nh={NH} T=512 d={D}"})
     for kname, count_keys in (("fused_bn_stats", ("bn_stats",)),
                               ("fused_bn_apply", ("bn_apply", "apply2d")),

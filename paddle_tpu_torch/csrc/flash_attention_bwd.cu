@@ -19,8 +19,11 @@
 // kernel). Keys past a ragged Tk and queries past a ragged Tq contribute
 // exactly 0.
 //
-// Two kernels, as the TPU split has them, so every output is written by one
-// CTA and two calls give the same bits (no atomics):
+// delta comes first, from one small kernel (flash_bwd_delta_kernel, f32 or
+// bf16), as _bwd_host_prep computes it outside the TPU kernels. Then the
+// TPU's split into dq and dk/dv work (two kernels in bf16; two kinds of CTA
+// in one launch in f32), so every output is written by one CTA and two
+// calls give the same bits (no atomics):
 //   dq kernel:    one CTA per (64-row q tile, b·h) walks the 64-key tiles
 //                 and keeps dq in registers;
 //   dk/dv kernel: one CTA per (64-key tile, b·h) walks the 64-row q tiles
@@ -31,15 +34,19 @@
 // 192 and 256: above 128 a CTA owns one 64-wide chunk of its outputs' head
 // dim (a third grid factor, the chunk fastest), recomputing s and dp over
 // the full head dim; the f32 kernels then also stream the head dim through
-// shared memory in 64-wide chunks, in the same summation order, since four
-// 64 x 256 f32 tiles would not fit.
+// shared memory in 64-wide chunks (their own chunk last, so the output
+// product finds its tiles in the ring), since four 64 x 256 f32 tiles
+// would not fit.
 //
 // Bound. Five products of 2·Tq·Tk·d flops per head (s, dp, dv, dk, dq) over
 // the bytes of q, k, v, out, dO, dq, dk, dv, lse and delta: in bf16 about
 // 0.4·T flops a byte (50 at T = 128, 200 at T = 512), under the H100's ~295
 // flop/byte tensor-core ridge, so a perfect bf16 kernel is memory bound at
 // T = 128 and close to the ridge at T = 512; in f32 (0.2·T flops a byte
-// against a ~20 flop/byte FMA ridge) it is compute bound.
+// against a ~20 flop/byte FMA ridge) it is compute bound on the CUDA cores.
+// On the tensor cores in 3xTF32 (three TF32 products per f32 product, 495
+// TFLOP/s) its ridge is ~49 flop/byte: compute bound at T = 512, close to
+// the memory bound at T = 128.
 //
 // bf16 design (what it does about the bound). delta comes from one small
 // kernel that reads out and dO in bf16 (~12.6 MB at BERT's T = 512). Every
@@ -59,8 +66,33 @@
 // (selects; the bias in registers once a tile; ex2.approx), the per-query
 // dbias is stored after the loop, and the stages are sized by the bias
 // mode, so more CTAs share an SM.
-//   f32: 256 threads, a 4x4 register tile of the 64x64 score block each,
-//        FMA on the CUDA cores (TF32 off, for parity with the CPU).
+//
+// f32 design. One TF32 product keeps ~11 bits and breaks the f32 parity
+// (2e-5), and FMA on the CUDA cores is bound by its shared-memory operand
+// reads at under half of the 67 TFLOP/s. So every product (the same five
+// kinds as bf16) runs on the tensor cores in 3xTF32, as CUTLASS's fast-f32
+// GEMMs do: each f32 operand is split into big = x rounded to TF32 and
+// small = x − big, and big·small + small·big, then big·big, are summed
+// (mma.sync.m16n8k8, f32 accumulate): the error of an f32 product, at three
+// times TF32's work. The tensor core's own sums round toward zero, so S and
+// dP (depth: the head dim) take them 16 columns at a time into partial sums
+// added with round-to-nearest (kPartialDepth). No cvt: the split is
+// integer and FP32 work. mma.sync, not wgmma: tf32
+// wgmma reads both operands K-major from shared memory, and the transposed
+// products (dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO) would need transposed tiles;
+// mma.sync reads its B fragments from the padded tile as it lies, and takes
+// dS and P from the accumulators as A fragments by permuting the depth of
+// the product (frag_a_acc / frag_b_kn). Four warps own 16 rows each of the
+// 64x64 block, so the accumulators have the wgmma layout and the element
+// loop, its selects and the register keep bits are the bf16 kernels'. The
+// tiles (4 floats of row padding: conflict-free fragment reads) arrive by
+// cp.async in a two-stage ring, one step ahead of the math; the bias is
+// read from global memory (L1/L2) in the element loop. The dk/dv and dq
+// CTAs share one launch (flash_bwd_f32_kernel, dk/dv first): at BERT's
+// T = 128 either kind alone is 192 CTAs of four warps for 132 SMs. The
+// products are issue-bound (~5 instructions for each mma: the operand
+// loads, their splits and the partial sums), at 8 warps an SM (shared
+// memory and registers allow two CTAs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,8 +111,9 @@ struct BwdParams {
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;    // [B*H, Tq]
-  const float* delta;  // [B*H, Tq]
+  const float* lse;    // [B*H, Tq] rows lse_pitch floats apart
+  const float* delta;  // [B*H, Tq] rows delta_pitch floats apart
+  int lse_pitch, delta_pitch;
   const void* bias;    // nullptr = no bias; same dtype as q
   void* dq;
   void* dk;
@@ -99,19 +132,8 @@ struct BwdParams {
   float sm_scale;
   int causal;
   flash::Dropout drop;
+  int n_dkv;  // f32: the launch's first n_dkv CTAs are dk/dv CTAs
 };
-
-// p = exp(s − lse) of (row, col) from the raw q·k dot product; exactly 0 past
-// the ragged ends.
-__device__ __forceinline__ float prob(const BwdParams& p, float acc,
-                                      const float* bias, int row, int col,
-                                      float lse) {
-  if (row >= p.Tq || col >= p.Tk) return 0.f;
-  float s = acc * p.sm_scale;
-  if (bias != nullptr) s += bias[row * p.b_sq + col * p.b_sk];
-  if (p.causal && col > row) s = kNegInf;
-  return expf(s - lse);
-}
 
 // Key tiles a q tile needs: causal rows see no key past their own index.
 __device__ __forceinline__ int num_k_tiles(int Tq, int Tk, int causal,
@@ -138,368 +160,613 @@ __device__ __forceinline__ void zero_skipped_dbias(float* dbias, int Tq,
   }
 }
 
+__device__ __forceinline__ void seed_keys(const flash::Dropout& d,
+                                          uint32_t* key0, uint32_t* key1) {
+  *key0 = *key1 = 0;
+  if (d.on) {
+    const unsigned long long s = static_cast<unsigned long long>(*d.seed);
+    *key0 = static_cast<uint32_t>(s);
+    *key1 = static_cast<uint32_t>(s >> 32);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// f32: FMA on the CUDA cores. Thread (ty, tx) owns score rows ty*4+i and
-// columns tx+16j of the 64x64 block.
+// f32: 3xTF32 on the tensor cores (mma.sync.m16n8k8), tiles by cp.async.
+// Four warps; warp w owns rows 16w..16w+15 of the 64x64 score block, so
+// accumulator register 4·nb + 2·h + e of lane (g, t) is row 16w + g + 8h,
+// column 8·nb + 2t + e: the layout of the bf16 kernels' wgmma accumulators,
+// whose keep-bit and element code the f32 kernels share.
 // ---------------------------------------------------------------------------
 
-// Loads a 64-row tile of W columns of a [T, D] f32 matrix (row stride `st`)
-// into shared memory with row pitch W+1; rows past `valid` are zero.
+// Row pitch, in floats, of a 64-row f32 tile W values wide: 4 floats of
+// padding put the fragment reads of a warp on 32 distinct banks, whether a
+// lane reads (row g, column t) or (row 2t, column g).
 template <int W>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long st, int valid,
-                                              int tid) {
-  constexpr int kVec = W / 4;
-  for (int i = tid; i < kTile * kVec; i += 256) {
+__host__ __device__ constexpr int pitch_f32() {
+  return W + 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(hopper::smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(hopper::smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Starts the copy of a 64-row tile of W columns of a [T, D] f32 matrix (row
+// stride `st`) into shared memory with pitch_f32<W>(); rows past `valid` are
+// zero-filled.
+template <int W>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src,
+                                          long long st, int valid, int tid) {
+  constexpr int kVec = W / 4, kPitch = pitch_f32<W>();
+#pragma unroll
+  for (int i = tid; i < kTile * kVec; i += 128) {
     const int r = i / kVec, c = (i % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid) x = *reinterpret_cast<const float4*>(src + r * st + c);
-    float* d = dst + r * (W + 1) + c;
-    d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
+    cp_async16(dst + r * kPitch + c, src + (r < valid ? r : 0) * st + c,
+               r < valid);
   }
 }
 
-// s += a·bᵀ and t += c·dᵀ for the thread's 4x4 block, over the W columns of
-// 64-row tiles (pitch W+1). Chunks of the head dim taken in order sum in
-// the same order as one pass over it.
+// x = big + small: big is x rounded to TF32 (nearest, ties away, as
+// cvt.rna rounds, but on the integer pipe: cvt runs at a sixteenth of the
+// FP32 rate), small = x − big exactly; the tensor core reads small's top 11
+// bits, so big + small carries x to within 2^-21·|x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a·b on one 16x8 block, 8 deep, in 3xTF32: the two cross terms
+// first, then big·big, as CUTLASS's fast-f32 warp MMA sums them
+// (small·small, ~2^-22 relative, is dropped).
+__device__ __forceinline__ void mma3(float* d, const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  float (&acc)[4] = *reinterpret_cast<float(*)[4]>(d);
+  mma_tf32(acc, ab, bs[0], bs[1]);
+  mma_tf32(acc, as, bb[0], bb[1]);
+  mma_tf32(acc, ab, bb[0], bb[1]);
+}
+
+// The tensor core rounds each of its sums toward zero: an error of up to
+// an ulp of the running sum per instruction, which piles up along a
+// product's depth (1.5e-5 in ds at d = 128 on the card, against the 2e-5
+// parity). So every product sums into zeroed partial sums that one
+// round-to-nearest add puts into its accumulator: S and dP (depth: the
+// head dim, whose error ds carries into every output) each kPartialDepth
+// columns, the outputs once a tile (tests/test_torch_flash_attention.py
+// emulates both and holds them within a quarter of the parity).
+constexpr int kPartialDepth = 16;
+
+// A fragment (rows r0 + g, r0 + g + 8; columns k + t, k + t + 4) of a
+// row-major tile.
+template <int P>
+__device__ __forceinline__ void frag_a(const float* s, int r0, int k, int g,
+                                       int t, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  const float* x = s + (r0 + g) * P + k + t;
+  split_tf32(x[0], big[0], small[0]);
+  split_tf32(x[8 * P], big[1], small[1]);
+  split_tf32(x[4], big[2], small[2]);
+  split_tf32(x[8 * P + 4], big[3], small[3]);
+}
+
+// B fragment of an operand stored a row per output column n (S = Q·Kᵀ reads
+// K so): column n0 + g, depths k + t and k + t + 4.
+template <int P>
+__device__ __forceinline__ void frag_b_nk(const float* s, int n0, int k,
+                                          int g, int t, uint32_t (&big)[2],
+                                          uint32_t (&small)[2]) {
+  const float* x = s + (n0 + g) * P + k + t;
+  split_tf32(x[0], big[0], small[0]);
+  split_tf32(x[4], big[1], small[1]);
+}
+
+// The A fragment of 16x8 block kb of an accumulator, and the B fragment of
+// an operand stored a row per depth k, with the depth permuted alike: slot t
+// is depth 8kb + 2t and slot t + 4 depth 8kb + 2t + 1, so the accumulator's
+// registers (columns 2t, 2t + 1) are the A fragment as they stand. A product
+// sums the same terms in any order of its depth.
+__device__ __forceinline__ void frag_a_acc(const float (&acc)[32], int kb,
+                                           uint32_t (&big)[4],
+                                           uint32_t (&small)[4]) {
+  split_tf32(acc[4 * kb], big[0], small[0]);
+  split_tf32(acc[4 * kb + 2], big[1], small[1]);
+  split_tf32(acc[4 * kb + 1], big[2], small[2]);
+  split_tf32(acc[4 * kb + 3], big[3], small[3]);
+}
+template <int P>
+__device__ __forceinline__ void frag_b_kn(const float* s, int kb, int n0,
+                                          int g, int t, uint32_t (&big)[2],
+                                          uint32_t (&small)[2]) {
+  const float* x = s + (8 * kb + 2 * t) * P + n0 + g;
+  split_tf32(x[0], big[0], small[0]);
+  split_tf32(x[P], big[1], small[1]);
+}
+
+// s += A·Bᵀ for the warp's 16 rows (from r0) of the 64x64 block, over the
+// W columns of two 64-row tiles, kPartialDepth columns at a time into
+// partial sums.
 template <int W>
-__device__ __forceinline__ void two_products_f32(const float* sA,
-                                                 const float* sB,
-                                                 const float* sC,
-                                                 const float* sD, int ty,
-                                                 int tx, float (&s)[4][4],
-                                                 float (&t)[4][4]) {
-  constexpr int kPad = W + 1;
-#pragma unroll 4
-  for (int d = 0; d < W; ++d) {
-    float av[4], bv[4], cv[4], dv[4];
+__device__ __forceinline__ void product_tf32(float (&s)[32], const float* sA,
+                                             const float* sB, int r0, int g,
+                                             int t) {
+  constexpr int P = pitch_f32<W>();
+#pragma unroll 1
+  for (int k0 = 0; k0 < W; k0 += kPartialDepth) {
+    float ps[32];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = sA[(ty * 4 + i) * kPad + d];
-      cv[i] = sC[(ty * 4 + i) * kPad + d];
-    }
+    for (int i = 0; i < 32; ++i) ps[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bv[j] = sB[(tx + 16 * j) * kPad + d];
-      dv[j] = sD[(tx + 16 * j) * kPad + d];
-    }
+    for (int k = k0; k < k0 + kPartialDepth; k += 8) {
+      uint32_t ab[4], as[4];
+      frag_a<P>(sA, r0, k, g, t, ab, as);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-        t[i][j] = fmaf(cv[i], dv[j], t[i][j]);
+      for (int nb = 0; nb < 8; ++nb) {
+        uint32_t bb[2], bs[2];
+        frag_b_nk<P>(sB, 8 * nb, k, g, t, bb, bs);
+        mma3(&ps[4 * nb], ab, as, bb, bs);
       }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] += ps[i];
   }
 }
 
-// The dq kernel for the DC-wide output chunk a CTA owns (DC = D up to
-// d = 128: Q and dO stay in shared memory; above that every tile streams in
-// DC-wide chunks and K's own chunk is loaded again for dQ += dS·K).
-template <int D, int DC>
-__global__ void __launch_bounds__(256) flash_bwd_dq_f32_kernel(BwdParams p) {
-  constexpr int kPad = DC + 1, kPitchS = kTile + 1, kChunks = D / DC;
-  extern __shared__ __align__(16) float smem_f32[];
-  float* sQ = smem_f32;             // [64][DC+1]
-  float* sG = sQ + kTile * kPad;    // [64][DC+1]  dO
-  float* sK = sG + kTile * kPad;    // [64][DC+1]
-  float* sV = sK + kTile * kPad;    // [64][DC+1]
-  float* sDS = sV + kTile * kPad;   // [64][65]
-  float* sL = sDS + kTile * kPitchS;
-  float* sDelta = sL + kTile;
-  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sDelta + kTile);
+// o += A·B for the warp's 16 rows: A the 16x64 accumulator `a` (depth = its
+// 64 columns), B a 64-row tile of W columns; 64 output columns at a time,
+// each into a partial sum first.
+template <int W>
+__device__ __forceinline__ void acc_product_tf32(float (&o)[W / 2],
+                                                 const float (&a)[32],
+                                                 const float* sB, int g,
+                                                 int t) {
+  constexpr int P = pitch_f32<W>();
+#pragma unroll
+  for (int n0 = 0; n0 < W / 8; n0 += 8) {
+    float po[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) po[i] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb) {
+      uint32_t ab[4], as[4];
+      frag_a_acc(a, kb, ab, as);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        uint32_t bb[2], bs[2];
+        frag_b_kn<P>(sB, kb, 8 * (n0 + nb), g, t, bb, bs);
+        mma3(&po[4 * nb], ab, as, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[4 * n0 + i] += po[i];
+  }
+}
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+// Stores a warp's 16 x W f32 accumulator (times `scale`) as rows row0 and
+// row0 + 8 of a [T, D] matrix, skipping rows past `limit`.
+template <int W>
+__device__ __forceinline__ void store_rows_f32(float* dst, long long st,
+                                               const float (&acc)[W / 2],
+                                               int row0, int limit, int t,
+                                               float scale) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= limit) continue;
+#pragma unroll
+    for (int nb = 0; nb < W / 8; ++nb)
+      *reinterpret_cast<float2*>(dst + row * st + 8 * nb + 2 * t) =
+          make_float2(acc[4 * nb + 2 * hh] * scale,
+                      acc[4 * nb + 2 * hh + 1] * scale);
+  }
+}
+
+// Shared memory of the f32 kernels, in floats. Up to d = 128 (one chunk)
+// the CTA's own tiles stay (Q and dO for dq; K and V for dk/dv) and a stage
+// of the two-stage ring holds the two streamed tiles (K, V; or Q, dO with
+// their 64 lse and 64 delta values). Above that every step streams all
+// four tiles of one 64-wide head-dim chunk.
+template <int D, int DC>
+struct F32Layout {
+  static constexpr int kChunks = D / DC;
+  static constexpr int kTileF = kTile * pitch_f32<DC>();
+  static constexpr int kResident = kChunks == 1 ? 2 * kTileF : 0;
+  static constexpr int kStage = (kChunks == 1 ? 2 : 4) * kTileF;
+  static constexpr size_t dq_bytes() {
+    return sizeof(float) * (kResident + 2 * kStage);
+  }
+  static constexpr size_t dkv_bytes() {
+    return sizeof(float) * (kResident + 2 * (kStage + 2 * kTile));
+  }
+};
+
+// The head-dim chunk step j of a CTA that owns chunk oc reads: the chunks of
+// a tile are taken from oc + 1 on, so the last one (whose tiles the output
+// product reads) is oc.
+template <int kChunks>
+__device__ __forceinline__ int chunk_at(int j, int oc) {
+  return (oc + 1 + j % kChunks) % kChunks;
+}
+
+// A dq CTA: one per (DC-wide output chunk, 64-row q tile, b·h), numbered
+// `cta` (the chunk fastest), walks the key tiles (through the causal
+// diagonal) over a two-stage cp.async ring, one step (tile, head-dim
+// chunk) ahead of the math.
+template <int D, int DC>
+__device__ __forceinline__ void dq_f32_cta(const BwdParams& p, int cta) {
+  using L = F32Layout<D, DC>;
+  constexpr int kChunks = L::kChunks, kTileF = L::kTileF;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* stages = smem_f32 + L::kResident;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int n_q = (p.Tq + kTile - 1) / kTile;  // grid: (chunk, tile, b·h)
-  const int oc = blockIdx.x % kChunks, cell = blockIdx.x / kChunks;
+  const int oc = cta % kChunks, cell = cta / kChunks;
   const int bh = cell / n_q, b = bh / p.H, h = bh % p.H;
   const int q0 = (cell % n_q) * kTile;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh +
+                   q0 * p.q_st;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* g = static_cast<const float*>(p.dout) + b * p.g_sb + h * p.g_sh;
+  const float* gg = static_cast<const float*>(p.dout) + b * p.g_sb +
+                    h * p.g_sh + q0 * p.g_st;
   const float* bias = p.bias == nullptr ? nullptr
       : static_cast<const float*>(p.bias) + b * p.b_sb + h * p.b_sh;
-
-  if (kChunks == 1) {
-    load_tile_f32<DC>(sQ, q + q0 * p.q_st, p.q_st, p.Tq - q0, tid);
-    load_tile_f32<DC>(sG, g + q0 * p.g_st, p.g_st, p.Tq - q0, tid);
-  }
-  if (tid < kTile) {
-    const bool ok = q0 + tid < p.Tq;
-    sL[tid] = ok ? p.lse[(long long)bh * p.Tq + q0 + tid] : 0.f;
-    sDelta[tid] = ok ? p.delta[(long long)bh * p.Tq + q0 + tid] : 0.f;
-  }
+  const int n_tiles = num_k_tiles(p.Tq, p.Tk, p.causal, q0);
+  const int n_steps = n_tiles * kChunks;
   float* dbias = oc == 0 ? p.dbias : nullptr;  // written by one chunk
 
-  float acc[4][DC / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DC / 16; ++j) acc[i][j] = 0.f;
-
-  const int n_tiles = num_k_tiles(p.Tq, p.Tk, p.causal, q0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int c = 0; c < kChunks; ++c) {
-      __syncthreads();  // the previous products and dQ step are done
-      if (kChunks > 1) {
-        load_tile_f32<DC>(sQ, q + q0 * p.q_st + c * DC, p.q_st, p.Tq - q0,
-                          tid);
-        load_tile_f32<DC>(sG, g + q0 * p.g_st + c * DC, p.g_st, p.Tq - q0,
-                          tid);
-      }
-      load_tile_f32<DC>(sK, k + k0 * p.k_st + c * DC, p.k_st, p.Tk - k0,
-                        tid);
-      load_tile_f32<DC>(sV, v + k0 * p.v_st + c * DC, p.v_st, p.Tk - k0,
-                        tid);
-      if (c == 0 && p.drop.on)
-        flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
-      __syncthreads();
-      two_products_f32<DC>(sQ, sK, sG, sV, ty, tx, s, dp);
+  // step j: key tile j / kChunks, head-dim chunk chunk_at(j)
+  auto load_step = [&](int j) {
+    float* st = stages + (j & 1) * L::kStage;
+    const int k0 = j / kChunks * kTile, c = chunk_at<kChunks>(j, oc) * DC;
+    if (kChunks > 1) {
+      copy_tile<DC>(st + 2 * kTileF, q + c, p.q_st, p.Tq - q0, tid);
+      copy_tile<DC>(st + 3 * kTileF, gg + c, p.g_st, p.Tq - q0, tid);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row_l = ty * 4 + i, col_l = tx + 16 * j;
-        const int row = q0 + row_l, col = k0 + col_l;
-        const float pr = prob(p, s[i][j], bias, row, col, sL[row_l]);
-        float dpv = dp[i][j];
-        if (p.drop.on)
-          dpv = sKeep[row_l * flash::kKeepPitch + col_l] ? dpv * p.drop.scale
-                                                         : 0.f;
-        const float ds = pr * (dpv - sDelta[row_l]);
-        sDS[row_l * kPitchS + col_l] = ds;
-        if (dbias != nullptr && row < p.Tq && col < p.Tk)
-          dbias[((long long)bh * p.Tq + row) * p.Tk + col] = ds;
-      }
-    if (kChunks > 1 && oc != kChunks - 1) {
-      __syncthreads();  // every thread is done with the last chunk's sK
-      load_tile_f32<DC>(sK, k + k0 * p.k_st + oc * DC, p.k_st, p.Tk - k0,
-                        tid);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[4], kv[DC / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sDS[(ty * 4 + i) * kPitchS + kk];
-#pragma unroll
-      for (int j = 0; j < DC / 16; ++j) kv[j] = sK[kk * kPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC / 16; ++j)
-          acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
+    copy_tile<DC>(st, k + k0 * p.k_st + c, p.k_st, p.Tk - k0, tid);
+    copy_tile<DC>(st + kTileF, v + k0 * p.v_st + c, p.v_st, p.Tk - k0, tid);
+  };
+  if (kChunks == 1) {
+    copy_tile<DC>(smem_f32, q, p.q_st, p.Tq - q0, tid);
+    copy_tile<DC>(smem_f32 + kTileF, gg, p.g_st, p.Tq - q0, tid);
   }
-  zero_skipped_dbias(dbias, p.Tq, p.Tk, bh, q0, n_tiles, tid, 256);
+  load_step(0);
+  cp_async_commit();
+  if (n_steps > 1) load_step(1);
+  cp_async_commit();
 
-  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + oc * DC;
+  uint32_t key0, key1;
+  seed_keys(p.drop, &key0, &key1);
+  const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  float lse[2], delta[2];
+  long long brow[2];  // bias offsets of the two rows (clamped into Tq)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= p.Tq) continue;
-#pragma unroll
-    for (int j = 0; j < DC / 16; ++j)
-      dq[row * p.dq_st + tx + 16 * j] = acc[i][j] * p.sm_scale;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r0 + 8 * hh;
+    const bool ok = row < p.Tq;
+    lse[hh] = ok ? p.lse[(long long)bh * p.lse_pitch + row] : 0.f;
+    delta[hh] = ok ? p.delta[(long long)bh * p.delta_pitch + row] : 0.f;
+    brow[hh] = (ok ? row : p.Tq - 1) * p.b_sq;
   }
+  float dq[DC / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) dq[i] = 0.f;
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int kt = j / kChunks, k0 = kt * kTile;
+    const bool first = j % kChunks == 0, last = j % kChunks == kChunks - 1;
+    const float* st = stages + (j & 1) * L::kStage;
+    const float* sK = st;
+    const float* sV = st + kTileF;
+    const float* sQ = kChunks == 1 ? smem_f32 : st + 2 * kTileF;
+    const float* sG = sQ + kTileF;
+    cp_async_wait<1>();
+    __syncthreads();  // step j's tiles have landed, from every thread
+
+    if (first) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    }
+    // S = Q·Kᵀ and dP = dO·Vᵀ over this chunk of the head dim
+    product_tf32<DC>(s, sQ, sK, warp * 16, g, t);
+    product_tf32<DC>(dp, sG, sV, warp * 16, g, t);
+
+    if (last) {
+      // ds = p·(dp − delta), in place of s (selects, no branch)
+      const uint32_t keep =
+          p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold,
+                                            bh, q0 + r0, k0, t)
+                    : ~0u;
+      const int k_left = p.Tk - k0;  // keys of this tile inside Tk
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * t + (i & 1);
+        const int row = q0 + r0 + 8 * hh;
+        float x = s[i] * p.sm_scale;
+        x = bias != nullptr
+                ? x + __ldg(bias + brow[hh] + min(k0 + c, p.Tk - 1) * p.b_sk)
+                : x;
+        x = p.causal && k0 + c > row ? kNegInf : x;
+        float pr = hopper::ex2((x - lse[hh]) * hopper::kLog2e);
+        pr = row < p.Tq && c < k_left ? pr : 0.f;
+        const float dpv = (keep >> i) & 1u ? dp[i] * drop_scale : 0.f;
+        s[i] = pr * (dpv - delta[hh]);
+      }
+      if (dbias != nullptr) {  // the per-query dbias is ds itself
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int row = q0 + r0 + 8 * ((i >> 1) & 1);
+          const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+          if (row < p.Tq && col < p.Tk)
+            dbias[((long long)bh * p.Tq + row) * p.Tk + col] = s[i];
+        }
+      }
+      // dQ += dS·K over this CTA's chunk (the step's K is chunk oc)
+      acc_product_tf32<DC>(dq, s, sK, g, t);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (j + 2 < n_steps) load_step(j + 2);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  zero_skipped_dbias(dbias, p.Tq, p.Tk, bh, q0, n_tiles, tid, 128);
+  store_rows_f32<DC>(static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh +
+                         oc * DC,
+                     p.dq_st, dq, q0 + r0, p.Tq, t, p.sm_scale);
 }
 
-// The dk/dv kernel for the DC-wide output chunk a CTA owns; streamed as the
-// dq kernel.
+// A dk/dv CTA: one per (DC-wide output chunk, 64-key tile, b·h), numbered
+// `cta`, walks the q tiles (from the diagonal on when causal) over the
+// same ring; a stage also brings the q tile's lse and delta.
 template <int D, int DC>
-__global__ void __launch_bounds__(256) flash_bwd_dkv_f32_kernel(BwdParams p) {
-  constexpr int kPad = DC + 1, kPitchS = kTile + 1, kChunks = D / DC;
+__device__ __forceinline__ void dkv_f32_cta(const BwdParams& p, int cta) {
+  using L = F32Layout<D, DC>;
+  constexpr int kChunks = L::kChunks, kTileF = L::kTileF;
+  constexpr int kStage = L::kStage + 2 * kTile;
   extern __shared__ __align__(16) float smem_f32[];
-  float* sK = smem_f32;             // [64][DC+1]
-  float* sV = sK + kTile * kPad;    // [64][DC+1]
-  float* sQ = sV + kTile * kPad;    // [64][DC+1]
-  float* sG = sQ + kTile * kPad;    // [64][DC+1]  dO
-  float* sP = sG + kTile * kPad;    // [64 q][65]  p_drop
-  float* sDS = sP + kTile * kPitchS;  // [64 q][65]
-  float* sL = sDS + kTile * kPitchS;
-  float* sDelta = sL + kTile;
-  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sDelta + kTile);
+  float* stages = smem_f32 + L::kResident;
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int n_k = (p.Tk + kTile - 1) / kTile;  // grid: (chunk, tile, b·h)
-  const int oc = blockIdx.x % kChunks, cell = blockIdx.x / kChunks;
+  const int oc = cta % kChunks, cell = cta / kChunks;
   const int bh = cell / n_k, b = bh / p.H, h = bh % p.H;
   const int k0 = (cell % n_k) * kTile;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* g = static_cast<const float*>(p.dout) + b * p.g_sb + h * p.g_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh +
+                   k0 * p.k_st;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh +
+                   k0 * p.v_st;
+  const float* gg = static_cast<const float*>(p.dout) + b * p.g_sb +
+                    h * p.g_sh;
   const float* bias = p.bias == nullptr ? nullptr
       : static_cast<const float*>(p.bias) + b * p.b_sb + h * p.b_sh;
-
-  if (kChunks == 1) {
-    load_tile_f32<DC>(sK, k + k0 * p.k_st, p.k_st, p.Tk - k0, tid);
-    load_tile_f32<DC>(sV, v + k0 * p.v_st, p.v_st, p.Tk - k0, tid);
-  }
-
-  float dk[4][DC / 16], dv[4][DC / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DC / 16; ++j) dk[i][j] = dv[i][j] = 0.f;
-  float dbc = 0.f;  // column sum of ds for key k0 + tid (tid < 64)
-
   const int nq = (p.Tq + kTile - 1) / kTile;
-  for (int iq = p.causal ? k0 / kTile : 0; iq < nq; ++iq) {
-    const int q0 = iq * kTile;
-    // rows = queries ty*4+i, columns = keys tx+16j
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int c = 0; c < kChunks; ++c) {
-      __syncthreads();  // the previous products and updates are done
-      if (kChunks > 1) {
-        load_tile_f32<DC>(sK, k + k0 * p.k_st + c * DC, p.k_st, p.Tk - k0,
-                          tid);
-        load_tile_f32<DC>(sV, v + k0 * p.v_st + c * DC, p.v_st, p.Tk - k0,
-                          tid);
-      }
-      load_tile_f32<DC>(sQ, q + q0 * p.q_st + c * DC, p.q_st, p.Tq - q0,
-                        tid);
-      load_tile_f32<DC>(sG, g + q0 * p.g_st + c * DC, p.g_st, p.Tq - q0,
-                        tid);
-      if (c == 0) {
-        if (tid < kTile) {
-          const bool ok = q0 + tid < p.Tq;
-          sL[tid] = ok ? p.lse[(long long)bh * p.Tq + q0 + tid] : 0.f;
-          sDelta[tid] = ok ? p.delta[(long long)bh * p.Tq + q0 + tid] : 0.f;
-        }
-        if (p.drop.on)
-          flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
-      }
-      __syncthreads();
-      two_products_f32<DC>(sQ, sK, sG, sV, ty, tx, s, dp);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row_l = ty * 4 + i, col_l = tx + 16 * j;
-        const float pr = prob(p, s[i][j], bias, q0 + row_l, k0 + col_l,
-                              sL[row_l]);
-        float pd = pr, dpv = dp[i][j];
-        if (p.drop.on) {
-          const bool keep = sKeep[row_l * flash::kKeepPitch + col_l];
-          pd = keep ? pr * p.drop.scale : 0.f;
-          dpv = keep ? dpv * p.drop.scale : 0.f;
-        }
-        sP[row_l * kPitchS + col_l] = pd;
-        sDS[row_l * kPitchS + col_l] = pr * (dpv - sDelta[row_l]);
-      }
-    if (kChunks > 1 && oc != kChunks - 1) {
-      __syncthreads();  // every thread is done with the last chunk's sQ/sG
-      load_tile_f32<DC>(sQ, q + q0 * p.q_st + oc * DC, p.q_st, p.Tq - q0,
-                        tid);
-      load_tile_f32<DC>(sG, g + q0 * p.g_st + oc * DC, p.g_st, p.Tq - q0,
-                        tid);
-    }
-    __syncthreads();
+  const int iq0 = p.causal ? k0 / kTile : 0;
+  const int n_steps = (nq - iq0) * kChunks;  // <= 0: no query sees these keys
 
-    if (p.dbias_col != nullptr && tid < kTile)
-      for (int r = 0; r < kTile; ++r) dbc += sDS[r * kPitchS + tid];
-    // dv += p_dropᵀ·dO and dk += dsᵀ·q: rows = keys ty*4+i, cols = d
-#pragma unroll 2
-    for (int qq = 0; qq < kTile; ++qq) {
-      float pv[4], dsv[4], gv[DC / 16], qv[DC / 16];
+  // step j: q tile iq0 + j / kChunks, head-dim chunk chunk_at(j)
+  auto load_step = [&](int j) {
+    float* st = stages + (j & 1) * kStage;
+    const int q0 = (iq0 + j / kChunks) * kTile;
+    const int c = chunk_at<kChunks>(j, oc) * DC;
+    if (kChunks > 1) {
+      copy_tile<DC>(st + 2 * kTileF, k + c, p.k_st, p.Tk - k0, tid);
+      copy_tile<DC>(st + 3 * kTileF, v + c, p.v_st, p.Tk - k0, tid);
+    }
+    copy_tile<DC>(st, q + q0 * p.q_st + c, p.q_st, p.Tq - q0, tid);
+    copy_tile<DC>(st + kTileF, gg + q0 * p.g_st + c, p.g_st, p.Tq - q0, tid);
+    float* rows = st + L::kStage;  // lse, then delta
+    const int i = tid % kTile, row = q0 + i, ok = row < p.Tq;
+    const float* src = tid < kTile
+        ? p.lse + (long long)bh * p.lse_pitch
+        : p.delta + (long long)bh * p.delta_pitch;
+    cp_async4(rows + tid, src + (ok ? row : 0), ok);
+  };
+  if (kChunks == 1) {
+    copy_tile<DC>(smem_f32, k, p.k_st, p.Tk - k0, tid);
+    copy_tile<DC>(smem_f32 + kTileF, v, p.v_st, p.Tk - k0, tid);
+  }
+  if (n_steps > 0) load_step(0);
+  cp_async_commit();
+  if (n_steps > 1) load_step(1);
+  cp_async_commit();
+
+  uint32_t key0, key1;
+  seed_keys(p.drop, &key0, &key1);
+  const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
+  const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8
+  long long bkey[2];  // bias offsets of the two keys (clamped into Tk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sP[qq * kPitchS + ty * 4 + i];
-        dsv[i] = sDS[qq * kPitchS + ty * 4 + i];
+  for (int hh = 0; hh < 2; ++hh)
+    bkey[hh] = min(k0 + r0 + 8 * hh, p.Tk - 1) * p.b_sk;
+  float dk[DC / 2], dv[DC / 2], st_[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) dk[i] = dv[i] = 0.f;
+  float dbc[2] = {0.f, 0.f};  // column sums of ds for keys r0, r0 + 8
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int q0 = (iq0 + j / kChunks) * kTile;
+    const bool first = j % kChunks == 0, last = j % kChunks == kChunks - 1;
+    const float* st = stages + (j & 1) * kStage;
+    const float* sQ = st;
+    const float* sG = st + kTileF;
+    const float* sK = kChunks == 1 ? smem_f32 : st + 2 * kTileF;
+    const float* sV = sK + kTileF;
+    const float* sL = st + L::kStage;
+    const float* sD = sL + kTile;
+    cp_async_wait<1>();
+    __syncthreads();  // step j's tiles have landed, from every thread
+
+    if (first) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st_[i] = dpt[i] = 0.f;
+    }
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (row = key, column = query)
+    product_tf32<DC>(st_, sK, sQ, warp * 16, g, t);
+    product_tf32<DC>(dpt, sV, sG, warp * 16, g, t);
+
+    if (last) {
+      // p_drop in place of sᵀ, ds in place of dpᵀ (selects, no branch)
+      const uint32_t keep =
+          p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop.threshold,
+                                            bh, k0 + r0, q0, lane)
+                    : ~0u;
+      const int q_left = p.Tq - q0;  // queries of this tile inside Tq
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * t + (i & 1);
+        const int key = k0 + r0 + 8 * hh;
+        float x = st_[i] * p.sm_scale;
+        x = bias != nullptr
+                ? x + __ldg(bias + min(q0 + c, p.Tq - 1) * p.b_sq + bkey[hh])
+                : x;
+        x = p.causal && key > q0 + c ? kNegInf : x;
+        float pr = hopper::ex2((x - sL[c]) * hopper::kLog2e);
+        pr = c < q_left && key < p.Tk ? pr : 0.f;
+        const bool kept = (keep >> i) & 1u;
+        const float ds = pr * ((kept ? dpt[i] * drop_scale : 0.f) - sD[c]);
+        st_[i] = kept ? pr * drop_scale : 0.f;
+        dpt[i] = ds;
+        dbc[hh] += ds;
       }
+      // dV += P_dropᵀ·dO and dK += dSᵀ·Q over this CTA's chunk (the
+      // step's Q and dO are chunk oc)
+      acc_product_tf32<DC>(dv, st_, sG, g, t);
+      acc_product_tf32<DC>(dk, dpt, sQ, g, t);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (j + 2 < n_steps) load_step(j + 2);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  if (p.dbias_col != nullptr && oc == 0) {
 #pragma unroll
-      for (int j = 0; j < DC / 16; ++j) {
-        gv[j] = sG[qq * kPad + tx + 16 * j];
-        qv[j] = sQ[qq * kPad + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC / 16; ++j) {
-          dv[i][j] = fmaf(pv[i], gv[j], dv[i][j]);
-          dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
-        }
+    for (int hh = 0; hh < 2; ++hh) {
+      dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 1);
+      dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 2);
+      const int key = k0 + r0 + 8 * hh;
+      if (t == 0 && key < p.Tk)
+        p.dbias_col[(long long)bh * p.Tk + key] = dbc[hh];
     }
   }
+  store_rows_f32<DC>(static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh +
+                         oc * DC,
+                     p.dk_st, dk, k0 + r0, p.Tk, t, p.sm_scale);
+  store_rows_f32<DC>(static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh +
+                         oc * DC,
+                     p.dv_st, dv, k0 + r0, p.Tk, t, 1.f);
+}
 
-  if (p.dbias_col != nullptr && oc == 0 && tid < kTile && k0 + tid < p.Tk)
-    p.dbias_col[(long long)bh * p.Tk + k0 + tid] = dbc;
-  float* dkp = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh + oc * DC;
-  float* dvp = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + oc * DC;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= p.Tk) continue;
-#pragma unroll
-    for (int j = 0; j < DC / 16; ++j) {
-      dkp[key * p.dk_st + tx + 16 * j] = dk[i][j] * p.sm_scale;
-      dvp[key * p.dv_st + tx + 16 * j] = dv[i][j];
-    }
-  }
+// The f32 backward: the dk/dv CTAs (the longer walks) first, then the dq
+// CTAs, in one launch, so the two kinds share the card (at T = 128 either
+// alone has too few CTAs to fill it).
+template <int D, int DC>
+__global__ void __launch_bounds__(128) flash_bwd_f32_kernel(BwdParams p) {
+  if ((int)blockIdx.x < p.n_dkv)
+    dkv_f32_cta<D, DC>(p, blockIdx.x);
+  else
+    dq_f32_cta<D, DC>(p, blockIdx.x - p.n_dkv);
 }
 
 // ---------------------------------------------------------------------------
 // bf16: delta, then wgmma on TMA-loaded tiles.
 // ---------------------------------------------------------------------------
 
-// Lanes of the delta kernel a row: a power of two, D/8 up to d = 128, then
-// 8 (d = 192) or 16 (d = 256).
-template <int D>
+// Lanes of the delta kernel a row: the largest power of two up to 16 that
+// divides the row's 16-byte vectors (bf16: 8, 16, 8, 16 at d = 64 to 256;
+// f32: 16).
+template <typename T, int D>
 __host__ __device__ constexpr int delta_lanes() {
-  return D <= 128 ? D / 8 : D % 128 == 0 ? 16 : 8;
+  return (D * (int)sizeof(T) / 16) % 16 == 0 ? 16 : 8;
 }
 
-// delta[bh, i] = Σ_d dO·out from the bf16 tensors: kLanes lanes a row, kVec
-// 16-byte vectors of each tensor a lane, 8·kLanes values apart, summed in
-// f32.
-template <int D>
-__global__ void __launch_bounds__(256) flash_bwd_delta_bf16_kernel(
-    const __nv_bfloat16* out, const __nv_bfloat16* g, float* delta, int H,
-    int T, int pitch, long long rows, long long o_sb, long long o_sh,
-    long long o_st, long long g_sb, long long g_sh, long long g_st) {
-  constexpr int kLanes = delta_lanes<D>();
-  constexpr int kVec = D / 8 / kLanes;
+// acc + the dot product of two 16-byte vectors, in order, in f32.
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b,
+                                       float acc);
+template <>
+__device__ __forceinline__ float dot16<float>(const uint4& a, const uint4& b,
+                                              float acc) {
+  acc = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc);
+  acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
+  acc = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc);
+  return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc);
+}
+template <>
+__device__ __forceinline__ float dot16<__nv_bfloat16>(const uint4& a,
+                                                      const uint4& b,
+                                                      float acc) {
+  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(pa[j]), y = __bfloat1622float2(pb[j]);
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  return acc;
+}
+
+// delta[bh, i] = Σ_d dO·out from f32 or bf16 tensors: kLanes lanes a row,
+// kVec 16-byte vectors of each tensor a lane, kLanes vectors apart, summed
+// in f32.
+template <typename T, int D>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
+    const T* out, const T* g, float* delta, int H, int T_, int pitch,
+    long long rows, long long o_sb, long long o_sh, long long o_st,
+    long long g_sb, long long g_sh, long long g_st) {
+  constexpr int kPer = 16 / sizeof(T);  // values a vector
+  constexpr int kLanes = delta_lanes<T, D>();
+  constexpr int kVec = D / kPer / kLanes;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = idx / kLanes;
-  const int c = static_cast<int>(idx % kLanes) * 8;
+  const int c = static_cast<int>(idx % kLanes) * kPer;
   float acc = 0.f;
   long long bh = 0;
   int i = 0;
   if (row < rows) {
-    bh = row / T;
-    i = static_cast<int>(row % T);
+    bh = row / T_;
+    i = static_cast<int>(row % T_);
     const long long b = bh / H, h = bh % H;
 #pragma unroll
     for (int u = 0; u < kVec; ++u) {
-      const int cu = c + u * 8 * kLanes;
-      const uint4 xo = *reinterpret_cast<const uint4*>(
-          out + b * o_sb + h * o_sh + i * o_st + cu);
-      const uint4 xg = *reinterpret_cast<const uint4*>(
-          g + b * g_sb + h * g_sh + i * g_st + cu);
-      const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(&xo);
-      const __nv_bfloat162* pg = reinterpret_cast<const __nv_bfloat162*>(&xg);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 a = __bfloat1622float2(po[j]),
-                     e = __bfloat1622float2(pg[j]);
-        acc = fmaf(a.x, e.x, acc);
-        acc = fmaf(a.y, e.y, acc);
-      }
+      const int cu = c + u * kPer * kLanes;
+      acc = dot16<T>(*reinterpret_cast<const uint4*>(
+                         out + b * o_sb + h * o_sh + i * o_st + cu),
+                     *reinterpret_cast<const uint4*>(
+                         g + b * g_sb + h * g_sh + i * g_st + cu),
+                     acc);
     }
   }
 #pragma unroll
@@ -530,16 +797,6 @@ struct Bf16BwdParams {
   int causal;
   flash::Dropout drop;
 };
-
-__device__ __forceinline__ void seed_keys(const flash::Dropout& d,
-                                          uint32_t* key0, uint32_t* key1) {
-  *key0 = *key1 = 0;
-  if (d.on) {
-    const unsigned long long s = static_cast<unsigned long long>(*d.seed);
-    *key0 = static_cast<uint32_t>(s);
-    *key1 = static_cast<uint32_t>(s >> 32);
-  }
-}
 
 // The bias of score (q row, key col) of a 64x64 block from its swizzled
 // shared-memory tile ([q][key] bf16).
@@ -954,19 +1211,6 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
-constexpr size_t kKeepBytes = kTile * flash::kKeepPitch;
-
-template <int DC>
-size_t smem_dq_f32() {
-  return sizeof(float) * (4 * kTile * (DC + 1) + kTile * (kTile + 1) +
-                          2 * kTile) + kKeepBytes;
-}
-template <int DC>
-size_t smem_dkv_f32() {
-  return sizeof(float) * (4 * kTile * (DC + 1) + 2 * kTile * (kTile + 1) +
-                          2 * kTile) + kKeepBytes;
-}
-
 // Opts a kernel into `max_smem` of dynamic shared memory once per device,
 // then launches it with `smem` on `stream` over `blocks` CTAs (tiles x B·H,
 // flattened).
@@ -988,7 +1232,7 @@ cudaError_t launch(Kernel kernel, unsigned* configured, const Params& p,
   return cudaGetLastError();
 }
 
-// two flag words per (dtype, head dim): index 2·(D/64 - 1), bf16 from 8
+// flag words per (dtype, head dim): f32 at D/64 - 1, bf16 at 8 + 2·(D/64 - 1)
 unsigned configured[16] = {};
 
 // The CTAs of the dq and dk/dv grids: (chunk, tile, B·H) flattened.
@@ -1002,15 +1246,15 @@ void grids(const Params& p, unsigned* nq, unsigned* nk) {
 template <int D>
 cudaError_t launch_f32(const BwdParams& p, cudaStream_t s) {
   constexpr int DC = hopper::chunk_of<D>();
+  using L = F32Layout<D, DC>;
+  constexpr size_t kSmem = L::dkv_bytes() > L::dq_bytes() ? L::dkv_bytes()
+                                                          : L::dq_bytes();
   unsigned nq, nk;
   grids<D>(p, &nq, &nk);
-  const int slot = 2 * (D / 64 - 1);
-  cudaError_t err = launch(flash_bwd_dq_f32_kernel<D, DC>, &configured[slot],
-                           p, nq, 256, smem_dq_f32<DC>(), smem_dq_f32<DC>(),
-                           s);
-  if (err != cudaSuccess) return err;
-  return launch(flash_bwd_dkv_f32_kernel<D, DC>, &configured[slot + 1], p,
-                nk, 256, smem_dkv_f32<DC>(), smem_dkv_f32<DC>(), s);
+  BwdParams q = p;
+  q.n_dkv = (int)nk;
+  return launch(flash_bwd_f32_kernel<D, DC>, &configured[D / 64 - 1], q,
+                nk + nq, 128, kSmem, kSmem, s);
 }
 
 template <int D>
@@ -1032,33 +1276,46 @@ bool head_dim_ok(int D) {
   return D == 64 || D == 128 || D == 192 || D == 256;
 }
 
-template <int D>
-void launch_delta(const __nv_bfloat16* out, const __nv_bfloat16* g,
-                  float* delta, int H, int T, int pitch, long long rows,
-                  long long o_sb, long long o_sh, long long o_st,
-                  long long g_sb, long long g_sh, long long g_st,
-                  cudaStream_t s) {
-  const unsigned blocks =
-      (unsigned)((rows * delta_lanes<D>() + 255) / 256);
-  flash_bwd_delta_bf16_kernel<D><<<blocks, 256, 0, s>>>(
-      out, g, delta, H, T, pitch, rows, o_sb, o_sh, o_st, g_sb, g_sh, g_st);
+template <typename T>
+cudaError_t launch_delta(const void* out, const void* g, float* delta, int H,
+                         int Tq, int D, int pitch, long long rows,
+                         const long long (&st)[6], cudaStream_t s) {
+  const T* o = static_cast<const T*>(out);
+  const T* gg = static_cast<const T*>(g);
+#define DELTA(DD)                                                            \
+  flash_bwd_delta_kernel<T, DD>                                              \
+      <<<(unsigned)((rows * delta_lanes<T, DD>() + 255) / 256), 256, 0,     \
+         s>>>(o, gg, delta, H, Tq, pitch, rows, st[0], st[1], st[2], st[3], \
+              st[4], st[5])
+  switch (D) {
+    case 64: DELTA(64); break;
+    case 128: DELTA(128); break;
+    case 192: DELTA(192); break;
+    case 256: DELTA(256); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef DELTA
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// float32. Strides are in elements; the head dim is contiguous. lse and
-// delta are [B*H, Tq] f32. dbias (per query, [B*H, Tq, Tk] f32) and
-// dbias_col ([B*H, Tk] f32) may be null. With dropout != 0, `seed` points at
-// one int64 on the device and a score is dropped iff its Philox word <
-// `threshold`; kept p is scaled by `drop_scale`. Launches the dq kernel,
-// then the dk/dv kernel, on `stream`. Returns a cudaError_t (0 = launched).
+// float32. Strides are in elements; the head dim is contiguous, rows and
+// bases 16-byte aligned. lse and delta are [B*H, Tq] f32, their rows
+// lse_pitch / delta_pitch floats apart. dbias (per query, [B*H, Tq, Tk]
+// f32) and dbias_col ([B*H, Tk] f32) may be null. With dropout != 0, `seed`
+// points at one int64 on the device and a score is dropped iff its Philox
+// word < `threshold`; kept p is scaled by `drop_scale`. Launches the dk/dv
+// and dq CTAs (one kernel) on `stream`. Returns a cudaError_t (0 =
+// launched).
 int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const void* bias, void* dq,
     void* dk, void* dv, float* dbias, float* dbias_col, int B, int H, int Tq,
-    int Tk, int D, long long q_sb, long long q_sh, long long q_st,
+    int Tk, int D, int lse_pitch, int delta_pitch, long long q_sb,
+    long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long g_sb, long long g_sh,
     long long g_st, long long dq_sb, long long dq_sh, long long dq_st,
@@ -1069,6 +1326,7 @@ int flash_attention_bwd_f32(
     void* stream) {
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
+  p.lse_pitch = lse_pitch; p.delta_pitch = delta_pitch;
   p.bias = bias; p.dq = dq; p.dk = dk; p.dv = dv;
   p.dbias = dbias; p.dbias_col = dbias_col;
   p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk;
@@ -1096,39 +1354,22 @@ int flash_attention_bwd_f32(
   }
 }
 
-// bfloat16 delta[bh, i] = Σ_d dO·out into rows `pitch` floats apart.
-// Strides are in elements; 16-byte aligned rows. Returns a cudaError_t.
-int flash_attention_bwd_delta_bf16(const void* out, const void* g,
-                                   float* delta, int B, int H, int T, int D,
-                                   int pitch, long long o_sb, long long o_sh,
-                                   long long o_st, long long g_sb,
-                                   long long g_sh, long long g_st,
-                                   void* stream) {
+// delta[bh, i] = Σ_d dO·out into rows `pitch` floats apart, from float32
+// (dtype 0) or bfloat16 (dtype 1) out and dO. Strides are in elements;
+// 16-byte aligned rows. Returns a cudaError_t.
+int flash_attention_bwd_delta(const void* out, const void* g, float* delta,
+                              int dtype, int B, int H, int T, int D,
+                              int pitch, long long o_sb, long long o_sh,
+                              long long o_st, long long g_sb, long long g_sh,
+                              long long g_st, void* stream) {
   const long long rows = (long long)B * H * T;
-  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(out);
-  const __nv_bfloat16* gg = static_cast<const __nv_bfloat16*>(g);
+  const long long st[6] = {o_sb, o_sh, o_st, g_sb, g_sh, g_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      launch_delta<64>(o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st,
-                       g_sb, g_sh, g_st, s);
-      break;
-    case 128:
-      launch_delta<128>(o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st,
-                        g_sb, g_sh, g_st, s);
-      break;
-    case 192:
-      launch_delta<192>(o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st,
-                        g_sb, g_sh, g_st, s);
-      break;
-    case 256:
-      launch_delta<256>(o, gg, delta, H, T, pitch, rows, o_sb, o_sh, o_st,
-                        g_sb, g_sh, g_st, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return (int)(dtype == 0
+                   ? launch_delta<float>(out, g, delta, H, T, D, pitch, rows,
+                                         st, s)
+                   : launch_delta<__nv_bfloat16>(out, g, delta, H, T, D,
+                                                 pitch, rows, st, s));
 }
 
 // bfloat16. `tensors` holds the tensor descriptions (hopper::kDescLen int64

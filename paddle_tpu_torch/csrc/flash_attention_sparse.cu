@@ -26,8 +26,8 @@
 //   - the running max starts at -1e30 and a zero row sum divides by 1: a pad
 //     query gets out = 0, lse = -1e30, and zero gradients.
 // Backward math as the dense kernels (flash_attention_bwd.cu): delta = Σ dO·out
-// (computed before the launch: a plain reduction in f32, the dense bf16 delta
-// kernel in bf16), p = exp(s - lse) where visible, ds = p·(dp - delta),
+// (computed before the launch by the dense backward's delta kernel), p =
+// exp(s - lse) where visible, ds = p·(dp - delta),
 // dropout's keep bits regenerated from the forward's seed with the counter
 // (j / 4, i, bh, 0) of philox.cuh, so every kernel here, the dense ones and
 // dropout_keep_mask draw the same bit for every (bh, i, j) whatever is

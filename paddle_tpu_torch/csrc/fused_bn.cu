@@ -242,49 +242,83 @@ cudaError_t colsums(const void* x, const void* dy, const void* y,
 }
 
 // ---------------------------------------------------------------------------
-// K2 apply and K3 dx: elementwise over 16-byte vectors of one row.
+// K2 apply: a pass at memory rate. A thread owns one 16-byte channel vector
+// of a row for the whole CTA: it loads that vector's mean, isc and bias once
+// (float4s) into registers and walks the CTA's rows at a fixed stride,
+// kApplyUnroll rows' x (and residual) loads in flight before the math. The
+// wrapper sizes the grid (fused_bn.py apply_geometry): block (vectors,
+// rows a step), grid (row blocks, channel chunks), rows_per_cta each.
 // ---------------------------------------------------------------------------
-int grid_for(long long nvec) {
-  long long blocks = (nvec + kThreads - 1) / kThreads;
-  return (int)(blocks < 132 * 32 ? blocks : 132 * 32);  // grid-stride beyond
-}
+constexpr int kApplyUnroll = 4;  // Python: _APPLY_UNROLL
 
 template <typename T, bool RES, bool RELU>
 __global__ void __launch_bounds__(kThreads)
 apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
              T* __restrict__ y, const float* __restrict__ mean,
              const float* __restrict__ isc, const float* __restrict__ bias,
-             long long nvec, int C) {
+             long long M, int C, int rows_per_cta) {
   constexpr int N = Vec<T>::N;
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < nvec;
-       i += (long long)gridDim.x * kThreads) {
-    const long long off = i * N;
-    const int c0 = (int)(off % C);
-    Vec<T> a;
-    a.load(x + off);
-    Vec<T> r;
-    if (RES) r.load(res + off);
+  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * N;
+  if (c0 >= C) return;  // the last chunk's spare lanes
+  float mu[N], sc[N], bi[N];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      float v = (a.v[j] - __ldg(mean + c0 + j)) * __ldg(isc + c0 + j) +
-                __ldg(bias + c0 + j);
-      if (RES) v += r.v[j];
-      if (RELU) v = fmaxf(v, 0.f);
-      a.v[j] = v;
+  for (int j = 0; j < N; j += 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(mean + c0 + j));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(isc + c0 + j));
+    const float4 c = __ldg(reinterpret_cast<const float4*>(bias + c0 + j));
+    mu[j] = a.x; mu[j + 1] = a.y; mu[j + 2] = a.z; mu[j + 3] = a.w;
+    sc[j] = b.x; sc[j + 1] = b.y; sc[j + 2] = b.z; sc[j + 3] = b.w;
+    bi[j] = c.x; bi[j + 1] = c.y; bi[j + 2] = c.z; bi[j + 3] = c.w;
+  }
+  const long long r_end =
+      min(M, (long long)(blockIdx.x + 1) * rows_per_cta);
+  const int step = blockDim.y;
+  for (long long r = (long long)blockIdx.x * rows_per_cta + threadIdx.y;
+       r < r_end; r += kApplyUnroll * step) {
+    uint4 xr[kApplyUnroll], rr[kApplyUnroll];
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      const long long off = (r + u * step) * C + c0;
+      if (r + u * step < r_end) {
+        xr[u] = *reinterpret_cast<const uint4*>(x + off);
+        if (RES) rr[u] = *reinterpret_cast<const uint4*>(res + off);
+      }
     }
-    a.store(y + off);
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      if (r + u * step >= r_end) break;
+      const T* xe = reinterpret_cast<const T*>(&xr[u]);
+      const T* re = reinterpret_cast<const T*>(&rr[u]);
+      uint4 out;
+      T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        float v = (to_f(xe[j]) - mu[j]) * sc[j] + bi[j];
+        if (RES) v += to_f(re[j]);
+        if (RELU) v = fmaxf(v, 0.f);
+        oe[j] = from_f<T>(v);
+      }
+      *reinterpret_cast<uint4*>(y + (r + u * step) * C + c0) = out;
+    }
   }
 }
 
 template <typename T, bool RES, bool RELU>
 cudaError_t apply(const void* x, const void* res, void* y, const float* mean,
                   const float* isc, const float* bias, long long M, int C,
-                  cudaStream_t s) {
-  const long long nvec = M * C / Vec<T>::N;
-  apply_kernel<T, RES, RELU><<<grid_for(nvec), kThreads, 0, s>>>(
+                  dim3 grid, dim3 block, int rows_per_cta, cudaStream_t s) {
+  apply_kernel<T, RES, RELU><<<grid, block, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(res), static_cast<T*>(y),
-      mean, isc, bias, nvec, C);
+      mean, isc, bias, M, C, rows_per_cta);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K3 dx: elementwise over 16-byte vectors of one row, grid-stride.
+// ---------------------------------------------------------------------------
+int grid_for(long long nvec) {
+  long long blocks = (nvec + kThreads - 1) / kThreads;
+  return (int)(blocks < 132 * 32 ? blocks : 132 * 32);  // grid-stride beyond
 }
 
 template <typename T, bool RES, bool RELU>
@@ -679,17 +713,27 @@ int fused_bn_stats(const void* x, long long M, int C, int dtype, int nblocks,
                 mean, var, s);
 }
 
+// K2's launch geometry comes from the wrapper (apply_geometry): a grid of
+// (row blocks, channel chunks) CTAs of (vectors, rows a step) threads, each
+// CTA over rows_per_cta rows. mean, isc and bias are 16-byte aligned.
 int fused_bn_apply(const void* x, const void* res, void* y, const float* mean,
                    const float* isc, const float* bias, long long M, int C,
-                   int relu, int dtype, void* stream) {
+                   int relu, int dtype, int row_blocks, int chunks,
+                   int vectors, int rows_step, int rows_per_cta,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int variant = (res != nullptr) * 2 + (relu != 0);
-#define APPLY(T)                                                              \
-  switch (variant) {                                                          \
-    case 0: return apply<T, false, false>(x, res, y, mean, isc, bias, M, C, s); \
-    case 1: return apply<T, false, true>(x, res, y, mean, isc, bias, M, C, s);  \
-    case 2: return apply<T, true, false>(x, res, y, mean, isc, bias, M, C, s);  \
-    default: return apply<T, true, true>(x, res, y, mean, isc, bias, M, C, s);  \
+  const dim3 grid(row_blocks, chunks), block(vectors, rows_step);
+#define APPLY(T)                                                             \
+  switch (variant) {                                                         \
+    case 0: return apply<T, false, false>(x, res, y, mean, isc, bias, M, C,  \
+                                          grid, block, rows_per_cta, s);     \
+    case 1: return apply<T, false, true>(x, res, y, mean, isc, bias, M, C,   \
+                                         grid, block, rows_per_cta, s);      \
+    case 2: return apply<T, true, false>(x, res, y, mean, isc, bias, M, C,   \
+                                         grid, block, rows_per_cta, s);      \
+    default: return apply<T, true, true>(x, res, y, mean, isc, bias, M, C,   \
+                                         grid, block, rows_per_cta, s);      \
   }
   if (dtype == 0) { APPLY(float) }
   APPLY(__nv_bfloat16)

@@ -26,10 +26,12 @@ Each source's header says how it is laid out for the card and what bounds it.
   (the JAX package's XLA path; counted in ``.plain_on_cuda``), d = 64, 128,
   192 or 256 launches the kernel, and a larger multiple of 64 raises. A
   launch that fails raises: there is no fallback. Each counts its calls that
-  launch in ``.launches`` (the bf16 backward's delta, dq and dk/dv kernels
+  launch in ``.launches`` (the backward's delta, dq and dk/dv kernels
   count one).
-- ``flash_attention_delta_plain`` is ``_bwd_host_prep``'s delta; the bf16
-  backward computes it with a kernel of its own (``flash_attention_delta``).
+- ``flash_attention_delta_plain`` is ``_bwd_host_prep``'s delta; on the
+  card both backwards compute it with a kernel of their own
+  (``flash_attention_delta``), so the plain version serves the CPU and the
+  checks.
 - bf16 tensors reach the kernels through TMA tensor maps (``_tma_desc``:
   dims and byte strides; a tensor off the 16-byte grid is copied first), the
   bias as its compact broadcast shape (``_bias_tile``), lse and delta as
@@ -166,8 +168,8 @@ def flash_attention_fwd_plain(q, k, v, bias=None, causal: bool = False,
 
 def flash_attention_delta_plain(out, g) -> torch.Tensor:
     """delta = Σ_d dO·out in f32 ([B, nh, T]), as ``_bwd_host_prep``
-    computes it; the bf16 backward's delta kernel computes the same from
-    the bf16 tensors."""
+    computes it; the backward's delta kernel computes the same from the
+    f32 or bf16 tensors."""
     return (g.float() * out.float()).sum(-1)
 
 
@@ -311,9 +313,9 @@ def flash_attention_bwd(q, k, v, out, lse, g, bias=None, causal: bool = False,
                         dropout_rate: float = 0.0, seed=0,
                         dbias: Optional[str] = None):
     """Attention backward: routed as `flash_attention_fwd`; on the card the
-    Hopper kernels (bf16: the delta kernel, the dq kernel and the dk/dv
-    kernel, counted as one launch), or an error. Same arguments and results
-    as `flash_attention_bwd_plain`."""
+    Hopper kernels (the delta kernel, the dq kernel and the dk/dv kernel,
+    counted as one launch), or an error. Same arguments and results as
+    `flash_attention_bwd_plain`."""
     _check(q, k, v, bias, "flash_attention_bwd")
     _check_rate(dropout_rate)
     if dbias not in (None, "per_q", "col"):
@@ -336,17 +338,20 @@ flash_attention_bwd.plain_on_cuda = 0
 
 
 def flash_attention_delta(out, g) -> torch.Tensor:
-    """delta = Σ_d dO·out ([B, nh, T] f32): the bf16 backward's first kernel
-    for bf16 CUDA tensors, the plain version for CPU tensors; anything else
-    raises. `flash_attention_bwd` runs the kernel itself; this entry lets a
-    check hold it against `flash_attention_delta_plain`."""
+    """delta = Σ_d dO·out ([B, nh, T] f32): the backward's first kernel for
+    f32 or bf16 CUDA tensors, the plain version for CPU tensors; another
+    dtype or device raises. `flash_attention_bwd` runs the kernel itself;
+    this entry lets a check hold it against `flash_attention_delta_plain`."""
+    if out.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention_delta: no kernel for dtype "
+                        f"{out.dtype}")
     if out.device.type == "cpu":
         return flash_attention_delta_plain(out, g)
-    if out.device.type != "cuda" or out.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention_delta: the kernel takes bf16 CUDA "
-                         f"tensors, got {out.dtype} on {out.device}")
+    if out.device.type != "cuda":
+        raise ValueError(f"flash_attention_delta: the kernel takes CUDA "
+                         f"tensors, got {out.device}")
     b, nh, t, _ = out.shape
-    out, g = (x if _tma_desc(x) else x.contiguous()
+    out, g = (x if _kernel_layout_ok(x) else x.contiguous()
               for x in (out, g.to(out.dtype)))
     with torch.cuda.device(out.device):
         rows = _launch_delta(out, g, torch.cuda.current_stream(
@@ -572,12 +577,10 @@ def _launch_bwd_f32(q, k, v, out, lse, g, bias, causal, sm_scale,
     # layout autograd built (an expanded or transposed gradient included):
     # a tensor whose strides break the kernels' 16-byte vector loads is
     # copied to a contiguous one here, never handed to the plain version
-    q, k, v, g = (t if _kernel_layout_ok(t) else t.contiguous()
-                  for t in (q, k, v, g.to(q.dtype)))
-    # delta = Σ_d dO·out, one plain reduction before the launch, as the JAX
-    # package computes it outside its kernels (_bwd_host_prep)
-    delta = flash_attention_delta_plain(out, g).contiguous()
-    lse = lse.contiguous()
+    q, k, v, g, out = (t if _kernel_layout_ok(t) else t.contiguous()
+                       for t in (q, k, v, g.to(q.dtype), out))
+    lse = lse.reshape(b * nh, tq)   # rows lse.stride(0) floats apart
+    lse = lse if lse.stride(1) == 1 else lse.contiguous()
     dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
     dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
     dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
@@ -585,17 +588,21 @@ def _launch_bwd_f32(q, k, v, out, lse, g, bias, causal, sm_scale,
     bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
     seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
     lib = _bind("flash_attention_bwd", "flash_attention_bwd_f32",
-                [_PTR] * 12 + [_I32] * 5 + [_I64] * 25 + [_F32, _I32]
+                [_PTR] * 12 + [_I32] * 7 + [_I64] * 25 + [_F32, _I32]
                 + _DROPOUT_ARGS + [_PTR])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        # delta = Σ_d dO·out by the delta kernel, before the dq and dk/dv
+        # kernels, as the JAX package computes it outside its kernels
+        # (_bwd_host_prep)
+        delta = _launch_delta(out, g, stream)
         err = lib.flash_attention_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), bias_ptr, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
             db.data_ptr() if dbias == "per_q" else None,
             db.data_ptr() if dbias == "col" else None,
-            b, nh, tq, tk, d,
+            b, nh, tq, tk, d, lse.stride(0), delta.stride(0),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
             *dv.stride()[:3], *bias_strides, float(sm_scale), int(causal),
@@ -606,17 +613,18 @@ def _launch_bwd_f32(q, k, v, out, lse, g, bias, causal, sm_scale,
 
 
 def _launch_delta(out, g, stream):
-    """The delta kernel into [B·nh, pitch] f32 rows (pitch = Tq rounded up
-    to 4 floats: the 16-byte grid the dk/dv kernel's TMA reads)."""
+    """The delta kernel (f32 or bf16 out and dO of one dtype, 16-byte
+    aligned rows) into [B·nh, pitch] f32 rows (pitch = Tq rounded up to 4
+    floats: the 16-byte grid the bf16 dk/dv kernels' TMA reads)."""
     b, nh, t, d = out.shape
     pitch = -(-t // 4) * 4
     rows = torch.empty((b * nh, pitch), dtype=torch.float32,
                        device=out.device)
-    lib = _bind("flash_attention_bwd", "flash_attention_bwd_delta_bf16",
-                [_PTR] * 3 + [_I32] * 5 + [_I64] * 6 + [_PTR])
-    err = lib.flash_attention_bwd_delta_bf16(
-        out.data_ptr(), g.data_ptr(), rows.data_ptr(), b, nh, t, d, pitch,
-        *out.stride()[:3], *g.stride()[:3], stream)
+    lib = _bind("flash_attention_bwd", "flash_attention_bwd_delta",
+                [_PTR] * 3 + [_I32] * 6 + [_I64] * 6 + [_PTR])
+    err = lib.flash_attention_bwd_delta(
+        out.data_ptr(), g.data_ptr(), rows.data_ptr(), _DTYPE_CODE[out.dtype],
+        b, nh, t, d, pitch, *out.stride()[:3], *g.stride()[:3], stream)
     _raise_on(lib, err, "flash_attention_bwd")
     return rows
 

@@ -33,9 +33,9 @@ query gets out = 0 and lse = -1e30, and pad rows get zero gradients.
   that is not a multiple of 64, takes the plain version too (the JAX
   package's blockwise XLA path; counted in ``.plain_on_cuda``), d = 64, 128,
   192 or 256 launches the kernels, and a larger multiple of 64 raises. Each
-  counts its launches in ``.launches`` (a backward counts one: f32 launches
-  a dq and a dk/dv kernel; bf16 the dense bf16 backward's delta kernel, then
-  one kernel whose CTAs compute dk/dv or dq). The bf16 backward reads its
+  counts its launches in ``.launches`` (a backward counts one: the dense
+  backward's delta kernel, then in f32 a dq and a dk/dv kernel, in bf16 one
+  kernel whose CTAs compute dk/dv or dq). The bf16 backward reads its
   tensors through TMA tensor maps (``_tma_desc``).
 - ``_FlashAttentionSparse`` is the ``torch.autograd.Function`` that joins
   them, as the ``custom_vjp`` ``_flash_sparse_core`` does in the JAX package;
@@ -376,10 +376,8 @@ def _launch_bwd(q, k, v, out, lse, g, se, vis, causal, sm_scale,
     b, nh, tq, d = q.shape
     tk = k.shape[2]
     q, k, v, g = _layout((q, k, v, g.to(q.dtype)))
+    out = out if _kernel_layout_ok(out) else out.contiguous()
     se, vis = se.contiguous(), vis.to(torch.int32).contiguous()
-    # f32: delta = Σ_d dO·out, one plain reduction before the launch, as the
-    # JAX package computes it outside its kernels (_bwd_host_prep)
-    delta = (g.float() * out.float()).sum(-1).contiguous()
     lse = lse.contiguous()
     dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
     dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
@@ -388,6 +386,10 @@ def _launch_bwd(q, k, v, out, lse, g, se, vis, causal, sm_scale,
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        # delta = Σ_d dO·out by the dense backward's delta kernel, as the
+        # JAX package computes it outside its kernels (_bwd_host_prep); its
+        # rows are Tq apart (Tq is a multiple of 64 on this route)
+        delta = _launch_delta(out, g, stream)
         err = lib.flash_attention_sparse_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), se.data_ptr(), vis.data_ptr(),

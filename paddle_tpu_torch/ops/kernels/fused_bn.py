@@ -47,6 +47,9 @@ from ..common import bn_batch_stats_xla1, bn_normalize, conv2d_nchw
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _CONV_BM = 128      # K4 output rows per CTA (kConvBM in csrc/fused_bn.cu)
 _MAX_REDUCE_BLOCKS = 1024
+_APPLY_THREADS = 256  # K2 threads a CTA at most (kThreads)
+_APPLY_UNROLL = 4     # K2 rows of loads in flight a thread (kApplyUnroll)
+_APPLY_CTAS_PER_SM = 8
 
 # The (Ci, Co) weight panel had to fit the TPU's VMEM beside the streaming
 # blocks; kept only so that the same ops take the kernel as in the JAX
@@ -277,7 +280,7 @@ _PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
 _ARGTYPES = {
     "fused_bn_stats": [_PTR, _I64, _I32, _I32, _I32, _PTR, _PTR, _PTR, _PTR],
-    "fused_bn_apply": [_PTR] * 6 + [_I64, _I32, _I32, _I32, _PTR],
+    "fused_bn_apply": [_PTR] * 6 + [_I64] + [_I32] * 8 + [_PTR],
     "fused_bn_bwd_reduce": [_PTR] * 5 + [_I64, _I32, _I32, _I32, _I32]
     + [_PTR] * 4,
     "fused_bn_bwd_dx": [_PTR] * 10 + [_I64, _I32, _I32, _F32, _I32, _PTR],
@@ -336,8 +339,10 @@ def _check2d(name, *ts):
 
 
 def _vec(v, like):
-    """A per-channel vector as a contiguous f32 tensor on `like`'s device."""
-    return v.to(device=like.device, dtype=torch.float32).contiguous()
+    """A per-channel vector as a contiguous, 16-byte aligned f32 tensor on
+    `like`'s device (K2 reads it as float4s)."""
+    v = v.to(device=like.device, dtype=torch.float32).contiguous()
+    return v.clone() if v.data_ptr() % 16 else v
 
 
 def _nblocks(m, c, itemsize) -> int:
@@ -368,6 +373,27 @@ def _launch_stats(x2):
     return mean, var
 
 
+def apply_geometry(m: int, c: int, itemsize: int, sms: int):
+    """K2's launch on a card of `sms` SMs: (row_blocks, chunks, vectors,
+    rows_step, rows_per_cta).
+
+    A thread owns one 16-byte channel vector; a CTA is `vectors` threads
+    across a channel chunk by `rows_step` down, at most 256. A row of C up to
+    256 vectors is one chunk, a wider one is cut into `chunks` equal chunks
+    (the last one's spare lanes idle). The CTA of row block bx walks rows
+    bx·rows_per_cta … min(M, (bx + 1)·rows_per_cta) − 1, thread row ty those
+    ty apart by rows_step, four loads deep: two such passes a CTA, or one
+    where that leaves fewer CTAs than eight an SM."""
+    vpr = c * itemsize // 16
+    chunks = -(-vpr // _APPLY_THREADS)
+    vectors = -(-vpr // chunks)
+    rows_step = _APPLY_THREADS // vectors
+    rows_per_cta = 2 * rows_step * _APPLY_UNROLL
+    if -(-m // rows_per_cta) * chunks < _APPLY_CTAS_PER_SM * sms:
+        rows_per_cta //= 2
+    return -(-m // rows_per_cta), chunks, vectors, rows_step, rows_per_cta
+
+
 def _launch_apply(x2, mean, isc, bias, act, res2):
     _check2d("bn_apply", x2, res2)
     m, c = x2.shape
@@ -378,7 +404,10 @@ def _launch_apply(x2, mean, isc, bias, act, res2):
         err = lib.fused_bn_apply(
             x2.data_ptr(), res2.data_ptr() if res2 is not None else None,
             y2.data_ptr(), mean.data_ptr(), isc.data_ptr(), bias.data_ptr(),
-            m, c, int(act == "relu"), _DTYPE_CODE[x2.dtype], _stream(x2))
+            m, c, int(act == "relu"), _DTYPE_CODE[x2.dtype],
+            *apply_geometry(m, c, x2.element_size(), torch.cuda
+                            .get_device_properties(x2.device)
+                            .multi_processor_count), _stream(x2))
     _raise_on(lib, err, "bn_apply")
     return y2
 

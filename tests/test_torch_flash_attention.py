@@ -619,6 +619,158 @@ def test_delta_plain_matches_bwd_host_prep(dtype):
                                                          g_t[None])[0], got)
 
 
+def test_delta_route_f32_cpu_and_dtypes_without_kernel():
+    """flash_attention_delta, the f32 backward's delta kernel since the f32
+    redesign: on a CPU f32 tensor it is the plain delta, which is
+    _bwd_host_prep's; a dtype with no kernel raises on either device, and a
+    device with no kernel raises."""
+    bh, t, d = 2, 24, 64
+    out, g, q = (_rand((bh, t, d), 110 + i) for i in range(3))
+    _, _, delta_r = jfa._bwd_host_prep(jnp.array(q), jnp.array(out),
+                                       jnp.array(_rand((bh, t), 113)),
+                                       jnp.array(g))
+    got = tfa.flash_attention_delta(torch.from_numpy(out)[None],
+                                    torch.from_numpy(g)[None])[0]
+    torch.testing.assert_close(got, tfa.flash_attention_delta_plain(
+        torch.from_numpy(out), torch.from_numpy(g)), rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(delta_r)[..., 0],
+                               rtol=1e-5, atol=1e-5)
+    half = torch.from_numpy(out)[None].half()
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.flash_attention_delta(half, half)
+    meta = torch.empty((1, bh, t, d), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_delta(meta, meta)
+
+
+def _rna_tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: nearest, ties away
+    from zero (0x1000 added to the magnitude bits, the low 13 cleared)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _trunc_tf32(x):
+    """The TF32 value the tensor core reads from an f32 register: its low 13
+    bits cleared."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _rz_f32(x):
+    """f64 x rounded to f32 toward zero, as the tensor core rounds its
+    sums."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mm_3xtf32(a, b, partial_depth=None):
+    """a @ b as the f32 backward kernels compute it on mma.sync.m16n8k8:
+    each operand split into big = rna(x) and small = x − big (read by the
+    tensor core as its top 11 bits); per 8-deep step, big·small, small·big
+    and big·big each summed exactly and rounded toward zero into the
+    running sum (one mma each). With `partial_depth` (S and dP), the running
+    sum starts from 0 every that many columns and is added to the f32
+    result with one round-to-nearest add."""
+    ab, bb = _rna_tf32(a), _rna_tf32(b)
+    as_, bs = _trunc_tf32(a - ab), _trunc_tf32(b - bb)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    step = partial_depth or a.shape[-1]
+    for k0 in range(0, a.shape[-1], step):
+        t = torch.zeros_like(acc, dtype=torch.float64) if partial_depth \
+            else acc.double()
+        for k in range(k0, k0 + step, 8):
+            for x, y in ((ab, bs), (as_, bb), (ab, bb)):
+                t = _rz_f32(t + x[..., k:k + 8].double()
+                            @ y[..., k:k + 8, :].double()).double()
+        acc = acc + t.float() if partial_depth else t.float()
+    return acc
+
+
+def _bwd_3xtf32(q, k, v, out, lse, g, bias, sm, causal=False, rate=0.0,
+                seed=0):
+    """flash_attention_bwd_plain (f32) with each of its five products (s,
+    dp, dv, dk, dq) in 3xTF32; s and dp in 16-column partial sums (the
+    kernels' kPartialDepth), the outputs in one partial sum a 64-row tile.
+    exp is exact here (the kernels use ex2.approx)."""
+    kt = lambda x: x.transpose(-1, -2)
+    s = _mm_3xtf32(q, kt(k), 16) * sm
+    if bias is not None:
+        s = s + bias
+    if causal:
+        tq, tk = s.shape[-2:]
+        s = s.masked_fill(~torch.ones(tq, tk, dtype=torch.bool).tril(),
+                          tfa.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = _mm_3xtf32(g, kt(v), 16)
+    p_d = p
+    if rate > 0.0:
+        keep = tfa.dropout_keep_mask(seed, rate, *p.shape)
+        p_d, dp = tfa._dropped(p, keep, rate), tfa._dropped(dp, keep, rate)
+    dv = _mm_3xtf32(kt(p_d), g, 64)
+    ds = p * (dp - tfa.flash_attention_delta_plain(out, g)[..., None])
+    return (_mm_3xtf32(ds, k, 64) * sm, _mm_3xtf32(kt(ds), q, 64) * sm, dv,
+            ds)
+
+
+def test_rna_tf32_rounds_like_cvt_rna():
+    """Known answers of the TF32 rounding: 10 mantissa bits kept, ties away
+    from zero for either sign; a TF32 value is kept as it is."""
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2),
+                      1.0 + one_ulp / 2 - 2.0 ** -23, 1.0 + 3 * one_ulp,
+                      3.0e-3], dtype=torch.float32)
+    got = _rna_tf32(x)
+    want = [1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 1.0 + 3 * one_ulp]
+    assert got[:4].tolist() == want
+    assert abs(got[4].item() - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+    assert torch.equal(_rna_tf32(got), got)
+    # big + small, as the tensor core reads small, carries x to within
+    # 2^-21 of its magnitude; cleared low bits read as truncation
+    y = torch.from_numpy(_rand((4096,), 120))
+    big = _rna_tf32(y)
+    rest = (y - big - _trunc_tf32(y - big)).abs()
+    assert bool((rest <= y.abs() * 2.0 ** -21).all())
+    assert _trunc_tf32(x)[:4].tolist() == [1.0, -1.0, 1.0, 1.0 + 3 * one_ulp]
+    # rounding toward zero: one ulp below the nearest for 1 + 2^-24 + ...
+    z = torch.tensor([1.0 + 2.0 ** -23 * 0.75, -(1.0 + 2.0 ** -23 * 0.75)],
+                     dtype=torch.float64)
+    assert _rz_f32(z).tolist() == [1.0, -1.0]
+
+
+@pytest.mark.parametrize(
+    "t,d,per_q_bias,causal,rate",
+    [(t, d, bias, False, 0.0) for t in (128, 512) for d in (64, 256)
+     for bias in (False, True)]
+    # chip_smoke's d = 128 causal edge cases
+    + [(130, 128, True, True, 0.1), (128, 128, False, True, 0.2),
+       (128, 128, True, True, 0.0)])
+def test_3xtf32_products_hold_the_f32_backward(t, d, per_q_bias, causal,
+                                               rate):
+    """The decision rule of the f32 backward's 3xTF32 design: with its five
+    products emulated as the kernels split and sum them (the tensor core's
+    round-toward-zero sums included), dq, dk, dv (and the per-query dbias,
+    ds itself) stay within a quarter of the card's f32 tolerance
+    (chip_smoke BWD_TOL 2e-5, rtol = atol) of the plain f32 backward, at
+    B=1, nh=2, the main path's T and the d = 128 causal edge cases (with
+    dropout)."""
+    tol = 2e-5 / 4
+    q, k, v, g = (torch.from_numpy(_rand((1, 2, t, d), 130 + i))
+                  for i in range(4))
+    bias = (torch.from_numpy(_rand((1, 2, t, t), 134)) if per_q_bias
+            else None)
+    sm = 1.0 / np.sqrt(d)
+    out, lse = tfa.flash_attention_fwd_plain(q, k, v, bias, causal, sm, rate,
+                                             5)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, g, bias, causal,
+                                         sm, rate, 5, dbias="per_q")
+    got = _bwd_3xtf32(q, k, v, out, lse, g, bias, sm, causal, rate, 5)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        torch.testing.assert_close(a, w, rtol=tol, atol=tol, msg=name)
+
+
 def test_tma_desc_of_fused_qkv_views_and_broadcast_dims():
     """The tensor-map description of the bf16 kernels: a q/k/v third of the
     fused [B, T, 3·nh·d] projection is read in place (dims innermost first,
@@ -750,11 +902,12 @@ def test_cuda_bwd_is_bitwise_repeatable(form):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,d", [(512, 64), (130, 128), (128, 192),
                                  (64, 256)])
-def test_cuda_delta_kernel_matches_plain(t, d):
+def test_cuda_delta_kernel_matches_plain(t, d, dtype):
     _cuda_or_skip()
-    (out, dout, _), _ = _cuda_qkv(2, 3, t, d, torch.bfloat16, 5)
+    (out, dout, _), _ = _cuda_qkv(2, 3, t, d, dtype, 5)
     got = tfa.flash_attention_delta(out, dout)
     want = tfa.flash_attention_delta_plain(out, dout)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

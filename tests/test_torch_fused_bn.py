@@ -351,6 +351,68 @@ def test_kernel_paths_reject_other_devices():
         tbn.conv_stats(x, torch.empty((32, 64, 1, 1), device="meta"))
 
 
+_ADMITTED_C = [8, 16, 32, 64] + [128 * i for i in range(1, 65)]
+
+
+def test_admitted_channel_counts_are_supports():
+    """The channel counts the K2 geometry test walks are exactly those the
+    fused-BN gate admits (C ≤ 8192 with enough rows)."""
+    admitted = [c for c in range(1, 8193)
+                if tbn.supports((8, c, 64, 64), torch.float32)]
+    assert admitted == _ADMITTED_C
+
+
+def _k2_visits(m, c, itemsize, sms):
+    """How often K2's threads visit each (row, channel vector), with the
+    kernel's index arithmetic (csrc/fused_bn.cu apply_kernel) over the
+    wrapper's launch geometry; also that geometry."""
+    geo = tbn.apply_geometry(m, c, itemsize, sms)
+    row_blocks, chunks, vectors, rows_step, rows_per_cta = geo
+    vpr = c * itemsize // 16
+    # vec = blockIdx.y·blockDim.x + threadIdx.x, the spare lanes return
+    vec = (np.arange(chunks)[:, None] * vectors
+           + np.arange(vectors)[None, :]).ravel()
+    vec_count = np.bincount(vec[vec < vpr], minlength=vpr)
+    # rows: from bx·rows_per_cta + ty, kApplyUnroll rows of rows_step a
+    # trip, each one below min(M, (bx + 1)·rows_per_cta)
+    unroll = tbn._APPLY_UNROLL
+    bx = np.arange(row_blocks)[:, None, None, None]
+    ty = np.arange(rows_step)[None, :, None, None]
+    trip = np.arange(-(-rows_per_cta // (unroll * rows_step)))
+    u = np.arange(unroll)[None, None, None, :]
+    r = (bx * rows_per_cta + ty + trip[None, None, :, None] * unroll
+         * rows_step + u * rows_step)
+    r_end = np.minimum(m, (bx + 1) * rows_per_cta)
+    # a trip starts only below r_end, and each of its loads is guarded
+    started = (bx * rows_per_cta + ty + trip[None, None, :, None] * unroll
+               * rows_step) < r_end
+    rows = np.broadcast_to(r, np.broadcast_shapes(r.shape, started.shape))
+    keep = started & (rows < r_end)
+    row_count = np.bincount(rows[keep], minlength=m)
+    return geo, row_count, vec_count
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("c", _ADMITTED_C)
+def test_k2_launch_geometry_visits_each_vector_once(c, itemsize):
+    """For every C the gate admits and an M that is no multiple of K2's rows
+    a CTA, every (row, 16-byte channel vector) pair is visited exactly once,
+    by a CTA of at most 256 threads, on a card of 132 SMs and of 16."""
+    m = 9001   # odd: rows a CTA are a multiple of 4
+    for sms in (132, 16):
+        geo, row_count, vec_count = _k2_visits(m, c, itemsize, sms)
+        _check_k2_visits(m, c, itemsize, geo, row_count, vec_count)
+
+
+def _check_k2_visits(m, c, itemsize, geo, row_count, vec_count):
+    row_blocks, chunks, vectors, rows_step, rows_per_cta = geo
+    assert m % rows_per_cta
+    assert vectors * rows_step <= 256 and row_blocks * rows_per_cta >= m
+    assert row_count.shape == (m,) and vec_count.shape == (c * itemsize // 16,)
+    pairs = row_count[:, None] * vec_count[None, :]
+    assert (pairs == 1).all()
+
+
 # -- on the card -------------------------------------------------------------
 
 def _cuda_or_skip():
