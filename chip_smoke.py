@@ -18,11 +18,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              the f32 one timed beside the plain chain it replaced;
              B·nh = 65,600 (the
              flat grid); d=32 through the op (the plain route, counted) and
-             d=320 (raises). Head dims 192 and 256 through every flash
-             kernel family (dense forward and backward, sparse forward and
+             d=320 (one launch of the wide kernel). Head dims 192 and 256
+             through every flash kernel family (dense forward and backward, sparse forward and
              backward; f32 and bf16, dropout 0.1; B=2, nh=2, T=256): the
              kernels, not the plain route, within the main tolerances, with
-             their times. Times each kernel, its plain version and one
+             their times; head dims 320 and 512 through the wide kernels'
+             four entries (dense with the mask and dropout, with a
+             per-query bias and causal; sparse causal with dropout and
+             not causal; f32 and bf16), each one wide launch, the
+             backwards bitwise repeatable, then at d = 512 at every shape
+             the wide path runs (dense T = 128/512 with and without
+             dropout; sparse T = 128/256 encoder self, decoder self and
+             cross), timed at d = 512 beside their plain versions, SDPA
+             and their bounds. Times each kernel, its
+             plain version and one
              PyTorch library call, with each kernel's ratio to that call and
              share of its bound (the f32 backward's bound is its 3xTF32
              one, the FMA bound beside it); logs the bf16 flash kernels' registers, spills, dynamic
@@ -50,9 +59,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              its stored output) against their plain versions, f32 and bf16,
              at ResNet-50 B=128 shapes; times each kernel, its plain version
              and one PyTorch library call where one computes the same
-             function; K2 at the stem (C=64, relu), stage 2 .sc (C=512, no
-             relu or residual: the library's shape) and stage 4 (C=2048,
-             residual and relu), each with its bound.
+             function; K4 at four bottleneck shapes beside torch.matmul and
+             its bound, two calls bitwise equal; K3's reduce and dx passes
+             timed apart as well as together; K2 at the stem (C=64, relu),
+             stage 2 .sc (C=512, no relu or residual: the library's shape)
+             and stage 4 (C=2048, residual and relu), each with its bound.
 7. resnet  — main path 3: ResNet-50 training at full width (B=128,
              3x224x224, 1000 classes) with PDTPU_CONV_BN_FUSION=pallas and
              PDTPU_BN_MODE=pallas, built with the port's DSL from seed 2024
@@ -97,6 +108,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              weights: the loss within 1e-5, every gradient within 1e-4
              relative L2 (or twice the CPU's own one-ulp spread where that
              is larger); its sparse launches are the f32 kernels' count.
+9b. wide    — main path 7: the wide flash kernels (d > 256) through
+             Executor.run: BERT pretraining at hidden 1024 cut to 2 heads
+             (d = 512) and 2 layers (f32 B=4 T=128, bf16 AMP B=4 T=512, 2
+             Adam steps each, dropout 0.1), then Transformer-big (d_model
+             1024) cut to 2 heads and 2+2 layers, packed-sparse (bf16 AMP
+             B=4 T=256, f32 B=4 T=128, 2 steps each): finite losses, one
+             wide launch per attention layer and step each way, no
+             plain-route call.
 10. sparse adagrad kernels — rows 12-14 against their plain versions, bit
              for bit, at the main paths' shapes: the sparse-Adagrad update
              on the [33,554,432, 128] u16 DeepFM table with one step's
@@ -149,6 +168,11 @@ B, NH, D = 8, 12, 64
 HIDDEN = NH * D
 SEQS = (128, 512)
 WIDE_D = (192, 256)   # head dims past the models' d = 64: shape checks only
+WIDER_D = (320, 512)  # above the tuned kernels' head dims: the wide kernels
+# the wide path: BERT-large's hidden 1024 and NMT's d_model 1024 cut to two
+# heads (d = 512), two layers (NMT 2+2)
+WIDE_HEADS, WIDE_HIDDEN, WIDE_B = 2, 1024, 4
+FAW_SOURCE = "paddle_tpu_torch/csrc/flash_attention_wide.cu"
 # forward out/lse: rtol = atol
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # backward dq/dk/dv/dbias. f32: rtol = atol = 2e-5 (tighter than 1e-4: the
@@ -452,26 +476,40 @@ def kernel_label(mangled):
     if k:
         return (f"{k.group(1)}<{k.group(2)}"
                 f"{', ' + k.group(3) if k.group(3) else ''}>")
-    k = re.search(r"apply_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])E",
+    k = re.search(r"(apply_kernel|bwd_dx_kernel)I(f|13__nv_bfloat16)"
+                  r"Lb([01])ELb([01])E", mangled)
+    if k:
+        return (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, "
+                f"res={k.group(3)}, relu={k.group(4)}>")
+    k = re.search(r"conv_stats_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                   mangled)
     if k:
-        return (f"apply_kernel<{'float' if k.group(1) == 'f' else 'bf16'}, "
-                f"res={k.group(2)}, relu={k.group(3)}>")
+        return (f"conv_stats_bf16_kernel<BN={k.group(1)}, CTAs/SM="
+                f"{k.group(2)}, resident W={k.group(3)} B>")
+    k = re.search(r"(wide_(?:fwd|dq|dkv)_kernel)I(f|13__nv_bfloat16)"
+                  r"Lb([01])E", mangled)
+    if k:
+        return (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, "
+                f"sparse={k.group(3)}>")
     return None
 
 
 def log_wgmma_build(build):
     """ptxas's registers, shared memory and spills for each bf16 flash
     kernel by name (the dense ones and the sparse backward), the f32 flash
-    backward kernel (dk/dv and dq CTAs in one) and K2's apply_kernel; where
-    the toolkit has cuobjdump, the count of HGMMA (wgmma) and UTMALDG (TMA
-    load) instructions in each flash library and of HMMA (mma.sync)
-    instructions in each f32 backward kernel."""
+    backward kernel (dk/dv and dq CTAs in one), K2's apply_kernel, K3's
+    bwd_dx_kernel, K4's conv_stats_bf16_kernel and the wide flash kernels;
+    where the toolkit has cuobjdump, the count of HGMMA (wgmma) and UTMALDG
+    (TMA load) instructions in each flash library, of HMMA (mma.sync)
+    instructions in each f32 backward kernel and wide kernel, and of HGMMA
+    in K4."""
     import ctypes
     import re
 
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
     for lib in ("flash_attention_fwd", "flash_attention_bwd",
-                "flash_attention_sparse", "fused_bn"):
+                "flash_attention_sparse", "fused_bn", "flash_attention_wide"):
         fn = None
         for line in build.build_log(lib).splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties "
@@ -479,11 +517,28 @@ def log_wgmma_build(build):
             if m:
                 fn = kernel_label(m.group(1)) or m.group(1)
             elif fn and ("bf16" in fn or "flash_bwd_f32" in fn
-                         or "apply_kernel" in fn) \
+                         or "apply_kernel" in fn or "bwd_dx_kernel" in fn
+                         or "wide_" in fn) \
                     and ("Used" in line or "spill" in line
                          or "Performance" in line):
                 log(f"build {lib} {fn}: {line.split(':', 1)[-1].strip()}")
-        if lib == "fused_bn":
+        if lib in ("fused_bn", "flash_attention_wide"):
+            # K4's wgmma (HGMMA) and the wide kernels' mma.sync (HMMA)
+            if os.path.exists(cuobjdump):
+                sass = subprocess.run(
+                    [cuobjdump, "-sass", build._target(lib)],
+                    capture_output=True, text=True, check=True).stdout
+                for section in sass.split("Function : ")[1:]:
+                    name = kernel_label(section.split(None, 1)[0]) or ""
+                    if "conv_stats_bf16" in name or "wide_" in name:
+                        log(f"build {lib} {name}: {section.count('HGMMA')} "
+                            f"HGMMA and {section.count('HMMA')} HMMA "
+                            f"instructions (cuobjdump)")
+            if lib == "flash_attention_wide":
+                smem = build.load(lib).flash_attention_wide_smem
+                smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+                log(f"build {lib}: dynamic shared memory f32 {smem(0)}, "
+                    f"bf16 {smem(1)} bytes a CTA at every head dim")
             continue
         lib_so = build.load(lib)
         sparse = lib == "flash_attention_sparse"
@@ -502,8 +557,6 @@ def log_wgmma_build(build):
                         for i, k in enumerate(("dq", "dkv")) for m in (1, 2)}
             log(f"build {lib}: bf16 d={d} dynamic shared memory {smem} "
                 f"bytes a CTA")
-        cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                                 "bin", "cuobjdump")
         if os.path.exists(cuobjdump):
             sass = subprocess.run([cuobjdump, "-sass", build._target(lib)],
                                   capture_output=True, text=True,
@@ -774,11 +827,11 @@ def phase_kernel_bwd(fa):
 
 
 def phase_kernel_routes(fa):
-    """The bf16 backward's delta kernel against its plain version (d = 64
-    to 256); the flat grid at B·nh = 65,600 (forward and backward against
-    the plain versions); d = 32 through the flash_attention op takes the
-    plain route on the card (counted, as the JAX package takes its XLA
-    path), d = 320 raises."""
+    """The delta kernel against its plain version (d = 64 to 512); the flat
+    grid at B·nh = 65,600 (forward and backward against the plain
+    versions); d = 32 through the flash_attention op takes the plain route
+    on the card (counted, as the JAX package takes its XLA path), d = 320
+    launches the wide kernel once."""
     import torch
     from paddle_tpu_torch.core.executor import ExecContext
     from paddle_tpu_torch.core.registry import get_op
@@ -786,7 +839,7 @@ def phase_kernel_routes(fa):
     gen = torch.Generator("cuda").manual_seed(2)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
-        for d in (D, 128) + WIDE_D:
+        for d in (D, 128) + WIDE_D + WIDER_D:
             out, dout, _ = qkv_inputs(B, NH, 512, d, dtype, gen)
             e, ok = max_err(fa.flash_attention_delta(out, dout),
                             fa.flash_attention_delta_plain(out, dout), 1e-4)
@@ -843,13 +896,24 @@ def phase_kernel_routes(fa):
         f"max_abs_err to the plain version {e:.3e}")
     if after != (before[0], before[1] + 1) or not ok:
         raise AssertionError("d = 32 did not take the counted plain route")
-    try:
-        fa.flash_attention_fwd(*qkv_inputs(1, 1, 64, 320, torch.bfloat16,
-                                           gen))
-    except ValueError as err:
-        log(f"d=320 raises before any launch: {err}")
-    else:
-        raise AssertionError("d = 320 did not raise")
+    # hidden 640 and 2 heads: d = 320 through the op, on the wide kernel
+    x = torch.randn(2, 128, 640, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    fwd = fa.flash_attention_fwd
+    before = (fwd.launches, fwd.wide_launches, fwd.plain_on_cuda)
+    y = get_op("flash_attention").fn(
+        ExecContext("cuda", is_test=True), {"Q": [x], "K": [x], "V": [x]},
+        {"num_heads": 2})["Out"][0]
+    torch.cuda.synchronize()
+    after = (fwd.launches, fwd.wide_launches, fwd.plain_on_cuda)
+    ref = fa.flash_attention_fwd_plain(heads(x, 2), heads(x, 2),
+                                       heads(x, 2))[0]
+    e, ok = max_err(heads(y, 2), ref, TOL["bfloat16"])
+    log(f"op flash_attention d=320 on the card: (launches, wide launches, "
+        f"plain-route calls) {before} -> {after}, max_abs_err to the plain "
+        f"version {e:.3e}")
+    if after != (before[0] + 1, before[1] + 1, before[2]) or not ok:
+        raise AssertionError("d = 320 did not run once on the wide kernel")
 
 
 def flash_counts(fa, fas):
@@ -955,6 +1019,217 @@ def phase_kernel_wide(fa, fas):
                                      f"disagree with their plain versions or "
                                      f"did not launch: {rec}")
             records.append(rec)
+    return records
+
+
+def wide_counts(fa, fas):
+    """Wide-kernel launches of the four flash wrappers."""
+    return [f.wide_launches for f in (
+        fa.flash_attention_fwd, fa.flash_attention_bwd,
+        fas.flash_attention_sparse_fwd, fas.flash_attention_sparse_bwd)]
+
+
+def wider_case(fa, fas, kind, q, k, v, dout, name, bias=None, se=None,
+               vis=None, causal=False, rate=0.0, dbias=None):
+    """One head dim above 256 on the wide kernels against the plain
+    versions: forward and backward (dense with `bias` and `dbias`, or
+    sparse on se/vis), the backward twice (bitwise equal), and for sparse
+    with dropout every tile processed (bitwise equal to the skipping walk).
+    Each call must be one wide launch and no plain-route call. Returns the
+    max abs errors; raises on a disagreement."""
+    import torch
+
+    before, wide_before = flash_counts(fa, fas), wide_counts(fa, fas)
+    if kind == "dense":
+        args = (bias, causal, None, rate, 17)
+        out, lse = fa.flash_attention_fwd(q, k, v, *args)
+        ref = fa.flash_attention_fwd_plain(q, k, v, *args)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, *args, dbias)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, *args, dbias)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, *args,
+                                            dbias)
+        slots = (0, 1)
+    else:
+        args = (se, vis, causal, None, rate, 17)
+        out, lse = fas.flash_attention_sparse_fwd(q, k, v, *args)
+        ref = fas.flash_attention_sparse_fwd_plain(q, k, v, *args)
+        got = fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, *args)
+        again = fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout,
+                                               *args)
+        want = fas.flash_attention_sparse_bwd_plain(q, k, v, out, lse, dout,
+                                                    *args)
+        slots = (2, 3)
+    torch.cuda.synchronize()
+    after, wide_after = flash_counts(fa, fas), wide_counts(fa, fas)
+    add = {slots[0]: 1, slots[1]: 2}
+    want_counts = [(n + add.get(i, 0), p) for i, (n, p) in enumerate(before)]
+    want_wide = [n + add.get(i, 0) for i, n in enumerate(wide_before)]
+    e = [max_err(x, y, TOL[name]) for x, y in zip((out, lse), ref)]
+    errs, ok = bwd_errs(got, want, name)
+    errs.update(out=e[0][0], lse=e[1][0])
+    ok &= e[0][1] and e[1][1]
+    same = all(torch.equal(x, y) for x, y in zip(got, again)
+               if x is not None)
+    skip_same = True
+    if kind == "sparse" and rate > 0.0:
+        ones = torch.ones_like(vis)
+        o1, l1 = fas.flash_attention_sparse_fwd(q, k, v, se, ones, causal,
+                                                None, rate, 17)
+        g1 = fas.flash_attention_sparse_bwd(q, k, v, o1, l1, dout, se, ones,
+                                            causal, None, rate, 17)
+        torch.cuda.synchronize()
+        skip_same = all(torch.equal(x, y) for x, y in
+                        zip((out, lse) + tuple(got), (o1, l1) + tuple(g1)))
+    if not (ok and same and skip_same) or after != want_counts \
+            or wide_after != want_wide:
+        peaks = {label: float(w.float().abs().max()) for label, w in
+                 zip(("dq", "dk", "dv", "dbias"), want) if w is not None}
+        raise AssertionError(
+            f"wide {kind} {name} d={q.shape[-1]} causal={causal} "
+            f"dropout={rate}: errors {errs} (ok {ok}; max |plain| "
+            f"{peaks}), backward repeatable "
+            f"{same}, skipping invisible {skip_same}, counts {before} -> "
+            f"{after}, wide {wide_before} -> {wide_after}")
+    return errs
+
+
+def phase_kernel_wider(fa, fas):
+    """Head dims 320 and 512, which the JAX package sends to Pallas and the
+    tuned kernels do not take, through the four wide entries, f32 and bf16,
+    against their plain versions at B=2, nh=2, T=256: dense with the
+    [B,1,1,T] mask (column-sum dbias, dropout 0.1) and with a per-query
+    bias, causal (per-query dbias, no dropout); sparse on two packed NMT
+    rows, causal with dropout 0.1 and not causal without. Then at d = 512
+    every shape the wide path (`phase_wide_path`) runs, checked the same
+    way: dense B=4, nh=2 with the mask at T = 128 and 512, with and without
+    dropout; sparse NMT rows B=4, nh=2 at T = 128 and 256, encoder self,
+    decoder self and cross. Each entry is timed on the inputs of one of
+    those checks (dense T=512; sparse encoder self T=256) beside its plain
+    version, PyTorch's SDPA and its bound, and its max_abs_err is that
+    check's. Returns {(entry, dtype): record}."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(9)
+    b, nh, t = 2, 2, 256
+    ((stack, _),) = nmt_batches(b, t, 1)
+    seg = torch.tensor(stack["tgt_seg"], device="cuda")
+    se = fas.pack_se(seg, seg)
+    tables = {c: fas.compute_block_vis(se, t, t, causal=c)
+              for c in (False, True)}
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        errs = {}
+        for d in WIDER_D:
+            q, k, v = qkv_inputs(b, nh, t, d, dtype, gen)
+            dout = packed_heads(b, t, nh, d, dtype, gen)
+            per_q = torch.randn(b, nh, t, t, generator=gen,
+                                device="cuda").to(dtype)
+            for label, kind, kw in (
+                    ("dense mask dropout", "dense",
+                     dict(bias=bert_mask(b, t, dtype), rate=DROPOUT,
+                          dbias="col")),
+                    ("dense per-query bias causal", "dense",
+                     dict(bias=per_q, causal=True, dbias="per_q")),
+                    ("sparse causal dropout", "sparse",
+                     dict(se=se, vis=tables[True], causal=True,
+                          rate=DROPOUT)),
+                    ("sparse", "sparse", dict(se=se, vis=tables[False]))):
+                errs[f"d={d} {label}"] = wider_case(fa, fas, kind, q, k, v,
+                                                    dout, name, **kw)
+        log(f"kernel wider {name} B={b} nh={nh} T={t}: max_abs_err "
+            f"{json.dumps(errs)}")
+
+        # the wide path's shapes at d = 512: dense B=4, nh=2 with the mask
+        # at T = 128 and 512, with and without dropout; sparse on NMT rows
+        # B=4 at T = 128 and NMT_T, encoder self, decoder self (causal) and
+        # cross, dropout 0.1 on the last two
+        d = 512
+        path_errs, dense_at, sparse_at = {}, {}, {}
+        for tp in (128, 512):
+            q, k, v = qkv_inputs(WIDE_B, WIDE_HEADS, tp, d, dtype, gen)
+            dout = packed_heads(WIDE_B, tp, WIDE_HEADS, d, dtype, gen)
+            mask = bert_mask(WIDE_B, tp, dtype)
+            dense_at[tp] = (q, k, v, dout, mask)
+            for rate in (0.0, DROPOUT):
+                path_errs[f"dense T={tp} dropout={rate}"] = wider_case(
+                    fa, fas, "dense", q, k, v, dout, name, bias=mask,
+                    rate=rate)
+        for tp in (128, NMT_T):
+            ((stack, _),) = nmt_batches(WIDE_B, tp, 1)
+            src, tgt = (torch.tensor(stack[key], device="cuda")
+                        for key in ("src_seg", "tgt_seg"))
+            q, k, v, dout = (packed_heads(WIDE_B, tp, WIDE_HEADS, d, dtype,
+                                          gen) for _ in range(4))
+            for label, (qs, ks), causal, rate in (
+                    ("encoder self", (src, src), False, 0.0),
+                    ("decoder self", (tgt, tgt), True, DROPOUT),
+                    ("cross", (tgt, src), False, DROPOUT)):
+                pse = fas.pack_se(qs, ks)
+                pvis = fas.compute_block_vis(pse, tp, tp, causal=causal)
+                if label == "encoder self":
+                    sparse_at[tp] = (q, k, v, dout, pse, pvis)
+                path_errs[f"sparse {label} T={tp}"] = wider_case(
+                    fa, fas, "sparse", q, k, v, dout, name, se=pse,
+                    vis=pvis, causal=causal, rate=rate)
+        log(f"kernel wider {name} path shapes B={WIDE_B} nh={WIDE_HEADS} "
+            f"d={d}: max_abs_err {json.dumps(path_errs)}")
+
+        # times at d = 512, on the inputs checked above; each entry's
+        # max_abs_err is that of the checks at the shape it names
+        q, k, v, dout, mask = dense_at[512]
+        out, lse = fa.flash_attention_fwd(q, k, v, mask)
+        lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa_mask = mask.expand(WIDE_B, WIDE_HEADS, 512, 512)
+        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=sdpa_mask)
+        fwd = dict(zip(("ms", "dropout_ms", "plain_ms", "library_ms"), (
+            device_ms(fn) for fn in (
+                lambda: fa.flash_attention_fwd(q, k, v, mask),
+                lambda: fa.flash_attention_fwd(q, k, v, mask, False, None,
+                                               DROPOUT, 91),
+                lambda: fa.flash_attention_fwd_plain(q, k, v, mask),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=sdpa_mask)))))
+        bwd = dict(zip(("ms", "dropout_ms", "plain_ms", "library_ms"), (
+            device_ms(fn) for fn in (
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, mask),
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, mask,
+                                               False, None, DROPOUT, 91),
+                lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                     mask),
+                lambda: torch.autograd.grad(lout, (lq, lk, lv), dout,
+                                            retain_graph=True)))))
+        rows = WIDE_B * WIDE_HEADS * 512
+        isz = q.element_size()
+        dense_err = max(max(e.values()) for lab, e in path_errs.items()
+                        if lab.startswith("dense T=512"))
+        for rec, flops, nbytes in (
+                (fwd, 4.0 * rows * 512 * d,
+                 4 * rows * d * isz + rows * 4 + mask.numel() * isz),
+                (bwd, 10.0 * rows * 512 * d,
+                 8 * rows * d * isz + 2 * rows * 4 + mask.numel() * isz)):
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, name)
+            rec.update(flops=flops, bytes=nbytes, max_abs_err=dense_err,
+                       shape=f"B={WIDE_B} nh={WIDE_HEADS} T=512 d={d}, "
+                             f"[B,1,1,T] mask")
+        records[("fwd", name)], records[("bwd", name)] = fwd, bwd
+
+        q, k, v, dout, sse, svis = sparse_at[NMT_T]
+        smask = fas._mask(sse, None, NMT_T, NMT_T, False)
+        sfwd, sbwd = sparse_timing(
+            fas, name, (q, k, v, dout, sse, svis, smask, False),
+            {"visible_pairs": int(smask.sum()) * WIDE_HEADS})
+        for rec in (sfwd, sbwd):
+            rec.update(max_abs_err=max(
+                path_errs[f"sparse encoder self T={NMT_T}"].values()),
+                shape=f"encoder self B={WIDE_B} nh={WIDE_HEADS} "
+                      f"T={NMT_T} d={d}")
+        records[("sparse_fwd", name)] = sfwd
+        records[("sparse_bwd", name)] = sbwd
+        for key in ("fwd", "bwd", "sparse_fwd", "sparse_bwd"):
+            log(f"kernel wider {key} " + json.dumps(
+                {"dtype": name, **ratios(records[(key, name)])}))
     return records
 
 
@@ -1080,9 +1355,10 @@ def pretrain_feed(b, t, rng):
     return feed
 
 
-def build_pretrain(fluid, bert, b, t, amp, layers=12, dropout=DROPOUT):
-    cfg = bert.BertConfig(vocab_size=30522, hidden_size=HIDDEN,
-                          num_layers=layers, num_heads=NH, ffn_size=3072,
+def build_pretrain(fluid, bert, b, t, amp, layers=12, dropout=DROPOUT,
+                   hidden=HIDDEN, heads=NH, ffn=3072):
+    cfg = bert.BertConfig(vocab_size=30522, hidden_size=hidden,
+                          num_layers=layers, num_heads=heads, ffn_size=ffn,
                           max_position=512, hidden_dropout=dropout,
                           attn_dropout=dropout)
 
@@ -1306,6 +1582,32 @@ def phase_kernel_bn(fb):
         isz = torch.tensor([], dtype=dtype).element_size()
         peak = PEAK_FLOPS[name]
 
+        # K4's channel gate: Co = 10 (2 mod 8) runs in f32 (Y stored in
+        # pairs) and raises in bf16 (Y stored in 16-byte vectors)
+        xg = nhwc_randn((2, 64, 14, 14), dtype, gen, positive=True)
+        wg = (torch.randn(10, 64, 1, 1, generator=gen, device="cuda")
+              * 0.2).to(dtype)
+        try:
+            got = fb.conv_stats(xg, wg)
+        except ValueError as e:
+            got, why = None, str(e)
+        if (got is None) != (name == "bfloat16"):
+            raise AssertionError(f"fused_conv_stats {name} Co=10: expected "
+                                 f"{'a raise' if got is not None else 'a run'}")
+        if got is None:
+            log(f"kernel bn fused_conv_stats {name} Co=10 raises: {why}")
+        else:
+            want = fb.conv_stats_plain(xg, wg)
+            errs, _, ok = bn_errs(
+                [("y", got[0], want[0], "y"),
+                 ("mean", got[1], want[1], "mean", want[2] + want[1] ** 2),
+                 ("var", got[2], want[2], "var", want[2] + want[1] ** 2)],
+                name)
+            log(f"kernel bn fused_conv_stats {name} Co=10: {json.dumps(errs)}")
+            if not ok:
+                raise AssertionError(f"fused_conv_stats {name} Co=10 "
+                                     f"disagrees: {errs}")
+
         # K4 (+ K2 apply2d, K3 on its output): 1x1 convs of the bottlenecks
         for label, ci, hw, co, st, res, quote in (
                 ("stage1 .a 256->64 @56", 256, 56, 64, 1, False, True),
@@ -1321,7 +1623,11 @@ def phase_kernel_bn(fb):
             m = B * (hw // st) ** 2
             y2, mean, var = fb.conv_stats(xs, w)
             py2, pmean, pvar = fb.conv_stats_plain(xs, w)
+            again = fb.conv_stats(xs, w)
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip((y2, mean, var),
+                                                         again))
+            del again
             ex2 = pvar + pmean * pmean
             errs, abs_errs, ok = bn_errs([("y", y2, py2, "y"),
                                           ("mean", mean, pmean, "mean", ex2),
@@ -1339,13 +1645,15 @@ def phase_kernel_bn(fb):
                    "shape": f"{label}: M={m} Ci={ci} Co={co}",
                    "max_err": errs, "max_abs_err": abs_errs, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
-                   "library": "torch.matmul (GEMM alone)", "flops": flops, "bytes": nbytes,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "library": "torch.matmul (GEMM alone)", "flops": flops,
+                   "bytes": nbytes, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "bound_share": bound_ms / ms,
+                   "vs_library": ms / library_ms, "repeatable": same}
             log("kernel bn " + json.dumps(rec))
-            if not ok:
+            if not ok or not same:
                 raise AssertionError(f"fused_conv_stats {name} {label} "
-                                     f"disagrees with its plain version: "
-                                     f"{errs}")
+                                     f"disagrees with its plain version or "
+                                     f"is not repeatable: {errs} {same}")
             if quote:
                 records[("fused_conv_stats", name)] = rec
 
@@ -1411,13 +1719,25 @@ def phase_kernel_bn(fb):
                                            inv * scale, d_b, d_g, float(m),
                                            False)
 
-                ms, plain_ms, library_ms = (device_ms(fn) for fn in (
-                    k3, k3_plain,
-                    lambda: torch.ops.aten.native_batch_norm_backward(
-                        dy4, a4, scale, None, None, mean, inv, True, 1e-5,
-                        [True, True, True])))
+                ms, plain_ms, library_ms, reduce_ms, dx_ms = (
+                    device_ms(fn) for fn in (
+                        k3, k3_plain,
+                        lambda: torch.ops.aten.native_batch_norm_backward(
+                            dy4, a4, scale, None, None, mean, inv, True,
+                            1e-5, [True, True, True]),
+                        lambda: fb.bn_bwd_reduce(dy, y2, None, mean, inv),
+                        lambda: fb.bn_bwd_dx(dy, y2, None, mean, inv,
+                                             inv * scale, pdb, pdg, float(m),
+                                             False)))
                 nbytes = 3 * m * co * isz + 5 * co * 4
                 bound_ms, bound_by = bound(10.0 * m * co, nbytes, name)
+                # each pass alone: the reduce reads dy and x once, the dx
+                # pass reads them again and writes dx; the two passes
+                # together move 5 M·C elements (the two-pass floor)
+                reduce_bound = bound(4.0 * m * co, 2 * m * co * isz
+                                     + 4 * co * 4, name)[0]
+                dx_bound = bound(6.0 * m * co, 3 * m * co * isz + 5 * co * 4,
+                                 name)[0]
                 records[("fused_bn_bwd", name)] = rec = {
                     "kernel": "fused_bn_bwd", "dtype": name,
                     "shape": f"{label} BN: M={m} C={co}, no relu/res",
@@ -1428,7 +1748,13 @@ def phase_kernel_bn(fb):
                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                     "library": "aten.native_batch_norm_backward",
                     "bytes": nbytes, "bound_ms": bound_ms,
-                    "bound_by": bound_by}
+                    "bound_by": bound_by, "bound_share": bound_ms / ms,
+                    "vs_library": ms / library_ms,
+                    "two_pass_floor_ms": 5 * m * co * isz / PEAK_BYTES * 1e3,
+                    "reduce_ms": reduce_ms, "reduce_bound_ms": reduce_bound,
+                    "reduce_bound_share": reduce_bound / reduce_ms,
+                    "dx_ms": dx_ms, "dx_bound_ms": dx_bound,
+                    "dx_bound_share": dx_bound / dx_ms}
                 log("kernel bn " + json.dumps(rec))
 
         # K1 stats and K2 bn_apply at the stem (C=64, 112^2) and stage 4
@@ -2089,6 +2415,69 @@ def phase_nmt(fluid, fas):
 # ---------------------------------------------------------------------------
 
 
+def phase_wide_path(fluid, fa, fas):
+    """Main path 7: the wide kernels (head dims above 256) through the entry
+    points a user calls. BERT pretraining at BERT-large's hidden 1024 cut to
+    2 heads (d = 512) and 2 layers, from seed 2024: 2 Adam steps in f32
+    (B=4, T=128) and 2 in bf16 AMP (B=4, T=512), dropout 0.1; then
+    Transformer-big (d_model 1024) cut to 2 heads and 2+2 layers,
+    packed-sparse: 2 steps in bf16 AMP (B=4, T=256) and 2 in f32 (B=4,
+    T=128). Checks finite losses and, in each run, one wide launch per
+    attention layer and step in each direction and no plain-route call (nor
+    a call of the plain delta). Returns {(entry, dtype): wide launches}."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+
+    rng = np.random.RandomState(13)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    fns = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+           fas.flash_attention_sparse_fwd, fas.flash_attention_sparse_bwd)
+    keys = ("fwd", "bwd", "sparse_fwd", "sparse_bwd")
+    launches = {}
+    cfg = nmt.TransformerConfig(n_heads=WIDE_HEADS, n_enc=2, n_dec=2)
+    runs = (("bert", "float32", 128), ("bert", "bfloat16", 512),
+            ("nmt", "bfloat16", NMT_T), ("nmt", "float32", 128))
+    for model, name, t in runs:
+        amp = name == "bfloat16"
+        if model == "bert":
+            main, startup, loss = build_pretrain(
+                fluid, bert, WIDE_B, t, amp, layers=2, hidden=WIDE_HIDDEN,
+                heads=WIDE_HEADS, ffn=4096)
+            feeds = [pretrain_feed(WIDE_B, t, rng)] * 2
+            per_step = {"fwd": 2, "bwd": 2}
+        else:
+            main, startup, loss = nmt_program(fluid, nmt, cfg, t, amp)
+            feeds = [nmt_feed(stack, "cuda")
+                     for stack, _ in nmt_batches(WIDE_B, t, 2)]
+            per_step = {"sparse_fwd": 6, "sparse_bwd": 6}
+        delta_plain, plain_delta_calls = fa.flash_attention_delta_plain, []
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            fa.flash_attention_delta_plain = lambda *a: (
+                plain_delta_calls.append(1), delta_plain(*a))[1]
+            for fn in fns:                       # main path starts
+                fn.launches = fn.wide_launches = fn.plain_on_cuda = 0
+            try:
+                vals = [float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+                        for feed in feeds]
+            finally:
+                fa.flash_attention_delta_plain = delta_plain
+            counts = {k: (fn.launches, fn.wide_launches, fn.plain_on_cuda)
+                      for k, fn in zip(keys, fns)}   # main path ends
+        want = {k: (per_step.get(k, 0) * 2,) * 2 + (0,) for k in keys}
+        log(f"wide path {model} {name} B={WIDE_B} T={t} heads={WIDE_HEADS} "
+            f"d={WIDE_HIDDEN // WIDE_HEADS}: losses {vals}; (launches, wide "
+            f"launches, plain-route calls) {json.dumps(counts)}; plain "
+            f"delta calls {len(plain_delta_calls)}")
+        if not np.isfinite(vals).all() or counts != want \
+                or plain_delta_calls:
+            raise AssertionError(f"wide path {model} {name}: losses {vals}, "
+                                 f"counts {counts}, expected {want}")
+        for k in per_step:
+            launches[(k, name)] = counts[k][1]
+    return launches
+
+
 def packed_table(fsa, v, vis, gen, chunk=1 << 20):
     """A [v, 128] packed table on the card with payload [p | G] from `gen`
     (p ~ N(0, 1), G = |N(0, 1)|), built in row chunks."""
@@ -2546,6 +2935,7 @@ def main():
     bwd_records = phase_kernel_bwd(fa)
     phase_kernel_routes(fa)
     phase_kernel_wide(fa, fas)
+    wide_records = phase_kernel_wider(fa, fas)
 
     # 4. serve (main path 1)
     launches = phase_serve(fluid, fa)
@@ -2565,6 +2955,9 @@ def main():
 
     # 9. nmt (main path 4)
     nmt_launches = phase_nmt(fluid, fas)
+
+    # 9b. the wide kernels (main path 7)
+    wide_launches = phase_wide_path(fluid, fa, fas)
 
     # 10. sparse-Adagrad and row kernels
     sa_records = phase_kernel_sparse_adagrad(fsa, dr)
@@ -2642,6 +3035,22 @@ def main():
                    else {}),
                 "shape": f"encoder self B={NMT_B} nh={NMT_NH} T={NMT_T} "
                          f"d={D}"})
+    for key, kname, replaces in (
+            ("fwd", "flash_attention_wide_fwd", FA_REPLACES),
+            ("bwd", "flash_attention_wide_bwd", FA_BWD_REPLACES),
+            ("sparse_fwd", "flash_attention_sparse_wide_fwd", FAS_REPLACES),
+            ("sparse_bwd", "flash_attention_sparse_wide_bwd",
+             FAS_BWD_REPLACES)):
+        for name in ("float32", "bfloat16"):
+            rec = wide_records[(key, name)]
+            kernels.append({
+                "name": f"{kname}[{name}]", "route": "cuda",
+                "source": FAW_SOURCE, "replaces": f"{replaces}, d >= 320",
+                "launches": wide_launches[(key, name)],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "dropout_ms": rec["dropout_ms"], "shape": rec["shape"]})
     for kname, dt in (("sparse_adagrad_update", "float32"),
                       ("sparse_row_gather", "uint16"),
                       ("sparse_row_scatter", "uint16")):

@@ -20,7 +20,9 @@
 // exactly 0.
 //
 // delta comes first, from one small kernel (flash_bwd_delta_kernel, f32 or
-// bf16), as _bwd_host_prep computes it outside the TPU kernels. Then the
+// bf16, at any head dim that is a multiple of 64: the wide kernels of
+// flash_attention_wide.cu use it too), as _bwd_host_prep computes it outside
+// the TPU kernels. Then the
 // TPU's split into dq and dk/dv work (two kernels in bf16; two kinds of CTA
 // in one launch in f32), so every output is written by one CTA and two
 // calls give the same bits (no atomics):
@@ -706,8 +708,8 @@ __global__ void __launch_bounds__(128) flash_bwd_f32_kernel(BwdParams p) {
 // Lanes of the delta kernel a row: the largest power of two up to 16 that
 // divides the row's 16-byte vectors (bf16: 8, 16, 8, 16 at d = 64 to 256;
 // f32: 16).
-template <typename T, int D>
-__host__ __device__ constexpr int delta_lanes() {
+template <typename T>
+__host__ __device__ constexpr int delta_lanes(int D) {
   return (D * (int)sizeof(T) / 16) % 16 == 0 ? 16 : 8;
 }
 
@@ -738,20 +740,23 @@ __device__ __forceinline__ float dot16<__nv_bfloat16>(const uint4& a,
   return acc;
 }
 
-// delta[bh, i] = Σ_d dO·out from f32 or bf16 tensors: kLanes lanes a row,
-// kVec 16-byte vectors of each tensor a lane, kLanes vectors apart, summed
-// in f32.
+// delta[bh, i] = Σ_d dO·out from f32 or bf16 tensors: `lanes` lanes a row,
+// nvec 16-byte vectors of each tensor a lane, `lanes` vectors apart, summed
+// in f32. The head dim is D, or with D = 0 the run-time d (a multiple of
+// 64 above the tuned head dims): the same sum in the same order. The tuned
+// head dims keep D fixed: with run-time counts the kernel was slower at
+// each of them on the H100.
 template <typename T, int D>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
     const T* out, const T* g, float* delta, int H, int T_, int pitch,
-    long long rows, long long o_sb, long long o_sh, long long o_st,
+    long long rows, int d, long long o_sb, long long o_sh, long long o_st,
     long long g_sb, long long g_sh, long long g_st) {
   constexpr int kPer = 16 / sizeof(T);  // values a vector
-  constexpr int kLanes = delta_lanes<T, D>();
-  constexpr int kVec = D / kPer / kLanes;
+  const int lanes = delta_lanes<T>(D ? D : d);
+  const int nvec = (D ? D : d) / kPer / lanes;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = idx / kLanes;
-  const int c = static_cast<int>(idx % kLanes) * kPer;
+  const long long row = idx / lanes;
+  const int c = static_cast<int>(idx % lanes) * kPer;
   float acc = 0.f;
   long long bh = 0;
   int i = 0;
@@ -760,8 +765,8 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
     i = static_cast<int>(row % T_);
     const long long b = bh / H, h = bh % H;
 #pragma unroll
-    for (int u = 0; u < kVec; ++u) {
-      const int cu = c + u * kPer * kLanes;
+    for (int u = 0; u < nvec; ++u) {
+      const int cu = c + u * kPer * lanes;
       acc = dot16<T>(*reinterpret_cast<const uint4*>(
                          out + b * o_sb + h * o_sh + i * o_st + cu),
                      *reinterpret_cast<const uint4*>(
@@ -770,7 +775,7 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
     }
   }
 #pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1)
+  for (int off = lanes / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (row < rows && c == 0) delta[bh * pitch + i] = acc;
 }
@@ -1282,17 +1287,18 @@ cudaError_t launch_delta(const void* out, const void* g, float* delta, int H,
                          const long long (&st)[6], cudaStream_t s) {
   const T* o = static_cast<const T*>(out);
   const T* gg = static_cast<const T*>(g);
-#define DELTA(DD)                                                            \
-  flash_bwd_delta_kernel<T, DD>                                              \
-      <<<(unsigned)((rows * delta_lanes<T, DD>() + 255) / 256), 256, 0,     \
-         s>>>(o, gg, delta, H, Tq, pitch, rows, st[0], st[1], st[2], st[3], \
-              st[4], st[5])
+  if (D <= 0 || D % 64) return cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((rows * delta_lanes<T>(D) + 255) / 256);
+#define DELTA(DD)                                                          \
+  flash_bwd_delta_kernel<T, DD><<<grid, 256, 0, s>>>(                      \
+      o, gg, delta, H, Tq, pitch, rows, D, st[0], st[1], st[2], st[3],     \
+      st[4], st[5])
   switch (D) {
     case 64: DELTA(64); break;
     case 128: DELTA(128); break;
     case 192: DELTA(192); break;
     case 256: DELTA(256); break;
-    default: return cudaErrorInvalidValue;
+    default: DELTA(0);
   }
 #undef DELTA
   return cudaGetLastError();

@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "flash_attention_sparse": "flash_attention_sparse.cu",
+           "flash_attention_wide": "flash_attention_wide.cu",
            "fused_bn": "fused_bn.cu",
            "sparse_adagrad": "sparse_adagrad.cu"}
 

@@ -23,11 +23,13 @@ Each source's header says how it is laid out for the card and what bounds it.
   ``flash_route`` decides from the shape, dtype and device type, as the JAX
   package's ``_pallas_ok`` does: a CPU tensor takes the plain version; on
   the card a head dim that is not a multiple of 64 takes the plain version
-  (the JAX package's XLA path; counted in ``.plain_on_cuda``), d = 64, 128,
-  192 or 256 launches the kernel, and a larger multiple of 64 raises. A
-  launch that fails raises: there is no fallback. Each counts its calls that
-  launch in ``.launches`` (the backward's delta, dq and dk/dv kernels
-  count one).
+  (the JAX package's XLA path; counted in ``.plain_on_cuda``) and every
+  multiple of 64 launches a kernel: d = 64, 128, 192 or 256 the tuned
+  family, a larger one the wide kernels of ``csrc/flash_attention_wide.cu``
+  (shared memory that does not grow with d). A launch that fails raises:
+  there is no fallback. Each counts its calls that launch in ``.launches``
+  (the backward's delta, dq and dk/dv kernels count one), those on the wide
+  kernels also in ``.wide_launches``.
 - ``flash_attention_delta_plain`` is ``_bwd_host_prep``'s delta; on the
   card both backwards compute it with a kernel of their own
   (``flash_attention_delta``), so the plain version serves the CPU and the
@@ -63,7 +65,9 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 192, 256)  # the CUDA kernels' head dims
+# the tuned kernels' head dims; the wide kernels take the other multiples
+# of 64
+HEAD_DIMS = (64, 128, 192, 256)
 # _pick_blocks' block candidates in the JAX package: every one is a
 # multiple of 8, so a length has one iff it is a multiple of 8
 _BLOCKS = (512, 256, 128, 64, 32, 16, 8)
@@ -238,9 +242,9 @@ def flash_route(q_shape, dtype, device_type: str) -> str:
 
     A CPU tensor takes the plain version. On the card the head dim decides,
     as ``_pallas_ok`` decides in the JAX package: d % 64 != 0 takes the plain
-    version (the JAX package's blockwise XLA path), d in HEAD_DIMS the
-    kernel, and another multiple of 64 (320 and up: Pallas shapes with no
-    CUDA kernel) raises. B·nh has no limit: the grids are flat."""
+    version (the JAX package's blockwise XLA path), every multiple of 64 a
+    kernel (the tuned family for d in HEAD_DIMS, the wide kernels above
+    them). B·nh has no limit: the grids are flat."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: no kernel for dtype {dtype}")
     if device_type == "cpu":
@@ -248,15 +252,7 @@ def flash_route(q_shape, dtype, device_type: str) -> str:
     if device_type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device type "
                          f"{device_type}")
-    d = q_shape[-1]
-    if d % 64:
-        return "plain"
-    if d in HEAD_DIMS:
-        return "kernel"
-    raise ValueError(f"flash_attention: q of shape {tuple(q_shape)} has head "
-                     f"dim {d}, which has no CUDA kernel; the kernels take "
-                     f"head dims {HEAD_DIMS}, and the plain version takes "
-                     f"those that are not multiples of 64")
+    return "plain" if q_shape[-1] % 64 else "kernel"
 
 
 def pick_block(t: int) -> Optional[int]:
@@ -297,6 +293,9 @@ def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
     if not _use_kernel(flash_attention_fwd, q):
         return flash_attention_fwd_plain(q, k, v, bias, causal, sm_scale,
                                          dropout_rate, seed)
+    if q.shape[-1] not in HEAD_DIMS:
+        return launch_wide_fwd(flash_attention_fwd, q, k, v, bias, None,
+                               None, causal, sm_scale, dropout_rate, seed)
     if q.dtype == torch.bfloat16:
         return _launch_fwd_bf16(q, k, v, bias, causal, sm_scale, dropout_rate,
                                 seed)
@@ -305,6 +304,7 @@ def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.wide_launches = 0
 flash_attention_fwd.plain_on_cuda = 0
 
 
@@ -326,6 +326,10 @@ def flash_attention_bwd(q, k, v, out, lse, g, bias=None, causal: bool = False,
     if not _use_kernel(flash_attention_bwd, q):
         return flash_attention_bwd_plain(q, k, v, out, lse, g, bias, causal,
                                          sm_scale, dropout_rate, seed, dbias)
+    if q.shape[-1] not in HEAD_DIMS:
+        return launch_wide_bwd(flash_attention_bwd, q, k, v, out, lse, g,
+                               bias, None, None, causal, sm_scale,
+                               dropout_rate, seed, dbias)
     if q.dtype == torch.bfloat16:
         return _launch_bwd_bf16(q, k, v, out, lse, g, bias, causal, sm_scale,
                                 dropout_rate, seed, dbias)
@@ -334,6 +338,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, bias=None, causal: bool = False,
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.wide_launches = 0
 flash_attention_bwd.plain_on_cuda = 0
 
 
@@ -662,6 +667,88 @@ def _launch_bwd_bf16(q, k, v, out, lse, g, bias, causal, sm_scale,
             thr, inv, drop, stream)
     _raise_on(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    return dq, dk, dv, db
+
+
+def _wide_strides(tensors, bias_strides):
+    """(batch, head, token) strides of each tensor, then the four of the
+    bias (zeros without one), as the wide kernels' int64 array."""
+    vals = [x for t in tensors for x in t.stride()[:3]] + list(bias_strides)
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def launch_wide_fwd(counter, q, k, v, bias, se, vis, causal, sm_scale,
+                    dropout_rate, seed):
+    """The wide forward (any head dim d = 64·k; the wrappers send it those
+    above 256): dense with `bias` (se is None) or block-sparse with the
+    descriptor `se` and the 64x64 tile table `vis`. A tensor whose strides
+    break 16-byte loads is copied first. Counts one launch on `counter`."""
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    q, k, v = (t if _kernel_layout_ok(t) else t.contiguous()
+               for t in (q, k, v))
+    out = _packed_like(b, nh, tq, d, q.dtype, q.device)
+    lse = torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
+    bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
+    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    lib = _bind("flash_attention_wide", "flash_attention_wide_fwd",
+                [_PTR] * 8 + [_I32] * 5 + [_PTR, _F32] + [_I32] * 3
+                + _DROPOUT_ARGS + [_PTR])
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_wide_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+            se.data_ptr() if se is not None else None,
+            vis.data_ptr() if vis is not None else None, out.data_ptr(),
+            lse.data_ptr(), b, nh, tq, tk, d,
+            _wide_strides((q, k, v, out), bias_strides), float(sm_scale),
+            int(causal), int(se is not None), _DTYPE_CODE[q.dtype], seed_ptr,
+            thr, inv, drop, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, "flash_attention_fwd")
+    counter.launches += 1
+    counter.wide_launches += 1
+    return out, lse
+
+
+def launch_wide_bwd(counter, q, k, v, out, lse, g, bias, se, vis, causal,
+                    sm_scale, dropout_rate, seed, dbias=None):
+    """The wide backward: the delta kernel, then the dk/dv and dq kernels
+    (counted as one launch on `counter`); dense or block-sparse as
+    `launch_wide_fwd`. Returns (dq, dk, dv, dbias)."""
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    q, k, v, g, out = (t if _kernel_layout_ok(t) else t.contiguous()
+                       for t in (q, k, v, g.to(q.dtype), out))
+    lse = lse.reshape(b * nh, tq)   # rows lse.stride(0) floats apart
+    lse = lse if lse.stride(1) == 1 else lse.contiguous()
+    dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
+    dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
+    dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
+    # zeros: the per-query dbias of the key tiles a causal walk skips
+    db = (torch.zeros((b, nh, tq, tk), dtype=torch.float32, device=q.device)
+          if dbias == "per_q" else _dbias_out(dbias, b, nh, tq, tk,
+                                               q.device))
+    bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
+    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    lib = _bind("flash_attention_wide", "flash_attention_wide_bwd",
+                [_PTR] * 5 + [_I64, _PTR, _I64] + [_PTR] * 8 + [_I32] * 5
+                + [_PTR, _F32] + [_I32] * 3 + _DROPOUT_ARGS + [_PTR])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        delta = _launch_delta(out, g, stream)
+        err = lib.flash_attention_wide_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), lse.stride(0), delta.data_ptr(), delta.stride(0),
+            bias_ptr, se.data_ptr() if se is not None else None,
+            vis.data_ptr() if vis is not None else None, dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            db.data_ptr() if dbias == "per_q" else None,
+            db.data_ptr() if dbias == "col" else None, b, nh, tq, tk, d,
+            _wide_strides((q, k, v, g, dq, dk, dv), bias_strides),
+            float(sm_scale), int(causal), int(se is not None),
+            _DTYPE_CODE[q.dtype], seed_ptr, thr, inv, drop, stream)
+    _raise_on(lib, err, "flash_attention_bwd")
+    counter.launches += 1
+    counter.wide_launches += 1
     return dq, dk, dv, db
 
 

@@ -32,11 +32,13 @@ query gets out = 0 and lse = -1e30, and pad rows get zero gradients.
   plain version; on the card Tq or Tk not a multiple of 64, or a head dim
   that is not a multiple of 64, takes the plain version too (the JAX
   package's blockwise XLA path; counted in ``.plain_on_cuda``), d = 64, 128,
-  192 or 256 launches the kernels, and a larger multiple of 64 raises. Each
-  counts its launches in ``.launches`` (a backward counts one: the dense
-  backward's delta kernel, then in f32 a dq and a dk/dv kernel, in bf16 one
-  kernel whose CTAs compute dk/dv or dq). The bf16 backward reads its
-  tensors through TMA tensor maps (``_tma_desc``).
+  192 or 256 launches the kernels of ``csrc/flash_attention_sparse.cu``, and
+  a larger multiple of 64 the wide kernels of ``csrc/flash_attention_wide.cu``
+  in their sparse mode. Each counts its launches in ``.launches`` (a
+  backward counts one: the dense backward's delta kernel, then in f32 a dq
+  and a dk/dv kernel, in bf16 one kernel whose CTAs compute dk/dv or dq),
+  those on the wide kernels also in ``.wide_launches``. The bf16 backward
+  reads its tensors through TMA tensor maps (``_tma_desc``).
 - ``_FlashAttentionSparse`` is the ``torch.autograd.Function`` that joins
   them, as the ``custom_vjp`` ``_flash_sparse_core`` does in the JAX package;
   ``flash_attention_packed_sparse`` is the [B, T, nh·d] entry point.
@@ -52,12 +54,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from .flash_attention import (NEG_INF, _DROPOUT_ARGS, _DTYPE_CODE, _I64,
-                              _check_rate, _descs, _dropout_args, _dropped,
-                              _kernel_layout_ok, _launch_delta, _packed_like,
-                              _padded_rows, _raise_on, _tma_desc,
-                              check_block_divisor, dropout_keep_mask,
-                              flash_route)
+from .flash_attention import (HEAD_DIMS, NEG_INF, _DROPOUT_ARGS, _DTYPE_CODE,
+                              _I64, _check_rate, _descs, _dropout_args,
+                              _dropped, _kernel_layout_ok, _launch_delta,
+                              _packed_like, _padded_rows, _raise_on,
+                              _tma_desc, check_block_divisor,
+                              dropout_keep_mask, flash_route,
+                              launch_wide_bwd, launch_wide_fwd)
 
 TILE = 64  # q rows and keys per tile of the CUDA kernels
 
@@ -262,11 +265,18 @@ def flash_attention_sparse_fwd(q, k, v, se, vis, causal: bool = False,
     if not _use_kernel(flash_attention_sparse_fwd, q, k.shape[2]):
         return flash_attention_sparse_fwd_plain(q, k, v, se, vis, causal,
                                                 sm_scale, dropout_rate, seed)
+    if q.shape[-1] not in HEAD_DIMS:
+        _kernel_checks("flash_attention_sparse_fwd", vis)
+        return launch_wide_fwd(flash_attention_sparse_fwd, q, k, v, None,
+                               se.contiguous(),
+                               vis.to(torch.int32).contiguous(), causal,
+                               sm_scale, dropout_rate, seed)
     return _launch_fwd(q, k, v, se, vis, causal, sm_scale, dropout_rate,
                        seed)
 
 
 flash_attention_sparse_fwd.launches = 0
+flash_attention_sparse_fwd.wide_launches = 0
 flash_attention_sparse_fwd.plain_on_cuda = 0
 
 
@@ -285,12 +295,19 @@ def flash_attention_sparse_bwd(q, k, v, out, lse, g, se, vis,
         return flash_attention_sparse_bwd_plain(q, k, v, out, lse, g, se,
                                                 vis, causal, sm_scale,
                                                 dropout_rate, seed)
+    if q.shape[-1] not in HEAD_DIMS:
+        _kernel_checks("flash_attention_sparse_bwd", vis)
+        return launch_wide_bwd(flash_attention_sparse_bwd, q, k, v, out, lse,
+                               g, None, se.contiguous(),
+                               vis.to(torch.int32).contiguous(), causal,
+                               sm_scale, dropout_rate, seed)[:3]
     launch = _launch_bwd_bf16 if q.dtype == torch.bfloat16 else _launch_bwd
     return launch(q, k, v, out, lse, g, se, vis, causal, sm_scale,
                   dropout_rate, seed)
 
 
 flash_attention_sparse_bwd.launches = 0
+flash_attention_sparse_bwd.wide_launches = 0
 flash_attention_sparse_bwd.plain_on_cuda = 0
 
 

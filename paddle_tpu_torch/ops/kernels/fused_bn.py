@@ -283,7 +283,8 @@ _ARGTYPES = {
     "fused_bn_apply": [_PTR] * 6 + [_I64] + [_I32] * 8 + [_PTR],
     "fused_bn_bwd_reduce": [_PTR] * 5 + [_I64, _I32, _I32, _I32, _I32]
     + [_PTR] * 4,
-    "fused_bn_bwd_dx": [_PTR] * 10 + [_I64, _I32, _I32, _F32, _I32, _PTR],
+    "fused_bn_bwd_dx": [_PTR] * 10 + [_I64, _I32, _I32, _F32] + [_I32] * 6
+    + [_PTR],
     "fused_conv_stats": [_PTR] * 3 + [_I32] * 3 + [_I64] * 3 + [_I32] * 3
     + [_PTR] * 4,
 }
@@ -373,9 +374,13 @@ def _launch_stats(x2):
     return mean, var
 
 
+def _sms(t) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 def apply_geometry(m: int, c: int, itemsize: int, sms: int):
-    """K2's launch on a card of `sms` SMs: (row_blocks, chunks, vectors,
-    rows_step, rows_per_cta).
+    """The launch of K2 and of K3's dx pass on a card of `sms` SMs:
+    (row_blocks, chunks, vectors, rows_step, rows_per_cta).
 
     A thread owns one 16-byte channel vector; a CTA is `vectors` threads
     across a channel chunk by `rows_step` down, at most 256. A row of C up to
@@ -405,9 +410,7 @@ def _launch_apply(x2, mean, isc, bias, act, res2):
             x2.data_ptr(), res2.data_ptr() if res2 is not None else None,
             y2.data_ptr(), mean.data_ptr(), isc.data_ptr(), bias.data_ptr(),
             m, c, int(act == "relu"), _DTYPE_CODE[x2.dtype],
-            *apply_geometry(m, c, x2.element_size(), torch.cuda
-                            .get_device_properties(x2.device)
-                            .multi_processor_count), _stream(x2))
+            *apply_geometry(m, c, x2.element_size(), _sms(x2)), _stream(x2))
     _raise_on(lib, err, "bn_apply")
     return y2
 
@@ -449,7 +452,7 @@ def _launch_bwd_dx(dy2, x2, y2, mean, inv, isc, dbeta, dgamma, m_rows,
             dgamma.data_ptr(), dx2.data_ptr(),
             dres2.data_ptr() if has_res else None, m, c,
             int(y2 is not None), float(1.0 / m_rows), _DTYPE_CODE[x2.dtype],
-            _stream(x2))
+            *apply_geometry(m, c, x2.element_size(), _sms(x2)), _stream(x2))
     _raise_on(lib, err, "bn_bwd_dx")
     return dx2, dres2
 
@@ -464,9 +467,11 @@ def _launch_conv_stats(xs, w):
     vec = 16 // xs.element_size()
     n, ci, hs, ws = xs.shape
     co = w.shape[0]
-    if ci % vec or co % 2:
+    # bf16 stores Y in 16-byte vectors of 8 channels, f32 in pairs
+    cvec = 8 if xs.dtype == torch.bfloat16 else 2
+    if ci % vec or co % cvec:
         raise ValueError(f"{name}: Ci = {ci} must be a multiple of {vec} and "
-                         f"Co = {co} even")
+                         f"Co = {co} of {cvec}")
     if xs.stride(1) != 1:
         # the kernel reads rows of contiguous channels: a copy to
         # channels-last for an input in any other layout

@@ -456,26 +456,17 @@ def test_cuda_bwd_kernel_matches_plain(dtype, tol, causal, bias_kind, t, d,
 
 
 @pytest.mark.parametrize("device_type", ["cpu", "cuda"])
-@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256, 320])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256, 320, 384, 512,
+                               1024])
 def test_flash_route_mirrors_pallas_ok(d, device_type, monkeypatch):
     """The port's static route: a CPU tensor takes the plain version; on the
-    card d % 64 != 0 takes it too (the JAX package's XLA path), d = 64, 128,
-    192 and 256 the kernels, and d = 320 (a Pallas shape without a CUDA
-    kernel) raises before any launch, naming the shape."""
+    card d % 64 != 0 takes it too (the JAX package's XLA path) and every
+    multiple of 64 a kernel: d = 64, 128, 192 and 256 the tuned family,
+    d = 320 and up the wide kernels (HEAD_DIMS says which)."""
     shape = (2, 3, 128, d)
-    if device_type == "cpu":
-        want = "plain"
-    elif d % 64:
-        want = "plain"
-    elif d in (64, 128, 192, 256):
-        want = "kernel"
-    else:
-        with pytest.raises(ValueError, match=r"\(2, 3, 128, %d\)" % d):
-            tfa.flash_route(shape, torch.bfloat16, device_type)
-        want = None
+    want = "plain" if device_type == "cpu" or d % 64 else "kernel"
     for dtype in (torch.float32, torch.bfloat16):
-        if want is not None:
-            assert tfa.flash_route(shape, dtype, device_type) == want
+        assert tfa.flash_route(shape, dtype, device_type) == want
     # the card's choice is _pallas_ok's head-dim rule (Pallas forced on)
     monkeypatch.setattr(jfa, "FORCE_PALLAS_INTERPRET", True)
     assert jfa._pallas_ok(128, d) == (d % 64 == 0)
@@ -511,10 +502,11 @@ def test_no_block_divisor_raises_as_jax(entry, t):
         assert tfa.pick_block(t) == jfa._pick_blocks(t)[0]
 
 
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 320, 512])
 def test_wide_head_dims_match_pallas_interpret(d, monkeypatch):
-    """d = 192 and 256 go to the kernels on the card, as JAX sends them to
-    Pallas: the port's op against jax.grad through the Pallas kernels in
+    """d = 192 to 512 go to the kernels on the card (the tuned family up to
+    256, the wide kernels above), as JAX sends them to Pallas: the port's
+    op against jax.grad through the Pallas kernels in
     interpret mode, f32, at T = 64 with the [B,1,1,T] mask: out (TOL) and
     dq, dk, dv (BWD_TOL)."""
     import jax
@@ -904,7 +896,7 @@ def test_cuda_bwd_is_bitwise_repeatable(form):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,d", [(512, 64), (130, 128), (128, 192),
-                                 (64, 256)])
+                                 (64, 256), (128, 320), (64, 512)])
 def test_cuda_delta_kernel_matches_plain(t, d, dtype):
     _cuda_or_skip()
     (out, dout, _), _ = _cuda_qkv(2, 3, t, d, dtype, 5)
@@ -916,7 +908,7 @@ def test_cuda_delta_kernel_matches_plain(t, d, dtype):
 @pytest.mark.cuda
 def test_cuda_head_dim_32_takes_the_plain_route():
     """d = 32 on the card: the plain version, counted, no launch; d = 320
-    raises before any launch."""
+    launches the wide kernel once and counts no plain call."""
     _cuda_or_skip()
     (q, k, v), _ = _cuda_qkv(2, 12, 128, 32, torch.bfloat16, 6)
     before = (tfa.flash_attention_fwd.launches,
@@ -927,5 +919,51 @@ def test_cuda_head_dim_32_takes_the_plain_route():
             tfa.flash_attention_fwd.plain_on_cuda) == (before[0],
                                                        before[1] + 1)
     (q, k, v), _ = _cuda_qkv(1, 1, 64, 320, torch.bfloat16, 6)
-    with pytest.raises(ValueError, match="head dim 320"):
-        tfa.flash_attention_fwd(q, k, v)
+    fwd = tfa.flash_attention_fwd
+    before = (fwd.launches, fwd.wide_launches, fwd.plain_on_cuda)
+    tfa.flash_attention_fwd(q, k, v)
+    assert (fwd.launches, fwd.wide_launches, fwd.plain_on_cuda) == (
+        before[0] + 1, before[1] + 1, before[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,fwd_tol,bwd_tol", [
+    (torch.float32, 2e-5, 2e-5), (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("case", ["mask_dropout", "per_q_causal"])
+def test_cuda_wide_kernels_match_plain(case, d, dtype, fwd_tol, bwd_tol):
+    """The wide kernels (d >= 320) against the plain versions: the
+    [B,1,1,T] mask with dropout (column-sum dbias) and a per-query bias,
+    causal (per-query dbias), at a ragged T; one wide launch each, no plain
+    call, and a second backward equal bit for bit."""
+    _cuda_or_skip()
+    (q, k, v), g = _cuda_qkv(2, 2, 200, d, dtype, 8)
+    if case == "mask_dropout":
+        bias = torch.zeros(2, 1, 1, 200, device="cuda", dtype=dtype)
+        bias[..., 150:] = -1e4
+        causal, rate, form = False, 0.1, "col"
+    else:
+        bias = torch.randn(2, 2, 200, 200, generator=g,
+                           device="cuda").to(dtype)
+        causal, rate, form = True, 0.0, "per_q"
+    fwd, bwd = tfa.flash_attention_fwd, tfa.flash_attention_bwd
+    before = [(f.launches, f.wide_launches, f.plain_on_cuda)
+              for f in (fwd, bwd)]
+    out, lse = fwd(q, k, v, bias, causal, None, rate, 5)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    got = bwd(q, k, v, out, lse, dout, bias, causal, None, rate, 5, form)
+    assert [(f.launches, f.wide_launches, f.plain_on_cuda)
+            for f in (fwd, bwd)] == [(n + 1, w + 1, p)
+                                     for n, w, p in before]
+    ref = tfa.flash_attention_fwd_plain(q, k, v, bias, causal, None, rate, 5)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, dout, bias,
+                                         causal, None, rate, 5, form)
+    for a, w in zip((out, lse), ref):
+        torch.testing.assert_close(a.float(), w.float(), rtol=fwd_tol,
+                                   atol=fwd_tol)
+    for a, w in zip(got[:3], want[:3]):
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= bwd_tol * w.float().abs().max().item(), err
+    torch.testing.assert_close(got[3], want[3], rtol=2e-5, atol=2e-5)
+    again = bwd(q, k, v, out, lse, dout, bias, causal, None, rate, 5, form)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -271,16 +271,17 @@ def test_value_errors(case):
 
 @pytest.mark.parametrize("device_type", ["cpu", "cuda"])
 @pytest.mark.parametrize("t", [64, 96, 256])
-@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256, 320])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 192, 256, 320, 384, 512,
+                               1024])
 def test_sparse_route_mirrors_sparse_pallas_ok(d, t, device_type,
                                                monkeypatch):
     """The port's static route for the sparse op: a CPU tensor takes the
     plain version; on the card Tq or Tk not a multiple of 64 (T = 96: no
     power-of-two block ≥ 64) or d % 64 != 0 takes it too (the JAX package's
-    blockwise XLA path), d = 64 to 256 the kernels, and d = 320 raises
-    before any launch, naming the shape. The card's choice is
-    _sparse_pallas_ok's (Pallas forced on), for self (Tq = Tk) and for cross
-    attention against 256 keys, both ways round."""
+    blockwise XLA path), and every other shape a kernel (d = 64 to 256 the
+    tuned sparse kernels, d = 320 and up the wide kernels). The card's
+    choice is _sparse_pallas_ok's (Pallas forced on), for self (Tq = Tk)
+    and for cross attention against 256 keys, both ways round."""
     fa = _jfa()
     monkeypatch.setattr(fa, "FORCE_PALLAS_INTERPRET", True)
     for tq, tk in ((t, t), (t, 256), (256, t)):
@@ -289,14 +290,10 @@ def test_sparse_route_mirrors_sparse_pallas_ok(d, t, device_type,
         for dtype in (torch.float32, torch.bfloat16):
             if device_type == "cpu":
                 assert fas.sparse_route(shape, tk, dtype, "cpu") == "plain"
-            elif pallas and d not in tfa.HEAD_DIMS:
-                with pytest.raises(ValueError,
-                                   match=r"\(2, 3, %d, %d\)" % (tq, d)):
-                    fas.sparse_route(shape, tk, dtype, device_type)
             else:
                 want = "kernel" if pallas else "plain"
                 assert fas.sparse_route(shape, tk, dtype, device_type) == want
-    assert (d == 320) == (d % 64 == 0 and d not in tfa.HEAD_DIMS)
+    assert (d >= 320) == (d % 64 == 0 and d not in tfa.HEAD_DIMS)
 
 
 def test_sparse_route_rejects_other_dtypes_and_devices():
@@ -306,10 +303,11 @@ def test_sparse_route_rejects_other_dtypes_and_devices():
         fas.sparse_route((1, 1, 64, 64), 64, torch.float32, "meta")
 
 
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 320, 512])
 def test_wide_head_dims_match_jax_pallas_interpret(d):
-    """d = 192 and 256, which the card sends to the kernels as JAX sends
-    them to Pallas: JAX's Pallas kernels in interpret mode against the
+    """d = 192 to 512, which the card sends to the kernels (the wide ones
+    above 256) as JAX sends them to Pallas: JAX's Pallas kernels in
+    interpret mode against the
     port, f32, at the 64-token tiles (T = 128), causal, out and all three
     gradients."""
     fa = _jfa()
@@ -357,22 +355,24 @@ def _close(got, want, tol):
     (torch.float32, 2e-5, 2e-5), (torch.bfloat16, 2e-2, 1e-2)])
 @pytest.mark.parametrize("d,causal,rate", [
     (64, False, 0.0), (64, True, 0.1), (128, False, 0.1), (192, True, 0.0),
-    (256, False, 0.1)])
+    (256, False, 0.1), (320, True, 0.1), (320, False, 0.0), (512, True, 0.0),
+    (512, False, 0.1)])
 def test_cuda_kernels_match_plain(dtype, fwd_tol, bwd_tol, d, causal, rate):
     """The sparse kernels against their plain versions on the card at
-    every head dim, with dropout from the same seed; the backward is
-    bitwise repeatable and an all-ones tile table changes no bit."""
+    every head dim (the wide kernels from d = 320), with dropout from the
+    same seed; the backward is bitwise repeatable and an all-ones tile
+    table changes no bit."""
     _cuda_or_skip()
     q, k, v, dout, se, vis = _cuda_case(2, 256, 2, d, dtype, 3, causal)
-    before = (fas.flash_attention_sparse_fwd.launches,
-              fas.flash_attention_sparse_bwd.launches)
+    fns = (fas.flash_attention_sparse_fwd, fas.flash_attention_sparse_bwd)
+    before = [(f.launches, f.wide_launches) for f in fns]
     out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis, causal, None,
                                               rate, 7)
     got = fas.flash_attention_sparse_bwd(q, k, v, out, lse, dout, se, vis,
                                          causal, None, rate, 7)
-    assert (fas.flash_attention_sparse_fwd.launches,
-            fas.flash_attention_sparse_bwd.launches) == (before[0] + 1,
-                                                         before[1] + 1)
+    wide = int(d not in tfa.HEAD_DIMS)
+    assert [(f.launches, f.wide_launches) for f in fns] == [
+        (n + 1, w + wide) for n, w in before]
     ref = fas.flash_attention_sparse_fwd_plain(q, k, v, se, vis, causal,
                                                None, rate, 7)
     want = fas.flash_attention_sparse_bwd_plain(q, k, v, out, lse, dout, se,

@@ -341,6 +341,51 @@ def test_fused_conv_bn_e2e_bitwise_at_model_widths(_env):
     np.testing.assert_array_equal(got_f, got_u)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci,co,hw,stride", [
+    (256, 64, 14, 1), (64, 256, 14, 1), (256, 512, 14, 2), (96, 136, 9, 1),
+    (512, 2048, 7, 1), (64, 10, 14, 1)])
+def test_cuda_conv_stats_bf16_walks(ci, co, hw, stride):
+    """K4 bf16 at each Co chunk width (64, 128, 256; several chunks at Co =
+    512 and 2048), a ragged M, a Ci that is no multiple of 64 and a stride-2
+    subsample read in place: y within 1e-2·max|plain| and the statistics
+    rtol 1e-4 of conv_stats_plain, two calls equal bit for bit; then K3 on
+    its output, dx within 1e-2·max|plain|. A Co that is no multiple of 8
+    (Y is stored in 16-byte vectors) raises instead of launching."""
+    _cuda_or_skip()
+    from paddle_tpu_torch.core.executor import cuda_device
+
+    dev = cuda_device(0)
+    gen = torch.Generator(dev).manual_seed(ci + co)
+    x = torch.randn(16, ci, hw, hw, generator=gen, device=dev).abs()
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = (torch.randn(co, ci, 1, 1, generator=gen, device=dev)
+         * (2.0 / ci) ** 0.5).to(torch.bfloat16)
+    xs = x[:, :, ::stride, ::stride]
+    if co % 8:
+        with pytest.raises(ValueError, match=f"Co = {co} of 8"):
+            tbn.conv_stats(xs, w)
+        return
+    got = tbn.conv_stats(xs, w)
+    again = tbn.conv_stats(xs, w)
+    y2, mean, var = got
+    py2, pmean, pvar = tbn.conv_stats_plain(xs, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (y2.float() - py2.float()).abs().max() <= \
+        1e-2 * py2.float().abs().max()
+    torch.testing.assert_close(mean, pmean, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(var, pvar, rtol=1e-4, atol=1e-6)
+    inv = torch.rsqrt(var + 1e-5)
+    dy = torch.randn(y2.shape, generator=gen, device=dev).to(y2.dtype)
+    db, dg = tbn.bwd_reduce_plain(dy, y2, None, mean, inv)
+    dx, _ = tbn.bn_bwd_dx(dy, y2, None, mean, inv, inv, db, dg,
+                          float(y2.shape[0]), False)
+    pdx, _ = tbn.bwd_dx_plain(dy, y2, None, mean, inv, inv, db, dg,
+                              float(y2.shape[0]), False)
+    assert (dx.float() - pdx.float()).abs().max() <= \
+        1e-2 * pdx.float().abs().max()
+
+
 def test_kernel_paths_reject_other_devices():
     """A wrapper takes the plain version only for a CPU tensor; a tensor on
     any other device (here "meta") raises instead of falling back."""
@@ -392,12 +437,16 @@ def _k2_visits(m, c, itemsize, sms):
     return geo, row_count, vec_count
 
 
+@pytest.mark.parametrize("kernel", ["k2_apply", "k3_dx"])
 @pytest.mark.parametrize("itemsize", [4, 2], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("c", _ADMITTED_C)
-def test_k2_launch_geometry_visits_each_vector_once(c, itemsize):
+def test_k2_launch_geometry_visits_each_vector_once(c, itemsize, kernel):
     """For every C the gate admits and an M that is no multiple of K2's rows
     a CTA, every (row, 16-byte channel vector) pair is visited exactly once,
-    by a CTA of at most 256 threads, on a card of 132 SMs and of 16."""
+    by a CTA of at most 256 threads, on a card of 132 SMs and of 16. K3's
+    dx pass (bwd_dx_kernel) is launched with the same apply_geometry and
+    walks rows and vectors with apply_kernel's index arithmetic, which
+    _k2_visits replays for both."""
     m = 9001   # odd: rows a CTA are a multiple of 4
     for sms in (132, 16):
         geo, row_count, vec_count = _k2_visits(m, c, itemsize, sms)
