@@ -33,11 +33,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              and their bounds. Times each kernel, its
              plain version and one
              PyTorch library call, with each kernel's ratio to that call and
-             share of its bound (the f32 backward's bound is its 3xTF32
-             one, the FMA bound beside it); logs the bf16 flash kernels' registers, spills, dynamic
-             shared memory and HGMMA count (the sparse backward's too), and
-             the f32 backward's and K2's registers and spills and the f32
-             backward's HMMA count.
+             share of its bound (the f32 forward's and backward's bound
+             is their 3xTF32 one, the FMA bound beside it); logs the bf16
+             flash kernels' registers, spills, dynamic shared memory and
+             HGMMA count (the sparse backward's too), and the f32 forward's
+             and backward's and K2's registers and spills and the f32
+             flash kernels' HMMA count.
 4. serve   — main path 1: BERT-base at full width (vocab 30522, hidden 768,
              12 layers, 12 heads, ffn 3072) built with the port's DSL from a
              seed, saved with io.save_inference_model, served by
@@ -60,7 +61,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              at ResNet-50 B=128 shapes; times each kernel, its plain version
              and one PyTorch library call where one computes the same
              function; K4 at four bottleneck shapes beside torch.matmul and
-             its bound, two calls bitwise equal; K3's reduce and dx passes
+             its bound (f32: 3xTF32, the FMA bound beside it; the kernels
+             line quotes all four), two calls bitwise equal; K4's registers,
+             spills and HGMMA/HMMA counts; K3's reduce and dx passes
              timed apart as well as together; K2 at the stem (C=64, relu),
              stage 2 .sc (C=512, no relu or residual: the library's shape)
              and stage 4 (C=2048, residual and relu), each with its bound.
@@ -481,6 +484,9 @@ def kernel_label(mangled):
     if k:
         return (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, "
                 f"res={k.group(3)}, relu={k.group(4)}>")
+    k = re.search(r"conv_stats_f32_kernelILb([01])E", mangled)
+    if k:
+        return f"conv_stats_f32_kernel<resident W={k.group(1)}>"
     k = re.search(r"conv_stats_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                   mangled)
     if k:
@@ -497,12 +503,13 @@ def kernel_label(mangled):
 def log_wgmma_build(build):
     """ptxas's registers, shared memory and spills for each bf16 flash
     kernel by name (the dense ones and the sparse backward), the f32 flash
-    backward kernel (dk/dv and dq CTAs in one), K2's apply_kernel, K3's
-    bwd_dx_kernel, K4's conv_stats_bf16_kernel and the wide flash kernels;
-    where the toolkit has cuobjdump, the count of HGMMA (wgmma) and UTMALDG
-    (TMA load) instructions in each flash library, of HMMA (mma.sync)
-    instructions in each f32 backward kernel and wide kernel, and of HGMMA
-    in K4."""
+    forward and backward kernels (the backward's dk/dv and dq CTAs in one),
+    K2's apply_kernel, K3's bwd_dx_kernel, K4's conv_stats_f32_kernel and
+    conv_stats_bf16_kernel and the wide flash kernels; where the toolkit
+    has cuobjdump, the count of HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions in each flash library, of HMMA (mma.sync) instructions in
+    each dense f32 flash kernel and wide kernel, and of HGMMA and HMMA in
+    K4."""
     import ctypes
     import re
 
@@ -516,7 +523,9 @@ def log_wgmma_build(build):
                           r"for) '?(\w+)'?", line)
             if m:
                 fn = kernel_label(m.group(1)) or m.group(1)
-            elif fn and ("bf16" in fn or "flash_bwd_f32" in fn
+            elif fn and ("bf16" in fn or fn.startswith(("flash_fwd_f32",
+                                                         "flash_bwd_f32",
+                                                         "conv_stats_f32"))
                          or "apply_kernel" in fn or "bwd_dx_kernel" in fn
                          or "wide_" in fn) \
                     and ("Used" in line or "spill" in line
@@ -530,7 +539,7 @@ def log_wgmma_build(build):
                     capture_output=True, text=True, check=True).stdout
                 for section in sass.split("Function : ")[1:]:
                     name = kernel_label(section.split(None, 1)[0]) or ""
-                    if "conv_stats_bf16" in name or "wide_" in name:
+                    if "conv_stats_" in name or "wide_" in name:
                         log(f"build {lib} {name}: {section.count('HGMMA')} "
                             f"HGMMA and {section.count('HMMA')} HMMA "
                             f"instructions (cuobjdump)")
@@ -565,7 +574,7 @@ def log_wgmma_build(build):
                 f"{sass.count('UTMALDG')} UTMALDG instructions (cuobjdump)")
             for section in sass.split("Function : ")[1:]:
                 name = kernel_label(section.split(None, 1)[0]) or ""
-                if lib == "flash_attention_bwd" and "_f32_kernel" in name:
+                if name.startswith(("flash_fwd_f32", "flash_bwd_f32")):
                     log(f"build {lib} {name}: {section.count('HMMA')} HMMA "
                         f"instructions (cuobjdump)")
         else:
@@ -629,13 +638,20 @@ def phase_kernel(fa):
                       + B * NH * t * 4                       # lse
                       + bias.numel() * bias.element_size())
             bound_ms, bound_by = bound(flops, nbytes, name)
+            extra = {}
+            if name == "float32":
+                # 3xTF32 on the tensor cores, as the f32 backward: that is
+                # its least time; the CUDA-core FMA bound stays beside it
+                extra["bound_fma_ms"] = bound_ms
+                bound_ms, bound_by = bound(3 * flops, nbytes, name,
+                                           TF32_PEAK_FLOPS)
             rec = {"dtype": name, "B": B, "nh": NH, "T": t, "d": D,
                    "max_abs_err_out": e_out, "max_abs_err_lse": e_lse,
                    "max_abs_err_dropout": max(e_dout, e_dlse),
                    "tol": tol, "ms": ms, "dropout_ms": drop_ms,
                    "launch_ms": launch_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "flops": flops, "bytes": nbytes,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "bound_ms": bound_ms, "bound_by": bound_by, **extra}
             log("kernel fwd " + json.dumps(ratios(rec)))
             if not (ok_out and ok_lse and ok_dout and ok_dlse):
                 raise AssertionError(f"flash_attention_fwd {name} T={t} "
@@ -1575,7 +1591,7 @@ def phase_kernel_bn(fb):
     import torch.nn.functional as F
 
     gen = torch.Generator("cuda").manual_seed(3)
-    records = {}
+    records, conv_shapes = {}, {}
     B = RESNET_B
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
@@ -1641,6 +1657,11 @@ def phase_kernel_bn(fb):
             flops = 2.0 * m * ci * co
             nbytes = (m * ci + ci * co + m * co) * isz + 2 * co * 4
             bound_ms, bound_by = bound(flops, nbytes, name)
+            extra = {}
+            if name == "float32":   # 3xTF32; the FMA bound beside it
+                extra["bound_fma_ms"] = bound_ms
+                bound_ms, bound_by = bound(3 * flops, nbytes, name,
+                                           TF32_PEAK_FLOPS)
             rec = {"kernel": "fused_conv_stats", "dtype": name,
                    "shape": f"{label}: M={m} Ci={ci} Co={co}",
                    "max_err": errs, "max_abs_err": abs_errs, "ms": ms,
@@ -1648,8 +1669,13 @@ def phase_kernel_bn(fb):
                    "library": "torch.matmul (GEMM alone)", "flops": flops,
                    "bytes": nbytes, "bound_ms": bound_ms,
                    "bound_by": bound_by, "bound_share": bound_ms / ms,
-                   "vs_library": ms / library_ms, "repeatable": same}
+                   "vs_library": ms / library_ms, "repeatable": same,
+                   **extra}
             log("kernel bn " + json.dumps(rec))
+            conv_shapes.setdefault(name, []).append(
+                {k: rec[k] for k in ("shape", "ms", "library_ms", "bound_ms",
+                                     "bound_by", "vs_library", "bound_share")
+                 } | extra)
             if not ok or not same:
                 raise AssertionError(f"fused_conv_stats {name} {label} "
                                      f"disagrees with its plain version or "
@@ -1798,6 +1824,8 @@ def phase_kernel_bn(fb):
                 # K2 at the stem, with relu
                 k2_time(fb, label, fb.to2d(x), mean, inv, scale, bias,
                         "relu", None, name)
+    for name, shapes in conv_shapes.items():   # K4 at all four shapes
+        records[("fused_conv_stats", name)]["all_shapes"] = shapes
     return records
 
 
@@ -2988,6 +3016,8 @@ def main():
             "dropout_ms": rec["dropout_ms"],
             "vs_library": rec["ms_vs_library"],
             "bound_share": rec["ms_bound_share"],
+            **({"bound_fma_ms": rec["bound_fma_ms"]} if "bound_fma_ms" in rec
+               else {}),
             "shape": f"B={B} nh={NH} T=512 d={D}"})
     for name in ("float32", "bfloat16"):
         rec = bwd_records[(name, 512)]
@@ -3019,7 +3049,9 @@ def main():
                 "max_abs_err": max(rec["max_abs_err"].values()),
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"], "shape": rec["shape"]})
+                "library_ms": rec["library_ms"], "shape": rec["shape"],
+                **{k: rec[k] for k in ("bound_fma_ms", "all_shapes")
+                   if k in rec}})
     for kname, replaces in (("fwd", FAS_REPLACES), ("bwd", FAS_BWD_REPLACES)):
         for name in ("float32", "bfloat16"):
             rec = sparse_records[(kname, name)]

@@ -69,32 +69,25 @@
 // dbias is stored after the loop, and the stages are sized by the bias
 // mode, so more CTAs share an SM.
 //
-// f32 design. One TF32 product keeps ~11 bits and breaks the f32 parity
-// (2e-5), and FMA on the CUDA cores is bound by its shared-memory operand
-// reads at under half of the 67 TFLOP/s. So every product (the same five
-// kinds as bf16) runs on the tensor cores in 3xTF32, as CUTLASS's fast-f32
-// GEMMs do: each f32 operand is split into big = x rounded to TF32 and
-// small = x − big, and big·small + small·big, then big·big, are summed
-// (mma.sync.m16n8k8, f32 accumulate): the error of an f32 product, at three
-// times TF32's work. The tensor core's own sums round toward zero, so S and
-// dP (depth: the head dim) take them 16 columns at a time into partial sums
-// added with round-to-nearest (kPartialDepth). No cvt: the split is
-// integer and FP32 work. mma.sync, not wgmma: tf32
-// wgmma reads both operands K-major from shared memory, and the transposed
-// products (dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO) would need transposed tiles;
-// mma.sync reads its B fragments from the padded tile as it lies, and takes
-// dS and P from the accumulators as A fragments by permuting the depth of
-// the product (frag_a_acc / frag_b_kn). Four warps own 16 rows each of the
-// 64x64 block, so the accumulators have the wgmma layout and the element
-// loop, its selects and the register keep bits are the bf16 kernels'. The
-// tiles (4 floats of row padding: conflict-free fragment reads) arrive by
-// cp.async in a two-stage ring, one step ahead of the math; the bias is
-// read from global memory (L1/L2) in the element loop. The dk/dv and dq
-// CTAs share one launch (flash_bwd_f32_kernel, dk/dv first): at BERT's
-// T = 128 either kind alone is 192 CTAs of four warps for 132 SMs. The
-// products are issue-bound (~5 instructions for each mma: the operand
-// loads, their splits and the partial sums), at 8 warps an SM (shared
-// memory and registers allow two CTAs).
+// f32 design. Every product (the same five kinds as bf16) runs on the
+// tensor cores in 3xTF32 on mma.sync.m16n8k8 (tf32x3.cuh: the split, the
+// fragments, the partial sums that the tensor core's round-toward-zero sums
+// need: S and dP every kPartialDepth columns, the outputs once a tile).
+// mma.sync, not wgmma: tf32 wgmma reads both operands K-major from shared
+// memory, and the transposed products (dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO)
+// would need transposed tiles; mma.sync reads its B fragments from the
+// padded tile as it lies, and takes dS and P from the accumulators as A
+// fragments by permuting the depth of the product (frag_a_acc). Four warps
+// own 16 rows each of the 64x64 block, so the accumulators have the wgmma
+// layout and the element loop, its selects and the register keep bits are
+// the bf16 kernels'. The tiles (4 floats of row padding: conflict-free
+// fragment reads) arrive by cp.async in a two-stage ring, one step ahead of
+// the math; the bias is read from global memory (L1/L2) in the element
+// loop. The dk/dv and dq CTAs share one launch (flash_bwd_f32_kernel, dk/dv
+// first): at BERT's T = 128 either kind alone is 192 CTAs of four warps for
+// 132 SMs. The products are issue-bound (the operand loads, their splits
+// and the partial sums take more instructions than the mma they feed), at
+// 8 warps an SM (shared memory and registers allow two CTAs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,8 +95,11 @@
 
 #include "hopper.cuh"
 #include "philox.cuh"
+#include "tf32x3.cuh"
 
 namespace {
+
+using namespace tf32x3;
 
 constexpr float kNegInf = -1e30f;  // _NEG_INF of the JAX package
 constexpr int kTile = 64;          // q rows and keys per tile
@@ -179,215 +175,6 @@ __device__ __forceinline__ void seed_keys(const flash::Dropout& d,
 // column 8·nb + 2t + e: the layout of the bf16 kernels' wgmma accumulators,
 // whose keep-bit and element code the f32 kernels share.
 // ---------------------------------------------------------------------------
-
-// Row pitch, in floats, of a 64-row f32 tile W values wide: 4 floats of
-// padding put the fragment reads of a warp on 32 distinct banks, whether a
-// lane reads (row g, column t) or (row 2t, column g).
-template <int W>
-__host__ __device__ constexpr int pitch_f32() {
-  return W + 4;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(hopper::smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(hopper::smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Starts the copy of a 64-row tile of W columns of a [T, D] f32 matrix (row
-// stride `st`) into shared memory with pitch_f32<W>(); rows past `valid` are
-// zero-filled.
-template <int W>
-__device__ __forceinline__ void copy_tile(float* dst, const float* src,
-                                          long long st, int valid, int tid) {
-  constexpr int kVec = W / 4, kPitch = pitch_f32<W>();
-#pragma unroll
-  for (int i = tid; i < kTile * kVec; i += 128) {
-    const int r = i / kVec, c = (i % kVec) * 4;
-    cp_async16(dst + r * kPitch + c, src + (r < valid ? r : 0) * st + c,
-               r < valid);
-  }
-}
-
-// x = big + small: big is x rounded to TF32 (nearest, ties away, as
-// cvt.rna rounds, but on the integer pipe: cvt runs at a sixteenth of the
-// FP32 rate), small = x − big exactly; the tensor core reads small's top 11
-// bits, so big + small carries x to within 2^-21·|x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a·b on one 16x8 block, 8 deep, in 3xTF32: the two cross terms
-// first, then big·big, as CUTLASS's fast-f32 warp MMA sums them
-// (small·small, ~2^-22 relative, is dropped).
-__device__ __forceinline__ void mma3(float* d, const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4],
-                                     const uint32_t (&bb)[2],
-                                     const uint32_t (&bs)[2]) {
-  float (&acc)[4] = *reinterpret_cast<float(*)[4]>(d);
-  mma_tf32(acc, ab, bs[0], bs[1]);
-  mma_tf32(acc, as, bb[0], bb[1]);
-  mma_tf32(acc, ab, bb[0], bb[1]);
-}
-
-// The tensor core rounds each of its sums toward zero: an error of up to
-// an ulp of the running sum per instruction, which piles up along a
-// product's depth (1.5e-5 in ds at d = 128 on the card, against the 2e-5
-// parity). So every product sums into zeroed partial sums that one
-// round-to-nearest add puts into its accumulator: S and dP (depth: the
-// head dim, whose error ds carries into every output) each kPartialDepth
-// columns, the outputs once a tile (tests/test_torch_flash_attention.py
-// emulates both and holds them within a quarter of the parity).
-constexpr int kPartialDepth = 16;
-
-// A fragment (rows r0 + g, r0 + g + 8; columns k + t, k + t + 4) of a
-// row-major tile.
-template <int P>
-__device__ __forceinline__ void frag_a(const float* s, int r0, int k, int g,
-                                       int t, uint32_t (&big)[4],
-                                       uint32_t (&small)[4]) {
-  const float* x = s + (r0 + g) * P + k + t;
-  split_tf32(x[0], big[0], small[0]);
-  split_tf32(x[8 * P], big[1], small[1]);
-  split_tf32(x[4], big[2], small[2]);
-  split_tf32(x[8 * P + 4], big[3], small[3]);
-}
-
-// B fragment of an operand stored a row per output column n (S = Q·Kᵀ reads
-// K so): column n0 + g, depths k + t and k + t + 4.
-template <int P>
-__device__ __forceinline__ void frag_b_nk(const float* s, int n0, int k,
-                                          int g, int t, uint32_t (&big)[2],
-                                          uint32_t (&small)[2]) {
-  const float* x = s + (n0 + g) * P + k + t;
-  split_tf32(x[0], big[0], small[0]);
-  split_tf32(x[4], big[1], small[1]);
-}
-
-// The A fragment of 16x8 block kb of an accumulator, and the B fragment of
-// an operand stored a row per depth k, with the depth permuted alike: slot t
-// is depth 8kb + 2t and slot t + 4 depth 8kb + 2t + 1, so the accumulator's
-// registers (columns 2t, 2t + 1) are the A fragment as they stand. A product
-// sums the same terms in any order of its depth.
-__device__ __forceinline__ void frag_a_acc(const float (&acc)[32], int kb,
-                                           uint32_t (&big)[4],
-                                           uint32_t (&small)[4]) {
-  split_tf32(acc[4 * kb], big[0], small[0]);
-  split_tf32(acc[4 * kb + 2], big[1], small[1]);
-  split_tf32(acc[4 * kb + 1], big[2], small[2]);
-  split_tf32(acc[4 * kb + 3], big[3], small[3]);
-}
-template <int P>
-__device__ __forceinline__ void frag_b_kn(const float* s, int kb, int n0,
-                                          int g, int t, uint32_t (&big)[2],
-                                          uint32_t (&small)[2]) {
-  const float* x = s + (8 * kb + 2 * t) * P + n0 + g;
-  split_tf32(x[0], big[0], small[0]);
-  split_tf32(x[P], big[1], small[1]);
-}
-
-// s += A·Bᵀ for the warp's 16 rows (from r0) of the 64x64 block, over the
-// W columns of two 64-row tiles, kPartialDepth columns at a time into
-// partial sums.
-template <int W>
-__device__ __forceinline__ void product_tf32(float (&s)[32], const float* sA,
-                                             const float* sB, int r0, int g,
-                                             int t) {
-  constexpr int P = pitch_f32<W>();
-#pragma unroll 1
-  for (int k0 = 0; k0 < W; k0 += kPartialDepth) {
-    float ps[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) ps[i] = 0.f;
-#pragma unroll
-    for (int k = k0; k < k0 + kPartialDepth; k += 8) {
-      uint32_t ab[4], as[4];
-      frag_a<P>(sA, r0, k, g, t, ab, as);
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-        uint32_t bb[2], bs[2];
-        frag_b_nk<P>(sB, 8 * nb, k, g, t, bb, bs);
-        mma3(&ps[4 * nb], ab, as, bb, bs);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] += ps[i];
-  }
-}
-
-// o += A·B for the warp's 16 rows: A the 16x64 accumulator `a` (depth = its
-// 64 columns), B a 64-row tile of W columns; 64 output columns at a time,
-// each into a partial sum first.
-template <int W>
-__device__ __forceinline__ void acc_product_tf32(float (&o)[W / 2],
-                                                 const float (&a)[32],
-                                                 const float* sB, int g,
-                                                 int t) {
-  constexpr int P = pitch_f32<W>();
-#pragma unroll
-  for (int n0 = 0; n0 < W / 8; n0 += 8) {
-    float po[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) po[i] = 0.f;
-#pragma unroll
-    for (int kb = 0; kb < 8; ++kb) {
-      uint32_t ab[4], as[4];
-      frag_a_acc(a, kb, ab, as);
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-        uint32_t bb[2], bs[2];
-        frag_b_kn<P>(sB, kb, 8 * (n0 + nb), g, t, bb, bs);
-        mma3(&po[4 * nb], ab, as, bb, bs);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[4 * n0 + i] += po[i];
-  }
-}
-
-// Stores a warp's 16 x W f32 accumulator (times `scale`) as rows row0 and
-// row0 + 8 of a [T, D] matrix, skipping rows past `limit`.
-template <int W>
-__device__ __forceinline__ void store_rows_f32(float* dst, long long st,
-                                               const float (&acc)[W / 2],
-                                               int row0, int limit, int t,
-                                               float scale) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + 8 * hh;
-    if (row >= limit) continue;
-#pragma unroll
-    for (int nb = 0; nb < W / 8; ++nb)
-      *reinterpret_cast<float2*>(dst + row * st + 8 * nb + 2 * t) =
-          make_float2(acc[4 * nb + 2 * hh] * scale,
-                      acc[4 * nb + 2 * hh + 1] * scale);
-  }
-}
 
 // Shared memory of the f32 kernels, in floats. Up to d = 128 (one chunk)
 // the CTA's own tiles stay (Q and dO for dq; K and V for dk/dv) and a stage
@@ -543,7 +330,7 @@ __device__ __forceinline__ void dq_f32_cta(const BwdParams& p, int cta) {
   zero_skipped_dbias(dbias, p.Tq, p.Tk, bh, q0, n_tiles, tid, 128);
   store_rows_f32<DC>(static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh +
                          oc * DC,
-                     p.dq_st, dq, q0 + r0, p.Tq, t, p.sm_scale);
+                     p.dq_st, dq, q0 + r0, p.Tq, t, p.sm_scale, p.sm_scale);
 }
 
 // A dk/dv CTA: one per (DC-wide output chunk, 64-key tile, b·h), numbered
@@ -684,10 +471,10 @@ __device__ __forceinline__ void dkv_f32_cta(const BwdParams& p, int cta) {
   }
   store_rows_f32<DC>(static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh +
                          oc * DC,
-                     p.dk_st, dk, k0 + r0, p.Tk, t, p.sm_scale);
+                     p.dk_st, dk, k0 + r0, p.Tk, t, p.sm_scale, p.sm_scale);
   store_rows_f32<DC>(static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh +
                          oc * DC,
-                     p.dv_st, dv, k0 + r0, p.Tk, t, 1.f);
+                     p.dv_st, dv, k0 + r0, p.Tk, t, 1.f, 1.f);
 }
 
 // The f32 backward: the dk/dv CTAs (the longer walks) first, then the dq

@@ -23,8 +23,10 @@
 // Bound. The work is 4·B·nh·Tq·Tk·d flops over the bytes of q, k, v, out,
 // lse and the bias: about T/2 flops a byte in bf16 (64 at T = 128, 256 at
 // T = 512), under the H100's ~295 flop/byte tensor-core ridge, so a perfect
-// bf16 kernel is memory bound; in f32 (T/4 flops a byte against a ~20
-// flop/byte ridge for 67 TFLOP/s of FMA) it is compute bound.
+// bf16 kernel is memory bound. In f32 the products run in 3xTF32 (three
+// TF32 products per f32 product at 495 TFLOP/s, a ~49 flop/byte ridge for
+// T/4 flops a byte): compute bound at T = 512, close to the ridge at
+// T = 128.
 //
 // bf16 design (what it does about the bound). The products run on wgmma
 // with operands in shared memory as TMA writes them (hopper.cuh): S = Q·Kᵀ
@@ -49,9 +51,22 @@
 // (a third grid factor): it computes S and the softmax over the full head
 // dim, as every chunk of its q tile does bit for bit, and loads only its
 // chunk of V.
-//   f32: 256 threads, a 4x4 register tile each, FMA on the CUDA cores; TF32
-//        would lose the f32 parity the tests hold it to. At d = 256 its
-//        tiles take 218 KB of the 227 KB a CTA may have.
+//
+// f32 design. Both products run in 3xTF32 on mma.sync.m16n8k8
+// (tf32x3.cuh), the f32 backward's design: S = Q·Kᵀ in kPartialDepth-column
+// partial sums, split and summed as the backward recomputes it, so the lse
+// written here matches its S; O += P·V with P taken from the accumulators
+// as A fragments and V's B fragments read from the padded tile as it lies
+// (tf32 wgmma would need V K-major), a key tile's product into a zeroed
+// partial sum added to the rescaled O (the tensor core's sums round toward
+// zero). Four warps own 16 rows each of the 64-row q tile, so the element
+// loop, its selects and the register keep bits are the bf16 kernel's. Q
+// stays in shared memory; K, V's chunk and the bias rows (or the 64x64
+// per-query block) arrive by cp.async in a two-stage ring, one step ahead
+// of the math, and ldmatrix reads Q and K. Head dims 64 to 256: above 128
+// a CTA owns one 64-wide chunk of O, as in bf16, and K streams through the
+// ring in 64-wide chunks of the head dim (a step each), as in the f32
+// backward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +74,7 @@
 
 #include "hopper.cuh"
 #include "philox.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -79,21 +95,11 @@ struct FwdParams {
   long long v_sb, v_sh, v_st;
   long long o_sb, o_sh, o_st;
   long long b_sb, b_sh, b_sq, b_sk;
+  int bias_mode;     // set by launch_f32
   float sm_scale;
   int causal;
   flash::Dropout drop;
 };
-
-// Score of (row, col) after scale, bias and the masks; -inf past Tk.
-__device__ __forceinline__ float finish_score(const FwdParams& p, float acc,
-                                              const float* bias, int row,
-                                              int col) {
-  if (col >= p.Tk) return -INFINITY;
-  float s = acc * p.sm_scale;
-  if (bias != nullptr && row < p.Tq) s += bias[row * p.b_sq + col * p.b_sk];
-  if (p.causal && col > row) s = kNegInf;
-  return s;
-}
 
 // Key tiles a q tile needs: causal rows see no key past their own index.
 __device__ __forceinline__ int num_k_tiles(int Tq, int Tk, int causal,
@@ -107,149 +113,200 @@ __device__ __forceinline__ int num_k_tiles(int Tq, int Tk, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMA on the CUDA cores.
+// f32: 3xTF32 on the tensor cores (mma.sync.m16n8k8), tiles by cp.async.
+// Four warps; warp w owns rows 16w..16w+15 of the 64-row q tile, so S's
+// register 4·nb + 2·h + e of lane (g, t) is row 16w + g + 8h, key
+// 8·nb + 2t + e: the bf16 kernel's wgmma layout, whose element loop and
+// register keep bits this kernel shares.
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(256)
+using namespace tf32x3;
+
+constexpr int kF32BiasPitch = 72;  // floats: conflict-free paired reads
+
+// Shared memory, in floats: Q resident ([64][D + 4]); then two stages, each
+// K ([64][KW + 4]: the whole head dim up to d = 128, else one 64-wide
+// chunk of it a step), the CTA's chunk of V ([64][DC + 4]) and the bias
+// (mode 1: the tile's 64 keys of a row shared by every query; mode 2: a
+// [64][64] block, pitch kF32BiasPitch).
+template <int D, int DC>
+struct F32FwdLayout {
+  static constexpr int kKW = D <= 128 ? D : 64;
+  static constexpr int kSteps = D / kKW;  // steps a key tile
+  static constexpr int kQ = kBlockQ * pitch_f32<D>();
+  static constexpr int kK = kBlockK * pitch_f32<kKW>();
+  static constexpr int kV = kBlockK * pitch_f32<DC>();
+  static __host__ __device__ constexpr int bias(int mode) {
+    return mode == 2 ? kBlockQ * kF32BiasPitch : mode == 1 ? kBlockK : 0;
+  }
+  static __host__ __device__ constexpr int stage(int mode) {
+    return kK + kV + bias(mode);
+  }
+  static constexpr size_t smem(int mode) {
+    return sizeof(float) * (kQ + 2 * stage(mode));
+  }
+};
+
+// One CTA per (DC-wide output chunk, 64-row q tile, b·h), numbered by the
+// flat grid, the chunk fastest. It walks the key tiles (through the causal
+// diagonal) in steps of one K chunk over a two-stage cp.async ring, one step
+// ahead of the math: S = Q·Kᵀ over the full head dim in kPartialDepth-column
+// partial sums (the f32 backward's split and order, so the lse written here
+// is the one its recomputed S gives), then at a tile's last step the
+// branch-free element loop, the online softmax and O += P·V, P from
+// registers and V as it lies (acc_product_tf32), into a zeroed partial
+// added to the rescaled O.
+template <int D, int DC>
+__global__ void __launch_bounds__(128)
 flash_fwd_f32_kernel(FwdParams p) {
-  constexpr int kPad = D + 1;   // odd row pitch: conflict-free column reads
-  constexpr int kPitchP = kBlockK + 1;
+  using L = F32FwdLayout<D, DC>;
+  constexpr int kKW = L::kKW, kSteps = L::kSteps;
   extern __shared__ __align__(16) float smem_f32[];
-  float* sQ = smem_f32;                   // [64][D+1]
-  float* sK = sQ + kBlockQ * kPad;        // [64][D+1]
-  float* sV = sK + kBlockK * kPad;        // [64][D]
-  float* sP = sV + kBlockK * D;           // [64][65]
-  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sP + kBlockQ * kPitchP);
+  float* sQ = smem_f32;
+  float* stages = smem_f32 + L::kQ;
+  const int bias_mode = p.bias_mode;
+  const int stage_len = L::stage(bias_mode);
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int n_q = (p.Tq + kBlockQ - 1) / kBlockQ;  // grid: (tile, b·h) flat
-  const int bh = blockIdx.x / n_q;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n_q = (p.Tq + kBlockQ - 1) / kBlockQ;
+  const int oc = blockIdx.x % (D / DC), cell = blockIdx.x / (D / DC);
+  const int bh = cell / n_q, q0 = (cell % n_q) * kBlockQ;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = (blockIdx.x % n_q) * kBlockQ;
-
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh +
+                   q0 * p.q_st;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh +
+                   oc * DC;
   const float* bias = p.bias == nullptr ? nullptr
       : static_cast<const float*>(p.bias) + b * p.b_sb + h * p.b_sh;
-
-  constexpr int kVec = D / 4;  // float4 per row
-  for (int i = tid; i < kBlockQ * kVec; i += 256) {
-    int r = i / kVec, c = (i % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < p.Tq)
-      x = *reinterpret_cast<const float4*>(q + (q0 + r) * p.q_st + c);
-    float* dst = sQ + r * kPad + c;
-    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
-  }
-
-  float m[4], l[4], acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-  }
-
   const int n_tiles = num_k_tiles(p.Tq, p.Tk, p.causal, q0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's sK/sV/sP are consumed
-    for (int i = tid; i < kBlockK * kVec; i += 256) {
-      int r = i / kVec, c = (i % kVec) * 4;
-      float4 xk = make_float4(0.f, 0.f, 0.f, 0.f), xv = xk;
-      if (k0 + r < p.Tk) {
-        xk = *reinterpret_cast<const float4*>(k + (k0 + r) * p.k_st + c);
-        xv = *reinterpret_cast<const float4*>(v + (k0 + r) * p.v_st + c);
-      }
-      float* dk = sK + r * kPad + c;
-      dk[0] = xk.x; dk[1] = xk.y; dk[2] = xk.z; dk[3] = xk.w;
-      *reinterpret_cast<float4*>(sV + r * D + c) = xv;
-    }
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
-    __syncthreads();
+  const int n_steps = n_tiles * kSteps;
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * kPad + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * kPad + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = finish_score(p, s[i][j], bias, row, k0 + tx + 16 * j);
-        mx = fmaxf(mx, s[i][j]);
+  // step j: key tile j / kSteps, K chunk j % kSteps; the last step of a
+  // tile also brings V's chunk and the bias
+  auto load_step = [&](int j) {
+    float* st = stages + (j & 1) * stage_len;
+    const int k0 = j / kSteps * kBlockK, c = j % kSteps;
+    copy_tile<kKW>(st, k + k0 * p.k_st + c * kKW, p.k_st, p.Tk - k0, tid);
+    if (c != kSteps - 1) return;
+    copy_tile<DC>(st + L::kK, v + k0 * p.v_st, p.v_st, p.Tk - k0, tid);
+    float* sb = st + L::kK + L::kV;
+    if (bias_mode == 1) {
+      if (tid < kBlockK) {
+        const bool ok = k0 + tid < p.Tk;
+        cp_async4(sb + tid, bias + (ok ? k0 + tid : 0) * p.b_sk, ok);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        sum += e;  // the row sum is over the undropped p
-        float pv = e;
-        if (p.drop.on)
-          pv = sKeep[(ty * 4 + i) * flash::kKeepPitch + tx + 16 * j]
-                   ? e * p.drop.scale : 0.f;
-        sP[(ty * 4 + i) * kPitchP + tx + 16 * j] = pv;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-
+    } else if (bias_mode == 2) {
 #pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float pv[4], vv[D / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty * 4 + i) * kPitchP + kk];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) vv[j] = sV[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j)
-          acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int i = tid; i < kBlockQ * kBlockK; i += kThreads) {
+        const int r = i / kBlockK, c2 = i % kBlockK;
+        const bool ok = q0 + r < p.Tq && k0 + c2 < p.Tk;
+        cp_async4(sb + r * kF32BiasPitch + c2,
+                  bias + (ok ? (q0 + r) * p.b_sq + (k0 + c2) * p.b_sk : 0),
+                  ok);
+      }
     }
-  }
+  };
+  copy_tile<D>(sQ, q, p.q_st, p.Tq - q0, tid);
+  load_step(0);
+  cp_async_commit();
+  if (n_steps > 1) load_step(1);
+  cp_async_commit();
 
-  float* out = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= p.Tq) continue;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      out[row * p.o_st + tx + 16 * j] = acc[i][j] / l_safe;
-    if (tx == 0) p.lse[(long long)bh * p.Tq + row] = m[i] + logf(l_safe);
+  uint32_t key0 = 0, key1 = 0;
+  if (p.drop.on) {
+    const unsigned long long sd = static_cast<unsigned long long>(*p.drop.seed);
+    key0 = static_cast<uint32_t>(sd);
+    key1 = static_cast<uint32_t>(sd >> 32);
   }
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[DC / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) o[i] = 0.f;
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int c = j % kSteps, k0 = j / kSteps * kBlockK;
+    const float* st = stages + (j & 1) * stage_len;
+    cp_async_wait<1>();
+    __syncthreads();  // step j's tiles have landed, from every thread
+
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    }
+    product_tf32<kKW, pitch_f32<D>(), pitch_f32<kKW>()>(
+        s, sQ + c * kKW, st, warp * 16, g, t);
+
+    if (c == kSteps - 1) {
+      // scale, bias and masks (selects, no branch); the tile's row max
+      const float* sb = st + L::kK + L::kV;
+      const int k_left = p.Tk - k0;  // keys of this tile inside Tk
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1, col = (i >> 2) * 8 + 2 * t + (i & 1);
+        const int row = q0 + r0 + 8 * hh;
+        const float bv = bias_mode == 2
+            ? sb[(r0 + 8 * hh) * kF32BiasPitch + col]
+            : bias_mode == 1 ? sb[col] : 0.f;
+        float x = fmaf(s[i], p.sm_scale, bv);
+        x = p.causal && k0 + col > row ? kNegInf : x;
+        s[i] = col < k_left ? x : -INFINITY;
+        mx[hh] = fmaxf(mx[hh], s[i]);
+      }
+
+      // online softmax over the 4 lanes that share a row
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m[hh], mx[hh]);
+        corr[hh] = hopper::ex2((m[hh] - m_new) * hopper::kLog2e);
+        m[hh] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = hopper::ex2((s[i] - m[(i >> 1) & 1]) * hopper::kLog2e);
+        sum[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+        sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+        l[hh] = l[hh] * corr[hh] + sum[hh];
+      }
+      if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
+        const uint32_t keep = flash::keep_bits_rows(
+            key0, key1, p.drop.threshold, bh, q0 + r0, k0, t);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < DC / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      // O += P·V over this CTA's chunk of V
+      acc_product_tf32<DC>(o, s, st + L::kK, g, t);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (j + 2 < n_steps) load_step(j + 2);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  float l_safe[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l_safe[hh] = l[hh] == 0.f ? 1.f : l[hh];
+    const int row = q0 + r0 + 8 * hh;
+    if (t == 0 && oc == 0 && row < p.Tq)
+      p.lse[(long long)bh * p.Tq + row] = m[hh] + logf(l_safe[hh]);
+  }
+  store_rows_f32<DC>(static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh +
+                         oc * DC,
+                     p.o_st, o, q0 + r0, p.Tq, t, 1.f / l_safe[0],
+                     1.f / l_safe[1]);
 }
 
 // ---------------------------------------------------------------------------
@@ -463,13 +520,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
   }
 }
 
-template <int D>
-size_t smem_bytes_f32() {
-  return sizeof(float) * (2 * kBlockQ * (D + 1) + kBlockK * D +
-                          kBlockQ * (kBlockK + 1)) +
-         kBlockQ * flash::kKeepPitch;
-}
-
 // Opts a kernel into `max_smem` of dynamic shared memory once per device,
 // then launches it with `smem` on `stream` over the flat (chunk, q tile,
 // B·H) grid.
@@ -496,10 +546,15 @@ cudaError_t launch(Kernel kernel, unsigned* configured, const Params& p,
 // one flag word per (dtype, head dim): index D / 64 - 1, bf16 from 4
 unsigned configured[8] = {};
 
+// f32: the bias mode from the bias strides (a row shared by every query
+// when the query stride is 0 or there is one query).
 template <int D>
-cudaError_t launch_f32(const FwdParams& p, cudaStream_t s) {
-  return launch(flash_fwd_f32_kernel<D>, &configured[D / 64 - 1], p, 256,
-                smem_bytes_f32<D>(), smem_bytes_f32<D>(), s);
+cudaError_t launch_f32(FwdParams p, cudaStream_t s) {
+  constexpr int DC = hopper::chunk_of<D>();
+  using L = F32FwdLayout<D, DC>;
+  p.bias_mode = p.bias == nullptr ? 0 : p.b_sq == 0 || p.Tq == 1 ? 1 : 2;
+  return launch(flash_fwd_f32_kernel<D, DC>, &configured[D / 64 - 1], p, 128,
+                L::smem(p.bias_mode), L::smem(2), s, D / DC);
 }
 
 template <int D>

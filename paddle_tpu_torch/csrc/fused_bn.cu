@@ -35,14 +35,14 @@
 //            epilogue stores Y in 16-byte vectors from a staging tile and
 //            keeps the column statistics in registers across tiles, so the
 //            partial rows are one per CTA of a chunk (see the kernel).
-//   K4 f32:  256 threads, a 128x64 output tile, an 8x4 register tile each,
-//            f32 FMA on the CUDA cores (TF32 would lose the f32 parity),
-//            the next 16-deep k tile loaded into registers while the
-//            current one is multiplied. The TPU kept the whole (Ci, Co)
-//            weight resident in VMEM; here the grid tiles Co as well. Rows
-//            of x are addressed through (n, h, w) strides, so a stride-2
-//            subsample of a channels-last x is read in place, without a
-//            copy.
+//   K4 f32:  the bf16 walk with 64-wide Co chunks, the products in
+//            3xTF32 on wgmma (tf32x3.cuh: one TF32 product would lose the
+//            f32 parity, three keep it) in 16-deep partial sums, X (and W
+//            where it does not stay resident) by cp.async, W split once
+//            into TF32 big and small parts, Y stored in 16-byte vectors
+//            from the registers (see the kernel). Rows of x are addressed
+//            through (n, h, w) strides, so a stride-2 subsample of a
+//            channels-last x is read in place, without a copy.
 //   K3 dx:   K2's layout (below): per-channel terms in registers, four
 //            rows of loads in flight a thread.
 //
@@ -51,20 +51,27 @@
 // dx pass). K4 does 2*Ci flops per output over 2*(Ci + Co) bytes per row in
 // bf16: at Ci = 64..2048 that is 16..512 flops a byte, around the H100's ~295
 // flop/byte tensor-core ridge, so the small-Ci convs are memory bound and the
-// wide ones compute bound. Times are in PERF.md.
+// wide ones compute bound. In f32 (3xTF32: three TF32 products at 495
+// TFLOP/s per product, a ~49 flop/byte ridge, 4 bytes a value) the same
+// convs give 8..256 flops a byte: stage 1's .a (256 -> 64) is bound by its
+// bytes, stage 4's by its operations. Times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
+
+using tf32x3::cp_async16;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
 
 constexpr int kThreads = 256;      // K1, K2, K3
 constexpr int kMaxVecs = 32;       // channel vectors per CTA in K1/K3
 constexpr int kConvBM = 128;       // K4 output rows per CTA (Python: _CONV_BM)
-constexpr int kConvBN = 64;        // K4 output channels per CTA
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -483,19 +490,6 @@ struct K4Layout {
   static_assert(kStages >= 2, "K4: no room for a ring");
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 struct K4Walk {
   int nk, mtiles, nchunks, per_chunk;
 };
@@ -721,125 +715,327 @@ cudaError_t launch_conv_bf16(const ConvParams& p, int sms, int* rows,
 #undef K4_LAUNCH
 }
 
-constexpr int kBK32 = 16;  // f32 k step
+// K4 f32 on Hopper: the bf16 walk (persistent CTAs over 128-row M tiles of
+// a Co chunk, the statistics in registers across tiles, one partial row a
+// CTA) with the products in 3xTF32 on wgmma (tf32x3.cuh). A CTA is two
+// warpgroups, 64 rows of the tile each, over a 64-wide Co chunk, one CTA
+// an SM. X and W are both K-major (Ci contiguous), as tf32 wgmma reads
+// them. X tiles of 32 Ci values arrive by cp.async through (n, h, w)
+// strides (a stride-2 subsample is read in place) into a ring of stages;
+// each warp takes its A fragments from them by ldmatrix and splits them
+// in registers (wgmma's A operand from registers). W is split once into
+// big and small boxes, 128-byte swizzled as wgmma's B operand: the whole
+// chunk when it fits (Ci <= 256, split at the start), else a [64][32] tile
+// a step that streams through the ring beside X and is split, a step ahead
+// of its products, into one of three box pairs. Each 16-deep partial sum
+// (Ci runs to 2048, and the tensor core's sums round toward zero) is six
+// wgmmas into a zeroed register block; two blocks take turns, so one
+// partial sum is added to the accumulator while the next is in flight.
+// (mma.sync in the flash kernels' way, two CTAs an SM of 32x32 warp tiles,
+// measured 1.1-1.5x slower at every ResNet-50 shape: see PERF.md.) W's rows are stored in the
+// boxes with the output columns paired (blocks 2j and 2j + 1 are columns
+// 16j + 2c and 16j + 2c + 1), so a lane holds four adjacent columns of each
+// of its rows and stores them as one 16-byte vector (two 8-byte ones at a
+// Co that is no multiple of 4), straight from the registers: a staging
+// tile would add nothing to the stores and take shared memory from the
+// ring. The statistics are of these stored values.
+constexpr int kK4F32BN = 64;                       // Co chunk
+constexpr int kK4F32KB = 32;                       // Ci values a stage
+constexpr int kK4F32Pitch = kK4F32KB + 4;          // floats a staged row
+constexpr int kK4F32X = kK4Rows * kK4F32Pitch;     // floats of an X tile
+constexpr int kK4F32W = kK4F32BN * kK4F32Pitch;    // of a streamed W tile
+constexpr int kK4F32Box = kK4F32BN * 128;          // bytes of a [64][32] box
+constexpr int kK4F32WresMax = 8;                   // k blocks: Ci <= 256
 
-__global__ void __launch_bounds__(256)
-conv_stats_f32_kernel(ConvParams p) {
-  __shared__ __align__(16) float sA[kBK32][kConvBM + 4];  // k-major
-  __shared__ __align__(16) float sB[kBK32][kConvBN + 4];
-  __shared__ float red_s[16][kConvBN], red_q[16][kConvBN];
+// Bytes of the layout: [W boxes: big then small, resident or three pairs]
+// [ring stages] (+ 1 KB of alignment for the swizzle).
+template <bool WRES>
+struct K4F32Layout {
+  static constexpr int kW = 2 * kK4F32Box * (WRES ? kK4F32WresMax : 3);
+  static constexpr int kStage = 4 * (kK4F32X + (WRES ? 0 : kK4F32W));
+  static constexpr int kStages = WRES ? 5 : 6;
+  static constexpr int kSmem = kW + kStages * kStage + 1024;
+  static_assert(kSmem <= kK4Smem, "K4 f32: the layout does not fit");
+};
+
+// Row of W's output column o (0..63 of a chunk) in a box: block 2j + o % 2,
+// column (o % 16) / 2 of it, j = o / 16.
+__device__ __forceinline__ int k4_box_row(int o) {
+  return 8 * (2 * (o >> 4) + (o & 1)) + ((o & 15) >> 1);
+}
+
+// Splits 4 adjacent values of W's row o at chunk c4 of a 32-deep k block
+// into the big and small boxes.
+__device__ __forceinline__ void k4_split_w(unsigned char* big,
+                                           unsigned char* small, int o,
+                                           int c4, float4 w) {
+  uint32_t b[4], s[4];
+  tf32x3::split_tf32(w.x, b[0], s[0]);
+  tf32x3::split_tf32(w.y, b[1], s[1]);
+  tf32x3::split_tf32(w.z, b[2], s[2]);
+  tf32x3::split_tf32(w.w, b[3], s[3]);
+  const uint32_t off = tf32x3::swz_tf32(k4_box_row(o), c4);
+  *reinterpret_cast<uint4*>(big + off) = make_uint4(b[0], b[1], b[2], b[3]);
+  *reinterpret_cast<uint4*>(small + off) = make_uint4(s[0], s[1], s[2], s[3]);
+}
+
+template <bool WRES>
+__global__ void __launch_bounds__(kK4Threads, 1)
+conv_stats_f32_kernel(ConvParams p, K4Walk walk) {
+  using L = K4F32Layout<WRES>;
+  using namespace tf32x3;
+  extern __shared__ unsigned char k4f_smem_raw[];
+  unsigned char* smem = hopper::smem_base(k4f_smem_raw);
+  unsigned char* wbig = smem;  // resident: box kb at kb · kK4F32Box
+  unsigned char* wsmall = smem + L::kW / 2;
+  float* ring = reinterpret_cast<float*>(smem + L::kW);
 
   const float* X = static_cast<const float*>(p.x);
   const float* W = static_cast<const float*>(p.w);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.x * kConvBM, n0 = blockIdx.y * kConvBN;
+  float* Y = static_cast<float*>(p.y);
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32;
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int nc = blockIdx.x % walk.nchunks, j0 = blockIdx.x / walk.nchunks;
+  const int n0 = nc * kK4F32BN;
+  const int ntiles = j0 < walk.mtiles
+      ? (walk.mtiles - 1 - j0) / walk.per_chunk + 1 : 0;
+  const int total = ntiles * walk.nk;
 
-  // A: 128 rows x 16 k = 512 float4, two a thread; B: 64 x 16 = 256, one.
-  long long a_off[2];
-  bool a_ok[2];
-  int a_row[2], a_kv[2];
+  // the thread's four X rows of a tile (tid / 8 + 32u), located once a tile
+  long long xoff[4];
+  bool xok[4];
+  // the X tile (and the raw W tile unless resident) of the step at `at`
+  auto load = [&](const K4Cursor& at) {
+    if (at.kb == 0) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int i = tid + 256 * j;
-    a_row[j] = i / 4;
-    a_kv[j] = (i % 4) * 4;
-    const int m = m0 + a_row[j];
-    a_ok[j] = m < p.M;
-    a_off[j] = a_ok[j] ? row_offset(p, m) : 0;
-  }
-  const int b_row = tid / 4, b_kv = (tid % 4) * 4;
+      for (int u = 0; u < 4; ++u) {
+        const int m = at.mt * kK4Rows + tid / 8 + 32 * u;
+        xok[u] = m < p.M;
+        xoff[u] = xok[u] ? row_offset(p, m) : 0;
+      }
+    }
+    float* st = ring + at.slot * (L::kStage / 4);
+    const int c = tid % 8 * 4, k = at.kb * kK4F32KB + c;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bool ok = xok[u] && k < p.Ci;
+      cp_async16(st + (tid / 8 + 32 * u) * kK4F32Pitch + c,
+                 ok ? X + xoff[u] + k : X, ok);
+    }
+    if (!WRES) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = tid / 8 + 32 * u, n = n0 + r;
+        const bool ok = n < p.Co && k < p.Ci;
+        cp_async16(st + kK4F32X + r * kK4F32Pitch + c,
+                   ok ? W + (long long)n * p.Ci + k : W, ok);
+      }
+    }
+  };
 
-  float4 ra[2], rb;
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = k0 + a_kv[j];
-      ra[j] = (a_ok[j] && k < p.Ci)
-          ? *reinterpret_cast<const float4*>(X + a_off[j] + k)
+  if (WRES) {  // the whole W chunk, split once
+    for (int i = tid; i < walk.nk * kK4F32BN * 8; i += kK4Threads) {
+      const int kb = i / (kK4F32BN * 8), o = i / 8 % kK4F32BN, c4 = i % 8;
+      const int n = n0 + o, k = kb * kK4F32KB + c4 * 4;
+      const float4 w = n < p.Co && k < p.Ci
+          ? *reinterpret_cast<const float4*>(W + (long long)n * p.Ci + k)
           : make_float4(0.f, 0.f, 0.f, 0.f);
+      k4_split_w(wbig + kb * kK4F32Box, wsmall + kb * kK4F32Box, o, c4, w);
     }
-    const int n = n0 + b_row, k = k0 + b_kv;
-    rb = (n < p.Co && k < p.Ci)
-        ? *reinterpret_cast<const float4*>(W + (long long)n * p.Ci + k)
-        : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      sA[a_kv[j] + 0][a_row[j]] = ra[j].x;
-      sA[a_kv[j] + 1][a_row[j]] = ra[j].y;
-      sA[a_kv[j] + 2][a_row[j]] = ra[j].z;
-      sA[a_kv[j] + 3][a_row[j]] = ra[j].w;
-    }
-    sB[b_kv + 0][b_row] = rb.x;
-    sB[b_kv + 1][b_row] = rb.y;
-    sB[b_kv + 2][b_row] = rb.z;
-    sB[b_kv + 3][b_row] = rb.w;
-  };
+    // the boxes are read by wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  K4Cursor ld{j0, 0, 0}, at{j0, 0, 0};
+  for (int s = 0; s < L::kStages - 1; ++s) {
+    if (s < total) load(ld);
+    cp_async_commit();
+    ld.next(walk, L::kStages);
+  }
 
-  // rows ty + 16*i, columns tx + 16*j
-  float acc[8][4];
+  float acc[32], ps[2][32];
+  uint32_t ab[2][2][4], as[2][2][4];  // [partial][k step] A fragments
+  float cs[16], cq[16];  // column sums of the stored values: 16j + 4t + e
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int e = 0; e < 16; ++e) cs[e] = cq[e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int nk = (p.Ci + kBK32 - 1) / kBK32;
-  load_tile(0);
-  store_tile();
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_tile((kt + 1) * kBK32);
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const int arow = 64 * wg + 16 * warp;  // the warp's 16 rows of the tile
+  // streamed W: the raw tile of step j (ring slot `slot`) split into box
+  // pair j % 3, read by wgmma after the next barrier
+  auto split_step = [&](int j, int slot) {
+    const float* wr = ring + slot * (L::kStage / 4) + kK4F32X;
 #pragma unroll
-    for (int k = 0; k < kBK32; ++k) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = sA[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sB[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int u = 0; u < 2; ++u) {
+      const int i = tid + u * kK4Threads, o = i / 8, c4 = i % 8;
+      k4_split_w(wbig + j % 3 * kK4F32Box, wsmall + j % 3 * kK4F32Box, o,
+                 c4, *reinterpret_cast<const float4*>(wr + o * kK4F32Pitch +
+                                                      c4 * 4));
     }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+  for (int s = 0; s < total; ++s) {
+    // the step's tiles have landed (streamed W: the next step's too), and
+    // the oldest slot is free
+    cp_async_wait<WRES ? L::kStages - 2 : L::kStages - 3>();
     __syncthreads();
-    if (kt + 1 < nk) {
-      store_tile();
+    if (!WRES && s == 0) {
+      split_step(0, 0);
       __syncthreads();
     }
-  }
+    if (s + L::kStages - 1 < total) load(ld);
+    cp_async_commit();
+    ld.next(walk, L::kStages);
 
-  float* Y = static_cast<float*>(p.y);
-  float cs[4] = {0.f, 0.f, 0.f, 0.f}, cq[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* xs = ring + at.slot * (L::kStage / 4);
+    const int box = WRES ? at.kb : s % 3;
+    const unsigned char* bbig = wbig + box * kK4F32Box;
+    const unsigned char* bsmall = wsmall + box * kK4F32Box;
+
+    // two 16-deep partial sums, in blocks 0 and 1 of ps, each added to acc
+    // while the next is in flight (the other block's wgmmas have finished
+    // once one group is left)
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= p.M) continue;
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= p.Co) continue;
-      const float v = acc[i][j];
-      Y[(long long)m * p.Co + n] = v;
-      cs[j] += v;
-      cq[j] += v * v;
+      for (int ks = 0; ks < 2; ++ks)
+        ldsm_a(xs, kK4F32Pitch, arow, 16 * h + 8 * ks, lane, ab[h][ks],
+               as[h][ks]);
+      hopper::pin(ab[h]);
+      hopper::pin(as[h]);
+      hopper::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int step = 2 * h + ks;  // 8-deep step of the box
+        const uint64_t db = hopper::desc_kmajor(bbig, step);
+        wgmma_tf32_n64(ps[h], ab[h][ks], hopper::desc_kmajor(bsmall, step),
+                       ks);
+        wgmma_tf32_n64(ps[h], as[h][ks], db, 1);
+        wgmma_tf32_n64(ps[h], ab[h][ks], db, 1);
+      }
+      hopper::wg_commit();
+      if (s > 0 || h > 0) {  // the partial sum before this one
+        wg_wait<1>();
+        // its registers stay untouched until here (wgmma reads them late)
+        hopper::pin(ps[h ^ 1]);
+        hopper::pin(ab[h ^ 1]);
+        hopper::pin(as[h ^ 1]);
+        if (!(h == 0 && at.kb == 0)) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[i] += ps[h ^ 1][i];
+        }
+      }
     }
-  }
+    // streamed W: the next step's tile, split while these products run
+    // (its box pair was last read two steps ago, which both warpgroups
+    // finished before this step's barrier)
+    if (!WRES && s + 1 < total)
+      split_step(s + 1, at.slot + 1 == L::kStages ? 0 : at.slot + 1);
+    const int mt = at.mt;
+    const bool tile_done = at.kb == walk.nk - 1;
+    at.next(walk, L::kStages);
+    if (!tile_done) continue;
+
+    // epilogue of M tile mt: the last partial sum, then the lane's four
+    // adjacent columns of each of its rows, stored and summed (rows past M
+    // are X's zero fill: they add 0 to the sums)
+    wg_wait<0>();
+    hopper::pin(ps[1]);
+    hopper::pin(ab[1]);
+    hopper::pin(as[1]);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red_s[ty][tx + 16 * j] = cs[j];
-    red_q[ty][tx + 16 * j] = cq[j];
+    for (int i = 0; i < 32; ++i) acc[i] += ps[1][i];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = mt * kK4Rows + arow + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* a = acc + 8 * j + 2 * h;
+        const float v[4] = {a[0], a[4], a[1], a[5]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          cs[4 * j + e] += v[e];
+          cq[4 * j + e] += v[e] * v[e];
+        }
+        const int col = n0 + 16 * j + 4 * t;
+        if (m >= p.M || col >= p.Co) continue;
+        float* dst = Y + (long long)m * p.Co + col;
+        if (p.Co % 4 == 0) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2],
+                                                        v[3]);
+        } else {
+          *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+          if (col + 2 < p.Co)
+            *reinterpret_cast<float2*>(dst + 2) = make_float2(v[2], v[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  }
+  cp_async_wait<0>();
+
+  // the CTA's partial row: the 8 row lanes of a warp summed by a fixed
+  // butterfly, then the eight row warps of each column in order
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], off);
+      cq[e] += __shfl_xor_sync(0xffffffffu, cq[e], off);
+    }
+  __syncthreads();
+  float* red = ring;  // [2][8 row warps][64 columns]
+  const int rw = tid / 32;
+  if (g == 0) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int col = 16 * (e / 4) + 4 * t + e % 4;
+      red[rw * kK4F32BN + col] = cs[e];
+      red[(8 + rw) * kK4F32BN + col] = cq[e];
+    }
   }
   __syncthreads();
-  if (tid < kConvBN && n0 + tid < p.Co) {
+  if (tid < kK4F32BN && n0 + tid < p.Co) {
     float S = 0.f, Q = 0.f;
-    for (int r = 0; r < 16; ++r) {
-      S += red_s[r][tid];
-      Q += red_q[r][tid];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      S += red[r * kK4F32BN + tid];
+      Q += red[(8 + r) * kK4F32BN + tid];
     }
-    p.part_s[(long long)blockIdx.x * p.Co + n0 + tid] = S;
-    p.part_q[(long long)blockIdx.x * p.Co + n0 + tid] = Q;
+    p.part_s[(long long)j0 * p.Co + n0 + tid] = S;
+    p.part_q[(long long)j0 * p.Co + n0 + tid] = Q;
   }
+}
+
+template <bool WRES>
+cudaError_t launch_conv_f32(const ConvParams& p, const K4Walk& walk,
+                            cudaStream_t s) {
+  using L = K4F32Layout<WRES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_stats_f32_kernel<WRES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return err;
+  conv_stats_f32_kernel<WRES>
+      <<<walk.per_chunk * walk.nchunks, kK4Threads, L::kSmem, s>>>(p, walk);
+  return cudaGetLastError();
+}
+
+// Launches K4 f32: 64-wide Co chunks, the card's SMs (one CTA each) split
+// evenly over the chunks and at most one CTA per M tile; W resident up to
+// Ci = 256. Returns the partial rows it writes in *rows.
+cudaError_t launch_conv_f32(const ConvParams& p, int sms, int* rows,
+                            cudaStream_t s) {
+  K4Walk walk;
+  walk.nk = (p.Ci + kK4F32KB - 1) / kK4F32KB;
+  walk.mtiles = (p.M + kK4Rows - 1) / kK4Rows;
+  walk.nchunks = (p.Co + kK4F32BN - 1) / kK4F32BN;
+  walk.per_chunk = sms / walk.nchunks;
+  walk.per_chunk = walk.per_chunk < 1 ? 1 : walk.per_chunk;
+  walk.per_chunk =
+      walk.per_chunk > walk.mtiles ? walk.mtiles : walk.per_chunk;
+  *rows = walk.per_chunk;
+  return walk.nk <= kK4F32WresMax ? launch_conv_f32<true>(p, walk, s)
+                                  : launch_conv_f32<false>(p, walk, s);
 }
 
 }  // namespace
@@ -963,18 +1159,13 @@ int fused_conv_stats(const void* x, const void* w, void* y, int N, int Hs,
   cudaError_t err;
   int rows = mtiles;  // partial rows written
   if (Co % (dtype == 0 ? 2 : 8)) return cudaErrorInvalidValue;
-  if (dtype == 0) {
-    dim3 grid(mtiles, (Co + kConvBN - 1) / kConvBN);
-    conv_stats_f32_kernel<<<grid, 256, 0, s>>>(p);
-    err = cudaGetLastError();
-  } else {
-    int dev, sms;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return err;
-    err = launch_conv_bf16(p, sms, &rows, s);
-  }
+  int dev, sms;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  err = dtype == 0 ? launch_conv_f32(p, sms, &rows, s)
+                   : launch_conv_bf16(p, sms, &rows, s);
   if (err != cudaSuccess) return err;
   return finish(p.part_s, p.part_q, rows, Co, (float)p.M, 1, mean, var, s);
 }

@@ -20,6 +20,8 @@ import torch
 import jax.numpy as jnp
 
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from paddle_tpu_torch.ops.kernels.tf32x3 import (mm_3xtf32, rna_tf32, rz_f32,
+                                                 trunc_tf32)
 
 jfa = importlib.import_module("paddle_tpu.ops.pallas_kernels.flash_attention")
 
@@ -390,7 +392,9 @@ def _cuda_or_skip():
 @pytest.mark.parametrize("causal,per_q,t,d", [
     (False, False, 128, 64), (True, False, 200, 64), (False, True, 100, 64),
     (True, True, 130, 128), (False, False, 64, 64), (False, False, 256, 64),
-    (False, False, 130, 64), (False, True, 128, 192), (True, False, 130, 256)])
+    (False, False, 130, 64), (False, True, 128, 192), (True, False, 130, 256),
+    (False, False, 512, 64), (False, True, 512, 64), (False, False, 512, 256),
+    (False, True, 128, 256)])
 def test_cuda_kernel_matches_plain(dtype, tol, causal, per_q, t, d):
     _cuda_or_skip()
     g = torch.Generator("cuda").manual_seed(0)
@@ -635,52 +639,6 @@ def test_delta_route_f32_cpu_and_dtypes_without_kernel():
         tfa.flash_attention_delta(meta, meta)
 
 
-def _rna_tf32(x):
-    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: nearest, ties away
-    from zero (0x1000 added to the magnitude bits, the low 13 cleared)."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    bits = (bits + 0x1000) & 0xFFFFE000
-    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
-    return bits.to(torch.int32).view(torch.float32)
-
-
-def _trunc_tf32(x):
-    """The TF32 value the tensor core reads from an f32 register: its low 13
-    bits cleared."""
-    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
-
-
-def _rz_f32(x):
-    """f64 x rounded to f32 toward zero, as the tensor core rounds its
-    sums."""
-    y = x.float()
-    return torch.where(y.double().abs() > x.abs(),
-                       torch.nextafter(y, torch.zeros_like(y)), y)
-
-
-def _mm_3xtf32(a, b, partial_depth=None):
-    """a @ b as the f32 backward kernels compute it on mma.sync.m16n8k8:
-    each operand split into big = rna(x) and small = x − big (read by the
-    tensor core as its top 11 bits); per 8-deep step, big·small, small·big
-    and big·big each summed exactly and rounded toward zero into the
-    running sum (one mma each). With `partial_depth` (S and dP), the running
-    sum starts from 0 every that many columns and is added to the f32
-    result with one round-to-nearest add."""
-    ab, bb = _rna_tf32(a), _rna_tf32(b)
-    as_, bs = _trunc_tf32(a - ab), _trunc_tf32(b - bb)
-    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
-    step = partial_depth or a.shape[-1]
-    for k0 in range(0, a.shape[-1], step):
-        t = torch.zeros_like(acc, dtype=torch.float64) if partial_depth \
-            else acc.double()
-        for k in range(k0, k0 + step, 8):
-            for x, y in ((ab, bs), (as_, bb), (ab, bb)):
-                t = _rz_f32(t + x[..., k:k + 8].double()
-                            @ y[..., k:k + 8, :].double()).double()
-        acc = acc + t.float() if partial_depth else t.float()
-    return acc
-
-
 def _bwd_3xtf32(q, k, v, out, lse, g, bias, sm, causal=False, rate=0.0,
                 seed=0):
     """flash_attention_bwd_plain (f32) with each of its five products (s,
@@ -688,7 +646,7 @@ def _bwd_3xtf32(q, k, v, out, lse, g, bias, sm, causal=False, rate=0.0,
     kernels' kPartialDepth), the outputs in one partial sum a 64-row tile.
     exp is exact here (the kernels use ex2.approx)."""
     kt = lambda x: x.transpose(-1, -2)
-    s = _mm_3xtf32(q, kt(k), 16) * sm
+    s = mm_3xtf32(q, kt(k), 16) * sm
     if bias is not None:
         s = s + bias
     if causal:
@@ -696,14 +654,14 @@ def _bwd_3xtf32(q, k, v, out, lse, g, bias, sm, causal=False, rate=0.0,
         s = s.masked_fill(~torch.ones(tq, tk, dtype=torch.bool).tril(),
                           tfa.NEG_INF)
     p = torch.exp(s - lse[..., None])
-    dp = _mm_3xtf32(g, kt(v), 16)
+    dp = mm_3xtf32(g, kt(v), 16)
     p_d = p
     if rate > 0.0:
         keep = tfa.dropout_keep_mask(seed, rate, *p.shape)
         p_d, dp = tfa._dropped(p, keep, rate), tfa._dropped(dp, keep, rate)
-    dv = _mm_3xtf32(kt(p_d), g, 64)
+    dv = mm_3xtf32(kt(p_d), g, 64)
     ds = p * (dp - tfa.flash_attention_delta_plain(out, g)[..., None])
-    return (_mm_3xtf32(ds, k, 64) * sm, _mm_3xtf32(kt(ds), q, 64) * sm, dv,
+    return (mm_3xtf32(ds, k, 64) * sm, mm_3xtf32(kt(ds), q, 64) * sm, dv,
             ds)
 
 
@@ -714,22 +672,22 @@ def test_rna_tf32_rounds_like_cvt_rna():
     x = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2),
                       1.0 + one_ulp / 2 - 2.0 ** -23, 1.0 + 3 * one_ulp,
                       3.0e-3], dtype=torch.float32)
-    got = _rna_tf32(x)
+    got = rna_tf32(x)
     want = [1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 1.0 + 3 * one_ulp]
     assert got[:4].tolist() == want
     assert abs(got[4].item() - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
-    assert torch.equal(_rna_tf32(got), got)
+    assert torch.equal(rna_tf32(got), got)
     # big + small, as the tensor core reads small, carries x to within
     # 2^-21 of its magnitude; cleared low bits read as truncation
     y = torch.from_numpy(_rand((4096,), 120))
-    big = _rna_tf32(y)
-    rest = (y - big - _trunc_tf32(y - big)).abs()
+    big = rna_tf32(y)
+    rest = (y - big - trunc_tf32(y - big)).abs()
     assert bool((rest <= y.abs() * 2.0 ** -21).all())
-    assert _trunc_tf32(x)[:4].tolist() == [1.0, -1.0, 1.0, 1.0 + 3 * one_ulp]
+    assert trunc_tf32(x)[:4].tolist() == [1.0, -1.0, 1.0, 1.0 + 3 * one_ulp]
     # rounding toward zero: one ulp below the nearest for 1 + 2^-24 + ...
     z = torch.tensor([1.0 + 2.0 ** -23 * 0.75, -(1.0 + 2.0 ** -23 * 0.75)],
                      dtype=torch.float64)
-    assert _rz_f32(z).tolist() == [1.0, -1.0]
+    assert rz_f32(z).tolist() == [1.0, -1.0]
 
 
 @pytest.mark.parametrize(
@@ -760,6 +718,71 @@ def test_3xtf32_products_hold_the_f32_backward(t, d, per_q_bias, causal,
                                          sm, rate, 5, dbias="per_q")
     got = _bwd_3xtf32(q, k, v, out, lse, g, bias, sm, causal, rate, 5)
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        torch.testing.assert_close(a, w, rtol=tol, atol=tol, msg=name)
+
+
+def _fwd_3xtf32(q, k, v, bias, sm, causal=False, rate=0.0, seed=0):
+    """flash_attention_fwd_plain (f32) as the f32 forward kernel computes
+    it: S = Q·Kᵀ in 3xTF32 with 16-column partial sums (the backward's
+    split and order), the online softmax over 64-key tiles, each tile's
+    P·V in 3xTF32 into a zeroed partial sum added to the rescaled O, and
+    O / l at the end. exp is exact here (the kernel uses ex2.approx)."""
+    s = mm_3xtf32(q, k.transpose(-1, -2), 16) * sm
+    if bias is not None:
+        s = s + bias
+    tq, tk = s.shape[-2:]
+    if causal:
+        s = s.masked_fill(~torch.ones(tq, tk, dtype=torch.bool).tril(),
+                          tfa.NEG_INF)
+    keep = (tfa.dropout_keep_mask(seed, rate, *s.shape) if rate > 0.0
+            else None)
+    m = torch.full(s.shape[:-1] + (1,), tfa.NEG_INF)
+    l = torch.zeros_like(m)
+    o = torch.zeros(s.shape[:-1] + v.shape[-1:])
+    for k0 in range(0, tk, 64):
+        st = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        if keep is not None:
+            p = tfa._dropped(p, keep[..., k0:k0 + 64], rate)
+        o = o * corr + mm_3xtf32(p, v[..., k0:k0 + 64, :])
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return o * (1.0 / l_safe), (m + torch.log(l_safe)).squeeze(-1)
+
+
+@pytest.mark.parametrize(
+    "t,d,bias_kind,causal,rate",
+    [(t, d, bias, False, 0.0) for t in (128, 512) for d in (64, 256)
+     for bias in (None, "mask", "per_q")]
+    # chip_smoke's d = 128 causal edge cases
+    + [(130, 128, "per_q", True, 0.0), (130, 128, None, True, 0.2),
+       (130, 128, "per_q", True, 0.1)])
+def test_3xtf32_products_hold_the_f32_forward(t, d, bias_kind, causal, rate):
+    """The decision rule of the f32 forward's 3xTF32 design: with its two
+    products emulated as the kernel splits and sums them (the tensor core's
+    round-toward-zero sums, S's 16-column partial sums and a key tile's P·V
+    partial sum included), out and lse stay within a quarter of the card's
+    f32 tolerance (chip_smoke TOL 2e-5, rtol = atol) of the plain f32
+    forward, at B=1, nh=2, the main path's T, d = 64 and 256, with no bias,
+    the [B,1,1,T] mask or a per-query bias, and at the d = 128 causal edge
+    cases (with dropout)."""
+    tol = 2e-5 / 4
+    q, k, v = (torch.from_numpy(_rand((1, 2, t, d), 140 + i))
+               for i in range(3))
+    if bias_kind == "mask":
+        bias = torch.zeros(1, 1, 1, t)
+        bias[..., 3 * t // 4:] = -1e4
+    elif bias_kind == "per_q":
+        bias = torch.from_numpy(_rand((1, 2, t, t), 143))
+    else:
+        bias = None
+    sm = 1.0 / np.sqrt(d)
+    want = tfa.flash_attention_fwd_plain(q, k, v, bias, causal, sm, rate, 7)
+    got = _fwd_3xtf32(q, k, v, bias, sm, causal, rate, 7)
+    for name, a, w in zip(("out", "lse"), got, want):
         torch.testing.assert_close(a, w, rtol=tol, atol=tol, msg=name)
 
 

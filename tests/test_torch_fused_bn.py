@@ -396,6 +396,31 @@ def test_kernel_paths_reject_other_devices():
         tbn.conv_stats(x, torch.empty((32, 64, 1, 1), device="meta"))
 
 
+@pytest.mark.parametrize("ci,co", [(256, 64), (64, 256), (256, 512),
+                                   (512, 2048), (2048, 512)])
+def test_3xtf32_conv_stats_holds_f32(ci, co):
+    """The decision rule of K4 f32's 3xTF32 design: Y = X·Wᵀ emulated as
+    the kernel splits and sums it (16-deep partial sums over Ci, the tensor
+    core's round-toward-zero sums), and the statistics of that stored Y,
+    stay within a quarter of the card's f32 tolerances (chip_smoke BN_TOL:
+    max |err| <= 2e-5 · max |y|; BN_STAT_TOL: mean within 1e-5 · sqrt(E[y²])
+    and var within 1e-5 · E[y²] per channel) of conv_stats_plain, at
+    ResNet-50's 1x1 Ci/Co pairs on 256 rows of |randn| activations."""
+    from paddle_tpu_torch.ops.kernels.tf32x3 import mm_3xtf32
+
+    rng = np.random.RandomState(ci + co)
+    x = np.abs(rng.randn(1, ci, 16, 16)).astype(np.float32)
+    w = (rng.randn(co, ci, 1, 1) * np.sqrt(2.0 / ci) + 0.01).astype(
+        np.float32)
+    py2, pmean, pvar = tbn.conv_stats_plain(_t(x), _t(w))
+    y2 = mm_3xtf32(tbn.to2d(_t(x)), _t(w).reshape(co, ci).t(), 16)
+    mean, var = tbn.stats_plain(y2)
+    ex2 = pvar + pmean * pmean
+    assert (y2 - py2).abs().max() <= 2e-5 / 4 * py2.abs().max()
+    assert ((mean - pmean).abs() <= 1e-5 / 4 * ex2.sqrt()).all()
+    assert ((var - pvar).abs() <= 1e-5 / 4 * ex2).all()
+
+
 _ADMITTED_C = [8, 16, 32, 64] + [128 * i for i in range(1, 65)]
 
 
@@ -472,21 +497,46 @@ def _cuda_or_skip():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernels_match_plain(dtype):
+@pytest.mark.parametrize("ci,co,hw,stride", [
+    (64, 128, 32, 2), (256, 64, 28, 1), (64, 256, 28, 1), (256, 512, 28, 2),
+    (512, 2048, 7, 1), (2048, 512, 7, 1)])
+def test_cuda_kernels_match_plain(dtype, ci, co, hw, stride):
     """Each kernel against its plain version on the card, at a small
     stride-2 conv with a residual: f32 within 2e-5·max|plain|, bf16 within
-    1e-2·max|plain|; statistics rtol 1e-5 (1e-4 in bf16)."""
+    1e-2·max|plain|; statistics rtol 1e-5 (1e-4 in bf16). Then K4 at
+    ResNet-50's 1x1 Ci/Co pairs (B=8, the stage's spatial size cut to a
+    quarter): y as above, mean and var per channel within 1e-5 of
+    sqrt(E[y²]) and E[y²] (chip_smoke's BN_STAT_TOL), and two calls equal
+    bit for bit."""
     _cuda_or_skip()
     from paddle_tpu_torch.core.executor import cuda_device
 
     dev = cuda_device(0)
     dt = getattr(torch, dtype)
+    tol = 2e-5 if dtype == "float32" else 1e-2
+    stol = 1e-5 if dtype == "float32" else 1e-4
+    if (ci, co) != (64, 128):
+        gen = torch.Generator(dev).manual_seed(ci + co)
+        x = torch.randn(8, ci, hw, hw, generator=gen, device=dev).abs()
+        x = x.to(dt).contiguous(memory_format=torch.channels_last)
+        w = (torch.randn(co, ci, 1, 1, generator=gen, device=dev)
+             * (2.0 / ci) ** 0.5 + 0.01).to(dt)
+        xs = x[:, :, ::stride, ::stride]
+        got = tbn.conv_stats(xs, w)
+        y2, mean, var = got
+        py2, pmean, pvar = tbn.conv_stats_plain(xs, w)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got, tbn.conv_stats(xs, w)))
+        assert (y2.float() - py2.float()).abs().max() <= \
+            tol * py2.float().abs().max()
+        ex2 = pvar + pmean * pmean
+        assert ((mean - pmean).abs() <= 1e-5 * ex2.sqrt()).all()
+        assert ((var - pvar).abs() <= 1e-5 * ex2).all()
+        return
     gen = torch.Generator(dev).manual_seed(0)
     x = torch.randn(8, 64, 32, 32, generator=gen, device=dev).abs().to(dt)
     x = x.contiguous(memory_format=torch.channels_last)
     w = (torch.randn(128, 64, 1, 1, generator=gen, device=dev) * 0.1).to(dt)
-    tol = 2e-5 if dtype == "float32" else 1e-2
-    stol = 1e-5 if dtype == "float32" else 1e-4
     xs = x[:, :, ::2, ::2]
     y2, mean, var = tbn.conv_stats(xs, w)
     py2, pmean, pvar = tbn.conv_stats_plain(xs, w)
