@@ -36,8 +36,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              share of its bound (the f32 forward's and backward's bound
              is their 3xTF32 one, the FMA bound beside it); logs the bf16
              flash kernels' registers, spills, dynamic shared memory and
-             HGMMA count (the sparse backward's too), and the f32 forward's
-             and backward's and K2's registers and spills and the f32
+             HGMMA count (the sparse forward's and backward's too), and the
+             f32 tensor-core flash kernels' (dense forward and backward,
+             sparse backward) and K2's registers and spills and the f32
              flash kernels' HMMA count.
 4. serve   — main path 1: BERT-base at full width (vocab 30522, hidden 768,
              12 layers, 12 heads, ffn 3072) built with the port's DSL from a
@@ -90,8 +91,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              the kernels with an all-ones tile table bitwise equal to them
              with the computed one (dropout on); times each kernel, its
              plain version and F.scaled_dot_product_attention with the dense
-             boolean mask (and the bf16 backward's delta kernel alone), and
-             the bound over the visible (i, j) pairs. Then the sparse route:
+             boolean mask (and the backward's delta kernel alone), and
+             the bound over the visible (i, j) pairs (the f32 backward's in
+             3xTF32, the FMA bound beside it), at every case. Then the
+             sparse route:
              B·nh = 65,600 through the kernels (flat grids), T = 96 and
              d = 32 through the counted plain route.
 9. nmt     — main path 4: Transformer-big (d_model 1024, 16 heads, d_ff
@@ -110,7 +113,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              dropout 0) on CUDAPlace(0) and CPUPlace() from the same
              weights: the loss within 1e-5, every gradient within 1e-4
              relative L2 (or twice the CPU's own one-ulp spread where that
-             is larger); its sparse launches are the f32 kernels' count.
+             is larger); its sparse launches are the f32 kernels' count,
+             and one more step on the card is profiled (device ms by
+             kind, the f32 sparse kernels' among them).
 9b. wide    — main path 7: the wide flash kernels (d > 256) through
              Executor.run: BERT pretraining at hidden 1024 cut to 2 heads
              (d = 512) and 2 layers (f32 B=4 T=128, bf16 AMP B=4 T=512, 2
@@ -500,16 +505,22 @@ def kernel_label(mangled):
     return None
 
 
+# the f32 kernels whose products run on the tensor cores in 3xTF32
+F32_TC_KERNELS = ("flash_fwd_f32", "flash_bwd_f32", "sparse_bwd_f32",
+                  "conv_stats_f32")
+
+
 def log_wgmma_build(build):
     """ptxas's registers, shared memory and spills for each bf16 flash
-    kernel by name (the dense ones and the sparse backward), the f32 flash
-    forward and backward kernels (the backward's dk/dv and dq CTAs in one),
+    kernel by name (the dense ones, the sparse forward and backward), the
+    f32 flash kernels on the tensor cores (the dense forward and backward,
+    the sparse backward: each backward's dk/dv and dq CTAs in one kernel),
     K2's apply_kernel, K3's bwd_dx_kernel, K4's conv_stats_f32_kernel and
     conv_stats_bf16_kernel and the wide flash kernels; where the toolkit
     has cuobjdump, the count of HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions in each flash library, of HMMA (mma.sync) instructions in
-    each dense f32 flash kernel and wide kernel, and of HGMMA and HMMA in
-    K4."""
+    instructions in each flash library and in each bf16 sparse kernel, of
+    HMMA (mma.sync) instructions in each f32 tensor-core flash kernel and
+    wide kernel, and of HGMMA and HMMA in K4."""
     import ctypes
     import re
 
@@ -523,9 +534,7 @@ def log_wgmma_build(build):
                           r"for) '?(\w+)'?", line)
             if m:
                 fn = kernel_label(m.group(1)) or m.group(1)
-            elif fn and ("bf16" in fn or fn.startswith(("flash_fwd_f32",
-                                                         "flash_bwd_f32",
-                                                         "conv_stats_f32"))
+            elif fn and ("bf16" in fn or fn.startswith(F32_TC_KERNELS)
                          or "apply_kernel" in fn or "bwd_dx_kernel" in fn
                          or "wide_" in fn) \
                     and ("Used" in line or "spill" in line
@@ -556,9 +565,13 @@ def log_wgmma_build(build):
         query.argtypes = [ctypes.c_int] * (1 if sparse else 2
                                            if lib.endswith("fwd") else 3)
         query.restype = ctypes.c_int
+        if sparse:
+            fwd_query = lib_so.flash_attention_sparse_fwd_bf16_smem
+            fwd_query.argtypes = [ctypes.c_int]
+            fwd_query.restype = ctypes.c_int
         for d in (64, 128) + WIDE_D:   # bias mode 1 = the mask, 2 = per q
             if sparse:
-                smem = {"bwd": query(d)}
+                smem = {"fwd": fwd_query(d), "bwd": query(d)}
             elif lib == "flash_attention_fwd":
                 smem = {f"fwd mode {m}": query(d, m) for m in (1, 2)}
             else:
@@ -574,8 +587,12 @@ def log_wgmma_build(build):
                 f"{sass.count('UTMALDG')} UTMALDG instructions (cuobjdump)")
             for section in sass.split("Function : ")[1:]:
                 name = kernel_label(section.split(None, 1)[0]) or ""
-                if name.startswith(("flash_fwd_f32", "flash_bwd_f32")):
+                if name.startswith(F32_TC_KERNELS):
                     log(f"build {lib} {name}: {section.count('HMMA')} HMMA "
+                        f"instructions (cuobjdump)")
+                elif sparse and "bf16" in name:
+                    log(f"build {lib} {name}: {section.count('HGMMA')} HGMMA "
+                        f"and {section.count('UTMALDG')} UTMALDG "
                         f"instructions (cuobjdump)")
         else:
             log(f"build {lib}: no cuobjdump in the toolkit, HGMMA not counted")
@@ -2101,8 +2118,8 @@ def sparse_case(fas, name, q_seg, k_seg, causal, dtype, gen, pad_row):
 
 def sparse_timing(fas, dt, inputs, stats):
     """Device ms of the kernels, their plain versions and SDPA with the
-    dense boolean mask (and, in bf16, of the backward's delta kernel
-    alone), and the bound over the visible pairs."""
+    dense boolean mask (and of the backward's delta kernel alone), and the
+    bound over the visible pairs."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -2134,9 +2151,7 @@ def sparse_timing(fas, dt, inputs, stats):
         lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask),
             (lq, lk, lv), dout)))))
-    if dt == "bfloat16":
-        bwd["delta_ms"] = device_ms(lambda: fa.flash_attention_delta(out,
-                                                                     dout))
+    bwd["delta_ms"] = device_ms(lambda: fa.flash_attention_delta(out, dout))
     b, nh, tq, d = q.shape
     tk = k.shape[2]
     isz = q.element_size()
@@ -2149,6 +2164,13 @@ def sparse_timing(fas, dt, inputs, stats):
                                (bwd, 10.0 * d * pairs, bwd_bytes)):
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dt)
         rec.update(flops=flops, bytes=nbytes)
+    if dt == "float32":
+        # the f32 backward runs three TF32 products per product on the
+        # tensor cores (3xTF32): that is its least time; the CUDA-core FMA
+        # bound stays beside it
+        bwd["bound_fma_ms"] = bwd["bound_ms"]
+        bwd["bound_ms"], bwd["bound_by"] = bound(
+            3 * bwd["flops"], bwd_bytes, dt, TF32_PEAK_FLOPS)
     return fwd, bwd
 
 
@@ -2178,14 +2200,13 @@ def phase_kernel_sparse(fas):
             rec = {"case": name, "dtype": dt, "B": NMT_B, "nh": NMT_NH,
                    "Tq": q_seg.shape[1], "Tk": k_seg.shape[1], "d": D,
                    "causal": causal, "max_abs_err": errs, **stats}
-            if q_seg.shape[1] == NMT_T:   # the main path's shapes: timed
-                fwd, bwd = sparse_timing(fas, dt, inputs, stats)
-                rec.update(fwd=fwd, bwd=bwd)
-                if name == "encoder self":
-                    for kname, r, keys in (("fwd", fwd, ("out", "lse")),
-                                           ("bwd", bwd, ("dq", "dk", "dv"))):
-                        e = max(x[key] for x in errs.values() for key in keys)
-                        records[(kname, dt)] = dict(r, max_abs_err=e)
+            fwd, bwd = sparse_timing(fas, dt, inputs, stats)
+            rec.update(fwd=fwd, bwd=bwd)
+            if name == "encoder self":
+                for kname, r, keys in (("fwd", fwd, ("out", "lse")),
+                                       ("bwd", bwd, ("dq", "dk", "dv"))):
+                    e = max(x[key] for x in errs.values() for key in keys)
+                    records[(kname, dt)] = dict(r, max_abs_err=e)
             log("kernel sparse " + json.dumps(rec))
     return records
 
@@ -2435,6 +2456,9 @@ def phase_nmt(fluid, fas):
                              "6 + 6 times")
     if loss_rel > 1e-5 or max(card) > limit:
         raise AssertionError("GPU and CPU NMT steps disagree")
+    rec = profile_record("nmt f32 2+2 layers step B=4 T=128", lambda: exe.run(
+        main, feed=feed, fetch_list=[loss], scope=gpu_scope), 1)
+    log("nmt f32 " + json.dumps(rec))
     return launches
 
 
@@ -3063,8 +3087,8 @@ def main():
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "dropout_ms": rec["dropout_ms"],
-                **({"delta_ms": rec["delta_ms"]} if "delta_ms" in rec
-                   else {}),
+                **{k: rec[k] for k in ("delta_ms", "bound_fma_ms")
+                   if k in rec},
                 "shape": f"encoder self B={NMT_B} nh={NMT_NH} T={NMT_T} "
                          f"d={D}"})
     for key, kname, replaces in (

@@ -41,42 +41,59 @@
 // dim, so the packed [B, T, nh·d] fc outputs are read and written in place.
 // Tq and Tk are multiples of 64 (the wrapper routes other shapes to the
 // plain version); Tq != Tk (cross attention) is allowed. Head dims 64, 128,
-// 192 and 256. Above 128 a kernel whose accumulators would not fit in
-// registers (or whose f32 tiles would not fit in shared memory) owns one
-// 64-wide chunk of the output's head dim: the chunks are a third grid factor
-// and each recomputes the scores over the full head dim.
-//   f32:  256 threads, a 4x4 register tile each, FMA on the CUDA cores (TF32
-//         would lose the f32 parity the tests hold it to). Above d = 128 the
-//         backward kernels stream the head dim through shared memory in
-//         64-wide chunks, in the same summation order.
-//   bf16 forward: 4 warps, 16 q rows each; mma.sync m16n8k16, bf16 in, f32
-//         accumulate; p rounded to bf16 before p·v, as the TPU kernel casts
-//         it.
-//   bf16 backward: wgmma on TMA-written tiles (hopper.cuh), as the dense
-//         backward: a dq CTA computes S = Q·Kᵀ and dP = dO·Vᵀ (all K-major),
-//         then dQ += dS·K with dS in registers and K read MN-major; a dk/dv
-//         CTA computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then dV += Pᵀ·dO and
-//         dK += dSᵀ·Q with Pᵀ and dSᵀ in registers and dO, Q read MN-major.
-//         No operand is transposed in shared memory. Thread 0 keeps a ring
-//         of two stages one visible tile ahead of the math (K and V for dq;
-//         Q, dO and the tile's lse, delta and se rows for dk/dv): the walk
-//         visits only the tiles whose bit is set, so a skipped tile costs
-//         no load and no barrier. The element mask is built from the row's
-//         (start, end), the column and the causal test with selects; exp is
-//         ex2.approx; dropout bits are drawn in registers (keep_bits_rows /
-//         keep_bits_cols). Walks are short (~2.4 tiles at the NMT shapes),
-//         so per-CTA set-up weighs as much as the products: one launch runs
-//         both kinds of CTA (the dk/dv ones first, the dq ones filling the
-//         tail), and thread 0 starts the resident tiles' copies before it
-//         scans the tile table.
+// 192 and 256. Above 128 a CTA owns one 64-wide chunk of the output's head
+// dim (the accumulators of a wider one would not fit in registers beside
+// the scores, nor the f32 tiles in shared memory): the chunks are a third
+// grid factor and each recomputes the scores over the full head dim.
+//
+// Every kernel but the f32 forward walks only the visible tiles with a ring
+// of two stages one visible tile ahead of the math, so a skipped tile costs
+// no load and no barrier, and builds the element mask from the row's
+// (start, end), the column and the causal test with selects (no branch);
+// exp is ex2.approx; dropout bits are drawn in registers for the lane's own
+// accumulator elements (keep_bits_rows / keep_bits_cols). Four warps own 16
+// rows each of the 64x64 score block, so the accumulators have the wgmma
+// layout and these loops are one code whatever the product runs on.
+//   bf16 forward: one warpgroup on wgmma over TMA tiles (hopper.cuh), as the
+//         dense bf16 forward (flash_attention_fwd.cu): S = Q·Kᵀ with both
+//         K-major, then O += P·V with P rounded to bf16 in registers as the
+//         A operand (as the TPU kernel casts it) and V read MN-major through
+//         the transpose flag, so V is never transposed. Thread 0 starts Q's
+//         copy before it scans the tile table, then keeps K and V's chunk of
+//         the next visible tile in flight. The rescale of a tile that adds
+//         nothing is exactly 1 (a select where the max does not move), so
+//         ex2.approx keeps skipping bitwise invisible.
+//   bf16 backward: wgmma on TMA tiles, as the dense backward: a dq CTA
+//         computes S = Q·Kᵀ and dP = dO·Vᵀ (all K-major), then dQ += dS·K
+//         with dS in registers and K read MN-major; a dk/dv CTA computes
+//         Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then dV += Pᵀ·dO and dK += dSᵀ·Q with
+//         Pᵀ and dSᵀ in registers and dO, Q read MN-major. Its stages carry
+//         K and V for dq; Q, dO and the tile's lse, delta and se rows for
+//         dk/dv.
+//   f32 backward: every product in 3xTF32 on mma.sync.m16n8k8 (tf32x3.cuh,
+//         the dense f32 backward's design): S and dP in kPartialDepth-column
+//         partial sums, dQ, dK and dV into a zeroed partial sum a tile added
+//         with one round-to-nearest add (the tensor core's sums round toward
+//         zero). Tiles arrive by cp.async in a two-stage ring (4 floats of
+//         row padding: conflict-free fragment reads), a step (visible tile,
+//         head-dim chunk) ahead of the math; a dk/dv step also brings the q
+//         tile's lse, delta and se rows. Above d = 128 the head dim streams
+//         through the ring in 64-wide chunks, the CTA's own chunk last.
+//   f32 forward: 256 threads, a 4x4 register tile each, FMA on the CUDA
+//         cores; it tests each tile's bit and loads a visible tile
+//         synchronously, with its dropout bits as a shared-memory tile.
+// Both backwards run as one launch of both kinds of CTA (the dk/dv ones
+// first, the dq ones filling the tail): walks are short (~2.4 tiles at the
+// NMT shapes), so per-CTA set-up weighs as much as the products.
 //
 // Bound. Work scales with the visible (i, j) pairs, not with Tq·Tk: 4·d flops
-// a pair forward, 10·d backward. At the NMT shapes (T = 256, d = 64, packed
-// sentences of ~26 tokens) most tiles hold few visible pairs, so a perfect
-// kernel would be bound by the bytes of q, k, v, out (and dO, dq, dk, dv);
-// a processed tile still costs its full 64x64 products here, and a walk of
-// ~2.4 tiles leaves the per-CTA set-up (barriers, the first loads) as large
-// as the products. Times are in PERF.md.
+// a pair forward, 10·d backward (three TF32 products each in f32). At the NMT
+// shapes (T = 256, d = 64, packed sentences of ~26 tokens) most tiles hold
+// few visible pairs, so a perfect kernel would be bound by the bytes of q,
+// k, v, out (and dO, dq, dk, dv); a processed tile still costs its full
+// 64x64 products here, and a walk of ~2.4 tiles leaves the per-CTA set-up
+// (barriers, the first loads) as large as the products. Times are in
+// PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,11 +101,13 @@
 
 #include "hopper.cuh"
 #include "philox.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;  // _NEG_INF of the JAX package
 constexpr int kTile = 64;          // q rows and keys per tile
+using bf = __nv_bfloat16;
 
 struct SparseParams {
   const void* q;
@@ -97,8 +116,9 @@ struct SparseParams {
   const void* dout;    // backward only
   const int* se;       // [B, Tq] packed (start << 16) | end
   const int* vis;      // [B, Tq / 64, Tk / 64] tile visibility
-  const float* lse_in;  // [B*H, Tq] (backward)
-  const float* delta;   // [B*H, Tq] (backward)
+  const float* lse_in;  // [B*H, Tq] rows lse_pitch floats apart (backward)
+  const float* delta;   // [B*H, Tq] rows delta_pitch floats apart (backward)
+  int lse_pitch, delta_pitch;
   void* out;           // forward
   float* lse;          // [B*H, Tq] (forward)
   void* dq;
@@ -115,6 +135,7 @@ struct SparseParams {
   float sm_scale;
   int causal;
   flash::Dropout drop;
+  int n_dkv;  // f32 backward: the launch's first n_dkv CTAs are dk/dv CTAs
 };
 
 __device__ __forceinline__ int nq_tiles(const SparseParams& p) {
@@ -193,35 +214,24 @@ __device__ __forceinline__ void load_tile_f32(float* dst, int pitch,
   }
 }
 
-// s += a·bᵀ (and t += c·dᵀ when kTwo) for the thread's 4x4 block, over the
-// W columns of the tiles (row pitch W+1). Chunks of the head dim taken in
-// order sum in the same order as one pass over it.
-template <int W, bool kTwo>
+// s += a·bᵀ for the thread's 4x4 block, over the W columns of the tiles
+// (row pitch W+1).
+template <int W>
 __device__ __forceinline__ void products_f32(const float* sA, const float* sB,
-                                             const float* sC, const float* sD,
-                                             int ty, int tx, float (&s)[4][4],
-                                             float (&t)[4][4]) {
+                                             int ty, int tx,
+                                             float (&s)[4][4]) {
   constexpr int kPad = W + 1;
 #pragma unroll 4
   for (int d = 0; d < W; ++d) {
-    float av[4], bv[4], cv[4], dv[4];
+    float av[4], bv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = sA[(ty * 4 + i) * kPad + d];
-      if (kTwo) cv[i] = sC[(ty * 4 + i) * kPad + d];
-    }
+    for (int i = 0; i < 4; ++i) av[i] = sA[(ty * 4 + i) * kPad + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bv[j] = sB[(tx + 16 * j) * kPad + d];
-      if (kTwo) dv[j] = sD[(tx + 16 * j) * kPad + d];
-    }
+    for (int j = 0; j < 4; ++j) bv[j] = sB[(tx + 16 * j) * kPad + d];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-        if (kTwo) t[i][j] = fmaf(cv[i], dv[j], t[i][j]);
-      }
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
   }
 }
 
@@ -279,9 +289,9 @@ __global__ void __launch_bounds__(256) sparse_fwd_f32_kernel(SparseParams p) {
     if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
     __syncthreads();
 
-    float s[4][4], unused[4][4];
+    float s[4][4];
     zero4x4(s);
-    products_f32<D, false>(sQ, sK, nullptr, nullptr, ty, tx, s, unused);
+    products_f32<D>(sQ, sK, ty, tx, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row_l = ty * 4 + i, row = q0 + row_l;
@@ -343,452 +353,6 @@ __global__ void __launch_bounds__(256) sparse_fwd_f32_kernel(SparseParams p) {
     for (int j = 0; j < D / 16; ++j)
       out[row * p.o_st + tx + 16 * j] = acc[i][j] / l_safe;
     if (tx == 0) p.lse[(long long)bh * p.Tq + row] = m[i] + logf(l_safe);
-  }
-}
-
-// dq for the 64-wide output chunk of the head dim a CTA owns (DC = D up to
-// d = 128: the one chunk, Q and dO stay in shared memory). Above that the
-// products stream the head dim through the tiles in DC-wide chunks, and K's
-// own chunk is loaded again for dQ += dS·K.
-template <int D, int DC>
-__global__ void __launch_bounds__(256) sparse_dq_f32_kernel(SparseParams p) {
-  constexpr int kPad = DC + 1, kPitchS = kTile + 1, kChunks = D / DC;
-  extern __shared__ __align__(16) float smem_f32[];
-  float* sQ = smem_f32;             // [64][DC+1]
-  float* sG = sQ + kTile * kPad;    // [64][DC+1]  dO
-  float* sK = sG + kTile * kPad;    // [64][DC+1]
-  float* sV = sK + kTile * kPad;    // [64][DC+1]
-  float* sDS = sV + kTile * kPad;   // [64][65]
-  float* sL = sDS + kTile * kPitchS;
-  float* sDelta = sL + kTile;
-  int* sStart = reinterpret_cast<int*>(sDelta + kTile);
-  int* sEnd = sStart + kTile;
-  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sEnd + kTile);
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const Cell cell = cell_of(nq_tiles(p), kChunks, p.H);
-  const int bh = cell.bh, b = cell.b, h = cell.h, oc = cell.chunk;
-  const int iq = cell.tile, q0 = iq * kTile;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* g = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
-
-  if (kChunks == 1) {
-    load_tile_f32<DC>(sQ, kPad, q + q0 * p.q_st, p.q_st, tid);
-    load_tile_f32<DC>(sG, kPad, g + q0 * p.o_st, p.o_st, tid);
-  }
-  load_ranges(p, b, q0, sStart, sEnd, tid);
-  if (tid < kTile) {
-    sL[tid] = p.lse_in[(long long)bh * p.Tq + q0 + tid];
-    sDelta[tid] = p.delta[(long long)bh * p.Tq + q0 + tid];
-  }
-
-  float acc[4][DC / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DC / 16; ++j) acc[i][j] = 0.f;
-
-  const int nk = nk_tiles(p);
-  const int* vis = p.vis + ((long long)b * nq_tiles(p) + iq) * nk;
-  for (int kt = 0; kt < nk; ++kt) {
-    if (vis[kt] == 0) continue;  // the same for the whole CTA
-    const int k0 = kt * kTile;
-    float s[4][4], dp[4][4];
-    zero4x4(s);
-    zero4x4(dp);
-    for (int c = 0; c < kChunks; ++c) {
-      __syncthreads();  // the previous products and dQ step are done
-      if (kChunks > 1) {
-        load_tile_f32<DC>(sQ, kPad, q + q0 * p.q_st + c * DC, p.q_st, tid);
-        load_tile_f32<DC>(sG, kPad, g + q0 * p.o_st + c * DC, p.o_st, tid);
-      }
-      load_tile_f32<DC>(sK, kPad, k + k0 * p.k_st + c * DC, p.k_st, tid);
-      load_tile_f32<DC>(sV, kPad, v + k0 * p.v_st + c * DC, p.v_st, tid);
-      if (c == 0 && p.drop.on)
-        flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
-      __syncthreads();
-      products_f32<DC, true>(sQ, sK, sG, sV, ty, tx, s, dp);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row_l = ty * 4 + i, col_l = tx + 16 * j;
-        const bool ok = visible(p, q0 + row_l, k0 + col_l, sStart[row_l],
-                                sEnd[row_l]);
-        const float pr = ok ? expf(s[i][j] * p.sm_scale - sL[row_l]) : 0.f;
-        float dpv = dp[i][j];
-        if (p.drop.on)
-          dpv = sKeep[row_l * flash::kKeepPitch + col_l] ? dpv * p.drop.scale
-                                                         : 0.f;
-        sDS[row_l * kPitchS + col_l] = pr * (dpv - sDelta[row_l]);
-      }
-    if (kChunks > 1 && oc != kChunks - 1) {
-      __syncthreads();  // every thread is done with the last chunk's sK
-      load_tile_f32<DC>(sK, kPad, k + k0 * p.k_st + oc * DC, p.k_st, tid);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[4], kv[DC / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sDS[(ty * 4 + i) * kPitchS + kk];
-#pragma unroll
-      for (int j = 0; j < DC / 16; ++j) kv[j] = sK[kk * kPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC / 16; ++j)
-          acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
-  }
-
-  float* dq = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + oc * DC;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < DC / 16; ++j)
-      dq[row * p.dq_st + tx + 16 * j] = acc[i][j] * p.sm_scale;
-  }
-}
-
-// dk and dv for the output chunk a CTA owns; streamed as the dq kernel.
-template <int D, int DC>
-__global__ void __launch_bounds__(256) sparse_dkv_f32_kernel(SparseParams p) {
-  constexpr int kPad = DC + 1, kPitchS = kTile + 1, kChunks = D / DC;
-  extern __shared__ __align__(16) float smem_f32[];
-  float* sK = smem_f32;             // [64][DC+1]
-  float* sV = sK + kTile * kPad;    // [64][DC+1]
-  float* sQ = sV + kTile * kPad;    // [64][DC+1]
-  float* sG = sQ + kTile * kPad;    // [64][DC+1]  dO
-  float* sP = sG + kTile * kPad;    // [64 q][65]  p_drop
-  float* sDS = sP + kTile * kPitchS;  // [64 q][65]
-  float* sL = sDS + kTile * kPitchS;
-  float* sDelta = sL + kTile;
-  int* sStart = reinterpret_cast<int*>(sDelta + kTile);
-  int* sEnd = sStart + kTile;
-  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sEnd + kTile);
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const Cell cell = cell_of(nk_tiles(p), kChunks, p.H);
-  const int bh = cell.bh, b = cell.b, h = cell.h, oc = cell.chunk;
-  const int kt = cell.tile, k0 = kt * kTile;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* g = static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
-
-  if (kChunks == 1) {
-    load_tile_f32<DC>(sK, kPad, k + k0 * p.k_st, p.k_st, tid);
-    load_tile_f32<DC>(sV, kPad, v + k0 * p.v_st, p.v_st, tid);
-  }
-
-  float dk[4][DC / 16], dv[4][DC / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DC / 16; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  // the transposed walk: column kt of this batch row's [nq, nk] table
-  const int nq = nq_tiles(p), nk = nk_tiles(p);
-  const int* vis = p.vis + (long long)b * nq * nk + kt;
-  for (int iq = 0; iq < nq; ++iq) {
-    if (vis[iq * nk] == 0) continue;  // the same for the whole CTA
-    const int q0 = iq * kTile;
-    float s[4][4], dp[4][4];
-    zero4x4(s);
-    zero4x4(dp);
-    for (int c = 0; c < kChunks; ++c) {
-      __syncthreads();  // the previous products and updates are done
-      if (kChunks > 1) {
-        load_tile_f32<DC>(sK, kPad, k + k0 * p.k_st + c * DC, p.k_st, tid);
-        load_tile_f32<DC>(sV, kPad, v + k0 * p.v_st + c * DC, p.v_st, tid);
-      }
-      load_tile_f32<DC>(sQ, kPad, q + q0 * p.q_st + c * DC, p.q_st, tid);
-      load_tile_f32<DC>(sG, kPad, g + q0 * p.o_st + c * DC, p.o_st, tid);
-      if (c == 0) {
-        load_ranges(p, b, q0, sStart, sEnd, tid);
-        if (tid < kTile) {
-          sL[tid] = p.lse_in[(long long)bh * p.Tq + q0 + tid];
-          sDelta[tid] = p.delta[(long long)bh * p.Tq + q0 + tid];
-        }
-        if (p.drop.on)
-          flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
-      }
-      __syncthreads();
-      // rows = queries ty*4+i, columns = keys tx+16j
-      products_f32<DC, true>(sQ, sK, sG, sV, ty, tx, s, dp);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row_l = ty * 4 + i, col_l = tx + 16 * j;
-        const bool ok = visible(p, q0 + row_l, k0 + col_l, sStart[row_l],
-                                sEnd[row_l]);
-        const float pr = ok ? expf(s[i][j] * p.sm_scale - sL[row_l]) : 0.f;
-        float pd = pr, dpv = dp[i][j];
-        if (p.drop.on) {
-          const bool keep = sKeep[row_l * flash::kKeepPitch + col_l];
-          pd = keep ? pr * p.drop.scale : 0.f;
-          dpv = keep ? dpv * p.drop.scale : 0.f;
-        }
-        sP[row_l * kPitchS + col_l] = pd;
-        sDS[row_l * kPitchS + col_l] = pr * (dpv - sDelta[row_l]);
-      }
-    if (kChunks > 1 && oc != kChunks - 1) {
-      __syncthreads();  // every thread is done with the last chunk's sQ/sG
-      load_tile_f32<DC>(sQ, kPad, q + q0 * p.q_st + oc * DC, p.q_st, tid);
-      load_tile_f32<DC>(sG, kPad, g + q0 * p.o_st + oc * DC, p.o_st, tid);
-    }
-    __syncthreads();
-
-    // dv += p_dropᵀ·dO and dk += dsᵀ·q: rows = keys ty*4+i, cols = d
-#pragma unroll 2
-    for (int qq = 0; qq < kTile; ++qq) {
-      float pv[4], dsv[4], gv[DC / 16], qv[DC / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sP[qq * kPitchS + ty * 4 + i];
-        dsv[i] = sDS[qq * kPitchS + ty * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < DC / 16; ++j) {
-        gv[j] = sG[qq * kPad + tx + 16 * j];
-        qv[j] = sQ[qq * kPad + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC / 16; ++j) {
-          dv[i][j] = fmaf(pv[i], gv[j], dv[i][j]);
-          dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
-        }
-    }
-  }
-
-  float* dkp = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh + oc * DC;
-  float* dvp = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + oc * DC;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < DC / 16; ++j) {
-      dkp[key * p.dk_st + tx + 16 * j] = dk[i][j] * p.sm_scale;
-      dvp[key * p.dv_st + tx + 16 * j] = dv[i][j];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 forward: tensor cores through mma.sync.m16n8k16. In a fragment,
-// g = lane / 4 and t = lane % 4; accumulator element e of an n-block sits at
-// row g + 8·(e / 2), column 2t + e % 2.
-// ---------------------------------------------------------------------------
-using bf = __nv_bfloat16;
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 rows from r0, 16 columns from c) of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf* tile,
-                                       int pitch, int r0, int c) {
-  a[0] = ld_u32(tile + r0 * pitch + c);
-  a[1] = ld_u32(tile + (r0 + 8) * pitch + c);
-  a[2] = ld_u32(tile + r0 * pitch + c + 8);
-  a[3] = ld_u32(tile + (r0 + 8) * pitch + c + 8);
-}
-
-// The accumulators of n-blocks 2kk and 2kk+1 are exactly the A fragment of
-// the 16-wide k step kk of the next product.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&x)[8][4], int kk) {
-  a[0] = hopper::pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = hopper::pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = hopper::pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = hopper::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-}
-
-// A 64-row tile of W columns of a [T, D] bf16 matrix into `dst` (row pitch
-// W+8) and, when `dst_t` is given, its transpose into `dst_t` (row pitch
-// 72).
-template <int W>
-__device__ __forceinline__ void load_tile_bf16(bf* dst, bf* dst_t,
-                                               const bf* src, long long st,
-                                               int tid) {
-  constexpr int kVec = W / 8, kPadT = kTile + 8;
-  for (int i = tid; i < kTile * kVec; i += 128) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    const uint4 x = *reinterpret_cast<const uint4*>(src + r * st + c);
-    if (dst != nullptr) *reinterpret_cast<uint4*>(dst + r * (W + 8) + c) = x;
-    if (dst_t != nullptr) {
-      const bf* xe = reinterpret_cast<const bf*>(&x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dst_t[(c + e) * kPadT + r] = xe[e];
-    }
-  }
-}
-
-// The forward for the output chunk of DC columns a CTA owns: S over the full
-// head dim, P·V over the chunk (only V's chunk is loaded).
-template <int D, int DC>
-__global__ void __launch_bounds__(128) sparse_fwd_bf16_kernel(SparseParams p) {
-  constexpr int kPadQK = D + 8, kPadT = kTile + 8, kChunks = D / DC;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf* sQ = reinterpret_cast<bf*>(smem_raw);                      // [64][D+8]
-  bf* sK = sQ + kTile * kPadQK;                                  // [64][D+8]
-  bf* sVt = sK + kTile * kPadQK;                                 // [DC][72]
-  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sVt + DC * kPadT);  // [64][68]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;  // mma group id, thread in group
-  const Cell cell = cell_of(nq_tiles(p), kChunks, p.H);
-  const int bh = cell.bh, b = cell.b, h = cell.h, oc = cell.chunk;
-  const int iq = cell.tile, q0 = iq * kTile;
-  const bf* q = static_cast<const bf*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf* k = static_cast<const bf*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf* v = static_cast<const bf*>(p.v) + b * p.v_sb + h * p.v_sh +
-                oc * DC;
-
-  load_tile_bf16<D>(sQ, nullptr, q + q0 * p.q_st, p.q_st, tid);
-  __syncthreads();
-
-  // this warp's 16 q rows as mma A fragments, for every 16-wide d step
-  uint32_t qf[D / 16][4];
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    load_a(qf[ks], sQ, kPadQK, r0, ks * 16 + tig * 2);
-
-  const int rows[2] = {q0 + r0, q0 + r0 + 8};
-  int st[2], en[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    unpack_se(p.se[(long long)b * p.Tq + rows[r]], st[r], en[r]);
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[DC / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < DC / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nb][e] = 0.f;
-
-  const int nk = nk_tiles(p);
-  const int* vis = p.vis + ((long long)b * nq_tiles(p) + iq) * nk;
-  for (int kt = 0; kt < nk; ++kt) {
-    if (vis[kt] == 0) continue;  // the same for the whole CTA
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous sK/sVt
-    load_tile_bf16<D>(sK, nullptr, k + k0 * p.k_st, p.k_st, tid);
-    load_tile_bf16<DC>(nullptr, sVt, v + k0 * p.v_st, p.v_st, tid);
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 128);
-    __syncthreads();
-
-    // S = Q·Kᵀ for 16 rows x 64 keys: 8 n-blocks of 8 keys
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < kTile / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-      const bf* krow = sK + (nb * 8 + g) * kPadQK + tig * 2;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        mma_bf16_16816(s[nb], qf[ks], ld_u32(krow + ks * 16),
-                       ld_u32(krow + ks * 16 + 8));
-    }
-
-    // mask and online softmax; bit nb*4+e of `ok` is element e of n-block nb
-    uint32_t ok = 0u;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nb = 0; nb < kTile / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = k0 + nb * 8 + tig * 2 + (e & 1);
-        const bool vis_e = visible(p, rows[r], col, st[r], en[r]);
-        ok |= (vis_e ? 1u : 0u) << (nb * 4 + e);
-        s[nb][e] = vis_e ? s[nb][e] * p.sm_scale : kNegInf;
-        mx[r] = fmaxf(mx[r], s[nb][e]);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int nb = 0; nb < kTile / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nb][e] = (ok >> (nb * 4 + e)) & 1u ? expf(s[nb][e] - m[e >> 1])
-                                             : 0.f;
-        sum[e >> 1] += s[nb][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * corr[r] + sum[r];
-    }
-    if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
-#pragma unroll
-      for (int nb = 0; nb < kTile / 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row_l = r0 + 8 * (e >> 1);
-          const int col_l = nb * 8 + tig * 2 + (e & 1);
-          s[nb][e] = sKeep[row_l * flash::kKeepPitch + col_l]
-                         ? s[nb][e] * p.drop.scale : 0.f;
-        }
-    }
-#pragma unroll
-    for (int nb = 0; nb < DC / 8; ++nb) {
-      o[nb][0] *= corr[0]; o[nb][1] *= corr[0];
-      o[nb][2] *= corr[1]; o[nb][3] *= corr[1];
-    }
-
-    // O += P·V
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-#pragma unroll
-      for (int nb = 0; nb < DC / 8; ++nb) {
-        const bf* vrow = sVt + (nb * 8 + g) * kPadT + kk * 16 + tig * 2;
-        mma_bf16_16816(o[nb], a, ld_u32(vrow), ld_u32(vrow + 8));
-      }
-    }
-  }
-
-  bf* out = static_cast<bf*>(p.out) + b * p.o_sb + h * p.o_sh + oc * DC;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    const float inv = 1.f / l_safe;
-    bf* orow = out + rows[r] * p.o_st + tig * 2;
-#pragma unroll
-    for (int nb = 0; nb < DC / 8; ++nb)
-      *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) =
-          __floats2bfloat162_rn(o[nb][2 * r] * inv, o[nb][2 * r + 1] * inv);
-    if (tig == 0 && oc == 0)
-      p.lse[(long long)bh * p.Tq + rows[r]] = m[r] + logf(l_safe);
   }
 }
 
@@ -1192,6 +756,527 @@ constexpr size_t smem_bwd_bf16() {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 forward: wgmma on TMA-written tiles (hopper.cuh), the dense bf16
+// forward's design over the visible key tiles.
+// ---------------------------------------------------------------------------
+struct Bf16SparseFwdParams {
+  CUtensorMap tq, tk, tv;  // [B, H, T, D]: boxes of 64 rows x 64 values
+  const int* se;           // [B, Tq] rows se_pitch ints apart
+  const int* vis;          // [B, Tq / 64, Tk / 64]
+  int se_pitch;
+  bf* out;
+  float* lse;              // [B*H, Tq]
+  int B, H, Tq, Tk;
+  long long o_sb, o_sh, o_st;
+  float sm_scale;
+  int causal;
+  flash::Dropout drop;
+};
+
+// Byte offsets from the 1024-aligned base: Q, then two stages of K and the
+// CTA's chunk of V, then the barriers.
+template <int D, int DC>
+struct SFwdLayout {
+  static constexpr int kTileB = D / 64 * hopper::kBoxBytes;   // [64][D]
+  static constexpr int kVTile = DC / 64 * hopper::kBoxBytes;  // [64][DC]
+  static constexpr int kStage = kTileB + kVTile;
+  static constexpr int kBars = kTileB + 2 * kStage;
+  static constexpr size_t kSmem = kBars + 3 * sizeof(uint64_t) + 1024;
+};
+
+// Thread 0: the copies of key tile kt (K, V's chunk oc) into stage j % 2,
+// completing that stage's barrier.
+template <int D, int DC>
+__device__ __forceinline__ void load_sfwd_stage(const Bf16SparseFwdParams& p,
+                                                unsigned char* smem,
+                                                uint64_t* bars, int j, int kt,
+                                                int b, int h, int oc) {
+  using L = SFwdLayout<D, DC>;
+  unsigned char* st = smem + L::kTileB + (j & 1) * L::kStage;
+  uint64_t* bar = &bars[j & 1];
+  hopper::mbar_expect_tx(bar, L::kStage);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    hopper::tma_load(st + c * hopper::kBoxBytes, &p.tk, bar, c * 64,
+                     kt * kTile, h, b);
+#pragma unroll
+  for (int c = 0; c < DC / 64; ++c)
+    hopper::tma_load(st + L::kTileB + c * hopper::kBoxBytes, &p.tv, bar,
+                     oc * DC + c * 64, kt * kTile, h, b);
+}
+
+// One CTA per (DC-wide output chunk, 64-row q tile, b·h) of the flat grid:
+// S over the full head dim, P·V over the chunk (only V's chunk is loaded).
+template <int D, int DC>
+__global__ void __launch_bounds__(128, D == 64 ? 4 : 1)
+sparse_fwd_bf16_kernel(const __grid_constant__ Bf16SparseFwdParams p) {
+  using L = SFwdLayout<D, DC>;
+  constexpr int kChunks = D / DC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::smem_base(smem_raw);
+  unsigned char* sQ = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);  // 2 + Q
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int nq = p.Tq / kTile, nk = p.Tk / kTile;
+  const Cell cell = cell_of(nq, kChunks, p.H);
+  const int bh = cell.bh, b = cell.b, h = cell.h, oc = cell.chunk;
+  const int q0 = cell.tile * kTile;
+  const int* vis = p.vis + ((long long)b * nq + cell.tile) * nk;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::mbar_fence_init();
+    hopper::mbar_expect_tx(&bars[2], L::kTileB);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      hopper::tma_load(sQ + c * hopper::kBoxBytes, &p.tq, &bars[2], c * 64,
+                       q0, h, b);
+  }
+  __syncthreads();
+  int kt = next_visible(vis, 1, 0, nk);
+  int pk = kt;  // thread 0: the tile of the last stage it started
+  if (tid == 0 && pk < nk) {
+    load_sfwd_stage<D, DC>(p, smem, bars, 0, pk, b, h, oc);
+    pk = next_visible(vis, 1, pk + 1, nk);
+    if (pk < nk) load_sfwd_stage<D, DC>(p, smem, bars, 1, pk, b, h, oc);
+  }
+  uint32_t key0, key1;
+  seed_keys(p.drop, &key0, &key1);
+
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  int st[2], en[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    unpack_se(p.se[(long long)b * p.se_pitch + q0 + r0 + 8 * hh], st[hh],
+              en[hh]);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[DC / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  hopper::mbar_wait(&bars[2], 0);
+
+  for (int j = 0; kt < nk; ++j) {
+    const int k0 = kt * kTile;
+    const unsigned char* sK = smem + L::kTileB + (j & 1) * L::kStage;
+    hopper::mbar_wait(&bars[j & 1], (j >> 1) & 1);
+
+    // S = Q·Kᵀ, both K-major
+    hopper::pin(s);
+    hopper::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      hopper::mma_ss<64, 0>(s, hopper::desc_kmajor(sQ, ks),
+                            hopper::desc_kmajor(sK, ks), ks > 0);
+    hopper::wg_commit();
+    hopper::wg_wait_all();
+    hopper::pin(s);
+
+    // the element mask (selects, no branch); bit i of `ok` is element i
+    uint32_t ok = 0u;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+      const bool vis_e = (key >= st[hh]) & (key < en[hh]) &
+                         (!p.causal | (key <= q0 + r0 + 8 * hh));
+      ok |= (vis_e ? 1u : 0u) << i;
+      s[i] = vis_e ? s[i] * p.sm_scale : kNegInf;
+      mx[hh] = fmaxf(mx[hh], s[i]);
+    }
+
+    // online softmax over the 4 lanes that share a row; a max that does
+    // not move rescales by exactly 1
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      corr[hh] = m_new == m[hh]
+                     ? 1.f
+                     : hopper::ex2((m[hh] - m_new) * hopper::kLog2e);
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      const float e = hopper::ex2((s[i] - m[hh]) * hopper::kLog2e);
+      s[i] = (ok >> i) & 1u ? e : 0.f;
+      sum[hh] += s[i];
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+      l[hh] = l[hh] * corr[hh] + sum[hh];
+    }
+    if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
+      const uint32_t keep = flash::keep_bits_rows(
+          key0, key1, p.drop.threshold, bh, q0 + r0, k0, t);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P·V over this CTA's chunk: P from registers, V MN-major
+    uint32_t a[4][4];
+    hopper::acc_to_a(a, s);
+    hopper::pin(o);
+    hopper::pin(a);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::mma_rs<DC, 1>(o, a[kk], hopper::desc_mnmajor(sK + L::kTileB, kk),
+                            1);
+    hopper::wg_commit();
+    hopper::wg_wait_all();
+    hopper::pin(o);
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && pk < nk) {
+      pk = next_visible(vis, 1, pk + 1, nk);
+      if (pk < nk) load_sfwd_stage<D, DC>(p, smem, bars, j + 2, pk, b, h, oc);
+    }
+    kt = next_visible(vis, 1, kt + 1, nk);
+  }
+
+  bf* out = p.out + b * p.o_sb + h * p.o_sh + oc * DC;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r0 + 8 * hh;
+    const float l_safe = l[hh] == 0.f ? 1.f : l[hh];
+    const float inv = 1.f / l_safe;
+    bf* orow = out + row * p.o_st + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < DC / 8; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) =
+          __floats2bfloat162_rn(o[4 * nb + 2 * hh] * inv,
+                                o[4 * nb + 2 * hh + 1] * inv);
+    if (t == 0 && oc == 0)
+      p.lse[(long long)bh * p.Tq + row] = m[hh] + logf(l_safe);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 backward: 3xTF32 on the tensor cores (mma.sync.m16n8k8, tf32x3.cuh),
+// tiles by cp.async, the dense f32 backward's design over the visible
+// tiles. Four warps; warp w owns rows 16w..16w+15 of the 64x64 score block,
+// so accumulator register 4·nb + 2·h + e of lane (g, t) is row 16w + g + 8h,
+// column 8·nb + 2t + e: the layout of the bf16 kernels' wgmma accumulators,
+// whose element and keep-bit code these kernels share.
+// ---------------------------------------------------------------------------
+
+// Shared memory of the f32 backward, in floats. Up to d = 128 (one chunk)
+// the CTA's own tiles stay (Q and dO for dq; K and V for dk/dv) and a stage
+// of the two-stage ring holds the two streamed tiles (K, V; or Q, dO, with
+// the q tile's 64 lse, delta and se values for dk/dv). Above that every
+// step streams all four tiles of one 64-wide head-dim chunk.
+template <int D, int DC>
+struct SF32Layout {
+  static constexpr int kChunks = D / DC;
+  static constexpr int kTileF = kTile * tf32x3::pitch_f32<DC>();
+  static constexpr int kResident = kChunks == 1 ? 2 * kTileF : 0;
+  static constexpr int kStage = (kChunks == 1 ? 2 : 4) * kTileF;
+  static constexpr int kRows = 3 * kTile;  // lse, delta, se
+  static constexpr size_t dq_bytes() {
+    return sizeof(float) * (kResident + 2 * kStage);
+  }
+  static constexpr size_t dkv_bytes() {
+    return sizeof(float) * (kResident + 2 * (kStage + kRows));
+  }
+  static constexpr size_t bytes() {
+    return dkv_bytes() > dq_bytes() ? dkv_bytes() : dq_bytes();
+  }
+};
+
+// A walk over the visible tiles of one row (stride 1) or column (stride nk)
+// of the tile table, a step per (tile, head-dim chunk c). A tile's chunks
+// are taken from the CTA's own chunk oc + 1 on, so the last one, whose
+// tiles the output product reads, is oc. Every thread walks alike.
+struct Walk {
+  const int* vis;
+  int stride, n, tile, c;
+  __device__ __forceinline__ Walk(const int* v, int s, int n_)
+      : vis(v), stride(s), n(n_), tile(next_visible(v, s, 0, n_)), c(0) {}
+  __device__ __forceinline__ bool more() const { return tile < n; }
+  __device__ __forceinline__ void advance(int chunks) {
+    if (++c == chunks) {
+      c = 0;
+      tile = next_visible(vis, stride, tile + 1, n);
+    }
+  }
+};
+
+// A dq CTA: one per (DC-wide output chunk, 64-row q tile, b·h), numbered
+// `cta` (the chunk fastest), walks the visible key tiles over a two-stage
+// cp.async ring, one step ahead of the math.
+template <int D, int DC>
+__device__ __forceinline__ void sparse_dq_f32(const SparseParams& p,
+                                              unsigned cta) {
+  using namespace tf32x3;
+  using L = SF32Layout<D, DC>;
+  constexpr int kChunks = L::kChunks, kTileF = L::kTileF;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* stages = smem_f32 + L::kResident;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int nq = nq_tiles(p), nk = nk_tiles(p);
+  const Cell cell = cell_of(nq, kChunks, p.H, cta);
+  const int bh = cell.bh, b = cell.b, h = cell.h, oc = cell.chunk;
+  const int q0 = cell.tile * kTile;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh +
+                   q0 * p.q_st;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* gg = static_cast<const float*>(p.dout) + b * p.o_sb +
+                    h * p.o_sh + q0 * p.o_st;
+  const int* vis = p.vis + ((long long)b * nq + cell.tile) * nk;
+
+  // step j: the load walk's (tile, chunk) into stage j % 2
+  auto load_step = [&](int j, const Walk& w) {
+    float* st = stages + (j & 1) * L::kStage;
+    const int k0 = w.tile * kTile, c = (oc + 1 + w.c) % kChunks * DC;
+    if (kChunks > 1) {
+      copy_tile<DC>(st + 2 * kTileF, q + c, p.q_st, kTile, tid);
+      copy_tile<DC>(st + 3 * kTileF, gg + c, p.o_st, kTile, tid);
+    }
+    copy_tile<DC>(st, k + k0 * p.k_st + c, p.k_st, kTile, tid);
+    copy_tile<DC>(st + kTileF, v + k0 * p.v_st + c, p.v_st, kTile, tid);
+  };
+  if (kChunks == 1) {
+    copy_tile<DC>(smem_f32, q, p.q_st, kTile, tid);
+    copy_tile<DC>(smem_f32 + kTileF, gg, p.o_st, kTile, tid);
+  }
+  Walk walk(vis, 1, nk), load = walk;
+  for (int j = 0; j < 2; ++j) {
+    if (load.more()) {
+      load_step(j, load);
+      load.advance(kChunks);
+    }
+    cp_async_commit();
+  }
+
+  uint32_t key0, key1;
+  seed_keys(p.drop, &key0, &key1);
+  const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  float lse[2], delta[2];
+  int st[2], en[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r0 + 8 * hh;
+    lse[hh] = p.lse_in[(long long)bh * p.lse_pitch + row];
+    delta[hh] = p.delta[(long long)bh * p.delta_pitch + row];
+    unpack_se(p.se[(long long)b * p.Tq + row], st[hh], en[hh]);
+  }
+  float dq[DC / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) dq[i] = 0.f;
+
+  for (int j = 0; walk.more(); ++j) {
+    const int k0 = walk.tile * kTile;
+    const float* stg = stages + (j & 1) * L::kStage;
+    const float* sK = stg;
+    const float* sV = stg + kTileF;
+    const float* sQ = kChunks == 1 ? smem_f32 : stg + 2 * kTileF;
+    const float* sG = sQ + kTileF;
+    cp_async_wait<1>();
+    __syncthreads();  // step j's tiles have landed, from every thread
+
+    if (walk.c == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    }
+    // S = Q·Kᵀ and dP = dO·Vᵀ over this chunk of the head dim
+    product_tf32<DC>(s, sQ, sK, warp * 16, g, t);
+    product_tf32<DC>(dp, sG, sV, warp * 16, g, t);
+
+    if (walk.c == kChunks - 1) {
+      // ds = p·(dp − delta) in place of s; masked p is exactly 0 (selects)
+      const uint32_t keep =
+          p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold,
+                                            bh, q0 + r0, k0, t)
+                    : ~0u;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        const bool ok = (key >= st[hh]) & (key < en[hh]) &
+                        (!p.causal | (key <= q0 + r0 + 8 * hh));
+        float pr = hopper::ex2((s[i] * p.sm_scale - lse[hh]) * hopper::kLog2e);
+        pr = ok ? pr : 0.f;
+        const float dpv = (keep >> i) & 1u ? dp[i] * drop_scale : 0.f;
+        s[i] = pr * (dpv - delta[hh]);
+      }
+      // dQ += dS·K over this CTA's chunk (the step's K is chunk oc)
+      acc_product_tf32<DC>(dq, s, sK, g, t);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (load.more()) {
+      load_step(j + 2, load);
+      load.advance(kChunks);
+    }
+    cp_async_commit();
+    walk.advance(kChunks);
+  }
+  cp_async_wait<0>();
+  store_rows_f32<DC>(static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh +
+                         oc * DC,
+                     p.dq_st, dq, q0 + r0, p.Tq, t, p.sm_scale, p.sm_scale);
+}
+
+// A dk/dv CTA: one per (DC-wide output chunk, 64-key tile, b·h), numbered
+// `cta`, walks the visible q tiles (column kt of the tile table) over the
+// same ring; the last step of a q tile also brings its lse, delta and se.
+template <int D, int DC>
+__device__ __forceinline__ void sparse_dkv_f32(const SparseParams& p,
+                                               unsigned cta) {
+  using namespace tf32x3;
+  using L = SF32Layout<D, DC>;
+  constexpr int kChunks = L::kChunks, kTileF = L::kTileF;
+  constexpr int kStage = L::kStage + L::kRows;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* stages = smem_f32 + L::kResident;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int nq = nq_tiles(p), nk = nk_tiles(p);
+  const Cell cell = cell_of(nk, kChunks, p.H, cta);
+  const int bh = cell.bh, b = cell.b, h = cell.h, oc = cell.chunk;
+  const int k0 = cell.tile * kTile;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh +
+                   k0 * p.k_st;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh +
+                   k0 * p.v_st;
+  const float* gg = static_cast<const float*>(p.dout) + b * p.o_sb +
+                    h * p.o_sh;
+  // the transposed walk: column kt of this batch row's [nq, nk] table
+  const int* vis = p.vis + (long long)b * nq * nk + cell.tile;
+
+  auto load_step = [&](int j, const Walk& w) {
+    float* st = stages + (j & 1) * kStage;
+    const int q0 = w.tile * kTile, c = (oc + 1 + w.c) % kChunks * DC;
+    if (kChunks > 1) {
+      copy_tile<DC>(st + 2 * kTileF, k + c, p.k_st, kTile, tid);
+      copy_tile<DC>(st + 3 * kTileF, v + c, p.v_st, kTile, tid);
+    }
+    copy_tile<DC>(st, q + q0 * p.q_st + c, p.q_st, kTile, tid);
+    copy_tile<DC>(st + kTileF, gg + q0 * p.o_st + c, p.o_st, kTile, tid);
+    if (w.c == kChunks - 1) {  // the rows the element loop reads
+      float* rows = st + L::kStage;  // lse, delta, then se
+      const int i = tid % kTile;
+      cp_async4(rows + tid,
+                tid < kTile ? p.lse_in + (long long)bh * p.lse_pitch + q0 + i
+                            : p.delta + (long long)bh * p.delta_pitch + q0 + i,
+                true);
+      if (tid < kTile)
+        cp_async4(rows + 2 * kTile + i, p.se + (long long)b * p.Tq + q0 + i,
+                  true);
+    }
+  };
+  if (kChunks == 1) {
+    copy_tile<DC>(smem_f32, k, p.k_st, kTile, tid);
+    copy_tile<DC>(smem_f32 + kTileF, v, p.v_st, kTile, tid);
+  }
+  Walk walk(vis, nk, nq), load = walk;
+  for (int j = 0; j < 2; ++j) {
+    if (load.more()) {
+      load_step(j, load);
+      load.advance(kChunks);
+    }
+    cp_async_commit();
+  }
+
+  uint32_t key0, key1;
+  seed_keys(p.drop, &key0, &key1);
+  const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
+  const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8
+  float dk[DC / 2], dv[DC / 2], st_[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int j = 0; walk.more(); ++j) {
+    const int q0 = walk.tile * kTile;
+    const float* stg = stages + (j & 1) * kStage;
+    const float* sQ = stg;
+    const float* sG = stg + kTileF;
+    const float* sK = kChunks == 1 ? smem_f32 : stg + 2 * kTileF;
+    const float* sV = sK + kTileF;
+    const float* sL = stg + L::kStage;
+    const float* sD = sL + kTile;
+    const int* sSe = reinterpret_cast<const int*>(sD + kTile);
+    cp_async_wait<1>();
+    __syncthreads();  // step j's tiles have landed, from every thread
+
+    if (walk.c == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st_[i] = dpt[i] = 0.f;
+    }
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (row = key, column = query)
+    product_tf32<DC>(st_, sK, sQ, warp * 16, g, t);
+    product_tf32<DC>(dpt, sV, sG, warp * 16, g, t);
+
+    if (walk.c == kChunks - 1) {
+      // p_drop in place of sᵀ, ds in place of dpᵀ; masked p is exactly 0
+      const uint32_t keep =
+          p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop.threshold,
+                                            bh, k0 + r0, q0, lane)
+                    : ~0u;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * t + (i & 1);
+        const int key = k0 + r0 + 8 * hh;
+        int start, end;
+        unpack_se(sSe[c], start, end);
+        const bool ok = (key >= start) & (key < end) &
+                        (!p.causal | (key <= q0 + c));
+        float pr = hopper::ex2((st_[i] * p.sm_scale - sL[c]) * hopper::kLog2e);
+        pr = ok ? pr : 0.f;
+        const bool kept = (keep >> i) & 1u;
+        const float ds = pr * ((kept ? dpt[i] * drop_scale : 0.f) - sD[c]);
+        st_[i] = kept ? pr * drop_scale : 0.f;
+        dpt[i] = ds;
+      }
+      // dV += P_dropᵀ·dO and dK += dSᵀ·Q over this CTA's chunk (the step's
+      // Q and dO are chunk oc)
+      acc_product_tf32<DC>(dv, st_, sG, g, t);
+      acc_product_tf32<DC>(dk, dpt, sQ, g, t);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (load.more()) {
+      load_step(j + 2, load);
+      load.advance(kChunks);
+    }
+    cp_async_commit();
+    walk.advance(kChunks);
+  }
+  cp_async_wait<0>();
+  store_rows_f32<DC>(static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh +
+                         oc * DC,
+                     p.dk_st, dk, k0 + r0, p.Tk, t, p.sm_scale, p.sm_scale);
+  store_rows_f32<DC>(static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh +
+                         oc * DC,
+                     p.dv_st, dv, k0 + r0, p.Tk, t, 1.f, 1.f);
+}
+
+// The f32 backward as one launch: the dk/dv CTAs, then the dq CTAs.
+template <int D, int DC>
+__global__ void __launch_bounds__(128) sparse_bwd_f32_kernel(SparseParams p) {
+  if ((int)blockIdx.x < p.n_dkv)
+    sparse_dkv_f32<D, DC>(p, blockIdx.x);
+  else
+    sparse_dq_f32<D, DC>(p, blockIdx.x - p.n_dkv);
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 constexpr size_t kKeepBytes = kTile * flash::kKeepPitch;
@@ -1201,20 +1286,6 @@ template <int D>
 size_t smem_fwd_f32() {
   return sizeof(float) * (2 * kTile * (D + 1) + kTile * D +
                           kTile * (kTile + 1)) + kRangeBytes + kKeepBytes;
-}
-template <int DC>
-size_t smem_dq_f32() {
-  return sizeof(float) * (4 * kTile * (DC + 1) + kTile * (kTile + 1) +
-                          2 * kTile) + kRangeBytes + kKeepBytes;
-}
-template <int DC>
-size_t smem_dkv_f32() {
-  return sizeof(float) * (4 * kTile * (DC + 1) + 2 * kTile * (kTile + 1) +
-                          2 * kTile) + kRangeBytes + kKeepBytes;
-}
-template <int D, int DC>
-size_t smem_fwd_bf16() {
-  return sizeof(bf) * (2 * kTile * (D + 8) + DC * (kTile + 8)) + kKeepBytes;
 }
 
 // Opts a kernel into its dynamic shared memory once per device, then
@@ -1237,38 +1308,39 @@ cudaError_t launch(Kernel kernel, unsigned* configured, const Params& p,
   return cudaGetLastError();
 }
 
-// one flag word per (kernel, dtype, head dim): slot = (dtype·4 + D/64 - 1)·3
-unsigned configured[24] = {};
+// one flag word per (kernel, dtype, head dim): slot = (dtype·4 + D/64 - 1)·2,
+// + 0 the forward, + 1 the backward
+unsigned configured[16] = {};
 
 template <int D>
 int slot_of(int dtype) {
-  return (dtype * 4 + D / 64 - 1) * 3;
+  return (dtype * 4 + D / 64 - 1) * 2;
 }
 
 template <int D>
-cudaError_t launch_fwd(const SparseParams& p, int dtype, cudaStream_t s) {
-  constexpr int DC = hopper::chunk_of<D>();
-  const int slot = slot_of<D>(dtype);
+cudaError_t launch_fwd_f32(const SparseParams& p, cudaStream_t s) {
   const unsigned tiles = (unsigned)(p.Tq / kTile) * (unsigned)(p.B * p.H);
-  if (dtype == 0)
-    return launch(sparse_fwd_f32_kernel<D>, &configured[slot], p, tiles, 256,
-                  smem_fwd_f32<D>(), s);
-  return launch(sparse_fwd_bf16_kernel<D, DC>, &configured[slot], p,
-                tiles * (D / DC), 128, smem_fwd_bf16<D, DC>(), s);
+  return launch(sparse_fwd_f32_kernel<D>, &configured[slot_of<D>(0)], p,
+                tiles, 256, smem_fwd_f32<D>(), s);
 }
 
 template <int D>
-cudaError_t launch_bwd_f32(const SparseParams& p, cudaStream_t s) {
+cudaError_t launch_fwd_bf16(const Bf16SparseFwdParams& p, cudaStream_t s) {
   constexpr int DC = hopper::chunk_of<D>();
-  const int slot = slot_of<D>(0);
-  const unsigned bh = (unsigned)(p.B * p.H), chunks = D / DC;
-  cudaError_t err = launch(sparse_dq_f32_kernel<D, DC>, &configured[slot + 1],
-                           p, (unsigned)(p.Tq / kTile) * bh * chunks, 256,
-                           smem_dq_f32<DC>(), s);
-  if (err != cudaSuccess) return err;
-  return launch(sparse_dkv_f32_kernel<D, DC>, &configured[slot + 2], p,
-                (unsigned)(p.Tk / kTile) * bh * chunks, 256,
-                smem_dkv_f32<DC>(), s);
+  const unsigned tiles = (unsigned)(p.Tq / kTile) * (unsigned)(p.B * p.H);
+  return launch(sparse_fwd_bf16_kernel<D, DC>, &configured[slot_of<D>(1)], p,
+                tiles * (D / DC), 128, SFwdLayout<D, DC>::kSmem, s);
+}
+
+template <int D>
+cudaError_t launch_bwd_f32(SparseParams p, cudaStream_t s) {
+  constexpr int DC = hopper::chunk_of<D>();
+  const unsigned bh = (unsigned)(p.B * p.H) * (D / DC);
+  const unsigned n_dkv = (unsigned)(p.Tk / kTile) * bh;
+  p.n_dkv = (int)n_dkv;
+  return launch(sparse_bwd_f32_kernel<D, DC>, &configured[slot_of<D>(0) + 1],
+                p, n_dkv + (unsigned)(p.Tq / kTile) * bh, 128,
+                SF32Layout<D, DC>::bytes(), s);
 }
 
 template <int D>
@@ -1280,10 +1352,10 @@ cudaError_t launch_bwd_bf16(const Bf16SparseBwdParams& p, cudaStream_t s) {
                 smem_bwd_bf16<D>(), s);
 }
 
-bool shape_ok(int Tq, int Tk, int D, int dtype) {
-  return (dtype == 0 || dtype == 1) &&
-         (D == 64 || D == 128 || D == 192 || D == 256) && Tq > 0 && Tk > 0 &&
-         Tq % kTile == 0 && Tk % kTile == 0 && Tk < (1 << 15);
+bool shape_ok(int Tq, int Tk, int D, int causal) {
+  return (D == 64 || D == 128 || D == 192 || D == 256) && Tq > 0 && Tk > 0 &&
+         Tq % kTile == 0 && Tk % kTile == 0 && Tk < (1 << 15) &&
+         (!causal || Tq == Tk);
 }
 
 void set_common(SparseParams& p, const void* q, const void* k, const void* v,
@@ -1309,22 +1381,20 @@ void set_common(SparseParams& p, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; D in {64, 128, 192, 256}; Tq, Tk
-// multiples of 64. Strides are in elements, three per tensor: (batch, head,
-// token); the head dim is contiguous. se is [B, Tq] int32, vis
-// [B, Tq/64, Tk/64] int32, lse [B*H, Tq] f32. With dropout != 0, `seed`
-// points at one int64 on the device and a probability is dropped iff its
-// Philox word < `threshold`; kept ones are scaled by `drop_scale`. Returns
-// a cudaError_t (0 = launched).
+// The float32 forward. D in {64, 128, 192, 256}; Tq, Tk multiples of 64.
+// Strides are in elements, three per tensor: (batch, head, token); the head
+// dim is contiguous. se is [B, Tq] int32, vis [B, Tq/64, Tk/64] int32, lse
+// [B*H, Tq] f32. With dropout != 0, `seed` points at one int64 on the device
+// and a probability is dropped iff its Philox word < `threshold`; kept ones
+// are scaled by `drop_scale`. Returns a cudaError_t (0 = launched).
 int flash_attention_sparse_fwd(
     const void* q, const void* k, const void* v, const int* se,
     const int* vis, void* out, float* lse, int B, int H, int Tq, int Tk, int D,
     const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* o_strides, float sm_scale,
-    int causal, int dtype, const long long* seed, unsigned threshold,
-    float drop_scale, int dropout, void* stream) {
-  if (!shape_ok(Tq, Tk, D, dtype) || (causal && Tq != Tk))
-    return (int)cudaErrorInvalidValue;
+    int causal, const long long* seed, unsigned threshold, float drop_scale,
+    int dropout, void* stream) {
+  if (!shape_ok(Tq, Tk, D, causal)) return (int)cudaErrorInvalidValue;
   SparseParams p;
   set_common(p, q, k, v, se, vis, B, H, Tq, Tk, q_strides, k_strides,
              v_strides, sm_scale, causal, seed, threshold, drop_scale,
@@ -1333,33 +1403,76 @@ int flash_attention_sparse_fwd(
   p.o_sb = o_strides[0]; p.o_sh = o_strides[1]; p.o_st = o_strides[2];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)launch_fwd<64>(p, dtype, s);
-    case 128: return (int)launch_fwd<128>(p, dtype, s);
-    case 192: return (int)launch_fwd<192>(p, dtype, s);
-    default: return (int)launch_fwd<256>(p, dtype, s);
+    case 64: return (int)launch_fwd_f32<64>(p, s);
+    case 128: return (int)launch_fwd_f32<128>(p, s);
+    case 192: return (int)launch_fwd_f32<192>(p, s);
+    default: return (int)launch_fwd_f32<256>(p, s);
   }
 }
 
-// The float32 backward: launches the dq kernel, then the dk/dv kernel, on
-// `stream`. lse and delta (= Σ_d dO·out) are [B*H, Tq] f32; strides as in
-// the forward, dO's in g_strides. Returns a cudaError_t (0 = launched).
+// The bfloat16 forward. `tensors` holds the tensor descriptions
+// (hopper::kDescLen int64 each) of q, k, v ([B, H, T, D] bf16) and se
+// ([1, 1, B, Tq] int32) in that order; vis as in the f32 forward; out
+// strides are in elements; lse is [B*H, Tq] f32. Dropout as in the f32
+// forward. Returns a cudaError_t.
+int flash_attention_sparse_fwd_bf16(
+    const long long* tensors, const int* vis, void* out, float* lse, int B,
+    int H, int Tq, int Tk, int D, long long o_sb, long long o_sh,
+    long long o_st, float sm_scale, int causal, const long long* seed,
+    unsigned threshold, float drop_scale, int dropout, void* stream) {
+  if (!shape_ok(Tq, Tk, D, causal)) return (int)cudaErrorInvalidValue;
+  constexpr int n = hopper::kDescLen;
+  Bf16SparseFwdParams p;
+  CUtensorMap* maps[3] = {&p.tq, &p.tk, &p.tv};
+  cudaError_t err;
+  for (int i = 0; i < 3; ++i)
+    if ((err = hopper::make_map(maps[i], tensors + i * n, true, 64, 64)) !=
+        cudaSuccess)
+      return (int)err;
+  const long long* se = tensors + 3 * n;
+  p.se = reinterpret_cast<const int*>(se[0]);
+  p.se_pitch = (int)(se[5] / 4);  // the byte stride of the rows
+  p.vis = vis;
+  p.out = static_cast<bf*>(out);
+  p.lse = lse;
+  p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
+  p.sm_scale = sm_scale;
+  p.causal = causal;
+  p.drop.seed = seed;
+  p.drop.threshold = threshold;
+  p.drop.scale = drop_scale;
+  p.drop.on = dropout;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return (int)launch_fwd_bf16<64>(p, s);
+    case 128: return (int)launch_fwd_bf16<128>(p, s);
+    case 192: return (int)launch_fwd_bf16<192>(p, s);
+    default: return (int)launch_fwd_bf16<256>(p, s);
+  }
+}
+
+// The float32 backward: one launch of dk/dv and dq CTAs on `stream`. lse
+// and delta (= Σ_d dO·out) are [B*H, Tq] f32 with rows lse_pitch and
+// delta_pitch floats apart; strides as in the forward, dO's in g_strides.
+// Returns a cudaError_t (0 = launched).
 int flash_attention_sparse_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const int* se, const int* vis,
     void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
-    const long long* q_strides, const long long* k_strides,
-    const long long* v_strides, const long long* g_strides,
-    const long long* dq_strides, const long long* dk_strides,
-    const long long* dv_strides, float sm_scale, int causal,
-    const long long* seed, unsigned threshold, float drop_scale, int dropout,
-    void* stream) {
-  if (!shape_ok(Tq, Tk, D, 0) || (causal && Tq != Tk))
-    return (int)cudaErrorInvalidValue;
+    int lse_pitch, int delta_pitch, const long long* q_strides,
+    const long long* k_strides, const long long* v_strides,
+    const long long* g_strides, const long long* dq_strides,
+    const long long* dk_strides, const long long* dv_strides, float sm_scale,
+    int causal, const long long* seed, unsigned threshold, float drop_scale,
+    int dropout, void* stream) {
+  if (!shape_ok(Tq, Tk, D, causal)) return (int)cudaErrorInvalidValue;
   SparseParams p;
   set_common(p, q, k, v, se, vis, B, H, Tq, Tk, q_strides, k_strides,
              v_strides, sm_scale, causal, seed, threshold, drop_scale,
              dropout);
   p.dout = dout; p.lse_in = lse; p.delta = delta;
+  p.lse_pitch = lse_pitch; p.delta_pitch = delta_pitch;
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.o_sb = g_strides[0]; p.o_sh = g_strides[1]; p.o_st = g_strides[2];
   p.dq_sb = dq_strides[0]; p.dq_sh = dq_strides[1]; p.dq_st = dq_strides[2];
@@ -1386,8 +1499,7 @@ int flash_attention_sparse_bwd_bf16(
     long long dv_sb, long long dv_sh, long long dv_st, float sm_scale,
     int causal, const long long* seed, unsigned threshold, float drop_scale,
     int dropout, void* stream) {
-  if (!shape_ok(Tq, Tk, D, 1) || (causal && Tq != Tk))
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(Tq, Tk, D, causal)) return (int)cudaErrorInvalidValue;
   constexpr int n = hopper::kDescLen;
   Bf16SparseBwdParams p;
   CUtensorMap* maps[4] = {&p.tq, &p.tk, &p.tv, &p.tg};
@@ -1432,7 +1544,18 @@ int flash_attention_sparse_bwd_bf16(
   }
 }
 
-// Dynamic shared memory of the bf16 backward kernel at head dim D, bytes.
+// Dynamic shared memory of the bf16 forward and backward kernels at head
+// dim D, bytes.
+int flash_attention_sparse_fwd_bf16_smem(int D) {
+  switch (D) {
+    case 64: return (int)SFwdLayout<64, 64>::kSmem;
+    case 128: return (int)SFwdLayout<128, 128>::kSmem;
+    case 192: return (int)SFwdLayout<192, 64>::kSmem;
+    case 256: return (int)SFwdLayout<256, 64>::kSmem;
+    default: return 0;
+  }
+}
+
 int flash_attention_sparse_bwd_bf16_smem(int D) {
   switch (D) {
     case 64: return (int)smem_bwd_bf16<64>();

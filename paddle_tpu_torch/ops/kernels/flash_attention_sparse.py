@@ -35,10 +35,12 @@ query gets out = 0 and lse = -1e30, and pad rows get zero gradients.
   192 or 256 launches the kernels of ``csrc/flash_attention_sparse.cu``, and
   a larger multiple of 64 the wide kernels of ``csrc/flash_attention_wide.cu``
   in their sparse mode. Each counts its launches in ``.launches`` (a
-  backward counts one: the dense backward's delta kernel, then in f32 a dq
-  and a dk/dv kernel, in bf16 one kernel whose CTAs compute dk/dv or dq),
-  those on the wide kernels also in ``.wide_launches``. The bf16 backward
-  reads its tensors through TMA tensor maps (``_tma_desc``).
+  backward counts one: the dense backward's delta kernel, then one kernel
+  whose CTAs compute dk/dv or dq), those on the wide kernels also in
+  ``.wide_launches``. The C entries are ``flash_attention_sparse_fwd`` and
+  ``flash_attention_sparse_bwd`` (f32: strides and pointers) and
+  ``flash_attention_sparse_fwd_bf16`` and ``flash_attention_sparse_bwd_bf16``
+  (bf16: the tensors described for TMA tensor maps by ``_tma_desc``).
 - ``_FlashAttentionSparse`` is the ``torch.autograd.Function`` that joins
   them, as the ``custom_vjp`` ``_flash_sparse_core`` does in the JAX package;
   ``flash_attention_packed_sparse`` is the [B, T, nh·d] entry point.
@@ -326,15 +328,19 @@ def _lib():
     lib = build.load("flash_attention_sparse")
     if lib.flash_attention_sparse_fwd.argtypes is None:
         lib.flash_attention_sparse_fwd.argtypes = (
-            [_PTR] * 7 + [_I32] * 5 + [_STRIDES_PTR] * 4 + [_F32, _I32, _I32]
+            [_PTR] * 7 + [_I32] * 5 + [_STRIDES_PTR] * 4 + [_F32, _I32]
+            + _DROPOUT_ARGS + [_PTR])
+        lib.flash_attention_sparse_fwd_bf16.argtypes = (
+            [_PTR] * 4 + [_I32] * 5 + [_I64] * 3 + [_F32, _I32]
             + _DROPOUT_ARGS + [_PTR])
         lib.flash_attention_sparse_bwd.argtypes = (
-            [_PTR] * 11 + [_I32] * 5 + [_STRIDES_PTR] * 7 + [_F32, _I32]
+            [_PTR] * 11 + [_I32] * 7 + [_STRIDES_PTR] * 7 + [_F32, _I32]
             + _DROPOUT_ARGS + [_PTR])
         lib.flash_attention_sparse_bwd_bf16.argtypes = (
             [_PTR] * 5 + [_I32] * 5 + [_I64] * 9 + [_F32, _I32]
             + _DROPOUT_ARGS + [_PTR])
         for fn in (lib.flash_attention_sparse_fwd,
+                   lib.flash_attention_sparse_fwd_bf16,
                    lib.flash_attention_sparse_bwd,
                    lib.flash_attention_sparse_bwd_bf16):
             fn.restype = ctypes.c_int
@@ -356,10 +362,27 @@ def _kernel_checks(name, vis):
 
 
 def _layout(ts):
-    """Each tensor as the kernels read it: a view whose strides allow
+    """Each tensor as the f32 kernels read it: a view whose strides allow
     16-byte vector loads is passed as is, any other is copied (a gradient
     autograd built in another layout); never the plain version."""
     return [t if _kernel_layout_ok(t) else t.contiguous() for t in ts]
+
+
+def _tma_ready(ts):
+    """Each tensor as the bf16 kernels' TMA reads it: in place where
+    ``_tma_desc`` describes it (the [B, nh, T, d] head views of a packed
+    [B, T, nh·d] projection, a contiguous [1, 1, B, Tq] view of se), else
+    copied to a contiguous one (an expanded or transposed gradient); never
+    handed to the plain version."""
+    return [t if _tma_desc(t) else t.contiguous() for t in ts]
+
+
+def _fwd_bf16_tensors(q, k, v, se):
+    """q, k, v and se ([B, Tq] int32, seen as [1, 1, B, Tq]) as the bf16
+    forward reads them, with their tensor-map descriptions."""
+    b, tq = se.shape
+    ts = _tma_ready((q, k, v, se.contiguous().view(1, 1, b, tq)))
+    return ts, [_tma_desc(t) for t in ts]
 
 
 def _launch_fwd(q, k, v, se, vis, causal, sm_scale, dropout_rate, seed):
@@ -367,20 +390,29 @@ def _launch_fwd(q, k, v, se, vis, causal, sm_scale, dropout_rate, seed):
     _kernel_checks(name, vis)
     b, nh, tq, d = q.shape
     tk = k.shape[2]
-    q, k, v = _layout((q, k, v))
-    se, vis = se.contiguous(), vis.to(torch.int32).contiguous()
+    vis = vis.to(torch.int32).contiguous()
     out = _packed_like(b, nh, tq, d, q.dtype, q.device)
     lse = torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
     seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_sparse_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), se.data_ptr(),
-            vis.data_ptr(), out.data_ptr(), lse.data_ptr(), b, nh, tq, tk, d,
-            _strides(q), _strides(k), _strides(v), _strides(out),
-            float(sm_scale), int(causal), _DTYPE_CODE[q.dtype], seed_ptr,
-            thr, inv, drop, stream)
+        if q.dtype == torch.bfloat16:
+            _ts, descs = _fwd_bf16_tensors(q, k, v, se)
+            err = lib.flash_attention_sparse_fwd_bf16(
+                _descs(*descs), vis.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), b, nh, tq, tk, d, *out.stride()[:3],
+                float(sm_scale), int(causal), seed_ptr, thr, inv, drop,
+                stream)
+        else:
+            q, k, v = _layout((q, k, v))
+            se = se.contiguous()
+            err = lib.flash_attention_sparse_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), se.data_ptr(),
+                vis.data_ptr(), out.data_ptr(), lse.data_ptr(), b, nh, tq,
+                tk, d, _strides(q), _strides(k), _strides(v), _strides(out),
+                float(sm_scale), int(causal), seed_ptr, thr, inv, drop,
+                stream)
     _raise_on(lib, err, name)
     flash_attention_sparse_fwd.launches += 1
     return out, lse
@@ -395,7 +427,8 @@ def _launch_bwd(q, k, v, out, lse, g, se, vis, causal, sm_scale,
     q, k, v, g = _layout((q, k, v, g.to(q.dtype)))
     out = out if _kernel_layout_ok(out) else out.contiguous()
     se, vis = se.contiguous(), vis.to(torch.int32).contiguous()
-    lse = lse.contiguous()
+    lse = lse.reshape(b * nh, tq)   # rows lse.stride(0) floats apart
+    lse = lse if lse.stride(1) == 1 else lse.contiguous()
     dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
     dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
     dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
@@ -404,15 +437,15 @@ def _launch_bwd(q, k, v, out, lse, g, se, vis, causal, sm_scale,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         # delta = Σ_d dO·out by the dense backward's delta kernel, as the
-        # JAX package computes it outside its kernels (_bwd_host_prep); its
-        # rows are Tq apart (Tq is a multiple of 64 on this route)
+        # JAX package computes it outside its kernels (_bwd_host_prep)
         delta = _launch_delta(out, g, stream)
         err = lib.flash_attention_sparse_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), se.data_ptr(), vis.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, nh, tq, tk, d,
-            _strides(q), _strides(k), _strides(v), _strides(g),
-            _strides(dq), _strides(dk), _strides(dv), float(sm_scale),
+            lse.stride(0), delta.stride(0), _strides(q), _strides(k),
+            _strides(v), _strides(g), _strides(dq), _strides(dk),
+            _strides(dv), float(sm_scale),
             int(causal), seed_ptr, thr, inv, drop, stream)
     _raise_on(lib, err, name)
     flash_attention_sparse_bwd.launches += 1
@@ -428,10 +461,7 @@ def _launch_bwd_bf16(q, k, v, out, lse, g, se, vis, causal, sm_scale,
     _kernel_checks(name, vis)
     b, nh, tq, d = q.shape
     tk = k.shape[2]
-    # a tensor TMA cannot read in place (an expanded or transposed gradient)
-    # is copied to a contiguous one, never handed to the plain version
-    q, k, v, g, out = (t if _tma_desc(t) else t.contiguous()
-                       for t in (q, k, v, g.to(q.dtype), out))
+    q, k, v, g, out = _tma_ready((q, k, v, g.to(q.dtype), out))
     se, vis = se.contiguous(), vis.to(torch.int32).contiguous()
     dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
     dk = _packed_like(b, nh, tk, d, k.dtype, q.device)

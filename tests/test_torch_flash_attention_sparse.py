@@ -16,8 +16,10 @@ import pytest
 import torch
 
 import paddle_tpu_torch as tfluid
+from paddle_tpu_torch import reader
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import flash_attention_sparse as fas
+from paddle_tpu_torch.ops.kernels.tf32x3 import mm_3xtf32
 
 # One intra-op thread: tier-1 runs several xdist workers, and a second
 # torch worker thread, started beside JAX's runtime in the same process, was
@@ -324,6 +326,188 @@ def test_wide_head_dims_match_jax_pallas_interpret(d):
                   pad_rows=(0,))
 
 
+def _packed_segs(b, t, seed):
+    """src_seg, tgt_seg [b, t] of the first b rows reader.pack_by_tokens
+    makes of a seeded stream of sentence pairs with the NMT bench's
+    log-normal lengths (about 26 tokens)."""
+    def pairs():
+        rng = np.random.RandomState(seed)
+        while True:
+            ls = int(np.clip(rng.lognormal(3.1, 0.55), 4, 128))
+            lt = int(np.clip(ls * rng.uniform(0.8, 1.25), 4, 128))
+            yield np.ones(ls, np.int32), np.ones(lt, np.int32)
+
+    rows = []
+    for row in reader.pack_by_tokens(pairs, t, t)():
+        rows.append(row)
+        if len(rows) == b:
+            return (np.stack([r["src_seg"] for r in rows]),
+                    np.stack([r["tgt_seg"] for r in rows]))
+
+
+def _sparse_bwd_3xtf32(q, k, v, out, lse, g, se, vis, causal, sm, rate=0.0,
+                       seed=0):
+    """dq, dk, dv of the f32 block-sparse backward as its kernel computes
+    them: a dq CTA walks the visible key tiles of its 64-row q tile, a dk/dv
+    CTA the visible q tiles of its 64-key tile (the transposed walk); each
+    recomputes S (Sᵀ = K·Qᵀ in dk/dv) and dP in 3xTF32 with 16-column
+    partial sums, masks p to exactly 0 and adds its tile's dS·K (dSᵀ·Q and
+    P_dropᵀ·dO) in 3xTF32 into a zeroed partial sum, one round-to-nearest
+    add a tile. delta is the plain delta; exp is exact here (the kernel
+    uses ex2.approx). [B, nh, T, d] f32 tensors."""
+    b, nh, tq, d = q.shape
+    tk, t_ = k.shape[2], fas.TILE
+    mask = fas._mask(se, None, tq, tk, causal)[:, 0]
+    keep = (tfa.dropout_keep_mask(seed, rate, b, nh, tq, tk) if rate > 0.0
+            else torch.ones(b, nh, tq, tk, dtype=torch.bool))
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+    delta = tfa.flash_attention_delta_plain(out, g)
+    tiles = lambda i: slice(i * t_, (i + 1) * t_)
+    kt_ = lambda x: x.transpose(-1, -2)
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    for bi in range(b):
+        for iq in range(tq // t_):          # dq CTAs
+            r = tiles(iq)
+            acc = torch.zeros(nh, t_, d)
+            for kt in range(tk // t_):
+                if not vis[bi, iq, kt]:
+                    continue
+                c = tiles(kt)
+                s = mm_3xtf32(q[bi, :, r], kt_(k[bi, :, c]), 16)
+                dp = mm_3xtf32(g[bi, :, r], kt_(v[bi, :, c]), 16)
+                p = torch.where(mask[bi, r, c],
+                                torch.exp(s * sm - lse[bi, :, r, None]),
+                                torch.zeros(()))
+                dp = torch.where(keep[bi, :, r, c], dp * scale,
+                                 torch.zeros(()))
+                ds = p * (dp - delta[bi, :, r, None])
+                acc = acc + mm_3xtf32(ds, k[bi, :, c])
+            dq[bi, :, r] = acc * sm
+        for kt in range(tk // t_):          # dk/dv CTAs
+            c = tiles(kt)
+            acc_k, acc_v = torch.zeros(nh, t_, d), torch.zeros(nh, t_, d)
+            for iq in range(tq // t_):
+                if not vis[bi, iq, kt]:
+                    continue
+                r = tiles(iq)
+                st = mm_3xtf32(k[bi, :, c], kt_(q[bi, :, r]), 16)
+                dpt = mm_3xtf32(v[bi, :, c], kt_(g[bi, :, r]), 16)
+                pt = torch.where(kt_(mask[bi, r, c]),
+                                 torch.exp(st * sm - lse[bi, :, None, r]),
+                                 torch.zeros(()))
+                kept = kt_(keep[bi, :, r, c])
+                ds = pt * (torch.where(kept, dpt * scale, torch.zeros(()))
+                           - delta[bi, :, None, r])
+                p_drop = torch.where(kept, pt * scale, torch.zeros(()))
+                acc_v = acc_v + mm_3xtf32(p_drop, g[bi, :, r])
+                acc_k = acc_k + mm_3xtf32(ds, q[bi, :, r])
+            dk[bi, :, c] = acc_k * sm
+            dv[bi, :, c] = acc_v
+    return dq, dk, dv
+
+
+_MODEL_CASES = {   # name: (d, causal, Tq, pad row): NMT-packed segments
+    "encoder self": (64, False, 256, True),
+    "encoder self d=128": (128, False, 128, True),
+    "causal self": (64, True, 256, False),
+    "cross Tq=192": (64, False, 192, False)}
+
+
+def _model_case(name):
+    d, causal, tq, pad = _MODEL_CASES[name]
+    tk, nh = 256 if tq == 192 else tq, 1
+    src, tgt = _packed_segs(2, tk, 21)
+    if pad:
+        src[-1] = 0                                   # one all-pad row
+    q_seg, k_seg = {"encoder": (src, src), "causal": (tgt, tgt),
+                    "cross": (tgt[:, :tq], src)}[name.split()[0]]
+    q, dy = (0.5 * _rand((2, tq, nh * d), 40 + i) for i in (0, 3))
+    k, v = (0.5 * _rand((2, tk, nh * d), 40 + i) for i in (1, 2))
+    return q, k, v, dy, q_seg, k_seg, nh, d, causal
+
+
+@pytest.mark.parametrize("name", list(_MODEL_CASES))
+def test_3xtf32_products_hold_the_sparse_f32_backward(name):
+    """The decision rule of the f32 sparse backward's 3xTF32 design: its
+    arithmetic, emulated on the CPU (_sparse_bwd_3xtf32: the visible-tile
+    walks, 3xTF32 products with the tensor core's round-toward-zero sums,
+    the partial sums), against the JAX package's _flash_bwd_pallas_sparse
+    in interpret mode, on segment rows of reader.pack_by_tokens: dq, dk
+    and dv within chip_smoke's f32 BWD_TOL (2e-5 of max(|ref|, 1)); pad
+    rows exactly zero."""
+    fa = _jfa()
+    q, k, v, dy, q_seg, k_seg, nh, d, causal = _model_case(name)
+    b, tq, tk = q.shape[0], q.shape[1], k.shape[1]
+    fa.FORCE_PALLAS_INTERPRET = True
+    try:
+        assert fa._sparse_pallas_ok(tq, tk, d)
+        ref = _jax(q, k, v, nh, q_seg, k_seg, dy, causal)[1:]
+    finally:
+        fa.FORCE_PALLAS_INTERPRET = False
+    heads = lambda x: torch.tensor(x).unflatten(-1, (nh, d)).transpose(1, 2)
+    qh, kh, vh, gh = (heads(x) for x in (q, k, v, dy))
+    se = fas.pack_se(torch.tensor(q_seg), torch.tensor(k_seg))
+    vis = fas.compute_block_vis(se, tq, tk, causal=causal)
+    assert not vis.all(), "the case must skip tiles"
+    sm = 1.0 / np.sqrt(d)
+    out, lse = fas.flash_attention_sparse_fwd_plain(qh, kh, vh, se, vis,
+                                                    causal, sm)
+    got = _sparse_bwd_3xtf32(qh, kh, vh, out, lse, gh, se, vis, causal, sm)
+    for nm, a, r in zip(("dq", "dk", "dv"), got, ref):
+        a = a.transpose(1, 2).reshape(r.shape).numpy()
+        err = np.abs(a - r).max()
+        assert err <= 2e-5 * max(np.abs(r).max(), 1.0), (nm, err)
+        if name.startswith("encoder"):
+            assert not a[-1].any(), nm                # the all-pad row
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_3xtf32_sparse_f32_backward_skip_is_bitwise_invisible(rate):
+    """In the same model of the f32 sparse backward, the all-ones tile table
+    gives the bits of the computed one (causal, dropout on and off): a
+    processed tile with no visible pair adds an exact zero partial sum."""
+    d, tq = 64, 256
+    _, tgt = _packed_segs(2, tq, 23)
+    x = [torch.from_numpy(0.5 * _rand((2, 2, tq, d), 50 + i))
+         for i in range(4)]
+    se = fas.pack_se(torch.tensor(tgt), torch.tensor(tgt))
+    vis = fas.compute_block_vis(se, tq, tq, causal=True)
+    assert not vis.all()
+    sm = 1.0 / np.sqrt(d)
+    out, lse = fas.flash_attention_sparse_fwd_plain(*x[:3], se, vis, True,
+                                                    sm, rate, 9)
+    args = (out, lse, x[3], se)
+    skipping = _sparse_bwd_3xtf32(*x[:3], *args, vis, True, sm, rate, 9)
+    every = _sparse_bwd_3xtf32(*x[:3], *args, torch.ones_like(vis), True,
+                               sm, rate, 9)
+    for nm, a, r in zip(("dq", "dk", "dv"), skipping, every):
+        assert torch.equal(a, r), nm
+
+
+def test_bf16_forward_reads_packed_heads_and_se_in_place():
+    """The bf16 forward's TMA maps read the [B, nh, T, d] head views of a
+    packed [B, T, nh·d] projection and se's [1, 1, B, Tq] view in place, as
+    flash_attention_packed_sparse hands them over: no copy; a tensor whose
+    last dim is not contiguous is copied, never refused."""
+    b, t, nh, d = 2, 128, 4, 64
+    qkv = torch.zeros(b, t, 3 * nh * d, dtype=torch.bfloat16)
+    q, k, v = (x.unflatten(-1, (nh, d)).transpose(1, 2)
+               for x in qkv.split(nh * d, dim=-1))
+    seg = torch.tensor(_uneven_segs(b, t, np.random.RandomState(8)))
+    se = fas.pack_se(seg, seg)
+    ts, descs = fas._fwd_bf16_tensors(q, k, v, se)
+    assert [x.data_ptr() for x in ts] == [x.data_ptr() for x in (q, k, v,
+                                                                 se)]
+    assert descs[0][1:] == [d, t, nh, b, 3 * nh * d * 2, d * 2,
+                            t * 3 * nh * d * 2]
+    assert descs[3] == [se.data_ptr(), t, b, 1, 1, t * 4, b * t * 4,
+                        b * t * 4]
+    qt = torch.zeros(b, nh, d, t, dtype=torch.bfloat16).transpose(2, 3)
+    ts, descs = fas._fwd_bf16_tensors(qt, k, v, se)
+    assert ts[0].data_ptr() != qt.data_ptr() and ts[0].is_contiguous()
+    assert torch.equal(ts[0], qt) and descs[0] == tfa._tma_desc(ts[0])
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the hand-written kernels have no "
@@ -389,6 +573,59 @@ def test_cuda_kernels_match_plain(dtype, fwd_tol, bwd_tol, d, causal, rate):
                                           causal, None, rate, 7)
     assert all(torch.equal(a, b) for a, b in zip((out, lse) + tuple(got),
                                                  (out1, lse1) + tuple(got1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_cuda_bf16_forward_entry_cross_attention(d):
+    """The bf16 forward's C entry (flash_attention_sparse_fwd_bf16, wgmma
+    over TMA maps) through the wrapper, at cross attention Tq = 192 != Tk =
+    256 on packed head views with dropout: one launch, out and lse within
+    2e-2 of the plain version, pad queries exactly 0 and -1e30."""
+    _cuda_or_skip()
+    b, nh, tq, tk = 2, 2, 192, 256
+    g = torch.Generator("cuda").manual_seed(d)
+    rng = np.random.RandomState(d)
+    q_seg = torch.tensor(_uneven_segs(b, tq, rng, max_seg=3), device="cuda")
+    k_seg = torch.tensor(_uneven_segs(b, tk, rng, max_seg=3), device="cuda")
+    se = fas.pack_se(q_seg, k_seg)
+    vis = fas.compute_block_vis(se, tq, tk)
+    q = (torch.randn(b, tq, nh * d, generator=g, device="cuda")
+         .to(torch.bfloat16).unflatten(-1, (nh, d)).transpose(1, 2))
+    k, v = (torch.randn(b, tk, nh * d, generator=g, device="cuda")
+            .to(torch.bfloat16).unflatten(-1, (nh, d)).transpose(1, 2)
+            for _ in range(2))
+    before = fas.flash_attention_sparse_fwd.launches
+    out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis, False, None,
+                                              0.1, 5)
+    assert fas.flash_attention_sparse_fwd.launches == before + 1
+    _close((out, lse), fas.flash_attention_sparse_fwd_plain(
+        q, k, v, se, vis, False, None, 0.1, 5), 2e-2)
+    assert not out[0].any() and (lse[0] == -1e30).all()   # row 0: all pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_cuda_f32_backward_entry_reads_lse_rows_by_pitch(d):
+    """The f32 backward's C entry (flash_attention_sparse_bwd, 3xTF32) with
+    lse rows Tq + 4 floats apart (a view of a wider buffer): the pitch
+    reaches the kernel; dq, dk, dv within 2e-5 of the plain version and
+    bitwise repeatable, causal with dropout."""
+    _cuda_or_skip()
+    q, k, v, dout, se, vis = _cuda_case(2, 256, 2, d, torch.float32, 6,
+                                        causal=True)
+    out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis, True, None,
+                                              0.1, 3)
+    wide = torch.full((2 * 2, 256 + 4), float("nan"), device="cuda")
+    wide[:, :256] = lse.reshape(4, 256)
+    lse_p = wide[:, :256].view(2, 2, 256)
+    got = fas.flash_attention_sparse_bwd(q, k, v, out, lse_p, dout, se, vis,
+                                         True, None, 0.1, 3)
+    _close(got, fas.flash_attention_sparse_bwd_plain(
+        q, k, v, out, lse, dout, se, vis, True, None, 0.1, 3), 2e-5)
+    again = fas.flash_attention_sparse_bwd(q, k, v, out, lse_p, dout, se,
+                                           vis, True, None, 0.1, 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
