@@ -29,8 +29,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              backwards bitwise repeatable, then at d = 512 at every shape
              the wide path runs (dense T = 128/512 with and without
              dropout; sparse T = 128/256 encoder self, decoder self and
-             cross), timed at d = 512 beside their plain versions, SDPA
-             and their bounds. Times each kernel, its
+             cross), timed at d = 512 beside their plain versions, SDPA,
+             their bounds (f32: 3xTF32, the FMA bound beside it) and
+             their launches' CTAs; the f32 per-query dbias is held to
+             the plain formula in f64 (flash_attention_ds_f64), the plain f32
+             version's
+             own error beside it. Times each kernel, its
              plain version and one
              PyTorch library call, with each kernel's ratio to that call and
              share of its bound (the f32 forward's and backward's bound
@@ -39,7 +43,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              HGMMA count (the sparse forward's and backward's too), and the
              f32 tensor-core flash kernels' (dense forward and backward,
              sparse backward) and K2's registers and spills and the f32
-             flash kernels' HMMA count.
+             flash kernels' HMMA count; the wide kernels' registers,
+             spills, HMMA count and dynamic shared memory.
 4. serve   — main path 1: BERT-base at full width (vocab 30522, hidden 768,
              12 layers, 12 heads, ffn 3072) built with the port's DSL from a
              seed, saved with io.save_inference_model, served by
@@ -162,6 +167,7 @@ The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
 CUDA device or the port is not beside this script.
+
 """
 import json
 import os
@@ -502,6 +508,13 @@ def kernel_label(mangled):
     if k:
         return (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, "
                 f"sparse={k.group(3)}>")
+    k = re.search(r"(wide_[fb]wd_f32_kernel)ILb([01])E", mangled)
+    if k:
+        return f"{k.group(1)}<sparse={k.group(2)}>"
+    k = re.search(r"wide_role_f32_kernelILi(\d)ELb([01])E", mangled)
+    if k:
+        role = ("fwd", "dq", "dk", "dv")[int(k.group(1))]
+        return f"wide_role_f32_kernel<{role}, sparse={k.group(2)}>"
     return None
 
 
@@ -1068,8 +1081,10 @@ def wider_case(fa, fas, kind, q, k, v, dout, name, bias=None, se=None,
     versions: forward and backward (dense with `bias` and `dbias`, or
     sparse on se/vis), the backward twice (bitwise equal), and for sparse
     with dropout every tile processed (bitwise equal to the skipping walk).
-    Each call must be one wide launch and no plain-route call. Returns the
-    max abs errors; raises on a disagreement."""
+    Each call must be one wide launch and no plain-route call. An f32
+    per-query dbias is held to fa.flash_attention_ds_f64 (the plain f32
+    version's own error there is logged beside it). Returns the max abs errors; raises on a
+    disagreement."""
     import torch
 
     before, wide_before = flash_counts(fa, fas), wide_counts(fa, fas)
@@ -1098,7 +1113,15 @@ def wider_case(fa, fas, kind, q, k, v, dout, name, bias=None, se=None,
     want_counts = [(n + add.get(i, 0), p) for i, (n, p) in enumerate(before)]
     want_wide = [n + add.get(i, 0) for i, n in enumerate(wide_before)]
     e = [max_err(x, y, TOL[name]) for x, y in zip((out, lse), ref)]
+    plain_ds_err = None
+    if dbias == "per_q" and name == "float32":
+        exact = fa.flash_attention_ds_f64(q, k, v, out, lse, dout, bias,
+                                          causal, None, rate, 17)
+        plain_ds_err = float((want[3].double() - exact).abs().max())
+        want = (*want[:3], exact)
     errs, ok = bwd_errs(got, want, name)
+    if plain_ds_err is not None:
+        errs["dbias_plain_f32"] = plain_ds_err
     errs.update(out=e[0][0], lse=e[1][0])
     ok &= e[0][1] and e[1][1]
     same = all(torch.equal(x, y) for x, y in zip(got, again)
@@ -1138,10 +1161,10 @@ def phase_kernel_wider(fa, fas):
     dropout; sparse NMT rows B=4, nh=2 at T = 128 and 256, encoder self,
     decoder self and cross. Each entry is timed on the inputs of one of
     those checks (dense T=512; sparse encoder self T=256) beside its plain
-    version, PyTorch's SDPA and its bound, and its max_abs_err is that
-    check's. Returns {(entry, dtype): record}."""
+    version, PyTorch's SDPA and its bound (wide_times), with its CTAs
+    (wide_ctas), and its
+    max_abs_err is that check's. Returns {(entry, dtype): record}."""
     import torch
-    import torch.nn.functional as F
 
     gen = torch.Generator("cuda").manual_seed(9)
     b, nh, t = 2, 2, 256
@@ -1211,59 +1234,99 @@ def phase_kernel_wider(fa, fas):
 
         # times at d = 512, on the inputs checked above; each entry's
         # max_abs_err is that of the checks at the shape it names
-        q, k, v, dout, mask = dense_at[512]
-        out, lse = fa.flash_attention_fwd(q, k, v, mask)
-        lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
-        sdpa_mask = mask.expand(WIDE_B, WIDE_HEADS, 512, 512)
-        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=sdpa_mask)
-        fwd = dict(zip(("ms", "dropout_ms", "plain_ms", "library_ms"), (
-            device_ms(fn) for fn in (
-                lambda: fa.flash_attention_fwd(q, k, v, mask),
-                lambda: fa.flash_attention_fwd(q, k, v, mask, False, None,
-                                               DROPOUT, 91),
-                lambda: fa.flash_attention_fwd_plain(q, k, v, mask),
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=sdpa_mask)))))
-        bwd = dict(zip(("ms", "dropout_ms", "plain_ms", "library_ms"), (
-            device_ms(fn) for fn in (
-                lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, mask),
-                lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, mask,
-                                               False, None, DROPOUT, 91),
-                lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                                     mask),
-                lambda: torch.autograd.grad(lout, (lq, lk, lv), dout,
-                                            retain_graph=True)))))
-        rows = WIDE_B * WIDE_HEADS * 512
-        isz = q.element_size()
+        recs = wide_times(fa, fas, name, dense_at[512], sparse_at[NMT_T])
+        for key, n in wide_ctas(name, WIDE_B, WIDE_HEADS, 512, NMT_T,
+                                d).items():
+            recs[key]["ctas"] = n
         dense_err = max(max(e.values()) for lab, e in path_errs.items()
                         if lab.startswith("dense T=512"))
-        for rec, flops, nbytes in (
-                (fwd, 4.0 * rows * 512 * d,
-                 4 * rows * d * isz + rows * 4 + mask.numel() * isz),
-                (bwd, 10.0 * rows * 512 * d,
-                 8 * rows * d * isz + 2 * rows * 4 + mask.numel() * isz)):
-            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, name)
-            rec.update(flops=flops, bytes=nbytes, max_abs_err=dense_err,
-                       shape=f"B={WIDE_B} nh={WIDE_HEADS} T=512 d={d}, "
-                             f"[B,1,1,T] mask")
-        records[("fwd", name)], records[("bwd", name)] = fwd, bwd
-
-        q, k, v, dout, sse, svis = sparse_at[NMT_T]
-        smask = fas._mask(sse, None, NMT_T, NMT_T, False)
-        sfwd, sbwd = sparse_timing(
-            fas, name, (q, k, v, dout, sse, svis, smask, False),
-            {"visible_pairs": int(smask.sum()) * WIDE_HEADS})
-        for rec in (sfwd, sbwd):
-            rec.update(max_abs_err=max(
-                path_errs[f"sparse encoder self T={NMT_T}"].values()),
-                shape=f"encoder self B={WIDE_B} nh={WIDE_HEADS} "
-                      f"T={NMT_T} d={d}")
-        records[("sparse_fwd", name)] = sfwd
-        records[("sparse_bwd", name)] = sbwd
-        for key in ("fwd", "bwd", "sparse_fwd", "sparse_bwd"):
+        sparse_err = max(path_errs[f"sparse encoder self T={NMT_T}"].values())
+        for key, rec in recs.items():
+            rec["max_abs_err"] = sparse_err if key.startswith("sparse") \
+                else dense_err
+            records[(key, name)] = rec
             log(f"kernel wider {key} " + json.dumps(
-                {"dtype": name, **ratios(records[(key, name)])}))
+                {"dtype": name, **ratios(rec)}))
     return records
+
+
+def wide_times(fa, fas, name, dense, sparse):
+    """Device ms of the four wide entries at d = 512 (dense: B=4, nh=2,
+    T=512 with the [B,1,1,T] mask; sparse: NMT encoder self, T = NMT_T),
+    with and without dropout, beside their plain versions and SDPA, and
+    their bounds (f32: 3xTF32, the FMA bound beside it). Returns {entry:
+    record}."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, dout, mask = dense
+    b, nh, t, d = q.shape
+    out, lse = fa.flash_attention_fwd(q, k, v, mask)
+    calls = {"fwd": {
+        "ms": lambda: fa.flash_attention_fwd(q, k, v, mask),
+        "dropout_ms": lambda: fa.flash_attention_fwd(
+            q, k, v, mask, False, None, DROPOUT, 91)}, "bwd": {
+        "ms": lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, mask),
+        "dropout_ms": lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, dout, mask, False, None, DROPOUT, 91)}}
+    lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa_mask = mask.expand(b, nh, t, t)
+    lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=sdpa_mask)
+    calls["fwd"].update(
+        plain_ms=lambda: fa.flash_attention_fwd_plain(q, k, v, mask),
+        library_ms=lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=sdpa_mask))
+    calls["bwd"].update(
+        plain_ms=lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, mask),
+        library_ms=lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), dout, retain_graph=True))
+    recs = {key: {k_: device_ms(fn) for k_, fn in c.items()}
+            for key, c in calls.items()}
+    rows = b * nh * t
+    isz = q.element_size()
+    for rec, flops, nbytes in (
+            (recs["fwd"], 4.0 * rows * t * d,
+             4 * rows * d * isz + rows * 4 + mask.numel() * isz),
+            (recs["bwd"], 10.0 * rows * t * d,
+             8 * rows * d * isz + 2 * rows * 4 + mask.numel() * isz)):
+        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, name)
+        rec.update(flops=flops, bytes=nbytes,
+                   shape=f"B={b} nh={nh} T={t} d={d}, [B,1,1,T] mask")
+
+    q, k, v, dout, sse, svis = sparse
+    ts = q.shape[2]
+    smask = fas._mask(sse, None, ts, ts, False)
+    stats = {"visible_pairs": int(smask.sum()) * nh}
+    recs["sparse_fwd"], recs["sparse_bwd"] = sparse_timing(
+        fas, name, (q, k, v, dout, sse, svis, smask, False), stats)
+    for key in ("sparse_fwd", "sparse_bwd"):
+        recs[key]["shape"] = f"encoder self B={b} nh={nh} T={ts} d={d}"
+    if name == "float32":
+        # every product in 3xTF32 on the tensor cores: the least time is
+        # three TF32 products at 495 TFLOP/s; the CUDA-core FMA bound beside
+        for key, rec in recs.items():
+            if "flops" in rec and "bound_fma_ms" not in rec:
+                rec["bound_fma_ms"] = rec["bound_ms"]
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    3 * rec["flops"], rec["bytes"], name, TF32_PEAK_FLOPS)
+    return recs
+
+
+def wide_ctas(name, b, nh, t, ts, d):
+    """CTAs of the four wide entries' launches (the backward's summed) at
+    wide_times' shapes: dense T = t, sparse T = ts. Returns {entry: CTAs}."""
+    import ctypes
+    from paddle_tpu_torch.ops.kernels import build
+
+    ctas = build.load("flash_attention_wide").flash_attention_wide_ctas
+    ctas.argtypes = [ctypes.c_int] * 7
+    ctas.restype = ctypes.c_longlong
+    code = 0 if name == "float32" else 1
+    return {key: ctas(bwd, code, b, nh, tq, tq, d)
+            for key, (tq, bwd) in (("fwd", (t, 0)), ("bwd", (t, 1)),
+                                   ("sparse_fwd", (ts, 0)),
+                                   ("sparse_bwd", (ts, 1)))}
 
 
 def build_bert(fluid, bert, seq_len):
@@ -3106,7 +3169,11 @@ def main():
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                "dropout_ms": rec["dropout_ms"], "shape": rec["shape"]})
+                "dropout_ms": rec["dropout_ms"],
+                "vs_library": rec["ms_vs_library"],
+                "bound_share": rec["ms_bound_share"],
+                **{k: rec[k] for k in ("bound_fma_ms", "ctas") if k in rec},
+                "shape": rec["shape"]})
     for kname, dt in (("sparse_adagrad_update", "float32"),
                       ("sparse_row_gather", "uint16"),
                       ("sparse_row_scatter", "uint16")):

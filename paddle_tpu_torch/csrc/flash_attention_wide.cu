@@ -12,58 +12,109 @@
 // flash_attention_sparse.cu) keep d = 64, 128, 192 and 256: they hold a
 // [64][d] q tile and stages of [64][d] k tiles in shared memory, which at
 // d = 512 takes nearly all of the 227 KB an SM gives, and more backward.
-//
-// Design: shared memory that does not grow with d. A CTA owns 64 queries (64
-// keys in dk/dv) and one 64-wide chunk of its output's head dim; the chunks
-// are a grid factor (the tuned kernels' chunk rule above d = 128, carried
-// to any d). It forms the scores S = Q·Kᵀ (and dP = dO·Vᵀ) by walking the
-// head dim in 64-wide slices through four [64][64] operand tiles in shared
-// memory, taken in order, so the sums run in one order whatever d is; every
-// chunk of a tile recomputes the same scores and online softmax bit for
-// bit, and loads only its chunk of V (dq: of K; dk/dv: of dO and Q) for the
-// second product. Shared memory is about 72 KB a CTA in f32 and 42 KB in
-// bf16 at every d; the head dim is a runtime argument.
-//   Products: one primitive, C[16 rows x 64] += A[16 x 64]·B[64 x 64]ᵀ with
-//   A and B row-major in shared memory, in the m16n8k16 accumulator layout
-//   (lane (g, t) of warp w holds rows 16w + g and 16w + g + 8, columns
-//   8·nb + 2t and 8·nb + 2t + 1). bf16: mma.sync.m16n8k16, bf16 in, f32
-//   accumulate, each head-dim slice of S and dP summed into a partial that
-//   is added once (slice_product). f32: the same elements by FMA on the
-//   CUDA cores, so the f32 parity of the other families holds with no
-//   TF32. The second operands
-//   of P·V, dS·K, Pᵀ·dO and dSᵀ·Q are stored transposed as they are loaded,
-//   and P or dS (rounded to the input type, as the TPU kernels round them)
-//   go through shared memory as the A operand.
+// Here shared memory does not grow with d, and the head dim is a run-time
+// argument.
 //
 // Semantics, the same as every other flash family:
 //   - dense: scores past Tk take no part; scale, then the additive bias
 //     (broadcast through strides), then causal as -1e30; the running max
 //     starts at -1e30, a zero row sum divides by 1, lse = m + log(l); causal
-//     q tiles walk only the key tiles they can see.
+//     tiles walk only the tiles they can see.
 //   - sparse: query i sees keys start <= k < end of its se = (start << 16) |
 //     end (and k <= i under causal); masked probabilities are exactly 0; the
 //     walks visit only the 64x64 tiles whose bit of `vis` is set, so a
 //     skipped tile is bitwise invisible.
 //   - dropout: the keep bit of (bh, i, j) from philox.cuh's counter rule, so
 //     the mask equals the plain version's; lse is over the undropped p.
-//   - dbias: per query (ds itself, written by chunk 0 of the dq CTAs; the
-//     wrapper zeroes the tiles a causal walk skips) or the column sum (chunk
-//     0 of the dk/dv CTAs, summed in a fixed order).
+//   - dbias: per query (ds itself, written by the dq CTAs; the wrapper
+//     zeroes the tiles a causal walk skips) or the column sum (by the dk/dv
+//     CTAs, summed in a fixed order).
 //   - delta comes from the dense backward's delta kernel, before the launch.
 //   - no atomics: each output element is written by one CTA, so two calls
 //     give the same bits. Grids are flat, so B·nh has no 65,535 cap.
 //
 // Bound. The work is 4·d flops a (query, key) pair forward and 10·d
-// backward, so at d >= 320 the kernels are bound by operations. This first
-// version recomputes the scores once per output chunk (d/64 times), runs no
-// copy ahead of the math and, in f32, loads from shared memory about once
-// per two FMAs: it is far from that bound. Times are in PERF.md.
+// backward, so at d >= 320 the kernels are bound by operations: in f32
+// three TF32 products per product on the tensor cores (3xTF32, 495
+// TFLOP/s), in bf16 the tensor cores' 989.
+//
+// f32 design (wide_fwd_f32_kernel; wide_role_f32_kernel and
+// wide_bwd_f32_kernel): every product -- S, P·V; S, dP, dQ, dK, dV -- in
+// 3xTF32 on mma.sync.m16n8k8 (tf32x3.cuh: the split, the ldmatrix
+// fragments, mma3). The tensor core's sums round toward zero, so S and dP
+// sum 8 columns at a time into zeroed sums, added in pairs to the running
+// sum (product_pairs: on the CPU model a 512-deep product comes out
+// closer to the exact sum than with the tuned kernels' 16-column partial
+// sums, tests/test_torch_flash_attention.py; the per-query dbias takes
+// dP − delta, where the two cancel), and an output's product takes a
+// tile into a zeroed partial sum. A CTA of eight warps owns 32 rows (queries; keys in dk and dv):
+// two row groups of 16 rows, each split over four column warps. The four
+// warps of a row group split the head dim of S = X·Yᵀ (and dP) by
+// 64-column blocks: block j goes to partial group j % 4, the group's
+// blocks summed in order; the four partials go through shared memory and
+// every warp of the row group adds them in one order,
+// S = ((G0 + G1) + G2) + G3, so all four hold the same bits of S, of m and
+// l, and of P or dS. Each warp then multiplies P
+// (dS, Pᵀ, dSᵀ) from its registers by its own output blocks, those of
+// index c, c + 4 (c = its column warp), at most two: a CTA holds 512
+// output columns; above d = 512 the output blocks are split into
+// ceil(d / 512) chunks, a grid factor, each chunk forming S again. The
+// forward and the dq, dk, dv walks split and sum S alike, so the lse the
+// forward writes is the one the backward's S gives: dk and dv form Sᵀ =
+// K·Qᵀ (and dPᵀ = V·dOᵀ) with each mma3's two cross terms in the other
+// order (mma3_order), so that each element's terms are added in the same
+// order as in Q·Kᵀ and all four kinds hold the same bits of S.
+//   Work a (query, key) pair at d = 512: forward 4d (S once, P·V once),
+//   6d where the forward doubles its grid (below); backward 16d: dq CTAs
+//   form S, dP and dQ (6d), dk CTAs S, dP and dK (6d), dv CTAs S and dV
+//   (4d): a launch each (dk, dq, dv) where one role's CTAs fill 3/4 of
+//   the SMs (each role kernel then has its own registers), else one
+//   launch of all three. K, V, Q and dO stream through a two-stage
+//   cp.async ring, one step ahead of the math: a step brings, for each of
+//   the four column warps, one 64-wide head-dim block of the row side (32
+//   rows) and of the column side (64 rows) for S or dP, or one output
+//   block of the column side (V, K, Q or dO: 64 rows) for the output
+//   product, into a [96][260] f32 stage (a pitch of 4 mod 32 floats:
+//   ldmatrix without bank conflicts). A tile pair takes ceil(d / 256) S
+//   steps (and as many dP steps) and ceil(chunk / 256) output steps; at
+//   d = 256·k + 64·m the last step of each kind runs m of the four
+//   warps. Shared memory: two stages and the partials (8 warps x 32 x 32
+//   floats), 232,448 bytes at every d, one CTA of 8 warps an SM. Keep
+//   bits are drawn in registers (flash::keep_bits_rows / keep_bits_cols);
+//   lse, delta and se of a dk/dv tile's queries are read through L1.
+//   Grid fill: 32-row tiles give B·nh·T/32 CTAs a kind (128 forward at
+//   B·nh = 8, T = 512); where that is at most half the SMs and d >= 512,
+//   the forward splits its output columns over two CTAs (S formed twice,
+//   6d a pair) to fill the card.
+//
+// bf16 design (wide_fwd_kernel, wide_dq_kernel, wide_dkv_kernel): a CTA
+// owns 64 queries (64 keys in dk/dv) and one 64-wide chunk of its output's
+// head dim; the chunks are a grid factor (the tuned kernels' chunk rule
+// above d = 128, carried to any d). It forms the scores S = Q·Kᵀ (and dP =
+// dO·Vᵀ) by walking the head dim in 64-wide slices through four [64][72]
+// operand tiles in shared memory, taken in order, so the sums run in one
+// order whatever d is; every chunk of a tile recomputes the same scores and
+// online softmax bit for bit, and loads only its chunk of V (dq: of K;
+// dk/dv: of dO and Q) for the second product (about 42 KB of shared memory
+// a CTA). Products: C[16 rows x 64] += A[16 x 64]·B[64 x 64]ᵀ with A and B
+// row-major in shared memory, in the m16n8k16 accumulator layout (lane
+// (g, t) of warp w holds rows 16w + g and 16w + g + 8, columns 8·nb + 2t
+// and 8·nb + 2t + 1) on mma.sync.m16n8k16, bf16 in, f32 accumulate, each
+// head-dim slice of S and dP summed into a partial that is added once
+// (slice_product). The second operands of P·V, dS·K, Pᵀ·dO and dSᵀ·Q are
+// stored transposed as they are loaded, and P or dS (rounded to bf16, as
+// the TPU kernels round them) go through shared memory as the A operand.
+// This first bf16 version recomputes the scores once per output chunk
+// (d/64 times) and runs no copy ahead of the math. Times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "philox.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -100,10 +151,9 @@ struct WideParams {
   flash::Dropout drop;
 };
 
-// Operand tiles: f32 rows of 65 floats, bf16 rows of 72 values (144 bytes,
-// on the 16-byte grid): both conflict-free for the fragment reads below.
+// Operand tiles: bf16 rows of 72 values (144 bytes, on the 16-byte grid):
+// conflict-free for the fragment reads below.
 template <typename T> struct Pitch;
-template <> struct Pitch<float> { static constexpr int kValue = kTile + 1; };
 template <> struct Pitch<bf> { static constexpr int kValue = kTile + 8; };
 
 template <typename T>
@@ -119,12 +169,8 @@ __host__ __device__ constexpr int smem_bytes() {
          4 * kTile * 4;
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
 template <> __device__ __forceinline__ bf from_f<bf>(float x) {
   return __float2bfloat16_rn(x);
 }
@@ -145,11 +191,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long st,
     if (TRANS) {
 #pragma unroll
       for (int e = 0; e < kPer; ++e) dst[(c + e) * P + r] = xe[e];
-    } else if (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(dst + r * P + c) = x;
     } else {
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) dst[r * P + c + e] = xe[e];
+      *reinterpret_cast<uint4*>(dst + r * P + c) = x;
     }
   }
 }
@@ -171,24 +214,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
 // c[16 rows from r0 - g, 64 columns] += A[rows][0..64)·B[0..64)[0..64)ᵀ:
 // lane (g, t) accumulates rows r0, r0 + 8 (r0 = 16·warp + g) and columns
 // 8·nb + 2t + {0, 1}, over k in order.
-__device__ __forceinline__ void product(float (&c)[8][4], const float* A,
-                                        const float* B, int r0, int t) {
-  constexpr int P = Pitch<float>::kValue;
-#pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
-    const float a0 = A[r0 * P + k], a1 = A[(r0 + 8) * P + k];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      const float b0 = B[(nb * 8 + 2 * t) * P + k];
-      const float b1 = B[(nb * 8 + 2 * t + 1) * P + k];
-      c[nb][0] = fmaf(a0, b0, c[nb][0]);
-      c[nb][1] = fmaf(a0, b1, c[nb][1]);
-      c[nb][2] = fmaf(a1, b0, c[nb][2]);
-      c[nb][3] = fmaf(a1, b1, c[nb][3]);
-    }
-  }
-}
-
 __device__ __forceinline__ void product(float (&c)[8][4], const bf* A,
                                         const bf* B, int r0, int t) {
   constexpr int P = Pitch<bf>::kValue;
@@ -215,18 +240,11 @@ __device__ __forceinline__ void zero(float (&c)[8][4]) {
     for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
 }
 
-// c += the product of one 64-wide head-dim slice (S, dP over the slices).
-// f32 sums into c directly, in the order of one pass over d. bf16 sums the
-// slice into a partial first and adds it with one round-to-nearest FADD:
+// c += the product of one 64-wide head-dim slice (S, dP over the slices),
+// summed into a partial first and added with one round-to-nearest FADD:
 // the tensor core rounds its f32 sums toward zero, and at d = 512 a chain
 // of 32 such k steps drifts further from the plain version's sums than
 // the backward's tolerance allows (the per-query dbias).
-__device__ __forceinline__ void slice_product(float (&c)[8][4],
-                                              const float* A, const float* B,
-                                              int r0, int t) {
-  product(c, A, B, r0, t);
-}
-
 __device__ __forceinline__ void slice_product(float (&c)[8][4], const bf* A,
                                               const bf* B, int r0, int t) {
   float part[8][4];
@@ -695,31 +713,604 @@ __global__ void __launch_bounds__(kThreads) wide_dkv_kernel(WideParams p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, const WideParams& p, int ntile,
-                   cudaStream_t s) {
+// ---------------------------------------------------------------------------
+// f32: every product in 3xTF32 on mma.sync.m16n8k8 (tf32x3.cuh), a CTA of
+// eight warps over 32 rows, tiles by cp.async (the design in the header).
+// ---------------------------------------------------------------------------
+// Launches `kernel` on a flat grid of `ctas` CTAs of `threads` threads with
+// `smem` bytes of dynamic shared memory.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), long long ctas, int threads,
+                   int smem, cudaStream_t s, Args... args) {
+  if (ctas <= 0 || ctas > 0x7FFFFFFFll) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const long long ctas = (long long)ntile * p.B * p.H * (p.D / kTile);
-  if (ctas <= 0 || ctas > 0x7FFFFFFFll) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)ctas, kThreads, smem, s>>>(p);
+  kernel<<<(unsigned)ctas, threads, smem, s>>>(args...);
   return cudaGetLastError();
+}
+
+namespace f32w {
+
+using tf32x3::acc_product_tf32;
+using tf32x3::cp_async16;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+using tf32x3::ldsm_a;
+using tf32x3::ldsm_b2;
+using tf32x3::mma3;
+using tf32x3::store_rows_f32;
+
+constexpr int kRows = 32;           // rows a CTA owns: two row groups of 16
+constexpr int kCols = 64;           // columns of a score tile
+constexpr int kBlk = 64;            // head-dim block
+constexpr int kGroups = 4;          // column warps of a row group
+constexpr int kWarps = 2 * kGroups;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kOutBlocks = 2;       // output blocks a warp holds
+constexpr int kChunkBlocks = kGroups * kOutBlocks;  // 512 columns a CTA
+constexpr int kPitch = kGroups * kBlk + 4;          // 260 floats, 4 mod 32
+constexpr int kStage = (kCols + kRows) * kPitch;    // floats: Y, then X
+constexpr int kXch = kWarps * 32 * 32;              // floats: the partials
+constexpr int kSmemBytes = (2 * kStage + kXch) * (int)sizeof(float);
+
+enum Kind { kFwd, kDq, kDk, kDv };
+
+// Starts the copy of `nb` contiguous 64-wide head-dim blocks of ROWS rows
+// (`st` floats apart, from src) into a stage at dst; rows past `valid` are
+// zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void copy_blocks(float* dst, const float* src,
+                                            long long st, int valid, int nb,
+                                            int tid) {
+  const int per_row = nb * (kBlk / 4);  // 16-byte vectors a row
+  for (int i = tid; i < ROWS * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * 4;
+    cp_async16(dst + r * kPitch + c, src + (r < valid ? r : 0) * st + c,
+               r < valid);
+  }
+}
+
+// d += a·b on one 16x8 block in 3xTF32 as tf32x3::mma3 sums it, or, with
+// SWAP, with its two cross terms in the other order: small·big, then
+// big·small, then big·big. A product of the transposed pair (Sᵀ = K·Qᵀ
+// beside S = Q·Kᵀ) then adds each element's terms in the order of the
+// other, so the two give the same bits.
+template <bool SWAP>
+__device__ __forceinline__ void mma3_order(float* d, const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  if constexpr (SWAP) {
+    tf32x3::mma_tf32(d, as, bb0, bb1);
+    tf32x3::mma_tf32(d, ab, bs0, bs1);
+    tf32x3::mma_tf32(d, ab, bb0, bb1);
+  } else {
+    mma3(d, ab, as, bb0, bb1, bs0, bs1);
+  }
+}
+
+// s += A·Bᵀ for the warp's 16 rows (from r0) over one 64-column head-dim
+// block of two stage tiles (a row per M and N index), 16 columns at a time:
+// each 8-deep step's three mma (mma3_order) into a zeroed sum, the pair's
+// two sums added, then that added to s, both rounding to nearest, so the
+// tensor core's round-toward-zero sums span 8 columns. SWAP where A is the
+// key side (dk and dv: Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ). Register 4·nb + 2h + e of
+// lane (g, t) is row r0 + g + 8h, column 8·nb + 2t + e.
+template <bool SWAP>
+__device__ __forceinline__ void product_pairs(float (&s)[32], const float* sA,
+                                              const float* sB, int r0, int g,
+                                              int t) {
+  const int lane = 4 * g + t;
+  const int brow = (lane & 7) + 8 * (lane >> 4);  // column of two blocks
+#pragma unroll 1
+  for (int k0 = 0; k0 < kBlk; k0 += 16) {
+    uint32_t ab[2][4], as[2][4];
+    ldsm_a(sA, kPitch, r0, k0, lane, ab[0], as[0]);
+    ldsm_a(sA, kPitch, r0, k0 + 8, lane, ab[1], as[1]);
+#pragma unroll
+    for (int nb = 0; nb < 8; nb += 2) {
+      float p0[8], p1[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) p0[i] = p1[i] = 0.f;
+      uint32_t bb[4], bs[4];
+      ldsm_b2(sB, kPitch, 8 * nb + brow, k0, lane, bb, bs);
+      mma3_order<SWAP>(&p0[0], ab[0], as[0], bb[0], bb[1], bs[0], bs[1]);
+      mma3_order<SWAP>(&p0[4], ab[0], as[0], bb[2], bb[3], bs[2], bs[3]);
+      ldsm_b2(sB, kPitch, 8 * nb + brow, k0 + 8, lane, bb, bs);
+      mma3_order<SWAP>(&p1[0], ab[1], as[1], bb[0], bb[1], bs[0], bs[1]);
+      mma3_order<SWAP>(&p1[4], ab[1], as[1], bb[2], bb[3], bs[2], bs[3]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[4 * nb + i] += p0[i] + p1[i];
+    }
+  }
+}
+
+__device__ __forceinline__ void zero32(float (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) a[i] = 0.f;
+}
+
+// The partial sums of S (or dP) through shared memory, in fragment order
+// (every warp of a row group holds the same elements in the same
+// registers): put the warp's; then, after a barrier, the row group's sum in
+// the fixed order ((G0 + G1) + G2) + G3, group c being column warp c's.
+__device__ __forceinline__ void xch_put(float* xch, const float (&a)[32],
+                                        int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) xch[(warp * 32 + i) * 32 + lane] = a[i];
+}
+__device__ __forceinline__ void xch_sum(float (&a)[32], const float* xch,
+                                        int rg, int lane) {
+  const float* x = xch + rg * kGroups * 1024 + lane;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    a[i] = ((x[i * 32] + x[1024 + i * 32]) + x[2048 + i * 32]) +
+           x[3072 + i * 32];
+}
+
+// One CTA of kind KIND: rows [r0, r0 + 32) of one (b, h) (queries for the
+// forward and dq, keys for dk and dv) and its chunk `oc` of the output
+// blocks, walking the column tiles it sees (keys; queries for dk and dv).
+// A tile is n_s S steps (then n_s dP steps for dq and dk), then n_o
+// output steps; the ring runs two steps ahead over the tiles' steps.
+template <int KIND, bool SPARSE>
+__device__ __forceinline__ void wide_f32_cta(const WideParams& p, int nch,
+                                             int cta) {
+  constexpr bool kQRows = KIND == kFwd || KIND == kDq;  // rows are queries
+  constexpr bool kDp = KIND == kDq || KIND == kDk;       // dP is formed
+  extern __shared__ __align__(16) float smem_f32[];
+  float* stages = smem_f32;
+  float* xch = smem_f32 + 2 * kStage;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp / kGroups, cw = warp % kGroups;
+  const int n_rows = kQRows ? p.Tq : p.Tk, n_cols = kQRows ? p.Tk : p.Tq;
+  const int n_rt = (n_rows + kRows - 1) / kRows;
+  const int oc = cta % nch, cell = cta / nch;  // grid: (chunk, tile, b·h)
+  const int bh = cell / n_rt, r0 = (cell % n_rt) * kRows;
+  const int b = bh / p.H, h = bh % p.H;
+  const int row = r0 + 16 * rg + g;  // this thread's rows: row, row + 8
+  const int nblk = p.D / kBlk, bpc = (nblk + nch - 1) / nch;
+  const int ob0 = oc * bpc, nob = min(bpc, nblk - ob0);  // output blocks
+  const int n_s = (nblk + kGroups - 1) / kGroups;
+  const int n_o = (nob + kGroups - 1) / kGroups;
+  const int n_sp = n_s * (kDp ? 2 : 1);  // S (and dP) steps a tile
+  const int n_per = n_sp + n_o;          // steps a tile
+
+  auto at = [&](const void* base, const long long (&s)[3]) {
+    return static_cast<const float*>(base) + b * s[0] + h * s[1];
+  };
+  const float* q = at(p.q, p.q_s);
+  const float* k = at(p.k, p.k_s);
+  const float* v = at(p.v, p.v_s);
+  const float* gg = KIND == kFwd ? nullptr : at(p.g, p.g_s);
+  // S = xs·ysᵀ and dP = xp·ypᵀ (rows the CTA's, columns the tile's), then
+  // out += A·z over the CTA's output blocks
+  const float *xs, *ys, *xp, *yp, *z;
+  long long xs_t, ys_t, xp_t, yp_t, z_t;
+  if (kQRows) {
+    xs = q; xs_t = p.q_s[2]; ys = k; ys_t = p.k_s[2];
+    xp = gg; xp_t = p.g_s[2]; yp = v; yp_t = p.v_s[2];
+    z = KIND == kFwd ? v : k;
+    z_t = KIND == kFwd ? p.v_s[2] : p.k_s[2];
+  } else {
+    xs = k; xs_t = p.k_s[2]; ys = q; ys_t = p.q_s[2];
+    xp = v; xp_t = p.v_s[2]; yp = gg; yp_t = p.g_s[2];
+    z = KIND == kDk ? q : gg;
+    z_t = KIND == kDk ? p.q_s[2] : p.g_s[2];
+  }
+
+  // the column tiles this CTA visits
+  const int n_ct = (n_cols + kCols - 1) / kCols;
+  int ct_begin = 0, ct_end = n_ct;
+  if (!SPARSE && p.causal) {
+    if (kQRows)
+      ct_end = min(n_ct, (min(r0 + kRows, p.Tq) - 1) / kCols + 1);
+    else
+      ct_begin = min(r0 / kCols, n_ct);  // q tiles from the diagonal
+  }
+  const int nq64 = (p.Tq + 63) / 64, nk64 = (p.Tk + 63) / 64;
+  const int* vis = nullptr;
+  long long vstep = 0;
+  if (SPARSE) {
+    vis = kQRows ? p.vis + ((long long)b * nq64 + r0 / 64) * nk64
+                 : p.vis + (long long)b * nq64 * nk64 + r0 / 64;
+    vstep = kQRows ? 1 : nk64;
+  }
+  auto next_tile = [&](int ct) {  // the next tile after ct the walk visits
+    ++ct;
+    if (SPARSE)
+      while (ct < ct_end && __ldg(vis + ct * vstep) == 0) ++ct;
+    return ct;
+  };
+  const int first = next_tile(ct_begin - 1);
+
+  // step s of column tile ct into stage st
+  auto load = [&](int ct, int s, float* st) {
+    const int c0 = ct * kCols;
+    if (s < n_sp) {
+      const bool dp = s >= n_s;
+      const int j0 = kGroups * (dp ? s - n_s : s);  // first head-dim block
+      const int nb = min(kGroups, nblk - j0);
+      const float* x = dp ? xp : xs;
+      const float* y = dp ? yp : ys;
+      const long long xt = dp ? xp_t : xs_t, yt = dp ? yp_t : ys_t;
+      copy_blocks<kRows>(st + kCols * kPitch, x + r0 * xt + j0 * kBlk, xt,
+                         n_rows - r0, nb, tid);
+      copy_blocks<kCols>(st, y + c0 * yt + j0 * kBlk, yt, n_cols - c0, nb,
+                         tid);
+    } else {
+      const int j0 = kGroups * (s - n_sp);  // first output block, in chunk
+      copy_blocks<kCols>(st, z + c0 * z_t + (ob0 + j0) * kBlk, z_t,
+                         n_cols - c0, min(kGroups, nob - j0), tid);
+    }
+  };
+  int lt = first, ls = 0;  // the loader's cursor: tile, step
+  auto load_next = [&](float* st) {
+    if (lt < ct_end) {
+      load(lt, ls, st);
+      if (++ls == n_per) {
+        ls = 0;
+        lt = next_tile(lt);
+      }
+    }
+    cp_async_commit();
+  };
+  load_next(stages);
+  load_next(stages + kStage);
+
+  uint32_t key0 = 0, key1 = 0;
+  if (p.drop.on) {
+    const unsigned long long sd =
+        static_cast<unsigned long long>(*p.drop.seed);
+    key0 = static_cast<uint32_t>(sd);
+    key1 = static_cast<uint32_t>(sd >> 32);
+  }
+  const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
+  const float* bias = p.bias == nullptr ? nullptr
+      : static_cast<const float*>(p.bias) + b * p.b_s[0] + h * p.b_s[1];
+  // per-row values where rows are queries; for dk and dv, the rows of lse,
+  // delta and se that the columns (queries) read
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  int st_r[2] = {0, 0}, en_r[2] = {0, 0};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rr = row + 8 * hh;
+    if (KIND == kDq && rr < p.Tq) {
+      lse_r[hh] = p.lse[(long long)bh * p.lse_pitch + rr];
+      delta_r[hh] = p.delta[(long long)bh * p.delta_pitch + rr];
+    }
+    if (SPARSE && kQRows)
+      unpack_se(p.se[(long long)b * p.Tq + rr], st_r[hh], en_r[hh]);
+  }
+  const float* lse_c =
+      kQRows ? nullptr : p.lse + (long long)bh * p.lse_pitch;
+  const float* delta_c =
+      KIND == kDk ? p.delta + (long long)bh * p.delta_pitch : nullptr;
+  const int* se_c = SPARSE && !kQRows ? p.se + (long long)b * p.Tq : nullptr;
+
+  float sa[32], pa[32], o[kOutBlocks][32];
+  float dbc[2] = {0.f, 0.f};  // dk: column sums of ds for keys row, row + 8
+#pragma unroll
+  for (int rr = 0; rr < kOutBlocks; ++rr) zero32(o[rr]);
+
+  int j = 0;  // steps taken: step j is in stage j & 1
+  for (int ct = first; ct < ct_end; ct = next_tile(ct)) {
+    const int c0 = ct * kCols;
+    for (int s = 0; s < n_per; ++s, ++j) {
+      float* st = stages + (j & 1) * kStage;
+      cp_async_wait<1>();
+      __syncthreads();  // step j's tiles have landed, from every thread
+      if (s < n_s) {  // S: this warp's head-dim block of the step
+        if (s == 0) zero32(sa);
+        if (kGroups * s + cw < nblk)
+          product_pairs<!kQRows>(sa, st + kCols * kPitch + kBlk * cw,
+                                 st + kBlk * cw, 16 * rg, g, t);
+        if (s == n_s - 1) xch_put(xch, sa, warp, lane);
+      } else if (s < n_sp) {  // dP, likewise
+        if (s == n_s) zero32(pa);
+        if (kGroups * (s - n_s) + cw < nblk)
+          product_pairs<!kQRows>(pa, st + kCols * kPitch + kBlk * cw,
+                                 st + kBlk * cw, 16 * rg, g, t);
+        if (s == n_sp - 1) xch_put(xch, pa, warp, lane);
+      } else if (kGroups * (s - n_sp) + cw < nob) {
+        // out += A·z over this warp's output block of the step
+#pragma unroll
+        for (int rr = 0; rr < kOutBlocks; ++rr) {
+          if (rr != s - n_sp) continue;
+          if constexpr (KIND == kDk)
+            acc_product_tf32<kBlk, kPitch>(o[rr], pa, st + kBlk * cw, g, t);
+          else
+            acc_product_tf32<kBlk, kPitch>(o[rr], sa, st + kBlk * cw, g, t);
+        }
+      }
+      __syncthreads();  // every warp is done with the stage, partials put
+      load_next(st);
+
+      if (s == n_s - 1) xch_sum(sa, xch, rg, lane);
+      if (kDp && s == n_sp - 1) xch_sum(pa, xch, rg, lane);
+      if (s != n_sp - 1) continue;
+      if constexpr (KIND == kFwd) {
+        // scale, bias, masks; the online softmax; P (dropped) in sa
+        float mx[2] = {kNegInf, kNegInf};
+        uint32_t seen = 0;  // sparse: bit i = register i is visible
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i >> 1) & 1, rr = row + 8 * hh;
+          const int col = c0 + (i >> 2) * 8 + 2 * t + (i & 1);
+          float x = sa[i] * p.sm_scale;
+          if (SPARSE) {
+            const bool ok = col >= st_r[hh] && col < en_r[hh] &&
+                            (!p.causal || col <= rr);
+            seen |= ok ? 1u << i : 0u;
+            x = ok ? x : kNegInf;
+          } else {
+            if (bias != nullptr && rr < p.Tq && col < p.Tk)
+              x += __ldg(bias + rr * p.b_s[2] + col * p.b_s[3]);
+            x = p.causal && col > rr ? kNegInf : x;
+            x = col < p.Tk ? x : -INFINITY;
+          }
+          sa[i] = x;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+        float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+          const float m_new = fmaxf(m[hh], mx[hh]);
+          // exactly 1 where the max holds: a tile with no visible pair
+          // changes no bit
+          corr[hh] = m_new == m[hh]
+              ? 1.f : hopper::ex2((m[hh] - m_new) * hopper::kLog2e);
+          m[hh] = m_new;
+        }
+        const uint32_t keep =
+            p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold,
+                                              bh, row, c0, t)
+                      : ~0u;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i >> 1) & 1;
+          float pr = hopper::ex2((sa[i] - m[hh]) * hopper::kLog2e);
+          if (SPARSE) pr = (seen >> i) & 1u ? pr : 0.f;
+          sum[hh] += pr;  // the row sum is over the undropped p
+          sa[i] = (keep >> i) & 1u ? pr * drop_scale : 0.f;
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+          sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+          l[hh] = l[hh] * corr[hh] + sum[hh];
+        }
+#pragma unroll
+        for (int rr = 0; rr < kOutBlocks; ++rr)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[rr][i] *= corr[(i >> 1) & 1];
+      } else if constexpr (KIND == kDq) {
+        // ds = p·(dp − delta) in place of s; the per-query dbias is ds
+        const uint32_t keep =
+            p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold,
+                                              bh, row, c0, t)
+                      : ~0u;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i >> 1) & 1, rr = row + 8 * hh;
+          const int col = c0 + (i >> 2) * 8 + 2 * t + (i & 1);
+          float x = sa[i] * p.sm_scale;
+          bool ok;
+          if (SPARSE) {
+            ok = col >= st_r[hh] && col < en_r[hh] &&
+                 (!p.causal || col <= rr);
+          } else {
+            ok = rr < p.Tq && col < p.Tk;
+            if (bias != nullptr && ok)
+              x += __ldg(bias + rr * p.b_s[2] + col * p.b_s[3]);
+            x = p.causal && col > rr ? kNegInf : x;
+          }
+          const float pr =
+              ok ? hopper::ex2((x - lse_r[hh]) * hopper::kLog2e) : 0.f;
+          const float dpv = (keep >> i) & 1u ? pa[i] * drop_scale : 0.f;
+          sa[i] = pr * (dpv - delta_r[hh]);
+          // each element by one warp: n-blocks 2cw and 2cw + 1
+          if (!SPARSE && p.dbias != nullptr && oc == 0 && ok &&
+              (i >> 3) == cw)
+            p.dbias[((long long)bh * p.Tq + rr) * p.Tk + col] = sa[i];
+        }
+      } else {
+        // rows are keys, columns queries: dk: ds in place of dPᵀ; dv:
+        // p_drop in place of Sᵀ
+        const uint32_t keep =
+            p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop.threshold,
+                                              bh, row, c0, lane)
+                      : ~0u;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i >> 1) & 1, key = row + 8 * hh;
+          const int col = c0 + (i >> 2) * 8 + 2 * t + (i & 1);
+          const int qc = min(col, p.Tq - 1);
+          float x = sa[i] * p.sm_scale;
+          bool ok;
+          if (SPARSE) {
+            int s0, e0;
+            unpack_se(__ldg(se_c + col), s0, e0);
+            ok = key >= s0 && key < e0 && (!p.causal || key <= col);
+          } else {
+            ok = col < p.Tq && key < p.Tk;
+            if (bias != nullptr && ok)
+              x += __ldg(bias + col * p.b_s[2] + key * p.b_s[3]);
+            x = p.causal && key > col ? kNegInf : x;
+          }
+          const float pr =
+              ok ? hopper::ex2((x - __ldg(lse_c + qc)) * hopper::kLog2e)
+                 : 0.f;
+          const bool kept = (keep >> i) & 1u;
+          if constexpr (KIND == kDk) {
+            const float ds = pr * ((kept ? pa[i] * drop_scale : 0.f) -
+                                   __ldg(delta_c + qc));
+            pa[i] = ds;
+            dbc[hh] += ds;
+          } else {
+            sa[i] = kept ? pr * drop_scale : 0.f;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // this warp's output blocks: rows row and row + 8, times sc0 and sc1
+  auto store = [&](void* base, const long long (&s)[3], float sc0,
+                   float sc1) {
+    float* dst = static_cast<float*>(base) + b * s[0] + h * s[1];
+#pragma unroll
+    for (int rr = 0; rr < kOutBlocks; ++rr) {
+      const int jl = kGroups * rr + cw;
+      if (jl < nob)
+        store_rows_f32<kBlk>(dst + (ob0 + jl) * kBlk, s[2], o[rr], row,
+                             n_rows, t, sc0, sc1);
+    }
+  };
+  if constexpr (KIND == kFwd) {
+    float l_safe[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l_safe[hh] = l[hh] == 0.f ? 1.f : l[hh];
+      const int rr = row + 8 * hh;
+      if (cw == 0 && t == 0 && oc == 0 && rr < p.Tq)
+        p.lse_out[(long long)bh * p.Tq + rr] = m[hh] + logf(l_safe[hh]);
+    }
+    store(p.out, p.o_s, 1.f / l_safe[0], 1.f / l_safe[1]);
+  } else if constexpr (KIND == kDq) {
+    store(p.dq, p.dq_s, p.sm_scale, p.sm_scale);
+  } else if constexpr (KIND == kDk) {
+    store(p.dk, p.dk_s, p.sm_scale, p.sm_scale);
+    if (!SPARSE && p.dbias_col != nullptr && oc == 0 && cw == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 1);
+        dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 2);
+        if (t == 0 && row + 8 * hh < p.Tk)
+          p.dbias_col[(long long)bh * p.Tk + row + 8 * hh] = dbc[hh];
+      }
+    }
+  } else {
+    store(p.dv, p.dv_s, 1.f, 1.f);
+  }
+}
+
+template <bool SPARSE>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_fwd_f32_kernel(WideParams p, int nch) {
+  wide_f32_cta<kFwd, SPARSE>(p, nch, blockIdx.x);
+}
+
+// The backward, one role a launch (dk, dq, dv in turn): each role kernel
+// gets its own register allocation, which the three bodies inlined in one
+// kernel do not (that kernel ran slower where one role fills the card).
+template <int KIND, bool SPARSE>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_role_f32_kernel(WideParams p, int nch) {
+  wide_f32_cta<KIND, SPARSE>(p, nch, blockIdx.x);
+}
+
+// The backward in one launch, dk CTAs, then dq CTAs, then dv CTAs: where
+// one role's CTAs would fill under 3/4 of the SMs, so that three launches
+// would leave the card idle.
+template <bool SPARSE>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_bwd_f32_kernel(WideParams p, int nch, int n_dk, int n_dq) {
+  const int x = blockIdx.x;
+  if (x < n_dk)
+    wide_f32_cta<kDk, SPARSE>(p, nch, x);
+  else if (x < n_dk + n_dq)
+    wide_f32_cta<kDq, SPARSE>(p, nch, x - n_dk);
+  else
+    wide_f32_cta<kDv, SPARSE>(p, nch, x - n_dk - n_dq);
+}
+
+// The current device's SMs (0 where it cannot be read).
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// Output chunks: ceil(d / 512); the forward splits d >= 512 over two when
+// its 32-row tiles would fill at most half the SMs.
+int chunks(const WideParams& p, bool fwd) {
+  const int nblk = p.D / kBlk;
+  int nch = (nblk + kChunkBlocks - 1) / kChunkBlocks;
+  if (fwd && nch == 1 && nblk >= kChunkBlocks &&
+      2ll * ((p.Tq + kRows - 1) / kRows) * p.B * p.H <= sm_count())
+    nch = 2;
+  return nch;
+}
+
+// Row tiles of all (b, h) pairs.
+long long tiles(int T, const WideParams& p) {
+  return (long long)((T + kRows - 1) / kRows) * p.B * p.H;
+}
+
+long long fwd_ctas(const WideParams& p) {
+  return tiles(p.Tq, p) * chunks(p, true);
+}
+
+long long bwd_ctas(const WideParams& p) {
+  return (2 * tiles(p.Tk, p) + tiles(p.Tq, p)) * chunks(p, false);
+}
+
+template <bool SPARSE>
+cudaError_t run_fwd(const WideParams& p, cudaStream_t s) {
+  return launch(wide_fwd_f32_kernel<SPARSE>, fwd_ctas(p), kThreads,
+                kSmemBytes, s, p, chunks(p, true));
+}
+
+template <bool SPARSE>
+cudaError_t run_bwd(const WideParams& p, cudaStream_t s) {
+  const int nch = chunks(p, false);
+  const long long nk = tiles(p.Tk, p) * nch, nq = tiles(p.Tq, p) * nch;
+  if (4 * std::min(nk, nq) < 3ll * sm_count())
+    return launch(wide_bwd_f32_kernel<SPARSE>, 2 * nk + nq, kThreads,
+                  kSmemBytes, s, p, nch, (int)nk, (int)nq);
+  cudaError_t err = launch(wide_role_f32_kernel<kDk, SPARSE>, nk, kThreads,
+                           kSmemBytes, s, p, nch);
+  if (err == cudaSuccess)
+    err = launch(wide_role_f32_kernel<kDq, SPARSE>, nq, kThreads,
+                 kSmemBytes, s, p, nch);
+  if (err == cudaSuccess)
+    err = launch(wide_role_f32_kernel<kDv, SPARSE>, nk, kThreads,
+                 kSmemBytes, s, p, nch);
+  return err;
+}
+
+}  // namespace f32w
+
+// bf16 CTAs of one kernel whose rows are T tokens: a 64-row tile and a
+// 64-wide output chunk each, for every (b, h).
+long long bf16_ctas(const WideParams& p, int T) {
+  return (long long)((T + kTile - 1) / kTile) * p.B * p.H * (p.D / kTile);
 }
 
 template <typename T, bool SPARSE>
 cudaError_t run_fwd(const WideParams& p, cudaStream_t s) {
-  return launch(wide_fwd_kernel<T, SPARSE>, smem_bytes<T>(), p,
-                (p.Tq + kTile - 1) / kTile, s);
+  return launch(wide_fwd_kernel<T, SPARSE>, bf16_ctas(p, p.Tq), kThreads,
+                smem_bytes<T>(), s, p);
 }
 
 template <typename T, bool SPARSE>
 cudaError_t run_bwd(const WideParams& p, cudaStream_t s) {
-  cudaError_t err = launch(wide_dkv_kernel<T, SPARSE>, smem_bytes<T>(), p,
-                           (p.Tk + kTile - 1) / kTile, s);
+  cudaError_t err = launch(wide_dkv_kernel<T, SPARSE>, bf16_ctas(p, p.Tk),
+                           kThreads, smem_bytes<T>(), s, p);
   if (err != cudaSuccess) return err;
-  return launch(wide_dq_kernel<T, SPARSE>, smem_bytes<T>(), p,
-                (p.Tq + kTile - 1) / kTile, s);
+  return launch(wide_dq_kernel<T, SPARSE>, bf16_ctas(p, p.Tq), kThreads,
+                smem_bytes<T>(), s, p);
 }
 
 void copy3(long long (&dst)[3], const long long* src) {
@@ -776,13 +1367,15 @@ int flash_attention_wide_fwd(const void* q, const void* k, const void* v,
   if (!args_ok(p, dtype, sparse)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)(sparse ? run_fwd<float, true>(p, s)
-                        : run_fwd<float, false>(p, s));
+    return (int)(sparse ? f32w::run_fwd<true>(p, s)
+                        : f32w::run_fwd<false>(p, s));
   return (int)(sparse ? run_fwd<bf, true>(p, s) : run_fwd<bf, false>(p, s));
 }
 
-// Backward: the dk/dv kernel, then the dq kernel, on `stream`. strides: q,
-// k, v, dO, dq, dk, dv (batch, head, token) in elements, then the bias's
+// Backward on `stream`: f32 a launch each of the dk, dq and dv CTAs, or one
+// launch of all three on smaller grids (f32w::run_bwd); bf16 the dk/dv
+// kernel, then the dq kernel. strides: q, k, v, dO, dq, dk, dv (batch,
+// head, token) in elements, then the bias's
 // four. lse and delta rows are lse_pitch / delta_pitch floats apart (delta
 // from the dense backward's delta kernel). dbias (per query, [B*H, Tq, Tk]
 // f32, zeroed by the caller where a causal walk skips) and dbias_col
@@ -815,14 +1408,27 @@ int flash_attention_wide_bwd(const void* q, const void* k, const void* v,
   if (!args_ok(p, dtype, sparse)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)(sparse ? run_bwd<float, true>(p, s)
-                        : run_bwd<float, false>(p, s));
+    return (int)(sparse ? f32w::run_bwd<true>(p, s)
+                        : f32w::run_bwd<false>(p, s));
   return (int)(sparse ? run_bwd<bf, true>(p, s) : run_bwd<bf, false>(p, s));
 }
 
-// Dynamic shared memory of a CTA of each kernel (dtype 0 = f32, 1 = bf16).
+// Dynamic shared memory of a CTA of each kernel (dtype 0 = f32, 1 = bf16),
+// the same at every head dim.
 int flash_attention_wide_smem(int dtype) {
-  return dtype == 0 ? smem_bytes<float>() : smem_bytes<bf>();
+  return dtype == 0 ? f32w::kSmemBytes : smem_bytes<bf>();
+}
+
+// CTAs of the forward (bwd = 0) or of the backward's launches (bwd = 1;
+// bf16: the dk/dv and dq kernels together) at a shape, on the current
+// device; -1 for arguments the entries refuse.
+long long flash_attention_wide_ctas(int bwd, int dtype, int B, int H, int Tq,
+                                    int Tk, int D) {
+  WideParams p = {};
+  p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk; p.D = D;
+  if (!args_ok(p, dtype, 0)) return -1;
+  if (dtype == 0) return bwd ? f32w::bwd_ctas(p) : f32w::fwd_ctas(p);
+  return bf16_ctas(p, Tq) + (bwd ? bf16_ctas(p, Tk) : 0);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -1,6 +1,7 @@
 // f32 products on Hopper's tensor cores in 3xTF32, shared by the f32 flash
-// forward and backward (flash_attention_fwd.cu, flash_attention_bwd.cu) and
-// the f32 1x1-conv GEMM with statistics (K4, fused_bn.cu).
+// forwards and backwards (flash_attention_fwd.cu, flash_attention_bwd.cu,
+// flash_attention_sparse.cu, flash_attention_wide.cu) and the f32 1x1-conv
+// GEMM with statistics (K4, fused_bn.cu).
 //
 // One TF32 product keeps ~11 bits and breaks the f32 parity (2e-5), and FMA
 // on the CUDA cores is bound by its shared-memory operand reads at under
@@ -205,18 +206,17 @@ __device__ __forceinline__ void product_tf32(float (&s)[32], const float* sA,
 
 // o += A·B for the warp's 16 rows: A the 16x64 accumulator `a` (depth = its
 // 64 columns), B a 64-row tile of W columns stored a row per depth (pitch
-// pitch_f32<W>()); 64 output columns at a time, each into a partial sum
-// first. The output columns are paired: blocks 2j and 2j + 1 of o are
-// columns 16j + 2c and 16j + 2c + 1 (c = the block's column), so a lane
-// reads each B pair with one 8-byte load and holds four adjacent columns of
-// each of its rows: register 4·nb + 2h + e of lane (g, t) is row g + 8h,
-// column 16·(nb / 2) + 4t + 2e + nb % 2 (store_rows_f32).
-template <int W>
+// P, pitch_f32<W>() unless given); 64 output columns at a time, each into a
+// partial sum first. The output columns are paired: blocks 2j and 2j + 1 of
+// o are columns 16j + 2c and 16j + 2c + 1 (c = the block's column), so a
+// lane reads each B pair with one 8-byte load and holds four adjacent
+// columns of each of its rows: register 4·nb + 2h + e of lane (g, t) is row
+// g + 8h, column 16·(nb / 2) + 4t + 2e + nb % 2 (store_rows_f32).
+template <int W, int P = pitch_f32<W>()>
 __device__ __forceinline__ void acc_product_tf32(float (&o)[W / 2],
                                                  const float (&a)[32],
                                                  const float* sB, int g,
                                                  int t) {
-  constexpr int P = pitch_f32<W>();
 #pragma unroll
   for (int n0 = 0; n0 < W / 8; n0 += 8) {
     float po[32];

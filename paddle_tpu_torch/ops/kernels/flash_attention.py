@@ -19,6 +19,8 @@ Each source's header says how it is laid out for the card and what bounds it.
   p recomputed from lse, ds = p·(dp − delta), operands rounded to the input
   dtype where the TPU kernels round them, f32 accumulation). The CPU tests use
   them; on the card they are the kernels' yardstick.
+  ``flash_attention_ds_f64`` is the backward's ds in f64, the yardstick of an
+  f32 per-query dbias.
 - ``flash_attention_fwd`` / ``flash_attention_bwd`` are the wrappers.
   ``flash_route`` decides from the shape, dtype and device type, as the JAX
   package's ``_pallas_ok`` does: a CPU tensor takes the plain version; on
@@ -129,10 +131,10 @@ def dropout_keep_mask(seed, rate: float, b: int, nh: int, tq: int, tk: int,
     return (bits >= dropout_threshold(rate)).reshape(b, nh, tq, tk)
 
 
-def _scores(q, k, bias, causal, sm_scale):
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+def _scores(q, k, bias, causal, sm_scale, dtype=torch.float32):
+    s = torch.matmul(q.to(dtype), k.to(dtype).transpose(-1, -2)) * sm_scale
     if bias is not None:
-        s = s + bias.float()
+        s = s + bias.to(dtype)
     if causal:
         tq, tk = s.shape[-2:]
         keep = torch.ones(tq, tk, dtype=torch.bool, device=s.device).tril()
@@ -210,6 +212,30 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, bias=None,
     dq = torch.matmul(ds_c, k.float()) * sm_scale
     db = {None: None, "per_q": ds, "col": ds.sum(-2)}[dbias]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), db
+
+
+def flash_attention_ds_f64(q, k, v, out, lse, g, bias=None,
+                           causal: bool = False,
+                           sm_scale: Optional[float] = None,
+                           dropout_rate: float = 0.0, seed=0) -> torch.Tensor:
+    """ds = p·(dp − delta), the plain backward's per-query dbias, with every
+    product and sum in f64 from the given tensors ([B, nh, Tq, Tk] f64).
+
+    The reference for an f32 per-query dbias: flash_attention_bwd_plain
+    takes dp and delta in f32 whatever its inputs' dtype, and where the two
+    cancel (a causal row that sees one key, p = 1) an f32 dp at d = 512 is
+    off by more than the f32 tolerance."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    f64 = torch.float64
+    p = torch.exp(_scores(q, k, bias, causal, sm_scale, f64)
+                  - lse.to(f64)[..., None])
+    dp = torch.matmul(g.to(f64), v.to(f64).transpose(-1, -2))
+    if dropout_rate > 0.0:
+        b, nh, tq, tk = p.shape
+        keep = dropout_keep_mask(seed, dropout_rate, b, nh, tq, tk, q.device)
+        dp = _dropped(dp, keep, dropout_rate)
+    return p * (dp - (out.to(f64) * g.to(f64)).sum(-1, keepdim=True))
 
 
 def _check(q, k, v, bias, name="flash_attention_fwd"):

@@ -1,7 +1,8 @@
 """A plain CPU model of the 3xTF32 arithmetic of the f32 kernels.
 
-``csrc/tf32x3.cuh`` runs every f32 product of the f32 flash forward and
-backward and of K4 (``fused_bn.cu``) on the tensor cores: each operand is
+``csrc/tf32x3.cuh`` runs every f32 product of the f32 flash forwards and
+backwards (the wide ones of ``flash_attention_wide.cu`` too) and of K4
+(``fused_bn.cu``) on the tensor cores: each operand is
 split into big = x rounded to TF32 and small = x − big, and big·small,
 small·big and big·big are summed by ``mma.sync.m16n8k8``, whose sums round
 toward zero. These functions compute the same arithmetic on the CPU, so the
@@ -59,3 +60,45 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, partial_depth=None
                            @ y[..., k:k + 8, :].double()).double()
         acc = acc + t.float() if partial_depth else t.float()
     return acc
+
+
+def _mm_3xtf32_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32, 16 columns at a time: each 8-deep step's three
+    products summed from 0 with round-toward-zero sums (one mma chain), the
+    two steps of a 16-column pair added, and that added to the running f32
+    sum (both round to nearest)."""
+    ab, bb = rna_tf32(a), rna_tf32(b)
+    as_, bs = trunc_tf32(a - ab), trunc_tf32(b - bb)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+
+    def chain(k):
+        t = torch.zeros_like(acc, dtype=torch.float64)
+        for x, y in ((ab, bs), (as_, bb), (ab, bb)):
+            t = rz_f32(t + x[..., k:k + 8].double()
+                       @ y[..., k:k + 8, :].double()).double()
+        return t.float()
+
+    for k0 in range(0, a.shape[-1], 16):
+        acc = acc + (chain(k0) + chain(k0 + 8))
+    return acc
+
+
+def mm_3xtf32_groups(a: torch.Tensor, b: torch.Tensor, groups: int = 4,
+                     block: int = 64) -> torch.Tensor:
+    """a @ b as the f32 wide flash kernels form S and dP, whose column warps
+    split the depth: block j of `block` columns goes to group j % `groups`;
+    each group is one running f32 sum over its blocks' columns in order, 16
+    at a time, each 8-deep step's mma chain from 0 and the pair's two sums
+    added before they join the running sum (_mm_3xtf32_pairs); the groups
+    are added in one order, ((G0 + G1) + G2) + G3."""
+    nblk = a.shape[-1] // block
+    total = None
+    for q in range(groups):
+        cols = [c for j in range(q, nblk, groups)
+                for c in range(block * j, block * (j + 1))]
+        if not cols:
+            continue
+        idx = torch.tensor(cols)
+        part = _mm_3xtf32_pairs(a[..., idx], b[..., idx, :])
+        total = part if total is None else total + part
+    return total

@@ -19,7 +19,7 @@ import paddle_tpu_torch as tfluid
 from paddle_tpu_torch import reader
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import flash_attention_sparse as fas
-from paddle_tpu_torch.ops.kernels.tf32x3 import mm_3xtf32
+from paddle_tpu_torch.ops.kernels.tf32x3 import mm_3xtf32, mm_3xtf32_groups
 
 # One intra-op thread: tier-1 runs several xdist workers, and a second
 # torch worker thread, started beside JAX's runtime in the same process, was
@@ -345,16 +345,24 @@ def _packed_segs(b, t, seed):
                     np.stack([r["tgt_seg"] for r in rows]))
 
 
+def _scores_16(a, b):
+    """S or dP as the tuned f32 kernels form them: 16-column partial sums
+    over the head dim, in order."""
+    return mm_3xtf32(a, b, 16)
+
+
 def _sparse_bwd_3xtf32(q, k, v, out, lse, g, se, vis, causal, sm, rate=0.0,
-                       seed=0):
+                       seed=0, scores=_scores_16):
     """dq, dk, dv of the f32 block-sparse backward as its kernel computes
     them: a dq CTA walks the visible key tiles of its 64-row q tile, a dk/dv
     CTA the visible q tiles of its 64-key tile (the transposed walk); each
-    recomputes S (Sᵀ = K·Qᵀ in dk/dv) and dP in 3xTF32 with 16-column
-    partial sums, masks p to exactly 0 and adds its tile's dS·K (dSᵀ·Q and
-    P_dropᵀ·dO) in 3xTF32 into a zeroed partial sum, one round-to-nearest
-    add a tile. delta is the plain delta; exp is exact here (the kernel
-    uses ex2.approx). [B, nh, T, d] f32 tensors."""
+    recomputes S (Sᵀ = K·Qᵀ in dk/dv) and dP in 3xTF32, summed as `scores`
+    sums them (the tuned kernel: 16-column partial sums; the wide ones,
+    whose 32-row CTAs give the same sums: mm_3xtf32_groups), masks p to
+    exactly 0 and adds its tile's dS·K (dSᵀ·Q and P_dropᵀ·dO) in 3xTF32
+    into a zeroed partial sum, one round-to-nearest add a tile. delta is the
+    plain delta; exp is exact here (the kernel uses ex2.approx). [B, nh, T,
+    d] f32 tensors."""
     b, nh, tq, d = q.shape
     tk, t_ = k.shape[2], fas.TILE
     mask = fas._mask(se, None, tq, tk, causal)[:, 0]
@@ -373,8 +381,8 @@ def _sparse_bwd_3xtf32(q, k, v, out, lse, g, se, vis, causal, sm, rate=0.0,
                 if not vis[bi, iq, kt]:
                     continue
                 c = tiles(kt)
-                s = mm_3xtf32(q[bi, :, r], kt_(k[bi, :, c]), 16)
-                dp = mm_3xtf32(g[bi, :, r], kt_(v[bi, :, c]), 16)
+                s = scores(q[bi, :, r], kt_(k[bi, :, c]))
+                dp = scores(g[bi, :, r], kt_(v[bi, :, c]))
                 p = torch.where(mask[bi, r, c],
                                 torch.exp(s * sm - lse[bi, :, r, None]),
                                 torch.zeros(()))
@@ -390,8 +398,8 @@ def _sparse_bwd_3xtf32(q, k, v, out, lse, g, se, vis, causal, sm, rate=0.0,
                 if not vis[bi, iq, kt]:
                     continue
                 r = tiles(iq)
-                st = mm_3xtf32(k[bi, :, c], kt_(q[bi, :, r]), 16)
-                dpt = mm_3xtf32(v[bi, :, c], kt_(g[bi, :, r]), 16)
+                st = scores(k[bi, :, c], kt_(q[bi, :, r]))
+                dpt = scores(v[bi, :, c], kt_(g[bi, :, r]))
                 pt = torch.where(kt_(mask[bi, r, c]),
                                  torch.exp(st * sm - lse[bi, :, None, r]),
                                  torch.zeros(()))
@@ -481,6 +489,108 @@ def test_3xtf32_sparse_f32_backward_skip_is_bitwise_invisible(rate):
     every = _sparse_bwd_3xtf32(*x[:3], *args, torch.ones_like(vis), True,
                                sm, rate, 9)
     for nm, a, r in zip(("dq", "dk", "dv"), skipping, every):
+        assert torch.equal(a, r), nm
+
+
+def _sparse_fwd_3xtf32(q, k, v, se, vis, causal, sm, rate=0.0, seed=0,
+                       scores=mm_3xtf32_groups):
+    """out, lse of the f32 wide block-sparse forward as its kernel computes
+    them: each row walks the visible key tiles of its 64-row tile of the
+    table; S in 3xTF32 summed as `scores` sums it; masked scores −1e30 and
+    masked p exactly 0; the online softmax with the rescale exactly 1 where
+    the running max holds; each tile's P_drop·V in 3xTF32 into a zeroed
+    partial sum added to the rescaled O; O times 1 / l at the end. exp is
+    exact here (the kernel uses ex2.approx). [B, nh, T, d] f32 tensors."""
+    b, nh, tq, d = q.shape
+    tk, t_ = k.shape[2], fas.TILE
+    mask = fas._mask(se, None, tq, tk, causal)[:, 0]
+    keep = (tfa.dropout_keep_mask(seed, rate, b, nh, tq, tk) if rate > 0.0
+            else torch.ones(b, nh, tq, tk, dtype=torch.bool))
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+    neg = torch.tensor(tfa.NEG_INF)
+    tiles = lambda i: slice(i * t_, (i + 1) * t_)
+    out = torch.zeros_like(q)
+    lse = torch.zeros(b, nh, tq)
+    for bi in range(b):
+        for iq in range(tq // t_):
+            r = tiles(iq)
+            m = torch.full((nh, t_, 1), tfa.NEG_INF)
+            l = torch.zeros(nh, t_, 1)
+            o = torch.zeros(nh, t_, d)
+            for kt in range(tk // t_):
+                if not vis[bi, iq, kt]:
+                    continue
+                c = tiles(kt)
+                vis_rc = mask[bi, r, c]
+                s = torch.where(vis_rc,
+                                scores(q[bi, :, r], k[bi, :, c].transpose(
+                                    -1, -2)) * sm, neg)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                corr = torch.where(m_new == m, torch.ones(()),
+                                   torch.exp(m - m_new))
+                p = torch.where(vis_rc, torch.exp(s - m_new), torch.zeros(()))
+                l = l * corr + p.sum(-1, keepdim=True)
+                m = m_new
+                p = torch.where(keep[bi, :, r, c], p * scale, torch.zeros(()))
+                o = o * corr + mm_3xtf32(p, v[bi, :, c])
+            l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+            out[bi, :, r] = o * (1.0 / l_safe)
+            lse[bi, :, r] = (m + torch.log(l_safe)).squeeze(-1)
+    return out, lse
+
+
+def _wide_sparse_case(d, seed=60):
+    """Two rows of pack_by_tokens decoder segments at T = 128, nh = 1, head
+    dim d: [B, nh, T, d] q, k, v, dO and the causal tables."""
+    _, tgt = _packed_segs(2, 128, 25)
+    x = [torch.from_numpy(0.5 * _rand((2, 1, 128, d), seed + i))
+         for i in range(4)]
+    se = fas.pack_se(torch.tensor(tgt), torch.tensor(tgt))
+    return x, se, fas.compute_block_vis(se, 128, 128, causal=True)
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_3xtf32_wide_products_hold_the_sparse_f32_kernels(d):
+    """The decision rule of the f32 wide block-sparse kernels (d >= 320):
+    the forward (_sparse_fwd_3xtf32) and the backward (_sparse_bwd_3xtf32
+    with S and dP summed as mm_3xtf32_groups sums them), causal with dropout
+    0.1 on packed decoder rows, within a quarter of the card's f32
+    tolerance (2e-5) of the plain f32 versions: out, lse, dq, dk, dv."""
+    tol = 2e-5 / 4
+    (q, k, v, g), se, vis = _wide_sparse_case(d)
+    assert not vis.all(), "the case must skip tiles"
+    sm = 1.0 / np.sqrt(d)
+    want = fas.flash_attention_sparse_fwd_plain(q, k, v, se, vis, True, sm,
+                                                0.1, 9)
+    got = _sparse_fwd_3xtf32(q, k, v, se, vis, True, sm, 0.1, 9)
+    for nm, a, w in zip(("out", "lse"), got, want):
+        torch.testing.assert_close(a, w, rtol=tol, atol=tol, msg=nm)
+    out, lse = want
+    want = fas.flash_attention_sparse_bwd_plain(q, k, v, out, lse, g, se,
+                                                vis, True, sm, 0.1, 9)
+    got = _sparse_bwd_3xtf32(q, k, v, out, lse, g, se, vis, True, sm, 0.1,
+                             9, scores=mm_3xtf32_groups)
+    for nm, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, w, rtol=tol, atol=tol, msg=nm)
+
+
+def test_3xtf32_wide_sparse_skip_is_bitwise_invisible():
+    """In the models of the f32 wide block-sparse kernels, the all-ones tile
+    table gives the bits of the computed one (causal, dropout 0.1): a
+    processed tile with no visible pair rescales by exactly 1 and adds an
+    exact zero partial sum, forward and backward."""
+    (q, k, v, g), se, vis = _wide_sparse_case(320, 70)
+    assert not vis.all()
+    sm = 1.0 / np.sqrt(320)
+    ones = torch.ones_like(vis)
+    fwd = [_sparse_fwd_3xtf32(q, k, v, se, t, True, sm, 0.1, 9)
+           for t in (vis, ones)]
+    for nm, a, r in zip(("out", "lse"), *fwd):
+        assert torch.equal(a, r), nm
+    out, lse = fwd[0]
+    bwd = [_sparse_bwd_3xtf32(q, k, v, out, lse, g, se, t, True, sm, 0.1, 9,
+                              scores=mm_3xtf32_groups) for t in (vis, ones)]
+    for nm, a, r in zip(("dq", "dk", "dv"), *bwd):
         assert torch.equal(a, r), nm
 
 
