@@ -29,7 +29,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              backwards bitwise repeatable, then at d = 512 at every shape
              the wide path runs (dense T = 128/512 with and without
              dropout; sparse T = 128/256 encoder self, decoder self and
-             cross), timed at d = 512 beside their plain versions, SDPA,
+             cross), the bf16 forward at B·nh = 65,600 (d = 320) and
+             where a cluster splits its walk (T = 512, per-query bias
+             and causal; sparse decoder self),
+             timed at d = 512 beside their plain versions, SDPA,
              their bounds (f32: 3xTF32, the FMA bound beside it) and
              their launches' CTAs; the f32 per-query dbias is held to
              the plain formula in f64 (flash_attention_ds_f64), the plain f32
@@ -44,7 +47,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              f32 tensor-core flash kernels' (dense forward and backward,
              sparse backward) and K2's registers and spills and the f32
              flash kernels' HMMA count; the wide kernels' registers,
-             spills, HMMA count and dynamic shared memory.
+             spills, HGMMA, HMMA and UTMALDG counts and dynamic shared
+             memory.
 4. serve   — main path 1: BERT-base at full width (vocab 30522, hidden 768,
              12 layers, 12 heads, ffn 3072) built with the port's DSL from a
              seed, saved with io.save_inference_model, served by
@@ -508,7 +512,7 @@ def kernel_label(mangled):
     if k:
         return (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, "
                 f"sparse={k.group(3)}>")
-    k = re.search(r"(wide_[fb]wd_f32_kernel)ILb([01])E", mangled)
+    k = re.search(r"(wide_[fb]wd_(?:f32|bf16)_kernel)ILb([01])E", mangled)
     if k:
         return f"{k.group(1)}<sparse={k.group(2)}>"
     k = re.search(r"wide_role_f32_kernelILi(\d)ELb([01])E", mangled)
@@ -532,8 +536,9 @@ def log_wgmma_build(build):
     conv_stats_bf16_kernel and the wide flash kernels; where the toolkit
     has cuobjdump, the count of HGMMA (wgmma) and UTMALDG (TMA load)
     instructions in each flash library and in each bf16 sparse kernel, of
-    HMMA (mma.sync) instructions in each f32 tensor-core flash kernel and
-    wide kernel, and of HGMMA and HMMA in K4."""
+    HMMA (mma.sync) instructions in each f32 tensor-core flash kernel, of
+    HGMMA, HMMA and UTMALDG in each wide kernel (the bf16 wide forward's
+    products on wgmma), and of HGMMA and HMMA in K4."""
     import ctypes
     import re
 
@@ -563,13 +568,16 @@ def log_wgmma_build(build):
                     name = kernel_label(section.split(None, 1)[0]) or ""
                     if "conv_stats_" in name or "wide_" in name:
                         log(f"build {lib} {name}: {section.count('HGMMA')} "
-                            f"HGMMA and {section.count('HMMA')} HMMA "
+                            f"HGMMA, {section.count('HMMA')} HMMA and "
+                            f"{section.count('UTMALDG')} UTMALDG "
                             f"instructions (cuobjdump)")
             if lib == "flash_attention_wide":
                 smem = build.load(lib).flash_attention_wide_smem
-                smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-                log(f"build {lib}: dynamic shared memory f32 {smem(0)}, "
-                    f"bf16 {smem(1)} bytes a CTA at every head dim")
+                smem.argtypes = [ctypes.c_int] * 2
+                smem.restype = ctypes.c_int
+                log(f"build {lib}: dynamic shared memory f32 {smem(0, 0)}, "
+                    f"bf16 forward {smem(1, 0)}, bf16 backward {smem(1, 1)} "
+                    f"bytes a CTA at every head dim")
             continue
         lib_so = build.load(lib)
         sparse = lib == "flash_attention_sparse"
@@ -1159,7 +1167,9 @@ def phase_kernel_wider(fa, fas):
     every shape the wide path (`phase_wide_path`) runs, checked the same
     way: dense B=4, nh=2 with the mask at T = 128 and 512, with and without
     dropout; sparse NMT rows B=4, nh=2 at T = 128 and 256, encoder self,
-    decoder self and cross. Each entry is timed on the inputs of one of
+    decoder self and cross; the bf16 forward's flat grid at B·nh = 65,600
+    (d = 320) and its split walk (wide_split_walk). Each entry is timed on
+    the inputs of one of
     those checks (dense T=512; sparse encoder self T=256) beside its plain
     version, PyTorch's SDPA and its bound (wide_times), with its CTAs
     (wide_ctas), and its
@@ -1231,6 +1241,9 @@ def phase_kernel_wider(fa, fas):
                     vis=pvis, causal=causal, rate=rate)
         log(f"kernel wider {name} path shapes B={WIDE_B} nh={WIDE_HEADS} "
             f"d={d}: max_abs_err {json.dumps(path_errs)}")
+        if dtype == torch.bfloat16:
+            wide_grid_past_65535(fa, fas, gen)
+            wide_split_walk(fa, fas, gen)
 
         # times at d = 512, on the inputs checked above; each entry's
         # max_abs_err is that of the checks at the shape it names
@@ -1248,6 +1261,63 @@ def phase_kernel_wider(fa, fas):
             log(f"kernel wider {key} " + json.dumps(
                 {"dtype": name, **ratios(rec)}))
     return records
+
+
+def wide_grid_past_65535(fa, fas, gen):
+    """The bf16 wide forward's flat grid at B·nh = 65,600 > 65,535 (d =
+    320, T = 64) against the plain version: one wide launch, no plain
+    call, out and lse within TOL."""
+    import torch
+
+    b, nh, t, d = 50, 1312, 64, 320
+    qkv = torch.randn(b, t, 3 * nh * d, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)   # 8 GB: no f32 copy first
+    q, k, v = (heads(x, nh) for x in qkv.split(nh * d, dim=-1))
+    before, wide_before = flash_counts(fa, fas), wide_counts(fa, fas)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    after, wide_after = flash_counts(fa, fas), wide_counts(fa, fas)
+    ref = fa.flash_attention_fwd_plain(q, k, v)
+    (e_o, ok_o), (e_l, ok_l) = (max_err(x, y, TOL["bfloat16"])
+                                for x, y in zip((out, lse), ref))
+    log(f"kernel wider grid B·nh={b * nh} T={t} d={d} bf16: fwd max_abs_err "
+        f"out {e_o:.3e} lse {e_l:.3e}")
+    counted = (after[0] == (before[0][0] + 1, before[0][1])
+               and wide_after[0] == wide_before[0] + 1)
+    if not (ok_o and ok_l and counted):
+        raise AssertionError(f"the wide forward's flat grid at B·nh = "
+                             f"{b * nh} disagrees or did not launch once: "
+                             f"{before} -> {after}")
+    del qkv, q, k, v, out, lse, ref
+    torch.cuda.empty_cache()
+
+
+def wide_split_walk(fa, fas, gen):
+    """The bf16 wide forward at B=4, nh=2, T=512, d=512, whose cells fill
+    over half the SMs and at most all (on a 132-SM card a cluster of two
+    CTAs then splits each key walk): a per-query bias, causal, dropout 0.1,
+    and block-sparse decoder self (causal, dropout 0.1) on NMT rows,
+    forward and backward held as wider_case holds them."""
+    import torch
+
+    b, nh, t, d = WIDE_B, WIDE_HEADS, 512, 512
+    q, k, v = qkv_inputs(b, nh, t, d, torch.bfloat16, gen)
+    dout = packed_heads(b, t, nh, d, torch.bfloat16, gen)
+    per_q = torch.randn(b, nh, t, t, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    errs = {"dense per-query causal dropout": wider_case(
+        fa, fas, "dense", q, k, v, dout, "bfloat16", bias=per_q,
+        causal=True, rate=DROPOUT, dbias="per_q")}
+    ((stack, _),) = nmt_batches(b, t, 1)
+    tgt = torch.tensor(stack["tgt_seg"], device="cuda")
+    se = fas.pack_se(tgt, tgt)
+    vis = fas.compute_block_vis(se, t, t, causal=True)
+    errs["sparse decoder self"] = wider_case(
+        fa, fas, "sparse", q, k, v, dout, "bfloat16", se=se, vis=vis,
+        causal=True, rate=DROPOUT)
+    ctas = wide_ctas("bfloat16", b, nh, t, t, d)["fwd"]
+    log(f"kernel wider bfloat16 split walk B={b} nh={nh} T={t} d={d} "
+        f"({ctas} forward CTAs): max_abs_err {json.dumps(errs)}")
 
 
 def wide_times(fa, fas, name, dense, sparse):

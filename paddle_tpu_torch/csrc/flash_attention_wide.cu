@@ -34,9 +34,10 @@
 //     give the same bits. Grids are flat, so B·nh has no 65,535 cap.
 //
 // Bound. The work is 4·d flops a (query, key) pair forward and 10·d
-// backward, so at d >= 320 the kernels are bound by operations: in f32
+// backward, so at d >= 320 the kernels are bound by operations, in f32
 // three TF32 products per product on the tensor cores (3xTF32, 495
-// TFLOP/s), in bf16 the tensor cores' 989.
+// TFLOP/s), in bf16 the tensor cores' 989 -- except the bf16 forward, whose
+// bytes take a little longer than its operations (below).
 //
 // f32 design (wide_fwd_f32_kernel; wide_role_f32_kernel and
 // wide_bwd_f32_kernel): every product -- S, P·V; S, dP, dQ, dK, dV -- in
@@ -87,25 +88,60 @@
 //   the forward splits its output columns over two CTAs (S formed twice,
 //   6d a pair) to fill the card.
 //
-// bf16 design (wide_fwd_kernel, wide_dq_kernel, wide_dkv_kernel): a CTA
+// bf16 forward (bfw::wide_fwd_bf16_kernel). At d = 512 a perfect kernel is
+// bound by bytes (each of q, k, v, out read or written once: 0.005 ms at
+// B·nh = 8, T = 512), the operations (4d flops a pair) a little below.
+// The design:
+//   - runs both products on wgmma from boxes TMA writes (hopper.cuh: 64
+//     rows x 64 values, 128-byte swizzle): S with Q and K K-major, then
+//     O += P·V with P rounded to bf16 in registers (the RS form) and V's
+//     boxes read MN-major, with no transposed copy;
+//   - gives a CTA (one warpgroup) 64 queries and a chunk of up to four
+//     64-wide output blocks, 256 columns (O is 128 registers a thread,
+//     beside S and its partial, 32 each): chunks are ceil(d / 256), so at
+//     d = 512 S is formed twice (6d a pair);
+//   - sums S one 64-wide head-dim slice at a time, each slice's four k
+//     steps into a zeroed partial added in slice order, as the backward
+//     sums it (the tensor core's sums round toward zero);
+//   - keeps Q's first eight head-dim boxes in shared memory for the walk
+//     (64 KB; slices past d = 512 stream with K) and streams K's slices,
+//     the bias box and V's boxes through a ring of five 8 KB slots with an
+//     mbarrier each, thread 0 issuing each copy five items ahead, just
+//     after a product is started: 108,224 bytes of shared memory at every
+//     d, so two CTAs share an SM;
+//   - has no branch in its element loop (masks, the ragged edge and
+//     dropout are selects; keep bits drawn in registers); a max that does
+//     not move rescales by exactly 1, so a tile without a visible pair
+//     changes no bit and a sparse skip is bitwise invisible.
+// On the card it is bound by neither bytes nor operations but by each
+// warpgroup's chain: a slice's products, their wait, thread 0's copies and
+// the softmax run in turn (removing nearly all K and V copies did not make
+// it faster; PERF.md). Two CTAs an SM hide each other's waits, so where the
+// (chunk, q tile) cells fill over half the SMs and at most all of them,
+// and the walk is eight key tiles or more, a cluster of two CTAs splits
+// each walk (from the SM count): rank r takes the key tiles kt ≡ r (mod 2)
+// with its own m, l and O, then each puts them into its shared memory and
+// rank r writes the output blocks j ≡ r (mod 2), reading the other's over
+// distributed shared memory and summing the ranks in rank order, so l, the
+// lse and two calls' bits are the same.
+// bf16 backward (wide_dq_kernel, wide_dkv_kernel), the first version: a CTA
 // owns 64 queries (64 keys in dk/dv) and one 64-wide chunk of its output's
-// head dim; the chunks are a grid factor (the tuned kernels' chunk rule
-// above d = 128, carried to any d). It forms the scores S = Q·Kᵀ (and dP =
-// dO·Vᵀ) by walking the head dim in 64-wide slices through four [64][72]
-// operand tiles in shared memory, taken in order, so the sums run in one
-// order whatever d is; every chunk of a tile recomputes the same scores and
-// online softmax bit for bit, and loads only its chunk of V (dq: of K;
-// dk/dv: of dO and Q) for the second product (about 42 KB of shared memory
-// a CTA). Products: C[16 rows x 64] += A[16 x 64]·B[64 x 64]ᵀ with A and B
+// head dim; the chunks are a grid factor. It forms the scores S = Q·Kᵀ (and
+// dP = dO·Vᵀ) by walking the head dim in 64-wide slices through four
+// [64][72] operand tiles in shared memory, taken in order, so the sums run
+// in one order whatever d is; every chunk of a tile recomputes the same
+// scores bit for bit, and loads only its chunk of K (dq) or of dO and Q
+// (dk/dv) for the second product (about 42 KB of shared memory a CTA).
+// Products: C[16 rows x 64] += A[16 x 64]·B[64 x 64]ᵀ with A and B
 // row-major in shared memory, in the m16n8k16 accumulator layout (lane
 // (g, t) of warp w holds rows 16w + g and 16w + g + 8, columns 8·nb + 2t
 // and 8·nb + 2t + 1) on mma.sync.m16n8k16, bf16 in, f32 accumulate, each
 // head-dim slice of S and dP summed into a partial that is added once
-// (slice_product). The second operands of P·V, dS·K, Pᵀ·dO and dSᵀ·Q are
-// stored transposed as they are loaded, and P or dS (rounded to bf16, as
-// the TPU kernels round them) go through shared memory as the A operand.
-// This first bf16 version recomputes the scores once per output chunk
-// (d/64 times) and runs no copy ahead of the math. Times are in PERF.md.
+// (slice_product). The second operands of dS·K, Pᵀ·dO and dSᵀ·Q are stored
+// transposed as they are loaded, and P or dS (rounded to bf16, as the TPU
+// kernels round them) go through shared memory as the A operand. It
+// recomputes the scores once per output chunk (d/64 times) and runs no copy
+// ahead of the math. Times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,6 +149,7 @@
 
 #include <algorithm>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 #include "tf32x3.cuh"
 
@@ -333,147 +370,6 @@ struct Smem {
            i * kTile;
   }
 };
-
-// ---------------------------------------------------------------------------
-// Forward: a CTA owns 64 queries and output columns [64·chunk, +64).
-// ---------------------------------------------------------------------------
-template <typename T, bool SPARSE>
-__global__ void __launch_bounds__(kThreads) wide_fwd_kernel(WideParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem sm{smem_raw};
-  T* sA = sm.tile<T>(0);   // Q slice, then P
-  T* sB = sm.tile<T>(1);   // K slice, then Vᵀ chunk
-  uint8_t* sKeep = sm.keep<T>();
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4, r0 = warp * 16 + g;
-  const int nq = ntiles(p.Tq), nk = ntiles(p.Tk), nch = p.D / kTile;
-  const Cell cell = cell_of(nq, nch, p.H);
-  const int q0 = cell.tile * kTile, oc = cell.chunk * kTile, bh = cell.bh;
-  const T* q = static_cast<const T*>(p.q) + cell.b * p.q_s[0] +
-               cell.h * p.q_s[1] + q0 * p.q_s[2];
-  const T* k = static_cast<const T*>(p.k) + cell.b * p.k_s[0] +
-               cell.h * p.k_s[1];
-  const T* v = static_cast<const T*>(p.v) + cell.b * p.v_s[0] +
-               cell.h * p.v_s[1] + oc;
-  const T* bias = p.bias == nullptr ? nullptr
-      : static_cast<const T*>(p.bias) + cell.b * p.b_s[0] +
-        cell.h * p.b_s[1];
-
-  int row[2], st[2] = {0, 0}, en[2] = {0, 0};
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    row[hh] = q0 + r0 + 8 * hh;
-    if (SPARSE) unpack_se(p.se[(long long)cell.b * p.Tq + row[hh]], st[hh],
-                          en[hh]);
-  }
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, o[8][4], s[8][4];
-  zero(o);
-
-  const int n_k = SPARSE ? nk : dense_k_tiles(p, q0);
-  const int* vis = SPARSE ? p.vis + ((long long)cell.b * nq + cell.tile) * nk
-                          : nullptr;
-  for (int kt = 0; kt < n_k; ++kt) {
-    if (SPARSE && __ldg(vis + kt) == 0) continue;  // the same for the CTA
-    const int k0 = kt * kTile;
-    zero(s);
-    for (int d0 = 0; d0 < p.D; d0 += kTile) {
-      __syncthreads();  // the previous tiles are consumed
-      load_tile<T, false>(sA, q + d0, p.q_s[2], p.Tq - q0, tid);
-      load_tile<T, false>(sB, k + k0 * p.k_s[2] + d0, p.k_s[2], p.Tk - k0,
-                          tid);
-      __syncthreads();
-      slice_product(s, sA, sB, r0, t);
-    }
-    __syncthreads();  // every warp is done with the Q and K slices
-    load_tile<T, true>(sB, v + k0 * p.v_s[2], p.v_s[2], p.Tk - k0, tid);
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid,
-                                         kThreads);
-    __syncthreads();
-
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1, col = k0 + nb * 8 + 2 * t + (e & 1);
-        float x = s[nb][e] * p.sm_scale;
-        if (SPARSE) {
-          const bool ok = col >= st[hh] && col < en[hh] &&
-                          (!p.causal || col <= row[hh]);
-          x = ok ? x : kNegInf;
-        } else {
-          if (bias != nullptr && row[hh] < p.Tq && col < p.Tk)
-            x += to_f(bias[row[hh] * p.b_s[2] + col * p.b_s[3]]);
-          if (p.causal && col > row[hh]) x = kNegInf;
-          if (col >= p.Tk) x = -INFINITY;
-        }
-        s[nb][e] = x;
-        mx[hh] = fmaxf(mx[hh], x);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      const float m_new = fmaxf(m[hh], mx[hh]);
-      corr[hh] = expf(m[hh] - m_new);
-      m[hh] = m_new;
-    }
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1;
-        float pr = expf(s[nb][e] - m[hh]);
-        if (SPARSE) {
-          const int col = k0 + nb * 8 + 2 * t + (e & 1);
-          const bool ok = col >= st[hh] && col < en[hh] &&
-                          (!p.causal || col <= row[hh]);
-          pr = ok ? pr : 0.f;
-        }
-        sum[hh] += pr;  // the row sum is over the undropped p
-        if (p.drop.on)
-          pr = sKeep[(r0 + 8 * hh) * flash::kKeepPitch + nb * 8 + 2 * t +
-                     (e & 1)] ? pr * p.drop.scale : 0.f;
-        s[nb][e] = pr;
-      }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
-      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
-      l[hh] = l[hh] * corr[hh] + sum[hh];
-    }
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      o[nb][0] *= corr[0]; o[nb][1] *= corr[0];
-      o[nb][2] *= corr[1]; o[nb][3] *= corr[1];
-    }
-    // P (rounded to T) into the Q slice's tile: each warp writes and reads
-    // only its own 16 rows
-    __syncwarp();
-    store_frag<T>(sA, s, r0, t);
-    __syncwarp();
-    product(o, sA, sB, r0, t);
-  }
-
-  T* out = static_cast<T*>(p.out) + cell.b * p.o_s[0] + cell.h * p.o_s[1] +
-           q0 * p.o_s[2] + oc;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const float l_safe = l[hh] == 0.f ? 1.f : l[hh];
-    const int r = r0 + 8 * hh;
-    if (q0 + r >= p.Tq) continue;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        out[r * p.o_s[2] + nb * 8 + 2 * t + e] =
-            from_f<T>(o[nb][2 * hh + e] / l_safe);
-    if (t == 0 && cell.chunk == 0)
-      p.lse_out[(long long)bh * p.Tq + q0 + r] = m[hh] + logf(l_safe);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // dq: a CTA owns 64 queries and dq columns [64·chunk, +64).
@@ -1292,16 +1188,462 @@ cudaError_t run_bwd(const WideParams& p, cudaStream_t s) {
 
 }  // namespace f32w
 
-// bf16 CTAs of one kernel whose rows are T tokens: a 64-row tile and a
-// 64-wide output chunk each, for every (b, h).
-long long bf16_ctas(const WideParams& p, int T) {
-  return (long long)((T + kTile - 1) / kTile) * p.B * p.H * (p.D / kTile);
+// ---------------------------------------------------------------------------
+// bf16 forward: one warpgroup a CTA on wgmma, every operand a 64x64 box that
+// TMA writes (hopper.cuh); the CTAs of a cluster split the key walk (the
+// design in the header).
+// ---------------------------------------------------------------------------
+namespace bfw {
+
+constexpr int kThreads = 128;     // one warpgroup
+constexpr int kBox = hopper::kBoxBytes;
+constexpr int kQBoxes = 8;        // Q's head-dim boxes kept resident
+constexpr int kRing = 5;          // ring slots, one box each
+constexpr int kChunkBlocks = 4;   // output blocks (64 columns) a CTA holds
+constexpr int kBarOff = (kQBoxes + kRing) * kBox;  // kRing slot barriers, Q's
+constexpr int kRowsOff = kBarOff + 64;             // m, l of the 64 rows
+constexpr int kVisOff = kRowsOff + 2 * 64 * 4;     // sparse: tile bits
+constexpr int kSmem = kVisOff + 128 + 1024;        // + the swizzle's align
+
+struct Params {
+  CUtensorMap tq, tk, tv;  // [B, H, T, D]: boxes of 64 rows x 64 values
+  CUtensorMap tb;          // bias [Bb, Hb, Qb, Tk]: 1 or 64 rows x 64 keys
+  const int* se;           // sparse: [B, Tq] (start << 16) | end
+  const int* vis;          // sparse: [B, Tq / 64, Tk / 64]
+  bf* out;
+  float* lse;              // [B*H, Tq]
+  int B, H, Tq, Tk, D;
+  long long o_sb, o_sh, o_st;
+  int bias_mode;           // 0 none, 1 one row for all queries, 2 per query
+  int bias_b, bias_h;      // 1 = the bias is broadcast over batch / heads
+  float sm_scale;
+  int causal;
+  flash::Dropout drop;
+  int nch, split;          // output chunks; CTAs that split one key walk
+};
+
+// Output chunks: ceil(d / 256), so that at d = 512 S is formed twice.
+inline int chunks(int D) {
+  return (D / kTile + kChunkBlocks - 1) / kChunkBlocks;
 }
 
-template <typename T, bool SPARSE>
-cudaError_t run_fwd(const WideParams& p, cudaStream_t s) {
-  return launch(wide_fwd_kernel<T, SPARSE>, bf16_ctas(p, p.Tq), kThreads,
-                smem_bytes<T>(), s, p);
+// CTAs that split one walk over the key tiles, a cluster: 2 where that
+// puts two CTAs on most SMs in one wave (the cells fill over half the SMs
+// and at most all of them) and leaves each CTA four key tiles or more,
+// else 1.
+inline int split_of(long long cells, int nk, int sms) {
+  return 2 * cells > sms && cells <= sms && nk >= 8 ? 2 : 1;
+}
+
+inline long long cells(int B, int H, int Tq, int D) {
+  return (long long)((Tq + kTile - 1) / kTile) * B * H * chunks(D);
+}
+
+// The CTA's place in the flat grid (rank, chunk, q tile, b·h), the rank
+// fastest: the `split` CTAs of a cluster share a (chunk, q tile, b·h).
+struct Place {
+  int rank, oc, tile, bh, b, h;
+};
+__device__ __forceinline__ Place place_of(const Params& p, int nq) {
+  const long long x = blockIdx.x;
+  Place c;
+  c.rank = static_cast<int>(x % p.split);
+  const long long cell = x / p.split;
+  c.oc = static_cast<int>(cell % p.nch);
+  c.tile = static_cast<int>((cell / p.nch) % nq);
+  c.bh = static_cast<int>(cell / ((long long)p.nch * nq));
+  c.b = c.bh / p.H;
+  c.h = c.bh % p.H;
+  return c;
+}
+
+// One CTA: queries [q0, q0 + 64) of (b, h), the output blocks [ob0, ob0 +
+// nob) of its chunk, the key tiles kt ≡ rank (mod split) it sees. A tile is
+// a run of ring items, one box each: per head-dim slice c, Q's box when c
+// is past the resident ones, then K's; the bias box (dense, with a bias);
+// then V's box of each output block.
+template <bool SPARSE>
+__global__ void __launch_bounds__(kThreads, 2)
+wide_fwd_bf16_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::smem_base(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* ring = smem + kQBoxes * kBox;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  float* sRows = reinterpret_cast<float*>(smem + kRowsOff);
+  uint32_t* sVis = reinterpret_cast<uint32_t*>(smem + kVisOff);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4, r0 = warp * 16 + g;
+  const int nq = (p.Tq + kTile - 1) / kTile, nk = (p.Tk + kTile - 1) / kTile;
+  const Place c = place_of(p, nq);
+  const int q0 = c.tile * kTile;
+  const int nblk = p.D / kTile, bpc = (nblk + p.nch - 1) / p.nch;
+  const int ob0 = c.oc * bpc, nob = min(bpc, nblk - ob0);
+  const int nqb = min(nblk, kQBoxes);
+  const int n_s = nblk + max(0, nblk - kQBoxes);  // S items a tile
+  const int n_b = p.bias_mode != 0 ? 1 : 0;
+  const int n_it = n_s + n_b + nob;                // items a tile
+
+  int n_k = nk;  // dense causal: the tiles through the diagonal
+  if (!SPARSE && p.causal)
+    n_k = min(nk, (min(q0 + kTile, p.Tq) - 1) / kTile + 1);
+  if (SPARSE) {  // the q tile's row of vis as bits (nk <= 1024)
+    const int* vis = p.vis + ((long long)c.b * nq + c.tile) * nk;
+    for (int w = warp; w * 32 < nk; w += kThreads / 32) {
+      const int kt = w * 32 + lane;
+      const uint32_t bits = __ballot_sync(0xffffffffu,
+                                          kt < nk && __ldg(vis + kt) != 0);
+      if (lane == 0) sVis[w] = bits;
+    }
+  }
+  if (tid == 0) {
+    for (int i = 0; i <= kRing; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  auto seek = [&](int kt) {  // this CTA's first tile from kt on
+    if (SPARSE)
+      while (kt < n_k && ((sVis[kt >> 5] >> (kt & 31)) & 1u) == 0)
+        kt += p.split;
+    return kt;
+  };
+  const int first = seek(c.rank);
+
+  // thread 0 keeps the ring kRing items ahead of the math: item (pt, pi)
+  int pt = first, pi = 0, issued = 0;
+  auto issue = [&]() {
+    const int slot = issued % kRing;
+    unsigned char* dst = ring + slot * kBox;
+    uint64_t* bar = &bars[slot];
+    const int k0 = pt * kTile;
+    if (pi < n_s) {
+      int cc = pi;
+      bool q_box = false;
+      if (pi >= kQBoxes) {
+        cc = kQBoxes + (pi - kQBoxes) / 2;
+        q_box = ((pi - kQBoxes) & 1) == 0;
+      }
+      hopper::mbar_expect_tx(bar, kBox);
+      hopper::tma_load(dst, q_box ? &p.tq : &p.tk, bar, cc * kTile,
+                       q_box ? q0 : k0, c.h, c.b);
+    } else if (pi < n_s + n_b) {
+      hopper::mbar_expect_tx(bar, p.bias_mode == 2 ? kBox : 128);
+      hopper::tma_load(dst, &p.tb, bar, k0, p.bias_mode == 2 ? q0 : 0,
+                       p.bias_h ? 0 : c.h, p.bias_b ? 0 : c.b);
+    } else {
+      hopper::mbar_expect_tx(bar, kBox);
+      hopper::tma_load(dst, &p.tv, bar, (ob0 + pi - n_s - n_b) * kTile, k0,
+                       c.h, c.b);
+    }
+    ++issued;
+    if (++pi == n_it) {
+      pi = 0;
+      pt = seek(pt + p.split);
+    }
+  };
+  // thread 0: the items after `released`, the items every warp is done
+  // with, into the slots they free; called just after a product is
+  // started, so the copies are issued while the tensor cores work
+  int released = 0;
+  auto refill = [&]() {
+    if (tid == 0)
+      while (pt < n_k && issued < released + kRing) issue();
+  };
+
+  if (tid == 0 && first < n_k) {
+    hopper::mbar_expect_tx(&bars[kRing], nqb * kBox);
+    for (int cc = 0; cc < nqb; ++cc)
+      hopper::tma_load(sQ + cc * kBox, &p.tq, &bars[kRing], cc * kTile, q0,
+                       c.h, c.b);
+  }
+  refill();
+  uint32_t key0 = 0, key1 = 0;
+  if (p.drop.on) {
+    const unsigned long long sd =
+        static_cast<unsigned long long>(*p.drop.seed);
+    key0 = static_cast<uint32_t>(sd);
+    key1 = static_cast<uint32_t>(sd >> 32);
+  }
+  int st[2] = {0, 0}, en[2] = {0, 0};
+  if (SPARSE) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      unpack_se(p.se[(long long)c.b * p.Tq + q0 + r0 + 8 * hh], st[hh],
+                en[hh]);
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kChunkBlocks][32], s[32], part[32];
+#pragma unroll
+  for (int j = 0; j < kChunkBlocks; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = part[i] = 0.f;
+  if (first < n_k) hopper::mbar_wait(&bars[kRing], 0);
+
+  int n = 0;  // the next item to consume
+  auto slot_of = [&](int i) {
+    hopper::mbar_wait(&bars[i % kRing], (i / kRing) & 1);
+    return ring + (i % kRing) * kBox;
+  };
+  for (int kt = first; kt < n_k; kt = seek(kt + p.split)) {
+    const int k0 = kt * kTile;
+    // S = Q·Kᵀ one 64-wide head-dim slice at a time: each slice's four k
+    // steps into a zeroed partial, added to S in slice order (the tensor
+    // core's sums round toward zero; the backward sums S alike)
+    for (int cc = 0; cc < nblk; ++cc) {
+      const unsigned char* qb = sQ + cc * kBox;
+      if (cc >= kQBoxes) qb = slot_of(n++);
+      const unsigned char* kb = slot_of(n++);
+      hopper::pin(part);
+      hopper::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hopper::mma_ss<64, 0>(part, hopper::desc_kmajor(qb, ks),
+                              hopper::desc_kmajor(kb, ks), ks > 0);
+      hopper::wg_commit();
+      refill();
+      hopper::wg_wait_all();
+      hopper::pin(part);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = cc == 0 ? part[i] : s[i] + part[i];
+      __syncthreads();  // every warp is done with the slice's boxes
+      released = n;
+    }
+    refill();  // the bias and V boxes, before the softmax needs them
+
+    // scale, bias and masks (selects, no branch); bit i of `ok` = element i
+    // is visible (sparse)
+    uint32_t ok = ~0u;
+    float mx[2] = {kNegInf, kNegInf};
+    if (SPARSE) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        const bool v = (key >= st[hh]) & (key < en[hh]) &
+                       (!p.causal | (key <= q0 + r0 + 8 * hh));
+        ok = v ? ok : ok & ~(1u << i);
+        s[i] = v ? s[i] * p.sm_scale : kNegInf;
+        mx[hh] = fmaxf(mx[hh], s[i]);
+      }
+    } else {
+      float bv[32];
+      if (n_b) {
+        hopper::bias_rows(bv, slot_of(n), p.bias_mode, r0, t);
+        ++n;
+      } else {
+        hopper::bias_rows(bv, nullptr, 0, r0, t);
+      }
+      const int k_left = p.Tk - k0;  // keys of this tile inside Tk
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1, col = (i >> 2) * 8 + 2 * t + (i & 1);
+        float x = fmaf(s[i], p.sm_scale, bv[i]);
+        x = p.causal && k0 + col > q0 + r0 + 8 * hh ? kNegInf : x;
+        s[i] = col < k_left ? x : -INFINITY;
+        mx[hh] = fmaxf(mx[hh], s[i]);
+      }
+    }
+
+    // online softmax over the 4 lanes that share a row; a max that does
+    // not move rescales by exactly 1, so a tile with no visible pair
+    // changes no bit
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      corr[hh] = m_new == m[hh]
+                     ? 1.f : hopper::ex2((m[hh] - m_new) * hopper::kLog2e);
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      const float e = hopper::ex2((s[i] - m[hh]) * hopper::kLog2e);
+      s[i] = (ok >> i) & 1u ? e : 0.f;
+      sum[hh] += s[i];
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+      l[hh] = l[hh] * corr[hh] + sum[hh];
+    }
+    if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
+      const uint32_t keep = flash::keep_bits_rows(
+          key0, key1, p.drop.threshold, c.bh, q0 + r0, k0, t);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kChunkBlocks; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[j][i] *= corr[(i >> 1) & 1];
+
+    // O += P·V over the chunk's blocks: P (rounded to bf16) from
+    // registers, V's boxes MN-major as TMA wrote them
+    uint32_t a[4][4];
+    hopper::acc_to_a(a, s);
+#pragma unroll
+    for (int j = 0; j < kChunkBlocks; ++j) hopper::pin(o[j]);
+    hopper::pin(a);
+    hopper::wg_fence();
+#pragma unroll
+    for (int j = 0; j < kChunkBlocks; ++j) {
+      if (j < nob) {
+        const unsigned char* vb = slot_of(n++);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::mma_rs<64, 1>(o[j], a[kk], hopper::desc_mnmajor(vb, kk),
+                                1);
+      }
+    }
+    hopper::wg_commit();
+    hopper::wg_wait_all();
+#pragma unroll
+    for (int j = 0; j < kChunkBlocks; ++j) hopper::pin(o[j]);
+    __syncthreads();  // every warp is done with the tile's bias and V
+    released = n;
+    refill();  // the next tile's first boxes
+  }
+
+  bf* out = p.out + c.b * p.o_sb + c.h * p.o_sh;
+  if (p.split == 1) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + r0 + 8 * hh;
+      if (row >= p.Tq) continue;
+      const float l_safe = l[hh] == 0.f ? 1.f : l[hh];
+      const float inv = 1.f / l_safe;
+      bf* orow = out + row * p.o_st + ob0 * kTile + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kChunkBlocks; ++j) {
+        if (j >= nob) continue;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+          *reinterpret_cast<__nv_bfloat162*>(orow + j * kTile + nb * 8) =
+              __floats2bfloat162_rn(o[j][4 * nb + 2 * hh] * inv,
+                                    o[j][4 * nb + 2 * hh + 1] * inv);
+      }
+      if (t == 0 && c.oc == 0)
+        p.lse[(long long)c.bh * p.Tq + row] = m[hh] + logf(l_safe);
+    }
+    return;
+  }
+
+  // The cluster's two CTAs combine their walks: each puts its m, l and O
+  // (in fragment order, 16 bytes a thread and register group) into its own
+  // shared memory, O where Q was; after a cluster barrier, the CTA of rank
+  // r finishes output blocks j ≡ r (mod 2), reading both ranks' parts over
+  // distributed shared memory. Both sum the ranks in rank order, so l and
+  // the lse are the same in each.
+  float* sO = reinterpret_cast<float*>(sQ);
+#pragma unroll
+  for (int j = 0; j < kChunkBlocks; ++j) {
+    if (j >= nob) continue;
+#pragma unroll
+    for (int i4 = 0; i4 < 8; ++i4)
+      *reinterpret_cast<float4*>(sO + ((j * 8 + i4) * kThreads + tid) * 4) =
+          make_float4(o[j][4 * i4], o[j][4 * i4 + 1], o[j][4 * i4 + 2],
+                      o[j][4 * i4 + 3]);
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sRows[r0 + 8 * hh] = m[hh];
+      sRows[kTile + r0 + 8 * hh] = l[hh];
+    }
+  }
+  hopper::cluster_sync();
+
+  // every thread reads both ranks' values of its own registers' rows and
+  // columns; rank 0's part is added first
+  const uint32_t rows0 = hopper::map_rank(sRows, 0);
+  const uint32_t rows1 = hopper::map_rank(sRows, 1);
+  float e[2][2], l_safe[2];  // [rank][row half]
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    const float m0 = hopper::ld_cluster(rows0 + 4 * r);
+    const float m1 = hopper::ld_cluster(rows1 + 4 * r);
+    const float m_all = fmaxf(m0, m1);
+    e[0][hh] = m0 == m_all ? 1.f : hopper::ex2((m0 - m_all) * hopper::kLog2e);
+    e[1][hh] = m1 == m_all ? 1.f : hopper::ex2((m1 - m_all) * hopper::kLog2e);
+    const float lsum =
+        hopper::ld_cluster(rows0 + 4 * (kTile + r)) * e[0][hh] +
+        hopper::ld_cluster(rows1 + 4 * (kTile + r)) * e[1][hh];
+    l_safe[hh] = lsum == 0.f ? 1.f : lsum;
+    if (t == 0 && c.rank == 0 && c.oc == 0 && q0 + r < p.Tq)
+      p.lse[(long long)c.bh * p.Tq + q0 + r] = m_all + logf(l_safe[hh]);
+  }
+  const uint32_t o0 = hopper::map_rank(sO, 0), o1 = hopper::map_rank(sO, 1);
+  for (int j = c.rank; j < nob; j += 2) {
+    bf* ocol = out + (ob0 + j) * kTile + 2 * t;
+#pragma unroll 2
+    for (int i4 = 0; i4 < 8; ++i4) {
+      const uint32_t at = ((j * 8 + i4) * kThreads + tid) * 16;
+      const float4 x = hopper::ld_cluster4(o0 + at);
+      const float4 y = hopper::ld_cluster4(o1 + at);
+      // registers 4·i4 + 2·hh + {0, 1}: row r0 + 8·hh, columns 8·i4 + 2t
+      const int row = q0 + r0;
+      if (row < p.Tq)
+        *reinterpret_cast<__nv_bfloat162*>(ocol + row * p.o_st + i4 * 8) =
+            __floats2bfloat162_rn(
+                (x.x * e[0][0] + y.x * e[1][0]) / l_safe[0],
+                (x.y * e[0][0] + y.y * e[1][0]) / l_safe[0]);
+      if (row + 8 < p.Tq)
+        *reinterpret_cast<__nv_bfloat162*>(ocol + (row + 8) * p.o_st +
+                                           i4 * 8) =
+            __floats2bfloat162_rn(
+                (x.z * e[0][1] + y.z * e[1][1]) / l_safe[1],
+                (x.w * e[0][1] + y.w * e[1][1]) / l_safe[1]);
+    }
+  }
+  hopper::cluster_sync();  // no CTA leaves while another reads its memory
+}
+
+long long ctas(int B, int H, int Tq, int Tk, int D) {
+  const long long n = cells(B, H, Tq, D);
+  return n * split_of(n, (Tk + kTile - 1) / kTile, f32w::sm_count());
+}
+
+template <bool SPARSE>
+cudaError_t run(Params& p, cudaStream_t s) {
+  const long long n = cells(p.B, p.H, p.Tq, p.D);
+  p.nch = chunks(p.D);
+  p.split = split_of(n, (p.Tk + kTile - 1) / kTile, f32w::sm_count());
+  if (n * p.split > 0x7FFFFFFFll) return cudaErrorInvalidValue;
+  auto kernel = wide_fwd_bf16_kernel<SPARSE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n * p.split));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace bfw
+
+// bf16 CTAs of one backward kernel whose rows are T tokens: a 64-row tile
+// and a 64-wide output chunk each, for every (b, h).
+long long bf16_ctas(const WideParams& p, int T) {
+  return (long long)((T + kTile - 1) / kTile) * p.B * p.H * (p.D / kTile);
 }
 
 template <typename T, bool SPARSE>
@@ -1339,11 +1681,11 @@ bool args_ok(const WideParams& p, int dtype, int sparse) {
 
 extern "C" {
 
-// Forward. strides: q, k, v, out (batch, head, token) in elements, then the
-// bias's (batch, head, q, k); the head dim is contiguous and every row
-// 16-byte aligned. sparse = 0: the dense mask (bias may be null; causal);
-// sparse = 1: se [B, Tq] and vis [B, Tq/64, Tk/64] (no bias). lse is
-// [B*H, Tq] f32. With dropout != 0, `seed` points at one int64 on the
+// float32 forward. strides: q, k, v, out (batch, head, token) in elements,
+// then the bias's (batch, head, q, k); the head dim is contiguous and every
+// row 16-byte aligned. sparse = 0: the dense mask (bias may be null;
+// causal); sparse = 1: se [B, Tq] and vis [B, Tq/64, Tk/64] (no bias). lse
+// is [B*H, Tq] f32. With dropout != 0, `seed` points at one int64 on the
 // device and a score is dropped iff its Philox word < `threshold`; kept p is
 // scaled by `drop_scale`. Returns a cudaError_t (0 = launched).
 int flash_attention_wide_fwd(const void* q, const void* k, const void* v,
@@ -1351,9 +1693,8 @@ int flash_attention_wide_fwd(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int H, int Tq,
                              int Tk, int D, const long long* strides,
                              float sm_scale, int causal, int sparse,
-                             int dtype, const long long* seed,
-                             unsigned threshold, float drop_scale,
-                             int dropout, void* stream) {
+                             const long long* seed, unsigned threshold,
+                             float drop_scale, int dropout, void* stream) {
   WideParams p = {};
   p.q = q; p.k = k; p.v = v; p.bias = bias; p.se = se; p.vis = vis;
   p.out = out; p.lse_out = lse;
@@ -1364,12 +1705,61 @@ int flash_attention_wide_fwd(const void* q, const void* k, const void* v,
   p.sm_scale = sm_scale;
   p.causal = causal;
   set_dropout(p, seed, threshold, drop_scale, dropout);
-  if (!args_ok(p, dtype, sparse)) return (int)cudaErrorInvalidValue;
+  if (!args_ok(p, 0, sparse)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)(sparse ? f32w::run_fwd<true>(p, s)
-                        : f32w::run_fwd<false>(p, s));
-  return (int)(sparse ? run_fwd<bf, true>(p, s) : run_fwd<bf, false>(p, s));
+  return (int)(sparse ? f32w::run_fwd<true>(p, s)
+                      : f32w::run_fwd<false>(p, s));
+}
+
+// bfloat16 forward. `tensors` holds the tensor descriptions (hopper::
+// kDescLen int64 each) of q, k, v and the bias (ignored when bias_mode is
+// 0) in that order; out strides are in elements. sparse = 0: the dense
+// mask, bias_mode 0 none, 1 one row for every query, 2 a row per query
+// (causal); sparse = 1: se [B, Tq] and vis [B, Tq/64, Tk/64] (bias_mode
+// 0). lse and dropout as in flash_attention_wide_fwd. Returns a
+// cudaError_t.
+int flash_attention_wide_fwd_bf16(const long long* tensors, const int* se,
+                                  const int* vis, void* out, float* lse,
+                                  int B, int H, int Tq, int Tk, int D,
+                                  long long o_sb, long long o_sh,
+                                  long long o_st, int bias_mode,
+                                  float sm_scale, int causal, int sparse,
+                                  const long long* seed, unsigned threshold,
+                                  float drop_scale, int dropout,
+                                  void* stream) {
+  WideParams w = {};
+  w.se = se; w.vis = vis; w.B = B; w.H = H; w.Tq = Tq; w.Tk = Tk; w.D = D;
+  if (!args_ok(w, 1, sparse) || bias_mode < 0 || bias_mode > 2 ||
+      (sparse && bias_mode != 0))
+    return (int)cudaErrorInvalidValue;
+  bfw::Params p;
+  const long long* bias = tensors + 3 * hopper::kDescLen;
+  cudaError_t err;
+  for (int i = 0; i < 3; ++i) {
+    CUtensorMap* map = i == 0 ? &p.tq : i == 1 ? &p.tk : &p.tv;
+    err = hopper::make_map(map, tensors + i * hopper::kDescLen, true, 64, 64);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (bias_mode != 0 &&
+      (err = hopper::make_map(&p.tb, bias, true, 64,
+                              bias_mode == 2 ? 64 : 1)) != cudaSuccess)
+    return (int)err;
+  p.se = se; p.vis = vis;
+  p.out = static_cast<bf*>(out);
+  p.lse = lse;
+  p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk; p.D = D;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_st = o_st;
+  p.bias_mode = bias_mode;
+  p.bias_h = bias[3] == 1;  // dims innermost first: (Tk, Qb, Hb, Bb)
+  p.bias_b = bias[4] == 1;
+  p.sm_scale = sm_scale;
+  p.causal = causal;
+  p.drop.seed = seed;
+  p.drop.threshold = threshold;
+  p.drop.scale = drop_scale;
+  p.drop.on = dropout;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(sparse ? bfw::run<true>(p, s) : bfw::run<false>(p, s));
 }
 
 // Backward on `stream`: f32 a launch each of the dk, dq and dv CTAs, or one
@@ -1413,10 +1803,12 @@ int flash_attention_wide_bwd(const void* q, const void* k, const void* v,
   return (int)(sparse ? run_bwd<bf, true>(p, s) : run_bwd<bf, false>(p, s));
 }
 
-// Dynamic shared memory of a CTA of each kernel (dtype 0 = f32, 1 = bf16),
-// the same at every head dim.
-int flash_attention_wide_smem(int dtype) {
-  return dtype == 0 ? f32w::kSmemBytes : smem_bytes<bf>();
+// Dynamic shared memory of a CTA of the forward (bwd = 0) or the
+// backward's kernels (bwd = 1), dtype 0 = f32 or 1 = bf16, the same at every
+// head dim.
+int flash_attention_wide_smem(int dtype, int bwd) {
+  if (dtype == 0) return f32w::kSmemBytes;
+  return bwd ? smem_bytes<bf>() : bfw::kSmem;
 }
 
 // CTAs of the forward (bwd = 0) or of the backward's launches (bwd = 1;
@@ -1428,7 +1820,8 @@ long long flash_attention_wide_ctas(int bwd, int dtype, int B, int H, int Tq,
   p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk; p.D = D;
   if (!args_ok(p, dtype, 0)) return -1;
   if (dtype == 0) return bwd ? f32w::bwd_ctas(p) : f32w::fwd_ctas(p);
-  return bf16_ctas(p, Tq) + (bwd ? bf16_ctas(p, Tk) : 0);
+  return bwd ? bf16_ctas(p, Tq) + bf16_ctas(p, Tk)
+             : bfw::ctas(B, H, Tq, Tk, D);
 }
 
 const char* flash_attention_error_string(int err) {

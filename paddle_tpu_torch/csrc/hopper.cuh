@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels:
-// tensor maps and TMA loads, mbarriers, and warpgroup MMA (wgmma) on
-// 128-byte-swizzled shared-memory tiles.
+// tensor maps and TMA loads, mbarriers, thread block clusters, and
+// warpgroup MMA (wgmma) on 128-byte-swizzled shared-memory tiles.
 //
 // Tiles. A bf16 operand tile holds 64 rows. Each row is stored as boxes of
 // 64 values (128 bytes), as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B:
@@ -183,6 +183,40 @@ inline cudaError_t make_map(CUtensorMap* map, const long long* desc,
       bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters: the CTAs of a cluster read each other's shared
+// memory (distributed shared memory) between cluster barriers.
+// ---------------------------------------------------------------------------
+// Every thread of every CTA of the cluster arrives, then waits: shared
+// memory written before it is visible to the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n"
+               "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The address of the same shared-memory byte in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------------------

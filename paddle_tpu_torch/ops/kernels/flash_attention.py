@@ -703,32 +703,57 @@ def _wide_strides(tensors, bias_strides):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _wide_fwd_bf16_tensors(q, k, v, bias):
+    """q, k, v and the bias as the bf16 wide forward's TMA reads them: in
+    place where ``_tma_desc`` describes them (the [B, nh, T, d] head views of
+    a packed [B, T, nh·d] projection, at any T), else copied to contiguous
+    ones; the bias in its compact broadcast shape (``_bias_tile``). Returns
+    (tensors, descriptions, bias mode)."""
+    ts = [t if _tma_desc(t) else t.contiguous() for t in (q, k, v)]
+    mode, bias_desc, bias_t = _bias_tile(bias, ts[0], q.shape[2], k.shape[2])
+    return ts + [bias_t], [_tma_desc(t) for t in ts] + [bias_desc], mode
+
+
 def launch_wide_fwd(counter, q, k, v, bias, se, vis, causal, sm_scale,
                     dropout_rate, seed):
     """The wide forward (any head dim d = 64·k; the wrappers send it those
     above 256): dense with `bias` (se is None) or block-sparse with the
-    descriptor `se` and the 64x64 tile table `vis`. A tensor whose strides
-    break 16-byte loads is copied first. Counts one launch on `counter`."""
+    descriptor `se` and the 64x64 tile table `vis`. f32 tensors whose
+    strides break 16-byte loads, and bf16 ones TMA cannot read in place,
+    are copied first. Counts one launch on `counter`."""
     b, nh, tq, d = q.shape
     tk = k.shape[2]
-    q, k, v = (t if _kernel_layout_ok(t) else t.contiguous()
-               for t in (q, k, v))
     out = _packed_like(b, nh, tq, d, q.dtype, q.device)
     lse = torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
-    bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
     seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
-    lib = _bind("flash_attention_wide", "flash_attention_wide_fwd",
-                [_PTR] * 8 + [_I32] * 5 + [_PTR, _F32] + [_I32] * 3
-                + _DROPOUT_ARGS + [_PTR])
+    se_ptr = se.data_ptr() if se is not None else None
+    vis_ptr = vis.data_ptr() if vis is not None else None
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_wide_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-            se.data_ptr() if se is not None else None,
-            vis.data_ptr() if vis is not None else None, out.data_ptr(),
-            lse.data_ptr(), b, nh, tq, tk, d,
-            _wide_strides((q, k, v, out), bias_strides), float(sm_scale),
-            int(causal), int(se is not None), _DTYPE_CODE[q.dtype], seed_ptr,
-            thr, inv, drop, torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if q.dtype == torch.bfloat16:
+            _ts, descs, mode = _wide_fwd_bf16_tensors(q, k, v, bias)
+            lib = _bind("flash_attention_wide",
+                        "flash_attention_wide_fwd_bf16",
+                        [_PTR] * 5 + [_I32] * 5 + [_I64] * 3
+                        + [_I32, _F32] + [_I32] * 2 + _DROPOUT_ARGS + [_PTR])
+            err = lib.flash_attention_wide_fwd_bf16(
+                _descs(*descs), se_ptr, vis_ptr, out.data_ptr(),
+                lse.data_ptr(), b, nh, tq, tk, d, *out.stride()[:3], mode,
+                float(sm_scale), int(causal), int(se is not None), seed_ptr,
+                thr, inv, drop, stream)
+        else:
+            q, k, v = (t if _kernel_layout_ok(t) else t.contiguous()
+                       for t in (q, k, v))
+            bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
+            lib = _bind("flash_attention_wide", "flash_attention_wide_fwd",
+                        [_PTR] * 8 + [_I32] * 5 + [_PTR, _F32] + [_I32] * 2
+                        + _DROPOUT_ARGS + [_PTR])
+            err = lib.flash_attention_wide_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, se_ptr,
+                vis_ptr, out.data_ptr(), lse.data_ptr(), b, nh, tq, tk, d,
+                _wide_strides((q, k, v, out), bias_strides), float(sm_scale),
+                int(causal), int(se is not None), seed_ptr, thr, inv, drop,
+                stream)
     _raise_on(lib, err, "flash_attention_fwd")
     counter.launches += 1
     counter.wide_launches += 1

@@ -11,6 +11,7 @@ TPU kernels cannot reproduce, so it is checked by its known-answer vectors,
 its keep rate, determinism per seed and gradients consistent with its mask,
 never bit for bit against the JAX package. The hand-written CUDA kernels run
 only on a card (the `cuda` tests and chip_smoke.py)."""
+import ctypes
 import importlib
 
 import numpy as np
@@ -1121,3 +1122,175 @@ def test_cuda_wide_kernels_match_plain(case, d, dtype, fwd_tol, bwd_tol):
     torch.testing.assert_close(got[3], ref_db.float(), rtol=2e-5, atol=2e-5)
     again = bwd(q, k, v, out, lse, dout, bias, causal, None, rate, 5, form)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# -- the bf16 wide forward (csrc/flash_attention_wide.cu, bfw) ---------------
+
+def _wide_bf16_grid(b, nh, tq, tk, d, sms):
+    """The bf16 wide forward's launch, replayed from the C source
+    (bfw::chunks, split_of, ctas, place_of): output chunks of up to four
+    64-wide blocks, a cluster of `split` CTAs splitting each walk where the
+    cells fill over half the SMs and at most all of them and the walk has 8
+    key tiles or more. Returns (nch, bpc, split, ctas)."""
+    nblk = d // 64
+    nch = -(-nblk // 4)
+    bpc = -(-nblk // nch)
+    cells = -(-tq // 64) * b * nh * nch
+    nk = -(-tk // 64)
+    split = 2 if 2 * cells > sms and cells <= sms and nk >= 8 else 1
+    return nch, bpc, split, cells * split
+
+
+def _wide_bf16_writes(b, nh, tq, tk, d, sms):
+    """Replays every CTA's place (rank fastest, then chunk, q tile, b·h)
+    and what it writes: the output blocks it finishes (all of its chunk's
+    when split = 1, else those j ≡ rank mod 2 of them), the lse of its rows
+    (rank 0 of chunk 0) and the key tiles its walk takes (kt ≡ rank mod
+    split). Returns the counts: [B·nh, q tiles, 64-wide blocks] output
+    blocks, [B·nh, q tiles] lse rows and [B·nh, q tiles, chunk, key tiles]
+    walks."""
+    nch, bpc, split, ctas = _wide_bf16_grid(b, nh, tq, tk, d, sms)
+    nq, nk, nblk = -(-tq // 64), -(-tk // 64), d // 64
+    x = np.arange(ctas, dtype=np.int64)
+    rank, cell = x % split, x // split
+    oc, tile, bh = cell % nch, (cell // nch) % nq, cell // (nch * nq)
+    assert bpc <= 4 and bh.max() == b * nh - 1
+    blocks = np.zeros((b * nh, nq, nblk), np.int64)
+    for j in range(4):   # the kernel's unrolled output blocks
+        mine = (oc * bpc + j < np.minimum(nblk, (oc + 1) * bpc)) & (
+            (split == 1) | (j % split == rank))
+        np.add.at(blocks, (bh[mine], tile[mine], (oc * bpc + j)[mine]), 1)
+    rows = np.zeros((b * nh, nq), np.int64)
+    first = (rank == 0) & (oc == 0)
+    np.add.at(rows, (bh[first], tile[first]), 1)
+    walks = np.zeros((b * nh, nq, nch, nk), np.int64)
+    for kt in range(nk):
+        mine = kt % split == rank
+        np.add.at(walks, (bh[mine], tile[mine], oc[mine], kt), 1)
+    return blocks, rows, walks, split, ctas
+
+
+@pytest.mark.parametrize("d", [320, 384, 512, 1024])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("shape", [
+    (4, 2, 512, 512),     # the wide path's dense shape (BERT hidden 1024)
+    (4, 2, 256, 256),     # its sparse shape (Transformer-big encoder self)
+    (4, 2, 128, 128),     # BERT at T = 128
+    (2, 2, 200, 200),     # a ragged T
+    (50, 1312, 64, 64),   # B·nh = 65,600: past the 65,535 grid cap
+])
+def test_wide_bf16_forward_grid_writes_each_output_once(shape, sms, d):
+    """Every 64x64 output block of [B, nh, T, d] is written by exactly one
+    CTA of the bf16 wide forward's flat grid, every row's lse once, and
+    every key tile is walked by exactly one CTA of each (chunk, q tile):
+    at d = 320 to 1024, on a card of 132 SMs and of 114. At d = 512 the
+    chunks are two (S formed twice a pair); on 132 SMs the dense shape's
+    128 cells split each walk over a cluster of two, on 114 they do not
+    (the cells alone fill the card), and the sparse shape never does."""
+    b, nh, t, tk = shape
+    blocks, rows, walks, split, ctas = _wide_bf16_writes(b, nh, t, tk, d,
+                                                         sms)
+    assert (blocks == 1).all() and (rows == 1).all() and (walks == 1).all()
+    assert ctas < 2 ** 31
+    if d == 512:
+        assert _wide_bf16_grid(b, nh, t, tk, d, sms)[0] == 2
+        assert split == (2 if shape == (4, 2, 512, 512) and sms == 132
+                         else 1)
+
+
+def test_wide_bf16_forward_reads_packed_heads_and_mask_in_place():
+    """The bf16 wide forward's TMA maps read q, k, v as [B, nh, T, d] head
+    views of a packed [B, T, nh·d] projection and the [B, 1, 1, T] mask in
+    place, at d = 320 and 512 and a ragged T: no copy; a tensor whose last
+    dim is not contiguous is copied, never refused; the sparse walk's se
+    from pack_se is read in place too."""
+    for d, t in ((320, 200), (512, 256)):
+        b, nh = 2, 2
+        qkv = torch.zeros(b, t, 3 * nh * d, dtype=torch.bfloat16)
+        q, k, v = (x.unflatten(-1, (nh, d)).transpose(1, 2)
+                   for x in qkv.split(nh * d, dim=-1))
+        mask = torch.zeros(b, 1, 1, t, dtype=torch.bfloat16)
+        ts, descs, mode = tfa._wide_fwd_bf16_tensors(q, k, v, mask)
+        assert [x.data_ptr() for x in ts] == [x.data_ptr()
+                                              for x in (q, k, v, mask)]
+        assert mode == 1 and descs[3] == tfa._tma_desc(mask)
+        assert descs[0][1:] == [d, t, nh, b, 3 * nh * d * 2, d * 2,
+                                t * 3 * nh * d * 2]
+        assert descs[1][0] - descs[0][0] == nh * d * 2
+        ts, descs, mode = tfa._wide_fwd_bf16_tensors(q, k, v, None)
+        assert mode == 0 and ts[3] is None and descs[3] == [0] * 8
+    qt = torch.zeros(b, nh, d, t, dtype=torch.bfloat16).transpose(2, 3)
+    ts, descs, _ = tfa._wide_fwd_bf16_tensors(qt, k, v, None)
+    assert ts[0].data_ptr() != qt.data_ptr() and ts[0].is_contiguous()
+    assert torch.equal(ts[0], qt) and descs[0] == tfa._tma_desc(ts[0])
+    from paddle_tpu_torch.ops.kernels import flash_attention_sparse as fas
+
+    seg = torch.tensor([[1] * 100 + [2] * 156, [1] * 256], dtype=torch.int32)
+    se = fas.pack_se(seg, seg)
+    assert se.is_contiguous() and se.contiguous().data_ptr() == se.data_ptr()
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_bf16_forward_matches_pallas_interpret(d, monkeypatch):
+    """The bf16 forward at d = 320 and 512 (the wide kernel's plain version
+    on the CPU) against the JAX package's Pallas forward in interpret mode
+    on the same bf16 inputs, with the [B,1,1,T] mask, T = 128: within
+    rtol = atol = 1e-2 (both round P and the output to bf16, at different
+    points; half a bf16 ulp at |x| < 2 is below 4e-3)."""
+    monkeypatch.setattr(jfa, "FORCE_PALLAS_INTERPRET", True)
+    b, h, t = 1, 2, 128
+    assert jfa._pallas_ok(t, d)
+    q, k, v = (_rand((b, h, t, d), 50 + i, 0.5) for i in range(3))
+    mask = np.where(np.random.RandomState(9).rand(b, 1, 1, t) > 0.25, 0.0,
+                    -1e4).astype(np.float32)
+    want = jfa.flash_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        bias=jnp.asarray(mask, jnp.bfloat16))
+    out, lse = tfa.flash_attention_fwd(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+        torch.from_numpy(mask).bfloat16())
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t,b,nh", [
+    (320, 200, 2, 2), (512, 200, 2, 2), (320, 512, 4, 2), (512, 512, 4, 2),
+    (320, 64, 50, 1312)])
+def test_cuda_wide_bf16_forward_entry(d, t, b, nh):
+    """The bf16 wide forward on the card against its plain version at a
+    ragged T, the wide path's dense shape and B·nh = 65,600: the mask with
+    dropout and a per-query bias, causal (out and lse within 2e-2); one
+    wide launch a call, no plain call; a second call equal bit for bit; its
+    CTAs those of the replayed grid on this card."""
+    _cuda_or_skip()
+    from paddle_tpu_torch.ops.kernels import build
+
+    (q, k, v), g = _cuda_qkv(b, nh, t, d, torch.bfloat16, 11)
+    mask = torch.zeros(b, 1, 1, t, device="cuda", dtype=torch.bfloat16)
+    mask[..., 3 * t // 4:] = -1e4
+    cases = [(mask, False, 0.1)]
+    if b * nh < 1000:
+        cases.append((torch.randn(b, nh, t, t, generator=g, device="cuda")
+                      .to(torch.bfloat16), True, 0.0))
+    fwd = tfa.flash_attention_fwd
+    for bias, causal, rate in cases:
+        before = (fwd.launches, fwd.wide_launches, fwd.plain_on_cuda)
+        out, lse = fwd(q, k, v, bias, causal, None, rate, 5)
+        again = fwd(q, k, v, bias, causal, None, rate, 5)
+        assert (fwd.launches, fwd.wide_launches, fwd.plain_on_cuda) == (
+            before[0] + 2, before[1] + 2, before[2])
+        ref = tfa.flash_attention_fwd_plain(q, k, v, bias, causal, None,
+                                            rate, 5)
+        for a, w in zip((out, lse), ref):
+            torch.testing.assert_close(a.float(), w.float(), rtol=2e-2,
+                                       atol=2e-2)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    query = build.load("flash_attention_wide").flash_attention_wide_ctas
+    query.argtypes = [ctypes.c_int] * 7
+    query.restype = ctypes.c_longlong
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert query(0, 1, b, nh, t, t, d) == _wide_bf16_grid(b, nh, t, t, d,
+                                                          sms)[3]

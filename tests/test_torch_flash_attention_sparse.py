@@ -618,6 +618,39 @@ def test_bf16_forward_reads_packed_heads_and_se_in_place():
     assert torch.equal(ts[0], qt) and descs[0] == tfa._tma_desc(ts[0])
 
 
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_bf16_forward_matches_jax_pallas_interpret(d):
+    """The bf16 forward at d = 320 and 512 (the wide kernel's plain version
+    on the CPU) against the JAX package's Pallas forward in interpret mode
+    on the same bf16 inputs, on two packed NMT rows (T = 128): encoder
+    self, decoder self (causal) and cross; within rtol = atol = 1e-2 (both
+    round P and the output to bf16, at different points; half a bf16 ulp at
+    |x| < 2 is below 4e-3)."""
+    import jax.numpy as jnp
+
+    fa = _jfa()
+    b, t, nh = 2, 128, 1
+    src, tgt = _packed_segs(b, t, 4)
+    q, k, v = (0.5 * _rand((b, t, nh * d), 60 + i) for i in range(3))
+    fa.FORCE_PALLAS_INTERPRET = True
+    try:
+        assert fa._sparse_pallas_ok(t, t, d)
+        for qs, ks, causal in ((src, src, False), (tgt, tgt, True),
+                               (tgt, src, False)):
+            want = fa.flash_attention_packed_sparse(
+                *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), nh, qs,
+                ks, causal=causal)
+            got = fas.flash_attention_packed_sparse(
+                *(torch.from_numpy(x).bfloat16() for x in (q, k, v)), nh,
+                torch.tensor(qs), torch.tensor(ks), causal=causal)
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_allclose(got.float().numpy(),
+                                       np.asarray(want).astype(np.float32),
+                                       rtol=1e-2, atol=1e-2, err_msg=causal)
+    finally:
+        fa.FORCE_PALLAS_INTERPRET = False
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the hand-written kernels have no "
@@ -712,6 +745,39 @@ def test_cuda_bf16_forward_entry_cross_attention(d):
     _close((out, lse), fas.flash_attention_sparse_fwd_plain(
         q, k, v, se, vis, False, None, 0.1, 5), 2e-2)
     assert not out[0].any() and (lse[0] == -1e30).all()   # row 0: all pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("t", [128, 256])
+def test_cuda_wide_bf16_forward_entry(d, t):
+    """The bf16 wide forward (flash_attention_wide_fwd_bf16) through the
+    sparse wrapper on NMT-like packed rows, B=4, nh=2: encoder self,
+    decoder self (causal, dropout) and cross (dropout), out and lse within
+    2e-2 of the plain version; one wide launch a call; an all-ones tile
+    table changes no bit (dropout on)."""
+    _cuda_or_skip()
+    b, nh = 4, 2
+    g = torch.Generator("cuda").manual_seed(d + t)
+    src_np, tgt_np = _packed_segs(b, t, 7)
+    src, tgt = (torch.tensor(x, device="cuda") for x in (src_np, tgt_np))
+    q, k, v = (torch.randn(b, t, nh * d, generator=g, device="cuda")
+               .to(torch.bfloat16).unflatten(-1, (nh, d)).transpose(1, 2)
+               for _ in range(3))
+    fwd = fas.flash_attention_sparse_fwd
+    for (qs, ks), causal, rate in (((src, src), False, 0.0),
+                                   ((tgt, tgt), True, 0.1),
+                                   ((tgt, src), False, 0.1)):
+        se = fas.pack_se(qs, ks)
+        vis = fas.compute_block_vis(se, t, t, causal=causal)
+        before = (fwd.launches, fwd.wide_launches, fwd.plain_on_cuda)
+        out, lse = fwd(q, k, v, se, vis, causal, None, rate, 5)
+        assert (fwd.launches, fwd.wide_launches, fwd.plain_on_cuda) == (
+            before[0] + 1, before[1] + 1, before[2])
+        _close((out, lse), fas.flash_attention_sparse_fwd_plain(
+            q, k, v, se, vis, causal, None, rate, 5), 2e-2)
+        ones = fwd(q, k, v, se, torch.ones_like(vis), causal, None, rate, 5)
+        assert torch.equal(out, ones[0]) and torch.equal(lse, ones[1])
 
 
 @pytest.mark.cuda
