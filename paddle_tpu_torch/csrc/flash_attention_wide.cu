@@ -27,17 +27,22 @@
 //   - dropout: the keep bit of (bh, i, j) from philox.cuh's counter rule, so
 //     the mask equals the plain version's; lse is over the undropped p.
 //   - dbias: per query (ds itself, written by the dq CTAs; the wrapper
-//     zeroes the tiles a causal walk skips) or the column sum (by the dk/dv
+//     zeroes the tiles a causal walk skips) or the column sum (by the dk
 //     CTAs, summed in a fixed order).
 //   - delta comes from the dense backward's delta kernel, before the launch.
 //   - no atomics: each output element is written by one CTA, so two calls
 //     give the same bits. Grids are flat, so B·nh has no 65,535 cap.
 //
-// Bound. The work is 4·d flops a (query, key) pair forward and 10·d
-// backward, so at d >= 320 the kernels are bound by operations, in f32
-// three TF32 products per product on the tensor cores (3xTF32, 495
-// TFLOP/s), in bf16 the tensor cores' 989 -- except the bf16 forward, whose
-// bytes take a little longer than its operations (below).
+// Bound. The work the function needs is 4·d flops a (query, key) pair
+// forward (S, P·V) and 10·d backward (S, dP, dV, dK, dQ: 2·d each), so at
+// d >= 320 the kernels are bound by operations, in f32 three TF32 products
+// per product on the tensor cores (3xTF32, 495 TFLOP/s), in bf16 the tensor
+// cores' 989 -- except the bf16 forward, whose bytes take a little longer
+// than its operations (below). The kernels do more than that, since each
+// role forms its scores itself: the f32 backward's dq and dk CTAs form S
+// and dP, its dv CTAs S (16·d a pair at d = 512, below); the bf16
+// backward's dq and dk CTAs form S and dP and its dv CTAs S once per
+// 256-column output chunk (26·d a pair at d = 512, below).
 //
 // f32 design (wide_fwd_f32_kernel; wide_role_f32_kernel and
 // wide_bwd_f32_kernel): every product -- S, P·V; S, dP, dQ, dK, dV -- in
@@ -124,24 +129,43 @@
 // rank r writes the output blocks j ≡ r (mod 2), reading the other's over
 // distributed shared memory and summing the ranks in rank order, so l, the
 // lse and two calls' bits are the same.
-// bf16 backward (wide_dq_kernel, wide_dkv_kernel), the first version: a CTA
-// owns 64 queries (64 keys in dk/dv) and one 64-wide chunk of its output's
-// head dim; the chunks are a grid factor. It forms the scores S = Q·Kᵀ (and
-// dP = dO·Vᵀ) by walking the head dim in 64-wide slices through four
-// [64][72] operand tiles in shared memory, taken in order, so the sums run
-// in one order whatever d is; every chunk of a tile recomputes the same
-// scores bit for bit, and loads only its chunk of K (dq) or of dO and Q
-// (dk/dv) for the second product (about 42 KB of shared memory a CTA).
-// Products: C[16 rows x 64] += A[16 x 64]·B[64 x 64]ᵀ with A and B
-// row-major in shared memory, in the m16n8k16 accumulator layout (lane
-// (g, t) of warp w holds rows 16w + g and 16w + g + 8, columns 8·nb + 2t
-// and 8·nb + 2t + 1) on mma.sync.m16n8k16, bf16 in, f32 accumulate, each
-// head-dim slice of S and dP summed into a partial that is added once
-// (slice_product). The second operands of dS·K, Pᵀ·dO and dSᵀ·Q are stored
-// transposed as they are loaded, and P or dS (rounded to bf16, as the TPU
-// kernels round them) go through shared memory as the A operand. It
-// recomputes the scores once per output chunk (d/64 times) and runs no copy
-// ahead of the math. Times are in PERF.md.
+// bf16 backward (bwb::wide_bwd_bf16_kernel). It runs the forward's
+// machinery three times over, one role a CTA, all in one launch (dk CTAs,
+// then dq, then dv, the shorter dv walks filling the tail):
+//   - dq: 64 queries, walking their key tiles: S = Q·Kᵀ, then dP = dO·Vᵀ,
+//     then dQ += dS·K; dk: 64 keys, walking their q tiles (from the
+//     diagonal when causal): Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, dK += dSᵀ·Q; dv: Sᵀ,
+//     then dV += P_dropᵀ·dO. Each CTA holds a chunk of up to four 64-wide
+//     output blocks, 256 columns (128 registers a thread beside the scores
+//     and their partial, 32 each, as in the forward); chunks are
+//     ceil(d / 256), a grid factor. Work a pair at d = 512: dq 2·(4d) +
+//     2d, dk the same, dv 2·(2d) + 2d, so 26d (the first design: 70d;
+//     one dk/dv role holding both outputs would need 128-column chunks,
+//     30d). P does not stay in registers while dP is formed: each thread
+//     puts its 32 values in shared memory and takes them back for dS (16
+//     KB a CTA), so no more than the forward's 192 floats are live and
+//     ptxas spills nothing.
+//   - every product on wgmma from boxes TMA writes (hopper.cuh): S and dP
+//     (and their transposes) from K-major boxes, each 64-wide head-dim
+//     slice's four k steps into a zeroed partial added in slice order, the
+//     forward's sequence, so the dq CTAs' S is the one whose lse the forward
+//     wrote; the output products take dS, P_dropᵀ or dSᵀ from registers
+//     (rounded to bf16, the RS form) and read K, dO or Q MN-major, with no
+//     transposed copy.
+//   - one ring of four 16 KB slots, an mbarrier each: an item is a slice's
+//     two operand boxes, or two output boxes; thread 0 issues each copy
+//     four items ahead, just after a product starts. A tile's first item
+//     also brings its head into one of two buffers (by the tile's parity):
+//     the bias box (the mask's row, or 64x64 per query) and, for dk and
+//     dv, the lse, delta and se of the tile's 64 queries. 101,568 bytes of
+//     shared memory at every d: two CTAs an SM.
+//   - the element loops have no branch (masks, the ragged edge and dropout
+//     are selects, p exactly 0 where masked; keep bits drawn in registers),
+//     so a skipped sparse tile, which would add exact zeros, is bitwise
+//     invisible; the per-query dbias is ds, written by the dq CTAs of chunk
+//     0 (the wrapper zeroes the tiles a causal walk skips), the column-sum
+//     dbias the dk CTAs' of chunk 0, summed in walk order; no atomics.
+// Times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,7 +183,6 @@ using bf = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // _NEG_INF of the JAX package
 constexpr int kTile = 64;          // queries, keys and head-dim columns
-constexpr int kThreads = 128;      // 4 warps of 16 rows
 
 struct WideParams {
   const void* q;
@@ -188,425 +211,9 @@ struct WideParams {
   flash::Dropout drop;
 };
 
-// Operand tiles: bf16 rows of 72 values (144 bytes, on the 16-byte grid):
-// conflict-free for the fragment reads below.
-template <typename T> struct Pitch;
-template <> struct Pitch<bf> { static constexpr int kValue = kTile + 8; };
-
-template <typename T>
-__host__ __device__ constexpr int tile_elems() {
-  return kTile * Pitch<T>::kValue;
-}
-
-// Dynamic shared memory: four operand tiles, the keep bytes of a 64x64 tile,
-// and four rows of 64 per-query values (lse, delta, start, end).
-template <typename T>
-__host__ __device__ constexpr int smem_bytes() {
-  return 4 * tile_elems<T>() * (int)sizeof(T) + kTile * flash::kKeepPitch +
-         4 * kTile * 4;
-}
-
-__device__ __forceinline__ float to_f(bf x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ bf from_f<bf>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Rows [0, 64) x columns [0, 64) of a row-major T matrix (rows `st` apart,
-// `rows` of them valid, the rest zero) into a tile; transposed (dst[c][r])
-// when TRANS.
-template <typename T, bool TRANS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long st,
-                                          int rows, int tid) {
-  constexpr int kPer = 16 / sizeof(T), kVec = kTile / kPer;
-  constexpr int P = Pitch<T>::kValue;
-  for (int i = tid; i < kTile * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * kPer;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) x = *reinterpret_cast<const uint4*>(src + r * st + c);
-    const T* xe = reinterpret_cast<const T*>(&x);
-    if (TRANS) {
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) dst[(c + e) * P + r] = xe[e];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * P + c) = x;
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c[16 rows from r0 - g, 64 columns] += A[rows][0..64)·B[0..64)[0..64)ᵀ:
-// lane (g, t) accumulates rows r0, r0 + 8 (r0 = 16·warp + g) and columns
-// 8·nb + 2t + {0, 1}, over k in order.
-__device__ __forceinline__ void product(float (&c)[8][4], const bf* A,
-                                        const bf* B, int r0, int t) {
-  constexpr int P = Pitch<bf>::kValue;
-  const int g = r0 & 7;
-#pragma unroll
-  for (int ks = 0; ks < kTile / 16; ++ks) {
-    const int col = ks * 16 + 2 * t;
-    const uint32_t a[4] = {ld_u32(A + r0 * P + col),
-                           ld_u32(A + (r0 + 8) * P + col),
-                           ld_u32(A + r0 * P + col + 8),
-                           ld_u32(A + (r0 + 8) * P + col + 8)};
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      const bf* brow = B + (nb * 8 + g) * P + col;
-      mma_bf16_16816(c[nb], a, ld_u32(brow), ld_u32(brow + 8));
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&c)[8][4]) {
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
-}
-
-// c += the product of one 64-wide head-dim slice (S, dP over the slices),
-// summed into a partial first and added with one round-to-nearest FADD:
-// the tensor core rounds its f32 sums toward zero, and at d = 512 a chain
-// of 32 such k steps drifts further from the plain version's sums than
-// the backward's tolerance allows (the per-query dbias).
-__device__ __forceinline__ void slice_product(float (&c)[8][4], const bf* A,
-                                              const bf* B, int r0, int t) {
-  float part[8][4];
-  zero(part);
-  product(part, A, B, r0, t);
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nb][e] += part[nb][e];
-}
-
-// Stores the thread's accumulator elements, rounded to T, into a tile:
-// element (row, col) of the fragment at dst[row][col].
-template <typename T>
-__device__ __forceinline__ void store_frag(T* dst, const float (&c)[8][4],
-                                           int r0, int t) {
-  constexpr int P = Pitch<T>::kValue;
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      dst[(r0 + 8 * (e >> 1)) * P + nb * 8 + 2 * t + (e & 1)] =
-          from_f<T>(c[nb][e]);
-}
-
-// Stores rows r0, r0 + 8 (of `rows` valid) of a 64-column output chunk,
-// times `scale`, rounded to T.
-template <typename T>
-__device__ __forceinline__ void store_out(T* dst, long long st,
-                                          const float (&c)[8][4], int r0,
-                                          int t, int rows, float scale) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = r0 + 8 * hh;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        dst[r * st + nb * 8 + 2 * t + e] =
-            from_f<T>(c[nb][2 * hh + e] * scale);
-  }
-}
-
 __device__ __forceinline__ void unpack_se(int se, int& start, int& end) {
   start = static_cast<int>(static_cast<unsigned>(se) >> 16);
   end = se & 0xFFFF;
-}
-
-// A flat grid index as (chunk, tile, bh): the chunks of one tile are
-// neighbours, so they read its operands while they are in L2.
-struct Cell {
-  int chunk, tile, bh, b, h;
-};
-
-__device__ __forceinline__ Cell cell_of(int ntiles, int nch, int H) {
-  const long long x = blockIdx.x;
-  Cell c;
-  c.chunk = static_cast<int>(x % nch);
-  c.tile = static_cast<int>((x / nch) % ntiles);
-  c.bh = static_cast<int>(x / ((long long)nch * ntiles));
-  c.b = c.bh / H;
-  c.h = c.bh % H;
-  return c;
-}
-
-__device__ __forceinline__ int ntiles(int T) { return (T + kTile - 1) / kTile; }
-
-// Key tiles a dense causal q tile sees.
-__device__ __forceinline__ int dense_k_tiles(const WideParams& p, int q0) {
-  int n = ntiles(p.Tk);
-  if (p.causal) n = min(n, (min(q0 + kTile, p.Tq) - 1) / kTile + 1);
-  return n;
-}
-
-struct Smem {
-  unsigned char* raw;
-  template <typename T> __device__ __forceinline__ T* tile(int i) const {
-    return reinterpret_cast<T*>(raw) + i * tile_elems<T>();
-  }
-  template <typename T> __device__ __forceinline__ uint8_t* keep() const {
-    return raw + 4 * tile_elems<T>() * sizeof(T);
-  }
-  template <typename T> __device__ __forceinline__ float* rows(int i) const {
-    return reinterpret_cast<float*>(keep<T>() + kTile * flash::kKeepPitch) +
-           i * kTile;
-  }
-};
-
-// ---------------------------------------------------------------------------
-// dq: a CTA owns 64 queries and dq columns [64·chunk, +64).
-// ---------------------------------------------------------------------------
-template <typename T, bool SPARSE>
-__global__ void __launch_bounds__(kThreads) wide_dq_kernel(WideParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem sm{smem_raw};
-  T* sQ = sm.tile<T>(0);   // Q slice, then dS
-  T* sK = sm.tile<T>(1);   // K slice, then Kᵀ chunk
-  T* sG = sm.tile<T>(2);   // dO slice
-  T* sV = sm.tile<T>(3);   // V slice
-  uint8_t* sKeep = sm.keep<T>();
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4, r0 = warp * 16 + g;
-  const int nq = ntiles(p.Tq), nk = ntiles(p.Tk), nch = p.D / kTile;
-  const Cell cell = cell_of(nq, nch, p.H);
-  const int q0 = cell.tile * kTile, oc = cell.chunk * kTile, bh = cell.bh;
-  const T* q = static_cast<const T*>(p.q) + cell.b * p.q_s[0] +
-               cell.h * p.q_s[1] + q0 * p.q_s[2];
-  const T* gg = static_cast<const T*>(p.g) + cell.b * p.g_s[0] +
-                cell.h * p.g_s[1] + q0 * p.g_s[2];
-  const T* k = static_cast<const T*>(p.k) + cell.b * p.k_s[0] +
-               cell.h * p.k_s[1];
-  const T* v = static_cast<const T*>(p.v) + cell.b * p.v_s[0] +
-               cell.h * p.v_s[1];
-  const T* bias = p.bias == nullptr ? nullptr
-      : static_cast<const T*>(p.bias) + cell.b * p.b_s[0] +
-        cell.h * p.b_s[1];
-  float* dbias = cell.chunk == 0 ? p.dbias : nullptr;  // written by one chunk
-  const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
-
-  int row[2], st[2] = {0, 0}, en[2] = {0, 0};
-  float lse[2], delta[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    row[hh] = q0 + r0 + 8 * hh;
-    const bool ok = row[hh] < p.Tq;
-    lse[hh] = ok ? p.lse[(long long)bh * p.lse_pitch + row[hh]] : 0.f;
-    delta[hh] = ok ? p.delta[(long long)bh * p.delta_pitch + row[hh]] : 0.f;
-    if (SPARSE) unpack_se(p.se[(long long)cell.b * p.Tq + row[hh]], st[hh],
-                          en[hh]);
-  }
-  float dq[8][4], s[8][4], dp[8][4];
-  zero(dq);
-
-  const int n_k = SPARSE ? nk : dense_k_tiles(p, q0);
-  const int* vis = SPARSE ? p.vis + ((long long)cell.b * nq + cell.tile) * nk
-                          : nullptr;
-  for (int kt = 0; kt < n_k; ++kt) {
-    if (SPARSE && __ldg(vis + kt) == 0) continue;  // the same for the CTA
-    const int k0 = kt * kTile;
-    zero(s);
-    zero(dp);
-    for (int d0 = 0; d0 < p.D; d0 += kTile) {
-      __syncthreads();
-      load_tile<T, false>(sQ, q + d0, p.q_s[2], p.Tq - q0, tid);
-      load_tile<T, false>(sK, k + k0 * p.k_s[2] + d0, p.k_s[2], p.Tk - k0,
-                          tid);
-      load_tile<T, false>(sG, gg + d0, p.g_s[2], p.Tq - q0, tid);
-      load_tile<T, false>(sV, v + k0 * p.v_s[2] + d0, p.v_s[2], p.Tk - k0,
-                          tid);
-      __syncthreads();
-      slice_product(s, sQ, sK, r0, t);   // S = Q·Kᵀ
-      slice_product(dp, sG, sV, r0, t);  // dP = dO·Vᵀ
-    }
-    __syncthreads();
-    load_tile<T, true>(sK, k + k0 * p.k_s[2] + oc, p.k_s[2], p.Tk - k0, tid);
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid,
-                                         kThreads);
-    __syncthreads();
-
-    // ds = p·(dp − delta) in place of s
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1, cl = nb * 8 + 2 * t + (e & 1), col = k0 + cl;
-        float x = s[nb][e] * p.sm_scale;
-        bool ok;
-        if (SPARSE) {
-          ok = col >= st[hh] && col < en[hh] && (!p.causal || col <= row[hh]);
-        } else {
-          ok = row[hh] < p.Tq && col < p.Tk;
-          if (bias != nullptr && ok)
-            x += to_f(bias[row[hh] * p.b_s[2] + col * p.b_s[3]]);
-          if (p.causal && col > row[hh]) x = kNegInf;
-        }
-        const float pr = ok ? expf(x - lse[hh]) : 0.f;
-        const bool keep = !p.drop.on ||
-            sKeep[(r0 + 8 * hh) * flash::kKeepPitch + cl];
-        const float dpv = keep ? dp[nb][e] * drop_scale : 0.f;
-        s[nb][e] = pr * (dpv - delta[hh]);
-        if (!SPARSE && dbias != nullptr && ok)  // per query: ds itself
-          dbias[((long long)bh * p.Tq + row[hh]) * p.Tk + col] = s[nb][e];
-      }
-    __syncwarp();
-    store_frag<T>(sQ, s, r0, t);  // dS, rounded to T
-    __syncwarp();
-    product(dq, sQ, sK, r0, t);   // dQ += dS·K over this chunk
-  }
-  store_out<T>(static_cast<T*>(p.dq) + cell.b * p.dq_s[0] +
-                   cell.h * p.dq_s[1] + q0 * p.dq_s[2] + oc,
-               p.dq_s[2], dq, r0, t, p.Tq - q0, p.sm_scale);
-}
-
-// ---------------------------------------------------------------------------
-// dk/dv: a CTA owns 64 keys and dk, dv columns [64·chunk, +64); its
-// fragments are Sᵀ and dPᵀ (rows keys, columns queries).
-// ---------------------------------------------------------------------------
-template <typename T, bool SPARSE>
-__global__ void __launch_bounds__(kThreads) wide_dkv_kernel(WideParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem sm{smem_raw};
-  T* sA = sm.tile<T>(0);   // K slice, then Pᵀ
-  T* sB = sm.tile<T>(1);   // Q slice, then dOᵀ chunk
-  T* sC = sm.tile<T>(2);   // V slice, then dSᵀ
-  T* sD = sm.tile<T>(3);   // dO slice, then Qᵀ chunk
-  uint8_t* sKeep = sm.keep<T>();
-  float* sLse = sm.rows<T>(0);
-  float* sDelta = sm.rows<T>(1);
-  int* sStart = reinterpret_cast<int*>(sm.rows<T>(2));
-  int* sEnd = reinterpret_cast<int*>(sm.rows<T>(3));
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4, r0 = warp * 16 + g;
-  const int nq = ntiles(p.Tq), nk = ntiles(p.Tk), nch = p.D / kTile;
-  const Cell cell = cell_of(nk, nch, p.H);
-  const int k0 = cell.tile * kTile, oc = cell.chunk * kTile, bh = cell.bh;
-  const T* q = static_cast<const T*>(p.q) + cell.b * p.q_s[0] +
-               cell.h * p.q_s[1];
-  const T* gg = static_cast<const T*>(p.g) + cell.b * p.g_s[0] +
-                cell.h * p.g_s[1];
-  const T* k = static_cast<const T*>(p.k) + cell.b * p.k_s[0] +
-               cell.h * p.k_s[1] + k0 * p.k_s[2];
-  const T* v = static_cast<const T*>(p.v) + cell.b * p.v_s[0] +
-               cell.h * p.v_s[1] + k0 * p.v_s[2];
-  const T* bias = p.bias == nullptr ? nullptr
-      : static_cast<const T*>(p.bias) + cell.b * p.b_s[0] +
-        cell.h * p.b_s[1];
-  const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
-
-  int key[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) key[hh] = k0 + r0 + 8 * hh;
-  float dk[8][4], dv[8][4], st[8][4], dpt[8][4];
-  float dbc[2] = {0.f, 0.f};
-  zero(dk);
-  zero(dv);
-
-  // dense causal: q tiles before the key tile see none of its keys
-  const int iq0 = (!SPARSE && p.causal) ? min(cell.tile, nq) : 0;
-  const int* vis = SPARSE ? p.vis + (long long)cell.b * nq * nk + cell.tile
-                          : nullptr;
-  for (int iq = iq0; iq < nq; ++iq) {
-    if (SPARSE && __ldg(vis + (long long)iq * nk) == 0) continue;
-    const int q0 = iq * kTile;
-    zero(st);
-    zero(dpt);
-    for (int d0 = 0; d0 < p.D; d0 += kTile) {
-      __syncthreads();
-      load_tile<T, false>(sA, k + d0, p.k_s[2], p.Tk - k0, tid);
-      load_tile<T, false>(sB, q + q0 * p.q_s[2] + d0, p.q_s[2], p.Tq - q0,
-                          tid);
-      load_tile<T, false>(sC, v + d0, p.v_s[2], p.Tk - k0, tid);
-      load_tile<T, false>(sD, gg + q0 * p.g_s[2] + d0, p.g_s[2], p.Tq - q0,
-                          tid);
-      __syncthreads();
-      slice_product(st, sA, sB, r0, t);   // Sᵀ = K·Qᵀ
-      slice_product(dpt, sC, sD, r0, t);  // dPᵀ = V·dOᵀ
-    }
-    __syncthreads();
-    load_tile<T, true>(sB, gg + q0 * p.g_s[2] + oc, p.g_s[2], p.Tq - q0, tid);
-    load_tile<T, true>(sD, q + q0 * p.q_s[2] + oc, p.q_s[2], p.Tq - q0, tid);
-    if (tid < kTile) {
-      const int qq = q0 + tid;
-      const bool ok = qq < p.Tq;
-      sLse[tid] = ok ? p.lse[(long long)bh * p.lse_pitch + qq] : 0.f;
-      sDelta[tid] = ok ? p.delta[(long long)bh * p.delta_pitch + qq] : 0.f;
-      int s0 = 0, e0 = 0;
-      if (SPARSE) unpack_se(p.se[(long long)cell.b * p.Tq + qq], s0, e0);
-      sStart[tid] = s0;
-      sEnd[tid] = e0;
-    }
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid,
-                                         kThreads);
-    __syncthreads();
-
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1, ql = nb * 8 + 2 * t + (e & 1), qq = q0 + ql;
-        const int kk = key[hh];
-        float x = st[nb][e] * p.sm_scale;
-        bool ok;
-        if (SPARSE) {
-          ok = kk >= sStart[ql] && kk < sEnd[ql] && (!p.causal || kk <= qq);
-        } else {
-          ok = qq < p.Tq && kk < p.Tk;
-          if (bias != nullptr && ok)
-            x += to_f(bias[qq * p.b_s[2] + kk * p.b_s[3]]);
-          if (p.causal && kk > qq) x = kNegInf;
-        }
-        const float pr = ok ? expf(x - sLse[ql]) : 0.f;
-        const bool keep = !p.drop.on ||
-            sKeep[ql * flash::kKeepPitch + r0 + 8 * hh];
-        const float dpv = keep ? dpt[nb][e] * drop_scale : 0.f;
-        const float ds = pr * (dpv - sDelta[ql]);
-        dbc[hh] += ds;
-        st[nb][e] = keep ? pr * drop_scale : 0.f;  // Pᵀ, dropped
-        dpt[nb][e] = ds;                          // dSᵀ
-      }
-    __syncwarp();
-    store_frag<T>(sA, st, r0, t);
-    store_frag<T>(sC, dpt, r0, t);
-    __syncwarp();
-    product(dv, sA, sB, r0, t);  // dV += Pᵀ·dO over this chunk
-    product(dk, sC, sD, r0, t);  // dK += dSᵀ·Q over this chunk
-  }
-  const int rows = p.Tk - k0;
-  store_out<T>(static_cast<T*>(p.dk) + cell.b * p.dk_s[0] +
-                   cell.h * p.dk_s[1] + k0 * p.dk_s[2] + oc,
-               p.dk_s[2], dk, r0, t, rows, p.sm_scale);
-  store_out<T>(static_cast<T*>(p.dv) + cell.b * p.dv_s[0] +
-                   cell.h * p.dv_s[1] + k0 * p.dv_s[2] + oc,
-               p.dv_s[2], dv, r0, t, rows, 1.f);
-  if (!SPARSE && p.dbias_col != nullptr && cell.chunk == 0) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 1);
-      dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 2);
-      if (t == 0 && key[hh] < p.Tk)
-        p.dbias_col[(long long)bh * p.Tk + key[hh]] = dbc[hh];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1640,20 +1247,467 @@ cudaError_t run(Params& p, cudaStream_t s) {
 
 }  // namespace bfw
 
-// bf16 CTAs of one backward kernel whose rows are T tokens: a 64-row tile
-// and a 64-wide output chunk each, for every (b, h).
-long long bf16_ctas(const WideParams& p, int T) {
-  return (long long)((T + kTile - 1) / kTile) * p.B * p.H * (p.D / kTile);
+// ---------------------------------------------------------------------------
+// bf16 backward: one launch of three roles, dk, dq and dv, each CTA one
+// warpgroup on wgmma over a chunk of up to four 64-wide output blocks, every
+// operand a 64x64 box that TMA writes into a ring (the design in the
+// header).
+// ---------------------------------------------------------------------------
+namespace bwb {
+
+constexpr int kThreads = 128;     // one warpgroup
+constexpr int kBox = hopper::kBoxBytes;
+constexpr int kSlot = 2 * kBox;   // a ring item: up to two boxes
+constexpr int kRing = 4;          // ring slots
+constexpr int kChunkBlocks = 4;   // output blocks (64 columns) a CTA holds
+// A tile's head: the bias box (or the mask's row) at 0, then its lse,
+// delta and se rows (dk and dv: one value a query of the tile).
+constexpr int kHeadRows = kBox;
+constexpr int kHead = kBox + 1024;
+constexpr int kStashOff = kRing * kSlot;           // P: 64x64 f32
+constexpr int kHeadOff = kStashOff + 64 * 64 * 4;  // two heads, by tile parity
+constexpr int kBarOff = kHeadOff + 2 * kHead;      // kRing slot barriers
+constexpr int kVisOff = kBarOff + 64;              // sparse: tile bits
+constexpr int kSmem = kVisOff + 128 + 1024;        // + the swizzle's align
+
+enum Role { kDk, kDq, kDv };
+
+struct Params {
+  CUtensorMap tq, tk, tv, tg;  // [B, H, T, D]: boxes of 64 rows x 64 values
+  CUtensorMap tb;              // bias [Bb, Hb, Qb, Tk]: 1 or 64 rows x 64 keys
+  CUtensorMap tlse, tdelta;    // [1, 1, B*H, Tq] f32: boxes of 64 values
+  CUtensorMap tse;             // sparse: [1, 1, B, Tq] int32: boxes of 64
+  const float* lse;            // rows lse_pitch floats apart
+  const float* delta;          // rows delta_pitch floats apart
+  const int* se;               // sparse: rows se_pitch ints apart
+  const int* vis;              // sparse: [B, Tq / 64, Tk / 64]
+  long long lse_pitch, delta_pitch, se_pitch;
+  bf* dq;
+  bf* dk;
+  bf* dv;
+  float* dbias;                // per query [B*H, Tq, Tk] or nullptr
+  float* dbias_col;            // column sum [B*H, Tk] or nullptr
+  int B, H, Tq, Tk, D;
+  long long dq_s[3], dk_s[3], dv_s[3];  // (batch, head, token) strides
+  int bias_mode;               // 0 none, 1 a row for all queries, 2 per query
+  int bias_b, bias_h;          // 1 = the bias is broadcast over batch / heads
+  float sm_scale;
+  int causal;
+  flash::Dropout drop;
+  int nch;                     // output chunks (bfw::chunks)
+  long long n_dk, n_dq;        // CTAs of the dk and dq roles; dv's follow
+};
+
+// (64-row tiles of T) x B·H
+inline long long cells(int B, int H, int T) {
+  return (long long)((T + kTile - 1) / kTile) * B * H;
 }
 
-template <typename T, bool SPARSE>
-cudaError_t run_bwd(const WideParams& p, cudaStream_t s) {
-  cudaError_t err = launch(wide_dkv_kernel<T, SPARSE>, bf16_ctas(p, p.Tk),
-                           kThreads, smem_bytes<T>(), s, p);
-  if (err != cudaSuccess) return err;
-  return launch(wide_dq_kernel<T, SPARSE>, bf16_ctas(p, p.Tq), kThreads,
-                smem_bytes<T>(), s, p);
+// One CTA of role ROLE, numbered `cta` in its role's flat grid (chunk
+// fastest, then the row tile, then b·h): rows [row0, row0 + 64) of one
+// (b, h) (queries for dq, keys for dk and dv) and the output blocks [ob0,
+// ob0 + nob) of its chunk, walking the column tiles it sees. A tile is a
+// run of ring items: per head-dim slice c the S operands (X_c, Y_c), then
+// (dq, dk) per slice the dP operands, then the output product's boxes, two
+// an item; the tile's head arrives with its first item.
+template <int ROLE, bool SPARSE>
+__device__ __forceinline__ void role_cta(const Params& p, long long cta) {
+  constexpr bool kQRows = ROLE == kDq;  // rows are queries
+  constexpr bool kDp = ROLE != kDv;     // dP is formed
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::smem_base(smem_raw);
+  unsigned char* ring = smem;
+  float4* stash = reinterpret_cast<float4*>(smem + kStashOff);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint32_t* sVis = reinterpret_cast<uint32_t*>(smem + kVisOff);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4, r0 = warp * 16 + g;
+  const int n_rows = kQRows ? p.Tq : p.Tk, n_cols = kQRows ? p.Tk : p.Tq;
+  const int nrt = (n_rows + kTile - 1) / kTile;
+  const int nct = (n_cols + kTile - 1) / kTile;
+  const int oc = static_cast<int>(cta % p.nch);
+  const long long cell = cta / p.nch;
+  const int tile = static_cast<int>(cell % nrt);
+  const int bh = static_cast<int>(cell / nrt), b = bh / p.H, h = bh % p.H;
+  const int row0 = tile * kTile;
+  const int nblk = p.D / kTile, bpc = (nblk + p.nch - 1) / p.nch;
+  const int ob0 = oc * bpc, nob = min(bpc, nblk - ob0);
+  const int n_s = nblk, n_p = kDp ? nblk : 0, n_o = (nob + 1) / 2;
+  const int n_it = n_s + n_p + n_o;  // ring items a tile
+
+  // S = X·Yᵀ, dP = Xp·Ypᵀ (rows the CTA's, columns the tile's), then out +=
+  // A·Z over the chunk's blocks (Z's rows the tile's)
+  const CUtensorMap* mx = kQRows ? &p.tq : &p.tk;
+  const CUtensorMap* my = kQRows ? &p.tk : &p.tq;
+  const CUtensorMap* mxp = kQRows ? &p.tg : &p.tv;
+  const CUtensorMap* myp = kQRows ? &p.tv : &p.tg;
+  const CUtensorMap* mz = ROLE == kDq ? &p.tk : ROLE == kDk ? &p.tq : &p.tg;
+
+  // the column tiles [ct_begin, ct_end) this CTA may visit
+  int ct_begin = 0, ct_end = nct;
+  if (!SPARSE && p.causal) {
+    if (kQRows)
+      ct_end = min(nct, (min(row0 + kTile, p.Tq) - 1) / kTile + 1);
+    else
+      ct_begin = min(tile, nct);  // q tiles from the diagonal
+  }
+  if (SPARSE) {  // this tile's row (dq) or column (dk, dv) of vis as bits
+    for (int w = warp; w * 32 < nct; w += kThreads / 32) {
+      const int ct = w * 32 + lane;
+      bool on = false;
+      if (ct < nct)
+        on = __ldg(kQRows ? p.vis + ((long long)b * nrt + tile) * nct + ct
+                          : p.vis + ((long long)b * nct + ct) * nrt + tile)
+             != 0;
+      const uint32_t bits = __ballot_sync(0xffffffffu, on);
+      if (lane == 0) sVis[w] = bits;
+    }
+  }
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  auto seek = [&](int ct) {  // the first tile from ct on that the walk takes
+    if (SPARSE)
+      while (ct < ct_end && ((sVis[ct >> 5] >> (ct & 31)) & 1u) == 0) ++ct;
+    return ct;
+  };
+  const int first = seek(ct_begin);
+  const int bias_mode = SPARSE ? 0 : p.bias_mode;
+  const int head_bytes =
+      (bias_mode == 2 ? kBox : bias_mode == 1 ? 128 : 0) +
+      (kQRows ? 0 : SPARSE ? 768 : 512);
+
+  // thread 0 keeps the ring kRing items ahead of the math: item (pt, pi) of
+  // the pn-th tile of the walk; a tile's first item also brings its head
+  // into buffer pn & 1, once every warp is past the first item of the tile
+  // before (so done with the tile before that, which used the buffer)
+  int pt = first, pi = 0, pn = 0, issued = 0, last_start = -1;
+  int released = 0;
+  auto issue = [&]() {
+    const int slot = issued % kRing;
+    unsigned char* dst = ring + slot * kSlot;
+    uint64_t* bar = &bars[slot];
+    const int c0 = pt * kTile;
+    if (pi < n_s + n_p) {
+      const bool dp = pi >= n_s;
+      const int cc = dp ? pi - n_s : pi;
+      hopper::mbar_expect_tx(bar, 2 * kBox + (pi == 0 ? head_bytes : 0));
+      hopper::tma_load(dst, dp ? mxp : mx, bar, cc * kTile, row0, h, b);
+      hopper::tma_load(dst + kBox, dp ? myp : my, bar, cc * kTile, c0, h, b);
+      if (pi == 0) {
+        unsigned char* head = smem + kHeadOff + (pn & 1) * kHead;
+        if (bias_mode != 0) {
+          const int kc = kQRows ? c0 : row0, qr = kQRows ? row0 : c0;
+          hopper::tma_load(head, &p.tb, bar, kc, bias_mode == 2 ? qr : 0,
+                           p.bias_h ? 0 : h, p.bias_b ? 0 : b);
+        }
+        if (!kQRows) {
+          hopper::tma_load(head + kHeadRows, &p.tlse, bar, c0, bh, 0, 0);
+          hopper::tma_load(head + kHeadRows + 256, &p.tdelta, bar, c0, bh, 0,
+                           0);
+          if (SPARSE)
+            hopper::tma_load(head + kHeadRows + 512, &p.tse, bar, c0, b, 0,
+                             0);
+        }
+        last_start = issued;
+      }
+    } else {
+      const int j = 2 * (pi - n_s - n_p), nb = min(2, nob - j);
+      hopper::mbar_expect_tx(bar, nb * kBox);
+      for (int i = 0; i < nb; ++i)
+        hopper::tma_load(dst + i * kBox, mz, bar, (ob0 + j + i) * kTile, c0,
+                         h, b);
+    }
+    ++issued;
+    if (++pi == n_it) {
+      pi = 0;
+      ++pn;
+      pt = seek(pt + 1);
+    }
+  };
+  // thread 0: the items after those every warp is done with, into the slots
+  // they free; called just after a product is started, so the copies are
+  // issued while the tensor cores work
+  auto refill = [&]() {
+    if (tid == 0)
+      while (pt < ct_end && issued < released + kRing &&
+             (pi != 0 || released > last_start))
+        issue();
+  };
+  refill();
+
+  uint32_t key0 = 0, key1 = 0;
+  if (p.drop.on) {
+    const unsigned long long sd =
+        static_cast<unsigned long long>(*p.drop.seed);
+    key0 = static_cast<uint32_t>(sd);
+    key1 = static_cast<uint32_t>(sd >> 32);
+  }
+  const float drop_scale = p.drop.on ? p.drop.scale : 1.f;
+  // dq: the lse, delta and se of its own rows
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  int st_r[2] = {0, 0}, en_r[2] = {0, 0};
+  if (kQRows) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + r0 + 8 * hh;
+      if (row < p.Tq) {
+        lse_r[hh] = p.lse[bh * p.lse_pitch + row];
+        delta_r[hh] = p.delta[bh * p.delta_pitch + row];
+        if (SPARSE) unpack_se(p.se[b * p.se_pitch + row], st_r[hh], en_r[hh]);
+      }
+    }
+  }
+  float o[kChunkBlocks][32], s[32], part[32];
+#pragma unroll
+  for (int j = 0; j < kChunkBlocks; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = part[i] = 0.f;
+  float dbc[2] = {0.f, 0.f};  // dk: column sums of ds for its two keys
+
+  int n = 0;  // the next item to consume
+  auto slot_of = [&](int i) {
+    hopper::mbar_wait(&bars[i % kRing], (i / kRing) & 1);
+    return ring + (i % kRing) * kSlot;
+  };
+  // acc = X·Yᵀ over the head dim, one 64-wide slice an item: each slice's
+  // four k steps into a zeroed partial, added in slice order (the tensor
+  // core's sums round toward zero; the forward sums S alike)
+  auto scores = [&](float (&acc)[32]) {
+    for (int cc = 0; cc < nblk; ++cc) {
+      const unsigned char* sl = slot_of(n++);
+      hopper::pin(part);
+      hopper::wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hopper::mma_ss<64, 0>(part, hopper::desc_kmajor(sl, ks),
+                              hopper::desc_kmajor(sl + kBox, ks), ks > 0);
+      hopper::wg_commit();
+      refill();
+      hopper::wg_wait_all();
+      hopper::pin(part);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[i] = cc == 0 ? part[i] : acc[i] + part[i];
+      __syncthreads();  // every warp is done with the slice's boxes
+      released = n;
+    }
+    refill();
+  };
+  // out += A·Z over the chunk's blocks: A (rounded to bf16) from registers,
+  // Z's boxes MN-major as TMA wrote them
+  auto output = [&](const float (&a_acc)[32]) {
+    uint32_t a[4][4];
+    hopper::acc_to_a(a, a_acc);
+    const unsigned char* zs[kChunkBlocks / 2];
+#pragma unroll
+    for (int i = 0; i < kChunkBlocks / 2; ++i)
+      zs[i] = i < n_o ? slot_of(n + i) : nullptr;
+    n += n_o;
+#pragma unroll
+    for (int j = 0; j < kChunkBlocks; ++j) hopper::pin(o[j]);
+    hopper::pin(a);
+    hopper::wg_fence();
+#pragma unroll
+    for (int j = 0; j < kChunkBlocks; ++j) {
+      if (j < nob) {
+        const unsigned char* zb = zs[j / 2] + (j % 2) * kBox;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::mma_rs<64, 1>(o[j], a[kk], hopper::desc_mnmajor(zb, kk), 1);
+      }
+    }
+    hopper::wg_commit();
+    refill();
+    hopper::wg_wait_all();
+#pragma unroll
+    for (int j = 0; j < kChunkBlocks; ++j) hopper::pin(o[j]);
+    __syncthreads();  // every warp is done with the tile's boxes
+    released = n;
+    refill();  // the next tile's first items
+  };
+
+  int jt = 0;  // the walk's tiles so far
+  for (int ct = first; ct < ct_end; ct = seek(ct + 1), ++jt) {
+    const int c0 = ct * kTile;
+    const unsigned char* head = smem + kHeadOff + (jt & 1) * kHead;
+    const float* h_lse = reinterpret_cast<const float*>(head + kHeadRows);
+    const float* h_delta = h_lse + 64;
+    const int* h_se = reinterpret_cast<const int*>(h_lse + 128);
+    scores(s);  // S (dq), Sᵀ = K·Qᵀ (dk, dv); the head has landed
+
+    // p = exp(s − lse) where visible, else exactly 0 (selects, no branch);
+    // bit i of `ok` = element i is visible
+    uint32_t ok = 0;
+    if constexpr (kQRows) {
+      float bv[32];
+      hopper::bias_rows(bv, head, bias_mode, r0, t);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1, row = row0 + r0 + 8 * hh;
+        const int key = c0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        bool v;
+        float x;
+        if (SPARSE) {
+          v = (key >= st_r[hh]) & (key < en_r[hh]) &
+              (!p.causal | (key <= row));
+          x = s[i] * p.sm_scale;
+        } else {
+          v = (row < p.Tq) & (key < p.Tk);
+          x = fmaf(s[i], p.sm_scale, bv[i]);
+          x = p.causal && key > row ? kNegInf : x;
+        }
+        const float e = hopper::ex2((x - lse_r[hh]) * hopper::kLog2e);
+        s[i] = v ? e : 0.f;
+        ok |= v ? 1u << i : 0u;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1, cq = (i >> 2) * 8 + 2 * t + (i & 1);
+        const int key = row0 + r0 + 8 * hh, qq = c0 + cq;
+        bool v;
+        float x;
+        if (SPARSE) {
+          int start, end;
+          unpack_se(h_se[cq], start, end);
+          v = (key >= start) & (key < end) & (!p.causal | (key <= qq));
+          x = s[i] * p.sm_scale;
+        } else {
+          v = (qq < p.Tq) & (key < p.Tk);
+          const float bias =
+              bias_mode == 0 ? 0.f
+              : __bfloat162float(*reinterpret_cast<const bf*>(
+                    head + hopper::swz(bias_mode == 2 ? cq : 0,
+                                       r0 + 8 * hh)));
+          x = fmaf(s[i], p.sm_scale, bias);
+          x = p.causal && key > qq ? kNegInf : x;
+        }
+        const float e = hopper::ex2((x - h_lse[cq]) * hopper::kLog2e);
+        s[i] = v ? e : 0.f;
+        ok |= v ? 1u << i : 0u;
+      }
+    }
+    // keep bits of the lane's 32 elements
+    uint32_t keep = ~0u;
+    if (p.drop.on)
+      keep = kQRows ? flash::keep_bits_rows(key0, key1, p.drop.threshold, bh,
+                                            row0 + r0, c0, t)
+                    : flash::keep_bits_cols(key0, key1, p.drop.threshold, bh,
+                                            row0 + r0, c0, lane);
+
+    if constexpr (ROLE == kDv) {
+      // dV += P_dropᵀ·dO
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = (keep >> i) & 1u ? s[i] * drop_scale : 0.f;
+      output(s);
+    } else {
+      // p waits in shared memory (each thread its own 32 values) while dP
+      // takes its registers
+#pragma unroll
+      for (int i4 = 0; i4 < 8; ++i4)
+        stash[i4 * kThreads + tid] = make_float4(
+            s[4 * i4], s[4 * i4 + 1], s[4 * i4 + 2], s[4 * i4 + 3]);
+      scores(s);  // dP (dq), dPᵀ = V·dOᵀ (dk)
+      // ds = p·(dp_drop − delta) in place of dp
+#pragma unroll
+      for (int i4 = 0; i4 < 8; ++i4) {
+        const float4 pr = stash[i4 * kThreads + tid];
+        const float pv[4] = {pr.x, pr.y, pr.z, pr.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * i4 + e, hh = (i >> 1) & 1;
+          const float dpv = (keep >> i) & 1u ? s[i] * drop_scale : 0.f;
+          const float delta =
+              kQRows ? delta_r[hh] : h_delta[(i >> 2) * 8 + 2 * t + (i & 1)];
+          s[i] = pv[e] * (dpv - delta);
+        }
+      }
+      if constexpr (ROLE == kDq) {
+        // the per-query dbias is ds itself, written by chunk 0
+        if (!SPARSE && p.dbias != nullptr && oc == 0) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int row = row0 + r0 + 8 * ((i >> 1) & 1);
+            const int key = c0 + (i >> 2) * 8 + 2 * t + (i & 1);
+            if ((ok >> i) & 1u)
+              p.dbias[((long long)bh * p.Tq + row) * p.Tk + key] = s[i];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dbc[(i >> 1) & 1] += s[i];
+      }
+      output(s);  // dQ += dS·K; dK += dSᵀ·Q
+    }
+  }
+
+  // the chunk's output blocks: rows past the tensor's end are not stored
+  bf* dst = ROLE == kDq ? p.dq : ROLE == kDk ? p.dk : p.dv;
+  const long long* st = ROLE == kDq ? p.dq_s : ROLE == kDk ? p.dk_s : p.dv_s;
+  const float scale = ROLE == kDv ? 1.f : p.sm_scale;
+  dst += b * st[0] + h * st[1];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + r0 + 8 * hh;
+    if (row >= n_rows) continue;
+    bf* orow = dst + row * st[2] + ob0 * kTile + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kChunkBlocks; ++j) {
+      if (j >= nob) continue;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * kTile + nb * 8) =
+            __floats2bfloat162_rn(o[j][4 * nb + 2 * hh] * scale,
+                                  o[j][4 * nb + 2 * hh + 1] * scale);
+    }
+  }
+  if (ROLE == kDk && !SPARSE && p.dbias_col != nullptr && oc == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 1);
+      dbc[hh] += __shfl_xor_sync(0xffffffffu, dbc[hh], 2);
+      const int key = row0 + r0 + 8 * hh;
+      if (t == 0 && key < p.Tk)
+        p.dbias_col[(long long)bh * p.Tk + key] = dbc[hh];
+    }
+  }
 }
+
+// The dk CTAs, then the dq CTAs, then the dv CTAs (whose walks are about
+// half as long) in one launch.
+template <bool SPARSE>
+__global__ void __launch_bounds__(kThreads, 2)
+wide_bwd_bf16_kernel(const __grid_constant__ Params p) {
+  const long long x = blockIdx.x;
+  if (x < p.n_dk)
+    role_cta<kDk, SPARSE>(p, x);
+  else if (x < p.n_dk + p.n_dq)
+    role_cta<kDq, SPARSE>(p, x - p.n_dk);
+  else
+    role_cta<kDv, SPARSE>(p, x - p.n_dk - p.n_dq);
+}
+
+long long ctas(int B, int H, int Tq, int Tk, int D) {
+  return (2 * cells(B, H, Tk) + cells(B, H, Tq)) * bfw::chunks(D);
+}
+
+template <bool SPARSE>
+cudaError_t run(Params& p, cudaStream_t s) {
+  p.nch = bfw::chunks(p.D);
+  p.n_dk = cells(p.B, p.H, p.Tk) * p.nch;
+  p.n_dq = cells(p.B, p.H, p.Tq) * p.nch;
+  return launch(wide_bwd_bf16_kernel<SPARSE>, 2 * p.n_dk + p.n_dq, kThreads,
+                kSmem, s, p);
+}
+
+}  // namespace bwb
 
 void copy3(long long (&dst)[3], const long long* src) {
   for (int i = 0; i < 3; ++i) dst[i] = src[i];
@@ -1762,10 +1816,9 @@ int flash_attention_wide_fwd_bf16(const long long* tensors, const int* se,
   return (int)(sparse ? bfw::run<true>(p, s) : bfw::run<false>(p, s));
 }
 
-// Backward on `stream`: f32 a launch each of the dk, dq and dv CTAs, or one
-// launch of all three on smaller grids (f32w::run_bwd); bf16 the dk/dv
-// kernel, then the dq kernel. strides: q, k, v, dO, dq, dk, dv (batch,
-// head, token) in elements, then the bias's
+// float32 backward on `stream`: a launch each of the dk, dq and dv CTAs,
+// or one launch of all three on smaller grids (f32w::run_bwd). strides: q,
+// k, v, dO, dq, dk, dv (batch, head, token) in elements, then the bias's
 // four. lse and delta rows are lse_pitch / delta_pitch floats apart (delta
 // from the dense backward's delta kernel). dbias (per query, [B*H, Tq, Tk]
 // f32, zeroed by the caller where a causal walk skips) and dbias_col
@@ -1779,9 +1832,9 @@ int flash_attention_wide_bwd(const void* q, const void* k, const void* v,
                              void* dk, void* dv, float* dbias,
                              float* dbias_col, int B, int H, int Tq, int Tk,
                              int D, const long long* strides, float sm_scale,
-                             int causal, int sparse, int dtype,
-                             const long long* seed, unsigned threshold,
-                             float drop_scale, int dropout, void* stream) {
+                             int causal, int sparse, const long long* seed,
+                             unsigned threshold, float drop_scale,
+                             int dropout, void* stream) {
   WideParams p = {};
   p.q = q; p.k = k; p.v = v; p.g = dout; p.bias = bias; p.se = se;
   p.vis = vis; p.lse = lse; p.lse_pitch = lse_pitch; p.delta = delta;
@@ -1795,12 +1848,87 @@ int flash_attention_wide_bwd(const void* q, const void* k, const void* v,
   p.sm_scale = sm_scale;
   p.causal = causal;
   set_dropout(p, seed, threshold, drop_scale, dropout);
-  if (!args_ok(p, dtype, sparse)) return (int)cudaErrorInvalidValue;
+  if (!args_ok(p, 0, sparse)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)(sparse ? f32w::run_bwd<true>(p, s)
-                        : f32w::run_bwd<false>(p, s));
-  return (int)(sparse ? run_bwd<bf, true>(p, s) : run_bwd<bf, false>(p, s));
+  return (int)(sparse ? f32w::run_bwd<true>(p, s)
+                      : f32w::run_bwd<false>(p, s));
+}
+
+// bfloat16 backward on `stream`: one launch of the dk, dq and dv CTAs.
+// `tensors` holds the tensor descriptions (hopper::kDescLen int64 each) of
+// q, k, v, dO ([B, H, T, D]), the bias (ignored when bias_mode is 0), lse
+// and delta ([1, 1, B*H, Tq] f32, rows by their pitch; delta from the dense
+// backward's delta kernel) and se ([1, 1, B, Tq] int32; ignored when sparse
+// is 0) in that order; dq, dk, dv strides are in elements. sparse = 0: the
+// dense mask, bias_mode as in flash_attention_wide_fwd_bf16, dbias and
+// dbias_col as in flash_attention_wide_bwd; sparse = 1: se and vis [B,
+// Tq/64, Tk/64] (bias_mode 0, no dbias). Dropout as in
+// flash_attention_wide_fwd. Returns a cudaError_t.
+int flash_attention_wide_bwd_bf16(
+    const long long* tensors, const int* vis, void* dq, void* dk, void* dv,
+    float* dbias, float* dbias_col, int B, int H, int Tq, int Tk, int D,
+    long long dq_sb, long long dq_sh, long long dq_st, long long dk_sb,
+    long long dk_sh, long long dk_st, long long dv_sb, long long dv_sh,
+    long long dv_st, int bias_mode, float sm_scale, int causal, int sparse,
+    const long long* seed, unsigned threshold, float drop_scale, int dropout,
+    void* stream) {
+  constexpr int n = hopper::kDescLen;
+  const long long* bias = tensors + 4 * n;
+  const long long* lse = tensors + 5 * n;
+  const long long* delta = tensors + 6 * n;
+  const long long* se = tensors + 7 * n;
+  WideParams w = {};
+  w.se = sparse ? reinterpret_cast<const int*>(se[0]) : nullptr;
+  w.vis = vis; w.B = B; w.H = H; w.Tq = Tq; w.Tk = Tk; w.D = D;
+  if (!args_ok(w, 1, sparse) || bias_mode < 0 || bias_mode > 2 ||
+      (sparse && (bias_mode != 0 || dbias != nullptr ||
+                  dbias_col != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  bwb::Params p;
+  CUtensorMap* maps[4] = {&p.tq, &p.tk, &p.tv, &p.tg};
+  cudaError_t err;
+  for (int i = 0; i < 4; ++i)
+    if ((err = hopper::make_map(maps[i], tensors + i * n, true, 64, 64)) !=
+        cudaSuccess)
+      return (int)err;
+  if (bias_mode != 0 &&
+      (err = hopper::make_map(&p.tb, bias, true, 64,
+                              bias_mode == 2 ? 64 : 1)) != cudaSuccess)
+    return (int)err;
+  // se's int32 values travel as 4-byte elements: TMA copies their bits
+  if ((err = hopper::make_map(&p.tlse, lse, false, 64, 1)) != cudaSuccess ||
+      (err = hopper::make_map(&p.tdelta, delta, false, 64, 1)) !=
+          cudaSuccess ||
+      (sparse && (err = hopper::make_map(&p.tse, se, false, 64, 1)) !=
+                     cudaSuccess))
+    return (int)err;
+  p.lse = reinterpret_cast<const float*>(lse[0]);
+  p.delta = reinterpret_cast<const float*>(delta[0]);
+  p.se = w.se;
+  p.vis = vis;
+  p.lse_pitch = lse[5] / 4;  // the byte stride of the rows
+  p.delta_pitch = delta[5] / 4;
+  p.se_pitch = se[5] / 4;
+  p.dq = static_cast<bf*>(dq);
+  p.dk = static_cast<bf*>(dk);
+  p.dv = static_cast<bf*>(dv);
+  p.dbias = dbias;
+  p.dbias_col = dbias_col;
+  p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk; p.D = D;
+  p.dq_s[0] = dq_sb; p.dq_s[1] = dq_sh; p.dq_s[2] = dq_st;
+  p.dk_s[0] = dk_sb; p.dk_s[1] = dk_sh; p.dk_s[2] = dk_st;
+  p.dv_s[0] = dv_sb; p.dv_s[1] = dv_sh; p.dv_s[2] = dv_st;
+  p.bias_mode = bias_mode;
+  p.bias_h = bias[3] == 1;  // dims innermost first: (Tk, Qb, Hb, Bb)
+  p.bias_b = bias[4] == 1;
+  p.sm_scale = sm_scale;
+  p.causal = causal;
+  p.drop.seed = seed;
+  p.drop.threshold = threshold;
+  p.drop.scale = drop_scale;
+  p.drop.on = dropout;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(sparse ? bwb::run<true>(p, s) : bwb::run<false>(p, s));
 }
 
 // Dynamic shared memory of a CTA of the forward (bwd = 0) or the
@@ -1808,20 +1936,18 @@ int flash_attention_wide_bwd(const void* q, const void* k, const void* v,
 // head dim.
 int flash_attention_wide_smem(int dtype, int bwd) {
   if (dtype == 0) return f32w::kSmemBytes;
-  return bwd ? smem_bytes<bf>() : bfw::kSmem;
+  return bwd ? bwb::kSmem : bfw::kSmem;
 }
 
-// CTAs of the forward (bwd = 0) or of the backward's launches (bwd = 1;
-// bf16: the dk/dv and dq kernels together) at a shape, on the current
-// device; -1 for arguments the entries refuse.
+// CTAs of the forward (bwd = 0) or of the backward's launches (bwd = 1) at
+// a shape, on the current device; -1 for arguments the entries refuse.
 long long flash_attention_wide_ctas(int bwd, int dtype, int B, int H, int Tq,
                                     int Tk, int D) {
   WideParams p = {};
   p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk; p.D = D;
   if (!args_ok(p, dtype, 0)) return -1;
   if (dtype == 0) return bwd ? f32w::bwd_ctas(p) : f32w::fwd_ctas(p);
-  return bwd ? bf16_ctas(p, Tq) + bf16_ctas(p, Tk)
-             : bfw::ctas(B, H, Tq, Tk, D);
+  return bwd ? bwb::ctas(B, H, Tq, Tk, D) : bfw::ctas(B, H, Tq, Tk, D);
 }
 
 const char* flash_attention_error_string(int err) {

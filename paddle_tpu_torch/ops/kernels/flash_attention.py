@@ -221,10 +221,11 @@ def flash_attention_ds_f64(q, k, v, out, lse, g, bias=None,
     """ds = p·(dp − delta), the plain backward's per-query dbias, with every
     product and sum in f64 from the given tensors ([B, nh, Tq, Tk] f64).
 
-    The reference for an f32 per-query dbias: flash_attention_bwd_plain
-    takes dp and delta in f32 whatever its inputs' dtype, and where the two
-    cancel (a causal row that sees one key, p = 1) an f32 dp at d = 512 is
-    off by more than the f32 tolerance."""
+    The reference for a per-query dbias (f32 whatever the inputs' dtype):
+    flash_attention_bwd_plain takes dp and delta in f32, and where the two
+    cancel (a causal row that sees one key, p = 1) its dp is off by more
+    than the f32 tolerance at d = 512 on f32 inputs and at d = 1024 on bf16
+    ones."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     f64 = torch.float64
@@ -760,17 +761,43 @@ def launch_wide_fwd(counter, q, k, v, bias, se, vis, causal, sm_scale,
     return out, lse
 
 
+def _wide_bwd_bf16_tensors(q, k, v, g, bias, lse, delta, se):
+    """q, k, v, dO, the bias, lse, delta and se as the bf16 wide backward's
+    TMA reads them: q, k, v and dO in place where ``_tma_desc`` describes
+    them (the [B, nh, T, d] head views of a packed [B, T, nh·d] projection,
+    at any T), else copied to contiguous ones; the bias in its compact
+    broadcast shape (``_bias_tile``); lse and delta ([B·nh, Tq] rows, e.g.
+    the delta kernel's, whose pitch is a multiple of 4 floats) as [1, 1,
+    B·nh, Tq] views read by their pitch (``_padded_rows``: copied only off
+    the 16-byte grid); se ([B, Tq] int32, sparse) as [1, 1, B, Tq]. Returns
+    (tensors, descriptions, bias mode)."""
+    b, nh, tq = q.shape[:3]
+    ts = [t if _tma_desc(t) else t.contiguous() for t in (q, k, v, g)]
+    mode, bias_desc, bias_t = _bias_tile(bias, ts[0], tq, k.shape[2])
+    rows = [_padded_rows(x, b * nh, tq) for x in (lse, delta)]
+    se_v = None if se is None else se.contiguous().view(1, 1, b, tq)
+    descs = ([_tma_desc(t) for t in ts] + [bias_desc]
+             + [_tma_desc(r) for r in rows]
+             + [[0] * _DESC_LEN if se_v is None else _tma_desc(se_v)])
+    return ts + [bias_t] + rows + [se_v], descs, mode
+
+
 def launch_wide_bwd(counter, q, k, v, out, lse, g, bias, se, vis, causal,
                     sm_scale, dropout_rate, seed, dbias=None):
-    """The wide backward: the delta kernel, then the dk/dv and dq kernels
-    (counted as one launch on `counter`); dense or block-sparse as
-    `launch_wide_fwd`. Returns (dq, dk, dv, dbias)."""
+    """The wide backward: the delta kernel, then the backward's kernels
+    (one launch of the dk, dq and dv CTAs in bf16; f32: f32w::run_bwd),
+    counted as one launch on `counter`; dense or block-sparse as
+    `launch_wide_fwd`. f32 tensors whose strides break 16-byte loads, and
+    bf16 ones TMA cannot read in place, are copied first. Returns (dq, dk,
+    dv, dbias)."""
     b, nh, tq, d = q.shape
     tk = k.shape[2]
-    q, k, v, g, out = (t if _kernel_layout_ok(t) else t.contiguous()
-                       for t in (q, k, v, g.to(q.dtype), out))
-    lse = lse.reshape(b * nh, tq)   # rows lse.stride(0) floats apart
-    lse = lse if lse.stride(1) == 1 else lse.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    g = g.to(q.dtype)
+    out = out if _kernel_layout_ok(out) else out.contiguous()
+    if not bf16:
+        q, k, v, g = (t if _kernel_layout_ok(t) else t.contiguous()
+                      for t in (q, k, v, g))
     dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
     dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
     dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
@@ -778,25 +805,46 @@ def launch_wide_bwd(counter, q, k, v, out, lse, g, bias, se, vis, causal,
     db = (torch.zeros((b, nh, tq, tk), dtype=torch.float32, device=q.device)
           if dbias == "per_q" else _dbias_out(dbias, b, nh, tq, tk,
                                                q.device))
-    bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
+    db_ptrs = (db.data_ptr() if dbias == "per_q" else None,
+               db.data_ptr() if dbias == "col" else None)
     seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
-    lib = _bind("flash_attention_wide", "flash_attention_wide_bwd",
-                [_PTR] * 5 + [_I64, _PTR, _I64] + [_PTR] * 8 + [_I32] * 5
-                + [_PTR, _F32] + [_I32] * 3 + _DROPOUT_ARGS + [_PTR])
+    vis_ptr = vis.data_ptr() if vis is not None else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        delta = _launch_delta(out, g, stream)
-        err = lib.flash_attention_wide_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), lse.stride(0), delta.data_ptr(), delta.stride(0),
-            bias_ptr, se.data_ptr() if se is not None else None,
-            vis.data_ptr() if vis is not None else None, dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(),
-            db.data_ptr() if dbias == "per_q" else None,
-            db.data_ptr() if dbias == "col" else None, b, nh, tq, tk, d,
-            _wide_strides((q, k, v, g, dq, dk, dv), bias_strides),
-            float(sm_scale), int(causal), int(se is not None),
-            _DTYPE_CODE[q.dtype], seed_ptr, thr, inv, drop, stream)
+        if bf16:
+            g = g if _tma_desc(g) else g.contiguous()  # one layout for both
+            delta = _launch_delta(out, g, stream)
+            _ts, descs, mode = _wide_bwd_bf16_tensors(
+                q, k, v, g, bias, lse, delta[:, :tq], se)
+            lib = _bind("flash_attention_wide",
+                        "flash_attention_wide_bwd_bf16",
+                        [_PTR] * 7 + [_I32] * 5 + [_I64] * 9
+                        + [_I32, _F32] + [_I32] * 2 + _DROPOUT_ARGS + [_PTR])
+            err = lib.flash_attention_wide_bwd_bf16(
+                _descs(*descs), vis_ptr, dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *db_ptrs, b, nh, tq, tk, d, *dq.stride()[:3],
+                *dk.stride()[:3], *dv.stride()[:3], mode, float(sm_scale),
+                int(causal), int(se is not None), seed_ptr, thr, inv, drop,
+                stream)
+        else:
+            lse = lse.reshape(b * nh, tq)   # rows lse.stride(0) floats apart
+            lse = lse if lse.stride(1) == 1 else lse.contiguous()
+            bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
+            lib = _bind("flash_attention_wide", "flash_attention_wide_bwd",
+                        [_PTR] * 5 + [_I64, _PTR, _I64] + [_PTR] * 8
+                        + [_I32] * 5 + [_PTR, _F32] + [_I32] * 2
+                        + _DROPOUT_ARGS + [_PTR])
+            delta = _launch_delta(out, g, stream)
+            err = lib.flash_attention_wide_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), lse.stride(0), delta.data_ptr(),
+                delta.stride(0), bias_ptr,
+                se.data_ptr() if se is not None else None, vis_ptr,
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *db_ptrs, b, nh,
+                tq, tk, d, _wide_strides((q, k, v, g, dq, dk, dv),
+                                         bias_strides),
+                float(sm_scale), int(causal), int(se is not None), seed_ptr,
+                thr, inv, drop, stream)
     _raise_on(lib, err, "flash_attention_bwd")
     counter.launches += 1
     counter.wide_launches += 1

@@ -21,6 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from paddle_tpu_torch.ops.kernels import flash_attention_sparse as tfas
 from paddle_tpu_torch.ops.kernels.tf32x3 import (mm_3xtf32, mm_3xtf32_groups,
                                                  rna_tf32, rz_f32, trunc_tf32)
 
@@ -1264,7 +1265,7 @@ def test_cuda_wide_bf16_forward_entry(d, t, b, nh):
     ragged T, the wide path's dense shape and B·nh = 65,600: the mask with
     dropout and a per-query bias, causal (out and lse within 2e-2); one
     wide launch a call, no plain call; a second call equal bit for bit; its
-    CTAs those of the replayed grid on this card."""
+    CTAs, and the backward's, those of the replayed grids on this card."""
     _cuda_or_skip()
     from paddle_tpu_torch.ops.kernels import build
 
@@ -1294,3 +1295,292 @@ def test_cuda_wide_bf16_forward_entry(d, t, b, nh):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert query(0, 1, b, nh, t, t, d) == _wide_bf16_grid(b, nh, t, t, d,
                                                           sms)[3]
+    assert query(1, 1, b, nh, t, t, d) == _wide_bf16_bwd_writes(
+        b, nh, t, t, d)[4]
+
+
+# -- the bf16 wide backward (csrc/flash_attention_wide.cu, bwb) --------------
+
+def _wide_bf16_bwd_writes(b, nh, tq, tk, d, causal=False, vis=None):
+    """The bf16 wide backward's launch, replayed from the C source
+    (bwb::cells, ctas, role_cta and bfw::chunks): the dk CTAs, then the dq
+    CTAs, then the dv CTAs of one flat grid, each numbered in its role's
+    grid with the chunk fastest, then the row tile, then b·h; a chunk holds
+    up to four 64-wide output blocks (chunks ceil(d / 256)); a CTA walks
+    the column tiles it sees (dense causal: dq up to the diagonal, dk and dv
+    from it; sparse: the bits of its row or column of `vis`). Returns the
+    counts: per role the [B·nh, row tiles, 64-wide blocks] output blocks it
+    writes; the per-query dbias blocks [B·nh, q tiles, key tiles] (dq,
+    chunk 0, dense) and column-dbias tiles [B·nh, key tiles] (dk, chunk 0,
+    dense); per role the walks [B·nh, q tiles, key tiles, chunk]; the CTAs
+    and the flops a visible (query, key) pair costs over all roles."""
+    nblk, nq, nk = d // 64, -(-tq // 64), -(-tk // 64)
+    nch = -(-nblk // 4)
+    bpc = -(-nblk // nch)
+    n_dk, n_dq = nk * b * nh * nch, nq * b * nh * nch
+    ctas = 2 * n_dk + n_dq
+    x = np.arange(ctas, dtype=np.int64)
+    role = np.where(x < n_dk, 0, np.where(x < n_dk + n_dq, 1, 2))
+    local = x - np.array([0, n_dk, n_dk + n_dq])[role]
+    oc, cell = local % nch, local // nch
+    nrt = np.where(role == 1, nq, nk)
+    tile, bh = cell % nrt, cell // nrt
+    assert bh.max() == b * nh - 1
+    names = ("dk", "dq", "dv")
+    blocks = {n: np.zeros((b * nh, nq if n == "dq" else nk, nblk), np.int64)
+              for n in names}
+    walks = {n: np.zeros((b * nh, nq, nk, nch), np.int64) for n in names}
+    per_q = np.zeros((b * nh, nq, nk), np.int64)
+    col = np.zeros((b * nh, nk), np.int64)
+    for r, n in enumerate(names):
+        for j in range(4):   # the kernel's unrolled output blocks
+            mine = (role == r) & (oc * bpc + j < np.minimum(nblk,
+                                                          (oc + 1) * bpc))
+            np.add.at(blocks[n], (bh[mine], tile[mine], (oc * bpc + j)[mine]),
+                      1)
+    for ct in range(max(nq, nk)):   # the walks' column tiles
+        qt = np.where(role == 1, tile, ct)
+        kt = np.where(role == 1, ct, tile)
+        seen = ct < np.where(role == 1, nk, nq)
+        if vis is not None:
+            seen &= vis[bh // nh, np.minimum(qt, nq - 1),
+                        np.minimum(kt, nk - 1)] != 0
+        elif causal:
+            seen &= np.where(role == 1, ct <= (np.minimum(tile * 64 + 64, tq)
+                                               - 1) // 64, ct >= tile)
+        for r, n in enumerate(names):
+            mine = seen & (role == r)
+            np.add.at(walks[n], (bh[mine], qt[mine], kt[mine], oc[mine]), 1)
+        if vis is None:
+            mine = seen & (role == 1) & (oc == 0)
+            np.add.at(per_q, (bh[mine], qt[mine], kt[mine]), 1)
+    if vis is None:
+        mine = (role == 0) & (oc == 0)
+        np.add.at(col, (bh[mine], tile[mine]), 1)
+    # flops a pair: each chunk of each role forms S (2d), dq and dk dP (2d);
+    # the output products sum to 2d a role over the chunks
+    flops = nch * (3 + 2) * 2 * d + 3 * 2 * d
+    return blocks, per_q, col, walks, ctas, flops
+
+
+@pytest.mark.parametrize("d", [320, 384, 512, 1024])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("shape,kind", [
+    ((4, 2, 512, 512), "dense"),    # the wide path's dense shape
+    ((4, 2, 512, 512), "causal"),
+    ((4, 2, 256, 256), "sparse"),   # its sparse shape (encoder self)
+    ((4, 2, 256, 256), "sparse causal"),
+    ((2, 2, 200, 200), "causal"),   # a ragged T
+    ((50, 1312, 64, 64), "dense"),  # B·nh = 65,600: past the 65,535 cap
+])
+def test_wide_bf16_backward_grid_writes_each_output_once(shape, kind, sms,
+                                                         d):
+    """Every 64x64 block of dq, dk and dv is written by exactly one CTA of
+    the bf16 wide backward's flat grid (the dk, dq and dv CTAs of one
+    launch), each per-query dbias block the dq walk visits and each
+    column-dbias tile once, and each visible (q tile, key tile) pair is
+    walked exactly once by each (role, chunk), other pairs never: at d =
+    320 to 1024, dense (causal or not) and block-sparse on packed NMT rows.
+    The grid does not depend on the card's SMs (132 or 114). At d = 512 a
+    pair costs 26·d flops over the three roles (at most 30·d)."""
+    b, nh, t, tk = shape
+    causal = "causal" in kind
+    vis = None
+    nq, nk = -(-t // 64), -(-tk // 64)
+    visible = np.ones((b, nq, nk), bool)
+    if kind.startswith("sparse"):
+        seg = torch.tensor(_packed_rows(b, t))
+        vis = tfas.compute_block_vis(tfas.pack_se(seg, seg), t, tk,
+                                          causal=causal).numpy()
+        visible = vis != 0
+    elif causal:
+        visible = np.tril(np.ones((nq, nk), bool))[None].repeat(b, 0)
+    blocks, per_q, col, walks, ctas, flops = _wide_bf16_bwd_writes(
+        b, nh, t, tk, d, causal, vis)
+    for n in ("dq", "dk", "dv"):
+        assert (blocks[n] == 1).all(), n
+        want = np.repeat(visible, nh, 0)[..., None].repeat(walks[n].shape[-1],
+                                                            -1)
+        assert (walks[n] == want).all(), n
+    if vis is None:
+        assert (per_q == np.repeat(visible, nh, 0)).all()
+        assert (col == 1).all()
+    assert ctas < 2 ** 31
+    assert ctas == 3 * nq * b * nh * -(-d // 256)   # Tq = Tk here
+    if d == 512:
+        assert flops == 26 * d <= 30 * d
+
+
+def _packed_rows(b, t, seed=4):
+    """[b, t] segment ids of packed rows of sentences of 4 to 60 tokens
+    (pad at the end of each row), as reader.pack_by_tokens fills them."""
+    rng = np.random.RandomState(seed)
+    seg = np.zeros((b, t), np.int32)
+    for i in range(b):
+        pos, sid = 0, 1
+        while True:
+            n = int(rng.randint(4, 61))
+            if pos + n > t - 8:
+                break
+            seg[i, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return seg
+
+
+def test_wide_bf16_backward_reads_packed_heads_and_rows_in_place():
+    """The bf16 wide backward's TMA maps read q, k, v and dO as [B, nh, T,
+    d] head views of packed [B, T, nh·d] projections, the [B, 1, 1, T] mask,
+    and the lse and delta rows ([B·nh, pitch] buffers, pitch Tq rounded up
+    to 4 floats) by their pitch, all in place, at d = 320 and 512 and a
+    ragged T; se's [1, 1, B, Tq] view in place too; a tensor whose last dim
+    is not contiguous is copied, never refused, and lse rows off the
+    16-byte grid are copied onto it."""
+    for d, t in ((320, 200), (512, 256)):
+        b, nh = 2, 2
+        qkv = torch.zeros(b, t, 3 * nh * d, dtype=torch.bfloat16)
+        q, k, v = (x.unflatten(-1, (nh, d)).transpose(1, 2)
+                   for x in qkv.split(nh * d, dim=-1))
+        g = torch.zeros(b, t, nh * d, dtype=torch.bfloat16).unflatten(
+            -1, (nh, d)).transpose(1, 2)
+        pitch = -(-t // 4) * 4
+        lse = torch.zeros(b * nh, pitch)[:, :t].view(b, nh, t)
+        delta = torch.zeros(b * nh, pitch)[:, :t]
+        mask = torch.zeros(b, 1, 1, t, dtype=torch.bfloat16)
+        ts, descs, mode = tfa._wide_bwd_bf16_tensors(q, k, v, g, mask, lse,
+                                                     delta, None)
+        assert [x.data_ptr() for x in ts[:7]] == [
+            x.data_ptr() for x in (q, k, v, g, mask, lse, delta)]
+        assert mode == 1 and descs[4] == tfa._tma_desc(mask)
+        assert descs[0][1:] == [d, t, nh, b, 3 * nh * d * 2, d * 2,
+                                t * 3 * nh * d * 2]
+        assert descs[3][1:] == [d, t, nh, b, nh * d * 2, d * 2,
+                                t * nh * d * 2]
+        for desc, x in zip(descs[5:7], (lse, delta)):
+            assert desc == [x.data_ptr(), t, b * nh, 1, 1, pitch * 4,
+                            b * nh * pitch * 4, b * nh * pitch * 4]
+        assert ts[7] is None and descs[7] == [0] * 8
+    seg = torch.tensor(_packed_rows(b, t))
+    se = tfas.pack_se(seg, seg)
+    ts, descs, mode = tfa._wide_bwd_bf16_tensors(q, k, v, g, None, lse,
+                                                 delta, se)
+    assert mode == 0 and ts[4] is None and descs[4] == [0] * 8
+    assert ts[7].data_ptr() == se.data_ptr()
+    assert descs[7] == [se.data_ptr(), t, b, 1, 1, t * 4, b * t * 4,
+                        b * t * 4]
+    qt = torch.zeros(b, nh, d, t, dtype=torch.bfloat16).transpose(2, 3)
+    lse_off = torch.zeros(b * nh, t + 1)[:, :t]   # rows 4·257 bytes apart
+    ts, descs, _ = tfa._wide_bwd_bf16_tensors(qt, k, v, qt, None, lse_off,
+                                              delta, None)
+    assert ts[0].data_ptr() != qt.data_ptr() and ts[0].is_contiguous()
+    assert torch.equal(ts[0], qt) and descs[0] == tfa._tma_desc(ts[0])
+    assert ts[5].data_ptr() != lse_off.data_ptr()
+    assert torch.equal(ts[5][0, 0], lse_off) and descs[5][5] == t * 4
+
+
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("case", ["mask", "per_q_causal"])
+def test_wide_bf16_backward_matches_pallas_interpret(case, d, monkeypatch):
+    """The bf16 backward at d = 320 and 512 (the wide kernel's plain
+    version on the CPU) against jax.vjp through the JAX package's Pallas
+    kernels in interpret mode, on the same bf16 inputs and cotangent, T =
+    128: with the [B,1,1,T] mask (its column-sum dbias) and with a
+    per-query bias, causal (its dbias is ds): dq, dk, dv and dbias each
+    within 1e-2 of its largest |value| (both round P, dS and dO to bf16
+    before their products, at different points, and the gradients to bf16;
+    the card's bf16 backward is held to the plain version as closely)."""
+    import jax
+
+    monkeypatch.setattr(jfa, "FORCE_PALLAS_INTERPRET", True)
+    b, h, t = 1, 2, 128
+    assert jfa._pallas_ok(t, d)
+    q, k, v, dy = (_rand((b, h, t, d), 90 + i, 0.5) for i in range(4))
+    if case == "mask":
+        bias = np.where(np.random.RandomState(9).rand(b, 1, 1, t) > 0.25,
+                        0.0, -1e4).astype(np.float32)
+    else:
+        bias = _rand((b, h, t, t), 95, 0.5)
+    causal = case.endswith("causal")
+
+    def f(q_, k_, v_, b_):
+        return jfa.flash_attention(q_, k_, v_, bias=b_, causal=causal)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x, jnp.bfloat16)
+                          for x in (q, k, v, bias)))
+    want = vjp(jnp.asarray(dy, jnp.bfloat16))
+    targs = [torch.from_numpy(x).bfloat16().requires_grad_()
+             for x in (q, k, v, bias)]
+    out = tfa.flash_attention(*targs[:3], bias=targs[3], causal=causal)
+    got = torch.autograd.grad(out, targs, torch.from_numpy(dy).bfloat16())
+    for a, w, name in zip(got, want, ("dq", "dk", "dv", "dbias")):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
+        a, w = a.float().numpy(), np.asarray(w).astype(np.float32)
+        assert np.abs(a - w).max() <= 1e-2 * np.abs(w).max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t,b,nh", [
+    (320, 200, 2, 2), (512, 200, 2, 2), (512, 512, 4, 2), (1024, 256, 1, 2)])
+def test_cuda_wide_bf16_backward_entry(d, t, b, nh):
+    """The bf16 wide backward (flash_attention_wide_bwd_bf16) on the card
+    against its plain version at a ragged T, the wide path's dense shape
+    and d = 1024: the mask with dropout (column-sum dbias) and a per-query
+    bias, causal (per-query dbias), then block-sparse causal with dropout
+    where T is a multiple of 64; dq, dk, dv within 1e-2 of their largest
+    |value|, the column-sum dbias within 2e-5 of the plain version's, the
+    per-query one within 2e-5 of the plain formula in f64 (the plain
+    version's f32 dp is off by more at d = 1024); one wide launch a call,
+    no plain call; a second call equal bit for bit; its CTAs those of the
+    replayed grid."""
+    _cuda_or_skip()
+    from paddle_tpu_torch.ops.kernels import build
+
+    (q, k, v), g = _cuda_qkv(b, nh, t, d, torch.bfloat16, 12)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    mask = torch.zeros(b, 1, 1, t, device="cuda", dtype=torch.bfloat16)
+    mask[..., 3 * t // 4:] = -1e4
+    per_q = torch.randn(b, nh, t, t, generator=g,
+                        device="cuda").to(torch.bfloat16)
+    bwd = tfa.flash_attention_bwd
+    for bias, causal, rate, form in ((mask, False, 0.1, "col"),
+                                     (per_q, True, 0.0, "per_q")):
+        out, lse = tfa.flash_attention_fwd(q, k, v, bias, causal, None, rate,
+                                           5)
+        before = (bwd.launches, bwd.wide_launches, bwd.plain_on_cuda)
+        got = bwd(q, k, v, out, lse, dout, bias, causal, None, rate, 5, form)
+        again = bwd(q, k, v, out, lse, dout, bias, causal, None, rate, 5,
+                    form)
+        assert (bwd.launches, bwd.wide_launches, bwd.plain_on_cuda) == (
+            before[0] + 2, before[1] + 2, before[2])
+        want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, dout, bias,
+                                             causal, None, rate, 5, form)
+        for a, w in zip(got[:3], want[:3]):
+            err = (a.float() - w.float()).abs().max().item()
+            assert err <= 1e-2 * w.float().abs().max().item(), err
+        ref_db = want[3] if form == "col" else tfa.flash_attention_ds_f64(
+            q, k, v, out, lse, dout, bias, causal, None, rate, 5).float()
+        torch.testing.assert_close(got[3], ref_db, rtol=2e-5, atol=2e-5)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if t % 64 == 0:
+        seg = torch.tensor(_packed_rows(b, t), device="cuda")
+        se = tfas.pack_se(seg, seg)
+        vis = tfas.compute_block_vis(se, t, t, causal=True)
+        sbwd = tfas.flash_attention_sparse_bwd
+        out, lse = tfas.flash_attention_sparse_fwd(q, k, v, se, vis, True,
+                                                   None, 0.1, 5)
+        before = (sbwd.launches, sbwd.wide_launches, sbwd.plain_on_cuda)
+        got = sbwd(q, k, v, out, lse, dout, se, vis, True, None, 0.1, 5)
+        assert (sbwd.launches, sbwd.wide_launches, sbwd.plain_on_cuda) == (
+            before[0] + 1, before[1] + 1, before[2])
+        want = tfas.flash_attention_sparse_bwd_plain(
+            q, k, v, out, lse, dout, se, vis, True, None, 0.1, 5)
+        for a, w in zip(got, want):
+            err = (a.float() - w.float()).abs().max().item()
+            assert err <= 1e-2 * w.float().abs().max().item(), err
+        ones = torch.ones_like(vis)
+        assert all(torch.equal(x, y) for x, y in zip(got, sbwd(
+            q, k, v, out, lse, dout, se, ones, True, None, 0.1, 5)))
+    query = build.load("flash_attention_wide").flash_attention_wide_ctas
+    query.argtypes = [ctypes.c_int] * 7
+    query.restype = ctypes.c_longlong
+    assert query(1, 1, b, nh, t, t, d) == _wide_bf16_bwd_writes(
+        b, nh, t, t, d)[4]

@@ -889,3 +889,43 @@ def test_sparse_op_and_layer():
         torch.tensor(seg), causal=True)
     np.testing.assert_array_equal(got[0], direct.numpy())
     np.testing.assert_allclose(got[0], got[1], **FWD_TOL)
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_wide_bf16_backward_matches_jax_pallas_interpret(d):
+    """The bf16 backward at d = 320 and 512 (the wide kernel's plain
+    version on the CPU) against jax.vjp through the JAX package's Pallas
+    kernels in interpret mode, on the same bf16 inputs and cotangent, on
+    two packed NMT rows (T = 128), decoder self (causal): dq, dk and dv
+    each within 1e-2 of its largest |value| (both round P, dS and dO to
+    bf16 before their products, at different points); the pad rows'
+    gradients exactly 0."""
+    import jax
+    import jax.numpy as jnp
+
+    fa = _jfa()
+    b, t, nh = 2, 128, 1
+    _, tgt = _packed_segs(b, t, 4)
+    q, k, v, dy = (0.5 * _rand((b, t, nh * d), 64 + i) for i in range(4))
+    fa.FORCE_PALLAS_INTERPRET = True
+    try:
+        assert fa._sparse_pallas_ok(t, t, d)
+        _, vjp = jax.vjp(
+            lambda *a: fa.flash_attention_packed_sparse(*a, nh, tgt, tgt,
+                                                        causal=True),
+            *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+        want = vjp(jnp.asarray(dy, jnp.bfloat16))
+    finally:
+        fa.FORCE_PALLAS_INTERPRET = False
+    targs = [torch.from_numpy(x).bfloat16().requires_grad_()
+             for x in (q, k, v)]
+    out = fas.flash_attention_packed_sparse(
+        *targs, nh, torch.tensor(tgt), torch.tensor(tgt), causal=True)
+    got = torch.autograd.grad(out, targs, torch.from_numpy(dy).bfloat16())
+    pad = tgt == 0
+    assert pad.any()
+    for a, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == torch.bfloat16, name
+        a, w = a.float().numpy(), np.asarray(w).astype(np.float32)
+        assert np.abs(a - w).max() <= 1e-2 * np.abs(w).max(), name
+        assert not a[pad].any(), name
