@@ -45,9 +45,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              is their 3xTF32 one, the FMA bound beside it); logs the bf16
              flash kernels' registers, spills, dynamic shared memory and
              HGMMA count (the sparse forward's and backward's too), and the
-             f32 tensor-core flash kernels' (dense forward and backward,
-             sparse backward) and K2's registers and spills and the f32
-             flash kernels' HMMA count; the wide kernels' registers,
+             f32 tensor-core flash kernels' (dense and sparse forwards and
+             backwards) and K2's registers and spills and the f32
+             flash kernels' HMMA count, the f32 sparse forward's shared
+             memory and CTAs an SM; the wide kernels' registers,
              spills, HGMMA, HMMA and UTMALDG counts and dynamic shared
              memory.
 4. serve   — main path 1: BERT-base at full width (vocab 30522, hidden 768,
@@ -102,8 +103,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              with the computed one (dropout on); times each kernel, its
              plain version and F.scaled_dot_product_attention with the dense
              boolean mask (and the backward's delta kernel alone), and
-             the bound over the visible (i, j) pairs (the f32 backward's in
-             3xTF32, the FMA bound beside it), at every case. Then the
+             the bound over the visible (i, j) pairs (the f32 kernels' in
+             3xTF32, the FMA bound beside it), at every case. Then the f32
+             kernels at d = 64 to 256 (B=2, nh=2, T=256; the same checks)
+             and the f32 forward's entry at Tq=192 != Tk=256 (its CTAs,
+             out's chunks bitwise equal where V's are copies). Then the
              sparse route:
              B·nh = 65,600 through the kernels (flat grids), T = 96 and
              d = 32 through the counted plain route.
@@ -119,12 +123,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              the segment rows reach pack_se contiguous, step time, non-pad
              target tokens/s,
              device busy share, device ms by kernel kind and peak memory.
-             Then one f32 step at 2+2 layers (full width, B=4, T=128,
+             Then the same model in f32 (no AMP) for three steps (one; one
+             unprofiled and one profiled): a finite first loss near
+             ln 32000, 18 forward and 18 backward sparse launches a step,
+             no plain call; its step time, device busy share and the
+             sparse kernels' ms. Then one f32 step at 2+2 layers (full width, B=4, T=128,
              dropout 0) on CUDAPlace(0) and CPUPlace() from the same
              weights: the loss within 1e-5, every gradient within 1e-4
              relative L2 (or twice the CPU's own one-ulp spread where that
-             is larger); its sparse launches are the f32 kernels' count,
-             and one more step on the card is profiled (device ms by
+             is larger); its sparse launches and the full-depth run's are
+             the f32 kernels' count, and one more step on the card is
+             profiled (device ms by
              kind, the f32 sparse kernels' among them).
 9b. wide    — main path 7: the wide flash kernels (d > 256) through
              Executor.run: BERT pretraining at hidden 1024 cut to 2 heads
@@ -519,15 +528,16 @@ def kernel_label(mangled):
 
 
 # the f32 kernels whose products run on the tensor cores in 3xTF32
-F32_TC_KERNELS = ("flash_fwd_f32", "flash_bwd_f32", "sparse_bwd_f32",
-                  "conv_stats_f32")
+F32_TC_KERNELS = ("flash_fwd_f32", "flash_bwd_f32", "sparse_fwd_f32",
+                  "sparse_bwd_f32", "conv_stats_f32")
 
 
 def log_wgmma_build(build):
     """ptxas's registers, shared memory and spills for each bf16 flash
     kernel by name (the dense ones, the sparse forward and backward), the
-    f32 flash kernels on the tensor cores (the dense forward and backward,
-    the sparse backward: each backward's dk/dv and dq CTAs in one kernel),
+    f32 flash kernels on the tensor cores (the dense and sparse forwards and
+    backwards: each backward's dk/dv and dq CTAs in one kernel; the f32
+    sparse forward's dynamic shared memory and the CTAs an SM it allows),
     K2's apply_kernel, K3's bwd_dx_kernel, K4's conv_stats_f32_kernel and
     conv_stats_bf16_kernel and the wide flash kernels; where the toolkit
     has cuobjdump, the count of HGMMA (wgmma) and UTMALDG (TMA load)
@@ -584,11 +594,17 @@ def log_wgmma_build(build):
         query.restype = ctypes.c_int
         if sparse:
             fwd_query = lib_so.flash_attention_sparse_fwd_bf16_smem
-            fwd_query.argtypes = [ctypes.c_int]
-            fwd_query.restype = ctypes.c_int
+            f32_query = lib_so.flash_attention_sparse_fwd_smem
+            for fn in (fwd_query, f32_query):
+                fn.argtypes = [ctypes.c_int]
+                fn.restype = ctypes.c_int
         for d in (64, 128) + WIDE_D:   # bias mode 1 = the mask, 2 = per q
             if sparse:
                 smem = {"fwd": fwd_query(d), "bwd": query(d)}
+                # 228 KB of shared memory an SM, 1 KB of it reserved a CTA
+                log(f"build {lib}: f32 fwd d={d} dynamic shared memory "
+                    f"{f32_query(d)} bytes a CTA, "
+                    f"{233472 // (f32_query(d) + 1024)} CTAs an SM by it")
             elif lib == "flash_attention_fwd":
                 smem = {f"fwd mode {m}": query(d, m) for m in (1, 2)}
             else:
@@ -2336,12 +2352,13 @@ def sparse_timing(fas, dt, inputs, stats):
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dt)
         rec.update(flops=flops, bytes=nbytes)
     if dt == "float32":
-        # the f32 backward runs three TF32 products per product on the
-        # tensor cores (3xTF32): that is its least time; the CUDA-core FMA
-        # bound stays beside it
-        bwd["bound_fma_ms"] = bwd["bound_ms"]
-        bwd["bound_ms"], bwd["bound_by"] = bound(
-            3 * bwd["flops"], bwd_bytes, dt, TF32_PEAK_FLOPS)
+        # the f32 kernels run three TF32 products per product on the tensor
+        # cores (3xTF32): that is their least time; the CUDA-core FMA bound
+        # stays beside it
+        for rec in (fwd, bwd):
+            rec["bound_fma_ms"] = rec["bound_ms"]
+            rec["bound_ms"], rec["bound_by"] = bound(
+                3 * rec["flops"], rec["bytes"], dt, TF32_PEAK_FLOPS)
     return fwd, bwd
 
 
@@ -2380,6 +2397,107 @@ def phase_kernel_sparse(fas):
                     records[(kname, dt)] = dict(r, max_abs_err=e)
             log("kernel sparse " + json.dumps(rec))
     return records
+
+
+def phase_sparse_f32_head_dims(fas):
+    """The f32 sparse kernels at every head dim they take (d = 64 to 256;
+    B=2, nh=2, T=256, two packed NMT rows, the encoder's second row all
+    pad): encoder self at d = 64, 128 and 256, decoder causal self at d = 64
+    and 192, dropout 0 or 0.1 as test_cuda_kernels_match_plain takes them:
+    out and lse within TOL, dq, dk and dv within BWD_TOL fed the kernel's
+    lse, two backward calls bitwise equal, the all-ones tile table bitwise
+    equal to the computed one, the pad row exactly zero, one launch a call.
+    Then the forward's entry at cross attention Tq=192 != Tk=256 with
+    dropout at each head dim (test_cuda_f32_forward_entry): its CTAs (one
+    per output chunk, q tile and b·h), out and lse within TOL, a pad query
+    row exactly 0 and -1e30, and out's 64-wide chunks bitwise equal where
+    V's are copies of one another (every chunk CTA forms the same softmax,
+    so the lse chunk 0 writes is every chunk's)."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(15)
+    b, nh, t = 2, 2, NMT_T
+    ((stack, _),) = nmt_batches(b, t, 1)
+    src = torch.tensor(stack["src_seg"], device="cuda")
+    tgt = torch.tensor(stack["tgt_seg"], device="cuda")
+    src[-1] = 0
+    fwd, bwd = fas.flash_attention_sparse_fwd, fas.flash_attention_sparse_bwd
+    for d, causal, rate in ((64, False, 0.0), (64, True, DROPOUT),
+                            (128, False, DROPOUT), (192, True, 0.0),
+                            (256, False, DROPOUT)):
+        seg = tgt if causal else src
+        se = fas.pack_se(seg, seg)
+        vis = fas.compute_block_vis(se, t, t, causal=causal)
+        q, k, v, dout = (packed_heads(b, t, nh, d, torch.float32, gen)
+                         for _ in range(4))
+        before = (fwd.launches, bwd.launches, fwd.plain_on_cuda,
+                  bwd.plain_on_cuda)
+        out, lse = fwd(q, k, v, se, vis, causal, None, rate, 23)
+        got = bwd(q, k, v, out, lse, dout, se, vis, causal, None, rate, 23)
+        again = bwd(q, k, v, out, lse, dout, se, vis, causal, None, rate, 23)
+        ones = torch.ones_like(vis)
+        out1, lse1 = fwd(q, k, v, se, ones, causal, None, rate, 23)
+        got1 = bwd(q, k, v, out1, lse1, dout, se, ones, causal, None, rate,
+                   23)
+        after = (fwd.launches, bwd.launches, fwd.plain_on_cuda,
+                 bwd.plain_on_cuda)
+        ref = fas.flash_attention_sparse_fwd_plain(q, k, v, se, vis, causal,
+                                                   None, rate, 23)
+        want = fas.flash_attention_sparse_bwd_plain(
+            q, k, v, out, lse, dout, se, vis, causal, None, rate, 23)
+        torch.cuda.synchronize()
+        e = [max_err(x, y, TOL["float32"]) for x, y in zip((out, lse), ref)]
+        e_bwd, ok_bwd = bwd_errs(got, want, "float32")
+        checks = {
+            "fwd_within_tol": all(x[1] for x in e),
+            "bwd_within_tol": ok_bwd,
+            "bwd_repeatable": all(torch.equal(x, y)
+                                  for x, y in zip(got, again)),
+            "skip_invisible": all(torch.equal(x, y) for x, y in zip(
+                (out, lse) + tuple(got), (out1, lse1) + tuple(got1))),
+            "pad_row_zero": causal or not (
+                out[-1].any() or (lse[-1] != -1e30).any()
+                or any(g_[-1].any() for g_ in got)),
+            "launches": after == (before[0] + 2, before[1] + 3, before[2],
+                                  before[3])}
+        log(f"kernel sparse f32 d={d} causal={causal} dropout={rate}: "
+            f"max_abs_err out {e[0][0]:.3e} lse {e[1][0]:.3e}, bwd "
+            f"{json.dumps(e_bwd)}; {json.dumps(checks)}")
+        if not all(checks.values()):
+            raise AssertionError(f"f32 sparse kernels at d={d}: {checks}")
+
+    tq = t - 64
+    q_seg = tgt[:, :tq].clone()
+    q_seg[0] = 0                          # a pad query row
+    se = fas.pack_se(q_seg, src)
+    vis = fas.compute_block_vis(se, tq, t)
+    ctas = fas._lib().flash_attention_sparse_fwd_ctas
+    for d in (64, 128) + WIDE_D:
+        q = packed_heads(b, tq, nh, d, torch.float32, gen)
+        k = packed_heads(b, t, nh, d, torch.float32, gen)
+        v = heads(torch.randn(b, t, nh, 64, generator=gen, device="cuda")
+                  .repeat(1, 1, 1, d // 64).flatten(2), nh)
+        before = fwd.launches
+        out, lse = fwd(q, k, v, se, vis, False, None, DROPOUT, 29)
+        launched = fwd.launches - before
+        ref = fas.flash_attention_sparse_fwd_plain(q, k, v, se, vis, False,
+                                                   None, DROPOUT, 29)
+        torch.cuda.synchronize()
+        e = [max_err(x, y, TOL["float32"]) for x, y in zip((out, lse), ref)]
+        want_ctas = b * nh * (tq // 64) * (d // 64 if d > 128 else 1)
+        checks = {
+            "ctas": ctas(b, nh, tq, d) == want_ctas,
+            "within_tol": all(x[1] for x in e),
+            "pad_row": not out[0].any() and bool((lse[0] == -1e30).all()),
+            "chunks_equal": all(
+                torch.equal(out[..., 64 * c:64 * (c + 1)], out[..., :64])
+                for c in range(1, d // 64)),
+            "one_launch": launched == 1}
+        log(f"kernel sparse f32 fwd entry d={d} Tq={tq} Tk={t} dropout="
+            f"{DROPOUT}: {ctas(b, nh, tq, d)} CTAs; max_abs_err out "
+            f"{e[0][0]:.3e} lse {e[1][0]:.3e}; {json.dumps(checks)}")
+        if not all(checks.values()):
+            raise AssertionError(f"f32 sparse forward entry d={d}: {checks}")
 
 
 def phase_sparse_routes(fas):
@@ -2497,9 +2615,9 @@ def reset_sparse_counts(fas):
 
 
 def phase_nmt(fluid, fas):
-    """Main path 4: Transformer-big packed-sparse bf16 AMP training, then
-    one f32 step at 2+2 layers against the CPU. Returns the sparse launches
-    per dtype."""
+    """Main path 4: Transformer-big packed-sparse bf16 AMP training, three
+    f32 steps at full depth, then one f32 step at 2+2 layers against the
+    CPU. Returns the sparse launches per dtype (f32: both f32 runs)."""
     import torch
     from paddle_tpu_torch.models import transformer_nmt as nmt
 
@@ -2576,6 +2694,51 @@ def phase_nmt(fluid, fas):
                              f"and no plain-route call")
     launches = {"bfloat16": counts}
 
+    # f32 at full depth (6+6 layers, B=16, T=256, dropout 0.1, Adam): one
+    # step, then profile_record's unprofiled and profiled ones; the f32
+    # sparse kernels' launches a step and their share of the step
+    main, startup, loss = nmt_program(fluid, nmt, cfg, NMT_T, False)
+    f32_ms, f32_losses = [], []
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        reset_sparse_counts(fas)                   # f32 main path starts
+
+        def f32_step():
+            feed, _ = batches[len(f32_losses) % len(batches)]
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+            f32_ms.append((time.perf_counter() - t0) * 1e3)
+            f32_losses.append(float(lv))
+
+        f32_step()
+        rec = profile_record(f"nmt transformer-big f32 step B={NMT_B} "
+                             f"T={NMT_T}", f32_step, 1)
+        f32_counts = sparse_counts(fas)            # f32 main path ends
+    cats = rec["by_category_ms"]
+    sparse_ms = {k: v for k, v in cats.items() if "flash sparse" in k
+                 or "bwd delta" in k}
+    rec.update({"losses": f32_losses, "step_ms": f32_ms,
+                "warm_unprofiled_step_ms": f32_ms[1],
+                "device_busy_share_of_warm_step":
+                    rec["device_busy_ms"] / f32_ms[1],
+                "sparse_flash_ms": sparse_ms,
+                "sparse_flash_share_of_busy":
+                    sum(sparse_ms.values()) / rec["device_busy_ms"],
+                "sparse_launches": f32_counts})
+    log("nmt f32 full depth " + json.dumps(rec))
+    steps = len(f32_losses)
+    if not np.isfinite(f32_losses).all() \
+            or abs(f32_losses[0] - LN_NMT_VOCAB) > 0.5:
+        raise AssertionError(f"nmt f32: losses {f32_losses} (want finite, "
+                             f"the first within 0.5 of {LN_NMT_VOCAB})")
+    if f32_counts != {"fwd": NMT_PER_STEP * steps,
+                      "bwd": NMT_PER_STEP * steps, "plain_fwd": 0,
+                      "plain_bwd": 0}:
+        raise AssertionError(f"nmt f32: sparse launches {f32_counts} in "
+                             f"{steps} steps, expected {NMT_PER_STEP} each "
+                             f"a step and no plain-route call")
+
     # GPU against CPU: f32, full width cut to 2+2 layers, B=4, T=128,
     # dropout 0. Held to 1e-4 relative L2 a gradient, or to twice what a
     # one-ulp change of the source embedding does to the CPU's own
@@ -2593,7 +2756,7 @@ def phase_nmt(fluid, fas):
     reset_sparse_counts(fas)                       # f32 path starts
     gpu = exe.run(main, feed=feed, fetch_list=[loss] + grads,
                   scope=gpu_scope)
-    launches["float32"] = sparse_counts(fas)       # f32 path ends
+    small_counts = sparse_counts(fas)              # f32 path ends
     nudged = dict(state)
     emb = state["src_embedding"]
     nudged["src_embedding"] = (emb * (1.0 + 1e-7 * np.random.RandomState(
@@ -2620,11 +2783,12 @@ def phase_nmt(fluid, fas):
         f"0): loss {float(gpu[0])} vs {float(cpu[0])} relative "
         f"{loss_rel:.3e} (tol 1e-5); grads of {len(grads)} parameters, "
         f"relative L2 {json.dumps(summary)}; sparse launches on the card "
-        f"{json.dumps(launches['float32'])}")
-    if launches["float32"] != {"fwd": 6, "bwd": 6, "plain_fwd": 0,
-                               "plain_bwd": 0}:
+        f"{json.dumps(small_counts)}")
+    if small_counts != {"fwd": 6, "bwd": 6, "plain_fwd": 0, "plain_bwd": 0}:
         raise AssertionError("the f32 step did not launch the sparse kernels "
                              "6 + 6 times")
+    launches["float32"] = {k: f32_counts[k] + n
+                           for k, n in small_counts.items()}
     if loss_rel > 1e-5 or max(card) > limit:
         raise AssertionError("GPU and CPU NMT steps disagree")
     rec = profile_record("nmt f32 2+2 layers step B=4 T=128", lambda: exe.run(
@@ -3174,6 +3338,7 @@ def main():
 
     # 8. block-sparse attention kernels
     sparse_records = phase_kernel_sparse(fas)
+    phase_sparse_f32_head_dims(fas)
     phase_sparse_routes(fas)
 
     # 9. nmt (main path 4)

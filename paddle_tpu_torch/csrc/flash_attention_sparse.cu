@@ -46,9 +46,9 @@
 // the scores, nor the f32 tiles in shared memory): the chunks are a third
 // grid factor and each recomputes the scores over the full head dim.
 //
-// Every kernel but the f32 forward walks only the visible tiles with a ring
-// of two stages one visible tile ahead of the math, so a skipped tile costs
-// no load and no barrier, and builds the element mask from the row's
+// Every kernel walks only the visible tiles with a ring of two stages one
+// visible tile ahead of the math, so a skipped tile costs no load and no
+// barrier, and builds the element mask from the row's
 // (start, end), the column and the causal test with selects (no branch);
 // exp is ex2.approx; dropout bits are drawn in registers for the lane's own
 // accumulator elements (keep_bits_rows / keep_bits_cols). Four warps own 16
@@ -79,9 +79,21 @@
 //         head-dim chunk) ahead of the math; a dk/dv step also brings the q
 //         tile's lse, delta and se rows. Above d = 128 the head dim streams
 //         through the ring in 64-wide chunks, the CTA's own chunk last.
-//   f32 forward: 256 threads, a 4x4 register tile each, FMA on the CUDA
-//         cores; it tests each tile's bit and loads a visible tile
-//         synchronously, with its dropout bits as a shared-memory tile.
+//   f32 forward: both products in 3xTF32 on mma.sync.m16n8k8, the dense
+//         f32 forward's design (flash_attention_fwd.cu) over the visible
+//         tiles: S in kPartialDepth-column partial sums, split and summed as
+//         the f32 backward's dq CTAs recompute it (above d = 128, those of
+//         the last output chunk, whose chunk order is 0, 1, ...), so the lse
+//         written here is that of the S they form; then O += P_drop·V, P
+//         from the accumulators and V's fragments read from the padded tile
+//         as it lies, a tile's product into a zeroed partial sum. Q stays
+//         in shared memory; K and V's chunk arrive by cp.async in the
+//         two-stage ring, a step (visible tile, head-dim chunk) ahead of the
+//         math. Above d = 128 K streams in 64-wide chunks in order, so every
+//         chunk CTA of a q tile forms the same S, m and l bit for bit and
+//         chunk 0 alone writes the lse. 87,040 bytes of shared memory at
+//         d = 64, two CTAs an SM (a third, by a ring of three single
+//         tiles, measured no faster on the H100; PERF.md §6).
 // Both backwards run as one launch of both kinds of CTA (the dk/dv ones
 // first, the dq ones filling the tail): walks are short (~2.4 tiles at the
 // NMT shapes), so per-CTA set-up weighs as much as the products.
@@ -162,28 +174,9 @@ __device__ __forceinline__ Cell cell_of(int tiles, int chunks, int H,
   return c;
 }
 
-// The element mask: key `col` is visible to query `row` with range
-// [start, end).
-__device__ __forceinline__ bool visible(const SparseParams& p, int row,
-                                        int col, int start, int end) {
-  return col >= start && col < end && (!p.causal || col <= row);
-}
-
 __device__ __forceinline__ void unpack_se(int se, int& start, int& end) {
   start = static_cast<int>(static_cast<unsigned>(se) >> 16);
   end = se & 0xFFFF;
-}
-
-// Loads the (start, end) of the 64 queries from q0 into shared memory.
-__device__ __forceinline__ void load_ranges(const SparseParams& p, int b,
-                                            int q0, int* sStart, int* sEnd,
-                                            int tid) {
-  if (tid < kTile) {
-    int s, e;
-    unpack_se(p.se[(long long)b * p.Tq + q0 + tid], s, e);
-    sStart[tid] = s;
-    sEnd[tid] = e;
-  }
 }
 
 // The first visible tile at or after `i` of a walk of `n` tiles whose bits
@@ -192,168 +185,6 @@ __device__ __forceinline__ int next_visible(const int* vis, int stride, int i,
                                             int n) {
   while (i < n && __ldg(vis + (long long)i * stride) == 0) ++i;
   return i;
-}
-
-// ---------------------------------------------------------------------------
-// f32: FMA on the CUDA cores. Thread (ty, tx) owns score rows ty*4+i and
-// columns tx+16j of the 64x64 block.
-// ---------------------------------------------------------------------------
-
-// A 64-row tile of W columns of a [T, D] f32 matrix (row stride `st`) into
-// shared memory with row pitch `pitch`.
-template <int W>
-__device__ __forceinline__ void load_tile_f32(float* dst, int pitch,
-                                              const float* src, long long st,
-                                              int tid) {
-  constexpr int kVec = W / 4;
-  for (int i = tid; i < kTile * kVec; i += 256) {
-    const int r = i / kVec, c = (i % kVec) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(src + r * st + c);
-    float* d = dst + r * pitch + c;
-    d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
-  }
-}
-
-// s += a·bᵀ for the thread's 4x4 block, over the W columns of the tiles
-// (row pitch W+1).
-template <int W>
-__device__ __forceinline__ void products_f32(const float* sA, const float* sB,
-                                             int ty, int tx,
-                                             float (&s)[4][4]) {
-  constexpr int kPad = W + 1;
-#pragma unroll 4
-  for (int d = 0; d < W; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = sA[(ty * 4 + i) * kPad + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = sB[(tx + 16 * j) * kPad + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-__device__ __forceinline__ void zero4x4(float (&s)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-}
-
-template <int D>
-__global__ void __launch_bounds__(256) sparse_fwd_f32_kernel(SparseParams p) {
-  constexpr int kPad = D + 1, kPitchP = kTile + 1;
-  extern __shared__ __align__(16) float smem_f32[];
-  float* sQ = smem_f32;                 // [64][D+1]
-  float* sK = sQ + kTile * kPad;        // [64][D+1]
-  float* sV = sK + kTile * kPad;        // [64][D]
-  float* sP = sV + kTile * D;           // [64][65]  p (dropped)
-  int* sStart = reinterpret_cast<int*>(sP + kTile * kPitchP);  // [64]
-  int* sEnd = sStart + kTile;                                    // [64]
-  uint8_t* sKeep = reinterpret_cast<uint8_t*>(sEnd + kTile);    // [64][68]
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const Cell cell = cell_of(nq_tiles(p), 1, p.H);
-  const int bh = cell.bh, b = cell.b, h = cell.h;
-  const int iq = cell.tile, q0 = iq * kTile;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-
-  load_tile_f32<D>(sQ, kPad, q + q0 * p.q_st, p.q_st, tid);
-  load_ranges(p, b, q0, sStart, sEnd, tid);
-  __syncthreads();
-
-  float m[4], l[4], acc[4][D / 16];
-  int st[4], en[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-    st[i] = sStart[ty * 4 + i];
-    en[i] = sEnd[ty * 4 + i];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nk = nk_tiles(p);
-  const int* vis = p.vis + ((long long)b * nq_tiles(p) + iq) * nk;
-  for (int kt = 0; kt < nk; ++kt) {
-    if (vis[kt] == 0) continue;  // the same for the whole CTA
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's sK/sV/sP/sKeep are consumed
-    load_tile_f32<D>(sK, kPad, k + k0 * p.k_st, p.k_st, tid);
-    load_tile_f32<D>(sV, D, v + k0 * p.v_st, p.v_st, tid);
-    if (p.drop.on) flash::fill_keep_tile(sKeep, p.drop, bh, q0, k0, tid, 256);
-    __syncthreads();
-
-    float s[4][4];
-    zero4x4(s);
-    products_f32<D>(sQ, sK, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row_l = ty * 4 + i, row = q0 + row_l;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = visible(p, row, k0 + tx + 16 * j, st[i], en[i]);
-        s[i][j] = ok[j] ? s[i][j] * p.sm_scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += e;  // the row sum is over the undropped p
-        float pv = e;
-        if (p.drop.on)
-          pv = sKeep[row_l * flash::kKeepPitch + tx + 16 * j]
-                   ? e * p.drop.scale : 0.f;
-        sP[row_l * kPitchP + tx + 16 * j] = pv;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pv[4], vv[D / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty * 4 + i) * kPitchP + kk];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) vv[j] = sV[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j)
-          acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-  float* out = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      out[row * p.o_st + tx + 16 * j] = acc[i][j] / l_safe;
-    if (tx == 0) p.lse[(long long)bh * p.Tq + row] = m[i] + logf(l_safe);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -964,9 +795,9 @@ sparse_fwd_bf16_kernel(const __grid_constant__ Bf16SparseFwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// f32 backward: 3xTF32 on the tensor cores (mma.sync.m16n8k8, tf32x3.cuh),
-// tiles by cp.async, the dense f32 backward's design over the visible
-// tiles. Four warps; warp w owns rows 16w..16w+15 of the 64x64 score block,
+// f32 forward and backward: 3xTF32 on the tensor cores (mma.sync.m16n8k8,
+// tf32x3.cuh), tiles by cp.async, the dense f32 kernels' designs over the
+// visible tiles. Four warps; warp w owns rows 16w..16w+15 of the 64x64 score block,
 // so accumulator register 4·nb + 2·h + e of lane (g, t) is row 16w + g + 8h,
 // column 8·nb + 2t + e: the layout of the bf16 kernels' wgmma accumulators,
 // whose element and keep-bit code these kernels share.
@@ -996,9 +827,10 @@ struct SF32Layout {
 };
 
 // A walk over the visible tiles of one row (stride 1) or column (stride nk)
-// of the tile table, a step per (tile, head-dim chunk c). A tile's chunks
-// are taken from the CTA's own chunk oc + 1 on, so the last one, whose
-// tiles the output product reads, is oc. Every thread walks alike.
+// of the tile table, a step per (tile, head-dim chunk c). The backward takes
+// a tile's chunks from the CTA's own chunk oc + 1 on, so the last one, whose
+// tiles its output product reads, is oc; the forward takes them in order.
+// Every thread walks alike.
 struct Walk {
   const int* vis;
   int stride, n, tile, c;
@@ -1012,6 +844,172 @@ struct Walk {
     }
   }
 };
+
+// Shared memory of the f32 forward, in floats: Q resident ([64][D + 4]),
+// then two stages, each K's step chunk and the CTA's chunk of V ([64][DC +
+// 4] each: the whole head dim up to d = 128, else 64 columns).
+template <int D, int DC>
+struct SF32FwdLayout {
+  static constexpr int kChunks = D / DC;
+  static constexpr int kQ = kTile * tf32x3::pitch_f32<D>();
+  static constexpr int kTileF = kTile * tf32x3::pitch_f32<DC>();
+  static constexpr int kStage = 2 * kTileF;  // K's chunk, V's chunk
+  static constexpr size_t bytes() { return sizeof(float) * (kQ + 2 * kStage); }
+};
+
+// One CTA per (DC-wide output chunk, 64-row q tile, b·h) of the flat grid,
+// the chunk fastest. It walks the visible key tiles in steps of one K chunk
+// (in order: every chunk CTA of a q tile forms the same S, m and l bit for
+// bit) over a two-stage cp.async ring, one step ahead of the math; a tile's
+// last step also brings V's chunk oc. S = Q·Kᵀ in kPartialDepth-column
+// partial sums, split and summed as the f32 backward's dq CTAs recompute it
+// (above d = 128, those of the last chunk), so the lse written here is that
+// of the S they form; at a tile's
+// last step the branch-free element loop, the online softmax (a rescale of
+// exactly 1 where the max holds) and O += P_drop·V, P from registers and V
+// as it lies (acc_product_tf32), into a zeroed partial added to the
+// rescaled O.
+template <int D, int DC>
+__global__ void __launch_bounds__(128) sparse_fwd_f32_kernel(SparseParams p) {
+  using namespace tf32x3;
+  using L = SF32FwdLayout<D, DC>;
+  constexpr int kChunks = L::kChunks;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sQ = smem_f32;
+  float* stages = smem_f32 + L::kQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int nq = nq_tiles(p), nk = nk_tiles(p);
+  const Cell cell = cell_of(nq, kChunks, p.H);
+  const int bh = cell.bh, b = cell.b, h = cell.h, oc = cell.chunk;
+  const int q0 = cell.tile * kTile;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh +
+                   q0 * p.q_st;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh +
+                   oc * DC;
+  const int* vis = p.vis + ((long long)b * nq + cell.tile) * nk;
+
+  // step j: the load walk's (tile, K chunk) into stage j % 2
+  auto load_step = [&](int j, const Walk& w) {
+    float* st = stages + (j & 1) * L::kStage;
+    const int k0 = w.tile * kTile;
+    copy_tile<DC>(st, k + k0 * p.k_st + w.c * DC, p.k_st, kTile, tid);
+    if (w.c == kChunks - 1)
+      copy_tile<DC>(st + L::kTileF, v + k0 * p.v_st, p.v_st, kTile, tid);
+  };
+  copy_tile<D>(sQ, q, p.q_st, kTile, tid);
+  Walk walk(vis, 1, nk), load = walk;
+  for (int j = 0; j < 2; ++j) {
+    if (load.more()) {
+      load_step(j, load);
+      load.advance(kChunks);
+    }
+    cp_async_commit();
+  }
+
+  uint32_t key0, key1;
+  seed_keys(p.drop, &key0, &key1);
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  int st[2], en[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    unpack_se(p.se[(long long)b * p.Tq + q0 + r0 + 8 * hh], st[hh], en[hh]);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[DC / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) o[i] = 0.f;
+
+  for (int j = 0; walk.more(); ++j) {
+    const int k0 = walk.tile * kTile, c = walk.c;
+    const float* stg = stages + (j & 1) * L::kStage;
+    cp_async_wait<1>();
+    __syncthreads();  // step j's tiles have landed, from every thread
+
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    }
+    product_tf32<DC, pitch_f32<D>(), pitch_f32<DC>()>(s, sQ + c * DC, stg,
+                                                      warp * 16, g, t);
+
+    if (c == kChunks - 1) {
+      // the element mask (selects, no branch); bit i of `ok` is element i
+      uint32_t ok = 0u;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        const bool vis_e = (key >= st[hh]) & (key < en[hh]) &
+                           (!p.causal | (key <= q0 + r0 + 8 * hh));
+        ok |= (vis_e ? 1u : 0u) << i;
+        s[i] = vis_e ? s[i] * p.sm_scale : kNegInf;
+        mx[hh] = fmaxf(mx[hh], s[i]);
+      }
+
+      // online softmax over the 4 lanes that share a row; a max that does
+      // not move rescales by exactly 1
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m[hh], mx[hh]);
+        corr[hh] = m_new == m[hh]
+                       ? 1.f
+                       : hopper::ex2((m[hh] - m_new) * hopper::kLog2e);
+        m[hh] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        const float e = hopper::ex2((s[i] - m[hh]) * hopper::kLog2e);
+        s[i] = (ok >> i) & 1u ? e : 0.f;
+        sum[hh] += s[i];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+        sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+        l[hh] = l[hh] * corr[hh] + sum[hh];
+      }
+      if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
+        const uint32_t keep = flash::keep_bits_rows(
+            key0, key1, p.drop.threshold, bh, q0 + r0, k0, t);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < DC / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      // O += P_drop·V over this CTA's chunk of V
+      acc_product_tf32<DC>(o, s, stg + L::kTileF, g, t);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (load.more()) {
+      load_step(j + 2, load);
+      load.advance(kChunks);
+    }
+    cp_async_commit();
+    walk.advance(kChunks);
+  }
+  cp_async_wait<0>();
+
+  float l_safe[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l_safe[hh] = l[hh] == 0.f ? 1.f : l[hh];
+    if (t == 0 && oc == 0)
+      p.lse[(long long)bh * p.Tq + q0 + r0 + 8 * hh] =
+          m[hh] + logf(l_safe[hh]);
+  }
+  store_rows_f32<DC>(static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh +
+                         oc * DC,
+                     p.o_st, o, q0 + r0, p.Tq, t, 1.f / l_safe[0],
+                     1.f / l_safe[1]);
+}
 
 // A dq CTA: one per (DC-wide output chunk, 64-row q tile, b·h), numbered
 // `cta` (the chunk fastest), walks the visible key tiles over a two-stage
@@ -1279,15 +1277,6 @@ __global__ void __launch_bounds__(128) sparse_bwd_f32_kernel(SparseParams p) {
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
-constexpr size_t kKeepBytes = kTile * flash::kKeepPitch;
-constexpr size_t kRangeBytes = 2 * kTile * sizeof(int);
-
-template <int D>
-size_t smem_fwd_f32() {
-  return sizeof(float) * (2 * kTile * (D + 1) + kTile * D +
-                          kTile * (kTile + 1)) + kRangeBytes + kKeepBytes;
-}
-
 // Opts a kernel into its dynamic shared memory once per device, then
 // launches it on `stream` over `blocks` CTAs of the flat grid.
 template <typename Kernel, typename Params>
@@ -1317,11 +1306,19 @@ int slot_of(int dtype) {
   return (dtype * 4 + D / 64 - 1) * 2;
 }
 
+// The f32 forward's CTAs: one per (output chunk, q tile, b·h).
+template <int D>
+unsigned fwd_f32_ctas(int B, int H, int Tq) {
+  return (unsigned)(Tq / kTile) * (unsigned)(B * H) *
+         (D / hopper::chunk_of<D>());
+}
+
 template <int D>
 cudaError_t launch_fwd_f32(const SparseParams& p, cudaStream_t s) {
-  const unsigned tiles = (unsigned)(p.Tq / kTile) * (unsigned)(p.B * p.H);
-  return launch(sparse_fwd_f32_kernel<D>, &configured[slot_of<D>(0)], p,
-                tiles, 256, smem_fwd_f32<D>(), s);
+  constexpr int DC = hopper::chunk_of<D>();
+  return launch(sparse_fwd_f32_kernel<D, DC>, &configured[slot_of<D>(0)], p,
+                fwd_f32_ctas<D>(p.B, p.H, p.Tq), 128,
+                SF32FwdLayout<D, DC>::bytes(), s);
 }
 
 template <int D>
@@ -1381,7 +1378,8 @@ void set_common(SparseParams& p, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The float32 forward. D in {64, 128, 192, 256}; Tq, Tk multiples of 64.
+// The float32 forward (3xTF32). D in {64, 128, 192, 256}; Tq, Tk multiples
+// of 64.
 // Strides are in elements, three per tensor: (batch, head, token); the head
 // dim is contiguous. se is [B, Tq] int32, vis [B, Tq/64, Tk/64] int32, lse
 // [B*H, Tq] f32. With dropout != 0, `seed` points at one int64 on the device
@@ -1541,6 +1539,29 @@ int flash_attention_sparse_bwd_bf16(
     case 128: return (int)launch_bwd_bf16<128>(p, s);
     case 192: return (int)launch_bwd_bf16<192>(p, s);
     default: return (int)launch_bwd_bf16<256>(p, s);
+  }
+}
+
+// CTAs of the f32 forward's launch for [B, H, Tq] queries at head dim D:
+// one per (64-wide output chunk above d = 128, 64-row q tile, b·h).
+unsigned flash_attention_sparse_fwd_ctas(int B, int H, int Tq, int D) {
+  switch (D) {
+    case 64: return fwd_f32_ctas<64>(B, H, Tq);
+    case 128: return fwd_f32_ctas<128>(B, H, Tq);
+    case 192: return fwd_f32_ctas<192>(B, H, Tq);
+    case 256: return fwd_f32_ctas<256>(B, H, Tq);
+    default: return 0;
+  }
+}
+
+// Dynamic shared memory of the f32 forward at head dim D, bytes.
+int flash_attention_sparse_fwd_smem(int D) {
+  switch (D) {
+    case 64: return (int)SF32FwdLayout<64, 64>::bytes();
+    case 128: return (int)SF32FwdLayout<128, 128>::bytes();
+    case 192: return (int)SF32FwdLayout<192, 64>::bytes();
+    case 256: return (int)SF32FwdLayout<256, 64>::bytes();
+    default: return 0;
   }
 }
 

@@ -12,17 +12,14 @@
 // word is below round(rate * 2^32); a kept p is scaled by 1 / (1 - rate).
 //
 // Cost: one Philox call gives the bits of 4 scores, so a 64x64 tile takes
-// 1024 calls (10 rounds of two 32-bit multiplies each). The block-sparse
-// kernels fill the tile's keep bytes cooperatively into shared memory
-// (fill_keep_tile) and read one byte per score; the dense bf16 wgmma
-// kernels draw them in registers (keep_bits_rows / keep_bits_cols).
+// 1024 calls (10 rounds of two 32-bit multiplies each). The flash kernels
+// draw them in registers for the lane's own accumulator elements
+// (keep_bits_rows / keep_bits_cols).
 #pragma once
 
 #include <stdint.h>
 
 namespace flash {
-
-constexpr int kKeepPitch = 68;  // bytes per row of a 64-wide keep tile
 
 struct Dropout {
   const long long* seed;  // device pointer: drawn on the card, no host sync
@@ -51,29 +48,7 @@ __device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
   return make_uint4(c0, c1, c2, c3);
 }
 
-// keep[r * kKeepPitch + c] = keep bit of score (bh, q0 + r, k0 + c) for the
-// 64x64 tile at (q0, k0); k0 is a multiple of 64. Rows and columns past the
-// ragged end are filled too and never read.
-__device__ __forceinline__ void fill_keep_tile(uint8_t* keep, const Dropout& d,
-                                               int bh, int q0, int k0,
-                                               int tid, int nthreads) {
-  const unsigned long long s = static_cast<unsigned long long>(*d.seed);
-  const uint32_t key0 = static_cast<uint32_t>(s);
-  const uint32_t key1 = static_cast<uint32_t>(s >> 32);
-  for (int idx = tid; idx < 64 * 16; idx += nthreads) {
-    const int r = idx >> 4, c4 = idx & 15;
-    const uint4 w = philox4x32_10(static_cast<uint32_t>((k0 >> 2) + c4),
-                                  static_cast<uint32_t>(q0 + r),
-                                  static_cast<uint32_t>(bh), 0u, key0, key1);
-    const uint32_t t = d.threshold;
-    const uint32_t packed = (w.x >= t ? 1u : 0u) | (w.y >= t ? 1u << 8 : 0u) |
-                            (w.z >= t ? 1u << 16 : 0u) |
-                            (w.w >= t ? 1u << 24 : 0u);
-    *reinterpret_cast<uint32_t*>(keep + r * kKeepPitch + c4 * 4) = packed;
-  }
-}
-
-// Keep bits in registers, for the wgmma kernels: bit i of the result is the
+// Keep bits in registers, for the flash kernels: bit i of the result is the
 // keep bit of accumulator register i of a 64x64 block (register 4·nb + 2·h
 // + e of lane (g, t) of warp w: row 16w + g + 8h, column 8·nb + 2t + e).
 // Each lane runs 8 Philox calls a block, the 1024 calls of the block spread

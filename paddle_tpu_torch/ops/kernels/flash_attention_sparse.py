@@ -346,6 +346,11 @@ def _lib():
             fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        # the f32 forward's launch: CTAs for (B, nh, Tq, d), shared memory
+        lib.flash_attention_sparse_fwd_ctas.argtypes = [_I32] * 4
+        lib.flash_attention_sparse_fwd_ctas.restype = ctypes.c_uint
+        lib.flash_attention_sparse_fwd_smem.argtypes = [_I32]
+        lib.flash_attention_sparse_fwd_smem.restype = ctypes.c_int
     return lib
 
 

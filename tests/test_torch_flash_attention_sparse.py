@@ -419,10 +419,15 @@ _MODEL_CASES = {   # name: (d, causal, Tq, pad row): NMT-packed segments
     "encoder self d=128": (128, False, 128, True),
     "causal self": (64, True, 256, False),
     "cross Tq=192": (64, False, 192, False)}
+# the forward's cases add d = 256, where a CTA owns one 64-wide output chunk
+_FWD_CASES = {**_MODEL_CASES,
+              "encoder self d=256": (256, False, 256, True),
+              "causal self d=256": (256, True, 256, False),
+              "cross Tq=192 d=256": (256, False, 192, False)}
 
 
 def _model_case(name):
-    d, causal, tq, pad = _MODEL_CASES[name]
+    d, causal, tq, pad = _FWD_CASES[name]
     tk, nh = 256 if tq == 192 else tq, 1
     src, tgt = _packed_segs(2, tk, 21)
     if pad:
@@ -494,9 +499,12 @@ def test_3xtf32_sparse_f32_backward_skip_is_bitwise_invisible(rate):
 
 def _sparse_fwd_3xtf32(q, k, v, se, vis, causal, sm, rate=0.0, seed=0,
                        scores=mm_3xtf32_groups):
-    """out, lse of the f32 wide block-sparse forward as its kernel computes
+    """out, lse of the f32 block-sparse forwards as their kernels compute
     them: each row walks the visible key tiles of its 64-row tile of the
-    table; S in 3xTF32 summed as `scores` sums it; masked scores −1e30 and
+    table; S in 3xTF32 summed as `scores` sums it (the wide kernel:
+    mm_3xtf32_groups; the tuned one, d <= 256: _scores_16, its K chunks
+    taken in order above d = 128, so one 16-column partial sum after
+    another over the whole head dim); masked scores −1e30 and
     masked p exactly 0; the online softmax with the rescale exactly 1 where
     the running max holds; each tile's P_drop·V in 3xTF32 into a zeroed
     partial sum added to the rescaled O; O times 1 / l at the end. exp is
@@ -537,6 +545,86 @@ def _sparse_fwd_3xtf32(q, k, v, se, vis, causal, sm, rate=0.0, seed=0,
             out[bi, :, r] = o * (1.0 / l_safe)
             lse[bi, :, r] = (m + torch.log(l_safe)).squeeze(-1)
     return out, lse
+
+
+def _jax_fwd(q, k, v, nh, q_seg, k_seg, causal):
+    """out [B, T, nh·d] and lse [B, nh, Tq] of the JAX package's sparse
+    forward (its Pallas kernel where FORCE_PALLAS_INTERPRET is set)."""
+    import jax.numpy as jnp
+
+    fa = _jfa()
+    d = q.shape[-1] // nh
+    qf, kf, vf = (fa._pack_to_folded(jnp.asarray(x), nh) for x in (q, k, v))
+    out, lse = fa._flash_sparse_fwd_dispatch(
+        qf, kf, vf, fa._pack_se(q_seg, k_seg), None, nh,
+        1.0 / np.sqrt(d), causal, 0.0)
+    b = q.shape[0]
+    return (np.asarray(fa._folded_to_pack(out, b)),
+            np.asarray(lse).reshape(b, nh, -1))
+
+
+@pytest.mark.parametrize("name", list(_FWD_CASES))
+def test_3xtf32_products_hold_the_sparse_f32_forward(name):
+    """The decision rule of the f32 sparse forward's 3xTF32 design (d <=
+    256): its arithmetic, emulated on the CPU (_sparse_fwd_3xtf32 with S in
+    16-column partial sums over the head dim, K's chunks in order), against
+    the JAX package's _flash_fwd_pallas_sparse in interpret mode, on segment
+    rows of reader.pack_by_tokens: out and lse within chip_smoke's f32 TOL
+    (2e-5 of max(|ref|, 1)), the all-pad row's out exactly 0 and lse
+    exactly -1e30. Then the pair as the card runs it: that out and lse fed
+    to the backward's model (_sparse_bwd_3xtf32), dq, dk and dv within the
+    same tolerance of the JAX Pallas backward."""
+    fa = _jfa()
+    q, k, v, dy, q_seg, k_seg, nh, d, causal = _model_case(name)
+    tq, tk = q.shape[1], k.shape[1]
+    fa.FORCE_PALLAS_INTERPRET = True
+    try:
+        assert fa._sparse_pallas_ok(tq, tk, d)
+        ref_out, ref_lse = _jax_fwd(q, k, v, nh, q_seg, k_seg, causal)
+        ref_grads = _jax(q, k, v, nh, q_seg, k_seg, dy, causal)[1:]
+    finally:
+        fa.FORCE_PALLAS_INTERPRET = False
+    heads = lambda x: torch.tensor(x).unflatten(-1, (nh, d)).transpose(1, 2)
+    packed = lambda x: x.transpose(1, 2).reshape(x.shape[0], -1,
+                                                 nh * d).numpy()
+    qh, kh, vh, gh = (heads(x) for x in (q, k, v, dy))
+    se = fas.pack_se(torch.tensor(q_seg), torch.tensor(k_seg))
+    vis = fas.compute_block_vis(se, tq, tk, causal=causal)
+    assert not vis.all(), "the case must skip tiles"
+    sm = 1.0 / np.sqrt(d)
+    out, lse = _sparse_fwd_3xtf32(qh, kh, vh, se, vis, causal, sm,
+                                  scores=_scores_16)
+    got = [("out", packed(out), ref_out), ("lse", lse.numpy(), ref_lse)]
+    grads = _sparse_bwd_3xtf32(qh, kh, vh, out, lse, gh, se, vis, causal, sm)
+    got += [(nm, packed(a), r)
+            for nm, a, r in zip(("dq", "dk", "dv"), grads, ref_grads)]
+    for nm, a, r in got:
+        err = np.abs(a - r).max()
+        assert err <= 2e-5 * max(np.abs(r).max(), 1.0), (nm, err)
+    if _FWD_CASES[name][3]:                          # the all-pad row
+        assert not out[-1].any() and (lse[-1] == -1e30).all()
+        assert all(not a[-1].any() for a in grads)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_3xtf32_sparse_f32_forward_skip_is_bitwise_invisible(rate):
+    """In the model of the f32 sparse forward (d = 64, causal, packed
+    decoder rows), the all-ones tile table gives the bits of the computed
+    one, dropout off and on: a processed tile with no visible pair
+    rescales by exactly 1 and adds an exact zero partial sum."""
+    d, tq = 64, 256
+    _, tgt = _packed_segs(2, tq, 23)
+    q, k, v = (torch.from_numpy(0.5 * _rand((2, 2, tq, d), 80 + i))
+               for i in range(3))
+    se = fas.pack_se(torch.tensor(tgt), torch.tensor(tgt))
+    vis = fas.compute_block_vis(se, tq, tq, causal=True)
+    assert not vis.all()
+    sm = 1.0 / np.sqrt(d)
+    skipping, every = (_sparse_fwd_3xtf32(q, k, v, se, t, True, sm, rate, 9,
+                                          scores=_scores_16)
+                       for t in (vis, torch.ones_like(vis)))
+    for nm, a, r in zip(("out", "lse"), skipping, every):
+        assert torch.equal(a, r), nm
 
 
 def _wide_sparse_case(d, seed=60):
@@ -802,6 +890,44 @@ def test_cuda_f32_backward_entry_reads_lse_rows_by_pitch(d):
     again = fas.flash_attention_sparse_bwd(q, k, v, out, lse_p, dout, se,
                                            vis, True, None, 0.1, 3)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_cuda_f32_forward_entry(d):
+    """The f32 forward's C entry (flash_attention_sparse_fwd, 3xTF32) at
+    cross attention Tq = 192 != Tk = 256 on packed head views with dropout:
+    its launch has one CTA per (64-wide output chunk above d = 128, q tile,
+    b·h); one launch a call; out and lse within 2e-5 of the plain version;
+    pad queries exactly 0 and -1e30; every chunk CTA forms the softmax (and
+    so the lse chunk 0 writes) bit for bit: with V's 64-wide chunks copies
+    of one another, out's chunks are bitwise equal."""
+    _cuda_or_skip()
+    b, nh, tq, tk = 2, 2, 192, 256
+    g = torch.Generator("cuda").manual_seed(d)
+    rng = np.random.RandomState(d)
+    q_seg = torch.tensor(_uneven_segs(b, tq, rng, max_seg=3), device="cuda")
+    k_seg = torch.tensor(_uneven_segs(b, tk, rng, max_seg=3), device="cuda")
+    se = fas.pack_se(q_seg, k_seg)
+    vis = fas.compute_block_vis(se, tq, tk)
+    q = (torch.randn(b, tq, nh * d, generator=g, device="cuda")
+         .unflatten(-1, (nh, d)).transpose(1, 2))
+    k = (torch.randn(b, tk, nh * d, generator=g, device="cuda")
+         .unflatten(-1, (nh, d)).transpose(1, 2))
+    v = (torch.randn(b, tk, nh, 64, generator=g, device="cuda")
+         .repeat(1, 1, 1, d // 64).transpose(1, 2))
+    chunks = d // 64 if d > 128 else 1
+    assert fas._lib().flash_attention_sparse_fwd_ctas(b, nh, tq, d) == (
+        b * nh * (tq // 64) * chunks)
+    before = fas.flash_attention_sparse_fwd.launches
+    out, lse = fas.flash_attention_sparse_fwd(q, k, v, se, vis, False, None,
+                                              0.1, 5)
+    assert fas.flash_attention_sparse_fwd.launches == before + 1
+    _close((out, lse), fas.flash_attention_sparse_fwd_plain(
+        q, k, v, se, vis, False, None, 0.1, 5), 2e-5)
+    assert not out[0].any() and (lse[0] == -1e30).all()   # row 0: all pad
+    for c in range(1, d // 64):
+        assert torch.equal(out[..., 64 * c:64 * (c + 1)], out[..., :64]), c
 
 
 @pytest.mark.cuda
