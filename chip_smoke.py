@@ -134,7 +134,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              is larger); its sparse launches and the full-depth run's are
              the f32 kernels' count, and one more step on the card is
              profiled (device ms by
-             kind, the f32 sparse kernels' among them).
+             kind, the f32 sparse kernels' among them). Inside the
+             full-depth f32 run, FLAGS_matmul_precision="float32": one
+             TF32-off step, then two TF32 steps from the same state and
+             generator (step time, cuBLAS ms, the loss's relative
+             difference, within 1e-2), then "default" again, which must
+             turn TF32 off before the GPU-vs-CPU check.
 9b. wide    — main path 7: the wide flash kernels (d > 256) through
              Executor.run: BERT pretraining at hidden 1024 cut to 2 heads
              (d = 512) and 2 layers (f32 B=4 T=128, bf16 AMP B=4 T=512, 2
@@ -177,6 +182,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              losses within 1e-5, untouched table rows bit for bit, the dense
              parameters and the touched payloads within twice the CPU's own
              spread under a one-ulp change of the dense input.
+14. step surface — the executor's step surface at full width, one JSON
+             line: BERT-base bf16 AMP (B=8, T=512, Adam, 12 layers) three
+             steps from one state under BuildStrategy.remat_policy "none",
+             "minimal" and "full" through CompiledProgram(...)
+             .with_data_parallel on the one card (peak memory, step median
+             and range; "minimal" and "full" bitwise equal at dropout
+             0.1, the flash kernels launched once more a layer in the
+             recompute; "none" and "full" within 1e-5 at dropout 0,
+             bitwise reported; "full" peaking below "none"); the
+             FLAGS_check_nan_inf probe's cost on that step, a NaN feed
+             raising FloatingPointError on a small program, NaN and Inf
+             found in 16 M-element f32 and bf16 tensors; four steps
+             with return_handle=True bitwise equal to return_numpy (host
+             ms a dispatch both ways); ResNet-50 bf16 AMP (B=128,
+             Momentum(0.1, 0.9)) three steps under PDTPU_FUSE_UPDATES
+             0, 1 and auto from one state: parameters and velocities
+             bitwise equal, device events a step (profiled), fused groups
+             and ops, step median and range.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -396,6 +419,8 @@ def category(name):
                 else "fused BN stats K1 (hand kernel)")
     if "finish_kernel" in n:
         return "fused BN partial sums K1/K3/K4 (hand kernel)"
+    if "multi_tensor_apply" in n:   # torch._foreach_* (fused updates)
+        return "multi-tensor updates (foreach)"
     if "apply_kernel" in n:
         return "fused BN apply K2 (hand kernel)"
     if "bwd_dx_kernel" in n:
@@ -2614,6 +2639,49 @@ def reset_sparse_counts(fas):
         fn.launches = fn.plain_on_cuda = 0
 
 
+def nmt_tf32_steps(fluid, exe, main, loss, feed):
+    """FLAGS_matmul_precision="float32" on the full-depth f32 step: one
+    step with TF32 off, then, from the same state and generator, two with
+    TF32 allowed (the second profiled); then "default" again, which must
+    turn TF32 off. Returns their record."""
+    import torch
+
+    scope = fluid.global_scope()
+    snap = host_state(scope, main)
+    gen = scope.find_var("@RNG_STATE@")
+    gen_state = gen.get_state()
+
+    def one(out):
+        t0 = time.perf_counter()
+        lv = float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+        out.append((lv, (time.perf_counter() - t0) * 1e3))
+
+    off, on = [], []
+    one(off)
+    for n, v in snap.items():
+        scope.set_var(n, v.to(exe.device))
+    gen.set_state(gen_state)
+    fluid.set_flags({"FLAGS_matmul_precision": "float32"})
+    try:
+        prof = profile_record("nmt f32 step, TF32 allowed", lambda: one(on),
+                              1)
+    finally:
+        fluid.set_flags({"FLAGS_matmul_precision": "default"})
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 still on after matmul_precision default")
+    rel = abs(on[0][0] - off[0][0]) / abs(off[0][0])
+    if not np.isfinite([lv for lv, _ in on]).all() or rel > 1e-2:
+        raise AssertionError(f"nmt f32 with TF32: losses {on} against "
+                             f"{off} (relative {rel:.3e}, tol 1e-2)")
+    return {"tf32_off": off, "tf32_steps": on, "loss_rel_diff": rel,
+            "cublas_ms_tf32": prof["by_category_ms"].get("GEMMs (cuBLAS)"),
+            "device_busy_ms_tf32": prof["device_busy_ms"],
+            "wall_ms_profiled_tf32": prof["wall_ms"],
+            "allow_tf32_after_default": bool(
+                torch.backends.cuda.matmul.allow_tf32)}
+
+
 def phase_nmt(fluid, fas):
     """Main path 4: Transformer-big packed-sparse bf16 AMP training, three
     f32 steps at full depth, then one f32 step at 2+2 layers against the
@@ -2715,6 +2783,8 @@ def phase_nmt(fluid, fas):
         rec = profile_record(f"nmt transformer-big f32 step B={NMT_B} "
                              f"T={NMT_T}", f32_step, 1)
         f32_counts = sparse_counts(fas)            # f32 main path ends
+        tf32 = nmt_tf32_steps(fluid, exe, main, loss,
+                              batches[len(f32_losses) % len(batches)][0])
     cats = rec["by_category_ms"]
     sparse_ms = {k: v for k, v in cats.items() if "flash sparse" in k
                  or "bwd delta" in k}
@@ -2726,7 +2796,9 @@ def phase_nmt(fluid, fas):
                 "sparse_flash_share_of_busy":
                     sum(sparse_ms.values()) / rec["device_busy_ms"],
                 "sparse_launches": f32_counts})
+    tf32["cublas_ms_tf32_off"] = rec["by_category_ms"].get("GEMMs (cuBLAS)")
     log("nmt f32 full depth " + json.dumps(rec))
+    log("nmt f32 full depth matmul_precision float32 " + json.dumps(tf32))
     steps = len(f32_losses)
     if not np.isfinite(f32_losses).all() \
             or abs(f32_losses[0] - LN_NMT_VOCAB) > 0.5:
@@ -3275,6 +3347,298 @@ def phase_deepfm_gpu_vs_cpu(fluid):
         raise AssertionError("GPU and CPU DeepFM steps disagree")
 
 
+# ---------------------------------------------------------------------------
+# the executor's step surface
+# ---------------------------------------------------------------------------
+
+def host_state(scope, main):
+    """Every persistable of `main` in `scope`, copied to the host."""
+    return {v.name: scope.find_var(v.name).detach().cpu()
+            for v in main.list_vars()
+            if v.persistable and scope.has_var(v.name)}
+
+
+def scope_from(fluid, state):
+    """A fresh scope holding `state`'s tensors (each step's first run moves
+    them to the card); no generator, so each copy draws from the program's
+    seed as a fresh run does."""
+    scope = fluid.Scope()
+    for n, t in state.items():
+        scope.set_var(n, t.clone())
+    return scope
+
+
+def state_diff(a, b):
+    """(names that differ bitwise, largest max|a-b| / max|b| over them);
+    compared as bytes, so a NaN equals itself."""
+    import torch
+
+    bad, rel = [], 0.0
+    for n in sorted(a):
+        if a[n].shape != b[n].shape or not torch.equal(
+                a[n].contiguous().view(-1).view(torch.uint8),
+                b[n].contiguous().view(-1).view(torch.uint8)):
+            bad.append(n)
+            x, y = a[n].double(), b[n].double()
+            rel = max(rel, float((x - y).abs().max()
+                                 / y.abs().max().clamp_min(1e-30)))
+    return bad, rel
+
+
+def timed_steps(run, n):
+    """`n` calls of run (each ends in a host read of the loss): (losses,
+    host ms each)."""
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(run())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def med_range(ms):
+    """The first call's ms apart (it prepares the executor's plan and warms
+    the libraries), then the median and range of the rest."""
+    return {"first_ms": ms[0], "median_ms": float(np.median(ms[1:])),
+            "range_ms": [min(ms[1:]), max(ms[1:])]}
+
+
+def bert_remat_runs(fluid, main, loss, init, policies, steps=4):
+    """`steps` steps of `main` from `init` per remat policy, through
+    CompiledProgram.with_data_parallel on the one card: {policy: (losses as
+    bytes, host state after, peak MiB, step ms)}."""
+    import torch
+
+    out = {}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    for policy in policies:
+        bs = fluid.BuildStrategy()
+        bs.remat_policy = policy
+        prog = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, build_strategy=bs)
+        scope = scope_from(fluid, init)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = timed_steps(lambda: exe.run(
+            prog, feed=STEP_FEED, fetch_list=[loss], scope=scope)[0], steps)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        out[policy] = ([x.tobytes() for x in losses], host_state(scope, main),
+                       peak, ms, [float(x) for x in losses])
+        del scope
+    return out
+
+
+STEP_FEED = None
+STEP_T = 512
+
+
+def phase_step_surface(fluid, fa, fb):
+    """The executor's step surface at full width: remat policies on
+    BERT-base bf16 (CompiledProgram), the update fusion on ResNet-50 bf16,
+    FLAGS_check_nan_inf, return_handle. Prints one JSON line."""
+    global STEP_FEED
+    import torch
+    from paddle_tpu_torch.core import executor as texec
+    from paddle_tpu_torch.models import bert, resnet
+    from paddle_tpu_torch.observability import get_registry
+
+    rec = {}
+    t = STEP_T
+    rng = np.random.RandomState(13)
+    STEP_FEED = pretrain_feed(B, t, rng)
+
+    # remat: "none" / "minimal" / "full" from one state at dropout 0.1,
+    # then "none" / "full" at dropout 0
+    main, startup, loss = build_pretrain(fluid, bert, B, t, True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        init = host_state(fluid.global_scope(), main)
+    fa.flash_attention_fwd.launches = 0            # remat path starts
+    fa.flash_attention_bwd.launches = 0
+    runs = bert_remat_runs(fluid, main, loss, init,
+                           ("none", "minimal", "full"))
+    flash = (fa.flash_attention_fwd.launches,
+             fa.flash_attention_bwd.launches)       # remat path ends
+    mf_bad, _ = state_diff(runs["minimal"][1], runs["full"][1])
+    nf_bad, nf_rel = state_diff(runs["none"][1], runs["full"][1])
+    rec["bert_remat_dropout_0.1"] = {
+        p: {"losses": r[4], "peak_memory_MiB": r[2], **med_range(r[3])}
+        for p, r in runs.items()}
+    rec["bert_remat_dropout_0.1"].update({
+        "minimal_vs_full_bitwise": runs["minimal"][0] == runs["full"][0]
+        and not mf_bad,
+        "none_vs_full_bitwise": runs["none"][0] == runs["full"][0]
+        and not nf_bad, "flash_launches_fwd_bwd": flash})
+    if not rec["bert_remat_dropout_0.1"]["minimal_vs_full_bitwise"]:
+        raise AssertionError(f"remat minimal and full differ at dropout "
+                             f"0.1: losses {runs['minimal'][4]} vs "
+                             f"{runs['full'][4]}, state {mf_bad[:5]}")
+    # 12 layers x 4 steps x 3 policies, each way; the recompute of
+    # "minimal" and "full" runs the forward kernel once more a layer
+    if flash != (12 * 4 * 3 + 12 * 4 * 2, 12 * 4 * 3):
+        raise AssertionError(f"remat: flash launches (fwd, bwd) {flash}")
+    if not runs["full"][2] < runs["none"][2]:
+        raise AssertionError(f"remat full peak {runs['full'][2]} MiB is not "
+                             f"below none's {runs['none'][2]} MiB")
+    peaks = {p: r[2] for p, r in runs.items()}
+    del runs
+    main0, startup0, loss0 = build_pretrain(fluid, bert, B, t, True,
+                                            dropout=0.0)
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup0)
+        init0 = host_state(fluid.global_scope(), main0)
+    runs0 = bert_remat_runs(fluid, main0, loss0, init0, ("none", "full"))
+    bad0, rel0 = state_diff(runs0["none"][1], runs0["full"][1])
+    lrel0 = max(abs(a - b) / abs(b) for a, b in zip(runs0["full"][4],
+                                                     runs0["none"][4]))
+    rec["bert_remat_dropout_0"] = {
+        "none_vs_full_bitwise": runs0["none"][0] == runs0["full"][0]
+        and not bad0, "loss_max_rel": lrel0, "state_max_rel": rel0,
+        "state_vars_differing": len(bad0), "tolerance": 1e-5,
+        "losses": {p: r[4] for p, r in runs0.items()}}
+    if max(lrel0, rel0) > 1e-5:
+        raise AssertionError(f"remat none and full differ at dropout 0 past "
+                             f"1e-5: {rec['bert_remat_dropout_0']}")
+    del runs0, init0
+
+    # FLAGS_check_nan_inf: the probe's cost on the BERT step, then a NaN
+    # on a small program and in large tensors on the card
+    scope = scope_from(fluid, init)
+    step = (lambda: exe.run(main, feed=STEP_FEED, fetch_list=[loss],
+                            scope=scope)[0])
+    _, off_ms = timed_steps(step, 7)
+    fluid.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        _, on_ms = timed_steps(step, 7)
+        small, small_startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(small, small_startup):
+            x = fluid.layers.data("x", [64])
+            y = fluid.layers.fc(x, 32)
+            sloss = fluid.layers.mean(y)
+            fluid.optimizer.SGD(0.1).minimize(sloss)
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(small_startup)
+            xs = np.ones((4, 64), "float32")
+            exe.run(small, feed={"x": xs}, fetch_list=[sloss])
+            xs[2, 17] = np.nan
+            try:
+                exe.run(small, feed={"x": xs}, fetch_list=[sloss])
+                raised = None
+            except FloatingPointError as e:
+                raised = str(e)
+        big = torch.ones(1 << 24, device="cuda")
+        probes = {}
+        for label, bad in (("nan", float("nan")), ("inf", float("inf"))):
+            for dt in (torch.float32, torch.bfloat16):
+                b = big.to(dt, copy=True)
+                b[(1 << 23) + 7] = bad
+                try:
+                    texec._check_finite([("ok", big), ("bad", b)])
+                    probes[f"{label}_{dt}"] = None
+                except FloatingPointError as e:
+                    probes[f"{label}_{dt}"] = str(e)
+        texec._check_finite([("ok", big), ("ok16", big.bfloat16())])
+    finally:
+        fluid.set_flags({"FLAGS_check_nan_inf": False})
+    rec["check_nan_inf"] = {
+        "bert_step_off": med_range(off_ms), "bert_step_on": med_range(on_ms),
+        "probe_ms": float(np.median(on_ms[1:]) - np.median(off_ms[1:])),
+        "small_program_nan_feed": raised, "large_tensor_probes": probes}
+    if raised is None or "NaN/Inf detected in variable" not in raised:
+        raise AssertionError(f"check_nan_inf: a NaN feed raised {raised!r}")
+    if any(v is None or "'bad'" not in v for v in probes.values()):
+        raise AssertionError(f"check_nan_inf: large-tensor probes {probes}")
+    del scope
+
+    # return_handle: four steps dispatched with handles, .numpy() after
+    # each, against four return_numpy steps from the same state
+    out = {}
+    for handle in (True, False):
+        scope = scope_from(fluid, init)
+        vals, dispatch = [], []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            got = exe.run(main, feed=STEP_FEED, fetch_list=[loss],
+                          scope=scope, return_handle=handle)
+            dispatch.append((time.perf_counter() - t0) * 1e3)
+            vals.append((got.numpy() if handle else got)[0].tobytes())
+        out[handle] = (vals, dispatch)
+        del scope
+    rec["return_handle"] = {
+        "bitwise_equal": out[True][0] == out[False][0],
+        "host_ms_per_dispatch_handle": out[True][1],
+        "host_ms_per_dispatch_numpy": out[False][1]}
+    if out[True][0] != out[False][0]:
+        raise AssertionError("return_handle losses differ from return_numpy")
+    del init
+    torch.cuda.empty_cache()
+
+    # update fusion: ResNet-50 bf16 AMP, Momentum(0.1, 0.9), B=128, three
+    # steps per PDTPU_FUSE_UPDATES setting from one state (a new executor
+    # each: the setting is read when a plan is prepared)
+    os.environ["PDTPU_BN_MODE"] = "pallas"
+    rmain, rstartup, rloss = resnet_program(fluid, resnet, RESNET_B,
+                                            RESNET_HW, True)
+    feed = resnet_feed(RESNET_B, RESNET_HW)
+    with fluid.scope_guard(fluid.Scope()):
+        fluid.Executor(fluid.CUDAPlace(0)).run(rstartup)
+        rinit = host_state(fluid.global_scope(), rmain)
+    reg = get_registry()
+    counters = ("executor/fused_update_groups", "executor/fused_update_ops")
+    fused = {}
+    old = os.environ.get("PDTPU_FUSE_UPDATES")
+    try:
+        for mode in ("0", "1", "auto"):
+            os.environ["PDTPU_FUSE_UPDATES"] = mode
+            rexe = fluid.Executor(fluid.CUDAPlace(0))
+            scope = scope_from(fluid, rinit)
+            c0 = [reg.counter(c).value for c in counters]
+            rstep = (lambda: rexe.run(rmain, feed=feed, fetch_list=[rloss],
+                                      scope=scope)[0])
+            losses, ms = timed_steps(rstep, 3)
+            state = host_state(scope, rmain)
+            prof = profile_record(f"resnet50 bf16 B={RESNET_B} fuse={mode}",
+                                  rstep, 2)
+            _, warm = timed_steps(rstep, 5)
+            fused[mode] = {
+                "losses": [float(x) for x in losses], **med_range(ms),
+                "warm_after_profile": med_range(warm),
+                "device_events_per_step": prof["device_events"],
+                "device_busy_ms": prof["device_busy_ms"],
+                "device_events_by_category": prof["by_category_events"],
+                "device_ms_by_category": prof["by_category_ms"],
+                "fused_groups": reg.counter(counters[0]).value - c0[0],
+                "fused_ops": reg.counter(counters[1]).value - c0[1],
+                "_state": state, "_losses": [x.tobytes() for x in losses]}
+            del scope, rexe
+    finally:
+        if old is None:
+            os.environ.pop("PDTPU_FUSE_UPDATES", None)
+        else:
+            os.environ["PDTPU_FUSE_UPDATES"] = old
+    moved = [p.name for p in rmain.all_parameters()]
+    for mode in ("1", "auto"):
+        bad, _ = state_diff(fused["0"]["_state"], fused[mode]["_state"])
+        fused[mode]["bitwise_vs_per_op"] = (
+            not bad and fused[mode]["_losses"] == fused["0"]["_losses"])
+        if not fused[mode]["bitwise_vs_per_op"]:
+            raise AssertionError(f"fused updates ({mode}) differ from the "
+                                 f"per-op path: {bad[:5]}")
+    n_vel = sum(1 for n in fused["0"]["_state"] if "velocity" in n)
+    for r in fused.values():
+        del r["_state"], r["_losses"]
+    rec["resnet_update_fusion"] = dict(
+        fused, parameters=len(moved), velocities=n_vel)
+    if fused["1"]["fused_ops"] != len(moved) or n_vel != len(moved):
+        raise AssertionError(f"fusion: {fused['1']['fused_ops']} fused ops, "
+                             f"{len(moved)} parameters, {n_vel} velocities")
+    rec["bert_peak_memory_MiB"] = peaks
+    log("step surface " + json.dumps(rec))
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -3297,8 +3661,12 @@ def main():
     from paddle_tpu_torch.ops import deferred_rows as dr
     from paddle_tpu_torch.ops.kernels import sparse_adagrad as fsa
 
-    # 1. device
-    cuda_device(0)  # TF32 off for the f32 comparisons
+    # 1. device (TF32 stays off, FLAGS_matmul_precision's default, for the
+    # f32 comparisons)
+    cuda_device(0)
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on at start")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3360,6 +3728,10 @@ def main():
 
     # 13. deepfm GPU vs CPU
     phase_deepfm_gpu_vs_cpu(fluid)
+
+    # 14. the executor's step surface (remat, update fusion, NaN probe,
+    # fetch handles)
+    phase_step_surface(fluid, fa, fb)
 
     kernels = []
     for name in ("float32", "bfloat16"):

@@ -32,10 +32,15 @@ from . import ir  # noqa: F401
 from . import inference  # noqa: F401
 from . import reader  # noqa: F401
 from . import ps  # noqa: F401
+from . import dataio  # noqa: F401
+from .flags import get_flags, set_flags  # noqa: F401
 from .core import (  # noqa: F401
     Block,
+    BuildStrategy,
+    CompiledProgram,
     CPUPlace,
     CUDAPlace,
+    ExecutionStrategy,
     Executor,
     Operator,
     Parameter,
@@ -52,6 +57,7 @@ from .core import (  # noqa: F401
     program_guard,
     remat_unit,
     scope_guard,
+    ShardingStrategy,
 )
 from .core import unique_name  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401

@@ -1,5 +1,11 @@
 """Core framework: IR, registry, scope, executor, autodiff."""
 from .backward import append_backward, calc_gradient, gradients  # noqa: F401
+from .compiler import (  # noqa: F401
+    BuildStrategy,
+    CompiledProgram,
+    ExecutionStrategy,
+    ShardingStrategy,
+)
 from .executor import CPUPlace, CUDAPlace, Executor, Place  # noqa: F401
 from .program import (  # noqa: F401
     Block,

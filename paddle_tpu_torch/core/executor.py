@@ -29,24 +29,78 @@ gradient as a ``SelectedRows`` (``core/selected_rows.py``). No
 ``[vocab, dim]`` gradient is built, and a packed uint16 table, which torch
 cannot differentiate, still gets its rows.
 
-Not ported yet: the update-group fusion, remat groups, the scanned
-multi-step drivers and the observability hooks (ROADMAP "Left out by
-slice 2").
+Prepared plans. What the JAX package does once per compiled signature,
+the port does once per plan: ``Executor.run`` keys a plan on (program,
+version, feed signature, fetch names, state names) and keeps in it the
+sorted persistables, the set of names some op reads, the autodiff
+targets, the remat regions and the update-fusion schedule; a step that
+hits the cache replays it. ``PDTPU_FUSE_UPDATES``, ``PDTPU_REMAT_OPS`` and
+``PDTPU_REMAT_POLICY`` are read when a plan is prepared.
+
+Update fusion (``PDTPU_FUSE_UPDATES`` = 1 | auto): independent sgd and
+momentum updates run as one multi-tensor update (``torch._foreach_*``),
+bitwise equal to the per-op path. Remat (``BuildStrategy.remat_policy``,
+``PDTPU_REMAT_POLICY``, ``PDTPU_REMAT_OPS``): remat units and single ops
+run under ``torch.utils.checkpoint`` with their dropout draws replayed.
+``FLAGS_check_nan_inf`` checks every fetch and updated state var on the
+device with one host read. ``return_handle=True`` returns a
+``FetchHandle`` without a sync. Each run feeds the step profiler, the
+flight recorder, the tracer and the executor's metrics
+(``executor/cache_hits``, ``cache_misses``, ``compile_ms{sig=}``,
+``execute_ms``, ``update_flushes``, ``fused_update_groups``,
+``fused_update_ops``).
+
+Not ported yet: the scanned multi-step drivers (``run_batched``), the
+dataset trainer (ROADMAP A4) and CUDA-graph capture of the step (A2).
 """
 from __future__ import annotations
 
+import copy
+import os
+import time
+import weakref
+import zlib
 from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from . import registry
+from .compiler import CompiledProgram, resolve_remat
 from .dtypes import dtype_str, from_numpy, to_device, to_numpy
-from .program import (Block, Program, Variable, default_main_program,
-                      grad_var_name)
+from .program import (REMAT_UNIT_ATTR, Block, Program, Variable,
+                      default_main_program, grad_var_name)
 from .scope import Scope, _scope
+from ..dataio.handle import FetchHandle
+from ..faults import fault_point
+from ..flags import flag
+from ..observability.flight import (get_flight_recorder,
+                                    register_dump_section)
+from ..observability.registry import get_registry
+from ..observability.steps import get_step_profiler
+from ..observability.tracer import trace_span
+from ..observability.watchdog import get_watchdog
 
 _RNG_STATE = "@RNG_STATE@"
+
+# Executor telemetry lives in the process-wide registry; handles are
+# module-level, so the hot path takes no registry lock per step.
+_OBS = get_registry()
+_CACHE_HITS = _OBS.counter("executor/cache_hits")
+_CACHE_MISSES = _OBS.counter("executor/cache_misses")
+_EXECUTE_MS = _OBS.histogram("executor/execute_ms")
+_UPDATE_FLUSHES = _OBS.counter("executor/update_flushes")
+_FUSED_GROUPS = _OBS.counter("executor/fused_update_groups")
+_FUSED_OPS = _OBS.counter("executor/fused_update_ops")
+_WATCHDOG = get_watchdog()
+_STEPS = get_step_profiler()
+_FLIGHT = get_flight_recorder()
+
+# live executors, so the flight recorder can dump which plans were
+# resident when a run died (weak: a collected executor's cache should not
+# appear in forensics)
+_LIVE_EXECUTORS: "weakref.WeakSet" = weakref.WeakSet()
 
 
 class Place:
@@ -80,17 +134,16 @@ def CUDAPlace(device_id: int = 0):
 
 def cuda_device(device_id: int = 0, hint: str = "") -> torch.device:
     """The CUDA device the port runs on, or a RuntimeError when there is
-    none — a GPU request never carries on quietly on the CPU. Turns TF32 off
-    for float32 matmuls and convolutions, so float32 results keep parity
-    with the CPU and the JAX package."""
+    none — a GPU request never carries on quietly on the CPU. The TF32
+    switches are ``FLAGS_matmul_precision``'s alone (``flags.py``; its
+    default keeps TF32 off, so float32 results keep parity with the CPU
+    and the JAX package)."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"a CUDA device was requested but torch sees none; "
                            f"{hint}")
     if device_id >= torch.cuda.device_count():
         raise RuntimeError(f"CUDA device {device_id} requested, "
                            f"{torch.cuda.device_count()} present; {hint}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", device_id)
 
 
@@ -350,14 +403,439 @@ def _autodiff_targets(block: Block) -> Set[str]:
     return names
 
 
-def _run_block(block: Block, env: Dict[str, torch.Tensor], ctx: ExecContext):
-    for op in block.ops:
+# -- update-group fusion -----------------------------------------------------
+# Horizontally fusable parameter updates: N independent per-parameter sgd or
+# momentum ops run as ONE update over tensor lists (torch._foreach_*, the
+# list forms in ops/optimizer_ops.py), a few multi-tensor kernels instead of
+# N times each op's elementwise kernels and N op dispatches. This is the JAX
+# package's update-group fusion (there: concatenated flats under jit), kept
+# for runtimes where launch latency dominates, which the eager port is.
+# Reference analog: coalesce_tensor_op.cc + the fused_all_reduce idea
+# applied to the optimizer.
+_FUSABLE_UPDATES = {
+    "sgd": {"flat_in": ("Param", "Grad"), "flat_out": ("ParamOut",)},
+    "momentum": {"flat_in": ("Param", "Grad", "Velocity"),
+                 "flat_out": ("ParamOut", "VelocityOut")},
+    # adam/adamw are deliberately NOT fusable: their Beta*Pow accumulators
+    # are per-parameter state — running a group on ops[0]'s pows would
+    # corrupt any accumulator not in lockstep (e.g. a param added by a
+    # later minimize() call).
+}
+
+# "auto" fuses only parameters this small (the JAX package's threshold)
+_FUSE_SMALL_MAX_ELEMS = 65536
+
+
+def _fuse_updates_mode() -> str:
+    v = os.environ.get("PDTPU_FUSE_UPDATES", "0")
+    return {"0": "off", "1": "all"}.get(v, v)
+
+
+def _attrs_sig(attrs):
+    """Fusion-group attr signature. Any non-scalar attr (list/array) makes
+    the op not fusable (None): silently dropping it from the key would let
+    two ops differing only in that attr fuse and run with ops[0]'s attrs."""
+    sig = []
+    for k, v in attrs.items():
+        if not isinstance(v, (int, float, bool, str)):
+            return None
+        sig.append((k, v))
+    return tuple(sorted(sig))
+
+
+def _group_key(op, env, mode):
+    """Fusion-compatibility key; None = not fusable: a SelectedRows grad,
+    a non-scalar attr, a large parameter in "auto" mode, or (a port rule:
+    the list kernels take one dtype) inputs of mixed dtypes."""
+    spec = _FUSABLE_UPDATES[op.type]
+    sig = _attrs_sig(op.attrs)
+    if sig is None:
+        return None
+    dts = set()
+    for slot in spec["flat_in"]:
+        if slot not in op.inputs or len(op.inputs[slot]) != 1:
+            return None
+        v = env.get(op.inputs[slot][0])
+        if not isinstance(v, torch.Tensor):
+            return None  # SelectedRows takes the per-op path
+        dts.add(v.dtype)
+    if len(dts) != 1:
+        return None
+    if mode == "auto" and env[op.inputs["Param"][0]].numel() \
+            > _FUSE_SMALL_MAX_ELEMS:
+        return None
+    lr = tuple(op.inputs.get("LearningRate", ()))
+    return (op.type, sig, lr, str(dts.pop()))
+
+
+def _run_update_group(ops, env):
+    from ..ops import optimizer_ops
+
+    spec = _FUSABLE_UPDATES[ops[0].type]
+    vals = [[env[op.inputs[slot][0]] for op in ops]
+            for slot in spec["flat_in"]]
+    lr = env[ops[0].inputs["LearningRate"][0]].reshape(())
+    if ops[0].type == "sgd":
+        out = optimizer_ops.sgd_list(*vals, lr)
+    else:
+        out = optimizer_ops.momentum_list(*vals, lr, ops[0].attrs)
+    for slot in spec["flat_out"]:
+        for op, v in zip(ops, out[slot]):
+            env[op.outputs[slot][0]] = v
+
+
+# -- remat -------------------------------------------------------------------
+def _remat_eligible(op) -> bool:
+    """Can `op` run inside a checkpointed region? Members must be plainly
+    differentiable: custom-grad ops (sparse cotangents), non-differentiable
+    ops (grads must stay cut), control flow (nested blocks) and the
+    update/autodiff ops keep their per-op path. No registered op that
+    passes this writes an input in place (a recompute would write twice):
+    the batch-norm ops return their running statistics as new tensors."""
+    if op.type == "autodiff" or op.type in _FUSABLE_UPDATES:
+        return False
+    if not registry.has_op(op.type):
+        return False
+    opdef = registry.get_op(op.type)
+    if opdef.grad_fn is not None or not opdef.differentiable:
+        return False
+    return not any(isinstance(v, Block) for v in op.attrs.values())
+
+
+class _Region:
+    """One checkpointed region of the forward: a remat unit's consecutive
+    ops, or one op of ``RematSpec.op_set``. `reads` are its entry values,
+    `outs` the values it hands on (read after it, fetched, persistable or
+    an autodiff target: the rest die with the region), `nondiff` the
+    entries every member reads through a non-differentiable slot."""
+
+    __slots__ = ("ops", "decision", "reads", "outs", "nondiff")
+
+    def __init__(self, ops, decision, live_after):
+        self.ops = ops
+        self.decision = decision
+        reads, writes = [], []
+        for op in ops:
+            for slot in sorted(op.inputs):
+                for n in op.inputs[slot]:
+                    if n not in writes and n not in reads:
+                        reads.append(n)
+            for slot in sorted(op.outputs):
+                for n in op.outputs[slot]:
+                    if n not in writes:
+                        writes.append(n)
+        self.reads = reads
+        self.outs = [n for n in writes if n in live_after]
+        # an input is non-differentiable for the REGION only if every use
+        # of it inside is through a nondiff slot (JAX _run_remat_group)
+        used_diff, used_nondiff = set(), set()
+        for op in ops:
+            nd = registry.get_op(op.type).nondiff_inputs
+            for slot, names in op.inputs.items():
+                (used_nondiff if slot in nd else used_diff).update(names)
+        self.nondiff = (used_nondiff - used_diff) & set(reads)
+
+
+def _plan_remat_items(block: Block, spec, training: bool, fetch_names,
+                      persistables):
+    """Partition block.ops into ("op", op) singles and ("region", _Region)
+    items: maximal runs of consecutive ops sharing a `__remat_unit__` tag
+    whose unit decision (RematSpec.unit_policy) is truthy, and single ops
+    of RematSpec.op_set outside units. Regions are planned only in the
+    forward of a training step (before the autodiff op); otherwise, and
+    with no policy, every op is a single."""
+    ops = list(block.ops)
+    first_ad = next((i for i, op in enumerate(ops) if op.type == "autodiff"),
+                    None)
+    if (not training or first_ad is None or spec is None
+            or (spec.unit_policy is None and not spec.op_set)):
+        return [("op", op) for op in ops]
+    # what each op position hands on: names read at or after it, fetched,
+    # persistable, or differentiated by the autodiff op
+    tail = set(fetch_names) | set(persistables)
+    for op in ops:
         if op.type == "autodiff":
-            _run_autodiff(op, env, ctx)
+            tail.update(op.attrs["targets"])
+    live = [None] * (len(ops) + 1)
+    live[len(ops)] = frozenset(tail)
+    acc = set(tail)
+    for i in range(len(ops) - 1, -1, -1):
+        acc.update(ops[i].input_names())
+        live[i] = frozenset(acc)
+    op_set = spec.op_set
+    pred = spec.unit_policy
+    decisions: Dict[str, object] = {}
+    items: List[tuple] = []
+    cur_unit, cur_dec, cur_start = None, None, 0
+
+    def flush(end):
+        nonlocal cur_unit
+        if cur_unit is not None:
+            items.append(("region", _Region(ops[cur_start:end], cur_dec,
+                                            live[end])))
+        cur_unit = None
+
+    for i, op in enumerate(ops):
+        dec = None
+        eligible = i < first_ad and _remat_eligible(op)
+        unit = op.attrs.get(REMAT_UNIT_ATTR) if pred is not None else None
+        if eligible and unit is not None:
+            if unit not in decisions:
+                try:
+                    decisions[unit] = pred(unit)
+                except Exception:
+                    decisions[unit] = False
+            dec = decisions[unit]
+            if not dec or dec == "none":
+                dec = None
+        if dec is not None and unit == cur_unit:
+            continue
+        flush(i)
+        if dec is not None:
+            cur_unit, cur_dec, cur_start = unit, dec, i
+        elif eligible and (op_set is True or (op_set and op.type in op_set)):
+            items.append(("region", _Region([op], "full", live[i + 1])))
+        else:
+            items.append(("op", op))
+    flush(len(ops))
+    return items
+
+
+def _run_region(region: _Region, env, ctx: ExecContext, spec):
+    """Run a region as one non-reentrant ``torch.utils.checkpoint``: its
+    forward now, its saved activations dropped and recomputed in the
+    backward (under "minimal", the selective policy keeps the matmul
+    outputs). The region's random state is taken once, here, outside the
+    checkpointed function: the function sets a generator of its own to
+    that state on every call, so the first forward and the recompute draw
+    the same dropout masks and flash Philox seeds (torch's
+    ``preserve_rng_state`` restores only the default generators, and the
+    port's ops draw from the run's generator). The run's generator then
+    continues where the region's draws ended, so a step draws the same
+    numbers with and without remat. Generator states live on the host:
+    no device sync."""
+    gen = ctx.rng()
+    start = gen.get_state()
+    sub_gen = torch.Generator(ctx.device)
+    sub = copy.copy(ctx)
+    sub._gen = sub_gen
+
+    def fn(*vals):
+        sub_gen.set_state(start)
+        local = dict(zip(region.reads, vals))
+        for op in region.ops:
+            _run_op(op, local, sub)
+        return tuple(local.get(n) for n in region.outs)
+
+    vals = [env[n].detach() if n in region.nondiff
+            and isinstance(env[n], torch.Tensor) else env[n]
+            for n in region.reads]
+    kw = {}
+    context_fn = spec.context_fn(region.decision)
+    if context_fn is not None:
+        kw["context_fn"] = context_fn
+    outs = torch_checkpoint.checkpoint(fn, *vals, use_reentrant=False, **kw)
+    gen.set_state(sub_gen.get_state())
+    for n, v in zip(region.outs, outs):
+        if v is not None:
+            env[n] = v
+
+
+# -- the block ---------------------------------------------------------------
+def _run_item(kind, payload, env, ctx: ExecContext, plan):
+    if kind == "op":
+        if payload.type == "autodiff":
+            _run_autodiff(payload, env, ctx)
             # the update ops that follow record no graph
             torch.set_grad_enabled(False)
         else:
-            _run_op(op, env, ctx)
+            _run_op(payload, env, ctx)
+    elif kind == "region":
+        _run_region(payload, env, ctx, plan.spec)
+    else:  # "fused"
+        _run_update_group(payload, env)
+
+
+def _run_block(block: Block, env: Dict[str, torch.Tensor], ctx: ExecContext,
+               plan: Optional["_Plan"] = None):
+    """Run `block`'s ops over `env`. With no plan (the Predictor, the IR
+    passes) every op runs in order and nothing is planned. A training
+    step's plan brings its remat regions and, with PDTPU_FUSE_UPDATES on,
+    its update groups: the groups are decided on the plan's first run
+    (they depend on the gradients' kinds) and that schedule is replayed
+    after."""
+    if plan is None:
+        for op in block.ops:
+            _run_item("op", op, env, ctx, None)
+        return
+    if plan.schedule is not None:
+        for kind, payload in plan.schedule:
+            _run_item(kind, payload, env, ctx, plan)
+        return
+    schedule: List[tuple] = []
+
+    def run(kind, payload):
+        schedule.append((kind, payload))
+        _run_item(kind, payload, env, ctx, plan)
+
+    mode = plan.fuse_mode
+    pending: List = []          # fusable update ops awaiting flush
+    pending_in: set = set()
+    pending_out: set = set()
+
+    def flush():
+        if not pending:
+            return
+        # counted while the schedule is decided (once per plan, as the JAX
+        # package counts once per compiled signature): how many flush
+        # points the step hit and how many update ops fused
+        _UPDATE_FLUSHES.inc()
+        groups: Dict[object, List] = {}
+        singles: List = []
+        for p in pending:
+            key = _group_key(p, env, mode)
+            if key is None:
+                singles.append(p)
+            else:
+                groups.setdefault(key, []).append(p)
+        for ops_ in groups.values():
+            if len(ops_) == 1:
+                singles.append(ops_[0])
+            else:
+                _FUSED_GROUPS.inc()
+                _FUSED_OPS.inc(len(ops_))
+                run("fused", ops_)
+        for p in singles:
+            run("op", p)
+        pending.clear()
+        pending_in.clear()
+        pending_out.clear()
+
+    for kind, entry in plan.items:
+        if mode == "off" or kind == "region":
+            # regions are forward code; any pending updates complete first
+            flush()
+            run(kind, entry)
+            continue
+        op = entry
+        names_in = set(op.input_names())
+        names_out = set(op.output_names())
+        if op.type in _FUSABLE_UPDATES:
+            # a fusable op that depends on (or clobbers) a pending op's
+            # output must not join its group — flush so updates on the same
+            # parameter stay ordered
+            if names_in & pending_out or names_out & (pending_in
+                                                      | pending_out):
+                flush()
+            pending.append(op)
+            pending_in.update(names_in)
+            pending_out.update(names_out)
+            continue
+        if (op.type == "autodiff" or names_in & pending_out
+                or names_out & (pending_in | pending_out)):
+            flush()
+        run("op", op)
+    flush()
+    plan.schedule = schedule
+
+
+# -- FLAGS_check_nan_inf ------------------------------------------------------
+def _check_finite(named_vals) -> None:
+    """FLAGS_check_nan_inf parity (operator.cc:949) without a host copy of
+    every state var: each floating tensor's max |x| (``_foreach_norm`` with
+    ord=inf, a few multi-tensor kernels, NaN-propagating) feeds one
+    all-finite scalar on the device, and only that scalar crosses to the
+    host. Names and values are read only when it trips."""
+    floats = [(n, v) for n, v in named_vals
+              if isinstance(v, torch.Tensor) and v.is_floating_point()
+              and v.numel()]
+    if not floats:
+        return
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for _, v in floats:
+        by_dtype.setdefault(v.dtype, []).append(v.detach())
+    maxes = [torch.stack(torch._foreach_norm(vs, ord=float("inf"))).float()
+             for vs in by_dtype.values()]
+    if bool(torch.isfinite(torch.cat(maxes)).all()):
+        return
+    for n, v in floats:  # slow path: find and name the offender(s)
+        if not bool(torch.isfinite(v).all()):
+            raise FloatingPointError(
+                f"NaN/Inf detected in variable {n!r} "
+                f"(FLAGS_check_nan_inf is on)")
+    raise FloatingPointError(
+        "NaN/Inf detected (FLAGS_check_nan_inf is on) but no single "
+        "variable reproduced it on host readback")
+
+
+# -- the prepared plan ---------------------------------------------------------
+def _sig_digest(feed_sig) -> str:
+    """Short stable label for a feed signature (crc32 of its repr, NOT
+    hash(): str hashing is salted per process), so prepare-time
+    histograms can be told apart per signature."""
+    return format(zlib.crc32(repr(feed_sig).encode()) & 0xFFFFFFFF, "08x")
+
+
+def feed_signature(feed_vals) -> tuple:
+    """Canonical hashable (name, shape, dtype) signature of a feed dict:
+    the plan-cache key ingredient."""
+    return tuple(sorted((str(n), tuple(v.shape), str(v.dtype))
+                        for n, v in dict(feed_vals).items()))
+
+
+def _env_remat_spec():
+    """PDTPU_REMAT_OPS="batch_norm,relu" (or "1": every op) — per-op
+    checkpoint on the plain-Executor path; PDTPU_REMAT_POLICY="minimal"|
+    "full" maps onto the policy surface (remat units included) for scripts
+    without a CompiledProgram. Read when a plan is prepared."""
+    remat_env = os.environ.get("PDTPU_REMAT_OPS", "")
+    legacy = (True if remat_env == "1"
+              else frozenset(t for t in remat_env.split(",") if t)
+              if remat_env else False)
+    return resolve_remat(os.environ.get("PDTPU_REMAT_POLICY") or None, legacy)
+
+
+class _Plan:
+    """What ``Executor.run`` prepares once per (program, version, feed
+    signature, fetch names, state names) and replays every step after:
+    the counterpart of the JAX package's compiled step and of the
+    reference's ``executor.cc:349 Prepare``."""
+
+    __slots__ = ("program", "persistables", "needed", "targets", "training",
+                 "spec", "fuse_mode", "items", "schedule")
+
+    def __init__(self, program: Program, fetch_names, spec):
+        block = program.global_block()
+        self.program = weakref.ref(program)
+        self.persistables = sorted({v.name for v in program.list_vars()
+                                    if v.persistable})
+        self.needed = set(fetch_names).union(
+            n for op in block.ops for n in op.input_names())
+        self.targets = _autodiff_targets(block)
+        self.training = bool(self.targets)
+        self.spec = spec if spec is not None else _env_remat_spec()
+        self.fuse_mode = _fuse_updates_mode()
+        self.items = _plan_remat_items(block, self.spec, self.training,
+                                       fetch_names, self.persistables)
+        self.schedule = None  # decided on the first run (_run_block)
+
+
+def _fmt_cache_key(key) -> dict:
+    try:
+        return {"program": f"0x{key[0]:x}", "version": key[1],
+                "key": repr(key[2:])[:400]}
+    except Exception:
+        return {"key": repr(key)[:400]}
+
+
+def _compiled_signatures_section() -> list:
+    out = []
+    for exe in list(_LIVE_EXECUTORS):
+        out.extend(_fmt_cache_key(k) for k in list(exe._cache))
+    return out
+
+
+register_dump_section("compiled_signatures", _compiled_signatures_section)
 
 
 class Executor:
@@ -372,56 +850,152 @@ class Executor:
     def __init__(self, place: Optional[Place] = None):
         self.place = place or CUDAPlace(0)
         self.device = self.place.torch_device()
+        self._cache: Dict[tuple, _Plan] = {}
+        self._state_names_cache = None
+        _LIVE_EXECUTORS.add(self)
+
+    def _state_names(self, program: Program, scope: Scope) -> List[str]:
+        # cached single entry, rebuilt when the program version or any
+        # scope in the lookup chain changes its KEY SET (has_var walks
+        # parents, so a var added to a parent scope must invalidate too; a
+        # generation counter, unlike len(_vars), catches erase-one +
+        # add-another). Strong refs to program + scope, so the identity
+        # test cannot alias a recycled id.
+        chain = []
+        s = scope
+        while s is not None:
+            chain.append(s._keyset_gen)
+            s = s.parent
+        cached = self._state_names_cache
+        if (cached is not None and cached[0] is program
+                and cached[1] == program._version and cached[2] is scope
+                and cached[3] == chain):
+            return cached[4]
+        names = sorted({v.name for v in program.list_vars()
+                        if v.persistable and scope.has_var(v.name)})
+        self._state_names_cache = (program, program._version, scope, chain,
+                                   names)
+        return names
 
     def run(
         self,
-        program: Optional[Program] = None,
+        program=None,
         feed: Optional[Dict[str, np.ndarray]] = None,
         fetch_list: Optional[Sequence] = None,
         scope: Optional[Scope] = None,
         return_numpy: bool = True,
+        return_handle: bool = False,
     ):
         """Run `program`: feed → execute → fetch (reference executor.py:539).
-        Persistable vars are read from and written back to `scope`."""
+        Persistable vars are read from and written back to `scope`.
+
+        return_handle=True returns a :class:`FetchHandle` over the fetch
+        tensors without waiting for the card; `.numpy()` on it is the sync
+        point, and its arrays are bitwise those of return_numpy=True.
+        A :class:`CompiledProgram` runs with its build strategy's remat
+        policy."""
+        if isinstance(program, CompiledProgram):
+            # chaos probe: one hit per training-step dispatch
+            fault_point("exec.dispatch")
+            return self._run(program._program, feed, fetch_list, scope,
+                             return_numpy, return_handle,
+                             spec=program._remat_spec(), probe=False)
+        return self._run(program, feed, fetch_list, scope, return_numpy,
+                         return_handle)
+
+    def _run(self, program, feed, fetch_list, scope, return_numpy,
+             return_handle, spec=None, probe=True):
         program = program or default_main_program()
         scope = scope or _scope()
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
         block = program.global_block()
+        feed_vals = {name: convert_feed_value(block, name, val, self.device)
+                     for name, val in (feed or {}).items()}
+        state_names = self._state_names(program, scope)
+        feed_sig = feed_signature(feed_vals)
+        sig = _sig_digest(feed_sig)
+        key = (id(program), program._version, feed_sig, tuple(fetch_names),
+               tuple(state_names), None if spec is None else spec.token)
+        t0 = time.perf_counter()
+        plan = self._cache.get(key)
+        compiling = plan is None or plan.program() is not program
+        if compiling:
+            _CACHE_MISSES.inc()
+            # a miss re-prepares the plan: count it per program and let
+            # the watchdog diagnose shape-churn storms
+            wkey = (id(program), program._version, tuple(fetch_names))
+            if _WATCHDOG.record_compile(
+                    wkey, feed_sig, label=f"Executor program 0x{id(program):x}"):
+                weakref.finalize(program, _WATCHDOG.forget, wkey)
+            plan = self._cache[key] = _Plan(program, fetch_names, spec)
+        else:
+            _CACHE_HITS.inc()
+        with _FLIGHT.guard("Executor.run", program=f"0x{id(program):x}",
+                           sig=sig, compiling=compiling), \
+                trace_span("executor/compile+run" if compiling
+                           else "executor/run", sig=sig):
+            if probe:
+                # chaos probe inside the timed region: a delay_ms fault
+                # here IS a slow step, which the StepProfiler must see
+                fault_point("exec.dispatch")
+            fetches, new_state = self._execute(plan, block, scope, feed_vals,
+                                               state_names, fetch_names)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        if compiling:
+            # the first run pays the prepare and the schedule's decisions
+            _OBS.histogram("executor/compile_ms", sig=sig).observe(dt_ms)
+        else:
+            # host time of a replayed step (the card's kernels may still
+            # be running: they are launched asynchronously)
+            _EXECUTE_MS.observe(dt_ms)
+        _STEPS.record(dt_ms, program_id=id(program), sig=sig,
+                      compiled=compiling)
+        if flag("check_nan_inf"):
+            # every fetched value and updated state var, checked on the
+            # device; the host pays one scalar read unless it trips
+            _check_finite(list(zip(fetch_names, fetches))
+                          + list(new_state.items()))
+        if return_handle:
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+            return FetchHandle(fetch_names, [f.detach() for f in fetches],
+                               event)
+        if return_numpy:
+            return [to_numpy(f) for f in fetches]
+        return [f.detach() for f in fetches]
+
+    def _execute(self, plan: _Plan, block: Block, scope: Scope, feed_vals,
+                 state_names, fetch_names):
         env = {}
-        persistables = sorted({v.name for v in program.list_vars()
-                               if v.persistable})
-        for n in persistables:
-            val = scope.find_var(n)
-            if val is not None:
-                env[n] = to_device(val, self.device)
-        for name, val in (feed or {}).items():
-            env[name] = convert_feed_value(block, name, val, self.device)
+        for n in state_names:
+            env[n] = to_device(scope.find_var(n), self.device)
+        env.update(feed_vals)
         gen = scope.find_var(_RNG_STATE)
         if gen is None or gen.device != self.device:
             gen = torch.Generator(self.device).manual_seed(
-                program.random_seed or 0)
+                block.program.random_seed or 0)
             scope.set_var(_RNG_STATE, gen)
-        needed = set(fetch_names).union(
-            n for op in block.ops for n in op.input_names())
-        ctx = ExecContext(self.device, gen, amp=getattr(program, "_amp", None),
-                          needed=needed)
-        ctx.targets = _autodiff_targets(block)
-        ctx.training = bool(ctx.targets)
+        ctx = ExecContext(self.device, gen,
+                          amp=getattr(block.program, "_amp", None),
+                          needed=plan.needed)
+        ctx.targets = plan.targets
+        ctx.training = plan.training
         for n in ctx.targets:
             v = env.get(n)
             if v is not None and v.is_floating_point():
                 env[n] = v.detach().requires_grad_()  # a fresh leaf each run
         with torch.set_grad_enabled(ctx.training):
-            _run_block(block, env, ctx)
-        for n in persistables:
+            _run_block(block, env, ctx, plan)
+        new_state = {}
+        for n in plan.persistables:
             if n in env:
-                scope.set_var(n, env[n].detach())
-        fetches = [env[n] for n in fetch_names]
-        if return_numpy:
-            return [to_numpy(f) for f in fetches]
-        return [f.detach() for f in fetches]
+                new_state[n] = env[n].detach()
+                scope.set_var(n, new_state[n])
+        return [env[n] for n in fetch_names], new_state
 
 
 __all__ = ["Place", "CPUPlace", "CUDAPlace", "ExecContext", "Executor",
-           "convert_feed_value", "cuda_device"]
+           "convert_feed_value", "cuda_device", "feed_signature"]

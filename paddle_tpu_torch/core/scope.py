@@ -19,9 +19,24 @@ class Scope:
     def __init__(self, parent: Optional["Scope"] = None):
         self._vars: Dict[str, torch.Tensor] = {}
         self.parent = parent
+        # bumped on every key-set change (a new name, an erased name), never
+        # on a value replacement: the executor's prepared plans key on it,
+        # so ordinary state updates keep them while erase-one-add-another
+        # (same len) still invalidates
+        self._keyset_gen = 0
 
     def set_var(self, name: str, value):
+        if name not in self._vars:
+            self._keyset_gen += 1
         self._vars[name] = value
+
+    def erase(self, name: str):
+        if name in self._vars:
+            self._keyset_gen += 1
+            del self._vars[name]
+
+    def var_names(self):
+        return list(self._vars.keys())
 
     def find_var(self, name: str):
         s: Optional[Scope] = self

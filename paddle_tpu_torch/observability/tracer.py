@@ -1,5 +1,6 @@
 """Host-side span tracer with chrome-trace export — the part of
-``paddle_tpu.observability.tracer`` the PS tier uses (stdlib only).
+``paddle_tpu.observability.tracer`` the PS tier and the executor use
+(stdlib only).
 
 Wall-clock spans recorded per thread as B/E (begin/end) event pairs,
 exported as chrome-trace JSON that loads in chrome://tracing or
@@ -14,7 +15,9 @@ turns the tracer on and exports it::
     ...                                   # tier.run_step(...) a few times
     get_tracer().export_chrome_trace("host_trace.json")
 
-The tracer starts disabled, and a disabled span is a no-op: no event, no
+``trace_span`` is a context manager and a decorator (``@trace_span
+("load_batch")``: one span per call). The tracer starts disabled, and a
+disabled span is a no-op: no event, no
 trace context. Enabled, a span costs one ``perf_counter`` call and one
 lock-protected list append at each end. While a `context.TraceContext` is
 active on the thread, a span derives a child context for its duration and
@@ -22,6 +25,7 @@ stamps ``trace_id``/``span_id``/``parent_id`` into its args.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import threading
@@ -76,6 +80,16 @@ class Tracer:
         self._emit({"name": name, "ph": "E", "ts": _now_us(),
                     "pid": os.getpid(), "tid": threading.get_ident()})
 
+    def instant(self, name: str, args: Optional[dict] = None) -> None:
+        """One timestamped marker (chrome-trace 'i' event)."""
+        if not self.enabled:
+            return
+        ev = {"name": name, "ph": "i", "s": "t", "ts": _now_us(),
+              "pid": os.getpid(), "tid": threading.get_ident()}
+        if args:
+            ev["args"] = args
+        self._emit(ev)
+
     def export_chrome_trace(self, path: Optional[str] = None) -> dict:
         """Chrome-trace JSON object ({"traceEvents": [...]}); written to
         `path` when given."""
@@ -115,8 +129,9 @@ def get_tracer() -> Tracer:
 
 
 class trace_span:
-    """``with trace_span(name, **args):`` records one named wall-clock
-    span; keyword arguments become chrome-trace `args`. The end event is
+    """``with trace_span(name, **args):`` (or ``@trace_span(name)`` on a
+    function) records one named wall-clock span; keyword arguments become
+    chrome-trace `args`. The end event is
     emitted even when the body raises. Under an active `TraceContext` the
     span is a child span of it."""
 
@@ -154,6 +169,16 @@ class trace_span:
             _ctx._restore(self._ctx_token)
             self._ctx_token = None
         return False
+
+    def __call__(self, fn):
+        name, args, cls = self.name, self.args or {}, type(self)
+
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            with cls(name, **args):
+                return fn(*a, **kw)
+
+        return wrapper
 
 
 class start_trace(trace_span):

@@ -225,7 +225,7 @@ def _lookup_table(ctx, inputs, attrs):
     if "PendingPos" in inputs:
         raise NotImplementedError(
             "lookup_table: deferred-row tables (PendingPos, deferred_rows=) "
-            "are not ported yet (ROADMAP A7, left out by slice 5)")
+            "are not ported yet (ROADMAP A5, left out by slice 5)")
     (w,) = inputs["W"]
     (ids,) = inputs["Ids"]
     idx = _squeezed(ids)

@@ -12,6 +12,12 @@ touched rows of sgd, adam (lazy mode) and adagrad: duplicates are merged
 first (``SelectedRows.merged``: every duplicate position carries its id's
 full sum), so the row writes are the same whichever duplicate lands last.
 The packed-table row ops are in ``ops/deferred_rows.py``.
+
+``sgd_list`` and ``momentum_list`` are the dense sgd and momentum updates
+of a parameter list (the executor's update-group fusion,
+``PDTPU_FUSE_UPDATES``): ``torch._foreach_*`` over the lists, in the same
+operation order as the per-op function beside them, so a fused group is
+bitwise equal to its ops run one by one, on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -39,6 +45,14 @@ def _sgd(ctx, inputs, attrs):
     return {"ParamOut": [p - _lr(inputs) * g.to(p.dtype)]}
 
 
+def sgd_list(params, grads, lr):
+    """`_sgd`'s dense update of a parameter list; `lr` is a 0-dim tensor
+    (the Tensor overload of ``_foreach_mul`` takes no [1] tensor)."""
+    grads = [g.to(p.dtype) for p, g in zip(params, grads)]
+    return {"ParamOut": torch._foreach_sub(params,
+                                           torch._foreach_mul(grads, lr))}
+
+
 @register_op("momentum", differentiable=False)
 def _momentum(ctx, inputs, attrs):
     """momentum_op.cc: v = mu·v + g; p -= lr·v, or with Nesterov
@@ -54,6 +68,18 @@ def _momentum(ctx, inputs, attrs):
     else:
         p_out = p - lr * v_out
     return {"ParamOut": [p_out], "VelocityOut": [v_out]}
+
+
+def momentum_list(params, grads, vels, lr, attrs):
+    """`_momentum` over parameter lists; `lr` is a 0-dim tensor."""
+    mu = attrs["mu"]
+    v_out = torch._foreach_add(torch._foreach_mul(vels, mu), grads)
+    if attrs.get("use_nesterov", False):
+        step = torch._foreach_add(grads, torch._foreach_mul(v_out, mu))
+        p_out = torch._foreach_sub(params, torch._foreach_mul(step, lr))
+    else:
+        p_out = torch._foreach_sub(params, torch._foreach_mul(v_out, lr))
+    return {"ParamOut": p_out, "VelocityOut": v_out}
 
 
 def _adam_moments(inputs, attrs, p, g):

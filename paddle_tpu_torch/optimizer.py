@@ -29,7 +29,7 @@ def _no_deferred_rows(deferred_rows):
         raise NotImplementedError(
             "deferred_rows= (the deferred-row log: lookup_join, "
             "*_row_deferred, deferred_fold) is not ported to "
-            "paddle_tpu_torch yet (ROADMAP A7, left out by slice 5); use "
+            "paddle_tpu_torch yet (ROADMAP A5, left out by slice 5); use "
             "packed_rows= with an embedding built with row_pack=True")
 
 

@@ -13,7 +13,7 @@ same overlap rides the repo's own machinery:
   pulls out through ``ShardedTable``, and lands the gathered rows on the
   device. The JAX package runs this ``pull_ahead`` batches ahead on a
   ``dataio.DeviceLoader`` worker; the port runs it inline
-  (``pull_ahead=0``) until the loader is ported (ROADMAP A8), and
+  (``pull_ahead=0``) until the loader is ported (ROADMAP A4), and
   ``pull_ahead >= 1`` raises;
 * the step itself runs unchanged: the program's table param is a CACHE of
   ``cache_rows`` packed rows; ``scope.set_var`` swaps the pulled cache in,
@@ -231,7 +231,7 @@ class PsEmbeddingTier:
             raise NotImplementedError(
                 f"PsEmbeddingTier(pull_ahead={pull_ahead}): prefetching "
                 "pulls need dataio.DeviceLoader, which is not ported to "
-                "paddle_tpu_torch yet (ROADMAP A8); use pull_ahead=0")
+                "paddle_tpu_torch yet (ROADMAP A4); use pull_ahead=0")
         self.device = (place or CUDAPlace(0)).torch_device()
         self.program = program
         self.bindings = list(bindings)

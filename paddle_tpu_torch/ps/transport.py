@@ -6,7 +6,7 @@ in-process client (the port's copy of that part of
 direct method dispatch. This is what single-host training and the tests use
 (no sockets, no pickling, zero copies beyond the pull itself). The socket
 transport (``SocketClient``, ``ShardServer``, ``connect``) is not ported:
-constructing one raises ``NotImplementedError`` (ROADMAP A11).
+constructing one raises ``NotImplementedError`` (ROADMAP A8).
 
 Failure taxonomy: every transport-level failure is a
 :class:`TransportError` carrying ``transient`` (a reconnect might
@@ -140,7 +140,7 @@ class InProcessClient(ShardClient):
 def _socket_not_ported(what):
     raise NotImplementedError(
         f"{what}: the PS socket transport is not ported to paddle_tpu_torch "
-        f"yet (ROADMAP A11); build the table with "
+        f"yet (ROADMAP A8); build the table with "
         f"ShardedTable.build_in_process or InProcessClient")
 
 

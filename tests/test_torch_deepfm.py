@@ -262,7 +262,7 @@ def test_deferred_rows_raise_not_ported():
     ValueError only when it meets a row_pack table)."""
     for opt in (tfluid.optimizer.SGD, tfluid.optimizer.Adagrad,
                 tfluid.optimizer.Adam):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(NotImplementedError, match="A5"):
             opt(0.1, deferred_rows={"rows_per_step": B * F})
     with pytest.raises(ValueError, match="is_sparse"):
         tdeepfm.build_train_program(vocab_size=100, is_sparse=False,

@@ -175,7 +175,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch.ops.kernels.flash_attention_sparse, "
             "paddle_tpu_torch.layers.metric_op, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.contrib.mixed_precision, "
-            "paddle_tpu_torch.core.backward; "
+            "paddle_tpu_torch.core.backward, paddle_tpu_torch.flags, "
+            "paddle_tpu_torch.core.compiler, paddle_tpu_torch.dataio.handle, "
+            "paddle_tpu_torch.observability.steps, "
+            "paddle_tpu_torch.observability.watchdog, "
+            "paddle_tpu_torch.observability.flight; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -361,9 +361,9 @@ def test_tier_refuses_what_is_not_ported():
     finally:
         tier.close()
     from paddle_tpu_torch.ps import SocketClient, connect
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A8"):
         SocketClient("localhost:1")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A8"):
         connect("localhost:1")
 
 
