@@ -200,6 +200,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              0, 1 and auto from one state: parameters and velocities
              bitwise equal, device events a step (profiled), fused groups
              and ops, step median and range.
+15. training surface — one JSON line, the card's name and power limit in
+             it: each of the six new update ops (LarsMomentum, Adamax,
+             DecayedAdagrad, Adadelta, RMSProp plain and centered, Ftrl at
+             lr_power -0.5 and -0.3) and conditional_block (under
+             GradientMerge and Lookahead) three steps of a small fc
+             program from one state on the card and the CPU, every
+             parameter and accumulator within rtol 1e-5, atol 1e-7 or
+             within twice the CPU's own spread under a one-ulp change of
+             the input; the eight schedule kinds (and warmup over a
+             polynomial decay) 12 steps, within 1e-6 of the CPU's, and a
+             warm step profiled: no host-to-device copy, the ops' device
+             time; layers.auc over three B=4096 batches, the stat buffers
+             bitwise equal to the CPU's and to metrics.Auc; LeNet-5 on
+             synthetic digits, 12 epochs of 4 batches of 64 (the loss
+             halves, accuracy over 0.9). Then the full-width recipes, each
+             with its launches counted from 0: ResNet-50 bf16 AMP B=128 on
+             LarsMomentum over linear warmup + polynomial decay (2 + 4
+             steps, one profiled: finite losses, the lr sequence against
+             the CPU's, rows 7-11 a step, device events a step, step
+             median and range); Transformer-big bf16 packed-sparse B=16
+             T=256 on Adam over noam_decay(1024, 4000), 4 steps (rows 5-6
+             a step, the lr sequence); BERT-base bf16 AMP B=8 T=512 on
+             GradientMergeOptimizer(Lamb(warmup + linear decay), k_steps=2),
+             6 steps: parameters and LAMB accumulators bitwise unchanged on
+             the steps that skip, every parameter moving on the steps that
+             apply, the merge buffers and the counters changing every
+             step, rows 1-4 launches, the ms of both kinds of step.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -1600,19 +1627,30 @@ def pretrain_feed(b, t, rng):
     return feed
 
 
-def build_pretrain(fluid, bert, b, t, amp, layers=12, dropout=DROPOUT,
-                   hidden=HIDDEN, heads=NH, ffn=3072):
-    cfg = bert.BertConfig(vocab_size=30522, hidden_size=hidden,
-                          num_layers=layers, num_heads=heads, ffn_size=ffn,
-                          max_position=512, hidden_dropout=dropout,
-                          attn_dropout=dropout)
-
-    def opt():
-        o = fluid.optimizer.Adam(LR)
+def amp_wrapper(fluid, amp):
+    """bf16 AMP decoration (no loss scaling) when `amp`, else identity."""
+    def wrap(o):
         if amp:
             o = fluid.contrib.mixed_precision.decorate(
                 o, dtype="bfloat16", use_dynamic_loss_scaling=False)
         return o
+    return wrap
+
+
+def build_pretrain(fluid, bert, b, t, amp, layers=12, dropout=DROPOUT,
+                   hidden=HIDDEN, heads=NH, ffn=3072, optimizer=None):
+    """BERT pretraining on Adam(LR), or on `optimizer(amp_wrap)` (built
+    inside the program: a schedule's ops land there)."""
+    cfg = bert.BertConfig(vocab_size=30522, hidden_size=hidden,
+                          num_layers=layers, num_heads=heads, ffn_size=ffn,
+                          max_position=512, hidden_dropout=dropout,
+                          attn_dropout=dropout)
+    wrap = amp_wrapper(fluid, amp)
+
+    def opt():
+        if optimizer is not None:
+            return optimizer(wrap)
+        return wrap(fluid.optimizer.Adam(LR))
 
     main, startup, _, loss = bert.build_pretrain_program(
         cfg, b, t, optimizer_factory=opt)
@@ -2058,9 +2096,10 @@ def phase_kernel_bn(fb):
     return records
 
 
-def resnet_program(fluid, resnet, b, hw, amp, classes=1000):
+def resnet_program(fluid, resnet, b, hw, amp, classes=1000, optimizer=None):
     """The JAX bench's ResNet-50 recipe (7x7 stem): resnet → softmax CE →
-    mean → Momentum(0.1, 0.9), under bf16 AMP when `amp`. Built with
+    mean → Momentum(0.1, 0.9) (or `optimizer()`, built inside the
+    program), under bf16 AMP when `amp`. Built with
     PDTPU_CONV_BN_FUSION=pallas (36 fused_conv_bn ops)."""
     os.environ["PDTPU_CONV_BN_FUSION"] = "pallas"
     main, startup = fluid.Program(), fluid.Program()
@@ -2071,11 +2110,9 @@ def resnet_program(fluid, resnet, b, hw, amp, classes=1000):
         logits = resnet.resnet(img, 50, classes)
         loss = fluid.layers.mean(
             fluid.layers.softmax_with_cross_entropy(logits, label))
-        opt = fluid.optimizer.Momentum(0.1, 0.9)
-        if amp:
-            opt = fluid.contrib.mixed_precision.decorate(
-                opt, dtype="bfloat16", use_dynamic_loss_scaling=False)
-        opt.minimize(loss)
+        opt = (optimizer() if optimizer is not None
+               else fluid.optimizer.Momentum(0.1, 0.9))
+        amp_wrapper(fluid, amp)(opt).minimize(loss)
     return main, startup, loss
 
 
@@ -2594,15 +2631,13 @@ def phase_sparse_routes(fas):
                                  f"counted plain route")
 
 
-def nmt_program(fluid, nmt, cfg, t, amp):
-    """The JAX bench's NMT recipe: packed-sparse rows, Adam(1e-4), under
-    bf16 AMP when `amp`."""
+def nmt_program(fluid, nmt, cfg, t, amp, optimizer=None):
+    """The JAX bench's NMT recipe: packed-sparse rows, Adam(1e-4) (or
+    `optimizer()`, built inside the program), under bf16 AMP when `amp`."""
     def opt():
-        o = fluid.optimizer.Adam(LR)
-        if amp:
-            o = fluid.contrib.mixed_precision.decorate(
-                o, dtype="bfloat16", use_dynamic_loss_scaling=False)
-        return o
+        return amp_wrapper(fluid, amp)(
+            optimizer() if optimizer is not None
+            else fluid.optimizer.Adam(LR))
 
     main, startup, _, loss = nmt.build_train_program(
         cfg, t, t, packed=True, attn="sparse", optimizer_factory=opt)
@@ -3639,6 +3674,514 @@ def phase_step_surface(fluid, fa, fb):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 15. the training surface: schedules, the remaining optimizers,
+# conditional_block, auc, LeNet
+# ---------------------------------------------------------------------------
+
+SURFACE_STEPS = 3      # per-op GPU-vs-CPU steps
+SCHEDULE_STEPS = 12
+AUC_B = 4096
+LARS_PEAK = 0.4        # LARS peak rate at B=128
+SURFACE_OPTS = {
+    "lars_momentum": lambda f: f.optimizer.LarsMomentum(0.1, 0.9),
+    "adamax": lambda f: f.optimizer.Adamax(0.05),
+    "decayed_adagrad": lambda f: f.optimizer.DecayedAdagrad(0.05),
+    "adadelta": lambda f: f.optimizer.Adadelta(1.0, rho=0.9),
+    "rmsprop": lambda f: f.optimizer.RMSProp(0.01, momentum=0.5),
+    "rmsprop_centered": lambda f: f.optimizer.RMSProp(
+        0.01, momentum=0.5, centered=True),
+    "ftrl": lambda f: f.optimizer.Ftrl(0.1, l1=1e-3, l2=1e-3),
+    "ftrl_power": lambda f: f.optimizer.Ftrl(0.1, l1=1e-3, l2=1e-3,
+                                             lr_power=-0.3),
+    "conditional_block/gradient_merge": lambda f:
+        f.optimizer.GradientMergeOptimizer(f.optimizer.SGD(0.1), k_steps=2),
+    "conditional_block/lookahead": lambda f: f.optimizer.LookaheadOptimizer(
+        f.optimizer.SGD(0.1), alpha=0.5, k=2),
+}
+# the eight kinds, and warmup over a base decay
+SCHEDULES = {
+    "noam": lambda L: L.noam_decay(1024, 4, learning_rate=2.0),
+    "exponential": lambda L: L.exponential_decay(0.1, 3, 0.5,
+                                                 staircase=True),
+    "natural_exp": lambda L: L.natural_exp_decay(0.1, 3, 0.5),
+    "inverse_time": lambda L: L.inverse_time_decay(0.1, 3, 0.5),
+    "polynomial": lambda L: L.polynomial_decay(0.1, 5, 1e-3, power=2.0,
+                                               cycle=True),
+    "piecewise": lambda L: L.piecewise_decay([3, 7], [0.1, 0.01, 0.001]),
+    "cosine": lambda L: L.cosine_decay(0.1, 3, 5),
+    "warmup": lambda L: L.linear_lr_warmup(0.05, 4, 0.0, 0.1),
+    "warmup_over_polynomial": lambda L: L.linear_lr_warmup(
+        L.polynomial_decay(0.1, 8, 1e-4, power=2.0), 3, 0.0, 0.1),
+}
+
+
+def lars_schedule(fluid):
+    """The large-batch ResNet-50 LARS recipe's shape, cut to steps that
+    take both branches: linear warmup over 2 steps, then polynomial decay
+    (power 2) over 8."""
+    L = fluid.layers
+    return L.linear_lr_warmup(
+        L.polynomial_decay(LARS_PEAK, decay_steps=8, end_learning_rate=1e-4,
+                           power=2.0),
+        warmup_steps=2, start_lr=0.0, end_lr=LARS_PEAK)
+
+
+def bert_schedule(fluid):
+    """BERT's linear warmup, then linear decay (cut to 2 + 10 steps)."""
+    L = fluid.layers
+    return L.linear_lr_warmup(
+        L.polynomial_decay(1e-4, decay_steps=10, end_learning_rate=0.0,
+                           power=1.0), 2, 0.0, 1e-4)
+
+
+def noam_schedule(fluid):
+    """Vaswani et al. 2017 §5.3: d_model^-0.5 · min(s^-0.5, s·4000^-1.5)."""
+    return fluid.layers.noam_decay(d_model=1024, warmup_steps=4000)
+
+
+def schedule_on_cpu(fluid, make, steps):
+    """The lr sequence of `make(fluid)` over `steps` steps on the CPU."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        lr = make(fluid)
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        return [float(exe.run(main, fetch_list=[lr])[0][0])
+                for _ in range(steps)]
+
+
+def rel_diff(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def state_close(a, b, rtol, atol, spread):
+    """(names out of tolerance, {name: [max |a-b|, |b| at the worst
+    element, largest |spread - b|]} of the float tensors past rtol/atol,
+    worst |a-b| / (atol + rtol|b|)). Integer state must be equal; a float
+    tensor past rtol/atol still passes when its largest |a-b| is within
+    twice its largest difference in `spread` (the same run on the CPU from
+    a one-ulp change of the input)."""
+    import torch
+
+    bad, past, worst = [], {}, 0.0
+    for n in sorted(b):
+        if not a[n].is_floating_point():
+            if not torch.equal(a[n], b[n]):
+                bad.append(n)
+            continue
+        x, y = a[n].double(), b[n].double()
+        d = (x - y).abs()
+        r = d / (atol + rtol * y.abs())
+        worst = max(worst, float(r.max()))
+        if float(r.max()) <= 1.0:
+            continue
+        sp = float((spread[n].double() - y).abs().max())
+        past[n] = [float(d.max()), float(y.reshape(-1)[int(r.argmax())].abs()),
+                   sp]
+        if float(d.max()) > 2 * sp:
+            bad.append(n)
+    return bad, past, worst
+
+
+def small_fc(fluid, opt):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 2024
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [64])
+        y = fluid.layers.data("y", [1])
+        h = fluid.layers.fc(x, 32, act="tanh")
+        pred = fluid.layers.fc(h, 1)
+        loss = fluid.layers.reduce_mean(
+            fluid.layers.square_error_cost(pred, y))
+        opt(fluid).minimize(loss)
+    return main, startup, loss
+
+
+def surface_ops_gpu_vs_cpu(fluid):
+    """Each new update op and conditional_block: SURFACE_STEPS steps of a
+    small fc program from one state on the card and on the CPU (TF32 off):
+    every parameter and accumulator within the CPU tests' tolerances
+    (rtol 1e-5, atol 1e-7) or, where cuBLAS's last-bit gradient
+    differences pass into an accumulator of sums near zero, within twice
+    the CPU's own spread under a one-ulp change of the input."""
+    rng = np.random.RandomState(2024)
+    feed = {"x": rng.rand(256, 64).astype("float32"),
+            "y": rng.rand(256, 1).astype("float32")}
+    nudged = dict(feed, x=(feed["x"] * (1.0 + 1e-7 * rng.randn(256, 64)))
+                  .astype("float32"))
+    out = {}
+    for name, opt in SURFACE_OPTS.items():
+        main, startup, loss = small_fc(fluid, opt)
+        with fluid.scope_guard(fluid.Scope()):
+            fluid.Executor(fluid.CPUPlace()).run(startup)
+            init = host_state(fluid.global_scope(), main)
+        runs = {}
+        for label, place, f in (("cpu", fluid.CPUPlace(), feed),
+                                ("cpu_nudged", fluid.CPUPlace(), nudged),
+                                ("cuda", fluid.CUDAPlace(0), feed)):
+            exe = fluid.Executor(place)
+            scope = scope_from(fluid, init)
+            losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                    scope=scope)[0])
+                      for _ in range(SURFACE_STEPS)]
+            runs[label] = (losses, host_state(scope, main))
+        bad, past, worst = state_close(runs["cuda"][1], runs["cpu"][1],
+                                       1e-5, 1e-7, runs["cpu_nudged"][1])
+        out[name] = {"state_vars": len(runs["cpu"][1]), "out_of_tol": bad,
+                     "past_rtol_atol": past, "worst_over_tol": worst,
+                     "loss_rel": rel_diff(runs["cuda"][0], runs["cpu"][0])}
+        if bad or out[name]["loss_rel"] > 1e-5:
+            raise AssertionError(f"{name}: card against CPU {out[name]}")
+    return out
+
+
+def surface_schedules(fluid):
+    """Every schedule kind for SCHEDULE_STEPS steps on the card against the
+    CPU (1e-6 relative), then one warm step profiled: no host-to-device
+    copy (the fetches' device-to-host copies show the profiler sees
+    copies), the ops' device time and events."""
+    import torch
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        lrs = {k: make(fluid.layers) for k, make in SCHEDULES.items()}
+    n_ops = len(main.global_block().ops)
+    fetch = list(lrs.values())
+    seqs, scopes = {}, {}
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        exe = fluid.Executor(place)
+        scope = scopes[place.kind] = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            got = [exe.run(main, fetch_list=fetch)
+                   for _ in range(SCHEDULE_STEPS)]
+        seqs[place.kind] = {k: [float(g[i][0]) for g in got]
+                            for i, k in enumerate(lrs)}
+    rels = {k: rel_diff(seqs["cuda"][k], seqs["cpu"][k]) for k in lrs}
+    if max(rels.values()) > 1e-6:
+        raise AssertionError(f"schedules: card against CPU {rels}")
+
+    def warm():   # the card's executor (the loop's last) and scope
+        exe.run(main, fetch_list=fetch, scope=scopes["cuda"])
+        torch.cuda.synchronize()
+
+    counts = {}
+    per, wall_us, events = profile_device(warm, iters=3, counts=counts)
+    h2d = {k: v for k, v in counts.items() if "htod" in k.lower()}
+    d2h = {k: v for k, v in counts.items() if "dtoh" in k.lower()}
+    busy_us = sum(us for k, us in per.items() if "memcpy" not in k.lower())
+    rec = {"kinds": list(lrs), "lr_ops": n_ops, "steps": SCHEDULE_STEPS,
+           "card_vs_cpu_max_rel": rels, "card_bitwise_cpu": {
+               k: seqs["cuda"][k] == seqs["cpu"][k] for k in lrs},
+           "warm_step_h2d_copies": h2d, "warm_step_d2h_copies": d2h,
+           "warm_step_device_events": events,
+           "warm_step_kernel_us": busy_us,
+           "kernel_us_per_schedule_op": busy_us / n_ops,
+           "warm_step_wall_us": wall_us}
+    if h2d or not d2h:
+        raise AssertionError(f"schedules: a warm step copies to the card "
+                             f"{h2d} (device-to-host seen: {d2h})")
+    return rec
+
+
+def surface_auc(fluid):
+    """layers.auc over three B=AUC_B batches on the card and the CPU: stat
+    buffers bitwise equal to each other and to metrics.Auc's."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        p = fluid.layers.data("p", [2])
+        label = fluid.layers.data("label", [1], dtype="int64")
+        auc, _, (pos, neg) = fluid.layers.auc(p, label)
+    rng = np.random.RandomState(2024)
+    feeds = []
+    for _ in range(3):
+        lab = rng.randint(0, 2, (AUC_B, 1))
+        q = np.clip(lab * 0.3 + rng.rand(AUC_B, 1) * 0.7, 0, 1)
+        feeds.append({"p": np.concatenate([1 - q, q], 1).astype("float32"),
+                      "label": lab.astype("int64")})
+    host = fluid.metrics.Auc()
+    runs = {}
+    for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)):
+        exe = fluid.Executor(place)
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            runs[place.kind] = [exe.run(main, feed=f,
+                                        fetch_list=[auc, pos, neg])
+                                for f in feeds]
+    bitwise, host_equal, aucs = [], [], []
+    for f, c, g in zip(feeds, runs["cpu"], runs["cuda"]):
+        host.update(f["p"], f["label"])
+        bitwise.append(c[1].tobytes() == g[1].tobytes()
+                       and c[2].tobytes() == g[2].tobytes())
+        host_equal.append(bool(np.array_equal(g[1], host._stat_pos)
+                               and np.array_equal(g[2], host._stat_neg)))
+        aucs.append([float(g[0]), float(c[0]), host.eval()])
+    rec = {"batches": 3, "batch": AUC_B, "buckets": 4096,
+           "stat_bitwise_card_vs_cpu": bitwise,
+           "stat_equal_metrics_Auc": host_equal,
+           "auc_card_cpu_host": aucs}
+    if not all(bitwise) or not all(host_equal):
+        raise AssertionError(f"auc: {rec}")
+    return rec
+
+
+def lr_matches(seq, cpu):
+    return {"lr": seq, "cpu_lr": cpu, "max_rel": rel_diff(seq, cpu),
+            "bitwise": seq == cpu}
+
+
+def surface_resnet_lars(fluid, fb):
+    """ResNet-50 bf16 AMP at B=128 on LarsMomentum(lars_schedule, 0.9), 2 +
+    4 steps (the fourth of them profiled): finite losses, the lr sequence
+    against the CPU schedule's, rows 7-11 per step."""
+    import torch
+    from paddle_tpu_torch.models import resnet
+
+    os.environ["PDTPU_BN_MODE"] = "pallas"
+    box = {}
+
+    def lars():
+        box["lr"] = lars_schedule(fluid)
+        return fluid.optimizer.LarsMomentum(box["lr"], 0.9)
+
+    main, startup, loss = resnet_program(fluid, resnet, RESNET_B, RESNET_HW,
+                                         True, optimizer=lars)
+    feed = resnet_feed(RESNET_B, RESNET_HW)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    losses, lrs, ms = [], [], []
+
+    def step():
+        t0 = time.perf_counter()
+        lv, lrv = exe.run(main, feed=feed, fetch_list=[loss, box["lr"]])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lv))
+        lrs.append(float(lrv[0]))
+
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        reset_bn_counts(fb)                        # main path starts
+        step()
+        step()
+        prof = profile_record(f"resnet50 bf16 LARS B={RESNET_B}", step, 1)
+        step()
+        step()
+        counts = bn_counts(fb)                     # main path ends
+    steps = len(losses)
+    per_step = {k: v / steps for k, v in counts.items()}
+    warm = [ms[2], ms[4], ms[5]]   # ms[3] was profiled
+    rec = {"steps": steps, "losses": losses,
+           **lr_matches(lrs, schedule_on_cpu(fluid, lars_schedule, steps)),
+           "fused_bn_launches_per_step": per_step, "step_ms": ms,
+           "warm_median_ms": float(np.median(warm)),
+           "warm_range_ms": [min(warm), max(warm)],
+           "device_events_per_step": prof["device_events"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_ms_by_category": prof["by_category_ms"],
+           "device_events_by_category": prof["by_category_events"],
+           "lars_ops": sum(op.type == "lars_momentum"
+                           for op in main.global_block().ops),
+           "momentum_device_events_phase14": 2049}
+    if not np.isfinite(losses).all() or rec["max_rel"] > 1e-6:
+        raise AssertionError(f"resnet LARS: {rec}")
+    if per_step != {k: float(v) for k, v in RESNET_PER_STEP.items()}:
+        raise AssertionError(f"resnet LARS: fused-BN launches per step "
+                             f"{per_step}, expected {RESNET_PER_STEP}")
+    return rec
+
+
+def surface_nmt_noam(fluid, fas):
+    """Transformer-big bf16 packed-sparse (B=16, T=256) on Adam (Vaswani
+    et al.'s betas and epsilon) over noam_schedule, 4 steps: finite
+    losses, rows 5-6 per step, the lr sequence against the CPU's."""
+    import torch
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+
+    box = {}
+
+    def adam():
+        box["lr"] = noam_schedule(fluid)
+        return fluid.optimizer.Adam(box["lr"], beta1=0.9, beta2=0.98,
+                                    epsilon=1e-9)
+
+    main, startup, loss = nmt_program(fluid, nmt, nmt.TransformerConfig(),
+                                      NMT_T, True, optimizer=adam)
+    batches = [nmt_feed(stack, "cuda")
+               for stack, _ in nmt_batches(NMT_B, NMT_T, 2)]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    losses, lrs, ms = [], [], []
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        reset_sparse_counts(fas)                   # main path starts
+        for i in range(4):
+            t0 = time.perf_counter()
+            lv, lrv = exe.run(main, feed=batches[i % 2],
+                              fetch_list=[loss, box["lr"]])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(lv))
+            lrs.append(float(lrv[0]))
+        counts = sparse_counts(fas)                # main path ends
+    rec = {"steps": 4, "losses": losses,
+           **lr_matches(lrs, schedule_on_cpu(fluid, noam_schedule, 4)),
+           "sparse_launches": counts, "step_ms": ms,
+           "warm_median_ms": float(np.median(ms[1:]))}
+    if not np.isfinite(losses).all() or rec["max_rel"] > 1e-6 or \
+            counts != {"fwd": NMT_PER_STEP * 4, "bwd": NMT_PER_STEP * 4,
+                       "plain_fwd": 0, "plain_bwd": 0}:
+        raise AssertionError(f"nmt noam: {rec}")
+    return rec
+
+
+def surface_bert_gradient_merge(fluid, fa):
+    """BERT-base bf16 AMP (B=8, T=512) on GradientMergeOptimizer(Lamb(
+    bert_schedule), k_steps=2), 6 steps: on the steps that do not apply
+    (1, 3, 5) every parameter and LAMB accumulator is bitwise unchanged;
+    on the others (2, 4, 6) every parameter moves; the @GradientMerge
+    buffers, the merge counter and both schedule counters change every
+    step. Checked on the card, from clones of the state after each step."""
+    import torch
+    from paddle_tpu_torch.models import bert
+
+    box = {}
+
+    def gm(wrap):
+        box["lr"] = bert_schedule(fluid)
+        return fluid.optimizer.GradientMergeOptimizer(
+            wrap(fluid.optimizer.Lamb(box["lr"])), k_steps=2)
+
+    t = 512
+    main, startup, loss = build_pretrain(fluid, bert, B, t, True,
+                                         optimizer=gm)
+    feed = pretrain_feed(B, t, np.random.RandomState(17))
+    names = [v.name for v in main.list_vars() if v.persistable]
+    params = [p.name for p in main.all_parameters()]
+    lamb = [n for n in names if "_LambOptimizer_" in n]
+    merge = [n for n in names if n.endswith("@GradientMerge")]
+    counters = [n for n in names if n.startswith(("gradient_merge_step_",
+                                                  "@LR_DECAY_COUNTER@"))]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    losses, lrs, ms, checks = [], [], [], []
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        torch.cuda.synchronize()
+
+        def snap():
+            return {n: scope.find_var(n).detach().clone()
+                    for n in params + lamb + merge + counters}
+
+        prev = snap()
+        fa.flash_attention_fwd.launches = 0        # main path starts
+        fa.flash_attention_bwd.launches = 0
+        for i in range(6):
+            t0 = time.perf_counter()
+            lv, lrv = exe.run(main, feed=feed, fetch_list=[loss, box["lr"]])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(lv))
+            lrs.append(float(lrv[0]))
+            cur = snap()
+            same = {n for n in cur if torch.equal(cur[n], prev[n])}
+            applies = i % 2 == 1
+            checks.append({
+                "step": i + 1, "applies": applies,
+                "params_unchanged": sum(n in same for n in params),
+                "lamb_unchanged": sum(n in same for n in lamb),
+                "merge_unchanged": sum(n in same for n in merge),
+                "counters_unchanged": sum(n in same for n in counters)})
+            prev = cur
+        flash = (fa.flash_attention_fwd.launches,
+                 fa.flash_attention_bwd.launches)  # main path ends
+        del prev, cur
+    apply_ms = [m for m, c in zip(ms, checks) if c["applies"]]
+    skip_ms = [m for m, c in zip(ms, checks) if not c["applies"]]
+    rec = {"steps": 6, "losses": losses,
+           **lr_matches(lrs, schedule_on_cpu(fluid, bert_schedule, 6)),
+           "parameters": len(params), "lamb_accumulators": len(lamb),
+           "merge_buffers": len(merge), "counters": counters,
+           "per_step": checks, "flash_launches_fwd_bwd": flash,
+           "step_ms": ms, "apply_step_ms": apply_ms,
+           "skip_step_ms": skip_ms}
+    ok = all((c["params_unchanged"] == 0 and c["lamb_unchanged"] == 0)
+             if c["applies"] else
+             (c["params_unchanged"] == len(params)
+              and c["lamb_unchanged"] == len(lamb))
+             for c in checks)
+    ok = ok and all(c["merge_unchanged"] == 0 and c["counters_unchanged"]
+                    == 0 for c in checks)
+    if not ok or not np.isfinite(losses).all() or rec["max_rel"] > 1e-6 \
+            or flash != (12 * 6, 12 * 6):
+        raise AssertionError(f"bert gradient merge: {rec}")
+    del scope
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mnist_data(n, seed=0):
+    """Synthetic 'digits': class k = template k + noise."""
+    rng = np.random.RandomState(seed)
+    templates = rng.rand(10, 1, 28, 28).astype("float32")
+    labels = rng.randint(0, 10, size=n).astype("int64")
+    imgs = templates[labels] + 0.1 * rng.randn(n, 1, 28, 28).astype(
+        "float32")
+    return imgs, labels.reshape(-1, 1)
+
+
+def surface_lenet(fluid):
+    """LeNet-5 on synthetic MNIST-shaped data, 12 epochs of 4 batches of
+    64 on the card: the loss halves, accuracy passes 0.9."""
+    from paddle_tpu_torch.models import lenet
+
+    main, startup, _, loss, acc = lenet.build_train_program(lr=5e-3)
+    main.random_seed = startup.random_seed = 2024
+    imgs, labels = mnist_data(256)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    losses, accs = [], []
+    t0 = time.perf_counter()
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        for _ in range(12):
+            for i in range(0, 256, 64):
+                lv, av = exe.run(main, feed={"img": imgs[i:i + 64],
+                                             "label": labels[i:i + 64]},
+                                 fetch_list=[loss, acc])
+                losses.append(float(lv))
+                accs.append(float(av))
+    rec = {"steps": len(losses), "first_loss": float(np.mean(losses[:4])),
+           "last_loss": float(np.mean(losses[-4:])),
+           "last_accuracy": float(np.mean(accs[-4:])),
+           "wall_s": time.perf_counter() - t0}
+    if not rec["last_loss"] < 0.5 * rec["first_loss"] or \
+            rec["last_accuracy"] <= 0.9:
+        raise AssertionError(f"lenet: {rec}")
+    return rec
+
+
+def phase_training_surface(fluid, fa, fas, fb, smi):
+    """Phase 15: the training surface (schedules, the remaining optimizers,
+    conditional_block, auc, LeNet) per op against the CPU, then on the
+    three full-width recipes. Prints one JSON line."""
+    import torch
+
+    t0 = time.perf_counter()
+    rec = {"device": smi}
+    rec["ops_gpu_vs_cpu"] = surface_ops_gpu_vs_cpu(fluid)
+    rec["schedules"] = surface_schedules(fluid)
+    rec["auc"] = surface_auc(fluid)
+    rec["lenet"] = surface_lenet(fluid)
+    rec["resnet50_bf16_lars"] = surface_resnet_lars(fluid, fb)
+    torch.cuda.empty_cache()
+    rec["nmt_big_bf16_noam"] = surface_nmt_noam(fluid, fas)
+    torch.cuda.empty_cache()
+    rec["bert_base_bf16_gradient_merge_lamb"] = surface_bert_gradient_merge(
+        fluid, fa)
+    rec["wall_s"] = time.perf_counter() - t0
+    log("training surface " + json.dumps(rec))
+
+
 def main():
     import torch
 
@@ -3732,6 +4275,11 @@ def main():
     # 14. the executor's step surface (remat, update fusion, NaN probe,
     # fetch handles)
     phase_step_surface(fluid, fa, fb)
+
+    # 15. the training surface (schedules, optimizers, conditional_block,
+    # auc, LeNet; ResNet-50 on LARS, Transformer-big on noam, BERT-base on
+    # gradient-merged LAMB)
+    phase_training_surface(fluid, fa, fas, fb, smi)
 
     kernels = []
     for name in ("float32", "bfloat16"):

@@ -33,6 +33,9 @@ from . import inference  # noqa: F401
 from . import reader  # noqa: F401
 from . import ps  # noqa: F401
 from . import dataio  # noqa: F401
+from . import metrics  # noqa: F401
+from . import evaluator  # noqa: F401
+from . import average  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 from .core import (  # noqa: F401
     Block,

@@ -49,6 +49,28 @@ def dtype_str(dtype) -> str:
     return _DTYPE2STR[convert_dtype(dtype)]
 
 
+def is_floating(dtype) -> bool:
+    return convert_dtype(dtype).is_floating_point
+
+
+def promote_types(a, b) -> torch.dtype:
+    """The dtype of a binary op on `a` and `b`: the JAX package's
+    ``jnp.promote_types`` over the port's dtypes (bfloat16 with float16 is
+    float32, int8 with uint8 is int16). torch's own rule agrees but has no
+    uint16 promotion, which is written out here as JAX's lattice has it:
+    with bool, uint8 or uint16 it stays uint16, with a signed integer it
+    widens to at least int32; floats win."""
+    a, b = convert_dtype(a), convert_dtype(b)
+    if torch.uint16 not in (a, b) or a == b:
+        return torch.promote_types(a, b)
+    other = b if a == torch.uint16 else a
+    if other.is_floating_point:
+        return other
+    if other in (torch.bool, torch.uint8):
+        return torch.uint16
+    return torch.promote_types(other, torch.int32)
+
+
 def itemsize(dtype) -> int:
     return torch.empty((), dtype=convert_dtype(dtype)).element_size()
 

@@ -50,6 +50,16 @@ flight recorder, the tracer and the executor's metrics
 ``execute_ms``, ``update_flushes``, ``fused_update_groups``,
 ``fused_update_ops``).
 
+Sub-blocks. A control-flow op (``conditional_block``) runs its sub-block
+through ``run_sub_block``: the ops in order, with the run's update fusion
+on a sub-plan of their own (decided on the sub-block's first run and
+replayed, every pending group flushed before the sub-block returns),
+without the program's AMP casts (as the JAX package lowers a sub-block),
+and under ``torch.no_grad()`` (the op is not differentiable). The
+plan's set of names some op reads covers every block, and what a
+sub-block writes to a persistable comes back through the op's outputs to
+the scope.
+
 Not ported yet: the scanned multi-step drivers (``run_batched``), the
 dataset trainer (ROADMAP A4) and CUDA-graph capture of the step (A2).
 """
@@ -168,6 +178,7 @@ class ExecContext:
         # (op, its detached inputs, its output leaves by slot, grad hook)
         # of each sparse-gradient op this run (see _run_sparse_site)
         self.sparse_sites: List[tuple] = []
+        self.plan: Optional["_Plan"] = None  # the run's prepared plan
 
     def rng(self) -> torch.Generator:
         """The run's seeded generator; each draw advances it."""
@@ -739,6 +750,35 @@ def _run_block(block: Block, env: Dict[str, torch.Tensor], ctx: ExecContext,
     plan.schedule = schedule
 
 
+class _SubPlan:
+    """A sub-block's schedule inside a run's plan (``_run_block`` reads its
+    items, fusion mode and schedule; a sub-block holds no remat region)."""
+
+    __slots__ = ("items", "fuse_mode", "schedule")
+
+    def __init__(self, block: Block, fuse_mode: str):
+        self.items = [("op", op) for op in block.ops]
+        self.fuse_mode = fuse_mode
+        self.schedule = None
+
+
+def run_sub_block(block: Block, env: Dict[str, torch.Tensor],
+                  ctx: ExecContext):
+    """Run a control-flow op's sub-block over `env` (its carried values):
+    the ops in order with the run's update fusion, on a sub-plan kept in
+    the run's plan, and without the program's AMP casts."""
+    sub = copy.copy(ctx)
+    sub.amp = None
+    plan = ctx.plan
+    if plan is None:
+        _run_block(block, env, sub)
+        return
+    sp = plan.sub_plans.get(block.idx)
+    if sp is None:
+        sp = plan.sub_plans[block.idx] = _SubPlan(block, plan.fuse_mode)
+    _run_block(block, env, sub, sp)
+
+
 # -- FLAGS_check_nan_inf ------------------------------------------------------
 def _check_finite(named_vals) -> None:
     """FLAGS_check_nan_inf parity (operator.cc:949) without a host copy of
@@ -802,15 +842,18 @@ class _Plan:
     reference's ``executor.cc:349 Prepare``."""
 
     __slots__ = ("program", "persistables", "needed", "targets", "training",
-                 "spec", "fuse_mode", "items", "schedule")
+                 "spec", "fuse_mode", "items", "schedule", "sub_plans")
 
     def __init__(self, program: Program, fetch_names, spec):
         block = program.global_block()
         self.program = weakref.ref(program)
         self.persistables = sorted({v.name for v in program.list_vars()
                                     if v.persistable})
+        # what any op of any block reads: a sub-block's ops read through
+        # the same context
         self.needed = set(fetch_names).union(
-            n for op in block.ops for n in op.input_names())
+            n for b in program.blocks for op in b.ops
+            for n in op.input_names())
         self.targets = _autodiff_targets(block)
         self.training = bool(self.targets)
         self.spec = spec if spec is not None else _env_remat_spec()
@@ -818,6 +861,7 @@ class _Plan:
         self.items = _plan_remat_items(block, self.spec, self.training,
                                        fetch_names, self.persistables)
         self.schedule = None  # decided on the first run (_run_block)
+        self.sub_plans: Dict[int, _SubPlan] = {}  # by sub-block index
 
 
 def _fmt_cache_key(key) -> dict:
@@ -983,6 +1027,7 @@ class Executor:
                           needed=plan.needed)
         ctx.targets = plan.targets
         ctx.training = plan.training
+        ctx.plan = plan
         for n in ctx.targets:
             v = env.get(n)
             if v is not None and v.is_floating_point():
@@ -998,4 +1043,5 @@ class Executor:
 
 
 __all__ = ["Place", "CPUPlace", "CUDAPlace", "ExecContext", "Executor",
-           "convert_feed_value", "cuda_device", "feed_signature"]
+           "convert_feed_value", "cuda_device", "feed_signature",
+           "run_sub_block"]

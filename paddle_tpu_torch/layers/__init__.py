@@ -1,6 +1,21 @@
 """Layers DSL (reference python/paddle/fluid/layers/): the subset the BERT,
-ResNet, Transformer NMT and DeepFM slices use."""
-from .metric_op import accuracy  # noqa: F401
+ResNet, Transformer NMT, DeepFM and LeNet slices use, the learning-rate
+schedules, ConditionalBlock and the Variable operators."""
+from . import math_op_patch  # noqa: F401  (attaches Variable operators)
+from . import control_flow  # noqa: F401
+from .control_flow import ConditionalBlock  # noqa: F401
+from . import learning_rate_scheduler  # noqa: F401
+from .learning_rate_scheduler import (  # noqa: F401
+    cosine_decay,
+    exponential_decay,
+    inverse_time_decay,
+    linear_lr_warmup,
+    natural_exp_decay,
+    noam_decay,
+    piecewise_decay,
+    polynomial_decay,
+)
+from .metric_op import accuracy, auc  # noqa: F401
 from .nn import (  # noqa: F401
     batch_norm,
     conv2d,
@@ -25,8 +40,10 @@ from .nn import (  # noqa: F401
 from .ops import (  # noqa: F401
     elementwise_add,
     elementwise_div,
+    elementwise_floordiv,
     elementwise_max,
     elementwise_min,
+    elementwise_mod,
     elementwise_mul,
     elementwise_pow,
     elementwise_sub,

@@ -55,7 +55,7 @@ for _op in ["sigmoid", "tanh", "sqrt", "square", "sign"]:
 
 for _op in ["elementwise_add", "elementwise_sub", "elementwise_mul",
             "elementwise_div", "elementwise_min", "elementwise_max",
-            "elementwise_pow"]:
+            "elementwise_pow", "elementwise_mod", "elementwise_floordiv"]:
     def _make_ew(op_type):
         def layer(x, y, axis=-1, act=None, name=None):
             return _elementwise_layer(op_type, x, y, axis, act, name)

@@ -1,3 +1,3 @@
 """Model builders ported so far: BERT/ERNIE-base, ResNet-50, Transformer
-NMT and DeepFM."""
-from . import bert, deepfm, resnet, transformer_nmt  # noqa: F401
+NMT, DeepFM and LeNet."""
+from . import bert, deepfm, lenet, resnet, transformer_nmt  # noqa: F401

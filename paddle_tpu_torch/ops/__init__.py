@@ -1,6 +1,7 @@
 """Op implementations; importing this package registers them all."""
 from . import activation_ops  # noqa: F401
 from . import compare_ops  # noqa: F401
+from . import control_flow_ops  # noqa: F401
 from . import deferred_rows  # noqa: F401
 from . import fused_ops  # noqa: F401
 from . import math_ops  # noqa: F401

@@ -1,7 +1,8 @@
 """Optimizer update ops (counterpart of the dense registrations in
 ``paddle_tpu.ops.optimizer_ops``; reference
 ``paddle/fluid/operators/optimizers/``: sgd_op.cc, momentum_op.cc,
-adam_op.cc, lamb_op.cc).
+lars_momentum_op.cc, adam_op.cc, adamax_op.cc, lamb_op.cc, adagrad_op.cc,
+decayed_adagrad_op.cc, adadelta_op.cc, rmsprop_op.cc, ftrl_op.cc).
 
 All are non-differentiable state-update ops: they read Param/Grad/
 accumulators and return the updated values under the same var names, which
@@ -12,6 +13,12 @@ touched rows of sgd, adam (lazy mode) and adagrad: duplicates are merged
 first (``SelectedRows.merged``: every duplicate position carries its id's
 full sum), so the row writes are the same whichever duplicate lands last.
 The packed-table row ops are in ``ops/deferred_rows.py``.
+
+Each op keeps the JAX function's operation order term by term, and takes
+the correctly rounded ``sqrt_rn`` where the JAX function takes
+``jnp.sqrt`` of a tensor (torch's vectorized CPU float32 sqrt can be 1 ULP
+off). The learning rate is a device tensor: no op reads a value back to
+the host.
 
 ``sgd_list`` and ``momentum_list`` are the dense sgd and momentum updates
 of a parameter list (the executor's update-group fusion,
@@ -196,3 +203,134 @@ def _adagrad(ctx, inputs, attrs):
     m_out = m + g * g
     return {"ParamOut": [p - lr * g / (sqrt_rn(m_out) + eps)],
             "MomentOut": [m_out]}
+
+
+@register_op("lars_momentum", differentiable=False)
+def _lars_momentum(ctx, inputs, attrs):
+    """lars_momentum_op.cc: layer-wise adaptive rate scaling. The two norms
+    are sums over the parameter, whose order differs from XLA's, so the
+    update agrees with the JAX op within a tolerance, not bit for bit."""
+    (p,) = inputs["Param"]
+    (g,) = inputs["Grad"]
+    (v,) = inputs["Velocity"]
+    mu = attrs["mu"]
+    lars_coeff = attrs.get("lars_coeff", 0.001)
+    wd = attrs.get("lars_weight_decay", 0.0005)
+    eps = attrs.get("epsilon", 0.0)
+    lr = _lr(inputs)
+    p_norm = torch.sqrt(torch.sum(p * p))
+    g_norm = torch.sqrt(torch.sum(g * g))
+    local_lr = torch.where(
+        (p_norm > 0) & (g_norm > 0),
+        lr * lars_coeff * p_norm / (g_norm + wd * p_norm + eps), lr)
+    v_out = mu * v + local_lr * (g + wd * p)
+    return {"ParamOut": [p - v_out], "VelocityOut": [v_out]}
+
+
+@register_op("adamax", differentiable=False)
+def _adamax(ctx, inputs, attrs):
+    """adamax_op.cc; Beta1Pow advances in a separate scale op (the
+    optimizer appends it)."""
+    (p,) = inputs["Param"]
+    (g,) = inputs["Grad"]
+    (m,) = inputs["Moment"]
+    (inf_norm,) = inputs["InfNorm"]
+    (b1p,) = inputs["Beta1Pow"]
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    lr = _lr(inputs)
+    m_out = b1 * m + (1 - b1) * g
+    inf_out = torch.maximum(b2 * inf_norm, torch.abs(g))
+    p_out = p - (lr / (1 - b1p.reshape(()))) * m_out / (inf_out + eps)
+    return {"ParamOut": [p_out], "MomentOut": [m_out],
+            "InfNormOut": [inf_out]}
+
+
+@register_op("decayed_adagrad", differentiable=False)
+def _decayed_adagrad(ctx, inputs, attrs):
+    (p,) = inputs["Param"]
+    (g,) = inputs["Grad"]
+    (m,) = inputs["Moment"]
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    lr = _lr(inputs)
+    m_out = decay * m + (1 - decay) * g * g
+    return {"ParamOut": [p - lr * g / (sqrt_rn(m_out) + eps)],
+            "MomentOut": [m_out]}
+
+
+@register_op("adadelta", differentiable=False)
+def _adadelta(ctx, inputs, attrs):
+    """adadelta_op.cc (the learning rate is not used)."""
+    (p,) = inputs["Param"]
+    (g,) = inputs["Grad"]
+    (avg_sq_g,) = inputs["AvgSquaredGrad"]
+    (avg_sq_u,) = inputs["AvgSquaredUpdate"]
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    g_out = rho * avg_sq_g + (1 - rho) * g * g
+    update = -sqrt_rn((avg_sq_u + eps) / (g_out + eps)) * g
+    u_out = rho * avg_sq_u + (1 - rho) * update * update
+    return {"ParamOut": [p + update], "AvgSquaredGradOut": [g_out],
+            "AvgSquaredUpdateOut": [u_out]}
+
+
+@register_op("rmsprop", differentiable=False)
+def _rmsprop(ctx, inputs, attrs):
+    """rmsprop_op.cc, centered or not (MeanGrad passes through when not)."""
+    (p,) = inputs["Param"]
+    (g,) = inputs["Grad"]
+    (ms,) = inputs["MeanSquare"]
+    (mg,) = inputs["MeanGrad"]
+    (mom,) = inputs["Moment"]
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    momentum = attrs.get("momentum", 0.0)
+    lr = _lr(inputs)
+    ms_out = rho * ms + (1 - rho) * g * g
+    if attrs.get("centered", False):
+        mg_out = rho * mg + (1 - rho) * g
+        denom = ms_out - mg_out * mg_out + eps
+    else:
+        mg_out = mg
+        denom = ms_out + eps
+    mom_out = momentum * mom + lr * g / sqrt_rn(denom)
+    return {"ParamOut": [p - mom_out], "MeanSquareOut": [ms_out],
+            "MeanGradOut": [mg_out], "MomentOut": [mom_out]}
+
+
+def _pow_rn(x: torch.Tensor, e: float) -> torch.Tensor:
+    """x ** e through float64, rounded once to x's dtype: the same on the
+    CPU and the card (their float32 pow differ by an ulp or two, which
+    ftrl's difference of two powers magnifies)."""
+    return torch.pow(x.double(), e).to(x.dtype)
+
+
+@register_op("ftrl", differentiable=False)
+def _ftrl(ctx, inputs, attrs):
+    """ftrl_op.cc: the square-root form at lr_power = -0.5, the general
+    power (``_pow_rn``) otherwise."""
+    (p,) = inputs["Param"]
+    (g,) = inputs["Grad"]
+    (sq,) = inputs["SquaredAccumulator"]
+    (lin,) = inputs["LinearAccumulator"]
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    lr_power = attrs.get("lr_power", -0.5)
+    lr = _lr(inputs)
+    new_sq = sq + g * g
+    if lr_power == -0.5:
+        sigma = (sqrt_rn(new_sq) - sqrt_rn(sq)) / lr
+    else:
+        sigma = (_pow_rn(new_sq, -lr_power) - _pow_rn(sq, -lr_power)) / lr
+    lin_out = lin + g - sigma * p
+    if lr_power == -0.5:
+        x = l2 + sqrt_rn(new_sq) / lr
+    else:
+        x = l2 + _pow_rn(new_sq, -lr_power) / lr
+    pre = torch.clamp(lin_out, -l1, l1) - lin_out
+    p_out = torch.where(torch.abs(lin_out) > l1, pre / x,
+                        torch.zeros_like(p))
+    return {"ParamOut": [p_out], "SquaredAccumOut": [new_sq],
+            "LinearAccumOut": [lin_out]}

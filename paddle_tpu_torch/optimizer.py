@@ -10,15 +10,23 @@ parameter gets one update op consuming ``param@GRAD``. ``packed_rows=``
 row_pack=True)``) on its ``*_row_packed`` op, with the optimizer state in
 the table's own rows; ``deferred_rows=`` (the deferred-row log) and the
 dygraph path are not ported.
+
+Also here, as in the JAX package: LarsMomentum, DecayedAdagrad, Adadelta,
+RMSProp, Adamax and Ftrl; GradientMergeOptimizer and LookaheadOptimizer,
+whose predicated parts run in a ``conditional_block``; ModelAverage (the
+JAX package's stub, copied as it is) and ExponentialMovingAverage. DGC
+momentum is not ported (ROADMAP A9).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 from .core.backward import append_backward
 from .core.dtypes import dtype_str
 from .core.program import (Variable, default_main_program,
                            default_startup_program)
+from .core.scope import global_scope
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
@@ -340,9 +348,398 @@ class AdagradOptimizer(Optimizer):
             attrs={"epsilon": self._epsilon})
 
 
+class LarsMomentumOptimizer(Optimizer):
+    """optimizer.py:1058 LarsMomentumOptimizer: one `velocity` accumulator
+    per parameter."""
+
+    def __init__(self, learning_rate, momentum, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, regularization=None, name=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
+        self.type = "lars_momentum"
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            type="lars_momentum",
+            inputs={"Param": [p.name], "Grad": [g.name], "Velocity": [v.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, regularization=None,
+                 name=None, grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
+        self.type = "decayed_adagrad"
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            type="decayed_adagrad",
+            inputs={"Param": [p.name], "Grad": [g.name], "Moment": [m.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "MomentOut": [m.name]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, regularization=None,
+                 name=None, grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
+        self.type = "adadelta"
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("avg_squared_grad", p)
+            self._add_accumulator("avg_squared_update", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        g1 = self._get_accumulator("avg_squared_grad", p)
+        g2 = self._get_accumulator("avg_squared_update", p)
+        return block.append_op(
+            type="adadelta",
+            inputs={"Param": [p.name], "Grad": [g.name], "AvgSquaredGrad": [g1.name],
+                    "AvgSquaredUpdate": [g2.name], "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "AvgSquaredGradOut": [g1.name],
+                     "AvgSquaredUpdateOut": [g2.name]},
+            attrs={"epsilon": self._epsilon, "rho": self._rho})
+
+
+class RMSPropOptimizer(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, regularization=None, name=None, grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
+        self.type = "rmsprop"
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("mean_grad", p)
+            self._add_accumulator("momentum", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        ms = self._get_accumulator("mean_square", p)
+        mg = self._get_accumulator("mean_grad", p)
+        mom = self._get_accumulator("momentum", p)
+        return block.append_op(
+            type="rmsprop",
+            inputs={"Param": [p.name], "Grad": [g.name], "MeanSquare": [ms.name],
+                    "MeanGrad": [mg.name], "Moment": [mom.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "MeanSquareOut": [ms.name],
+                     "MeanGradOut": [mg.name], "MomentOut": [mom.name]},
+            attrs={"decay": self._rho, "epsilon": self._epsilon,
+                   "momentum": self._momentum, "centered": self._centered})
+
+
+class AdamaxOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 regularization=None, name=None, grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
+        self.type = "adamax"
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow", p, fill_value=self._beta1, shape=[1], dtype="float32")
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        inf = self._get_accumulator("inf_norm", p)
+        b1p = self._get_accumulator("beta1_pow", p)
+        op = block.append_op(
+            type="adamax",
+            inputs={"Param": [p.name], "Grad": [g.name], "Moment": [m.name],
+                    "InfNorm": [inf.name], "Beta1Pow": [b1p.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "MomentOut": [m.name], "InfNormOut": [inf.name]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2, "epsilon": self._epsilon})
+        # beta1_pow update (reference appends a scale op per param)
+        block.append_op(type="scale", inputs={"X": [b1p.name]},
+                        outputs={"Out": [b1p.name]}, attrs={"scale": self._beta1})
+        return op
+
+
+class FtrlOptimizer(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 regularization=None, name=None, grad_clip=None):
+        super().__init__(learning_rate, regularization, name, grad_clip)
+        self.type = "ftrl"
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        sq = self._get_accumulator("squared", p)
+        lin = self._get_accumulator("linear", p)
+        return block.append_op(
+            type="ftrl",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "SquaredAccumulator": [sq.name], "LinearAccumulator": [lin.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "SquaredAccumOut": [sq.name],
+                     "LinearAccumOut": [lin.name]},
+            attrs={"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power})
+
+
+class GradientMergeOptimizer:
+    """Accumulate gradients for k steps, apply the inner optimizer once per
+    k with the averaged gradient (newer-reference GradientMergeOptimizer
+    semantics).
+
+    Per-param accumulator vars + a step counter; the inner optimizer's
+    update ops and the accumulator reset run inside a `conditional_block`
+    guarded by (step % k == 0). The port runs that block only on the steps
+    that apply (one host read of the condition a step)."""
+
+    _uid = 0
+
+    def __init__(self, inner_optimizer, k_steps: int = 1, avg: bool = True):
+        if k_steps < 1:
+            raise ValueError("k_steps must be >= 1")
+        self._opt = inner_optimizer
+        self._k = int(k_steps)
+        self._avg = avg
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .layers import control_flow as cf
+        from .layers import ops as ops_layers
+        from .layers import tensor as tensor_layers
+
+        if self._k == 1:
+            return self._opt.minimize(loss, startup_program, parameter_list,
+                                      no_grad_set)
+        params_grads = self._opt.backward(loss, startup_program,
+                                          parameter_list, no_grad_set)
+        helper = LayerHelper("gradient_merge")
+        # unique per instance: two merged optimizers in one program (e.g.
+        # GAN D/G) must not share a counter
+        GradientMergeOptimizer._uid += 1
+        counter = helper.create_global_variable(
+            [1], "int64",
+            name=f"gradient_merge_step_{GradientMergeOptimizer._uid}",
+            initializer=ConstantInitializer(0.0))
+        one_v = tensor_layers.fill_constant([1], "int64", 1)
+        k_v = tensor_layers.fill_constant([1], "int64", self._k)
+        new_count = ops_layers.elementwise_add(counter, one_v)
+        new_count = ops_layers.elementwise_mod(new_count, k_v)
+        tensor_layers.assign(new_count, counter)
+        apply_now = ops_layers.equal(
+            new_count, tensor_layers.fill_constant([1], "int64", 0))
+
+        merged = []
+        for p, g in params_grads:
+            acc = helper.create_global_variable(
+                list(p.shape), p.dtype, name=f"{p.name}@GradientMerge",
+                initializer=ConstantInitializer(0.0))
+            acc_new = ops_layers.elementwise_add(acc, g)
+            tensor_layers.assign(acc_new, acc)
+            merged.append((p, acc))
+
+        # predicated apply: inner optimizer ops + accumulator reset run in a
+        # sub-block gated on (step % k == 0)
+        with cf.ConditionalBlock(apply_now):
+            eff = []
+            for p, acc in merged:
+                g_eff = ops_layers.scale(acc, scale=1.0 / self._k) \
+                    if self._avg else acc
+                eff.append((p, g_eff))
+            optimize_ops = self._opt.apply_gradients(eff)
+            for p, acc in merged:
+                tensor_layers.assign(ops_layers.scale(acc, scale=0.0), acc)
+        return optimize_ops, params_grads
+
+    def backward(self, *a, **kw):
+        return self._opt.backward(*a, **kw)
+
+
+class LookaheadOptimizer:
+    """reference optimizer.py:2970 — fast/slow weight lookahead: every k
+    steps, slow += alpha·(fast − slow) and fast resets to slow. A step
+    counter and a `conditional_block`, as GradientMergeOptimizer."""
+
+    _uid = 0
+
+    def __init__(self, inner_optimizer, alpha: float = 0.5, k: int = 5):
+        if inner_optimizer is None:
+            raise ValueError("inner optimizer can not be None")
+        if not 0.0 <= alpha <= 1.0:
+            raise ValueError("alpha must be within [0, 1]")
+        if k <= 0:
+            raise ValueError("k must be a positive integer")
+        self.inner_optimizer = inner_optimizer
+        self.alpha = float(alpha)
+        self.k = int(k)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .layers import control_flow as cf
+        from .layers import ops as ops_layers
+        from .layers import tensor as tensor_layers
+
+        out = self.inner_optimizer.minimize(
+            loss, startup_program=startup_program)
+        helper = LayerHelper("lookahead")
+        LookaheadOptimizer._uid += 1
+        counter = helper.create_global_variable(
+            [1], "int64", name=f"lookahead_step_{LookaheadOptimizer._uid}",
+            initializer=ConstantInitializer(0.0))
+        one_v = tensor_layers.fill_constant([1], "int64", 1)
+        new_count = ops_layers.elementwise_add(counter, one_v)
+        tensor_layers.assign(new_count, counter)
+
+        params = loss.block.program.global_block().all_parameters()
+        slows = []
+        startup_block = (startup_program
+                         or default_startup_program()).global_block()
+        for p in params:
+            slow = helper.create_global_variable(
+                list(p.shape), p.dtype, name=f"{p.name}@SLOW",
+                initializer=ConstantInitializer(0.0))
+            # slow starts as the INITIAL fast weights (reference seeds the
+            # slow copies in the startup program, before any update runs)
+            startup_block.append_op(type="assign", inputs={"X": [p.name]},
+                                    outputs={"Out": [slow.name]}, attrs={})
+            slows.append((p, slow))
+
+        k_v = tensor_layers.fill_constant([1], "int64", self.k)
+        sync = ops_layers.equal(
+            ops_layers.elementwise_mod(new_count, k_v),
+            tensor_layers.fill_constant([1], "int64", 0))
+        with cf.ConditionalBlock(sync):
+            for p, slow in slows:
+                blended = ops_layers.elementwise_add(
+                    ops_layers.scale(slow, scale=1.0 - self.alpha),
+                    ops_layers.scale(p, scale=self.alpha))
+                tensor_layers.assign(blended, slow)
+                tensor_layers.assign(blended, p)
+        return out
+
+    def backward(self, *a, **kw):
+        return self.inner_optimizer.backward(*a, **kw)
+
+
+class ModelAverage(Optimizer):
+    """optimizer.py:2257. The JAX package's ModelAverage is a stub whose
+    apply() is a no-op context; the port copies it as it is (it adds no
+    feature the JAX package lacks)."""
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, regularization=None, name=None):
+        super().__init__(0.0, regularization, name)
+        self.type = "model_average"
+        self._window = max_average_window
+
+    def minimize(self, loss, **kw):
+        raise TypeError("ModelAverage wraps apply(); call after another optimizer")
+
+    def apply(self):
+        @contextlib.contextmanager
+        def _noop():
+            yield
+        return _noop()
+
+    def restore(self, executor=None):
+        pass
+
+
+class ExponentialMovingAverage:
+    """optimizer.py:2447 EMA of parameters, applied at eval time: update()
+    appends ema = decay·ema + (1 − decay)·p for every trainable parameter
+    (scale and sum ops); apply() swaps the EMA values into the scope and
+    restores the parameters on exit."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        self._decay = decay
+        self._name = name or "ema"
+        self._ema_vars = {}
+
+    def update(self):
+        prog = default_main_program()
+        block = prog.global_block()
+        helper = LayerHelper(self._name)
+        for p in prog.all_parameters():
+            if not p.trainable:
+                continue
+            ema = helper.create_global_variable(
+                list(p.shape), dtype_str(p.dtype), name=f"{p.name}.{self._name}",
+                initializer=ConstantInitializer(0.0))
+            self._ema_vars[p.name] = ema
+            # ema = decay*ema + (1-decay)*p  expressed with scale+sum ops
+            tmp1 = helper.create_variable_for_type_inference(p.dtype)
+            tmp2 = helper.create_variable_for_type_inference(p.dtype)
+            block.append_op(type="scale", inputs={"X": [ema.name]},
+                            outputs={"Out": [tmp1.name]}, attrs={"scale": self._decay})
+            block.append_op(type="scale", inputs={"X": [p.name]},
+                            outputs={"Out": [tmp2.name]}, attrs={"scale": 1.0 - self._decay})
+            block.append_op(type="sum", inputs={"X": [tmp1.name, tmp2.name]},
+                            outputs={"Out": [ema.name]}, attrs={})
+
+    def apply(self, executor=None, need_restore=True):
+        @contextlib.contextmanager
+        def _swap():
+            scope = global_scope()
+            saved = {}
+            for pname, ema in self._ema_vars.items():
+                saved[pname] = scope.find_var(pname)
+                ev = scope.find_var(ema.name)
+                if ev is not None:
+                    scope.set_var(pname, ev)
+            try:
+                yield
+            finally:
+                if need_restore:
+                    for pname, v in saved.items():
+                        scope.set_var(pname, v)
+        return _swap()
+
+    def restore(self, executor=None):
+        pass
+
+
+# paddle-style aliases (fluid.optimizer.SGD etc.)
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer
-Adagrad = AdagradOptimizer
 AdamW = AdamWOptimizer
+Adamax = AdamaxOptimizer
+Adagrad = AdagradOptimizer
+AdadeltaOpt = AdadeltaOptimizer
+Adadelta = AdadeltaOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
 Lamb = LambOptimizer
+LarsMomentum = LarsMomentumOptimizer

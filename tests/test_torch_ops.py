@@ -321,9 +321,72 @@ CASES += [
 ]
 
 
+# the training-surface slice: the lr schedules, the remaining update ops
+# (one step each; decayed_adagrad, adadelta, rmsprop and ftrl through
+# sqrt_rn) and the streaming auc
+_STEP = np.array([5], np.int64)
+_B = _r(3, 4, seed=3)
+_AUC_P = np.random.RandomState(4).rand(64, 2).astype(np.float32)
+_AUC_L = np.random.RandomState(5).randint(0, 2, (64, 1)).astype(np.int64)
+_AUC_STAT = np.random.RandomState(6).randint(0, 9, 64).astype(np.float32)
+
+
+def _sched(kind, **attrs):
+    return (f"lr_schedule_{kind}", "lr_schedule", {"Step": [_STEP]},
+            dict(attrs, kind=kind))
+
+
+CASES += [
+    _sched("noam", d_model=64, warmup_steps=4, learning_rate=2.0),
+    _sched("exponential", learning_rate=0.1, decay_steps=3, decay_rate=0.5,
+           staircase=True),
+    _sched("natural_exp", learning_rate=0.1, decay_steps=3, decay_rate=0.5),
+    _sched("inverse_time", learning_rate=0.1, decay_steps=3, decay_rate=0.5),
+    _sched("polynomial", learning_rate=0.1, decay_steps=3,
+           end_learning_rate=1e-3, power=2.0, cycle=True),
+    _sched("piecewise", boundaries=[3, 7], values=[0.1, 0.01, 0.001],
+           learning_rate=0.1),
+    _sched("cosine", learning_rate=0.1, step_each_epoch=2, epochs=5),
+    ("lr_schedule_warmup_base", "lr_schedule",
+     {"Step": [_STEP], "Base": [np.array([0.03], np.float32)]},
+     {"kind": "warmup", "warmup_steps": 8, "start_lr": 0.0, "end_lr": 0.1}),
+    ("lars_momentum", "lars_momentum",
+     {"Param": [X34], "Grad": [_B], "Velocity": [_r(3, 4, seed=4)],
+      "LearningRate": [_LR]}, {"mu": 0.9}),
+    ("adamax", "adamax",
+     {"Param": [X34], "Grad": [_B], "Moment": [_r(3, 4, seed=4)],
+      "InfNorm": [_pos(3, 4, seed=5)], "Beta1Pow": [np.array([0.81],
+                                                             np.float32)],
+      "LearningRate": [_LR]}, {}),
+    ("decayed_adagrad", "decayed_adagrad",
+     {"Param": [X34], "Grad": [_B], "Moment": [_pos(3, 4, seed=4)],
+      "LearningRate": [_LR]}, {"decay": 0.9}),
+    ("adadelta", "adadelta",
+     {"Param": [X34], "Grad": [_B], "AvgSquaredGrad": [_pos(3, 4, seed=4)],
+      "AvgSquaredUpdate": [_pos(3, 4, seed=5)], "LearningRate": [_LR]},
+     {"rho": 0.9}),
+    ("rmsprop_centered", "rmsprop",
+     {"Param": [X34], "Grad": [_B], "MeanSquare": [_pos(3, 4, seed=4)],
+      "MeanGrad": [_r(3, 4, seed=5, scale=0.1)],
+      "Moment": [_r(3, 4, seed=6)], "LearningRate": [_LR]},
+     {"centered": True, "momentum": 0.5}),
+    ("ftrl_power", "ftrl",
+     {"Param": [X34], "Grad": [_B], "SquaredAccumulator": [_pos(3, 4, seed=4)],
+      "LinearAccumulator": [_r(3, 4, seed=5)], "LearningRate": [_LR]},
+     {"l1": 0.1, "l2": 0.01, "lr_power": -0.3}),
+    ("auc", "auc", {"Predict": [_AUC_P], "Label": [_AUC_L],
+                    "StatPos": [_AUC_STAT], "StatNeg": [_AUC_STAT[::-1].copy()]},
+     {"num_thresholds": 63}),
+]
+
+# ops whose attrs hold a sub-block: the program-level twins in
+# tests/test_torch_optimizers_more.py run them
+BLOCK_OPS = ("conditional_block",)
+
+
 def test_cases_cover_every_ported_op():
     covered = ({op for _, op, _, _ in CASES} | set(RANDOM_OPS)
-               | set(SELECTED_ROWS_OPS))
+               | set(SELECTED_ROWS_OPS) | set(BLOCK_OPS))
     assert covered == set(treg.registered_ops())
     # the port registers nothing the JAX package does not have
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())

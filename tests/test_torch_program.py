@@ -179,7 +179,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch.core.compiler, paddle_tpu_torch.dataio.handle, "
             "paddle_tpu_torch.observability.steps, "
             "paddle_tpu_torch.observability.watchdog, "
-            "paddle_tpu_torch.observability.flight; "
+            "paddle_tpu_torch.observability.flight, "
+            "paddle_tpu_torch.metrics, paddle_tpu_torch.evaluator, "
+            "paddle_tpu_torch.average, paddle_tpu_torch.models.lenet, "
+            "paddle_tpu_torch.layers.learning_rate_scheduler, "
+            "paddle_tpu_torch.layers.control_flow, "
+            "paddle_tpu_torch.layers.math_op_patch, "
+            "paddle_tpu_torch.ops.control_flow_ops; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
