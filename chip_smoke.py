@@ -227,6 +227,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              the steps that skip, every parameter moving on the steps that
              apply, the merge buffers and the counters changing every
              step, rows 1-4 launches, the ms of both kinds of step.
+16. input pipeline and checkpoints — one JSON line, the card's name and
+             power limit in it: BERT-base bf16 AMP (B=8, T=512, 12 layers,
+             dropout 0.1, Adam) 8 steps from one state on 8 seeded
+             batches: plain Executor.run on numpy feeds twice (whether
+             the two are bitwise equal sets the rule: bitwise, else 4x
+             their measured spread, the differing tensors printed), then
+             through a DeviceLoader (pinned memory, side stream),
+             train_scanned(scan_steps=4) and train_from_dataset over an
+             InMemoryDataset-shaped source, each held to the plain run
+             with 12 + 12 flash launches a step. The first plain run
+             saves a Checkpointer bundle after step 4 without blocking
+             (with the loader cursor as @dataio@ extras): the bundle must
+             equal the state after step 4; a fresh scope and executor
+             restore it (the CUDA generator too), a DeviceLoader resumes
+             at the cursor, and steps 5-8 must equal the plain run's.
+             BERT-base served at B=8, T=128 from a reference-format
+             directory (save_inference_model(format="reference")) must
+             equal the native format's bitwise, and
+             tests/data/ref_mnist_model must predict within 1e-5 of its
+             expected.npz on the card. Phase 12's hot arm again with
+             pull_ahead=1: losses and the final table bitwise equal to
+             pull_ahead=0, rows 12-14 launched. Prints the plain and
+             loader-fed median step, dataio/h2d_ms, busy shares, the ms
+             save() holds the loop, the background write's ms, bundle
+             bytes, restore ms and the phase's wall time. The native
+             library must have built.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -3232,11 +3258,13 @@ def phase_deepfm(fluid, fsa):
     return launches
 
 
-def ps_arm(fluid, deepfm, exe, feeds, hot_rows):
+def ps_arm(fluid, deepfm, exe, feeds, hot_rows, pull_ahead=0, keep=None):
     """One arm of the JAX bench's hot-cache A/B: the DeepFM step through
     PsEmbeddingTier over four in-process shards of the full vocab, 4
     warm-up steps then timed ones. Returns (ms per step, losses, cache
-    stats with the steady-state lookup hit rate)."""
+    stats with the steady-state lookup hit rate). With a dict `keep`, the
+    final table (every shard's rows, after the flush) lands in
+    keep["table"]."""
     import torch
     from paddle_tpu_torch.ps import (PsEmbeddingTier, PsTableBinding,
                                      RangeSpec, ShardedTable)
@@ -3250,8 +3278,8 @@ def ps_arm(fluid, deepfm, exe, feeds, hot_rows):
     exe.run(startup, scope=scope)
     tier = PsEmbeddingTier(main, [PsTableBinding("fm_t", table,
                                                  ["sparse_ids"])],
-                           pull_ahead=0, push_depth=1, hot_rows=hot_rows,
-                           place=fluid.CUDAPlace(0))
+                           pull_ahead=pull_ahead, push_depth=1,
+                           hot_rows=hot_rows, place=fluid.CUDAPlace(0))
     losses, st_warm, t0 = [], None, None
     try:
         for i, prep in enumerate(tier.steps(lambda: iter(feeds))):
@@ -3265,6 +3293,8 @@ def ps_arm(fluid, deepfm, exe, feeds, hot_rows):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / (len(feeds) - HOT_WARMUP)
         st = tier.stats()["fm_t"].get("hot_cache")
+        if keep is not None:
+            keep["table"] = table.dump_full()
     finally:
         tier.close()
     if st is not None:
@@ -3273,6 +3303,11 @@ def ps_arm(fluid, deepfm, exe, feeds, hot_rows):
         st = dict(st, steady_lookup_hit_rate=dh / (dh + dm) if dh + dm
                   else None)
     return ms, losses, st
+
+
+# phase 12's hot arm (pull_ahead=0): its feeds, losses and final table,
+# the baseline of phase 16's prefetched arm
+PS_PULL_AHEAD_0 = {}
 
 
 def phase_ps_hot_cache(fluid, fsa):
@@ -3288,8 +3323,10 @@ def phase_ps_hot_cache(fluid, fsa):
     ms_stream, losses_stream, _ = ps_arm(fluid, deepfm, exe, feeds, 0)
     for k in fsa.KERNELS:                            # hot path starts
         k.launches = 0
-    ms_hot, losses_hot, st = ps_arm(fluid, deepfm, exe, feeds, HOT_ROWS)
+    ms_hot, losses_hot, st = ps_arm(fluid, deepfm, exe, feeds, HOT_ROWS,
+                                    keep=PS_PULL_AHEAD_0)
     launches = {k.__name__: k.launches for k in fsa.KERNELS}  # ends
+    PS_PULL_AHEAD_0.update(losses=losses_hot, feeds=feeds, ms=ms_hot)
     rec = {"hot_rows": HOT_ROWS, "zipf_a": 1.5, "steps": HOT_STEPS,
            "warmup": HOT_WARMUP, "push_depth": 1, "pull_ahead": 0,
            "hit_rate": st["steady_lookup_hit_rate"],
@@ -4182,6 +4219,384 @@ def phase_training_surface(fluid, fa, fas, fb, smi):
     log("training surface " + json.dumps(rec))
 
 
+# ---------------------------------------------------------------------------
+# 16. the input pipeline and checkpoints
+# ---------------------------------------------------------------------------
+
+P16_STEPS = 8          # BERT-base bf16 AMP steps a run (B=8, T=512)
+P16_SAVE_AT = 4        # the plain run saves after this step
+P16_SERVE_T = 128
+REF_MNIST = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                         "data", "ref_mnist_model")
+
+
+def rel_t(a, b):
+    """Relative L2 difference of two host tensors, in f64."""
+    x, y = a.double(), b.double()
+    return float((x - y).norm() / y.norm().clamp_min(1e-30))
+
+
+class P16Rule:
+    """The rule the drivers are held to: bitwise equality when two plain
+    runs from one state are bitwise equal, else the measured spread of
+    those two runs (the largest relative L2 difference over every
+    persistable and the losses), times 4."""
+
+    def __init__(self, losses1, state1, losses2, state2):
+        bad, _ = state_diff(state1, state2)
+        self.bitwise = not bad and losses1 == losses2
+        self.differ = bad
+        spread = [rel_t(state2[n], state1[n]) for n in bad]
+        spread += [abs(a - b) / abs(b) for a, b in zip(losses2, losses1)
+                   if a != b]
+        self.spread = max(spread, default=0.0)
+        self.tol = 4 * self.spread
+
+    def check(self, what, losses, state, ref_losses, ref_state):
+        if self.bitwise:
+            bad, rel = state_diff(state, ref_state)
+            ok = not bad and losses == ref_losses
+            worst = rel
+        else:
+            worst = max([rel_t(state[n], ref_state[n]) for n in ref_state]
+                        + [abs(a - b) / abs(b)
+                           for a, b in zip(losses, ref_losses)])
+            ok = worst <= self.tol
+        log(f"input pipeline: {what} against the plain run: "
+            f"{'bitwise' if self.bitwise else 'spread'} rule, worst "
+            f"relative difference {worst:.3e} (tol {self.tol:.3e}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"input pipeline: {what} differs from the "
+                                 f"plain run ({worst:.3e} > {self.tol:.3e})")
+        return worst
+
+
+def flash_reset(fa):
+    for k in (fa.flash_attention_fwd, fa.flash_attention_bwd):
+        k.launches = 0
+        k.plain_on_cuda = 0
+
+
+def flash_check(fa, what, steps):
+    """Each of `steps` training steps launched the flash forward and
+    backward kernels once a layer, and no call took the plain route."""
+    got = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    plain = (fa.flash_attention_fwd.plain_on_cuda,
+             fa.flash_attention_bwd.plain_on_cuda)
+    if got != (12 * steps, 12 * steps) or plain != (0, 0):
+        raise AssertionError(f"input pipeline: {what} launched flash "
+                             f"(fwd, bwd) {got}, plain {plain}; expected "
+                             f"{12 * steps} each and no plain call")
+    return {"fwd": got[0], "bwd": got[1]}
+
+
+def p16_plain(fluid, exe, main, loss, init, feeds, ck=None, keep_at=None):
+    """8 plain Executor.run steps on numpy feeds from `init`: (losses,
+    final host state, host ms a step, extra). With `ck`, save after step
+    P16_SAVE_AT with the loader cursor a DeviceLoader over the same feeds
+    would report, timing how long save() holds the loop."""
+    import torch
+
+    scope = scope_from(fluid, init)
+    losses, ms, extra = [], [], {}
+    for i, feed in enumerate(feeds):
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(float(lv))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 == P16_SAVE_AT:
+            if ck is not None:
+                cursor = {"version": 1, "epoch": 0, "cursor": i + 1}
+                t0 = time.perf_counter()
+                ck.save(i + 1, program=main, scope=scope,
+                        extra={f"@dataio@{k}": v for k, v in cursor.items()})
+                extra["save_block_ms"] = (time.perf_counter() - t0) * 1e3
+            if keep_at is not None:
+                keep_at.update(host_state(scope, main))
+    torch.cuda.synchronize()
+    if ck is not None:
+        t0 = time.perf_counter()
+        ck.wait()
+        extra["wait_after_loop_ms"] = (time.perf_counter() - t0) * 1e3
+    extra["scope"] = scope
+    return losses, host_state(scope, main), ms, extra
+
+
+class P16Dataset:
+    """An InMemoryDataset-shaped source (batches() / set_thread()) over
+    batches already in memory."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def set_thread(self, n):
+        pass
+
+    def batches(self):
+        yield from self.data
+
+
+def p16_bert(fluid, fa, rec):
+    """Steps 1-2 of phase 16: BERT-base bf16 AMP training, plain twice,
+    through a DeviceLoader, train_scanned, train_from_dataset, and resumed
+    from the plain run's step-4 checkpoint."""
+    import torch
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.dataio import DeviceLoader
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.observability import get_registry
+    from paddle_tpu_torch.parallel import Checkpointer
+
+    if not native.available():
+        raise AssertionError(f"input pipeline: the native library did not "
+                             f"build: {native.build_error()}")
+    rng = np.random.RandomState(16)
+    feeds = [pretrain_feed(B, STEP_T, rng) for _ in range(P16_STEPS)]
+    main, startup, loss = build_pretrain(fluid, bert, B, STEP_T, True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    sc0 = fluid.Scope()
+    exe.run(startup, scope=sc0)
+    init = host_state(sc0, main)
+    del sc0
+    cuda = fluid.CUDAPlace(0)
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(os.path.join(d, "ck"))
+        flash_reset(fa)                               # plain runs start
+        l1, s1, ms1, ex1 = p16_plain(fluid, exe, main, loss, init, feeds,
+                                     ck=ck)
+        at4 = {}
+        l2, s2, ms2, _ = p16_plain(fluid, exe, main, loss, init, feeds,
+                                   keep_at=at4)
+        rec["launches_plain"] = flash_check(fa, "two plain runs",
+                                            2 * P16_STEPS)  # ends
+        rule = P16Rule(l1, s1, l2, s2)
+        rec["plain_twice_bitwise"] = rule.bitwise
+        rec["plain_twice_spread"] = rule.spread
+        rec["plain_twice_differ"] = rule.differ
+        log(f"input pipeline: two plain runs bitwise equal: {rule.bitwise}"
+            + ("" if rule.bitwise else
+               f"; spread {rule.spread:.3e}; tensors that differ "
+               f"{rule.differ}"))
+        if not all(np.isfinite(l1)):
+            raise AssertionError(f"input pipeline: plain losses {l1}")
+
+        # 1. the DeviceLoader-fed loop, train_scanned, train_from_dataset
+        flash_reset(fa)                               # loader run starts
+        scope = scope_from(fluid, init)
+        loader = DeviceLoader(lambda: iter(feeds), capacity=2, program=main,
+                              place=cuda, name="p16")
+        ll, msl = [], []
+        it = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                feed = next(it)
+            except StopIteration:
+                break
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            ll.append(float(lv))
+            msl.append((time.perf_counter() - t0) * 1e3)
+        rec["launches_loader"] = flash_check(fa, "the loader-fed run",
+                                             P16_STEPS)  # ends
+        rule.check("DeviceLoader-fed run", ll, host_state(scope, main),
+                   l1, s1)
+
+        flash_reset(fa)                               # train_scanned starts
+        scope = scope_from(fluid, init)
+        (lsc,) = exe.train_scanned(main, reader=lambda: iter(feeds),
+                                   scan_steps=4, fetch_list=[loss],
+                                   scope=scope)
+        rec["launches_train_scanned"] = flash_check(fa, "train_scanned",
+                                                    P16_STEPS)  # ends
+        rule.check("train_scanned(scan_steps=4)",
+                   [float(v) for v in np.asarray(lsc).ravel()],
+                   host_state(scope, main), l1, s1)
+
+        flash_reset(fa)                          # train_from_dataset starts
+        scope = scope_from(fluid, init)
+        (lfd,) = exe.train_from_dataset(main, P16Dataset(feeds),
+                                        scope=scope, fetch_list=[loss])
+        rec["launches_train_from_dataset"] = flash_check(
+            fa, "train_from_dataset", P16_STEPS)      # ends
+        rule.check("train_from_dataset (last loss and state)",
+                   [float(np.asarray(lfd).ravel()[0])],
+                   host_state(scope, main), l1[-1:], s1)
+        snap = get_registry().snapshot()
+        rec["h2d_ms"] = {k: snap["dataio/h2d_ms"][k]
+                         for k in ("count", "p50", "p95", "max")}
+        rec["prefetch_queue_depth"] = snap["dataio/prefetch_queue_depth"]
+
+        # 2. the checkpoint: what it holds, then a resume in a fresh scope
+        path = ck._existing_path(P16_SAVE_AT)
+        rec["bundle"] = os.path.basename(path)
+        rec["bundle_bytes"] = os.path.getsize(path)
+        rec["save_block_ms"] = ex1["save_block_ms"]
+        rec["write_ms"] = ck.last_write_ms
+        rec["wait_after_loop_ms"] = ex1["wait_after_loop_ms"]
+        bundle = native.read_bundle(path)
+        held = {n: (v if isinstance(v, torch.Tensor) else
+                    torch.from_numpy(np.array(v))) for n, v in bundle.items()
+                if n in at4}
+        if sorted(held) != sorted(at4):
+            raise AssertionError("input pipeline: the bundle does not hold "
+                                 "every persistable")
+        rule.check("checkpoint bundle (state after step 4)", [], held, [],
+                   at4)
+        later = sum(1 for n in held if torch.equal(held[n], s1[n]))
+        rec["bundle_tensors_equal_to_step_8"] = later
+        rec["bundle_tensors"] = len(held)
+        log(f"input pipeline: the bundle equals the state after step 4; "
+            f"{later} of {len(held)} of its tensors also equal step 8's "
+            f"(the ones the steps do not change)")
+        if later > len(held) // 2:
+            raise AssertionError("input pipeline: the bundle holds a later "
+                                 "step's values")
+
+        flash_reset(fa)                               # resume starts
+        exe2 = fluid.Executor(cuda)
+        scope = fluid.Scope()
+        t0 = time.perf_counter()
+        ck2 = Checkpointer(os.path.join(d, "ck"))
+        got = ck2.restore(program=main, scope=scope, place=cuda)
+        torch.cuda.synchronize()
+        rec["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        if got != P16_SAVE_AT:
+            raise AssertionError(f"input pipeline: restored step {got}")
+        cursor = {k[len("@dataio@"):]: int(np.asarray(v).reshape(-1)[0])
+                  for k, v in ck2.last_extra.items()}
+        loader = DeviceLoader(lambda: iter(feeds), capacity=2, program=main,
+                              place=cuda, name="p16_resume")
+        loader.restore_state(cursor)
+        lr = [float(exe2.run(main, feed=f, fetch_list=[loss],
+                             scope=scope)[0]) for f in loader]
+        rec["launches_resume"] = flash_check(
+            fa, "the resumed run", P16_STEPS - P16_SAVE_AT)  # ends
+        rule.check("resumed run (steps 5-8, restored CUDA generator)", lr,
+                   host_state(scope, main), l1[P16_SAVE_AT:], s1)
+        rec["restored_generator"] = str(
+            scope.find_var("@RNG_STATE@").device)
+
+    # timings: median host ms a step (steps 2-8) and the busy share of a
+    # profiled warm step, numpy feeds against DeviceLoader-fed
+    scope = ex1["scope"]
+    rec["plain_median_step_ms"] = float(np.median(ms2[1:]))
+    rec["loader_median_step_ms"] = float(np.median(msl[1:]))
+    prof_plain = profile_record(
+        "plain step", lambda: exe.run(main, feed=feeds[0], fetch_list=[loss],
+                                      scope=scope), 2)
+    prof_loader = DeviceLoader(lambda: iter(feeds), capacity=2,
+                               program=main, place=cuda, name="p16_profile")
+    prof_it = iter(prof_loader)
+    try:
+        prof_loader_rec = profile_record(
+            "loader-fed step", lambda: exe.run(main, feed=next(prof_it),
+                                               fetch_list=[loss],
+                                               scope=scope), 2)
+    finally:
+        prof_loader.close()
+    prof_loader = prof_loader_rec
+    rec["plain_busy_ms"] = prof_plain["device_busy_ms"]
+    rec["loader_busy_ms"] = prof_loader["device_busy_ms"]
+    rec["plain_busy_share"] = (prof_plain["device_busy_ms"]
+                               / rec["plain_median_step_ms"])
+    rec["loader_busy_share"] = (prof_loader["device_busy_ms"]
+                                / rec["loader_median_step_ms"])
+    rec["loader_h2d_copy_kernels"] = prof_loader["copy_kernels_per_call"]
+    rec["plain_h2d_copy_kernels"] = prof_plain["copy_kernels_per_call"]
+    rec["plain_losses"] = l1
+
+
+def p16_serve(fluid, fa, rec):
+    """Step 3 of phase 16: BERT-base served from the reference format
+    against the same weights from the native format, and the checked-in
+    reference MNIST model, on the card."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models import bert
+
+    main, startup, feed_names, out = build_bert(fluid, bert, -1)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = bert_feed(B, P16_SERVE_T, np.random.RandomState(161))
+    with fluid.scope_guard(fluid.Scope()), \
+            tempfile.TemporaryDirectory() as d:
+        exe.run(startup)
+        nat, ref = os.path.join(d, "native"), os.path.join(d, "reference")
+        fluid.io.save_inference_model(nat, feed_names, [out], exe,
+                                      main_program=main)
+        fluid.io.save_inference_model(ref, feed_names, [out], exe,
+                                      main_program=main, format="reference")
+        fa.flash_attention_fwd.launches = 0           # serving starts
+        fa.flash_attention_fwd.plain_on_cuda = 0
+        (a,) = inference.create_predictor(inference.Config(nat)).run(feed)
+        (b,) = inference.create_predictor(inference.Config(ref)).run(feed)
+        launches = fa.flash_attention_fwd.launches    # ends
+    if launches != 24 or fa.flash_attention_fwd.plain_on_cuda:
+        raise AssertionError(f"input pipeline: serving launched the flash "
+                             f"forward {launches} times (expected 12 a "
+                             f"predictor)")
+    same = bool(np.array_equal(a, b))
+    rec["serve_reference_vs_native_bitwise"] = same
+    rec["serve_shape"] = list(b.shape)
+    rec["launches_serve"] = launches
+    if not same or not np.isfinite(b).all():
+        raise AssertionError(f"input pipeline: reference-format serving "
+                             f"differs from native (max abs "
+                             f"{float(np.abs(a - b).max())})")
+    exp = np.load(os.path.join(REF_MNIST, "expected.npz"))
+    (prob,) = inference.create_predictor(
+        inference.Config(REF_MNIST)).run({"img": exp["x"]})
+    err = float(np.abs(prob - exp["prob"]).max())
+    rec["ref_mnist_max_abs_err"] = err
+    if err > 1e-5:
+        raise AssertionError(f"input pipeline: ref_mnist_model prob off by "
+                             f"{err:.3e} (tol 1e-5)")
+
+
+def p16_ps(fluid, fsa, rec):
+    """Step 4 of phase 16: phase 12's hot arm with pull_ahead=1 against
+    its pull_ahead=0 run: losses and the final table bitwise equal."""
+    from paddle_tpu_torch.models import deepfm
+
+    base = PS_PULL_AHEAD_0
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    keep = {}
+    for k in fsa.KERNELS:                             # prefetched arm starts
+        k.launches = 0
+    ms, losses, st = ps_arm(fluid, deepfm, exe, base["feeds"], HOT_ROWS,
+                            pull_ahead=1, keep=keep)
+    launches = {k.__name__: k.launches for k in fsa.KERNELS}  # ends
+    same_losses = losses == base["losses"]
+    same_table = bool(np.array_equal(keep["table"], base["table"]))
+    rec["ps_pull_ahead_1"] = {
+        "losses_bitwise": same_losses, "table_bitwise": same_table,
+        "step_ms": ms, "pull_ahead_0_step_ms": base["ms"],
+        "hit_rate": st["steady_lookup_hit_rate"], "launches": launches}
+    if not (same_losses and same_table):
+        raise AssertionError("input pipeline: the PS hot cache with "
+                             "pull_ahead=1 differs from pull_ahead=0")
+    if not (launches["fused_row_gather"] and launches["fused_row_scatter"]
+            and launches["fused_adagrad_update"] == HOT_STEPS):
+        raise AssertionError(f"input pipeline: row kernels launched "
+                             f"{launches}")
+    base.clear()
+
+
+def phase_input_pipeline(fluid, fa, fsa, smi):
+    """Phase 16: the input pipeline and checkpoints on CUDAPlace(0) at
+    full width. Prints one JSON line."""
+    import torch
+
+    t0 = time.perf_counter()
+    rec = {"device": smi}
+    p16_bert(fluid, fa, rec)
+    torch.cuda.empty_cache()
+    p16_serve(fluid, fa, rec)
+    p16_ps(fluid, fsa, rec)
+    rec["wall_s"] = time.perf_counter() - t0
+    log("input pipeline " + json.dumps(rec))
+
+
 def main():
     import torch
 
@@ -4280,6 +4695,10 @@ def main():
     # auc, LeNet; ResNet-50 on LARS, Transformer-big on noam, BERT-base on
     # gradient-merged LAMB)
     phase_training_surface(fluid, fa, fas, fb, smi)
+
+    # 16. the input pipeline and checkpoints (DeviceLoader, the drivers,
+    # Checkpointer, reference-format serving, the PS prefetcher)
+    phase_input_pipeline(fluid, fa, fsa, smi)
 
     kernels = []
     for name in ("float32", "bfloat16"):

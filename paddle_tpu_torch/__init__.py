@@ -36,6 +36,14 @@ from . import dataio  # noqa: F401
 from . import metrics  # noqa: F401
 from . import evaluator  # noqa: F401
 from . import average  # noqa: F401
+from . import compat  # noqa: F401
+from . import data_feed_desc  # noqa: F401
+from . import dataset  # noqa: F401
+from . import native  # noqa: F401
+from . import parallel  # noqa: F401
+from .data_feed_desc import DataFeedDesc  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
+from .reader import PyReader  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 from .core import (  # noqa: F401
     Block,

@@ -60,11 +60,24 @@ plan's set of names some op reads covers every block, and what a
 sub-block writes to a persistable comes back through the op's outputs to
 the scope.
 
-Not ported yet: the scanned multi-step drivers (``run_batched``), the
-dataset trainer (ROADMAP A4) and CUDA-graph capture of the step (A2).
+Drivers. ``run_batched`` (a list of feed dicts) and ``train_scanned`` (a
+reader through a ``DeviceLoader``, K batches a drain from ``peek_many``)
+run K steps through the same prepared plan as ``run``, over views
+``stacked[name][i]`` of one device-resident ``[K, ...]`` feed buffer,
+with no host read between steps (with ``FLAGS_check_nan_inf`` off;
+``conditional_block`` keeps its one host read a step), the fetches
+stacked once at the end and one step record and flight-recorder site a
+drain (``steps=K``): bitwise equal to K plain ``run`` calls. The port
+does not yet make the K steps one dispatch: that is CUDA-graph capture
+(ROADMAP A2 item 2), and the maintenance epilogues of the deferred-row
+path come with A5. ``train_from_dataset`` feeds ``run(...,
+return_handle=True)`` from a ``DeviceLoader`` and keeps
+``max_inflight_steps`` steps un-synced; ``close()`` stops the loaders the
+executor started.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import os
 import time
@@ -103,6 +116,7 @@ _EXECUTE_MS = _OBS.histogram("executor/execute_ms")
 _UPDATE_FLUSHES = _OBS.counter("executor/update_flushes")
 _FUSED_GROUPS = _OBS.counter("executor/fused_update_groups")
 _FUSED_OPS = _OBS.counter("executor/fused_update_ops")
+_INFLIGHT = _OBS.gauge("executor/inflight_steps")
 _WATCHDOG = get_watchdog()
 _STEPS = get_step_profiler()
 _FLIGHT = get_flight_recorder()
@@ -896,6 +910,8 @@ class Executor:
         self.device = self.place.torch_device()
         self._cache: Dict[tuple, _Plan] = {}
         self._state_names_cache = None
+        # DeviceLoaders this executor's drivers started (close() stops them)
+        self._loaders: "weakref.WeakSet" = weakref.WeakSet()
         _LIVE_EXECUTORS.add(self)
 
     def _state_names(self, program: Program, scope: Scope) -> List[str]:
@@ -959,22 +975,9 @@ class Executor:
         state_names = self._state_names(program, scope)
         feed_sig = feed_signature(feed_vals)
         sig = _sig_digest(feed_sig)
-        key = (id(program), program._version, feed_sig, tuple(fetch_names),
-               tuple(state_names), None if spec is None else spec.token)
         t0 = time.perf_counter()
-        plan = self._cache.get(key)
-        compiling = plan is None or plan.program() is not program
-        if compiling:
-            _CACHE_MISSES.inc()
-            # a miss re-prepares the plan: count it per program and let
-            # the watchdog diagnose shape-churn storms
-            wkey = (id(program), program._version, tuple(fetch_names))
-            if _WATCHDOG.record_compile(
-                    wkey, feed_sig, label=f"Executor program 0x{id(program):x}"):
-                weakref.finalize(program, _WATCHDOG.forget, wkey)
-            plan = self._cache[key] = _Plan(program, fetch_names, spec)
-        else:
-            _CACHE_HITS.inc()
+        plan, compiling = self._plan(program, feed_sig, fetch_names,
+                                     state_names, spec)
         with _FLIGHT.guard("Executor.run", program=f"0x{id(program):x}",
                            sig=sig, compiling=compiling), \
                 trace_span("executor/compile+run" if compiling
@@ -1011,6 +1014,28 @@ class Executor:
             return [to_numpy(f) for f in fetches]
         return [f.detach() for f in fetches]
 
+    def _plan(self, program: Program, feed_sig, fetch_names, state_names,
+              spec):
+        """The prepared plan for this (program, version, feed signature,
+        fetches, state names[, remat token]), made on a miss. Returns
+        (plan, whether it was made now)."""
+        key = (id(program), program._version, feed_sig, tuple(fetch_names),
+               tuple(state_names), None if spec is None else spec.token)
+        plan = self._cache.get(key)
+        compiling = plan is None or plan.program() is not program
+        if compiling:
+            _CACHE_MISSES.inc()
+            # a miss re-prepares the plan: count it per program and let
+            # the watchdog diagnose shape-churn storms
+            wkey = (id(program), program._version, tuple(fetch_names))
+            if _WATCHDOG.record_compile(
+                    wkey, feed_sig, label=f"Executor program 0x{id(program):x}"):
+                weakref.finalize(program, _WATCHDOG.forget, wkey)
+            plan = self._cache[key] = _Plan(program, fetch_names, spec)
+        else:
+            _CACHE_HITS.inc()
+        return plan, compiling
+
     def _execute(self, plan: _Plan, block: Block, scope: Scope, feed_vals,
                  state_names, fetch_names):
         env = {}
@@ -1040,6 +1065,264 @@ class Executor:
                 new_state[n] = env[n].detach()
                 scope.set_var(n, new_state[n])
         return [env[n] for n in fetch_names], new_state
+
+    # -- multi-step drivers ------------------------------------------------
+    def run_batched(self, program, feed_list,
+                    fetch_list: Optional[Sequence] = None,
+                    scope: Optional[Scope] = None, return_numpy: bool = True):
+        """Run N training steps over N feed dicts stacked along a leading
+        axis: the feeds are converted and stacked once into a device
+        buffer, then the steps run through one prepared plan over its
+        views with no host read between them (see `_run_scan`). Feeds must
+        share keys, shapes and dtypes across the N steps. Bitwise equal to
+        N plain `run` calls; not yet one device dispatch (CUDA-graph
+        capture, ROADMAP A2).
+
+        Requires every persistable the program writes to already exist in
+        the scope (run the startup program first). Returns one stacked
+        array (or tensor) of shape [N, ...] per fetch. Accepts a
+        CompiledProgram (its build strategy's remat policy)."""
+        program, spec = self._unwrap(program)
+        feed_list = list(feed_list)
+        if not feed_list:
+            raise ValueError("run_batched: empty feed_list")
+        fetch_names = [f.name if isinstance(f, Variable) else f
+                       for f in (fetch_list or [])]
+        scope = scope or _scope()
+        block = program.global_block()
+        keys0 = set(feed_list[0])
+        for i, fd in enumerate(feed_list[1:], start=1):
+            if set(fd) != keys0:
+                extra = sorted(set(fd) - keys0)
+                lacking = sorted(keys0 - set(fd))
+                raise ValueError(
+                    f"run_batched: feed dict at step {i} does not match "
+                    f"step 0's key set"
+                    + (f"; extra keys {extra}" if extra else "")
+                    + (f"; missing keys {lacking}" if lacking else ""))
+        stacked = {k: torch.stack([convert_feed_value(block, k, fd[k],
+                                                      self.device)
+                                   for fd in feed_list])
+                   for k in sorted(keys0)}
+        return self._run_scan(program, spec, stacked, len(feed_list),
+                              fetch_names, scope, return_numpy)
+
+    @staticmethod
+    def _unwrap(program):
+        """(Program, remat spec or None) of a Program or CompiledProgram."""
+        if isinstance(program, CompiledProgram):
+            return program._program, program._remat_spec()
+        return program or default_main_program(), None
+
+    def _run_scan(self, program, spec, stacked, n, fetch_names, scope,
+                  return_numpy, site="Executor.run_batched"):
+        """Run `n` steps over pre-stacked device feeds ``{name: [n, ...]}``.
+
+        The shared engine behind `run_batched` (host feed lists) and
+        `train_scanned` (``DeviceLoader.peek_many`` buffers): every step
+        goes through the plan `run` would use for one step's feeds, over
+        the views ``stacked[name][i]``; the state stays in the scope on
+        the device between steps and nothing is read back to the host
+        (``FLAGS_check_nan_inf`` checks each step when on). The fetches
+        are stacked once at the end; the profiler sees ONE record a drain
+        (``steps=n``) and the flight recorder one `site`."""
+        if getattr(program, "_epilogue_programs", None):
+            raise NotImplementedError(
+                f"{site}: the program has maintenance epilogues (deferred "
+                f"row folds), which the port's drivers do not run yet "
+                f"(ROADMAP A5); use Executor.run")
+        missing = sorted({v.name for v in program.list_vars()
+                          if v.persistable and scope.find_var(v.name) is None})
+        if missing:
+            raise ValueError(
+                f"{site} needs every persistable in scope (run the "
+                f"startup program and one plain run first); missing: "
+                f"{missing[:5]}")
+        state_names = self._state_names(program, scope)
+        block = program.global_block()
+        stacked = {k: v.to(self.device) for k, v in stacked.items()}
+        step_sig = feed_signature({k: v[0] for k, v in stacked.items()})
+        sig = _sig_digest(step_sig)
+        t0 = time.perf_counter()
+        plan, compiling = self._plan(program, step_sig, fetch_names,
+                                     state_names, spec)
+        check = flag("check_nan_inf")
+        per_step: List[List[torch.Tensor]] = []
+        with _FLIGHT.guard(site, program=f"0x{id(program):x}", sig=sig,
+                           steps=n, compiling=compiling), \
+                trace_span(site.replace("Executor.", "executor/"), steps=n,
+                           sig=sig):
+            for i in range(n):
+                fetches, new_state = self._execute(
+                    plan, block, scope, {k: v[i] for k, v in stacked.items()},
+                    state_names, fetch_names)
+                if check:
+                    _check_finite(list(zip(fetch_names, fetches))
+                                  + list(new_state.items()))
+                per_step.append([f.detach() for f in fetches])
+        ys = [torch.stack([step[j] for step in per_step])
+              for j in range(len(fetch_names))]
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        if compiling:
+            _OBS.histogram("executor/compile_ms", sig=sig).observe(dt_ms)
+        else:
+            _EXECUTE_MS.observe(dt_ms)
+        _STEPS.record(dt_ms, program_id=id(program), sig=sig,
+                      compiled=compiling, steps=n)
+        if return_numpy:
+            return [to_numpy(y) for y in ys]
+        return ys
+
+    def train_scanned(self, program=None, reader=None, scan_steps: int = 16,
+                      fetch_list=None, scope=None, capacity=None):
+        """Training driver over K-step drains: the host's only jobs are
+        feeding batches through a `DeviceLoader` on this executor's place
+        (pinned memory, a side stream) into a device-resident K-step feed
+        buffer via `peek_many`, and reading the fetches once a drain. The
+        K steps run through `_run_scan` (bitwise equal to K plain runs;
+        one step record and one ``Executor.train_scanned`` flight site a
+        drain, ``steps=K``). They are not yet one device dispatch (CUDA
+        graphs, ROADMAP A2).
+
+        reader: callable returning an iterable of feed dicts, or a plain
+          iterable (one epoch). Feeds must share shapes/dtypes.
+        scan_steps: K, the steps a drain (>= 1). A short final drain
+          (epoch length not divisible by K) runs the remaining steps.
+        capacity: DeviceLoader queue depth (default max(2, K)).
+
+        Requires every persistable in scope (run the startup program
+        first). Returns a list of per-fetch np arrays of shape
+        [num_steps, ...] (all drains concatenated), or the step count when
+        `fetch_list` is empty."""
+        from ..dataio.loader import DeviceLoader
+
+        program, spec = self._unwrap(program)
+        if reader is None:
+            raise ValueError("train_scanned: a reader (callable returning "
+                             "an iterable of feed dicts) is required")
+        k = int(scan_steps)
+        if k < 1:
+            raise ValueError(f"train_scanned: scan_steps must be >= 1, "
+                             f"got {scan_steps}")
+        fetch_names = [f.name if isinstance(f, Variable) else f
+                       for f in (fetch_list or [])]
+        scope = scope or _scope()
+        loader = DeviceLoader(reader, capacity=max(2, capacity or k),
+                              program=program, name="train_scanned",
+                              place=self.place)
+        self._loaders.add(loader)
+        loader.start()
+        drains = []
+        pending = None  # keep ONE drain's fetches un-synced behind the next
+        total = 0
+        try:
+            while True:
+                stacked, m = loader.peek_many(k)
+                if m == 0:
+                    break
+                ys = self._run_scan(program, spec, stacked, m, fetch_names,
+                                    scope, return_numpy=False,
+                                    site="Executor.train_scanned")
+                total += m
+                if pending is not None:
+                    drains.append([to_numpy(y) for y in pending])
+                pending = ys
+        finally:
+            loader.close()
+            self._loaders.discard(loader)
+        if pending is not None:
+            drains.append([to_numpy(y) for y in pending])
+        if not fetch_names:
+            return total
+        return [np.concatenate([d[i] for d in drains], axis=0)
+                for i in range(len(fetch_names))]
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread: int = 0, debug: bool = False,
+                           fetch_list=None, fetch_info=None,
+                           print_period: int = 100):
+        """Dataset-driven training loop (reference executor.py:894 →
+        Executor::RunFromDataset → MultiTrainer hot loop,
+        hogwild_worker.cc:163): a DeviceLoader worker converts, pins and
+        copies batch N+1 on its side stream while the card runs step N
+        (buffered_reader.cc role), and up to ``max_inflight_steps``
+        (flags.py; env PDTPU_MAX_INFLIGHT_STEPS, default 2) steps stay
+        un-synced as FetchHandles, so the host queues work ahead instead
+        of waiting on each step's fetch. Returns the last step's fetches
+        (None for an empty dataset)."""
+        program = program or default_main_program()
+        fetch_list = list(fetch_list or [])
+        if dataset is None:
+            raise ValueError("dataset is required")
+        if thread:
+            dataset.set_thread(thread)
+        from ..dataio.loader import DeviceLoader
+
+        max_inflight = max(1, int(flag("max_inflight_steps")))
+        plain = program._program if isinstance(program, CompiledProgram) \
+            else program
+        block = plain.global_block()
+        names = fetch_info or [getattr(f, "name", str(f))
+                               for f in fetch_list]
+
+        def batches():
+            for batch in dataset.batches():
+                yield {k: v for k, v in batch.items()
+                       if block._find_var_recursive(k) is not None}
+
+        inflight: "collections.deque" = collections.deque()
+
+        def retire(entry):
+            step_i, handle = entry
+            if debug and fetch_list and step_i % print_period == 0:
+                vals = handle.numpy()
+                print(f"step {step_i}: " + ", ".join(
+                    f"{n}={np.asarray(v).mean():.6f}"
+                    for n, v in zip(names, vals)))
+            else:
+                handle.block_until_ready()
+
+        loader = DeviceLoader(batches, capacity=max(2, max_inflight),
+                              program=plain, name="train_from_dataset",
+                              place=self.place)
+        self._loaders.add(loader)
+        step = 0
+        last = None
+        try:
+            for feed in loader:
+                last = self.run(program, feed=feed, fetch_list=fetch_list,
+                                scope=scope, return_handle=True)
+                inflight.append((step, last))
+                _INFLIGHT.set(len(inflight))
+                while len(inflight) > max_inflight:
+                    retire(inflight.popleft())
+                    _INFLIGHT.set(len(inflight))
+                step += 1
+            while inflight:
+                retire(inflight.popleft())
+                _INFLIGHT.set(len(inflight))
+        finally:
+            _INFLIGHT.set(0)
+            loader.close()
+            self._loaders.discard(loader)
+        return last.numpy() if last is not None else None
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread: int = 0, debug: bool = False,
+                           fetch_list=None, fetch_info=None,
+                           print_period: int = 100):
+        """executor.py:817 parity — the same loop on a for_test program."""
+        program = (program or default_main_program()).clone(for_test=True)
+        return self.train_from_dataset(program, dataset, scope, thread, debug,
+                                       fetch_list, fetch_info, print_period)
+
+    def close(self):
+        """Stop every prefetch worker this executor's drivers started
+        (they hold queued device batches), then drop the prepared plans."""
+        for ld in list(self._loaders):
+            ld.close()
+        self._loaders = weakref.WeakSet()
+        self._cache.clear()
 
 
 __all__ = ["Place", "CPUPlace", "CUDAPlace", "ExecContext", "Executor",

@@ -2,7 +2,10 @@
 
 Code that must stay correct under failure calls ``fault_point(site)`` at
 the place a real failure would strike (the PS tier probes ``ps.pull`` and
-``ps.push``). A probe is a no-op until a rule targets its site::
+``ps.push``; the checkpointer ``ckpt.bundle_write``, ``ckpt.rename`` and
+``ckpt.marker``, with the file's path; the
+``DeviceLoader`` worker ``loader.next``). A probe is a no-op until a rule
+targets its site::
 
     faults.install("ps.push", "raise", count=3)   # the 3rd push raises
     faults.install("ps.pull", "delay_ms", 50)     # every pull sleeps 50 ms
@@ -11,7 +14,8 @@ the place a real failure would strike (the PS tier probes ``ps.pull`` and
 Actions: ``raise`` (an :class:`InjectedFault`, an ``OSError``) and
 ``delay_ms``. The network and process actions of the JAX package
 (``drop``, ``reset``, ``crash``, ``corrupt``) and the ``PDTPU_FAULT_SPEC``
-environment spec come with the socket transport and the checkpointer.
+environment spec come with the socket transport and the chaos matrix
+(ROADMAP A8/A9).
 Each firing counts on ``faults/injected{site,action}``.
 """
 from __future__ import annotations
@@ -66,8 +70,11 @@ def clear() -> None:
         _hits.clear()
 
 
-def fault_point(site: str) -> None:
-    """Probe: a no-op unless a rule targets `site`."""
+def fault_point(site: str, path: Optional[str] = None) -> None:
+    """Probe: a no-op unless a rule targets `site`. ``path`` names the file
+    the caller just wrote (the checkpointer's commit edges pass it), as the
+    JAX package's probe takes it; the ``corrupt`` action that reads it
+    comes with the chaos matrix (ROADMAP A8/A9)."""
     with _lock:
         if not _rules:
             return

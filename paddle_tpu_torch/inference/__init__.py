@@ -6,8 +6,9 @@ pipeline).
 Loading runs the same IR pass pipeline as the JAX package (delete-dropout →
 fc/add-act fusion → constant folding → DCE → liveness), then serves the
 pruned program eagerly under ``torch.inference_mode()`` on the GPU unless the
-config asks for the CPU. Weight sharing across clones = sharing the same
-device tensors. Capturing the serve call as a CUDA graph and int8 serving
+config asks for the CPU. A model directory in the reference framework's
+protobuf format loads through ``compat`` and serves the same way. Weight
+sharing across clones = sharing the same device tensors. Capturing the serve call as a CUDA graph and int8 serving
 are not ported yet.
 """
 from __future__ import annotations
@@ -18,8 +19,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.executor import (ExecContext, _run_block, convert_feed_value,
-                             cuda_device)
+from ..core.executor import (CPUPlace, ExecContext, _run_block,
+                             convert_feed_value, cuda_device)
 from ..core.scope import Scope, scope_guard
 from ..ir import PassBuilder
 
@@ -164,12 +165,26 @@ class Predictor:
         if cfg.model_dir() is None:
             raise ValueError("Config.set_model(dir) required")
         scope = Scope()
+        model_path = os.path.join(cfg.model_dir(),
+                                  cfg._model_filename or "__model__")
         with scope_guard(scope):
             # parameters land on the host, then move once, cast as served
-            program, feed_names, fetch_vars = io.load_inference_model(
-                cfg.model_dir(), None, model_filename=cfg._model_filename,
-                params_filename=cfg._params_filename)
-        fetch_names = [v.name for v in fetch_vars]
+            if io._is_reference_model_file(model_path):
+                # a model dir in the REFERENCE framework's format (binary
+                # protobuf ProgramDesc + LoDTensor var streams) serves
+                # directly, as the JAX package's Predictor serves it
+                from ..compat import load_reference_inference_model
+                program, feed_names, fetch_names = \
+                    load_reference_inference_model(
+                        cfg.model_dir(), model_filename=cfg._model_filename,
+                        params_filename=cfg._params_filename, scope=scope,
+                        place=CPUPlace())
+            else:
+                program, feed_names, fetch_vars = io.load_inference_model(
+                    cfg.model_dir(), None,
+                    model_filename=cfg._model_filename,
+                    params_filename=cfg._params_filename)
+                fetch_names = [v.name for v in fetch_vars]
         base = os.path.basename(os.path.normpath(cfg.model_dir() or "")) \
             or "model"
         self._label = f"infer:{base}:{self._precision}"

@@ -5,7 +5,11 @@ load_vars:537, save_inference_model:933, load_inference_model:1113).
 The on-disk format is the JAX package's: a JSON ``__model__`` from
 ``Program.to_dict`` and a pickled dict of numpy arrays in ``__params__``
 (or one pickle per var). Either package serves a model directory the other
-saved. The reference's protobuf format is not read here yet.
+saved. ``save_inference_model(format="reference")`` writes the reference
+framework's protobuf ``__model__`` and LoDTensor streams instead
+(``compat/``), and ``compat.load_reference_inference_model`` reads them;
+``load_inference_model`` reads the JSON format only, as the JAX package's
+does. Training checkpoints live in ``parallel/checkpoint.py``.
 """
 from __future__ import annotations
 
@@ -54,6 +58,18 @@ def save_vars(executor, dirname: str, main_program: Optional[Program] = None,
                 pickle.dump({name: arr}, f, protocol=4)
 
 
+def save_persistables(executor, dirname: str,
+                      main_program: Optional[Program] = None,
+                      filename: Optional[str] = None):
+    """io.py:487 parity."""
+    main_program = main_program or default_main_program()
+    save_vars(executor, dirname, main_program,
+              vars=_persistable_vars(main_program), filename=filename)
+
+
+save_params = save_persistables
+
+
 def load_vars(executor, dirname: str, main_program: Optional[Program] = None,
               vars: Optional[Sequence[Variable]] = None, predicate=None,
               filename: Optional[str] = None):
@@ -79,6 +95,19 @@ def load_vars(executor, dirname: str, main_program: Optional[Program] = None,
     return missing
 
 
+def load_persistables(executor, dirname: str,
+                      main_program: Optional[Program] = None,
+                      filename: Optional[str] = None):
+    """io.py:726 parity: onto `executor`'s device. Returns the names that
+    were not found."""
+    main_program = main_program or default_main_program()
+    return load_vars(executor, dirname, main_program,
+                     vars=_persistable_vars(main_program), filename=filename)
+
+
+load_params = load_persistables
+
+
 def load_params_from_numpy(arrays: Dict[str, np.ndarray],
                            scope: Optional[Scope] = None, device=None):
     """Set each array as a tensor of the same name in `scope` (the current
@@ -97,8 +126,23 @@ def save_inference_model(dirname: str, feeded_var_names: Sequence[str],
                          main_program: Optional[Program] = None,
                          model_filename: Optional[str] = None,
                          params_filename: Optional[str] = None,
-                         export_for_deployment: bool = True):
-    """io.py:933 parity: prune to feed→fetch, save program + params."""
+                         export_for_deployment: bool = True,
+                         format: str = "native"):
+    """io.py:933 parity: prune to feed→fetch, save program + params.
+
+    ``format="reference"`` writes the artifact in the REFERENCE's binary
+    formats instead (protobuf ProgramDesc ``__model__`` + LoDTensor var
+    streams, ``compat.export_reference_inference_model``), so the
+    reference's own loader, and ``inference.create_predictor``, serve a
+    model trained here."""
+    if format not in ("native", "reference"):
+        raise ValueError(f"save_inference_model: unknown format {format!r} "
+                         "(use 'native' or 'reference')")
+    if format == "reference" and model_filename is not None:
+        raise ValueError(
+            "save_inference_model(format='reference') always writes the "
+            "reference loader's default '__model__' file; model_filename "
+            "is not supported there")
     main_program = main_program or default_main_program()
     fetch_names = [t.name for t in target_vars]
     blk = main_program.global_block()
@@ -108,6 +152,11 @@ def save_inference_model(dirname: str, feeded_var_names: Sequence[str],
             f"target_vars {missing} are not in main_program — were they "
             f"created under a different program (check program_guard scope)?")
     pruned = main_program._prune_for_inference(feeded_var_names, fetch_names)
+    if format == "reference":
+        from .compat import export_reference_inference_model
+        return export_reference_inference_model(
+            dirname, feeded_var_names, fetch_names, pruned,
+            params_filename=params_filename)
     os.makedirs(dirname, exist_ok=True)
     model = {
         "program": pruned.to_dict(),
@@ -140,9 +189,10 @@ def load_inference_model(dirname: str, executor,
     if _is_reference_model_file(path):
         raise NotImplementedError(
             f"{path} is in the reference framework's protobuf format; "
-            f"paddle_tpu_torch reads only the JSON format that "
-            f"save_inference_model writes (the compat loader is not ported "
-            f"yet)")
+            f"io.load_inference_model reads only the JSON format that "
+            f"save_inference_model writes: load it with "
+            f"compat.load_reference_inference_model(dirname, place=...), or "
+            f"serve it with inference.create_predictor(Config(dirname))")
     with open(path) as f:
         model = json.load(f)
     program = Program.from_dict(model["program"])

@@ -74,3 +74,8 @@ from .tensor import (  # noqa: F401
     transpose,
     unsqueeze,
 )
+from .coverage import (  # noqa: F401
+    create_py_reader_by_data,
+    double_buffer,
+    py_reader,
+)

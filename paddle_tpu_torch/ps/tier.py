@@ -11,10 +11,13 @@ same overlap rides the repo's own machinery:
   mirror of ``uniq_merge``'s device contract: ascending uniques + inverse
   positions), rewrites the id feeds to LOCAL cache rows, fans per-shard
   pulls out through ``ShardedTable``, and lands the gathered rows on the
-  device. The JAX package runs this ``pull_ahead`` batches ahead on a
-  ``dataio.DeviceLoader`` worker; the port runs it inline
-  (``pull_ahead=0``) until the loader is ported (ROADMAP A4), and
-  ``pull_ahead >= 1`` raises;
+  device. With ``pull_ahead`` ≥ 1 (the default, 1) this runs
+  ``pull_ahead`` batches ahead on a ``dataio.DeviceLoader`` worker: its
+  H2D copies go through pinned memory on the loader's side stream, and
+  that stream first waits on the event the last step recorded after its
+  write-back, so no device work of a prefetched pull can run ahead of the
+  updates of the steps before it. ``pull_ahead=0`` converts and pulls
+  inline on the calling thread;
 * the step itself runs unchanged: the program's table param is a CACHE of
   ``cache_rows`` packed rows; ``scope.set_var`` swaps the pulled cache in,
   the packed optimizer (``adagrad_row_packed`` et al.) updates it in
@@ -66,8 +69,9 @@ from typing import Dict, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.dtypes import to_device, to_numpy
+from ..core.dtypes import to_numpy
 from ..core.executor import CUDAPlace
+from ..dataio.loader import DeviceLoader, stage
 from ..faults import fault_point
 from ..observability import get_registry
 from ..ops.kernels.sparse_adagrad import i16
@@ -208,7 +212,7 @@ class PsEmbeddingTier:
 
     Usage::
 
-        tier = PsEmbeddingTier(program, bindings, pull_ahead=0,
+        tier = PsEmbeddingTier(program, bindings, pull_ahead=1,
                                push_depth=1, place=fluid.CUDAPlace(0))
         for prepared in tier.steps(reader, scope=sc):
             loss, = tier.run_step(exe, prepared, fetch_list=[loss_var],
@@ -216,23 +220,20 @@ class PsEmbeddingTier:
         tier.flush()
 
     ``place`` is where the caches live: the executor's place, CUDA device
-    0 unless the caller passes ``CPUPlace()``. ``pull_ahead`` must be 0
-    (convert + pull inline on the calling thread); the prefetching loader
-    of ``pull_ahead >= 1`` is not ported.
+    0 unless the caller passes ``CPUPlace()``. ``pull_ahead`` ≥ 1
+    prefetches (a DeviceLoader of that capacity runs convert + pull on a
+    worker thread and side stream); 0 converts inline on the calling
+    thread. Single-worker training is bitwise the same either way.
     """
 
     def __init__(self, program, bindings: Sequence[PsTableBinding],
-                 pull_ahead: int = 0, push_depth: int = 0,
+                 pull_ahead: int = 1, push_depth: int = 0,
                  hot_rows: Optional[int] = None, place=None):
         if pull_ahead < 0 or push_depth < 0:
             raise ValueError(f"pull_ahead/push_depth must be >= 0, got "
                              f"{pull_ahead}/{push_depth}")
-        if pull_ahead:
-            raise NotImplementedError(
-                f"PsEmbeddingTier(pull_ahead={pull_ahead}): prefetching "
-                "pulls need dataio.DeviceLoader, which is not ported to "
-                "paddle_tpu_torch yet (ROADMAP A4); use pull_ahead=0")
-        self.device = (place or CUDAPlace(0)).torch_device()
+        self.place = place or CUDAPlace(0)
+        self.device = self.place.torch_device()
         self.program = program
         self.bindings = list(bindings)
         if not self.bindings:
@@ -282,9 +283,14 @@ class PsEmbeddingTier:
         self._pushers = {b.param: _Pusher(b.table, push_depth, window)
                          for b in self.bindings}
         reg = get_registry()
+        self._c_hit = reg.counter("ps/prefetch_hit")
         self._c_miss = reg.counter("ps/prefetch_miss")
         self._c_patched = reg.counter("ps/patched_rows")
         self._c_repulls = reg.counter("ps/repulls")
+        self._loader = None
+        # recorded on the step's stream after each step's write-back; a
+        # prefetching pull's stream waits on it first
+        self._step_event = None
 
     # ----------------------------------------------------------- pull path
     def _pull_cache(self, binding: PsTableBinding, uids: np.ndarray,
@@ -305,12 +311,16 @@ class PsEmbeddingTier:
         cache = np.zeros((rows_cap, lanes), dtype=np.uint16)
         cache[:uids.shape[0]] = pulled
         return _Entry(uids, int(uids.shape[0]),
-                      to_device(torch.from_numpy(cache), self.device),
-                      version)
+                      stage(torch.from_numpy(cache), self.device), version)
 
     def _convert(self, batch: Dict[str, object]) -> _Prepared:
         """Dedup ids, localize feeds, pull caches. The feeds stay numpy;
-        the executor validates and moves them."""
+        the executor validates and moves them. On a prefetch worker this
+        runs under the loader's side stream, which first waits on the
+        last step's write-back event."""
+        event = self._step_event
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
         out = dict(batch)
         entries: Dict[str, _Entry] = {}
         for b in self.bindings:
@@ -348,11 +358,32 @@ class PsEmbeddingTier:
         return _Prepared(out, entries)
 
     def steps(self, reader, scope=None) -> Iterable[_Prepared]:
-        """Iterate prepared batches, converting and pulling each inline."""
-        it = reader() if callable(reader) else reader
-        for batch in it:
-            self._c_miss.inc()  # inline = never overlapped
-            yield self._convert(batch)
+        """Iterate prepared batches. With ``pull_ahead >= 1`` the convert
+        + pull runs on a DeviceLoader worker `pull_ahead` batches ahead;
+        with 0 it runs inline."""
+        if self.pull_ahead == 0:
+            it = reader() if callable(reader) else reader
+            for batch in it:
+                self._c_miss.inc()  # inline = never overlapped
+                yield self._convert(batch)
+            return
+        loader = DeviceLoader(reader, capacity=self.pull_ahead,
+                              convert=self._convert, name="ps_prefetch",
+                              place=self.place)
+        self._loader = loader
+        try:
+            it = iter(loader)
+            while True:
+                ready = loader.queue_depth > 0
+                try:
+                    prepared = next(it)
+                except StopIteration:
+                    return
+                (self._c_hit if ready else self._c_miss).inc()
+                yield prepared
+        finally:
+            loader.close()
+            self._loader = None
 
     # ------------------------------------------------------ dispatch + push
     def _patched_cache(self, binding: PsTableBinding, entry: _Entry):
@@ -458,6 +489,10 @@ class PsEmbeddingTier:
                 rows = hot.take_rows(plan.bypass_slots)
                 self._pushers[b.param].submit(plan.bypass_uids, rows)
             hot.commit(plan)
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            self._step_event = event
         return out
 
     def train(self, exe, reader, fetch_list=None, scope=None,

@@ -1,9 +1,400 @@
-"""Sequence packing for NMT-style (src, tgt) pair streams: the port's copy of
-``pack_by_tokens`` and ``packed_attention_masks`` of ``paddle_tpu.reader``
-(plain numpy; the port imports nothing of the JAX package)."""
+"""Reader decorators, PyReader and sequence packing (the port's copy of
+``paddle_tpu.reader``; plain Python and numpy, with PyReader's double
+buffer on the port's ``dataio.DeviceLoader``).
+
+Reference analog: ``python/paddle/reader/decorator.py`` (batch/shuffle/
+buffered/map_readers/xmap_readers/compose/chain/firstn/cache,
+multiprocess_reader, Fake, creator) and ``python/paddle/fluid/reader.py``
+PyReader:47 (background thread feeding a blocking queue, double-buffered
+H2D — buffered_reader.cc). ``bucket_by_sequence_length`` is not ported
+yet (ROADMAP A6).
+"""
 from __future__ import annotations
 
+import itertools
+import random as _random
+import threading
+from queue import Queue
+from typing import Callable, Iterable, List, Optional
+
 import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# decorators (paddle.reader.* parity)
+# ---------------------------------------------------------------------------
+
+def batch(reader: Callable, batch_size: int, drop_last: bool = False):
+    def batch_reader():
+        b = []
+        for item in reader():
+            b.append(item)
+            if len(b) == batch_size:
+                yield b
+                b = []
+        if b and not drop_last:
+            yield b
+    return batch_reader
+
+
+def shuffle(reader: Callable, buf_size: int):
+    def shuffle_reader():
+        buf = []
+        for item in reader():
+            buf.append(item)
+            if len(buf) >= buf_size:
+                _random.shuffle(buf)
+                yield from buf
+                buf = []
+        _random.shuffle(buf)
+        yield from buf
+    return shuffle_reader
+
+
+def buffered(reader: Callable, size: int):
+    """Prefetch into a bounded queue on a background thread. Reader errors
+    re-raise in the consumer (no silent dataset truncation)."""
+    end = object()
+
+    def buffered_reader():
+        q: Queue = Queue(maxsize=size)
+        error: List[BaseException] = []
+
+        def worker():
+            try:
+                for item in reader():
+                    q.put(item)
+            except BaseException as e:  # propagate to consumer
+                error.append(e)
+            finally:
+                q.put(end)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is end:
+                if error:
+                    raise error[0]
+                break
+            yield item
+    return buffered_reader
+
+
+def map_readers(func: Callable, *readers):
+    def reader():
+        for items in zip(*[r() for r in readers]):
+            yield func(*items)
+    return reader
+
+
+def xmap_readers(mapper: Callable, reader: Callable, process_num: int,
+                 buffer_size: int, order: bool = False):
+    """Parallel map via threads (the reference uses processes; threads
+    avoid forking a process that holds a CUDA context)."""
+    end = object()
+
+    def xreader():
+        in_q: Queue = Queue(buffer_size)
+        out_q: Queue = Queue(buffer_size)
+
+        def feed():
+            for i, item in enumerate(reader()):
+                in_q.put((i, item))
+            for _ in range(process_num):
+                in_q.put(end)
+
+        def work():
+            while True:
+                item = in_q.get()
+                if item is end:
+                    out_q.put(end)
+                    break
+                i, x = item
+                out_q.put((i, mapper(x)))
+
+        threading.Thread(target=feed, daemon=True).start()
+        workers = [threading.Thread(target=work, daemon=True) for _ in range(process_num)]
+        for w in workers:
+            w.start()
+        done = 0
+        pending = {}
+        next_i = 0
+        while done < process_num:
+            item = out_q.get()
+            if item is end:
+                done += 1
+                continue
+            if not order:
+                yield item[1]
+            else:
+                pending[item[0]] = item[1]
+                while next_i in pending:
+                    yield pending.pop(next_i)
+                    next_i += 1
+        if order:
+            for i in sorted(pending):
+                yield pending[i]
+    return xreader
+
+
+def compose(*readers):
+    def reader():
+        for items in zip(*[r() for r in readers]):
+            out = []
+            for it in items:
+                if isinstance(it, tuple):
+                    out.extend(it)
+                else:
+                    out.append(it)
+            yield tuple(out)
+    return reader
+
+
+def chain(*readers):
+    def reader():
+        for r in readers:
+            yield from r()
+    return reader
+
+
+def firstn(reader: Callable, n: int):
+    def firstn_reader():
+        yield from itertools.islice(reader(), n)
+    return firstn_reader
+
+
+def cache(reader: Callable):
+    all_data: Optional[List] = None
+
+    def cache_reader():
+        nonlocal all_data
+        if all_data is None:
+            all_data = list(reader())
+        yield from all_data
+    return cache_reader
+
+
+# ---------------------------------------------------------------------------
+# PyReader (fluid.reader.PyReader:47 parity)
+# ---------------------------------------------------------------------------
+
+class PyReader:
+    """Iterable prefetching reader bound to feed vars.
+
+    with iterable=True (the only mode here): `for data in reader():
+    exe.run(feed=data, ...)`. Decorate with sample/batch generators like
+    the reference.
+
+    use_double_buffer=True (the reference default, buffered_reader.cc):
+    batches are converted, pinned and copied to the card on a background
+    :class:`~paddle_tpu_torch.dataio.DeviceLoader` thread and side stream,
+    so the H2D copy of batch N+1 overlaps step N; they arrive as device
+    tensors on `place` (``CUDAPlace(0)`` unless the caller passes another
+    place, here or through ``decorate_*(places=...)``; with no GPU and no
+    place, iterating raises). use_double_buffer=False keeps the host-side
+    `buffered` prefetch only (batches stay numpy).
+    """
+
+    def __init__(self, feed_list=None, capacity: int = 64, use_double_buffer=True,
+                 iterable: bool = True, shapes=None, dtypes=None,
+                 lod_levels=None, name=None, place=None):
+        self._feed_names = [v.name for v in (feed_list or [])]
+        self._capacity = capacity
+        self._use_double_buffer = bool(use_double_buffer)
+        # shapes/dtypes: the layers.py_reader construction form — feed
+        # names come from the decorated generator's dicts (or slot order)
+        self._shapes = shapes
+        self._dtypes = dtypes
+        self._batch_reader = None
+        self._place = place
+        self._loader = None  # active DeviceLoader (double-buffer mode)
+
+    def _set_place(self, places):
+        if isinstance(places, (list, tuple)):
+            places = places[0] if places else None
+        self._place = places or self._place
+
+    def decorate_sample_list_generator(self, reader, places=None):
+        from .data_feeder import pad_batch_column
+        names = self._feed_names
+        if self._use_double_buffer and places is not None:
+            self._set_place(places)
+
+        def gen():
+            for samples in reader():
+                feed = {}
+                arrays = list(zip(*samples))
+                for name, col in zip(names, arrays):
+                    arr, lens = pad_batch_column(col)
+                    feed[name] = arr
+                    if lens is not None:
+                        feed[name + "_len"] = lens
+                yield feed
+        self._batch_reader = gen
+
+    def decorate_batch_generator(self, reader, places=None):
+        names = self._feed_names
+        if self._use_double_buffer and places is not None:
+            self._set_place(places)
+
+        def gen():
+            for b in reader():
+                if isinstance(b, dict):
+                    yield b
+                else:
+                    yield {n: np.asarray(v) for n, v in zip(names, b)}
+        self._batch_reader = gen
+
+    def __call__(self):
+        if self._batch_reader is None:
+            raise RuntimeError(
+                "PyReader: decorate_sample_list_generator / "
+                "decorate_batch_generator must be called before iterating")
+        if not self._use_double_buffer:
+            return buffered(self._batch_reader, self._capacity)()
+        # double-buffer mode: host prefetch (capacity) feeds a device
+        # prefetch stage (the classic 2-deep double buffer) — batches
+        # arrive as device tensors, Executor.run skips conversion
+        from .dataio import DeviceLoader
+        self.reset()
+        # with no place: CUDA device 0, and no GPU raises here
+        loader = DeviceLoader(
+            buffered(self._batch_reader, self._capacity),
+            capacity=2, name="py_reader", place=self._place)
+        self._loader = loader
+        return iter(loader)
+
+    def __iter__(self):
+        return self()
+
+    def start(self):
+        """Non-iterable API compat: spin up the prefetch pipeline now
+        (iterable mode does this lazily on iteration)."""
+        if self._use_double_buffer and self._batch_reader is not None:
+            if self._loader is None or not self._loader.running:
+                self()
+
+    def reset(self):
+        """Tear down the active prefetch thread/queue. A mid-epoch
+        ``break`` otherwise leaks a worker still holding device buffers
+        (reference PyReader.reset drained its blocking queue the same
+        way)."""
+        if self._loader is not None:
+            self._loader.close()
+            self._loader = None
+
+
+def multiprocess_reader(readers, use_pipe=True, queue_size=1000):
+    """reader/decorator.py multiprocess_reader: run each reader in its own
+    process, interleave results through a queue (order not preserved).
+
+    Workers ALWAYS enqueue a terminal sentinel — `None` on success, an
+    error marker on failure — and the consumer polls with a bounded
+    timeout while checking worker liveness, so a dead worker can't hang
+    the loop. Fork context (readers are usually closures, which spawn
+    cannot pickle — same tradeoff as the reference); note Python 3.12
+    warns about forking a threaded parent, hence the liveness guard. A
+    forked worker must not touch CUDA: readers yield host data."""
+    import multiprocessing as mp
+    import queue as _queue
+
+    ctx = mp.get_context("fork")
+
+    def reader():
+        q = ctx.Queue(queue_size)
+        procs = [ctx.Process(target=_mp_reader_worker, args=(r, q),
+                             daemon=True) for r in readers]
+        for p in procs:
+            p.start()
+        finished = 0
+        try:
+            while finished < len(readers):
+                try:
+                    sample = q.get(timeout=5)
+                except _queue.Empty:
+                    # a worker died without its sentinel (SIGKILL, fork
+                    # deadlock): fail loudly instead of hanging forever
+                    if all(not p.is_alive() for p in procs) and q.empty():
+                        raise RuntimeError(
+                            "multiprocess_reader: all workers exited "
+                            "without completing")
+                    continue
+                if sample is None:
+                    finished += 1
+                elif isinstance(sample, _MpReaderError):
+                    raise RuntimeError(
+                        f"multiprocess_reader worker failed: {sample.msg}")
+                else:
+                    yield sample
+        finally:
+            for p in procs:
+                p.join(timeout=5)
+                if p.is_alive():
+                    p.terminate()
+
+    return reader
+
+
+class _MpReaderError:
+    def __init__(self, msg):
+        self.msg = msg
+
+
+def _mp_reader_worker(r, q):
+    try:
+        for sample in r():
+            q.put(sample)
+        q.put(None)
+    except BaseException as e:  # sentinel must reach the consumer
+        q.put(_MpReaderError(repr(e)))
+
+
+class Fake:
+    """reader/decorator.py Fake: replay the first epoch's samples forever —
+    the reference's data-independent throughput-testing reader."""
+
+    def __init__(self):
+        self.data = None
+
+    def __call__(self, reader, length):
+        def fake_reader():
+            if self.data is None:
+                self.data = list(reader())
+            total = 0
+            while total < length:
+                for sample in self.data:
+                    if total >= length:
+                        break
+                    total += 1
+                    yield sample
+
+        return fake_reader
+
+
+class _CreatorModule:
+    """paddle.reader.creator (reader/creator.py): readers from raw
+    sources."""
+
+    @staticmethod
+    def np_array(x):
+        def reader():
+            for row in x:
+                yield row
+
+        return reader
+
+    @staticmethod
+    def text_file(path):
+        def reader():
+            with open(path) as f:
+                for line in f:
+                    yield line.rstrip("\n")
+
+        return reader
+
+
+creator = _CreatorModule()
 
 
 def pack_by_tokens(reader, src_budget, tgt_budget, pad_value=0):

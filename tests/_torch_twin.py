@@ -123,3 +123,26 @@ def assert_states_close(jstate, tstate, rtol, atol=0.0, skip=()):
         else:
             np.testing.assert_allclose(t.astype(np.float64), j, rtol=rtol,
                                        atol=atol, err_msg=n)
+
+
+def alarm_timeout(seconds: int):
+    """A generator for an autouse fixture: a test that starts a thread or
+    a process fails with TimeoutError after `seconds` instead of hanging
+    the suite (SIGALRM in the main thread, where pytest runs tests; a
+    blocked queue or join wakes up to it). Leaves every running loader
+    closed."""
+    import signal
+
+    from paddle_tpu_torch.dataio import close_all_loaders
+
+    def fire(signum, frame):
+        raise TimeoutError(f"test exceeded its {seconds} s limit")
+
+    old = signal.signal(signal.SIGALRM, fire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+        close_all_loaders()

@@ -185,7 +185,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch.layers.learning_rate_scheduler, "
             "paddle_tpu_torch.layers.control_flow, "
             "paddle_tpu_torch.layers.math_op_patch, "
-            "paddle_tpu_torch.ops.control_flow_ops; "
+            "paddle_tpu_torch.ops.control_flow_ops, "
+            "paddle_tpu_torch.parallel, paddle_tpu_torch.parallel.checkpoint, "
+            "paddle_tpu_torch.dataio.loader, paddle_tpu_torch.native, "
+            "paddle_tpu_torch.compat, "
+            "paddle_tpu_torch.compat.reference_format, "
+            "paddle_tpu_torch.data_feeder, paddle_tpu_torch.data_feed_desc, "
+            "paddle_tpu_torch.dataset, paddle_tpu_torch.dataset.factory, "
+            "paddle_tpu_torch.layers.coverage, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.inference; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -6,9 +6,10 @@ plan/commit rules, the row kernels through the cache) and of the bitwise
 training matrix: over four shard layouts × synchronous and depth-1 async
 push × a hot cache smaller and larger than the working set (and the uncached
 tier), the tier's losses are ``==`` and its final shard bytes equal to the
-port's single-table packed baseline. Pulls run inline (``pull_ahead=0``:
-the prefetching loader is not ported). The baseline itself agrees with the
-JAX package's within rtol 1e-6."""
+port's single-table packed baseline, with pulls inline (``pull_ahead=0``)
+and prefetched on a ``DeviceLoader`` worker (``pull_ahead`` 1 and 2, the
+JAX matrix's overlapped cell). The baseline itself agrees with the JAX
+package's within rtol 1e-6."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
+from _torch_twin import alarm_timeout
 from paddle_tpu.ops.pallas_kernels import sparse_adagrad as jfsa
 from paddle_tpu_torch.core import unique_name as tnames
 from paddle_tpu_torch.ops.kernels import sparse_adagrad as fsa
@@ -48,6 +50,13 @@ def _fresh_port_state():
         yield
     (prog_mod._main_program, prog_mod._startup_program,
      scope_mod._global_scope, scope_mod._current_scope) = old
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    """The prefetched cells start loader and pusher threads: a hang fails
+    the test."""
+    yield from alarm_timeout(120)
 
 
 # ------------------------------------------------------------- slab core
@@ -267,7 +276,7 @@ def ref():
     return feeds, losses, scope.find_np("tb")
 
 
-def _tier_run(feeds, spec, push_depth, hot_rows):
+def _tier_run(feeds, spec, push_depth, hot_rows, pull_ahead=0):
     main, startup, loss = _build_program(tfluid, hot_rows + CAP)
     table = ShardedTable.build_in_process("tb", spec,
                                           full_rows=_init_packed())
@@ -275,7 +284,7 @@ def _tier_run(feeds, spec, push_depth, hot_rows):
     scope = tfluid.Scope()
     exe.run(startup, scope=scope)
     tier = PsEmbeddingTier(main, [PsTableBinding("tb", table, ["ids"])],
-                           pull_ahead=0, push_depth=push_depth,
+                           pull_ahead=pull_ahead, push_depth=push_depth,
                            hot_rows=hot_rows, place=tfluid.CPUPlace())
     losses = []
     try:
@@ -310,6 +319,43 @@ def test_hot_training_bitwise_exact(monkeypatch, ref, push_depth, hot_rows,
         else:
             assert st["evictions"] == 0
             assert st["hit_rate"] is not None and st["hit_rate"] > 0.5
+
+
+@pytest.mark.parametrize("pull_ahead,push_depth", [(1, 0), (1, 1), (2, 1)])
+@pytest.mark.parametrize("hot_rows,min_freq", [(8, None), (64, 1)])
+def test_hot_training_bitwise_exact_prefetched(monkeypatch, ref, pull_ahead,
+                                               push_depth, hot_rows,
+                                               min_freq):
+    """The same matrix with the pulls prefetched `pull_ahead` batches
+    ahead on a DeviceLoader worker (the JAX matrix's (2, 1) cell among
+    them): the read-your-writes patching and the hot cache's in-flight
+    slots keep it bitwise equal to the packed baseline."""
+    if min_freq is not None:
+        monkeypatch.setenv("PDTPU_PS_ADMIT_MIN_FREQ", str(min_freq))
+    feeds, ref_losses, ref_final = ref
+    for spec in SPECS:
+        losses, final, st = _tier_run(feeds, spec, push_depth, hot_rows,
+                                      pull_ahead)
+        assert losses == ref_losses, (spec.to_dict(), pull_ahead,
+                                      push_depth, hot_rows)
+        np.testing.assert_array_equal(final, ref_final)
+        if hot_rows < V:
+            assert st["evictions"] > 0 and st["writeback_bytes"] > 0
+        else:
+            assert st["evictions"] == 0
+
+
+@pytest.mark.parametrize("pull_ahead,push_depth", [(1, 0), (2, 1)])
+def test_sharded_training_bitwise_exact_prefetched(ref, pull_ahead,
+                                                   push_depth):
+    """The uncached tier with prefetched pulls, every shard layout."""
+    feeds, ref_losses, ref_final = ref
+    for spec in SPECS:
+        losses, final, st = _tier_run(feeds, spec, push_depth, 0,
+                                      pull_ahead)
+        assert st is None
+        assert losses == ref_losses, (spec.to_dict(), pull_ahead)
+        np.testing.assert_array_equal(final, ref_final)
 
 
 @pytest.mark.parametrize("push_depth", [0, 1])
@@ -349,11 +395,9 @@ def test_baseline_matches_jax(ref):
 def test_tier_refuses_what_is_not_ported():
     main, startup, loss = _build_program(tfluid, CAP)
     table = ShardedTable.build_in_process("tb", RangeSpec.even(V, 2))
-    with pytest.raises(NotImplementedError, match="DeviceLoader"):
-        PsEmbeddingTier(main, [PsTableBinding("tb", table, ["ids"])],
-                        pull_ahead=1, place=tfluid.CPUPlace())
     tier = PsEmbeddingTier(main, [PsTableBinding("tb", table, ["ids"])],
                            place=tfluid.CPUPlace())
+    assert tier.pull_ahead == 1  # the JAX package's default
     try:
         with pytest.raises(ValueError, match="cache"):
             tier._pull_cache(tier.bindings[0],
