@@ -253,6 +253,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              save() holds the loop, the background write's ms, bundle
              bytes, restore ms and the phase's wall time. The native
              library must have built.
+17. deferred rows and the A6 paths — one JSON line, the card's name and
+             power limit in it: full-width DeepFM (the JAX bench's
+             config, V = 33,554,432, B = 4096, Adagrad) on the
+             deferred-row log (rows_per_step 106,496, 16 segments: a
+             [V, 34] f32 table and two [1,703,936, 128] logs), 34 steps
+             from one seeded state twice (bitwise equal; folds after
+             steps 16 and 32), held to the plain sparse path from the
+             same values within twice what a one-ulp change of the dense
+             input does to the sparse path's losses; train_scanned(4)
+             bitwise equal to plain runs over 13 steps; train_scanned(17)
+             refused; the median step of each arm, the fold's device ms,
+             the host reads of every step (torch.cuda's sync debug mode:
+             the counter's seed on step 1, none after) and their sites,
+             peak memory. The small config (V = 10,000, B = 64, 4
+             segments) 9 steps on the card and the CPU for SGD, Adagrad
+             and Adam, and a Checkpointer resume mid-window (bitwise, on
+             the fold cadence). ResNet-50 on the space-to-depth stem:
+             bf16 AMP B=128 at 224², Momentum, both switches on, 4 steps
+             (fused-BN launches a step, the median beside phase 7's 7x7
+             stem), and one f32 step at 64x64 against the CPU. ResNet-50
+             (s2d stem, is_test) served by create_predictor with
+             conv_bn_fuse at batches 8 and 32 against the unfused program
+             (relative L2 1e-4), ms a request. Transformer-big (6+6,
+             d_model 1024, 16 heads, dense masks, bf16 AMP, Adam, dropout
+             0.1) over seeded lengths uniform in 8-256, bucketed into
+             [64, 128, 256] at batch sizes [64, 32, 16], 2 steps a bucket
+             (step ms, padding waste), and padding invariance in f32
+             is_test (one batch padded to 64 and to 128: relative 1e-5).
+             The 17 sequence ops and the two beam ops on the card against
+             the CPU (max |diff| 1e-5).
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -2122,18 +2152,19 @@ def phase_kernel_bn(fb):
     return records
 
 
-def resnet_program(fluid, resnet, b, hw, amp, classes=1000, optimizer=None):
-    """The JAX bench's ResNet-50 recipe (7x7 stem): resnet → softmax CE →
-    mean → Momentum(0.1, 0.9) (or `optimizer()`, built inside the
-    program), under bf16 AMP when `amp`. Built with
-    PDTPU_CONV_BN_FUSION=pallas (36 fused_conv_bn ops)."""
+def resnet_program(fluid, resnet, b, hw, amp, classes=1000, optimizer=None,
+                   stem_s2d=False):
+    """The JAX bench's ResNet-50 recipe (7x7 stem, or the space-to-depth
+    stem with `stem_s2d`): resnet → softmax CE → mean → Momentum(0.1, 0.9)
+    (or `optimizer()`, built inside the program), under bf16 AMP when
+    `amp`. Built with PDTPU_CONV_BN_FUSION=pallas (36 fused_conv_bn ops)."""
     os.environ["PDTPU_CONV_BN_FUSION"] = "pallas"
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = 2024
     with fluid.program_guard(main, startup):
         img = fluid.layers.data("img", [3, hw, hw])
         label = fluid.layers.data("label", [1], dtype="int64")
-        logits = resnet.resnet(img, 50, classes)
+        logits = resnet.resnet(img, 50, classes, stem_s2d=stem_s2d)
         loss = fluid.layers.mean(
             fluid.layers.softmax_with_cross_entropy(logits, label))
         opt = (optimizer() if optimizer is not None
@@ -2217,27 +2248,38 @@ def run_resnet(fluid, fb, b, amp, label):
     return counts, rec
 
 
+# phase 7's bf16 AMP record (7x7 stem), beside which phase 17 puts the
+# space-to-depth stem's
+RESNET_7X7 = {}
+
+
 def phase_resnet(fluid, fb):
     """Main path 3: ResNet-50 training with both switches on, bf16 AMP at
     B=128 and f32 at B=32; then GPU against CPU. Returns the launches of
     each run."""
     os.environ["PDTPU_BN_MODE"] = "pallas"
     launches = {}
-    launches["bfloat16"], _ = run_resnet(fluid, fb, RESNET_B, True,
-                                         "bf16 AMP")
+    launches["bfloat16"], rec = run_resnet(fluid, fb, RESNET_B, True,
+                                           "bf16 AMP")
+    RESNET_7X7.update(rec)
     launches["float32"], _ = run_resnet(fluid, fb, 32, False, "f32")
+    resnet_gpu_vs_cpu(fluid, fb)
+    return launches
 
-    # GPU against CPU: f32 at 64x64, B=16, where every fused-BN gate of
-    # stages 1-2 and the stem passes, so each kernel launches on the card.
-    # The gradients of a depth-50 net at random init are chaotic: on the
-    # CPU alone, multiplying the input by (1 + 1e-7 * randn), about one
-    # ulp, moves them by ~2 % (relative L2). So the card's gradients are
-    # held to the CPU's within twice what that one-ulp change of the input
-    # does to the CPU's own (median and worst over the parameters), and the
-    # loss within 1e-5.
+
+def resnet_gpu_vs_cpu(fluid, fb, stem_s2d=False):
+    """One f32 ResNet-50 step at 64x64, B=16, on the card against the CPU
+    from the same weights: every fused-BN gate of stages 1-2 and the stem
+    passes there, so each kernel launches on the card. The gradients of a
+    depth-50 net at random init are chaotic: on the CPU alone, multiplying
+    the input by (1 + 1e-7 * randn), about one ulp, moves them by ~2 %
+    (relative L2). So the card's gradients are held to the CPU's within
+    twice what that one-ulp change of the input does to the CPU's own
+    (median and worst over the parameters), and the loss within 1e-5."""
     from paddle_tpu_torch.models import resnet
 
-    main, startup, loss = resnet_program(fluid, resnet, 16, 64, False)
+    main, startup, loss = resnet_program(fluid, resnet, 16, 64, False,
+                                         stem_s2d=stem_s2d)
     feed = {k: v.cpu().numpy() for k, v in resnet_feed(16, 64).items()}
     nudged = dict(feed, img=(feed["img"] * (1.0 + 1e-7 * np.random.RandomState(
         5).randn(*feed["img"].shape))).astype("float32"))
@@ -2268,7 +2310,8 @@ def phase_resnet(fluid, fb):
                "cpu_one_ulp_input": {"median": float(np.median(ulp)),
                                      "max": max(ulp)},
                "worst_card_vs_cpu": worst}
-    log(f"resnet GPU vs CPU (depth 50, 64x64, B=16, f32): loss "
+    log(f"resnet GPU vs CPU (depth 50, {'s2d' if stem_s2d else '7x7'} "
+        f"stem, 64x64, B=16, f32): loss "
         f"{float(gpu[0])} vs {float(cpu[0])} relative {loss_rel:.3e} (tol "
         f"1e-5); grads of {len(grads)} parameters, relative L2 "
         f"{json.dumps(summary)} (tol: 2x the CPU's one-ulp spread); "
@@ -2279,7 +2322,7 @@ def phase_resnet(fluid, fb):
     if loss_rel > 1e-5 or np.median(card) > 2 * np.median(ulp) \
             or max(card) > 2 * max(ulp):
         raise AssertionError("GPU and CPU ResNet-50 steps disagree")
-    return launches
+    return {"loss_rel": loss_rel, **summary}
 
 # ---------------------------------------------------------------------------
 # block-sparse attention kernels and Transformer-big NMT
@@ -4597,6 +4640,769 @@ def phase_input_pipeline(fluid, fa, fsa, smi):
     log("input pipeline " + json.dumps(rec))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the deferred-row log and the A6 paths
+# ---------------------------------------------------------------------------
+
+P17_STEPS = 34            # folds fire after steps 16 and 32
+P17_SEGMENTS = 16
+P17_WINDOW = 13           # train_scanned(4) against plain runs, no fold
+P17_SMALL = {"vocab": 10_000, "B": 64, "segments": 4, "steps": 9}
+P17_SERVE_RTOL = 1e-4     # conv_bn_fuse against the unfused program
+P17_PAD_RTOL = 1e-5       # f32 is_test loss, tokens padded to 64 and 128
+P17_BUCKETS = ([64, 128, 256], [64, 32, 16])
+P17_SEQ_TOL = 1e-5        # sequence and beam ops, card against CPU
+
+
+# where the counted host reads came from: "file:line" -> count
+P17_READ_SITES = {}
+
+
+def count_host_reads(fn):
+    """(fn's result, the synchronizing CUDA calls it made): each host read
+    of device data (``int(t)``, ``.item()``, a D2H copy into pageable
+    memory, a ``nonzero``) syncs, and torch.cuda's sync debug mode warns
+    once a call, from the Python line that made it (kept in
+    P17_READ_SITES). The mode's own one-time notice ("Synchronization
+    debug mode is a prototype feature ...") is not a read."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")  # its notice: before the count
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reads = [w for w in caught if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    for w in reads:
+        site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+        P17_READ_SITES[site] = P17_READ_SITES.get(site, 0) + 1
+    return out, len(reads)
+
+
+def deferred_program(fluid, deepfm, vocab, rows, opt="adagrad",
+                     segments=P17_SEGMENTS, deferred=True):
+    """The JAX bench's DeepFM recipe on an f32 fused table: the table on
+    `opt` through the deferred-row log (its state columns in the table's
+    rows), or, with deferred=False, on the plain sparse path (an
+    accumulator beside a [V, 17] table); the dense net on Adam."""
+    from paddle_tpu_torch.core import unique_name
+
+    with unique_name.guard():
+        main, startup, _, loss, _ = deepfm.build_train_program(
+            vocab_size=vocab, is_sparse=True, fused_table=True,
+            embedding_optimizer=opt,
+            deferred_rows=({"rows_per_step": rows, "segments": segments}
+                           if deferred else None))
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def device_equal(a, b, names):
+    """The names whose tensors differ bitwise between scopes a and b,
+    compared on the card."""
+    import torch
+
+    bad = []
+    for n in names:
+        x, y = a.find_var(n), b.find_var(n)
+        if x.shape != y.shape or not torch.equal(
+                x.contiguous().view(-1).view(torch.uint8),
+                y.contiguous().view(-1).view(torch.uint8)):
+            bad.append(n)
+    return bad
+
+
+def p17_deferred_steps(fluid, exe, main, loss, init, feeds, around_fold=None,
+                       after_step=None):
+    """Plain runs of `main` from a copy of `init`, each one step: (losses,
+    host ms a step with a sync after it, host reads a step beyond the
+    fetch, scope). `around_fold(fold, eprog, scope)` stands in for each
+    fold; `after_step(i, scope)` runs after step i's timing and count."""
+    import torch
+
+    scope = scope_from(fluid, init)
+    orig = exe._run_epilogue
+    if around_fold is not None:
+        exe._run_epilogue = lambda eprog, sc: around_fold(orig, eprog, sc)
+    out, ms, reads = [], [], []
+    try:
+        for i, f in enumerate(feeds):
+            t0 = time.perf_counter()
+            (lv,), n = count_host_reads(lambda: exe.run(
+                main, feed=f, fetch_list=[loss], scope=scope,
+                return_numpy=False))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            reads.append(n)
+            out.append(lv)
+            if after_step is not None:
+                after_step(i, scope)
+    finally:
+        exe._run_epilogue = orig
+    return [float(v) for v in out], ms, reads, scope
+
+
+def p17_fold_device_ms(fold, eprog, scope):
+    """Device ms of one fold of the live log at its real size. The state
+    the fold changes (the logged rows of the table, log_ids, the count) is
+    saved; each timed call restores it and folds, the restore alone is
+    timed too and taken off. Leaves the state as it found it (the fold
+    reads neither postab nor anything else it writes)."""
+    import torch
+
+    names = ("fm_t", "fm_t@log_ids", "fm_t@log_count")
+    table, ids, count = (scope.find_var(n) for n in names)
+    saved_ids, saved_count = ids.clone(), count.clone()
+    live = saved_ids[(saved_ids >= 0) & (saved_ids < table.shape[0])].long()
+    rows = torch.unique(live)
+    saved_rows = table[rows]
+
+    def restore():  # the fold may hand back new tensors: look them up
+        scope.find_var(names[0]).index_copy_(0, rows, saved_rows)
+        scope.find_var(names[1]).copy_(saved_ids)
+        scope.find_var(names[2]).copy_(saved_count)
+
+    def restore_and_fold():
+        restore()
+        fold(eprog, scope)
+
+    both, alone = device_ms(restore_and_fold), device_ms(restore)
+    restore()
+    return {"fold_device_ms": both - alone, "restore_device_ms": alone,
+            "log_entries": int(live.numel()), "rows": int(rows.numel())}
+
+
+def p17_touched_rows(feeds, segments):
+    """(every id the feeds look up, the ids looked up again within a fold
+    segment after an earlier step of it logged them: where lookup_join
+    answers from the log), each sorted, on the card."""
+    import torch
+
+    per = [torch.unique(f["sparse_ids"]) for f in feeds]
+    again = []
+    for s in range(0, len(per), segments):
+        ids, n = torch.unique(torch.cat(per[s:s + segments]),
+                              return_counts=True)
+        again.append(ids[n > 1])
+    return torch.unique(torch.cat(per)), torch.unique(torch.cat(again))
+
+
+def delta_rel(a, b, base):
+    """(a - base) against (b - base), in f64: {"l2": the rel L2, "median":
+    the median over elements of |difference| / |b - base|}. A one-ulp
+    change moves a few elements a lot (Adagrad's first step is about
+    lr·sign(g), and a near-zero g can flip), which the L2 sees and the
+    median does not."""
+    import torch
+
+    da, db = a.double() - base, b.double() - base
+    d = (da - db).abs()
+    each = torch.where(db != 0, d / db.abs(), torch.where(
+        d == 0, torch.zeros_like(d), torch.full_like(d, float("inf"))))
+    return {"l2": float(d.norm() / db.norm()),
+            "median": float(each.reshape(-1).median())}
+
+
+def p17_deepfm(fluid, rec):
+    """Full-width deferred DeepFM (the JAX bench's config with the deferred
+    log): two runs of P17_STEPS steps from one state, bitwise; the plain
+    sparse path from the same values, its losses and, after the second
+    fold, the rows the steps touched (table and Adagrad moment) against the
+    deferred run's; train_scanned(4) against plain runs over a window with
+    no fold; train_scanned(17) refused."""
+    import torch
+    from paddle_tpu_torch.models import deepfm
+
+    vocab, b = DEEPFM_VOCAB, DEEPFM_B
+    main, startup, loss = deferred_program(fluid, deepfm, vocab, DEEPFM_ROWS)
+    rng = np.random.RandomState(17)
+    np_feeds = [deepfm_feed(rng, b, vocab) for _ in range(P17_STEPS)]
+    feeds = [{k: torch.tensor(v, device="cuda") for k, v in f.items()}
+             for f in np_feeds]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc0 = fluid.Scope()
+    exe.run(startup, scope=sc0)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    persist = [v.name for v in main.list_vars() if v.persistable
+               and sc0.has_var(v.name)]
+    init = {n: sc0.find_var(n) for n in persist}
+    del sc0
+    # the state compared after the second fold (step 2 * P17_SEGMENTS)
+    at = 2 * P17_SEGMENTS - 1
+    touched, again = p17_touched_rows(feeds[:at + 1], P17_SEGMENTS)
+    sel = torch.searchsorted(touched, again)
+    snaps = {}
+
+    def snap_deferred(i, scope):
+        if i == at:
+            snaps["count"] = int(scope.find_var("fm_t@log_count")[0])
+            snaps["deferred"] = scope.find_var("fm_t")[touched]
+
+    folds = []
+
+    def timed(fold, eprog, scope):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fold(eprog, scope)
+        b.record()
+        folds.append((a, b))
+
+    la, ms_a, reads, sa = p17_deferred_steps(fluid, exe, main, loss, init,
+                                             feeds, timed, snap_deferred)
+    torch.cuda.synchronize()
+    fold_event_ms = [a.elapsed_time(b) for a, b in folds]
+    read_sites = dict(P17_READ_SITES)
+    # the second run times its first fold (16 segments of the live log)
+    fold_timing = {}
+
+    def profiled(fold, eprog, scope):
+        if not fold_timing:
+            fold_timing.update(p17_fold_device_ms(fold, eprog, scope))
+        fold(eprog, scope)
+
+    lb, _, _, sb = p17_deferred_steps(fluid, exe, main, loss, init, feeds,
+                                      profiled)
+    differ = device_equal(sa, sb, persist)
+    count_after = int(sa.find_var("fm_t@log_count")[0])
+    del sb
+    peak_deferred = torch.cuda.max_memory_allocated() / 2**20
+    table = sa.find_var("fm_t")
+    sizes = {n: f"{tuple(sa.find_var(n).shape)} {sa.find_var(n).dtype}, "
+                f"{sa.find_var(n).numel() * sa.find_var(n).element_size() / 1e9:.3f} GB"
+             for n in ("fm_t", "fm_t@pending_pos", "fm_t@log_raw",
+                       "fm_t@log_cum", "fm_t@log_ids")}
+    del sa, table
+
+    # the plain sparse path from the same values (table columns [:17],
+    # accumulator 0, the dense net's state)
+    smain, sstartup, sloss = deferred_program(fluid, deepfm, vocab,
+                                              DEEPFM_ROWS, deferred=False)
+    ss = fluid.Scope()
+    exe.run(sstartup, scope=ss)
+    for v in smain.list_vars():
+        if not (v.persistable and ss.has_var(v.name)):
+            continue
+        if v.name == "fm_t":
+            ss.set_var("fm_t", init["fm_t"][:, :DEEPFM_VIS].clone())
+        elif v.name in init and init[v.name].shape == ss.find_var(
+                v.name).shape:
+            ss.set_var(v.name, init[v.name].clone())
+    sparse_init = {n: ss.find_var(n).clone() for n in ss.var_names()
+                   if isinstance(ss.find_var(n), torch.Tensor)}
+    del ss
+    # the sparse path twice: on the feeds, and on the feeds with the dense
+    # input multiplied by (1 + 1e-7·randn), about one ulp. Adam and Adagrad
+    # divide near-zero gradients by their own size, so last-bit
+    # differences grow step by step: the deferred path (whose reads
+    # re-round base + cum) is held to the sparse one within twice what
+    # that one-ulp change does to the sparse path's own losses and rows
+    nrng = np.random.RandomState(18)
+    nudged = [dict(f, dense=f["dense"] * (1.0 + 1e-7 * torch.tensor(
+        nrng.randn(*f["dense"].shape), dtype=torch.float32, device="cuda")))
+        for f in feeds]
+    (moment,) = [v.name for v in smain.list_vars()
+                 if v.name.startswith("fm_t_") and v.name.endswith("moment")]
+    runs = []
+    for fs in (feeds, nudged):
+        ss = scope_from(fluid, sparse_init)
+        ls, ms_s = [], []
+        for i, f in enumerate(fs):
+            t1 = time.perf_counter()
+            ls.append(float(exe.run(smain, feed=f, fetch_list=[sloss],
+                                    scope=ss)[0]))
+            ms_s.append((time.perf_counter() - t1) * 1e3)
+            if i == at:
+                rows = (ss.find_var("fm_t")[touched],
+                        ss.find_var(moment)[touched])
+        runs.append((ls, ms_s, rows))
+        del ss
+    del sparse_init
+    (ls, ms_s, (st, sm)), (ln, _, (nt, nm)) = runs
+    rel = [abs(x - y) / abs(y) for x, y in zip(la, ls)]
+    spread = [abs(x - y) / abs(y) for x, y in zip(ln, ls)]
+    # the touched rows after the fold, and those read again within a
+    # segment, as changes from init: the deferred table's [:17] and its
+    # moment columns against the sparse path's table and moment
+    base = init["fm_t"][touched].double()
+    bt, bm = base[:, :DEEPFM_VIS], base[:, DEEPFM_VIS:]
+    dt, dm = (snaps["deferred"][:, :DEEPFM_VIS],
+              snaps["deferred"][:, DEEPFM_VIS:])
+    rows_rel, rows_spread = {}, {}
+    for part, k in (("touched", slice(None)), ("read_again", sel)):
+        rows_rel[part] = {"table": delta_rel(dt[k], st[k], bt[k]),
+                          "moment": delta_rel(dm[k], sm[k], bm[k])}
+        rows_spread[part] = {"table": delta_rel(nt[k], st[k], bt[k]),
+                             "moment": delta_rel(nm[k], sm[k], bm[k])}
+    rows_bad = [f"{part}.{n}.{m}" for part, d in rows_rel.items()
+                for n in d for m in d[n]
+                if not d[n][m] <= 2 * rows_spread[part][n][m]]
+    snaps_count = snaps["count"]
+    del snaps, runs, rows, base, bt, bm, dt, dm, st, sm, nt, nm
+
+    # train_scanned(4) against plain runs over P17_WINDOW steps (no fold)
+    window = np_feeds[:P17_WINDOW]
+    plain = scope_from(fluid, init)
+    lp = [float(exe.run(main, feed=f, fetch_list=[loss], scope=plain)[0])
+          for f in window]
+    scan = scope_from(fluid, init)
+    lq = [float(exe.run(main, feed=window[0], fetch_list=[loss],
+                        scope=scan)[0])]
+    (ys,) = exe.train_scanned(main, reader=lambda: iter(window[1:]),
+                              scan_steps=4, fetch_list=[loss], scope=scan)
+    lq += [float(v) for v in np.ravel(ys)]
+    scan_differ = device_equal(plain, scan, persist)
+    del plain
+    try:
+        exe.train_scanned(main, reader=lambda: iter(np_feeds[:17]),
+                          scan_steps=17, fetch_list=[loss], scope=scan)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    del scan, init
+    torch.cuda.empty_cache()
+    r = {"config": f"vocab {vocab}, 26 fields, embed_dim 16, fused_table, "
+                   f"adagrad, B={b}, deferred_rows rows_per_step "
+                   f"{DEEPFM_ROWS} segments {P17_SEGMENTS}",
+         "state": sizes, "startup_s": startup_s, "steps": P17_STEPS,
+         "deferred_losses_first_last": [la[0], la[-1]],
+         "sparse_losses_first_last": [ls[0], ls[-1]],
+         "loss_rel_max_vs_sparse": max(rel),
+         "sparse_one_ulp_spread_max": max(spread),
+         "loss_rel_by_step": rel, "spread_by_step": spread,
+         "rows_compared": {"step": at + 1, "touched": int(touched.numel()),
+                           "read_again": int(again.numel()),
+                           "log_count": snaps_count},
+         "rows_vs_sparse": rows_rel,
+         "sparse_one_ulp_rows_spread": rows_spread,
+         "two_runs_bitwise": la == lb and not differ,
+         "state_differs": differ, "log_count_after": count_after,
+         "deferred_median_ms": float(np.median(ms_a[1:])),
+         "deferred_range_ms": [min(ms_a[1:]), max(ms_a[1:])],
+         "deferred_first_ms": ms_a[0],
+         "fold_steps_ms": [ms_a[15], ms_a[31]],
+         "sparse_median_ms": float(np.median(ms_s[1:])),
+         "sparse_range_ms": [min(ms_s[1:]), max(ms_s[1:])],
+         "fold_event_ms": fold_event_ms, "fold_timing": fold_timing,
+         "host_reads_by_step": reads,
+         "host_read_sites": read_sites,
+         "peak_memory_MiB": peak_deferred,
+         "scan4_vs_plain_bitwise": lp == lq and not scan_differ,
+         "scan_state_differs": scan_differ,
+         "scan17_refused": refused}
+    rec["deferred_deepfm"] = r
+    log("deferred deepfm " + json.dumps(r))
+    if max(rel) > 2 * max(spread) or not np.isfinite(la).all():
+        raise AssertionError(f"deferred deepfm: losses against the sparse "
+                             f"path differ by {max(rel):.3e} (twice the "
+                             f"one-ulp spread: {2 * max(spread):.3e})")
+    if rows_bad or snaps_count != 0:
+        raise AssertionError(f"deferred deepfm: rows after the fold at step "
+                             f"{at + 1} (log count {snaps_count}) against "
+                             f"the sparse path: {rows_bad} over twice the "
+                             f"one-ulp spread")
+    if not r["two_runs_bitwise"] or not r["scan4_vs_plain_bitwise"]:
+        raise AssertionError("deferred deepfm: runs from one state differ")
+    if len(folds) != 2 or count_after != 2 * DEEPFM_ROWS:
+        raise AssertionError(f"deferred deepfm: {len(folds)} folds, count "
+                             f"{count_after} after {P17_STEPS} steps")
+    if reads[0] != 1 or any(reads[1:]):
+        raise AssertionError(f"deferred deepfm: host reads by step {reads} "
+                             f"(want the seeding read on step 1, then none; "
+                             f"sites {read_sites})")
+    if refused is None or "epilogue interval" not in refused:
+        raise AssertionError("deferred deepfm: train_scanned(17) ran")
+
+
+def p17_small(fluid, rec):
+    """The small deferred config on the card against the CPU for SGD,
+    Adagrad and Adam (losses within 1e-5; the card's state within twice
+    what a one-ulp change of the dense input does to the CPU's own; the
+    log's integer state equal), and a mid-window resume through the
+    Checkpointer on the card (bitwise, on the same fold cadence)."""
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.parallel.checkpoint import Checkpointer
+
+    cfg = P17_SMALL
+    out = {}
+    rng = np.random.RandomState(5)
+    feeds = [deepfm_feed(rng, cfg["B"], cfg["vocab"])
+             for _ in range(cfg["steps"])]
+    nudged = [dict(f, dense=(f["dense"] * (1.0 + 1e-7 * np.random.RandomState(
+        6).randn(*f["dense"].shape))).astype("float32")) for f in feeds]
+    ints = ("fm_t@pending_pos", "fm_t@log_ids", "fm_t@log_count")
+    for opt in ("sgd", "adagrad", "adam"):
+        main, startup, loss = deferred_program(
+            fluid, deepfm, cfg["vocab"], cfg["B"] * 26, opt,
+            cfg["segments"])
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        gs = fluid.Scope()
+        exe.run(startup, scope=gs)
+        names = [v.name for v in main.list_vars() if v.persistable
+                 and gs.has_var(v.name)]
+        state = {n: gs.find_np(n) for n in names}
+        gl = [float(exe.run(main, feed=f, fetch_list=[loss], scope=gs)[0])
+              for f in feeds]
+        gpu = {n: gs.find_np(n) for n in names}
+        runs = []
+        for fs in (feeds, nudged):
+            cs = fluid.Scope()
+            fluid.io.load_params_from_numpy(state, scope=cs)
+            cexe = fluid.Executor(fluid.CPUPlace())
+            runs.append(([float(cexe.run(main, feed=f, fetch_list=[loss],
+                                         scope=cs)[0]) for f in fs],
+                         {n: cs.find_np(n) for n in names}))
+        (cl, cpu), (_, nud) = runs
+        floats = [n for n in names if gpu[n].dtype == np.float32
+                  and gpu[n].size > 1]
+        card = {n: rel_l2(gpu[n], cpu[n]) for n in floats}
+        spread = {n: rel_l2(nud[n], cpu[n]) for n in floats}
+        loss_rel = max(abs(g - c) / abs(c) for g, c in zip(gl, cl))
+        ints_equal = all((gpu[n] == cpu[n]).all() for n in ints)
+        out[opt] = {"loss_rel_max": loss_rel,
+                    "card_vs_cpu_rel_l2_max": max(card.values()),
+                    "cpu_one_ulp_spread_max": max(spread.values()),
+                    "log_state_equal": ints_equal,
+                    "worst": sorted(card.items(), key=lambda kv: -kv[1])[:2]}
+        if loss_rel > 1e-5 or not ints_equal \
+                or max(card.values()) > 2 * max(spread.values()):
+            raise AssertionError(f"deferred {opt}: GPU and CPU disagree "
+                                 f"{json.dumps(out[opt])}")
+        if opt != "adagrad":
+            continue
+        # a resume from a checkpoint saved mid-window (after step 6 of a
+        # 4-step cadence: two steps pending)
+        with tempfile.TemporaryDirectory() as d:
+            rs = fluid.Scope()
+            fluid.io.load_params_from_numpy(state, scope=rs)
+            counts, ckl = [], []
+            for i, f in enumerate(feeds):
+                ckl.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                         scope=rs)[0]))
+                counts.append(int(rs.find_np("fm_t@log_count")[0]))
+                if i == 5:
+                    ck = Checkpointer(os.path.join(d, "ck"))
+                    ck.save(6, program=main, scope=rs, blocking=True)
+                    break
+            fresh = fluid.Scope()
+            ck.restore(6, program=main, scope=fresh,
+                       place=fluid.CUDAPlace(0))
+            for f in feeds[6:]:
+                ckl.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                         scope=fresh)[0]))
+                counts.append(int(fresh.find_np("fm_t@log_count")[0]))
+            resumed = {n: fresh.find_np(n) for n in names}
+        same = ckl == gl and all(
+            resumed[n].tobytes() == gpu[n].tobytes() for n in names)
+        out["checkpoint_resume"] = {"bitwise": same, "counts": counts}
+        if not same or 0 not in counts[6:]:
+            raise AssertionError(f"deferred resume: {out}")
+    rec["deferred_small_gpu_vs_cpu"] = out
+    log("deferred small GPU vs CPU " + json.dumps(out))
+
+
+def p17_resnet(fluid, fb, rec):
+    """ResNet-50 on the space-to-depth stem: bf16 AMP, B=128 at 224^2,
+    Momentum, both switches on, 4 steps; then one f32 step at 64x64
+    against the CPU."""
+    from paddle_tpu_torch.models import resnet
+
+    os.environ["PDTPU_BN_MODE"] = "pallas"
+    main, startup, loss = resnet_program(fluid, resnet, RESNET_B, RESNET_HW,
+                                         True, stem_s2d=True)
+    feed = resnet_feed(RESNET_B, RESNET_HW)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    reset_bn_counts(fb)
+    losses, ms = timed_steps(lambda: float(exe.run(
+        main, feed=feed, fetch_list=[loss], scope=scope)[0]), 4)
+    per_step = {k: v / 4 for k, v in bn_counts(fb).items()}
+    del scope
+    stem = [op.type for op in main.global_block().ops[:4]]
+    r = {"stem_ops": stem, "losses": losses, **med_range(ms),
+         "img_per_s": RESNET_B / float(np.median(ms[1:])) * 1e3,
+         "fused_bn_launches_per_step": per_step,
+         "stem_7x7_median_ms": RESNET_7X7.get("median_ms"),
+         "stem_7x7_range_ms": RESNET_7X7.get("range_ms")}
+    if not np.isfinite(losses).all() or \
+            per_step != {k: float(v) for k, v in RESNET_PER_STEP.items()}:
+        raise AssertionError(f"resnet s2d: {json.dumps(r)}")
+    r["gpu_vs_cpu_64x64"] = resnet_gpu_vs_cpu(fluid, fb, stem_s2d=True)
+    rec["resnet_s2d"] = r
+    log("resnet s2d " + json.dumps(r))
+
+
+def p17_serve(fluid, rec):
+    """ResNet-50 (space-to-depth stem, is_test) saved and served through
+    create_predictor, whose conv_bn_fuse_pass folds the 53 batch norms:
+    against the unfused program on the Executor, batches 8 and 32."""
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import resnet
+
+    saved = os.environ.pop("PDTPU_CONV_BN_FUSION", None)
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 2024
+        with unique_name.guard(), fluid.program_guard(main, startup):
+            img = fluid.layers.data("img", [3, RESNET_HW, RESNET_HW])
+            out = resnet.resnet(img, 50, 1000, is_test=True, stem_s2d=True)
+    finally:
+        if saved is not None:
+            os.environ["PDTPU_CONV_BN_FUSION"] = saved
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    gen = np.random.RandomState(9)
+    for v in main.list_vars():
+        if v.persistable and v.name.endswith(".bn.mean"):
+            scope.set_var(v.name, torch.tensor(
+                0.1 * gen.randn(*v.shape), dtype=torch.float32,
+                device="cuda"))
+        elif v.persistable and v.name.endswith(".bn.var"):
+            scope.set_var(v.name, torch.tensor(
+                0.5 + gen.rand(*v.shape), dtype=torch.float32,
+                device="cuda"))
+    feeds = {bsz: {"img": np.random.RandomState(bsz).randn(
+        bsz, 3, RESNET_HW, RESNET_HW).astype("float32")} for bsz in (8, 32)}
+    refs = {bsz: exe.run(main, feed=f, fetch_list=[out], scope=scope)[0]
+            for bsz, f in feeds.items()}
+    r = {}
+    with tempfile.TemporaryDirectory() as d:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, ["img"], [out], exe,
+                                          main_program=main)
+        pred = inference.create_predictor(inference.Config(d))
+        ops = [op.type for op in pred._program.global_block().ops]
+        for bsz, f in feeds.items():
+            (got,) = pred.run(f)
+            _, ms = timed_steps(lambda: pred.run(f), 6)
+            r[f"B={bsz}"] = {"rel_l2_vs_unfused": rel_l2(got, refs[bsz]),
+                             "max_abs": float(np.abs(got - refs[bsz]).max()),
+                             "ms_per_request": med_range(ms)}
+    r.update(conv2d=ops.count("conv2d"), batch_norm=ops.count("batch_norm"),
+             rtol=P17_SERVE_RTOL)
+    del scope
+    rec["resnet_serving"] = r
+    log("resnet s2d serving " + json.dumps(r))
+    if r["batch_norm"] or r["conv2d"] != 53 or any(
+            v["rel_l2_vs_unfused"] > P17_SERVE_RTOL
+            for k, v in r.items() if k.startswith("B=")):
+        raise AssertionError("resnet serving: the folded predictor and the "
+                             "unfused program disagree")
+
+
+def nmt_dense_feed(src, tgt):
+    """Bucketed (non-packed) NMT feeds: ids, next-token labels and the
+    additive pad / causal masks."""
+    b, t = src.shape
+    lbl = np.concatenate([tgt[:, 1:], np.zeros((b, 1), "int64")],
+                         axis=1)[..., None]
+    keep = (src != 0).astype("float32")
+    tkeep = (tgt != 0).astype("float32")
+    causal = np.tril(np.ones((t, t), "float32"))
+    m = np.minimum(causal[None], tkeep[:, None, :])
+    return {"src_ids": src, "tgt_ids": tgt, "lbl_ids": lbl,
+            "src_mask": ((keep - 1.0) * 1e4).reshape(b, 1, 1, t),
+            "tgt_mask": ((m - 1.0) * 1e4).reshape(b, 1, t, t)}
+
+
+def p17_nmt(fluid, rec):
+    """Bucketed Transformer-big training (6+6 layers, d_model 1024, 16
+    heads, dense masks, bf16 AMP, Adam, dropout 0.1) over seeded lengths
+    uniform in 8-256 (target as long as its source), bucketed by
+    reader.bucket_by_sequence_length into [64, 128, 256] at batch sizes
+    [64, 32, 16], 2 steps a bucket through one program a bucket sharing
+    one scope. Then padding invariance in f32 is_test: one batch's tokens
+    padded to 64 and to 128 give one loss."""
+    import torch
+    from paddle_tpu_torch import reader
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+
+    bounds, sizes = P17_BUCKETS
+    cfg = nmt.TransformerConfig()
+
+    def stream():
+        rng = np.random.RandomState(17)
+        for _ in range(2000):
+            n = int(rng.randint(8, 257))
+            yield (rng.randint(1, cfg.src_vocab, n).astype("int64"),
+                   rng.randint(1, cfg.tgt_vocab, n).astype("int64"))
+
+    got = {L: [] for L in bounds}
+    for (src, tgt), lens in reader.bucket_by_sequence_length(
+            stream, bounds, sizes)():
+        L = src.shape[1]
+        if len(got[L]) < 2 and len(lens) == sizes[bounds.index(L)]:
+            got[L].append((src, tgt, lens))
+        if all(len(v) == 2 for v in got.values()):
+            break
+
+    def build(L, amp, is_test=False):
+        with unique_name.guard():
+            main, startup, _, loss = nmt.build_train_program(
+                cfg, L, L, is_test=is_test, optimizer_factory=lambda: (
+                    amp_wrapper(fluid, amp)(fluid.optimizer.Adam(LR))))
+        main.random_seed = startup.random_seed = 2024
+        return main, startup, loss
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    progs = {L: build(L, True) for L in bounds}
+    exe.run(progs[bounds[0]][1], scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    r = {}
+    for L in bounds:
+        main, _, loss = progs[L]
+        feeds = [nmt_dense_feed(s, t) for s, t, _ in got[L]]
+        losses, ms = [], []
+        for f in feeds:
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                        scope=scope)[0]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        real = sum(int(lens.sum()) for _, _, lens in got[L])
+        padded = sum(lens.size * L for _, _, lens in got[L])
+        r[f"bucket {L} B={sizes[bounds.index(L)]}"] = {
+            "losses": losses, "step_ms": ms,
+            "median_ms": float(np.median(ms)),
+            "padding_waste": 1.0 - real / padded}
+    r["peak_memory_MiB"] = torch.cuda.max_memory_allocated() / 2**20
+    state = {n: t.clone() for n, t in ((n, scope.find_var(n))
+                                       for n in scope.var_names())
+             if isinstance(t, torch.Tensor)}
+    del scope
+    # padding invariance: the first 64-bucket batch padded to 64 and 128
+    src, tgt, _ = got[64][0]
+    pad = {}
+    for L in (64, 128):
+        s = np.zeros((src.shape[0], L), "int64")
+        t = np.zeros((src.shape[0], L), "int64")
+        s[:, :64], t[:, :64] = src, tgt
+        main, _, loss = build(L, False, is_test=True)
+        pad[L] = float(exe.run(main, feed=nmt_dense_feed(s, t),
+                               fetch_list=[loss],
+                               scope=scope_from(fluid, state))[0])
+    del state
+    torch.cuda.empty_cache()
+    rel = abs(pad[64] - pad[128]) / abs(pad[64])
+    r["padding_invariance_f32"] = {"loss_64": pad[64], "loss_128": pad[128],
+                                   "rel": rel, "rtol": P17_PAD_RTOL}
+    rec["bucketed_nmt"] = r
+    log("bucketed nmt " + json.dumps(r))
+    if rel > P17_PAD_RTOL or not all(
+            np.isfinite(v["losses"]).all() for k, v in r.items()
+            if k.startswith("bucket")):
+        raise AssertionError("bucketed nmt: padding changes the loss or a "
+                             "loss is not finite")
+
+
+def p17_sequence_ops(rec):
+    """Each sequence op and both beam ops on the card against the CPU at a
+    small shape: one line of max |card - CPU|."""
+    import torch
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.executor import ExecContext
+
+    g = np.random.RandomState(3)
+
+    def r(*s):
+        return g.randn(*s).astype("float32")
+
+    ln = np.array([2, 5, 1], np.int32)
+    seq = r(3, 5, 4)
+    toks = np.array([[2, 1, 2, 3, 0], [5, 2, 2, 2, 1]], np.int32)
+    cases = [
+        ("sequence_mask", {"X": [ln]}, {"maxlen": 6, "out_dtype": "int32"}),
+        ("sequence_pool", {"X": [seq], "Length": [ln]}, {"pooltype": "MAX"}),
+        ("sequence_softmax", {"X": [r(3, 5)], "Length": [ln]}, {}),
+        ("sequence_expand", {"X": [r(3, 4)], "Y": [r(3, 2, 4)]}, {}),
+        ("sequence_reverse", {"X": [seq], "Length": [ln]}, {}),
+        ("sequence_concat", {"X": [r(3, 2, 4), seq]}, {}),
+        ("im2sequence", {"X": [r(2, 3, 7, 5)]},
+         {"kernels": [3, 2], "strides": [2, 1], "paddings": [1, 0, 1, 0]}),
+        ("sequence_pad", {"X": [seq], "PadValue": [np.array(-1, "f4")],
+                          "Length": [ln]}, {"padded_length": 7}),
+        ("sequence_unpad", {"X": [seq], "Length": [ln]}, {}),
+        ("sequence_conv", {"X": [seq], "Filter": [r(12, 3)],
+                           "Length": [ln]}, {"contextLength": 3}),
+        ("sequence_slice", {"X": [seq], "Offset": [np.array([1, 0, 3],
+                                                            np.int32)],
+                            "Length": [ln]}, {}),
+        ("sequence_erase", {"X": [toks], "Length": [np.array([4, 5],
+                                                             np.int32)]},
+         {"tokens": [2]}),
+        ("sequence_expand_as", {"X": [r(3, 4)], "Y": [seq],
+                                "Length": [ln]}, {}),
+        ("sequence_enumerate", {"X": [toks]}, {"win_size": 3}),
+        ("sequence_reshape", {"X": [seq], "Length": [ln]}, {"new_dim": 2}),
+        ("sequence_scatter", {"X": [r(2, 6)], "Ids": [np.array(
+            [[0, 2, 2], [5, 1, 0]], np.int32)], "Updates": [r(2, 3)]}, {}),
+        ("sequence_topk_avg_pooling", {"X": [r(3, 2, 5)], "Length": [ln]},
+         {"topks": [1, 3]}),
+        ("beam_search", {"Scores": [r(2, 3, 7)], "PreScores": [r(2, 3)],
+                         "PreFinished": [np.array([[0, 1, 0], [0, 0, 1]],
+                                                  np.int32)]},
+         {"beam_size": 3, "end_id": 0}),
+        ("beam_search_decode", {
+            "Ids": [g.randint(0, 7, (4, 2, 3)).astype("int64")],
+            "ParentIdx": [g.randint(0, 3, (4, 2, 3)).astype("int64")],
+            "Scores": [r(2, 3)]}, {}),
+    ]
+    diffs = {}
+    for op, ins, attrs in cases:
+        outs = []
+        for dev in ("cuda", "cpu"):
+            fn = registry.get_op(op).fn
+            got = fn(ExecContext(dev), {s: [torch.tensor(a, device=dev)
+                                            for a in v]
+                                        for s, v in ins.items()}, attrs)
+            outs.append({s: [t.detach().cpu() for t in v]
+                         for s, v in got.items()})
+        card, cpu = outs
+        diffs[op] = max(float((a.double() - b.double()).abs().max())
+                        if a.numel() else 0.0
+                        for s in cpu for a, b in zip(card[s], cpu[s]))
+    rec["sequence_and_beam_ops_max_abs"] = diffs
+    log("sequence and beam ops, card vs CPU max |diff| " + json.dumps(diffs))
+    if max(diffs.values()) > P17_SEQ_TOL:
+        raise AssertionError("a sequence or beam op differs on the card")
+
+
+def phase_deferred_and_a6(fluid, fb, smi):
+    """Phase 17: the deferred-row log (full-width DeepFM, the small config
+    against the CPU, a Checkpointer resume) and the A6 paths (the
+    space-to-depth ResNet-50 stem in training and serving, bucketed
+    Transformer-big NMT, the sequence and beam ops). Prints one JSON
+    line."""
+    import torch
+
+    t0 = time.perf_counter()
+    rec = {"device": smi}
+    p17_deepfm(fluid, rec)
+    p17_small(fluid, rec)
+    torch.cuda.empty_cache()
+    p17_resnet(fluid, fb, rec)
+    p17_serve(fluid, rec)
+    torch.cuda.empty_cache()
+    p17_nmt(fluid, rec)
+    p17_sequence_ops(rec)
+    rec["wall_s"] = time.perf_counter() - t0
+    log("deferred rows and the A6 paths " + json.dumps(rec))
+
+
+
 def main():
     import torch
 
@@ -4699,6 +5505,10 @@ def main():
     # 16. the input pipeline and checkpoints (DeviceLoader, the drivers,
     # Checkpointer, reference-format serving, the PS prefetcher)
     phase_input_pipeline(fluid, fa, fsa, smi)
+
+    # 17. the deferred-row log and the A6 paths (the space-to-depth
+    # ResNet-50 stem, ResNet-50 serving, bucketed NMT, sequence/beam ops)
+    phase_deferred_and_a6(fluid, fb, smi)
 
     kernels = []
     for name in ("float32", "bfloat16"):

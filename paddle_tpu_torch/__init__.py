@@ -71,6 +71,12 @@ from .core import (  # noqa: F401
     ShardingStrategy,
 )
 from .core import unique_name  # noqa: F401
+from .core.lod import (  # noqa: F401
+    LoDTensor,
+    LoDTensorArray,
+    create_lod_tensor,
+    create_random_int_lodtensor,
+)
 from .param_attr import ParamAttr  # noqa: F401
 
 __version__ = "0.1.0"

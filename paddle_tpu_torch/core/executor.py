@@ -69,11 +69,21 @@ with no host read between steps (with ``FLAGS_check_nan_inf`` off;
 stacked once at the end and one step record and flight-recorder site a
 drain (``steps=K``): bitwise equal to K plain ``run`` calls. The port
 does not yet make the K steps one dispatch: that is CUDA-graph capture
-(ROADMAP A2 item 2), and the maintenance epilogues of the deferred-row
-path come with A5. ``train_from_dataset`` feeds ``run(...,
+(ROADMAP A2 item 2). ``train_from_dataset`` feeds ``run(...,
 return_handle=True)`` from a ``DeviceLoader`` and keeps
 ``max_inflight_steps`` steps un-synced; ``close()`` stops the loaders the
 executor started.
+
+Maintenance epilogues. A program may carry ``_epilogue_programs``, a list
+of ``(every, program, meta)`` (the deferred-row fold, attached by
+``Optimizer._build_deferred_fold``): every run of it (plain, through a
+``CompiledProgram``, or a drain of ``n`` steps) advances a steps-since-run
+counter, and the attached program runs when it reaches ``every``. The
+counter lives on the scope, keyed by ``(id(program), i)``, seeded once from
+the scope's count vars (the one host read, on first sight of the program,
+so a restored scope resumes the cadence), and purged when the program dies
+so a recycled ``id`` cannot inherit it. A drain longer than ``every`` is
+refused; a drain that would overflow the log runs the epilogue first.
 """
 from __future__ import annotations
 
@@ -125,6 +135,15 @@ _FLIGHT = get_flight_recorder()
 # resident when a run died (weak: a collected executor's cache should not
 # appear in forensics)
 _LIVE_EXECUTORS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _purge_pending(pend: dict, pid: int) -> None:
+    """Drop a dead program's epilogue counters: id() values recycle after
+    GC, so a stale (id, i) key would hand a new program an inherited
+    steps-since-fold count (worst case the fold fires off-cadence and the
+    append log overwrites its tail)."""
+    for k in [k for k in pend if k[0] == pid]:
+        pend.pop(k, None)
 
 
 class Place:
@@ -998,6 +1017,9 @@ class Executor:
             _EXECUTE_MS.observe(dt_ms)
         _STEPS.record(dt_ms, program_id=id(program), sig=sig,
                       compiled=compiling)
+        # maintenance epilogues (the deferred-row fold): every `every` runs
+        # of this program, plain or through a CompiledProgram
+        self._advance_epilogues(program, scope, 1)
         if flag("check_nan_inf"):
             # every fetched value and updated state var, checked on the
             # device; the host pays one scalar read unless it trips
@@ -1126,11 +1148,13 @@ class Executor:
         (``FLAGS_check_nan_inf`` checks each step when on). The fetches
         are stacked once at the end; the profiler sees ONE record a drain
         (``steps=n``) and the flight recorder one `site`."""
-        if getattr(program, "_epilogue_programs", None):
-            raise NotImplementedError(
-                f"{site}: the program has maintenance epilogues (deferred "
-                f"row folds), which the port's drivers do not run yet "
-                f"(ROADMAP A5); use Executor.run")
+        epilogues = getattr(program, "_epilogue_programs", None) or []
+        for every, *_rest in epilogues:
+            if n > every:
+                raise ValueError(
+                    f"{site}: {n} steps per dispatch exceeds the "
+                    f"maintenance-epilogue interval {every} — the "
+                    f"deferred-update log would overflow mid-scan")
         missing = sorted({v.name for v in program.list_vars()
                           if v.persistable and scope.find_var(v.name) is None})
         if missing:
@@ -1138,6 +1162,13 @@ class Executor:
                 f"{site} needs every persistable in scope (run the "
                 f"startup program and one plain run first); missing: "
                 f"{missing[:5]}")
+        # a fold is a pure representation change (safe any time): run it
+        # early if this drain would not fit in the log
+        for i, (every, eprog, meta) in enumerate(epilogues):
+            pend, key, _ = self._epilogue_pending(program, scope, i, meta)
+            if pend[key] + n > every:
+                self._run_epilogue(eprog, scope)
+                pend[key] = 0
         state_names = self._state_names(program, scope)
         block = program.global_block()
         stacked = {k: v.to(self.device) for k, v in stacked.items()}
@@ -1169,9 +1200,58 @@ class Executor:
             _EXECUTE_MS.observe(dt_ms)
         _STEPS.record(dt_ms, program_id=id(program), sig=sig,
                       compiled=compiling, steps=n)
+        self._advance_epilogues(program, scope, n)
         if return_numpy:
             return [to_numpy(y) for y in ys]
         return ys
+
+    # -- maintenance epilogues ---------------------------------------------
+    def _epilogue_pending(self, program, scope, i, meta):
+        """Steps since epilogue i of `program` last ran against `scope`:
+        (the scope's counter dict, this counter's key, whether it was made
+        now). Kept on the scope (the deferred log's count lives there: one
+        program driven against two scopes must not share a counter) and
+        seeded on first sight from the scope's count vars, the one host
+        read, so a restored scope resumes the cadence."""
+        pend = getattr(scope, "_epilogue_pending", None)
+        if pend is None:
+            pend = scope._epilogue_pending = {}
+        key = (id(program), i)
+        fresh = key not in pend
+        if fresh:
+            seed = 0
+            r = int((meta or {}).get("rows_per_step", 0))
+            for nm in (meta or {}).get("count_vars", []):
+                v = scope.find_var(nm)
+                if v is not None and r > 0:
+                    seed = max(seed, int(v.reshape(-1)[0]) // r)
+            pend[key] = seed
+            # id(program) recycles after GC: purge this program's counters
+            # when it dies, so a new program at its address starts at 0
+            weakref.finalize(program, _purge_pending, pend, id(program))
+        return pend, key, fresh
+
+    def _run_epilogue(self, eprog, scope):
+        """One device: the epilogue is a plain run of its program."""
+        self.run(eprog, scope=scope, return_numpy=False)
+
+    def _advance_epilogues(self, program, scope, steps: int):
+        """Count `steps` more runs of `program`; run each epilogue that
+        reaches its interval. The count mirrors the deferred log's `count`
+        state: both reset when the fold runs."""
+        epilogues = getattr(program, "_epilogue_programs", None)
+        if not epilogues:
+            return
+        for i, (every, eprog, meta) in enumerate(epilogues):
+            pend, key, fresh = self._epilogue_pending(program, scope, i,
+                                                      meta)
+            if not fresh:
+                # a fresh seed read the count AFTER this run's append: it
+                # already includes these steps
+                pend[key] += steps
+            if pend[key] >= every:
+                self._run_epilogue(eprog, scope)
+                pend[key] = 0
 
     def train_scanned(self, program=None, reader=None, scan_steps: int = 16,
                       fetch_list=None, scope=None, capacity=None):

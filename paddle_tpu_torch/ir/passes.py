@@ -419,7 +419,8 @@ class LayoutAssignmentPass(Pass):
 
     @staticmethod
     def _padded(shape, itemsize: int):
-        dims = [int(d) if int(d) > 0 else 1 for d in shape]
+        dims = [int(d) if d is not None and int(d) > 0 else 1
+                for d in shape]
         if not dims:
             return 1, 1
         natural = 1
@@ -527,21 +528,25 @@ class ConvBnFusePass(Pass):
                              for s2 in ("Scale", "Bias", "Mean", "Variance")}
                     if scope.has_var(w_name) and all(
                             scope.has_var(n) for n in names.values()):
-                        w = np.asarray(scope.find_var(w_name))
-                        gamma = np.asarray(scope.find_var(names["Scale"]))
-                        beta = np.asarray(scope.find_var(names["Bias"]))
-                        mean = np.asarray(scope.find_var(names["Mean"]))
-                        var = np.asarray(scope.find_var(names["Variance"]))
+                        # folded on the host in numpy (the JAX package's
+                        # arithmetic), stored back as tensors on the
+                        # weight's device
+                        w_t = scope.find_var(w_name)
+                        w = to_numpy(w_t)
+                        gamma, beta, mean, var = (
+                            to_numpy(scope.find_var(names[k]))
+                            for k in ("Scale", "Bias", "Mean", "Variance"))
                         eps = op.attrs.get("epsilon", 1e-5)
                         alpha = gamma / np.sqrt(var + eps)
-                        scope.set_var(
-                            w_name,
-                            (w * alpha.reshape(-1, 1, 1, 1)).astype(w.dtype))
+                        scope.set_var(w_name, from_numpy(
+                            (w * alpha.reshape(-1, 1, 1, 1)).astype(w.dtype),
+                            w_t.device))
                         b_name = f"{w_name}@bn_folded_bias"
                         blk.create_var(name=b_name, shape=(len(alpha),),
                                        dtype=str(w.dtype), persistable=True)
-                        scope.set_var(
-                            b_name, (beta - mean * alpha).astype(w.dtype))
+                        scope.set_var(b_name, from_numpy(
+                            (beta - mean * alpha).astype(w.dtype),
+                            w_t.device))
                         # the conv (already emitted, in place) keeps its
                         # output; a bias add writes the BN's Y in its stead
                         # (followed by the BN's folded activation, if any)

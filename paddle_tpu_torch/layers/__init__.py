@@ -1,6 +1,7 @@
 """Layers DSL (reference python/paddle/fluid/layers/): the subset the BERT,
 ResNet, Transformer NMT, DeepFM and LeNet slices use, the learning-rate
-schedules, ConditionalBlock and the Variable operators."""
+schedules, ConditionalBlock, the Variable operators, the sequence layers,
+the beam-search layers and pad / pad2d / space_to_depth."""
 from . import math_op_patch  # noqa: F401  (attaches Variable operators)
 from . import control_flow  # noqa: F401
 from .control_flow import ConditionalBlock  # noqa: F401
@@ -77,5 +78,26 @@ from .tensor import (  # noqa: F401
 from .coverage import (  # noqa: F401
     create_py_reader_by_data,
     double_buffer,
+    pad,
+    pad2d,
     py_reader,
+    space_to_depth,
+)
+from .rnn import beam_search, beam_search_decode  # noqa: F401
+from .sequence import (  # noqa: F401
+    sequence_concat,
+    sequence_conv,
+    sequence_enumerate,
+    sequence_erase,
+    sequence_expand_as,
+    sequence_mask,
+    sequence_pad,
+    sequence_pool,
+    sequence_reshape,
+    sequence_reverse,
+    sequence_scatter,
+    sequence_slice,
+    sequence_softmax,
+    sequence_topk_avg_pooling,
+    sequence_unpad,
 )

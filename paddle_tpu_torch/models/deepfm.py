@@ -8,8 +8,10 @@ embedding table; the reference's O(touched-rows) sparse-apply cost model
 (selected_rows_functor.cc MergeAdd + optimizers/adagrad_op.cc sparse
 kernels) is kept by SelectedRows gradients and, with ``packed_rows=``, the
 packed row-major table of ``ops/deferred_rows.py`` updated by the fused
-sparse-Adagrad kernel. Mesh sharding of the table (``shard_axis``) and
-``deferred_rows=`` are not ported: both raise.
+sparse-Adagrad kernel, or with ``deferred_rows=``, the deferred-row log of
+the same module (the optimizer state in extra columns of the f32 table, a
+fold every ``segments`` steps). Mesh sharding of the table
+(``shard_axis``) is not ported: it raises (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -123,9 +125,12 @@ def build_train_program(vocab_size=100000, num_fields=26, num_dense=13,
 
     packed_rows={"rows_per_step": B*num_fields[, "fused": bool]} stores
     the fused table packed row-major with the optimizer state in its rows
-    and updates the touched rows only (ops/deferred_rows.py). Requires
+    and updates the touched rows only (ops/deferred_rows.py).
+    deferred_rows={"rows_per_step": B*num_fields[, "segments": K]} widens
+    the f32 table by the optimizer's state columns (state_mult) and routes
+    its updates through the deferred-row log: O(touched rows) a step plus
+    one fold every K steps, run by the executor's epilogue. Either requires
     is_sparse=True, fused_table=True and an embedding_optimizer choice.
-    deferred_rows= raises NotImplementedError (not ported).
     """
     state_mult = 1
     if deferred_rows is not None or packed_rows is not None:

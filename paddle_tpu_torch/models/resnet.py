@@ -79,12 +79,21 @@ _LAYOUT = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
 def _s2d_stem(img, is_test):
-    """The space-to-depth stem of the JAX package needs the `pad` and
-    `space_to_depth` ops, which are not ported yet."""
-    raise NotImplementedError(
-        "resnet(stem_s2d=True): the space-to-depth stem needs the pad and "
-        "space_to_depth ops, which are not ported yet (queued in ROADMAP.md "
-        "after the ResNet-50 training slice); use the default 7x7 stem")
+    """Space-to-depth stem (the JAX package's, from the MLPerf TPU ResNet):
+    pad 224 -> 230, move 2x2 spatial blocks into channels ([B,3,230,230] ->
+    [B,12,115,115]) and run a 4x4 stride-1 conv: the function family of
+    the padded 7x7 stride-2 conv (an 8x8 kernel on 2x2 blocks) with
+    C_in = 12 instead of 3. The BN after it is a plain batch_norm, which
+    PDTPU_BN_MODE=pallas sends through the fused-BN kernels."""
+    x = layers.pad(img, [0, 0, 0, 0, 3, 3, 3, 3])
+    x = layers.space_to_depth(x, 2)
+    conv = layers.conv2d(x, 64, 4, stride=1, padding=0, bias_attr=False,
+                         param_attr=ParamAttr(name="stem.w"))
+    return layers.batch_norm(conv, act="relu", is_test=is_test,
+                             param_attr=ParamAttr(name="stem.bn.scale"),
+                             bias_attr=ParamAttr(name="stem.bn.bias"),
+                             moving_mean_name="stem.bn.mean",
+                             moving_variance_name="stem.bn.var")
 
 
 def resnet(img, depth: int = 50, num_classes: int = 1000, is_test: bool = False,

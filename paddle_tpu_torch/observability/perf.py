@@ -13,7 +13,8 @@ from ..core.dtypes import itemsize
 def _var_nbytes(v, batch: Optional[int]) -> int:
     if v.shape is None:
         return 0
-    shp = [int(d) if int(d) > 0 else int(batch or 1) for d in v.shape]
+    shp = [int(d) if d is not None and int(d) > 0 else int(batch or 1)
+           for d in v.shape]
     try:
         size = itemsize(v.dtype)
     except (TypeError, ValueError):
@@ -43,7 +44,10 @@ def analytic_cost(program, feed: Optional[Dict[str, Any]] = None) -> dict:
         v = blk._find_var_recursive(name)
         if v is None or v.shape is None:
             return None
-        return [int(d) if int(d) > 0 else int(batch or 1) for d in v.shape]
+        # an unknown dim (-1, or None where a layer could not infer it:
+        # pad / space_to_depth of a batch-free shape) is the batch
+        return [int(d) if d is not None and int(d) > 0 else int(batch or 1)
+                for d in v.shape]
 
     fwd_flops = 0.0
     out_bytes = 0.0

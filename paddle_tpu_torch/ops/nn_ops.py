@@ -18,6 +18,7 @@ from ..core.registry import register_op
 from ..core.selected_rows import SelectedRows
 from .common import (act_map, bn_batch_stats_xla1, bn_normalize, conv2d_nchw,
                      one)
+from .deferred_rows import lookup_join
 from .kernels import fused_bn
 from .kernels.sparse_adagrad import take_rows, unpack_rows
 
@@ -196,8 +197,14 @@ def _lookup_sparse_grad(attrs):
         padding_idx = attrs2.get("padding_idx", -1)
         if padding_idx is not None and padding_idx >= 0:
             rows = rows.masked_fill((flat_ids == padding_idx)[:, None], 0.0)
-        return {"W": [SelectedRows(flat_ids, rows, w.shape[0])],
-                "Ids": [None]}
+        out = {"W": [SelectedRows(flat_ids, rows, w.shape[0])],
+               "Ids": [None]}
+        # the pending deferred-row state is optimizer state, not a
+        # differentiable input
+        for slot in ("PendingPos", "PendingCum"):
+            if slot in inputs:
+                out[slot] = [None]
+        return out
 
     return grad
 
@@ -214,22 +221,40 @@ def _gather_rows(w, idx, attrs):
     return out
 
 
-@register_op("lookup_table", nondiff_inputs=["Ids"],
+@register_op("lookup_table", nondiff_inputs=["Ids", "PendingPos", "PendingCum"],
              grad_fn=_lookup_sparse_grad)
 def _lookup_table(ctx, inputs, attrs):
     """lookup_table_op.cc: W[ids]; padding_idx rows produce zeros. With
     ``row_pack_dt`` the table is a packed row-major [V, 128] uint16 array
     (``ops/deferred_rows.py``): a full-row gather (a copy), then a
-    bit-exact unpack of the dt f32 values. The deferred-row inputs
-    (PendingPos/PendingCum) are not ported."""
-    if "PendingPos" in inputs:
-        raise NotImplementedError(
-            "lookup_table: deferred-row tables (PendingPos, deferred_rows=) "
-            "are not ported yet (ROADMAP A5, left out by slice 5)")
+    bit-exact unpack of the dt f32 values.
+
+    With PendingPos/PendingCum inputs (wired by a deferred-row optimizer,
+    ``ops/deferred_rows.py``) the read adds each id's pending cumulative
+    delta to the base gather (``lookup_join``), so a lookup sees the exact
+    serial-update value whatever the fold cadence — the analog of the
+    reference's distributed_lookup_table prefetch rewrite
+    (parameter_prefetch.cc). Out is formed as the JAX package forms it,
+    ``(cur - base).detach() + base`` (the same bits, and the gradient stays
+    on the base gather); CumOut feeds the deferred optimizer op, which
+    reuses these gathers instead of issuing its own."""
     (w,) = inputs["W"]
     (ids,) = inputs["Ids"]
     idx = _squeezed(ids)
     rp_dt = attrs.get("row_pack_dt")
+    if "PendingPos" in inputs:
+        (postab,) = inputs["PendingPos"]
+        (log_cum,) = inputs["PendingCum"]
+        out = w[idx]
+        q = idx.reshape(-1)
+        cur, cum = lookup_join(postab, log_cum,
+                               out.reshape(q.shape[0], -1), q)
+        shp = tuple(idx.shape) + (w.shape[-1],)
+        out = (cur.reshape(shp) - out).detach() + out
+        padding_idx = attrs.get("padding_idx", -1)
+        if padding_idx is not None and padding_idx >= 0:
+            out = out.masked_fill((idx == padding_idx)[..., None], 0.0)
+        return {"Out": [out], "CumOut": [cum.reshape(shp).detach()]}
     if not rp_dt:
         return one(_gather_rows(w, idx, attrs))
     out = unpack_rows(take_rows(w, idx.reshape(-1)), int(rp_dt))

@@ -13,6 +13,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.dtypes import convert_dtype
 from ..core.registry import register_op
@@ -100,6 +101,30 @@ def _cast(ctx, inputs, attrs):
 def _assign(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(x)
+
+
+@register_op("pad")
+def _pad(ctx, inputs, attrs):
+    """pad_op.cc: constant padding, [before, after] per dim in order."""
+    (x,) = inputs["X"]
+    p = attrs["paddings"]
+    flat = []
+    for i in reversed(range(x.ndim)):  # F.pad lists the last dim first
+        flat += [p[2 * i], p[2 * i + 1]]
+    return one(F.pad(x, flat, value=attrs.get("pad_value", 0.0)))
+
+
+@register_op("pad2d")
+def _pad2d(ctx, inputs, attrs):
+    """pad2d_op.cc: [top, bottom, left, right] of an NCHW x; constant,
+    reflect (no edge repeat) or edge."""
+    (x,) = inputs["X"]
+    t, b, l, r = attrs["paddings"]
+    mode = attrs.get("mode", "constant")
+    if mode == "constant":
+        return one(F.pad(x, [l, r, t, b], value=attrs.get("pad_value", 0.0)))
+    tmode = {"reflect": "reflect", "edge": "replicate"}[mode]
+    return one(F.pad(x, [l, r, t, b], mode=tmode))
 
 
 @register_op("fill_constant", differentiable=False)

@@ -8,8 +8,13 @@ state carries across one to one (``io.load_params_from_numpy``); each
 parameter gets one update op consuming ``param@GRAD``. ``packed_rows=``
 (SGD, Adagrad, Adam) puts a packed row-major table (``embedding(...,
 row_pack=True)``) on its ``*_row_packed`` op, with the optimizer state in
-the table's own rows; ``deferred_rows=`` (the deferred-row log) and the
-dygraph path are not ported.
+the table's own rows; ``deferred_rows=`` (SGD, Adagrad, Adam) puts an
+``is_sparse`` table on the deferred-row log (``ops/deferred_rows.py``):
+state vars named as in the JAX package (``{p}@pending_pos``, ``@log_ids``,
+``@log_raw``, ``@log_cum``, ``@log_count``), the lookup site rewired to
+read through them, a ``*_row_deferred`` update op and a fold program the
+executor runs every ``segments`` steps (``main._epilogue_programs``). The
+dygraph path is not ported.
 
 Also here, as in the JAX package: LarsMomentum, DecayedAdagrad, Adadelta,
 RMSProp, Adamax and Ftrl; GradientMergeOptimizer and LookaheadOptimizer,
@@ -24,21 +29,12 @@ from typing import List, Optional, Tuple
 
 from .core.backward import append_backward
 from .core.dtypes import dtype_str
-from .core.program import (Variable, default_main_program,
+from .core.program import (Program, Variable, default_main_program,
                            default_startup_program)
 from .core.scope import global_scope
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
-
-
-def _no_deferred_rows(deferred_rows):
-    if deferred_rows is not None:
-        raise NotImplementedError(
-            "deferred_rows= (the deferred-row log: lookup_join, "
-            "*_row_deferred, deferred_fold) is not ported to "
-            "paddle_tpu_torch yet (ROADMAP A5, left out by slice 5); use "
-            "packed_rows= with an embedding built with row_pack=True")
 
 
 class Optimizer:
@@ -54,6 +50,11 @@ class Optimizer:
         self._lr_var = None
         self.helper = None
         self.type = "optimizer"
+        # deferred row updates (ops/deferred_rows.py): set by subclasses
+        # that accept the deferred_rows kwarg
+        self._deferred_rows = None
+        self._deferred_applied = []
+        self.fold_program = None
 
     # -- learning rate -----------------------------------------------------
     def _create_global_learning_rate(self):
@@ -149,6 +150,156 @@ class Optimizer:
                  "fused": bool(self._packed_rows.get("fused", True))}
         return inputs, outputs, attrs
 
+    # -- deferred row updates (ops/deferred_rows.py) -----------------------
+    @staticmethod
+    def _normalize_deferred(cfg):
+        """deferred_rows kwarg: None, or {"rows_per_step": R[, "segments":
+        K]}. R must bound the lookup rows any single step produces for the
+        table (static capacity, checked again when the op runs)."""
+        if cfg is None:
+            return None
+        if not isinstance(cfg, dict) or "rows_per_step" not in cfg:
+            raise ValueError(
+                "deferred_rows must be a dict with at least 'rows_per_step' "
+                "(max lookup rows per step), optionally 'segments' "
+                f"(fold cadence, default 16); got {cfg!r}")
+        return {"segments": int(cfg.get("segments", 16)),
+                "rows_per_step": int(cfg["rows_per_step"])}
+
+    def _deferred_setup(self, block, p, state_init=0.0):
+        """Create the postab + append-log state of table `p`, rewrite its
+        single sparse lookup site to read through it and to export its
+        gathered rows (the distributed_lookup_table rewrite analog,
+        parameter_prefetch.cc), init the state columns, and record the fold
+        inputs. Returns the dict of vars for the optimizer op."""
+        cfg = self._deferred_rows
+        k, r = cfg["segments"], cfg["rows_per_step"]
+        mult = self._DEFERRED_STATE_MULT[self.type]
+        dt = int(p.shape[-1])
+        if dt % mult:
+            raise ValueError(
+                f"deferred_rows: {self.type} stores {mult} column groups "
+                f"per row (param{'' if mult == 1 else ' + moment state'}), "
+                f"so table {p.name!r} needs last dim divisible by {mult}; "
+                f"got {dt}. Build the embedding with "
+                f"[vocab, dim*{mult}] and slice [:, :, :dim]")
+        vis = dt // mult
+        c = k * r
+        prog = block.program
+        sites = self._deferred_sites(prog, p)
+        if len(sites) != 1:
+            raise ValueError(
+                f"deferred_rows: table {p.name!r} has {len(sites)} "
+                f"is_sparse lookup sites; the deferred path requires "
+                f"exactly one (its gathered rows feed the optimizer op)")
+        (site,) = sites
+        if site.attrs.get("row_pack_dt"):
+            raise ValueError(
+                f"deferred_rows: table {p.name!r} was built with "
+                f"row_pack=True; row_pack tables require the packed_rows "
+                f"optimizer config (direct touched-row scatter updates), "
+                f"not deferred_rows")
+        helper = LayerHelper(f"{self._name}_deferred")
+        postab = helper.create_global_variable(
+            [int(p.shape[0])], "int32", name=f"{p.name}@pending_pos",
+            initializer=ConstantInitializer(-1))
+        log_ids = helper.create_global_variable(
+            [c], "int32", name=f"{p.name}@log_ids",
+            initializer=ConstantInitializer(2**31 - 1))
+        # log rows lane-padded to a 128 multiple, as the JAX package
+        # declares them (a JAX scope or checkpoint loads unchanged)
+        lw = ((dt + 127) // 128) * 128
+        log_raw = helper.create_global_variable(
+            [c, lw], dtype_str(p.dtype), name=f"{p.name}@log_raw")
+        log_cum = helper.create_global_variable(
+            [c, lw], dtype_str(p.dtype), name=f"{p.name}@log_cum")
+        count = helper.create_global_variable(
+            [1], "int32", name=f"{p.name}@log_count")
+        if mult > 1:
+            # state columns: overwrite whatever the param initializer
+            # produced there with the moment initial value
+            default_startup_program().global_block().append_op(
+                type="deferred_init_state_cols",
+                inputs={"Param": [p.name]}, outputs={"ParamOut": [p.name]},
+                attrs={"vis": vis, "value": float(state_init)})
+        # rewrite the lookup site: read through the pending state and
+        # export the gathered current/cum rows for the optimizer op
+        cum_var = prog.global_block().create_var(
+            name=f"{p.name}@lookup_cum", shape=[-1, dt], dtype="float32",
+            persistable=False, stop_gradient=True)
+        site.inputs["PendingPos"] = [postab.name]
+        site.inputs["PendingCum"] = [log_cum.name]
+        site.outputs["CumOut"] = [cum_var.name]
+        prog._bump_version()
+        out = {"postab": postab, "log_ids": log_ids, "log_raw": log_raw,
+               "log_cum": log_cum, "count": count,
+               "fwd_rows": site.outputs["Out"][0], "fwd_cum": cum_var.name,
+               "vis": vis}
+        self._deferred_applied.append((p, out))
+        return out
+
+    def _deferred_io(self, p, g, dv):
+        """The input/output maps shared by the deferred optimizer ops."""
+        inputs = {"Grad": [g.name],
+                  "FwdRows": [dv["fwd_rows"]], "FwdCum": [dv["fwd_cum"]],
+                  "PendingPos": [dv["postab"].name],
+                  "LogIds": [dv["log_ids"].name],
+                  "LogRaw": [dv["log_raw"].name],
+                  "LogCum": [dv["log_cum"].name],
+                  "Count": [dv["count"].name],
+                  "LearningRate": [self._lr_var.name]}
+        outputs = {"PendingPosOut": [dv["postab"].name],
+                   "LogIdsOut": [dv["log_ids"].name],
+                   "LogRawOut": [dv["log_raw"].name],
+                   "LogCumOut": [dv["log_cum"].name],
+                   "CountOut": [dv["count"].name]}
+        return inputs, outputs
+
+    def _build_deferred_fold(self, main_prog):
+        """One `deferred_fold` op per deferred table in a program of its
+        own, attached as an executor epilogue at the fold cadence (the
+        pserver communicator-cadence analog): ``main._epilogue_programs``
+        gains ``(segments, fold_program, meta)``. Running it is a pure
+        representation change; it just has to run before the log wraps."""
+        if not self._deferred_applied:
+            return
+        cfg = self._deferred_rows
+        fold = Program()
+        blk = fold.global_block()
+
+        def decl(v):
+            if blk._find_var_recursive(v.name) is None:
+                blk.create_var(name=v.name, shape=list(v.shape),
+                               dtype=dtype_str(v.dtype), persistable=True)
+            return v.name
+
+        for p, dv in self._deferred_applied:
+            inputs = {"Param": [decl(p)],
+                      "PendingPos": [decl(dv["postab"])],
+                      "LogIds": [decl(dv["log_ids"])],
+                      "LogRaw": [decl(dv["log_raw"])],
+                      "LogCum": [decl(dv["log_cum"])],
+                      "Count": [decl(dv["count"])]}
+            outputs = {"ParamOut": [p.name],
+                       "PendingPosOut": [dv["postab"].name],
+                       "LogIdsOut": [dv["log_ids"].name],
+                       "LogRawOut": [dv["log_raw"].name],
+                       "LogCumOut": [dv["log_cum"].name],
+                       "CountOut": [dv["count"].name]}
+            blk.append_op(type="deferred_fold", inputs=inputs,
+                          outputs=outputs, attrs={})
+        meta = {"count_vars": [dv["count"].name
+                               for _, dv in self._deferred_applied],
+                "rows_per_step": cfg["rows_per_step"]}
+        main_prog._epilogue_programs = (
+            list(getattr(main_prog, "_epilogue_programs", []))
+            + [(cfg["segments"], fold, meta)])
+        self.fold_program = fold
+
+    def _deferred_applies(self, prog, p):
+        return (self._deferred_rows is not None
+                and bool(self._deferred_sites(prog, p)))
+
     # -- api ----------------------------------------------------------------
     def _create_accumulators(self, block, parameters):
         pass
@@ -171,7 +322,16 @@ class Optimizer:
         self._create_global_learning_rate()
         self._create_accumulators(prog.global_block(),
                                   [p for p, g in params_grads])
-        return [self._append_optimize_op(block, pg) for pg in params_grads]
+        ops = [self._append_optimize_op(block, pg) for pg in params_grads]
+        if self._deferred_rows is not None:
+            if not self._deferred_applied:
+                raise ValueError(
+                    "deferred_rows was set but no parameter has an "
+                    "is_sparse lookup_table site — deferred row updates "
+                    "need SelectedRows gradients (build the embedding "
+                    "with is_sparse=True)")
+            self._build_deferred_fold(prog)
+        return ops
 
     def apply_optimize(self, loss, startup_program, params_grads):
         return self.apply_gradients(params_grads)
@@ -186,9 +346,9 @@ class Optimizer:
 class SGDOptimizer(Optimizer):
     def __init__(self, learning_rate, regularization=None, name=None,
                  grad_clip=None, deferred_rows=None, packed_rows=None):
-        _no_deferred_rows(deferred_rows)
         super().__init__(learning_rate, regularization, name, grad_clip)
         self.type = "sgd"
+        self._deferred_rows = self._normalize_deferred(deferred_rows)
         self._packed_rows = packed_rows
 
     def _append_optimize_op(self, block, param_and_grad):
@@ -198,6 +358,13 @@ class SGDOptimizer(Optimizer):
             inputs, outputs, attrs = self._packed_io(p, g, site)
             return block.append_op(type="sgd_row_packed", inputs=inputs,
                                    outputs=outputs, attrs=attrs)
+        if self._deferred_applies(block.program, p):
+            dv = self._deferred_setup(block, p)
+            inputs, outputs = self._deferred_io(p, g, dv)
+            return block.append_op(
+                type="sgd_row_deferred", inputs=inputs, outputs=outputs,
+                attrs={"vis": dv["vis"],
+                       "rows_per_step": self._deferred_rows["rows_per_step"]})
         return block.append_op(
             type="sgd",
             inputs={"Param": [p.name], "Grad": [g.name],
@@ -237,20 +404,22 @@ class _AdamLike(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
                  regularization=None, name=None, grad_clip=None,
                  deferred_rows=None, packed_rows=None, **kw):
-        _no_deferred_rows(deferred_rows)
         super().__init__(learning_rate, regularization, name, grad_clip)
         self.type = self.op_type
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._extra_attrs = kw
-        if self.op_type != "adam" and packed_rows is not None:
+        if self.op_type != "adam" and (deferred_rows is not None
+                                       or packed_rows is not None):
             raise ValueError(
-                f"packed_rows: sparse row-update kernels exist for "
-                f"sgd/adagrad/adam only, not {self.op_type!r}")
+                f"deferred_rows/packed_rows: sparse row-update kernels "
+                f"exist for sgd/adagrad/adam only, not {self.op_type!r}")
+        self._deferred_rows = self._normalize_deferred(deferred_rows)
         self._packed_rows = packed_rows
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
-            if self._packed_site(block.program, p) is not None:
+            if (self._deferred_applies(block.program, p)
+                    or self._packed_site(block.program, p) is not None):
                 # m/v live in the table's state columns; beta pows stay
                 self._add_accumulator("beta1_pow", p, fill_value=self._beta1, shape=[1], dtype="float32")
                 self._add_accumulator("beta2_pow", p, fill_value=self._beta2, shape=[1], dtype="float32")
@@ -276,6 +445,18 @@ class _AdamLike(Optimizer):
             attrs.update(pattrs)
             return block.append_op(type="adam_row_packed", inputs=inputs,
                                    outputs=outputs, attrs=attrs)
+        if self._deferred_applies(block.program, p):
+            dv = self._deferred_setup(block, p)
+            inputs, outputs = self._deferred_io(p, g, dv)
+            inputs["Beta1Pow"] = [b1p.name]
+            inputs["Beta2Pow"] = [b2p.name]
+            outputs["Beta1PowOut"] = [b1p.name]
+            outputs["Beta2PowOut"] = [b2p.name]
+            attrs.update({"vis": dv["vis"],
+                          "rows_per_step": self._deferred_rows["rows_per_step"]})
+            return block.append_op(
+                type="adam_row_deferred", inputs=inputs, outputs=outputs,
+                attrs=attrs)
         m1 = self._get_accumulator("moment1", p)
         m2 = self._get_accumulator("moment2", p)
         return block.append_op(
@@ -317,16 +498,17 @@ class AdagradOptimizer(Optimizer):
     def __init__(self, learning_rate, epsilon=1e-6, regularization=None,
                  name=None, initial_accumulator_value=0.0, grad_clip=None,
                  deferred_rows=None, packed_rows=None):
-        _no_deferred_rows(deferred_rows)
         super().__init__(learning_rate, regularization, name, grad_clip)
         self.type = "adagrad"
         self._epsilon = epsilon
         self._initial = initial_accumulator_value
+        self._deferred_rows = self._normalize_deferred(deferred_rows)
         self._packed_rows = packed_rows
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
-            if self._packed_site(block.program, p) is not None:
+            if (self._packed_site(block.program, p) is not None
+                    or self._deferred_applies(block.program, p)):
                 continue  # G lives in the table's state columns
             self._add_accumulator("moment", p, fill_value=self._initial)
 
@@ -339,6 +521,13 @@ class AdagradOptimizer(Optimizer):
             attrs["epsilon"] = self._epsilon
             return block.append_op(type="adagrad_row_packed", inputs=inputs,
                                    outputs=outputs, attrs=attrs)
+        if self._deferred_applies(block.program, p):
+            dv = self._deferred_setup(block, p, state_init=self._initial)
+            inputs, outputs = self._deferred_io(p, g, dv)
+            return block.append_op(
+                type="adagrad_row_deferred", inputs=inputs, outputs=outputs,
+                attrs={"epsilon": self._epsilon, "vis": dv["vis"],
+                       "rows_per_step": self._deferred_rows["rows_per_step"]})
         m = self._get_accumulator("moment", p)
         return block.append_op(
             type="adagrad",

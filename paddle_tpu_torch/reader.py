@@ -6,8 +6,8 @@ Reference analog: ``python/paddle/reader/decorator.py`` (batch/shuffle/
 buffered/map_readers/xmap_readers/compose/chain/firstn/cache,
 multiprocess_reader, Fake, creator) and ``python/paddle/fluid/reader.py``
 PyReader:47 (background thread feeding a blocking queue, double-buffered
-H2D — buffered_reader.cc). ``bucket_by_sequence_length`` is not ported
-yet (ROADMAP A6).
+H2D — buffered_reader.cc). ``bucket_by_sequence_length`` groups
+variable-length samples into padded length buckets.
 """
 from __future__ import annotations
 
@@ -283,6 +283,83 @@ class PyReader:
         if self._loader is not None:
             self._loader.close()
             self._loader = None
+
+
+def bucket_by_sequence_length(reader, bucket_boundaries, batch_sizes,
+                              pad_value=0, length_fn=None):
+    """Length-bucketing batch reader (keeps most of the reference's
+    padding-free LoD efficiency with a few static shapes).
+
+    Groups samples into buckets by length, pads every sample in a bucket to
+    the bucket's boundary, and yields `(padded_batch, lengths)` once a
+    bucket fills. The bucket count bounds the feed shapes a program sees
+    (one prepared plan each), while the padding waste stays
+    ≤ (boundary gap / boundary).
+
+    reader: yields samples; a sample is a 1-D sequence (list/np array) or a
+    tuple whose first element is the sequence. bucket_boundaries: ascending
+    max lengths, e.g. [16, 32, 64]; longer samples are dropped.
+    batch_sizes: per-bucket batch size (int = same for all).
+    length_fn: custom sample→length (default: len of first element)."""
+    bounds = list(bucket_boundaries)
+    if isinstance(batch_sizes, int):
+        batch_sizes = [batch_sizes] * len(bounds)
+    if len(batch_sizes) != len(bounds):
+        raise ValueError("batch_sizes must match bucket_boundaries")
+
+    def _len(sample):
+        if length_fn is not None:
+            return length_fn(sample)
+        seq = sample[0] if isinstance(sample, (tuple, list)) and not np.isscalar(sample[0]) else sample
+        return len(seq)
+
+    def _field_bound(maxlen, bound):
+        # pad to the bucketed bound when the field fits it, else to the next
+        # boundary up (keeps the shape set small)
+        if maxlen <= bound:
+            return bound
+        for b in bounds:
+            if maxlen <= b:
+                return b
+        return maxlen
+
+    def _pad_batch(samples, bound):
+        first = samples[0]
+        multi = isinstance(first, (tuple, list)) and not np.isscalar(first[0])
+        n_fields = len(first) if multi else 1
+        fields = []
+        for f in range(n_fields):
+            rows = [np.asarray(s[f] if multi else s) for s in samples]
+            if rows[0].ndim == 0:        # scalar field (e.g. a label)
+                fields.append(np.stack(rows))
+                continue
+            fb = _field_bound(max(len(r) for r in rows), bound)
+            padded = np.full((len(rows), fb) + rows[0].shape[1:],
+                             pad_value, rows[0].dtype)
+            for i, r in enumerate(rows):
+                padded[i, :len(r)] = r
+            fields.append(padded)
+        lengths = np.asarray([_len(s) for s in samples], np.int64)
+        return (tuple(fields) if multi else fields[0]), lengths
+
+    def bucketed():
+        pending = [[] for _ in bounds]
+        for sample in reader():
+            L = _len(sample)
+            for bi, bound in enumerate(bounds):
+                if L <= bound:
+                    pending[bi].append(sample)
+                    if len(pending[bi]) == batch_sizes[bi]:
+                        yield _pad_batch(pending[bi], bound)
+                        pending[bi] = []
+                    break
+            # samples longer than the last boundary are dropped (reference
+            # readers truncate or drop equivalently)
+        for bi, bucket in enumerate(pending):
+            if bucket:
+                yield _pad_batch(bucket, bounds[bi])
+
+    return bucketed
 
 
 def multiprocess_reader(readers, use_pipe=True, queue_size=1000):

@@ -257,17 +257,39 @@ def test_packed_deepfm_builder_trains():
 
 
 def test_deferred_rows_raise_not_ported():
-    """deferred_rows= is the deferred-row log, not ported: it raises at
-    construction, naming its queue item (the JAX package raises a
-    ValueError only when it meets a row_pack table)."""
+    """deferred_rows= is ported: SGD, Adagrad and Adam take it, and the
+    deferred DeepFM builder emits the JAX package's program (same ops,
+    the rewired lookup site, the state vars' names, shapes and dtypes,
+    the fold epilogue's cadence and ops). Misconfigurations raise as in
+    the JAX package."""
     for opt in (tfluid.optimizer.SGD, tfluid.optimizer.Adagrad,
                 tfluid.optimizer.Adam):
-        with pytest.raises(NotImplementedError, match="A5"):
-            opt(0.1, deferred_rows={"rows_per_step": B * F})
+        assert opt(0.1, deferred_rows={"rows_per_step": B * F,
+                                       "segments": 3})._deferred_rows == {
+            "rows_per_step": B * F, "segments": 3}
+    cfg = dict(vocab_size=VOCAB, is_sparse=True, fused_table=True, lr=LR,
+               embedding_optimizer="adam", hidden_sizes=HIDDEN,
+               deferred_rows={"rows_per_step": BATCH * 26, "segments": 5})
+    with jnames.guard():
+        jmain, jstart, _, _, _ = jdeepfm.build_train_program(**cfg)
+    with tnames.guard():
+        tmain, tstart, _, _, _ = tdeepfm.build_train_program(**cfg)
+    for jp, tp in ((jmain, tmain), (jstart, tstart)):
+        assert _ops(tp) == _ops(jp)
+        assert tp.to_dict() == jp.to_dict()
+    (jev, jfold, jmeta), = jmain._epilogue_programs
+    (tev, tfold, tmeta), = tmain._epilogue_programs
+    assert (tev, tmeta) == (jev, jmeta) == (5, {
+        "count_vars": ["fm_t@log_count"], "rows_per_step": BATCH * 26})
+    assert tfold.to_dict() == jfold.to_dict()
+    blk = tmain.global_block()
+    assert blk.var("fm_t").shape == (VOCAB, 51)
+    assert blk.var("fm_t@log_raw").shape == (5 * BATCH * 26, 128)
+    assert [op.type for op in blk.ops].count("adam_row_deferred") == 1
     with pytest.raises(ValueError, match="is_sparse"):
         tdeepfm.build_train_program(vocab_size=100, is_sparse=False,
                                     embedding_optimizer="adagrad",
-                                    packed_rows={"rows_per_step": 10})
+                                    deferred_rows={"rows_per_step": 10})
 
 
 # -- twins of tests/test_sparse_embedding.py ---------------------------------

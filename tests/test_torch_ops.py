@@ -379,14 +379,104 @@ CASES += [
      {"num_thresholds": 63}),
 ]
 
+_LEN = np.array([2, 5, 1], np.int32)
+_SEQ = _r(3, 5, 4, seed=7)
+_TOKS = np.array([[2, 1, 2, 3, 0], [5, 2, 2, 2, 1]], np.int32)
+_LOG_IDS = np.array([3, 1, 3, 2**31 - 1, 3, 5, 2**31 - 1, 2**31 - 1],
+                    np.int32)
+CASES += [
+    ("pad", "pad", {"X": [_r(2, 3, 4)]},
+     {"paddings": [0, 1, 2, 0, 1, 3], "pad_value": -0.5}),
+    ("pad2d_constant", "pad2d", {"X": [_r(2, 3, 4, 5)]},
+     {"paddings": [1, 0, 2, 3], "mode": "constant", "pad_value": 1.5}),
+    ("pad2d_reflect", "pad2d", {"X": [_r(2, 3, 4, 5)]},
+     {"paddings": [1, 2, 2, 3], "mode": "reflect"}),
+    ("pad2d_edge", "pad2d", {"X": [_r(2, 3, 4, 5)]},
+     {"paddings": [2, 1, 0, 3], "mode": "edge"}),
+    ("space_to_depth", "space_to_depth", {"X": [_r(2, 3, 6, 4)]},
+     {"blocksize": 2}),
+    ("sequence_mask", "sequence_mask", {"X": [_LEN]},
+     {"maxlen": 6, "out_dtype": "int32"}),
+    ("sequence_pool_sum", "sequence_pool", {"X": [_SEQ], "Length": [_LEN]},
+     {"pooltype": "SUM"}),
+    ("sequence_pool_average", "sequence_pool",
+     {"X": [_SEQ], "Length": [_LEN]}, {"pooltype": "AVERAGE"}),
+    ("sequence_pool_sqrt", "sequence_pool", {"X": [_SEQ], "Length": [_LEN]},
+     {"pooltype": "SQRT"}),
+    ("sequence_pool_max", "sequence_pool", {"X": [_SEQ], "Length": [_LEN]},
+     {"pooltype": "MAX"}),
+    ("sequence_pool_last", "sequence_pool", {"X": [_SEQ], "Length": [_LEN]},
+     {"pooltype": "LAST"}),
+    ("sequence_pool_first", "sequence_pool",
+     {"X": [_SEQ], "Length": [_LEN]}, {"pooltype": "FIRST"}),
+    ("sequence_softmax", "sequence_softmax",
+     {"X": [_r(3, 5)], "Length": [_LEN]}, {}),
+    ("sequence_expand", "sequence_expand",
+     {"X": [_r(3, 4)], "Y": [_r(3, 2, 4, seed=1)]}, {}),
+    ("sequence_reverse", "sequence_reverse", {"X": [_SEQ], "Length": [_LEN]},
+     {}),
+    ("sequence_concat", "sequence_concat",
+     {"X": [_r(2, 3, 4), _r(2, 5, 4, seed=1)]}, {}),
+    ("im2sequence", "im2sequence", {"X": [_r(2, 3, 7, 5)]},
+     {"kernels": [3, 2], "strides": [2, 1], "paddings": [1, 0, 1, 0]}),
+    ("sequence_pad", "sequence_pad",
+     {"X": [_SEQ], "PadValue": [np.array(-1.0, np.float32)], "Length": [_LEN]},
+     {"padded_length": 7}),
+    ("sequence_pad_truncate", "sequence_pad",
+     {"X": [_SEQ], "PadValue": [np.array(0.5, np.float32)], "Length": [_LEN]},
+     {"padded_length": 3}),
+    ("sequence_unpad", "sequence_unpad", {"X": [_SEQ], "Length": [_LEN]},
+     {}),
+    ("sequence_conv", "sequence_conv",
+     {"X": [_SEQ], "Filter": [_r(12, 3, seed=2)], "Length": [_LEN]},
+     {"contextLength": 3, "contextStart": -1}),
+    ("sequence_slice", "sequence_slice",
+     {"X": [_SEQ], "Offset": [np.array([1, 0, 3], np.int32)],
+      "Length": [_LEN]}, {}),
+    ("sequence_erase", "sequence_erase",
+     {"X": [_TOKS], "Length": [np.array([4, 5], np.int32)]}, {"tokens": [2]}),
+    ("sequence_expand_as", "sequence_expand_as",
+     {"X": [_r(3, 4)], "Y": [_SEQ], "Length": [_LEN]}, {}),
+    ("sequence_enumerate", "sequence_enumerate",
+     {"X": [_TOKS], "Length": [np.array([3, 5], np.int32)]},
+     {"win_size": 3, "pad_value": 9}),
+    ("sequence_reshape", "sequence_reshape",
+     {"X": [_SEQ], "Length": [_LEN]}, {"new_dim": 2}),
+    ("sequence_scatter", "sequence_scatter",
+     {"X": [_r(2, 6)], "Ids": [np.array([[0, 2, 2], [5, 1, 0]], np.int32)],
+      "Updates": [_r(2, 3, seed=1)], "Length": [np.array([3, 2], np.int32)]},
+     {}),
+    ("sequence_topk_avg_pooling", "sequence_topk_avg_pooling",
+     {"X": [_r(3, 2, 5)], "Length": [_LEN]}, {"topks": [1, 3]}),
+    ("beam_search", "beam_search",
+     {"Scores": [_r(2, 3, 7)], "PreScores": [_r(2, 3, seed=1)],
+      "PreFinished": [np.array([[0, 1, 0], [0, 0, 1]], np.int32)]},
+     {"beam_size": 3, "end_id": 0}),
+    ("beam_search_decode", "beam_search_decode",
+     {"Ids": [_ids(4, 2, 3, hi=7)], "ParentIdx": [_ids(4, 2, 3, hi=3, seed=1)],
+      "Scores": [_r(2, 3)]}, {}),
+    ("deferred_fold", "deferred_fold",
+     {"Param": [_r(6, 4, seed=3)], "LogIds": [_LOG_IDS],
+      "LogRaw": [_r(8, 128, seed=4)], "LogCum": [_r(8, 128, seed=5)],
+      "PendingPos": [np.arange(6, dtype=np.int32)],
+      "Count": [np.array([6], np.int32)]}, {}),
+    ("deferred_init_state_cols", "deferred_init_state_cols",
+     {"Param": [_r(5, 6)]}, {"vis": 2, "value": 0.1}),
+]
+
 # ops whose attrs hold a sub-block: the program-level twins in
 # tests/test_torch_optimizers_more.py run them
 BLOCK_OPS = ("conditional_block",)
+# the deferred-row update ops (a SelectedRows gradient):
+# test_deferred_row_op_matches_jax
+DEFERRED_ROW_OPS = ("sgd_row_deferred", "adagrad_row_deferred",
+                    "adam_row_deferred")
 
 
 def test_cases_cover_every_ported_op():
     covered = ({op for _, op, _, _ in CASES} | set(RANDOM_OPS)
-               | set(SELECTED_ROWS_OPS) | set(BLOCK_OPS))
+               | set(SELECTED_ROWS_OPS) | set(BLOCK_OPS)
+               | set(DEFERRED_ROW_OPS))
     assert covered == set(treg.registered_ops())
     # the port registers nothing the JAX package does not have
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())
@@ -490,6 +580,52 @@ def test_packed_row_op_matches_jax(op_type):
     for slot in set(want) - {"ParamOut"}:
         np.testing.assert_allclose(to_numpy(got[slot][0]),
                                    np.asarray(want[slot][0]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("op_type", DEFERRED_ROW_OPS)
+def test_deferred_row_op_matches_jax(op_type):
+    """The deferred-row update ops on a SelectedRows gradient with
+    duplicates, the log half full and ids already pending, against the JAX
+    ops: every output within rtol 1e-5 (the int32 state equal)."""
+    from paddle_tpu.core.selected_rows import SelectedRows as JRows
+    from paddle_tpu_torch.core.selected_rows import SelectedRows as TRows
+
+    mult = {"sgd_row_deferred": 1, "adagrad_row_deferred": 2,
+            "adam_row_deferred": 3}[op_type]
+    vis, q, cap = 3, 8, 24
+    ids = np.array([4, 1, 4, 9, 0, 1, 1, 7])
+    fwd = _r(q, vis * mult, seed=5)
+    fwd[:, vis:] = np.abs(fwd[:, vis:])
+    postab = np.full(10, -1, np.int32)
+    postab[[1, 9]] = [2, 5]
+    log_ids = np.full(cap, 2**31 - 1, np.int32)
+    log_ids[:q] = [3, 8, 1, 2, 6, 9, 5, 0]
+    inputs = {"FwdRows": [fwd], "FwdCum": [_r(q, vis * mult, seed=7)],
+              "PendingPos": [postab], "LogIds": [log_ids],
+              "LogRaw": [_r(cap, 128, seed=8)],
+              "LogCum": [_r(cap, 128, seed=9)],
+              "Count": [np.array([q], np.int32)], "LearningRate": [_LR],
+              "Beta1Pow": [np.float32([0.9 ** 2])],
+              "Beta2Pow": [np.float32([0.999 ** 2])]}
+    grows = _r(q, vis, seed=6)
+    attrs = {"vis": vis, "rows_per_step": q + 4, "epsilon": 1e-6}
+    want = jreg.get_op(op_type).fn(
+        JaxCtx(None), dict({s: [jnp.asarray(a) for a in v]
+                            for s, v in inputs.items()},
+                           Grad=[JRows(jnp.asarray(ids, jnp.int32),
+                                       jnp.asarray(grows), 10)]), attrs)
+    got = treg.get_op(op_type).fn(
+        TorchCtx("cpu"), dict({s: [torch.from_numpy(a.copy()) for a in v]
+                               for s, v in inputs.items()},
+                              Grad=[TRows(torch.from_numpy(ids),
+                                          torch.from_numpy(grows), 10)]),
+        attrs)
+    assert sorted(got) == sorted(want)
+    for slot in want:
+        g, w = to_numpy(got[slot][0]), np.asarray(want[slot][0])
+        assert g.shape == w.shape and g.dtype == w.dtype, slot
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6,
+                                   err_msg=slot)
 
 
 def test_rowpack_init_distribution_and_seed():

@@ -166,12 +166,70 @@ def test_resnet50_program_same_as_jax():
     assert types.count("momentum") == len(tmain.all_parameters())
 
 
+def _s2d50(fluid, resnet):
+    """ResNet-50 on the space-to-depth stem, the recipe of
+    build_train_program with resnet(stem_s2d=True)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", [3, 224, 224])
+        label = fluid.layers.data("label", [1], dtype="int64")
+        logits = resnet.resnet(img, 50, 1000, stem_s2d=True)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        fluid.layers.accuracy(fluid.layers.softmax(logits), label)
+        fluid.optimizer.Momentum(0.1, 0.9).minimize(loss)
+    return main, startup
+
+
 def test_s2d_stem_is_not_ported_yet():
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tnames.guard(), tfluid.program_guard(main, startup):
-        img = tfluid.layers.data("img", [3, 224, 224])
-        with pytest.raises(NotImplementedError, match="space_to_depth"):
-            tresnet.resnet(img, 50, 1000, stem_s2d=True)
+    """The space-to-depth stem is ported: resnet(stem_s2d=True) at depth 50
+    builds the JAX package's program (same ops, attrs and var descs), its
+    stem pad -> space_to_depth -> 4x4 conv (C_in = 12) -> batch_norm."""
+    progs = []
+    for fluid, names, resnet in PACKAGES:
+        with names.guard():
+            progs.append(_s2d50(fluid, resnet))
+    (jmain, jstart), (tmain, tstart) = progs
+    for jp, tp in ((jmain, tmain), (jstart, tstart)):
+        assert tp.to_dict() == jp.to_dict()
+    ops = tmain.global_block().ops
+    assert [op.type for op in ops[:4]] == ["pad", "space_to_depth",
+                                           "conv2d", "batch_norm"]
+    assert tmain.global_block().var("stem.w").shape == (64, 12, 4, 4)
+    assert [op.type for op in ops].count("fused_conv_bn") == 36
+
+
+def _reduced_s2d(fluid, resnet):
+    """The s2d stem on a [3, 32, 32] image (-> [64, 16, 16]: the stem BN
+    normalizes 2048 rows at B=8, so it takes the fused-BN path), one
+    bottleneck, pool, fc to 10 classes, softmax CE, Momentum."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        L = fluid.layers
+        img = L.data("img", [3, 32, 32])
+        label = L.data("label", [1], dtype="int64")
+        x = resnet._s2d_stem(img, False)
+        x = resnet.bottleneck(x, 64, 1, "b0")
+        x = L.pool2d(x, global_pooling=True, pool_type="avg")
+        logits = L.fc(x, 10, param_attr=fluid.ParamAttr(name="fc.w"),
+                      bias_attr=fluid.ParamAttr(name="fc.b"))
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.Momentum(0.01, 0.9).minimize(loss)
+    return main, startup, loss
+
+
+def test_reduced_s2d_resnet_three_steps_match_jax():
+    """A reduced ResNet on the space-to-depth stem, 3 f32 steps from the
+    JAX startup scope: losses rel 1e-4, every parameter and BN statistic
+    rel L2 3e-3 (the tolerances of the 7x7 reduced test)."""
+    assert tbn.supports((8, 64, 16, 16), None)
+    (jl, jfinal, _, _), (tl, tfinal, _, _) = _run_both(
+        _reduced_s2d, _feed(8, 3, 32), steps=3)
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    assert np.isfinite(tl).all() and tl[-1] != tl[0]
+    assert sorted(tfinal) == sorted(jfinal) and "stem.w" in tfinal
+    for n in jfinal:
+        assert _rel(tfinal[n], jfinal[n]) <= 3e-3, n
 
 
 def test_reduced_resnet_three_steps_match_jax():

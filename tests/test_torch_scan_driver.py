@@ -86,6 +86,22 @@ def _build_packed(pkg=fluid):
     return main, startup, loss
 
 
+def _build_deferred(pkg=fluid, segments=16):
+    """Embedding + Adagrad on the deferred-row log (the fold epilogue
+    every `segments` steps)."""
+    layers = pkg.layers
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        ids = layers.data("ids", [F], dtype="int64")
+        emb = layers.embedding(ids, [V, 2 * D], is_sparse=True,
+                               param_attr=pkg.ParamAttr(name="tb"))
+        emb = layers.slice(emb, axes=[2], starts=[0], ends=[D])
+        loss = layers.reduce_sum(layers.square(emb))
+        pkg.optimizer.Adagrad(0.05, deferred_rows={
+            "rows_per_step": B * F, "segments": segments}).minimize(loss)
+    return main, startup, loss
+
+
 def _sparse_feeds(n, seed=1):
     rng = np.random.RandomState(seed)
     return [{"ids": rng.randint(0, V, (B, F)).astype("int64")}
@@ -145,14 +161,25 @@ def test_train_scanned_bitwise_dense(opt_name):
                                   feeds, "batched"))
 
 
-@pytest.mark.parametrize("mode", ["packed"])
+@pytest.mark.parametrize("mode", ["deferred", "packed"])
 def test_train_scanned_bitwise_sparse(mode):
-    """The packed sparse-row path scans bitwise too (the in-place packed
-    Adagrad update, row 12's op, runs inside every step)."""
+    """The sparse-row paths scan bitwise too: the in-place packed Adagrad
+    update (row 12's op) and the deferred-row log, whose 16-segment log
+    fires no fold inside the 13-step window (a fold's timing depends on
+    the drain grouping, see the cadence test below)."""
+    build = _build_packed if mode == "packed" else _build_deferred
     feeds = _sparse_feeds(13)
-    plain = _train(_build_packed, feeds, "plain")
-    _assert_bitwise(plain, _train(_build_packed, feeds, "scanned", 4))
-    _assert_bitwise(plain, _train(_build_packed, feeds, "batched"))
+    plain = _train(build, feeds, "plain")
+    _assert_bitwise(plain, _train(build, feeds, "scanned", 4))
+    _assert_bitwise(plain, _train(build, feeds, "batched"))
+
+
+def test_train_scanned_rejects_scan_over_fold_cadence():
+    """A drain longer than the fold interval would overflow the log
+    mid-drain: refused with the JAX package's ValueError."""
+    feeds = _sparse_feeds(13)
+    with pytest.raises(ValueError, match="epilogue interval"):
+        _train(lambda: _build_deferred(segments=4), feeds, "scanned", 5)
 
 
 @pytest.mark.parametrize("opt_name", ["sgd", "adagrad"])
@@ -230,17 +257,19 @@ def test_run_batched_packed_matches_the_jax_package():
 
 
 def test_train_scanned_rejects_programs_with_epilogues():
-    """A program carrying maintenance epilogues (the deferred-row folds)
-    is refused, naming ROADMAP A5; so are scan_steps < 1 and a missing
-    reader."""
+    """A drain longer than a program's maintenance-epilogue interval is
+    refused with the JAX package's ValueError (one within it runs); so are
+    scan_steps < 1, a missing reader and missing state."""
     feeds = _dense_feeds(4)
     main, startup, loss = _build_dense(fluid, "sgd")
     exe = fluid.Executor(CPU)
     with fluid.scope_guard(fluid.Scope()):
         exe.run(startup)
-        main._epilogue_programs = [(4, fluid.Program(), None)]
-        with pytest.raises(NotImplementedError, match="A5"):
+        main._epilogue_programs = [(3, fluid.Program(), None)]
+        with pytest.raises(ValueError, match="epilogue interval 3"):
             exe.run_batched(main, feeds, fetch_list=[loss])
+        (ys,) = exe.run_batched(main, feeds[:3], fetch_list=[loss])
+        assert ys.shape[0] == 3
         del main._epilogue_programs
         with pytest.raises(ValueError, match="scan_steps"):
             exe.train_scanned(main, reader=lambda: iter(feeds),

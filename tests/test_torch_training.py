@@ -235,11 +235,18 @@ def test_float16_dynamic_loss_scaling_matches_jax():
 
 
 def test_sparse_rows_are_not_ported_yet():
-    """The deferred-row log is still not ported and raises, naming its
-    queue item; an is_sparse table now trains through SelectedRows
-    gradients (since the DeepFM slice): only the looked-up rows move."""
-    with pytest.raises(NotImplementedError, match="deferred_rows"):
-        tfluid.optimizer.Adam(0.1, deferred_rows={"rows_per_step": 4})
+    """An is_sparse table trains through SelectedRows gradients (since the
+    DeepFM slice): only the looked-up rows move. The deferred-row log is
+    ported too: deferred_rows= validates its config as the JAX package
+    does (a dict with rows_per_step; segments defaults to 16), and only
+    Adam of the Adam family takes it."""
+    with pytest.raises(ValueError, match="rows_per_step"):
+        tfluid.optimizer.Adam(0.1, deferred_rows={"segments": 4})
+    with pytest.raises(ValueError, match="sgd/adagrad/adam only"):
+        tfluid.optimizer.AdamW(0.1, deferred_rows={"rows_per_step": 4})
+    assert tfluid.optimizer.Adam(0.1, deferred_rows={
+        "rows_per_step": 4})._deferred_rows == {"segments": 16,
+                                                "rows_per_step": 4}
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         ids = tfluid.layers.data("ids", [3], dtype="int64")
