@@ -283,6 +283,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              is_test (one batch padded to 64 and to 128: relative 1e-5).
              The 17 sequence ops and the two beam ops on the card against
              the CPU (max |diff| 1e-5).
+18. inference and serving — one JSON line, the card's name and power
+             limit in it. BERT-base f32 (phase 4's model, T = 128) behind
+             serving.InferenceServer (buckets 1/2/4/8, 2 ms batch delay,
+             queue 256, warmed): 64 seeded requests of 1-8 rows from 8
+             client threads, each answer within relative L2 1e-5 of the
+             Predictor's run of that request alone, no error, 12 flash
+             launches a dispatch; p50/p99 ms, requests/s, the bucket
+             histogram (the batcher's record_event spans), /healthz
+             through a live IntrospectionServer, peak memory. BERT-base
+             int8 (Config.enable_int8 on 8 seeded B=8 feeds): the gate's
+             decision and delta beside the JAX package's, quant_meta;
+             quantized_fc on the card against the CPU at the FFN shape
+             (M = 1024, K = 768, N = 3072) and at M = 1: int32
+             accumulators equal, outputs within 1e-6 of the largest;
+             ms a request at bucket 8 in f32, bf16 and int8; state
+             bytes by dtype. The fleet at the JAX bench's width (MLP 512
+             -> 2048 -> 2048 -> 16, 256 batch-1 requests, 16 clients):
+             one served replica against 3 ThreadReplicas; a rollout
+             v1 -> v2 under load (no error, the longest completion gap);
+             ab_split serving both versions; three tenants 2:1:1 on 4
+             int8 replicas (p99 each); 2 ProcessReplicas serving on the
+             card, one SIGKILLed under load (nothing lost, every answer
+             right, the dead one ejected). PS-backed CTR serving at
+             DeepFM's vocabulary (V = 33,554,432, 16 id fields, packed
+             [V, 128] u16 rows with 8 visible f32, fc 16 softmax) on 3
+             in-process shards in host memory through a 65,536-row
+             cache: 32 uniform and 32 Zipf(1.5) batches of 8 bitwise
+             equal to Executor.run of the serving program with the whole
+             table in a scope on the card; hit rate, ms a request (local
+             and PS), the cache table's upload ms, resident bytes; the
+             int8-resident variant (pinned table scale) whose cache
+             equals requantize_packed_rows after apply_delta. The
+             phase's wall time.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -5403,6 +5436,700 @@ def phase_deferred_and_a6(fluid, fb, smi):
 
 
 
+# -- phase 18: inference and serving -----------------------------------------
+P18_BUCKETS = (1, 2, 4, 8)
+P18_REQUESTS, P18_CLIENTS = 64, 8   # BERT-base requests of 1-8 rows, T=128
+P18_SERVE_RTOL = 1e-5      # a request served in a bucket against it alone
+P18_CALIB = 8              # BERT int8 calibration feeds of B=8, seed 2024
+# The JAX package's own int8 gate on BERT-base at full width (its seed-2024
+# weights, the same 8 calibration feeds), measured on the CPU by
+# scripts/bert_int8_gate_cpu.py: it passes, delta 0.033495 (budget 0.05).
+P18_JAX_BERT_INT8 = {"passes": True, "accuracy_delta": 0.033495}
+P18_QFC_RTOL = 1e-6        # quantized_fc on the card against the CPU
+FLEET_MLP = (512, 2048, 16)          # bench.py:1503: in, hidden (two), out
+FLEET_REQUESTS, FLEET_CONCURRENCY = 256, 16
+FLEET_RTOL, FLEET_ATOL = 1e-5, 1e-6  # an answer against the unbatched run
+FLEET_WORKER_DEVICE = None           # process replicas serve on CUDA 0
+# bench.py:1595-1649 at DeepFM's vocabulary: 16 id fields, a packed
+# [V, 128] u16 table with 8 visible f32 of 16, fc 16 softmax
+CTR = {"vocab": 33_554_432, "dim": 8, "mult": 2, "fields": 16,
+       "cache": 65536, "batches": 32, "batch": 8, "shards": 3}
+
+
+def p18_load(call, feeds, clients, done=None):
+    """Closed-loop load: `clients` threads, each sending the next feed when
+    its last answer came back. (answers, ms each, errors, wall s,
+    completion times). With an Event `done`, the feeds go round until it
+    is set."""
+    import threading
+
+    outs, ms, errors, finished = {}, {}, [], []
+    lock = threading.Lock()
+    state = {"next": 0}
+
+    def client():
+        while True:
+            with lock:
+                i = state["next"]
+                state["next"] += 1
+            if (done is None and i >= len(feeds)) or (
+                    done is not None and done.is_set()):
+                return
+            t0 = time.perf_counter()
+            try:
+                out = call(feeds[i % len(feeds)])
+            except Exception as e:  # reported; the phase fails on any
+                with lock:
+                    errors.append(f"{type(e).__name__}: {e}")
+                return
+            t1 = time.perf_counter()
+            with lock:
+                outs[i] = out
+                ms[i] = (t1 - t0) * 1e3
+                finished.append(t1)
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return outs, ms, errors, time.perf_counter() - t0, sorted(finished)
+
+
+def p18_latency(ms, wall):
+    lat = np.asarray(list(ms.values()))
+    return {"requests": len(lat), "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "requests_per_s": len(lat) / wall}
+
+
+def p18_state_bytes(pred):
+    out = {}
+    for t in pred._state.values():
+        k = str(t.dtype).replace("torch.", "")
+        out[k] = out.get(k, 0) + t.numel() * t.element_size()
+    return out
+
+
+def p18_bert_served(fluid, fa, d, rec):
+    """Arm 1: BERT-base f32 behind an InferenceServer (buckets 1/2/4/8,
+    2 ms batch delay, queue 256), warmed, then 64 seeded requests of 1-8
+    rows from 8 client threads; each answer against the Predictor's run of
+    that request alone; /healthz through a live IntrospectionServer."""
+    import urllib.request
+
+    import torch
+    from paddle_tpu_torch import inference, serving
+    from paddle_tpu_torch.observability.http import IntrospectionServer
+    from paddle_tpu_torch.observability.tracer import get_tracer
+
+    pred = inference.create_predictor(inference.Config(d))
+    rng = np.random.RandomState(18)
+    feeds = [bert_feed(int(rng.randint(1, 9)), 128, rng)
+             for _ in range(P18_REQUESTS)]
+    torch.cuda.reset_peak_memory_stats()
+    server = serving.InferenceServer(pred, buckets=P18_BUCKETS,
+                                     max_batch_delay_ms=2.0,
+                                     max_queue_size=256)
+    t0 = time.perf_counter()
+    warm = server.warmup(example_feed=feeds[0])
+    warm_s = time.perf_counter() - t0
+    tracer = get_tracer()
+    tracer.clear()
+    tracer.enabled = True
+    introspect = IntrospectionServer(port=0).start()
+    try:
+        with server:
+            fa.flash_attention_fwd.launches = 0          # main path starts
+            fa.flash_attention_fwd.plain_on_cuda = 0
+            outs, ms, errors, wall, _ = p18_load(
+                lambda f: server.infer(f), feeds, P18_CLIENTS)
+            launches = fa.flash_attention_fwd.launches   # main path ends
+            plain = fa.flash_attention_fwd.plain_on_cuda
+            with urllib.request.urlopen(introspect.url + "/healthz",
+                                        timeout=10) as resp:
+                health = {"http": resp.status,
+                          **json.loads(resp.read().decode())}
+    finally:
+        introspect.stop()
+        tracer.enabled = False
+    hist = {}
+    for e in tracer.export_chrome_trace()["traceEvents"]:
+        if e.get("ph") == "B" and e["name"].startswith("serving/dispatch_b"):
+            b = int(e["name"].rsplit("_b", 1)[1])
+            hist[b] = hist.get(b, 0) + 1
+    tracer.clear()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    snap = server.metrics.snapshot()
+    dispatches = sum(hist.values())
+    errs = [rel_l2(outs[i][0], pred.run(f)[0]) for i, f in enumerate(feeds)]
+    r = {"requests": len(outs), "errors": len(errors),
+         **p18_latency(ms, wall), "warmup": {**warm, "s": warm_s},
+         "bucket_histogram": dict(sorted(hist.items())),
+         "rows_per_dispatch": snap["serving/batch_rows"],
+         "padded_rows": snap["serving/padded_rows"],
+         "dispatches": dispatches, "flash_fwd_launches": launches,
+         "flash_plain_calls": plain,
+         "max_rel_l2_vs_alone": max(errs), "rtol": P18_SERVE_RTOL,
+         "healthz": {"http": health["http"], "status": health["status"],
+                     "checks": sorted(health["checks"])},
+         "peak_mib": peak}
+    rec["bert_f32_served"] = r
+    log("serving: BERT-base f32 " + json.dumps(r))
+    if errors or len(outs) != P18_REQUESTS:
+        raise AssertionError(f"serving: {len(errors)} errors {errors[:3]}")
+    if dispatches != snap["serving/bucket"]["count"] or \
+            launches != 12 * dispatches or plain:
+        raise AssertionError(f"serving: {launches} flash launches (plain "
+                             f"{plain}) in {dispatches} dispatches, "
+                             f"expected 12 each")
+    if max(errs) > P18_SERVE_RTOL:
+        raise AssertionError("serving: a batched answer is off from the "
+                             "request run alone")
+    if health["http"] != 200 or health["status"] != "ok":
+        raise AssertionError(f"serving: /healthz {health}")
+    return pred, launches
+
+
+def p18_quantized_fc(pred8, rec):
+    """quantized_fc on the card against the CPU at BERT's FFN shape (the
+    int8 predictor's first gelu quantized_fc: M = 1024, K = 768, N = 3072)
+    and at M = 1 (the padded _int_mm): int32 accumulators equal, outputs
+    within P18_QFC_RTOL of the largest; times beside the f32 and bf16
+    fused_fc of the same shape."""
+    import torch
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.executor import ExecContext
+    from paddle_tpu_torch.ops import quant_ops as tq
+
+    op = next(o for o in pred8._program.global_block().ops
+              if o.type == "quantized_fc"
+              and o.attr("activation_type") == "gelu")
+    ins = {s: [pred8._state[n] for n in names]
+           for s, names in op.inputs.items() if s != "Input"}
+    w = ins["W"][0]
+    k = w.shape[0]
+    scale = float(op.attr("act_scale"))
+    gen = torch.Generator("cuda").manual_seed(18)
+    fn = registry.get_op("quantized_fc").fn
+    lead = (1,) * (int(op.attr("in_num_col_dims", 1)) - 1)
+    r = {"op": op.output("Out")[0], "K": int(k), "N": int(w.shape[1])}
+    for m in (1024, 1):
+        x = torch.randn(lead + (m, k), generator=gen,
+                        device="cuda") * (scale / 4)
+        x2 = x.reshape(m, k)
+        acc = tq.int8_matmul(tq.quantize_act(x2, scale), w)
+        acc_cpu = tq.int8_matmul(tq.quantize_act(x2.cpu(), scale), w.cpu())
+        out = fn(ExecContext("cuda", is_test=True),
+                 {"Input": [x], **ins}, op.attrs)["Out"][0]
+        out_cpu = fn(ExecContext("cpu", is_test=True),
+                     {"Input": [x.cpu()],
+                      **{s: [t.cpu() for t in v] for s, v in ins.items()}},
+                     op.attrs)["Out"][0]
+        o, oc = out.cpu().numpy(), out_cpu.numpy()
+        r[f"M={m}"] = {"acc_equal": bool(torch.equal(acc.cpu(), acc_cpu)),
+                       "rel_err": float(np.abs(o - oc).max()
+                                        / np.abs(oc).max())}
+        if m == 1024:
+            wf = (w.float() * (ins["WScale"][0] / 127.0)).contiguous()
+            b = ins["Bias"][0]
+            r[f"M={m}"].update(
+                ms=cuda_ms(lambda: fn(ExecContext("cuda", is_test=True),
+                                      {"Input": [x], **ins}, op.attrs)),
+                int_mm_ms=cuda_ms(lambda: tq.int8_matmul(
+                    tq.quantize_act(x2, scale), w)),
+                f32_addmm_ms=cuda_ms(lambda: torch.addmm(b, x2, wf)),
+                bf16_addmm_ms=cuda_ms(lambda: torch.addmm(
+                    b.bfloat16(), x2.bfloat16(), wf.bfloat16())))
+    rec["quantized_fc"] = r
+    log("serving: quantized_fc card vs CPU " + json.dumps(r))
+    if not all(r[f"M={m}"]["acc_equal"]
+               and r[f"M={m}"]["rel_err"] <= P18_QFC_RTOL
+               for m in (1024, 1)):
+        raise AssertionError("quantized_fc: the card disagrees with the CPU")
+
+
+def p18_bert_int8(fluid, d, pred, rec):
+    """Arm 2: BERT-base int8 (Config.enable_int8 on 8 seeded B=8 feeds):
+    the gate's decision and delta beside the JAX package's, quant_meta,
+    quantized_fc card vs CPU, ms a request at bucket 8 in f32, bf16 and
+    int8, state bytes by dtype."""
+    from paddle_tpu_torch import inference
+
+    rng = np.random.RandomState(2024)
+    calib = [bert_feed(8, 128, rng) for _ in range(P18_CALIB)]
+    cfg = inference.Config(d)
+    cfg.enable_int8(calib)
+    t0 = time.perf_counter()
+    pred8 = inference.create_predictor(cfg)   # calibrate, rewrite, gate
+    meta = pred8.quant_meta
+    r = {"calibrate_rewrite_gate_s": time.perf_counter() - t0,
+         "passes": True, "accuracy_delta": meta["accuracy_delta"],
+         "accuracy_budget": meta["accuracy_budget"],
+         "samples": meta["samples"], "fc": len(meta["fc"]),
+         "tables": len(meta["tables"]), "jax": P18_JAX_BERT_INT8}
+    rec["bert_int8"] = r
+    log("serving: BERT-base int8 gate " + json.dumps(r))
+    if not P18_JAX_BERT_INT8["passes"] or len(meta["tables"]) != 3:
+        raise AssertionError("int8: the gate's decision or the rewrite "
+                             "differs from the JAX package's")
+    p18_quantized_fc(pred8, rec)
+    bf16 = inference.create_predictor(inference.Config(d),
+                                      precision="bfloat16")
+    feed8 = bert_feed(8, 128, rng)
+    ref = pred.run(feed8)[0]
+    timing = {}
+    for name, p in (("float32", pred), ("bfloat16", bf16), ("int8", pred8)):
+        _, ms = timed_steps(lambda: p.run_padded(feed8, 8), 6)
+        timing[name] = {"request_b8": med_range(ms),
+                        "rel_l2_vs_f32": rel_l2(p.run(feed8)[0], ref),
+                        "state_bytes": p18_state_bytes(p)}
+    rec["bert_by_precision"] = timing
+    log("serving: BERT-base by precision " + json.dumps(timing))
+
+
+def p18_mlp(fluid, d, seed):
+    """The JAX bench's fleet model (512 → 2048 → 2048 → 16, relu, softmax)
+    from `seed`, saved as an inference model in `d`."""
+    from paddle_tpu_torch.core import unique_name
+
+    in_dim, hidden, classes = FLEET_MLP
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [in_dim])
+        h = x
+        for _ in range(2):
+            h = fluid.layers.fc(h, hidden, act="relu")
+        out = fluid.layers.fc(h, classes, act="softmax")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ["x"], [out], exe,
+                                      main_program=main)
+    return d
+
+
+def p18_check(outs, refs, what):
+    bad = [i for i, o in outs.items()
+           if not any(np.allclose(o[0], ref[i % len(ref)], rtol=FLEET_RTOL,
+                                  atol=FLEET_ATOL) for ref in refs)]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} answers match no version")
+
+
+def p18_fleet(fluid, d1, d2, rec):
+    """Arm 3, at the JAX bench's fleet width: one served replica against a
+    3-ThreadReplica fleet (256 batch-1 requests, 16 concurrent); a
+    rollout v1 → v2 under load; ab_split; three tenants 2:1:1 on 4 int8
+    replicas; a 2-ProcessReplica fleet serving on the card, one worker
+    SIGKILLed under load."""
+    import threading
+
+    from paddle_tpu_torch import inference, serving
+    from paddle_tpu_torch.serving import fleet
+
+    in_dim = FLEET_MLP[0]
+    rng = np.random.RandomState(0)
+    rows = [{"x": rng.rand(1, in_dim).astype("float32")}
+            for _ in range(FLEET_REQUESTS)]
+    ref1 = inference.create_predictor(inference.Config(d1))
+    ref2 = inference.create_predictor(inference.Config(d2))
+    refs1 = [ref1.run(f)[0] for f in rows]
+    refs2 = [ref2.run(f)[0] for f in rows]
+    if np.allclose(refs1[0], refs2[0], rtol=FLEET_RTOL, atol=FLEET_ATOL):
+        raise AssertionError("fleet: v1 and v2 are indistinguishable")
+    kw = {"max_batch_delay_ms": 1.0, "max_queue_size": 1024}
+    r = {}
+
+    server = serving.InferenceServer(ref1.clone(), buckets=P18_BUCKETS,
+                                     **kw)
+    server.warmup()
+    with server:
+        outs, ms, errors, wall, _ = p18_load(lambda f: server.infer(f),
+                                             rows, FLEET_CONCURRENCY)
+    p18_check(outs, [refs1], "one replica")
+    r["one_replica"] = {"errors": len(errors), **p18_latency(ms, wall)}
+
+    reg = fleet.ModelRegistry()
+    reg.register("v1", d1)
+    reg.register("v2", d2)
+    fl = fleet.ServingFleet(reg, "v1", replicas=3, buckets=P18_BUCKETS,
+                            server_kwargs=kw, health_interval_s=0.5)
+    with fl:
+        outs, ms, ferrors, wall, _ = p18_load(fl.infer, rows,
+                                              FLEET_CONCURRENCY)
+        p18_check(outs, [refs1], "fleet of 3")
+        r["fleet3"] = {"errors": len(ferrors), **p18_latency(ms, wall),
+                       "per_replica": [
+                           x._server.metrics.snapshot()["serving/requests"]
+                           for x in fl.replicas]}
+        r["fleet3"]["vs_one_replica"] = (r["fleet3"]["requests_per_s"]
+                                         / r["one_replica"]["requests_per_s"])
+
+        done = threading.Event()
+        box = {}
+        loader = threading.Thread(target=lambda: box.setdefault(
+            "load", p18_load(fl.infer, rows, 4, done=done)))
+        loader.start()
+        time.sleep(0.2)
+        report = fl.rollout("v2")
+        time.sleep(0.2)
+        done.set()
+        loader.join()
+        outs, ms, rerrors, wall, finished = box["load"]
+        p18_check(outs, [refs1, refs2], "rollout")
+        gaps = np.diff(finished) * 1e3
+        r["rollout"] = {
+            "errors": len(rerrors), "requests": len(outs),
+            "max_completion_gap_ms": float(gaps.max()),
+            "median_completion_gap_ms": float(np.median(gaps)),
+            "wall_ms": report["wall_ms"],
+            "rejected": sum(x["drained"]["rejected"]
+                            for x in report["replicas"].values()),
+            "versions_live": fl.versions_live()}
+        if rerrors or r["rollout"]["rejected"] or \
+                fl.versions_live() != {"v2": 3}:
+            raise AssertionError(f"rollout: {r['rollout']} {rerrors[:3]}")
+
+        ab = fl.ab_split("v1", weight_b=0.5, count=1)
+        hits = {"v1": 0, "v2": 0}
+        for i, f in enumerate(rows[:64]):
+            out = fl.infer(f)[0]
+            for v, refs in (("v1", refs1), ("v2", refs2)):
+                if np.allclose(out, refs[i], rtol=FLEET_RTOL,
+                               atol=FLEET_ATOL):
+                    hits[v] += 1
+                    break
+            else:
+                raise AssertionError("ab_split: an answer matches neither")
+        fl.router.set_version_weights(None)
+        r["ab_split"] = {"hits": hits, "versions_live": fl.versions_live(),
+                         "errors": [x for x in ab["replicas"].values()
+                                    if "error" in x]}
+        if min(hits.values()) < 8 or r["ab_split"]["errors"]:
+            raise AssertionError(f"ab_split: {r['ab_split']}")
+
+    if errors or ferrors:
+        raise AssertionError(f"fleet: failed requests "
+                             f"{(errors + ferrors)[:3]}")
+    r["tenants"] = p18_tenants(d1, rows, refs1)
+    r["process_fleet"] = p18_process_fleet(d1, rows, refs1)
+    rec["fleet"] = r
+    log("serving: fleet " + json.dumps(r))
+
+
+def p18_tenants(d, rows, refs):
+    """Three tenants at 2:1:1 on 4 int8 replicas (bench.py:1915): each
+    version through the registry's int8 gate with the calibration a probe
+    predictor measured; mixed load drawn by weight; a throttled request
+    backs off and is sent again."""
+    import threading
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import fleet
+
+    rng = np.random.RandomState(1)
+    calib = [{"x": rng.rand(8, FLEET_MLP[0]).astype("float32")}
+             for _ in range(8)]
+
+    def int8_config(model_dir):
+        cfg = inference.Config(model_dir)
+        cfg.enable_int8(calib)
+        return cfg
+
+    qm = inference.create_predictor(int8_config(d)).quant_meta
+    weights = {"ads": 2.0, "feed": 1.0, "search": 1.0}
+    reg = fleet.ModelRegistry()
+    for name in weights:
+        reg.register(f"{name}-v1", d, precision="int8", calibration={
+            k: qm[k] for k in ("accuracy_delta", "accuracy_budget",
+                               "samples")})
+    fl = fleet.ServingFleet(
+        reg, replicas=4, buckets=P18_BUCKETS,
+        predictor_factory=lambda m: inference.create_predictor(
+            int8_config(m.model_dir)),
+        server_kwargs={"max_batch_delay_ms": 1.0, "max_queue_size": 1024},
+        tenants={n: {"version": f"{n}-v1", "weight": w}
+                 for n, w in weights.items()})
+    names = list(weights)
+    pick = np.random.RandomState(2).choice(
+        len(names), size=len(rows),
+        p=np.asarray([weights[n] for n in names]) / sum(weights.values()))
+    throttled = {n: 0 for n in names}
+    lock = threading.Lock()
+
+    def call(i):
+        while True:
+            try:
+                return fl.infer(rows[i], tenant=names[pick[i]])
+            except fleet.TenantThrottledError:
+                with lock:
+                    throttled[names[pick[i]]] += 1
+                time.sleep(0.001)
+
+    with fl:
+        outs, ms, errors, wall, _ = p18_load(call, list(range(len(rows))),
+                                             FLEET_CONCURRENCY)
+        stats = fl.tenant_stats()
+    int8_err = max(float(np.abs(outs[i][0] - refs[i]).max()) for i in outs)
+    per = {}
+    for j, n in enumerate(names):
+        lat = [ms[i] for i in ms if pick[i] == j]
+        per[n] = {"requests": len(lat), "throttled": throttled[n],
+                  "p99_ms": float(np.percentile(lat, 99)),
+                  "router_p99_ms": stats[n]["p99_ms"],
+                  "replicas": sum(1 for x in fl.replicas if x.tenant == n)}
+    out = {"errors": len(errors), "requests_per_s": len(outs) / wall,
+           "accuracy_delta": qm["accuracy_delta"],
+           "max_abs_vs_f32": int8_err, "tenants": per}
+    if errors or len(outs) != len(rows) or \
+            [per[n]["replicas"] for n in names] != [2, 1, 1]:
+        raise AssertionError(f"tenants: {out} {errors[:3]}")
+    return out
+
+
+def p18_process_fleet(d, rows, refs):
+    """A 2-ProcessReplica fleet (fresh worker interpreters serving on the
+    card), 3 clients sending 128 requests; one worker SIGKILLed once 32
+    answers are back: no request lost, every answer correct, the dead
+    replica ejected."""
+    import threading
+
+    from paddle_tpu_torch.serving import fleet
+
+    n = min(128, len(rows))
+    reg = fleet.ModelRegistry()
+    reg.register("v1", d)
+    t0 = time.perf_counter()
+    fl = fleet.ServingFleet(reg, "v1", replicas=2, mode="process",
+                            buckets=P18_BUCKETS,
+                            server_kwargs={"max_batch_delay_ms": 1.0},
+                            health_interval_s=0.2,
+                            device=FLEET_WORKER_DEVICE)
+    ready_s = time.perf_counter() - t0
+    answered = threading.Event()
+    count = [0]
+    lock = threading.Lock()
+
+    def call(f):
+        out = fl.infer(f)
+        with lock:
+            count[0] += 1
+            if count[0] >= 32:
+                answered.set()
+        return out
+
+    with fl:
+        victim = fl.replicas[1]
+        box = {}
+        loader = threading.Thread(target=lambda: box.setdefault(
+            "load", p18_load(call, rows[:n], 3)))
+        loader.start()
+        answered.wait(120)
+        victim.kill()
+        loader.join()
+        outs, ms, errors, wall, _ = box["load"]
+        fl.router.sweep()
+        st = fl.router.stats()["replicas"][victim.name]
+        live = fl.versions_live()
+    p18_check(outs, [refs], "process fleet")
+    out = {"ready_s": ready_s, "requests": len(outs), "errors": len(errors),
+           **p18_latency(ms, wall), "victim_alive": st["alive"],
+           "victim_ejected": st["ejected"], "versions_live": live,
+           "retries": fl.router.metrics.counter("fleet/retries").value}
+    if errors or len(outs) != n or st["alive"] or not st["ejected"] or \
+            live != {"v1": 1}:
+        raise AssertionError(f"process fleet: {out} {errors[:3]}")
+    return out
+
+
+def p18_ctr_models(fluid, d_ps):
+    """The serving CTR model (bench.py:1595) saved with a CTR["cache"]-row
+    zero table, from seed 2024; returns its fetch name."""
+    import torch
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.initializer import RowPackInitializer
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    L = fluid.layers
+    dim, mult, fields = CTR["dim"], CTR["mult"], CTR["fields"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 2024
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        ids = L.data("ids", [fields], dtype="int64")
+        emb = L.embedding(ids, [CTR["cache"], dim * mult], is_sparse=True,
+                          row_pack=True, param_attr=ParamAttr(
+                              name="tb", initializer=RowPackInitializer(
+                                  dim, dim * mult, -1.0, 1.0)))
+        emb = L.slice(emb, axes=[2], starts=[0], ends=[dim])
+        out = L.fc(L.reshape(emb, [-1, fields * dim]), 16, act="softmax")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    scope.set_var("tb", torch.zeros((CTR["cache"], 128), dtype=torch.int16,
+                                    device="cuda").view(torch.uint16))
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d_ps, ["ids"], [out], exe,
+                                      main_program=main)
+    return out.name
+
+
+def p18_packed_rows(vis):
+    """Packed [n, 128] u16 rows whose first 2·dim lanes are the bits of
+    `vis` (f32 [n, dim]) and the rest zero: pack_rows of [vis | 0]."""
+    n = vis.shape[0]
+    rows = np.zeros((n, 128), np.uint16)
+    rows[:, :2 * vis.shape[1]] = np.ascontiguousarray(vis).view(np.uint16)
+    return rows
+
+
+def p18_ctr(fluid, rec):
+    """Arm 4: PS-backed CTR serving at DeepFM's vocabulary: a
+    PsLookupPredictor over a 3-shard in-process ShardedTable of the full
+    packed table (host memory), against Executor.run of the same serving
+    program with the whole table in a scope on the card (bitwise); 32
+    uniform then 32 Zipf(1.5) batches of 8; then the int8-resident
+    variant (pinned table scale) and a delta push."""
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.core.dtypes import from_numpy
+    from paddle_tpu_torch.inference.quant import requantize_packed_rows
+    from paddle_tpu_torch.ps import RangeSpec, ShardedTable
+
+    v, dim, b, fields = CTR["vocab"], CTR["dim"], CTR["batch"], CTR["fields"]
+    t0 = time.perf_counter()
+    vis = np.random.RandomState(7).uniform(-1, 1, (v, dim)).astype("float32")
+    host = p18_packed_rows(vis)
+    scale = float(np.abs(vis).max())
+    del vis
+    table = ShardedTable.build_in_process("tb", RangeSpec.even(
+        v, CTR["shards"]), full_rows=host)
+    full = from_numpy(host, device="cuda")        # the whole table, 8.59 GB
+    del host
+    setup_s = time.perf_counter() - t0
+    r = {"vocab": v, "table_gb": v * 128 * 2 / 1e9, "setup_s": setup_s}
+    try:
+        with tempfile.TemporaryDirectory() as d_ps:
+            fetch = p18_ctr_models(fluid, d_ps)
+            base = inference.create_predictor(inference.Config(d_ps))
+            ref_scope = fluid.Scope()
+            for n, t in base._state.items():
+                ref_scope.set_var(n, full if n == "tb" else t)
+            program = base._program
+            ps = inference.PsLookupPredictor(
+                base, [inference.PsLookupBinding("tb", table, ["ids"])],
+                cache_rows_per_table=CTR["cache"])
+            uploads = []
+            apply = ps._apply
+
+            def timed_apply(overrides):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                apply(overrides)
+                torch.cuda.synchronize()
+                uploads.append((time.perf_counter() - t1) * 1e3)
+
+            ps._apply = timed_apply
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            rng = np.random.RandomState(3)
+            for dist in ("uniform", "zipf"):
+                batches = [(rng.randint(0, v, (b, fields)) if dist ==
+                            "uniform" else (rng.zipf(1.5, (b, fields)) - 1)
+                            % v).astype("int64")
+                           for _ in range(CTR["batches"])]
+                st0 = dict(ps.stats()["tb"])
+                n_up = len(uploads)
+                local_ms, ps_ms, equal = [], [], 0
+                for ids in batches:
+                    t1 = time.perf_counter()
+                    (want,) = exe.run(program, feed={"ids": ids},
+                                      fetch_list=[fetch], scope=ref_scope)
+                    local_ms.append((time.perf_counter() - t1) * 1e3)
+                    t1 = time.perf_counter()
+                    (got,) = ps.run_padded({"ids": ids}, b)
+                    ps_ms.append((time.perf_counter() - t1) * 1e3)
+                    equal += int(np.array_equal(got, want))
+                st = ps.stats()["tb"]
+                hits = st["hits"] - st0["hits"]
+                misses = st["misses"] - st0["misses"]
+                r[dist] = {"bitwise_equal": f"{equal}/{len(batches)}",
+                           "hit_rate": hits / max(hits + misses, 1),
+                           "local_ms": med_range(local_ms),
+                           "ps_ms": med_range(ps_ms),
+                           "upload_ms": med_range(uploads[n_up:])}
+                if equal != len(batches):
+                    raise AssertionError(f"PS serving: {dist} batches not "
+                                         f"bitwise equal ({equal})")
+            r["resident_bytes"] = ps.resident_table_bytes()
+            r["resident_fraction"] = ps.resident_table_bytes() / (
+                v * 128 * 2)
+
+            cfg = inference.Config(d_ps)
+            cfg.enable_int8([{"ids": rng.randint(0, CTR["cache"],
+                                                 (b, fields))}
+                             for _ in range(4)], table_scales={"tb": scale})
+            ps8 = inference.PsLookupPredictor(
+                inference.create_predictor(cfg),
+                [inference.PsLookupBinding("tb", table, ["ids"])],
+                cache_rows_per_table=CTR["cache"])
+            ids = batches[-1]
+            err = float(np.abs(ps8.run_padded({"ids": ids}, b)[0]
+                               - ps.run_padded({"ids": ids}, b)[0]).max())
+            touched = np.unique(ids)
+            nrows = p18_packed_rows(np.random.RandomState(9).uniform(
+                -1, 1, (touched.size, dim)).astype("float32"))
+            q = ps8._quant["tb"]
+            refreshed = ps8.apply_delta("tb", touched, nrows)
+            got, miss = ps8._caches["tb"].lookup(touched)
+            same = bool(np.array_equal(got, requantize_packed_rows(
+                nrows, q["dt"], q["scale"])))
+            r["int8_resident"] = {
+                "max_abs_vs_f32": err, "table_scale": scale,
+                "refreshed": refreshed, "cache_equals_requantized": same,
+                "resident_bytes": ps8.resident_table_bytes()}
+            if refreshed != touched.size or miss.any() or not same:
+                raise AssertionError(f"PS int8: {r['int8_resident']}")
+    finally:
+        table.close()
+        del full
+        torch.cuda.empty_cache()
+    rec["ps_ctr"] = r
+    log("serving: PS-backed CTR " + json.dumps(r))
+
+
+def phase_inference_serving(fluid, fa, smi):
+    """Phase 18: inference and serving (module docstring). Prints one JSON
+    line; returns the flash forward launches of arm 1's served requests."""
+    import torch
+
+    t0 = time.perf_counter()
+    rec = {"device": smi}
+    from paddle_tpu_torch.models import bert
+
+    with tempfile.TemporaryDirectory() as d:
+        main, startup, feed_names, out = build_bert(fluid, bert, 128)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, feed_names, [out], exe,
+                                          main_program=main)
+        del scope
+        pred, launches = p18_bert_served(fluid, fa, d, rec)
+        p18_bert_int8(fluid, d, pred, rec)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        p18_fleet(fluid, p18_mlp(fluid, d1, 1), p18_mlp(fluid, d2, 2), rec)
+    p18_ctr(fluid, rec)
+    rec["wall_s"] = time.perf_counter() - t0
+    log("inference and serving " + json.dumps(rec))
+    return launches
+
+
 def main():
     import torch
 
@@ -5509,6 +6236,10 @@ def main():
     # 17. the deferred-row log and the A6 paths (the space-to-depth
     # ResNet-50 stem, ResNet-50 serving, bucketed NMT, sequence/beam ops)
     phase_deferred_and_a6(fluid, fb, smi)
+
+    # 18. inference and serving (int8, the InferenceServer, the fleet,
+    # PS-backed CTR serving)
+    launches["float32"] += phase_inference_serving(fluid, fa, smi)
 
     kernels = []
     for name in ("float32", "bfloat16"):

@@ -223,6 +223,20 @@ class CompiledProgram:
         self.exec_strategy = exec_strategy or ExecutionStrategy()
         return self
 
+    def with_inference_optimize(self, config=None):
+        """Reference inference_optimize parity: freeze to the test-mode
+        graph, and when an inference `Config` is supplied run its IR pass
+        pipeline (the Predictor's), with the per-pass cost deltas in
+        ``_pass_report``."""
+        self._program = self._program.clone(for_test=True)
+        if config is not None and getattr(config, "ir_optim",
+                                          lambda: False)():
+            from ..ir.pipeline import optimize_inference_program
+            self._program = optimize_inference_program(
+                self._program, config,
+                label=f"compiled:0x{id(self._program):x}")
+        return self
+
     def with_mesh(self, mesh, data_axis: Optional[str] = "dp",
                   strategy=None, seq_axis: Optional[str] = None):
         raise NotImplementedError(f"CompiledProgram.with_mesh {_A9}")

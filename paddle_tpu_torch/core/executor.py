@@ -700,6 +700,20 @@ def _run_item(kind, payload, env, ctx: ExecContext, plan):
         _run_update_group(payload, env)
 
 
+def eval_inference_block(program, env: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """Run `program`'s global block eagerly in test mode over `env` (merged
+    state + feeds, on one device), mutating and returning it: every
+    intermediate var stays visible in `env` afterwards. The observation
+    path (int8 calibration reads activation ranges out of it); serving
+    goes through the Predictor."""
+    device = next((v.device for v in env.values()
+                   if isinstance(v, torch.Tensor)), None)
+    _run_block(program.global_block(), env,
+               ExecContext(device, is_test=True))
+    return env
+
+
 def _run_block(block: Block, env: Dict[str, torch.Tensor], ctx: ExecContext,
                plan: Optional["_Plan"] = None):
     """Run `block`'s ops over `env`. With no plan (the Predictor, the IR
@@ -1406,5 +1420,5 @@ class Executor:
 
 
 __all__ = ["Place", "CPUPlace", "CUDAPlace", "ExecContext", "Executor",
-           "convert_feed_value", "cuda_device", "feed_signature",
-           "run_sub_block"]
+           "convert_feed_value", "cuda_device", "eval_inference_block",
+           "feed_signature", "run_sub_block"]

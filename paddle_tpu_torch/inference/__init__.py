@@ -6,25 +6,32 @@ pipeline).
 Loading runs the same IR pass pipeline as the JAX package (delete-dropout →
 fc/add-act fusion → constant folding → DCE → liveness), then serves the
 pruned program eagerly under ``torch.inference_mode()`` on the GPU unless the
-config asks for the CPU. A model directory in the reference framework's
-protobuf format loads through ``compat`` and serves the same way. Weight
-sharing across clones = sharing the same device tensors. Capturing the serve call as a CUDA graph and int8 serving
-are not ported yet.
+config asks for the CPU, in f32, bf16 or int8 (post-training quantized:
+``Config.enable_int8`` → calibrate → rewrite → gate, ``quant.py``). A model
+directory in the reference framework's protobuf format loads through
+``compat`` and serves the same way. Weight sharing across clones = sharing
+the same device tensors. The predictor keeps a record of the feed
+signatures it has served (``_cache``), the counterpart of the JAX package's
+per-signature executable cache, which serving warmup reads. Capturing the
+serve call as a CUDA graph is not ported yet.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.executor import (CPUPlace, ExecContext, _run_block,
-                             convert_feed_value, cuda_device)
+                             convert_feed_value, cuda_device, feed_signature)
 from ..core.scope import Scope, scope_guard
 from ..ir import PassBuilder
 
-__all__ = ["Config", "Predictor", "create_predictor", "PrecisionType"]
+__all__ = ["Config", "Predictor", "Tensor", "create_predictor",
+           "PrecisionType", "AnalysisConfig", "create_paddle_predictor",
+           "PsLookupBinding", "PsLookupPredictor", "RowCache",
+           "QuantizationError"]
 
 
 class PrecisionType:
@@ -47,15 +54,11 @@ _PRECISION_ALIASES = {
 
 def _resolve_precision(precision) -> str:
     try:
-        p = _PRECISION_ALIASES[str(precision).lower()]
+        return _PRECISION_ALIASES[str(precision).lower()]
     except KeyError:
         raise ValueError(
             f"unknown precision {precision!r}; expected one of "
             f"{sorted(set(_PRECISION_ALIASES))}") from None
-    if p == PrecisionType.Int8:
-        raise NotImplementedError(
-            "int8 serving is not ported to paddle_tpu_torch yet")
-    return p
 
 
 class Config:
@@ -77,6 +80,9 @@ class Config:
         self._gpu_device_id = 0
         self._passes_deleted: List[str] = []
         self._extra_passes: List[str] = []
+        self._int8_calib_feeds: Optional[List[dict]] = None
+        self._int8_budget: Optional[float] = None
+        self._int8_table_scales: Optional[Dict[str, float]] = None
 
     # -- model location ----------------------------------------------------
     def set_model(self, model_dir: str, params_file: Optional[str] = None):
@@ -97,10 +103,36 @@ class Config:
     def enable_memory_optim(self, flag: bool = True):
         self._memory_optim = flag
 
-    def enable_int8(self, *a, **kw):
-        raise NotImplementedError(
-            "int8 serving (post-training quantization) is not ported to "
-            "paddle_tpu_torch yet")
+    def enable_tpu(self, precision: str = PrecisionType.Float32):
+        """The JAX package's precision setter (the name is its own): sets
+        the serving precision; the device stays this config's."""
+        self._precision = _resolve_precision(precision)
+
+    def enable_int8(self, sample_feeds: Sequence[Dict[str, np.ndarray]],
+                    accuracy_budget: Optional[float] = None,
+                    table_scales: Optional[Dict[str, float]] = None):
+        """Serve this model post-training-quantized to int8.
+
+        ``sample_feeds`` is the calibration stream, a handful of
+        representative feed dicts: the predictor runs them at fp32 to
+        observe activation abs-max ranges, quantizes the matmul and
+        embedding paths, and gates promotion on the measured fp32-vs-int8
+        output delta staying within ``accuracy_budget`` (relative L1;
+        default ``PDTPU_INT8_ACC_BUDGET``, 0.05). ``table_scales`` pins
+        embedding-table quantization scales by param name, which PS-backed
+        serving needs (the resident cache-sized table is a placeholder for
+        the real ShardedTable)."""
+        sample_feeds = list(sample_feeds or [])
+        if not sample_feeds:
+            raise ValueError(
+                "enable_int8: calibration needs at least one sample feed")
+        self._precision = PrecisionType.Int8
+        self._int8_calib_feeds = sample_feeds
+        if accuracy_budget is not None:
+            self._int8_budget = float(accuracy_budget)
+        if table_scales is not None:
+            self._int8_table_scales = {k: float(v)
+                                       for k, v in table_scales.items()}
 
     def enable_use_gpu(self, memory_pool_init_size_mb: int = 0,
                        device_id: int = 0):
@@ -139,6 +171,35 @@ class Config:
         return PassBuilder([n for n in names if n not in self._passes_deleted])
 
 
+AnalysisConfig = Config  # old-API alias (paddle_analysis_config.h)
+
+
+class Tensor:
+    """Serve-side tensor handle (reference PaddleTensor / ZeroCopyTensor:
+    copy_from_cpu / copy_to_cpu)."""
+
+    def __init__(self, name: str, predictor: "Predictor"):
+        self.name = name
+        self._predictor = predictor
+
+    def copy_from_cpu(self, arr: np.ndarray):
+        self._predictor._feed_buf[self.name] = np.asarray(arr)
+
+    def copy_to_cpu(self) -> np.ndarray:
+        return np.asarray(self._predictor._fetch_buf[self.name])
+
+    def reshape(self, shape: Sequence[int]):
+        buf = self._predictor._feed_buf.get(self.name)
+        if buf is not None:
+            self._predictor._feed_buf[self.name] = buf.reshape(shape)
+
+    def shape(self):
+        buf = (self._predictor._feed_buf.get(self.name)
+               if self.name in self._predictor._feed_buf
+               else self._predictor._fetch_buf.get(self.name))
+        return list(buf.shape) if buf is not None else None
+
+
 class Predictor:
     """AnalysisPredictor parity: load → optimize → run eagerly on the
     config's device."""
@@ -146,6 +207,10 @@ class Predictor:
     def __init__(self, config: Config, precision: Optional[str] = None,
                  _shared=None):
         self._config = config
+        # feed signatures served so far (warmup reads its size)
+        self._cache: set = set()
+        self._feed_buf: Dict[str, np.ndarray] = {}
+        self._fetch_buf: Dict[str, np.ndarray] = {}
         # `precision` overrides the Config's dtype per predictor, so one
         # model dir can serve f32 and bf16 replicas
         self._precision = _resolve_precision(
@@ -202,6 +267,12 @@ class Predictor:
             if v.persistable and scope.has_var(v.name):
                 self._state[v.name] = self._serve_cast(
                     scope.find_var(v.name).to(self._device))
+        if self._precision == PrecisionType.Int8:
+            from .quant import quantize_predictor_inplace
+            quantize_predictor_inplace(
+                self, sample_feeds=cfg._int8_calib_feeds,
+                accuracy_budget=cfg._int8_budget,
+                table_scales=cfg._int8_table_scales)
 
     def _serve_cast(self, t: torch.Tensor) -> torch.Tensor:
         if self._precision == PrecisionType.Bfloat16 and t.dtype == torch.float32:
@@ -214,6 +285,16 @@ class Predictor:
 
     def get_output_names(self) -> List[str]:
         return list(self._fetch_names)
+
+    def get_input_handle(self, name: str) -> Tensor:
+        return Tensor(name, self)
+
+    def get_output_handle(self, name: str) -> Tensor:
+        return Tensor(name, self)
+
+    # old-API spellings
+    get_input_tensor = get_input_handle
+    get_output_tensor = get_output_handle
 
     def clone(self) -> "Predictor":
         """New predictor sharing program + device weights (zero-copy; the
@@ -229,21 +310,39 @@ class Predictor:
         ir_optim was off)."""
         return getattr(self._program, "_pass_report", None)
 
-    def run(self, feed: Dict[str, np.ndarray]) -> List[np.ndarray]:
-        """Run once on `feed`. A bf16 predictor returns its bf16 outputs
-        widened (exactly) to float32 numpy arrays, since numpy has no
-        bfloat16 of its own."""
+    @property
+    def quant_meta(self) -> Optional[dict]:
+        """int8 calibration record: activation scales, per-table scales,
+        measured accuracy delta and its budget (None unless quantized).
+        The fleet's ModelRegistry gate and the PS delta requantization path
+        both read this."""
+        return getattr(self._program, "_quant_meta", None)
+
+    def run(self, feed: Optional[Dict[str, np.ndarray]] = None
+            ) -> List[np.ndarray]:
+        """Run once. Either pass `feed`, or fill the input handles with
+        copy_from_cpu and call run() (zero-copy-run style). A bf16
+        predictor returns its bf16 outputs widened (exactly) to float32
+        numpy arrays, since numpy has no bfloat16 of its own. Safe to call
+        from any thread: inference mode and the device are set here."""
+        feed = dict(feed) if feed is not None else dict(self._feed_buf)
         missing = [n for n in self._feed_names if n not in feed]
         if missing:
             raise ValueError(f"missing feeds: {missing}")
+        if self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
         blk = self._program.global_block()
         env = dict(self._state)
-        for n in self._feed_names:
-            env[n] = self._serve_cast(
-                convert_feed_value(blk, n, feed[n], self._device))
+        feed_vals = {n: self._serve_cast(
+            convert_feed_value(blk, n, feed[n], self._device))
+            for n in self._feed_names}
+        self._cache.add(feed_signature(feed_vals))
+        env.update(feed_vals)
         with torch.inference_mode():
             _run_block(blk, env, ExecContext(self._device, is_test=True))
-            return [_host(env[n]) for n in self._fetch_names]
+            outs = [_host(env[n]) for n in self._fetch_names]
+        self._fetch_buf = dict(zip(self._fetch_names, outs))
+        return outs
 
     def run_padded(self, feed: Dict[str, np.ndarray], batch_size: int) -> List[np.ndarray]:
         """Run with every feed padded along axis 0 to `batch_size` rows and
@@ -276,8 +375,10 @@ class Predictor:
             padded[k] = v
         outs = self.run(padded)
         # non-batch-major outputs (no leading batch dim) pass through whole
-        return [o[:n] if (o.ndim and o.shape[0] == batch_size) else o
+        outs = [o[:n] if (o.ndim and o.shape[0] == batch_size) else o
                 for o in outs]
+        self._fetch_buf = dict(zip(self._fetch_names, outs))
+        return outs
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -289,3 +390,13 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def create_predictor(config: Config,
                      precision: Optional[str] = None) -> Predictor:
     return Predictor(config, precision=precision)
+
+
+def create_paddle_predictor(config: Config) -> Predictor:
+    """Old-API alias (CreatePaddlePredictor)."""
+    return Predictor(config)
+
+
+from .ps_lookup import (PsLookupBinding, PsLookupPredictor,  # noqa: E402,F401
+                        RowCache)
+from .quant import QuantizationError  # noqa: E402,F401  (registers the pass)

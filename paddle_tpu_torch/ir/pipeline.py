@@ -6,7 +6,8 @@ bracketed with the analytic IR cost walk, so each pass's flop/byte delta
 lands in ``program._pass_report`` (the full per-pass record list:
 neutrality contract, op/var counts, flop/byte deltas, wall ms). The JAX
 package also exports the report to its perf ledger and registry gauges;
-that export is not ported yet.
+that export comes with the perf ledger (ROADMAP A10), so ``record`` is
+accepted and the report stays on the program either way.
 """
 from __future__ import annotations
 
@@ -30,11 +31,12 @@ class PassPipeline:
     """Ordered pass run with before/after cost deltas per pass.
 
     ``passes`` is a name list or a :class:`PassBuilder`; ``label`` names
-    the program in the report (default: the program's id).
+    the program in the report (default: the program's id). ``record`` is
+    the JAX package's switch for the ledger export (module docstring).
     """
 
     def __init__(self, passes: Union[PassBuilder, List[str]],
-                 label: Optional[str] = None):
+                 label: Optional[str] = None, record: bool = True):
         if isinstance(passes, PassBuilder):
             passes = passes.all_passes()
         self.names = list(passes)

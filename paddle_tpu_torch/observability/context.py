@@ -1,13 +1,22 @@
-"""Trace context: the identity of a training step's spans.
+"""Distributed trace context: the identity a request carries across
+process boundaries.
 
-A `TraceContext` is three ids — ``trace_id`` (the whole step),
+A `TraceContext` is three ids — ``trace_id`` (the whole request),
 ``span_id`` (the current operation), ``parent_id`` (the operation that
-caused it) — plus nothing else: no baggage, no sampling flags. The active
-context is thread-local.
+caused it) — plus nothing else: no baggage, no sampling flags. It rides
+the existing JSON header of the PS wire protocol and the fleet worker
+RPC as a ``"trace"`` dict (``{"trace_id", "span_id"}``, plus
+``"retry": n`` on re-sent frames), so propagation costs one small dict
+per RPC and zero new dependencies.
 
-The port's copy of the part of ``paddle_tpu.observability.context`` that
-the tracer uses (stdlib only). The RPC header encoding and the thread-hop
-helper come with the socket transport, whose server spans read them.
+The active context is thread-local. Crossing an explicit thread hop
+(pool fan-out in `ShardedTable`, the serving batcher queue, a replica's
+RPC pool) requires capturing `current()` on the submitting thread and
+re-activating it with `use(ctx)` on the worker thread — thread-locals
+don't follow work items on their own, and the hop points in this
+codebase each do so explicitly.
+
+The port's copy of ``paddle_tpu.observability.context`` (stdlib only).
 """
 from __future__ import annotations
 
@@ -16,7 +25,7 @@ import threading
 
 from typing import Optional
 
-__all__ = ["TraceContext", "current", "new_trace"]
+__all__ = ["TraceContext", "current", "use", "new_trace", "from_wire"]
 
 
 def _new_id() -> str:
@@ -38,8 +47,14 @@ class TraceContext:
         """A new span in the same trace, parented to this one."""
         return TraceContext(self.trace_id, _new_id(), self.span_id)
 
+    def to_wire(self) -> dict:
+        """The RPC header payload. Deliberately minimal: the receiver
+        only needs the trace and the sender's span to parent to."""
+        return {"trace_id": self.trace_id, "span_id": self.span_id}
+
     def args(self) -> dict:
-        """Chrome-trace ``args`` fields."""
+        """Chrome-trace ``args`` fields — what the fleet timeline merger
+        keys on to pair client and server spans."""
         a = {"trace_id": self.trace_id, "span_id": self.span_id}
         if self.parent_id:
             a["parent_id"] = self.parent_id
@@ -53,6 +68,19 @@ class TraceContext:
 def new_trace() -> TraceContext:
     """Root context for a fresh trace (no parent)."""
     return TraceContext(os.urandom(16).hex(), _new_id(), None)
+
+
+def from_wire(wire) -> Optional[TraceContext]:
+    """Server-side adoption of an incoming ``"trace"`` header: a FRESH
+    span in the sender's trace, parented to the sender's span. Returns
+    None for absent/malformed headers — tracing is best-effort and must
+    never fail an RPC."""
+    if not isinstance(wire, dict):
+        return None
+    tid, sid = wire.get("trace_id"), wire.get("span_id")
+    if not (isinstance(tid, str) and tid and isinstance(sid, str) and sid):
+        return None
+    return TraceContext(tid, _new_id(), sid)
 
 
 # -- thread-local active context ------------------------------------------
@@ -78,3 +106,24 @@ def _restore(token) -> None:
     changed, prev = token
     if changed:
         _tls.ctx = prev
+
+
+class use:
+    """``with use(ctx):`` — activate a captured context on this thread
+    (the thread-hop idiom). ``use(None)`` is a no-op, so call sites
+    don't need to branch on whether a trace is active."""
+
+    __slots__ = ("_ctx", "_token")
+
+    def __init__(self, ctx: Optional[TraceContext]):
+        self._ctx = ctx
+        self._token = None
+
+    def __enter__(self):
+        self._token = _activate(self._ctx)
+        return self._ctx
+
+    def __exit__(self, *exc):
+        _restore(self._token)
+        self._token = None
+        return False

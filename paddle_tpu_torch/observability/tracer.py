@@ -34,7 +34,8 @@ from typing import Dict, List, Optional
 
 from . import context as _ctx
 
-__all__ = ["Tracer", "get_tracer", "trace_span", "start_trace"]
+__all__ = ["Tracer", "get_tracer", "trace_span", "start_trace",
+           "server_span"]
 
 # one process-wide timebase so spans from every thread share a clock;
 # chrome trace wants microseconds
@@ -191,3 +192,26 @@ class start_trace(trace_span):
     def _span_ctx(self):
         parent = _ctx.current()
         return parent.child() if parent is not None else _ctx.new_trace()
+
+
+class server_span(trace_span):
+    """Server-side RPC span: adopts the ``"trace"`` header dict of an
+    incoming frame (`context.from_wire`), parenting this process's span to
+    the client's RPC span. With no or a malformed header it records as a
+    plain local span::
+
+        with server_span(f"serve/{op}", msg.get("trace"), op=op):
+            reply = handle(op, msg)
+    """
+
+    __slots__ = ("_wire",)
+
+    def __init__(self, name: str, wire, **args):
+        super().__init__(name, **args)
+        self._wire = wire
+
+    def _span_ctx(self):
+        ctx = _ctx.from_wire(self._wire)
+        if ctx is None:
+            return super()._span_ctx()
+        return ctx

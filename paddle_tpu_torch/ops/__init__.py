@@ -10,6 +10,7 @@ from . import metric_ops  # noqa: F401
 from . import misc_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import quant_ops  # noqa: F401
 from . import reduce_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401

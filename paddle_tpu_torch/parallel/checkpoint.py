@@ -392,6 +392,13 @@ class Checkpointer:
                         "(corrupt)")
         return problems
 
+    def verified_steps(self) -> List[int]:
+        """Every step whose manifest verification passes, newest first:
+        the set a serving ModelRegistry may claim lineage from (a torn or
+        corrupt training checkpoint never becomes a serving version)."""
+        return [s for s in sorted(self.all_steps(), reverse=True)
+                if not self.verify(s)]
+
     # -- PS tables (ROADMAP A8) --------------------------------------------
     def save_delta(self, step: int, ps_tables, extra=None,
                    blocking: bool = False) -> None:

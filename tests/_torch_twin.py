@@ -146,3 +146,40 @@ def alarm_timeout(seconds: int):
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old)
         close_all_loaders()
+
+
+def fresh_observability():
+    """A generator for an autouse fixture: around each test, the port's
+    process-wide metrics registry loses what the serving tier put there
+    (the servers' and routers' attached registries, the `serving/`,
+    `fleet/` and `staleness/` series) and the /healthz check table is
+    emptied, so no test reads another's counters or health checks. The
+    executor's series stay: its modules hold their metric objects, which
+    a full reset would orphan."""
+    from paddle_tpu_torch.observability import get_registry
+    from paddle_tpu_torch.observability import http
+
+    def clear():
+        reg = get_registry()
+        with reg._lock:
+            reg._children.clear()
+        for name in {s["name"] for s in reg.series(deep=False)}:
+            if name.startswith(("serving/", "fleet/", "staleness/")):
+                reg.remove_matching(name)
+        with http._health_lock:
+            http._health_checks.clear()
+
+    clear()
+    yield
+    clear()
+
+
+def cpu_config(model_dir, precision=None):
+    """The port's inference Config for `model_dir`, serving on the CPU."""
+    from paddle_tpu_torch import inference
+
+    cfg = inference.Config(model_dir)
+    cfg.disable_gpu()
+    if precision is not None:
+        cfg.enable_tpu(precision)
+    return cfg

@@ -256,7 +256,7 @@ def test_packed_deepfm_builder_trains():
     assert np.mean(losses[-4:]) < np.mean(losses[:4])
 
 
-def test_deferred_rows_raise_not_ported():
+def test_deferred_rows_build_the_jax_program():
     """deferred_rows= is ported: SGD, Adagrad and Adam take it, and the
     deferred DeepFM builder emits the JAX package's program (same ops,
     the rewired lookup site, the state vars' names, shapes and dtypes,

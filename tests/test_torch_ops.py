@@ -471,12 +471,19 @@ BLOCK_OPS = ("conditional_block",)
 # test_deferred_row_op_matches_jax
 DEFERRED_ROW_OPS = ("sgd_row_deferred", "adagrad_row_deferred",
                     "adam_row_deferred")
+# the quantization ops: tests/test_torch_quant_ops.py
+QUANT_OPS = ("fake_quantize_abs_max", "fake_channel_wise_quantize_abs_max",
+             "fake_quantize_moving_average_abs_max",
+             "fake_quantize_range_abs_max", "moving_average_abs_max_scale",
+             "fake_dequantize_max_abs",
+             "fake_channel_wise_dequantize_max_abs", "quantized_fc",
+             "quantized_lookup_table")
 
 
 def test_cases_cover_every_ported_op():
     covered = ({op for _, op, _, _ in CASES} | set(RANDOM_OPS)
                | set(SELECTED_ROWS_OPS) | set(BLOCK_OPS)
-               | set(DEFERRED_ROW_OPS))
+               | set(DEFERRED_ROW_OPS) | set(QUANT_OPS))
     assert covered == set(treg.registered_ops())
     # the port registers nothing the JAX package does not have
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())

@@ -160,7 +160,7 @@ def test_int64_feeds_stay_int64():
     assert fetched_ids.dtype == np.int64
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models.bert, "
             "paddle_tpu_torch.models.resnet, "
             "paddle_tpu_torch.models.transformer_nmt, "
@@ -196,10 +196,71 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "paddle_tpu_torch.inference, paddle_tpu_torch.core.lod, "
             "paddle_tpu_torch.ops.sequence_ops, paddle_tpu_torch.ops.beam_ops, "
             "paddle_tpu_torch.ops.misc_ops, paddle_tpu_torch.layers.sequence, "
-            "paddle_tpu_torch.layers.rnn, paddle_tpu_torch.core.executor; "
+            "paddle_tpu_torch.layers.rnn, paddle_tpu_torch.core.executor, "
+            "paddle_tpu_torch.ops.quant_ops, paddle_tpu_torch.inference.quant, "
+            "paddle_tpu_torch.inference.ps_lookup, paddle_tpu_torch.profiler, "
+            "paddle_tpu_torch.observability.context, "
+            "paddle_tpu_torch.observability.http, "
+            "paddle_tpu_torch.observability.federate, "
+            "paddle_tpu_torch.ps.transport, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.serving.batcher, "
+            "paddle_tpu_torch.serving.metrics, "
+            "paddle_tpu_torch.serving.server, "
+            "paddle_tpu_torch.serving.warmup, "
+            "paddle_tpu_torch.serving.fleet, "
+            "paddle_tpu_torch.serving.fleet.registry, "
+            "paddle_tpu_torch.serving.fleet.replica, "
+            "paddle_tpu_torch.serving.fleet.router, "
+            "paddle_tpu_torch.serving.fleet.fleet, "
+            "paddle_tpu_torch.serving.fleet.worker; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    _worker_imports_neither(str(tmp_path / "mlp"))
+
+
+def _worker_imports_neither(model_dir):
+    """The serving fleet's worker, run as the subprocess a ProcessReplica
+    starts, serves one request and stops without loading JAX or the JAX
+    package."""
+    import socket
+
+    from paddle_tpu_torch.ps.transport import _recv_msg, _send_msg
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data("x", [4])
+        out = tfluid.layers.fc(x, 2)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    with tfluid.scope_guard(tfluid.Scope()):
+        exe.run(startup)
+        tfluid.io.save_inference_model(model_dir, ["x"], [out], exe, main)
+    code = ("import atexit, runpy, sys; atexit.register(lambda: print("
+            "'BAD', sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')), flush=True)); "
+            f"sys.argv = ['worker', '--model-dir', {model_dir!r}, "
+            "'--device', 'cpu', '--buckets', '1,2']; "
+            "runpy.run_module('paddle_tpu_torch.serving.fleet.worker', "
+            "run_name='__main__')")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("PDTPU_FLEET_WORKER_READY"), line
+        port = int(line.rsplit("=", 1)[1])
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+            _send_msg(s, {"op": "infer",
+                          "feed": {"x": np.ones((2, 4), np.float32)}})
+            assert _recv_msg(s)["out"][0].shape == (2, 2)
+            _send_msg(s, {"op": "stop"})
+            assert _recv_msg(s)["ok"]
+        rest, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0
+    assert "BAD []" in rest, rest

@@ -181,7 +181,7 @@ def _s2d50(fluid, resnet):
     return main, startup
 
 
-def test_s2d_stem_is_not_ported_yet():
+def test_s2d_stem_builds_the_jax_program():
     """The space-to-depth stem is ported: resnet(stem_s2d=True) at depth 50
     builds the JAX package's program (same ops, attrs and var descs), its
     stem pad -> space_to_depth -> 4x4 conv (C_in = 12) -> batch_norm."""

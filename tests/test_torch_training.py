@@ -234,7 +234,7 @@ def test_float16_dynamic_loss_scaling_matches_jax():
     assert [float(r[3][0]) for r in port_runs] == [1024.0, 2048.0, 2048.0]
 
 
-def test_sparse_rows_are_not_ported_yet():
+def test_sparse_rows_train_and_deferred_rows_validate():
     """An is_sparse table trains through SelectedRows gradients (since the
     DeepFM slice): only the looked-up rows move. The deferred-row log is
     ported too: deferred_rows= validates its config as the JAX package
