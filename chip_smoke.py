@@ -316,6 +316,42 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              int8-resident variant (pinned table scale) whose cache
              equals requantize_packed_rows after apply_delta. The
              phase's wall time.
+19. the PS tier and streaming — one JSON line, the card's name and power
+             limit in it. DeepFM (hidden 64, B = 4096, packed Adagrad on
+             106,496 rows a step) over 8 in-thread loopback socket shards
+             of a 2,097,152-row table, 36 steps (3 warm-up), arms
+             (pull_ahead, push_depth) = (0,0), (2,0), (2,1), (2,1) with a
+             212,992-row hot cache, (2,1) under a 1 Hz FederatedScraper:
+             each arm's losses and final shard bytes bitwise equal to an
+             in-process run on the same feeds; examples/s, median step
+             ms, bytes pulled and pushed a shard, prefetch hits/misses,
+             the device busy share of the last (profiled) step, row-12
+             launches (one a step) and rows 13-14 in the hot arm. In the
+             hot arm, PS checkpoints: save(ps_tables=) before step 12
+             with dirty slab rows (flushed through the row-13 gather),
+             deltas before steps 18 and 24, the chain restored onto 3
+             in-process shards bitwise equal to the live table; the ms
+             save holds the loop, bytes, restore ms. The aggregate
+             67,108,864-row (17.18 GB) table over 8 socket shards at
+             (2,1): finite losses, examples/s, RSS. A pserver SIGKILLed
+             mid-run (B = 1024, V = 262,144, 2 runner processes, 18
+             steps, killed before step 8, restarted after 0.25 s; with
+             and without a 53,248-row hot cache): losses bitwise equal to
+             the uninterrupted run, one recovery, RPC retries, the
+             recovery pause, journal bytes, /healthz through a
+             ShardMonitor ok -> degraded -> ok with the times. Online
+             learning (the JAX bench's cell: 200,000-id stream, 2 dynamic
+             shards of 16,384 rows, 600 steps of 256, a PsLookupPredictor
+             on the card fed by a DeltaPublisher with a 1 s budget): AUC
+             rises, rows materialized past the capacity while live rows
+             stay within it, staleness p99 within the budget, the serving
+             cache bitwise equal to the shards, a delta chain restored
+             bitwise. Serving from socket shards: phase 18's CTR model at
+             2,097,152 rows loaded over the wire into 2 runner pservers,
+             2 ProcessReplicas (--ps-endpoints, on the card) answering 64
+             batches of 8 bitwise like a ThreadReplica over an in-process
+             table; ps_admin stats, dump-health and fleet exit 0 where
+             torch cannot be imported. The phase's wall time.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -6130,6 +6166,880 @@ def phase_inference_serving(fluid, fa, smi):
     return launches
 
 
+# -- phase 19: the PS tier over sockets, recovery, PS checkpoints, streaming -
+
+# bench.py:689-832 at its TPU sizes: DeepFM (hidden (64,), lr 0.05) over 8
+# loopback socket shards of a zero 2,097,152-row table, B = 4096, packed
+# Adagrad on 106,496 rows a step, 36 steps of which 3 warm up; the
+# aggregate arm (bench.py:851) trains a 67,108,864-row table 6 steps
+P19_B, P19_VOCAB, P19_SHARDS, P19_STEPS, P19_WARMUP = (
+    4096, 2_097_152, 8, 36, 3)
+P19_ROWS = P19_B * 26
+P19_ARMS = ((0, 0, 0, False), (2, 0, 0, False), (2, 1, 0, False),
+            (2, 1, 2 * P19_ROWS, False), (2, 1, 0, True))
+P19_BIG_VOCAB, P19_BIG_STEPS, P19_BIG_WARMUP = 67_108_864, 6, 2
+# PS checkpoints inside the hot arm: a full save before step 12 (dirty
+# rows in the slab), deltas before steps 18 and 24
+P19_SAVE_AT, P19_DELTAS_AT = 12, (18, 24)
+# bench.py:926-1070: B = 1024 over 2 runner pservers of a 262,144-row
+# table, 18 steps, SIGKILL shard 1 before step 8, restart it 0.25 s later
+P19_KILL = {"batch": 1024, "vocab": 262_144, "steps": 18, "kill_step": 8,
+            "restart_s": 0.25}
+P19_KNOBS = {"PDTPU_PS_RETRIES": "60", "PDTPU_PS_RETRY_BACKOFF_MS": "20",
+             "PDTPU_PS_TIMEOUT": "10"}
+# bench.py:1938-2095 at its TPU sizes
+P19_ONLINE = {"vocab": 200_000, "cap": 16_384, "steps": 600, "batch": 256,
+              "fields": 8, "d": 8, "mult": 2, "hot_ids": 5000,
+              "staleness_s": 1.0, "sweep_every": 60, "delta_every": 75,
+              "compact_every": 4, "eval_every": 75, "resident_steps": 30}
+# phase 18's CTR serving model at 2,097,152 rows over 2 runner pservers
+P19_SERVE = {"vocab": 2_097_152, "batches": 64, "batch": 8}
+P19_RUNNER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "torch_ps_server_runner.py")
+
+
+def p19_program(fluid, deepfm, cap, hot_rows):
+    """bench.py's socket-arm DeepFM, its cache param [hot_rows + cap]."""
+    from paddle_tpu_torch.core import unique_name
+
+    with unique_name.guard():
+        main, startup, _, loss, _ = deepfm.build_train_program(
+            vocab_size=cap + hot_rows, lr=0.05, is_sparse=True,
+            fused_table=True, embedding_optimizer="adagrad",
+            packed_rows={"rows_per_step": cap}, hidden_sizes=(64,))
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def p19_feeds(seed, n, b, vocab):
+    rng = np.random.RandomState(seed)
+    return [{"sparse_ids": rng.randint(0, vocab, (b, 26)).astype("int64"),
+             "dense": rng.rand(b, 13).astype("float32"),
+             "label": rng.randint(0, 2, (b, 1)).astype("float32")}
+            for _ in range(n)]
+
+
+def p19_rss_mb():
+    """This process's resident set now (MiB), from /proc/self/status."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return None
+
+
+def p19_profile_once(fn):
+    """(fn(), {wall, device busy ms and share}) of one profiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = 0.0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) is not None \
+                and "cuda" in str(evt.device_type).lower():
+            busy += _device_us(evt) / 1e3
+    return out, {"wall_ms": wall, "device_busy_ms": busy,
+                 "device_busy_share": busy / wall if wall else None}
+
+
+def p19_train(fluid, deepfm, fsa, table, feeds, pull_ahead, push_depth,
+              hot_rows, warmup, hook=None, hook_steps=(),
+              profile_last=True, keep=None):
+    """The B = 4096 DeepFM step through PsEmbeddingTier over `table` on
+    the card. Returns (losses, record); the row kernels are counted from 0
+    over the run. `hook(i, tier, main, scope)` runs before step i; the
+    steps in `hook_steps` (where it works) and the profiled last step are
+    left out of the timed window. With a dict `keep`, the final table
+    (after the flush; closing the tier closes the table) lands in
+    keep["table"]."""
+    import torch
+    from paddle_tpu_torch.observability.registry import get_registry
+    from paddle_tpu_torch.ps import PsEmbeddingTier, PsTableBinding
+
+    reg = get_registry()
+    main, startup, loss = p19_program(fluid, deepfm, P19_ROWS, hot_rows)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    tier = PsEmbeddingTier(main, [PsTableBinding(table.name, table,
+                                                 ["sparse_ids"])],
+                           pull_ahead=pull_ahead, push_depth=push_depth,
+                           hot_rows=hot_rows, place=fluid.CUDAPlace(0))
+    hit0 = reg.counter("ps/prefetch_hit").value
+    miss0 = reg.counter("ps/prefetch_miss").value
+    losses, marks, busy = [], [], None
+    n = len(feeds)
+    for k in fsa.KERNELS:                       # the path starts
+        k.launches = 0
+    try:
+        for i, prep in enumerate(tier.steps(lambda: iter(feeds))):
+            if hook is not None:
+                hook(i, tier, main, scope)
+
+            def step():
+                (lv,) = tier.run_step(exe, prep, fetch_list=[loss],
+                                      scope=scope)
+                return float(lv)
+
+            if profile_last and i == n - 1:
+                lv, busy = p19_profile_once(step)
+            else:
+                lv = step()
+            losses.append(lv)
+            marks.append(time.perf_counter())
+        tier.flush()
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in fsa.KERNELS}  # ends
+        st = tier.stats()[table.name]
+        if keep is not None:
+            keep["table"] = table.dump_full()
+    finally:
+        tier.close()
+    end = n - 2 if profile_last else n - 1
+    timed = np.array([marks[i] - marks[i - 1]
+                      for i in range(warmup, end + 1)
+                      if i not in hook_steps]) * 1e3
+    rec = {"examples_per_s": P19_B * timed.size / (timed.sum() / 1e3),
+           "median_step_ms": float(np.median(timed)),
+           "prefetch_hits": reg.counter("ps/prefetch_hit").value - hit0,
+           "prefetch_misses": reg.counter("ps/prefetch_miss").value - miss0,
+           "per_shard_bytes": [{"pulled": s["bytes_pulled"],
+                                "pushed": s["bytes_pushed"]}
+                               for s in st["shards"]],
+           "launches": launches, "warm_step": busy}
+    if st.get("hot_cache") is not None:
+        hc = st["hot_cache"]
+        rec["hot_cache"] = {k: hc[k] for k in (
+            "hit_rate", "lookup_hit_rate", "evictions", "writeback_bytes",
+            "resident", "dirty")}
+    return losses, rec
+
+
+def p19_socket_table(name, vocab, n_shards):
+    """`n_shards` in-thread loopback ShardServers of a zero table, with a
+    second client set for pushes (bench.py's dual channel)."""
+    from paddle_tpu_torch.ps import (RangeSpec, ShardServer, ShardedTable,
+                                     SocketClient, make_shards)
+
+    spec = RangeSpec.even(vocab, n_shards)
+    servers = [ShardServer([sh]).serve_in_thread()
+               for sh in make_shards(name, spec)]
+    table = ShardedTable(
+        name, spec, [SocketClient(s.endpoint) for s in servers],
+        push_clients=[SocketClient(s.endpoint) for s in servers])
+    return table, servers
+
+
+def p19_scrape_hook(scraper, at, out):
+    """A hook taking the scraper's last sweep (or one now) before step
+    `at`, while the shards answer."""
+    def hook(i, tier, main, scope):
+        if i == at:
+            out["scrape"] = scraper.last() or scraper.scrape_once()
+    return hook
+
+
+def p19_checkpoint_hook(fluid, fsa, table, ckdir, out):
+    """Arm 3 inside the hot arm: save(ps_tables=) before P19_SAVE_AT with
+    dirty slab rows (flushed through the row-13 gather), then a delta
+    before each of P19_DELTAS_AT; keeps the live table after the last."""
+    from paddle_tpu_torch.parallel import Checkpointer
+
+    ck = Checkpointer(ckdir, keep=2)
+    out["ck"] = ck
+
+    def hook(i, tier, main, scope):
+        if i == P19_SAVE_AT:
+            dirty = tier.stats()[table.name]["hot_cache"]["dirty"]
+            g0 = fsa.fused_row_gather.launches
+            t0 = time.perf_counter()
+            ck.save(i, program=main, scope=scope,
+                    ps_tables={table.name: table})
+            out["save_held_ms"] = (time.perf_counter() - t0) * 1e3
+            out["dirty_rows_at_save"] = dirty
+            out["save_gather_launches"] = (fsa.fused_row_gather.launches
+                                           - g0)
+        elif i in P19_DELTAS_AT:
+            t0 = time.perf_counter()
+            ck.save_delta(i, {table.name: table}, blocking=True)
+            out.setdefault("delta_ms", []).append(
+                (time.perf_counter() - t0) * 1e3)
+            out.setdefault("delta_bytes", []).append(os.path.getsize(
+                ck._delta_path(P19_SAVE_AT, i)))
+            if i == P19_DELTAS_AT[-1]:
+                out["live"] = table.dump_full()
+
+    return hook
+
+
+def p19_sockets(fluid, fsa, rec):
+    """Arms 1 and 3: DeepFM over 8 socket shards in five arms, each
+    bitwise equal to an in-process run on the same feeds; PS checkpoints
+    in the hot arm; then the 67,108,864-row aggregate table."""
+    import threading
+
+    import torch
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.observability.federate import (FederatedScraper,
+                                                         ScrapeTarget)
+    from paddle_tpu_torch.ps import RangeSpec, ShardedTable
+
+    feeds = p19_feeds(3, P19_STEPS, P19_B, P19_VOCAB)
+    ref_table = ShardedTable.build_in_process(
+        "fm_t", RangeSpec.even(P19_VOCAB, P19_SHARDS))
+    keep = {}
+    t0 = time.perf_counter()
+    ref_losses, ref_rec = p19_train(fluid, deepfm, fsa, ref_table, feeds,
+                                    0, 0, 0, P19_WARMUP, profile_last=False,
+                                    keep=keep)
+    ref_final = keep.pop("table")
+    ref_rec["wall_s"] = time.perf_counter() - t0
+    rec["in_process_reference"] = {k: ref_rec[k] for k in (
+        "examples_per_s", "median_step_ms", "wall_s")}
+    log("ps tier: in-process reference "
+        + json.dumps(rec["in_process_reference"]))
+    arms, ck_out = [], {}
+    for pull_ahead, push_depth, hot_rows, scrape in P19_ARMS:
+        t_arm = time.perf_counter()
+        table, servers = p19_socket_table("fm_t", P19_VOCAB, P19_SHARDS)
+        scraper = doc = None
+        if scrape:
+            scraper = FederatedScraper(
+                [ScrapeTarget.local(name="trainer", role="trainer")]
+                + [ScrapeTarget.ps(s.endpoint, shard=i)
+                   for i, s in enumerate(servers)],
+                interval_s=1.0).start()
+        hook = None
+        tmp = None
+        if hot_rows:
+            tmp = tempfile.TemporaryDirectory()
+            hook = p19_checkpoint_hook(fluid, fsa, table, tmp.name, ck_out)
+        try:
+            if scraper is not None:
+                # the tier closes the table; take the doc while it trains
+                hook = p19_scrape_hook(scraper, P19_STEPS - 1, keep)
+            losses, r = p19_train(fluid, deepfm, fsa, table, feeds,
+                                  pull_ahead, push_depth, hot_rows,
+                                  P19_WARMUP, hook=hook,
+                                  hook_steps=(P19_SAVE_AT,) + P19_DELTAS_AT
+                                  if hot_rows else (), keep=keep)
+            doc = keep.pop("scrape", None)
+            final_equal = bool(np.array_equal(keep.pop("table"),
+                                              ref_final))
+        finally:
+            if scraper is not None:
+                scraper.stop()
+            for s in servers:
+                s.stop()
+        r.update(wall_s=time.perf_counter() - t_arm,
+                 pull_ahead=pull_ahead, push_depth=push_depth,
+                 hot_rows=hot_rows, scraper_hz=1.0 if scrape else 0.0,
+                 losses_bitwise=losses == ref_losses,
+                 shards_bitwise=final_equal)
+        if doc is not None:
+            r["scrape"] = {"ok": doc["ok"], "targets": len(doc["targets"]),
+                           "signals": doc["signals"]}
+        launches = r["launches"]
+        if not (r["losses_bitwise"] and final_equal):
+            raise AssertionError(
+                f"ps sockets arm {(pull_ahead, push_depth, hot_rows)}: not "
+                f"bitwise ({losses[:3]} vs {ref_losses[:3]})")
+        if launches["fused_adagrad_update"] != P19_STEPS:
+            raise AssertionError(f"ps sockets: row 12 launched {launches}")
+        if hot_rows and not (launches["fused_row_gather"]
+                             and launches["fused_row_scatter"]):
+            raise AssertionError(f"ps sockets hot arm: rows 13-14 launched "
+                                 f"{launches}")
+        if scrape and not (doc and doc["ok"]):
+            raise AssertionError(f"ps sockets: the scrape failed {doc}")
+        arms.append(r)
+        log(f"ps tier: socket arm {(pull_ahead, push_depth, hot_rows, scrape)} "
+            + json.dumps({k: v for k, v in r.items()
+                          if k != "per_shard_bytes"}, default=str))
+        if hot_rows:
+            # arm 3: the chain restores bitwise onto 3 in-process shards
+            fresh = ShardedTable.build_in_process(
+                "fm_t", RangeSpec.even(P19_VOCAB, 3))
+            t0 = time.perf_counter()
+            got = ck_out["ck"].restore(program=fluid.Program(),
+                                       scope=fluid.Scope(),
+                                       ps_tables={"fm_t": fresh},
+                                       place=fluid.CUDAPlace(0))
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            same = bool(np.array_equal(fresh.dump_full(), ck_out["live"]))
+            fresh.close()
+            ck_out["full_bytes"] = sum(
+                os.path.getsize(os.path.join(tmp.name, f))
+                for f in os.listdir(tmp.name)
+                if f.startswith(f"ckpt-{P19_SAVE_AT}."))
+            tmp.cleanup()
+            ck_rec = {k: v for k, v in ck_out.items()
+                      if k not in ("ck", "live")}
+            ck_rec.update(restored_step=got, restore_ms=restore_ms,
+                          restore_bitwise=same)
+            rec["ps_checkpoints"] = ck_rec
+            log("ps tier: checkpoints " + json.dumps(ck_rec))
+            if not (same and got == P19_SAVE_AT
+                    and ck_rec["save_gather_launches"] > 0
+                    and ck_rec["dirty_rows_at_save"] > 0):
+                raise AssertionError(f"ps checkpoints: {ck_rec}")
+            ck_out.clear()
+        torch.cuda.empty_cache()
+    rec["socket_arms"] = arms
+    plain, scraped = arms[2]["median_step_ms"], arms[4]["median_step_ms"]
+    rec["scraper_step_ms_vs_plain"] = {"scraped": scraped, "plain": plain,
+                                       "ratio": scraped / plain}
+
+    # the aggregate table, host memory only (rows touched commit pages)
+    big_feeds = p19_feeds(5, P19_BIG_STEPS, P19_B, P19_BIG_VOCAB)
+    rss = [p19_rss_mb()]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(0.05):
+            rss.append(p19_rss_mb())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    table, servers = p19_socket_table("fm_t", P19_BIG_VOCAB, P19_SHARDS)
+    try:
+        losses, r = p19_train(fluid, deepfm, fsa, table, big_feeds, 2, 1, 0,
+                              P19_BIG_WARMUP, profile_last=False)
+    finally:
+        stop.set()
+        sampler.join()
+        for s in servers:
+            s.stop()
+    import resource
+    rec["aggregate"] = {
+        "vocab": P19_BIG_VOCAB,
+        "aggregate_gb": P19_BIG_VOCAB * 128 * 2 / 1e9,
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "examples_per_s": r["examples_per_s"],
+        "median_step_ms": r["median_step_ms"],
+        "rss_mb_before": rss[0], "rss_mb_peak_during": max(rss),
+        "process_peak_rss_mb": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1024.0}
+    log("ps tier: aggregate " + json.dumps(rec["aggregate"]))
+    if not rec["aggregate"]["losses_finite"]:
+        raise AssertionError(f"ps aggregate table: losses {losses}")
+
+
+def p19_launch_runner(tables, port=0):
+    """One of the port's pserver runners (no torch): (process, endpoint)."""
+    cmd = [sys.executable, P19_RUNNER, "--port", str(port)]
+    for t in tables:
+        cmd += ["--table", t]
+    env = dict(os.environ)
+    env.pop("PDTPU_FAULT_SPEC", None)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env)
+    ep = proc.stdout.readline().strip()
+    if not ep:
+        proc.wait(timeout=30)
+        raise AssertionError(f"pserver runner died at boot ({proc.returncode})")
+    return proc, ep
+
+
+def p19_stop_runners(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait(timeout=30)
+        p.stdout.close()
+
+
+def p19_kill_run(fluid, fsa, feeds, kill, hot_rows, ckdir):
+    """Arm 2's run over 2 runner pservers with recovery armed (a full
+    save at step 0); with `kill`, SIGKILL shard 1 before the kill step,
+    restart it on its port 0.25 s later and watch /healthz through a
+    ShardMonitor. Returns (losses, record)."""
+    import threading
+
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.observability.http import run_health_checks
+    from paddle_tpu_torch.observability.registry import get_registry
+    from paddle_tpu_torch.parallel import Checkpointer
+    from paddle_tpu_torch.ps import (PsEmbeddingTier, PsTableBinding,
+                                     RangeSpec, ShardMonitor, ShardedTable,
+                                     SocketClient)
+
+    v, b, ks = P19_KILL["vocab"], P19_KILL["batch"], P19_KILL["kill_step"]
+    reg = get_registry()
+    spec = RangeSpec.even(v, 2)
+    procs, eps = [], []
+    for i in range(2):
+        lo, hi = spec.bounds(i)
+        p, ep = p19_launch_runner([f"fm_t:{lo}:{hi}"])
+        procs.append(p)
+        eps.append(ep)
+    table = ShardedTable("fm_t", spec, [SocketClient(ep) for ep in eps])
+    main, startup, loss = p19_program(fluid, deepfm, b * 26, hot_rows)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    ck = Checkpointer(ckdir)
+    ck.save(0, program=main, scope=scope, blocking=True,
+            ps_tables={"fm_t": table})
+    tier = PsEmbeddingTier(main, [PsTableBinding("fm_t", table,
+                                                 ["sparse_ids"])],
+                           pull_ahead=1, push_depth=0, hot_rows=hot_rows,
+                           place=fluid.CUDAPlace(0))
+    tier.attach_checkpointer(ck)
+    rec0 = reg.counter("ps/recoveries").value
+    retry0 = reg.counter("ps/rpc_retries").value
+    mon = ShardMonitor.for_endpoints(eps, interval_s=0.05)
+    seen, stop, t_kill = [], threading.Event(), [None]
+    restarter = []
+
+    def watch():
+        last = None
+        while not stop.wait(0.01):
+            st = run_health_checks()[1].get("ps/shards", {}).get("status")
+            if st != last:
+                seen.append((st, time.perf_counter()))
+                last = st
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    losses, ms, journal = [], [], 0
+    for k in fsa.KERNELS:                       # the path starts
+        k.launches = 0
+    try:
+        with mon:
+            watcher.start()
+            for i, prep in enumerate(tier.steps(lambda: iter(feeds))):
+                if kill and i == ks:
+                    procs[1].kill()       # SIGKILL: a real preemption
+                    procs[1].wait(timeout=30)
+                    t_kill[0] = time.perf_counter()
+                    lo1, hi1 = spec.bounds(1)
+                    port1 = int(eps[1].rsplit(":", 1)[1])
+
+                    def restart():
+                        time.sleep(P19_KILL["restart_s"])
+                        procs.append(p19_launch_runner(
+                            [f"fm_t:{lo1}:{hi1}"], port=port1)[0])
+
+                    t = threading.Thread(target=restart, daemon=True)
+                    t.start()
+                    restarter.append(t)
+                t0 = time.perf_counter()
+                (lv,) = tier.run_step(exe, prep, fetch_list=[loss],
+                                      scope=scope)
+                losses.append(float(lv))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                journal = max(journal, table.journal_bytes())
+            tier.flush()
+            launches = {k.__name__: k.launches for k in fsa.KERNELS}
+            time.sleep(0.2)
+            stop.set()
+            watcher.join()
+    finally:
+        tier.close()
+        for t in restarter:
+            t.join(timeout=30)
+        p19_stop_runners(procs)
+    healthy = [m for i, m in enumerate(ms) if i != ks]
+    r = {"recoveries": reg.counter("ps/recoveries").value - rec0,
+         "rpc_retries": reg.counter("ps/rpc_retries").value - retry0,
+         "median_step_ms": float(np.median(healthy)),
+         "recovery_pause_ms": ms[ks] - float(np.median(healthy)),
+         "kill_step_ms": ms[ks], "journal_bytes_peak": journal,
+         "launches": launches,
+         "healthz": [(s, None if t_kill[0] is None
+                      else (t - t_kill[0]) * 1e3) for s, t in seen]}
+    return losses, r
+
+
+def p19_recovery(fluid, fsa, rec):
+    """Arm 2: a pserver SIGKILLed mid-run, with and without the hot
+    cache: losses bitwise equal to the uninterrupted run, one recovery,
+    /healthz ok -> degraded -> ok."""
+    feeds = p19_feeds(7, P19_KILL["steps"], P19_KILL["batch"],
+                      P19_KILL["vocab"])
+    saved = {k: os.environ.get(k) for k in P19_KNOBS}
+    os.environ.update(P19_KNOBS)
+    out = {}
+    try:
+        for hot_rows in (0, 2 * P19_KILL["batch"] * 26):
+            with tempfile.TemporaryDirectory() as d:
+                base, rb = p19_kill_run(fluid, fsa, feeds, False, hot_rows,
+                                        os.path.join(d, "base"))
+                killed, rk = p19_kill_run(fluid, fsa, feeds, True, hot_rows,
+                                          os.path.join(d, "kill"))
+            states = [s for s, _ in rk["healthz"]]
+            r = dict(rk, bitwise_equal=killed == base,
+                     uninterrupted_median_step_ms=rb["median_step_ms"],
+                     uninterrupted_recoveries=rb["recoveries"])
+            out[f"hot_rows_{hot_rows}"] = r
+            log(f"ps tier: recovery hot_rows {hot_rows} "
+                + json.dumps(r, default=str))
+            ok_seq = (states and states[0] == "ok" and "degraded" in states
+                      and states[-1] == "ok"
+                      and states.index("degraded") < len(states) - 1)
+            if not (r["bitwise_equal"] and rk["recoveries"] == 1
+                    and rb["recoveries"] == 0 and ok_seq):
+                raise AssertionError(f"ps recovery (hot_rows {hot_rows}): "
+                                     f"{r} {killed[:3]} vs {base[:3]}")
+            if rk["launches"]["fused_adagrad_update"] != P19_KILL["steps"] \
+                    or (hot_rows and not rk["launches"]["fused_row_gather"]):
+                raise AssertionError(f"ps recovery: launches {rk}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rec["recovery"] = out
+
+
+def p19_online(fluid, fsa, rec):
+    """Arm 4: bench.py's online-learning cell on the card."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.initializer import RowPackInitializer
+    from paddle_tpu_torch.param_attr import ParamAttr
+    from paddle_tpu_torch.parallel import Checkpointer
+    from paddle_tpu_torch.ps import (InProcessClient, PsEmbeddingTier,
+                                     PsTableBinding, RangeSpec, ShardedTable,
+                                     make_dynamic_shards)
+    from paddle_tpu_torch.streaming import (DeltaPublisher, OnlineTrainer,
+                                            StreamingDataset, eval_auc)
+
+    o = P19_ONLINE
+    vocab, cap, fields, d, mult = (o["vocab"], o["cap"], o["fields"],
+                                   o["d"], o["mult"])
+    rows_per_step = o["batch"] * fields
+    w = np.random.RandomState(17).uniform(-1.0, 1.0, vocab)
+    cfg = {"pool": None}
+
+    def source():
+        g = np.random.RandomState(18)
+        while True:
+            if cfg["pool"] is not None:
+                ids = cfg["pool"][g.randint(0, cfg["pool"].size, fields)]
+            elif g.uniform() < 0.9:
+                ids = g.randint(0, o["hot_ids"], fields)
+            else:
+                ids = g.randint(0, vocab, fields)
+            lbl = 1.0 if w[ids].sum() > 0 else 0.0
+            yield {"ids": ids.astype("int64"),
+                   "lbl": np.array([lbl], "float32")}
+
+    def build(train):
+        L = fluid.layers
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 2024
+        with unique_name.guard(), fluid.program_guard(main, startup):
+            ids = L.data("ids", [fields], dtype="int64")
+            emb = L.embedding(
+                ids, [rows_per_step, d * mult], is_sparse=True,
+                row_pack=True, param_attr=ParamAttr(
+                    name="ol_t", initializer=RowPackInitializer(
+                        d, d * mult, -0.01, 0.01)))
+            emb = L.slice(emb, axes=[2], starts=[0], ends=[d])
+            score = L.reshape(L.reduce_sum(emb, dim=[1, 2]), [-1, 1])
+            if not train:
+                return main, startup, score
+            lbl = L.data("lbl", [1], dtype="float32")
+            loss = L.mean(L.square_error_cost(score, lbl))
+            fluid.optimizer.Adagrad(
+                0.1, packed_rows={"rows_per_step": rows_per_step}).minimize(
+                loss)
+        return main, startup, loss
+
+    def shards_of():
+        return make_dynamic_shards("ol_t", RangeSpec.even(vocab, 2),
+                                   capacity_per_shard=cap,
+                                   high_watermark=0.9, low_watermark=0.7,
+                                   keep_freq=3)
+
+    spec = RangeSpec.even(vocab, 2)
+    shards = shards_of()
+    table = ShardedTable("ol_t", spec, [InProcessClient([s])
+                                        for s in shards])
+    r = {}
+    with tempfile.TemporaryDirectory() as work:
+        imain, istart, iscore = build(False)
+        iexe = fluid.Executor(fluid.CUDAPlace(0))
+        isc = fluid.Scope()
+        iexe.run(istart, scope=isc)
+        with fluid.scope_guard(isc):
+            fluid.io.save_inference_model(os.path.join(work, "m"), ["ids"],
+                                          [iscore], iexe, main_program=imain)
+        ps = inference.PsLookupPredictor(
+            inference.create_predictor(inference.Config(
+                os.path.join(work, "m"))),
+            [inference.PsLookupBinding("ol_t", table, ["ids"])],
+            cache_rows_per_table=2 * cap)
+        pub = DeltaPublisher(table, staleness_s=o["staleness_s"])
+        pub.attach_predictor(ps)
+        ds = StreamingDataset(source, batch_size=o["batch"],
+                              held_out_every=7, eval_window=64 * o["batch"])
+        main, startup, loss = build(True)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        sc = fluid.Scope()
+        exe.run(startup, scope=sc)
+        ckdir = os.path.join(work, "ck")
+        ck = Checkpointer(ckdir, keep=4)
+        ck.save(0, program=main, scope=sc, blocking=True,
+                ps_tables={"ol_t": table})
+        tier = PsEmbeddingTier(main, [PsTableBinding("ol_t", table,
+                                                     ["ids"])],
+                               pull_ahead=1, push_depth=0,
+                               place=fluid.CUDAPlace(0))
+        trainer = OnlineTrainer(
+            exe, main, tier, ds, fetch_list=[loss], scope=sc,
+            ps_tables={"ol_t": table}, checkpointer=ck, publishers=[pub],
+            sweep_every=o["sweep_every"], delta_every=o["delta_every"],
+            compact_every=o["compact_every"], eval_every=o["eval_every"],
+            eval_fn=lambda: eval_auc(
+                ds, lambda f: ps.run({"ids": f["ids"]})[0], "lbl"))
+        for k in fsa.KERNELS:                   # the path starts
+            k.launches = 0
+        try:
+            t0 = time.perf_counter()
+            trainer.run(max_steps=o["steps"])
+            trainer.finish()
+            elapsed = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in fsa.KERNELS}
+            sstats = [s.stats() for s in shards]
+            # the serving cache against the shards, on the rows the
+            # trainer pushed and the shards still hold: the publisher's
+            # contract. A row a shard evicted keeps its last pushed bytes
+            # in the cache; one the shard re-materialized without a push
+            # since (a pull of the prefetched batch past the last step, or
+            # a pull between an eviction and the next push) holds its
+            # zero init row there. Pulling an evicted id would
+            # re-materialize it, so only shard-resident ids are read.
+            cache = ps._caches["ol_t"]
+            res_uids, _ = cache._slots.residents()
+            live = np.concatenate([s._slots.residents()[0] for s in shards])
+            uids = np.sort(np.intersect1d(res_uids.astype(np.int64),
+                                          live.astype(np.int64)))
+            got, miss = cache.lookup(uids)
+            want = table.pull(uids)
+            pushed = want.any(axis=1)
+            fresh = bool(uids.size and not miss.any() and np.array_equal(
+                got[pushed], want[pushed]))
+            cache_evicted = int(res_uids.size - uids.size)
+            cache_init = int((~pushed).sum())
+            cache_init_equal = int((got[~pushed] == want[~pushed]).all(
+                axis=1).sum())
+            stale = pub.staleness_percentiles()
+            e2e = ps.staleness_e2e_percentiles()
+            files = os.listdir(ckdir)
+            full_b = [os.path.getsize(os.path.join(ckdir, f)) for f in files
+                      if f.startswith("ckpt-") and ".shards-" in f]
+            delta_b = [os.path.getsize(os.path.join(ckdir, f)) for f in files
+                       if f.startswith("delta-") and f.endswith(".pkl")]
+            # the delta chain: a compaction on the post-sweep state, then
+            # steps over resident ids only (no admission, no eviction) and
+            # a delta; its restore against the table dumped at that step
+            tier.flush()
+            ck.save(trainer.step, program=main, scope=sc, blocking=True,
+                    ps_tables={"ol_t": table})
+            base_step = trainer.step
+            cfg["pool"] = np.sort(np.concatenate(
+                [s._slots.residents()[0] for s in shards]).astype(np.int64))
+            trainer.sweep_every = trainer.eval_every = 0
+            trainer.delta_every = 0
+            trainer.run(max_steps=o["resident_steps"])
+            tier.flush()
+            ck.save_delta(trainer.step, {"ol_t": table}, blocking=True)
+            expected = table.dump_full()
+            back = shards_of()
+            back_t = ShardedTable("ol_t", spec, [InProcessClient([s])
+                                                 for s in back])
+            restored = ck.restore(program=main, scope=fluid.Scope(),
+                                  ps_tables={"ol_t": back_t},
+                                  place=fluid.CUDAPlace(0))
+            chain_equal = bool(restored == base_step and np.array_equal(
+                back_t.dump_full(), expected))
+            loaded, _, _ = ck.load_ps_table("ol_t")
+            chain_equal = chain_equal and bool(np.array_equal(loaded,
+                                                              expected))
+            chain_delta = os.path.getsize(ck._delta_path(base_step,
+                                                         trainer.step))
+        finally:
+            tier.close()
+            pub.close()
+    mat = sum(s["materialized"] for s in sstats)
+    evicted = sum(s["evicted"] for s in sstats)
+    aucs = [(s, v) for s, v in trainer.history["eval"] if not np.isnan(v)]
+    r.update({
+        "steps": o["steps"], "examples_per_s": o["steps"] * o["batch"]
+        / elapsed, "auc_trajectory": aucs, "materialized": mat,
+        "evicted": evicted, "provisioned_rows": 2 * cap,
+        "live_rows": [s["live_rows"] for s in sstats],
+        "rows_materialized_per_min": mat * 60.0 / elapsed,
+        "rows_evicted_per_min": evicted * 60.0 / elapsed,
+        "full_bytes": float(np.mean(full_b)) if full_b else None,
+        "delta_bytes": delta_b, "chain_delta_bytes": chain_delta,
+        "staleness_ms": stale, "staleness_e2e_ms": e2e,
+        "serving_cache_rows_checked": int(pushed.sum()),
+        "serving_cache_rows_evicted_from_shards": cache_evicted,
+        "serving_cache_rows_init_in_shards": cache_init,
+        "of_which_equal": cache_init_equal,
+        "serving_fresh": fresh,
+        "chain_restore_bitwise": chain_equal,
+        "launches": launches})
+    rec["online"] = r
+    log("ps tier: online " + json.dumps(r, default=str))
+    ok = (len(aucs) >= 2 and aucs[-1][1] > aucs[0][1]
+          and mat > 2 * cap and all(s["live_rows"] <= cap for s in sstats)
+          and stale["p99"] is not None
+          and stale["p99"] <= o["staleness_s"] * 1e3 and fresh
+          and chain_equal
+          and launches["fused_adagrad_update"] == o["steps"])
+    if not ok:
+        raise AssertionError(f"online learning: {r}")
+
+
+def p19_serving(fluid, rec):
+    """Arm 5: phase 18's CTR model at 2,097,152 rows, its seeded table
+    loaded over the wire into 2 runner pservers; 2 ProcessReplicas with
+    --ps-endpoints on the card against a ThreadReplica over an in-process
+    table of the same bytes; then ps_admin against the live endpoints
+    where torch cannot be imported."""
+    import threading
+
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.ps import RangeSpec, ShardedTable, SocketClient
+    from paddle_tpu_torch.serving.fleet import ModelRegistry
+    from paddle_tpu_torch.serving.fleet.replica import (ProcessReplica,
+                                                        ThreadReplica)
+
+    v, b, fields, dim = (P19_SERVE["vocab"], P19_SERVE["batch"],
+                         CTR["fields"], CTR["dim"])
+    vis = np.random.RandomState(7).uniform(-1, 1, (v, dim)).astype("float32")
+    host = p18_packed_rows(vis)
+    del vis
+    spec = RangeSpec.even(v, 2)
+    procs, eps = [], []
+    r = {"vocab": v}
+    local = reps = None
+    with tempfile.TemporaryDirectory() as d_ps:
+        try:
+            for i in range(2):
+                lo, hi = spec.bounds(i)
+                p, ep = p19_launch_runner([f"tb:{lo}:{hi}"])
+                procs.append(p)
+                eps.append(ep)
+            wire = ShardedTable("tb", spec, [SocketClient(ep) for ep in eps])
+            t0 = time.perf_counter()
+            wire.load_full(host)
+            r["load_over_wire_s"] = time.perf_counter() - t0
+            wire.close()
+            local = ShardedTable.build_in_process("tb", spec,
+                                                  full_rows=host)
+            del host
+            p18_ctr_models(fluid, d_ps)
+            mv = ModelRegistry().register("ctr", d_ps)
+
+            def factory(model):
+                return inference.PsLookupPredictor(
+                    inference.create_predictor(inference.Config(
+                        model.model_dir)),
+                    [inference.PsLookupBinding("tb", local, ["ids"])],
+                    cache_rows_per_table=CTR["cache"])
+
+            t0 = time.perf_counter()
+            args = ["--ps-endpoints", ",".join(eps), "--ps-table",
+                    f"tb=tb:{v}", "--ps-cache-rows", str(CTR["cache"])]
+            reps = [ProcessReplica(f"ps{i}", mv, buckets=(b,),
+                                   extra_args=args,
+                                   server_kwargs={"max_batch_delay_ms": 1.0},
+                                   device=FLEET_WORKER_DEVICE)
+                    for i in range(2)]
+            thread = ThreadReplica("t0", mv, buckets=(b,),
+                                   predictor_factory=factory,
+                                   server_kwargs={"max_batch_delay_ms": 1.0})
+            reps.append(thread)
+            for rp in reps[:2]:
+                rp.wait_ready(600)
+            r["replicas_ready_s"] = time.perf_counter() - t0
+            rng = np.random.RandomState(3)
+            batches = [(rng.randint(0, v, (b, fields)) if k < 32 else
+                        (rng.zipf(1.5, (b, fields)) - 1) % v).astype("int64")
+                       for k in range(P19_SERVE["batches"])]
+            ms, equal = [], 0
+            for k, ids in enumerate(batches):
+                t0 = time.perf_counter()
+                got = reps[k % 2].submit({"ids": ids}).result(timeout=120)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                want = thread.submit({"ids": ids}).result(timeout=120)
+                equal += int(len(got) == len(want) and all(
+                    np.array_equal(x, y) for x, y in zip(got, want)))
+            r.update(bitwise_equal=f"{equal}/{len(batches)}",
+                     request_ms=med_range(ms))
+            # ps_admin where torch (and JAX) cannot be imported
+            poison = os.path.join(d_ps, "poison")
+            for name in ("torch", "jax"):
+                os.makedirs(os.path.join(poison, name))
+                with open(os.path.join(poison, name, "__init__.py"),
+                          "w") as f:
+                    f.write(f"raise ImportError('{name} is not for "
+                            "ps_admin')\n")
+            root = os.path.dirname(os.path.abspath(__file__))
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [poison, root]))
+            admin = {}
+            for cmd in ("stats", "dump-health", "fleet"):
+                res = subprocess.run(
+                    [sys.executable, "-m", "paddle_tpu_torch.tools.ps_admin",
+                     cmd, "--endpoints", ",".join(eps), "--json"],
+                    cwd=d_ps, env=env, capture_output=True, text=True,
+                    timeout=120)
+                admin[cmd] = res.returncode
+                if res.returncode != 0:
+                    raise AssertionError(f"ps_admin {cmd}: rc "
+                                         f"{res.returncode} {res.stderr}")
+                if cmd == "dump-health":
+                    doc = json.loads(res.stdout)
+                    admin["status"] = doc["status"]
+            r["ps_admin_rc"] = admin
+        finally:
+            for rp in reps or ():
+                rp.stop()
+            if local is not None:
+                local.close()
+            p19_stop_runners(procs)
+            torch.cuda.empty_cache()
+    rec["serving"] = r
+    log("ps tier: serving " + json.dumps(r, default=str))
+    if equal != len(batches):
+        raise AssertionError(f"ps serving from sockets: {r}")
+
+
+def phase_ps_tier_and_streaming(fluid, fsa, smi):
+    """Phase 19: the PS tier over sockets, recovery, PS checkpoints,
+    streaming and serving from socket shards (module docstring). Prints
+    one JSON line."""
+    import torch
+
+    t0 = time.perf_counter()
+    rec = {"device": smi, "arm_s": {}}
+    for name, arm in (("sockets", lambda: p19_sockets(fluid, fsa, rec)),
+                      ("recovery", lambda: p19_recovery(fluid, fsa, rec)),
+                      ("online", lambda: p19_online(fluid, fsa, rec)),
+                      ("serving", lambda: p19_serving(fluid, rec))):
+        t1 = time.perf_counter()
+        arm()
+        rec["arm_s"][name] = time.perf_counter() - t1
+        log(f"ps tier: {name} took {rec['arm_s'][name]:.1f} s")
+        torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t0
+    log("ps tier and streaming " + json.dumps(rec, default=str))
+
+
 def main():
     import torch
 
@@ -6240,6 +7150,10 @@ def main():
     # 18. inference and serving (int8, the InferenceServer, the fleet,
     # PS-backed CTR serving)
     launches["float32"] += phase_inference_serving(fluid, fa, smi)
+
+    # 19. the PS tier over sockets, shard recovery, PS checkpoints,
+    # online learning and serving from socket shards
+    phase_ps_tier_and_streaming(fluid, fsa, smi)
 
     kernels = []
     for name in ("float32", "bfloat16"):

@@ -18,8 +18,8 @@ Three target kinds, matching how each process can actually be reached:
   falling back to parsing the flat ``/metrics.json`` snapshot of processes
   that serve no series;
 * ``ps`` — a pserver: the ``metrics`` op of the PS wire protocol, through
-  the socket transport (ROADMAP A8: until it is ported, scraping such a
-  target raises ``NotImplementedError``);
+  ``ps.transport.SocketClient`` (pservers have no HTTP server and load no
+  torch — the transport op costs nothing they don't already have);
 * ``call`` — anything reachable as a Python callable returning a series
   list: the local registry, a `ThreadReplica`/`ProcessReplica`
   (both expose ``.metrics()``), a test stub.

@@ -47,12 +47,23 @@ every variable, leaves the scope's generator as it is, and warns once,
 naming both kinds. The JAX package cannot read a torch generator state:
 a port checkpoint that carries one does not restore there.
 
-Not ported here: writing sharded tensors (ROADMAP A9), and the PS tables'
-checkpoints — ``ps_tables=`` in `save` and `restore`, `save_delta` and
-`load_ps_table` — which raise naming ROADMAP A8.
+PS tables. ``save(ps_tables={name: ShardedTable})`` runs each table's
+flush hook (the tier writes back the hot slab's dirty rows and drains its
+pusher), takes the table's push-journal mark, and dumps every shard into
+the per-rank shard files under ``<name>@ps`` with the mark as
+``@ps_mark@<name>``; the journal is truncated to the mark once the save
+commits. `save_delta` persists only the journal entries since the chain
+head (``delta-<base>-<step>.pkl`` + manifest); `restore(ps_tables=)`
+assembles the newest verified full save, replays its verified delta chain
+and re-partitions the table onto the LIVE shard count; `load_ps_table` is
+the same read for shard recovery. The files are the JAX package's, both
+ways.
 
-Chaos probes (``faults``): ``ckpt.bundle_write``, ``ckpt.rename`` and
-``ckpt.marker`` sit at every commit edge.
+Not ported here: writing sharded tensors (ROADMAP A9).
+
+Chaos probes (``faults``): ``ckpt.bundle_write``, ``ckpt.rename``,
+``ckpt.shard_write``, ``ckpt.delta_write`` and ``ckpt.marker`` sit at
+every commit edge.
 """
 from __future__ import annotations
 
@@ -82,11 +93,6 @@ _FALLBACK = _OBS.counter("checkpoint/fallback_steps")
 _RETRIES = _OBS.counter("checkpoint/write_retries")
 # a background write, from the snapshot's copies to the marker's rename
 _WRITE_MS = _OBS.histogram("checkpoint/write_ms")
-
-_PS_TODO = ("PS table checkpoints (ps_tables=, save_delta, load_ps_table) "
-            "need ShardedTable.dump_shard / load_full, which are not "
-            "ported yet (ROADMAP A8)")
-
 
 def _snapshot(program: Program, scope: Scope):
     """(vals, event): a host copy of every persistable in the scope, and
@@ -194,6 +200,11 @@ class Checkpointer:
         self.last_extra: Dict[str, object] = {}
         # ms the last committed background write took (copies + write)
         self.last_write_ms: Optional[float] = None
+        # incremental-checkpoint chain head: the committed full save (or
+        # restore) deltas extend — {"step": int, "marks": {table: mark}}.
+        # Advanced only by on-commit callbacks / restore, so an aborted
+        # write never becomes a delta base.
+        self._ps_base: Optional[Dict[str, object]] = None
         os.makedirs(dirname, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -213,11 +224,15 @@ class Checkpointer:
         return os.path.join(self.dirname, f"ckpt-{step}.manifest-{rank}.json")
 
     # -- background write --------------------------------------------------
-    def _write(self, step: int, vals: Dict[str, object], event=None):
+    def _write(self, step: int, vals: Dict[str, object], event=None,
+               shards=(), on_commit=()):
         """Writer-thread entry: wait for the snapshot's copies, then write,
         retrying transient I/O with capped exponential backoff; any
         residual failure is surfaced by the next wait()/save() (a silently
-        lost checkpoint must not look durable)."""
+        lost checkpoint must not look durable). `on_commit` callbacks run
+        only after the write fully commits (manifest + marker durable) —
+        e.g. PS journal truncation, which must never happen for a
+        checkpoint that might not be restorable."""
         retries = int(os.environ.get("PDTPU_CKPT_RETRIES", "3"))
         backoff_ms = float(os.environ.get("PDTPU_CKPT_RETRY_BACKOFF_MS",
                                           "100"))
@@ -231,9 +246,14 @@ class Checkpointer:
             return
         while True:
             try:
-                self._write_impl(step, vals)
+                self._write_impl(step, vals, shards)
                 self.last_write_ms = (time.perf_counter() - t0) * 1e3
                 _WRITE_MS.observe(self.last_write_ms)
+                for cb in on_commit:
+                    try:
+                        cb()
+                    except Exception:
+                        pass  # commit stands; truncation is best-effort
                 return
             except OSError as e:
                 # transient filesystem error (NFS blip, EIO, injected
@@ -250,6 +270,36 @@ class Checkpointer:
                 self._error = (e, step, self._current_path, attempt)
                 return
 
+    def _write_shards(self, step: int, shards, rank: int,
+                      manifest: Dict[str, dict]):
+        """Per-process shard file + JSON index, both fsync+rename-durable
+        and recorded in `manifest`. Each process writes ONLY its
+        addressable replica-0 shards; restore merges every rank's index
+        (shared-filesystem contract, same as the reference's save_combine
+        to a common dirname)."""
+        data = {}
+        index: Dict[str, dict] = {}
+        for name, bounds, shape, dtype, buf in shards:
+            key = f"{name}@" + ",".join(f"{a}:{b}" for a, b in bounds)
+            data[key] = np.asarray(buf)
+            ent = index.setdefault(name, {"shape": list(shape),
+                                          "dtype": dtype, "shards": []})
+            ent["shards"].append({"key": key,
+                                  "bounds": [list(b) for b in bounds]})
+        spath = os.path.join(self.dirname, f"ckpt-{step}.shards-{rank}.pkl")
+        self._current_path = spath
+        digest, size = _write_bytes(spath + ".tmp",
+                                    pickle.dumps(data, protocol=4))
+        manifest[os.path.basename(spath)] = {"sha256": digest, "bytes": size}
+        fault_point("ckpt.shard_write", path=spath + ".tmp")
+        os.replace(spath + ".tmp", spath)
+        ipath = os.path.join(self.dirname, f"ckpt-{step}.index-{rank}.json")
+        self._current_path = ipath
+        digest, size = _write_bytes(ipath + ".tmp",
+                                    json.dumps(index).encode("utf-8"))
+        manifest[os.path.basename(ipath)] = {"sha256": digest, "bytes": size}
+        os.replace(ipath + ".tmp", ipath)
+
     def _write_manifest(self, step: int, rank, manifest: Dict[str, dict]):
         """The commit record: written LAST, after every file it hashes is
         durable under its final name. A step without its manifests is an
@@ -261,11 +311,14 @@ class Checkpointer:
         _write_bytes(mpath + ".tmp", blob)
         os.replace(mpath + ".tmp", mpath)
 
-    def _write_impl(self, step: int, vals: Dict[str, object]):
-        """One process writes rank 0's files: the bundle, its manifest and
-        the marker (a JAX mesh run's per-rank shard files are read by
-        `_assemble_shards`; writing them comes with ROADMAP A9)."""
+    def _write_impl(self, step: int, vals: Dict[str, object], shards=()):
+        """One process writes rank 0's files: the PS tables' shard file
+        and index, the bundle, its manifest and the marker (a JAX mesh
+        run's per-rank shard files of sharded tensors are read by
+        `_assemble_shards`; writing those comes with ROADMAP A9)."""
         manifest: Dict[str, dict] = {}
+        if shards:
+            self._write_shards(step, shards, 0, manifest)
         path = self._path(step)
         tmp = path + ".tmp"
         self._current_path = path
@@ -399,13 +452,276 @@ class Checkpointer:
         return [s for s in sorted(self.all_steps(), reverse=True)
                 if not self.verify(s)]
 
-    # -- PS tables (ROADMAP A8) --------------------------------------------
-    def save_delta(self, step: int, ps_tables, extra=None,
-                   blocking: bool = False) -> None:
-        raise NotImplementedError(f"Checkpointer.save_delta: {_PS_TODO}")
+    # -- incremental (delta) checkpoints ------------------------------------
+    def _delta_path(self, base: int, dstep: int) -> str:
+        return os.path.join(self.dirname, f"delta-{base}-{dstep}.pkl")
 
-    def load_ps_table(self, tname: str, table=None):
-        raise NotImplementedError(f"Checkpointer.load_ps_table: {_PS_TODO}")
+    def _delta_manifest_path(self, base: int, dstep: int) -> str:
+        return os.path.join(self.dirname,
+                            f"delta-{base}-{dstep}.manifest.json")
+
+    def delta_steps(self, base: int) -> List[int]:
+        """Delta steps on disk anchored to full checkpoint `base`,
+        ascending (the chain replay order)."""
+        out = []
+        prefix = f"delta-{base}-"
+        for f in os.listdir(self.dirname):
+            if f.startswith(prefix) and f.endswith(".pkl"):
+                try:
+                    out.append(int(f[len(prefix):-len(".pkl")]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def verify_delta(self, base: int, dstep: int) -> List[str]:
+        """Manifest check (existence, size, SHA-256) for one delta file;
+        [] when it verifies. A delta with no manifest is uncommitted."""
+        problems: List[str] = []
+        mpath = self._delta_manifest_path(base, dstep)
+        try:
+            with open(mpath) as f:
+                listed = json.load(f)["files"]
+        except (OSError, ValueError, KeyError) as e:
+            return [f"{os.path.basename(mpath)}: unreadable manifest "
+                    f"({type(e).__name__}: {e})"]
+        for bname, ent in sorted(listed.items()):
+            p = os.path.join(self.dirname, bname)
+            try:
+                size = os.path.getsize(p)
+            except OSError:
+                problems.append(f"{bname}: listed in manifest but missing")
+                continue
+            if int(ent.get("bytes", -1)) != size:
+                problems.append(f"{bname}: size {size} != manifest's "
+                                f"{ent.get('bytes')} (torn write)")
+                continue
+            digest, _ = _hash_file(p)
+            if digest != ent.get("sha256"):
+                problems.append(f"{bname}: sha256 mismatch (corrupt)")
+        return problems
+
+    def _delta_chain(self, base: int) -> List[dict]:
+        """The longest verifiable prefix of `base`'s delta chain, as
+        loaded payload dicts in ascending delta-step order. The walk
+        stops at the first unverifiable/unreadable file: every delta
+        after a hole is built over state the restore cannot reconstruct,
+        so applying it would be silently lossy."""
+        chain: List[dict] = []
+        for ds in self.delta_steps(base):
+            bad = self.verify_delta(base, ds)
+            payload = None
+            if not bad:
+                try:
+                    with open(self._delta_path(base, ds), "rb") as f:
+                        payload = pickle.load(f)
+                except (OSError, EOFError, ValueError,
+                        pickle.UnpicklingError) as e:
+                    bad = [f"{type(e).__name__}: {e}"]
+            if bad:
+                warnings.warn(
+                    f"delta checkpoint {base}->{ds} in {self.dirname!r} "
+                    f"failed verification ({'; '.join(bad)}); stopping the "
+                    "delta replay chain here", RuntimeWarning)
+                _FALLBACK.inc()
+                break
+            chain.append(payload)
+        return chain
+
+    @staticmethod
+    def _apply_delta_chain(chain: List[dict], tname: str,
+                           rows: np.ndarray, mark: int):
+        """Replay one table's entries from an already-verified chain onto
+        the dense `rows` array, in delta order then seq order (scatter-SET
+        of absolute rows ⇒ ordered replay is bitwise-exact). Stops at a
+        mark discontinuity (a delta whose ``since_mark`` doesn't extend
+        the state we hold). Returns (rows, final_mark, deltas_applied)."""
+        applied = 0
+        for payload in chain:
+            blob = (payload.get("tables") or {}).get(tname)
+            if blob is None:
+                continue
+            if int(blob["since_mark"]) != int(mark):
+                break
+            off = 0
+            ids = np.asarray(blob["ids"], np.int64)
+            drows = np.asarray(blob["rows"], np.uint16)
+            for c in np.asarray(blob["counts"], np.int64).tolist():
+                rows[ids[off:off + c]] = drows[off:off + c]
+                off += c
+            mark = int(blob["mark"])
+            applied += 1
+        return rows, mark, applied
+
+    def save_delta(self, step: int, ps_tables: Dict[str, object],
+                   extra: Optional[Dict[str, object]] = None,
+                   blocking: bool = False) -> None:
+        """Incremental PS checkpoint: persist only the rows touched since
+        the chain head — the journal entries past the last full save's
+        (or previous delta's) mark — as ``delta-<base>-<step>.pkl`` plus
+        a SHA-256 manifest, committed tmp→fsync→rename like everything
+        else. Orders of magnitude smaller than a full dump for a big
+        table, so it can run every few seconds on an online trainer.
+
+        Riding the push journal: each table's flush hook runs
+        first (device-dirty rows + queued async pushes land in the
+        journal), the snapshot is the journal slice ``(since_mark,
+        mark]``, and the journal is truncated to `mark` once — and only
+        once — the delta COMMITS, which is what keeps journal memory
+        bounded by delta cadence on an unbounded stream.
+
+        Requires a committed full ``save(ps_tables=...)`` (or a
+        ``restore``) as the chain base; ``save()`` is the compaction
+        point — it rewrites the whole table and starts a fresh chain.
+        Restore replays: newest verified full + its chain in order,
+        bitwise-exact (see ``restore``/``load_ps_table``)."""
+        if not ps_tables:
+            raise ValueError("save_delta: ps_tables is required (a delta "
+                             "checkpoint IS the PS-table increment)")
+        self.wait()  # one write in flight at a time; surfaces prior errors
+        base = self._ps_base
+        if base is None:
+            raise RuntimeError(
+                "save_delta: no committed full checkpoint to anchor the "
+                "delta chain — call save(ps_tables=...) (or restore) first")
+        base_step = int(base["step"])
+        marks: Dict[str, int] = dict(base["marks"])  # type: ignore[arg-type]
+        tables_blob: Dict[str, dict] = {}
+        on_commit = []
+        for tname, table in ps_tables.items():
+            hook = getattr(table, "flush_hook", None)
+            if hook is not None:
+                hook()
+            since = int(marks.get(tname, 0))
+            mark = int(table.journal_mark())
+            entries = [e for e in table.journal_entries_since(since)
+                       if e[0] <= mark]
+            lanes = int(table.lanes)
+            if entries:
+                ids = np.concatenate([e[1] for e in entries])
+                rows = np.concatenate([e[2] for e in entries], axis=0)
+            else:
+                ids = np.zeros((0,), np.int64)
+                rows = np.zeros((0, lanes), np.uint16)
+            tables_blob[tname] = {
+                "since_mark": since, "mark": mark,
+                "seqs": np.asarray([e[0] for e in entries], np.int64),
+                "counts": np.asarray([e[1].shape[0] for e in entries],
+                                     np.int64),
+                "ids": ids, "rows": rows, "lanes": lanes,
+                "vocab": int(table.spec.vocab),
+            }
+            marks[tname] = mark
+            on_commit.append(lambda t=table, m=mark: t.journal_truncate(m))
+        on_commit.append(lambda s=base_step, m=dict(marks):
+                         self._set_ps_base(s, m))
+        vals = {k: np.asarray(v) for k, v in (extra or {}).items()}
+        self._thread = threading.Thread(
+            target=self._write_delta,
+            args=(base_step, int(step), tables_blob, vals, on_commit),
+            daemon=True)
+        self._thread.start()
+        if blocking:
+            self.wait()
+
+    def _write_delta(self, base_step: int, step: int, tables_blob: dict,
+                     vals: dict, on_commit=()):
+        """Writer-thread entry for a delta (same retry/commit contract as
+        `_write`: manifest last, on_commit only after it is durable)."""
+        retries = int(os.environ.get("PDTPU_CKPT_RETRIES", "3"))
+        backoff_ms = float(os.environ.get("PDTPU_CKPT_RETRY_BACKOFF_MS",
+                                          "100"))
+        attempt = 0
+        while True:
+            try:
+                payload = {"base_step": base_step, "step": step,
+                           "tables": tables_blob, "extra": vals}
+                path = self._delta_path(base_step, step)
+                self._current_path = path
+                manifest: Dict[str, dict] = {}
+                digest, size = _write_bytes(
+                    path + ".tmp", pickle.dumps(payload, protocol=4))
+                manifest[os.path.basename(path)] = {"sha256": digest,
+                                                    "bytes": size}
+                fault_point("ckpt.delta_write", path=path + ".tmp")
+                os.replace(path + ".tmp", path)
+                mpath = self._delta_manifest_path(base_step, step)
+                self._current_path = mpath
+                blob = json.dumps({"step": step, "base_step": base_step,
+                                   "files": manifest},
+                                  sort_keys=True).encode("utf-8")
+                _write_bytes(mpath + ".tmp", blob)
+                os.replace(mpath + ".tmp", mpath)
+                for cb in on_commit:
+                    try:
+                        cb()
+                    except Exception:
+                        pass  # commit stands; truncation is best-effort
+                return
+            except OSError as e:
+                path = getattr(e, "filename", None) or self._current_path
+                if attempt >= retries:
+                    self._error = (e, step, path, attempt)
+                    return
+                _RETRIES.inc()
+                time.sleep(min(backoff_ms * (2 ** attempt), 5000.0) / 1e3)
+                attempt += 1
+            except BaseException as e:
+                self._error = (e, step, self._current_path, attempt)
+                return
+
+    def _set_ps_base(self, step: int, marks: Dict[str, int]) -> None:
+        self._ps_base = {"step": int(step),
+                         "marks": {k: int(v) for k, v in marks.items()}}
+
+    def load_ps_table(self, tname: str):
+        """Shard-recovery read path: ``(full_rows, journal_mark, step)``
+        for PS table `tname` from the newest checkpoint that passes
+        integrity verification. Touches no scope and needs no Program —
+        it is called from inside the tier's pull/push threads while the
+        training loop is blocked on the dead shard. Deliberately does NOT
+        ``wait()`` on an in-flight save: an uncommitted step has no
+        manifest yet and simply isn't a candidate."""
+        psn = f"{tname}@ps"
+        failures: List[str] = []
+        for st in sorted(set(self.all_steps()), reverse=True):
+            path = self._existing_path(st)
+            if path is None:
+                continue
+            bad = self.verify(st)
+            if not bad:
+                try:
+                    if path.endswith(".ptck"):
+                        from ..native import read_bundle
+                        bundle = read_bundle(path)
+                        if bundle is None:
+                            raise RuntimeError(
+                                f"cannot read native checkpoint {path}")
+                    else:
+                        with open(path, "rb") as f:
+                            bundle = pickle.load(f)["vars"]
+                    assembled = self._assemble_shards(st)
+                    if psn not in assembled:
+                        raise RuntimeError(f"no {psn!r} shards")
+                    mark = int(np.asarray(
+                        bundle.get(f"@ps_mark@{tname}", 0)).reshape(()))
+                    # replay the verified delta chain: a shard recovered
+                    # mid-stream gets full ∘ deltas, and the returned mark
+                    # is the last delta's so the client replays only the
+                    # journal tail past it
+                    rows, mark, _ = self._apply_delta_chain(
+                        self._delta_chain(st), tname, assembled[psn], mark)
+                    return rows, mark, st
+                except (RuntimeError, OSError, EOFError, ValueError,
+                        pickle.UnpicklingError) as e:
+                    bad = [f"{type(e).__name__}: {e}"]
+            failures.append(f"step {st}: {'; '.join(bad)}")
+            _FALLBACK.inc()
+        raise RuntimeError(
+            f"ps recovery: no verifiable checkpoint holding table "
+            f"{tname!r} in {self.dirname!r}"
+            + (f" ({' | '.join(failures)})" if failures else
+               " (no checkpoints at all — save one before training so a "
+               "restarted shard has a recovery base)"))
 
     # -- save --------------------------------------------------------------
     def save(self, step: int, program: Optional[Program] = None,
@@ -420,13 +736,56 @@ class Checkpointer:
 
         `extra` rides in the bundle verbatim (numpy-converted) — e.g.
         ``@dataio@*`` input-pipeline cursors. Keys should start with ``@``
-        so they can never collide with a program variable."""
-        if ps_tables:
-            raise NotImplementedError(f"Checkpointer.save: {_PS_TODO}")
+        so they can never collide with a program variable.
+
+        `ps_tables` ({table_name: ps.ShardedTable}) adds the PS embedding
+        tier's shards to the shard file + manifest path: each table's
+        flush hook runs first (the tier writes back the hot slab's dirty
+        rows and drains its pusher), then each shard's slice is dumped NOW
+        under the ``<name>@ps`` key, one record per shard. The table's
+        push journal mark rides along as ``@ps_mark@<name>`` (read back by
+        shard recovery) and the journal is truncated to it once — and
+        only once — this checkpoint COMMITS."""
         program = program or default_main_program()
         scope = scope or _scope()
         self.wait()  # one write in flight at a time
         vals, event = _snapshot(program, scope)
+        shards = []
+        ps_names = []
+        on_commit = []
+        ps_marks_now: Dict[str, int] = {}
+        for tname, table in (ps_tables or {}).items():
+            psn = f"{tname}@ps"
+            ps_names.append(psn)
+            spec, lanes = table.spec, table.lanes
+            hook = getattr(table, "flush_hook", None)
+            if hook is not None:
+                # flush-before-save: the mark taken below covers every
+                # update the dumps contain
+                hook()
+            if hasattr(table, "journal_mark"):
+                # mark BEFORE the dumps: an entry with seq <= mark was
+                # applied before the flush, so the dumped bytes contain
+                # it; a racing push lands at seq > mark and stays
+                # journaled (replay is idempotent either way)
+                mark = int(table.journal_mark())
+                vals[f"@ps_mark@{tname}"] = np.asarray(mark, np.int64)
+                ps_marks_now[tname] = mark
+                on_commit.append(
+                    lambda t=table, m=mark: t.journal_truncate(m))
+            for i in range(spec.num_shards):
+                lo, hi = spec.bounds(i)
+                shards.append((psn, ((lo, hi), (0, lanes)),
+                               (spec.vocab, lanes), "uint16",
+                               table.dump_shard(i)))
+        if ps_names:
+            # a committed full save is the new delta-chain head (the
+            # compaction point): subsequent save_delta() calls extend it
+            on_commit.append(lambda s=int(step), m=dict(ps_marks_now):
+                             self._set_ps_base(s, m))
+            # restore-side coverage check: which PS tables this
+            # checkpoint is supposed to contain
+            vals["@ps_manifest@"] = np.asarray("\n".join(sorted(ps_names)))
         rng = scope.find_var(_RNG_STATE)
         if isinstance(rng, torch.Generator):
             vals["@rng@"] = rng.get_state().numpy()
@@ -434,8 +793,8 @@ class Checkpointer:
         for k, v in (extra or {}).items():
             vals[k] = np.asarray(v)
         self._thread = threading.Thread(
-            target=self._write, args=(step, vals, event), daemon=True,
-            name="pdtpu-ckpt-writer")
+            target=self._write, args=(step, vals, event, shards, on_commit),
+            daemon=True, name="pdtpu-ckpt-writer")
         self._thread.start()
         if blocking:
             self.wait()
@@ -510,9 +869,7 @@ class Checkpointer:
                 vars_ = pickle.load(f)["vars"]
         names = {v.name for v in program.list_vars() if v.persistable}
         manifest_raw = vars_.pop("@shard_manifest@", None)
-        if vars_.pop("@ps_manifest@", None) is not None:
-            raise RuntimeError(f"checkpoint step {step} holds PS tables: "
-                               f"{_PS_TODO}")
+        ps_manifest_raw = vars_.pop("@ps_manifest@", None)
         assembled = self._assemble_shards(step)
         if manifest_raw is not None:
             # backends may round-trip the string as a 0-d or 1-element
@@ -527,6 +884,18 @@ class Checkpointer:
                     "index file — a rank's shard/index files are missing "
                     "(e.g. crash between rank-0's marker write and that "
                     "rank's background shard write)")
+        if ps_manifest_raw is not None:
+            raw = np.asarray(ps_manifest_raw).ravel()
+            expected_ps = set("\n".join(_text(x) for x in raw).split("\n"))
+            missing_ps = sorted(expected_ps - set(assembled))
+            if missing_ps:
+                raise RuntimeError(
+                    f"checkpoint step {step}: PS tables {missing_ps} are "
+                    "in the save-time manifest but absent from every "
+                    "rank's index file — the shard files are missing")
+        # `@ps`-suffixed names are never program vars, so the `n in names`
+        # filter keeps them out of the scope; they flow back through the
+        # fourth return for ShardedTable.load_full
         to_set = {n: _as_tensor(a) for n, a in vars_.items() if n in names}
         to_set.update({n: _as_tensor(a) for n, a in assembled.items()
                        if n in names})
@@ -537,7 +906,10 @@ class Checkpointer:
                     else f"a JAX key ({np.asarray(vars_['@rng@']).dtype})")
             rng = (kind, np.asarray(vars_["@rng@"]))
         extra = {k: v for k, v in vars_.items() if k.startswith("@dataio@")}
-        return to_set, rng, extra
+        ps_marks = {k[len("@ps_mark@"):]: int(np.asarray(v).reshape(()))
+                    for k, v in vars_.items()
+                    if k.startswith("@ps_mark@")}
+        return to_set, rng, extra, assembled, ps_marks
 
     def _restore_rng(self, scope: Scope, rng, device: torch.device):
         kind, raw = rng
@@ -583,9 +955,16 @@ class Checkpointer:
         warning naming the bad files (``checkpoint/fallback_steps``
         counter), and the walk continues to older steps. Only when EVERY
         candidate fails does restore raise. An explicit ``step`` is loaded
-        or fails — no silent substitution."""
-        if ps_tables:
-            raise NotImplementedError(f"Checkpointer.restore: {_PS_TODO}")
+        or fails — no silent substitution.
+
+        `ps_tables` ({table_name: ps.ShardedTable}) restores PS embedding
+        shards too: the checkpoint's ``<name>@ps`` slices are assembled
+        into the full table, its verified delta chain is replayed onto it,
+        and it is re-partitioned onto each table's LIVE range spec —
+        restoring onto a different shard count than the save just works.
+        Coverage is validated BEFORE the scope or any shard is mutated; a
+        candidate missing a requested table falls back like any other
+        integrity failure."""
         device = (place or CUDAPlace(0)).torch_device()
         program = program or default_main_program()
         scope = scope or _scope()
@@ -609,6 +988,20 @@ class Checkpointer:
                         pickle.UnpicklingError) as e:
                     bad = [f"{os.path.basename(path)}: "
                            f"{type(e).__name__}: {e}"]
+            if not bad and loaded is not None and ps_tables:
+                # every requested table must be fully present with the
+                # right geometry before ANY state mutates
+                assembled = loaded[3]
+                for tname, table in ps_tables.items():
+                    psn = f"{tname}@ps"
+                    want = (table.spec.vocab, table.lanes)
+                    if psn not in assembled:
+                        bad.append(f"PS table {tname!r}: no {psn!r} "
+                                   "shards in this checkpoint")
+                    elif assembled[psn].shape != want:
+                        bad.append(
+                            f"PS table {tname!r}: checkpoint shape "
+                            f"{assembled[psn].shape} != live {want}")
             if bad:
                 desc = "; ".join(bad)
                 failures.append(f"step {st}: {desc}")
@@ -618,11 +1011,38 @@ class Checkpointer:
                     f"integrity verification ({desc}); falling back to the "
                     "next older checkpoint", RuntimeWarning)
                 continue
-            to_set, rng, extra = loaded
+            to_set, rng, extra, assembled, ps_marks = loaded
+            # incremental checkpoints: replay this full save's verified
+            # delta chain onto the assembled PS tables BEFORE any state
+            # mutates — the restored bytes are full ∘ deltas, bitwise
+            # identical to the table at the last committed save_delta
+            chain = self._delta_chain(st) if ps_tables else []
+            final_marks: Dict[str, int] = {}
+            for tname in (ps_tables or {}):
+                rows, fmark, _ = self._apply_delta_chain(
+                    chain, tname, assembled[f"{tname}@ps"],
+                    int(ps_marks.get(tname, 0)))
+                assembled[f"{tname}@ps"] = rows
+                final_marks[tname] = fmark
+            for payload in chain:
+                extra.update({k: v for k, v in
+                              (payload.get("extra") or {}).items()
+                              if k.startswith("@dataio@")})
             for n, val in to_set.items():
                 self._place_value(scope, n, val, device)
             if rng is not None:
                 self._restore_rng(scope, rng, device)
+            for tname, table in (ps_tables or {}).items():
+                table.load_full(assembled[f"{tname}@ps"])
+                if hasattr(table, "journal_reset"):
+                    # the live journal no longer describes deltas over
+                    # what was just loaded; re-anchor it at the restored
+                    # mark — the last applied delta's, else the full save's
+                    table.journal_reset(int(final_marks.get(tname, 0)))
+            if ps_tables:
+                # restore re-anchors the delta chain: new deltas extend
+                # from exactly the state just loaded
+                self._set_ps_base(st, final_marks)
             self.last_extra = extra
             return st
         if failures:

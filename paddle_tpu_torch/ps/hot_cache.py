@@ -21,7 +21,7 @@ back only what left the slab: eviction victims and staging rows. Hits
 never cross device<->host — that is the entire win.
 
 Plan/commit protocol (the concurrency contract). With a prefetching
-loader (``pull_ahead >= 1``, not ported yet) batches are converted on a
+loader (``pull_ahead >= 1``) batches are converted on a
 worker thread while the main thread dispatches earlier ones, so cache
 decisions are split:
 
@@ -332,6 +332,31 @@ class HotRowCache:
                             np.asarray(extra_s, np.int32)])
         order = np.argsort(u, kind="stable")
         return u[order], s[order]
+
+    def drop_rows(self, uids: np.ndarray) -> int:
+        """Delta-subscriber invalidation: another writer published fresher
+        PS bytes for `uids`, so drop their CLEAN, not-in-flight resident
+        entries — the next touch misses and re-pulls the new bytes. A
+        dirty row holds a local update the shards haven't seen (dropping
+        it would lose the write) and an in-flight row is referenced by a
+        planned-but-undispatched step, so both are kept; so is a pending
+        eviction victim (its write-back is already scheduled). Returns
+        #dropped."""
+        n = 0
+        with self._lock:
+            pending = set()
+            for p in self._uncommitted:
+                pending.update(p.evict_uids.tolist())
+            for u in np.asarray(uids, np.int64).tolist():
+                if u in pending:
+                    continue
+                s = self._slots.get(u)
+                if (s is not None and not self._dirty[s]
+                        and not self._inflight[s]):
+                    self._slots.pop(u)
+                    n += 1
+            self._publish_gauges()
+        return n
 
     def _publish_gauges(self) -> None:
         res, dirt = len(self._slots), int(self._dirty.sum())

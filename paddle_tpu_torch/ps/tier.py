@@ -54,15 +54,24 @@ pulls and write-backs observe the same read-your-writes patching — so
 single-worker runs stay bit-identical to the uncached tier at any push
 depth.
 
+Shard outages (``attach_checkpointer``): a pull or push that a dead shard
+interrupts waits for it to answer again, the shard is rebuilt from the
+newest verified checkpoint plus the push journal, and the same call is
+retried — a push with the host rows its pusher already copied off the
+device, so a retry never reads a tensor a later step has updated. The
+table's flush hook (set here, cleared at ``close``) lets
+``Checkpointer.save(ps_tables=)`` write back the slab's dirty rows first.
+
 Metrics: ``ps/prefetch_hit``/``ps/prefetch_miss`` (was batch N+1 already
 converted+pulled when the loop asked?), ``ps/patched_rows``,
-``ps/repulls`` — plus ``ps/pull_ms``/``ps/push_ms``/``ps/bytes_*`` from
+``ps/repulls``, ``ps/recoveries``, ``ps/recovered_batches{table}`` — plus ``ps/pull_ms``/``ps/push_ms``/``ps/bytes_*`` from
 the table layer and ``ps/cache_*`` from the hot cache.
 """
 from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import deque
 from typing import Dict, Iterable, Optional, Sequence
 
@@ -76,6 +85,7 @@ from ..faults import fault_point
 from ..observability import get_registry
 from ..ops.kernels.sparse_adagrad import i16
 from .table import ShardedTable
+from .transport import ShardRestartedError, TransportError
 
 __all__ = ["PsTableBinding", "PsEmbeddingTier"]
 
@@ -282,15 +292,84 @@ class PsEmbeddingTier:
                   * (3 if self.hot_rows else 1))
         self._pushers = {b.param: _Pusher(b.table, push_depth, window)
                          for b in self.bindings}
+        for b in self.bindings:
+            # checkpoint flush hook: Checkpointer.save() calls it before
+            # taking the journal mark + dumping shards, so slab-dirty rows
+            # and queued pushes are on the shards the mark covers
+            b.table.set_flush_hook(lambda p=b.param: self._flush_param(p))
         reg = get_registry()
         self._c_hit = reg.counter("ps/prefetch_hit")
         self._c_miss = reg.counter("ps/prefetch_miss")
         self._c_patched = reg.counter("ps/patched_rows")
         self._c_repulls = reg.counter("ps/repulls")
+        self._c_recoveries = reg.counter("ps/recoveries")
         self._loader = None
         # recorded on the step's stream after each step's write-back; a
         # prefetching pull's stream waits on it first
         self._step_event = None
+        self._ck = None        # Checkpointer armed by attach_checkpointer
+        self._recover_lock = threading.Lock()
+
+    # --------------------------------------------------------- shard outage
+    def attach_checkpointer(self, ck) -> None:
+        """Arm lossless shard recovery. With a Checkpointer attached,
+        a transient shard outage no longer kills the step: the failing
+        pull/push blocks (which pauses the prefetcher and the pusher —
+        they are the threads doing the failing calls), the tier waits for
+        the shard to answer pings again (bounded by
+        ``PDTPU_WEDGE_TIMEOUT``), rebuilds it from the newest VERIFIED
+        checkpoint slice plus the table's push-journal replay
+        (``ShardedTable.recover_shard``), and the interrupted op retries
+        — bitwise-identical to a never-crashed run at staleness 0. A
+        retried push resends the host rows it was pushing (the pusher
+        copied them off the device once, before the first attempt), never
+        a fresh read of a device tensor a later step may have updated.
+        Save a checkpoint (``ps_tables=``) before training so a recovery
+        base exists. Without attachment, outages surface as
+        TransportError after transport-level retries."""
+        self._ck = ck
+        for b in self.bindings:
+            b.table.set_recovery(
+                lambda i, exc, t=b.table: self._recover(t, i, exc))
+
+    def _recover(self, table: ShardedTable, i: int,
+                 exc: BaseException) -> None:
+        """Recovery hook (runs on whichever thread hit the dead shard —
+        prefetcher, pusher, or the step thread). Serialized: concurrent
+        victims of the same outage queue here, and all but the first
+        find the shard already healthy and return to their retry."""
+        with self._recover_lock:
+            deadline = time.monotonic() + float(
+                os.environ.get("PDTPU_WEDGE_TIMEOUT", "300"))
+            client = table.clients[i]
+            while True:
+                try:
+                    client.ping()
+                    # reachable under the SAME instance id: the process
+                    # never died (blip / slow shard) — rows are intact,
+                    # no rebuild needed, let the op retry
+                    return
+                except ShardRestartedError:
+                    break  # reachable but reborn: rebuild below
+                except TransportError as e:
+                    if not e.transient or time.monotonic() > deadline:
+                        raise RuntimeError(
+                            f"ps shard {i} of table {table.name!r} "
+                            "unreachable past PDTPU_WEDGE_TIMEOUT — tier "
+                            "is wedged, not recovering") from e
+                    time.sleep(0.1)
+            self._c_recoveries.inc()
+            if self._ck is None:
+                raise RuntimeError(
+                    f"ps shard {i} of table {table.name!r} restarted and "
+                    "lost its rows, but no checkpointer is attached — "
+                    "call tier.attach_checkpointer(ck) for lossless "
+                    "recovery") from exc
+            full_rows, mark, step = self._ck.load_ps_table(table.name)
+            replayed = table.recover_shard(i, full_rows, mark)
+            del full_rows
+            get_registry().counter(
+                "ps/recovered_batches", table=table.name).inc(replayed)
 
     # ----------------------------------------------------------- pull path
     def _pull_cache(self, binding: PsTableBinding, uids: np.ndarray,
@@ -512,7 +591,9 @@ class PsEmbeddingTier:
         """Make the shards authoritative for one table: push every row
         whose newest bytes live only in the hot slab (dirty residents +
         planned-but-undispatched eviction victims), then drain the
-        pusher."""
+        pusher. This is also the table's checkpoint flush hook, so
+        ``Checkpointer.save(ps_tables=...)`` dumps shard bytes that the
+        ``@ps_mark@`` journal mark really covers."""
         hot = self._hot.get(param)
         pusher = self._pushers[param]
         if hot is not None and hot.slab is not None:
@@ -537,9 +618,13 @@ class PsEmbeddingTier:
         return out
 
     def close(self):
+        if self._loader is not None:
+            self._loader.close()
+            self._loader = None
         for p in self._pushers.values():
             p.close()
         for b in self.bindings:
+            b.table.set_flush_hook(None)
             b.table.close()
 
     def __enter__(self):

@@ -25,9 +25,10 @@ is one trace across router → worker → pserver.
 PS-backed serving: ``--ps-endpoints host:p,host:p --ps-table
 PARAM=TABLE:VOCAB[:LANES] --ps-id-feeds ids`` wraps the predictor in a
 `PsLookupPredictor` whose embedding rows live on pserver shards, reached
-through the PS socket transport: that raises ``NotImplementedError`` until
-the transport is ported (ROADMAP A8). A thread fleet serves PS-backed
-models through a `predictor_factory`.
+through the PS socket transport — the subprocess equivalent of handing
+`PsLookupBinding`s to a ThreadReplica factory (``--ps-cache-rows`` sizes
+the device-resident hot-row cache). The predictor serves on ``--device``
+like any other.
 
 Thread-per-connection: concurrent parent connections land in the same
 InferenceServer queue, so dynamic batching still merges them.
@@ -108,13 +109,50 @@ def _serve_conn(conn, replica, stop_evt):
 
 
 def _ps_predictor_factory(args):
-    """The --ps-* flags' predictor factory: PsLookupPredictor over socket
-    shard clients, which the port does not have yet."""
-    raise NotImplementedError(
-        "fleet worker --ps-endpoints: the PS socket transport "
-        "(SocketClient) is not ported to paddle_tpu_torch yet (ROADMAP "
-        "A8); serve a PS-backed model from a thread fleet with a "
-        "predictor_factory over an in-process ShardedTable")
+    """Build a `predictor_factory` closing over the --ps-* flags: base
+    predictor (on ``--device``) wrapped in a PsLookupPredictor over socket
+    shard clients. Table spec grammar: ``PARAM=TABLE:VOCAB[:LANES]``
+    (repeatable)."""
+    from ...inference import create_predictor
+    from ...inference.ps_lookup import PsLookupBinding, PsLookupPredictor
+    from ...ps.shard import RangeSpec
+    from ...ps.table import ShardedTable
+    from ...ps.transport import SocketClient
+    from .replica import serving_config
+
+    endpoints = [e.strip() for e in args.ps_endpoints.split(",")
+                 if e.strip()]
+    if not endpoints:
+        raise SystemExit("--ps-endpoints: no endpoints given")
+    specs = []
+    for spec in args.ps_table:
+        try:
+            param, rest = spec.split("=", 1)
+            parts = rest.split(":")
+            table, vocab = parts[0], int(parts[1])
+            lanes = int(parts[2]) if len(parts) > 2 else 128
+        except (ValueError, IndexError):
+            raise SystemExit(
+                f"--ps-table {spec!r}: want PARAM=TABLE:VOCAB[:LANES]")
+        specs.append((param, table, vocab, lanes))
+    id_feeds = [f.strip() for f in (args.ps_id_feeds or "ids").split(",")
+                if f.strip()]
+
+    def factory(model):
+        base = create_predictor(serving_config(model.model_dir, args.device),
+                                precision=model.precision)
+        bindings = []
+        for param, table, vocab, lanes in specs:
+            # each table gets its own client set: one connection per
+            # shard per table keeps the fan-outs independent
+            clients = [SocketClient(ep) for ep in endpoints]
+            st = ShardedTable(table, RangeSpec.even(vocab, len(endpoints)),
+                              clients, lanes=lanes)
+            bindings.append(PsLookupBinding(param, st, id_feeds))
+        return PsLookupPredictor(base, bindings,
+                                 cache_rows_per_table=args.ps_cache_rows)
+
+    return factory
 
 
 def main(argv=None) -> int:

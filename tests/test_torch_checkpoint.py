@@ -511,17 +511,40 @@ def test_restore_with_no_gpu_and_no_place_raises(tmp_path, monkeypatch):
             ck.restore(program=main)
 
 
-def test_ps_table_checkpoints_raise_naming_a8(tmp_path):
+def test_ps_table_checkpoints_roundtrip_with_the_jax_files(tmp_path):
+    """``save(ps_tables=)``, ``save_delta`` and ``restore(ps_tables=)``:
+    the port writes the JAX package's PS files (the JAX Checkpointer
+    restores them bitwise onto another shard count), reads them back
+    itself, and ``load_ps_table`` composes the full save with its delta.
+    With no checkpoint at all, a restore returns None without a
+    warning."""
+    import paddle_tpu.ps as jps
+    from paddle_tpu.parallel import Checkpointer as JCheckpointer
+    from paddle_tpu_torch.ps import RangeSpec, ShardedTable
+
     ck = Checkpointer(str(tmp_path / "ps"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        ck.save(1, program=fluid.Program(), ps_tables={"t": object()})
-    with pytest.raises(NotImplementedError, match="A8"):
-        ck.restore(program=fluid.Program(), ps_tables={"t": object()},
-                   place=CPU)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ck.save_delta(2, {"t": object()})
-    with pytest.raises(NotImplementedError, match="A8"):
-        ck.load_ps_table("t")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert ck.restore(program=fluid.Program(), place=CPU) is None
+    rows = np.random.RandomState(9).randint(
+        0, 2 ** 16, (40, 128)).astype(np.uint16)
+    t = ShardedTable.build_in_process("t", RangeSpec.even(40, 2),
+                                      full_rows=rows)
+    ck.save(1, program=fluid.Program(), scope=fluid.Scope(),
+            ps_tables={"t": t}, blocking=True)
+    t.push(np.array([2, 33], np.int64), rows[[5, 6]])
+    ck.save_delta(2, {"t": t}, blocking=True)
+    want = t.dump_full()
+    back = ShardedTable.build_in_process("t", RangeSpec.even(40, 3))
+    assert ck.restore(program=fluid.Program(), scope=fluid.Scope(),
+                      ps_tables={"t": back}, place=CPU) == 1
+    np.testing.assert_array_equal(back.dump_full(), want)
+    full, mark, step = ck.load_ps_table("t")
+    assert (mark, step) == (t.journal_mark(), 1)
+    np.testing.assert_array_equal(full, want)
+    jt = jps.ShardedTable.build_in_process("t", jps.RangeSpec(40, [0, 9, 40]))
+    import paddle_tpu as jfluid
+    with jfluid.scope_guard(jfluid.Scope()):
+        assert JCheckpointer(str(tmp_path / "ps")).restore(
+            program=jfluid.Program(), ps_tables={"t": jt}) == 1
+    np.testing.assert_array_equal(jt.dump_full(), want)

@@ -212,7 +212,15 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
             "paddle_tpu_torch.serving.fleet.replica, "
             "paddle_tpu_torch.serving.fleet.router, "
             "paddle_tpu_torch.serving.fleet.fleet, "
-            "paddle_tpu_torch.serving.fleet.worker; "
+            "paddle_tpu_torch.serving.fleet.worker, "
+            "paddle_tpu_torch.ps.dynamic, paddle_tpu_torch.ps.health, "
+            "paddle_tpu_torch.ps.table, paddle_tpu_torch.ps.tier, "
+            "paddle_tpu_torch.ps.hot_cache, paddle_tpu_torch.streaming, "
+            "paddle_tpu_torch.streaming.dataset, "
+            "paddle_tpu_torch.streaming.delta_push, "
+            "paddle_tpu_torch.streaming.trainer, "
+            "paddle_tpu_torch.data_generator, paddle_tpu_torch.tools, "
+            "paddle_tpu_torch.tools.ps_admin; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -220,6 +228,45 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     _worker_imports_neither(str(tmp_path / "mlp"))
+    _pserver_and_ps_admin_load_neither_torch_nor_jax(tmp_path)
+
+
+def _pserver_and_ps_admin_load_neither_torch_nor_jax(tmp_path):
+    """The port's pserver runner and ``python -m
+    paddle_tpu_torch.tools.ps_admin`` run where torch and JAX cannot be
+    imported: a directory first on PYTHONPATH holds ``torch``, ``jax``
+    and ``paddle_tpu`` packages whose import raises. The runner serves;
+    ps_admin's ping, meta, stats, dump-health and fleet answer with exit
+    code 0."""
+    poison = tmp_path / "poison"
+    for name in ("torch", "jax", "paddle_tpu"):
+        (poison / name).mkdir(parents=True)
+        (poison / name / "__init__.py").write_text(
+            f"raise ImportError('{name} must not be imported here')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(poison), REPO]))
+    runner = os.path.join(REPO, "tests", "torch_ps_server_runner.py")
+    proc = subprocess.Popen([sys.executable, runner, "--table", "tb:0:32"],
+                            cwd=str(tmp_path), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        ep = proc.stdout.readline().strip()
+        assert ep, proc.stderr.read()
+        for cmd in ("ping", "meta", "stats", "dump-health", "fleet"):
+            res = subprocess.run(
+                [sys.executable, "-m", "paddle_tpu_torch.tools.ps_admin",
+                 cmd, "--endpoints", ep, "--json"],
+                cwd=str(tmp_path), env=env, capture_output=True, text=True,
+                timeout=120)
+            assert res.returncode == 0, (cmd, res.stdout, res.stderr)
+            assert res.stdout.strip(), cmd
+        doc = json.loads(res.stdout)
+        assert doc["ok"] and doc["targets"][0]["role"] == "pserver"
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
 
 
 def _worker_imports_neither(model_dir):

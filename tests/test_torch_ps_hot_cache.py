@@ -392,7 +392,10 @@ def test_baseline_matches_jax(ref):
     np.testing.assert_allclose(losses, jl, rtol=1e-6)
 
 
-def test_tier_refuses_what_is_not_ported():
+def test_tier_cache_overflow_raises_and_socket_clients_reach_a_server():
+    """A batch with more uniques than the cache holds is a sizing error;
+    ``SocketClient(endpoint)`` and ``connect(endpoint)`` both reach a live
+    port ShardServer and read its rows."""
     main, startup, loss = _build_program(tfluid, CAP)
     table = ShardedTable.build_in_process("tb", RangeSpec.even(V, 2))
     tier = PsEmbeddingTier(main, [PsTableBinding("tb", table, ["ids"])],
@@ -404,25 +407,32 @@ def test_tier_refuses_what_is_not_ported():
                              np.arange(CAP + 1, dtype=np.int64), 0)
     finally:
         tier.close()
-    from paddle_tpu_torch.ps import SocketClient, connect
-    with pytest.raises(NotImplementedError, match="A8"):
-        SocketClient("localhost:1")
-    with pytest.raises(NotImplementedError, match="A8"):
-        connect("localhost:1")
+    from paddle_tpu_torch.ps import (EmbeddingShard, ShardServer,
+                                     SocketClient, connect)
+    rows = _init_packed()
+    srv = ShardServer([EmbeddingShard("tb", 0, V, rows=rows.copy())])
+    srv.serve_in_thread()
+    try:
+        ids = np.array([0, 17, V - 1], np.int64)
+        for c in (SocketClient(srv.endpoint), connect(srv.endpoint)):
+            assert isinstance(c, SocketClient) and c.ping()
+            np.testing.assert_array_equal(c.pull("tb", ids), rows[ids])
+            c.close()
+    finally:
+        srv.stop()
 
 
 # ------------------------------------------ journal, fault probes, tracing
 
 @pytest.mark.parametrize("cap_mb,entries,nbytes,evicted", [
-    (None, 0, 0, [2, 2]),           # the port's default: no journal
+    (None, 4, 2 * 792, [0, 0]),     # the JAX package's default, 256 MB
     ("1", 4, 2 * 792, [0, 0]),      # both pushes kept
     ("0.001", 2, 792, [1, 1]),      # 1048 B: the first push evicted
 ])
 def test_push_journal(monkeypatch, cap_mb, entries, nbytes, evicted):
     """The push journal keeps each push per shard (3 ids of 8 B and rows
-    of 256 B a push) up to PDTPU_PS_JOURNAL_MAX_MB, oldest out first; at 0
-    (the default) it copies nothing and only the seq and the eviction
-    horizon move. truncate and reset drop what a checkpoint holds."""
+    of 256 B a push) up to PDTPU_PS_JOURNAL_MAX_MB (default 256), oldest
+    out first. truncate and reset drop what a checkpoint holds."""
     if cap_mb is None:
         monkeypatch.delenv("PDTPU_PS_JOURNAL_MAX_MB", raising=False)
     else:
@@ -483,7 +493,7 @@ def test_fault_probes_in_the_tier(ref, site, push_depth):
     assert losses == ref_losses
     assert delayed.value - before >= len(feeds)
     with pytest.raises(ValueError, match="unknown fault action"):
-        faults.install(site, "crash")
+        faults.install(site, "explode")
 
 
 def test_tracer_off_by_default_exports_step_spans_when_on(ref):
@@ -513,3 +523,99 @@ def test_tracer_off_by_default_exports_step_spans_when_on(ref):
     assert len(ids) == len(feeds)
     assert all("parent_id" not in e["args"] for e in begins)
     assert trace["traceEvents"][0]["ph"] == "M"
+
+
+# ------------------------------- checkpoints, recovery and ps_admin (A8)
+
+def test_checkpoint_save_flushes_dirty_slab_rows(tmp_path, ref):
+    """Checkpointer.save runs the table's flush hook: rows whose newest
+    bytes live only in the slab (gathered by the row-13 path) reach the
+    shards BEFORE the journal mark and the dump, so the checkpoint holds
+    the baseline's final table without an explicit tier.flush()."""
+    from paddle_tpu_torch.parallel import Checkpointer
+
+    feeds, ref_losses, ref_final = ref
+    hot_rows = 8
+    main, startup, loss = _build_program(tfluid, hot_rows + CAP)
+    table = ShardedTable.build_in_process("tb", RangeSpec.even(V, 2),
+                                          full_rows=_init_packed())
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    sc = tfluid.Scope()
+    exe.run(startup, scope=sc)
+    tier = PsEmbeddingTier(main, [PsTableBinding("tb", table, ["ids"])],
+                           pull_ahead=1, push_depth=1, hot_rows=hot_rows,
+                           place=tfluid.CPUPlace())
+    losses = []
+    try:
+        for prep in tier.steps(lambda: iter(feeds)):
+            (lv,) = tier.run_step(exe, prep, fetch_list=[loss], scope=sc)
+            losses.append(float(lv))
+        assert tier.stats()["tb"]["hot_cache"]["dirty"] > 0
+        ck = Checkpointer(str(tmp_path))
+        ck.save(1, program=main, scope=sc, blocking=True,
+                ps_tables={"tb": table})
+    finally:
+        tier.close()
+    assert table.flush_hook is None      # cleared at close
+    assert losses == ref_losses
+    full, mark, step = ck.load_ps_table("tb")
+    assert step == 1
+    np.testing.assert_array_equal(full, ref_final)
+
+
+def test_sigkill_pserver_recovery_bitwise_with_hot_cache(tmp_path,
+                                                         monkeypatch, ref):
+    """SIGKILL one runner pserver mid-run with the hot cache on, recover
+    from checkpoint + journal replay — cache write-backs ride the same
+    journal, so the run finishes bitwise-identical to the uninterrupted
+    packed baseline."""
+    from _torch_ps_twin import fast_retry
+    from test_torch_ps_faults import run_chaos_training
+
+    fast_retry(monkeypatch)
+    feeds, ref_losses, ref_final = ref
+    losses, final, recoveries = run_chaos_training(
+        tmp_path, feeds, kill_step=5, pull_ahead=1, push_depth=0,
+        hot_rows=8)
+    assert losses == ref_losses
+    np.testing.assert_array_equal(final, ref_final)
+    assert recoveries >= 1
+
+
+def test_ps_admin_cache_fields_local_registry(ref):
+    from paddle_tpu_torch.tools import ps_admin
+    feeds, _, _ = ref
+    before = ps_admin.cache_fields() or {"hits": 0, "writeback_bytes": 0}
+    _, _, st = _tier_run(feeds, SPECS[1], 0, 8, pull_ahead=1)
+    cache = ps_admin.cache_fields()
+    assert cache is not None and cache["capacity"] >= 8
+    # registry counters advanced by exactly this run's local mirrors
+    assert cache["hits"] - before["hits"] == st["hits"]
+    assert (cache["writeback_bytes"] - before["writeback_bytes"]
+            == st["writeback_bytes"])
+    assert cache["hit_rate"] is not None
+    assert cache["dirty_fraction"] is not None
+
+
+def test_ps_admin_cli_stats_and_dump_health_include_cache(capsys):
+    import json
+
+    from paddle_tpu_torch.ps import EmbeddingShard, ShardServer
+    from paddle_tpu_torch.tools import ps_admin
+    _mk_cache(capacity=2, step_rows=2)     # guarantees the block exists
+    rows = np.random.RandomState(31).randint(
+        0, 2 ** 16, (V, LANES)).astype(np.uint16)
+    srv = ShardServer([EmbeddingShard("tb", 0, V,
+                                      rows=rows.copy())]).serve_in_thread()
+    try:
+        rc = ps_admin.main(["stats", "--endpoints", srv.endpoint, "--json"])
+        out = json.loads(capsys.readouterr().out)
+        assert rc == 0 and out["shards"][0]["up"]
+        assert "hit_rate" in out["hot_cache"]
+        rc = ps_admin.main(["dump-health", "--endpoints", srv.endpoint,
+                            "--json"])
+        doc = json.loads(capsys.readouterr().out)
+        assert rc == 0 and "hit_rate" in doc["hot_cache"]
+        assert doc["status"] == "ok" and doc["shards"][0]["up"]
+    finally:
+        srv.stop()

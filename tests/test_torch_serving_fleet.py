@@ -458,15 +458,74 @@ def test_fleet_serves_ps_backed_ctr(tmp_path, two_models):
         table.close()
 
 
-def test_worker_ps_endpoints_wait_for_the_socket_transport(two_models):
-    """The worker's --ps-endpoints needs the PS socket transport (ROADMAP
-    A8): it refuses to start, naming it."""
-    from paddle_tpu_torch.serving.fleet import worker
+def test_worker_ps_endpoints_serve_from_a_live_shard_server(tmp_path,
+                                                           two_models):
+    """A process replica whose worker (``--device cpu --ps-endpoints``)
+    reads its embedding rows from a live port ShardServer over the socket
+    transport answers bitwise like a thread replica whose
+    PsLookupPredictor reads an in-process table with the same bytes."""
+    from paddle_tpu_torch.ps import (EmbeddingShard, RangeSpec, ShardServer,
+                                     ShardedTable)
+    from paddle_tpu_torch.serving.fleet import ModelRegistry
+    from paddle_tpu_torch.serving.fleet.replica import (ProcessReplica,
+                                                        ThreadReplica)
 
-    with pytest.raises(NotImplementedError, match="A8"):
-        worker.main(["--model-dir", two_models["v1"], "--device", "cpu",
-                     "--ps-endpoints", "127.0.0.1:1",
-                     "--ps-table", "tb=tb:512"])
+    packed = _packed_table()
+    dense = _save_ctr(str(tmp_path / "local"), V, packed=packed)
+    _save_ctr(str(tmp_path / "ps"), CAP, dense=dense)
+    mv = ModelRegistry().register("ctr-v1", str(tmp_path / "ps"))
+    srv = ShardServer([EmbeddingShard("tb", 0, V, rows=packed.copy())])
+    srv.serve_in_thread()
+    table = ShardedTable.build_in_process("tb", RangeSpec.even(V, 1),
+                                          full_rows=packed)
+
+    def factory(model):
+        base = inference.create_predictor(cpu_config(model.model_dir))
+        return inference.PsLookupPredictor(
+            base, [inference.PsLookupBinding("tb", table, ["ids"])],
+            cache_rows_per_table=32)
+
+    proc = thread = None
+    try:
+        proc = ProcessReplica(
+            "p0", mv, buckets=(1, 2, 4), device="cpu",
+            env=dict(os.environ, OMP_NUM_THREADS="1"),
+            extra_args=["--ps-endpoints", srv.endpoint,
+                        "--ps-table", f"tb=tb:{V}",
+                        "--ps-cache-rows", "32"],
+            server_kwargs={"max_batch_delay_ms": 1.0})
+        thread = ThreadReplica("t0", mv, buckets=(1, 2, 4),
+                               predictor_factory=factory,
+                               server_kwargs={"max_batch_delay_ms": 1.0})
+        rng = np.random.RandomState(7)
+        for _ in range(8):
+            b = int(rng.randint(1, 5))
+            ids = rng.randint(0, V, size=(b, F)).astype(np.int64)
+            got = proc.submit({"ids": ids}).result(timeout=120)
+            want = thread.submit({"ids": ids}).result(timeout=120)
+            assert len(got) == len(want)
+            for x, y in zip(got, want):
+                np.testing.assert_array_equal(x, y)
+        served = {s["labels"].get("op"): s["value"]
+                  for s in _srv_series(srv) if s["name"] ==
+                  "ps/server_requests"}
+        assert served.get("pull", 0) > 0
+    finally:
+        for r in (proc, thread):
+            if r is not None:
+                r.stop()
+        table.close()
+        srv.stop()
+
+
+def _srv_series(srv):
+    """The series a ShardServer's process exposes (its `metrics` op)."""
+    from paddle_tpu_torch.ps import SocketClient
+    c = SocketClient(srv.endpoint, retries=0)
+    try:
+        return c.metrics()
+    finally:
+        c.close()
 
 
 @pytest.mark.slow
