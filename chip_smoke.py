@@ -321,15 +321,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              106,496 rows a step) over 8 in-thread loopback socket shards
              of a 2,097,152-row table, 36 steps (3 warm-up), arms
              (pull_ahead, push_depth) = (0,0), (2,0), (2,1), (2,1) with a
-             212,992-row hot cache, (2,1) under a 1 Hz FederatedScraper:
+             212,992-row hot cache (its first 10 steps: the arm's host
+             planning loop takes 5-7 s a step), (2,1)
+             under a 1 Hz FederatedScraper:
              each arm's losses and final shard bytes bitwise equal to an
              in-process run on the same feeds; examples/s, median step
              ms, bytes pulled and pushed a shard, prefetch hits/misses,
              the device busy share of the last (profiled) step, row-12
              launches (one a step) and rows 13-14 in the hot arm. In the
-             hot arm, PS checkpoints: save(ps_tables=) before step 12
+             hot arm, PS checkpoints: save(ps_tables=) before step 5
              with dirty slab rows (flushed through the row-13 gather),
-             deltas before steps 18 and 24, the chain restored onto 3
+             deltas before steps 7 and 9, the chain restored onto 3
              in-process shards bitwise equal to the live table; the ms
              save holds the loop, bytes, restore ms. The aggregate
              67,108,864-row (17.18 GB) table over 8 socket shards at
@@ -352,12 +354,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              batches of 8 bitwise like a ThreadReplica over an in-process
              table; ps_admin stats, dump-health and fleet exit 0 where
              torch cannot be imported. The phase's wall time.
+20. parallel — data and sequence parallelism on an NCCL group of
+             torch.cuda.device_count() ranks (at most 8; this process is
+             rank 0, the others run this script with --p20-rank): every
+             collective round-tripped and checked; BERT-base (12 layers,
+             hidden 768, 12 heads, T = 512, B = 8 a rank, bf16 AMP, Adam,
+             dropout 0) 4 steps under the plain executor (one rank only)
+             and with_data_parallel at ZeRO stages off, 1, 2, 3, and
+             ResNet-50 (bf16, B = 128 a rank, Momentum) 3 steps plain,
+             off and stage 3: losses and final parameters bitwise equal
+             across the runs, step ms, peak memory and the state bytes a
+             rank; the flash and fused-BN kernels launched on the mesh
+             runs, none plain. The ring's per-hop code driven over every
+             (rank, hop) in this process: bf16, B = 1, 12 heads, d = 64,
+             T = 32,768 over sp = 8, causal and dense, forward and
+             backward against one whole-T call of the same kernels, with
+             both timed; f32 at T = 4,096 over sp = 4 against the plain
+             per-block versions; then the public ring_self_attention
+             (impl "auto": the kernels) and ulysses_attention on the
+             group against the whole-T call.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
 CUDA device or the port is not beside this script.
 
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -6178,9 +6200,14 @@ P19_ROWS = P19_B * 26
 P19_ARMS = ((0, 0, 0, False), (2, 0, 0, False), (2, 1, 0, False),
             (2, 1, 2 * P19_ROWS, False), (2, 1, 0, True))
 P19_BIG_VOCAB, P19_BIG_STEPS, P19_BIG_WARMUP = 67_108_864, 6, 2
-# PS checkpoints inside the hot arm: a full save before step 12 (dirty
-# rows in the slab), deltas before steps 18 and 24
-P19_SAVE_AT, P19_DELTAS_AT = 12, (18, 24)
+# PS checkpoints inside the hot arm: a full save before step 5 (dirty
+# rows in the slab), deltas before steps 7 and 9
+P19_SAVE_AT, P19_DELTAS_AT = 5, (7, 9)
+# the hot arm's depth: its host planning loop takes ~5-7 s a step on
+# these uniform ids (PERF.md §6), so it runs the first 10 of the 36 steps
+# (past the last delta) against an in-process run of the same 10: at 26
+# steps the script read 944 s on a slower host, near its 1200 s limit
+P19_HOT_STEPS = 10
 # bench.py:926-1070: B = 1024 over 2 runner pservers of a 262,144-row
 # table, 18 steps, SIGKILL shard 1 before step 8, restart it 0.25 s later
 P19_KILL = {"batch": 1024, "vocab": 262_144, "steps": 18, "kill_step": 8,
@@ -6405,9 +6432,19 @@ def p19_sockets(fluid, fsa, rec):
         "examples_per_s", "median_step_ms", "wall_s")}
     log("ps tier: in-process reference "
         + json.dumps(rec["in_process_reference"]))
+    # the hot arm's reference: the same in-process run cut to its depth
+    hot_feeds = feeds[:P19_HOT_STEPS]
+    hot_ref_losses, _ = p19_train(
+        fluid, deepfm, fsa, ShardedTable.build_in_process(
+            "fm_t", RangeSpec.even(P19_VOCAB, P19_SHARDS)), hot_feeds,
+        0, 0, 0, P19_WARMUP, profile_last=False, keep=keep)
+    hot_ref_final = keep.pop("table")
     arms, ck_out = [], {}
     for pull_ahead, push_depth, hot_rows, scrape in P19_ARMS:
         t_arm = time.perf_counter()
+        arm_feeds, want_losses, want_final = (
+            (hot_feeds, hot_ref_losses, hot_ref_final) if hot_rows
+            else (feeds, ref_losses, ref_final))
         table, servers = p19_socket_table("fm_t", P19_VOCAB, P19_SHARDS)
         scraper = doc = None
         if scrape:
@@ -6425,14 +6462,14 @@ def p19_sockets(fluid, fsa, rec):
             if scraper is not None:
                 # the tier closes the table; take the doc while it trains
                 hook = p19_scrape_hook(scraper, P19_STEPS - 1, keep)
-            losses, r = p19_train(fluid, deepfm, fsa, table, feeds,
+            losses, r = p19_train(fluid, deepfm, fsa, table, arm_feeds,
                                   pull_ahead, push_depth, hot_rows,
                                   P19_WARMUP, hook=hook,
                                   hook_steps=(P19_SAVE_AT,) + P19_DELTAS_AT
                                   if hot_rows else (), keep=keep)
             doc = keep.pop("scrape", None)
             final_equal = bool(np.array_equal(keep.pop("table"),
-                                              ref_final))
+                                              want_final))
         finally:
             if scraper is not None:
                 scraper.stop()
@@ -6441,7 +6478,7 @@ def p19_sockets(fluid, fsa, rec):
         r.update(wall_s=time.perf_counter() - t_arm,
                  pull_ahead=pull_ahead, push_depth=push_depth,
                  hot_rows=hot_rows, scraper_hz=1.0 if scrape else 0.0,
-                 losses_bitwise=losses == ref_losses,
+                 steps=len(arm_feeds), losses_bitwise=losses == want_losses,
                  shards_bitwise=final_equal)
         if doc is not None:
             r["scrape"] = {"ok": doc["ok"], "targets": len(doc["targets"]),
@@ -6450,8 +6487,8 @@ def p19_sockets(fluid, fsa, rec):
         if not (r["losses_bitwise"] and final_equal):
             raise AssertionError(
                 f"ps sockets arm {(pull_ahead, push_depth, hot_rows)}: not "
-                f"bitwise ({losses[:3]} vs {ref_losses[:3]})")
-        if launches["fused_adagrad_update"] != P19_STEPS:
+                f"bitwise ({losses[:3]} vs {want_losses[:3]})")
+        if launches["fused_adagrad_update"] != len(arm_feeds):
             raise AssertionError(f"ps sockets: row 12 launched {launches}")
         if hot_rows and not (launches["fused_row_gather"]
                              and launches["fused_row_scatter"]):
@@ -7040,6 +7077,537 @@ def phase_ps_tier_and_streaming(fluid, fsa, smi):
     log("ps tier and streaming " + json.dumps(rec, default=str))
 
 
+# -- phase 20: data and sequence parallelism on an NCCL group ---------------
+# BERT-base bf16 AMP at T = 512, B = 8 a rank, Adam, dropout 0, 4 steps a
+# run; ResNet-50 bf16 at B = 128 a rank, Momentum, 3 steps a run; the ring
+# at B = 1, 12 heads, d = 64: bf16 at T = 32,768 over sp = 8 blocks, f32 at
+# T = 4,096 over sp = 4
+P20_BERT_STEPS, P20_RESNET_STEPS, P20_BERT_LAYERS = 4, 3, 12
+P20_WARM = 6   # timed steps after the checked ones
+P20_RING = (1, 12, 32768, 64, 8)
+P20_RING_F32 = (1, 12, 4096, 64, 4)
+
+
+def p20_free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def p20_rows(feed, rank, world):
+    """This rank's rows of a global feed dict (numpy or tensors)."""
+    out = {}
+    for k, v in feed.items():
+        n = v.shape[0] // world
+        out[k] = v[rank * n:(rank + 1) * n]
+    return out
+
+
+def p20_collectives(rank, world):
+    """A round-trip of every collective on the card, values checked."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from paddle_tpu_torch.parallel import (all_gather, all_reduce, all_to_all,
+                                           barrier, broadcast, make_mesh,
+                                           reduce_scatter)
+    from paddle_tpu_torch.parallel import collective as C
+
+    mesh = make_mesh({"dp": world})
+    x = torch.arange(2 * world, dtype=torch.float32, device="cuda")
+    xs = DTensor.from_local(x[2 * rank:2 * rank + 2].clone(), mesh,
+                            [Shard(0)], run_check=False)
+    ones = DTensor.from_local(torch.ones(2 * world, device="cuda"), mesh,
+                              [Replicate()], run_check=False)
+    got = {
+        "all_reduce": all_reduce(xs, mesh, "dp").to_local(),
+        "all_gather": all_gather(xs, mesh, "dp").to_local(),
+        "broadcast": broadcast(xs, mesh, "dp", root=world - 1).to_local(),
+        "reduce_scatter": reduce_scatter(ones, mesh, "dp").to_local(),
+        "all_to_all": all_to_all(DTensor.from_local(
+            torch.arange(world, dtype=torch.float32, device="cuda")
+            .reshape(-1, 1) + 100 * rank, mesh, [Shard(0)],
+            run_check=False), mesh, "dp", 0, 0).to_local().reshape(-1),
+        "psum": C.psum(torch.full((2,), float(rank), device="cuda"),
+                       (mesh, "dp")),
+        "ppermute": C.ppermute(x[:2] + rank, (mesh, "dp"),
+                               [(i, (i + 1) % world) for i in range(world)]),
+    }
+    barrier(mesh)
+    want = {
+        "all_reduce": x.reshape(world, 2).sum(0),
+        "all_gather": x,
+        "broadcast": x[2 * (world - 1):2 * world],
+        "reduce_scatter": torch.full((2,), float(world), device="cuda"),
+        "all_to_all": torch.tensor([rank + 100.0 * s for s in range(world)],
+                                   device="cuda"),
+        "psum": torch.full((2,), float(sum(range(world))), device="cuda"),
+        "ppermute": x[:2] + (rank - 1) % world,
+    }
+    bad = [k for k in want if not torch.equal(got[k].float(), want[k])]
+    if bad:
+        raise AssertionError(f"collectives on the card disagree: {bad}")
+    return sorted(want) + ["barrier"]
+
+
+def p20_logical_params(main, scope):
+    """The trainable parameters as one device sees them (a sharded one
+    gathered whole, pad dropped)."""
+    from paddle_tpu_torch.core.mesh_step import logical_value
+
+    return {p.name: logical_value(main, p.name,
+                                  scope.find_var(p.name)).clone()
+            for p in main.all_parameters()}
+
+
+def p20_run(fluid, build, feed, steps, stage, rank, world):
+    """One run of `build()` from its startup: the plain Executor on the
+    whole batch (stage None) or with_data_parallel at ZeRO `stage` on this
+    rank's rows. Returns (loss bytes a step, final params, record)."""
+    import torch
+
+    from paddle_tpu_torch.observability.registry import get_registry
+
+    main, startup, loss = build()
+    exe = fluid.Executor(fluid.CUDAPlace(torch.cuda.current_device()))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        prog, fd = main, feed
+        if stage is not None:
+            bs = fluid.BuildStrategy()
+            bs.sharding_strategy = stage
+            prog = fluid.CompiledProgram(main).with_data_parallel(
+                loss_name=loss.name, build_strategy=bs)
+            fd = p20_rows(feed, rank, world)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            (lv,) = exe.run(prog, feed=fd, fetch_list=[loss])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(np.asarray(lv, np.float32).tobytes())
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        params = p20_logical_params(main, scope)
+        warm = []   # the step time: P20_WARM more steps, each synced
+        for _ in range(P20_WARM):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.run(prog, feed=fd, fetch_list=[loss])
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        state = None
+        if stage is not None:  # the executor's gauge: bytes this rank holds
+            state = get_registry().gauge(
+                "memory/state_bytes_per_device").value
+    rec = {"stage": "plain" if stage is None else stage,
+           "losses": [float(np.frombuffer(b, np.float32)[0])
+                      for b in losses],
+           "step_ms": ms, "warm_ms": warm,
+           "warm_median_ms": float(np.median(warm)),
+           "peak_MiB": peak, "state_bytes_per_rank": state}
+    return losses, params, rec
+
+
+def p20_model_runs(fluid, label, build, feed, steps, rank, world,
+                   counters):
+    """The plain run (world 1 only) and stages off, 1, 2, 3 (or `stages`);
+    losses and final parameters bitwise equal to the first. The counters
+    are zeroed before the first mesh run and read after the last. Returns
+    (records, counts)."""
+    import torch
+
+    stages = (0, 1, 2, 3) if label == "bert" else (0, 3)
+    recs, ref = [], None
+    if world == 1:
+        losses, params, rec = p20_run(fluid, build, feed, steps, None, rank,
+                                      world)
+        ref = (losses, params)
+        recs.append(rec)
+    counters("reset")
+    for stage in stages:
+        losses, params, rec = p20_run(fluid, build, feed, steps, stage, rank,
+                                      world)
+        recs.append(rec)
+        if ref is None:
+            ref = (losses, params)
+            continue
+        same_params = all(torch.equal(params[k], ref[1][k])
+                          for k in ref[1])
+        if losses != ref[0] or not same_params:
+            raise AssertionError(
+                f"{label} stage {stage}: losses or final parameters differ "
+                f"from the first run (losses {rec['losses']} vs "
+                f"{[float(np.frombuffer(b, np.float32)[0]) for b in ref[0]]},"
+                f" parameters equal: {same_params})")
+        del params
+        torch.cuda.empty_cache()
+    return recs, counters("read")
+
+
+def p20_flash_counters(fa):
+    def counters(op):
+        if op == "reset":
+            for f in (fa.flash_attention_fwd, fa.flash_attention_bwd):
+                f.launches = f.plain_on_cuda = 0
+            return None
+        return {"fwd": fa.flash_attention_fwd.launches,
+                "bwd": fa.flash_attention_bwd.launches,
+                "plain_on_cuda": fa.flash_attention_fwd.plain_on_cuda
+                + fa.flash_attention_bwd.plain_on_cuda}
+    return counters
+
+
+def p20_bn_counters(fb):
+    def counters(op):
+        if op == "reset":
+            reset_bn_counts(fb)
+            return None
+        return bn_counts(fb)
+    return counters
+
+
+def p20_mesh(fluid, fa, fb, rank, world):
+    """What every rank runs, in one order: the collectives, BERT-base and
+    ResNet-50 under with_data_parallel, the public ring and Ulysses
+    attention on the group. Returns the record."""
+    import torch
+    from paddle_tpu_torch.models import bert
+
+    rec = {"world": world, "collectives": p20_collectives(rank, world)}
+    rng = np.random.RandomState(20)
+    bert_feed_all = pretrain_feed(B * world, 512, rng)
+
+    def build_bert():
+        return build_pretrain(fluid, bert, B * world, 512, True,
+                              layers=P20_BERT_LAYERS, dropout=0.0)
+
+    rec["bert"], rec["bert_launches"] = p20_model_runs(
+        fluid, "bert", build_bert, bert_feed_all, P20_BERT_STEPS, rank,
+        world, p20_flash_counters(fa))
+    want = 4 * (P20_BERT_STEPS + P20_WARM) * P20_BERT_LAYERS
+    got = rec["bert_launches"]
+    if got != {"fwd": want, "bwd": want, "plain_on_cuda": 0}:
+        raise AssertionError(f"bert under with_data_parallel: flash "
+                             f"launches {got}, expected {want} each and no "
+                             f"plain call on the card")
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch.models import resnet
+
+    os.environ["PDTPU_BN_MODE"] = "pallas"
+    img = resnet_feed(RESNET_B * world, RESNET_HW)
+
+    def build_resnet():
+        return resnet_program(fluid, resnet, RESNET_B * world, RESNET_HW,
+                              True)
+
+    rec["resnet"], rec["resnet_launches"] = p20_model_runs(
+        fluid, "resnet", build_resnet, img, P20_RESNET_STEPS, rank, world,
+        p20_bn_counters(fb))
+    per_run = {k: v * (P20_RESNET_STEPS + P20_WARM) * 2
+               for k, v in RESNET_PER_STEP.items()}
+    if rec["resnet_launches"] != per_run:
+        raise AssertionError(f"resnet under with_data_parallel: fused-BN "
+                             f"launches {rec['resnet_launches']}, expected "
+                             f"{per_run}")
+    torch.cuda.empty_cache()
+    rec["public_sp"] = p20_public_sp(fa, rank, world)
+    return rec
+
+
+def p20_public_sp(fa, rank, world):
+    """ring_self_attention (impl "auto": the kernels) and ulysses_attention
+    on the group's sp axis, against the whole sequence on one card."""
+    import torch
+
+    from paddle_tpu_torch.parallel import (make_mesh, ring_self_attention,
+                                           ulysses_attention)
+
+    mesh = make_mesh({"sp": world})
+    b, h, t, d = 2, 12, 512 * world, 64
+    gen = torch.Generator("cuda").manual_seed(7)
+    q, k, v = (torch.randn(b, h, t, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    tl = t // world
+    mine = [x[:, :, rank * tl:(rank + 1) * tl] for x in (q, k, v)]
+    fwd_fn = fa.flash_attention_fwd
+    before = (fwd_fn.launches, fwd_fn.plain_on_cuda)
+    ring = ring_self_attention(*mine, mesh, "sp", causal=True)
+    launched = fwd_fn.launches - before[0]
+    plain = fwd_fn.plain_on_cuda - before[1]
+    uly = ulysses_attention(*mine, mesh, "sp", causal=True)
+    saved = fwd_fn.launches
+    whole, _ = fwd_fn(q, k, v, None, True)
+    fwd_fn.launches = saved   # a check, not the path
+    want = whole[:, :, rank * tl:(rank + 1) * tl].float()
+
+    def rel(got):
+        return float(torch.linalg.vector_norm(got.float() - want)
+                     / torch.linalg.vector_norm(want))
+
+    e_ring, e_uly = rel(ring), rel(uly)
+    # causal: rank r attends its own block and the r before it; Ulysses
+    # attends with torch.matmul in bf16 (as the JAX package's einsum)
+    if not (e_ring <= P20_OUT_REL["bfloat16"]
+            and e_uly <= P20_OUT_REL["bfloat16"]
+            and launched == rank + 1 and plain == 0):
+        raise AssertionError(f"public ring/Ulysses on the card: relative "
+                             f"errors {e_ring}, {e_uly}; ring launches "
+                             f"{launched} (expected {rank + 1}), plain on "
+                             f"the card {plain}")
+    return {"shape": f"B={b} H={h} T={t} d={d} causal bf16",
+            "ring_rel_norm_err": e_ring, "ulysses_rel_norm_err": e_uly,
+            "ring_max_abs_err": float((ring.float() - want).abs().max()),
+            "ulysses_max_abs_err": float((uly.float() - want).abs().max()),
+            "ring_fwd_launches": launched}
+
+
+# the ring's forward limits: out by the norm of its error relative to the
+# reference's norm, lse by its largest absolute error. TOL's element-wise
+# atol + rtol·|want| is too wide here: at T = 32,768 a row's |out| is about
+# sqrt(e/T) ≈ 0.01, under bf16's atol of 2e-2, and lse ≈ 11 gets 0.24,
+# while a ring that loses one of 8 K/V blocks moves lse by log(8/7) ≈ 0.13.
+# A run with each rank's last hop lost is held to the same limits and must
+# fail them (p20_drop_last_hop)
+P20_OUT_REL = {"bfloat16": 1e-2, "float32": 2e-5}
+P20_LSE_ABS = {"bfloat16": 1e-4, "float32": 2e-5}
+
+
+def p20_check(outs, grads, ref, name):
+    """The ring's (out, lse) a rank and (dq, dk, dv) a rank against `ref` =
+    (out, lse, dq, dk, dv) over the whole sequence: the forward by
+    P20_OUT_REL / P20_LSE_ABS, the gradients by BWD_TOL of their largest.
+    Returns (errors, ok)."""
+    import torch
+
+    w_out, w_lse = ref[0].float(), ref[1].float()
+    got_out = torch.cat([o for o, _ in outs], dim=2).float()
+    got_lse = torch.cat([s for _, s in outs], dim=2).float()
+    errs = {"out_max_abs": float((got_out - w_out).abs().max()),
+            "out_rel_norm": float(torch.linalg.vector_norm(got_out - w_out)
+                                  / torch.linalg.vector_norm(w_out)),
+            "lse_max_abs": float((got_lse - w_lse).abs().max())}
+    ok = (errs["out_rel_norm"] <= P20_OUT_REL[name]
+          and errs["lse_max_abs"] <= P20_LSE_ABS[name])
+    for i, label in enumerate(("dq", "dk", "dv")):
+        want = ref[2 + i].float()
+        got = torch.cat([gr[i] for gr in grads], dim=2).float()
+        errs[label] = float((got - want).abs().max() / want.abs().max())
+        ok = ok and errs[label] <= BWD_TOL[name]
+    return errs, ok
+
+
+def p20_ring(fa):
+    """The ring's per-hop code driven over every (rank, hop) of sp ranks in
+    this process, forward and backward, causal and dense: bf16 at T =
+    32,768 (sp = 8) against one whole-T call of the same kernels and
+    against the plain per-block versions, timed, and with each rank's last
+    hop lost, which must fail the same checks; f32 at T = 4,096 (sp = 4)
+    against the plain per-block versions. Each ring run launches the
+    block kernels sp·(sp+1)/2 (causal) or sp² (dense) times a direction
+    and takes no plain route on the card. Returns the record and the flash
+    launches of the ring runs."""
+    import torch
+
+    from paddle_tpu_torch.parallel.ring_attention import (ring_simulate,
+                                                          ring_simulate_bwd)
+
+    fwd_fn, bwd_fn = fa.flash_attention_fwd, fa.flash_attention_bwd
+    rec = {}
+    launches = {"fwd": {}, "bwd": {}}
+    for (b, h, t, d, sp), dtype in ((P20_RING, torch.bfloat16),
+                                    (P20_RING_F32, torch.float32)):
+        name = str(dtype).split(".")[1]
+        gen = torch.Generator("cuda").manual_seed(9)
+        q, k, v, g = (torch.randn(b, h, t, d, generator=gen, device="cuda")
+                      .to(dtype) for _ in range(4))
+        tl = t // sp
+        blk = [[x[:, :, i * tl:(i + 1) * tl] for i in range(sp)]
+               for x in (q, k, v, g)]
+
+        def ring(causal):
+            outs = ring_simulate(blk[0], blk[1], blk[2], causal, "kernel")
+            return outs, ring_simulate_bwd(
+                blk[0], blk[1], blk[2], [o for o, _ in outs],
+                [lse for _, lse in outs], blk[3], causal)
+
+        for causal in (True, False):
+            counts = (fwd_fn.launches, bwd_fn.launches,
+                      fwd_fn.plain_on_cuda + bwd_fn.plain_on_cuda)
+            outs, grads = ring(causal)
+            torch.cuda.synchronize()
+            want = sp * (sp + 1) // 2 if causal else sp * sp
+            got = (fwd_fn.launches - counts[0], bwd_fn.launches - counts[1],
+                   fwd_fn.plain_on_cuda + bwd_fn.plain_on_cuda - counts[2])
+            if got != (want, want, 0):
+                raise AssertionError(
+                    f"ring {name} causal={causal}: block launches fwd/bwd "
+                    f"and plain calls on the card {got}, expected "
+                    f"({want}, {want}, 0)")
+            launches["fwd"][name] = launches["fwd"].get(name, 0) + want
+            launches["bwd"][name] = launches["bwd"].get(name, 0) + want
+            saved = (fwd_fn.launches, bwd_fn.launches)
+            refs, times = {}, {}
+            with p20_plain_entries(fa):
+                p_outs, p_grads = ring(causal)
+            refs["plain"] = (torch.cat([o for o, _ in p_outs], dim=2),
+                             torch.cat([s for _, s in p_outs], dim=2),
+                             *(torch.cat([gr[i] for gr in p_grads], dim=2)
+                               for i in range(3)))
+            del p_outs, p_grads
+            dropped = None
+            if name == "bfloat16":
+                w_out, w_lse = fwd_fn(q, k, v, None, causal)
+                refs["whole"] = (w_out, w_lse) + tuple(bwd_fn(
+                    q, k, v, w_out, w_lse, g, None, causal)[:3])
+                outs_l = [o for o, _ in outs]
+                lses_l = [lse for _, lse in outs]
+                times = {
+                    "ring_fwd_ms": cuda_ms(lambda: ring_simulate(
+                        blk[0], blk[1], blk[2], causal, "kernel"), 3, 1),
+                    "whole_fwd_ms": cuda_ms(lambda: fwd_fn(
+                        q, k, v, None, causal), 3, 1),
+                    "ring_bwd_ms": cuda_ms(lambda: ring_simulate_bwd(
+                        blk[0], blk[1], blk[2], outs_l, lses_l, blk[3],
+                        causal), 3, 1),
+                    "whole_bwd_ms": cuda_ms(lambda: bwd_fn(
+                        q, k, v, w_out, w_lse, g, None, causal), 3, 1)}
+                with p20_drop_last_hop(fa, blk[0], blk[1]):
+                    dropped = ring(causal)
+            fwd_fn.launches, bwd_fn.launches = saved  # checks, not the path
+            key = f"{name} T={t} sp={sp} causal={causal}"
+            rec[key] = {"launches_fwd_bwd": want, **times}
+            ok = True
+            for against, ref in refs.items():
+                errs, good = p20_check(outs, grads, ref, name)
+                rec[key][f"errors_vs_{against}"] = errs
+                ok = ok and good
+            if dropped is not None:
+                errs, good = p20_check(*dropped, refs["whole"], name)
+                rec[key]["last_hop_lost_vs_whole"] = errs
+                if good:
+                    raise AssertionError(
+                        f"ring {key}: a ring that loses each rank's last "
+                        f"hop passes the checks: {errs}")
+            log("parallel ring " + json.dumps({key: rec[key]}))
+            if not ok:
+                raise AssertionError(f"ring {key} disagrees with its "
+                                     f"references: {rec[key]}")
+            del refs, dropped
+    return rec, launches
+
+
+@contextlib.contextmanager
+def p20_plain_entries(fa):
+    """The ring's per-block entries on their plain versions (the ring's
+    reference: the same hops, each block's plain attention)."""
+    fwd, bwd = fa.flash_block_fwd, fa.flash_block_bwd
+    fa.flash_block_fwd = (lambda q, k, v, s=None, c=False:
+                          fa.flash_attention_fwd_plain(q, k, v, None, c, s))
+    fa.flash_block_bwd = (lambda q, k, v, g, lse, out, s=None, c=False:
+                          fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                                       None, c, s)[:3])
+    try:
+        yield
+    finally:
+        fa.flash_block_fwd, fa.flash_block_bwd = fwd, bwd
+
+
+@contextlib.contextmanager
+def p20_drop_last_hop(fa, qs, ks):
+    """The ring with each rank's last hop lost (rank i never attends block
+    i+1 mod sp: an off-by-one in the hop loop): that block's forward
+    merges with weight 0 and its backward adds nothing. Under causal only
+    the last rank loses a block (block 0); every other lost block is a
+    future one."""
+    import torch
+
+    fwd, bwd = fa.flash_block_fwd, fa.flash_block_bwd
+    n = len(qs)
+    lost = {(id(qs[i]), id(ks[(i + 1) % n])) for i in range(n)}
+
+    def drop_fwd(q, k, v, s=None, c=False):
+        if (id(q), id(k)) in lost:
+            return (torch.zeros_like(q),
+                    torch.full(q.shape[:3], -1e9, device=q.device))
+        return fwd(q, k, v, s, c)
+
+    def drop_bwd(q, k, v, g, lse, out, s=None, c=False):
+        if (id(q), id(k)) in lost:
+            return torch.zeros_like(q), torch.zeros_like(k), \
+                torch.zeros_like(v)
+        return bwd(q, k, v, g, lse, out, s, c)
+
+    fa.flash_block_fwd, fa.flash_block_bwd = drop_fwd, drop_bwd
+    try:
+        yield
+    finally:
+        fa.flash_block_fwd, fa.flash_block_bwd = fwd, bwd
+
+
+def p20_worker(rank, world, addr):
+    """Rank `rank` > 0 of phase 20 (a process of this script)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.set_device(rank)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    from paddle_tpu_torch.parallel import init_parallel_env
+
+    build.build_all()
+    init_parallel_env(addr, world, rank, device="cuda", timeout=600)
+    p20_mesh(fluid, fa, fb, rank, world)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def phase_parallel(fluid, fa, fb, smi):
+    """Phase 20 (module docstring): returns the flash launches of its main
+    paths ({("fwd"|"bwd", dtype): n}) and the fused-BN ones (bf16)."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import init_parallel_env
+
+    t0 = time.perf_counter()
+    world = min(torch.cuda.device_count(), 8)
+    addr = f"127.0.0.1:{p20_free_port()}"
+    workers = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--p20-rank", str(r), "--p20-world",
+                                 str(world), "--p20-addr", addr])
+               for r in range(1, world)]
+    try:
+        init_parallel_env(addr, world, 0, device="cuda", timeout=600)
+        rec = p20_mesh(fluid, fa, fb, 0, world)
+        dist.destroy_process_group()
+        for w in workers:
+            if w.wait(timeout=600) != 0:
+                raise AssertionError(f"phase 20 rank exited {w.returncode}")
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+    rec["ring"], ring_launches = p20_ring(fa)
+    rec.update(device=smi, wall_s=time.perf_counter() - t0)
+    log("parallel " + json.dumps(rec, default=str))
+    flash = {("fwd", "bfloat16"): rec["bert_launches"]["fwd"]
+             + ring_launches["fwd"]["bfloat16"]
+             + rec["public_sp"]["ring_fwd_launches"],
+             ("bwd", "bfloat16"): rec["bert_launches"]["bwd"]
+             + ring_launches["bwd"]["bfloat16"],
+             ("fwd", "float32"): ring_launches["fwd"]["float32"],
+             ("bwd", "float32"): ring_launches["bwd"]["float32"]}
+    return flash, rec["resnet_launches"]
+
+
 def main():
     import torch
 
@@ -7155,6 +7723,15 @@ def main():
     # online learning and serving from socket shards
     phase_ps_tier_and_streaming(fluid, fsa, smi)
 
+    # 20. data and sequence parallelism on an NCCL group (the collectives,
+    # BERT-base and ResNet-50 under with_data_parallel at ZeRO stages
+    # 0-3, the ring and Ulysses attention)
+    p20_flash, p20_bn = phase_parallel(fluid, fa, fb, smi)
+    for key, n in p20_flash.items():
+        train_launches[key] += n
+    for k, n in p20_bn.items():
+        bn_launches["bfloat16"][k] += n
+
     kernels = []
     for name in ("float32", "bfloat16"):
         rec = records[(name, 512)]
@@ -7262,4 +7839,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--p20-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        p20_worker(int(args["--p20-rank"]), int(args["--p20-world"]),
+                   args["--p20-addr"])
+        sys.exit(0)
     sys.exit(main())

@@ -66,6 +66,8 @@ if not _torch_free_entry():
     from . import dataset  # noqa: F401
     from . import native  # noqa: F401
     from . import parallel  # noqa: F401
+    from . import distributed  # noqa: F401
+    from .parallel_executor import ParallelExecutor  # noqa: F401
     from .data_feed_desc import DataFeedDesc  # noqa: F401
     from .data_feeder import DataFeeder  # noqa: F401
     from .reader import PyReader  # noqa: F401

@@ -1,12 +1,20 @@
-"""CompiledProgram on one device, and the remat policy surface.
+"""CompiledProgram on one device or on a data-parallel mesh, ZeRO stages
+0–3, and the remat policy surface.
 
-Counterpart of the one-device part of ``paddle_tpu.core.compiler``
-(reference ``python/paddle/fluid/compiler.py:65`` CompiledProgram,
+Counterpart of ``paddle_tpu.core.compiler`` (reference
+``python/paddle/fluid/compiler.py:65`` CompiledProgram,
 with_data_parallel:143, and build_strategy.h). The JAX package shards the
-feed over a device mesh and lets XLA insert the collectives; the port
-runs a CompiledProgram on the executor's one device, through the
-``Executor`` with the build strategy's remat policy. A mesh, several
-places and ZeRO sharding are ROADMAP A9 and raise ``NotImplementedError``.
+feed over a device mesh and lets GSPMD insert the collectives. The port
+runs one process a GPU under a ``torch.distributed`` group
+(``parallel.init_parallel_env``, ``distributed.launch``):
+``with_data_parallel`` lays a ``dp`` mesh over the group (N places need a
+world of N), ``with_mesh`` takes a ``DeviceMesh`` with a data axis, and
+``Executor.run`` runs each rank's step on its own rows
+(``core/mesh_step.py``). Without a group, a CompiledProgram runs on the
+executor's one device, where a ZeRO stage shards over one device, that
+is, nothing. The ZeRO rules (``_zero_axis``, ``_zero_plan``,
+``_fsdp_param``, ``_zero_pad_map``) are the JAX package's. A sequence axis
+and tp/pp/ep axes are ROADMAP A9b; remat ``saveable_names`` is A9c.
 
 Remat. ``BuildStrategy.remat_policy`` (or ``PDTPU_REMAT_POLICY`` on the
 plain executor) resolves to a :class:`RematSpec`. Consecutive ops tagged
@@ -30,13 +38,26 @@ __all__ = ["ShardingStrategy", "RematSpec", "REMAT_POLICIES",
            "resolve_remat", "BuildStrategy", "ExecutionStrategy",
            "CompiledProgram"]
 
-_A9 = "is not ported yet (ROADMAP A9: multi-device CompiledProgram)"
+_A9B = "is ROADMAP A9b (model parallelism)"
 
 
 class ShardingStrategy:
-    """ZeRO-style sharding of model state over the data-parallel axis, as
-    the JAX package names its stages. Only ``off`` runs in the port; the
-    other stages need several devices (ROADMAP A9)."""
+    """ZeRO-style sharding of model state over the data-parallel axis
+    (Rajbhandari et al. 2020), the JAX package's stages:
+
+    - ``off``    — every state leaf whole on every rank.
+    - ``stage1`` — optimizer accumulators shard over the dp axis: each
+      rank's state bytes drop by ~1/dp.
+    - ``stage2`` — stage1 plus the gradients: reduce-scattered to the same
+      layout, and the persistent gradient buffers (GradientMergeOptimizer's
+      ``@GradientMerge``) shard too.
+    - ``stage3`` — stage2 plus the parameters: each float parameter lives
+      sharded between steps; the sharded parameters are gathered at the
+      first use of one of them in a step; the update runs on the shard.
+
+    Each leaf shards along its largest dp-divisible dim, else dim 0 padded
+    to ⌈d/dp⌉·dp. Losses stay bitwise those of ``off`` at the same world
+    size: sharding only moves where each element lives."""
 
     off = 0
     stage1 = 1
@@ -47,6 +68,20 @@ class ShardingStrategy:
     Stage1 = stage1
     Stage2 = stage2
     Stage3 = stage3
+
+
+def _zero_axis(shape, dp: int) -> Optional[int]:
+    """Pick the dim of `shape` to shard over a dp-sized axis: the largest
+    dp-divisible dim, else dim 0 when it is at least dp long (the ragged
+    last shard padded, extent ⌈shape[0]/dp⌉). None means the leaf stays
+    replicated (scalars, tiny leaves)."""
+    dims = [d if isinstance(d, int) else -1 for d in (shape or ())]
+    divisible = [i for i, d in enumerate(dims) if d > 0 and d % dp == 0]
+    if divisible:
+        return max(divisible, key=lambda i: dims[i])
+    if dims and dims[0] >= dp:
+        return 0
+    return None
 
 
 # Cheap-to-recompute op types: big activation residuals, trivial FLOPs to
@@ -86,7 +121,7 @@ class RematSpec:
     - ``saveable_names``: var names the JAX package keeps as residuals
       inside units (``save_only_these_names``). Torch's selective
       checkpoint keys on aten ops, not on program variables, so the port
-      refuses a spec that carries them (ROADMAP A9).
+      refuses a spec that carries them (ROADMAP A9c).
     - ``token``: hashable identity for the executor's plan keys.
     """
 
@@ -95,8 +130,9 @@ class RematSpec:
     def __init__(self, op_set, unit_policy, saveable_names, token):
         if saveable_names:
             raise NotImplementedError(
-                f"remat saveable_names {_A9}: torch.utils.checkpoint's "
-                f"selective policy keys on aten ops, not program variables")
+                "remat saveable_names is ROADMAP A9c: torch.utils."
+                "checkpoint's selective policy keys on aten ops, not "
+                "program variables")
         self.op_set = op_set
         self.unit_policy = unit_policy
         self.saveable_names = saveable_names
@@ -155,7 +191,7 @@ class BuildStrategy:
     """Knob bag kept for API parity (reference build_strategy.h:37-186).
     The remat knobs drive the port's step; the fusion and memory knobs are
     accepted and inert (``PDTPU_FUSE_UPDATES`` drives the update fusion);
-    ``sharding_strategy`` other than ``off`` is ROADMAP A9."""
+    ``sharding_strategy`` picks the ZeRO stage of a mesh run."""
 
     class ReduceStrategy:
         AllReduce = 0
@@ -180,7 +216,7 @@ class BuildStrategy:
         # (unit_name -> bool|"minimal"|"full"); None defers to the legacy
         # `remat` knob. See resolve_remat().
         self.remat_policy = None
-        self.remat_saveable_names = None       # ROADMAP A9 in the port
+        self.remat_saveable_names = None       # ROADMAP A9c in the port
         self.sharding_strategy = ShardingStrategy.off
         self.sync_batch_norm = False
         self.num_trainers = 1
@@ -198,29 +234,99 @@ class ExecutionStrategy:
 
 
 class CompiledProgram:
-    """``CompiledProgram(program).with_data_parallel(...)`` on one device:
-    ``Executor.run(compiled, ...)`` runs the program through the executor
-    with the build strategy's remat policy."""
+    """``CompiledProgram(program).with_data_parallel(...)`` or
+    ``.with_mesh(mesh, ...)``: ``Executor.run(compiled, ...)`` runs the
+    program with the build strategy's remat policy, on the executor's one
+    device, or, with a mesh, as this rank's data-parallel step."""
 
     def __init__(self, program: Program):
         self._program = program
         self._loss_name: Optional[str] = None
+        self._mesh = None
+        self._data_axis: Optional[str] = None
+        self._strategy_stage = 0
+        self._strategy_remat = False
+        self._strategy_remat_policy = None
+        self._mesh_steps = {}  # the executor's MeshStep, by its key
         self.build_strategy: Optional[BuildStrategy] = None
         self.exec_strategy: Optional[ExecutionStrategy] = None
 
+    # -- configuration -----------------------------------------------------
     def with_data_parallel(self, loss_name: Optional[str] = None,
                            build_strategy: Optional[BuildStrategy] = None,
                            exec_strategy: Optional[ExecutionStrategy] = None,
                            places: Optional[Sequence] = None,
                            share_vars_from=None):
-        """compiler.py:143 parity on the executor's one device; more than
-        one place is ROADMAP A9."""
-        if places is not None and len(places) > 1:
-            raise NotImplementedError(
-                f"with_data_parallel over {len(places)} places {_A9}")
+        """Shard the batch over every rank of the process group
+        (compiler.py:143 parity): a ``dp`` mesh of the world's size. N
+        places need a world of N processes, one a device; with no group
+        the program runs on the executor's one device."""
+        from ..parallel.env import get_world_size
+
+        world = get_world_size()
+        n = len(places) if places is not None else world
+        if n != world:
+            raise RuntimeError(
+                f"with_data_parallel over {n} places needs a world of {n} "
+                f"processes, one a device; this process group has {world}. "
+                f"Start them with `python -m paddle_tpu_torch.distributed."
+                f"launch --nproc {n} script.py` and call "
+                f"parallel.init_parallel_env() first")
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            from ..parallel.mesh import make_mesh
+
+            self._mesh = make_mesh({"dp": world})
+            self._data_axis = "dp"
         self._loss_name = loss_name
         self.build_strategy = build_strategy or BuildStrategy()
         self.exec_strategy = exec_strategy or ExecutionStrategy()
+        return self
+
+    def with_mesh(self, mesh, data_axis: Optional[str] = "dp",
+                  strategy=None, seq_axis: Optional[str] = None):
+        """Run over a ``DeviceMesh`` (``parallel.make_mesh``) on its data
+        axis. `strategy` (a fleet ``DistributedStrategy``) wires
+        sharding_degree/sharding_stage (ZeRO over the data axis) and
+        recompute/remat_policy (remat). A sequence axis, and any other mesh
+        dim of size > 1 (tp, pp, ep, sp), are ROADMAP A9b."""
+        if seq_axis is not None:
+            raise NotImplementedError(f"with_mesh(seq_axis={seq_axis!r}) "
+                                      f"{_A9B}")
+        names = getattr(mesh, "mesh_dim_names", None)
+        if names is None:
+            raise TypeError(f"with_mesh takes a DeviceMesh with named dims "
+                            f"(parallel.make_mesh), got {type(mesh).__name__}")
+        if data_axis not in names:
+            raise ValueError(f"with_mesh: data_axis {data_axis!r} is not a "
+                             f"dim of the mesh {tuple(names)}")
+        for name, size in zip(names, mesh.shape):
+            if name != data_axis and size > 1:
+                raise NotImplementedError(
+                    f"with_mesh on a {name!r} axis of size {size} {_A9B}")
+        self._mesh = mesh
+        self._data_axis = data_axis
+        self._strategy_stage = 0       # re-derived per call, never sticky
+        self._strategy_remat = False
+        self._strategy_remat_policy = None
+        if strategy is not None:
+            if getattr(strategy, "sharding_degree", 1) > 1:
+                # sharding on; sharding_stage picks ZeRO-1/2/3
+                self._strategy_stage = max(
+                    1, int(getattr(strategy, "sharding_stage", 1) or 1))
+            if getattr(strategy, "recompute", False):
+                self._strategy_remat = True
+            self._strategy_remat_policy = getattr(
+                strategy, "remat_policy", None)
+            if getattr(strategy, "gradient_merge_steps", 1) > 1:
+                raise NotImplementedError(
+                    "gradient_merge_steps on DistributedStrategy is not "
+                    "wired; use fluid.optimizer.GradientMergeOptimizer")
+        if self.build_strategy is None:
+            self.build_strategy = BuildStrategy()
+        if self.exec_strategy is None:
+            self.exec_strategy = ExecutionStrategy()
         return self
 
     def with_inference_optimize(self, config=None):
@@ -237,22 +343,99 @@ class CompiledProgram:
                 label=f"compiled:0x{id(self._program):x}")
         return self
 
-    def with_mesh(self, mesh, data_axis: Optional[str] = "dp",
-                  strategy=None, seq_axis: Optional[str] = None):
-        raise NotImplementedError(f"CompiledProgram.with_mesh {_A9}")
+    # -- the ZeRO plan (the JAX package's rules) ----------------------------
+    def _dp_size(self) -> int:
+        names = list(self._mesh.mesh_dim_names)
+        return int(self._mesh.shape[names.index(self._data_axis)])
+
+    def _zero_stage(self) -> int:
+        """Effective ShardingStrategy stage: the stronger of the fleet
+        DistributedStrategy wiring (with_mesh) and build_strategy's own
+        knob, resolved at each run so `c.build_strategy = bs` after
+        with_data_parallel/with_mesh still takes effect."""
+        if self._data_axis is None or self._mesh is None:
+            return ShardingStrategy.off
+        stage = int(self._strategy_stage or 0)
+        bs = self.build_strategy
+        if bs is not None:
+            stage = max(stage, int(getattr(bs, "sharding_strategy", 0) or 0))
+        return stage
 
     def _remat_spec(self) -> RematSpec:
-        """Effective remat policy, resolved at each run so
-        ``c.build_strategy = bs`` after with_data_parallel still takes
-        effect: build_strategy.remat_policy wins, then the legacy
-        boolean/set ``remat`` knob."""
+        """Effective remat policy, resolved at each run:
+        build_strategy.remat_policy wins, then the fleet
+        DistributedStrategy's remat_policy, then the legacy boolean/set
+        knobs (build_strategy.remat, DistributedStrategy.recompute)."""
         bs = self.build_strategy
-        if bs is None:
-            return resolve_remat()
-        if int(getattr(bs, "sharding_strategy", 0) or 0) != 0:
-            raise NotImplementedError(
-                f"BuildStrategy.sharding_strategy="
-                f"{bs.sharding_strategy} {_A9}")
-        return resolve_remat(getattr(bs, "remat_policy", None),
-                             getattr(bs, "remat", False),
-                             getattr(bs, "remat_saveable_names", None))
+        policy = getattr(bs, "remat_policy", None) if bs is not None else None
+        if policy is None:
+            policy = self._strategy_remat_policy
+        legacy = ((bs.remat if bs is not None else False)
+                  or self._strategy_remat)
+        names = (getattr(bs, "remat_saveable_names", None)
+                 if bs is not None else None)
+        return resolve_remat(policy, legacy, names)
+
+    def _zero_plan(self, var):
+        """(axis, pad_to) sharding plan for `var` over the data axis under
+        the effective ZeRO stage, or None to leave it whole. Eligible
+        leaves — optimizer accumulators, master weights, (stage2)
+        persistent gradient buffers and (stage3) the parameters, all tagged
+        at creation — shard along their largest dp-divisible dim; the
+        dim-0 fallback pads to ⌈d/dp⌉·dp (pad_to)."""
+        stage = self._zero_stage()
+        if stage < ShardingStrategy.stage1 or var is None:
+            return None
+        shardable = (getattr(var, "is_optimizer_state", False)
+                     or getattr(var, "is_master_weight", False)
+                     or (stage >= ShardingStrategy.stage2
+                         and getattr(var, "is_grad_buffer", False))
+                     or (stage >= ShardingStrategy.stage3
+                         and self._fsdp_param(var)))
+        if not shardable or not getattr(var, "zero_shardable", True):
+            return None
+        dp = self._dp_size()
+        axis = _zero_axis(var.shape, dp)
+        if axis is None:
+            return None
+        d = var.shape[axis]
+        pad_to = None if d % dp == 0 else -(-d // dp) * dp
+        return axis, pad_to
+
+    @staticmethod
+    def _fsdp_param(var) -> bool:
+        """Stage3 eligibility: trainable float parameters without a TP
+        `shard_spec`. Non-float leaves (row-packed uint16 tables) stay
+        whole."""
+        if not (getattr(var, "trainable", False) and var.persistable):
+            return False
+        if getattr(var, "shard_spec", None) is not None:
+            return False
+        from .dtypes import dtype_str
+        try:
+            return dtype_str(var.dtype) in ("float32", "float64", "float16",
+                                            "bfloat16")
+        except Exception:
+            return False
+
+    def _zero_pad_map(self):
+        """{name: (logical_dim0, padded_dim0)} for every persistable on the
+        padding fallback under the current mesh/stage, also recorded on the
+        Program (`_zero_padded`: name -> logical shape) so layout-unaware
+        paths (the plain Executor, checkpoints) drop the pad of a scope
+        value that lives sharded."""
+        pads = {}
+        for v in self._program.list_vars():
+            if not v.persistable:
+                continue
+            plan = self._zero_plan(v)
+            if plan is not None and plan[1] is not None:
+                pads[v.name] = (v.shape[0], plan[1])
+        if pads:
+            rec = getattr(self._program, "_zero_padded", None)
+            if rec is None:
+                rec = self._program._zero_padded = {}
+            for n in pads:
+                var = self._program.global_block()._find_var_recursive(n)
+                rec[n] = tuple(var.shape)
+        return pads

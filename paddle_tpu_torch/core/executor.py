@@ -212,6 +212,10 @@ class ExecContext:
         # of each sparse-gradient op this run (see _run_sparse_site)
         self.sparse_sites: List[tuple] = []
         self.plan: Optional["_Plan"] = None  # the run's prepared plan
+        # the data-parallel step (core/mesh_step.py) of a mesh run, and the
+        # running op's input names (what `mesh_step.batch_group` reads)
+        self.mesh = None
+        self.in_names: Dict[str, List[str]] = {}
 
     def rng(self) -> torch.Generator:
         """The run's seeded generator; each draw advances it."""
@@ -327,6 +331,16 @@ def _run_sparse_site(op, opdef, hook, in_vals, env, ctx: ExecContext):
 
 
 def _run_op(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
+    mesh = ctx.mesh
+    if mesh is None:
+        _run_op_local(op, env, ctx)
+        return
+    mesh.before_op(op, env, ctx)
+    _run_op_local(op, env, ctx)
+    mesh.after_op(op, env)
+
+
+def _run_op_local(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
     opdef = registry.get_op(op.type)
     in_vals = {slot: [env[n] for n in names]
                for slot, names in op.inputs.items()}
@@ -398,6 +412,8 @@ def _run_autodiff(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
         init_name = op.attrs.get("init_grad_name")
         seeds[ln] = (env[init_name] if init_name is not None
                      else torch.ones_like(env[ln]))
+    if ctx.mesh is not None:
+        seeds = {n: s * ctx.mesh.seed_scale(n) for n, s in seeds.items()}
     outs = [n for n in seeds if env[n].requires_grad]
     wrt = [t for t in dict.fromkeys(targets) if env[t].requires_grad]
     leaves = [v for _, _, lv, _ in ctx.sparse_sites
@@ -419,6 +435,8 @@ def _run_autodiff(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
             g = s if g is None else s + g
         env[grad_var_name(t)] = (torch.zeros_like(env[t]).detach()
                                  if g is None else g)
+    if ctx.mesh is not None:
+        ctx.mesh.reduce_grads(env, targets, ctx)
 
 
 def _sparse_grads(ctx: ExecContext, leaf_grads, targets) -> Dict[str, object]:
@@ -695,9 +713,17 @@ def _run_item(kind, payload, env, ctx: ExecContext, plan):
         else:
             _run_op(payload, env, ctx)
     elif kind == "region":
+        if ctx.mesh is not None and ctx.mesh.fsdp:
+            ctx.mesh.gather_params(payload.reads, env, ctx)
         _run_region(payload, env, ctx, plan.spec)
-    else:  # "fused"
+    elif ctx.mesh is None:  # "fused"
         _run_update_group(payload, env)
+    else:
+        for op in payload:
+            ctx.mesh.before_op(op, env, ctx)
+        _run_update_group(payload, env)
+        for op in payload:
+            ctx.mesh.after_op(op, env)
 
 
 def eval_inference_block(program, env: Dict[str, torch.Tensor]
@@ -986,18 +1012,41 @@ class Executor:
         tensors without waiting for the card; `.numpy()` on it is the sync
         point, and its arrays are bitwise those of return_numpy=True.
         A :class:`CompiledProgram` runs with its build strategy's remat
-        policy."""
+        policy, and one with a mesh runs this rank's data-parallel step
+        (``core/mesh_step.py``): the feed is this rank's rows, the fetches
+        are global."""
         if isinstance(program, CompiledProgram):
             # chaos probe: one hit per training-step dispatch
             fault_point("exec.dispatch")
             return self._run(program._program, feed, fetch_list, scope,
                              return_numpy, return_handle,
-                             spec=program._remat_spec(), probe=False)
+                             spec=program._remat_spec(), probe=False,
+                             mesh=self._mesh_step(program))
         return self._run(program, feed, fetch_list, scope, return_numpy,
                          return_handle)
 
+    def _mesh_step(self, compiled):
+        """The CompiledProgram's data-parallel step on this executor's
+        device, or None without a mesh (built again when the mesh, the
+        stage or the program changes)."""
+        if compiled._mesh is None:
+            return None
+        from .mesh_step import MeshStep, mesh_key
+
+        if getattr(compiled._program, "_epilogue_programs", None):
+            raise NotImplementedError(
+                "the deferred-row fold on a data-parallel mesh is ROADMAP "
+                "A9c")
+        key = (mesh_key(compiled), self.device)
+        steps = compiled._mesh_steps
+        step = steps.get(key)
+        if step is None:
+            steps.clear()
+            step = steps[key] = MeshStep(compiled, self.device)
+        return step
+
     def _run(self, program, feed, fetch_list, scope, return_numpy,
-             return_handle, spec=None, probe=True):
+             return_handle, spec=None, probe=True, mesh=None):
         program = program or default_main_program()
         scope = scope or _scope()
         fetch_names = [f.name if isinstance(f, Variable) else f
@@ -1010,7 +1059,9 @@ class Executor:
         sig = _sig_digest(feed_sig)
         t0 = time.perf_counter()
         plan, compiling = self._plan(program, feed_sig, fetch_names,
-                                     state_names, spec)
+                                     state_names, spec, mesh)
+        if mesh is not None:
+            mesh.check_feeds(feed_vals)
         with _FLIGHT.guard("Executor.run", program=f"0x{id(program):x}",
                            sig=sig, compiling=compiling), \
                 trace_span("executor/compile+run" if compiling
@@ -1020,7 +1071,7 @@ class Executor:
                 # here IS a slow step, which the StepProfiler must see
                 fault_point("exec.dispatch")
             fetches, new_state = self._execute(plan, block, scope, feed_vals,
-                                               state_names, fetch_names)
+                                               state_names, fetch_names, mesh)
         dt_ms = (time.perf_counter() - t0) * 1e3
         if compiling:
             # the first run pays the prepare and the schedule's decisions
@@ -1031,6 +1082,8 @@ class Executor:
             _EXECUTE_MS.observe(dt_ms)
         _STEPS.record(dt_ms, program_id=id(program), sig=sig,
                       compiled=compiling)
+        if mesh is not None and compiling:
+            mesh.record_state_bytes()
         # maintenance epilogues (the deferred-row fold): every `every` runs
         # of this program, plain or through a CompiledProgram
         self._advance_epilogues(program, scope, 1)
@@ -1051,12 +1104,13 @@ class Executor:
         return [f.detach() for f in fetches]
 
     def _plan(self, program: Program, feed_sig, fetch_names, state_names,
-              spec):
+              spec, mesh=None):
         """The prepared plan for this (program, version, feed signature,
-        fetches, state names[, remat token]), made on a miss. Returns
-        (plan, whether it was made now)."""
+        fetches, state names[, remat token][, mesh step]), made on a miss.
+        Returns (plan, whether it was made now)."""
         key = (id(program), program._version, feed_sig, tuple(fetch_names),
-               tuple(state_names), None if spec is None else spec.token)
+               tuple(state_names), None if spec is None else spec.token,
+               None if mesh is None else id(mesh))
         plan = self._cache.get(key)
         compiling = plan is None or plan.program() is not program
         if compiling:
@@ -1073,19 +1127,30 @@ class Executor:
         return plan, compiling
 
     def _execute(self, plan: _Plan, block: Block, scope: Scope, feed_vals,
-                 state_names, fetch_names):
+                 state_names, fetch_names, mesh=None):
         env = {}
-        for n in state_names:
-            env[n] = to_device(scope.find_var(n), self.device)
+        if mesh is None:
+            from .mesh_step import logical_value
+
+            for n in state_names:
+                env[n] = to_device(logical_value(
+                    block.program, n, scope.find_var(n)), self.device)
+        else:
+            mesh.begin()
+            mesh.load_state(env, scope, state_names)
+            mesh.batch.update(n for n, v in feed_vals.items() if v.ndim)
         env.update(feed_vals)
         gen = scope.find_var(_RNG_STATE)
         if gen is None or gen.device != self.device:
             gen = torch.Generator(self.device).manual_seed(
                 block.program.random_seed or 0)
             scope.set_var(_RNG_STATE, gen)
+        if mesh is not None:
+            gen = mesh.generator(scope, gen)
         ctx = ExecContext(self.device, gen,
                           amp=getattr(block.program, "_amp", None),
                           needed=plan.needed)
+        ctx.mesh = mesh
         ctx.targets = plan.targets
         ctx.training = plan.training
         ctx.plan = plan
@@ -1095,6 +1160,8 @@ class Executor:
                 env[n] = v.detach().requires_grad_()  # a fresh leaf each run
         with torch.set_grad_enabled(ctx.training):
             _run_block(block, env, ctx, plan)
+        if mesh is not None:
+            return mesh.finish(env, scope, plan.persistables, fetch_names)
         new_state = {}
         for n in plan.persistables:
             if n in env:
@@ -1118,7 +1185,7 @@ class Executor:
         the scope (run the startup program first). Returns one stacked
         array (or tensor) of shape [N, ...] per fetch. Accepts a
         CompiledProgram (its build strategy's remat policy)."""
-        program, spec = self._unwrap(program)
+        program, spec, mesh = self._unwrap(program)
         feed_list = list(feed_list)
         if not feed_list:
             raise ValueError("run_batched: empty feed_list")
@@ -1141,17 +1208,18 @@ class Executor:
                                    for fd in feed_list])
                    for k in sorted(keys0)}
         return self._run_scan(program, spec, stacked, len(feed_list),
-                              fetch_names, scope, return_numpy)
+                              fetch_names, scope, return_numpy, mesh=mesh)
 
-    @staticmethod
-    def _unwrap(program):
-        """(Program, remat spec or None) of a Program or CompiledProgram."""
+    def _unwrap(self, program):
+        """(Program, remat spec or None, mesh step or None) of a Program or
+        CompiledProgram."""
         if isinstance(program, CompiledProgram):
-            return program._program, program._remat_spec()
-        return program or default_main_program(), None
+            return (program._program, program._remat_spec(),
+                    self._mesh_step(program))
+        return program or default_main_program(), None, None
 
     def _run_scan(self, program, spec, stacked, n, fetch_names, scope,
-                  return_numpy, site="Executor.run_batched"):
+                  return_numpy, site="Executor.run_batched", mesh=None):
         """Run `n` steps over pre-stacked device feeds ``{name: [n, ...]}``.
 
         The shared engine behind `run_batched` (host feed lists) and
@@ -1190,7 +1258,9 @@ class Executor:
         sig = _sig_digest(step_sig)
         t0 = time.perf_counter()
         plan, compiling = self._plan(program, step_sig, fetch_names,
-                                     state_names, spec)
+                                     state_names, spec, mesh)
+        if mesh is not None:
+            mesh.check_feeds({k: v[0] for k, v in stacked.items()})
         check = flag("check_nan_inf")
         per_step: List[List[torch.Tensor]] = []
         with _FLIGHT.guard(site, program=f"0x{id(program):x}", sig=sig,
@@ -1200,7 +1270,7 @@ class Executor:
             for i in range(n):
                 fetches, new_state = self._execute(
                     plan, block, scope, {k: v[i] for k, v in stacked.items()},
-                    state_names, fetch_names)
+                    state_names, fetch_names, mesh)
                 if check:
                     _check_finite(list(zip(fetch_names, fetches))
                                   + list(new_state.items()))
@@ -1214,6 +1284,8 @@ class Executor:
             _EXECUTE_MS.observe(dt_ms)
         _STEPS.record(dt_ms, program_id=id(program), sig=sig,
                       compiled=compiling, steps=n)
+        if mesh is not None and compiling:
+            mesh.record_state_bytes()
         self._advance_epilogues(program, scope, n)
         if return_numpy:
             return [to_numpy(y) for y in ys]
@@ -1290,7 +1362,7 @@ class Executor:
         `fetch_list` is empty."""
         from ..dataio.loader import DeviceLoader
 
-        program, spec = self._unwrap(program)
+        program, spec, mesh = self._unwrap(program)
         if reader is None:
             raise ValueError("train_scanned: a reader (callable returning "
                              "an iterable of feed dicts) is required")
@@ -1316,7 +1388,7 @@ class Executor:
                     break
                 ys = self._run_scan(program, spec, stacked, m, fetch_names,
                                     scope, return_numpy=False,
-                                    site="Executor.train_scanned")
+                                    site="Executor.train_scanned", mesh=mesh)
                 total += m
                 if pending is not None:
                     drains.append([to_numpy(y) for y in pending])

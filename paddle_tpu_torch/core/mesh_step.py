@@ -1,0 +1,557 @@
+"""The executor's step on a data-parallel mesh axis, with ZeRO stages 0–3.
+
+Counterpart of the mesh half of ``paddle_tpu.core.compiler``
+(``_make_step``/``_build``/``_run``). The JAX package runs one jitted
+program over a global batch and lets GSPMD place every value; the port
+runs the same program on every rank of a ``torch.distributed`` group, each
+on its own rows, and places the values itself. What GSPMD makes global,
+the step makes global with an explicit collective on the dp axis's group:
+
+- **Feeds.** Each rank feeds its LOCAL batch rows (the JAX package's
+  multi-process contract, compiler.py:536-558); every rank must feed the
+  same number of rows, checked by a small all-gather of the row counts at
+  the start of every step (a rank whose count differs, a ragged last
+  batch, would otherwise mis-pair the step's collectives). A value
+  computed from a feed is batch-sharded: its dim 0 holds this rank's rows
+  (``batch``, a set of names propagated op by op).
+- **What an op does with a batch-sharded input is its own declaration**
+  (``dp`` in ``core/registry.py``): it works row by row (its outputs are
+  batch-sharded), or it reduces over the batch itself and its outputs (or
+  some of them) are global. ``mean``, ``reduce_sum`` and ``reduce_mean``
+  over dim 0, the batch-norm statistics (the plain ones and the fused
+  kernels' sums, K1/K3/K4), ``accuracy`` and ``auc`` read
+  ``batch_group(ctx, slot)`` and sum over its group
+  (``parallel.collective.psum``, whose transpose is the same sum, as
+  ``lax.psum``'s is). So a loss, a statistic or a metric is the global one
+  on every rank. Any other op with a batch-sharded input (one that
+  declares nothing, or a concat, split, slice, transpose, softmax, gather
+  or contraction along dim 0) raises.
+- **Gradients.** Every cotangent a rank computes is its part of the
+  global one: a loss that is the same on every rank is seeded with 1/N,
+  and each parameter's gradient is summed over the group. The sum is a
+  reduce-scatter of one flat buffer a dtype, each gradient laid out by its
+  ZeRO axis (``compiler._zero_axis``, dim 0 padded to a multiple of N),
+  followed at stages 0 and 1 by an all-gather: the same reduction in every
+  stage, so stages 1–3 are bitwise equal to stage 0 at the same world
+  size. Gradients with no ZeRO axis (tiny leaves) are all-reduced.
+- **ZeRO.** Stage 1 keeps the optimizer state sharded (each rank its
+  ⌈d/N⌉ slice along the leaf's ZeRO axis, the last slice zero-padded as
+  the JAX package pads it); stage 2 also keeps the gradients sharded;
+  stage 3 also the parameters, gathered whole (one all-gather a dtype) at
+  the first use of one of them in the step and kept to the step's end
+  (autograd holds them for the backward). The
+  updates after the ``autodiff`` op run on the shard when they are
+  elementwise (``_ELEMENTWISE``); any other op there gets its inputs
+  gathered whole and its outputs sliced back. At the step's end stages 1
+  and 2 all-gather the updated parameters. Sharded state lives in the
+  scope as a ``DTensor`` with a ``Shard(axis)`` placement of the padded
+  global shape; the program records the logical shapes in
+  ``_zero_padded``, as the JAX package's does.
+- **Fetches are global:** a batch-sharded value is all-gathered along dim
+  0, a sharded state value along its axis (pad dropped).
+- **Random draws differ across ranks.** The scope's generator is folded
+  with the rank once (rank 0 keeps the plain executor's stream, so a world
+  of one draws what the plain executor draws), so dropout masks and the
+  flash kernels' Philox seeds differ from rank to rank.
+
+A group of one needs no exchange: ``batch_group`` is None there, so the
+ops take their one-device code and a world of one is bitwise the plain
+executor. The gradient collectives still run (on one rank they copy).
+"""
+from __future__ import annotations
+
+import collections
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..observability.registry import get_registry
+from ..parallel.collective import all_gather_into, reduce_scatter_into
+from .dtypes import to_device
+from .registry import GLOBAL, ROWS, get_op, has_op
+
+__all__ = ["MeshStep", "batch_group", "is_dtensor", "logical_value"]
+
+_RNG_RANK = "@RNG_RANK@"
+
+# update-section ops that are elementwise in every tensor input of the
+# parameter's shape: they run on the ZeRO shard as they are. The optimizer
+# updates write their inputs' names (ParamOut is Param); the math ops may
+# write new names, which then hold shards too
+_MATH = frozenset({
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "scale", "sum", "cast", "assign",
+})
+_ELEMENTWISE = _MATH | {
+    "sgd", "momentum", "adam", "adamw", "adagrad", "adamax",
+    "decayed_adagrad", "adadelta", "rmsprop", "ftrl",
+}
+
+_OBS = get_registry()
+_STATE_BYTES = _OBS.gauge("memory/state_bytes_per_device")
+
+
+def is_dtensor(v) -> bool:
+    return type(v).__name__ == "DTensor" and hasattr(v, "to_local")
+
+
+def logical_value(program, name: str, v):
+    """A scope value as one device sees it: a ``DTensor`` is gathered whole
+    (a collective: every rank reads it at the same point) and the ZeRO pad
+    rows are dropped (``program._zero_padded``); anything else is
+    returned."""
+    if not is_dtensor(v):
+        return v
+    full = v.full_tensor()
+    shape = (getattr(program, "_zero_padded", None) or {}).get(name)
+    if shape is not None and tuple(full.shape) != tuple(shape):
+        full = full[tuple(slice(0, d) for d in shape)]
+    return full
+
+
+def batch_group(ctx, slot: str, index: int = 0):
+    """The dp axis's process group when the running op's input `slot` is
+    batch-sharded over more than one rank (its reductions over dim 0 must
+    be global), else None."""
+    mesh = getattr(ctx, "mesh", None)
+    if mesh is None or mesh.size == 1:
+        return None
+    names = (getattr(ctx, "in_names", None) or {}).get(slot) or []
+    return mesh.group if len(names) > index and names[index] in mesh.batch \
+        else None
+
+
+# a leaf's layout over N ranks: its ZeRO axis, the logical extent there and
+# that extent padded to a multiple of N
+_Plan = collections.namedtuple("_Plan", "axis extent padded")
+
+
+class MeshStep:
+    """One CompiledProgram's per-rank step on its data axis (built by the
+    executor; see the module docstring)."""
+
+    def __init__(self, compiled, device):
+        from .compiler import ShardingStrategy, _zero_axis
+
+        self.program = compiled._program
+        self.mesh = compiled._mesh
+        self.axis = compiled._data_axis
+        self.group = self.mesh.get_group(self.axis)
+        self.size = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        self.device = device
+        self.stage = compiled._zero_stage()
+        compiled._zero_pad_map()  # records program._zero_padded
+        self.stored: Dict[str, _Plan] = {}   # sharded between steps
+        self.param_plan: Dict[str, _Plan] = {}  # update / reduction layout
+        for v in self.program.list_vars():
+            if not v.persistable:
+                continue
+            plan = compiled._zero_plan(v)
+            if plan is not None:
+                self.stored[v.name] = self._plan(v.shape, plan[0])
+            if compiled._fsdp_param(v):
+                axis = _zero_axis(v.shape, self.size)
+                if axis is not None:
+                    self.param_plan[v.name] = self._plan(v.shape, axis)
+        self.fsdp = ({n for n in self.stored if n in self.param_plan}
+                     if self.stage >= ShardingStrategy.stage3 else set())
+        self._held: Dict[str, tuple] = {}   # name -> (DTensor, its local)
+        self.begin()
+
+    def _plan(self, shape, axis) -> _Plan:
+        d = int(shape[axis])
+        return _Plan(axis, d, -(-d // self.size) * self.size)
+
+    # -- per-step state ----------------------------------------------------
+    def begin(self):
+        self.batch = set()
+        self.local: Dict[str, _Plan] = {}   # env names holding a shard
+        self.after_ad = False
+        self.mode: Dict[int, str] = {}      # update op -> "shard" | "whole"
+        self.spec: Dict[int, object] = {}   # op -> its dp declaration
+
+    def plan_of(self, name: str) -> Optional[_Plan]:
+        """The layout a value of `name` is sliced by in the update section:
+        its own when it is stored sharded, its parameter's for a parameter
+        or its gradient (stages 1–3), else None."""
+        if name in self.local:
+            return self.local[name]
+        if name in self.stored:
+            return self.stored[name]
+        if self.stage >= 1:
+            if name in self.param_plan:
+                return self.param_plan[name]
+            if name.endswith("@GRAD") and name[:-5] in self.param_plan:
+                return self.param_plan[name[:-5]]
+        return None
+
+    # -- shards ------------------------------------------------------------
+    def shard(self, full: torch.Tensor, plan: _Plan) -> torch.Tensor:
+        """This rank's padded slice of a whole value (the value itself on a
+        group of one)."""
+        if self.size == 1:
+            return full
+        axis, d, padded = plan
+        c = padded // self.size
+        x = full.movedim(axis, 0)
+        lo, hi = min(self.rank * c, d), min((self.rank + 1) * c, d)
+        piece = x[lo:hi]
+        if hi - lo < c:
+            pad = piece.new_zeros((c - (hi - lo),) + tuple(x.shape[1:]))
+            piece = torch.cat([piece, pad])
+        return piece.movedim(0, axis).contiguous()
+
+    def gather(self, local: torch.Tensor, plan: _Plan) -> torch.Tensor:
+        """The whole value from every rank's slice, pad dropped."""
+        axis, d, pd = plan
+        x = local.movedim(axis, 0).contiguous()
+        out = x.new_empty((pd,) + tuple(x.shape[1:]))
+        all_gather_into(out, x, self.group)
+        return out[:d].movedim(0, axis)
+
+    def gather_many(self, items):
+        """[(name, whole value)] of [(name, shard, plan)]: one all-gather a
+        dtype over the shards laid end to end (each rank's part of the
+        buffer is its slices in order)."""
+        by_dtype: Dict[torch.dtype, List[tuple]] = {}
+        for item in items:
+            by_dtype.setdefault(item[1].dtype, []).append(item)
+        out = []
+        for group in by_dtype.values():
+            parts = [v.movedim(p.axis, 0).reshape(-1) for _, v, p in group]
+            widths = [x.numel() for x in parts]
+            mine = torch.cat(parts)
+            every = mine.new_empty(self.size * mine.numel())
+            all_gather_into(every, mine, self.group)
+            cols = every.view(self.size, -1).split(widths, dim=1)
+            for (n, v, p), col in zip(group, cols):
+                moved = v.movedim(p.axis, 0).shape
+                whole = col.reshape((p.padded,) + tuple(moved[1:]))
+                out.append((n, whole[:p.extent].movedim(0, p.axis)
+                            .contiguous()))
+        return out
+
+    def _store_shard(self, scope, name, local, plan):
+        """Put a shard in the scope as a ``DTensor``: the bytes go into the
+        one this step stored there before (a device copy, where a new
+        ``DTensor``, or a call into one, costs host time each step), else
+        a new one. ``_held`` keeps each stored DTensor with its local
+        tensor, so a step reads and writes them without DTensor calls."""
+        held = self._held.get(name)
+        if (held is not None and scope.find_var(name) is held[0]
+                and held[1].shape == local.shape
+                and held[1].dtype == local.dtype):
+            if held[1].data_ptr() != local.data_ptr():
+                held[1].copy_(local)
+            return
+        dt = self.to_dtensor(local, plan)
+        scope.set_var(name, dt)
+        self._held[name] = (dt, dt.to_local())
+
+    def to_dtensor(self, local: torch.Tensor, plan: _Plan):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        place = [Replicate()] * self.mesh.ndim
+        place[list(self.mesh.mesh_dim_names).index(self.axis)] = \
+            Shard(plan.axis)
+        shape = list(local.shape)
+        shape[plan.axis] = plan.padded
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(local, self.mesh, place, run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
+
+    # -- the step ----------------------------------------------------------
+    def check_feeds(self, feed_vals):
+        """Every rank feeds the same number of rows: one all-gather of the
+        row counts, run by every rank at the start of every step, so a
+        rank that feeds another count (a ragged last batch) raises on
+        every rank before the step's first collective."""
+        if self.size == 1 or not feed_vals:
+            return
+        rows = [int(v.shape[0]) if v.ndim else 1
+                for _, v in sorted(feed_vals.items())]
+        mine = torch.tensor(rows, dtype=torch.int64, device=self.device)
+        every = mine.new_empty(self.size * len(rows))
+        all_gather_into(every, mine, self.group)
+        every = every.view(self.size, len(rows)).cpu()
+        if not bool((every == every[0]).all()):
+            raise ValueError(
+                f"data-parallel feeds: every rank must feed the same number "
+                f"of rows (its local batch); got {every.tolist()} for "
+                f"{sorted(feed_vals)}")
+
+    def load_state(self, env, scope, state_names):
+        """Scope → env: sharded leaves as this rank's slice, the rest whole
+        on the step's device."""
+        for n in state_names:
+            v = scope.find_var(n)
+            plan = self.stored.get(n)
+            held = self._held.get(n)
+            if held is not None and v is held[0]:
+                env[n] = held[1]   # the DTensor this step stored
+                self.local[n] = plan
+                continue
+            if (plan is not None and is_dtensor(v)
+                    and tuple(v.shape)[plan.axis] == plan.padded
+                    and v.to_local().shape[plan.axis] == plan.padded
+                    // self.size):
+                env[n] = to_device(v.to_local(), self.device)
+                self.local[n] = plan
+                continue
+            full = to_device(logical_value(self.program, n, v), self.device)
+            if plan is not None:
+                env[n] = self.shard(full, plan)
+                self.local[n] = plan
+            else:
+                env[n] = full
+
+    def generator(self, scope, gen):
+        """The step's generator: the scope's, folded once with this rank
+        (rank 0 keeps its stream). The base seed is rank 0's, broadcast."""
+        from .executor import _RNG_STATE
+
+        if scope.find_var(_RNG_RANK) == (self.rank, self.size, id(gen)):
+            return gen
+        seed = torch.tensor([int(self.program.random_seed or 0)],
+                            dtype=torch.int64, device=self.device)
+        dist.broadcast(seed, dist.get_global_rank(self.group, 0),
+                       group=self.group)
+        if self.rank:
+            folded = (int(seed.item()) * 0x9E3779B1
+                      + self.rank * 0x7F4A7C15) % (2 ** 63)
+            gen = torch.Generator(self.device).manual_seed(folded)
+            scope.set_var(_RNG_STATE, gen)
+        scope.set_var(_RNG_RANK, (self.rank, self.size, id(gen)))
+        return gen
+
+    def before_op(self, op, env, ctx):
+        ctx.in_names = op.inputs
+        if not self.after_ad:
+            if self.fsdp:
+                self.gather_params(op.input_names(), env, ctx)
+            spec = self._spec(op, env)
+            if spec is not None:
+                self.spec[id(op)] = spec
+            return
+        names = op.input_names()
+        if not any(self.plan_of(n) is not None for n in names):
+            self.mode.pop(id(op), None)
+            return
+        if op.type in _ELEMENTWISE and self._elementwise_ok(op, env):
+            for n in names:
+                plan = self.plan_of(n)
+                if plan is not None and n not in self.local:
+                    env[n] = self.shard(env[n], plan)
+                    self.local[n] = plan
+            self.mode[id(op)] = "shard"
+        else:
+            for n in names:
+                if n in self.local:
+                    env[n] = self.gather(env[n], self.local.pop(n))
+            self.mode[id(op)] = "whole"
+
+    def _elementwise_ok(self, op, env) -> bool:
+        """All planned inputs share one plan; every other tensor input is
+        a scalar (a learning rate, a beta power)."""
+        plans = set()
+        for n in op.input_names():
+            plan = self.plan_of(n)
+            if plan is not None:
+                plans.add(plan)
+            else:
+                v = env.get(n)
+                if isinstance(v, torch.Tensor) and v.numel() > 1:
+                    return False
+        return len(plans) == 1
+
+    def after_op(self, op, env):
+        if not self.after_ad:
+            spec = self.spec.pop(id(op), None)
+            if spec is None or spec == GLOBAL:
+                return
+            for slot, outs in op.outputs.items():
+                if spec == ROWS or slot not in spec:
+                    self.batch.update(outs)
+            return
+        mode = self.mode.get(id(op))
+        if mode == "shard" and op.type in _MATH:
+            # an updated input keeps the layout before_op gave it; a new
+            # value of elementwise math on a shard is a shard
+            ins = op.input_names()
+            plan = next(self.plan_of(n) for n in ins
+                        if self.plan_of(n) is not None)
+            for n in op.output_names():
+                if n not in ins:
+                    self.local[n] = plan
+        elif mode == "whole":
+            for n in op.output_names():
+                plan = self.plan_of(n)
+                if plan is not None and n not in self.local:
+                    env[n] = self.shard(env[n], plan)
+                    self.local[n] = plan
+
+    def _spec(self, op, env):
+        """How `op` treats its batch-sharded inputs: its ``dp`` declaration
+        (``core/registry.py``) for this op's attrs, or None when no input
+        is batch-sharded. An op that declares nothing raises: it would
+        compute this rank's part of a value as if it were the whole."""
+        sharded = {}
+        for slot, names in op.inputs.items():
+            for n in names:
+                if n in self.batch:
+                    v = env.get(n)
+                    sharded[slot] = v.ndim if isinstance(v, torch.Tensor) \
+                        else 1
+                    break
+        if not sharded:
+            return None
+        decl = get_op(op.type).dp if has_op(op.type) else None
+        spec = decl(op.attrs, sharded) if callable(decl) else decl
+        if spec is None:
+            name = next(n for ns in op.inputs.values() for n in ns
+                        if n in self.batch)
+            raise NotImplementedError(
+                f"op {op.type!r} with these attributes is not known to work "
+                f"row by row, and its input {name!r} is batch-sharded on the "
+                f"data-parallel axis (each rank holds its own rows of dim "
+                f"0); the port refuses it rather than compute one rank's "
+                f"part as the whole (ROADMAP A9b: layouts beyond the batch "
+                f"dim)")
+        return spec
+
+    def gather_params(self, names, env, ctx):
+        """Stage 3: at the first use of a sharded parameter among `names`,
+        gather every sharded parameter whole for the rest of the step, one
+        all-gather a dtype (an autodiff target becomes a fresh leaf). A
+        collective costs the host ~0.5 ms on the card, so one a parameter
+        would cost more than the step's kernels."""
+        if not any(n in self.fsdp and n in self.local for n in names):
+            return
+        todo = [(n, env[n], self.local.pop(n)) for n in sorted(self.fsdp)
+                if n in self.local and n in env]
+        for n, full in self.gather_many(todo):
+            if n in ctx.targets and full.is_floating_point():
+                full = full.detach().requires_grad_()
+            env[n] = full
+
+    def seed_scale(self, loss_name: str) -> float:
+        """A loss the same on every rank is seeded with 1/N: each rank's
+        cotangents are then its parts of the global ones."""
+        return 1.0 if loss_name in self.batch else 1.0 / self.size
+
+    def reduce_grads(self, env, targets, ctx):
+        """Sum the targets' gradients over the group (see the module
+        docstring); stages 2 and 3 keep the planned ones as shards."""
+        from .executor import grad_var_name
+        from .selected_rows import SelectedRows
+
+        self.after_ad = True
+        if ctx.sparse_sites:
+            raise NotImplementedError(
+                "SelectedRows gradients (is_sparse embeddings) on a data-"
+                "parallel mesh are ROADMAP A9b")
+        planned: Dict[torch.dtype, List[tuple]] = {}
+        flat: Dict[torch.dtype, List[tuple]] = {}
+        for t in dict.fromkeys(targets):
+            if t in self.batch:
+                continue  # a rank's own rows: nothing to sum
+            g = env.get(grad_var_name(t))
+            if isinstance(g, SelectedRows):
+                raise NotImplementedError(
+                    "SelectedRows gradients on a data-parallel mesh are "
+                    "ROADMAP A9b")
+            if not isinstance(g, torch.Tensor) or not g.is_floating_point():
+                continue
+            plan = self.param_plan.get(t)
+            (planned if plan is not None else flat).setdefault(
+                g.dtype, []).append((grad_var_name(t), g, plan))
+        n = self.size
+        keep_shards = self.stage >= 2
+        for dt, items in planned.items():
+            rows = []
+            for _, g, plan in items:
+                axis, d, pd = plan
+                x = g.movedim(axis, 0)
+                if pd != d:
+                    x = torch.cat([x, x.new_zeros((pd - d,)
+                                                  + tuple(x.shape[1:]))])
+                rows.append(x.reshape(n, -1))
+            widths = [r.shape[1] for r in rows]
+            buf = torch.cat(rows, dim=1).contiguous()
+            out = buf.new_empty(buf.shape[1])
+            reduce_scatter_into(out, buf.view(-1), self.group)
+            if not keep_shards:
+                whole = out.new_empty(n * out.shape[0])
+                all_gather_into(whole, out, self.group)
+                parts = whole.view(n, -1).split(widths, dim=1)
+            else:
+                parts = out.split(widths)
+            for (name, g, plan), part in zip(items, parts):
+                axis, d, pd = plan
+                moved = g.movedim(axis, 0).shape
+                if keep_shards:
+                    local = part.reshape((pd // n,) + tuple(moved[1:]))
+                    env[name] = local.movedim(0, axis)
+                    self.local[name] = plan
+                else:
+                    full = part.reshape((pd,) + tuple(moved[1:]))[:d]
+                    env[name] = full.movedim(0, axis).contiguous()
+        for dt, items in flat.items():
+            buf = torch.cat([g.reshape(-1) for _, g, _ in items])
+            dist.all_reduce(buf, group=self.group)
+            for (name, g, _), part in zip(
+                    items, buf.split([g.numel() for _, g, _ in items])):
+                env[name] = part.view(g.shape)
+
+    def finish(self, env, scope, persistables, fetch_names):
+        """env → scope and the global fetches. Returns (fetches, new
+        state)."""
+        new_state = {}
+        gathers = []
+        for n in persistables:
+            if n not in env:
+                continue
+            v = env[n]
+            if isinstance(v, torch.Tensor):
+                v = v.detach()
+            plan = self.local.get(n)
+            if plan is not None and n in self.stored:
+                new_state[n] = v
+                self._store_shard(scope, n, v, plan)
+            elif plan is not None:
+                gathers.append((n, v, self.local.pop(n)))
+            else:
+                new_state[n] = v
+                scope.set_var(n, v)
+        for n, v in self.gather_many(gathers):
+            env[n] = new_state[n] = v
+            scope.set_var(n, v)
+        self.state_bytes = sum(v.numel() * v.element_size()
+                               for v in new_state.values()
+                               if isinstance(v, torch.Tensor))
+        fetches = []
+        for n in fetch_names:
+            v = env[n]
+            if n in self.local:
+                v = self.gather(v.detach(), self.local[n])
+            elif n in self.batch and isinstance(v, torch.Tensor) and v.ndim:
+                v = v.detach().contiguous()
+                out = v.new_empty((self.size * v.shape[0],)
+                                  + tuple(v.shape[1:]))
+                all_gather_into(out, v, self.group)
+                v = out
+            fetches.append(v)
+        return fetches, new_state
+
+    def record_state_bytes(self):
+        """``memory/state_bytes_per_device``: the persistable bytes this
+        rank holds after a step (what ZeRO shrinks)."""
+        _STATE_BYTES.set(float(getattr(self, "state_bytes", 0)))
+
+
+def mesh_key(compiled) -> Tuple:
+    """What a MeshStep is built for: a new one when any of it changes."""
+    return (id(compiled._mesh), compiled._data_axis,
+            compiled._zero_stage(), compiled._program._version)

@@ -25,6 +25,22 @@ Implementation contract::
 In training the executor reads the metadata: a non-differentiable op runs
 under ``torch.no_grad()``, and inputs in `nondiff_inputs` are detached. The
 `grad_fn` hook is kept for the sparse-row gradients (not ported yet).
+
+`dp` declares what the op does with a batch-sharded input on a
+data-parallel mesh (``core/mesh_step.py``, where each rank holds its own
+rows of dim 0):
+
+- ``ROWS``: the op works row by row; every output is batch-sharded.
+- ``GLOBAL``: the op reduces over the batch with a collective itself
+  (``mesh_step.batch_group``); every output is the global value.
+- a tuple of output slots: those are global, the rest batch-sharded.
+- a callable ``(attrs, sharded) -> one of those or None``, where `sharded`
+  maps each input slot that holds a batch-sharded value to that value's
+  ndim: for an op whose answer depends on its axes.
+
+An op that declares nothing, or whose callable returns None, works across
+the batch dim; the mesh step refuses it rather than compute a rank's part
+as if it were the whole.
 """
 from __future__ import annotations
 
@@ -32,13 +48,16 @@ from typing import Any, Callable, Dict, List, Optional
 
 OpImpl = Callable[..., Dict[str, List[Any]]]
 
+ROWS, GLOBAL = "rows", "global"
+
 
 class OpDef:
     __slots__ = ("type", "fn", "differentiable", "nondiff_inputs",
-                 "mutable_persistables", "grad_fn")
+                 "mutable_persistables", "grad_fn", "dp")
 
     def __init__(self, type: str, fn: OpImpl, differentiable: bool = True,
-                 nondiff_inputs: Optional[List[str]] = None, grad_fn=None):
+                 nondiff_inputs: Optional[List[str]] = None, grad_fn=None,
+                 dp=None):
         self.type = type
         self.fn = fn
         self.differentiable = differentiable
@@ -49,18 +68,19 @@ class OpDef:
         # Signature: grad_fn(ctx, inputs, attrs, outputs, out_cots) ->
         # {slot: [cotangent or None, ...]}.
         self.grad_fn = grad_fn
+        self.dp = dp  # the op on a data-parallel mesh (module docstring)
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register_op(type: str, differentiable: bool = True, nondiff_inputs=None,
-                grad_fn=None):
+                grad_fn=None, dp=None):
     def deco(fn: OpImpl):
         if type in _REGISTRY:
             raise ValueError(f"op {type!r} registered twice")
         _REGISTRY[type] = OpDef(type, fn, differentiable, nondiff_inputs,
-                                grad_fn)
+                                grad_fn, dp)
         return fn
 
     return deco

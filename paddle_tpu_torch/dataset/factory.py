@@ -9,7 +9,7 @@ QueueDataset:613 streaming) over the C++ MultiSlotDataFeed/Dataset
 The native C++ loader (paddle_tpu_torch/native) does threaded file
 parsing into a blocking queue. ``global_shuffle`` runs in one process
 here: the cross-trainer record exchange of the JAX package comes with
-the multi-process work (ROADMAP A9).
+the multi-process work (ROADMAP A9c).
 """
 from __future__ import annotations
 
@@ -158,7 +158,7 @@ class InMemoryDataset(QueueDataset):
 
         One process (the port today) keeps the hash-mod shard of a
         deterministic permutation (no network hop, same statistics); the
-        multi-trainer exchange comes with ROADMAP A9 and raises until
+        multi-trainer exchange comes with ROADMAP A9c and raises until
         then."""
         if self._memory is None:
             raise RuntimeError("call load_into_memory() first")
@@ -168,7 +168,7 @@ class InMemoryDataset(QueueDataset):
                 and dist.get_world_size() > 1:
             raise NotImplementedError(
                 "InMemoryDataset.global_shuffle across trainers (the JAX "
-                "package's shuffle service) is not ported yet (ROADMAP A9)")
+                "package's shuffle service) is not ported yet (ROADMAP A9c)")
         self._shuffle_epoch = getattr(self, "_shuffle_epoch", 0) + 1
         rng = random.Random(12345 + self._shuffle_epoch)
         if not getattr(self, "_sharded", False):

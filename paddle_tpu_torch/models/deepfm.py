@@ -11,7 +11,7 @@ packed row-major table of ``ops/deferred_rows.py`` updated by the fused
 sparse-Adagrad kernel, or with ``deferred_rows=``, the deferred-row log of
 the same module (the optimizer state in extra columns of the f32 table, a
 fold every ``segments`` steps). Mesh sharding of the table
-(``shard_axis``) is not ported: it raises (ROADMAP A9).
+(``shard_axis``) is not ported: it raises (ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ def deepfm(sparse_ids, dense_feats, vocab_size: int, num_fields: int,
     if shard_axis is not None:
         raise NotImplementedError(
             "deepfm: mesh-sharded tables (shard_axis) are not ported yet "
-            "(ROADMAP A9)")
+            "(ROADMAP A9b)")
     if state_mult > 1 and not fused_table:
         raise ValueError("state_mult>1 (deferred moment state) requires "
                          "fused_table=True")

@@ -5,12 +5,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.registry import register_op
+from ..core.registry import ROWS, register_op
 from .common import one
 
 
 def _act(name, fn):
-    @register_op(name)
+    @register_op(name, dp=ROWS)
     def _impl(ctx, inputs, attrs, _fn=fn):
         (x,) = inputs["X"]
         return one(_fn(x, attrs))
@@ -37,7 +37,8 @@ _act("logsigmoid", lambda x, a: F.logsigmoid(x))
 _act("silu", lambda x, a: F.silu(x))
 
 
-@register_op("softmax")
+@register_op("softmax", dp=lambda a, s: None
+             if a.get("axis", -1) % s["X"] == 0 else ROWS)
 def _softmax(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(torch.softmax(x, dim=attrs.get("axis", -1)))

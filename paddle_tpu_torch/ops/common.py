@@ -2,6 +2,8 @@
 ``paddle_tpu.ops.common``)."""
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -48,13 +50,41 @@ def conv2d_nchw(x, w, strides=(1, 1), padding=(0, 0), dilations=(1, 1),
                     tuple(dilations), groups)
 
 
-def bn_batch_stats_xla1(x, axes):
+# the batch-norm ops' outputs that are global on a data-parallel mesh (the
+# rest, Y, is row by row; ``core/registry.py``'s ``dp``)
+BN_GLOBAL_OUT = ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance")
+
+
+def bn_batch_stats_xla1(x, axes, dp=None):
     """Training batch norm's default statistics (the "xla1" mode): f32 mean
-    and one-pass var = max(E[x²] − mean², 0) over `axes`."""
+    and one-pass var = max(E[x²] − mean², 0) over `axes`. With `dp` (the
+    data-parallel axis's process group, ``core/mesh_step.py``; x
+    batch-sharded over it) the two sums are taken over the whole group's
+    batch."""
     xf = x.float()
+    if dp is not None:
+        from ..parallel.collective import axis_size, psum
+
+        count = axis_size(dp) * math.prod(x.shape[a] for a in axes)
+        sums = psum(torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]),
+                    dp)
+        mean = sums[0] / count
+        return mean, torch.clamp_min(sums[1] / count - mean * mean, 0.0)
     mean = torch.mean(xf, dim=axes)
     var = torch.clamp_min(torch.mean(xf * xf, dim=axes) - mean * mean, 0.0)
     return mean, var
+
+
+def bn_global_moments(dp, mean, var):
+    """Per-rank (mean, var) of equal-sized batch shards → those of the
+    whole batch of the process group `dp`: mean of the means, and
+    E[x²] − mean² from each rank's var + mean² (the fused statistics
+    kernels return moments, not sums)."""
+    from ..parallel.collective import pmean
+
+    both = pmean(torch.stack([mean, var + mean * mean]), dp)
+    gmean = both[0]
+    return gmean, torch.clamp_min(both[1] - gmean * gmean, 0.0)
 
 
 def bn_normalize(x, mean, var, scale, bias, eps, shape):

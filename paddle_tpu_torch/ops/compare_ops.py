@@ -4,12 +4,12 @@ from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import ROWS, register_op
 from .common import bcast_y, one
 
 
 def _cmp(name, fn):
-    @register_op(name, differentiable=False)
+    @register_op(name, differentiable=False, dp=ROWS)
     def _impl(ctx, inputs, attrs, _fn=fn):
         (x,) = inputs["X"]
         (y,) = inputs["Y"]
@@ -28,7 +28,7 @@ _cmp("logical_or", torch.logical_or)
 _cmp("logical_xor", torch.logical_xor)
 
 
-@register_op("logical_not", differentiable=False)
+@register_op("logical_not", differentiable=False, dp=ROWS)
 def _logical_not(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(torch.logical_not(x))

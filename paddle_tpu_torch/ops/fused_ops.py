@@ -8,8 +8,9 @@ import os
 
 import torch
 
-from ..core.registry import register_op
-from .common import act_map, bcast_y, one, opt_input
+from ..core.mesh_step import batch_group
+from ..core.registry import ROWS, register_op
+from .common import BN_GLOBAL_OUT, act_map, bcast_y, one, opt_input
 from .kernels import flash_attention as _fa
 from .kernels import flash_attention_sparse as _fas
 from .kernels import fused_bn as _fbn
@@ -17,7 +18,7 @@ from .kernels import fused_bn as _fbn
 _ACTS = act_map()
 
 
-@register_op("fused_elemwise_activation")
+@register_op("fused_elemwise_activation", dp=ROWS)
 def _fused_elemwise_activation(ctx, inputs, attrs):
     """act(add(x, y)) in one op (fused_elemwise_activation_op.cc)."""
     (x,) = inputs["X"]
@@ -29,7 +30,7 @@ def _fused_elemwise_activation(ctx, inputs, attrs):
     return one(_ACTS[unary](binop(x, y)))
 
 
-@register_op("fused_fc")
+@register_op("fused_fc", dp=lambda a, s: None if "W" in s else ROWS)
 def _fused_fc(ctx, inputs, attrs):
     """gemm + bias + activation as one unit (fc_fuse_pass.cc)."""
     (x,) = inputs["Input"]
@@ -43,7 +44,8 @@ def _fused_fc(ctx, inputs, attrs):
     return one(out.reshape(lead + (w.shape[-1],)))
 
 
-@register_op("fused_conv_bn", nondiff_inputs=["Mean", "Variance"])
+@register_op("fused_conv_bn", nondiff_inputs=["Mean", "Variance"],
+             dp=BN_GLOBAL_OUT)
 def _fused_conv_bn(ctx, inputs, attrs):
     """1×1-conv + batch_norm (+relu, +residual) as one op, the ResNet
     bottleneck tail: the Hopper kernels on a CUDA tensor, their plain
@@ -77,13 +79,14 @@ def _fused_conv_bn(ctx, inputs, attrs):
         return {"Y": [y], "MeanOut": [mean], "VarianceOut": [var],
                 "SavedMean": [mean], "SavedVariance": [var]}
 
+    dp = batch_group(ctx, "Input")  # the group's statistics on a mesh
     if mode != "xla" and _fbn.conv_bn_supports(x.shape, w.shape, stride):
         y, bmean, bvar = _fbn.fused_conv_bn_act(
             x, w, scale, bias, eps, act, stride, residual is not None,
-            residual)
+            residual, dp=dp)
     else:
         y, bmean, bvar = _fbn.conv_bn_xla(x, w, scale, bias, eps, act,
-                                          stride, residual)
+                                          stride, residual, dp=dp)
     mean_out = momentum * mean + (1.0 - momentum) * bmean
     var_out = momentum * var + (1.0 - momentum) * bvar
     return {"Y": [y], "MeanOut": [mean_out.detach()],
@@ -104,7 +107,7 @@ def _attention_dropout(ctx, attrs):
     return rate, seed
 
 
-@register_op("flash_attention", nondiff_inputs=["BiasQK"])
+@register_op("flash_attention", nondiff_inputs=["BiasQK"], dp=ROWS)
 def _flash_attention(ctx, inputs, attrs):
     """Memory-efficient fused attention: the Hopper kernels on a CUDA tensor,
     their plain versions on a CPU tensor; see ops/kernels/flash_attention.py.

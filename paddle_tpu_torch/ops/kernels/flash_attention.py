@@ -369,6 +369,31 @@ flash_attention_bwd.wide_launches = 0
 flash_attention_bwd.plain_on_cuda = 0
 
 
+def flash_block_fwd(q, k, v, sm_scale: Optional[float] = None,
+                    causal: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ring's per-block forward (JAX ``_flash_fwd_dispatch`` with no
+    bias and no dropout): (out, lse) of q against one resident K/V block,
+    on the rows 1–2 kernels for a CUDA tensor and the plain version for a
+    CPU one. A sequence length with no power-of-two block divisor ≥ 8
+    raises, as the JAX entry does."""
+    check_block_divisor(q.shape[2], "flash_attention")
+    return flash_attention_fwd(q, k, v, None, causal, sm_scale, 0.0, 0)
+
+
+def flash_block_bwd(q, k, v, g, lse, out, sm_scale: Optional[float] = None,
+                    causal: bool = False):
+    """The ring's per-block backward (JAX ``_flash_bwd_block_dispatch``):
+    (dq, dk, dv) of one K/V block on the rows 3–4 kernels (the plain
+    version on the CPU), given the GLOBAL `lse` and `out` of q's rows. The
+    kernels' delta = Σ dO·out is then the global one and p = exp(s − lse)
+    is the block's share of the global softmax, so the block's
+    contributions sum to the exact gradient."""
+    dq, dk, dv, _ = flash_attention_bwd(q, k, v, out, lse, g, None, causal,
+                                        sm_scale, 0.0, 0)
+    return dq, dk, dv
+
+
 def flash_attention_delta(out, g) -> torch.Tensor:
     """delta = Σ_d dO·out ([B, nh, T] f32): the backward's first kernel for
     f32 or bf16 CUDA tensors, the plain version for CPU tensors; another

@@ -27,6 +27,14 @@ the plain version for a CPU tensor and launch the kernel for a CUDA tensor
 ``conv_bn_xla`` is the plain composition of conv2d + batch_norm (+ add +
 relu), bitwise equal to the unfused ops.
 
+On a data-parallel mesh (`dp`, the data axis's process group; the
+executor's step is ``core/mesh_step.py``) the statistics are the whole group's, as GSPMD makes them in the JAX
+package: K1's or K4's per-rank moments are combined over the group
+(``common.bn_global_moments``) before the apply, and K3's reduction sums
+(dbeta, dgamma) are summed over the group before its dx pass. The
+parameter gradients returned are each rank's part; the step sums them
+with the other gradients. The kernels themselves are unchanged.
+
 Layout. The kernels work on the channel-minor (M, C) = (N·H·W, C) view. It
 is free only for an NCHW tensor stored channels-last, which is how the port
 keeps conv activations (``ops.common.conv2d_nchw``); results come back as
@@ -42,7 +50,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import bn_batch_stats_xla1, bn_normalize, conv2d_nchw
+from ...parallel.collective import axis_size, psum
+from ..common import (bn_batch_stats_xla1, bn_global_moments, bn_normalize,
+                      conv2d_nchw)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _CONV_BM = 128      # K4 output rows per CTA (kConvBM in csrc/fused_bn.cu)
@@ -247,14 +257,20 @@ def bn_bwd_dx(dy2, x2, y2, mean, inv, isc, dbeta, dgamma, m, has_res):
 bn_bwd_dx.launches = 0
 
 
-def bn_bwd_2d(dy2, x2, y2, mean, inv, scale, has_res: bool, m: float):
+def bn_bwd_2d(dy2, x2, y2, mean, inv, scale, has_res: bool, m: float,
+              dp=None):
     """The 2-D core of both fused backwards (``_bn_bwd_2d``): one reduction
     pass, then one dx pass. y2 is the saved output when relu was fused, else
-    None. Returns (dx2, dgamma, dbeta, dres2 or None)."""
+    None. With `dp` the sums are the group's for dx (`m` is then the
+    group's row count). Returns (dx2, dgamma, dbeta, dres2 or None), the
+    parameter gradients this rank's part."""
     dy2 = dy2.to(x2.dtype)
     dbeta, dgamma = bn_bwd_reduce(dy2, x2, y2, mean, inv)
+    gbeta, ggamma = dbeta, dgamma
+    if dp is not None:
+        gbeta, ggamma = psum(torch.stack([dbeta, dgamma]), dp)
     isc = inv * scale.float()
-    dx2, dres2 = bn_bwd_dx(dy2, x2, y2, mean, inv, isc, dbeta, dgamma, m,
+    dx2, dres2 = bn_bwd_dx(dy2, x2, y2, mean, inv, isc, gbeta, ggamma, m,
                            has_res)
     return dx2, dgamma, dbeta, dres2
 
@@ -506,16 +522,19 @@ class _FusedBN(torch.autograd.Function):
     ``_fused_fwd`` saves: x, scale, mean, inv and y under relu."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, residual, eps, act):
+    def forward(ctx, x, scale, bias, residual, eps, act, dp):
         if residual is not None:
             # the kernels read one dtype; autograd casts dres back
             residual = residual.to(x.dtype)
         mean, var = bn_stats(x)
+        if dp is not None:
+            mean, var = bn_global_moments(dp, mean, var)
         inv = torch.rsqrt(var + eps)
         y = bn_apply(x, mean, inv, scale, bias, act, residual)
         ctx.save_for_backward(x, scale, mean, inv,
                               y if act == "relu" else None)
         ctx.has_res = residual is not None
+        ctx.dp = dp
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -523,23 +542,26 @@ class _FusedBN(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, mean, inv, y = ctx.saved_tensors
         n, c, h, w = x.shape
+        ranks = 1 if ctx.dp is None else axis_size(ctx.dp)
         dx2, dgamma, dbeta, dres2 = bn_bwd_2d(
             to2d(dy), to2d(x), to2d(y) if y is not None else None, mean, inv,
-            scale, ctx.has_res, float(n * h * w))
+            scale, ctx.has_res, float(n * h * w * ranks), ctx.dp)
         dres = from2d(dres2, x.shape) if ctx.has_res else None
         return (from2d(dx2, x.shape), dgamma.to(scale.dtype),
-                dbeta.to(scale.dtype), dres, None, None)
+                dbeta.to(scale.dtype), dres, None, None, None)
 
 
-def fused_bn_act(x, scale, bias, eps, act, residual_tag, residual=None):
+def fused_bn_act(x, scale, bias, eps, act, residual_tag, residual=None,
+                 dp=None):
     """Training-mode fused BN: y = act(x̂·scale + bias [+ residual]).
     Returns (y, mean, var) with mean/var the f32 batch statistics (for the
-    running-stat update; they carry no gradient). `residual_tag` records
-    whether a residual is fused, as in the JAX package."""
+    running-stat update; they carry no gradient), the group's with `dp`.
+    `residual_tag` records whether a residual is fused, as in the JAX
+    package."""
     if bool(residual_tag) != (residual is not None):
         raise ValueError("fused_bn_act: residual_tag must say whether a "
                          "residual is given")
-    return _FusedBN.apply(x, scale, bias, residual, float(eps), act)
+    return _FusedBN.apply(x, scale, bias, residual, float(eps), act, dp)
 
 
 class _FusedConvBN(torch.autograd.Function):
@@ -550,29 +572,32 @@ class _FusedConvBN(torch.autograd.Function):
     is scattered into zeros."""
 
     @staticmethod
-    def forward(ctx, x, w, scale, bias, residual, eps, act, stride):
+    def forward(ctx, x, w, scale, bias, residual, eps, act, stride, dp):
         xs = _subsample(x, stride)
         n, _, hs, ws = xs.shape
         co = w.shape[0]
         yc2, mean, var = conv_stats(xs, w)
+        if dp is not None:
+            mean, var = bn_global_moments(dp, mean, var)
         inv = torch.rsqrt(var + eps)
         # the kernels read one dtype; autograd casts dres back
         res2 = to2d(residual.to(x.dtype)) if residual is not None else None
         y2 = apply2d(yc2, mean, inv, scale, bias, act, res2)
         ctx.save_for_backward(x, w, scale, mean, inv, yc2,
                               y2 if act == "relu" else None)
-        ctx.args = (stride, residual is not None)
+        ctx.args = (stride, residual is not None, dp)
         ctx.mark_non_differentiable(mean, var)
         return from2d(y2, (n, co, hs, ws)), mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, w, scale, mean, inv, yc2, y2 = ctx.saved_tensors
-        stride, has_res = ctx.args
+        stride, has_res, dp = ctx.args
         co, ci = w.shape[:2]
+        ranks = 1 if dp is None else axis_size(dp)
         dyc2, dgamma, dbeta, dres2 = bn_bwd_2d(
             to2d(dy), yc2, y2, mean, inv, scale, has_res,
-            float(yc2.shape[0]))
+            float(yc2.shape[0] * ranks), dp)
         xs = _subsample(x, stride)
         w2 = w.reshape(co, ci)
         dx_sub = from2d(torch.matmul(dyc2, w2).to(x.dtype), xs.shape)
@@ -584,32 +609,34 @@ class _FusedConvBN(torch.autograd.Function):
         dw = torch.matmul(dyc2.t(), to2d(xs)).reshape(w.shape).to(w.dtype)
         dres = from2d(dres2, dy.shape) if has_res else None
         return (dx, dw, dgamma.to(scale.dtype), dbeta.to(scale.dtype), dres,
-                None, None, None)
+                None, None, None, None)
 
 
 def fused_conv_bn_act(x, w, scale, bias, eps, act, stride, residual_tag,
-                      residual=None):
+                      residual=None, dp=None):
     """Fused 1×1-conv + training BN: y = act(BN(conv(x, w)) [+ residual]).
     x is NCHW, w is OIHW with a 1×1 kernel in x's dtype; returns (y, mean,
-    var) with mean/var the f32 batch statistics of the conv output."""
+    var) with mean/var the f32 batch statistics of the conv output (the
+    group's with `dp`)."""
     if bool(residual_tag) != (residual is not None):
         raise ValueError("fused_conv_bn_act: residual_tag must say whether a "
                          "residual is given")
     return _FusedConvBN.apply(x, w, scale, bias, residual, float(eps), act,
-                              int(stride))
+                              int(stride), dp)
 
 
 def conv_bn_xla(x, w, scale, bias, eps, act, stride, residual=None,
                 use_mean: Optional[torch.Tensor] = None,
-                use_var: Optional[torch.Tensor] = None):
+                use_var: Optional[torch.Tensor] = None, dp=None):
     """The plain composition with the exact math of the separate conv2d +
     batch_norm ("xla1") (+ elementwise_add + relu) ops: bitwise equal to
     them, which is what makes the fused op safe to enable per model.
-    `use_mean`/`use_var` switch to frozen (inference) statistics. Returns
+    `use_mean`/`use_var` switch to frozen (inference) statistics; `dp`
+    takes the training statistics over the data-parallel group. Returns
     (y, mean, var)."""
     y = conv2d_nchw(x, w, (stride, stride))
     if use_mean is None:
-        mean, var = bn_batch_stats_xla1(y, (0, 2, 3))
+        mean, var = bn_batch_stats_xla1(y, (0, 2, 3), dp)
     else:
         mean, var = use_mean.float(), use_var.float()
     out = bn_normalize(y, mean, var, scale, bias, eps, (1, -1, 1, 1))

@@ -8,12 +8,12 @@ import math
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import ROWS, register_op
 from .common import bcast_y, one
 
 
 def _elementwise(name, fn):
-    @register_op(name)
+    @register_op(name, dp=ROWS)
     def _impl(ctx, inputs, attrs, _fn=fn):
         (x,) = inputs["X"]
         (y,) = inputs["Y"]
@@ -33,7 +33,7 @@ _elementwise("elementwise_mod", torch.remainder)
 _elementwise("elementwise_floordiv", torch.floor_divide)
 
 
-@register_op("scale")
+@register_op("scale", dp=ROWS)
 def _scale(ctx, inputs, attrs):
     (x,) = inputs["X"]
     scale = attrs.get("scale", 1.0)
@@ -43,7 +43,19 @@ def _scale(ctx, inputs, attrs):
     return one((x + bias) * scale)
 
 
-@register_op("matmul")
+def _matmul_dp(attrs, sharded):
+    """Row by row when every batch-sharded operand's dim 0 stays dim 0 of
+    the product: a batch dim of a batched product, or the rows of an
+    untransposed 2-D X. A 2-D Y's dim 0 is contracted."""
+    x, y = sharded.get("X"), sharded.get("Y")
+    if y is not None and y < 3:
+        return None
+    if x is not None and x < 3 and (x < 2 or attrs.get("transpose_X")):
+        return None
+    return ROWS
+
+
+@register_op("matmul", dp=_matmul_dp)
 def _matmul(ctx, inputs, attrs):
     """matmul_op.cc semantics: optional transpose flags + alpha, batched via
     leading dims."""
@@ -65,7 +77,7 @@ def _matmul(ctx, inputs, attrs):
     return one(out)
 
 
-@register_op("mul")
+@register_op("mul", dp=lambda a, s: None if "Y" in s else ROWS)
 def _mul(ctx, inputs, attrs):
     """mul_op.cc: flatten X to 2-D at x_num_col_dims, Y at y_num_col_dims,
     then gemm; output keeps X's leading dims."""
@@ -79,7 +91,7 @@ def _mul(ctx, inputs, attrs):
     return one(out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:])))
 
 
-@register_op("sum")
+@register_op("sum", dp=ROWS)
 def _sum(ctx, inputs, attrs):
     xs = inputs["X"]
     out = xs[0]
@@ -88,7 +100,7 @@ def _sum(ctx, inputs, attrs):
     return one(out)
 
 
-@register_op("clip")
+@register_op("clip", dp=ROWS)
 def _clip(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(torch.clamp(x, attrs.get("min"), attrs.get("max")))
@@ -109,7 +121,7 @@ def _squared_l2_norm(ctx, inputs, attrs):
 
 
 def _unary(name, fn):
-    @register_op(name)
+    @register_op(name, dp=ROWS)
     def _impl(ctx, inputs, attrs, _fn=fn):
         (x,) = inputs["X"]
         return one(_fn(x))

@@ -1,14 +1,18 @@
 """top_k, accuracy and auc (counterparts of ``paddle_tpu.ops.reduce_ops``'s
 ``top_k`` and ``paddle_tpu.ops.metric_ops``'s ``accuracy`` and ``auc``;
-reference top_k_op.cc, operators/metrics/accuracy_op.cc, auc_op.cc)."""
+reference top_k_op.cc, operators/metrics/accuracy_op.cc, auc_op.cc). On a
+data-parallel mesh ``accuracy``'s counts and ``auc``'s histograms are the
+whole group's."""
 from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_op
+from ..core.mesh_step import batch_group
+from ..core.registry import GLOBAL, ROWS, register_op
+from ..parallel.collective import psum
 
 
-@register_op("top_k")
+@register_op("top_k", dp=ROWS)
 def _top_k(ctx, inputs, attrs):
     """The k largest values along the last axis and their int64 indices.
     Ties go to the lower index, as ``lax.top_k`` breaks them: a stable
@@ -20,7 +24,7 @@ def _top_k(ctx, inputs, attrs):
     return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
 
 
-@register_op("accuracy", differentiable=False)
+@register_op("accuracy", differentiable=False, dp=GLOBAL)
 def _accuracy(ctx, inputs, attrs):
     """accuracy_op.cc: fraction of samples whose top-k indices contain the
     label; Correct and Total are int32."""
@@ -31,11 +35,15 @@ def _accuracy(ctx, inputs, attrs):
     total = torch.tensor(indices.shape[0], dtype=torch.int32,
                          device=indices.device)
     num_correct = correct.sum(dtype=torch.int32)
+    dp = batch_group(ctx, "Indices")
+    if dp is not None:  # the group's counts on a data-parallel mesh
+        both = psum(torch.stack([num_correct, total]), dp)
+        num_correct, total = both[0], both[1]
     acc = num_correct.float() / total.float()
     return {"Accuracy": [acc], "Correct": [num_correct], "Total": [total]}
 
 
-@register_op("auc", differentiable=False)
+@register_op("auc", differentiable=False, dp=GLOBAL)
 def _auc(ctx, inputs, attrs):
     """auc_op.cc: streaming AUC via threshold-bucketed confusion counters.
     StatPos/StatNeg are persistable accumulator vars updated each step. The
@@ -57,6 +65,9 @@ def _auc(ctx, inputs, attrs):
                         device=predict.device)
     pos_hist = zeros.index_add(0, bucket, lab)
     neg_hist = zeros.index_add(0, bucket, 1.0 - lab)
+    dp = batch_group(ctx, "Predict")
+    if dp is not None:  # the group's histograms on a data-parallel mesh
+        pos_hist, neg_hist = psum(torch.stack([pos_hist, neg_hist]), dp)
     new_pos = stat_pos + pos_hist
     new_neg = stat_neg + neg_hist
     # integrate: walking thresholds high→low accumulates TP/FP

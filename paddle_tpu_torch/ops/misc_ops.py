@@ -4,11 +4,11 @@ space-to-depth ResNet stem uses. The rest of the module is not ported yet
 (ROADMAP A12)."""
 from __future__ import annotations
 
-from ..core.registry import register_op
+from ..core.registry import ROWS, register_op
 from .common import one
 
 
-@register_op("space_to_depth")
+@register_op("space_to_depth", dp=ROWS)
 def _space_to_depth(ctx, inputs, attrs):
     """[N, C, H, W] -> [N, C·bs², H/bs, W/bs]: each bs×bs spatial block
     into channels, block row and column outermost (the JAX package's

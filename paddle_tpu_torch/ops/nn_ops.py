@@ -9,15 +9,18 @@ in memory (``common.conv2d_nchw``) so that the fused batch-norm kernels read
 them in place."""
 from __future__ import annotations
 
+import math
 import os
 
 import torch
 import torch.nn.functional as F
 
-from ..core.registry import register_op
+from ..core.mesh_step import batch_group
+from ..core.registry import ROWS, register_op
 from ..core.selected_rows import SelectedRows
-from .common import (act_map, bn_batch_stats_xla1, bn_normalize, conv2d_nchw,
-                     one)
+from ..parallel.collective import axis_size, psum
+from .common import (BN_GLOBAL_OUT, act_map, bn_batch_stats_xla1,
+                     bn_global_moments, bn_normalize, conv2d_nchw, one)
 from .deferred_rows import lookup_join
 from .kernels import fused_bn
 from .kernels.sparse_adagrad import take_rows, unpack_rows
@@ -36,7 +39,7 @@ def _same_pads(size, k, s, d):
     return total // 2, total - total // 2
 
 
-@register_op("conv2d", nondiff_inputs=[])
+@register_op("conv2d", nondiff_inputs=[], dp=ROWS)
 def _conv2d(ctx, inputs, attrs):
     (x,) = inputs["Input"]
     (w,) = inputs["Filter"]
@@ -57,7 +60,7 @@ def _conv2d(ctx, inputs, attrs):
     return one(conv2d_nchw(x, w, strides, padding, dilations, groups))
 
 
-@register_op("pool2d")
+@register_op("pool2d", dp=ROWS)
 def _pool2d(ctx, inputs, attrs):
     """pool_op.cc: max pools pad with -inf; exclusive average pools divide
     by the count of real elements in the window."""
@@ -78,7 +81,8 @@ def _pool2d(ctx, inputs, attrs):
         count_include_pad=not attrs.get("exclusive", True)))
 
 
-@register_op("batch_norm", nondiff_inputs=["Mean", "Variance"])
+@register_op("batch_norm", nondiff_inputs=["Mean", "Variance"],
+             dp=BN_GLOBAL_OUT)
 def _batch_norm(ctx, inputs, attrs):
     """batch_norm_op.cc: batch statistics and a running-stat update in
     training, frozen statistics in test. ``PDTPU_BN_MODE`` (read at run
@@ -87,7 +91,9 @@ def _batch_norm(ctx, inputs, attrs):
     kernels (``fused_bn_act``, relu folded in), "pallas_stats" the
     statistics kernel with a frozen-stats gradient (a perf probe). The
     kernels take only NCHW inputs that pass ``fused_bn.supports``; on a CPU
-    tensor they run as their plain versions."""
+    tensor they run as their plain versions. On a data-parallel mesh the
+    training statistics are the whole group's batch
+    (``mesh_step.batch_group``)."""
     (x,) = inputs["X"]
     (scale,) = inputs["Scale"]
     (bias,) = inputs["Bias"]
@@ -113,31 +119,40 @@ def _batch_norm(ctx, inputs, attrs):
     if is_test:
         y = bn_normalize(x, mean, var, scale, bias, eps, shape)
         return outs(act_map()[act](y), mean, var, mean, var)
+    dp = batch_group(ctx, "X")
     if (bn_mode.startswith("pallas") and layout == "NCHW"
             and act in ("", "relu") and fused_bn.supports(x.shape, x.dtype)):
         if bn_mode == "pallas_stats":
             bmean, bvar = fused_bn.bn_stats(x.detach())
+            if dp is not None:
+                bmean, bvar = bn_global_moments(dp, bmean, bvar)
             y = bn_normalize(x, bmean, bvar, scale, bias, eps, shape)
             y = act_map()[act](y)
         else:
             y, bmean, bvar = fused_bn.fused_bn_act(x, scale, bias, eps, act,
-                                                   False)
+                                                   False, dp=dp)
         return outs(y, momentum * mean + (1.0 - momentum) * bmean,
                     momentum * var + (1.0 - momentum) * bvar, bmean, bvar)
     # statistics always in f32; x itself stays in its own dtype (the op is
     # AMP-gray, so a bf16 conv trunk never round-trips through f32 memory)
-    if bn_mode == "xla2":
+    if bn_mode == "xla2" and dp is not None:
+        count = axis_size(dp) * math.prod(x.shape[a] for a in axes)
+        use_mean = psum(x.float().sum(dim=axes), dp) / count
+        c = x.float() - use_mean.reshape(shape)
+        use_var = psum((c * c).sum(dim=axes), dp) / count
+    elif bn_mode == "xla2":
         use_mean = torch.mean(x.float(), dim=axes)
         use_var = torch.var(x.float(), dim=axes, correction=0)
     else:
-        use_mean, use_var = bn_batch_stats_xla1(x, axes)
+        use_mean, use_var = bn_batch_stats_xla1(x, axes, dp)
     y = bn_normalize(x, use_mean, use_var, scale, bias, eps, shape)
     return outs(act_map()[act](y), momentum * mean + (1.0 - momentum)
                 * use_mean, momentum * var + (1.0 - momentum) * use_var,
                 use_mean, use_var)
 
 
-@register_op("layer_norm")
+@register_op("layer_norm", dp=lambda a, s: None if a.get(
+    "begin_norm_axis", 1) % s["X"] == 0 else ROWS)
 def _layer_norm(ctx, inputs, attrs):
     """Accepts bf16 activations and computes the statistics and the
     normalization in f32, returning the input dtype."""
@@ -159,7 +174,7 @@ def _layer_norm(ctx, inputs, attrs):
             "Variance": [var.reshape(x.shape[:bna])]}
 
 
-@register_op("dropout")
+@register_op("dropout", dp=ROWS)
 def _dropout(ctx, inputs, attrs):
     (x,) = inputs["X"]
     p = attrs.get("dropout_prob", 0.5)
@@ -221,8 +236,13 @@ def _gather_rows(w, idx, attrs):
     return out
 
 
+def _lookup_dp(attrs, sharded):
+    """Rows of the table for each id: row by row in the ids."""
+    return None if "W" in sharded else ROWS
+
+
 @register_op("lookup_table", nondiff_inputs=["Ids", "PendingPos", "PendingCum"],
-             grad_fn=_lookup_sparse_grad)
+             grad_fn=_lookup_sparse_grad, dp=_lookup_dp)
 def _lookup_table(ctx, inputs, attrs):
     """lookup_table_op.cc: W[ids]; padding_idx rows produce zeros. With
     ``row_pack_dt`` the table is a packed row-major [V, 128] uint16 array
@@ -266,7 +286,7 @@ def _lookup_table(ctx, inputs, attrs):
 
 
 @register_op("lookup_table_v2", nondiff_inputs=["Ids"],
-             grad_fn=_lookup_sparse_grad)
+             grad_fn=_lookup_sparse_grad, dp=_lookup_dp)
 def _lookup_table_v2(ctx, inputs, attrs):
     (w,) = inputs["W"]
     (ids,) = inputs["Ids"]
@@ -307,7 +327,9 @@ class _HardLabelCE(torch.autograd.Function):
         return (p * g).to(logits.dtype), None, None, None
 
 
-@register_op("softmax_with_cross_entropy", nondiff_inputs=["Label"])
+@register_op("softmax_with_cross_entropy", nondiff_inputs=["Label"],
+             dp=lambda a, s: None if a.get("axis", -1)
+             % s.get("Logits", 2) == 0 else ROWS)
 def _softmax_with_cross_entropy(ctx, inputs, attrs):
     """Loss keeps a singleton class axis. The Softmax output is computed
     only when a later op or a fetch reads it (XLA drops it in the JAX
@@ -332,7 +354,8 @@ def _softmax_with_cross_entropy(ctx, inputs, attrs):
     return {"Loss": [loss], "Softmax": [torch.exp(logp)]}
 
 
-@register_op("sigmoid_cross_entropy_with_logits", nondiff_inputs=["Label"])
+@register_op("sigmoid_cross_entropy_with_logits", nondiff_inputs=["Label"],
+             dp=lambda a, s: None if a.get("normalize", False) else ROWS)
 def _sigmoid_ce(ctx, inputs, attrs):
     """max(x, 0) − x·label + log(1 + exp(−|x|)); label == ignore_index gives
     0; `normalize` divides by the count of labels that are not ignored."""
@@ -348,7 +371,7 @@ def _sigmoid_ce(ctx, inputs, attrs):
     return one(loss)
 
 
-@register_op("square_error_cost", nondiff_inputs=["Label"])
+@register_op("square_error_cost", nondiff_inputs=["Label"], dp=ROWS)
 def _square_error_cost(ctx, inputs, attrs):
     (x,) = inputs["X"]
     (label,) = inputs["Label"]

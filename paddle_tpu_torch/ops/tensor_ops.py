@@ -16,11 +16,24 @@ import torch
 import torch.nn.functional as F
 
 from ..core.dtypes import convert_dtype
-from ..core.registry import register_op
+from ..core.registry import ROWS, register_op
 from .common import one
 
 
-@register_op("reshape")
+def _not_dim0(*axes):
+    """A ``dp`` declaration (``core/registry.py``): row by row unless one of
+    `axes` (attrs -> axes, given the sharded input's ndim) is dim 0."""
+    def dp(attrs, sharded):
+        ndim = max(sharded.values())
+        return None if any(int(a) % max(ndim, 1) == 0
+                           for a in axes[0](attrs, ndim)) else ROWS
+    return dp
+
+
+# a shape whose dim 0 is copied (0) or inferred (-1) keeps each rank's rows
+# at the front: the ranks' results laid end to end are the global reshape
+@register_op("reshape", dp=lambda a, s: ROWS if a["shape"][0] in (0, -1)
+             else None)
 def _reshape(ctx, inputs, attrs):
     (x,) = inputs["X"]
     # paddle rule: 0 means copy input dim at that position; -1 infers
@@ -28,18 +41,19 @@ def _reshape(ctx, inputs, attrs):
     return one(x.reshape(shape))
 
 
-@register_op("transpose")
+@register_op("transpose", dp=lambda a, s: ROWS
+             if int(a["axis"][0]) % s["X"] == 0 else None)
 def _transpose(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(x.permute(*attrs["axis"]))
 
 
-@register_op("concat")
+@register_op("concat", dp=_not_dim0(lambda a, n: [a.get("axis", 0)]))
 def _concat(ctx, inputs, attrs):
     return one(torch.cat(inputs["X"], dim=attrs.get("axis", 0)))
 
 
-@register_op("slice")
+@register_op("slice", dp=_not_dim0(lambda a, n: a["axes"]))
 def _slice(ctx, inputs, attrs):
     """slice_op.cc: [start, end) along each of `axes`; negative bounds
     count from the end and both are clamped to the dim."""
@@ -53,7 +67,7 @@ def _slice(ctx, inputs, attrs):
     return one(x[tuple(idx)])
 
 
-@register_op("split")
+@register_op("split", dp=_not_dim0(lambda a, n: [a.get("axis", 0)]))
 def _split(ctx, inputs, attrs):
     """Outputs are views of X: the flash-attention kernel reads the q/k/v
     thirds of the fused qkv projection through their strides."""
@@ -69,7 +83,8 @@ def _split(ctx, inputs, attrs):
     return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
 
 
-@register_op("unsqueeze")
+@register_op("unsqueeze", dp=_not_dim0(
+    lambda a, n: [x % (n + len(a["axes"])) for x in a["axes"]]))
 def _unsqueeze(ctx, inputs, attrs):
     (x,) = inputs["X"]
     out = x
@@ -78,7 +93,15 @@ def _unsqueeze(ctx, inputs, attrs):
     return one(out)
 
 
-@register_op("gather", nondiff_inputs=["Index"])
+def _gather_dp(attrs, sharded):
+    """Rows of a non-batch X picked by batch ids (axis 0), or a batch X
+    gathered along another axis."""
+    if "X" in sharded:
+        return None if attrs.get("axis", 0) % sharded["X"] == 0 else ROWS
+    return ROWS if attrs.get("axis", 0) == 0 else None
+
+
+@register_op("gather", nondiff_inputs=["Index"], dp=_gather_dp)
 def _gather(ctx, inputs, attrs):
     """Rows of X at Index (an [N, 1] index is squeezed to [N]). XLA clamps
     an out-of-range index silently; torch raises. The NMT model sizes its
@@ -91,19 +114,20 @@ def _gather(ctx, inputs, attrs):
     return one(rows.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:]))
 
 
-@register_op("cast")
+@register_op("cast", dp=ROWS)
 def _cast(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(x.to(convert_dtype(attrs["out_dtype"])))
 
 
-@register_op("assign")
+@register_op("assign", dp=ROWS)
 def _assign(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(x)
 
 
-@register_op("pad")
+@register_op("pad", dp=lambda a, s: None if any(a["paddings"][:2])
+             else ROWS)
 def _pad(ctx, inputs, attrs):
     """pad_op.cc: constant padding, [before, after] per dim in order."""
     (x,) = inputs["X"]
@@ -114,7 +138,7 @@ def _pad(ctx, inputs, attrs):
     return one(F.pad(x, flat, value=attrs.get("pad_value", 0.0)))
 
 
-@register_op("pad2d")
+@register_op("pad2d", dp=ROWS)
 def _pad2d(ctx, inputs, attrs):
     """pad2d_op.cc: [top, bottom, left, right] of an NCHW x; constant,
     reflect (no edge repeat) or edge."""

@@ -20,12 +20,14 @@ Also here, as in the JAX package: LarsMomentum, DecayedAdagrad, Adadelta,
 RMSProp, Adamax and Ftrl; GradientMergeOptimizer and LookaheadOptimizer,
 whose predicated parts run in a ``conditional_block``; ModelAverage (the
 JAX package's stub, copied as it is) and ExponentialMovingAverage. DGC
-momentum is not ported (ROADMAP A9).
+momentum is not ported (ROADMAP A9c).
 """
 from __future__ import annotations
 
 import contextlib
 from typing import List, Optional, Tuple
+
+import numpy as np
 
 from .core.backward import append_backward
 from .core.dtypes import dtype_str
@@ -84,6 +86,13 @@ class Optimizer:
             dtype=dtype or dtype_str(param.dtype),
             name=f"{param.name}_{self._name}_{name}",
             initializer=ConstantInitializer(fill_value))
+        # marks the var for ZeRO optimizer-state sharding
+        # (compiler.CompiledProgram._zero_plan), as the JAX package marks it:
+        # param-shaped accumulators (moments, velocities) shard over the dp
+        # axis; scalar side-state (beta pows) stays whole on every rank
+        acc.is_optimizer_state = True
+        acc.zero_shardable = (shape is None
+                              and int(np.prod(param.shape or [1])) > 1)
         self._accumulators[key] = acc
         return acc
 
@@ -753,6 +762,8 @@ class GradientMergeOptimizer:
             acc = helper.create_global_variable(
                 list(p.shape), p.dtype, name=f"{p.name}@GradientMerge",
                 initializer=ConstantInitializer(0.0))
+            # the persistent gradient buffer ShardingStrategy.stage2 shards
+            acc.is_grad_buffer = True
             acc_new = ops_layers.elementwise_add(acc, g)
             tensor_layers.assign(acc_new, acc)
             merged.append((p, acc))

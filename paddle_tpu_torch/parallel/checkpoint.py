@@ -59,7 +59,16 @@ and re-partitions the table onto the LIVE shard count; `load_ps_table` is
 the same read for shard recovery. The files are the JAX package's, both
 ways.
 
-Not ported here: writing sharded tensors (ROADMAP A9).
+Sharded state. A ZeRO-sharded value (a ``DTensor`` the data-parallel step
+keeps in the scope, ``core/mesh_step.py``) is never gathered on the save
+path: each rank writes its own slice to ``ckpt-N.shards-R.pkl`` with its
+``ckpt-N.index-R.json`` and manifest, as the JAX package's ``_snapshot``
+writes a process's addressable shards (its ``:119-147``). The slices are
+recorded in the value's LOGICAL coordinates (the ZeRO pad rows are not
+written), so `_assemble_shards` rebuilds the declared shape under any
+world size, in either package. Rank 0 writes the bundle of whole values
+with ``@shard_manifest@`` (the names every rank's index must cover), the
+manifest and the marker; every rank calls `save` at the same step.
 
 Chaos probes (``faults``): ``ckpt.bundle_write``, ``ckpt.rename``,
 ``ckpt.shard_write``, ``ckpt.delta_write`` and ``ckpt.marker`` sit at
@@ -94,13 +103,57 @@ _RETRIES = _OBS.counter("checkpoint/write_retries")
 # a background write, from the snapshot's copies to the marker's rename
 _WRITE_MS = _OBS.histogram("checkpoint/write_ms")
 
-def _snapshot(program: Program, scope: Scope):
-    """(vals, event): a host copy of every persistable in the scope, and
-    the CUDA event the copies complete at (None when nothing came from
-    the card). Device tensors go to pinned host memory through
-    ``non_blocking`` copies on the current stream; host tensors and numpy
-    arrays are copied now."""
+def _host_copy(t: torch.Tensor):
+    """(host copy of `t`, whether it came from the card): a pinned
+    ``non_blocking`` copy on the current stream for a CUDA tensor, a clone
+    for a CPU one."""
+    t = t.detach()
+    u16 = t.dtype == torch.uint16
+    src = t.view(torch.int16) if u16 else t
+    on_card = src.device.type == "cuda"
+    if on_card:
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        host.copy_(src, non_blocking=True)
+    else:
+        host = src.clone()
+    return (host.view(torch.uint16) if u16 else host), on_card
+
+
+def _shard_record(name: str, var, val):
+    """This rank's slice of a sharded ``DTensor`` as a shard-file record
+    (name, bounds, shape, dtype, tensor) in the declared (logical)
+    coordinates, or None when the slice holds only pad rows."""
+    mesh = val.device_mesh
+    local = val.to_local()
+    shape = tuple(var.shape) if var.shape else tuple(val.shape)
+    bounds = [(0, d) for d in shape]
+    piece = local
+    for dim, place in enumerate(val.placements):
+        if not place.is_shard():
+            continue
+        axis = place.dim
+        chunk = val.shape[axis] // mesh.size(dim)
+        lo = mesh.get_local_rank(dim) * chunk
+        hi = min(lo + chunk, shape[axis])
+        if hi <= lo:
+            return None
+        bounds[axis] = (lo, hi)
+        piece = piece.narrow(axis, 0, hi - lo)
+    dtype = str(local.dtype).replace("torch.", "")
+    return name, tuple(bounds), shape, dtype, piece
+
+
+def _snapshot(program: Program, scope: Scope, whole: bool = True):
+    """(vals, event, shards): a host copy of every whole persistable in the
+    scope (none when `whole` is False: only rank 0 writes them), this
+    rank's shard records of the sharded ones, and the CUDA event the
+    copies complete at (None when nothing came from the card). Device
+    tensors go to pinned host memory through ``non_blocking`` copies on
+    the current stream; host tensors and numpy arrays are copied now."""
+    from ..core.mesh_step import is_dtensor
+
     out: Dict[str, object] = {}
+    shards = []
     on_card = False
     for v in program.list_vars():
         if not v.persistable:
@@ -108,25 +161,24 @@ def _snapshot(program: Program, scope: Scope):
         val = scope.find_var(v.name)
         if val is None:
             continue
-        if isinstance(val, torch.Tensor):
-            t = val.detach()
-            u16 = t.dtype == torch.uint16
-            src = t.view(torch.int16) if u16 else t
-            if src.device.type == "cuda":
-                host = torch.empty(src.shape, dtype=src.dtype,
-                                   pin_memory=True)
-                host.copy_(src, non_blocking=True)
-                on_card = True
-            else:
-                host = src.clone()
-            out[v.name] = host.view(torch.uint16) if u16 else host
+        if is_dtensor(val):
+            rec = _shard_record(v.name, v, val)
+            if rec is not None:
+                host, card = _host_copy(rec[4])
+                on_card |= card
+                shards.append(rec[:4] + (host,))
+        elif not whole:
+            continue
+        elif isinstance(val, torch.Tensor):
+            out[v.name], card = _host_copy(val)
+            on_card |= card
         elif isinstance(val, np.ndarray) or np.isscalar(val):
             out[v.name] = np.array(val, copy=True)
     event = None
     if on_card:
         event = torch.cuda.Event()
         event.record()
-    return out, event
+    return out, event, shards
 
 
 def _pickle_value(v):
@@ -225,7 +277,7 @@ class Checkpointer:
 
     # -- background write --------------------------------------------------
     def _write(self, step: int, vals: Dict[str, object], event=None,
-               shards=(), on_commit=()):
+               shards=(), on_commit=(), rank: int = 0):
         """Writer-thread entry: wait for the snapshot's copies, then write,
         retrying transient I/O with capped exponential backoff; any
         residual failure is surfaced by the next wait()/save() (a silently
@@ -246,7 +298,7 @@ class Checkpointer:
             return
         while True:
             try:
-                self._write_impl(step, vals, shards)
+                self._write_impl(step, vals, shards, rank)
                 self.last_write_ms = (time.perf_counter() - t0) * 1e3
                 _WRITE_MS.observe(self.last_write_ms)
                 for cb in on_commit:
@@ -281,7 +333,7 @@ class Checkpointer:
         index: Dict[str, dict] = {}
         for name, bounds, shape, dtype, buf in shards:
             key = f"{name}@" + ",".join(f"{a}:{b}" for a, b in bounds)
-            data[key] = np.asarray(buf)
+            data[key] = _pickle_value(buf)
             ent = index.setdefault(name, {"shape": list(shape),
                                           "dtype": dtype, "shards": []})
             ent["shards"].append({"key": key,
@@ -311,14 +363,19 @@ class Checkpointer:
         _write_bytes(mpath + ".tmp", blob)
         os.replace(mpath + ".tmp", mpath)
 
-    def _write_impl(self, step: int, vals: Dict[str, object], shards=()):
-        """One process writes rank 0's files: the PS tables' shard file
-        and index, the bundle, its manifest and the marker (a JAX mesh
-        run's per-rank shard files of sharded tensors are read by
-        `_assemble_shards`; writing those comes with ROADMAP A9)."""
+    def _write_impl(self, step: int, vals: Dict[str, object], shards=(),
+                    rank: int = 0):
+        """Rank `rank`'s files: its shard file and index (sharded state,
+        and the PS tables' shards), then, on rank 0 only, the bundle, its
+        manifest and the marker; another rank commits its shard files
+        with a manifest of its own."""
         manifest: Dict[str, dict] = {}
         if shards:
-            self._write_shards(step, shards, 0, manifest)
+            self._write_shards(step, shards, rank, manifest)
+        if rank != 0:
+            if manifest:
+                self._write_manifest(step, rank, manifest)
+            return
         path = self._path(step)
         tmp = path + ".tmp"
         self._current_path = path
@@ -746,11 +803,23 @@ class Checkpointer:
         push journal mark rides along as ``@ps_mark@<name>`` (read back by
         shard recovery) and the journal is truncated to it once — and
         only once — this checkpoint COMMITS."""
+        from .env import get_rank
+
         program = program or default_main_program()
         scope = scope or _scope()
         self.wait()  # one write in flight at a time
-        vals, event = _snapshot(program, scope)
-        shards = []
+        rank = get_rank()
+        vals, event, shards = _snapshot(program, scope, whole=rank == 0)
+        if rank == 0:
+            # every sharded var's name: restore checks that the ranks'
+            # index files cover them all
+            from ..core.mesh_step import is_dtensor
+
+            sharded = sorted(v.name for v in program.list_vars()
+                             if v.persistable
+                             and is_dtensor(scope.find_var(v.name)))
+            if sharded:
+                vals["@shard_manifest@"] = np.asarray("\n".join(sharded))
         ps_names = []
         on_commit = []
         ps_marks_now: Dict[str, int] = {}
@@ -793,7 +862,8 @@ class Checkpointer:
         for k, v in (extra or {}).items():
             vals[k] = np.asarray(v)
         self._thread = threading.Thread(
-            target=self._write, args=(step, vals, event, shards, on_commit),
+            target=self._write,
+            args=(step, vals, event, shards, on_commit, rank),
             daemon=True, name="pdtpu-ckpt-writer")
         self._thread.start()
         if blocking:
@@ -930,9 +1000,14 @@ class Checkpointer:
     def _place_value(scope: Scope, name: str, val: torch.Tensor,
                      device: torch.device):
         """Set one restored value: in place into a same-shape, same-dtype
-        tensor already on `device`, else as a new tensor there."""
+        tensor already on `device`, else as a new tensor there (a sharded
+        ``DTensor`` is replaced by the whole value; the next mesh step
+        slices it again)."""
+        from ..core.mesh_step import is_dtensor
+
         cur = scope.find_var(name)
-        if (isinstance(cur, torch.Tensor) and cur.device == device
+        if (isinstance(cur, torch.Tensor) and not is_dtensor(cur)
+                and cur.device == device
                 and cur.dtype == val.dtype and cur.shape == val.shape):
             if cur.dtype == torch.uint16:
                 cur.view(torch.int16).copy_(val.view(torch.int16))

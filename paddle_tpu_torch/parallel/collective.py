@@ -1,0 +1,237 @@
+"""Collectives over the named dims of a ``DeviceMesh`` (the port's
+counterpart of ``paddle_tpu.parallel.collective``; reference
+operators/collective/ c_* ops and layers/collective.py).
+
+The JAX package is single-controller: a collective is a ``lax`` primitive
+inside a ``shard_map`` body, over a named mesh axis. The port is SPMD: one
+process a device under a ``torch.distributed`` group (NCCL on the card,
+gloo on the CPU), so the per-device body is ordinary per-rank code and a
+mesh axis is the process group of a ``DeviceMesh`` dim.
+
+Two usage contexts, as in the JAX package:
+
+- inside per-rank code, on local tensors: ``psum``, ``pmean``,
+  ``ppermute``, ``axis_index`` and ``axis_size``. ``axis`` is a
+  ``(mesh, dim_name)`` pair or a process group. ``psum`` and ``pmean`` are
+  differentiable (their transpose is ``psum``, as ``lax.psum``'s is);
+  ``ppermute`` is ``dist.batch_isend_irecv`` on the dim's group and the
+  identity on a group of one;
+- at the array level, on ``DTensor``s (the port's sharded ``jax.Array``):
+  ``all_reduce``, ``all_gather``, ``reduce_scatter``, ``broadcast``,
+  ``all_to_all`` and ``barrier``, with the JAX functions' in and out
+  placements (``Shard(0)`` for ``P(axis)``, ``Replicate()`` for ``P()``).
+
+``reduce_scatter_into`` and ``all_gather_into`` are the flat-buffer forms
+the executor's data-parallel step uses (``core/mesh_step.py``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["psum", "pmean", "ppermute", "axis_index", "axis_size",
+           "all_reduce", "all_gather", "reduce_scatter", "broadcast",
+           "all_to_all", "barrier", "axis_group", "reduce_scatter_into",
+           "all_gather_into"]
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}
+# the flat-buffer collectives under their newer names where torch has them
+# (the older ones warn there), else the older ones
+_ALL_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def axis_group(axis):
+    """The process group of `axis`: a ``(mesh, dim_name)`` pair, a
+    ``DeviceMesh`` with one dim, or a group (None is the default group)."""
+    if isinstance(axis, tuple):
+        mesh, name = axis
+        return mesh.get_group(name)
+    if hasattr(axis, "get_group"):
+        return axis.get_group()
+    return axis
+
+
+def axis_size(axis) -> int:
+    return dist.get_world_size(axis_group(axis))
+
+
+def axis_index(axis) -> int:
+    """This rank's index along `axis` (``lax.axis_index``)."""
+    return dist.get_rank(axis_group(axis))
+
+
+def reduce_scatter_into(out: torch.Tensor, buf: torch.Tensor, group,
+                        op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``out`` = this rank's chunk of the sum over the group of ``buf``
+    ([size · len(out)], contiguous): one reduce-scatter (recorded by no
+    graph)."""
+    with torch.no_grad():
+        _REDUCE_SCATTER(out, buf, op=op, group=group)
+    return out
+
+
+def all_gather_into(out: torch.Tensor, local: torch.Tensor,
+                    group) -> torch.Tensor:
+    """``out`` ([size · len(local)]) = every rank's ``local`` in rank
+    order: one all-gather (recorded by no graph)."""
+    with torch.no_grad():
+        _ALL_GATHER(out, local.contiguous(), group=group)
+    return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the group; the cotangent is summed the same way (each rank
+    holds a part of it), which is ``lax.psum``'s transpose."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def psum(x: torch.Tensor, axis) -> torch.Tensor:
+    """Sum of `x` over `axis` on every rank (``lax.psum``)."""
+    return _AllReduceSum.apply(x, axis_group(axis))
+
+
+def pmean(x: torch.Tensor, axis) -> torch.Tensor:
+    """Mean of `x` over `axis` on every rank (``lax.pmean``)."""
+    return psum(x, axis) / axis_size(axis)
+
+
+def ppermute(x: torch.Tensor, axis, perm) -> torch.Tensor:
+    """``lax.ppermute``: `perm` is a list of (source, destination) pairs of
+    axis indices; a rank that no pair sends to gets zeros. One
+    ``batch_isend_irecv`` on the axis's group; a pair that maps a rank to
+    itself, or a group of one, is the identity."""
+    group = axis_group(axis)
+    me = dist.get_rank(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if dst == [me] and src == [me]:
+        return x
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for d in dst:
+        ops.append(dist.P2POp(dist.isend, x,
+                              dist.get_global_rank(group, d), group))
+    for s in src:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, s), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+# -- array level (DTensor in, DTensor out) ----------------------------------
+
+def _dtensor(local, mesh, axis, sharded: bool):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    names = list(mesh.mesh_dim_names or ())
+    place = [Replicate()] * mesh.ndim
+    if sharded:
+        place[names.index(axis)] = Shard(0)
+    return DTensor.from_local(local, mesh, place, run_check=False)
+
+
+def _local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def all_reduce(x, mesh, axis: str, op: str = "sum"):
+    """c_allreduce_{sum,max,min,mean} on a dim-0 sharded array: every shard
+    becomes the elementwise reduction of all the shards (in and out
+    ``Shard(0)``, as ``P(axis)``)."""
+    group = mesh.get_group(axis)
+    y = _local(x).contiguous().clone()
+    if op == "mean":
+        dist.all_reduce(y, group=group)
+        y = y / dist.get_world_size(group)
+    else:
+        dist.all_reduce(y, op=_REDUCE_OPS[op], group=group)
+    return _dtensor(y, mesh, axis, True)
+
+
+def all_gather(x, mesh, axis: str):
+    """c_allgather: the dim-0 shards concatenated in rank order, on every
+    rank (``Shard(0)`` in, ``Replicate()`` out)."""
+    group = mesh.get_group(axis)
+    local = _local(x).contiguous()
+    n = dist.get_world_size(group)
+    out = local.new_empty((n * local.shape[0],) + tuple(local.shape[1:]))
+    all_gather_into(out, local, group)
+    return _dtensor(out, mesh, axis, False)
+
+
+def reduce_scatter(x, mesh, axis: str):
+    """c_reducescatter: a replicated array summed over the axis, each rank
+    keeping its dim-0 chunk (``Replicate()`` in, ``Shard(0)`` out)."""
+    group = mesh.get_group(axis)
+    full = _local(x).contiguous()
+    n = dist.get_world_size(group)
+    if full.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim 0 ({full.shape[0]}) does not "
+                         f"divide over {n} ranks")
+    out = full.new_empty((full.shape[0] // n,) + tuple(full.shape[1:]))
+    reduce_scatter_into(out, full, group)
+    return _dtensor(out, mesh, axis, True)
+
+
+def broadcast(x, mesh, axis: str, root: int = 0):
+    """c_broadcast: the root's shard, replicated (``Shard(0)`` in,
+    ``Replicate()`` out)."""
+    group = mesh.get_group(axis)
+    y = _local(x).contiguous().clone()
+    dist.broadcast(y, dist.get_global_rank(group, root), group=group)
+    return _dtensor(y, mesh, axis, False)
+
+
+def all_to_all(x, mesh, axis: str, split_axis: int, concat_axis: int):
+    """Ulysses' exchange: each rank splits its shard along `split_axis`
+    into one chunk a rank, sends chunk j to rank j, and concatenates what
+    it receives along `concat_axis` (``lax.all_to_all`` with tiled=True;
+    ``Shard(0)`` in and out)."""
+    return _dtensor(all_to_all_local(_local(x), mesh.get_group(axis),
+                                     split_axis, concat_axis),
+                    mesh, axis, True)
+
+
+def all_to_all_local(x: torch.Tensor, group, split_axis: int,
+                     concat_axis: int) -> torch.Tensor:
+    """The per-rank body of `all_to_all` on a local tensor."""
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} ({x.shape[split_axis]})"
+                         f" does not divide over {n} ranks")
+    send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+def barrier(mesh, axis: Optional[str] = None):
+    """A sync point over `axis` (every dim when None): a sum of one element,
+    which works the same on NCCL and gloo."""
+    names = [axis] if axis else list(mesh.mesh_dim_names or ())
+    for name in names:
+        t = torch.zeros(1, device=mesh.device_type)
+        dist.all_reduce(t, group=mesh.get_group(name))
+    if mesh.device_type == "cuda":
+        torch.cuda.synchronize()

@@ -12,8 +12,9 @@ a run whose checkpoint calls the function directly (the same draws, no
 recompute), and to the run without remat. The tiny-BERT parity test holds
 "minimal" to the JAX package's "minimal" at test_torch_training.py's f32
 tolerances (losses rtol 1e-4; gradients rtol 1e-4, atol 1e-6).
-`test_stage3_*` has no twin here: ZeRO sharding is ROADMAP A9, and so are
-`saveable_names` and `with_mesh`, which raise."""
+`test_stage3_*` are twinned on 4 ranks in test_torch_zero_sharding.py;
+`saveable_names` (ROADMAP A9c) and a sequence axis on `with_mesh` (A9b)
+raise."""
 import numpy as np
 import pytest
 import torch
@@ -307,22 +308,38 @@ def test_tiny_bert_minimal_matches_jax(monkeypatch):
 
 
 def test_multi_device_surface_raises_naming_a9():
-    main, _, _, loss = _unit_mlp()
-    with pytest.raises(NotImplementedError, match="A9"):
-        tfluid.CompiledProgram(main).with_mesh(object())
-    with pytest.raises(NotImplementedError, match="A9"):
+    """What is left of ROADMAP A9 raises naming its item (A9b: a sequence
+    axis; A9c: remat saveable_names); two places need a world of two
+    processes; a ZeRO stage on one device shards nothing (the losses are
+    stage off's, as the JAX package's on a one-device mesh)."""
+    main, startup, feed, loss = _unit_mlp()
+    with pytest.raises(NotImplementedError, match="A9b"):
+        tfluid.CompiledProgram(main).with_mesh(object(), seq_axis="sp")
+    with pytest.raises(RuntimeError, match="distributed.launch"):
         tfluid.CompiledProgram(main).with_data_parallel(
             places=[tfluid.CPUPlace(), tfluid.CPUPlace()])
     from paddle_tpu_torch.core.compiler import resolve_remat
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A9c"):
         resolve_remat("full", saveable_names=["fc_0.tmp_0"])
     exe = tfluid.Executor(tfluid.CPUPlace())
-    for knob, value in (("sharding_strategy", tfluid.ShardingStrategy.stage3),
-                        ("remat_saveable_names", ["fc_0.tmp_0"])):
-        bs = tfluid.BuildStrategy()
-        bs.remat_policy = "full"
-        setattr(bs, knob, value)
-        prog = tfluid.CompiledProgram(main).with_data_parallel(
-            loss_name=loss.name, build_strategy=bs)
-        with pytest.raises(NotImplementedError, match="A9"):
-            exe.run(prog, feed={}, fetch_list=[loss])
+    losses = {}
+    for stage in (tfluid.ShardingStrategy.off, tfluid.ShardingStrategy.stage3):
+        scope = tfluid.Scope()
+        with tfluid.scope_guard(scope):
+            exe.run(startup)
+            bs = tfluid.BuildStrategy()
+            bs.remat_policy = "full"
+            bs.sharding_strategy = stage
+            prog = tfluid.CompiledProgram(main).with_data_parallel(
+                loss_name=loss.name, build_strategy=bs)
+            losses[stage] = exe.run(prog, feed=feed,
+                                    fetch_list=[loss])[0].tobytes()
+    assert losses[tfluid.ShardingStrategy.off] == losses[
+        tfluid.ShardingStrategy.stage3]
+    bs = tfluid.BuildStrategy()
+    bs.remat_policy = "full"
+    bs.remat_saveable_names = ["fc_0.tmp_0"]
+    prog = tfluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, build_strategy=bs)
+    with pytest.raises(NotImplementedError, match="A9c"):
+        exe.run(prog, feed=feed, fetch_list=[loss])
