@@ -373,6 +373,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              per-block versions; then the public ring_self_attention
              (impl "auto": the kernels) and ulysses_attention on the
              group against the whole-T call.
+21. model_parallel — tensor and expert parallelism on a group of two
+             ranks (this process is rank 0, the other runs this script
+             with --p21-rank): NCCL on two cards when there are two, else
+             gloo with both ranks on the one card (NCCL refuses two ranks
+             of a communicator on one device), first recording which
+             collectives the backend takes on CUDA tensors. On a
+             {"dp": 1, "tp": 2} mesh: BERT-base (12 layers, hidden 768, 12
+             heads, T = 512, B = 8, Adam, dropout 0, the Megatron specs of
+             tp_axis="tp") 3 f32 steps (TF32 off), saved as a tp-sharded
+             checkpoint, one more step; 4 bf16 AMP steps; Transformer-big
+             NMT (packed, sparse attention, annotate_tp(NMT_RULES)) 3 bf16
+             AMP steps at full depth and 3 f32 steps at 2+2 layers;
+             DeepFM (shard_axis="tp", V = 33,554,432 packed rows on the
+             fused sparse-Adagrad update, B = 4096) 3 steps. On an
+             {"ep": 2} mesh: layers.moe_ffn (8 experts, d 1024, hidden
+             4096, k 2, 8,192 tokens a rank, f32, Adam) 2 steps. Then, in
+             this process alone, the plain executor on the same programs
+             and the checkpoint restored into it: the losses (f32 BERT,
+             NMT, DeepFM, MoE, the restored step) within 1e-4 relative,
+             BERT's parameter changes within 1e-3 relative L2, every
+             replicated parameter bitwise equal across the tp ranks after
+             every step, the attention kernels launched on this rank's
+             heads (6 of 12, 8 of 16) the expected number of times, row
+             12 once a step a rank, no plain call on the card; step ms,
+             peak memory and the state bytes a rank beside the plain
+             run's.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -382,6 +408,7 @@ CUDA device or the port is not beside this script.
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -7608,6 +7635,532 @@ def phase_parallel(fluid, fa, fb, smi):
     return flash, rec["resnet_launches"]
 
 
+# -- phase 21: model parallelism (tensor parallelism on a tp axis, vocab-
+# sharded tables, MoE expert parallelism, a tp-sharded checkpoint) --------
+
+P21_WORLD = 2
+P21_B, P21_T, P21_BERT_LAYERS = 8, 512, 12
+P21_F32_STEPS, P21_BF16_STEPS = 3, 4
+P21_NMT_F32_LAYERS, P21_NMT_STEPS = 2, 3
+P21_DEEPFM_STEPS = 3
+P21_MOE = {"experts": 8, "d": 1024, "hidden": 4096, "k": 2,
+           "tokens": 8192, "cf": 2.0, "steps": 2}
+# the f32 limits of phase_train's BERT GPU-vs-CPU check: losses by their
+# relative difference, each parameter's change over the run by its
+# relative L2 distance
+P21_LOSS_REL, P21_DELTA_REL = 1e-4, 1e-3
+P21_DEVICE = "cuda"
+
+
+def p21_place(fluid):
+    import torch
+
+    return (fluid.CUDAPlace(torch.cuda.current_device())
+            if P21_DEVICE == "cuda" else fluid.CPUPlace())
+
+
+def p21_probe():
+    """Which collectives the group's backend takes on the step's tensors
+    (gloo on CUDA tensors: every one the mesh step uses was accepted on
+    the H100 machine's torch 2.11, so parallel/collective.py composes
+    none): {name: "accepted" | the error}. The phase's checks read their
+    values."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    x = torch.arange(4 * world, dtype=torch.float32, device=P21_DEVICE)
+    out = {}
+    for name, fn in (
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                x.new_empty(world * x.numel()), x)),
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                x.new_empty(x.numel() // world), x)),
+            ("all_to_all_single", lambda: dist.all_to_all_single(
+                torch.empty_like(x), x))):
+        try:
+            fn()
+            out[name] = "accepted"
+        except Exception as e:  # recorded: the phase reads the outcome
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def p21_tp_bert(fluid, bert, amp, layers=None):
+    """BERT-base pretraining with the Megatron specs (tp_axis="tp") at
+    dropout 0, Adam."""
+    cfg = bert.BertConfig(vocab_size=30522, hidden_size=HIDDEN,
+                          num_layers=layers or P21_BERT_LAYERS, num_heads=NH,
+                          ffn_size=3072, max_position=512,
+                          hidden_dropout=0.0, attn_dropout=0.0, tp_axis="tp")
+    wrap = amp_wrapper(fluid, amp)
+    main, startup, _, loss = bert.build_pretrain_program(
+        cfg, P21_B, P21_T, optimizer_factory=lambda: wrap(
+            fluid.optimizer.Adam(LR)))
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def p21_tp_nmt(fluid, nmt, amp, layers=None):
+    """Transformer-big, packed-sparse, annotate_tp(main, NMT_RULES)."""
+    from paddle_tpu_torch.parallel import NMT_RULES, annotate_tp
+
+    cfg = nmt.TransformerConfig(dropout=0.0)
+    if layers:
+        cfg = nmt.TransformerConfig(dropout=0.0, n_enc=layers, n_dec=layers)
+    main, startup, loss = nmt_program(fluid, nmt, cfg, NMT_T, amp)
+    annotate_tp(main, NMT_RULES)
+    return main, startup, loss
+
+
+def p21_tp_deepfm(fluid, deepfm):
+    """deepfm_program's recipe with the tables sharded over tp."""
+    from paddle_tpu_torch.core import unique_name
+
+    with unique_name.guard():
+        main, startup, _, loss, _ = deepfm.build_train_program(
+            vocab_size=DEEPFM_VOCAB, is_sparse=True, fused_table=True,
+            embedding_optimizer="adagrad", shard_axis="tp",
+            packed_rows={"rows_per_step": DEEPFM_ROWS})
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def p21_moe(fluid):
+    """layers.moe_ffn at P21_MOE's widths (gelu, Adam), f32."""
+    m = P21_MOE
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [m["d"]])
+        y = fluid.layers.data("y", [m["d"]])
+        h, aux = fluid.layers.moe_ffn(x, num_experts=m["experts"],
+                                      hidden_size=m["hidden"], k=m["k"],
+                                      capacity_factor=m["cf"])
+        mse = fluid.layers.reduce_mean(fluid.layers.square(
+            fluid.layers.elementwise_sub(h, y)))
+        loss = fluid.layers.elementwise_add(mse,
+                                            fluid.layers.scale(aux, 0.01))
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def p21_moe_feed(world):
+    import torch
+
+    g = torch.Generator(P21_DEVICE).manual_seed(21)
+    n = P21_MOE["tokens"] * world
+    return {k: torch.randn((n, P21_MOE["d"]), generator=g,
+                           device=P21_DEVICE) for k in ("x", "y")}
+
+
+def p21_step_state(prog):
+    return next(iter(prog._mesh_steps.values()))
+
+
+def p21_params(main, scope, step=None):
+    """The trainable parameters whole, on the host: a tp slice gathered
+    over the tp group (a collective: every rank calls it)."""
+    from paddle_tpu_torch.core.mesh_step import is_dtensor
+    from paddle_tpu_torch.parallel.collective import gathered
+
+    out = {}
+    for p in main.all_parameters():
+        v = scope.find_var(p.name)
+        if is_dtensor(v):
+            v = gathered(v.to_local(), step.tp_state[p.name],
+                         step.tp_group)
+        out[p.name] = v.detach().float().cpu().clone()
+    return out
+
+
+def p21_r_digests(main, scope, step):
+    """sha1 of every replicated parameter's bytes on this rank."""
+    import hashlib
+
+    import torch
+
+    return {p.name: hashlib.sha1(
+        scope.find_var(p.name).detach().contiguous().view(-1)
+        .view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        for p in main.all_parameters() if p.name not in step.tp_state}
+
+
+def p21_run(fluid, build, feed, steps, axes=None, data_axis="dp",
+            ckdir=None, params=True):
+    """`steps` steps of `build()` from its startup: the plain Executor
+    (`axes` None) or with_mesh(make_mesh(axes)). Returns (losses, params
+    at the end, record); on a mesh the record holds the replicated
+    parameters' digests a step and the checkpoint's next-step loss."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.observability.registry import get_registry
+    from paddle_tpu_torch.parallel import Checkpointer, make_mesh
+
+    main, startup, loss = build()
+    exe = fluid.Executor(p21_place(fluid))
+    scope = fluid.Scope()
+    rec = {}
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        prog = main
+        if axes is not None:
+            prog = fluid.CompiledProgram(main).with_mesh(
+                make_mesh(axes), data_axis=data_axis)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, digests = [], [], []
+        for i in range(steps):
+            fd = feed[i % len(feed)] if isinstance(feed, list) else feed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(prog, feed=fd, fetch_list=[loss])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(lv, np.float32).reshape(-1)[0]))
+            if axes is not None and "tp" in axes:
+                digests.append(p21_r_digests(main, scope,
+                                             p21_step_state(prog)))
+        rec.update(losses=losses, step_ms=ms,
+                   peak_MiB=torch.cuda.max_memory_allocated() / 2**20)
+        step = p21_step_state(prog) if axes is not None else None
+        if step is not None:
+            rec["state_bytes_per_rank"] = get_registry().gauge(
+                "memory/state_bytes_per_device").value
+        else:
+            rec["state_bytes_per_rank"] = sum(
+                v.numel() * v.element_size() for v in (
+                    scope.find_var(x.name) for x in main.list_vars()
+                    if x.persistable) if isinstance(v, torch.Tensor))
+        if digests:
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, digests)
+            rec["r_params_bitwise_equal"] = all(d == every[0]
+                                                for d in every)
+            rec["r_params_checked"] = len(digests[0])
+        out = p21_params(main, scope, step) if params else None
+        if ckdir is not None:
+            ck = Checkpointer(ckdir, keep=0)
+            ck.save(steps, program=main, scope=scope, blocking=True)
+            (lv,) = exe.run(prog, feed=feed[0] if isinstance(feed, list)
+                            else feed, fetch_list=[loss])
+            rec["next_loss"] = float(np.asarray(lv, np.float32).reshape(-1)[0])
+        del scope
+    torch.cuda.empty_cache()
+    return losses, out, rec
+
+
+def p21_heads(mod, names):
+    """Wrap the flash wrappers `names` of `mod` to record each call's head
+    count (dim 1 of q): the kernel code counts its launches on the module's
+    object, so a wrapper carries its own counts while it is in place.
+    Returns (seen, restore)."""
+    seen = {n: [] for n in names}
+    orig = {n: getattr(mod, n) for n in names}
+    for n in names:
+        def wrap(q, *a, _f=orig[n], _n=n, **kw):
+            seen[_n].append(int(q.shape[1]))
+            return _f(q, *a, **kw)
+        wrap.launches = wrap.plain_on_cuda = wrap.wide_launches = 0
+        setattr(mod, n, wrap)
+
+    def restore():
+        counts = {n: {"launches": getattr(mod, n).launches,
+                      "plain_on_cuda": getattr(mod, n).plain_on_cuda}
+                  for n in names}
+        for n in names:
+            setattr(mod, n, orig[n])
+        return counts
+    return seen, restore
+
+
+def p21_counted(mod, names, fn):
+    """fn() with the wrappers `names` of `mod` counting (p21_heads):
+    (its result, {"fwd"|"bwd": launches}, plain calls on the card, the
+    head counts seen)."""
+    seen, restore = p21_heads(mod, names)
+    try:
+        got = fn()
+    finally:
+        counts = restore()
+    launches = {n.rsplit("_", 1)[1]: c["launches"] for n, c in counts.items()}
+    plain = sum(c["plain_on_cuda"] for c in counts.values())
+    return got, launches, plain, sorted({h for v in seen.values()
+                                         for h in v})
+
+
+def p21_mesh(fluid, fa, fas, fsa, rank, world, ckdir):
+    """What every rank runs, in one order (see phase_model_parallel).
+    Returns (this rank's record, BERT f32's final parameters)."""
+    import torch
+
+    from paddle_tpu_torch.models import bert, deepfm
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+
+    tp = {"dp": 1, "tp": world}
+    rec = {"rank": rank, "probe": p21_probe(), "launches": {},
+           "plain_on_cuda": 0, "heads": {}}
+    bert_feed_all = pretrain_feed(P21_B, P21_T, np.random.RandomState(21))
+    batches = [nmt_feed(stack, P21_DEVICE)
+               for stack, _ in nmt_batches(NMT_B, NMT_T, 2)]
+    params = None
+    dense = ("flash_attention_fwd", "flash_attention_bwd")
+    sparse = ("flash_attention_sparse_fwd", "flash_attention_sparse_bwd")
+    for key, mod, names, run in (
+            ("bert_f32", fa, dense, lambda: p21_run(
+                fluid, lambda: p21_tp_bert(fluid, bert, False),
+                bert_feed_all, P21_F32_STEPS, tp, ckdir=ckdir)),
+            ("bert_bf16", fa, dense, lambda: p21_run(
+                fluid, lambda: p21_tp_bert(fluid, bert, True), bert_feed_all,
+                P21_BF16_STEPS, tp, params=False)),
+            ("nmt_bf16", fas, sparse, lambda: p21_run(
+                fluid, lambda: p21_tp_nmt(fluid, nmt, True), batches,
+                P21_NMT_STEPS, tp, params=False)),
+            ("nmt_f32", fas, sparse, lambda: p21_run(
+                fluid, lambda: p21_tp_nmt(fluid, nmt, False,
+                                          P21_NMT_F32_LAYERS),
+                batches, P21_NMT_STEPS, tp, params=False))):
+        t0 = time.perf_counter()
+        (_, got, rec[key]), launches, plain, heads = p21_counted(
+            mod, names, run)
+        rec[key]["s"] = time.perf_counter() - t0
+        rec["launches"][key] = launches
+        rec["plain_on_cuda"] += plain
+        rec["heads"][key] = heads
+        if key == "bert_f32":
+            params = got
+    fsa.fused_adagrad_update.launches = 0
+    dfeed = deepfm_feed(np.random.RandomState(0), DEEPFM_B, DEEPFM_VOCAB,
+                        P21_DEVICE)
+    t0 = time.perf_counter()
+    _, _, rec["deepfm"] = p21_run(
+        fluid, lambda: p21_tp_deepfm(fluid, deepfm), dfeed,
+        P21_DEEPFM_STEPS, tp, params=False)
+    rec["deepfm"]["s"] = time.perf_counter() - t0
+    rec["launches"]["deepfm_row12"] = fsa.fused_adagrad_update.launches
+    moe_all = p21_moe_feed(world)
+    t0 = time.perf_counter()
+    _, _, rec["moe"] = p21_run(
+        fluid, lambda: p21_moe(fluid), p20_rows(moe_all, rank, world),
+        P21_MOE["steps"], {"ep": world}, data_axis="ep", params=False)
+    rec["moe"]["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return rec, params
+
+
+def p21_worker(rank, world, addr, backend, ckdir):
+    """Rank `rank` > 0 of phase 21 (a process of this script)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import flash_attention_sparse as fas
+    from paddle_tpu_torch.ops.kernels import sparse_adagrad as fsa
+    from paddle_tpu_torch.parallel import init_parallel_env
+
+    build.build_all()
+    init_parallel_env(addr, world, rank,
+                      device="cuda" if backend == "nccl" else "cpu",
+                      timeout=600)
+    rec, _ = p21_mesh(fluid, fa, fas, fsa, rank, world, ckdir)
+    every = [None] * world
+    dist.all_gather_object(every, rec)
+    dist.destroy_process_group()
+
+
+def p21_delta_rel(got, want, init):
+    """max over parameters of ‖Δgot − Δwant‖ / ‖Δwant‖, Δ = the change
+    over the run."""
+    worst = 0.0
+    for k, w in want.items():
+        dw = (w - init[k]).double()
+        dg = (got[k] - init[k]).double()
+        n = float(dw.norm())
+        if n > 0:
+            worst = max(worst, float((dg - dw).norm()) / n)
+    return worst
+
+
+def p21_rel(a, b):
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def phase_model_parallel(fluid, fa, fas, fsa, smi):
+    """Phase 21 (module docstring). Returns the launches of its main paths:
+    {"flash": {"fwd"|"bwd": n}, "sparse": {...}, "row12": n} over both
+    ranks."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+    from paddle_tpu_torch.parallel import Checkpointer, init_parallel_env
+
+    t_phase = time.perf_counter()
+    world = P21_WORLD
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    ckdir = tempfile.mkdtemp(prefix="p21-ck-")
+    addr = f"127.0.0.1:{p20_free_port()}"
+    workers = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--p21-rank", str(r), "--p21-world",
+                                 str(world), "--p21-addr", addr,
+                                 "--p21-backend", backend, "--p21-ck",
+                                 ckdir])
+               for r in range(1, world)]
+    try:
+        init_parallel_env(addr, world, 0,
+                          device="cuda" if backend == "nccl" else "cpu",
+                          timeout=600)
+        rec, tp_params = p21_mesh(fluid, fa, fas, fsa, 0, world, ckdir)
+        every = [None] * world
+        dist.all_gather_object(every, rec)
+        dist.destroy_process_group()
+        for w in workers:
+            if w.wait(timeout=600) != 0:
+                raise AssertionError(f"phase 21 rank exited {w.returncode}")
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+    out = {"backend": backend, "world": world, "ranks": every}
+    t_mesh = time.perf_counter() - t_phase
+    # the plain executor in this one process, on the same programs
+    rng = np.random.RandomState(21)
+    bert_feed_all = pretrain_feed(P21_B, P21_T, rng)
+
+    def untp(build):
+        def b():
+            main, startup, loss = build()
+            for p in main.all_parameters():
+                p.shard_spec = None
+            return main, startup, loss
+        return b
+
+    init = None
+
+    def bert_init():
+        nonlocal init
+        main, startup, loss = untp(lambda: p21_tp_bert(fluid, bert,
+                                                       False))()
+        scope = fluid.Scope()
+        fluid.Executor(p21_place(fluid)).run(startup, scope=scope)
+        init = {p.name: scope.find_var(p.name).detach().float().cpu()
+                .clone() for p in main.all_parameters()}
+
+    bert_init()
+    plain = {}
+    _, ref_params, plain["bert_f32"] = p21_run(
+        fluid, untp(lambda: p21_tp_bert(fluid, bert, False)), bert_feed_all,
+        P21_F32_STEPS)
+    _, _, plain["bert_bf16"] = p21_run(
+        fluid, untp(lambda: p21_tp_bert(fluid, bert, True)), bert_feed_all,
+        P21_BF16_STEPS, params=False)
+    batches = [nmt_feed(stack, P21_DEVICE)
+               for stack, _ in nmt_batches(NMT_B, NMT_T, 2)]
+    _, _, plain["nmt_f32"] = p21_run(
+        fluid, untp(lambda: p21_tp_nmt(fluid, nmt, False,
+                                       P21_NMT_F32_LAYERS)),
+        batches, P21_NMT_STEPS, params=False)
+    from paddle_tpu_torch.models import deepfm
+
+    dfeed = deepfm_feed(np.random.RandomState(0), DEEPFM_B, DEEPFM_VOCAB,
+                        P21_DEVICE)
+    _, _, plain["deepfm"] = p21_run(
+        fluid, untp(lambda: p21_tp_deepfm(fluid, deepfm)), dfeed,
+        P21_DEEPFM_STEPS, params=False)
+    _, _, plain["moe"] = p21_run(
+        fluid, lambda: p21_moe(fluid),
+        p21_moe_feed(world), P21_MOE["steps"], params=False)
+    # the tp-sharded checkpoint restored in one process: its next step
+    main, startup, loss = untp(lambda: p21_tp_bert(fluid, bert, False))()
+    exe = fluid.Executor(p21_place(fluid))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        restored = Checkpointer(ckdir).restore(program=main, scope=scope,
+                                               place=p21_place(fluid))
+        (lv,) = exe.run(main, feed=bert_feed_all, fetch_list=[loss])
+        ck_loss = float(np.asarray(lv, np.float32).reshape(-1)[0])
+    del scope
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    r0 = every[0]
+    checks = {
+        "bert_f32_loss_rel": p21_rel(r0["bert_f32"]["losses"],
+                                     plain["bert_f32"]["losses"]),
+        "bert_f32_delta_rel": p21_delta_rel(tp_params, ref_params, init),
+        "bert_bf16_loss_rel": p21_rel(r0["bert_bf16"]["losses"],
+                                      plain["bert_bf16"]["losses"]),
+        "nmt_f32_loss_rel": p21_rel(r0["nmt_f32"]["losses"],
+                                    plain["nmt_f32"]["losses"]),
+        "deepfm_loss_rel": p21_rel(r0["deepfm"]["losses"],
+                                   plain["deepfm"]["losses"]),
+        "moe_loss_rel": p21_rel(r0["moe"]["losses"],
+                                plain["moe"]["losses"]),
+        "ckpt_restored_step": restored,
+        "ckpt_next_loss_rel": p21_rel([ck_loss],
+                                      [r0["bert_f32"]["next_loss"]]),
+        "r_params_bitwise_equal": all(
+            r[k].get("r_params_bitwise_equal", True) for r in every
+            for k in ("bert_f32", "bert_bf16", "nmt_bf16", "nmt_f32",
+                      "deepfm")),
+        "heads_a_rank": r0["heads"],
+    }
+    out.update(plain=plain, checks=checks, mesh_s=t_mesh, device=smi)
+    launches = {k: {d: sum(r["launches"][k][d] for r in every)
+                    for d in ("fwd", "bwd")}
+                for k in ("bert_f32", "bert_bf16", "nmt_bf16", "nmt_f32")}
+    row12 = sum(r["launches"]["deepfm_row12"] for r in every)
+    plain_on_cuda = sum(r["plain_on_cuda"] for r in every)
+    out.update(launches=launches, row12=row12, plain_on_cuda=plain_on_cuda,
+               wall_s=time.perf_counter() - t_phase)
+    log("model_parallel " + json.dumps(out, default=str))
+    want = {"bert_f32": world * P21_BERT_LAYERS * (P21_F32_STEPS + 1),
+            "bert_bf16": world * P21_BERT_LAYERS * P21_BF16_STEPS,
+            "nmt_bf16": world * NMT_PER_STEP * P21_NMT_STEPS,
+            "nmt_f32": world * 3 * P21_NMT_F32_LAYERS * P21_NMT_STEPS}
+    bad = [f"{k} launches {launches[k]}, expected {n} each"
+           for k, n in want.items() if launches[k] != {"fwd": n, "bwd": n}]
+    for key, limit in (("bert_f32_loss_rel", P21_LOSS_REL),
+                       ("bert_f32_delta_rel", P21_DELTA_REL),
+                       ("nmt_f32_loss_rel", P21_LOSS_REL),
+                       ("deepfm_loss_rel", P21_LOSS_REL),
+                       ("moe_loss_rel", P21_LOSS_REL),
+                       ("ckpt_next_loss_rel", P21_LOSS_REL)):
+        if not checks[key] <= limit:
+            bad.append(f"{key} {checks[key]} over {limit}")
+    if checks["ckpt_restored_step"] != P21_F32_STEPS:
+        bad.append(f"checkpoint restored step {checks['ckpt_restored_step']}")
+    if not checks["r_params_bitwise_equal"]:
+        bad.append("replicated parameters differ across the tp ranks")
+    heads = {"bert_f32": NH // world, "bert_bf16": NH // world,
+             "nmt_bf16": NMT_NH // world, "nmt_f32": NMT_NH // world}
+    bad += [f"{k} attention ran at heads {r['heads'][k]}, expected "
+            f"[{n}]" for r in every for k, n in heads.items()
+            if r["heads"][k] != [n]]
+    if row12 != world * P21_DEEPFM_STEPS or plain_on_cuda:
+        bad.append(f"row 12 launches {row12} (expected "
+                   f"{world * P21_DEEPFM_STEPS}), plain on the card "
+                   f"{plain_on_cuda}")
+    if not all(np.isfinite(x) for r in every for k in
+               ("bert_bf16", "nmt_bf16", "deepfm", "moe")
+               for x in r[k]["losses"]):
+        bad.append("a loss is not finite")
+    if bad:
+        raise AssertionError(f"phase 21: {bad}")
+    return out
+
+
 def main():
     import torch
 
@@ -7732,6 +8285,17 @@ def main():
     for k, n in p20_bn.items():
         bn_launches["bfloat16"][k] += n
 
+    # 21. model parallelism on a group of two (tensor parallelism on a tp
+    # axis: BERT-base, Transformer-big NMT, DeepFM's vocab-sharded packed
+    # table; MoE expert parallelism on ep; a tp-sharded checkpoint)
+    p21 = phase_model_parallel(fluid, fa, fas, fsa, smi)
+    for dt, bert_key, nmt_key in (("float32", "bert_f32", "nmt_f32"),
+                                  ("bfloat16", "bert_bf16", "nmt_bf16")):
+        for d in ("fwd", "bwd"):
+            train_launches[(d, dt)] += p21["launches"][bert_key][d]
+            nmt_launches[dt][d] += p21["launches"][nmt_key][d]
+    sa_launches["sparse_adagrad_update"] += p21["row12"]
+
     kernels = []
     for name in ("float32", "bfloat16"):
         rec = records[(name, 512)]
@@ -7839,6 +8403,12 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--p21-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        p21_worker(int(args["--p21-rank"]), int(args["--p21-world"]),
+                   args["--p21-addr"], args["--p21-backend"],
+                   args["--p21-ck"])
+        sys.exit(0)
     if "--p20-rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         p20_worker(int(args["--p20-rank"]), int(args["--p20-world"]),

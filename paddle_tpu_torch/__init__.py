@@ -63,6 +63,7 @@ if not _torch_free_entry():
     from . import average  # noqa: F401
     from . import compat  # noqa: F401
     from . import data_feed_desc  # noqa: F401
+    from . import distribute_lookup_table  # noqa: F401
     from . import dataset  # noqa: F401
     from . import native  # noqa: F401
     from . import parallel  # noqa: F401

@@ -8,13 +8,15 @@ feed over a device mesh and lets GSPMD insert the collectives. The port
 runs one process a GPU under a ``torch.distributed`` group
 (``parallel.init_parallel_env``, ``distributed.launch``):
 ``with_data_parallel`` lays a ``dp`` mesh over the group (N places need a
-world of N), ``with_mesh`` takes a ``DeviceMesh`` with a data axis, and
-``Executor.run`` runs each rank's step on its own rows
+world of N), ``with_mesh`` takes a ``DeviceMesh`` with a data axis and at
+most one model axis (tensor parallelism: the parameters' ``shard_spec``),
+and ``Executor.run`` runs each rank's step on its own rows
 (``core/mesh_step.py``). Without a group, a CompiledProgram runs on the
 executor's one device, where a ZeRO stage shards over one device, that
 is, nothing. The ZeRO rules (``_zero_axis``, ``_zero_plan``,
-``_fsdp_param``, ``_zero_pad_map``) are the JAX package's. A sequence axis
-and tp/pp/ep axes are ROADMAP A9b; remat ``saveable_names`` is A9c.
+``_fsdp_param``, ``_zero_pad_map``) are the JAX package's. A sequence
+axis, pipeline axes and a second model axis are ROADMAP A9b2; remat
+``saveable_names`` is A9c.
 
 Remat. ``BuildStrategy.remat_policy`` (or ``PDTPU_REMAT_POLICY`` on the
 plain executor) resolves to a :class:`RematSpec`. Consecutive ops tagged
@@ -38,7 +40,8 @@ __all__ = ["ShardingStrategy", "RematSpec", "REMAT_POLICIES",
            "resolve_remat", "BuildStrategy", "ExecutionStrategy",
            "CompiledProgram"]
 
-_A9B = "is ROADMAP A9b (model parallelism)"
+_A9B2 = ("is ROADMAP A9b2 (pipelines, the composed dp×tp×pp program and "
+         "sequence parallelism of the feeds)")
 
 
 class ShardingStrategy:
@@ -244,6 +247,7 @@ class CompiledProgram:
         self._loss_name: Optional[str] = None
         self._mesh = None
         self._data_axis: Optional[str] = None
+        self._model_axis: Optional[str] = None
         self._strategy_stage = 0
         self._strategy_remat = False
         self._strategy_remat_policy = None
@@ -279,6 +283,7 @@ class CompiledProgram:
 
             self._mesh = make_mesh({"dp": world})
             self._data_axis = "dp"
+            self._model_axis = None
         self._loss_name = loss_name
         self.build_strategy = build_strategy or BuildStrategy()
         self.exec_strategy = exec_strategy or ExecutionStrategy()
@@ -287,13 +292,18 @@ class CompiledProgram:
     def with_mesh(self, mesh, data_axis: Optional[str] = "dp",
                   strategy=None, seq_axis: Optional[str] = None):
         """Run over a ``DeviceMesh`` (``parallel.make_mesh``) on its data
-        axis. `strategy` (a fleet ``DistributedStrategy``) wires
+        axis, with at most one model axis of size > 1: parameters whose
+        ``shard_spec`` names it are held as each rank's slice (Megatron
+        tensor parallelism, ``core/mesh_step.py``). An ``ep`` axis is the
+        data axis (``layers.moe_ffn`` spreads its experts over it).
+        `strategy` (a fleet ``DistributedStrategy``) wires
         sharding_degree/sharding_stage (ZeRO over the data axis) and
-        recompute/remat_policy (remat). A sequence axis, and any other mesh
-        dim of size > 1 (tp, pp, ep, sp), are ROADMAP A9b."""
+        recompute/remat_policy (remat). A sequence axis, ``pp``/``sp``
+        axes, an ``ep`` axis that is not the data axis and a second model
+        axis are ROADMAP A9b2."""
         if seq_axis is not None:
             raise NotImplementedError(f"with_mesh(seq_axis={seq_axis!r}) "
-                                      f"{_A9B}")
+                                      f"{_A9B2}")
         names = getattr(mesh, "mesh_dim_names", None)
         if names is None:
             raise TypeError(f"with_mesh takes a DeviceMesh with named dims "
@@ -301,12 +311,20 @@ class CompiledProgram:
         if data_axis not in names:
             raise ValueError(f"with_mesh: data_axis {data_axis!r} is not a "
                              f"dim of the mesh {tuple(names)}")
+        model = None
         for name, size in zip(names, mesh.shape):
-            if name != data_axis and size > 1:
+            if name == data_axis or size == 1:
+                continue
+            if name in ("pp", "sp", "ep") or model is not None:
                 raise NotImplementedError(
-                    f"with_mesh on a {name!r} axis of size {size} {_A9B}")
+                    f"with_mesh on a {name!r} axis of size {size} beside the "
+                    f"data axis {data_axis!r}"
+                    + (f" and the model axis {model!r}" if model else "")
+                    + f" {_A9B2}")
+            model = name
         self._mesh = mesh
         self._data_axis = data_axis
+        self._model_axis = model
         self._strategy_stage = 0       # re-derived per call, never sticky
         self._strategy_remat = False
         self._strategy_remat_policy = None

@@ -212,10 +212,12 @@ class ExecContext:
         # of each sparse-gradient op this run (see _run_sparse_site)
         self.sparse_sites: List[tuple] = []
         self.plan: Optional["_Plan"] = None  # the run's prepared plan
-        # the data-parallel step (core/mesh_step.py) of a mesh run, and the
-        # running op's input names (what `mesh_step.batch_group` reads)
+        # the data-parallel step (core/mesh_step.py) of a mesh run, the
+        # running op's input names (what `mesh_step.batch_group` reads) and
+        # its inputs' slices on the model axis (`mesh_step.tp_shard`)
         self.mesh = None
         self.in_names: Dict[str, List[str]] = {}
+        self.tp_in = None
 
     def rng(self) -> torch.Generator:
         """The run's seeded generator; each draw advances it."""
@@ -336,8 +338,12 @@ def _run_op(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
         _run_op_local(op, env, ctx)
         return
     mesh.before_op(op, env, ctx)
-    _run_op_local(op, env, ctx)
-    mesh.after_op(op, env)
+    try:
+        _run_op_local(op, env, ctx)
+    except BaseException:
+        mesh.restore(op, env, ctx)
+        raise
+    mesh.after_op(op, env, ctx)
 
 
 def _run_op_local(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
@@ -723,7 +729,7 @@ def _run_item(kind, payload, env, ctx: ExecContext, plan):
             ctx.mesh.before_op(op, env, ctx)
         _run_update_group(payload, env)
         for op in payload:
-            ctx.mesh.after_op(op, env)
+            ctx.mesh.after_op(op, env, ctx)
 
 
 def eval_inference_block(program, env: Dict[str, torch.Tensor]

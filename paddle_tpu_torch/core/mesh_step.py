@@ -1,4 +1,5 @@
-"""The executor's step on a data-parallel mesh axis, with ZeRO stages 0–3.
+"""The executor's step on a mesh: a data-parallel axis with ZeRO stages 0–3,
+and a model axis (tensor parallelism).
 
 Counterpart of the mesh half of ``paddle_tpu.core.compiler``
 (``_make_step``/``_build``/``_run``). The JAX package runs one jitted
@@ -57,6 +58,46 @@ the step makes global with an explicit collective on the dp axis's group:
 A group of one needs no exchange: ``batch_group`` is None there, so the
 ops take their one-device code and a world of one is bitwise the plain
 executor. The gradient collectives still run (on one rank they copy).
+
+**The model axis** (``tp``; any mesh dim of size > 1 that is not the data
+axis, ``compiled._model_axis``). A rank's dp group is its row of the mesh
+and its tp group its column (``DeviceMesh.get_group``). Each value has a
+layout on the model axis as well: replicated (R, the default), S(d) (each
+rank holds its slice of dim d) or P (each rank holds a summand;
+``registry.P``), kept in ``lay``:
+
+- **Parameters with a ``shard_spec``** naming the axis, and the optimizer
+  state of the same shape that their update ops read, live as this rank's
+  slice: a whole value in the scope (a startup, a restore) is sliced at
+  load, and the step stores a ``DTensor`` with a ``Shard(d)`` placement on
+  the model dim. ZeRO does not touch them (the JAX package's
+  ``_fsdp_param`` and ``shard_grad`` skip them too); their gradients are
+  summed over the data axis only. A spec naming an axis the mesh lacks, or
+  a dim its axis does not divide, raises ValueError, as the JAX package's
+  placement does.
+- **Ops.** Before an op runs, a P input is summed over the tp group
+  (``collective.reduce_from``, Megatron's g); the op's ``tp`` declaration
+  (``core/registry.py``) then says what it makes of the other layouts. An
+  op that declares nothing for them gets each sharded input gathered
+  whole (``gather_along``, whose backward takes the rank's slice) and runs
+  on the whole value. A replicated input that requires a gradient and
+  enters an op with a sharded or partial output passes through
+  ``collective.copy_to`` (Megatron's f: its cotangent is summed over the
+  group), so every replicated parameter gets the same gradient on every
+  tp rank and stays bitwise equal across the group. The conversions are
+  this op's own: the env keeps the value as it was for the next reader.
+- **Updates** run on the slices (the optimizer ops work element by
+  element); an update-section op that reads a slice and does not, gets
+  the slices gathered whole and its sliced outputs cut back.
+- **Fetches** come back global: an S value is gathered, a P value summed.
+- **Random draws.** The generator is folded with the dp coordinate only,
+  so the tp ranks of one data row draw the same masks for R values; a
+  mask on an S value is drawn whole and sliced (the ``dropout`` op).
+- **SelectedRows gradients** (``is_sparse`` lookups): on a vocab-sharded
+  table each rank keeps the rows of its range, offset to local slots;
+  then each rank's ids and rows are all-gathered over the data axis (the
+  row counts first: they differ) and laid end to end in rank order, so
+  the update's stable merge sums duplicates in one order on every rank.
 """
 from __future__ import annotations
 
@@ -67,11 +108,14 @@ import torch
 import torch.distributed as dist
 
 from ..observability.registry import get_registry
-from ..parallel.collective import all_gather_into, reduce_scatter_into
+from ..parallel.collective import (all_gather_into, copy_to, gather_along,
+                                   gathered, reduce_from, reduce_scatter_into,
+                                   summed)
 from .dtypes import to_device
-from .registry import GLOBAL, ROWS, get_op, has_op
+from .registry import GLOBAL, P, ROWS, get_op, has_op
 
-__all__ = ["MeshStep", "batch_group", "is_dtensor", "logical_value"]
+__all__ = ["MeshStep", "batch_group", "is_dtensor", "logical_value",
+           "tp_shard", "TPShard"]
 
 _RNG_RANK = "@RNG_RANK@"
 
@@ -87,6 +131,11 @@ _ELEMENTWISE = _MATH | {
     "sgd", "momentum", "adam", "adamw", "adagrad", "adamax",
     "decayed_adagrad", "adadelta", "rmsprop", "ftrl",
 }
+
+# the packed-table updates: a SelectedRows gradient in local slots and the
+# table's own slice (``ops/deferred_rows.py``)
+_ROW_UPDATES = frozenset({"sgd_row_packed", "adagrad_row_packed",
+                          "adam_row_packed"})
 
 _OBS = get_registry()
 _STATE_BYTES = _OBS.gauge("memory/state_bytes_per_device")
@@ -122,9 +171,37 @@ def batch_group(ctx, slot: str, index: int = 0):
         else None
 
 
+def tp_shard(ctx, slot: str, index: int = 0):
+    """The running op's input `slot` on the model axis: a :class:`TPShard`
+    when this rank holds a slice of it, else None (the op sees the whole
+    value)."""
+    got = (getattr(ctx, "tp_in", None) or {}).get(slot)
+    return got[index] if got is not None and len(got) > index else None
+
+
+# a value sliced on the model axis: the dim, this rank's index, the axis
+# size and its process group
+TPShard = collections.namedtuple("TPShard", "dim rank size group")
+
 # a leaf's layout over N ranks: its ZeRO axis, the logical extent there and
 # that extent padded to a multiple of N
 _Plan = collections.namedtuple("_Plan", "axis extent padded")
+
+
+def _flat(rows):
+    for r in rows:
+        if isinstance(r, list):
+            yield from r
+        else:
+            yield r
+
+
+def _spec_dim(spec, axis):
+    """The dim of a shard_spec that names `axis`, or None."""
+    for i, s in enumerate(spec or ()):
+        if s == axis:
+            return i
+    return None
 
 
 class MeshStep:
@@ -142,11 +219,19 @@ class MeshStep:
         self.rank = dist.get_rank(self.group)
         self.device = device
         self.stage = compiled._zero_stage()
+        self.tp_axis = compiled._model_axis
+        self.tp_group = (self.mesh.get_group(self.tp_axis)
+                         if self.tp_axis is not None else None)
+        self.tp_size = (dist.get_world_size(self.tp_group)
+                        if self.tp_group is not None else 1)
+        self.tp_rank = (dist.get_rank(self.tp_group)
+                        if self.tp_group is not None else 0)
+        self.tp_state = self._tp_state()  # name -> sliced dim
         compiled._zero_pad_map()  # records program._zero_padded
         self.stored: Dict[str, _Plan] = {}   # sharded between steps
         self.param_plan: Dict[str, _Plan] = {}  # update / reduction layout
         for v in self.program.list_vars():
-            if not v.persistable:
+            if not v.persistable or v.name in self.tp_state:
                 continue
             plan = compiled._zero_plan(v)
             if plan is not None:
@@ -164,6 +249,61 @@ class MeshStep:
         d = int(shape[axis])
         return _Plan(axis, d, -(-d // self.size) * self.size)
 
+    def _tp_state(self) -> Dict[str, int]:
+        """{name: dim} of the persistables this rank holds a slice of: the
+        parameters whose shard_spec names the model axis, and the inputs of
+        their update ops with the parameter's shape (optimizer state,
+        gradient buffers). Raises ValueError for a spec that names an axis
+        the mesh lacks or a dim its axis does not divide (the JAX package's
+        placement raises the same)."""
+        names = tuple(self.mesh.mesh_dim_names)
+        sizes = dict(zip(names, self.mesh.shape))
+        out: Dict[str, int] = {}
+        shapes = {}
+        for v in self.program.list_vars():
+            spec = getattr(v, "shard_spec", None)
+            if not v.persistable or spec is None:
+                continue
+            for i, a in enumerate(spec):
+                if a is None:
+                    continue
+                if a not in sizes:
+                    raise ValueError(
+                        f"Resource axis: {a} of PartitionSpec{tuple(spec)} "
+                        f"(parameter {v.name!r}) is not found in mesh: "
+                        f"{names}.")
+                if int(v.shape[i]) % sizes[a]:
+                    raise ValueError(
+                        f"parameter {v.name!r} was given the sharding "
+                        f"PartitionSpec{tuple(spec)}, which implies that the "
+                        f"global size of its dimension {i} should be "
+                        f"divisible by {sizes[a]}, but it is equal to "
+                        f"{v.shape[i]} (full shape: {tuple(v.shape)})")
+                if sizes[a] > 1 and a != self.tp_axis:
+                    raise NotImplementedError(
+                        f"parameter {v.name!r} is sharded over the {a!r} "
+                        f"axis; the port shards parameters over the model "
+                        f"axis only (ROADMAP A9b2)")
+            d = _spec_dim(spec, self.tp_axis)
+            if d is not None and self.tp_size > 1:
+                out[v.name] = d
+                shapes[v.name] = tuple(v.shape)
+        if not out:
+            return out
+        block = self.program.global_block()
+        for op in block.ops:
+            ps = op.inputs.get("Param") or []
+            if len(ps) != 1 or ps[0] not in out:
+                continue
+            for slot, ns in op.inputs.items():
+                for n in ns:
+                    var = block._find_var_recursive(n)
+                    if (slot not in ("Param", "Grad") and var is not None
+                            and var.persistable
+                            and tuple(var.shape) == shapes[ps[0]]):
+                        out[n] = out[ps[0]]
+        return out
+
     # -- per-step state ----------------------------------------------------
     def begin(self):
         self.batch = set()
@@ -171,6 +311,8 @@ class MeshStep:
         self.after_ad = False
         self.mode: Dict[int, str] = {}      # update op -> "shard" | "whole"
         self.spec: Dict[int, object] = {}   # op -> its dp declaration
+        self.lay: Dict[str, object] = {}    # model-axis layout: d or P
+        self._undo: Dict[int, tuple] = {}   # op -> (env swaps, attrs, rule)
 
     def plan_of(self, name: str) -> Optional[_Plan]:
         """The layout a value of `name` is sliced by in the update section:
@@ -250,6 +392,19 @@ class MeshStep:
         scope.set_var(name, dt)
         self._held[name] = (dt, dt.to_local())
 
+    def _store_tp(self, scope, name, local):
+        """`_store_shard` for a slice on the model axis."""
+        held = self._held.get(name)
+        if (held is not None and scope.find_var(name) is held[0]
+                and held[1].shape == local.shape
+                and held[1].dtype == local.dtype):
+            if held[1].data_ptr() != local.data_ptr():
+                held[1].copy_(local)
+            return
+        dt = self.tp_dtensor(local, self.tp_state[name])
+        scope.set_var(name, dt)
+        self._held[name] = (dt, dt.to_local())
+
     def to_dtensor(self, local: torch.Tensor, plan: _Plan):
         from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -261,6 +416,162 @@ class MeshStep:
         stride = torch.empty(shape, device="meta").stride()
         return DTensor.from_local(local, self.mesh, place, run_check=False,
                                   shape=torch.Size(shape), stride=stride)
+
+    # -- the model axis ----------------------------------------------------
+    def tp_slice(self, full: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice of dim `dim` of a whole value (a view)."""
+        c = full.shape[dim] // self.tp_size
+        return full.narrow(dim, self.tp_rank * c, c)
+
+    def tp_dtensor(self, local: torch.Tensor, dim: int):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        place = [Replicate()] * self.mesh.ndim
+        place[list(self.mesh.mesh_dim_names).index(self.tp_axis)] = \
+            Shard(dim)
+        shape = list(local.shape)
+        shape[dim] *= self.tp_size
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(local, self.mesh, place, run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
+
+    def _tp_layouts(self, op, env):
+        """(slot -> [layout a value]) of the op's inputs, None for R; every
+        P input summed first (g), in the env, for every later reader."""
+        lay = {}
+        for slot, names in op.inputs.items():
+            row = []
+            for n in names:
+                got = self.lay.get(n)
+                if got == P:
+                    env[n] = reduce_from(env[n], self.tp_group)
+                    del self.lay[n]
+                    got = None
+                row.append(got)
+            lay[slot] = row
+        return lay
+
+    def _tp_before(self, op, env, ctx):
+        """Apply the op's tp declaration (see the module docstring): the
+        conversions of its inputs go into the env for this op only."""
+        ctx.tp_in = None
+        if not any(n in self.lay for n in op.input_names()):
+            return
+        lay = self._tp_layouts(op, env)
+        if not any(d is not None for row in lay.values() for d in row):
+            return
+        decl = get_op(op.type).tp if has_op(op.type) else None
+        shapes = {slot: [tuple(env[n].shape)
+                         if isinstance(env.get(n), torch.Tensor) else ()
+                         for n in names] for slot, names in op.inputs.items()}
+        rule = decl(op.attrs, lay, shapes, self.tp_size) \
+            if callable(decl) else None
+        swaps = {}
+
+        def swap(n, v):
+            swaps.setdefault(n, env[n])
+            env[n] = v
+
+        if rule is None or rule.regather:
+            for slot, names in op.inputs.items():
+                for n, d in zip(names, lay[slot]):
+                    if d is not None:
+                        swap(n, gather_along(env[n], d, self.tp_group))
+            self._undo[id(op)] = (swaps, None, rule)
+            return
+        sharded_out = any(v is not None for v in _flat(rule.out.values()))
+        for slot, names in op.inputs.items():
+            for i, (n, d) in enumerate(zip(names, lay[slot])):
+                v = env.get(n)
+                if d is not None or not isinstance(v, torch.Tensor):
+                    continue
+                cut = rule.slice_in.get(slot)
+                if sharded_out and v.requires_grad:
+                    v = copy_to(v, self.tp_group)
+                if cut is not None:
+                    v = self.tp_slice(v, cut)
+                    lay[slot][i] = cut
+                if v is not env[n]:
+                    swap(n, v)
+        ctx.tp_in = {slot: [None if d is None else
+                            TPShard(d, self.tp_rank, self.tp_size,
+                                    self.tp_group) for d in row]
+                     for slot, row in lay.items()}
+        attrs = None
+        if rule.attrs:
+            attrs = op.attrs
+            op.attrs = {**op.attrs, **rule.attrs}
+        self._undo[id(op)] = (swaps, attrs, rule)
+
+    def _tp_after(self, op, env, ctx):
+        """Restore what `_tp_before` swapped and record the outputs'
+        layouts."""
+        ctx.tp_in = None
+        outs = op.output_names()
+        undo = self._undo.pop(id(op), None)
+        if undo is None:
+            for n in outs:
+                self.lay.pop(n, None)
+            return
+        swaps, attrs, rule = undo
+        for n, v in swaps.items():
+            if n not in outs:
+                env[n] = v
+        if attrs is not None:
+            op.attrs = attrs
+        if rule is not None and rule.regather:
+            (d,) = set(rule.regather.values())
+            for n in outs:
+                v = env.get(n)
+                if isinstance(v, torch.Tensor):
+                    if v.requires_grad:
+                        v = copy_to(v, self.tp_group)
+                    env[n] = self.tp_slice(v, d)
+                    self.lay[n] = d
+            return
+        for slot, names in op.outputs.items():
+            got = (rule.out.get(slot) if rule is not None else None)
+            row = got if isinstance(got, list) else [got] * len(names)
+            for n, d in zip(names, row):
+                if d is None:
+                    self.lay.pop(n, None)
+                else:
+                    self.lay[n] = d
+
+    def restore(self, op, env, ctx):
+        """Undo an op's input swaps and attribute overrides after it
+        raised (the program's attributes must not keep this rank's)."""
+        undo = self._undo.pop(id(op), None)
+        ctx.tp_in = None
+        if undo is not None:
+            swaps, attrs, _ = undo
+            env.update(swaps)
+            if attrs is not None:
+                op.attrs = attrs
+
+    def _tp_update(self, op, env) -> bool:
+        """An update-section op that reads a slice: the optimizer ops and
+        elementwise math run on the slices as they are; any other op gets
+        the slices gathered whole, and its outputs that are sliced state
+        are cut back (``_tp_update_after``)."""
+        names = op.input_names()
+        dims = {self.lay[n] for n in names if n in self.lay}
+        if not dims:
+            return False
+        if op.type in _ROW_UPDATES:
+            self.mode[id(op)] = ("tp", dims.pop())
+            return True
+        if op.type in _ELEMENTWISE and len(dims) == 1:
+            ok = all(n in self.lay or not isinstance(env.get(n), torch.Tensor)
+                     or env[n].numel() <= 1 for n in names)
+            if ok:
+                self.mode[id(op)] = ("tp", dims.pop())
+                return True
+        for n in names:
+            if n in self.lay:
+                env[n] = gathered(env[n], self.lay.pop(n), self.tp_group)
+        self.mode[id(op)] = ("tp", None)
+        return True
 
     # -- the step ----------------------------------------------------------
     def check_feeds(self, feed_vals):
@@ -287,6 +598,21 @@ class MeshStep:
         on the step's device."""
         for n in state_names:
             v = scope.find_var(n)
+            if n in self.tp_state:
+                d = self.tp_state[n]
+                self.lay[n] = d
+                held = self._held.get(n)
+                if held is not None and v is held[0]:
+                    env[n] = held[1]
+                elif (is_dtensor(v) and v.to_local().shape[d] * self.tp_size
+                      == v.shape[d] and any(
+                          p.is_shard(d) for p in v.placements)):
+                    env[n] = to_device(v.to_local(), self.device)
+                else:
+                    full = to_device(logical_value(self.program, n, v),
+                                     self.device)
+                    env[n] = self.tp_slice(full, d).contiguous()
+                continue
             plan = self.stored.get(n)
             held = self._held.get(n)
             if held is not None and v is held[0]:
@@ -334,6 +660,10 @@ class MeshStep:
             spec = self._spec(op, env)
             if spec is not None:
                 self.spec[id(op)] = spec
+            if self.tp_group is not None:
+                self._tp_before(op, env, ctx)
+            return
+        if self.lay and self._tp_update(op, env):
             return
         names = op.input_names()
         if not any(self.plan_of(n) is not None for n in names):
@@ -366,8 +696,10 @@ class MeshStep:
                     return False
         return len(plans) == 1
 
-    def after_op(self, op, env):
+    def after_op(self, op, env, ctx=None):
         if not self.after_ad:
+            if self.tp_group is not None:
+                self._tp_after(op, env, ctx)
             spec = self.spec.pop(id(op), None)
             if spec is None or spec == GLOBAL:
                 return
@@ -376,6 +708,17 @@ class MeshStep:
                     self.batch.update(outs)
             return
         mode = self.mode.get(id(op))
+        if isinstance(mode, tuple):  # ("tp", dim or None)
+            ins = op.input_names()
+            for n in op.output_names():
+                if mode[1] is not None:
+                    self.lay[n] = mode[1]
+                elif n in self.tp_state:
+                    env[n] = self.tp_slice(env[n], self.tp_state[n])
+                    self.lay[n] = self.tp_state[n]
+                elif n not in ins:
+                    self.lay.pop(n, None)
+            return
         if mode == "shard" and op.type in _MATH:
             # an updated input keeps the layout before_op gave it; a new
             # value of elementwise math on a shard is a shard
@@ -417,7 +760,7 @@ class MeshStep:
                 f"row by row, and its input {name!r} is batch-sharded on the "
                 f"data-parallel axis (each rank holds its own rows of dim "
                 f"0); the port refuses it rather than compute one rank's "
-                f"part as the whole (ROADMAP A9b: layouts beyond the batch "
+                f"part as the whole (ROADMAP A9b2: ops across the batch "
                 f"dim)")
         return spec
 
@@ -448,10 +791,6 @@ class MeshStep:
         from .selected_rows import SelectedRows
 
         self.after_ad = True
-        if ctx.sparse_sites:
-            raise NotImplementedError(
-                "SelectedRows gradients (is_sparse embeddings) on a data-"
-                "parallel mesh are ROADMAP A9b")
         planned: Dict[torch.dtype, List[tuple]] = {}
         flat: Dict[torch.dtype, List[tuple]] = {}
         for t in dict.fromkeys(targets):
@@ -459,9 +798,10 @@ class MeshStep:
                 continue  # a rank's own rows: nothing to sum
             g = env.get(grad_var_name(t))
             if isinstance(g, SelectedRows):
-                raise NotImplementedError(
-                    "SelectedRows gradients on a data-parallel mesh are "
-                    "ROADMAP A9b")
+                env[grad_var_name(t)] = self.selected_rows(t, g)
+                continue
+            if t in self.tp_state:
+                self.lay[grad_var_name(t)] = self.tp_state[t]
             if not isinstance(g, torch.Tensor) or not g.is_floating_point():
                 continue
             plan = self.param_plan.get(t)
@@ -505,6 +845,39 @@ class MeshStep:
                     items, buf.split([g.numel() for _, g, _ in items])):
                 env[name] = part.view(g.shape)
 
+    def selected_rows(self, name, g):
+        """A table's SelectedRows gradient made global (see the module
+        docstring): on a vocab-sharded table the rows of this rank's range,
+        offset to local slots; then every dp rank's rows laid end to end in
+        rank order."""
+        from .selected_rows import SelectedRows
+
+        ids, rows = g.ids.reshape(-1), g.rows
+        if self.tp_state.get(name) == 0:
+            lo = self.tp_rank * g.height
+            keep = (ids >= lo) & (ids < lo + g.height)
+            ids, rows = ids[keep] - lo, rows[keep]
+        if self.size == 1:
+            return SelectedRows(ids, rows, g.height)
+        count = torch.tensor([ids.shape[0]], dtype=torch.int64,
+                             device=ids.device)
+        counts = count.new_empty(self.size)
+        all_gather_into(counts, count, self.group)
+        counts = counts.cpu().tolist()
+        most = max(counts)
+        pad = most - ids.shape[0]
+        if pad:
+            ids = torch.cat([ids, ids.new_zeros(pad)])
+            rows = torch.cat([rows, rows.new_zeros((pad,) + rows.shape[1:])])
+        every_ids = ids.new_empty(self.size * most)
+        all_gather_into(every_ids, ids.contiguous(), self.group)
+        every_rows = rows.new_empty((self.size * most,) + rows.shape[1:])
+        all_gather_into(every_rows, rows.contiguous(), self.group)
+        take = torch.cat([torch.arange(r * most, r * most + c,
+                                       device=ids.device)
+                          for r, c in enumerate(counts)])
+        return SelectedRows(every_ids[take], every_rows[take], g.height)
+
     def finish(self, env, scope, persistables, fetch_names):
         """env → scope and the global fetches. Returns (fetches, new
         state)."""
@@ -517,7 +890,12 @@ class MeshStep:
             if isinstance(v, torch.Tensor):
                 v = v.detach()
             plan = self.local.get(n)
-            if plan is not None and n in self.stored:
+            if n in self.tp_state:
+                if self.lay.get(n) != self.tp_state[n]:
+                    v = self.tp_slice(v, self.tp_state[n])
+                new_state[n] = v
+                self._store_tp(scope, n, v.contiguous())
+            elif plan is not None and n in self.stored:
                 new_state[n] = v
                 self._store_shard(scope, n, v, plan)
             elif plan is not None:
@@ -534,6 +912,11 @@ class MeshStep:
         fetches = []
         for n in fetch_names:
             v = env[n]
+            d = self.lay.get(n)
+            if d == P:
+                v = summed(v, self.tp_group)
+            elif d is not None:
+                v = gathered(v.detach(), d, self.tp_group)
             if n in self.local:
                 v = self.gather(v.detach(), self.local[n])
             elif n in self.batch and isinstance(v, torch.Tensor) and v.ndim:
@@ -553,5 +936,5 @@ class MeshStep:
 
 def mesh_key(compiled) -> Tuple:
     """What a MeshStep is built for: a new one when any of it changes."""
-    return (id(compiled._mesh), compiled._data_axis,
+    return (id(compiled._mesh), compiled._data_axis, compiled._model_axis,
             compiled._zero_stage(), compiled._program._version)

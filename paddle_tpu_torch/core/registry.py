@@ -41,6 +41,19 @@ rows of dim 0):
 An op that declares nothing, or whose callable returns None, works across
 the batch dim; the mesh step refuses it rather than compute a rank's part
 as if it were the whole.
+
+`tp` declares what the op does with values laid out on a model axis
+(``tp``): each value is replicated (R: every rank holds it whole), sharded
+(S(d): each rank holds its slice of dim d) or partial (P: each rank holds
+a summand). A P input is summed first (Megatron's g); the declaration sees
+the other inputs' layouts: ``tp(attrs, lay, shapes, n)`` with `lay` mapping
+each input slot to a list of layouts (None for R, an int d for S(d)),
+`shapes` to the local shapes and `n` the axis size, and returns a
+:class:`TP` (the outputs' layouts, R inputs to slice, attribute overrides,
+or "gather the input, slice the outputs"), or None. An op that declares
+nothing, or whose callable returns None, gets every sharded input
+gathered whole and runs on the whole value: always correct (GSPMD does
+the same when it cannot keep a layout).
 """
 from __future__ import annotations
 
@@ -50,14 +63,45 @@ OpImpl = Callable[..., Dict[str, List[Any]]]
 
 ROWS, GLOBAL = "rows", "global"
 
+P = "P"  # a partial-sum layout on the model axis (see the docstring)
+
+
+class TP:
+    """An op's answer on the model axis (``core/mesh_step.py``):
+
+    - `out`: output slot -> its layout (None = R, int d = S(d), ``P``), or
+      a list with one a value; slots not named are R;
+    - `slice_in`: input slot -> d: a replicated input this rank takes its
+      slice of dim d from (its cotangent summed back, Megatron's f);
+    - `attrs`: attribute overrides for this rank's call (a head count);
+    - `regather`: input slot -> d: gather those inputs whole, run the op
+      on the whole value and keep this rank's slice of dim d of every
+      output (the fused qkv split).
+    """
+
+    __slots__ = ("out", "slice_in", "attrs", "regather")
+
+    def __init__(self, out=None, slice_in=None, attrs=None, regather=None):
+        self.out = out or {}
+        self.slice_in = slice_in or {}
+        self.attrs = attrs
+        self.regather = regather
+
+
+def same_layout(attrs, lay, shapes, n):
+    """The tp declaration of an op that works element by element on its
+    one input X: the output keeps X's layout."""
+    (d,) = lay.get("X", [None])[:1] or [None]
+    return TP(out={"Out": d})
+
 
 class OpDef:
     __slots__ = ("type", "fn", "differentiable", "nondiff_inputs",
-                 "mutable_persistables", "grad_fn", "dp")
+                 "mutable_persistables", "grad_fn", "dp", "tp")
 
     def __init__(self, type: str, fn: OpImpl, differentiable: bool = True,
                  nondiff_inputs: Optional[List[str]] = None, grad_fn=None,
-                 dp=None):
+                 dp=None, tp=None):
         self.type = type
         self.fn = fn
         self.differentiable = differentiable
@@ -69,18 +113,19 @@ class OpDef:
         # {slot: [cotangent or None, ...]}.
         self.grad_fn = grad_fn
         self.dp = dp  # the op on a data-parallel mesh (module docstring)
+        self.tp = tp  # the op on a model axis (module docstring)
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register_op(type: str, differentiable: bool = True, nondiff_inputs=None,
-                grad_fn=None, dp=None):
+                grad_fn=None, dp=None, tp=None):
     def deco(fn: OpImpl):
         if type in _REGISTRY:
             raise ValueError(f"op {type!r} registered twice")
         _REGISTRY[type] = OpDef(type, fn, differentiable, nondiff_inputs,
-                                grad_fn, dp)
+                                grad_fn, dp, tp)
         return fn
 
     return deco

@@ -30,6 +30,7 @@ from .nn import (  # noqa: F401
     layer_norm,
     matmul,
     mean,
+    moe_ffn,
     pool2d,
     relu,
     sigmoid_cross_entropy_with_logits,

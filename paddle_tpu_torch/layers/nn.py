@@ -373,6 +373,55 @@ def flash_attention_sparse(q: Variable, k: Variable, v: Variable,
     return out
 
 
+def moe_ffn(input: Variable, num_experts: int, hidden_size: int, k: int = 2,
+            capacity_factor: float = 1.25, act: str = "gelu",
+            ep_axis: str = "ep", param_attr=None, name=None):
+    """Mixture-of-Experts feed-forward block (the JAX package's layer; no
+    reference analog). Top-k routed, static-capacity dispatch; on a mesh
+    whose data axis is `ep_axis` the tokens travel to their experts by
+    all-to-all (expert parallelism, ``parallel/moe.py``), otherwise the
+    dense path runs. Returns (out, aux_loss): add `aux_loss` (the Switch
+    load-balance term, scaled by your coefficient) to the training loss."""
+    import copy
+
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("moe_ffn", name=name)
+    d = input.shape[-1]
+
+    def _attr(suffix):
+        # five distinct parameters: a copy of the user's attr each (one
+        # shared ParamAttr would be renamed on first use and alias them)
+        a = copy.copy(ParamAttr._to_attr(param_attr))
+        if a.name is not None:
+            a.name = f"{a.name}.{suffix}"
+        return a
+
+    gate = helper.create_parameter(_attr("gate"), shape=[d, num_experts],
+                                   dtype=input.dtype)
+    w1 = helper.create_parameter(_attr("w1"),
+                                 shape=[num_experts, d, hidden_size],
+                                 dtype=input.dtype)
+    b1 = helper.create_parameter(_attr("b1"), shape=[num_experts, hidden_size],
+                                 dtype=input.dtype, is_bias=True)
+    w2 = helper.create_parameter(_attr("w2"),
+                                 shape=[num_experts, hidden_size, d],
+                                 dtype=input.dtype)
+    b2 = helper.create_parameter(_attr("b2"), shape=[num_experts, d],
+                                 dtype=input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape)
+    aux = helper.create_variable_for_type_inference(input.dtype, shape=())
+    helper.append_op(
+        type="moe_ffn",
+        inputs={"X": [input.name], "GateW": [gate.name], "W1": [w1.name],
+                "B1": [b1.name], "W2": [w2.name], "B2": [b2.name]},
+        outputs={"Out": [out.name], "AuxLoss": [aux.name]},
+        attrs={"k": k, "capacity_factor": capacity_factor, "act": act,
+               "ep_axis": ep_axis})
+    return out, aux
+
+
 def softmax_with_cross_entropy(logits: Variable, label: Variable,
                                soft_label: bool = False, ignore_index: int = -100,
                                return_softmax: bool = False, axis: int = -1):

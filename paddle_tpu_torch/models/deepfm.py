@@ -10,8 +10,10 @@ kernels) is kept by SelectedRows gradients and, with ``packed_rows=``, the
 packed row-major table of ``ops/deferred_rows.py`` updated by the fused
 sparse-Adagrad kernel, or with ``deferred_rows=``, the deferred-row log of
 the same module (the optimizer state in extra columns of the f32 table, a
-fold every ``segments`` steps). Mesh sharding of the table
-(``shard_axis``) is not ported: it raises (ROADMAP A9b).
+fold every ``segments`` steps). ``shard_axis`` shards the tables over
+their vocabulary on a mesh axis (``core/mesh_step.py``: each rank holds
+its rows, reads zeros for the other rows' ids and keeps the SelectedRows
+gradient rows of its range).
 """
 from __future__ import annotations
 
@@ -45,10 +47,7 @@ def deepfm(sparse_ids, dense_feats, vocab_size: int, num_fields: int,
     ops/deferred_rows.py): 2 for adagrad, 3 for adam. The model reads
     only the visible [:embed_dim+1] columns.
     """
-    if shard_axis is not None:
-        raise NotImplementedError(
-            "deepfm: mesh-sharded tables (shard_axis) are not ported yet "
-            "(ROADMAP A9b)")
+    spec = (shard_axis, None) if shard_axis else None
     if state_mult > 1 and not fused_table:
         raise ValueError("state_mult>1 (deferred moment state) requires "
                          "fused_table=True")
@@ -59,7 +58,8 @@ def deepfm(sparse_ids, dense_feats, vocab_size: int, num_fields: int,
         both = layers.embedding(
             sparse_ids, [vocab_size, vis * state_mult], is_sparse=is_sparse,
             row_pack=row_packed,
-            param_attr=ParamAttr(name="fm_t", initializer=init))
+            param_attr=ParamAttr(name="fm_t", initializer=init,
+                                 shard_spec=spec))
         if state_mult > 1:
             both = layers.slice(both, axes=[2], starts=[0], ends=[vis])
         w1 = layers.slice(both, axes=[2], starts=[embed_dim],
@@ -69,11 +69,13 @@ def deepfm(sparse_ids, dense_feats, vocab_size: int, num_fields: int,
         # first-order weights
         w1 = layers.embedding(sparse_ids, [vocab_size, 1], is_sparse=is_sparse,
                               param_attr=ParamAttr(name="fm_w1",
-                                                   initializer=UniformInitializer(-1e-4, 1e-4)))
+                                                   initializer=UniformInitializer(-1e-4, 1e-4),
+                                                   shard_spec=spec))
         emb = layers.embedding(sparse_ids, [vocab_size, embed_dim],
                                is_sparse=is_sparse,
                                param_attr=ParamAttr(name="fm_emb",
-                                                    initializer=UniformInitializer(-1e-2, 1e-2)))
+                                                    initializer=UniformInitializer(-1e-2, 1e-2),
+                                                    shard_spec=spec))
     first_order = layers.reduce_sum(w1, dim=[1, 2], keep_dim=False)
 
     # second-order: embeddings [B, F, D]

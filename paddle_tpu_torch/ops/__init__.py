@@ -8,6 +8,7 @@ from . import fused_ops  # noqa: F401
 from . import math_ops  # noqa: F401
 from . import metric_ops  # noqa: F401
 from . import misc_ops  # noqa: F401
+from . import moe_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import quant_ops  # noqa: F401

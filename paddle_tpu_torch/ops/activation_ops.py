@@ -5,12 +5,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.registry import ROWS, register_op
+from ..core.registry import ROWS, TP, register_op, same_layout
 from .common import one
 
 
 def _act(name, fn):
-    @register_op(name, dp=ROWS)
+    @register_op(name, dp=ROWS, tp=same_layout)
     def _impl(ctx, inputs, attrs, _fn=fn):
         (x,) = inputs["X"]
         return one(_fn(x, attrs))
@@ -37,8 +37,15 @@ _act("logsigmoid", lambda x, a: F.logsigmoid(x))
 _act("silu", lambda x, a: F.silu(x))
 
 
+def _softmax_tp(attrs, lay, shapes, n):
+    """A slice along another dim than the softmax's keeps its layout."""
+    (d,) = lay["X"]
+    return None if attrs.get("axis", -1) % len(shapes["X"][0]) == d \
+        else TP(out={"Out": d})
+
+
 @register_op("softmax", dp=lambda a, s: None
-             if a.get("axis", -1) % s["X"] == 0 else ROWS)
+             if a.get("axis", -1) % s["X"] == 0 else ROWS, tp=_softmax_tp)
 def _softmax(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(torch.softmax(x, dim=attrs.get("axis", -1)))

@@ -382,9 +382,11 @@ def _rowpack_init_state_cols(ctx, inputs, attrs):
 # optimizer ops
 # ---------------------------------------------------------------------------
 
-def _packed_common(inputs, attrs):
+def _packed_common(ctx, inputs, attrs):
     """uniq-merge the SelectedRows grad and pull the current rows out of
-    the lookup's forward output (no second table gather)."""
+    the lookup's forward output (no second table gather). On a mesh the
+    gradient's rows are every data-parallel rank's, in this rank's table
+    slots, so the current rows come from the table itself."""
     (g,) = inputs["Grad"]
     (fwd_rows,) = inputs["FwdRows"]
     r = int(attrs["rows_per_step"])
@@ -392,7 +394,12 @@ def _packed_common(inputs, attrs):
     dt = fwd_rows.shape[-1]
     ids, grows = _grad_rows(g)
     uids, utot, rep = uniq_merge(ids, grows[:, :vis].to(torch.float32), r)
-    cur_u = fwd_rows.reshape(-1, dt)[rep].to(torch.float32)
+    if getattr(ctx, "mesh", None) is not None:
+        (p,) = inputs["Param"]
+        slots = uids.clamp(0, p.shape[0] - 1)
+        cur_u = unpack_rows(take_rows(p, slots), dt)
+    else:
+        cur_u = fwd_rows.reshape(-1, dt)[rep].to(torch.float32)
     valid = (uids != SENTINEL)[:, None]
     return uids, utot, cur_u, valid, vis, dt
 
@@ -409,7 +416,7 @@ def _sgd_row_packed(ctx, inputs, attrs):
     """sgd_op.cc SelectedRows branch on a packed table: touched rows get
     p -= lr * merged_g."""
     (p,) = inputs["Param"]
-    uids, utot, cur_u, valid, vis, dt = _packed_common(inputs, attrs)
+    uids, utot, cur_u, valid, vis, dt = _packed_common(ctx, inputs, attrs)
     new = torch.where(valid, cur_u[:, :vis] - _lr(inputs) * utot,
                       cur_u[:, :vis])
     return {"ParamOut": [_packed_write(p, uids, new)]}
@@ -435,7 +442,7 @@ def _adagrad_row_packed(ctx, inputs, attrs):
                                       int(attrs["rows_per_step"]))
         return {"ParamOut": [_fused_adagrad.fused_adagrad_update(
             p, uids, utot, _lr(inputs), vis=vis, eps=eps)]}
-    uids, utot, cur_u, valid, vis, dt = _packed_common(inputs, attrs)
+    uids, utot, cur_u, valid, vis, dt = _packed_common(ctx, inputs, attrs)
     g_new = cur_u[:, vis:2 * vis] + utot * utot
     p_new = cur_u[:, :vis] - _lr(inputs) * utot / (sqrt_rn(g_new) + eps)
     rows = torch.where(valid, torch.cat([p_new, g_new], dim=-1),
@@ -448,7 +455,7 @@ def _adam_row_packed(ctx, inputs, attrs):
     """adam_op.cc SparseAdamFunctor lazy_mode on a packed table: m/v ride
     in state columns; beta powers advance per step as scalars."""
     (p,) = inputs["Param"]
-    uids, utot, cur_u, valid, vis, dt = _packed_common(inputs, attrs)
+    uids, utot, cur_u, valid, vis, dt = _packed_common(ctx, inputs, attrs)
     (b1p,) = inputs["Beta1Pow"]
     (b2p,) = inputs["Beta2Pow"]
     b1 = attrs.get("beta1", 0.9)

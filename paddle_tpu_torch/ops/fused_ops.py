@@ -8,8 +8,8 @@ import os
 
 import torch
 
-from ..core.mesh_step import batch_group
-from ..core.registry import ROWS, register_op
+from ..core.mesh_step import batch_group, tp_shard
+from ..core.registry import ROWS, TP, register_op
 from .common import BN_GLOBAL_OUT, act_map, bcast_y, one, opt_input
 from .kernels import flash_attention as _fa
 from .kernels import flash_attention_sparse as _fas
@@ -101,13 +101,42 @@ def _attention_dropout(ctx, attrs):
     is_test = attrs.get("is_test", False) or ctx.is_test
     rate = 0.0 if is_test else attrs.get("dropout_prob", 0.0)
     seed = 0
+    if rate > 0.0 and tp_shard(ctx, "Q") is not None:
+        raise NotImplementedError(
+            "attention dropout on a model-axis slice of the heads: the "
+            "kernels' Philox counter is this rank's b·H + h, not the whole "
+            "run's; a head offset for it is ROADMAP A9b2")
     if rate > 0.0:
         seed = torch.randint(0, 2 ** 62, (1,), generator=ctx.rng(),
                              device=ctx.device, dtype=torch.int64)
     return rate, seed
 
 
-@register_op("flash_attention", nondiff_inputs=["BiasQK"], dp=ROWS)
+def _flash_tp(attrs, lay, shapes, n):
+    """Attention on this rank's heads: q, k and v sliced along their head
+    dim (dim 2 of packed [B, T, H], dim 1 of [B, nh, T, d]) run as they are
+    with the head count of the slice; a bias with a head dim takes its
+    slice of it."""
+    dims = {lay[s][0] for s in ("Q", "K", "V")}
+    qs = shapes["Q"][0]
+    head = 2 if len(qs) == 3 else 1
+    if dims != {head}:
+        return None
+    over = {}
+    if head == 2:
+        nh = int(attrs["num_heads"])
+        if nh % n:
+            return None
+        over = {"num_heads": nh // n}
+    cut = {}
+    bias = shapes.get("BiasQK")
+    if bias and len(bias[0]) == 4 and bias[0][1] > 1:
+        cut = {"BiasQK": 1}
+    return TP(out={"Out": head}, attrs=over, slice_in=cut)
+
+
+@register_op("flash_attention", nondiff_inputs=["BiasQK"], dp=ROWS,
+             tp=_flash_tp)
 def _flash_attention(ctx, inputs, attrs):
     """Memory-efficient fused attention: the Hopper kernels on a CUDA tensor,
     their plain versions on a CPU tensor; see ops/kernels/flash_attention.py.
@@ -133,7 +162,9 @@ def _flash_attention(ctx, inputs, attrs):
         dropout_rate=rate, seed=seed))
 
 
-@register_op("flash_attention_sparse", nondiff_inputs=["QSeg", "KSeg"])
+# the segment rows describe each packed row alone: rows are independent
+@register_op("flash_attention_sparse", nondiff_inputs=["QSeg", "KSeg"],
+             dp=ROWS, tp=_flash_tp)
 def _flash_attention_sparse(ctx, inputs, attrs):
     """Block-sparse packed-segment attention on [B, T, H] q/k/v: visibility
     travels as the int32 segment-id rows QSeg [B, Tq] and KSeg [B, Tk]

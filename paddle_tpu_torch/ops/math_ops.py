@@ -8,12 +8,32 @@ import math
 
 import torch
 
-from ..core.registry import ROWS, register_op
+from ..core.registry import P, ROWS, TP, register_op, same_layout
 from .common import bcast_y, one
 
 
+def _elementwise_tp(attrs, lay, shapes, n):
+    """X and Y sliced along the same dim (Y aligned to X at ``axis``), or
+    a sliced X with a replicated Y: Y broadcast along that dim, or taken
+    as this rank's slice when it spans it."""
+    (dx,), (dy,) = lay["X"], lay["Y"]
+    xs, ys = shapes["X"][0], shapes["Y"][0]
+    axis = attrs.get("axis", -1)
+    off = len(xs) - len(ys) if axis == -1 or len(xs) == len(ys) else axis
+    if dx is None:
+        return None
+    if dy is not None:
+        return TP(out={"Out": dx}) if dy + off == dx else None
+    j = dx - off
+    if not 0 <= j < len(ys) or ys[j] == 1:
+        return TP(out={"Out": dx})
+    if ys[j] == xs[dx] * n:
+        return TP(out={"Out": dx}, slice_in={"Y": j})
+    return None
+
+
 def _elementwise(name, fn):
-    @register_op(name, dp=ROWS)
+    @register_op(name, dp=ROWS, tp=_elementwise_tp)
     def _impl(ctx, inputs, attrs, _fn=fn):
         (x,) = inputs["X"]
         (y,) = inputs["Y"]
@@ -33,7 +53,7 @@ _elementwise("elementwise_mod", torch.remainder)
 _elementwise("elementwise_floordiv", torch.floor_divide)
 
 
-@register_op("scale", dp=ROWS)
+@register_op("scale", dp=ROWS, tp=same_layout)
 def _scale(ctx, inputs, attrs):
     (x,) = inputs["X"]
     scale = attrs.get("scale", 1.0)
@@ -55,7 +75,30 @@ def _matmul_dp(attrs, sharded):
     return ROWS
 
 
-@register_op("matmul", dp=_matmul_dp)
+def _matmul_tp(attrs, lay, shapes, n):
+    """Megatron's two products on a 2-D Y (column parallel: R × S(out) →
+    S(last); row parallel: S(last) × S(in) → P), and batched products
+    sliced along one batch dim of both operands (attention on this rank's
+    heads)."""
+    (dx,), (dy,) = lay["X"], lay["Y"]
+    xs, ys = shapes["X"][0], shapes["Y"][0]
+    tx, ty = attrs.get("transpose_X", False), attrs.get("transpose_Y", False)
+    if len(ys) == 2 and len(xs) >= 2:
+        col, row = (0, 1) if ty else (1, 0)
+        if dx is None and dy == col:
+            return TP(out={"Out": len(xs) - 1})
+        if dy == row and dx == len(xs) - 1 and not tx:
+            return TP(out={"Out": P})
+        if dy is None and dx is not None and dx < len(xs) - 2:
+            return TP(out={"Out": dx})
+        return None
+    if (len(xs) == len(ys) >= 3 and dx is not None and dx == dy
+            and dx < len(xs) - 2):
+        return TP(out={"Out": dx})
+    return None
+
+
+@register_op("matmul", dp=_matmul_dp, tp=_matmul_tp)
 def _matmul(ctx, inputs, attrs):
     """matmul_op.cc semantics: optional transpose flags + alpha, batched via
     leading dims."""
@@ -77,7 +120,24 @@ def _matmul(ctx, inputs, attrs):
     return one(out)
 
 
-@register_op("mul", dp=lambda a, s: None if "Y" in s else ROWS)
+def _mul_tp(attrs, lay, shapes, n):
+    """Megatron's column- and row-parallel products of a 2-D Y, and a Y
+    applied to X sliced along a dim it keeps (a row dim)."""
+    (dx,), (dy,) = lay["X"], lay["Y"]
+    xs, ys = shapes["X"][0], shapes["Y"][0]
+    xnc = attrs.get("x_num_col_dims", 1)
+    if len(ys) != 2 or attrs.get("y_num_col_dims", 1) != 1:
+        return None
+    if dx is None and dy == 1:
+        return TP(out={"Out": xnc})
+    if dy == 0 and dx == len(xs) - 1 and xnc == len(xs) - 1:
+        return TP(out={"Out": P})
+    if dy is None and dx is not None and dx < xnc:
+        return TP(out={"Out": dx})
+    return None
+
+
+@register_op("mul", dp=lambda a, s: None if "Y" in s else ROWS, tp=_mul_tp)
 def _mul(ctx, inputs, attrs):
     """mul_op.cc: flatten X to 2-D at x_num_col_dims, Y at y_num_col_dims,
     then gemm; output keeps X's leading dims."""
@@ -91,7 +151,12 @@ def _mul(ctx, inputs, attrs):
     return one(out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:])))
 
 
-@register_op("sum", dp=ROWS)
+def _sum_tp(attrs, lay, shapes, n):
+    dims = set(lay["X"])
+    return TP(out={"Out": dims.pop()}) if len(dims) == 1 else None
+
+
+@register_op("sum", dp=ROWS, tp=_sum_tp)
 def _sum(ctx, inputs, attrs):
     xs = inputs["X"]
     out = xs[0]
@@ -100,7 +165,7 @@ def _sum(ctx, inputs, attrs):
     return one(out)
 
 
-@register_op("clip", dp=ROWS)
+@register_op("clip", dp=ROWS, tp=same_layout)
 def _clip(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(torch.clamp(x, attrs.get("min"), attrs.get("max")))

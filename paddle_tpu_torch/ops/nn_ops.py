@@ -15,8 +15,8 @@ import os
 import torch
 import torch.nn.functional as F
 
-from ..core.mesh_step import batch_group
-from ..core.registry import ROWS, register_op
+from ..core.mesh_step import batch_group, tp_shard
+from ..core.registry import P, ROWS, TP, register_op
 from ..core.selected_rows import SelectedRows
 from ..parallel.collective import axis_size, psum
 from .common import (BN_GLOBAL_OUT, act_map, bn_batch_stats_xla1,
@@ -174,7 +174,8 @@ def _layer_norm(ctx, inputs, attrs):
             "Variance": [var.reshape(x.shape[:bna])]}
 
 
-@register_op("dropout", dp=ROWS)
+@register_op("dropout", dp=ROWS, tp=lambda a, lay, sh, n: TP(
+    out={"Out": lay["X"][0], "Mask": lay["X"][0]}))
 def _dropout(ctx, inputs, attrs):
     (x,) = inputs["X"]
     p = attrs.get("dropout_prob", 0.5)
@@ -186,7 +187,20 @@ def _dropout(ctx, inputs, attrs):
         y = (x * (1.0 - p) if (impl == "downgrade_in_infer" and is_test
                                and p > 0.0) else x)
         return {"Out": [y], "Mask": [torch.ones_like(x)]}
-    mask = torch.bernoulli(torch.full_like(x, 1.0 - p), generator=ctx.rng())
+    sh = tp_shard(ctx, "X")
+    if sh is None:
+        mask = torch.bernoulli(torch.full_like(x, 1.0 - p),
+                               generator=ctx.rng())
+    else:
+        # this rank's slice of the whole value's mask: a model axis of one
+        # draws the same numbers, and every rank advances the generator
+        # alike
+        shape = list(x.shape)
+        shape[sh.dim] *= sh.size
+        mask = torch.bernoulli(x.new_full(shape, 1.0 - p),
+                               generator=ctx.rng())
+        mask = mask.narrow(sh.dim, sh.rank * x.shape[sh.dim],
+                           x.shape[sh.dim])
     y = x * mask / (1.0 - p) if impl == "upscale_in_train" else x * mask
     return {"Out": [y], "Mask": [mask]}
 
@@ -228,8 +242,11 @@ def _squeezed(ids):
     return ids[..., 0] if ids.ndim >= 2 and ids.shape[-1] == 1 else ids
 
 
-def _gather_rows(w, idx, attrs):
-    out = w[idx]
+def _gather_rows(w, idx, attrs, ctx=None):
+    slots, mine = _local_ids(ctx, w, idx)
+    out = w[slots]
+    if mine is not None:
+        out = out.masked_fill(~mine[..., None], 0.0)
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((idx == padding_idx)[..., None], 0.0)
@@ -241,8 +258,32 @@ def _lookup_dp(attrs, sharded):
     return None if "W" in sharded else ROWS
 
 
+def _lookup_tp(attrs, lay, shapes, n):
+    """A vocab-sharded table (W sliced along its rows): each rank reads
+    the ids of its rows and zeros for the rest, so the output is the sum
+    over the axis (P). Row-wise ids keep their slice."""
+    (dw,) = lay["W"]
+    (di,) = lay["Ids"]
+    if dw == 0 and di is None and "PendingPos" not in lay:
+        return TP(out={"Out": P})
+    if dw is None and di is not None and di < len(shapes["Ids"][0]) - 1:
+        return TP(out={"Out": di})
+    return None
+
+
+def _local_ids(ctx, w, idx):
+    """(ids in this rank's slots, clamped, and the mask of the ids that are
+    this rank's) for a vocab-sharded W, or (idx, None)."""
+    sh = tp_shard(ctx, "W")
+    if sh is None or sh.dim != 0:
+        return idx, None
+    local = idx - sh.rank * w.shape[0]
+    mine = (local >= 0) & (local < w.shape[0])
+    return local.clamp(0, w.shape[0] - 1), mine
+
+
 @register_op("lookup_table", nondiff_inputs=["Ids", "PendingPos", "PendingCum"],
-             grad_fn=_lookup_sparse_grad, dp=_lookup_dp)
+             grad_fn=_lookup_sparse_grad, dp=_lookup_dp, tp=_lookup_tp)
 def _lookup_table(ctx, inputs, attrs):
     """lookup_table_op.cc: W[ids]; padding_idx rows produce zeros. With
     ``row_pack_dt`` the table is a packed row-major [V, 128] uint16 array
@@ -276,9 +317,12 @@ def _lookup_table(ctx, inputs, attrs):
             out = out.masked_fill((idx == padding_idx)[..., None], 0.0)
         return {"Out": [out], "CumOut": [cum.reshape(shp).detach()]}
     if not rp_dt:
-        return one(_gather_rows(w, idx, attrs))
-    out = unpack_rows(take_rows(w, idx.reshape(-1)), int(rp_dt))
+        return one(_gather_rows(w, idx, attrs, ctx))
+    slots, mine = _local_ids(ctx, w, idx)
+    out = unpack_rows(take_rows(w, slots.reshape(-1)), int(rp_dt))
     out = out.reshape(tuple(idx.shape) + (int(rp_dt),))
+    if mine is not None:
+        out = out.masked_fill(~mine[..., None], 0.0)
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((idx == padding_idx)[..., None], 0.0)
@@ -286,11 +330,11 @@ def _lookup_table(ctx, inputs, attrs):
 
 
 @register_op("lookup_table_v2", nondiff_inputs=["Ids"],
-             grad_fn=_lookup_sparse_grad, dp=_lookup_dp)
+             grad_fn=_lookup_sparse_grad, dp=_lookup_dp, tp=_lookup_tp)
 def _lookup_table_v2(ctx, inputs, attrs):
     (w,) = inputs["W"]
     (ids,) = inputs["Ids"]
-    return one(_gather_rows(w, ids, attrs))
+    return one(_gather_rows(w, ids, attrs, ctx))
 
 
 class _HardLabelCE(torch.autograd.Function):
@@ -327,9 +371,68 @@ class _HardLabelCE(torch.autograd.Function):
         return (p * g).to(logits.dtype), None, None, None
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """`_HardLabelCE` on logits sliced along the class axis (a vocab-
+    parallel head): the global max is taken before ``exp`` (bf16 logits
+    would overflow otherwise), then the sums of exp and the target logits
+    are summed over the group; each rank's slice of the gradient is
+    p − onehot on its classes. The loss is the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, logits, idx, axis, ignore, sh):
+        from ..parallel.collective import summed
+
+        ax = axis % logits.ndim
+        width = logits.shape[ax]
+        m = logits.amax(dim=ax, keepdim=True).float()
+        torch.distributed.all_reduce(m, torch.distributed.ReduceOp.MAX,
+                                     group=sh.group)
+        e = summed(torch.exp(logits.float() - m).sum(ax, True), sh.group)
+        lse = m + torch.log(e)
+        safe = idx if ignore is None else idx.masked_fill(idx == ignore, 0)
+        local = safe - sh.rank * width
+        mine = (local >= 0) & (local < width)
+        slot = local.clamp(0, width - 1)
+        picked = torch.gather(logits, ax, slot.unsqueeze(ax)).float()
+        picked = summed(picked.masked_fill(~mine.unsqueeze(ax), 0.0),
+                        sh.group)
+        loss = lse - picked
+        if ignore is not None:
+            loss = loss.masked_fill((idx == ignore).unsqueeze(ax), 0.0)
+        ctx.save_for_backward(logits, slot, mine, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.ax = ax
+        ctx.dropped = None if ignore is None else (idx == ignore)
+        return loss, lse
+
+    @staticmethod
+    def backward(ctx, g, _glse):
+        logits, slot, mine, lse = ctx.saved_tensors
+        ax = ctx.ax
+        p = torch.exp(logits.float() - lse)
+        p.scatter_add_(ax, slot.unsqueeze(ax),
+                       -mine.to(p.dtype).unsqueeze(ax))
+        if ctx.dropped is not None:
+            g = g.masked_fill(ctx.dropped.unsqueeze(ax), 0.0)
+        return (p * g).to(logits.dtype), None, None, None, None
+
+
+def _ce_tp(attrs, lay, shapes, n):
+    """Hard labels on logits sliced along the class axis: the vocab-
+    parallel exchange (`_VocabParallelCE`); the loss is whole, the
+    softmax keeps the slice."""
+    (d,) = lay["Logits"]
+    ax = attrs.get("axis", -1) % len(shapes["Logits"][0])
+    if attrs.get("soft_label", False) or lay["Label"][0] is not None:
+        return None
+    if d == ax:
+        return TP(out={"Loss": None, "Softmax": d})
+    return TP(out={"Loss": d, "Softmax": d})
+
+
 @register_op("softmax_with_cross_entropy", nondiff_inputs=["Label"],
              dp=lambda a, s: None if a.get("axis", -1)
-             % s.get("Logits", 2) == 0 else ROWS)
+             % s.get("Logits", 2) == 0 else ROWS, tp=_ce_tp)
 def _softmax_with_cross_entropy(ctx, inputs, attrs):
     """Loss keeps a singleton class axis. The Softmax output is computed
     only when a later op or a fetch reads it (XLA drops it in the JAX
@@ -342,6 +445,13 @@ def _softmax_with_cross_entropy(ctx, inputs, attrs):
         idx = label
         if idx.ndim == logits.ndim and idx.shape[ax] == 1:
             idx = idx.squeeze(ax)
+        sh = tp_shard(ctx, "Logits")
+        if sh is not None and sh.dim == ax:
+            loss, lse = _VocabParallelCE.apply(
+                logits, idx.long(), axis, attrs.get("ignore_index", -100), sh)
+            softmax = (torch.exp(logits.float() - lse.detach())
+                       if ctx.wants("Softmax") else None)
+            return {"Loss": [loss], "Softmax": [softmax]}
         loss = _HardLabelCE.apply(logits, idx.long(), axis,
                                   attrs.get("ignore_index", -100))
         softmax = (torch.softmax(logits.float(), dim=ax)

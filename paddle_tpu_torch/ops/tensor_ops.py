@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.dtypes import convert_dtype
-from ..core.registry import ROWS, register_op
+from ..core.registry import ROWS, TP, register_op, same_layout
 from .common import one
 
 
@@ -30,10 +30,38 @@ def _not_dim0(*axes):
     return dp
 
 
+def _reshape_tp(attrs, lay, shapes, n):
+    """A slice of dim d stays a slice when d leads the input dims that
+    become one group of output dims, and that group's leading dim divides
+    over the axis (the head split [B, T, H] → [B, T, nh, hd] and the head
+    merge back). The shape attribute becomes this rank's."""
+    import math
+
+    (d,) = lay["X"]
+    xs = list(shapes["X"][0])
+    xs[d] *= n
+    want = list(attrs["shape"])
+    out = [xs[i] if s == 0 else s for i, s in enumerate(want)]
+    if -1 in out:
+        known = math.prod(s for s in out if s != -1)
+        out[out.index(-1)] = math.prod(xs) // known
+    before = math.prod(xs[:d])
+    k = next((i for i in range(len(out))
+              if math.prod(out[:i]) == before and out[i] > 1), None)
+    # a copied dim (0) must be the sliced one where it sits
+    if k is None or out[k] % n or (d < len(want) and want[d] == 0
+                                   and d != k) or (want[k] == 0 and k != d):
+        return None
+    local = list(want)
+    if want[k] > 0:
+        local[k] = want[k] // n
+    return TP(out={"Out": k}, attrs={"shape": local})
+
+
 # a shape whose dim 0 is copied (0) or inferred (-1) keeps each rank's rows
 # at the front: the ranks' results laid end to end are the global reshape
 @register_op("reshape", dp=lambda a, s: ROWS if a["shape"][0] in (0, -1)
-             else None)
+             else None, tp=_reshape_tp)
 def _reshape(ctx, inputs, attrs):
     (x,) = inputs["X"]
     # paddle rule: 0 means copy input dim at that position; -1 infers
@@ -42,7 +70,9 @@ def _reshape(ctx, inputs, attrs):
 
 
 @register_op("transpose", dp=lambda a, s: ROWS
-             if int(a["axis"][0]) % s["X"] == 0 else None)
+             if int(a["axis"][0]) % s["X"] == 0 else None,
+             tp=lambda a, lay, sh, n: TP(out={"Out": [int(x) for x in a[
+                 "axis"]].index(lay["X"][0])}))
 def _transpose(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(x.permute(*attrs["axis"]))
@@ -67,7 +97,22 @@ def _slice(ctx, inputs, attrs):
     return one(x[tuple(idx)])
 
 
-@register_op("split", dp=_not_dim0(lambda a, n: [a.get("axis", 0)]))
+def _split_tp(attrs, lay, shapes, n):
+    """A split along another dim keeps the slice in every output. A split
+    along the sliced dim (BERT's fused qkv: its column slice holds whole
+    heads of q but not of k and v) gathers X whole and gives each output's
+    slice of that dim to this rank: every output then holds this rank's
+    heads."""
+    (d,) = lay["X"]
+    axis = attrs.get("axis", 0) % len(shapes["X"][0])
+    k = len(attrs.get("sections") or ()) or attrs.get("num", 0)
+    if axis != d:
+        return TP(out={"Out": [d] * k})
+    return TP(regather={"X": d})
+
+
+@register_op("split", dp=_not_dim0(lambda a, n: [a.get("axis", 0)]),
+             tp=_split_tp)
 def _split(ctx, inputs, attrs):
     """Outputs are views of X: the flash-attention kernel reads the q/k/v
     thirds of the fused qkv projection through their strides."""
@@ -83,8 +128,11 @@ def _split(ctx, inputs, attrs):
     return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
 
 
-@register_op("unsqueeze", dp=_not_dim0(
-    lambda a, n: [x % (n + len(a["axes"])) for x in a["axes"]]))
+# row by row unless a new axis lands at dim 0 (the axes count in the
+# output's dims)
+@register_op("unsqueeze", dp=lambda a, s: None if any(
+    int(x) % (max(s.values()) + len(a["axes"])) == 0 for x in a["axes"])
+    else ROWS)
 def _unsqueeze(ctx, inputs, attrs):
     (x,) = inputs["X"]
     out = x
@@ -114,13 +162,13 @@ def _gather(ctx, inputs, attrs):
     return one(rows.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:]))
 
 
-@register_op("cast", dp=ROWS)
+@register_op("cast", dp=ROWS, tp=same_layout)
 def _cast(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(x.to(convert_dtype(attrs["out_dtype"])))
 
 
-@register_op("assign", dp=ROWS)
+@register_op("assign", dp=ROWS, tp=same_layout)
 def _assign(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(x)

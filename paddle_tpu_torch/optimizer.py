@@ -20,7 +20,8 @@ Also here, as in the JAX package: LarsMomentum, DecayedAdagrad, Adadelta,
 RMSProp, Adamax and Ftrl; GradientMergeOptimizer and LookaheadOptimizer,
 whose predicated parts run in a ``conditional_block``; ModelAverage (the
 JAX package's stub, copied as it is) and ExponentialMovingAverage. DGC
-momentum is not ported (ROADMAP A9c).
+momentum is not ported (ROADMAP A9c); PipelineOptimizer raises (ROADMAP
+A9b2).
 """
 from __future__ import annotations
 
@@ -927,6 +928,16 @@ class ExponentialMovingAverage:
 
     def restore(self, executor=None):
         pass
+
+
+class PipelineOptimizer:
+    """optimizer.py PipelineOptimizer (GPipe and 1F1B over a ``pp`` mesh
+    axis): not ported yet (ROADMAP A9b2)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "PipelineOptimizer is not ported yet (ROADMAP A9b2: pipelines "
+            "and the composed dp×tp×pp program)")
 
 
 # paddle-style aliases (fluid.optimizer.SGD etc.)

@@ -1,12 +1,13 @@
 """The port's parallelism library (counterpart of ``paddle_tpu.parallel``):
 the process group (``env``), meshes (``mesh``), collectives
 (``collective``), ring and Ulysses attention over a sequence axis
-(``ring_attention``) and checkpoints (``checkpoint``).
+(``ring_attention``), Megatron tensor-parallel rules
+(``tensor_parallel``), Mixture-of-Experts with expert parallelism
+(``moe``) and checkpoints (``checkpoint``).
 
-Tensor parallelism, pipelines and MoE (``tensor_parallel``, ``pipeline``,
-``moe``) are ROADMAP A9b; the fleet API, local SGD and DGC (``fleet``,
-``local_sgd``, ``dgc``) are A9c. Their names raise ``NotImplementedError``
-naming the item.
+Pipelines (``pipeline``: GPipe, 1F1B) are ROADMAP A9b2; the fleet API,
+local SGD and DGC (``fleet``, ``local_sgd``, ``dgc``) are A9c. Their names
+raise ``NotImplementedError`` naming the item.
 """
 from .checkpoint import (  # noqa: F401
     Checkpointer, load_checkpoint, save_checkpoint)
@@ -19,15 +20,18 @@ from .collective import (  # noqa: F401
     reduce_scatter,
 )
 from .env import get_rank, get_world_size, init_parallel_env  # noqa: F401
+from .moe import (init_moe_params, moe_ffn,  # noqa: F401
+                  moe_ffn_expert_parallel, top_k_gating)
 from .mesh import (DistributedStrategy, auto_mesh, make_mesh,  # noqa: F401
                    mesh_shape)
 from .ring_attention import (ring_attention,  # noqa: F401
                              ring_self_attention, ulysses_attention)
+from .tensor_parallel import (DEEPFM_RULES, MEGATRON_RULES,  # noqa: F401
+                              NMT_RULES, annotate_tp, annotate_tp_auto,
+                              derive_tp_specs, embedding_shard_spec)
 
 _DEFERRED = {
-    "A9b": ("MEGATRON_RULES", "annotate_tp", "annotate_tp_auto",
-            "derive_tp_specs", "GPipe", "pipeline_step", "init_moe_params",
-            "moe_ffn", "moe_ffn_expert_parallel", "top_k_gating"),
+    "A9b2": ("GPipe", "pipeline_step", "pipeline"),
     "A9c": ("dgc_allreduce", "sparse_allgather_exchange", "top_k_sparsify",
             "average_params", "local_sgd_step", "replicate_params"),
 }
@@ -47,4 +51,7 @@ __all__ = ["Checkpointer", "load_checkpoint", "save_checkpoint",
            "reduce_scatter", "get_rank", "get_world_size",
            "init_parallel_env", "DistributedStrategy", "auto_mesh",
            "make_mesh", "mesh_shape", "ring_attention",
-           "ring_self_attention", "ulysses_attention"]
+           "ring_self_attention", "ulysses_attention", "MEGATRON_RULES",
+           "NMT_RULES", "DEEPFM_RULES", "annotate_tp", "annotate_tp_auto",
+           "derive_tp_specs", "embedding_shard_spec", "init_moe_params",
+           "moe_ffn", "moe_ffn_expert_parallel", "top_k_gating"]

@@ -59,9 +59,9 @@ and re-partitions the table onto the LIVE shard count; `load_ps_table` is
 the same read for shard recovery. The files are the JAX package's, both
 ways.
 
-Sharded state. A ZeRO-sharded value (a ``DTensor`` the data-parallel step
-keeps in the scope, ``core/mesh_step.py``) is never gathered on the save
-path: each rank writes its own slice to ``ckpt-N.shards-R.pkl`` with its
+Sharded state. A ZeRO-sharded or tensor-parallel value (a ``DTensor``
+the mesh step keeps in the scope, ``core/mesh_step.py``) is never
+gathered on the save path: each rank writes its own slice to ``ckpt-N.shards-R.pkl`` with its
 ``ckpt-N.index-R.json`` and manifest, as the JAX package's ``_snapshot``
 writes a process's addressable shards (its ``:119-147``). The slices are
 recorded in the value's LOGICAL coordinates (the ZeRO pad rows are not
@@ -122,13 +122,17 @@ def _host_copy(t: torch.Tensor):
 def _shard_record(name: str, var, val):
     """This rank's slice of a sharded ``DTensor`` as a shard-file record
     (name, bounds, shape, dtype, tensor) in the declared (logical)
-    coordinates, or None when the slice holds only pad rows."""
+    coordinates, or None when the slice holds only pad rows or another
+    rank holds the same slice (a replica along a mesh dim: the JAX
+    package writes replica 0's)."""
     mesh = val.device_mesh
     local = val.to_local()
     shape = tuple(var.shape) if var.shape else tuple(val.shape)
     bounds = [(0, d) for d in shape]
     piece = local
     for dim, place in enumerate(val.placements):
+        if place.is_replicate() and mesh.get_local_rank(dim) != 0:
+            return None  # another rank of this mesh dim writes the copy
         if not place.is_shard():
             continue
         axis = place.dim

@@ -22,7 +22,12 @@ Two usage contexts, as in the JAX package:
   placements (``Shard(0)`` for ``P(axis)``, ``Replicate()`` for ``P()``).
 
 ``reduce_scatter_into`` and ``all_gather_into`` are the flat-buffer forms
-the executor's data-parallel step uses (``core/mesh_step.py``).
+the executor's mesh step uses (``core/mesh_step.py``). For tensor and
+expert parallelism it also uses the Megatron conjugate pair ``copy_to``
+(f: identity forward, sum of the cotangent backward) and ``reduce_from``
+(g: sum forward, identity backward), ``gather_along`` (an all-gather along
+a dim whose backward takes this rank's slice) and ``all_to_all_diff``
+(whose backward is the transposed exchange).
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ import torch.distributed as dist
 __all__ = ["psum", "pmean", "ppermute", "axis_index", "axis_size",
            "all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "all_to_all", "barrier", "axis_group", "reduce_scatter_into",
-           "all_gather_into"]
+           "all_gather_into", "copy_to", "reduce_from", "gather_along",
+           "all_to_all_diff"]
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN}
@@ -83,6 +89,120 @@ def all_gather_into(out: torch.Tensor, local: torch.Tensor,
     with torch.no_grad():
         _ALL_GATHER(out, local.contiguous(), group=group)
     return out
+
+
+def gathered(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim` in rank order, contiguous
+    (no graph)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    out = x.new_empty((n,) + tuple(x.shape))
+    all_gather_into(out.view(-1), x.view(-1), group)
+    if dim % x.ndim == 0:
+        return out.view((n * x.shape[0],) + tuple(x.shape[1:]))
+    return torch.cat(out.unbind(0), dim)
+
+
+def summed(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group of `x`, a new tensor (no graph)."""
+    y = x.detach().contiguous().clone()
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(y, group=group)
+    return y
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f: the identity forward; the cotangent, which each rank
+    holds a part of, summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return summed(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g: the sum over the group forward (each rank holds a
+    summand); the cotangent of a replicated value unchanged backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    """Every rank's slice along `dim` made whole; the backward takes this
+    rank's slice of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.width = dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return gathered(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.rank * ctx.width, ctx.width)
+                .contiguous(), None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_local``; its transpose (the concat and split axes
+    swapped) backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, concat_axis, split_axis)
+        return all_to_all_local(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_local(g.contiguous(), *ctx.args), None, None, None
+
+
+def copy_to(x: torch.Tensor, axis) -> torch.Tensor:
+    """f on `axis`: where a replicated value enters a computation whose
+    output each rank holds a part of (a column-parallel product)."""
+    group = axis_group(axis)
+    if dist.get_world_size(group) == 1 or not x.requires_grad:
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, axis) -> torch.Tensor:
+    """g on `axis`: a value each rank holds a summand of, made whole."""
+    group = axis_group(axis)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_along(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """Every rank's slice of dim `dim` made whole, differentiably (the
+    backward takes this rank's slice)."""
+    group = axis_group(axis)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _GatherAlong.apply(x, dim % x.ndim, group)
+
+
+def all_to_all_diff(x: torch.Tensor, axis, split_axis: int,
+                    concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(tiled=True)`` on local tensors, differentiable."""
+    group = axis_group(axis)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -19,7 +19,16 @@ __all__ = ["make_mesh", "auto_mesh", "mesh_shape", "DistributedStrategy"]
 
 
 def _device_type() -> str:
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    """The mesh's device: the card under NCCL, and under gloo too once this
+    process works on the card (a gloo group of ranks sharing one card
+    moves CUDA tensors; a ``DTensor`` takes its mesh's device), else the
+    CPU."""
+    import torch
+
+    if dist.get_backend() == "nccl" or (torch.cuda.is_available()
+                                        and torch.cuda.is_initialized()):
+        return "cuda"
+    return "cpu"
 
 
 def make_mesh(axis_sizes: Dict[str, int], devices=None):

@@ -39,7 +39,7 @@ from typing import List
 import torch
 import torch.distributed as dist
 
-from .collective import all_to_all_local, axis_group, ppermute
+from .collective import all_to_all_diff, axis_group, ppermute
 
 __all__ = ["ring_self_attention", "ring_attention", "ulysses_attention",
            "ring_fwd_hop", "ring_bwd_hop", "ring_simulate",
@@ -344,28 +344,13 @@ def ring_self_attention(q, k, v, mesh, axis: str = "sp",
 ring_attention = ring_self_attention
 
 
-class _A2A(torch.autograd.Function):
-    """The all-to-all of Ulysses; its transpose swaps the two axes."""
-
-    @staticmethod
-    def forward(ctx, x, group, split_axis, concat_axis):
-        ctx.args = (group, split_axis, concat_axis)
-        return all_to_all_local(x, group, split_axis, concat_axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        group, split_axis, concat_axis = ctx.args
-        return (all_to_all_local(g.contiguous(), group, concat_axis,
-                                 split_axis), None, None, None)
-
-
 def ulysses_attention(q, k, v, mesh, axis: str = "sp", causal: bool = False):
     """Ulysses decomposition: the all-to-all turns sequence shards into head
     shards ([B, H/n, T, D]), attention runs whole locally, and a second
     all-to-all turns the result back. Needs num_heads % axis size == 0."""
     group = axis_group((mesh, axis))
     (ql, kl, vl), as_dt = _locals(mesh, axis, 2, q, k, v)
-    qg, kg, vg = (_A2A.apply(x.contiguous(), group, 1, 2)
+    qg, kg, vg = (all_to_all_diff(x.contiguous(), group, 1, 2)
                   for x in (ql, kl, vl))
     scale = 1.0 / math.sqrt(qg.shape[-1])
     s = torch.matmul(qg, kg.transpose(-1, -2)) * scale
@@ -374,5 +359,5 @@ def ulysses_attention(q, k, v, mesh, axis: str = "sp", causal: bool = False):
         keep = torch.ones(t, t, dtype=torch.bool, device=s.device).tril()
         s = s.masked_fill(~keep, _NEG)
     og = torch.matmul(torch.softmax(s, dim=-1), vg)
-    out = _A2A.apply(og.contiguous(), group, 2, 1)
+    out = all_to_all_diff(og.contiguous(), group, 2, 1)
     return _wrap(out, mesh, axis, 2, as_dt)

@@ -289,6 +289,12 @@ CASES += [
      {"Q": [_r(2, 16, 32)], "K": [_r(2, 24, 32, seed=1)],
       "V": [_r(2, 24, 32, seed=2)], "QSeg": [_SEG], "KSeg": [_KSEG]},
      {"num_heads": 2}),
+    # the MoE block's dense path (no mesh): top-2 routing, capacity 2
+    ("moe_ffn_dense", "moe_ffn",
+     {"X": [_r(2, 4, 6)], "GateW": [_r(6, 4, seed=1)],
+      "W1": [_r(4, 6, 10, seed=2, scale=0.3)], "B1": [_r(4, 10, seed=3)],
+      "W2": [_r(4, 10, 6, seed=4, scale=0.3)], "B2": [_r(4, 6, seed=5)]},
+     {"k": 2, "capacity_factor": 2.0, "act": "gelu"}),
 ]
 
 

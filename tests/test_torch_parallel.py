@@ -20,7 +20,7 @@ atol 1e-5; bf16 inputs rtol 0.1, atol 0.05), plus what the port adds:
   their parts in another order than one device sums the batch);
 - dropout under a data axis: every rank draws its own masks;
 - the mesh surface: with_mesh on a dp axis, run_batched with a mesh, and
-  what is left for ROADMAP A9b/A9c raising naming the item.
+  what is left for ROADMAP A9b2/A9c raising naming the item.
 """
 import numpy as np
 import pytest
@@ -256,7 +256,7 @@ def test_mesh_surface_raises_naming_the_item(worlds):
     got = worlds().run("surface")[0]
     assert "A9b" in got["seq_axis"] and "NotImplementedError" in got[
         "seq_axis"]
-    assert "A9b" in got["tp"] and "'tp'" in got["tp"]
+    assert "A9b2" in got["pp"] and "'pp'" in got["pp"]
     assert "RuntimeError" in got["places"] and "distributed.launch" in got[
         "places"]
     assert "gradient_merge_steps" in got["gm"]

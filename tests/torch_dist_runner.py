@@ -1,5 +1,6 @@
 """Rank helper of the port's multi-rank tests (``tests/test_torch_parallel.py``,
-``tests/test_torch_zero_sharding.py``).
+``tests/test_torch_zero_sharding.py``, ``tests/test_torch_tensor_parallel.py``,
+``tests/test_torch_moe.py``).
 
 ``World(n, tmpdir)`` spawns n processes (the ``spawn`` start method) that
 join one gloo group through a ``FileStore`` file under `tmpdir` (never a
@@ -198,6 +199,281 @@ def rows(feed, rank, world):
         n = v.shape[0] // world
         out[k] = v[rank * n:(rank + 1) * n]
     return out
+
+
+def _tp_module(fluid):
+    import importlib
+
+    return importlib.import_module(fluid.__name__ + ".parallel.tensor_parallel")
+
+
+def tp_bert_cfg(bert_mod, tp, flash=True):
+    """tests/test_parallel.py's TP BERT (hidden 32, 4 heads, 2 layers)."""
+    return bert_mod.BertConfig(vocab_size=128, hidden_size=32, num_layers=2,
+                               num_heads=4, ffn_size=64, max_position=32,
+                               hidden_dropout=0.0, attn_dropout=0.0,
+                               tp_axis="tp" if tp else None,
+                               use_flash_attention=flash)
+
+
+def build_tp_bert(fluid, tp, flash=True, opt="sgd"):
+    bert_mod = _models(fluid).bert
+    factory = {"sgd": lambda: fluid.optimizer.SGD(0.01),
+               "adam": lambda: fluid.optimizer.Adam(1e-3)}[opt]
+    main, startup, _, loss = bert_mod.build_pretrain_program(
+        tp_bert_cfg(bert_mod, tp, flash), 4, 16, optimizer_factory=factory)
+    main.random_seed = 7
+    return main, startup, loss.name
+
+
+def tp_bert_feed():
+    rng = np.random.RandomState(0)
+    return {"src_ids": rng.randint(0, 128, (4, 16)).astype("int64"),
+            "pos_ids": np.tile(np.arange(16), (4, 1)).astype("int64"),
+            "sent_ids": np.zeros((4, 16), dtype="int64"),
+            "input_mask": np.ones((4, 16), dtype="float32"),
+            "mlm_labels": rng.randint(0, 128, (4, 16, 1)).astype("int64")}
+
+
+NMT_KW = dict(d_model=32, n_heads=4, d_ff=64, n_enc=1, n_dec=1,
+              src_vocab=64, tgt_vocab=64, dropout=0.0)
+
+
+def build_tp_nmt(fluid, tp):
+    """tests/test_parallel.py's TP NMT: annotate_tp(main, NMT_RULES)."""
+    nmt = _models(fluid).transformer_nmt
+    main, startup, _, loss = nmt.build_train_program(
+        nmt.TransformerConfig(**NMT_KW), 8, 8,
+        optimizer_factory=lambda: fluid.optimizer.SGD(0.05))
+    if tp:
+        tpm = _tp_module(fluid)
+        assert tpm.annotate_tp(main, tpm.NMT_RULES) >= 8
+    main.random_seed = 7
+    return main, startup, loss.name
+
+
+def tp_nmt_feed(b=4, ts=8, tt=8):
+    rng = np.random.RandomState(0)
+    causal = np.triu(np.full((tt, tt), -1e4, "float32"), 1)
+    return {"src_ids": rng.randint(1, 64, (b, ts)).astype("int64"),
+            "tgt_ids": rng.randint(1, 64, (b, tt)).astype("int64"),
+            "lbl_ids": rng.randint(1, 64, (b, tt, 1)).astype("int64"),
+            "src_mask": np.zeros((b, 1, 1, ts), "float32"),
+            "tgt_mask": np.broadcast_to(causal, (b, 1, tt, tt)).copy()}
+
+
+def build_ckpt_mlp(fluid, tp):
+    """tests/test_checkpoint.py's `_build`: w0 carries (None, "tp") when
+    tp is on; Adam."""
+    main, startup = fluid.Program(), fluid.Program()
+    init = fluid.initializer.NumpyArrayInitializer
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [16])
+        y = fluid.layers.data("y", [1], dtype="int64")
+        w0 = np.random.RandomState(5).rand(16, 8).astype("float32") * 0.1
+        h = fluid.layers.fc(x, 8, act="relu", bias_attr=False,
+                            param_attr=fluid.ParamAttr(
+                                name="w0", initializer=init(w0),
+                                shard_spec=(None, "tp") if tp else None))
+        w1 = np.random.RandomState(6).rand(8, 4).astype("float32") * 0.1
+        logits = fluid.layers.fc(h, 4, bias_attr=False,
+                                 param_attr=fluid.ParamAttr(
+                                     name="w1", initializer=init(w1)))
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, y))
+        fluid.optimizer.Adam(0.05).minimize(loss)
+    return main, startup, loss.name
+
+
+def ckpt_mlp_feed():
+    rng = np.random.RandomState(0)
+    return {"x": rng.rand(32, 16).astype("float32"),
+            "y": rng.randint(0, 4, (32, 1)).astype("int64")}
+
+
+def build_w_tp(fluid, tp=True):
+    """tests/dist_ckpt_runner.py's `build`: one (None, "tp") weight w_tp,
+    softmax CE, SGD."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [16])
+        y = fluid.layers.data("y", [1], dtype="int64")
+        w = (np.random.RandomState(5).rand(16, 8).astype("float32") - 0.5)
+        logits = fluid.layers.fc(
+            x, 8, bias_attr=False,
+            param_attr=fluid.ParamAttr(
+                name="w_tp",
+                initializer=fluid.initializer.NumpyArrayInitializer(w),
+                shard_spec=(None, "tp") if tp else None))
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, y))
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    return main, startup, loss.name
+
+
+def w_tp_feed():
+    rng = np.random.RandomState(0)
+    return {"x": rng.randn(8, 16).astype("float32"),
+            "y": rng.randint(0, 8, (8, 1)).astype("int64")}
+
+
+def build_sparse_table(fluid, tp):
+    """tests/test_sparse_embedding.py's tp-sharded table model."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        main.random_seed = startup.random_seed = 3
+        ids = layers.data("ids", [6], dtype="int64")
+        y = layers.data("y", [1], dtype="float32")
+        emb = layers.embedding(
+            ids, [64, 8], is_sparse=True,
+            param_attr=fluid.ParamAttr(
+                name="table",
+                initializer=fluid.initializer.NormalInitializer(0.0, 0.1),
+                shard_spec=("tp", None) if tp else None))
+        pred = layers.fc(layers.reduce_sum(emb, dim=1), 1,
+                         param_attr=fluid.ParamAttr(name="w"),
+                         bias_attr=fluid.ParamAttr(name="b"))
+        loss = layers.reduce_mean(layers.square_error_cost(pred, y))
+        fluid.optimizer.SGD(0.5).minimize(loss)
+    return main, startup, loss.name
+
+
+def sparse_table_feed():
+    rng = np.random.RandomState(0)
+    return {"ids": rng.randint(0, 50, (8, 6)).astype("int64"),
+            "y": rng.rand(8, 1).astype("float32")}
+
+
+DEEPFM_V, DEEPFM_B = 4096, 16
+
+
+def build_tp_deepfm(fluid, tp, packed=True):
+    """DeepFM with a vocab-sharded table on sparse Adagrad: the packed fm_t
+    table (the fused row kernel's path) or the unpacked fm_w1/fm_emb."""
+    deepfm = _models(fluid).deepfm
+    kw = dict(vocab_size=DEEPFM_V, shard_axis="tp" if tp else None,
+              is_sparse=True, embedding_optimizer="adagrad",
+              hidden_sizes=(16,), lr=0.05)
+    if packed:
+        kw.update(fused_table=True,
+                  packed_rows={"rows_per_step": DEEPFM_B * 26})
+    main, startup, _, loss, _ = deepfm.build_train_program(**kw)
+    main.random_seed = startup.random_seed = 11
+    return main, startup, loss.name
+
+
+def tp_deepfm_feed(seed=0):
+    rng = np.random.RandomState(seed)
+    return {"sparse_ids": rng.randint(0, DEEPFM_V, (DEEPFM_B, 26))
+            .astype("int64"),
+            "dense": rng.rand(DEEPFM_B, 13).astype("float32"),
+            "label": rng.randint(0, 2, (DEEPFM_B, 1)).astype("float32")}
+
+
+def build_moe_layer(fluid, k=1, cf=8.0, experts=8, opt="sgd"):
+    """tests/test_moe.py's static-graph MoE block."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        main.random_seed = startup.random_seed = 7
+        x = layers.data("x", [16])
+        y = layers.data("y", [16])
+        h, aux = layers.moe_ffn(x, num_experts=experts, hidden_size=32, k=k,
+                                capacity_factor=cf)
+        mse = layers.reduce_mean(layers.square(layers.elementwise_sub(h, y)))
+        loss = layers.elementwise_add(mse, layers.scale(aux, scale=0.01))
+        {"sgd": lambda: fluid.optimizer.SGD(0.05),
+         "adam": lambda: fluid.optimizer.Adam(0.01)}[opt]().minimize(loss)
+    return main, startup, loss.name
+
+
+def moe_feed(seed=1):
+    rng = np.random.RandomState(seed)
+    return {"x": rng.rand(32, 16).astype("float32"),
+            "y": rng.rand(32, 16).astype("float32")}
+
+
+def build_gather_mlp(fluid, tp):
+    """A column-parallel fc whose sliced output meets layer_norm (which
+    declares nothing for a slice: the mesh step gathers it whole), then a
+    replicated fc; Adam."""
+    rng = np.random.RandomState(4)
+    init = fluid.initializer.NumpyArrayInitializer
+
+    def attr(name, shape, spec=None):
+        w = (rng.rand(*shape).astype("float32") - 0.5) * 0.4
+        return fluid.ParamAttr(name=name, initializer=init(w),
+                               shard_spec=spec if tp else None)
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [16])
+        y = fluid.layers.data("y", [1])
+        h = fluid.layers.fc(x, 32, param_attr=attr("gw0", (16, 32),
+                                                   (None, "tp")),
+                            bias_attr=attr("gb0", (32,), ("tp",)))
+        h = fluid.layers.layer_norm(h)
+        out = fluid.layers.fc(h, 1, param_attr=attr("gw1", (32, 1)))
+        loss = fluid.layers.mean(fluid.layers.square(out - y))
+        fluid.optimizer.Adam(0.01).minimize(loss)
+    return main, startup, loss.name
+
+
+TP_MODELS = {"bert": build_tp_bert, "gather_mlp": build_gather_mlp, "nmt": build_tp_nmt,
+             "ckpt_mlp": build_ckpt_mlp, "w_tp": build_w_tp,
+             "sparse_table": build_sparse_table, "deepfm": build_tp_deepfm,
+             "moe": lambda fluid, tp, **kw: build_moe_layer(fluid, **kw)}
+
+
+def _models(fluid):
+    import importlib
+
+    return importlib.import_module(fluid.__name__ + ".models")
+
+
+def jax_state(jfluid, model, tp=True, **kw):
+    """The JAX package's startup state of a TP_MODELS model (numpy), to
+    start the port's ranks from."""
+    from paddle_tpu.core import unique_name as jn
+
+    with jn.guard():
+        main, startup, _ = TP_MODELS[model](jfluid, tp, **kw)
+    scope = jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        jfluid.Executor(jfluid.TPUPlace()).run(startup)
+        return {v.name: np.asarray(scope.find_var(v.name))
+                for v in main.list_vars()
+                if v.persistable and scope.find_var(v.name) is not None}
+
+
+def jax_run(jfluid, model, feed, axes=None, data_axis="dp", steps=3,
+            state=None, fetch=None, tp=None, **kw):
+    """The JAX package's losses (and final state) of a TP_MODELS model on
+    one device (`axes` None) or on a mesh of the test process's devices;
+    `tp` (default: a mesh is given) builds it with its shard specs."""
+    from paddle_tpu.core import unique_name as jn
+    from paddle_tpu.parallel import make_mesh
+
+    with jn.guard():
+        main, startup, loss = TP_MODELS[model](
+            jfluid, axes is not None if tp is None else tp, **kw)
+    scope = jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        exe = jfluid.Executor(jfluid.TPUPlace())
+        exe.run(startup)
+        if state is not None:
+            for n, v in state.items():
+                scope.set_var(n, v)
+        prog = main
+        if axes is not None:
+            prog = jfluid.CompiledProgram(main).with_mesh(
+                make_mesh(axes), data_axis=data_axis)
+        losses = [float(np.asarray(exe.run(prog, feed=feed,
+                                           fetch_list=[loss])[0]))
+                  for _ in range(steps)]
+        final = {n: np.asarray(scope.find_var(n)) for n in (fetch or ())}
+    return losses, final
 
 
 # -- cases (run on every rank) ------------------------------------------------
@@ -423,8 +699,8 @@ def case_surface():
     for label, fn in (
             ("seq_axis", lambda: fluid.CompiledProgram(main).with_mesh(
                 make_mesh({"dp": world}), seq_axis="sp")),
-            ("tp", lambda: fluid.CompiledProgram(main).with_mesh(
-                make_mesh({"dp": world // 2, "tp": 2}))),
+            ("pp", lambda: fluid.CompiledProgram(main).with_mesh(
+                make_mesh({"dp": world // 2, "pp": 2}))),
             ("places", lambda: fluid.CompiledProgram(main).with_data_parallel(
                 places=[fluid.CPUPlace()] * (world + 1))),
             ("gm", lambda: fluid.CompiledProgram(main).with_mesh(
@@ -708,6 +984,258 @@ def case_across_batch(op):
         except NotImplementedError as e:
             return f"{type(e).__name__}: {e}"
     return None
+
+
+def _r_hashes(main, scope, tp_names):
+    """sha1 of every replicated persistable's bytes on this rank."""
+    import hashlib
+
+    from paddle_tpu_torch.core.dtypes import to_numpy
+    from paddle_tpu_torch.core.mesh_step import is_dtensor
+
+    out = {}
+    for v in main.list_vars():
+        val = scope.find_var(v.name)
+        if (not v.persistable or v.name in tp_names or is_dtensor(val)
+                or not hasattr(val, "shape")):
+            continue
+        out[v.name] = hashlib.sha1(to_numpy(val).tobytes()).hexdigest()
+    return out
+
+
+def case_tp(model, feed, axes, state=None, steps=3, data_axis="dp",
+            stage=0, tp=True, fetch_state=True, fetch=None, save=None,
+            restore=None, model_kw=None):
+    """Build a TP_MODELS model, start from `state` (the JAX startup's) or
+    from the port's startup, and run `steps` steps of this rank's `feed`
+    on a mesh of `axes` at ZeRO `stage`. Returns the losses (bytes), the
+    hashes of the replicated persistables after each step, the state
+    layout, the final logical state and the extra fetches of the last
+    step. `save`/`restore` is a checkpoint directory written after the
+    steps / read before them."""
+    fluid, names = _port()
+    from paddle_tpu_torch.parallel import Checkpointer, make_mesh
+
+    with names.guard():
+        main, startup, loss = TP_MODELS[model](fluid, tp, **(model_kw or {}))
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        if state is not None:
+            fluid.io.load_params_from_numpy(state, scope=scope)
+        step = None
+        if restore is not None:
+            step = Checkpointer(restore).restore(program=main, scope=scope,
+                                                 place=fluid.CPUPlace())
+        prog = main
+        if axes is not None:
+            bs = fluid.BuildStrategy()
+            bs.sharding_strategy = stage
+            prog = fluid.CompiledProgram(main).with_mesh(
+                make_mesh(axes), data_axis=data_axis)
+            prog.build_strategy = bs
+        tp_names = {v.name for v in main.list_vars()
+                    if getattr(v, "shard_spec", None)}
+        losses, hashes, extra = [], [], None
+        for i in range(steps):
+            out = exe.run(prog, feed=feed if not isinstance(feed, list)
+                          else feed[i], fetch_list=[loss] + list(fetch or ()))
+            losses.append(np.asarray(out[0]).tobytes())
+            extra = [np.asarray(o) for o in out[1:]]
+            hashes.append(_r_hashes(main, scope, tp_names))
+        result = {"losses": losses, "hashes": hashes, "extra": extra,
+                  "info": _state_info(main, scope), "restored": step}
+        if fetch_state:
+            result["state"] = _logical_state(main, scope)
+        if save is not None:
+            ck = Checkpointer(save, keep=0)
+            ck.save(7, program=main, scope=scope, blocking=True)
+            result["files"] = sorted(os.listdir(save))
+    return result
+
+
+def case_tp_batched(model, feed_list, axes, state):
+    """run, run_batched and train_scanned (K = 2) of a TP_MODELS model on
+    a mesh of `axes`, each from `state`: the losses (bytes) of each, and
+    the fetched sliced intermediate of the plain runs (whole)."""
+    fluid, names = _port()
+    from paddle_tpu_torch.parallel import make_mesh
+
+    outs = []
+    for how in ("run", "batched", "scanned"):
+        with names.guard():
+            main, startup, loss = TP_MODELS[model](fluid, True)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CPUPlace())
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            fluid.io.load_params_from_numpy(state, scope=scope)
+            prog = fluid.CompiledProgram(main).with_mesh(make_mesh(axes),
+                                                         data_axis="dp")
+            if how == "scanned":
+                got = exe.train_scanned(prog, reader=lambda: iter(feed_list),
+                                        scan_steps=2, fetch_list=[loss])[0]
+            elif how == "batched":
+                got = exe.run_batched(prog, feed_list, fetch_list=[loss])[0]
+            else:
+                got = np.stack([np.asarray(exe.run(prog, feed=f,
+                                                   fetch_list=[loss])[0])
+                                for f in feed_list])
+        outs.append(np.asarray(got).tobytes())
+    return outs
+
+
+def case_vocab_parallel(logits, labels, ids, table):
+    """The lookup and the cross entropy on this rank's slice of the vocab
+    (the world is the model axis): the lookup's summand and the loss, its
+    gradient slice and the whole-vocab references."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.core.executor import ExecContext
+    from paddle_tpu_torch.core.mesh_step import TPShard
+    from paddle_tpu_torch.core.registry import get_op
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    group = dist.group.WORLD
+    w = torch.from_numpy(table)
+    v = w.shape[0] // n
+    ctx = ExecContext("cpu")
+    ctx.tp_in = {"W": [TPShard(0, r, n, group)], "Ids": [None]}
+    part = get_op("lookup_table").fn(
+        ctx, {"W": [w[r * v:(r + 1) * v]], "Ids": [torch.from_numpy(ids)]},
+        {"padding_idx": 3})["Out"][0]
+    whole_rows = part.clone()
+    dist.all_reduce(whole_rows, group=group)
+    x = torch.from_numpy(logits)
+    c = x.shape[-1] // n
+    local = x[..., r * c:(r + 1) * c].clone().requires_grad_()
+    ctx.tp_in = {"Logits": [TPShard(x.ndim - 1, r, n, group)],
+                 "Label": [None]}
+    out = get_op("softmax_with_cross_entropy").fn(
+        ctx, {"Logits": [local], "Label": [torch.from_numpy(labels)]},
+        {"ignore_index": -100})["Loss"][0]
+    (out.float() * torch.arange(1, out.numel() + 1).reshape(out.shape)
+     ).sum().backward()
+    return {"rows": whole_rows.numpy(), "loss": out.detach().float().numpy(),
+            "grad": local.grad.float().numpy()}
+
+
+def case_selected_rows(counts, height, tp_size=1):
+    """`MeshStep.selected_rows` of a SelectedRows gradient whose row count
+    is counts[rank] (ids rank·100 + i, rows filled with the id): every
+    rank's rows laid end to end in rank order."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.core.mesh_step import MeshStep
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+
+    r = dist.get_rank()
+    ids = torch.arange(counts[r], dtype=torch.int64) + 100 * r
+    rows = ids[:, None].float().expand(-1, 3).contiguous()
+    step = types.SimpleNamespace(tp_state={}, size=dist.get_world_size(),
+                                 group=dist.group.WORLD, tp_rank=0)
+    got = MeshStep.selected_rows(step, "t", SelectedRows(ids, rows, height))
+    return got.ids.numpy(), got.rows.numpy(), got.height
+
+
+def case_tp_surface():
+    """What a tp mesh refuses: BERT's 30,522-row vocabulary over tp = 4, a
+    spec naming an axis the mesh lacks, and a pp axis."""
+    fluid, names = _port()
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel import collective as C
+
+    world = C.dist.get_world_size()
+    got = {}
+
+    def attempt(label, fn):
+        try:
+            fn()
+            got[label] = None
+        except (NotImplementedError, ValueError) as e:
+            got[label] = f"{type(e).__name__}: {e}"
+
+    def run(vocab, axes):
+        with names.guard():
+            cfg = bert.BertConfig(vocab_size=vocab, hidden_size=32,
+                                  num_layers=1, num_heads=4, ffn_size=64,
+                                  max_position=32, hidden_dropout=0.0,
+                                  attn_dropout=0.0, tp_axis="tp")
+            main, startup, _, loss = bert.build_pretrain_program(cfg, 4, 16)
+        exe = fluid.Executor(fluid.CPUPlace())
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            prog = fluid.CompiledProgram(main).with_mesh(make_mesh(axes),
+                                                         data_axis="dp")
+            exe.run(prog, feed=tp_bert_feed(), fetch_list=[loss])
+
+    attempt("vocab_30522_tp4", lambda: run(30522, {"dp": 1, "tp": world}))
+    attempt("axis_missing", lambda: run(128, {"dp": world}))
+    with names.guard():
+        main, _, _ = build_zero_mlp(fluid)
+    attempt("pp", lambda: fluid.CompiledProgram(main).with_mesh(
+        make_mesh({"dp": world // 2, "pp": 2})))
+    attempt("seq_axis", lambda: fluid.CompiledProgram(main).with_mesh(
+        make_mesh({"dp": world}), seq_axis="sp"))
+    return got
+
+
+def case_moe_expert_parallel(x, params, k, cf, grads=False, axis_size=None):
+    """parallel.moe.moe_ffn_expert_parallel on this rank's tokens over the
+    world (the ep axis); with `grads`, the gradients of
+    sum(y²) + 0.1·aux with respect to the five parameters (each rank's
+    part; the caller sums them)."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import moe
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    xs = torch.from_numpy(x).chunk(n)[r]
+    ps = [torch.from_numpy(p).requires_grad_(grads) for p in params]
+    y, aux = moe.moe_ffn_expert_parallel(xs, *ps, dist.group.WORLD, k=k,
+                                         capacity_factor=cf)
+    out = {"y": y.detach().numpy(), "aux": float(aux)}
+    if grads:
+        (torch.sum(y ** 2) + 0.1 * aux).backward()
+        out["grads"] = [p.grad.numpy() for p in ps]
+    return out
+
+
+def case_moe_train(x, params, steps=2):
+    """A plain torch training step of the expert-parallel block (tests/
+    test_moe.py's jitted Adam step): each rank's gradients summed over the
+    world, torch.optim.Adam(1e-3); returns the losses."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import moe
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    xs = torch.from_numpy(x).chunk(n)[r]
+    ps = [torch.nn.Parameter(torch.from_numpy(p).clone()) for p in params]
+    opt = torch.optim.Adam(ps, lr=1e-3)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        y, aux = moe.moe_ffn_expert_parallel(xs, *ps, dist.group.WORLD, k=2,
+                                             capacity_factor=2.0)
+        mse = torch.sum((y - xs) ** 2)
+        total = mse.detach().clone()
+        dist.all_reduce(total)
+        loss = total / (xs.shape[0] * n * xs.shape[1]) + 0.01 * aux
+        ((mse / (xs.shape[0] * n * xs.shape[1])) + 0.01 * aux / n).backward()
+        for p in ps:
+            dist.all_reduce(p.grad)
+        opt.step()
+        losses.append(float(loss))
+    return losses
 
 
 CASES = {n[5:]: f for n, f in dict(globals()).items()
