@@ -321,7 +321,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              106,496 rows a step) over 8 in-thread loopback socket shards
              of a 2,097,152-row table, 36 steps (3 warm-up), arms
              (pull_ahead, push_depth) = (0,0), (2,0), (2,1), (2,1) with a
-             212,992-row hot cache (its first 10 steps: the arm's host
+             212,992-row hot cache (its first 6 steps: the arm's host
              planning loop takes 5-7 s a step), (2,1)
              under a 1 Hz FederatedScraper:
              each arm's losses and final shard bytes bitwise equal to an
@@ -329,21 +329,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              ms, bytes pulled and pushed a shard, prefetch hits/misses,
              the device busy share of the last (profiled) step, row-12
              launches (one a step) and rows 13-14 in the hot arm. In the
-             hot arm, PS checkpoints: save(ps_tables=) before step 5
+             hot arm, PS checkpoints: save(ps_tables=) before step 2
              with dirty slab rows (flushed through the row-13 gather),
-             deltas before steps 7 and 9, the chain restored onto 3
+             deltas before steps 3 and 5, the chain restored onto 3
              in-process shards bitwise equal to the live table; the ms
              save holds the loop, bytes, restore ms. The aggregate
              67,108,864-row (17.18 GB) table over 8 socket shards at
              (2,1): finite losses, examples/s, RSS. A pserver SIGKILLed
-             mid-run (B = 1024, V = 262,144, 2 runner processes, 18
-             steps, killed before step 8, restarted after 0.25 s; with
+             mid-run (B = 1024, V = 262,144, 2 runner processes, 12
+             steps, killed before step 5, restarted after 0.25 s; with
              and without a 53,248-row hot cache): losses bitwise equal to
              the uninterrupted run, one recovery, RPC retries, the
              recovery pause, journal bytes, /healthz through a
              ShardMonitor ok -> degraded -> ok with the times. Online
              learning (the JAX bench's cell: 200,000-id stream, 2 dynamic
-             shards of 16,384 rows, 600 steps of 256, a PsLookupPredictor
+             shards of 16,384 rows, 375 steps of 256, a PsLookupPredictor
              on the card fed by a DeltaPublisher with a 1 s budget): AUC
              rises, rows materialized past the capacity while live rows
              stay within it, staleness p99 within the budget, the serving
@@ -399,6 +399,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              12 once a step a rank, no plain call on the card; step ms,
              peak memory and the state bytes a rank beside the plain
              run's.
+22. pipelines — pipelines, the sequence axis and attention dropout on a
+             slice, on gloo groups on the one card (NCCL where there are
+             enough cards; ranks 1.. run this script with --p22-rank):
+             (a) gloo's native isend/irecv and send/recv on CUDA tensors
+             in two fresh processes (--p22-probe), and the host-staged
+             exchange the port uses; the four flash kernels' dropout bits
+             at a head and row offset (heads 6.. of 12, 8.. of 16; rows
+             256.. of 512) against the plain versions, f32 and bf16,
+             forward and backward; on two ranks: (b) BERT-base (12
+             layers, B = 8, T = 512, Adam) cut by PipelineOptimizer into
+             2 stages of 6 layers, 4 microbatches, f32 for 3 steps (and a
+             pp checkpoint, then a 4th step) and bf16 AMP at dropout 0.1
+             for 4 steps, and the microbatches' masks of a dropout-only
+             pipeline; (c) BERT-base f32 at tp = 2 with attention and
+             hidden dropout 0.1 for 2 steps, Transformer-big NMT bf16 at
+             tp = 2 with dropout 0.1 for 2 steps; (d) BERT-base f32 at
+             sp = 2 (256 queries a rank) at dropout 0 and 0.1, 2 steps
+             each; on four ranks (e) BERT-base at 4 layers over tp2×pp2,
+             f32, 3 steps; in this process the plain runs and (f) the pp
+             checkpoint restored into the plain executor. Checks: losses
+             within 1e-5 relative of the plain run's (e: 1e-4) and
+             parameter changes within 1e-3 relative L2 (b, e), the
+             restored step's loss, every replicated parameter bitwise
+             equal across the ranks after every step, the launches of
+             rows 1-6 (24 a direction a step a rank in the pipeline, none
+             plain) at the heads and lengths each run gives them, masks
+             that differ between microbatches. Step ms, peak memory,
+             state bytes a rank, the schedule's ticks and bubble.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -6227,22 +6255,25 @@ P19_ROWS = P19_B * 26
 P19_ARMS = ((0, 0, 0, False), (2, 0, 0, False), (2, 1, 0, False),
             (2, 1, 2 * P19_ROWS, False), (2, 1, 0, True))
 P19_BIG_VOCAB, P19_BIG_STEPS, P19_BIG_WARMUP = 67_108_864, 6, 2
-# PS checkpoints inside the hot arm: a full save before step 5 (dirty
-# rows in the slab), deltas before steps 7 and 9
-P19_SAVE_AT, P19_DELTAS_AT = 5, (7, 9)
+# PS checkpoints inside the hot arm: a full save before step 2 (dirty
+# rows in the slab), deltas before steps 3 and 5
+P19_SAVE_AT, P19_DELTAS_AT = 2, (3, 5)
 # the hot arm's depth: its host planning loop takes ~5-7 s a step on
-# these uniform ids (PERF.md §6), so it runs the first 10 of the 36 steps
-# (past the last delta) against an in-process run of the same 10: at 26
-# steps the script read 944 s on a slower host, near its 1200 s limit
-P19_HOT_STEPS = 10
+# these uniform ids (PERF.md §6), so it runs the first 6 of the 36 steps
+# (past the last delta) against an in-process run of the same 6: at 26
+# steps the script read 944 s on a slower host, near its 1200 s limit,
+# and phase 22 (pipelines) took its 10 steps down to 6
+P19_HOT_STEPS = 6
 # bench.py:926-1070: B = 1024 over 2 runner pservers of a 262,144-row
-# table, 18 steps, SIGKILL shard 1 before step 8, restart it 0.25 s later
-P19_KILL = {"batch": 1024, "vocab": 262_144, "steps": 18, "kill_step": 8,
+# table, SIGKILL shard 1, restart it 0.25 s later; cut from 18 steps
+# (kill before step 8) to 12 (kill before step 5) for phase 22's time
+P19_KILL = {"batch": 1024, "vocab": 262_144, "steps": 12, "kill_step": 5,
             "restart_s": 0.25}
 P19_KNOBS = {"PDTPU_PS_RETRIES": "60", "PDTPU_PS_RETRY_BACKOFF_MS": "20",
              "PDTPU_PS_TIMEOUT": "10"}
-# bench.py:1938-2095 at its TPU sizes
-P19_ONLINE = {"vocab": 200_000, "cap": 16_384, "steps": 600, "batch": 256,
+# bench.py:1938-2095 at its TPU sizes, cut from 600 steps to 375 (five
+# AUC evaluations) for phase 22's time
+P19_ONLINE = {"vocab": 200_000, "cap": 16_384, "steps": 375, "batch": 256,
               "fields": 8, "d": 8, "mult": 2, "hot_ids": 5000,
               "staleness_s": 1.0, "sweep_every": 60, "delta_every": 75,
               "compact_every": 4, "eval_every": 75, "resident_steps": 30}
@@ -8160,6 +8191,705 @@ def phase_model_parallel(fluid, fa, fas, fsa, smi):
         raise AssertionError(f"phase 21: {bad}")
     return out
 
+# -- phase 22: pipelines, the sequence axis, attention dropout on a slice ---
+P22_WORLD, P22_COMPOSED_WORLD = 2, 4
+P22_B, P22_T, P22_LAYERS, P22_MICRO = 8, 512, 12, 4
+P22_F32_STEPS, P22_BF16_STEPS, P22_DROP_STEPS = 3, 4, 2
+P22_COMPOSED_LAYERS, P22_NMT_STEPS = 4, 2
+P22_DROP = 0.1
+# (b)-(d) and the checkpoint: losses within 1e-5 relative of the plain
+# run's; (e) at phase 21's limits (losses 1e-4, parameter changes 1e-3
+# relative L2, P21_LOSS_REL / P21_DELTA_REL)
+P22_LOSS_REL = 1e-5
+P22_DEVICE = "cuda"
+
+
+def p22_place(fluid):
+    import torch
+
+    return (fluid.CUDAPlace(torch.cuda.current_device())
+            if P22_DEVICE == "cuda" else fluid.CPUPlace())
+
+
+def p22_probe_rank(rank, world, addr):
+    """One rank of the native point-to-point probe (a process of this
+    script, so that a backend that crashes on a CUDA pointer takes down
+    only the probe): gloo's isend/irecv in one batch_isend_irecv, and
+    send/recv, on CUDA tensors, then the host-staged exchange the port
+    uses on gloo (collective.exchange) with its ms for a [2, 512, 768] f32
+    payload each way. Prints {name: "accepted, bytes equal" | "accepted,
+    bytes differ" | the error, ...} as one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.parallel import init_parallel_env
+    from paddle_tpu_torch.parallel.collective import exchange
+
+    init_parallel_env(addr, world, rank, device="cpu", timeout=60)
+    peer, back = (rank + 1) % world, (rank - 1) % world
+    x = torch.arange(2 * 512 * 768, dtype=torch.float32,
+                     device=P22_DEVICE).reshape(2, 512, 768) + rank
+    want = x - rank + back
+    out = {}
+
+    def native_batch():
+        y = torch.empty_like(x)
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
+                                           dist.P2POp(dist.irecv, y, back)]):
+            req.wait()
+        return y
+
+    def native_pair():
+        y = torch.empty_like(x)
+        if rank % 2 == 0:
+            dist.send(x, peer)
+            dist.recv(y, back)
+        else:
+            dist.recv(y, back)
+            dist.send(x, peer)
+        return y
+
+    y = torch.empty_like(x)
+    t0 = time.perf_counter()
+    exchange([(x, peer)], [(y, back)], dist.group.WORLD)
+    if P22_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    out["exchange_ms"] = (time.perf_counter() - t0) * 1e3
+    out["exchange_bytes_equal"] = bool(torch.equal(y, want))
+    for name, fn in (("batch_isend_irecv", native_batch),
+                     ("send_recv", native_pair)):
+        try:
+            got = fn()
+            if P22_DEVICE == "cuda":
+                torch.cuda.synchronize()
+            out[name] = ("accepted, bytes equal" if torch.equal(got, want)
+                         else "accepted, bytes differ")
+        except Exception as e:  # recorded: the phase reports the outcome
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+    print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def p22_probe(world):
+    """(a) The probe of p22_probe_rank on `world` fresh processes, each
+    given 120 s: rank 0's record, or how the probe ended."""
+    addr = f"127.0.0.1:{p20_free_port()}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--p22-probe", str(r), "--p22-world",
+                               str(world), "--p22-addr", addr],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    outs = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=120)
+            outs.append((p.returncode, so, se))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+            outs.append(("timed out", so, se))
+    rc, so, se = outs[0]
+    lines = [x for x in so.splitlines() if x.startswith("{")]
+    if rc == 0 and lines:
+        return json.loads(lines[-1])
+    return {"probe": f"ended {rc}: {se.strip()[-300:]}",
+            "other_ranks": [str(o[0]) for o in outs[1:]]}
+
+
+def p22_bert(fluid, bert, amp=False, layers=None, drop=0.0, stages=0,
+             tp=False, micro=P22_MICRO):
+    """BERT-base pretraining (vocab 30522, hidden 768, 12 heads, ffn 3072;
+    B = P22_B, T = P22_T), Adam(LR), bf16 AMP when `amp`; with `stages`
+    > 0 cut by PipelineOptimizer into that many stages (cut_list = the
+    embeddings and every (layers / stages)-th layer's output), with `tp`
+    the Megatron specs (tp_axis="tp")."""
+    layers = layers or P22_LAYERS
+    L = fluid.layers
+    cfg = bert.BertConfig(vocab_size=30522, hidden_size=HIDDEN,
+                          num_layers=layers, num_heads=NH, ffn_size=3072,
+                          max_position=512, hidden_dropout=drop,
+                          attn_dropout=drop, tp_axis="tp" if tp else None)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = L.data("src_ids", [P22_T], dtype="int64")
+        pos = L.data("pos_ids", [P22_T], dtype="int64")
+        sent = L.data("sent_ids", [P22_T], dtype="int64")
+        mask = L.data("input_mask", [P22_T], dtype="float32")
+        labels = L.data("mlm_labels", [P22_T, 1], dtype="int64")
+        neg = L.scale(L.elementwise_add(
+            mask, L.fill_constant([1], "float32", -1.0)), scale=10000.0)
+        mask4 = L.unsqueeze(neg, [1])
+        x = bert.embeddings(cfg, src, pos, sent)
+        cuts = [x]
+        for i in range(layers):
+            x = bert.encoder_layer(cfg, x, mask4, i)
+            if stages and (i + 1) % (layers // stages) == 0:
+                cuts.append(x)
+        loss = bert.bert_pretrain_loss(cfg, x, labels, mask)
+        opt = amp_wrapper(fluid, amp)(fluid.optimizer.Adam(LR))
+        if stages:
+            opt = fluid.optimizer.PipelineOptimizer(
+                opt, cut_list=cuts, num_microbatches=micro)
+        opt.minimize(loss)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def p22_iso_dropout(fluid):
+    """Two isomorphic scale + dropout 0.5 stages on an all-ones [B, 768]
+    input, 4 microbatches: each microbatch's rows show its masks."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = L.data("x", [HIDDEN])
+        cuts, h = [x], x
+        for _ in range(2):
+            h = L.dropout(L.scale(h, scale=1.0), 0.5,
+                          dropout_implementation="upscale_in_train")
+            cuts.append(h)
+        loss = L.reduce_mean(h)
+        fluid.optimizer.PipelineOptimizer(
+            fluid.optimizer.SGD(0.0), cut_list=cuts,
+            num_microbatches=P22_MICRO).minimize(loss)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss, cuts[-1]
+
+
+def p22_params(main, scope):
+    """The trainable parameters whole, on the host: a tp slice gathered, a
+    pipeline stage's broadcast from its owner (collectives: every rank
+    calls it)."""
+    from paddle_tpu_torch.core.mesh_step import logical_value
+
+    return {p.name: logical_value(main, p.name, scope.find_var(p.name))
+            .detach().float().cpu().clone() for p in main.all_parameters()}
+
+
+def p22_r_digests(main, scope):
+    """sha1 of every parameter this rank holds whole that no axis splits
+    (not a tp slice, not a pipeline stage's)."""
+    import hashlib
+
+    import torch
+
+    from paddle_tpu_torch.core.mesh_step import StageValue, is_dtensor
+
+    out = {}
+    for p in main.all_parameters():
+        v = scope.find_var(p.name)
+        if is_dtensor(v) or isinstance(v, StageValue):
+            continue
+        out[p.name] = hashlib.sha1(v.detach().contiguous().view(-1).view(
+            torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def p22_run(fluid, build, feed, steps, axes=None, data_axis=None,
+            seq_axis=None, ckdir=None, params=True):
+    """`steps` steps of `build()` from its startup: the plain Executor
+    (`axes` None) or with_mesh(make_mesh(axes)). Returns (losses, params
+    at the end, record); on a mesh the record holds whether the
+    replicated parameters were bitwise equal across the ranks after every
+    step, the state bytes a rank, and with `ckdir` the checkpoint's
+    next-step loss; a fourth value `build()` returns is fetched at the
+    last step."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.observability.registry import get_registry
+    from paddle_tpu_torch.parallel import Checkpointer, make_mesh
+
+    got = build()
+    main, startup, loss = got[:3]
+    fetch = got[3] if len(got) > 3 else None
+    exe = fluid.Executor(p22_place(fluid))
+    scope = fluid.Scope()
+    rec = {}
+    cuda = P22_DEVICE == "cuda"
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        prog = main
+        if axes is not None:
+            prog = fluid.CompiledProgram(main).with_mesh(
+                make_mesh(axes), data_axis=data_axis, seq_axis=seq_axis)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, ms, digests, last = [], [], [], None
+        fl = [loss] + ([fetch] if fetch is not None else [])
+        for _ in range(steps):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = exe.run(prog, feed=feed, fetch_list=fl)
+            if cuda:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(last[0], np.float32)
+                                .reshape(-1)[0]))
+            if axes is not None:
+                digests.append(p22_r_digests(main, scope))
+        rec.update(losses=losses, step_ms=ms, peak_MiB=(
+            torch.cuda.max_memory_allocated() / 2**20 if cuda else None))
+        if fetch is not None:
+            rec["fetched"] = np.asarray(last[1], np.float32)
+        if axes is not None:
+            rec["state_bytes_per_rank"] = get_registry().gauge(
+                "memory/state_bytes_per_device").value
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, digests)
+            rec["r_params_bitwise_equal"] = all(d == every[0] for d in every)
+            rec["r_params_checked"] = len(digests[0]) if digests else 0
+        else:
+            rec["state_bytes_per_rank"] = sum(
+                v.numel() * v.element_size() for v in (
+                    scope.find_var(x.name) for x in main.list_vars()
+                    if x.persistable) if isinstance(v, torch.Tensor))
+        out = p22_params(main, scope) if params else None
+        if ckdir is not None:
+            Checkpointer(ckdir, keep=0).save(steps, program=main,
+                                             scope=scope, blocking=True)
+            (lv,) = exe.run(prog, feed=feed, fetch_list=[loss])
+            rec["next_loss"] = float(np.asarray(lv, np.float32)
+                                     .reshape(-1)[0])
+        del scope
+    if cuda:
+        torch.cuda.empty_cache()
+    return losses, out, rec
+
+
+def p22_seen(mod, names):
+    """Wrap the flash wrappers `names` of `mod` (as p21_heads) to record
+    each call's (heads, query length, key length) and count its launches.
+    Returns (seen, restore)."""
+    seen = []
+    orig = {n: getattr(mod, n) for n in names}
+    for n in names:
+        def wrap(q, k, *a, _f=orig[n], **kw):
+            seen.append((int(q.shape[1]), int(q.shape[2]), int(k.shape[2])))
+            return _f(q, k, *a, **kw)
+        wrap.launches = wrap.plain_on_cuda = wrap.wide_launches = 0
+        setattr(mod, n, wrap)
+
+    def restore():
+        counts = {n.rsplit("_", 1)[1]: getattr(mod, n).launches
+                  for n in names}
+        plain = sum(getattr(mod, n).plain_on_cuda for n in names)
+        for n in names:
+            setattr(mod, n, orig[n])
+        return counts, plain
+    return seen, restore
+
+
+def p22_counted(rec, key, mod, names, fn):
+    """fn() with the wrappers counting: its result; rec[key] gets the
+    launches a direction, the plain calls on the card and the (heads, Tq,
+    Tk) shapes the kernels saw."""
+    seen, restore = p22_seen(mod, names)
+    t0 = time.perf_counter()
+    try:
+        got = fn()
+    finally:
+        counts, plain = restore()
+    got[2].update(launches=counts, plain_on_cuda=plain,
+                  shapes=sorted(set(seen)), s=time.perf_counter() - t0)
+    rec[key] = got[2]
+    return got
+
+
+def p22_keep_bits(fa, fas):
+    """The flash kernels' dropout bits at a head and row offset (rows 1-6):
+    heads 6.. of 12 (8.. of 16 for the sparse pair, 2.. of 4 for the wide
+    kernels at d = 320, dense and sparse) and query rows 256.. of 512, the
+    key [seed, heads, head0, row0], against the plain versions on the same
+    slices and the same key (f32 and bf16, forward and backward), and the
+    plain slice against the whole run's plain output. On the card each
+    wide case must launch the wide kernels. Returns {case: max abs error}
+    and raises past the main tolerances."""
+    import torch
+
+    g = torch.Generator(P22_DEVICE).manual_seed(22)
+    seed = torch.tensor([0x5EED_2022], dtype=torch.int64, device=P22_DEVICE)
+    out = {}
+    bad = []
+    for dt, name in ((torch.float32, "float32"), (torch.bfloat16,
+                                                  "bfloat16")):
+        for kind in ("dense", "sparse", "wide", "wide_sparse"):
+            H, h0 = {"dense": (NH, NH // 2), "sparse": (16, 8)}.get(
+                kind, (4, 2))
+            T, r0, b = 512, 256, 2
+            d = WIDER_D[0] if kind.startswith("wide") else D
+            wide0 = (fa.flash_attention_fwd.wide_launches
+                     + fas.flash_attention_sparse_fwd.wide_launches)
+            q, k, v, go = (torch.randn(b, H, T, d, generator=g,
+                                       device=P22_DEVICE).to(dt)
+                           for _ in range(4))
+            key = fa.dropout_key(seed, H, h0, r0)
+            ql, kl, vl, gl = (x[:, h0:, r0:].contiguous() if x is q or x is go
+                              else x[:, h0:].contiguous()
+                              for x in (q, k, v, go))
+            if kind in ("dense", "wide"):
+                bias = torch.zeros(b, 1, 1, T, device=P22_DEVICE, dtype=dt)
+                bias[..., 3 * T // 4:] = -10000.0
+                fwd = lambda *a, **kw: fa.flash_attention_fwd(  # noqa: E731
+                    *a, bias, **kw)
+                fwd_p = lambda *a, **kw: fa.flash_attention_fwd_plain(  # noqa: E731,E501
+                    *a, bias, **kw)
+                bwd = lambda *a, **kw: fa.flash_attention_bwd(  # noqa: E731
+                    *a, bias, **kw)[:3]
+                bwd_p = lambda *a, **kw: fa.flash_attention_bwd_plain(  # noqa: E731,E501
+                    *a, bias, **kw)[:3]
+                whole = fa.flash_attention_fwd_plain(
+                    q, k, v, bias, dropout_rate=P22_DROP, seed=seed)[0]
+            else:
+                segq = torch.ones(b, T - r0, dtype=torch.int32,
+                                  device=P22_DEVICE)
+                segk = torch.ones(b, T, dtype=torch.int32, device=P22_DEVICE)
+                segq[1, -64:] = segk[1, -64:] = 0
+                se = fas.pack_se(segq, segk)
+                vis = fas.compute_block_vis(se, T - r0, T, causal=False)
+                se_w = fas.pack_se(torch.cat([segk[:, :r0], segq], 1), segk)
+                fwd = lambda *a, **kw: fas.flash_attention_sparse_fwd(  # noqa: E731,E501
+                    *a, se, vis, **kw)
+                fwd_p = lambda *a, **kw: fas.flash_attention_sparse_fwd_plain(  # noqa: E731,E501
+                    *a, se, vis, **kw)
+                bwd = lambda *a, **kw: fas.flash_attention_sparse_bwd(  # noqa: E731,E501
+                    *a, se, vis, **kw)[:3]
+                bwd_p = lambda *a, **kw: fas.flash_attention_sparse_bwd_plain(  # noqa: E731,E501
+                    *a, se, vis, **kw)[:3]
+                whole = fas.flash_attention_sparse_fwd_plain(
+                    q, k, v, se_w, None, dropout_rate=P22_DROP,
+                    seed=seed)[0]
+            o, lse = fwd(ql, kl, vl, dropout_rate=P22_DROP, seed=key)
+            op, lsep = fwd_p(ql, kl, vl, dropout_rate=P22_DROP, seed=key)
+            grads = bwd(ql, kl, vl, op, lsep, gl, dropout_rate=P22_DROP,
+                        seed=key)
+            grads_p = bwd_p(ql, kl, vl, op, lsep, gl, dropout_rate=P22_DROP,
+                            seed=key)
+            if P22_DEVICE == "cuda":
+                torch.cuda.synchronize()
+            e = {"fwd": float((o.float() - op.float()).abs().max()),
+                 "bwd": max(float((a.float() - c.float()).abs().max())
+                            for a, c in zip(grads, grads_p)),
+                 "plain_vs_whole": float((op.float() - whole[:, h0:, r0:]
+                                          .float()).abs().max())}
+            out[f"{kind}[{name}]"] = e
+            wide = (fa.flash_attention_fwd.wide_launches
+                    + fas.flash_attention_sparse_fwd.wide_launches - wide0)
+            if not (e["fwd"] <= TOL[name] and e["bwd"] <= BWD_TOL[name]
+                    and e["plain_vs_whole"] <= TOL[name]):
+                bad.append(f"{kind}[{name}] {e}")
+            if (P22_DEVICE == "cuda" and kind.startswith("wide")
+                    and wide < 1):
+                bad.append(f"{kind}[{name}] ran no wide kernel")
+    if bad:
+        raise AssertionError(f"phase 22 keep bits: {bad}")
+    return out
+
+
+def p22_pair(fluid, fa, fas, rank, world, ckdir):
+    """What the two ranks of (a)-(d) run, in one order. Returns (this
+    rank's record, the pp run's final parameters)."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+
+    dense = ("flash_attention_fwd", "flash_attention_bwd")
+    sparse = ("flash_attention_sparse_fwd", "flash_attention_sparse_bwd")
+    feed = pretrain_feed(P22_B, P22_T, np.random.RandomState(22))
+    rec = {"rank": rank}
+    pp = {"pp": world}
+    _, params, _ = p22_counted(rec, "pp_f32", fa, dense, lambda: p22_run(
+        fluid, lambda: p22_bert(fluid, bert, stages=world), feed,
+        P22_F32_STEPS, pp, ckdir=ckdir))
+    p22_counted(rec, "pp_bf16", fa, dense, lambda: p22_run(
+        fluid, lambda: p22_bert(fluid, bert, amp=True, drop=P22_DROP,
+                                stages=world), feed, P22_BF16_STEPS, pp,
+        params=False))
+    ones = {"x": np.ones((P22_B, HIDDEN), "float32")}
+    _, _, rec["pp_masks"] = p22_run(
+        fluid, lambda: p22_iso_dropout(fluid), ones, 1, pp, params=False)
+    tp = {"dp": 1, "tp": world}
+    p22_counted(rec, "tp_f32_drop", fa, dense, lambda: p22_run(
+        fluid, lambda: p22_bert(fluid, bert, drop=P22_DROP, tp=True), feed,
+        P22_DROP_STEPS, tp, data_axis="dp", params=False))
+    batches = [nmt_feed(stack, P22_DEVICE)
+               for stack, _ in nmt_batches(NMT_B, NMT_T, 1)]
+
+    def tp_nmt():
+        from paddle_tpu_torch.parallel import NMT_RULES, annotate_tp
+
+        main, startup, loss = nmt_program(
+            fluid, nmt, nmt.TransformerConfig(dropout=P22_DROP), NMT_T, True)
+        annotate_tp(main, NMT_RULES)
+        return main, startup, loss
+
+    p22_counted(rec, "tp_nmt_bf16_drop", fas, sparse, lambda: p22_run(
+        fluid, tp_nmt, batches[0], P22_NMT_STEPS, tp, data_axis="dp",
+        params=False))
+    sp = {"dp": 1, "sp": world}
+    for drop in (0.0, P22_DROP):
+        p22_counted(rec, f"sp_f32_drop{drop}", fa, dense, lambda: p22_run(
+            fluid, lambda: p22_bert(fluid, bert, drop=drop), feed,
+            P22_DROP_STEPS, sp, data_axis="dp", seq_axis="sp",
+            params=False))
+    return rec, params
+
+
+
+def p22_composed(fluid, fa, rank, world):
+    """What the four ranks of (e) run: BERT-base at full width and
+    P22_COMPOSED_LAYERS layers over tp2×pp2, f32."""
+    from paddle_tpu_torch.models import bert
+
+    feed = pretrain_feed(P22_B, P22_T, np.random.RandomState(22))
+    rec = {"rank": rank}
+    _, params, _ = p22_counted(
+        rec, "composed_f32", fa, ("flash_attention_fwd",
+                                  "flash_attention_bwd"),
+        lambda: p22_run(fluid, lambda: p22_bert(
+            fluid, bert, layers=P22_COMPOSED_LAYERS, stages=2, tp=True),
+            feed, P22_F32_STEPS, {"tp": 2, "pp": 2}))
+    return rec, params
+
+
+def p22_job(fluid, fa, fas, job, rank, world, ckdir):
+    if job == "pair":
+        return p22_pair(fluid, fa, fas, rank, world, ckdir)
+    return p22_composed(fluid, fa, rank, world)
+
+
+def p22_worker(rank, world, addr, backend, job, ckdir):
+    """Rank `rank` > 0 of a phase 22 world (a process of this script)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import flash_attention_sparse as fas
+    from paddle_tpu_torch.parallel import init_parallel_env
+
+    build.build_all(["flash_attention_fwd", "flash_attention_bwd",
+                     "flash_attention_sparse"])
+    init_parallel_env(addr, world, rank,
+                      device="cuda" if backend == "nccl" else "cpu",
+                      timeout=600)
+    rec, _ = p22_job(fluid, fa, fas, job, rank, world, ckdir)
+    every = [None] * world
+    dist.all_gather_object(every, rec)
+    dist.destroy_process_group()
+
+
+def p22_world(fluid, fa, fas, job, world, ckdir):
+    """Run `job` on a group of `world` ranks: this process is rank 0,
+    ranks 1.. are processes of this script (NCCL where there are enough
+    cards, else a gloo group on the one card). Returns (every rank's
+    record, rank 0's parameters, the backend)."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import init_parallel_env
+
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    addr = f"127.0.0.1:{p20_free_port()}"
+    workers = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--p22-rank", str(r), "--p22-world",
+                                 str(world), "--p22-addr", addr,
+                                 "--p22-backend", backend, "--p22-job", job,
+                                 "--p22-ck", ckdir])
+               for r in range(1, world)]
+    try:
+        init_parallel_env(addr, world, 0,
+                          device="cuda" if backend == "nccl" else "cpu",
+                          timeout=600)
+        rec, params = p22_job(fluid, fa, fas, job, 0, world, ckdir)
+        every = [None] * world
+        dist.all_gather_object(every, rec)
+        dist.destroy_process_group()
+        for w in workers:
+            if w.wait(timeout=600) != 0:
+                raise AssertionError(f"phase 22 rank exited {w.returncode}")
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+    return every, params, backend
+
+
+def phase_pipelines(fluid, fa, fas, smi):
+    """Phase 22 (module docstring). Returns the launches of its main paths
+    over every rank: {"dense": {("fwd"|"bwd", dtype): n}, "sparse":
+    {dtype: {"fwd"|"bwd": n}}}."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import Checkpointer
+    from paddle_tpu_torch.parallel.pipeline import schedule_info
+
+    t_phase = time.perf_counter()
+    probe = p22_probe(P22_WORLD)
+    log("pipelines: gloo point-to-point probe " + json.dumps(probe))
+    keep_bits = p22_keep_bits(fa, fas)
+    ckdir = tempfile.mkdtemp(prefix="p22-ck-")
+    pair, pp_params, backend = p22_world(fluid, fa, fas, "pair", P22_WORLD,
+                                         ckdir)
+    t_pair = time.perf_counter() - t_phase
+    comp, comp_params, _ = p22_world(fluid, fa, fas, "composed",
+                                     P22_COMPOSED_WORLD, ckdir)
+    t_mesh = time.perf_counter() - t_phase
+    feed = pretrain_feed(P22_B, P22_T, np.random.RandomState(22))
+
+    def init_of(build):
+        main, startup, _ = build()
+        scope = fluid.Scope()
+        fluid.Executor(p22_place(fluid)).run(startup, scope=scope)
+        return {p.name: scope.find_var(p.name).detach().float().cpu()
+                .clone() for p in main.all_parameters()}
+
+    plain = {}
+    init = init_of(lambda: p22_bert(fluid, bert))
+    _, ref_params, plain["f32"] = p22_run(
+        fluid, lambda: p22_bert(fluid, bert), feed, P22_F32_STEPS)
+    _, _, plain["bf16_drop"] = p22_run(
+        fluid, lambda: p22_bert(fluid, bert, amp=True, drop=P22_DROP), feed,
+        P22_BF16_STEPS, params=False)
+    _, _, plain["f32_drop"] = p22_run(
+        fluid, lambda: p22_bert(fluid, bert, drop=P22_DROP), feed,
+        P22_DROP_STEPS, params=False)
+    comp_init = init_of(lambda: p22_bert(fluid, bert,
+                                         layers=P22_COMPOSED_LAYERS))
+    _, comp_ref, plain["composed_f32"] = p22_run(
+        fluid, lambda: p22_bert(fluid, bert, layers=P22_COMPOSED_LAYERS),
+        feed, P22_F32_STEPS)
+    # (f) the pp = 2 checkpoint restored into the plain executor
+    main, startup, loss = p22_bert(fluid, bert)
+    exe = fluid.Executor(p22_place(fluid))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        restored = Checkpointer(ckdir).restore(program=main, scope=scope,
+                                               place=p22_place(fluid))
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+        ck_loss = float(np.asarray(lv, np.float32).reshape(-1)[0])
+    del scope
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    r0, c0 = pair[0], comp[0]
+    n = P22_WORLD
+    masks = r0["pp_masks"]["fetched"]
+    mb = P22_B // P22_MICRO
+    checks = {
+        "pp_f32_loss_rel": p21_rel(r0["pp_f32"]["losses"],
+                                   plain["f32"]["losses"]),
+        "pp_f32_delta_rel": p21_delta_rel(pp_params, ref_params, init),
+        "pp_bf16_losses_finite": all(np.isfinite(x) for r in pair
+                                     for x in r["pp_bf16"]["losses"]),
+        "pp_bf16_drop_loss_rel_vs_plain": p21_rel(
+            r0["pp_bf16"]["losses"], plain["bf16_drop"]["losses"]),
+        "pp_masks_differ_between_microbatches": all(
+            not np.array_equal(masks[i * mb:(i + 1) * mb],
+                               masks[j * mb:(j + 1) * mb])
+            for i in range(P22_MICRO) for j in range(i)),
+        "pp_masks_zero_share": float((masks == 0).mean()),
+        "tp_f32_drop_loss_rel": p21_rel(r0["tp_f32_drop"]["losses"],
+                                        plain["f32_drop"]["losses"]),
+        "sp_f32_loss_rel": p21_rel(r0["sp_f32_drop0.0"]["losses"],
+                                   plain["f32"]["losses"][:P22_DROP_STEPS]),
+        "sp_f32_drop_loss_rel": p21_rel(r0[f"sp_f32_drop{P22_DROP}"]
+                                        ["losses"],
+                                        plain["f32_drop"]["losses"]),
+        "composed_f32_loss_rel": p21_rel(c0["composed_f32"]["losses"],
+                                         plain["composed_f32"]["losses"]),
+        "composed_f32_delta_rel": p21_delta_rel(comp_params, comp_ref,
+                                                comp_init),
+        "ckpt_restored_step": restored,
+        "ckpt_next_loss_rel": p21_rel([ck_loss], [r0["pp_f32"]["next_loss"]]),
+        "r_params_bitwise_equal": all(
+            r[k].get("r_params_bitwise_equal", True)
+            for rs, keys in ((pair, ("pp_f32", "pp_bf16", "tp_f32_drop",
+                                     "tp_nmt_bf16_drop", "sp_f32_drop0.0",
+                                     f"sp_f32_drop{P22_DROP}")),
+                             (comp, ("composed_f32",)))
+            for r in rs for k in keys),
+        "keep_bits": keep_bits,
+    }
+    sched = {"gpipe": schedule_info("gpipe", n, P22_MICRO)}
+    runs = {k: {f: r0[k][f] for f in ("losses", "step_ms", "peak_MiB",
+                                      "state_bytes_per_rank", "launches",
+                                      "plain_on_cuda", "shapes", "s")}
+            for k in ("pp_f32", "pp_bf16", "tp_f32_drop", "tp_nmt_bf16_drop",
+                      "sp_f32_drop0.0", f"sp_f32_drop{P22_DROP}")}
+    runs["composed_f32"] = {f: c0["composed_f32"][f] for f in (
+        "losses", "step_ms", "peak_MiB", "state_bytes_per_rank", "launches",
+        "plain_on_cuda", "shapes", "s")}
+    out = {"backend": backend, "probe": probe, "schedule": sched,
+           "runs": runs, "plain": {k: {f: v[f] for f in (
+               "losses", "step_ms", "peak_MiB", "state_bytes_per_rank")}
+               for k, v in plain.items()},
+           "checks": checks, "pair_s": t_pair, "mesh_s": t_mesh,
+           "device": smi}
+    plain_on_cuda = sum(r[k]["plain_on_cuda"] for r in pair
+                        for k in runs if k in r) + sum(
+        r["composed_f32"]["plain_on_cuda"] for r in comp)
+
+    def total(rs, k):
+        return {d: sum(r[k]["launches"][d] for r in rs)
+                for d in ("fwd", "bwd")}
+
+    launches = {k: total(pair, k) for k in runs if k != "composed_f32"}
+    launches["composed_f32"] = total(comp, "composed_f32")
+    out.update(launches=launches, plain_on_cuda=plain_on_cuda,
+               wall_s=time.perf_counter() - t_phase)
+    log("pipelines " + json.dumps(out, default=str))
+    half = P22_LAYERS // n
+    want = {"pp_f32": n * half * P22_MICRO * (P22_F32_STEPS + 1),
+            "pp_bf16": n * half * P22_MICRO * P22_BF16_STEPS,
+            "tp_f32_drop": n * P22_LAYERS * P22_DROP_STEPS,
+            "tp_nmt_bf16_drop": n * NMT_PER_STEP * P22_NMT_STEPS,
+            "sp_f32_drop0.0": n * P22_LAYERS * P22_DROP_STEPS,
+            f"sp_f32_drop{P22_DROP}": n * P22_LAYERS * P22_DROP_STEPS,
+            "composed_f32": P22_COMPOSED_WORLD
+            * (P22_COMPOSED_LAYERS // 2) * P22_MICRO * P22_F32_STEPS}
+    bad = [f"{k} launches {launches[k]}, expected {m} each"
+           for k, m in want.items() if launches[k] != {"fwd": m, "bwd": m}]
+    for key, limit in (("pp_f32_loss_rel", P22_LOSS_REL),
+                       ("pp_f32_delta_rel", P21_DELTA_REL),
+                       ("tp_f32_drop_loss_rel", P22_LOSS_REL),
+                       ("sp_f32_loss_rel", P22_LOSS_REL),
+                       ("sp_f32_drop_loss_rel", P22_LOSS_REL),
+                       ("composed_f32_loss_rel", P21_LOSS_REL),
+                       ("composed_f32_delta_rel", P21_DELTA_REL),
+                       ("ckpt_next_loss_rel", P22_LOSS_REL)):
+        if not checks[key] <= limit:
+            bad.append(f"{key} {checks[key]} over {limit}")
+    if checks["ckpt_restored_step"] != P22_F32_STEPS:
+        bad.append(f"checkpoint restored step {checks['ckpt_restored_step']}")
+    if not checks["r_params_bitwise_equal"]:
+        bad.append("replicated parameters differ across the ranks")
+    if not checks["pp_bf16_losses_finite"]:
+        bad.append("a pp bf16 loss is not finite")
+    if not (checks["pp_masks_differ_between_microbatches"]
+            and 0.5 < checks["pp_masks_zero_share"] < 0.9):
+        bad.append(f"pipeline dropout masks: {checks['pp_masks_zero_share']}")
+    shapes = {"pp_f32": [(NH, P22_T, P22_T)],
+              "tp_f32_drop": [(NH // n, P22_T, P22_T)],
+              "sp_f32_drop0.0": [(NH, P22_T // n, P22_T)],
+              f"sp_f32_drop{P22_DROP}": [(NH, P22_T // n, P22_T)],
+              "composed_f32": [(NH // 2, P22_T, P22_T)]}
+    bad += [f"{k} kernels saw {runs[k]['shapes']}, expected {v}"
+            for k, v in shapes.items()
+            if [tuple(x) for x in runs[k]["shapes"]] != v]
+    if plain_on_cuda:
+        bad.append(f"plain calls on the card: {plain_on_cuda}")
+    if bad:
+        raise AssertionError(f"phase 22: {bad}")
+    return out
+
+
 
 def main():
     import torch
@@ -8296,6 +9026,20 @@ def main():
             nmt_launches[dt][d] += p21["launches"][nmt_key][d]
     sa_launches["sparse_adagrad_update"] += p21["row12"]
 
+    # 22. pipelines and the sequence axis (GPipe over pp = 2 on BERT-base,
+    # attention dropout under tp = 2 on BERT-base and Transformer-big,
+    # sp = 2 on BERT-base, the composed tp2×pp2 program, a pp checkpoint
+    # restored into the plain executor)
+    p22 = phase_pipelines(fluid, fa, fas, smi)
+    for key, dt in (("pp_f32", "float32"), ("pp_bf16", "bfloat16"),
+                    ("tp_f32_drop", "float32"), ("sp_f32_drop0.0", "float32"),
+                    (f"sp_f32_drop{P22_DROP}", "float32"),
+                    ("composed_f32", "float32")):
+        for d in ("fwd", "bwd"):
+            train_launches[(d, dt)] += p22["launches"][key][d]
+    for d in ("fwd", "bwd"):
+        nmt_launches["bfloat16"][d] += p22["launches"]["tp_nmt_bf16_drop"][d]
+
     kernels = []
     for name in ("float32", "bfloat16"):
         rec = records[(name, 512)]
@@ -8403,6 +9147,17 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--p22-probe" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        p22_probe_rank(int(args["--p22-probe"]), int(args["--p22-world"]),
+                       args["--p22-addr"])
+        sys.exit(0)
+    if "--p22-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        p22_worker(int(args["--p22-rank"]), int(args["--p22-world"]),
+                   args["--p22-addr"], args["--p22-backend"],
+                   args["--p22-job"], args["--p22-ck"])
+        sys.exit(0)
     if "--p21-rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         p21_worker(int(args["--p21-rank"]), int(args["--p21-world"]),

@@ -526,8 +526,9 @@ def export_reference_inference_model(dirname: str, feed_names, fetch_names,
     file when ``params_filename`` is given, in sorted-name order —
     io.py:242 builds the save_combine input list from
     ``sorted(save_var_map.keys())``)."""
-    from ..core.dtypes import dtype_str, to_numpy
+    from ..core.dtypes import dtype_str
     from ..core.scope import global_scope
+    from ..io import _host_array
 
     scope = scope or global_scope()
     if len(program.blocks) > 1:
@@ -632,9 +633,11 @@ def export_reference_inference_model(dirname: str, feed_names, fetch_names,
     if params_filename is not None:
         with open(os.path.join(dirname, params_filename), "wb") as f:
             for n in sorted(persist):
-                write_lod_tensor_stream(f, to_numpy(scope.find_var(n)))
+                write_lod_tensor_stream(
+                    f, _host_array(program, n, scope.find_var(n)))
     else:
         for n in persist:
             with open(os.path.join(dirname, n), "wb") as f:
-                write_lod_tensor_stream(f, to_numpy(scope.find_var(n)))
+                write_lod_tensor_stream(
+                    f, _host_array(program, n, scope.find_var(n)))
     return fetch_names

@@ -8,15 +8,18 @@ feed over a device mesh and lets GSPMD insert the collectives. The port
 runs one process a GPU under a ``torch.distributed`` group
 (``parallel.init_parallel_env``, ``distributed.launch``):
 ``with_data_parallel`` lays a ``dp`` mesh over the group (N places need a
-world of N), ``with_mesh`` takes a ``DeviceMesh`` with a data axis and at
-most one model axis (tensor parallelism: the parameters' ``shard_spec``),
-and ``Executor.run`` runs each rank's step on its own rows
+world of N), ``with_mesh`` takes a ``DeviceMesh`` with a data axis (or
+none), at most one model axis (tensor parallelism: the parameters'
+``shard_spec``), a ``pp`` axis for the program's pipeline ops
+(``PipelineOptimizer``) and a sequence axis (``seq_axis``), and
+``Executor.run`` runs each rank's step on its own rows
 (``core/mesh_step.py``). Without a group, a CompiledProgram runs on the
 executor's one device, where a ZeRO stage shards over one device, that
 is, nothing. The ZeRO rules (``_zero_axis``, ``_zero_plan``,
-``_fsdp_param``, ``_zero_pad_map``) are the JAX package's. A sequence
-axis, pipeline axes and a second model axis are ROADMAP A9b2; remat
-``saveable_names`` is A9c.
+``_fsdp_param``, ``_zero_pad_map``) are the JAX package's. An ``ep`` axis
+that is not the data axis, a second model axis, an ``sp`` dim without
+``seq_axis`` and a sequence axis beside a model or pipeline axis are
+ROADMAP A9b3; remat ``saveable_names`` is A9c.
 
 Remat. ``BuildStrategy.remat_policy`` (or ``PDTPU_REMAT_POLICY`` on the
 plain executor) resolves to a :class:`RematSpec`. Consecutive ops tagged
@@ -40,8 +43,9 @@ __all__ = ["ShardingStrategy", "RematSpec", "REMAT_POLICIES",
            "resolve_remat", "BuildStrategy", "ExecutionStrategy",
            "CompiledProgram"]
 
-_A9B2 = ("is ROADMAP A9b2 (pipelines, the composed dp×tp×pp program and "
-         "sequence parallelism of the feeds)")
+_A9B3 = ("is ROADMAP A9b3 (an ep axis that is not the data axis, a "
+         "second model axis, an sp dim without seq_axis, a sequence axis "
+         "beside a model or pipeline axis)")
 
 
 class ShardingStrategy:
@@ -248,6 +252,8 @@ class CompiledProgram:
         self._mesh = None
         self._data_axis: Optional[str] = None
         self._model_axis: Optional[str] = None
+        self._pp_axis: Optional[str] = None
+        self._seq_axis: Optional[str] = None
         self._strategy_stage = 0
         self._strategy_remat = False
         self._strategy_remat_policy = None
@@ -283,7 +289,7 @@ class CompiledProgram:
 
             self._mesh = make_mesh({"dp": world})
             self._data_axis = "dp"
-            self._model_axis = None
+            self._model_axis = self._pp_axis = self._seq_axis = None
         self._loss_name = loss_name
         self.build_strategy = build_strategy or BuildStrategy()
         self.exec_strategy = exec_strategy or ExecutionStrategy()
@@ -291,40 +297,72 @@ class CompiledProgram:
 
     def with_mesh(self, mesh, data_axis: Optional[str] = "dp",
                   strategy=None, seq_axis: Optional[str] = None):
-        """Run over a ``DeviceMesh`` (``parallel.make_mesh``) on its data
-        axis, with at most one model axis of size > 1: parameters whose
-        ``shard_spec`` names it are held as each rank's slice (Megatron
-        tensor parallelism, ``core/mesh_step.py``). An ``ep`` axis is the
-        data axis (``layers.moe_ffn`` spreads its experts over it).
+        """Run over a ``DeviceMesh`` (``parallel.make_mesh``):
+
+        - `data_axis` (or None: every rank feeds the whole batch and the
+          mesh's other dims compute it alike, the JAX package's
+          ``data_axis=None``): each rank feeds its own rows;
+        - at most one model axis of size > 1: parameters whose
+          ``shard_spec`` names it are held as each rank's slice (Megatron
+          tensor parallelism);
+        - ``pp``: the axis of the program's ``pipeline`` ops
+          (``PipelineOptimizer``): the rank at coordinate i holds and
+          updates stage i;
+        - `seq_axis`: dim 1 (the sequence) of every feed of rank ≥ 2 is
+          sliced over it (sequence parallelism; ValueError when it is the
+          data axis, as in the JAX package);
+        - an ``ep`` axis is the data axis (``layers.moe_ffn`` spreads its
+          experts over it); a ``dp`` dim that is not the data axis
+          computes replicated.
+
         `strategy` (a fleet ``DistributedStrategy``) wires
         sharding_degree/sharding_stage (ZeRO over the data axis) and
-        recompute/remat_policy (remat). A sequence axis, ``pp``/``sp``
-        axes, an ``ep`` axis that is not the data axis and a second model
-        axis are ROADMAP A9b2."""
-        if seq_axis is not None:
-            raise NotImplementedError(f"with_mesh(seq_axis={seq_axis!r}) "
-                                      f"{_A9B2}")
+        recompute/remat_policy (remat). An ``ep`` axis that is not the
+        data axis, a second model axis, an ``sp`` dim without `seq_axis`
+        and a sequence axis beside a model or pipeline axis are ROADMAP
+        A9b3."""
         names = getattr(mesh, "mesh_dim_names", None)
         if names is None:
             raise TypeError(f"with_mesh takes a DeviceMesh with named dims "
                             f"(parallel.make_mesh), got {type(mesh).__name__}")
-        if data_axis not in names:
+        if data_axis is not None and data_axis not in names:
             raise ValueError(f"with_mesh: data_axis {data_axis!r} is not a "
                              f"dim of the mesh {tuple(names)}")
-        model = None
+        seq = seq_axis if seq_axis in names else None
+        if seq is not None and seq == data_axis:
+            raise ValueError(
+                f"with_mesh: seq_axis and data_axis are both "
+                f"{seq_axis!r} — a feed dim cannot shard over the same "
+                f"mesh axis twice; use distinct axes")
+        pipe_axes = {op.attrs.get("axis", "pp")
+                     for op in self._program.global_block().ops
+                     if op.type in ("pipeline", "pipeline_hetero")}
+        model = pp = None
         for name, size in zip(names, mesh.shape):
-            if name == data_axis or size == 1:
+            if name in (data_axis, seq) or size == 1:
                 continue
-            if name in ("pp", "sp", "ep") or model is not None:
+            if name in pipe_axes:
+                pp = name
+                continue
+            if name in ("dp", "pp") and data_axis != name:
+                continue  # computes replicated
+            if name in ("sp", "ep") or model is not None:
                 raise NotImplementedError(
                     f"with_mesh on a {name!r} axis of size {size} beside the "
                     f"data axis {data_axis!r}"
                     + (f" and the model axis {model!r}" if model else "")
-                    + f" {_A9B2}")
+                    + f" {_A9B3}")
             model = name
+        if seq is not None and (model is not None or pp is not None):
+            raise NotImplementedError(
+                f"with_mesh(seq_axis={seq!r}) beside the "
+                f"{'model' if model else 'pipeline'} axis "
+                f"{model or pp!r} {_A9B3}")
         self._mesh = mesh
         self._data_axis = data_axis
         self._model_axis = model
+        self._pp_axis = pp
+        self._seq_axis = seq
         self._strategy_stage = 0       # re-derived per call, never sticky
         self._strategy_remat = False
         self._strategy_remat_policy = None

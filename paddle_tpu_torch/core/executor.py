@@ -337,6 +337,8 @@ def _run_op(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
     if mesh is None:
         _run_op_local(op, env, ctx)
         return
+    if mesh.skip(op):  # another pipeline stage's update
+        return
     mesh.before_op(op, env, ctx)
     try:
         _run_op_local(op, env, ctx)
@@ -725,9 +727,11 @@ def _run_item(kind, payload, env, ctx: ExecContext, plan):
     elif ctx.mesh is None:  # "fused"
         _run_update_group(payload, env)
     else:
+        payload = [op for op in payload if not ctx.mesh.skip(op)]
         for op in payload:
             ctx.mesh.before_op(op, env, ctx)
-        _run_update_group(payload, env)
+        if payload:
+            _run_update_group(payload, env)
         for op in payload:
             ctx.mesh.after_op(op, env, ctx)
 
@@ -1145,6 +1149,7 @@ class Executor:
             mesh.begin()
             mesh.load_state(env, scope, state_names)
             mesh.batch.update(n for n, v in feed_vals.items() if v.ndim)
+            feed_vals = mesh.place_feeds(feed_vals)
         env.update(feed_vals)
         gen = scope.find_var(_RNG_STATE)
         if gen is None or gen.device != self.device:

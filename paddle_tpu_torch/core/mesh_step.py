@@ -115,7 +115,7 @@ from .dtypes import to_device
 from .registry import GLOBAL, P, ROWS, get_op, has_op
 
 __all__ = ["MeshStep", "batch_group", "is_dtensor", "logical_value",
-           "tp_shard", "TPShard"]
+           "tp_shard", "sp_shard", "TPShard", "StageValue"]
 
 _RNG_RANK = "@RNG_RANK@"
 
@@ -147,16 +147,33 @@ def is_dtensor(v) -> bool:
 
 def logical_value(program, name: str, v):
     """A scope value as one device sees it: a ``DTensor`` is gathered whole
-    (a collective: every rank reads it at the same point) and the ZeRO pad
-    rows are dropped (``program._zero_padded``); anything else is
+    and a pipeline stage's value (``StageValue``) broadcast from its owner
+    (collectives: every rank reads it at the same point), and the ZeRO
+    pad rows are dropped (``program._zero_padded``); anything else is
     returned."""
+    if isinstance(v, StageValue):
+        v = v.full()
     if not is_dtensor(v):
         return v
-    full = v.full_tensor()
+    full = dtensor_whole(v)
     shape = (getattr(program, "_zero_padded", None) or {}).get(name)
     if shape is not None and tuple(full.shape) != tuple(shape):
         full = full[tuple(slice(0, d) for d in shape)]
     return full
+
+
+def dtensor_whole(v) -> torch.Tensor:
+    """A ``DTensor`` gathered whole with the port's own all-gathers, one a
+    sharded mesh dim (``DTensor.full_tensor``'s functional collectives
+    were seen to crash on a gloo group over CUDA tensors); pad rows
+    kept."""
+    local = v.to_local()
+    mesh = v.device_mesh
+    for dim, place in enumerate(v.placements):
+        if place.is_shard():
+            local = gathered(local.contiguous(), place.dim,
+                             mesh.get_group(dim))
+    return local
 
 
 def batch_group(ctx, slot: str, index: int = 0):
@@ -179,8 +196,15 @@ def tp_shard(ctx, slot: str, index: int = 0):
     return got[index] if got is not None and len(got) > index else None
 
 
-# a value sliced on the model axis: the dim, this rank's index, the axis
-# size and its process group
+def sp_shard(ctx, slot: str, index: int = 0):
+    """The running op's input `slot` on the sequence axis: a
+    :class:`TPShard` when this rank holds a slice of it, else None."""
+    got = (getattr(ctx, "sp_in", None) or {}).get(slot)
+    return got[index] if got is not None and len(got) > index else None
+
+
+# a value sliced on the model (or sequence) axis: the dim, this rank's
+# index, the axis size and its process group
 TPShard = collections.namedtuple("TPShard", "dim rank size group")
 
 # a leaf's layout over N ranks: its ZeRO axis, the logical extent there and
@@ -204,6 +228,210 @@ def _spec_dim(spec, axis):
     return None
 
 
+class _Axis:
+    """The layouts of values on one axis of the mesh, the model axis
+    (``kind`` "tp") or the sequence axis ("sp"): R (absent from ``lay``),
+    S(d) (an int) or P. ``before``/``after`` apply the running op's
+    declaration (its ``tp``/``sp`` attribute in ``core/registry.py``; see
+    the module docstring) and hand the op its inputs' slices in
+    ``ctx.tp_in``/``ctx.sp_in``."""
+
+    def __init__(self, kind: str, name: str, group):
+        self.kind, self.name, self.group = kind, name, group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.lay: Dict[str, object] = {}
+        self._undo: Dict[int, tuple] = {}
+
+    def begin(self):
+        self.lay = {}
+        self._undo = {}
+
+    def slice(self, full: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice of dim `dim` of a whole value (a view)."""
+        c = full.shape[dim] // self.size
+        return full.narrow(dim, self.rank * c, c)
+
+    def _set_in(self, ctx, val):
+        setattr(ctx, self.kind + "_in", val)
+
+    def _layouts(self, op, env):
+        """(slot -> [layout a value]) of the op's inputs, None for R; every
+        P input summed first (g), in the env, for every later reader."""
+        lay = {}
+        for slot, names in op.inputs.items():
+            row = []
+            for n in names:
+                got = self.lay.get(n)
+                if got == P:
+                    env[n] = reduce_from(env[n], self.group)
+                    del self.lay[n]
+                    got = None
+                row.append(got)
+            lay[slot] = row
+        return lay
+
+    def before(self, op, env, ctx):
+        """Apply the op's declaration: the conversions of its inputs go
+        into the env for this op only."""
+        self._set_in(ctx, None)
+        if not any(n in self.lay for n in op.input_names()):
+            return
+        lay = self._layouts(op, env)
+        if not any(d is not None for row in lay.values() for d in row):
+            return
+        decl = getattr(get_op(op.type), self.kind) if has_op(op.type) \
+            else None
+        shapes = {slot: [tuple(env[n].shape)
+                         if isinstance(env.get(n), torch.Tensor) else ()
+                         for n in names] for slot, names in op.inputs.items()}
+        rule = decl(op.attrs, lay, shapes, self.size) \
+            if callable(decl) else None
+        swaps = {}
+
+        def swap(n, v):
+            swaps.setdefault(n, env[n])
+            env[n] = v
+
+        if rule is None or rule.regather:
+            for slot, names in op.inputs.items():
+                for n, d in zip(names, lay[slot]):
+                    if d is not None:
+                        swap(n, gather_along(env[n], d, self.group))
+            self._undo[id(op)] = (swaps, None, rule)
+            return
+        sharded_out = any(v is not None for v in _flat(rule.out.values()))
+        for slot, names in op.inputs.items():
+            for i, (n, d) in enumerate(zip(names, lay[slot])):
+                v = env.get(n)
+                if d is not None or not isinstance(v, torch.Tensor):
+                    continue
+                cut = rule.slice_in.get(slot)
+                if sharded_out and v.requires_grad:
+                    v = copy_to(v, self.group)
+                if cut is not None:
+                    v = self.slice(v, cut)
+                    lay[slot][i] = cut
+                if v is not env[n]:
+                    swap(n, v)
+        self._set_in(ctx, {slot: [None if d is None else
+                                  TPShard(d, self.rank, self.size,
+                                          self.group) for d in row]
+                           for slot, row in lay.items()})
+        attrs = None
+        if rule.attrs:
+            attrs = op.attrs
+            op.attrs = {**op.attrs, **rule.attrs}
+        self._undo[id(op)] = (swaps, attrs, rule)
+
+    def after(self, op, env, ctx):
+        """Restore what `before` swapped and record the outputs'
+        layouts."""
+        self._set_in(ctx, None)
+        outs = op.output_names()
+        undo = self._undo.pop(id(op), None)
+        if undo is None:
+            for n in outs:
+                self.lay.pop(n, None)
+            return
+        swaps, attrs, rule = undo
+        for n, v in swaps.items():
+            if n not in outs:
+                env[n] = v
+        if attrs is not None:
+            op.attrs = attrs
+        if rule is not None and rule.regather:
+            (d,) = set(rule.regather.values())
+            for n in outs:
+                v = env.get(n)
+                if isinstance(v, torch.Tensor):
+                    if v.requires_grad:
+                        v = copy_to(v, self.group)
+                    env[n] = self.slice(v, d)
+                    self.lay[n] = d
+            return
+        for slot, names in op.outputs.items():
+            got = (rule.out.get(slot) if rule is not None else None)
+            row = got if isinstance(got, list) else [got] * len(names)
+            for n, d in zip(names, row):
+                if d is None:
+                    self.lay.pop(n, None)
+                else:
+                    self.lay[n] = d
+
+    def restore(self, op, env, ctx):
+        undo = self._undo.pop(id(op), None)
+        self._set_in(ctx, None)
+        if undo is not None:
+            swaps, attrs, _ = undo
+            env.update(swaps)
+            if attrs is not None:
+                op.attrs = attrs
+
+    def whole(self, v, name):
+        """A fetched value made global on this axis (S gathered, P
+        summed)."""
+        d = self.lay.get(name)
+        if d == P:
+            return summed(v, self.group)
+        if d is not None:
+            return gathered(v.detach(), d, self.group)
+        return v
+
+
+def _unwrap(v):
+    return v.local if isinstance(v, StageValue) else v
+
+
+def _dtype_of(program, name):
+    from .dtypes import convert_dtype
+
+    var = program.global_block()._find_var_recursive(name)
+    return convert_dtype(var.dtype if var is not None else "float32")
+
+
+class StageValue:
+    """A persistable that one pipeline stage's rank holds (see
+    ``MeshStep._stage_owner``), as every rank's scope keeps it: `local`
+    is the value on the owning rank (a tensor, or a DTensor on the model
+    axis) and None elsewhere. ``full()`` makes it whole on every rank of
+    the pipeline axis (a broadcast from the owner: every rank calls it at
+    the same point, as ``DTensor.full_tensor``)."""
+
+    __slots__ = ("owner", "mesh", "axis", "group", "rank", "shape", "dtype",
+                 "device", "local")
+
+    def __init__(self, step, name, local):
+        self.owner = step.owner[name]
+        self.mesh, self.axis = step.mesh, step.pp_axis
+        self.group = step.pp_group
+        self.rank = step.pp_rank
+        var = step.program.global_block()._find_var_recursive(name)
+        self.shape = tuple(var.shape)
+        self.dtype = _dtype_of(step.program, name)
+        self.device = step.device
+        self.local = local
+
+    @property
+    def mine(self) -> bool:
+        return self.owner == self.rank
+
+    def full(self) -> torch.Tensor:
+        """The whole value (a ZeRO slice's pad rows dropped) on every rank
+        of the pipeline axis."""
+        if self.mine:
+            v = self.local
+            if is_dtensor(v):
+                v = dtensor_whole(v)
+                v = v[tuple(slice(0, d) for d in self.shape)]
+            v = v.detach().contiguous().clone()
+        else:
+            v = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+        dist.broadcast(v, dist.get_global_rank(self.group, self.owner),
+                       group=self.group)
+        return v
+
+
 class MeshStep:
     """One CompiledProgram's per-rank step on its data axis (built by the
     executor; see the module docstring)."""
@@ -214,19 +442,36 @@ class MeshStep:
         self.program = compiled._program
         self.mesh = compiled._mesh
         self.axis = compiled._data_axis
-        self.group = self.mesh.get_group(self.axis)
-        self.size = dist.get_world_size(self.group)
-        self.rank = dist.get_rank(self.group)
+        # no data axis: every rank feeds the whole batch, and the other
+        # dims compute it alike (the JAX package's data_axis=None)
+        self.group = (self.mesh.get_group(self.axis)
+                      if self.axis is not None else None)
+        self.size = (dist.get_world_size(self.group)
+                     if self.group is not None else 1)
+        self.rank = dist.get_rank(self.group) if self.group is not None else 0
         self.device = device
         self.stage = compiled._zero_stage()
         self.tp_axis = compiled._model_axis
-        self.tp_group = (self.mesh.get_group(self.tp_axis)
-                         if self.tp_axis is not None else None)
-        self.tp_size = (dist.get_world_size(self.tp_group)
-                        if self.tp_group is not None else 1)
-        self.tp_rank = (dist.get_rank(self.tp_group)
-                        if self.tp_group is not None else 0)
+        self.tpx = (_Axis("tp", self.tp_axis,
+                          self.mesh.get_group(self.tp_axis))
+                    if self.tp_axis is not None else None)
+        self.tp_group = self.tpx.group if self.tpx is not None else None
+        self.tp_size = self.tpx.size if self.tpx is not None else 1
+        self.tp_rank = self.tpx.rank if self.tpx is not None else 0
+        self.sp_axis = compiled._seq_axis
+        self.spx = (_Axis("sp", self.sp_axis,
+                          self.mesh.get_group(self.sp_axis))
+                    if self.sp_axis is not None else None)
+        self.axes = [ax for ax in (self.tpx, self.spx) if ax is not None]
+        self.pp_axis = compiled._pp_axis
+        self.pp_group = (self.mesh.get_group(self.pp_axis)
+                         if self.pp_axis is not None else None)
+        self.pp_size = (dist.get_world_size(self.pp_group)
+                        if self.pp_group is not None else 1)
+        self.pp_rank = (dist.get_rank(self.pp_group)
+                        if self.pp_group is not None else 0)
         self.tp_state = self._tp_state()  # name -> sliced dim
+        self.owner = self._stage_owner()  # name -> its pp coordinate
         compiled._zero_pad_map()  # records program._zero_padded
         self.stored: Dict[str, _Plan] = {}   # sharded between steps
         self.param_plan: Dict[str, _Plan] = {}  # update / reduction layout
@@ -283,7 +528,7 @@ class MeshStep:
                     raise NotImplementedError(
                         f"parameter {v.name!r} is sharded over the {a!r} "
                         f"axis; the port shards parameters over the model "
-                        f"axis only (ROADMAP A9b2)")
+                        f"axis only (ROADMAP A9b3)")
             d = _spec_dim(spec, self.tp_axis)
             if d is not None and self.tp_size > 1:
                 out[v.name] = d
@@ -304,6 +549,77 @@ class MeshStep:
                         out[n] = out[ps[0]]
         return out
 
+    def _stage_owner(self) -> Dict[str, int]:
+        """{name: pp coordinate} of every persistable one pipeline stage
+        holds: the parameters of stage s of each ``pipeline`` or
+        ``pipeline_hetero`` op on the pp axis, and the persistables that
+        only that parameter's update ops read (its optimizer state). The
+        rank at coordinate s holds and updates them; the others hold none
+        of their bytes. A program whose stage count differs from the axis
+        size raises ValueError."""
+        if self.pp_axis is None:
+            return {}
+        block = self.program.global_block()
+        out: Dict[str, int] = {}
+        for op in block.ops:
+            if op.type not in ("pipeline", "pipeline_hetero") or \
+                    op.attrs.get("axis", "pp") != self.pp_axis:
+                continue
+            n = int(op.attrs["n_stages"])
+            if n != self.pp_size:
+                raise ValueError(
+                    f"{op.type}: {n} stages on the {self.pp_axis!r} mesh "
+                    f"axis of {self.pp_size} devices; the program's stage "
+                    f"count must equal the axis size")
+            flat = op.inputs["Params"]
+            if op.type == "pipeline":
+                k = int(op.attrs["n_params"])
+                stages = [flat[s * k:(s + 1) * k] for s in range(n)]
+            else:
+                stages = [list(ns) for ns in op.attrs["param_names"]]
+            for s, names in enumerate(stages):
+                for name in names:
+                    if out.get(name, s) != s:
+                        raise ValueError(
+                            f"{op.type}: parameter {name!r} is read by "
+                            f"stages {out[name]} and {s}; a pipeline "
+                            f"stage's parameters are its own")
+                    out[name] = s
+        if not out:
+            return out
+        readers: Dict[str, set] = {}
+        for op in block.ops:
+            ps = op.inputs.get("Param") or []
+            if len(ps) != 1:
+                continue
+            for n in op.input_names():
+                readers.setdefault(n, set()).add(ps[0])
+        for n, params in readers.items():
+            var = block._find_var_recursive(n)
+            if (n not in out and len(params) == 1 and var is not None
+                    and var.persistable):
+                (p,) = params
+                if p in out:
+                    out[n] = out[p]
+        return out
+
+    def foreign(self, name: str) -> bool:
+        """Whether `name` belongs to another pipeline stage's rank."""
+        s = self.owner.get(name)
+        return s is not None and s != self.pp_rank
+
+    def alias_layouts(self, dst: List[str], src: List[str]):
+        """The model-axis layouts of `src` names given to `dst` names (a
+        pipeline's template sub-block runs this rank's stage parameters
+        under stage 0's names)."""
+        if self.tpx is None:
+            return
+        for d, s_ in zip(dst, src):
+            if s_ in self.lay:
+                self.lay[d] = self.lay[s_]
+            else:
+                self.lay.pop(d, None)
+
     # -- per-step state ----------------------------------------------------
     def begin(self):
         self.batch = set()
@@ -311,8 +627,11 @@ class MeshStep:
         self.after_ad = False
         self.mode: Dict[int, str] = {}      # update op -> "shard" | "whole"
         self.spec: Dict[int, object] = {}   # op -> its dp declaration
-        self.lay: Dict[str, object] = {}    # model-axis layout: d or P
-        self._undo: Dict[int, tuple] = {}   # op -> (env swaps, attrs, rule)
+        for ax in self.axes:
+            ax.begin()
+        # model-axis layouts (d or P) by name
+        self.lay: Dict[str, object] = self.tpx.lay if self.tpx else {}
+        self.skipped: Dict[str, int] = {}   # outputs of skipped updates
 
     def plan_of(self, name: str) -> Optional[_Plan]:
         """The layout a value of `name` is sliced by in the update section:
@@ -382,7 +701,7 @@ class MeshStep:
         a new one. ``_held`` keeps each stored DTensor with its local
         tensor, so a step reads and writes them without DTensor calls."""
         held = self._held.get(name)
-        if (held is not None and scope.find_var(name) is held[0]
+        if (held is not None and _unwrap(scope.find_var(name)) is held[0]
                 and held[1].shape == local.shape
                 and held[1].dtype == local.dtype):
             if held[1].data_ptr() != local.data_ptr():
@@ -395,7 +714,7 @@ class MeshStep:
     def _store_tp(self, scope, name, local):
         """`_store_shard` for a slice on the model axis."""
         held = self._held.get(name)
-        if (held is not None and scope.find_var(name) is held[0]
+        if (held is not None and _unwrap(scope.find_var(name)) is held[0]
                 and held[1].shape == local.shape
                 and held[1].dtype == local.dtype):
             if held[1].data_ptr() != local.data_ptr():
@@ -435,119 +754,11 @@ class MeshStep:
         return DTensor.from_local(local, self.mesh, place, run_check=False,
                                   shape=torch.Size(shape), stride=stride)
 
-    def _tp_layouts(self, op, env):
-        """(slot -> [layout a value]) of the op's inputs, None for R; every
-        P input summed first (g), in the env, for every later reader."""
-        lay = {}
-        for slot, names in op.inputs.items():
-            row = []
-            for n in names:
-                got = self.lay.get(n)
-                if got == P:
-                    env[n] = reduce_from(env[n], self.tp_group)
-                    del self.lay[n]
-                    got = None
-                row.append(got)
-            lay[slot] = row
-        return lay
-
-    def _tp_before(self, op, env, ctx):
-        """Apply the op's tp declaration (see the module docstring): the
-        conversions of its inputs go into the env for this op only."""
-        ctx.tp_in = None
-        if not any(n in self.lay for n in op.input_names()):
-            return
-        lay = self._tp_layouts(op, env)
-        if not any(d is not None for row in lay.values() for d in row):
-            return
-        decl = get_op(op.type).tp if has_op(op.type) else None
-        shapes = {slot: [tuple(env[n].shape)
-                         if isinstance(env.get(n), torch.Tensor) else ()
-                         for n in names] for slot, names in op.inputs.items()}
-        rule = decl(op.attrs, lay, shapes, self.tp_size) \
-            if callable(decl) else None
-        swaps = {}
-
-        def swap(n, v):
-            swaps.setdefault(n, env[n])
-            env[n] = v
-
-        if rule is None or rule.regather:
-            for slot, names in op.inputs.items():
-                for n, d in zip(names, lay[slot]):
-                    if d is not None:
-                        swap(n, gather_along(env[n], d, self.tp_group))
-            self._undo[id(op)] = (swaps, None, rule)
-            return
-        sharded_out = any(v is not None for v in _flat(rule.out.values()))
-        for slot, names in op.inputs.items():
-            for i, (n, d) in enumerate(zip(names, lay[slot])):
-                v = env.get(n)
-                if d is not None or not isinstance(v, torch.Tensor):
-                    continue
-                cut = rule.slice_in.get(slot)
-                if sharded_out and v.requires_grad:
-                    v = copy_to(v, self.tp_group)
-                if cut is not None:
-                    v = self.tp_slice(v, cut)
-                    lay[slot][i] = cut
-                if v is not env[n]:
-                    swap(n, v)
-        ctx.tp_in = {slot: [None if d is None else
-                            TPShard(d, self.tp_rank, self.tp_size,
-                                    self.tp_group) for d in row]
-                     for slot, row in lay.items()}
-        attrs = None
-        if rule.attrs:
-            attrs = op.attrs
-            op.attrs = {**op.attrs, **rule.attrs}
-        self._undo[id(op)] = (swaps, attrs, rule)
-
-    def _tp_after(self, op, env, ctx):
-        """Restore what `_tp_before` swapped and record the outputs'
-        layouts."""
-        ctx.tp_in = None
-        outs = op.output_names()
-        undo = self._undo.pop(id(op), None)
-        if undo is None:
-            for n in outs:
-                self.lay.pop(n, None)
-            return
-        swaps, attrs, rule = undo
-        for n, v in swaps.items():
-            if n not in outs:
-                env[n] = v
-        if attrs is not None:
-            op.attrs = attrs
-        if rule is not None and rule.regather:
-            (d,) = set(rule.regather.values())
-            for n in outs:
-                v = env.get(n)
-                if isinstance(v, torch.Tensor):
-                    if v.requires_grad:
-                        v = copy_to(v, self.tp_group)
-                    env[n] = self.tp_slice(v, d)
-                    self.lay[n] = d
-            return
-        for slot, names in op.outputs.items():
-            got = (rule.out.get(slot) if rule is not None else None)
-            row = got if isinstance(got, list) else [got] * len(names)
-            for n, d in zip(names, row):
-                if d is None:
-                    self.lay.pop(n, None)
-                else:
-                    self.lay[n] = d
-
     def restore(self, op, env, ctx):
         """Undo an op's input swaps and attribute overrides after it
         raised (the program's attributes must not keep this rank's)."""
-        undo = self._undo.pop(id(op), None)
-        ctx.tp_in = None
-        if undo is not None:
-            swaps, attrs, _ = undo
-            env.update(swaps)
-            if attrs is not None:
-                op.attrs = attrs
+        for ax in self.axes:
+            ax.restore(op, env, ctx)
 
     def _tp_update(self, op, env) -> bool:
         """An update-section op that reads a slice: the optimizer ops and
@@ -578,7 +789,25 @@ class MeshStep:
         """Every rank feeds the same number of rows: one all-gather of the
         row counts, run by every rank at the start of every step, so a
         rank that feeds another count (a ragged last batch) raises on
-        every rank before the step's first collective."""
+        every rank before the step's first collective. On a sequence axis
+        every feed of rank ≥ 2 has a dim 1 that the axis divides, the same
+        on each rank of it."""
+        if self.spx is not None and feed_vals:
+            lens = [int(v.shape[1]) for _, v in sorted(feed_vals.items())
+                    if v.ndim >= 2]
+            mine = torch.tensor(lens or [0], dtype=torch.int64,
+                                device=self.device)
+            every = mine.new_empty(self.spx.size * mine.numel())
+            all_gather_into(every, mine, self.spx.group)
+            every = every.view(self.spx.size, -1).cpu()
+            bad = [t for t in lens if t % self.spx.size]
+            if not bool((every == every[0]).all()) or bad:
+                raise ValueError(
+                    f"sequence-parallel feeds: dim 1 of every feed of rank "
+                    f">= 2 must be the same on each rank of the "
+                    f"{self.sp_axis!r} axis and divisible by its size "
+                    f"{self.spx.size}; got {every.tolist()} for "
+                    f"{sorted(n for n, v in feed_vals.items() if v.ndim >= 2)}")
         if self.size == 1 or not feed_vals:
             return
         rows = [int(v.shape[0]) if v.ndim else 1
@@ -593,11 +822,32 @@ class MeshStep:
                 f"of rows (its local batch); got {every.tolist()} for "
                 f"{sorted(feed_vals)}")
 
+    def place_feeds(self, feed_vals):
+        """The feeds as this rank holds them: on a sequence axis, dim 1 of
+        every feed of rank ≥ 2 is sliced (S(1)); the rest as fed."""
+        if self.spx is None:
+            return feed_vals
+        out = {}
+        for n, v in feed_vals.items():
+            if v.ndim >= 2:
+                v = self.spx.slice(v, 1)
+                self.spx.lay[n] = 1
+            out[n] = v
+        return out
+
     def load_state(self, env, scope, state_names):
         """Scope → env: sharded leaves as this rank's slice, the rest whole
-        on the step's device."""
+        on the step's device; another pipeline stage's persistables as an
+        empty placeholder (this rank holds none of their bytes)."""
         for n in state_names:
             v = scope.find_var(n)
+            if n in self.owner:
+                if isinstance(v, StageValue):
+                    v = v.local
+                if self.foreign(n):
+                    env[n] = torch.empty(0, device=self.device,
+                                         dtype=_dtype_of(self.program, n))
+                    continue
             if n in self.tp_state:
                 d = self.tp_state[n]
                 self.lay[n] = d
@@ -640,17 +890,45 @@ class MeshStep:
 
         if scope.find_var(_RNG_RANK) == (self.rank, self.size, id(gen)):
             return gen
-        seed = torch.tensor([int(self.program.random_seed or 0)],
-                            dtype=torch.int64, device=self.device)
-        dist.broadcast(seed, dist.get_global_rank(self.group, 0),
-                       group=self.group)
-        if self.rank:
-            folded = (int(seed.item()) * 0x9E3779B1
-                      + self.rank * 0x7F4A7C15) % (2 ** 63)
-            gen = torch.Generator(self.device).manual_seed(folded)
-            scope.set_var(_RNG_STATE, gen)
+        if self.group is not None:
+            seed = torch.tensor([int(self.program.random_seed or 0)],
+                                dtype=torch.int64, device=self.device)
+            dist.broadcast(seed, dist.get_global_rank(self.group, 0),
+                           group=self.group)
+            if self.rank:
+                folded = (int(seed.item()) * 0x9E3779B1
+                          + self.rank * 0x7F4A7C15) % (2 ** 63)
+                gen = torch.Generator(self.device).manual_seed(folded)
+                scope.set_var(_RNG_STATE, gen)
         scope.set_var(_RNG_RANK, (self.rank, self.size, id(gen)))
         return gen
+
+    def skip(self, op) -> bool:
+        """Whether this rank leaves out an update-section op: one that
+        reads or writes another pipeline stage's values (its parameters,
+        their gradients and optimizer state, or what a left-out op wrote).
+        An op that mixes two stages' values raises: no rank holds both."""
+        if not self.owner or not self.after_ad:
+            return False
+        owners = set()
+        for n in op.input_names() + op.output_names():
+            s = self.skipped.get(n, self.owner.get(n))
+            if s is None and n.endswith("@GRAD"):
+                s = self.owner.get(n[:-5])
+            if s is not None:
+                owners.add(s)
+        if len(owners) > 1:
+            raise NotImplementedError(
+                f"update op {op.type!r} reads the values of pipeline stages "
+                f"{sorted(owners)}; each stage's rank holds only its own "
+                f"(an update across stages, such as a global-norm clip, is "
+                f"ROADMAP A9b3)")
+        if owners and owners != {self.pp_rank}:
+            (s,) = owners
+            for n in op.output_names():
+                self.skipped[n] = s
+            return True
+        return False
 
     def before_op(self, op, env, ctx):
         ctx.in_names = op.inputs
@@ -660,8 +938,8 @@ class MeshStep:
             spec = self._spec(op, env)
             if spec is not None:
                 self.spec[id(op)] = spec
-            if self.tp_group is not None:
-                self._tp_before(op, env, ctx)
+            for ax in self.axes:
+                ax.before(op, env, ctx)
             return
         if self.lay and self._tp_update(op, env):
             return
@@ -698,8 +976,8 @@ class MeshStep:
 
     def after_op(self, op, env, ctx=None):
         if not self.after_ad:
-            if self.tp_group is not None:
-                self._tp_after(op, env, ctx)
+            for ax in self.axes:
+                ax.after(op, env, ctx)
             spec = self.spec.pop(id(op), None)
             if spec is None or spec == GLOBAL:
                 return
@@ -760,7 +1038,7 @@ class MeshStep:
                 f"row by row, and its input {name!r} is batch-sharded on the "
                 f"data-parallel axis (each rank holds its own rows of dim "
                 f"0); the port refuses it rather than compute one rank's "
-                f"part as the whole (ROADMAP A9b2: ops across the batch "
+                f"part as the whole (ROADMAP A9b3: ops across the batch "
                 f"dim)")
         return spec
 
@@ -794,15 +1072,16 @@ class MeshStep:
         planned: Dict[torch.dtype, List[tuple]] = {}
         flat: Dict[torch.dtype, List[tuple]] = {}
         for t in dict.fromkeys(targets):
-            if t in self.batch:
-                continue  # a rank's own rows: nothing to sum
+            if t in self.batch or self.foreign(t):
+                continue  # a rank's own rows, or another stage's
             g = env.get(grad_var_name(t))
             if isinstance(g, SelectedRows):
                 env[grad_var_name(t)] = self.selected_rows(t, g)
                 continue
             if t in self.tp_state:
                 self.lay[grad_var_name(t)] = self.tp_state[t]
-            if not isinstance(g, torch.Tensor) or not g.is_floating_point():
+            if (not isinstance(g, torch.Tensor) or not g.is_floating_point()
+                    or self.group is None):
                 continue
             plan = self.param_plan.get(t)
             (planned if plan is not None else flat).setdefault(
@@ -886,6 +1165,10 @@ class MeshStep:
         for n in persistables:
             if n not in env:
                 continue
+            if self.foreign(n):
+                if not isinstance(scope.find_var(n), StageValue):
+                    scope.set_var(n, StageValue(self, n, None))
+                continue
             v = env[n]
             if isinstance(v, torch.Tensor):
                 v = v.detach()
@@ -906,27 +1189,45 @@ class MeshStep:
         for n, v in self.gather_many(gathers):
             env[n] = new_state[n] = v
             scope.set_var(n, v)
+        for n in self.owner:
+            cur = scope.find_var(n)
+            if n in new_state and not isinstance(cur, StageValue):
+                scope.set_var(n, StageValue(self, n, cur))
         self.state_bytes = sum(v.numel() * v.element_size()
                                for v in new_state.values()
                                if isinstance(v, torch.Tensor))
         fetches = []
         for n in fetch_names:
             v = env[n]
-            d = self.lay.get(n)
-            if d == P:
-                v = summed(v, self.tp_group)
-            elif d is not None:
-                v = gathered(v.detach(), d, self.tp_group)
+            for ax in self.axes:
+                v = ax.whole(v, n)
             if n in self.local:
                 v = self.gather(v.detach(), self.local[n])
-            elif n in self.batch and isinstance(v, torch.Tensor) and v.ndim:
+            elif (n in self.batch and isinstance(v, torch.Tensor) and v.ndim
+                  and self.group is not None):
                 v = v.detach().contiguous()
                 out = v.new_empty((self.size * v.shape[0],)
                                   + tuple(v.shape[1:]))
                 all_gather_into(out, v, self.group)
                 v = out
+            if n in self.owner:
+                v = self._from_owner(n, v)
             fetches.append(v)
         return fetches, new_state
+
+    def _from_owner(self, n, v):
+        """A stage's value on every rank of the pipeline axis: broadcast
+        from the rank that holds it."""
+        s = self.owner[n]
+        if s != self.pp_rank:
+            var = self.program.global_block()._find_var_recursive(n)
+            v = torch.empty(tuple(var.shape), dtype=_dtype_of(
+                self.program, n), device=self.device)
+        else:
+            v = v.detach().contiguous().clone()
+        dist.broadcast(v, dist.get_global_rank(self.pp_group, s),
+                       group=self.pp_group)
+        return v
 
     def record_state_bytes(self):
         """``memory/state_bytes_per_device``: the persistable bytes this
@@ -937,4 +1238,5 @@ class MeshStep:
 def mesh_key(compiled) -> Tuple:
     """What a MeshStep is built for: a new one when any of it changes."""
     return (id(compiled._mesh), compiled._data_axis, compiled._model_axis,
-            compiled._zero_stage(), compiled._program._version)
+            compiled._pp_axis, compiled._seq_axis, compiled._zero_stage(),
+            compiled._program._version)

@@ -54,6 +54,12 @@ or "gather the input, slice the outputs"), or None. An op that declares
 nothing, or whose callable returns None, gets every sharded input
 gathered whole and runs on the whole value: always correct (GSPMD does
 the same when it cannot keep a layout).
+
+`sp` is the same declaration on a sequence axis (``with_mesh(seq_axis=)``:
+the feeds' dim 1 sliced over it), with the same signature and the same
+:class:`TP` answer; an op that declares nothing gets its sliced inputs
+gathered whole. A declaration written for any dim (``same_layout``, the
+elementwise rule) serves both axes.
 """
 from __future__ import annotations
 
@@ -97,11 +103,11 @@ def same_layout(attrs, lay, shapes, n):
 
 class OpDef:
     __slots__ = ("type", "fn", "differentiable", "nondiff_inputs",
-                 "mutable_persistables", "grad_fn", "dp", "tp")
+                 "mutable_persistables", "grad_fn", "dp", "tp", "sp")
 
     def __init__(self, type: str, fn: OpImpl, differentiable: bool = True,
                  nondiff_inputs: Optional[List[str]] = None, grad_fn=None,
-                 dp=None, tp=None):
+                 dp=None, tp=None, sp=None):
         self.type = type
         self.fn = fn
         self.differentiable = differentiable
@@ -114,18 +120,19 @@ class OpDef:
         self.grad_fn = grad_fn
         self.dp = dp  # the op on a data-parallel mesh (module docstring)
         self.tp = tp  # the op on a model axis (module docstring)
+        self.sp = sp  # the op on a sequence axis (module docstring)
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register_op(type: str, differentiable: bool = True, nondiff_inputs=None,
-                grad_fn=None, dp=None, tp=None):
+                grad_fn=None, dp=None, tp=None, sp=None):
     def deco(fn: OpImpl):
         if type in _REGISTRY:
             raise ValueError(f"op {type!r} registered twice")
         _REGISTRY[type] = OpDef(type, fn, differentiable, nondiff_inputs,
-                                grad_fn, dp, tp)
+                                grad_fn, dp, tp, sp)
         return fn
 
     return deco

@@ -292,7 +292,7 @@ __device__ __forceinline__ void dq_f32_cta(const BwdParams& p, int cta) {
     if (last) {
       // ds = p·(dp − delta), in place of s (selects, no branch)
       const uint32_t keep =
-          p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold,
+          p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop,
                                             bh, q0 + r0, k0, t)
                     : ~0u;
       const int k_left = p.Tk - k0;  // keys of this tile inside Tk
@@ -427,7 +427,7 @@ __device__ __forceinline__ void dkv_f32_cta(const BwdParams& p, int cta) {
     if (last) {
       // p_drop in place of sᵀ, ds in place of dpᵀ (selects, no branch)
       const uint32_t keep =
-          p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop.threshold,
+          p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop,
                                             bh, k0 + r0, q0, lane)
                     : ~0u;
       const int q_left = p.Tq - q0;  // queries of this tile inside Tq
@@ -742,7 +742,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
 
     // ds = p·(dp − delta), in place of s (selects, no branch)
     const uint32_t keep =
-        p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold, bh,
+        p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop, bh,
                                           q0 + r0, k0, t)
                   : ~0u;
     float bv[32];
@@ -928,7 +928,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ Bf16BwdParams p) {
 
     // p_drop in place of sᵀ, ds in place of dpᵀ (selects, no branch)
     const uint32_t keep =
-        p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop.threshold, bh,
+        p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop, bh,
                                           k0 + r0, q0, lane)
                   : ~0u;
     float bv[32];
@@ -1115,7 +1115,7 @@ int flash_attention_bwd_f32(
     long long dk_sb, long long dk_sh, long long dk_st, long long dv_sb,
     long long dv_sh, long long dv_st, long long b_sb, long long b_sh,
     long long b_sq, long long b_sk, float sm_scale, int causal,
-    const long long* seed, unsigned threshold, float drop_scale, int dropout,
+    const long long* seed, unsigned threshold, float drop_scale, int dropout, const int* drop_offsets,
     void* stream) {
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
@@ -1137,6 +1137,7 @@ int flash_attention_bwd_f32(
   p.drop.threshold = threshold;
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
+  flash::set_offsets(p.drop, H, drop_offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return (int)launch_f32<64>(p, s);
@@ -1176,7 +1177,7 @@ int flash_attention_bwd_bf16(
     long long dq_sh, long long dq_st, long long dk_sb, long long dk_sh,
     long long dk_st, long long dv_sb, long long dv_sh, long long dv_st,
     int bias_mode, float sm_scale, int causal, const long long* seed,
-    unsigned threshold, float drop_scale, int dropout, void* stream) {
+    unsigned threshold, float drop_scale, int dropout, const int* drop_offsets, void* stream) {
   if (!head_dim_ok(D)) return (int)cudaErrorInvalidValue;
   constexpr int n = hopper::kDescLen;
   const long long* bias = tensors + 4 * n;
@@ -1218,6 +1219,7 @@ int flash_attention_bwd_bf16(
   p.drop.threshold = threshold;
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
+  flash::set_offsets(p.drop, H, drop_offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return (int)launch_bf16<64>(p, s);

@@ -279,7 +279,7 @@ flash_fwd_f32_kernel(FwdParams p) {
       }
       if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
         const uint32_t keep = flash::keep_bits_rows(
-            key0, key1, p.drop.threshold, bh, q0 + r0, k0, t);
+            key0, key1, p.drop, bh, q0 + r0, k0, t);
 #pragma unroll
         for (int i = 0; i < 32; ++i)
           s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
@@ -476,7 +476,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16FwdParams p) {
     }
     if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
       const uint32_t keep = flash::keep_bits_rows(
-          key0, key1, p.drop.threshold, bh, q0 + r0, k0, t);
+          key0, key1, p.drop, bh, q0 + r0, k0, t);
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
@@ -587,7 +587,7 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                             long long o_sh, long long o_st, long long b_sb,
                             long long b_sh, long long b_sq, long long b_sk,
                             float sm_scale, int causal, const long long* seed,
-                            unsigned threshold, float drop_scale, int dropout,
+                            unsigned threshold, float drop_scale, int dropout, const int* drop_offsets,
                             void* stream) {
   FwdParams p;
   p.q = q; p.k = k; p.v = v; p.bias = bias; p.out = out; p.lse = lse;
@@ -603,6 +603,7 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
   p.drop.threshold = threshold;
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
+  flash::set_offsets(p.drop, H, drop_offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return (int)launch_f32<64>(p, s);
@@ -623,7 +624,7 @@ int flash_attention_fwd_bf16(const long long* tensors, void* out, float* lse,
                              long long o_st, int bias_mode, float sm_scale,
                              int causal, const long long* seed,
                              unsigned threshold, float drop_scale,
-                             int dropout, void* stream) {
+                             int dropout, const int* drop_offsets, void* stream) {
   if (D != 64 && D != 128 && D != 192 && D != 256)
     return (int)cudaErrorInvalidValue;
   Bf16FwdParams p;
@@ -652,6 +653,7 @@ int flash_attention_fwd_bf16(const long long* tensors, void* out, float* lse,
   p.drop.threshold = threshold;
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
+  flash::set_offsets(p.drop, H, drop_offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return (int)launch_bf16<64>(p, s);

@@ -354,7 +354,7 @@ __device__ __forceinline__ void sparse_dq_bf16(const Bf16SparseBwdParams& p,
 
     // ds = p·(dp − delta) in place of s; masked p is exactly 0 (selects)
     const uint32_t keep =
-        p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold, bh,
+        p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop, bh,
                                           q0 + r0, k0, t)
                   : ~0u;
 #pragma unroll
@@ -514,7 +514,7 @@ __device__ __forceinline__ void sparse_dkv_bf16(const Bf16SparseBwdParams& p,
 
     // p_drop in place of sᵀ, ds in place of dpᵀ; masked p is exactly 0
     const uint32_t keep =
-        p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop.threshold, bh,
+        p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop, bh,
                                           k0 + r0, q0, lane)
                   : ~0u;
 #pragma unroll
@@ -748,7 +748,7 @@ sparse_fwd_bf16_kernel(const __grid_constant__ Bf16SparseFwdParams p) {
     }
     if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
       const uint32_t keep = flash::keep_bits_rows(
-          key0, key1, p.drop.threshold, bh, q0 + r0, k0, t);
+          key0, key1, p.drop, bh, q0 + r0, k0, t);
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
@@ -977,7 +977,7 @@ __global__ void __launch_bounds__(128) sparse_fwd_f32_kernel(SparseParams p) {
       }
       if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
         const uint32_t keep = flash::keep_bits_rows(
-            key0, key1, p.drop.threshold, bh, q0 + r0, k0, t);
+            key0, key1, p.drop, bh, q0 + r0, k0, t);
 #pragma unroll
         for (int i = 0; i < 32; ++i)
           s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
@@ -1099,7 +1099,7 @@ __device__ __forceinline__ void sparse_dq_f32(const SparseParams& p,
     if (walk.c == kChunks - 1) {
       // ds = p·(dp − delta) in place of s; masked p is exactly 0 (selects)
       const uint32_t keep =
-          p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold,
+          p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop,
                                             bh, q0 + r0, k0, t)
                     : ~0u;
 #pragma unroll
@@ -1225,7 +1225,7 @@ __device__ __forceinline__ void sparse_dkv_f32(const SparseParams& p,
     if (walk.c == kChunks - 1) {
       // p_drop in place of sᵀ, ds in place of dpᵀ; masked p is exactly 0
       const uint32_t keep =
-          p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop.threshold,
+          p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop,
                                             bh, k0 + r0, q0, lane)
                     : ~0u;
 #pragma unroll
@@ -1359,7 +1359,7 @@ void set_common(SparseParams& p, const void* q, const void* k, const void* v,
                 const int* se, const int* vis, int B, int H, int Tq, int Tk,
                 const long long* qs, const long long* ks, const long long* vs,
                 float sm_scale, int causal, const long long* seed,
-                unsigned threshold, float drop_scale, int dropout) {
+                unsigned threshold, float drop_scale, int dropout, const int* drop_offsets) {
   p = SparseParams{};
   p.q = q; p.k = k; p.v = v; p.se = se; p.vis = vis;
   p.B = B; p.H = H; p.Tq = Tq; p.Tk = Tk;
@@ -1372,6 +1372,7 @@ void set_common(SparseParams& p, const void* q, const void* k, const void* v,
   p.drop.threshold = threshold;
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
+  flash::set_offsets(p.drop, H, drop_offsets);
 }
 
 }  // namespace
@@ -1391,12 +1392,12 @@ int flash_attention_sparse_fwd(
     const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* o_strides, float sm_scale,
     int causal, const long long* seed, unsigned threshold, float drop_scale,
-    int dropout, void* stream) {
+    int dropout, const int* drop_offsets, void* stream) {
   if (!shape_ok(Tq, Tk, D, causal)) return (int)cudaErrorInvalidValue;
   SparseParams p;
   set_common(p, q, k, v, se, vis, B, H, Tq, Tk, q_strides, k_strides,
              v_strides, sm_scale, causal, seed, threshold, drop_scale,
-             dropout);
+             dropout, drop_offsets);
   p.out = out; p.lse = lse;
   p.o_sb = o_strides[0]; p.o_sh = o_strides[1]; p.o_st = o_strides[2];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1417,7 +1418,7 @@ int flash_attention_sparse_fwd_bf16(
     const long long* tensors, const int* vis, void* out, float* lse, int B,
     int H, int Tq, int Tk, int D, long long o_sb, long long o_sh,
     long long o_st, float sm_scale, int causal, const long long* seed,
-    unsigned threshold, float drop_scale, int dropout, void* stream) {
+    unsigned threshold, float drop_scale, int dropout, const int* drop_offsets, void* stream) {
   if (!shape_ok(Tq, Tk, D, causal)) return (int)cudaErrorInvalidValue;
   constexpr int n = hopper::kDescLen;
   Bf16SparseFwdParams p;
@@ -1441,6 +1442,7 @@ int flash_attention_sparse_fwd_bf16(
   p.drop.threshold = threshold;
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
+  flash::set_offsets(p.drop, H, drop_offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return (int)launch_fwd_bf16<64>(p, s);
@@ -1463,12 +1465,12 @@ int flash_attention_sparse_bwd(
     const long long* g_strides, const long long* dq_strides,
     const long long* dk_strides, const long long* dv_strides, float sm_scale,
     int causal, const long long* seed, unsigned threshold, float drop_scale,
-    int dropout, void* stream) {
+    int dropout, const int* drop_offsets, void* stream) {
   if (!shape_ok(Tq, Tk, D, causal)) return (int)cudaErrorInvalidValue;
   SparseParams p;
   set_common(p, q, k, v, se, vis, B, H, Tq, Tk, q_strides, k_strides,
              v_strides, sm_scale, causal, seed, threshold, drop_scale,
-             dropout);
+             dropout, drop_offsets);
   p.dout = dout; p.lse_in = lse; p.delta = delta;
   p.lse_pitch = lse_pitch; p.delta_pitch = delta_pitch;
   p.dq = dq; p.dk = dk; p.dv = dv;
@@ -1496,7 +1498,7 @@ int flash_attention_sparse_bwd_bf16(
     long long dq_st, long long dk_sb, long long dk_sh, long long dk_st,
     long long dv_sb, long long dv_sh, long long dv_st, float sm_scale,
     int causal, const long long* seed, unsigned threshold, float drop_scale,
-    int dropout, void* stream) {
+    int dropout, const int* drop_offsets, void* stream) {
   if (!shape_ok(Tq, Tk, D, causal)) return (int)cudaErrorInvalidValue;
   constexpr int n = hopper::kDescLen;
   Bf16SparseBwdParams p;
@@ -1533,6 +1535,7 @@ int flash_attention_sparse_bwd_bf16(
   p.drop.threshold = threshold;
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
+  flash::set_offsets(p.drop, H, drop_offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return (int)launch_bwd_bf16<64>(p, s);

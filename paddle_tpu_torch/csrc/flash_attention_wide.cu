@@ -572,7 +572,7 @@ __device__ __forceinline__ void wide_f32_cta(const WideParams& p, int nch,
           m[hh] = m_new;
         }
         const uint32_t keep =
-            p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold,
+            p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop,
                                               bh, row, c0, t)
                       : ~0u;
 #pragma unroll
@@ -596,7 +596,7 @@ __device__ __forceinline__ void wide_f32_cta(const WideParams& p, int nch,
       } else if constexpr (KIND == kDq) {
         // ds = p·(dp − delta) in place of s; the per-query dbias is ds
         const uint32_t keep =
-            p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop.threshold,
+            p.drop.on ? flash::keep_bits_rows(key0, key1, p.drop,
                                               bh, row, c0, t)
                       : ~0u;
 #pragma unroll
@@ -627,7 +627,7 @@ __device__ __forceinline__ void wide_f32_cta(const WideParams& p, int nch,
         // rows are keys, columns queries: dk: ds in place of dPᵀ; dv:
         // p_drop in place of Sᵀ
         const uint32_t keep =
-            p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop.threshold,
+            p.drop.on ? flash::keep_bits_cols(key0, key1, p.drop,
                                               bh, row, c0, lane)
                       : ~0u;
 #pragma unroll
@@ -1082,7 +1082,7 @@ wide_fwd_bf16_kernel(const __grid_constant__ Params p) {
     }
     if (p.drop.on) {  // drop after the row sum: lse is over the undropped p
       const uint32_t keep = flash::keep_bits_rows(
-          key0, key1, p.drop.threshold, c.bh, q0 + r0, k0, t);
+          key0, key1, p.drop, c.bh, q0 + r0, k0, t);
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         s[i] = (keep >> i) & 1u ? s[i] * p.drop.scale : 0.f;
@@ -1596,9 +1596,9 @@ __device__ __forceinline__ void role_cta(const Params& p, long long cta) {
     // keep bits of the lane's 32 elements
     uint32_t keep = ~0u;
     if (p.drop.on)
-      keep = kQRows ? flash::keep_bits_rows(key0, key1, p.drop.threshold, bh,
+      keep = kQRows ? flash::keep_bits_rows(key0, key1, p.drop, bh,
                                             row0 + r0, c0, t)
-                    : flash::keep_bits_cols(key0, key1, p.drop.threshold, bh,
+                    : flash::keep_bits_cols(key0, key1, p.drop, bh,
                                             row0 + r0, c0, lane);
 
     if constexpr (ROLE == kDv) {
@@ -1714,11 +1714,12 @@ void copy3(long long (&dst)[3], const long long* src) {
 }
 
 void set_dropout(WideParams& p, const long long* seed, unsigned threshold,
-                 float drop_scale, int dropout) {
+                 float drop_scale, int dropout, const int* drop_offsets) {
   p.drop.seed = seed;
   p.drop.threshold = threshold;
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
+  flash::set_offsets(p.drop, p.H, drop_offsets);
 }
 
 // D a multiple of 64, dtype 0 = f32 or 1 = bf16; sparse needs Tq, Tk
@@ -1748,7 +1749,7 @@ int flash_attention_wide_fwd(const void* q, const void* k, const void* v,
                              int Tk, int D, const long long* strides,
                              float sm_scale, int causal, int sparse,
                              const long long* seed, unsigned threshold,
-                             float drop_scale, int dropout, void* stream) {
+                             float drop_scale, int dropout, const int* drop_offsets, void* stream) {
   WideParams p = {};
   p.q = q; p.k = k; p.v = v; p.bias = bias; p.se = se; p.vis = vis;
   p.out = out; p.lse_out = lse;
@@ -1758,7 +1759,7 @@ int flash_attention_wide_fwd(const void* q, const void* k, const void* v,
   for (int i = 0; i < 4; ++i) p.b_s[i] = strides[12 + i];
   p.sm_scale = sm_scale;
   p.causal = causal;
-  set_dropout(p, seed, threshold, drop_scale, dropout);
+  set_dropout(p, seed, threshold, drop_scale, dropout, drop_offsets);
   if (!args_ok(p, 0, sparse)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(sparse ? f32w::run_fwd<true>(p, s)
@@ -1779,7 +1780,7 @@ int flash_attention_wide_fwd_bf16(const long long* tensors, const int* se,
                                   long long o_st, int bias_mode,
                                   float sm_scale, int causal, int sparse,
                                   const long long* seed, unsigned threshold,
-                                  float drop_scale, int dropout,
+                                  float drop_scale, int dropout, const int* drop_offsets,
                                   void* stream) {
   WideParams w = {};
   w.se = se; w.vis = vis; w.B = B; w.H = H; w.Tq = Tq; w.Tk = Tk; w.D = D;
@@ -1812,6 +1813,7 @@ int flash_attention_wide_fwd_bf16(const long long* tensors, const int* se,
   p.drop.threshold = threshold;
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
+  flash::set_offsets(p.drop, H, drop_offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(sparse ? bfw::run<true>(p, s) : bfw::run<false>(p, s));
 }
@@ -1834,7 +1836,7 @@ int flash_attention_wide_bwd(const void* q, const void* k, const void* v,
                              int D, const long long* strides, float sm_scale,
                              int causal, int sparse, const long long* seed,
                              unsigned threshold, float drop_scale,
-                             int dropout, void* stream) {
+                             int dropout, const int* drop_offsets, void* stream) {
   WideParams p = {};
   p.q = q; p.k = k; p.v = v; p.g = dout; p.bias = bias; p.se = se;
   p.vis = vis; p.lse = lse; p.lse_pitch = lse_pitch; p.delta = delta;
@@ -1847,7 +1849,7 @@ int flash_attention_wide_bwd(const void* q, const void* k, const void* v,
   for (int i = 0; i < 4; ++i) p.b_s[i] = strides[21 + i];
   p.sm_scale = sm_scale;
   p.causal = causal;
-  set_dropout(p, seed, threshold, drop_scale, dropout);
+  set_dropout(p, seed, threshold, drop_scale, dropout, drop_offsets);
   if (!args_ok(p, 0, sparse)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(sparse ? f32w::run_bwd<true>(p, s)
@@ -1870,7 +1872,7 @@ int flash_attention_wide_bwd_bf16(
     long long dq_sb, long long dq_sh, long long dq_st, long long dk_sb,
     long long dk_sh, long long dk_st, long long dv_sb, long long dv_sh,
     long long dv_st, int bias_mode, float sm_scale, int causal, int sparse,
-    const long long* seed, unsigned threshold, float drop_scale, int dropout,
+    const long long* seed, unsigned threshold, float drop_scale, int dropout, const int* drop_offsets,
     void* stream) {
   constexpr int n = hopper::kDescLen;
   const long long* bias = tensors + 4 * n;
@@ -1927,6 +1929,7 @@ int flash_attention_wide_bwd_bf16(
   p.drop.threshold = threshold;
   p.drop.scale = drop_scale;
   p.drop.on = dropout;
+  flash::set_offsets(p.drop, H, drop_offsets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(sparse ? bwb::run<true>(p, s) : bwb::run<false>(p, s));
 }

@@ -5,11 +5,18 @@
 // flash_attention.py (_keep_mask, reseeded per logical (b, q-block, k-block)
 // through _block_index). Here the keep bit of score (bh, i, j) is a pure
 // function of (seed, bh, i, j): word j % 4 of Philox with key (seed mod 2^32,
-// seed >> 32) and counter (j / 4, i, bh, 0). So the forward kernel, both
-// backward kernels and the plain PyTorch versions
-// (ops/kernels/flash_attention.py, dropout_keep_mask) draw the same mask
-// whatever their tile sizes. Dropping follows the JAX rule: drop iff the
-// word is below round(rate * 2^32); a kept p is scaled by 1 / (1 - rate).
+// seed >> 32) and counter (j / 4, i, bh, 0), where bh, i and j are the
+// WHOLE run's indices: a launch over H heads of its own, given the offsets
+// (heads_total, head0, row0) by its C entry (set_offsets; kernel
+// parameters, so the default path costs a uniform compare), maps its
+// (b·H + h, i, j) to (b·heads_total + head0 + h, row0 + i, j). So a
+// rank that holds heads head0.. of a model axis, or rows row0.. of a
+// sequence axis, draws the bits of the unsharded run; with no offsets
+// every bit is the launch's own. The forward kernel, both backward kernels and the plain PyTorch
+// versions (ops/kernels/flash_attention.py, dropout_keep_mask) draw the
+// same mask whatever their tile sizes. Dropping follows the JAX rule: drop
+// iff the word is below round(rate * 2^32); a kept p is scaled by
+// 1 / (1 - rate).
 //
 // Cost: one Philox call gives the bits of 4 scores, so a 64x64 tile takes
 // 1024 calls (10 rounds of two 32-bit multiplies each). The flash kernels
@@ -26,7 +33,26 @@ struct Dropout {
   uint32_t threshold;     // drop iff the 32-bit word < threshold
   float scale;            // 1 / (1 - rate)
   int on;
+  int heads;              // the launch's head count H
+  int heads_total;        // the whole run's head count (H by default)
+  int head0, row0;        // the launch's first head and query row
+
+  // the whole run's (b, h) index of the launch's bh = b·H + h
+  __device__ __forceinline__ int bh_of(int bh) const {
+    return heads_total == heads && head0 == 0
+               ? bh
+               : (bh / heads) * heads_total + head0 + bh % heads;
+  }
 };
+
+// The C entries' offsets argument: NULL, or host int[3] = {heads_total (0
+// = the launch's H), head0, row0}.
+inline void set_offsets(Dropout& d, int heads, const int* offs) {
+  d.heads = heads;
+  d.heads_total = offs != nullptr && offs[0] > 0 ? offs[0] : heads;
+  d.head0 = offs != nullptr ? offs[1] : 0;
+  d.row0 = offs != nullptr ? offs[2] : 0;
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
                                                uint32_t c2, uint32_t c3,
@@ -61,12 +87,15 @@ __device__ __forceinline__ uint32_t keep_nibble(const uint4& w, uint32_t t) {
 }
 
 // Rows are queries (row0 = the lane's first query), columns the 64 keys
-// from k0. Lanes t and t^1 hold the same 4-key groups: the even lane draws
+// from k0 (the launch's indices; the helper adds d's offsets). Lanes t and t^1 hold the same 4-key groups: the even lane draws
 // them for row0, the odd one for row0 + 8, and they swap.
 __device__ __forceinline__ uint32_t keep_bits_rows(uint32_t key0,
-                                                   uint32_t key1, uint32_t thr,
-                                                   int bh, int row0, int k0,
-                                                   int t) {
+                                                   uint32_t key1,
+                                                   const Dropout& d, int bh,
+                                                   int row0, int k0, int t) {
+  const uint32_t thr = d.threshold;
+  bh = d.bh_of(bh);
+  row0 += d.row0;
   const int par = t & 1;
   uint32_t mine = 0;
 #pragma unroll
@@ -90,9 +119,13 @@ __device__ __forceinline__ uint32_t keep_bits_rows(uint32_t key0,
 // of a group: lane m = g % 4 draws the groups of row half m / 2 for the
 // column parity m % 2, and each takes word g % 4 of the others'.
 __device__ __forceinline__ uint32_t keep_bits_cols(uint32_t key0,
-                                                   uint32_t key1, uint32_t thr,
-                                                   int bh, int row0, int q0,
+                                                   uint32_t key1,
+                                                   const Dropout& d, int bh,
+                                                   int row0, int q0,
                                                    int lane) {
+  const uint32_t thr = d.threshold;
+  bh = d.bh_of(bh);
+  q0 += d.row0;
   const int g = lane >> 2, t = lane & 3, m = g & 3;
   const int h = m >> 1, e = m & 1;
   uint32_t mine = 0;

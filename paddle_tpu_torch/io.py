@@ -35,9 +35,30 @@ def _executor_device(executor):
     return getattr(executor, "device", None) or torch.device("cpu")
 
 
+def _host_array(program: Program, name: str, val) -> np.ndarray:
+    """A scope value as a numpy array. After a mesh run a value split over
+    an axis (a ``DTensor``) or held by one pipeline stage's ranks (a
+    ``StageValue``) is made whole first (``mesh_step.logical_value``): that
+    takes collectives, so on a mesh every rank saves, at the same point."""
+    from .core.mesh_step import logical_value
+
+    return to_numpy(logical_value(program, name, val))
+
+
+def _dump(path: str, obj):
+    """Pickle `obj` to `path` through a file of this process's own, moved
+    into place: the ranks of a mesh write the same files."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f, protocol=4)
+    os.replace(tmp, path)
+
+
 def save_vars(executor, dirname: str, main_program: Optional[Program] = None,
               vars: Optional[Sequence[Variable]] = None, predicate=None,
               filename: Optional[str] = None):
+    """Save vars of the current scope. After a mesh run, every rank of the
+    mesh calls it (see ``_host_array``) and writes the same whole values."""
     main_program = main_program or default_main_program()
     if vars is None:
         vars = [v for v in main_program.list_vars() if (predicate or (lambda v: v.persistable))(v)]
@@ -48,14 +69,12 @@ def save_vars(executor, dirname: str, main_program: Optional[Program] = None,
         val = scope.find_var(v.name)
         if val is None:
             continue
-        bundle[v.name] = to_numpy(val)
+        bundle[v.name] = _host_array(main_program, v.name, val)
     if filename is not None:
-        with open(os.path.join(dirname, filename), "wb") as f:
-            pickle.dump(bundle, f, protocol=4)
+        _dump(os.path.join(dirname, filename), bundle)
     else:
         for name, arr in bundle.items():
-            with open(os.path.join(dirname, name.replace("/", "_")), "wb") as f:
-                pickle.dump({name: arr}, f, protocol=4)
+            _dump(os.path.join(dirname, name.replace("/", "_")), {name: arr})
 
 
 def save_persistables(executor, dirname: str,

@@ -11,6 +11,7 @@ from . import misc_ops  # noqa: F401
 from . import moe_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import pipeline_ops  # noqa: F401
 from . import quant_ops  # noqa: F401
 from . import reduce_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401

@@ -10,7 +10,7 @@ from .common import one
 
 
 def _act(name, fn):
-    @register_op(name, dp=ROWS, tp=same_layout)
+    @register_op(name, dp=ROWS, tp=same_layout, sp=same_layout)
     def _impl(ctx, inputs, attrs, _fn=fn):
         (x,) = inputs["X"]
         return one(_fn(x, attrs))

@@ -6,10 +6,11 @@ import torch
 
 from ..core.registry import ROWS, register_op
 from .common import bcast_y, one
+from .math_ops import _elementwise_tp
 
 
 def _cmp(name, fn):
-    @register_op(name, differentiable=False, dp=ROWS)
+    @register_op(name, differentiable=False, dp=ROWS, sp=_elementwise_tp)
     def _impl(ctx, inputs, attrs, _fn=fn):
         (x,) = inputs["X"]
         (y,) = inputs["Y"]

@@ -8,8 +8,9 @@ import os
 
 import torch
 
-from ..core.mesh_step import batch_group, tp_shard
+from ..core.mesh_step import batch_group, sp_shard, tp_shard
 from ..core.registry import ROWS, TP, register_op
+from ..parallel.collective import gather_summed, gathered
 from .common import BN_GLOBAL_OUT, act_map, bcast_y, one, opt_input
 from .kernels import flash_attention as _fa
 from .kernels import flash_attention_sparse as _fas
@@ -94,21 +95,31 @@ def _fused_conv_bn(ctx, inputs, attrs):
             "SavedMean": [bmean.detach()], "SavedVariance": [bvar.detach()]}
 
 
-def _attention_dropout(ctx, attrs):
+def _attention_dropout(ctx, attrs, q=None):
     """(rate, seed) of an attention op's dropout: rate 0 in test; in training
     one seed per call drawn from the run's generator on the run's device (no
-    host sync), from which the backward regenerates the same mask."""
+    host sync), from which the backward regenerates the same mask. On a
+    model-axis slice of the heads, or a sequence-axis slice of the rows,
+    the seed becomes the kernels' key with this rank's offsets
+    (``flash_attention.dropout_key``), so the rank draws its part of the
+    unsharded run's mask (the ranks of an axis draw the same seed: the
+    generator is folded with the data coordinate only)."""
     is_test = attrs.get("is_test", False) or ctx.is_test
     rate = 0.0 if is_test else attrs.get("dropout_prob", 0.0)
     seed = 0
-    if rate > 0.0 and tp_shard(ctx, "Q") is not None:
-        raise NotImplementedError(
-            "attention dropout on a model-axis slice of the heads: the "
-            "kernels' Philox counter is this rank's b·H + h, not the whole "
-            "run's; a head offset for it is ROADMAP A9b2")
     if rate > 0.0:
         seed = torch.randint(0, 2 ** 62, (1,), generator=ctx.rng(),
                              device=ctx.device, dtype=torch.int64)
+        heads = tp_shard(ctx, "Q")
+        rows = sp_shard(ctx, "Q")
+        if heads is not None or rows is not None:
+            packed = q.ndim == 3
+            nh = int(attrs["num_heads"]) if packed else q.shape[1]
+            t = q.shape[1] if packed else q.shape[2]
+            ht, h0 = ((nh * heads.size, nh * heads.rank)
+                      if heads is not None else (0, 0))
+            r0 = t * rows.rank if rows is not None else 0
+            seed = _fa.dropout_key(seed, ht, h0, r0)
     return rate, seed
 
 
@@ -135,19 +146,55 @@ def _flash_tp(attrs, lay, shapes, n):
     return TP(out={"Out": head}, attrs=over, slice_in=cut)
 
 
+def _flash_sp(attrs, lay, shapes, n):
+    """Attention on this rank's rows of a sequence axis: q, k and v sliced
+    along their sequence dim (dim 1 of packed [B, T, H], dim 2 of [B, nh,
+    T, d]) and a bias sliced along its key dim or replicated; the op
+    gathers k, v and the bias whole along T and runs the rank's queries
+    against every key. A causal mask would need the row offset in the
+    kernels' tiles: it gets its inputs whole instead."""
+    qs = shapes["Q"][0]
+    t = 1 if len(qs) == 3 else 2
+    if attrs.get("causal", False) or {lay[s][0] for s in ("Q", "K", "V")} \
+            != {t}:
+        return None
+    bias = lay.get("BiasQK")
+    if bias and bias[0] is not None and \
+            bias[0] != len(shapes["BiasQK"][0]) - 1:
+        return None
+    return TP(out={"Out": t})
+
+
+def _sp_keys(ctx, q, k, v, bias):
+    """On a sequence axis: k and v gathered whole along T (the backward a
+    reduce-scatter: every rank's queries read every key) and a bias sliced
+    along its keys gathered whole."""
+    rows = sp_shard(ctx, "Q")
+    if rows is None:
+        return k, v, bias
+    t = 1 if q.ndim == 3 else 2
+    k = gather_summed(k, t, rows.group)
+    v = gather_summed(v, t, rows.group)
+    if bias is not None and sp_shard(ctx, "BiasQK") is not None:
+        bias = gathered(bias, bias.ndim - 1, rows.group)
+    return k, v, bias
+
+
 @register_op("flash_attention", nondiff_inputs=["BiasQK"], dp=ROWS,
-             tp=_flash_tp)
+             tp=_flash_tp, sp=_flash_sp)
 def _flash_attention(ctx, inputs, attrs):
     """Memory-efficient fused attention: the Hopper kernels on a CUDA tensor,
     their plain versions on a CPU tensor; see ops/kernels/flash_attention.py.
     With dropout in training, one seed per call is drawn from the run's
     generator (on the run's device, so no host sync) and the backward
-    regenerates the same mask from it."""
+    regenerates the same mask from it. On a sequence axis each rank's
+    queries attend to the keys gathered whole (``_sp_keys``)."""
     (q,) = inputs["Q"]
     (k,) = inputs["K"]
     (v,) = inputs["V"]
     bias = opt_input(inputs, "BiasQK")
-    rate, seed = _attention_dropout(ctx, attrs)
+    rate, seed = _attention_dropout(ctx, attrs, q)
+    k, v, bias = _sp_keys(ctx, q, k, v, bias)
     if q.ndim == 3:
         # packed [B, T, H] layout, read in place through strides
         if "num_heads" not in attrs:
@@ -177,7 +224,7 @@ def _flash_attention_sparse(ctx, inputs, attrs):
     (v,) = inputs["V"]
     (q_seg,) = inputs["QSeg"]
     (k_seg,) = inputs["KSeg"]
-    rate, seed = _attention_dropout(ctx, attrs)
+    rate, seed = _attention_dropout(ctx, attrs, q)
     return one(_fas.flash_attention_packed_sparse(
         q, k, v, attrs["num_heads"], q_seg, k_seg,
         causal=attrs.get("causal", False), dropout_rate=rate, seed=seed))

@@ -49,10 +49,16 @@ Each source's header says how it is laid out for the card and what bounds it.
 Attention dropout: the keep bit of score (bh, i, j) is a pure function of
 (seed, bh, i, j): word j % 4 of Philox-4x32-10 with key (seed mod 2³², seed >>
 32) and counter (j // 4, i, bh, 0), kept iff it is ≥ round(rate·2³²) (the JAX
-rule, ``_keep_mask``), and a kept p is scaled by 1/(1 − rate). The kernels and
-the plain versions draw the same mask bit for bit, whatever their tiling. The
-TPU kernels' core-PRNG bits cannot be reproduced, so dropout is never
-compared bit for bit with the JAX package. lse is taken over the undropped p.
+rule, ``_keep_mask``), and a kept p is scaled by 1/(1 − rate). The indices are
+the whole run's: `seed` may be the kernels' key ``[seed, heads_total, head0,
+row0]`` (``dropout_key``), and a call over nh heads of its own then
+draws the bits of (b·heads_total + head0 + h, row0 + i, j): a rank's
+heads on a model axis, or its rows on a sequence axis, get the unsharded
+run's mask (heads_total 0 means nh; a plain seed means no offsets). The
+kernels and the plain versions draw the same mask bit for bit, whatever
+their tiling. The TPU kernels' core-PRNG bits cannot be reproduced, so
+dropout is never compared bit for bit with the JAX package. lse is taken
+over the undropped p.
 
 Tensors are [B, nh, T, d] views with a contiguous head dim, so the packed
 [B, T, nh·d] layout is read in place (the TPU needed head fold/unfold copies
@@ -114,16 +120,61 @@ def _seed_int(seed) -> int:
         else int(seed)
 
 
+_KEY_TAILS = {}
+
+
+def dropout_key(seed, heads_total: int = 0, head0: int = 0,
+                row0: int = 0) -> torch.Tensor:
+    """A dropout key: int64 ``[seed, heads_total, head0, row0]`` on
+    `seed`'s device (see the module docstring), carrying the three offsets
+    on the host too (``.drop_offsets``: what the kernels' C entries take,
+    with no device read). `seed` is an int or a tensor whose first element
+    is the seed; the offsets' words are cached on each device, so a key
+    made on the card costs one concatenation and no host copy."""
+    offs = (heads_total, head0, row0)
+    if not isinstance(seed, torch.Tensor):
+        key = torch.tensor([int(seed), *offs], dtype=torch.int64)
+    else:
+        s = seed.reshape(-1)[:1].to(torch.int64)
+        tail = _KEY_TAILS.get((s.device, offs))
+        if tail is None:
+            tail = _KEY_TAILS[(s.device, offs)] = torch.tensor(
+                offs, dtype=torch.int64, device=s.device)
+        key = torch.cat([s, tail])
+    key.drop_offsets = offs
+    return key
+
+
+def _offsets(seed):
+    """(heads_total, head0, row0) of a key, or None for a seed."""
+    got = getattr(seed, "drop_offsets", None)
+    if got is not None:
+        return tuple(got)
+    if isinstance(seed, torch.Tensor) and seed.numel() >= 4:
+        return tuple(int(v) for v in seed.reshape(-1)[1:4].tolist())
+    return None
+
+
+def _key_parts(seed):
+    """(seed, heads_total, head0, row0) of a seed or a key."""
+    return (_seed_int(seed),) + (_offsets(seed) or (0, 0, 0))
+
+
 def dropout_keep_mask(seed, rate: float, b: int, nh: int, tq: int, tk: int,
                       device=None) -> torch.Tensor:
     """The [B, nh, Tq, Tk] keep mask of attention dropout, in plain PyTorch
-    integer arithmetic; the kernels draw the same bits."""
-    s = _seed_int(seed)
+    integer arithmetic; the kernels draw the same bits. `seed` may be a key
+    (``dropout_key``): the mask is then the (b, head0.., row0..) slice of
+    the whole run's."""
+    s, ht, h0, r0 = _key_parts(seed)
+    ht = ht or nh
     dev = torch.device(device or "cpu")
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)
     j4 = (tk + 3) // 4
-    words = philox4x32(ar(j4)[None, None, :], ar(tq)[None, :, None],
-                       ar(b * nh)[:, None, None],
+    bh = (ar(b)[:, None] * ht + h0 + ar(nh)[None, :]).reshape(-1)
+    words = philox4x32(ar(j4)[None, None, :],
+                       (ar(tq) + r0)[None, :, None],
+                       bh[:, None, None],
                        torch.zeros((), dtype=torch.int64, device=dev),
                        s & _M32, (s >> 32) & _M32)
     words = torch.stack(torch.broadcast_tensors(*words), dim=-1)
@@ -422,8 +473,9 @@ def flash_attention_delta(out, g) -> torch.Tensor:
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U32, _F32 = ctypes.c_uint, ctypes.c_float
-# seed pointer, threshold, 1/(1 - rate), dropout on
-_DROPOUT_ARGS = [_PTR, _U32, _F32, _I32]
+# seed pointer, threshold, 1/(1 - rate), dropout on, offsets (NULL or a
+# host int[3]: heads_total, head0, row0; csrc/philox.cuh set_offsets)
+_DROPOUT_ARGS = [_PTR, _U32, _F32, _I32, _PTR]
 _DESC_LEN = 8  # csrc/hopper.cuh kDescLen
 
 
@@ -526,14 +578,21 @@ def _packed_like(b, nh, t, d, dtype, device):
 
 
 def _dropout_args(q, dropout_rate, seed):
+    """(seed pointer, threshold, 1/(1 − rate), on, offsets pointer, what
+    keeps them alive): the seed word on q's device and the key's offsets
+    (``dropout_key``) as a host int[3], NULL for a plain seed."""
     if dropout_rate <= 0.0:
-        return None, 0, 1.0, 0, None
+        return None, 0, 1.0, 0, None, None
+    offs = _offsets(seed)
     if isinstance(seed, torch.Tensor):
         seed_t = seed.to(device=q.device, dtype=torch.int64).reshape(-1)[:1]
     else:
         seed_t = torch.tensor([int(seed)], dtype=torch.int64, device=q.device)
+    arr = (ctypes.c_int * 3)(*offs) if offs is not None else None
     return (seed_t.data_ptr(), dropout_threshold(dropout_rate),
-            1.0 / (1.0 - dropout_rate), 1, seed_t)
+            1.0 / (1.0 - dropout_rate), 1,
+            ctypes.addressof(arr) if arr is not None else None,
+            (seed_t, arr))
 
 
 def _bias_args(bias, q, tq, tk):
@@ -567,7 +626,7 @@ def _launch_fwd_f32(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
     out = _packed_like(b, nh, tq, d, q.dtype, q.device)
     lse = torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
     bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
-    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    seed_ptr, thr, inv, drop, offs, _k = _dropout_args(q, dropout_rate, seed)
     lib = _bind("flash_attention_fwd", "flash_attention_fwd_f32",
                 [_PTR] * 6 + [_I32] * 5 + [_I64] * 16 + [_F32, _I32]
                 + _DROPOUT_ARGS + [_PTR])
@@ -578,7 +637,7 @@ def _launch_fwd_f32(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
             out.data_ptr(), lse.data_ptr(), b, nh, tq, tk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], *bias_strides, float(sm_scale), int(causal),
-            seed_ptr, thr, inv, drop, stream)
+            seed_ptr, thr, inv, drop, offs, stream)
     _raise_on(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -602,7 +661,7 @@ def _launch_fwd_bf16(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
     lse_rows = torch.empty((b * nh, pitch), dtype=torch.float32,
                            device=q.device)
     mode, bias_desc, _bias = _bias_tile(bias, q, tq, tk)
-    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    seed_ptr, thr, inv, drop, offs, _k = _dropout_args(q, dropout_rate, seed)
     lib = _bind("flash_attention_fwd", "flash_attention_fwd_bf16",
                 [_PTR, _PTR, _PTR] + [_I32] * 6 + [_I64] * 3
                 + [_I32, _F32, _I32] + _DROPOUT_ARGS + [_PTR])
@@ -611,7 +670,8 @@ def _launch_fwd_bf16(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
         err = lib.flash_attention_fwd_bf16(
             _descs(*descs, bias_desc), out.data_ptr(), lse_rows.data_ptr(),
             pitch, b, nh, tq, tk, d, *out.stride()[:3], mode,
-            float(sm_scale), int(causal), seed_ptr, thr, inv, drop, stream)
+            float(sm_scale), int(causal), seed_ptr, thr, inv, drop,
+            offs, stream)
     _raise_on(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse_rows[:, :tq].view(b, nh, tq)
@@ -643,7 +703,7 @@ def _launch_bwd_f32(q, k, v, out, lse, g, bias, causal, sm_scale,
     dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
     db = _dbias_out(dbias, b, nh, tq, tk, q.device)
     bias_ptr, bias_strides, _bias = _bias_args(bias, q, tq, tk)
-    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    seed_ptr, thr, inv, drop, offs, _k = _dropout_args(q, dropout_rate, seed)
     lib = _bind("flash_attention_bwd", "flash_attention_bwd_f32",
                 [_PTR] * 12 + [_I32] * 7 + [_I64] * 25 + [_F32, _I32]
                 + _DROPOUT_ARGS + [_PTR])
@@ -663,7 +723,7 @@ def _launch_bwd_f32(q, k, v, out, lse, g, bias, causal, sm_scale,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
             *dv.stride()[:3], *bias_strides, float(sm_scale), int(causal),
-            seed_ptr, thr, inv, drop, stream)
+            seed_ptr, thr, inv, drop, offs, stream)
     _raise_on(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv, db
@@ -699,7 +759,7 @@ def _launch_bwd_bf16(q, k, v, out, lse, g, bias, causal, sm_scale,
     dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
     db = _dbias_out(dbias, b, nh, tq, tk, q.device)
     mode, bias_desc, _bias = _bias_tile(bias, q, tq, tk)
-    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    seed_ptr, thr, inv, drop, offs, _k = _dropout_args(q, dropout_rate, seed)
     lse_v = _padded_rows(lse, b * nh, tq)
     lib = _bind("flash_attention_bwd", "flash_attention_bwd_bf16",
                 [_PTR] * 6 + [_I32] * 5 + [_I64] * 9 + [_I32, _F32, _I32]
@@ -716,7 +776,7 @@ def _launch_bwd_bf16(q, k, v, out, lse, g, bias, causal, sm_scale,
             db.data_ptr() if dbias == "col" else None,
             b, nh, tq, tk, d, *dq.stride()[:3], *dk.stride()[:3],
             *dv.stride()[:3], mode, float(sm_scale), int(causal), seed_ptr,
-            thr, inv, drop, stream)
+            thr, inv, drop, offs, stream)
     _raise_on(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv, db
@@ -751,7 +811,7 @@ def launch_wide_fwd(counter, q, k, v, bias, se, vis, causal, sm_scale,
     tk = k.shape[2]
     out = _packed_like(b, nh, tq, d, q.dtype, q.device)
     lse = torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
-    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    seed_ptr, thr, inv, drop, offs, _k = _dropout_args(q, dropout_rate, seed)
     se_ptr = se.data_ptr() if se is not None else None
     vis_ptr = vis.data_ptr() if vis is not None else None
     with torch.cuda.device(q.device):
@@ -766,7 +826,7 @@ def launch_wide_fwd(counter, q, k, v, bias, se, vis, causal, sm_scale,
                 _descs(*descs), se_ptr, vis_ptr, out.data_ptr(),
                 lse.data_ptr(), b, nh, tq, tk, d, *out.stride()[:3], mode,
                 float(sm_scale), int(causal), int(se is not None), seed_ptr,
-                thr, inv, drop, stream)
+                thr, inv, drop, offs, stream)
         else:
             q, k, v = (t if _kernel_layout_ok(t) else t.contiguous()
                        for t in (q, k, v))
@@ -779,7 +839,7 @@ def launch_wide_fwd(counter, q, k, v, bias, se, vis, causal, sm_scale,
                 vis_ptr, out.data_ptr(), lse.data_ptr(), b, nh, tq, tk, d,
                 _wide_strides((q, k, v, out), bias_strides), float(sm_scale),
                 int(causal), int(se is not None), seed_ptr, thr, inv, drop,
-                stream)
+                offs, stream)
     _raise_on(lib, err, "flash_attention_fwd")
     counter.launches += 1
     counter.wide_launches += 1
@@ -832,7 +892,7 @@ def launch_wide_bwd(counter, q, k, v, out, lse, g, bias, se, vis, causal,
                                                q.device))
     db_ptrs = (db.data_ptr() if dbias == "per_q" else None,
                db.data_ptr() if dbias == "col" else None)
-    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    seed_ptr, thr, inv, drop, offs, _k = _dropout_args(q, dropout_rate, seed)
     vis_ptr = vis.data_ptr() if vis is not None else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -850,7 +910,7 @@ def launch_wide_bwd(counter, q, k, v, out, lse, g, bias, se, vis, causal,
                 dv.data_ptr(), *db_ptrs, b, nh, tq, tk, d, *dq.stride()[:3],
                 *dk.stride()[:3], *dv.stride()[:3], mode, float(sm_scale),
                 int(causal), int(se is not None), seed_ptr, thr, inv, drop,
-                stream)
+                offs, stream)
         else:
             lse = lse.reshape(b * nh, tq)   # rows lse.stride(0) floats apart
             lse = lse if lse.stride(1) == 1 else lse.contiguous()
@@ -869,7 +929,7 @@ def launch_wide_bwd(counter, q, k, v, out, lse, g, bias, se, vis, causal,
                 tq, tk, d, _wide_strides((q, k, v, g, dq, dk, dv),
                                          bias_strides),
                 float(sm_scale), int(causal), int(se is not None), seed_ptr,
-                thr, inv, drop, stream)
+                thr, inv, drop, offs, stream)
     _raise_on(lib, err, "flash_attention_bwd")
     counter.launches += 1
     counter.wide_launches += 1

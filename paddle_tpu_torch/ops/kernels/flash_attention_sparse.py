@@ -398,7 +398,7 @@ def _launch_fwd(q, k, v, se, vis, causal, sm_scale, dropout_rate, seed):
     vis = vis.to(torch.int32).contiguous()
     out = _packed_like(b, nh, tq, d, q.dtype, q.device)
     lse = torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
-    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    seed_ptr, thr, inv, drop, offs, _k = _dropout_args(q, dropout_rate, seed)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -407,7 +407,7 @@ def _launch_fwd(q, k, v, se, vis, causal, sm_scale, dropout_rate, seed):
             err = lib.flash_attention_sparse_fwd_bf16(
                 _descs(*descs), vis.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), b, nh, tq, tk, d, *out.stride()[:3],
-                float(sm_scale), int(causal), seed_ptr, thr, inv, drop,
+                float(sm_scale), int(causal), seed_ptr, thr, inv, drop, offs,
                 stream)
         else:
             q, k, v = _layout((q, k, v))
@@ -416,7 +416,7 @@ def _launch_fwd(q, k, v, se, vis, causal, sm_scale, dropout_rate, seed):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), se.data_ptr(),
                 vis.data_ptr(), out.data_ptr(), lse.data_ptr(), b, nh, tq,
                 tk, d, _strides(q), _strides(k), _strides(v), _strides(out),
-                float(sm_scale), int(causal), seed_ptr, thr, inv, drop,
+                float(sm_scale), int(causal), seed_ptr, thr, inv, drop, offs,
                 stream)
     _raise_on(lib, err, name)
     flash_attention_sparse_fwd.launches += 1
@@ -437,7 +437,7 @@ def _launch_bwd(q, k, v, out, lse, g, se, vis, causal, sm_scale,
     dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
     dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
     dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
-    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    seed_ptr, thr, inv, drop, offs, _k = _dropout_args(q, dropout_rate, seed)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -451,7 +451,7 @@ def _launch_bwd(q, k, v, out, lse, g, se, vis, causal, sm_scale,
             lse.stride(0), delta.stride(0), _strides(q), _strides(k),
             _strides(v), _strides(g), _strides(dq), _strides(dk),
             _strides(dv), float(sm_scale),
-            int(causal), seed_ptr, thr, inv, drop, stream)
+            int(causal), seed_ptr, thr, inv, drop, offs, stream)
     _raise_on(lib, err, name)
     flash_attention_sparse_bwd.launches += 1
     return dq, dk, dv
@@ -471,7 +471,7 @@ def _launch_bwd_bf16(q, k, v, out, lse, g, se, vis, causal, sm_scale,
     dq = _packed_like(b, nh, tq, d, q.dtype, q.device)
     dk = _packed_like(b, nh, tk, d, k.dtype, q.device)
     dv = _packed_like(b, nh, tk, d, v.dtype, q.device)
-    seed_ptr, thr, inv, drop, _seed = _dropout_args(q, dropout_rate, seed)
+    seed_ptr, thr, inv, drop, offs, _k = _dropout_args(q, dropout_rate, seed)
     lse_v = _padded_rows(lse, b * nh, tq)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -484,7 +484,7 @@ def _launch_bwd_bf16(q, k, v, out, lse, g, se, vis, causal, sm_scale,
             descs, vis.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, nh, tq, tk, d, *dq.stride()[:3],
             *dk.stride()[:3], *dv.stride()[:3], float(sm_scale), int(causal),
-            seed_ptr, thr, inv, drop, stream)
+            seed_ptr, thr, inv, drop, offs, stream)
     _raise_on(lib, err, name)
     flash_attention_sparse_bwd.launches += 1
     return dq, dk, dv

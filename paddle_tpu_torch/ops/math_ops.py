@@ -33,7 +33,7 @@ def _elementwise_tp(attrs, lay, shapes, n):
 
 
 def _elementwise(name, fn):
-    @register_op(name, dp=ROWS, tp=_elementwise_tp)
+    @register_op(name, dp=ROWS, tp=_elementwise_tp, sp=_elementwise_tp)
     def _impl(ctx, inputs, attrs, _fn=fn):
         (x,) = inputs["X"]
         (y,) = inputs["Y"]
@@ -53,7 +53,7 @@ _elementwise("elementwise_mod", torch.remainder)
 _elementwise("elementwise_floordiv", torch.floor_divide)
 
 
-@register_op("scale", dp=ROWS, tp=same_layout)
+@register_op("scale", dp=ROWS, tp=same_layout, sp=same_layout)
 def _scale(ctx, inputs, attrs):
     (x,) = inputs["X"]
     scale = attrs.get("scale", 1.0)
@@ -137,7 +137,19 @@ def _mul_tp(attrs, lay, shapes, n):
     return None
 
 
-@register_op("mul", dp=lambda a, s: None if "Y" in s else ROWS, tp=_mul_tp)
+def _mul_sp(attrs, lay, shapes, n):
+    """A replicated 2-D Y applied to X sliced along a dim it keeps (the
+    sequence dim of [B, T, H] activations)."""
+    (dx,), (dy,) = lay["X"], lay["Y"]
+    if (len(shapes["Y"][0]) == 2 and attrs.get("y_num_col_dims", 1) == 1
+            and dy is None and dx is not None
+            and dx < attrs.get("x_num_col_dims", 1)):
+        return TP(out={"Out": dx})
+    return None
+
+
+@register_op("mul", dp=lambda a, s: None if "Y" in s else ROWS, tp=_mul_tp,
+             sp=_mul_sp)
 def _mul(ctx, inputs, attrs):
     """mul_op.cc: flatten X to 2-D at x_num_col_dims, Y at y_num_col_dims,
     then gemm; output keeps X's leading dims."""
@@ -156,7 +168,7 @@ def _sum_tp(attrs, lay, shapes, n):
     return TP(out={"Out": dims.pop()}) if len(dims) == 1 else None
 
 
-@register_op("sum", dp=ROWS, tp=_sum_tp)
+@register_op("sum", dp=ROWS, tp=_sum_tp, sp=_sum_tp)
 def _sum(ctx, inputs, attrs):
     xs = inputs["X"]
     out = xs[0]

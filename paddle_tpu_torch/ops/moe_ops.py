@@ -30,7 +30,7 @@ def _ep_group(ctx, axis, experts):
     if axis != step.axis:
         raise NotImplementedError(
             f"moe_ffn: an {axis!r} axis that is not the data axis "
-            f"{step.axis!r} is ROADMAP A9b2")
+            f"{step.axis!r} is ROADMAP A9b3")
     return group
 
 
@@ -57,7 +57,7 @@ def _moe_ffn(ctx, inputs, attrs):
         raise NotImplementedError(
             "moe_ffn's dense path routes over the whole batch; on a batch "
             "sharded over a data axis that is not its ep_axis it is "
-            "ROADMAP A9b2")
+            "ROADMAP A9b3")
     else:
         y, aux = _moe.moe_ffn(flat, gate_w, w1, b1, w2, b2, k=k,
                               capacity_factor=cf, act=act)

@@ -15,7 +15,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from ..core.mesh_step import batch_group, tp_shard
+from ..core.mesh_step import batch_group, sp_shard, tp_shard
 from ..core.registry import P, ROWS, TP, register_op
 from ..core.selected_rows import SelectedRows
 from ..parallel.collective import axis_size, psum
@@ -151,8 +151,18 @@ def _batch_norm(ctx, inputs, attrs):
                 use_mean, use_var)
 
 
+def _layer_norm_sp(attrs, lay, shapes, n):
+    """Normalized over the dims from begin_norm_axis: a slice of a dim
+    before them stays (the statistics are the slice's rows)."""
+    (d,) = lay["X"]
+    if d is not None and d < attrs.get("begin_norm_axis", 1) % len(
+            shapes["X"][0]):
+        return TP(out={"Y": d, "Mean": d, "Variance": d})
+    return None
+
+
 @register_op("layer_norm", dp=lambda a, s: None if a.get(
-    "begin_norm_axis", 1) % s["X"] == 0 else ROWS)
+    "begin_norm_axis", 1) % s["X"] == 0 else ROWS, sp=_layer_norm_sp)
 def _layer_norm(ctx, inputs, attrs):
     """Accepts bf16 activations and computes the statistics and the
     normalization in f32, returning the input dtype."""
@@ -175,7 +185,9 @@ def _layer_norm(ctx, inputs, attrs):
 
 
 @register_op("dropout", dp=ROWS, tp=lambda a, lay, sh, n: TP(
-    out={"Out": lay["X"][0], "Mask": lay["X"][0]}))
+    out={"Out": lay["X"][0], "Mask": lay["X"][0]}),
+    sp=lambda a, lay, sh, n: TP(
+        out={"Out": lay["X"][0], "Mask": lay["X"][0]}))
 def _dropout(ctx, inputs, attrs):
     (x,) = inputs["X"]
     p = attrs.get("dropout_prob", 0.5)
@@ -187,7 +199,7 @@ def _dropout(ctx, inputs, attrs):
         y = (x * (1.0 - p) if (impl == "downgrade_in_infer" and is_test
                                and p > 0.0) else x)
         return {"Out": [y], "Mask": [torch.ones_like(x)]}
-    sh = tp_shard(ctx, "X")
+    sh = tp_shard(ctx, "X") or sp_shard(ctx, "X")
     if sh is None:
         mask = torch.bernoulli(torch.full_like(x, 1.0 - p),
                                generator=ctx.rng())
@@ -282,8 +294,20 @@ def _local_ids(ctx, w, idx):
     return local.clamp(0, w.shape[0] - 1), mine
 
 
+def _lookup_sp(attrs, lay, shapes, n):
+    """Ids sliced along a dim (the sequence) give the rows of that slice;
+    a trailing ids dim of 1 is not one of the output's."""
+    (dw,) = lay["W"]
+    (di,) = lay["Ids"]
+    ids = shapes["Ids"][0]
+    if dw is None and di is not None and (di < len(ids) - 1 or ids[-1] != 1):
+        return TP(out={"Out": di})
+    return None
+
+
 @register_op("lookup_table", nondiff_inputs=["Ids", "PendingPos", "PendingCum"],
-             grad_fn=_lookup_sparse_grad, dp=_lookup_dp, tp=_lookup_tp)
+             grad_fn=_lookup_sparse_grad, dp=_lookup_dp, tp=_lookup_tp,
+             sp=_lookup_sp)
 def _lookup_table(ctx, inputs, attrs):
     """lookup_table_op.cc: W[ids]; padding_idx rows produce zeros. With
     ``row_pack_dt`` the table is a packed row-major [V, 128] uint16 array
@@ -430,9 +454,20 @@ def _ce_tp(attrs, lay, shapes, n):
     return TP(out={"Loss": d, "Softmax": d})
 
 
+def _ce_sp(attrs, lay, shapes, n):
+    """Logits and hard labels sliced along the same row dim: the loss and
+    the softmax keep the slice."""
+    (d,) = lay["Logits"]
+    ax = attrs.get("axis", -1) % len(shapes["Logits"][0])
+    if (attrs.get("soft_label", False) or d is None or d == ax
+            or lay["Label"][0] != d):
+        return None
+    return TP(out={"Loss": d, "Softmax": d})
+
+
 @register_op("softmax_with_cross_entropy", nondiff_inputs=["Label"],
              dp=lambda a, s: None if a.get("axis", -1)
-             % s.get("Logits", 2) == 0 else ROWS, tp=_ce_tp)
+             % s.get("Logits", 2) == 0 else ROWS, tp=_ce_tp, sp=_ce_sp)
 def _softmax_with_cross_entropy(ctx, inputs, attrs):
     """Loss keeps a singleton class axis. The Softmax output is computed
     only when a later op or a fetch reads it (XLA drops it in the JAX

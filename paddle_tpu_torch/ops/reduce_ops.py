@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..core.mesh_step import batch_group
-from ..core.registry import GLOBAL, ROWS, register_op
+from ..core.registry import GLOBAL, P, ROWS, TP, register_op
 from ..parallel.collective import axis_size, psum
 from .common import one
 
@@ -25,10 +25,27 @@ def _reduce_dp(attrs, sharded):
                          for d in dims) else ROWS
 
 
+def _reduce_sp(mean: bool):
+    """A sum over the sliced dim leaves each rank a summand (P); a mean
+    over it gets its input whole; over other dims the slice stays."""
+    def decl(attrs, lay, shapes, n):
+        (d,) = lay["X"]
+        nd = max(len(shapes["X"][0]), 1)
+        dims = attrs.get("dim", [0])
+        dims = [int(x) % nd for x in (dims if isinstance(dims, (list, tuple))
+                                      else [dims])]
+        if attrs.get("reduce_all", False) or d in dims:
+            return None if mean else TP(out={"Out": P})
+        if not attrs.get("keep_dim", False):
+            d -= sum(1 for x in dims if x < d)
+        return TP(out={"Out": d})
+    return decl
+
+
 def _reduce(name, mean: bool):
     fn = torch.mean if mean else torch.sum
 
-    @register_op(name, dp=_reduce_dp)
+    @register_op(name, dp=_reduce_dp, sp=_reduce_sp(mean))
     def _impl(ctx, inputs, attrs):
         (x,) = inputs["X"]
         keep = attrs.get("keep_dim", False)

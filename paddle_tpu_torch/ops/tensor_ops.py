@@ -112,7 +112,7 @@ def _split_tp(attrs, lay, shapes, n):
 
 
 @register_op("split", dp=_not_dim0(lambda a, n: [a.get("axis", 0)]),
-             tp=_split_tp)
+             tp=_split_tp, sp=_split_tp)
 def _split(ctx, inputs, attrs):
     """Outputs are views of X: the flash-attention kernel reads the q/k/v
     thirds of the fused qkv projection through their strides."""
@@ -128,11 +128,21 @@ def _split(ctx, inputs, attrs):
     return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
 
 
+def _unsqueeze_sp(attrs, lay, shapes, n):
+    """A sliced dim moves past the new axes inserted at or before it."""
+    (d,) = lay["X"]
+    nd = len(shapes["X"][0]) + len(attrs["axes"])
+    for a in sorted(int(x) % nd for x in attrs["axes"]):
+        if a <= d:
+            d += 1
+    return TP(out={"Out": d})
+
+
 # row by row unless a new axis lands at dim 0 (the axes count in the
 # output's dims)
 @register_op("unsqueeze", dp=lambda a, s: None if any(
     int(x) % (max(s.values()) + len(a["axes"])) == 0 for x in a["axes"])
-    else ROWS)
+    else ROWS, sp=_unsqueeze_sp)
 def _unsqueeze(ctx, inputs, attrs):
     (x,) = inputs["X"]
     out = x
@@ -162,13 +172,13 @@ def _gather(ctx, inputs, attrs):
     return one(rows.reshape(x.shape[:axis] + idx.shape + x.shape[axis + 1:]))
 
 
-@register_op("cast", dp=ROWS, tp=same_layout)
+@register_op("cast", dp=ROWS, tp=same_layout, sp=same_layout)
 def _cast(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(x.to(convert_dtype(attrs["out_dtype"])))
 
 
-@register_op("assign", dp=ROWS, tp=same_layout)
+@register_op("assign", dp=ROWS, tp=same_layout, sp=same_layout)
 def _assign(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(x)

@@ -20,8 +20,9 @@ Also here, as in the JAX package: LarsMomentum, DecayedAdagrad, Adadelta,
 RMSProp, Adamax and Ftrl; GradientMergeOptimizer and LookaheadOptimizer,
 whose predicated parts run in a ``conditional_block``; ModelAverage (the
 JAX package's stub, copied as it is) and ExponentialMovingAverage. DGC
-momentum is not ported (ROADMAP A9c); PipelineOptimizer raises (ROADMAP
-A9b2).
+momentum is not ported (ROADMAP A9c). PipelineOptimizer is the JAX
+package's program transform, copied as it is: it cuts the program into
+``pipeline``/``pipeline_hetero`` ops (``ops/pipeline_ops.py``).
 """
 from __future__ import annotations
 
@@ -931,13 +932,217 @@ class ExponentialMovingAverage:
 
 
 class PipelineOptimizer:
-    """optimizer.py PipelineOptimizer (GPipe and 1F1B over a ``pp`` mesh
-    axis): not ported yet (ROADMAP A9b2)."""
+    """Program-level pipeline parallelism (reference optimizer.py:2677).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PipelineOptimizer is not ported yet (ROADMAP A9b2: pipelines "
-            "and the composed dp×tp×pp program)")
+    ``cut_list`` is the ordered chain of boundary variables
+    ``[stage0_input, boundary1, ..., final_output]`` — N stages for N+1
+    entries. The ops between consecutive boundaries must be isomorphic
+    (same op-type sequence with same-shaped parameters — the
+    transformer-by-layers case); ``minimize`` replaces them with ONE
+    `pipeline` op holding the stage-0 template sub-block plus every stage's
+    parameters, driven by the GPipe schedule in parallel/pipeline.py: the
+    rank at ``pp`` coordinate i holds and updates stage i's parameters
+    (``core/mesh_step.py``). Stages that are not isomorphic lower to one
+    ``pipeline_hetero`` op with a sub-block a stage. Without a ``pp`` mesh
+    axis the op runs its stages one after another.
+
+    Usage::
+
+        opt = fluid.optimizer.PipelineOptimizer(
+            fluid.optimizer.Adam(1e-4), cut_list=[h0, h1, h2],
+            num_microbatches=4)
+        opt.minimize(loss)
+        prog = fluid.CompiledProgram(main).with_mesh(mesh, data_axis="dp")
+    """
+
+    def __init__(self, optimizer, cut_list, num_microbatches: int = 1,
+                 axis: str = "pp", data_axis=None, capture_spec=None,
+                 queue_size=None, place_list=None, concurrency_list=None,
+                 sync_steps=None, start_cpu_core_id=None):
+        # trailing args are reference-API compat (scope-queue knobs — moot).
+        # capture_spec: {var_name: "batched"|"shared"} override for captured
+        # prologue activations — by default a capture whose leading dim
+        # equals the batch size is microbatched along with the activations;
+        # use "shared" for e.g. a [T, T] table where T happens to equal B.
+        if len(cut_list) < 3:
+            raise ValueError("cut_list needs [input, boundary..., output] "
+                             "(>= 2 stages)")
+        self._opt = optimizer
+        self._cut = list(cut_list)
+        self._m = int(num_microbatches)
+        self._axis = axis
+        self._data_axis = data_axis
+        self._capture_spec = dict(capture_spec or {})
+
+    def _producer_idx(self, ops, name):
+        for i in range(len(ops) - 1, -1, -1):
+            if name in ops[i].output_names():
+                return i
+        return -1  # feed/data var: the pipelined region starts at op 0
+
+    def _transform(self, program):
+        from .core.program import Operator
+
+        block = program.global_block()
+        ops = block.ops
+        names = [v.name for v in self._cut]
+        bounds = [self._producer_idx(ops, n) for n in names]
+        if bounds != sorted(bounds):
+            raise ValueError("cut_list variables are not in program order")
+        n_stages = len(names) - 1
+
+        # per-stage op ranges: (producer(b_{k}) , producer(b_{k+1})]
+        stage_ranges = [(bounds[k] + 1, bounds[k + 1] + 1)
+                        for k in range(n_stages)]
+        stage_ops = [ops[a:b] for a, b in stage_ranges]
+
+        # isomorphism probe (op-type sequence + attrs): isomorphic stages
+        # take the efficient stage-stacked template path; anything else
+        # lowers to the heterogeneous per-stage-sub-block path
+        # (reference section_worker.cc heterogeneous sections)
+        def _iso():
+            sig0 = [op.type for op in stage_ops[0]]
+            for sops in stage_ops[1:]:
+                if [op.type for op in sops] != sig0:
+                    return False
+                for o0, ok in zip(stage_ops[0], sops):
+                    a0, ak = o0.attrs, ok.attrs
+                    if a0.keys() != ak.keys() or any(
+                            not np.array_equal(a0[k2], ak[k2])
+                            if isinstance(a0[k2], np.ndarray)
+                            else a0[k2] != ak[k2] for k2 in a0):
+                        return False
+            return True
+
+        def stage_params(sops):
+            seen, out = set(), []
+            for op in sops:
+                for n in op.input_names():
+                    v = block._find_var_recursive(n)
+                    if v is not None and v.persistable and n not in seen:
+                        seen.add(n)
+                        out.append(n)
+            return out
+
+        per_stage_params = [stage_params(s) for s in stage_ops]
+
+        def _stackable():
+            n_params = len(per_stage_params[0])
+            for ps in per_stage_params:
+                if len(ps) != n_params:
+                    return False
+                for a, b in zip(per_stage_params[0], ps):
+                    va, vb = block.var(a), block.var(b)
+                    if tuple(va.shape or ()) != tuple(vb.shape or ()):
+                        return False
+            return True
+
+        # captured external activations (e.g. a shared attention mask built
+        # in the prologue): read by stage ops, produced outside every stage
+        def stage_captures(sops, skip):
+            produced = set()
+            caps = []
+            for op in sops:
+                for n in op.input_names():
+                    v = block._find_var_recursive(n)
+                    if (n not in produced and n not in skip
+                            and not (v is not None and v.persistable)
+                            and n not in caps):
+                        caps.append(n)
+                produced.update(op.output_names())
+            return caps
+
+        per_stage_caps = [
+            stage_captures(sops, set(per_stage_params[k]) | {names[k]})
+            for k, sops in enumerate(stage_ops)]
+        captures = per_stage_caps[0]
+
+        if not (_iso() and _stackable()
+                and all(c == captures for c in per_stage_caps[1:])):
+            return self._transform_hetero(program, block, names, stage_ops,
+                                          stage_ranges, per_stage_params,
+                                          per_stage_caps)
+        n_params = len(per_stage_params[0])
+
+        # template sub-block = stage 0's ops, re-homed
+        cur = program.current_block_idx
+        program.current_block_idx = block.idx
+        sub = program.create_block()
+        program.rollback()
+        program.current_block_idx = cur
+        for op in stage_ops[0]:
+            op.block = sub
+            sub.ops.append(op)
+
+        # splice: remove all stage op ranges, insert the pipeline op
+        lo, hi = stage_ranges[0][0], stage_ranges[-1][1]
+        flat_params = [p for ps in per_stage_params for p in ps]
+        pipe_op = Operator(
+            block, "pipeline",
+            inputs={"X": [names[0]], "Params": flat_params,
+                    "Captures": captures},
+            outputs={"Out": [names[-1]]},
+            attrs={"sub_block": sub, "n_stages": n_stages,
+                   "n_params": n_params, "num_microbatches": self._m,
+                   "axis": self._axis, "data_axis": self._data_axis,
+                   "in_name": names[0], "out_name": names[1],
+                   "param_names": per_stage_params[0],
+                   "capture_names": captures,
+                   "capture_spec": self._capture_spec})
+        block.ops[lo:hi] = [pipe_op]
+        program._bump_version()
+
+    def _transform_hetero(self, program, block, names, stage_ops,
+                          stage_ranges, per_stage_params, per_stage_caps):
+        """Non-isomorphic stages: one sub-block PER stage, lowered to the
+        lax.switch ring in parallel/pipeline.pipeline_hetero (reference
+        section_worker.cc:141 heterogeneous sections / trainer_desc.proto
+        per-section programs)."""
+        from .core.program import Operator
+
+        n_stages = len(names) - 1
+        subs = []
+        cur = program.current_block_idx
+        program.current_block_idx = block.idx
+        for sops in stage_ops:
+            sub = program.create_block()
+            program.rollback()
+            for op in sops:
+                op.block = sub
+                sub.ops.append(op)
+            subs.append(sub)
+        program.current_block_idx = cur
+
+        lo, hi = stage_ranges[0][0], stage_ranges[-1][1]
+        flat_params = [p for ps in per_stage_params for p in ps]
+        flat_caps = [c for cs in per_stage_caps for c in cs]
+        pipe_op = Operator(
+            block, "pipeline_hetero",
+            inputs={"X": [names[0]], "Params": flat_params,
+                    "Captures": flat_caps},
+            outputs={"Out": [names[-1]]},
+            attrs={"sub_blocks": subs, "n_stages": n_stages,
+                   "num_microbatches": self._m,
+                   "axis": self._axis, "data_axis": self._data_axis,
+                   "boundary_names": names,
+                   "param_names": per_stage_params,
+                   "capture_names": per_stage_caps,
+                   "capture_spec": self._capture_spec})
+        block.ops[lo:hi] = [pipe_op]
+        program._bump_version()
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        self._transform(loss.block.program)
+        return self._opt.minimize(loss, startup_program, parameter_list,
+                                  no_grad_set)
+
+    def backward(self, *a, **kw):
+        return self._opt.backward(*a, **kw)
+
+    def apply_gradients(self, *a, **kw):
+        return self._opt.apply_gradients(*a, **kw)
+
 
 
 # paddle-style aliases (fluid.optimizer.SGD etc.)

@@ -3,11 +3,11 @@ the process group (``env``), meshes (``mesh``), collectives
 (``collective``), ring and Ulysses attention over a sequence axis
 (``ring_attention``), Megatron tensor-parallel rules
 (``tensor_parallel``), Mixture-of-Experts with expert parallelism
-(``moe``) and checkpoints (``checkpoint``).
+(``moe``), pipelines (``pipeline``: GPipe, 1F1B and heterogeneous
+stages over a ``pp`` axis) and checkpoints (``checkpoint``).
 
-Pipelines (``pipeline``: GPipe, 1F1B) are ROADMAP A9b2; the fleet API,
-local SGD and DGC (``fleet``, ``local_sgd``, ``dgc``) are A9c. Their names
-raise ``NotImplementedError`` naming the item.
+The fleet API, local SGD and DGC (``fleet``, ``local_sgd``, ``dgc``) are
+ROADMAP A9c. Their names raise ``NotImplementedError`` naming the item.
 """
 from .checkpoint import (  # noqa: F401
     Checkpointer, load_checkpoint, save_checkpoint)
@@ -24,6 +24,8 @@ from .moe import (init_moe_params, moe_ffn,  # noqa: F401
                   moe_ffn_expert_parallel, top_k_gating)
 from .mesh import (DistributedStrategy, auto_mesh, make_mesh,  # noqa: F401
                    mesh_shape)
+from .pipeline import (GPipe, pipeline_1f1b,  # noqa: F401
+                       pipeline_hetero, pipeline_step)
 from .ring_attention import (ring_attention,  # noqa: F401
                              ring_self_attention, ulysses_attention)
 from .tensor_parallel import (DEEPFM_RULES, MEGATRON_RULES,  # noqa: F401
@@ -31,7 +33,6 @@ from .tensor_parallel import (DEEPFM_RULES, MEGATRON_RULES,  # noqa: F401
                               derive_tp_specs, embedding_shard_spec)
 
 _DEFERRED = {
-    "A9b2": ("GPipe", "pipeline_step", "pipeline"),
     "A9c": ("dgc_allreduce", "sparse_allgather_exchange", "top_k_sparsify",
             "average_params", "local_sgd_step", "replicate_params"),
 }
@@ -54,4 +55,5 @@ __all__ = ["Checkpointer", "load_checkpoint", "save_checkpoint",
            "ring_self_attention", "ulysses_attention", "MEGATRON_RULES",
            "NMT_RULES", "DEEPFM_RULES", "annotate_tp", "annotate_tp_auto",
            "derive_tp_specs", "embedding_shard_spec", "init_moe_params",
-           "moe_ffn", "moe_ffn_expert_parallel", "top_k_gating"]
+           "moe_ffn", "moe_ffn_expert_parallel", "top_k_gating", "GPipe",
+           "pipeline_step", "pipeline_1f1b", "pipeline_hetero"]

@@ -119,19 +119,21 @@ def _host_copy(t: torch.Tensor):
     return (host.view(torch.uint16) if u16 else host), on_card
 
 
-def _shard_record(name: str, var, val):
+def _shard_record(name: str, var, val, own_dim: Optional[int] = None):
     """This rank's slice of a sharded ``DTensor`` as a shard-file record
     (name, bounds, shape, dtype, tensor) in the declared (logical)
     coordinates, or None when the slice holds only pad rows or another
     rank holds the same slice (a replica along a mesh dim: the JAX
-    package writes replica 0's)."""
+    package writes replica 0's). `own_dim`: a mesh dim along which only
+    this rank holds the value (a pipeline stage's), so it writes it."""
     mesh = val.device_mesh
     local = val.to_local()
     shape = tuple(var.shape) if var.shape else tuple(val.shape)
     bounds = [(0, d) for d in shape]
     piece = local
     for dim, place in enumerate(val.placements):
-        if place.is_replicate() and mesh.get_local_rank(dim) != 0:
+        if (place.is_replicate() and dim != own_dim
+                and mesh.get_local_rank(dim) != 0):
             return None  # another rank of this mesh dim writes the copy
         if not place.is_shard():
             continue
@@ -147,6 +149,27 @@ def _shard_record(name: str, var, val):
     return name, tuple(bounds), shape, dtype, piece
 
 
+def _stage_record(name: str, var, val):
+    """A pipeline stage's value (``mesh_step.StageValue``) as a shard-file
+    record of its owning rank: the rank of the stage's coordinate whose
+    other mesh coordinates are 0 writes it whole, or its slice when it is
+    sharded on the model axis; None on every other rank."""
+    from ..core.mesh_step import is_dtensor
+
+    if not val.mine:
+        return None
+    own = list(val.mesh.mesh_dim_names).index(val.axis)
+    if is_dtensor(val.local):
+        return _shard_record(name, var, val.local, own_dim=own)
+    if any(val.mesh.get_local_rank(d) != 0
+           for d in range(val.mesh.ndim) if d != own):
+        return None
+    local = val.local
+    shape = tuple(local.shape)
+    dtype = str(local.dtype).replace("torch.", "")
+    return name, tuple((0, d) for d in shape), shape, dtype, local
+
+
 def _snapshot(program: Program, scope: Scope, whole: bool = True):
     """(vals, event, shards): a host copy of every whole persistable in the
     scope (none when `whole` is False: only rank 0 writes them), this
@@ -154,7 +177,7 @@ def _snapshot(program: Program, scope: Scope, whole: bool = True):
     copies complete at (None when nothing came from the card). Device
     tensors go to pinned host memory through ``non_blocking`` copies on
     the current stream; host tensors and numpy arrays are copied now."""
-    from ..core.mesh_step import is_dtensor
+    from ..core.mesh_step import StageValue, is_dtensor
 
     out: Dict[str, object] = {}
     shards = []
@@ -165,7 +188,14 @@ def _snapshot(program: Program, scope: Scope, whole: bool = True):
         val = scope.find_var(v.name)
         if val is None:
             continue
-        if is_dtensor(val):
+        if isinstance(val, StageValue):
+            # a pipeline stage's value: its owner writes it
+            rec = _stage_record(v.name, v, val)
+            if rec is not None:
+                host, card = _host_copy(rec[4])
+                on_card |= card
+                shards.append(rec[:4] + (host,))
+        elif is_dtensor(val):
             rec = _shard_record(v.name, v, val)
             if rec is not None:
                 host, card = _host_copy(rec[4])
@@ -817,11 +847,13 @@ class Checkpointer:
         if rank == 0:
             # every sharded var's name: restore checks that the ranks'
             # index files cover them all
-            from ..core.mesh_step import is_dtensor
+            from ..core.mesh_step import StageValue, is_dtensor
 
             sharded = sorted(v.name for v in program.list_vars()
                              if v.persistable
-                             and is_dtensor(scope.find_var(v.name)))
+                             and (is_dtensor(scope.find_var(v.name))
+                                  or isinstance(scope.find_var(v.name),
+                                                StageValue)))
             if sharded:
                 vals["@shard_manifest@"] = np.asarray("\n".join(sharded))
         ps_names = []

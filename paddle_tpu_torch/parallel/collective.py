@@ -14,8 +14,11 @@ Two usage contexts, as in the JAX package:
   ``ppermute``, ``axis_index`` and ``axis_size``. ``axis`` is a
   ``(mesh, dim_name)`` pair or a process group. ``psum`` and ``pmean`` are
   differentiable (their transpose is ``psum``, as ``lax.psum``'s is);
-  ``ppermute`` is ``dist.batch_isend_irecv`` on the dim's group and the
-  identity on a group of one;
+  ``ppermute`` is ``dist.batch_isend_irecv`` on the dim's group, the
+  identity on a group of one, and differentiable (its transpose is the
+  reverse permutation, as ``lax.ppermute``'s is). On a gloo group a CUDA
+  tensor goes through a host copy (``exchange``): gloo's point-to-point
+  ops take CPU tensors;
 - at the array level, on ``DTensor``s (the port's sharded ``jax.Array``):
   ``all_reduce``, ``all_gather``, ``reduce_scatter``, ``broadcast``,
   ``all_to_all`` and ``barrier``, with the JAX functions' in and out
@@ -26,8 +29,13 @@ the executor's mesh step uses (``core/mesh_step.py``). For tensor and
 expert parallelism it also uses the Megatron conjugate pair ``copy_to``
 (f: identity forward, sum of the cotangent backward) and ``reduce_from``
 (g: sum forward, identity backward), ``gather_along`` (an all-gather along
-a dim whose backward takes this rank's slice) and ``all_to_all_diff``
-(whose backward is the transposed exchange).
+a dim whose backward takes this rank's slice), ``gather_summed`` (the same
+all-gather whose backward is a reduce-scatter: the sequence axis's keys
+and values, read by every rank's queries) and ``all_to_all_diff`` (whose
+backward is the transposed exchange). The pipelines
+(``parallel/pipeline.py``) use ``exchange`` (point-to-point sends and
+receives) and ``broadcast_from`` (one rank's value on every rank; its
+backward keeps only the root's cotangent).
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ __all__ = ["psum", "pmean", "ppermute", "axis_index", "axis_size",
            "all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "all_to_all", "barrier", "axis_group", "reduce_scatter_into",
            "all_gather_into", "copy_to", "reduce_from", "gather_along",
-           "all_to_all_diff"]
+           "gather_summed", "all_to_all_diff", "exchange", "broadcast_from"]
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN}
@@ -156,6 +164,29 @@ class _GatherAlong(torch.autograd.Function):
                 .contiguous(), None, None)
 
 
+class _GatherSummed(torch.autograd.Function):
+    """Every rank's slice along `dim` made whole; the backward sums the
+    cotangent over the group and keeps this rank's slice (a
+    reduce-scatter): each rank's cotangent of the whole value is a part
+    (its own queries' share of the keys' cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gathered(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        parts = g.movedim(ctx.dim, 0)
+        w = parts.shape[0] // n
+        buf = parts.contiguous().view(-1)
+        out = buf.new_empty(buf.numel() // n)
+        reduce_scatter_into(out, buf, ctx.group)
+        local = out.view((w,) + tuple(parts.shape[1:]))
+        return local.movedim(0, ctx.dim).contiguous(), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     """``all_to_all_local``; its transpose (the concat and split axes
     swapped) backward."""
@@ -196,6 +227,15 @@ def gather_along(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
     return _GatherAlong.apply(x, dim % x.ndim, group)
 
 
+def gather_summed(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """Every rank's slice of dim `dim` made whole, differentiably, with a
+    reduce-scatter of the cotangent backward (see ``_GatherSummed``)."""
+    group = axis_group(axis)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _GatherSummed.apply(x, dim % x.ndim, group)
+
+
 def all_to_all_diff(x: torch.Tensor, axis, split_axis: int,
                     concat_axis: int) -> torch.Tensor:
     """``lax.all_to_all(tiled=True)`` on local tensors, differentiable."""
@@ -233,30 +273,107 @@ def pmean(x: torch.Tensor, axis) -> torch.Tensor:
     return psum(x, axis) / axis_size(axis)
 
 
-def ppermute(x: torch.Tensor, axis, perm) -> torch.Tensor:
-    """``lax.ppermute``: `perm` is a list of (source, destination) pairs of
-    axis indices; a rank that no pair sends to gets zeros. One
-    ``batch_isend_irecv`` on the axis's group; a pair that maps a rank to
-    itself, or a group of one, is the identity."""
-    group = axis_group(axis)
+def _host_staged(t: torch.Tensor, group) -> bool:
+    """Whether a point-to-point op of `t` on `group` goes through a host
+    copy: gloo's send and receive take CPU tensors."""
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def exchange(sends, recvs, group) -> None:
+    """Point-to-point on `group`: `sends` are (tensor, group rank) pairs,
+    `recvs` (buffer, group rank) pairs filled in place; all of them are
+    posted in one ``batch_isend_irecv`` and waited for. Every rank of a
+    pair posts its half in the same call, so the pairs cannot wait on each
+    other. A CUDA tensor on a gloo group is sent and received through a
+    host copy."""
+    ops, back = [], []
+    for t, r in sends:
+        t = t.detach().contiguous()
+        if _host_staged(t, group):
+            t = t.cpu()
+        ops.append(dist.P2POp(dist.isend, t, dist.get_global_rank(group, r),
+                              group))
+    for buf, r in recvs:
+        into = buf
+        if _host_staged(buf, group) or not buf.is_contiguous():
+            into = torch.empty(buf.shape, dtype=buf.dtype,
+                               device="cpu" if _host_staged(buf, group)
+                               else buf.device)
+            back.append((buf, into))
+        ops.append(dist.P2POp(dist.irecv, into,
+                              dist.get_global_rank(group, r), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for buf, got in back:
+        buf.copy_(got)
+
+
+def _ppermute_local(x: torch.Tensor, group, perm) -> torch.Tensor:
     me = dist.get_rank(group)
     dst = [d for s, d in perm if s == me]
     src = [s for s, d in perm if d == me]
     if dst == [me] and src == [me]:
         return x
-    x = x.contiguous()
     out = torch.zeros_like(x)
-    ops = []
-    for d in dst:
-        ops.append(dist.P2POp(dist.isend, x,
-                              dist.get_global_rank(group, d), group))
-    for s in src:
-        ops.append(dist.P2POp(dist.irecv, out,
-                              dist.get_global_rank(group, s), group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    exchange([(x, d) for d in dst], [(out, s) for s in src], group)
     return out
+
+
+class _PPermute(torch.autograd.Function):
+    """``lax.ppermute``; the reverse permutation backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, [(d, s) for s, d in perm]
+        return _ppermute_local(x.detach(), group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute_local(g.contiguous(), ctx.group, ctx.perm), None, None
+
+
+def ppermute(x: torch.Tensor, axis, perm) -> torch.Tensor:
+    """``lax.ppermute``: `perm` is a list of (source, destination) pairs of
+    axis indices; a rank that no pair sends to gets zeros. One
+    ``batch_isend_irecv`` on the axis's group; a pair that maps a rank to
+    itself, or a group of one, is the identity. Differentiable: the
+    cotangent goes back along the reverse pairs."""
+    group = axis_group(axis)
+    if dist.get_world_size(group) == 1:
+        return x
+    perm = [(int(s), int(d)) for s, d in perm]
+    if x.requires_grad and torch.is_grad_enabled():
+        return _PPermute.apply(x, group, perm)
+    return _ppermute_local(x, group, perm)
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    """The root's value on every rank; backward, the root keeps its own
+    cotangent and the other ranks' inputs get zeros (every rank holds the
+    whole cotangent of a replicated value, so it is taken once)."""
+
+    @staticmethod
+    def forward(ctx, x, root, group):
+        ctx.root = root
+        ctx.mine = dist.get_rank(group) == root
+        y = x.detach().contiguous().clone()
+        dist.broadcast(y, dist.get_global_rank(group, root), group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.mine else torch.zeros_like(g)), None, None
+
+
+def broadcast_from(x: torch.Tensor, root: int, axis) -> torch.Tensor:
+    """Rank `root`'s `x` on every rank of `axis` (every rank passes a
+    tensor of the same shape and dtype); differentiable, the cotangent
+    goes to the root only."""
+    group = axis_group(axis)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _BroadcastFrom.apply(x, int(root), group)
 
 
 # -- array level (DTensor in, DTensor out) ----------------------------------

@@ -471,8 +471,9 @@ CASES += [
 ]
 
 # ops whose attrs hold a sub-block: the program-level twins in
-# tests/test_torch_optimizers_more.py run them
-BLOCK_OPS = ("conditional_block",)
+# tests/test_torch_optimizers_more.py (conditional_block) and
+# tests/test_torch_pipeline.py (the pipelines) run them
+BLOCK_OPS = ("conditional_block", "pipeline", "pipeline_hetero")
 # the deferred-row update ops (a SelectedRows gradient):
 # test_deferred_row_op_matches_jax
 DEFERRED_ROW_OPS = ("sgd_row_deferred", "adagrad_row_deferred",

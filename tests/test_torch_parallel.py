@@ -20,7 +20,7 @@ atol 1e-5; bf16 inputs rtol 0.1, atol 0.05), plus what the port adds:
   their parts in another order than one device sums the batch);
 - dropout under a data axis: every rank draws its own masks;
 - the mesh surface: with_mesh on a dp axis, run_batched with a mesh, and
-  what is left for ROADMAP A9b2/A9c raising naming the item.
+  what is left for ROADMAP A9b3/A9c raising naming the item.
 """
 import numpy as np
 import pytest
@@ -256,14 +256,15 @@ def test_mesh_surface_raises_naming_the_item(worlds):
     got = worlds().run("surface")[0]
     assert "A9b" in got["seq_axis"] and "NotImplementedError" in got[
         "seq_axis"]
-    assert "A9b2" in got["pp"] and "'pp'" in got["pp"]
+    # a pp axis computes replicated for a program without pipeline ops
+    assert got["pp"] is None
+    assert "A9b3" in got["ep"] and "'ep'" in got["ep"]
     assert "RuntimeError" in got["places"] and "distributed.launch" in got[
         "places"]
     assert "gradient_merge_steps" in got["gm"]
     from paddle_tpu_torch import parallel
 
-    with pytest.raises(NotImplementedError, match="A9b"):
-        parallel.GPipe  # noqa: B018
+    assert callable(parallel.GPipe)
     with pytest.raises(NotImplementedError, match="A9c"):
         parallel.local_sgd_step  # noqa: B018
 

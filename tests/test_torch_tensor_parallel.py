@@ -305,18 +305,38 @@ def test_dropout_mask_is_the_slice_of_the_whole_mask():
 
 
 def test_attention_dropout_on_a_head_slice_raises():
+    """Attention dropout on a model-axis slice of the heads no longer
+    raises: each rank's op draws its heads of the whole run's mask (the
+    seed becomes the kernels' key with the rank's head offset), so the
+    ranks' outputs laid end to end along the heads equal the whole-head
+    op's, bitwise, at the same generator state."""
     from paddle_tpu_torch.core.executor import ExecContext
     from paddle_tpu_torch.core.mesh_step import TPShard
     from paddle_tpu_torch.core.registry import get_op
 
-    ctx = ExecContext("cpu")
-    ctx.training = True
-    ctx.tp_in = {"Q": [TPShard(2, 0, 2, None)]}
-    q = torch.zeros(1, 64, 64)
-    with pytest.raises(NotImplementedError, match="A9b2"):
-        get_op("flash_attention").fn(
-            ctx, {"Q": [q], "K": [q], "V": [q]},
-            {"num_heads": 1, "dropout_prob": 0.1})
+    g = torch.Generator().manual_seed(5)
+    b, t, nh, d = 2, 64, 4, 16
+    q, k, v = (torch.randn(b, t, nh * d, generator=g) for _ in range(3))
+    fn = get_op("flash_attention").fn
+    attrs = {"num_heads": nh, "dropout_prob": 0.1}
+
+    def ctx(shard=None):
+        c = ExecContext("cpu", torch.Generator().manual_seed(9))
+        c.training = True
+        c.tp_in = shard
+        return c
+
+    whole = fn(ctx(), {"Q": [q], "K": [k], "V": [v]}, attrs)["Out"][0]
+    undropped = fn(ctx(), {"Q": [q], "K": [k], "V": [v]},
+                   {"num_heads": nh})["Out"][0]
+    assert not torch.equal(whole, undropped)
+    parts = []
+    for r in range(2):
+        sh = {s: [TPShard(2, r, 2, None)] for s in "QKV"}
+        local = {s: [x.chunk(2, -1)[r]] for s, x in zip("QKV", (q, k, v))}
+        parts.append(fn(ctx(sh), local, {**attrs, "num_heads": nh // 2})
+                     ["Out"][0])
+    assert torch.equal(torch.cat(parts, -1), whole)
 
 
 @pytest.mark.parametrize("op", ["flash_attention", "flash_attention_sparse"])
@@ -497,16 +517,16 @@ def test_deepfm_vocab_sharded_table(world, packed):
 def test_tp_mesh_refusals(world):
     """As the JAX package: a dim its axis does not divide (BERT's 30,522-
     row vocabulary over tp = 4) and a spec naming an axis the mesh lacks
-    raise ValueError at the run; a pp axis and a sequence axis raise
-    naming ROADMAP A9b2."""
+    raise ValueError at the run; a second model axis and a sequence axis
+    beside the model axis raise naming ROADMAP A9b3."""
     got = world().run("tp_surface")[0]
     assert got["vocab_30522_tp4"].startswith("ValueError")
     assert "30522" in got["vocab_30522_tp4"]
     assert "divisible by 4" in got["vocab_30522_tp4"]
     assert got["axis_missing"].startswith("ValueError")
     assert "not found in mesh" in got["axis_missing"]
-    assert got["pp"].startswith("NotImplementedError") and "A9b2" in got["pp"]
-    assert "A9b2" in got["seq_axis"]
+    assert got["pp"].startswith("NotImplementedError") and "A9b3" in got["pp"]
+    assert "A9b3" in got["seq_axis"]
 
 
 # -- twins of tests/test_checkpoint.py ---------------------------------------

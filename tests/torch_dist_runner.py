@@ -698,9 +698,11 @@ def case_surface():
         main, startup, loss = build_zero_mlp(fluid)
     for label, fn in (
             ("seq_axis", lambda: fluid.CompiledProgram(main).with_mesh(
-                make_mesh({"dp": world}), seq_axis="sp")),
+                make_mesh({"dp": world // 2, "sp": 2}))),
             ("pp", lambda: fluid.CompiledProgram(main).with_mesh(
                 make_mesh({"dp": world // 2, "pp": 2}))),
+            ("ep", lambda: fluid.CompiledProgram(main).with_mesh(
+                make_mesh({"dp": world // 2, "ep": 2}))),
             ("places", lambda: fluid.CompiledProgram(main).with_data_parallel(
                 places=[fluid.CPUPlace()] * (world + 1))),
             ("gm", lambda: fluid.CompiledProgram(main).with_mesh(
@@ -1145,7 +1147,8 @@ def case_selected_rows(counts, height, tp_size=1):
 
 def case_tp_surface():
     """What a tp mesh refuses: BERT's 30,522-row vocabulary over tp = 4, a
-    spec naming an axis the mesh lacks, and a pp axis."""
+    spec naming an axis the mesh lacks, a second model axis (under the
+    "pp" label) and a sequence axis beside the model axis."""
     fluid, names = _port()
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.parallel import make_mesh
@@ -1180,9 +1183,10 @@ def case_tp_surface():
     with names.guard():
         main, _, _ = build_zero_mlp(fluid)
     attempt("pp", lambda: fluid.CompiledProgram(main).with_mesh(
-        make_mesh({"dp": world // 2, "pp": 2})))
+        make_mesh({"tp": 2, "mp": world // 2}), data_axis=None))
     attempt("seq_axis", lambda: fluid.CompiledProgram(main).with_mesh(
-        make_mesh({"dp": world}), seq_axis="sp"))
+        make_mesh({"sp": 2, "tp": world // 2}), data_axis=None,
+        seq_axis="sp"))
     return got
 
 
@@ -1244,10 +1248,13 @@ CASES = {n[5:]: f for n, f in dict(globals()).items()
 
 # -- the world ----------------------------------------------------------------
 
-def _serve(rank, world, store, conn):
+def _serve(rank, world, store, conn, cases=None):
+    import importlib
+
     import torch
 
     torch.set_num_threads(1)
+    table = CASES if cases is None else importlib.import_module(cases).CASES
     from paddle_tpu_torch.parallel import init_parallel_env
 
     init_parallel_env(f"file://{store}", world, rank, device="cpu",
@@ -1261,7 +1268,7 @@ def _serve(rank, world, store, conn):
                 break
             name, kwargs = msg
             try:
-                conn.send(("ok", CASES[name](**kwargs)))
+                conn.send(("ok", table[name](**kwargs)))
             except Exception:  # reported to the test, which fails on it
                 conn.send(("err", traceback.format_exc()))
     finally:
@@ -1273,7 +1280,9 @@ class World:
 
     _count = 0
 
-    def __init__(self, n: int, tmpdir: str):
+    def __init__(self, n: int, tmpdir: str, cases: str = None):
+        """`cases`: the module whose ``CASES`` the ranks serve (default
+        this one's)."""
         ctx = mp.get_context("spawn")
         # a new file for every world: a world started again after a failed
         # case must not meet the old world's addresses in its store
@@ -1281,10 +1290,11 @@ class World:
         store = os.path.join(str(tmpdir),
                              f"store-{n}-{os.getpid()}-{World._count}")
         self.n = n
+        self.pending = None
         self.conns, self.procs = [], []
         for r in range(n):
             parent, child = ctx.Pipe()
-            p = ctx.Process(target=_serve, args=(r, n, store, child),
+            p = ctx.Process(target=_serve, args=(r, n, store, child, cases),
                             daemon=True)
             p.start()
             self.conns.append(parent)
@@ -1293,9 +1303,24 @@ class World:
     def run(self, name, kwargs=None, timeout=CASE_TIMEOUT):
         """Run case `name` on every rank (`kwargs`: one dict for all, or a
         list with one a rank); returns the results in rank order."""
+        self.submit(name, kwargs)
+        return self.collect(name, timeout)
+
+    def submit(self, name, kwargs=None):
+        """Start case `name` on every rank (as ``run``) and return at once:
+        the test computes its reference meanwhile, then calls
+        ``collect``. A case that a failed test left uncollected is
+        collected first, so no answer reaches the wrong case."""
+        if self.pending is not None:
+            self.collect(self.pending)
         per = kwargs if isinstance(kwargs, list) else [kwargs or {}] * self.n
         for c, kw in zip(self.conns, per):
             c.send((name, kw))
+        self.pending = name
+
+    def collect(self, name, timeout=CASE_TIMEOUT):
+        """The results of the case ``submit`` started, in rank order."""
+        self.pending = None
         out = []
         for r, c in enumerate(self.conns):
             if not c.poll(timeout):
