@@ -427,6 +427,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              plain) at the heads and lengths each run gives them, masks
              that differ between microbatches. Step ms, peak memory,
              state bytes a rank, the schedule's ticks and bubble.
+23. model_parallel_rest — the rest of model parallelism, on gloo groups
+             on the one card as phase 22 runs them: on two ranks (a)
+             BERT-base f32 (12 layers, B = 8, T = 512, Adam) cut into 2
+             stages of 6 layers (4 microbatches) under
+             GradientClipByGlobalNorm(0.05), 3 steps (each rank brings the
+             other stage's squared norms in one all-gather over pp), and
+             the same in bf16 AMP at dropout 0.1 for 2 steps; (b)
+             layers.moe_ffn's dense path (8 experts, d 1024, hidden 4096,
+             k 2, cf 1.25, 8,192 tokens a rank) at dp = 2, routing the
+             gathered whole batch; (c) a 4-layer BERT-base encoder under a
+             sequence_unpad → sequence_pool head whose rows are weighted by
+             their softmax along dim 0 (rule A: gathered over dp), Adam, 2
+             steps at dp = 2; on four ranks (d) BERT-base f32 on tp2×sp2
+             (6 of 12 heads, 256 of 512 query rows a rank) with attention
+             and hidden dropout 0.1, 2 steps, every rank fed the whole
+             batch; (e) the moe block on {"dp": 2, "ep": 2}. In this
+             process the plain runs. Checks: the clip factor below 1 in
+             every step (printed); pp + clip losses within 1e-5 relative
+             of the plain run's and parameter changes within 1e-3
+             relative L2; bf16 finite; tp×sp losses within 1e-6; the moe
+             Out, AuxLoss and every gradient within 1e-5 of the largest
+             value of the whole-batch run's (both meshes); the head's
+             losses within 1e-5 and changes within 1e-3 (parameters on
+             both sides of the softmax); replicated parameters bitwise
+             across the ranks after every step; rows 1-4 launched the
+             expected number of times at the shapes each run gives them,
+             none plain. Step ms, peak memory, state bytes a rank.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -8298,12 +8325,14 @@ def p22_probe(world):
 
 
 def p22_bert(fluid, bert, amp=False, layers=None, drop=0.0, stages=0,
-             tp=False, micro=P22_MICRO):
+             tp=False, micro=P22_MICRO, clip=None):
     """BERT-base pretraining (vocab 30522, hidden 768, 12 heads, ffn 3072;
     B = P22_B, T = P22_T), Adam(LR), bf16 AMP when `amp`; with `stages`
     > 0 cut by PipelineOptimizer into that many stages (cut_list = the
     embeddings and every (layers / stages)-th layer's output), with `tp`
-    the Megatron specs (tp_axis="tp")."""
+    the Megatron specs (tp_axis="tp"); with `clip`, Adam clips by
+    GradientClipByGlobalNorm(clip) and the global norm is returned fourth
+    (fetched by p22_run)."""
     layers = layers or P22_LAYERS
     L = fluid.layers
     cfg = bert.BertConfig(vocab_size=30522, hidden_size=HIDDEN,
@@ -8327,13 +8356,20 @@ def p22_bert(fluid, bert, amp=False, layers=None, drop=0.0, stages=0,
             if stages and (i + 1) % (layers // stages) == 0:
                 cuts.append(x)
         loss = bert.bert_pretrain_loss(cfg, x, labels, mask)
-        opt = amp_wrapper(fluid, amp)(fluid.optimizer.Adam(LR))
+        kw = ({} if clip is None else
+              {"grad_clip": fluid.clip.GradientClipByGlobalNorm(clip)})
+        opt = amp_wrapper(fluid, amp)(fluid.optimizer.Adam(LR, **kw))
         if stages:
             opt = fluid.optimizer.PipelineOptimizer(
                 opt, cut_list=cuts, num_microbatches=micro)
         opt.minimize(loss)
     main.random_seed = startup.random_seed = 2024
-    return main, startup, loss
+    if clip is None:
+        return main, startup, loss
+    # the clip op's input: the global norm (its max with clip_norm divides)
+    (gnorm,) = [op.inputs["X"][0] for op in main.global_block().ops
+                if op.type == "clip" and op.attrs.get("min") == clip]
+    return main, startup, loss, main.global_block().var(gnorm)
 
 
 def p22_iso_dropout(fluid):
@@ -8430,6 +8466,9 @@ def p22_run(fluid, build, feed, steps, axes=None, data_axis=None,
                                 .reshape(-1)[0]))
             if axes is not None:
                 digests.append(p22_r_digests(main, scope))
+            if fetch is not None:
+                rec.setdefault("fetched_steps", []).append(
+                    np.asarray(last[1], np.float32))
         rec.update(losses=losses, step_ms=ms, peak_MiB=(
             torch.cuda.max_memory_allocated() / 2**20 if cuda else None))
         if fetch is not None:
@@ -8656,6 +8695,10 @@ def p22_composed(fluid, fa, rank, world):
 def p22_job(fluid, fa, fas, job, rank, world, ckdir):
     if job == "pair":
         return p22_pair(fluid, fa, fas, rank, world, ckdir)
+    if job == "rest_pair":
+        return p23_pair(fluid, fa, rank, world)
+    if job == "rest_quad":
+        return p23_quad(fluid, fa, rank, world)
     return p22_composed(fluid, fa, rank, world)
 
 
@@ -8890,6 +8933,287 @@ def phase_pipelines(fluid, fa, fas, smi):
     return out
 
 
+# -- phase 23: model parallelism, the rest (several axes at once, ops
+# across the batch dim, moe_ffn off the data axis, a clip across stages) --
+P23_PAIR, P23_QUAD = 2, 4
+P23_CLIP = 0.05           # below the global norm in every step: printed
+P23_CLIP_STEPS, P23_CLIP_BF16_STEPS, P23_TPSP_STEPS = 3, 2, 2
+P23_HEAD_LAYERS, P23_HEAD_STEPS = 4, 2
+P23_MOE = dict(P21_MOE, cf=1.25)
+# pp + clip: losses within 1e-5 relative of the plain run's (each stage's
+# gradient sums its microbatches, so the norm may differ in its last bits),
+# parameter changes within P21_DELTA_REL; tp×sp with dropout within 1e-6;
+# moe_ffn's Out, AuxLoss and gradients within 1e-5 of the largest value;
+# the rule-A head's losses within 1e-5, changes within P21_DELTA_REL
+P23_LOSS_REL, P23_TPSP_REL, P23_MOE_REL = 1e-5, 1e-6, 1e-5
+
+
+def p23_head(fluid, bert, layers=P23_HEAD_LAYERS):
+    """BERT-base's encoder (hidden 768, 12 heads, `layers` layers; B =
+    P22_B, T = P22_T) → sequence_unpad → sequence_pool (average, row by
+    row over each row's length) → the pooled rows weighted by their
+    softmax along dim 0 (across the batch: rule A on a data axis) → fc →
+    mean square; Adam(LR)."""
+    L = fluid.layers
+    cfg = bert.BertConfig(vocab_size=30522, hidden_size=HIDDEN,
+                          num_layers=layers, num_heads=NH, ffn_size=3072,
+                          max_position=512, hidden_dropout=0.0,
+                          attn_dropout=0.0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src = L.data("src_ids", [P22_T], dtype="int64")
+        pos = L.data("pos_ids", [P22_T], dtype="int64")
+        sent = L.data("sent_ids", [P22_T], dtype="int64")
+        mask = L.data("input_mask", [P22_T], dtype="float32")
+        length = L.data("len", [], dtype="int64")
+        neg = L.scale(L.elementwise_add(
+            mask, L.fill_constant([1], "float32", -1.0)), scale=10000.0)
+        mask4 = L.unsqueeze(neg, [1])
+        x = bert.embeddings(cfg, src, pos, sent)
+        for i in range(layers):
+            x = bert.encoder_layer(cfg, x, mask4, i)
+        pooled = L.sequence_pool(L.sequence_unpad(x, length), "average",
+                                 length=length)
+        p = L.elementwise_mul(L.softmax(pooled, axis=0), pooled)
+        loss = L.mean(L.square(L.fc(p, 2)))
+        fluid.optimizer.Adam(LR).minimize(loss)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss
+
+
+def p23_head_feed():
+    feed = pretrain_feed(P22_B, P22_T, np.random.RandomState(23))
+    feed.pop("mlm_labels")
+    feed["len"] = feed["input_mask"].sum(1).astype("int64")
+    return feed
+
+
+def p23_moe(fluid):
+    """layers.moe_ffn at P23_MOE's widths (cf 1.25, gelu), f32, SGD(0):
+    one step gives Out, AuxLoss and the gradients (fetched by name)."""
+    m = P23_MOE
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", [m["d"]])
+        y = fluid.layers.data("y", [m["d"]])
+        h, aux = fluid.layers.moe_ffn(x, num_experts=m["experts"],
+                                      hidden_size=m["hidden"], k=m["k"],
+                                      capacity_factor=m["cf"])
+        mse = fluid.layers.reduce_mean(fluid.layers.square(
+            fluid.layers.elementwise_sub(h, y)))
+        loss = fluid.layers.elementwise_add(mse,
+                                            fluid.layers.scale(aux, 0.01))
+        fluid.optimizer.SGD(0.0).minimize(loss)
+    main.random_seed = startup.random_seed = 2024
+    return main, startup, loss, h, aux
+
+
+def p23_moe_once(fluid, feed, axes=None, data_axis=None):
+    """One step of p23_moe on `feed` (this rank's rows on a mesh of
+    `axes`, or the whole batch on the plain executor): {"Out", "AuxLoss",
+    every parameter's gradient} on the host, Out gathered in rank order."""
+    import torch
+
+    from paddle_tpu_torch.parallel import make_mesh
+
+    main, startup, loss, h, aux = p23_moe(fluid)
+    grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    exe = fluid.Executor(p22_place(fluid))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        prog = main if axes is None else fluid.CompiledProgram(
+            main).with_mesh(make_mesh(axes), data_axis=data_axis)
+        got = exe.run(prog, feed=feed, fetch_list=[h, aux] + grads,
+                      return_numpy=False)
+    out = {k: torch.as_tensor(v).detach().float().cpu()
+           for k, v in zip(["Out", "AuxLoss"] + grads, got)}
+    del scope
+    torch.cuda.empty_cache()
+    return out
+
+
+def p23_moe_rel(got, want):
+    """max over the values of max|got − want| / max|want|."""
+    return max(float((got[k] - w).abs().max()) / max(
+        float(w.abs().max()), 1e-30) for k, w in want.items())
+
+
+def p23_pair(fluid, fa, rank, world):
+    """What the two ranks of (a)-(c) run, in one order. Returns (this
+    rank's record, {run: final parameters})."""
+    from paddle_tpu_torch.models import bert
+
+    dense = ("flash_attention_fwd", "flash_attention_bwd")
+    feed = pretrain_feed(P22_B, P22_T, np.random.RandomState(23))
+    rec = {"rank": rank}
+    pp = {"pp": world}
+    _, clip_params, _ = p22_counted(rec, "pp_clip_f32", fa, dense,
+                                    lambda: p22_run(
+        fluid, lambda: p22_bert(fluid, bert, stages=world, clip=P23_CLIP),
+        feed, P23_CLIP_STEPS, pp))
+    p22_counted(rec, "pp_clip_bf16", fa, dense, lambda: p22_run(
+        fluid, lambda: p22_bert(fluid, bert, amp=True, drop=P22_DROP,
+                                stages=world, clip=P23_CLIP), feed,
+        P23_CLIP_BF16_STEPS, pp, params=False))
+    moe_feed = p21_moe_feed(world)
+    rec["moe_dp"] = p23_moe_once(fluid, p20_rows(moe_feed, rank, world),
+                                 {"dp": world}, "dp")
+    head = p23_head_feed()
+    _, head_params, rec["head_dp"] = p22_run(
+        fluid, lambda: p23_head(fluid, bert), p20_rows(head, rank, world),
+        P23_HEAD_STEPS, {"dp": world}, data_axis="dp")
+    return rec, {"pp_clip_f32": clip_params, "head_dp": head_params}
+
+
+def p23_quad(fluid, fa, rank, world):
+    """What the four ranks of (d)-(e) run: BERT-base f32 on tp2×sp2 with
+    attention and hidden dropout (every rank feeds the whole batch: the
+    masks are the plain run's), and moe_ffn on {"dp": 2, "ep": 2}."""
+    from paddle_tpu_torch.models import bert
+
+    feed = pretrain_feed(P22_B, P22_T, np.random.RandomState(23))
+    rec = {"rank": rank}
+    p22_counted(rec, "tpsp_f32_drop", fa, ("flash_attention_fwd",
+                                           "flash_attention_bwd"),
+                lambda: p22_run(fluid, lambda: p22_bert(
+                    fluid, bert, drop=P22_DROP, tp=True), feed,
+                    P23_TPSP_STEPS, {"tp": 2, "sp": 2}, seq_axis="sp",
+                    params=False))
+    rec["moe_dp_ep"] = p23_moe_once(
+        fluid, p20_rows(p21_moe_feed(world // 2), rank // 2, 2),
+        {"dp": 2, "ep": 2}, "dp")
+    return rec, {}
+
+
+def phase_model_parallel_rest(fluid, fa, smi):
+    """Phase 23 (module docstring). Returns the flash launches of its main
+    paths over every rank: {run: {"fwd"|"bwd": n}} (dtype in the run's
+    name)."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+
+    t_phase = time.perf_counter()
+    pair, pair_params, backend = p22_world(fluid, fa, None, "rest_pair",
+                                           P23_PAIR, "")
+    t_pair = time.perf_counter() - t_phase
+    quad, _, _ = p22_world(fluid, fa, None, "rest_quad", P23_QUAD, "")
+    t_mesh = time.perf_counter() - t_phase
+    feed = pretrain_feed(P22_B, P22_T, np.random.RandomState(23))
+
+    def init_of(build):
+        main, startup = build()[:2]
+        scope = fluid.Scope()
+        fluid.Executor(p22_place(fluid)).run(startup, scope=scope)
+        return {p.name: scope.find_var(p.name).detach().float().cpu()
+                .clone() for p in main.all_parameters()}
+
+    plain = {}
+    clip_init = init_of(lambda: p22_bert(fluid, bert, clip=P23_CLIP))
+    _, clip_ref, plain["clip_f32"] = p22_run(
+        fluid, lambda: p22_bert(fluid, bert, clip=P23_CLIP), feed,
+        P23_CLIP_STEPS)
+    _, _, plain["tpsp_f32_drop"] = p22_run(
+        fluid, lambda: p22_bert(fluid, bert, drop=P22_DROP, tp=True), feed,
+        P23_TPSP_STEPS, params=False)
+    head_init = init_of(lambda: p23_head(fluid, bert))
+    _, head_ref, plain["head"] = p22_run(
+        fluid, lambda: p23_head(fluid, bert), p23_head_feed(),
+        P23_HEAD_STEPS)
+    moe_ref = {"dp": p23_moe_once(fluid, p21_moe_feed(P23_PAIR)),
+               "dp_ep": p23_moe_once(fluid, p21_moe_feed(P23_QUAD // 2))}
+    torch.cuda.empty_cache()
+    r0, q0 = pair[0], quad[0]
+    factors = {k: [min(1.0, P23_CLIP / max(float(g), P23_CLIP))
+                   for g in v] for k, v in (
+        ("pp_f32", r0["pp_clip_f32"]["fetched_steps"]),
+        ("pp_bf16", r0["pp_clip_bf16"]["fetched_steps"]),
+        ("plain_f32", plain["clip_f32"]["fetched_steps"]))}
+    checks = {
+        "clip_factors": factors,
+        "pp_clip_f32_loss_rel": p21_rel(r0["pp_clip_f32"]["losses"],
+                                        plain["clip_f32"]["losses"]),
+        "pp_clip_f32_delta_rel": p21_delta_rel(
+            pair_params["pp_clip_f32"], clip_ref, clip_init),
+        "pp_clip_bf16_losses_finite": all(
+            np.isfinite(x) for r in pair
+            for x in r["pp_clip_bf16"]["losses"]),
+        "tpsp_f32_drop_loss_rel": p21_rel(q0["tpsp_f32_drop"]["losses"],
+                                          plain["tpsp_f32_drop"]["losses"]),
+        "moe_dp_rel": max(p23_moe_rel(r["moe_dp"], moe_ref["dp"])
+                          for r in pair),
+        "moe_dp_ep_rel": max(p23_moe_rel(r["moe_dp_ep"], moe_ref["dp_ep"])
+                             for r in quad),
+        "head_loss_rel": p21_rel(r0["head_dp"]["losses"],
+                                 plain["head"]["losses"]),
+        "head_delta_rel": p21_delta_rel(pair_params["head_dp"], head_ref,
+                                        head_init),
+        "r_params_bitwise_equal": all(
+            r[k].get("r_params_bitwise_equal", True)
+            for rs, keys in ((pair, ("pp_clip_f32", "pp_clip_bf16",
+                                     "head_dp")),
+                             (quad, ("tpsp_f32_drop",)))
+            for r in rs for k in keys),
+    }
+    fields = ("losses", "step_ms", "peak_MiB", "state_bytes_per_rank")
+    runs = {k: {f: r0[k][f] for f in fields + ("launches", "plain_on_cuda",
+                                               "shapes", "s")}
+            for k in ("pp_clip_f32", "pp_clip_bf16")}
+    runs["head_dp"] = {f: r0["head_dp"][f] for f in fields}
+    runs["tpsp_f32_drop"] = {f: q0["tpsp_f32_drop"][f] for f in fields + (
+        "launches", "plain_on_cuda", "shapes", "s")}
+    out = {"backend": backend, "runs": runs,
+           "plain": {k: {f: v[f] for f in fields} for k, v in plain.items()},
+           "checks": checks, "pair_s": t_pair, "mesh_s": t_mesh,
+           "device": smi}
+    plain_on_cuda = sum(r[k]["plain_on_cuda"] for r in pair
+                        for k in ("pp_clip_f32", "pp_clip_bf16")) + sum(
+        r["tpsp_f32_drop"]["plain_on_cuda"] for r in quad)
+
+    def total(rs, k):
+        return {d: sum(r[k]["launches"][d] for r in rs)
+                for d in ("fwd", "bwd")}
+
+    launches = {k: total(pair, k) for k in ("pp_clip_f32", "pp_clip_bf16")}
+    launches["tpsp_f32_drop"] = total(quad, "tpsp_f32_drop")
+    out.update(launches=launches, plain_on_cuda=plain_on_cuda,
+               wall_s=time.perf_counter() - t_phase)
+    log("model_parallel_rest " + json.dumps(out, default=str))
+    half = P22_LAYERS // P23_PAIR
+    want = {"pp_clip_f32": P23_PAIR * half * P22_MICRO * P23_CLIP_STEPS,
+            "pp_clip_bf16": P23_PAIR * half * P22_MICRO
+            * P23_CLIP_BF16_STEPS,
+            "tpsp_f32_drop": P23_QUAD * P22_LAYERS * P23_TPSP_STEPS}
+    bad = [f"{k} launches {launches[k]}, expected {m} each"
+           for k, m in want.items() if launches[k] != {"fwd": m, "bwd": m}]
+    for key, limit in (("pp_clip_f32_loss_rel", P23_LOSS_REL),
+                       ("pp_clip_f32_delta_rel", P21_DELTA_REL),
+                       ("tpsp_f32_drop_loss_rel", P23_TPSP_REL),
+                       ("moe_dp_rel", P23_MOE_REL),
+                       ("moe_dp_ep_rel", P23_MOE_REL),
+                       ("head_loss_rel", P23_LOSS_REL),
+                       ("head_delta_rel", P21_DELTA_REL)):
+        if not checks[key] <= limit:
+            bad.append(f"{key} {checks[key]} over {limit}")
+    if not all(f < 1.0 for v in factors.values() for f in v):
+        bad.append(f"a clip factor is not below 1: {factors}")
+    if not checks["r_params_bitwise_equal"]:
+        bad.append("replicated parameters differ across the ranks")
+    if not checks["pp_clip_bf16_losses_finite"]:
+        bad.append("a pp bf16 loss is not finite")
+    shapes = {"pp_clip_f32": [(NH, P22_T, P22_T)],
+              "tpsp_f32_drop": [(NH // 2, P22_T // 2, P22_T)]}
+    bad += [f"{k} kernels saw {runs[k]['shapes']}, expected {v}"
+            for k, v in shapes.items()
+            if [tuple(x) for x in runs[k]["shapes"]] != v]
+    if plain_on_cuda:
+        bad.append(f"plain calls on the card: {plain_on_cuda}")
+    if bad:
+        raise AssertionError(f"phase 23: {bad}")
+    return out
+
+
 
 def main():
     import torch
@@ -9039,6 +9363,16 @@ def main():
             train_launches[(d, dt)] += p22["launches"][key][d]
     for d in ("fwd", "bwd"):
         nmt_launches["bfloat16"][d] += p22["launches"]["tp_nmt_bf16_drop"][d]
+
+    # 23. model parallelism, the rest (a global-norm clip across pp = 2
+    # stages on BERT-base, BERT-base on tp2×sp2 with dropout, moe_ffn's
+    # dense path on dp = 2 and on {"dp": 2, "ep": 2}, a rule-A op in a
+    # BERT-base head at dp = 2)
+    p23 = phase_model_parallel_rest(fluid, fa, smi)
+    for key, dt in (("pp_clip_f32", "float32"), ("pp_clip_bf16", "bfloat16"),
+                    ("tpsp_f32_drop", "float32")):
+        for d in ("fwd", "bwd"):
+            train_launches[(d, dt)] += p23["launches"][key][d]
 
     kernels = []
     for name in ("float32", "bfloat16"):

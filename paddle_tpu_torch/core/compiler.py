@@ -9,17 +9,16 @@ runs one process a GPU under a ``torch.distributed`` group
 (``parallel.init_parallel_env``, ``distributed.launch``):
 ``with_data_parallel`` lays a ``dp`` mesh over the group (N places need a
 world of N), ``with_mesh`` takes a ``DeviceMesh`` with a data axis (or
-none), at most one model axis (tensor parallelism: the parameters'
-``shard_spec``), a ``pp`` axis for the program's pipeline ops
-(``PipelineOptimizer``) and a sequence axis (``seq_axis``), and
-``Executor.run`` runs each rank's step on its own rows
-(``core/mesh_step.py``). Without a group, a CompiledProgram runs on the
+none), model axes (tensor parallelism: each mesh dim that a parameter's
+``shard_spec`` names), a ``pp`` axis for the program's pipeline ops
+(``PipelineOptimizer``) and a sequence axis (``seq_axis``), any of them
+at once, and ``Executor.run`` runs each rank's step on its own rows
+(``core/mesh_step.py``); a mesh dim that none of them uses computes
+replicated. Without a group, a CompiledProgram runs on the
 executor's one device, where a ZeRO stage shards over one device, that
 is, nothing. The ZeRO rules (``_zero_axis``, ``_zero_plan``,
-``_fsdp_param``, ``_zero_pad_map``) are the JAX package's. An ``ep`` axis
-that is not the data axis, a second model axis, an ``sp`` dim without
-``seq_axis`` and a sequence axis beside a model or pipeline axis are
-ROADMAP A9b3; remat ``saveable_names`` is A9c.
+``_fsdp_param``, ``_zero_pad_map``) are the JAX package's. Remat
+``saveable_names`` is ROADMAP A9c.
 
 Remat. ``BuildStrategy.remat_policy`` (or ``PDTPU_REMAT_POLICY`` on the
 plain executor) resolves to a :class:`RematSpec`. Consecutive ops tagged
@@ -42,11 +41,6 @@ from .program import Program
 __all__ = ["ShardingStrategy", "RematSpec", "REMAT_POLICIES",
            "resolve_remat", "BuildStrategy", "ExecutionStrategy",
            "CompiledProgram"]
-
-_A9B3 = ("is ROADMAP A9b3 (an ep axis that is not the data axis, a "
-         "second model axis, an sp dim without seq_axis, a sequence axis "
-         "beside a model or pipeline axis)")
-
 
 class ShardingStrategy:
     """ZeRO-style sharding of model state over the data-parallel axis
@@ -251,6 +245,7 @@ class CompiledProgram:
         self._loss_name: Optional[str] = None
         self._mesh = None
         self._data_axis: Optional[str] = None
+        self._model_axes: list = []
         self._model_axis: Optional[str] = None
         self._pp_axis: Optional[str] = None
         self._seq_axis: Optional[str] = None
@@ -289,6 +284,7 @@ class CompiledProgram:
 
             self._mesh = make_mesh({"dp": world})
             self._data_axis = "dp"
+            self._model_axes = []
             self._model_axis = self._pp_axis = self._seq_axis = None
         self._loss_name = loss_name
         self.build_strategy = build_strategy or BuildStrategy()
@@ -302,25 +298,28 @@ class CompiledProgram:
         - `data_axis` (or None: every rank feeds the whole batch and the
           mesh's other dims compute it alike, the JAX package's
           ``data_axis=None``): each rank feeds its own rows;
-        - at most one model axis of size > 1: parameters whose
-          ``shard_spec`` names it are held as each rank's slice (Megatron
-          tensor parallelism);
+        - model axes: each dim of size > 1 that a parameter's
+          ``shard_spec`` names (Megatron tensor parallelism; several at
+          once): those parameters are held as each rank's slice. A spec
+          that names the data axis shards its parameter over it (ZeRO
+          stage 3 for that parameter, on the spec's dim), one that names
+          the sequence axis slices it there;
         - ``pp``: the axis of the program's ``pipeline`` ops
           (``PipelineOptimizer``): the rank at coordinate i holds and
           updates stage i;
         - `seq_axis`: dim 1 (the sequence) of every feed of rank ≥ 2 is
-          sliced over it (sequence parallelism; ValueError when it is the
-          data axis, as in the JAX package);
-        - an ``ep`` axis is the data axis (``layers.moe_ffn`` spreads its
-          experts over it); a ``dp`` dim that is not the data axis
-          computes replicated.
+          sliced over it (sequence parallelism, beside model and pipeline
+          axes too; ValueError when it is the data axis, as in the JAX
+          package);
+        - ``layers.moe_ffn`` spreads its experts over its ``ep_axis``
+          (the data axis or another);
+        - any other dim (a ``dp`` dim that is not the data axis, an
+          ``sp`` dim without `seq_axis`) computes replicated, as in the
+          JAX package.
 
         `strategy` (a fleet ``DistributedStrategy``) wires
         sharding_degree/sharding_stage (ZeRO over the data axis) and
-        recompute/remat_policy (remat). An ``ep`` axis that is not the
-        data axis, a second model axis, an ``sp`` dim without `seq_axis`
-        and a sequence axis beside a model or pipeline axis are ROADMAP
-        A9b3."""
+        recompute/remat_policy (remat)."""
         names = getattr(mesh, "mesh_dim_names", None)
         if names is None:
             raise TypeError(f"with_mesh takes a DeviceMesh with named dims "
@@ -337,30 +336,22 @@ class CompiledProgram:
         pipe_axes = {op.attrs.get("axis", "pp")
                      for op in self._program.global_block().ops
                      if op.type in ("pipeline", "pipeline_hetero")}
-        model = pp = None
+        spec_axes = {a for v in self._program.list_vars()
+                     if v.persistable
+                     for a in (getattr(v, "shard_spec", None) or ())}
+        models, pp = [], None
         for name, size in zip(names, mesh.shape):
             if name in (data_axis, seq) or size == 1:
                 continue
             if name in pipe_axes:
                 pp = name
-                continue
-            if name in ("dp", "pp") and data_axis != name:
-                continue  # computes replicated
-            if name in ("sp", "ep") or model is not None:
-                raise NotImplementedError(
-                    f"with_mesh on a {name!r} axis of size {size} beside the "
-                    f"data axis {data_axis!r}"
-                    + (f" and the model axis {model!r}" if model else "")
-                    + f" {_A9B3}")
-            model = name
-        if seq is not None and (model is not None or pp is not None):
-            raise NotImplementedError(
-                f"with_mesh(seq_axis={seq!r}) beside the "
-                f"{'model' if model else 'pipeline'} axis "
-                f"{model or pp!r} {_A9B3}")
+            elif name in spec_axes:
+                models.append(name)
+            # else: no spec, feed or pipeline uses it; computes replicated
         self._mesh = mesh
         self._data_axis = data_axis
-        self._model_axis = model
+        self._model_axes = models
+        self._model_axis = models[0] if models else None
         self._pp_axis = pp
         self._seq_axis = seq
         self._strategy_stage = 0       # re-derived per call, never sticky

@@ -1,5 +1,6 @@
 """The executor's step on a mesh: a data-parallel axis with ZeRO stages 0–3,
-and a model axis (tensor parallelism).
+model axes (tensor parallelism), a sequence axis and a pipeline axis, any
+of them at once.
 
 Counterpart of the mesh half of ``paddle_tpu.core.compiler``
 (``_make_step``/``_build``/``_run``). The JAX package runs one jitted
@@ -24,9 +25,21 @@ the step makes global with an explicit collective on the dp axis's group:
   ``batch_group(ctx, slot)`` and sum over its group
   (``parallel.collective.psum``, whose transpose is the same sum, as
   ``lax.psum``'s is). So a loss, a statistic or a metric is the global one
-  on every rank. Any other op with a batch-sharded input (one that
-  declares nothing, or a concat, split, slice, transpose, softmax, gather
-  or contraction along dim 0) raises.
+  on every rank. **Rule A:** any other op with a batch-sharded input
+  (one that declares nothing, or a concat, split, slice, transpose,
+  softmax, gather or contraction along dim 0: its callable returns None or
+  a ``registry.Whole``) works across the batch dim: its batch-sharded
+  inputs are gathered whole over the data axis (``collective.gather_rows``:
+  one all-gather of their row counts, which may differ from rank to rank,
+  then one a dtype), it runs on the whole batch, drawing from a stream
+  every rank of the axis shares (``shared_gen``), and its outputs are
+  global, but for the slots its ``Whole`` names, which keep the batch's
+  rows and are cut back to this rank's. The gather's backward is a
+  reduce-scatter, so each rank's cotangents stay its parts of the global
+  ones and the usual gradient sum counts a parameter on either side of
+  the op once. A global output with the whole batch's rows that a
+  row-by-row op later reads beside a batch-sharded value is cut to this
+  rank's rows for that op.
 - **Gradients.** Every cotangent a rank computes is its part of the
   global one: a loss that is the same on every rank is seeded with 1/N,
   and each parameter's gradient is summed over the group. The sum is a
@@ -59,22 +72,33 @@ A group of one needs no exchange: ``batch_group`` is None there, so the
 ops take their one-device code and a world of one is bitwise the plain
 executor. The gradient collectives still run (on one rank they copy).
 
-**The model axis** (``tp``; any mesh dim of size > 1 that is not the data
-axis, ``compiled._model_axis``). A rank's dp group is its row of the mesh
-and its tp group its column (``DeviceMesh.get_group``). Each value has a
-layout on the model axis as well: replicated (R, the default), S(d) (each
-rank holds its slice of dim d) or P (each rank holds a summand;
-``registry.P``), kept in ``lay``:
+**Model axes** (``tp``; each mesh dim of size > 1 that a parameter's
+``shard_spec`` names, other than the data, sequence and pipeline axes,
+``compiled._model_axes``) and **the sequence axis** (``with_mesh(
+seq_axis=)``: dim 1 of the feeds sliced). A rank's group on an axis is the
+ranks that differ from it on that dim only (``DeviceMesh.get_group``).
+Each value has a layout on each of these axes: replicated (R, the
+default), S(d) (each rank holds its slice of dim d) or P (each rank holds
+a summand; ``registry.P``), kept in each axis's ``lay`` (``_Axis``). An
+op's ``tp``/``sp`` declarations apply axis by axis, in order, each on the
+local shapes the axes before it left; a declaration that would keep a
+slice of a dim another axis keeps sliced for the op (or a second
+model-axis slice of one input) gets that axis's inputs gathered whole
+instead. So BERT on tp×sp runs its attention on a rank's heads and a
+rank's query rows at once.
 
-- **Parameters with a ``shard_spec``** naming the axis, and the optimizer
-  state of the same shape that their update ops read, live as this rank's
-  slice: a whole value in the scope (a startup, a restore) is sliced at
-  load, and the step stores a ``DTensor`` with a ``Shard(d)`` placement on
-  the model dim. ZeRO does not touch them (the JAX package's
-  ``_fsdp_param`` and ``shard_grad`` skip them too); their gradients are
-  summed over the data axis only. A spec naming an axis the mesh lacks, or
-  a dim its axis does not divide, raises ValueError, as the JAX package's
-  placement does.
+- **Parameters with a ``shard_spec``** naming such an axis, and the
+  optimizer state of the same shape that their update ops read, live as
+  this rank's slice: a whole value in the scope (a startup, a restore) is
+  sliced at load, and the step stores a ``DTensor`` with a ``Shard(d)``
+  placement on each of their mesh dims. ZeRO does not touch them (the JAX
+  package's ``_fsdp_param`` and ``shard_grad`` skip them too); their
+  gradients are summed over the data axis only. A spec that names the
+  data axis is ZeRO stage 3 for its parameter on the spec's dim, at any
+  stage: stored sharded, gathered whole at first use, its gradient
+  reduce-scattered and kept as a shard, its update run on the shard. A
+  spec naming an axis the mesh lacks, or a dim its axis does not divide,
+  raises ValueError, as the JAX package's placement does.
 - **Ops.** Before an op runs, a P input is summed over the tp group
   (``collective.reduce_from``, Megatron's g); the op's ``tp`` declaration
   (``core/registry.py``) then says what it makes of the other layouts. An
@@ -93,6 +117,13 @@ rank holds its slice of dim d) or P (each rank holds a summand;
 - **Random draws.** The generator is folded with the dp coordinate only,
   so the tp ranks of one data row draw the same masks for R values; a
   mask on an S value is drawn whole and sliced (the ``dropout`` op).
+- **Pipeline stages.** The rank at pp coordinate s holds stage s's
+  parameters and their state, and runs their update ops
+  (``_stage_owner``, ``skip``). An update op that reads several stages'
+  values (the sum of a global-norm clip's squared norms) runs on every
+  rank: its foreign inputs come from their owners in one all-gather over
+  the pp axis (``_from_stages``), so it sums them in the program's order,
+  and its outputs are replicated.
 - **SelectedRows gradients** (``is_sparse`` lookups): on a vocab-sharded
   table each rank keeps the rows of its range, offset to local slots;
   then each rank's ids and rows are all-gathered over the data axis (the
@@ -102,6 +133,7 @@ rank holds its slice of dim d) or P (each rank holds a summand;
 from __future__ import annotations
 
 import collections
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -109,15 +141,25 @@ import torch.distributed as dist
 
 from ..observability.registry import get_registry
 from ..parallel.collective import (all_gather_into, copy_to, gather_along,
-                                   gathered, reduce_from, reduce_scatter_into,
-                                   summed)
+                                   gather_rows, gathered, reduce_from,
+                                   reduce_scatter_into, summed)
 from .dtypes import to_device
-from .registry import GLOBAL, P, ROWS, get_op, has_op
+from .registry import GLOBAL, P, ROWS, Whole, get_op, has_op
 
 __all__ = ["MeshStep", "batch_group", "is_dtensor", "logical_value",
            "tp_shard", "sp_shard", "TPShard", "StageValue"]
 
 _RNG_RANK = "@RNG_RANK@"
+_RNG_SHARED = "@RNG_SHARED@"  # the stream every rank of the data axis draws
+
+_WHOLE = Whole()  # the dp rule of an undeclared op (core/registry.py)
+
+# an update op's input that crosses the pipeline axis (``_from_stages``):
+# its dtype by index in this list and at most this many dims
+_WIRE_DTYPES = [torch.float32, torch.float64, torch.float16, torch.bfloat16,
+                torch.int64, torch.int32, torch.int16, torch.int8,
+                torch.uint8, torch.bool]
+_MAX_NDIM = 8
 
 # update-section ops that are elementwise in every tensor input of the
 # parameter's shape: they run on the ZeRO shard as they are. The optimizer
@@ -220,21 +262,14 @@ def _flat(rows):
             yield r
 
 
-def _spec_dim(spec, axis):
-    """The dim of a shard_spec that names `axis`, or None."""
-    for i, s in enumerate(spec or ()):
-        if s == axis:
-            return i
-    return None
-
-
 class _Axis:
-    """The layouts of values on one axis of the mesh, the model axis
-    (``kind`` "tp") or the sequence axis ("sp"): R (absent from ``lay``),
-    S(d) (an int) or P. ``before``/``after`` apply the running op's
-    declaration (its ``tp``/``sp`` attribute in ``core/registry.py``; see
-    the module docstring) and hand the op its inputs' slices in
-    ``ctx.tp_in``/``ctx.sp_in``."""
+    """The layouts of values on one axis of the mesh: a model axis
+    (``kind`` "tp": one a mesh dim that a parameter's ``shard_spec``
+    names) or the sequence axis ("sp"): R (absent from ``lay``), S(d) (an
+    int) or P. ``before``/``after`` apply the running op's declaration
+    (its ``tp``/``sp`` attribute in ``core/registry.py``; see the module
+    docstring) on the local shapes the axes before it left, and return
+    the op's inputs' slices for ``ctx.tp_in``/``ctx.sp_in``."""
 
     def __init__(self, kind: str, name: str, group):
         self.kind, self.name, self.group = kind, name, group
@@ -252,9 +287,6 @@ class _Axis:
         c = full.shape[dim] // self.size
         return full.narrow(dim, self.rank * c, c)
 
-    def _set_in(self, ctx, val):
-        setattr(ctx, self.kind + "_in", val)
-
     def _layouts(self, op, env):
         """(slot -> [layout a value]) of the op's inputs, None for R; every
         P input summed first (g), in the env, for every later reader."""
@@ -271,15 +303,19 @@ class _Axis:
             lay[slot] = row
         return lay
 
-    def before(self, op, env, ctx):
+    def before(self, op, env, held=None):
         """Apply the op's declaration: the conversions of its inputs go
-        into the env for this op only."""
-        self._set_in(ctx, None)
+        into the env for this op only. `held` (slot -> [{(kind, dim)}])
+        is what the axes before this one keep sliced of each input for
+        the op: a declaration that would keep a slice of the same dim, or
+        a second model-axis slice of one input, is not applied and this
+        axis's inputs are gathered whole. Returns this axis's slices of
+        the inputs (slot -> [TPShard or None]) or None."""
         if not any(n in self.lay for n in op.input_names()):
-            return
+            return None
         lay = self._layouts(op, env)
         if not any(d is not None for row in lay.values() for d in row):
-            return
+            return None
         decl = getattr(get_op(op.type), self.kind) if has_op(op.type) \
             else None
         shapes = {slot: [tuple(env[n].shape)
@@ -287,6 +323,9 @@ class _Axis:
                          for n in names] for slot, names in op.inputs.items()}
         rule = decl(op.attrs, lay, shapes, self.size) \
             if callable(decl) else None
+        if rule is not None and not rule.regather and held and \
+                self._clashes(lay, rule, held):
+            rule = None
         swaps = {}
 
         def swap(n, v):
@@ -299,8 +338,9 @@ class _Axis:
                     if d is not None:
                         swap(n, gather_along(env[n], d, self.group))
             self._undo[id(op)] = (swaps, None, rule)
-            return
-        sharded_out = any(v is not None for v in _flat(rule.out.values()))
+            return None
+        sharded_out = not rule.inner and any(
+            v is not None for v in _flat(rule.out.values()))
         for slot, names in op.inputs.items():
             for i, (n, d) in enumerate(zip(names, lay[slot])):
                 v = env.get(n)
@@ -314,20 +354,37 @@ class _Axis:
                     lay[slot][i] = cut
                 if v is not env[n]:
                     swap(n, v)
-        self._set_in(ctx, {slot: [None if d is None else
-                                  TPShard(d, self.rank, self.size,
-                                          self.group) for d in row]
-                           for slot, row in lay.items()})
         attrs = None
         if rule.attrs:
             attrs = op.attrs
             op.attrs = {**op.attrs, **rule.attrs}
         self._undo[id(op)] = (swaps, attrs, rule)
+        return {slot: [None if d is None else
+                       TPShard(d, self.rank, self.size, self.group)
+                       for d in row] for slot, row in lay.items()}
 
-    def after(self, op, env, ctx):
+    def _clashes(self, lay, rule, held) -> bool:
+        """Whether `rule` keeps a slice of an input that an axis before
+        this one keeps sliced along the same dim, or that another model
+        axis keeps sliced at all (an op reads one model-axis slice of an
+        input, ``tp_shard``)."""
+        for slot, row in lay.items():
+            prior = held.get(slot)
+            if not prior:
+                continue
+            cut = rule.slice_in.get(slot)
+            for i, d in enumerate(row):
+                d = cut if d is None else d
+                if d is None or d == P:
+                    continue
+                if any(dim == d or kind == self.kind
+                       for kind, dim in prior[i]):
+                    return True
+        return False
+
+    def after(self, op, env):
         """Restore what `before` swapped and record the outputs'
         layouts."""
-        self._set_in(ctx, None)
         outs = op.output_names()
         undo = self._undo.pop(id(op), None)
         if undo is None:
@@ -359,9 +416,8 @@ class _Axis:
                 else:
                     self.lay[n] = d
 
-    def restore(self, op, env, ctx):
+    def restore(self, op, env):
         undo = self._undo.pop(id(op), None)
-        self._set_in(ctx, None)
         if undo is not None:
             swaps, attrs, _ = undo
             env.update(swaps)
@@ -451,18 +507,20 @@ class MeshStep:
         self.rank = dist.get_rank(self.group) if self.group is not None else 0
         self.device = device
         self.stage = compiled._zero_stage()
-        self.tp_axis = compiled._model_axis
-        self.tpx = (_Axis("tp", self.tp_axis,
-                          self.mesh.get_group(self.tp_axis))
-                    if self.tp_axis is not None else None)
+        # one _Axis a model axis (each mesh dim a parameter's spec names),
+        # then the sequence axis; the first model axis is the one of
+        # tp_state, tp_group and tp_rank (a vocab-sharded table's
+        # SelectedRows gradient)
+        self.tps = [_Axis("tp", a, self.mesh.get_group(a))
+                    for a in compiled._model_axes]
+        self.tpx = self.tps[0] if self.tps else None
         self.tp_group = self.tpx.group if self.tpx is not None else None
-        self.tp_size = self.tpx.size if self.tpx is not None else 1
         self.tp_rank = self.tpx.rank if self.tpx is not None else 0
         self.sp_axis = compiled._seq_axis
         self.spx = (_Axis("sp", self.sp_axis,
                           self.mesh.get_group(self.sp_axis))
                     if self.sp_axis is not None else None)
-        self.axes = [ax for ax in (self.tpx, self.spx) if ax is not None]
+        self.axes = self.tps + ([self.spx] if self.spx is not None else [])
         self.pp_axis = compiled._pp_axis
         self.pp_group = (self.mesh.get_group(self.pp_axis)
                          if self.pp_axis is not None else None)
@@ -470,13 +528,22 @@ class MeshStep:
                         if self.pp_group is not None else 1)
         self.pp_rank = (dist.get_rank(self.pp_group)
                         if self.pp_group is not None else 0)
-        self.tp_state = self._tp_state()  # name -> sliced dim
+        # name -> [(axis, sliced dim)] and name -> its dim on the data axis
+        self.sliced, self.dp_spec = self._sliced_state()
+        self.tp_state = {n: d for n, cuts in self.sliced.items()
+                         for ax, d in cuts if ax is self.tpx}
         self.owner = self._stage_owner()  # name -> its pp coordinate
         compiled._zero_pad_map()  # records program._zero_padded
         self.stored: Dict[str, _Plan] = {}   # sharded between steps
         self.param_plan: Dict[str, _Plan] = {}  # update / reduction layout
         for v in self.program.list_vars():
-            if not v.persistable or v.name in self.tp_state:
+            if not v.persistable or v.name in self.sliced:
+                continue
+            if v.name in self.dp_spec:
+                plan = self._plan(v.shape, self.dp_spec[v.name])
+                self.stored[v.name] = plan
+                if getattr(v, "trainable", False):
+                    self.param_plan[v.name] = plan
                 continue
             plan = compiled._zero_plan(v)
             if plan is not None:
@@ -486,24 +553,30 @@ class MeshStep:
                 if axis is not None:
                     self.param_plan[v.name] = self._plan(v.shape, axis)
         self.fsdp = ({n for n in self.stored if n in self.param_plan}
-                     if self.stage >= ShardingStrategy.stage3 else set())
+                     if self.stage >= ShardingStrategy.stage3
+                     else {n for n in self.param_plan if n in self.dp_spec})
         self._held: Dict[str, tuple] = {}   # name -> (DTensor, its local)
+        self.shared_gen = None
         self.begin()
 
     def _plan(self, shape, axis) -> _Plan:
         d = int(shape[axis])
         return _Plan(axis, d, -(-d // self.size) * self.size)
 
-    def _tp_state(self) -> Dict[str, int]:
-        """{name: dim} of the persistables this rank holds a slice of: the
-        parameters whose shard_spec names the model axis, and the inputs of
-        their update ops with the parameter's shape (optimizer state,
-        gradient buffers). Raises ValueError for a spec that names an axis
-        the mesh lacks or a dim its axis does not divide (the JAX package's
-        placement raises the same)."""
+    def _sliced_state(self):
+        """({name: [(axis, dim)]}, {name: dim}): the persistables this rank
+        holds a slice of on a model or sequence axis, and those sharded
+        over the data axis by their spec (ZeRO stage 3 for them, on the
+        spec's dim): the parameters whose shard_spec names the axis, and
+        the inputs of their update ops with the parameter's shape
+        (optimizer state, gradient buffers). Raises ValueError for a spec
+        that names an axis the mesh lacks or a dim its axis does not
+        divide (the JAX package's placement raises the same)."""
         names = tuple(self.mesh.mesh_dim_names)
         sizes = dict(zip(names, self.mesh.shape))
-        out: Dict[str, int] = {}
+        by_name = {ax.name: ax for ax in self.axes}
+        sliced: Dict[str, list] = {}
+        on_dp: Dict[str, int] = {}
         shapes = {}
         for v in self.program.list_vars():
             spec = getattr(v, "shard_spec", None)
@@ -524,21 +597,30 @@ class MeshStep:
                         f"global size of its dimension {i} should be "
                         f"divisible by {sizes[a]}, but it is equal to "
                         f"{v.shape[i]} (full shape: {tuple(v.shape)})")
-                if sizes[a] > 1 and a != self.tp_axis:
+                if sizes[a] == 1:
+                    continue
+                if a == self.pp_axis:
                     raise NotImplementedError(
-                        f"parameter {v.name!r} is sharded over the {a!r} "
-                        f"axis; the port shards parameters over the model "
-                        f"axis only (ROADMAP A9b3)")
-            d = _spec_dim(spec, self.tp_axis)
-            if d is not None and self.tp_size > 1:
-                out[v.name] = d
+                        f"parameter {v.name!r} is sharded over the pipeline "
+                        f"axis {a!r}, whose ranks hold one stage's "
+                        f"parameters each; give it a spec on another axis")
+                if a == self.axis:
+                    on_dp[v.name] = i
+                elif a in by_name:
+                    sliced.setdefault(v.name, []).append((by_name[a], i))
+            if v.name in on_dp and v.name in sliced:
+                raise NotImplementedError(
+                    f"parameter {v.name!r}: a spec that names the data axis "
+                    f"beside another axis ({tuple(spec)}); shard it over "
+                    f"one of them")
+            if v.name in on_dp or v.name in sliced:
                 shapes[v.name] = tuple(v.shape)
-        if not out:
-            return out
+        if not shapes:
+            return sliced, on_dp
         block = self.program.global_block()
         for op in block.ops:
             ps = op.inputs.get("Param") or []
-            if len(ps) != 1 or ps[0] not in out:
+            if len(ps) != 1 or ps[0] not in shapes:
                 continue
             for slot, ns in op.inputs.items():
                 for n in ns:
@@ -546,8 +628,11 @@ class MeshStep:
                     if (slot not in ("Param", "Grad") and var is not None
                             and var.persistable
                             and tuple(var.shape) == shapes[ps[0]]):
-                        out[n] = out[ps[0]]
-        return out
+                        if ps[0] in sliced:
+                            sliced[n] = sliced[ps[0]]
+                        else:
+                            on_dp[n] = on_dp[ps[0]]
+        return sliced, on_dp
 
     def _stage_owner(self) -> Dict[str, int]:
         """{name: pp coordinate} of every persistable one pipeline stage
@@ -609,16 +694,36 @@ class MeshStep:
         return s is not None and s != self.pp_rank
 
     def alias_layouts(self, dst: List[str], src: List[str]):
-        """The model-axis layouts of `src` names given to `dst` names (a
-        pipeline's template sub-block runs this rank's stage parameters
-        under stage 0's names)."""
-        if self.tpx is None:
-            return
-        for d, s_ in zip(dst, src):
-            if s_ in self.lay:
-                self.lay[d] = self.lay[s_]
+        """The layouts of `src` names on every axis given to `dst` names
+        (a pipeline's template sub-block runs this rank's stage
+        parameters under stage 0's names, and its input under its own)."""
+        for ax in self.axes:
+            for d, s_ in zip(dst, src):
+                if s_ in ax.lay:
+                    ax.lay[d] = ax.lay[s_]
+                else:
+                    ax.lay.pop(d, None)
+
+    def relayout(self, name: str, v: torch.Tensor, like: str):
+        """`v`, the value of `name`, laid out on every axis as `like` is
+        (a pipeline stage's output on its input's layout): sliced or
+        gathered along the dims that differ, differentiably."""
+        for ax in self.axes:
+            have, want = ax.lay.get(name), ax.lay.get(like)
+            if have == want:
+                continue
+            if have == P:
+                v = reduce_from(v, ax.group)
+            elif have is not None:
+                v = gather_along(v, have, ax.group)
+            if want is not None:
+                if v.requires_grad:
+                    v = copy_to(v, ax.group)
+                v = ax.slice(v, want)
+                ax.lay[name] = want
             else:
-                self.lay.pop(d, None)
+                ax.lay.pop(name, None)
+        return v
 
     # -- per-step state ----------------------------------------------------
     def begin(self):
@@ -629,9 +734,14 @@ class MeshStep:
         self.spec: Dict[int, object] = {}   # op -> its dp declaration
         for ax in self.axes:
             ax.begin()
-        # model-axis layouts (d or P) by name
-        self.lay: Dict[str, object] = self.tpx.lay if self.tpx else {}
-        self.skipped: Dict[str, int] = {}   # outputs of skipped updates
+        self.staged: Dict[str, int] = {}    # outputs of one stage's updates
+        self.mixing = set()                 # updates that read two stages
+        # rule A: op -> (its inputs' own values, (first row, rows, whole
+        # rows) of this rank, the inputs it took out of `batch`), and the
+        # global values whose dim 0 is the whole batch -> that triple
+        self.gathered: Dict[int, tuple] = {}
+        self.whole_rows: Dict[str, tuple] = {}
+        self.gens: Dict[int, object] = {}   # op -> the generator it swapped
 
     def plan_of(self, name: str) -> Optional[_Plan]:
         """The layout a value of `name` is sliced by in the update section:
@@ -641,11 +751,10 @@ class MeshStep:
             return self.local[name]
         if name in self.stored:
             return self.stored[name]
-        if self.stage >= 1:
-            if name in self.param_plan:
-                return self.param_plan[name]
-            if name.endswith("@GRAD") and name[:-5] in self.param_plan:
-                return self.param_plan[name[:-5]]
+        base = name[:-5] if name.endswith("@GRAD") else name
+        if self.stage >= 1 or base in self.dp_spec:
+            if base in self.param_plan:
+                return self.param_plan[base]
         return None
 
     # -- shards ------------------------------------------------------------
@@ -711,8 +820,8 @@ class MeshStep:
         scope.set_var(name, dt)
         self._held[name] = (dt, dt.to_local())
 
-    def _store_tp(self, scope, name, local):
-        """`_store_shard` for a slice on the model axis."""
+    def _store_sliced(self, scope, name, local):
+        """`_store_shard` for a slice on model or sequence axes."""
         held = self._held.get(name)
         if (held is not None and _unwrap(scope.find_var(name)) is held[0]
                 and held[1].shape == local.shape
@@ -720,7 +829,7 @@ class MeshStep:
             if held[1].data_ptr() != local.data_ptr():
                 held[1].copy_(local)
             return
-        dt = self.tp_dtensor(local, self.tp_state[name])
+        dt = self.sliced_dtensor(local, self.sliced[name])
         scope.set_var(name, dt)
         self._held[name] = (dt, dt.to_local())
 
@@ -736,52 +845,77 @@ class MeshStep:
         return DTensor.from_local(local, self.mesh, place, run_check=False,
                                   shape=torch.Size(shape), stride=stride)
 
-    # -- the model axis ----------------------------------------------------
-    def tp_slice(self, full: torch.Tensor, dim: int) -> torch.Tensor:
-        """This rank's slice of dim `dim` of a whole value (a view)."""
-        c = full.shape[dim] // self.tp_size
-        return full.narrow(dim, self.tp_rank * c, c)
-
-    def tp_dtensor(self, local: torch.Tensor, dim: int):
+    # -- model and sequence axes ------------------------------------------
+    def sliced_dtensor(self, local: torch.Tensor, cuts):
+        """A ``DTensor`` of this rank's slice: ``Shard(d)`` on the mesh dim
+        of each (axis, d) of `cuts`."""
         from torch.distributed.tensor import DTensor, Replicate, Shard
 
+        names = list(self.mesh.mesh_dim_names)
         place = [Replicate()] * self.mesh.ndim
-        place[list(self.mesh.mesh_dim_names).index(self.tp_axis)] = \
-            Shard(dim)
         shape = list(local.shape)
-        shape[dim] *= self.tp_size
+        for ax, d in cuts:
+            place[names.index(ax.name)] = Shard(d)
+            shape[d] *= ax.size
         stride = torch.empty(shape, device="meta").stride()
         return DTensor.from_local(local, self.mesh, place, run_check=False,
                                   shape=torch.Size(shape), stride=stride)
 
+    def _fits(self, v, cuts) -> bool:
+        """Whether a scope ``DTensor`` holds this rank's slices of `cuts`
+        as its local tensor."""
+        if not is_dtensor(v):
+            return False
+        names = list(self.mesh.mesh_dim_names)
+        local = v.to_local()
+        for ax, d in cuts:
+            place = v.placements[names.index(ax.name)]
+            if (not place.is_shard(d)
+                    or local.shape[d] * ax.size != v.shape[d]):
+                return False
+        return True
+
     def restore(self, op, env, ctx):
         """Undo an op's input swaps and attribute overrides after it
         raised (the program's attributes must not keep this rank's)."""
-        for ax in self.axes:
-            ax.restore(op, env, ctx)
+        ctx.tp_in = ctx.sp_in = None
+        for ax in reversed(self.axes):
+            ax.restore(op, env)
+        undo = self.gathered.pop(id(op), None)
+        if undo is not None:
+            env.update(undo[0])
+            self.batch.update(undo[2] or ())
+        gen = self.gens.pop(id(op), None)
+        if gen is not None:
+            ctx._gen = gen
 
-    def _tp_update(self, op, env) -> bool:
-        """An update-section op that reads a slice: the optimizer ops and
-        elementwise math run on the slices as they are; any other op gets
-        the slices gathered whole, and its outputs that are sliced state
-        are cut back (``_tp_update_after``)."""
+    def _axes_update(self, op, env) -> bool:
+        """An update-section op that reads a slice on some axis: the
+        optimizer ops and elementwise math run on the slices as they are;
+        any other op gets the slices gathered whole, and its outputs that
+        are sliced state are cut back (``after_op``)."""
         names = op.input_names()
-        dims = {self.lay[n] for n in names if n in self.lay}
-        if not dims:
+        modes = []
+        for ax in self.axes:
+            dims = {ax.lay[n] for n in names if n in ax.lay}
+            if not dims:
+                continue
+            if op.type in _ROW_UPDATES:
+                modes.append((ax, dims.pop()))
+                continue
+            if op.type in _ELEMENTWISE and len(dims) == 1 and all(
+                    n in ax.lay or not isinstance(env.get(n), torch.Tensor)
+                    or env[n].numel() <= 1 for n in names):
+                modes.append((ax, dims.pop()))
+                continue
+            for n in names:
+                if n in ax.lay:
+                    env[n] = ax.whole(env[n], n)
+                    del ax.lay[n]
+            modes.append((ax, None))
+        if not modes:
             return False
-        if op.type in _ROW_UPDATES:
-            self.mode[id(op)] = ("tp", dims.pop())
-            return True
-        if op.type in _ELEMENTWISE and len(dims) == 1:
-            ok = all(n in self.lay or not isinstance(env.get(n), torch.Tensor)
-                     or env[n].numel() <= 1 for n in names)
-            if ok:
-                self.mode[id(op)] = ("tp", dims.pop())
-                return True
-        for n in names:
-            if n in self.lay:
-                env[n] = gathered(env[n], self.lay.pop(n), self.tp_group)
-        self.mode[id(op)] = ("tp", None)
+        self.mode[id(op)] = ("tp", modes)
         return True
 
     # -- the step ----------------------------------------------------------
@@ -848,20 +982,21 @@ class MeshStep:
                     env[n] = torch.empty(0, device=self.device,
                                          dtype=_dtype_of(self.program, n))
                     continue
-            if n in self.tp_state:
-                d = self.tp_state[n]
-                self.lay[n] = d
+            cuts = self.sliced.get(n)
+            if cuts is not None:
+                for ax, d in cuts:
+                    ax.lay[n] = d
                 held = self._held.get(n)
                 if held is not None and v is held[0]:
                     env[n] = held[1]
-                elif (is_dtensor(v) and v.to_local().shape[d] * self.tp_size
-                      == v.shape[d] and any(
-                          p.is_shard(d) for p in v.placements)):
+                elif self._fits(v, cuts):
                     env[n] = to_device(v.to_local(), self.device)
                 else:
                     full = to_device(logical_value(self.program, n, v),
                                      self.device)
-                    env[n] = self.tp_slice(full, d).contiguous()
+                    for ax, d in cuts:
+                        full = ax.slice(full, d)
+                    env[n] = full.contiguous()
                 continue
             plan = self.stored.get(n)
             held = self._held.get(n)
@@ -885,63 +1020,170 @@ class MeshStep:
 
     def generator(self, scope, gen):
         """The step's generator: the scope's, folded once with this rank
-        (rank 0 keeps its stream). The base seed is rank 0's, broadcast."""
+        (rank 0 keeps its stream). The base seed is rank 0's, broadcast.
+        Beside it, ``shared_gen``: a stream every rank of the data axis
+        draws alike, for an op that reads no rank's own rows (rule A's,
+        and the global ops after it: one draw for every rank, as the JAX
+        package's one program draws once)."""
         from .executor import _RNG_STATE
 
         if scope.find_var(_RNG_RANK) == (self.rank, self.size, id(gen)):
+            self.shared_gen = scope.find_var(_RNG_SHARED) or gen
             return gen
-        if self.group is not None:
+        self.shared_gen = gen
+        if self.group is not None and self.size > 1:
             seed = torch.tensor([int(self.program.random_seed or 0)],
                                 dtype=torch.int64, device=self.device)
             dist.broadcast(seed, dist.get_global_rank(self.group, 0),
                            group=self.group)
+            base = int(seed.item())
+            self.shared_gen = torch.Generator(self.device).manual_seed(
+                (base * 0x2545F491 + 0x5EED) % (2 ** 63))
+            scope.set_var(_RNG_SHARED, self.shared_gen)
             if self.rank:
-                folded = (int(seed.item()) * 0x9E3779B1
+                folded = (base * 0x9E3779B1
                           + self.rank * 0x7F4A7C15) % (2 ** 63)
                 gen = torch.Generator(self.device).manual_seed(folded)
                 scope.set_var(_RNG_STATE, gen)
         scope.set_var(_RNG_RANK, (self.rank, self.size, id(gen)))
         return gen
 
+    def _stage_of(self, n: str):
+        """The pp coordinate that holds `n` in the update section (a
+        stage's persistable, its gradient, or what an update op that reads
+        one stage's values wrote), or None (replicated)."""
+        s = self.staged.get(n, self.owner.get(n))
+        if s is None and n.endswith("@GRAD"):
+            s = self.owner.get(n[:-5])
+        return s
+
     def skip(self, op) -> bool:
         """Whether this rank leaves out an update-section op: one that
         reads or writes another pipeline stage's values (its parameters,
         their gradients and optimizer state, or what a left-out op wrote).
-        An op that mixes two stages' values raises: no rank holds both."""
+        An op that mixes two stages' values (the sum of a global-norm
+        clip's squared norms) runs on every rank: ``before_op`` brings its
+        foreign inputs from their owners, and its outputs are replicated."""
         if not self.owner or not self.after_ad:
             return False
         owners = set()
         for n in op.input_names() + op.output_names():
-            s = self.skipped.get(n, self.owner.get(n))
-            if s is None and n.endswith("@GRAD"):
-                s = self.owner.get(n[:-5])
+            s = self._stage_of(n)
             if s is not None:
                 owners.add(s)
         if len(owners) > 1:
-            raise NotImplementedError(
-                f"update op {op.type!r} reads the values of pipeline stages "
-                f"{sorted(owners)}; each stage's rank holds only its own "
-                f"(an update across stages, such as a global-norm clip, is "
-                f"ROADMAP A9b3)")
-        if owners and owners != {self.pp_rank}:
+            self.mixing.add(id(op))
+            for n in op.output_names():
+                self.staged.pop(n, None)
+            return False
+        if owners:
             (s,) = owners
             for n in op.output_names():
-                self.skipped[n] = s
-            return True
+                self.staged[n] = s
+            return s != self.pp_rank
         return False
+
+    def _from_stages(self, op, env):
+        """The inputs of an update op that reads several stages' values,
+        on every rank of the pipeline axis: each rank makes its stage's
+        inputs whole, one all-gather over the axis brings their dtypes and
+        shapes (only the owners know them) and a second their values, as
+        f64 (exact for every float dtype of the list and for integers
+        below 2^53). The op then reads them in its input order, so it
+        sums them in the plain program's order on every rank."""
+        names = [n for n in dict.fromkeys(op.input_names())
+                 if self._stage_of(n) is not None]
+        if not names:
+            return
+        stage = {n: self._stage_of(n) for n in names}
+        width = 2 + _MAX_NDIM
+        meta = torch.zeros(len(names) * width, dtype=torch.int64)
+        mine = []
+        for i, n in enumerate(names):
+            if stage[n] != self.pp_rank:
+                continue
+            v = self._whole_here(n, env)
+            if v.ndim > _MAX_NDIM:
+                raise ValueError(f"update op {op.type!r}: input {n!r} has "
+                                 f"{v.ndim} dims; at most {_MAX_NDIM} cross "
+                                 f"the pipeline axis")
+            meta[i * width] = _WIRE_DTYPES.index(v.dtype)
+            meta[i * width + 1] = v.ndim
+            meta[i * width + 2:i * width + 2 + v.ndim] = torch.tensor(
+                v.shape, dtype=torch.int64)
+            mine.append(v.reshape(-1).to(torch.float64))
+        meta = meta.to(self.device)
+        every = meta.new_empty(self.pp_size * meta.numel())
+        all_gather_into(every, meta, self.pp_group)
+        every = every.view(self.pp_size, len(names), width).cpu().tolist()
+        shapes = {n: tuple(every[stage[n]][i][2:2 + every[stage[n]][i][1]])
+                  for i, n in enumerate(names)}
+        sizes = [sum(math.prod(shapes[n]) for n in names if stage[n] == s)
+                 for s in range(self.pp_size)]
+        most = max(sizes)
+        buf = torch.zeros(most, dtype=torch.float64, device=self.device)
+        if mine:
+            flat = torch.cat(mine)
+            buf[:flat.numel()] = flat
+        got = buf.new_empty(self.pp_size * most)
+        all_gather_into(got, buf, self.pp_group)
+        got = got.view(self.pp_size, most)
+        offset = [0] * self.pp_size
+        for i, n in enumerate(names):
+            s = stage[n]
+            k = math.prod(shapes[n])
+            if s != self.pp_rank:
+                dt = _WIRE_DTYPES[every[s][i][0]]
+                env[n] = got[s, offset[s]:offset[s] + k].reshape(
+                    shapes[n]).to(dt)
+            offset[s] += k
+
+    def _whole_here(self, n, env) -> torch.Tensor:
+        """This rank's value of `n` made whole on its own stage's axes (a
+        ZeRO shard gathered over the data axis, a slice over its axis)."""
+        v = env[n]
+        if n in self.local:
+            v = self.gather(v, self.local[n])
+        for ax in self.axes:
+            v = ax.whole(v, n)
+        return v.detach()
 
     def before_op(self, op, env, ctx):
         ctx.in_names = op.inputs
+        ctx.tp_in = ctx.sp_in = None
         if not self.after_ad:
             if self.fsdp:
                 self.gather_params(op.input_names(), env, ctx)
             spec = self._spec(op, env)
             if spec is not None:
                 self.spec[id(op)] = spec
+                if isinstance(spec, Whole):
+                    self._gather_whole(op, env)
+                elif self.whole_rows:
+                    self._cut_whole_rows(op, env)
+            if (spec is None or isinstance(spec, Whole)) and \
+                    self.shared_gen is not None:
+                self.gens[id(op)] = ctx._gen
+                ctx._gen = self.shared_gen
+            held: Dict[str, list] = {}
             for ax in self.axes:
-                ax.before(op, env, ctx)
+                got = ax.before(op, env, held)
+                if got is None:
+                    continue
+                key = ax.kind + "_in"
+                merged = getattr(ctx, key) or {}
+                for slot, row in got.items():
+                    have = merged.get(slot) or [None] * len(row)
+                    merged[slot] = [h or g for h, g in zip(have, row)]
+                    marks = held.setdefault(slot, [set() for _ in row])
+                    for i, g in enumerate(row):
+                        if g is not None:
+                            marks[i].add((ax.kind, g.dim))
+                setattr(ctx, key, merged)
             return
-        if self.lay and self._tp_update(op, env):
+        if id(op) in self.mixing:
+            self._from_stages(op, env)
+        if any(ax.lay for ax in self.axes) and self._axes_update(op, env):
             return
         names = op.input_names()
         if not any(self.plan_of(n) is not None for n in names):
@@ -976,9 +1218,22 @@ class MeshStep:
 
     def after_op(self, op, env, ctx=None):
         if not self.after_ad:
-            for ax in self.axes:
-                ax.after(op, env, ctx)
+            gen = self.gens.pop(id(op), None)
+            if ctx is not None:
+                ctx.tp_in = ctx.sp_in = None
+                if gen is not None:
+                    ctx._gen = gen
+            for ax in reversed(self.axes):
+                ax.after(op, env)
             spec = self.spec.pop(id(op), None)
+            if isinstance(spec, Whole):
+                self._after_whole(op, env, spec)
+                return
+            undo = self.gathered.pop(id(op), None)
+            if undo is not None:  # whole rows cut for the op
+                outs = op.output_names()
+                env.update((n, v) for n, v in undo[0].items()
+                           if n not in outs)
             if spec is None or spec == GLOBAL:
                 return
             for slot, outs in op.outputs.items():
@@ -986,16 +1241,19 @@ class MeshStep:
                     self.batch.update(outs)
             return
         mode = self.mode.get(id(op))
-        if isinstance(mode, tuple):  # ("tp", dim or None)
+        if isinstance(mode, tuple):  # ("tp", [(axis, dim or None)])
             ins = op.input_names()
-            for n in op.output_names():
-                if mode[1] is not None:
-                    self.lay[n] = mode[1]
-                elif n in self.tp_state:
-                    env[n] = self.tp_slice(env[n], self.tp_state[n])
-                    self.lay[n] = self.tp_state[n]
-                elif n not in ins:
-                    self.lay.pop(n, None)
+            for ax, d in mode[1]:
+                for n in op.output_names():
+                    cut = dict((a.name, c) for a, c in
+                               self.sliced.get(n, ())).get(ax.name)
+                    if d is not None:
+                        ax.lay[n] = d
+                    elif cut is not None:
+                        env[n] = ax.slice(env[n], cut)
+                        ax.lay[n] = cut
+                    elif n not in ins:
+                        ax.lay.pop(n, None)
             return
         if mode == "shard" and op.type in _MATH:
             # an updated input keeps the layout before_op gave it; a new
@@ -1016,8 +1274,8 @@ class MeshStep:
     def _spec(self, op, env):
         """How `op` treats its batch-sharded inputs: its ``dp`` declaration
         (``core/registry.py``) for this op's attrs, or None when no input
-        is batch-sharded. An op that declares nothing raises: it would
-        compute this rank's part of a value as if it were the whole."""
+        is batch-sharded. An op that declares nothing, or whose callable
+        returns None, takes ``Whole()``: it runs on the whole batch."""
         sharded = {}
         for slot, names in op.inputs.items():
             for n in names:
@@ -1030,17 +1288,75 @@ class MeshStep:
             return None
         decl = get_op(op.type).dp if has_op(op.type) else None
         spec = decl(op.attrs, sharded) if callable(decl) else decl
-        if spec is None:
-            name = next(n for ns in op.inputs.values() for n in ns
-                        if n in self.batch)
-            raise NotImplementedError(
-                f"op {op.type!r} with these attributes is not known to work "
-                f"row by row, and its input {name!r} is batch-sharded on the "
-                f"data-parallel axis (each rank holds its own rows of dim "
-                f"0); the port refuses it rather than compute one rank's "
-                f"part as the whole (ROADMAP A9b3: ops across the batch "
-                f"dim)")
-        return spec
+        return _WHOLE if spec is None else spec
+
+    # -- rule A: an op across the batch dim -------------------------------
+    def _gather_whole(self, op, env):
+        """Gather the op's batch-sharded inputs whole over the data axis
+        (one all-gather of their row counts, then one a dtype; the
+        backward is a reduce-scatter, so each rank's cotangents stay its
+        parts of the global ones). Inputs that an earlier such op made
+        whole are whole already."""
+        names = [n for n in dict.fromkeys(op.input_names())
+                 if n in self.batch and isinstance(env.get(n), torch.Tensor)
+                 and env[n].ndim]
+        swaps = {n: env[n] for n in names}
+        # while the op runs (a sub-block's ops too) its inputs are whole
+        self.batch.difference_update(names)
+        if self.size == 1 or not names:
+            rows = int(env[names[0]].shape[0]) if names else 0
+            self.gathered[id(op)] = (swaps, (0, rows, rows), names)
+            return
+        wholes, counts = gather_rows([env[n] for n in names], self.group)
+        for n, w in zip(names, wholes):
+            env[n] = w
+        col = [c[0] for c in counts]
+        span = (sum(col[:self.rank]), col[self.rank], sum(col))
+        self.gathered[id(op)] = (swaps, span, names)
+
+    def _after_whole(self, op, env, spec):
+        """Rule A's end: the op's inputs back to this rank's rows; the
+        outputs that `spec` names cut to this rank's rows (batch-sharded),
+        the rest global, those with the whole batch's rows noted for
+        ``_cut_whole_rows``."""
+        undo = self.gathered.pop(id(op), None)
+        if undo is None:
+            return
+        swaps, span, _ = undo
+        outs = op.output_names()
+        for n, v in swaps.items():
+            if n not in outs:
+                env[n] = v
+                self.batch.add(n)
+        start, mine, total = span
+        for slot, names in op.outputs.items():
+            for n in names:
+                v = env.get(n)
+                self.whole_rows.pop(n, None)
+                if not isinstance(v, torch.Tensor) or not v.ndim \
+                        or v.shape[0] != total:
+                    continue
+                if slot in spec.rows:
+                    env[n] = v.narrow(0, start, mine)
+                    self.batch.add(n)
+                elif self.size > 1:
+                    self.whole_rows[n] = span
+
+    def _cut_whole_rows(self, op, env):
+        """A row-by-row op that reads a batch-sharded value beside a
+        global one with the whole batch's rows (a rule-A output): the
+        global one is cut to this rank's rows for this op."""
+        swaps = {}
+        for n in dict.fromkeys(op.input_names()):
+            span = self.whole_rows.get(n)
+            v = env.get(n)
+            if span is None or n in self.batch or \
+                    not isinstance(v, torch.Tensor) or v.shape[0] != span[2]:
+                continue
+            swaps[n] = v
+            env[n] = v.narrow(0, span[0], span[1])
+        if swaps:
+            self.gathered[id(op)] = (swaps, None, None)
 
     def gather_params(self, names, env, ctx):
         """Stage 3: at the first use of a sharded parameter among `names`,
@@ -1064,12 +1380,13 @@ class MeshStep:
 
     def reduce_grads(self, env, targets, ctx):
         """Sum the targets' gradients over the group (see the module
-        docstring); stages 2 and 3 keep the planned ones as shards."""
+        docstring); stages 2 and 3, and the parameters a spec shards over
+        the data axis, keep the planned ones as shards."""
         from .executor import grad_var_name
         from .selected_rows import SelectedRows
 
         self.after_ad = True
-        planned: Dict[torch.dtype, List[tuple]] = {}
+        planned: Dict[tuple, List[tuple]] = {}
         flat: Dict[torch.dtype, List[tuple]] = {}
         for t in dict.fromkeys(targets):
             if t in self.batch or self.foreign(t):
@@ -1078,17 +1395,20 @@ class MeshStep:
             if isinstance(g, SelectedRows):
                 env[grad_var_name(t)] = self.selected_rows(t, g)
                 continue
-            if t in self.tp_state:
-                self.lay[grad_var_name(t)] = self.tp_state[t]
+            for ax, d in self.sliced.get(t, ()):
+                ax.lay[grad_var_name(t)] = d
             if (not isinstance(g, torch.Tensor) or not g.is_floating_point()
                     or self.group is None):
                 continue
             plan = self.param_plan.get(t)
-            (planned if plan is not None else flat).setdefault(
-                g.dtype, []).append((grad_var_name(t), g, plan))
+            if plan is None:
+                flat.setdefault(g.dtype, []).append((grad_var_name(t), g, None))
+                continue
+            keep = self.stage >= 2 or t in self.dp_spec
+            planned.setdefault((g.dtype, keep), []).append(
+                (grad_var_name(t), g, plan))
         n = self.size
-        keep_shards = self.stage >= 2
-        for dt, items in planned.items():
+        for (dt, keep_shards), items in planned.items():
             rows = []
             for _, g, plan in items:
                 axis, d, pd = plan
@@ -1173,11 +1493,12 @@ class MeshStep:
             if isinstance(v, torch.Tensor):
                 v = v.detach()
             plan = self.local.get(n)
-            if n in self.tp_state:
-                if self.lay.get(n) != self.tp_state[n]:
-                    v = self.tp_slice(v, self.tp_state[n])
+            if n in self.sliced:
+                for ax, d in self.sliced[n]:
+                    if ax.lay.get(n) != d:
+                        v = ax.slice(v, d)
                 new_state[n] = v
-                self._store_tp(scope, n, v.contiguous())
+                self._store_sliced(scope, n, v.contiguous())
             elif plan is not None and n in self.stored:
                 new_state[n] = v
                 self._store_shard(scope, n, v, plan)
@@ -1205,11 +1526,8 @@ class MeshStep:
                 v = self.gather(v.detach(), self.local[n])
             elif (n in self.batch and isinstance(v, torch.Tensor) and v.ndim
                   and self.group is not None):
-                v = v.detach().contiguous()
-                out = v.new_empty((self.size * v.shape[0],)
-                                  + tuple(v.shape[1:]))
-                all_gather_into(out, v, self.group)
-                v = out
+                # each rank's rows (their counts may differ), in rank order
+                v = gather_rows([v.detach()], self.group)[0][0]
             if n in self.owner:
                 v = self._from_owner(n, v)
             fetches.append(v)
@@ -1237,6 +1555,7 @@ class MeshStep:
 
 def mesh_key(compiled) -> Tuple:
     """What a MeshStep is built for: a new one when any of it changes."""
-    return (id(compiled._mesh), compiled._data_axis, compiled._model_axis,
+    return (id(compiled._mesh), compiled._data_axis,
+            tuple(compiled._model_axes),
             compiled._pp_axis, compiled._seq_axis, compiled._zero_stage(),
             compiled._program._version)

@@ -34,13 +34,19 @@ rows of dim 0):
 - ``GLOBAL``: the op reduces over the batch with a collective itself
   (``mesh_step.batch_group``); every output is the global value.
 - a tuple of output slots: those are global, the rest batch-sharded.
+- a :class:`Whole`: the op works across the batch dim; its batch-sharded
+  inputs are gathered whole over the data axis and it runs on the whole
+  batch. The output slots it names keep the input's dim 0 row for row
+  and are cut back to this rank's rows; the rest are global.
 - a callable ``(attrs, sharded) -> one of those or None``, where `sharded`
   maps each input slot that holds a batch-sharded value to that value's
   ndim: for an op whose answer depends on its axes.
 
 An op that declares nothing, or whose callable returns None, works across
-the batch dim; the mesh step refuses it rather than compute a rank's part
-as if it were the whole.
+the batch dim as far as the mesh step knows: it takes ``Whole()`` (every
+output global), the rule GSPMD follows where it cannot keep a layout. A
+global output whose dim 0 is the whole batch is cut to this rank's rows
+where a row-by-row op reads it beside a batch-sharded value.
 
 `tp` declares what the op does with values laid out on a model axis
 (``tp``): each value is replicated (R: every rank holds it whole), sharded
@@ -72,6 +78,20 @@ ROWS, GLOBAL = "rows", "global"
 P = "P"  # a partial-sum layout on the model axis (see the docstring)
 
 
+class Whole:
+    """An op's answer on the data axis for a batch-sharded input that it
+    reads across the batch dim: gather every batch-sharded input whole
+    (the rows of every rank of the data axis, in rank order) and run on
+    the whole batch; the output slots in `rows` keep the gathered dim 0
+    row for row and are cut back to this rank's rows, the others are
+    global (see the module docstring)."""
+
+    __slots__ = ("rows",)
+
+    def __init__(self, rows=()):
+        self.rows = tuple(rows)
+
+
 class TP:
     """An op's answer on the model axis (``core/mesh_step.py``):
 
@@ -82,16 +102,21 @@ class TP:
     - `attrs`: attribute overrides for this rank's call (a head count);
     - `regather`: input slot -> d: gather those inputs whole, run the op
       on the whole value and keep this rank's slice of dim d of every
-      output (the fused qkv split).
+      output (the fused qkv split);
+    - `inner`: the op runs a sub-block whose ops see the slices through
+      the mesh step's hooks and convert their own inputs (a pipeline's
+      stages): its replicated inputs enter as they are (no f).
     """
 
-    __slots__ = ("out", "slice_in", "attrs", "regather")
+    __slots__ = ("out", "slice_in", "attrs", "regather", "inner")
 
-    def __init__(self, out=None, slice_in=None, attrs=None, regather=None):
+    def __init__(self, out=None, slice_in=None, attrs=None, regather=None,
+                 inner=False):
         self.out = out or {}
         self.slice_in = slice_in or {}
         self.attrs = attrs
         self.regather = regather
+        self.inner = inner
 
 
 def same_layout(attrs, lay, shapes, n):

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.registry import ROWS, TP, register_op, same_layout
+from ..core.registry import ROWS, TP, Whole, register_op, same_layout
 from .common import one
 
 
@@ -44,7 +44,9 @@ def _softmax_tp(attrs, lay, shapes, n):
         else TP(out={"Out": d})
 
 
-@register_op("softmax", dp=lambda a, s: None
+# along dim 0 on a data axis: over the whole batch, each rank keeping its
+# rows of the result (core/registry.py's Whole)
+@register_op("softmax", dp=lambda a, s: Whole(rows=("Out",))
              if a.get("axis", -1) % s["X"] == 0 else ROWS, tp=_softmax_tp)
 def _softmax(ctx, inputs, attrs):
     (x,) = inputs["X"]

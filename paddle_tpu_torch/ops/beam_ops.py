@@ -7,18 +7,22 @@ links) and ``beam_search_decode_op.cc`` (walk the sentence trees backwards
 to emit token sequences). As in the JAX package, beams are dense
 ``[batch, beam, ...]`` tensors with the parent index of each step stored
 beside its ids.
+
+On a data-parallel mesh one step works row by row (each batch row's beams
+are its own); the decode reads steps stacked along dim 0, so it declares
+nothing and runs on the whole batch (``core/registry.py``).
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import ROWS, register_op
 from .common import opt_input
 
 NEG = -1e9
 
 
-@register_op("beam_search", differentiable=False)
+@register_op("beam_search", differentiable=False, dp=ROWS)
 def _beam_search(ctx, inputs, attrs):
     """One expansion step.
 

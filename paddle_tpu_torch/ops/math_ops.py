@@ -8,7 +8,9 @@ import math
 
 import torch
 
-from ..core.registry import P, ROWS, TP, register_op, same_layout
+from ..core.mesh_step import batch_group
+from ..core.registry import GLOBAL, P, ROWS, TP, register_op, same_layout
+from ..parallel.collective import psum
 from .common import bcast_y, one
 
 
@@ -183,18 +185,27 @@ def _clip(ctx, inputs, attrs):
     return one(torch.clamp(x, attrs.get("min"), attrs.get("max")))
 
 
-@register_op("clip_by_norm")
+def _sum_squares(ctx, x):
+    """sum(x²): on a batch-sharded x, the global sum (a psum over the data
+    axis)."""
+    sq = torch.sum(x * x)
+    dp = batch_group(ctx, "X")
+    return sq if dp is None else psum(sq, dp)
+
+
+# the norm is the whole batch's (a collective inside); the rows scale by it
+@register_op("clip_by_norm", dp=ROWS)
 def _clip_by_norm(ctx, inputs, attrs):
     (x,) = inputs["X"]
     max_norm = attrs["max_norm"]
-    norm = torch.sqrt(torch.sum(x * x))
+    norm = torch.sqrt(_sum_squares(ctx, x))
     return one(torch.where(norm > max_norm, x * (max_norm / norm), x))
 
 
-@register_op("squared_l2_norm")
+@register_op("squared_l2_norm", dp=GLOBAL)
 def _squared_l2_norm(ctx, inputs, attrs):
     (x,) = inputs["X"]
-    return one(torch.sum(x * x).reshape((1,)))
+    return one(_sum_squares(ctx, x).reshape((1,)))
 
 
 def _unary(name, fn):

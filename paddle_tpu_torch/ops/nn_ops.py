@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.mesh_step import batch_group, sp_shard, tp_shard
-from ..core.registry import P, ROWS, TP, register_op
+from ..core.registry import P, ROWS, TP, Whole, register_op
 from ..core.selected_rows import SelectedRows
 from ..parallel.collective import axis_size, psum
 from .common import (BN_GLOBAL_OUT, act_map, bn_batch_stats_xla1,
@@ -161,7 +161,9 @@ def _layer_norm_sp(attrs, lay, shapes, n):
     return None
 
 
-@register_op("layer_norm", dp=lambda a, s: None if a.get(
+# normalized from dim 0 on a data axis: the whole batch's statistics, each
+# rank keeping its rows of Y (core/registry.py's Whole)
+@register_op("layer_norm", dp=lambda a, s: Whole(rows=("Y",)) if a.get(
     "begin_norm_axis", 1) % s["X"] == 0 else ROWS, sp=_layer_norm_sp)
 def _layer_norm(ctx, inputs, attrs):
     """Accepts bf16 activations and computes the statistics and the
@@ -199,20 +201,23 @@ def _dropout(ctx, inputs, attrs):
         y = (x * (1.0 - p) if (impl == "downgrade_in_infer" and is_test
                                and p > 0.0) else x)
         return {"Out": [y], "Mask": [torch.ones_like(x)]}
-    sh = tp_shard(ctx, "X") or sp_shard(ctx, "X")
-    if sh is None:
+    cuts = [sh for sh in (tp_shard(ctx, "X"), sp_shard(ctx, "X"))
+            if sh is not None]
+    if not cuts:
         mask = torch.bernoulli(torch.full_like(x, 1.0 - p),
                                generator=ctx.rng())
     else:
-        # this rank's slice of the whole value's mask: a model axis of one
-        # draws the same numbers, and every rank advances the generator
-        # alike
+        # this rank's slice of the whole value's mask (on a model and a
+        # sequence axis at once, its block): the ranks of the axes draw
+        # the same numbers, and every rank advances the generator alike
         shape = list(x.shape)
-        shape[sh.dim] *= sh.size
+        for sh in cuts:
+            shape[sh.dim] *= sh.size
         mask = torch.bernoulli(x.new_full(shape, 1.0 - p),
                                generator=ctx.rng())
-        mask = mask.narrow(sh.dim, sh.rank * x.shape[sh.dim],
-                           x.shape[sh.dim])
+        for sh in cuts:
+            mask = mask.narrow(sh.dim, sh.rank * x.shape[sh.dim],
+                               x.shape[sh.dim])
     y = x * mask / (1.0 - p) if impl == "upscale_in_train" else x * mask
     return {"Out": [y], "Mask": [mask]}
 

@@ -13,8 +13,10 @@ coordinate i holds stage i's parameters) the op runs the GPipe schedule of
 ``parallel/pipeline.py``: this rank's rows are cut into
 ``num_microbatches`` microbatches, stage i runs each of them through the
 executor's ``_run_block`` (so the mesh step's hooks apply inside the
-stage: the tensor-parallel layouts of a composed dp×tp×pp program), and
-the last stage's outputs come back to every rank. A capture (a value the
+stage: the tensor-parallel layouts of a composed dp×tp×pp program, and
+on a sequence axis each stage on the rank's slice of the sequence, its
+output laid out as its input), and the last stage's outputs come back to
+every rank. A capture (a value the
 stages read that the prologue made, such as the attention mask) whose
 leading dim is the batch is microbatched with the activations;
 ``capture_spec`` ({name: "batched" | "shared"}) overrides that rule.
@@ -59,6 +61,16 @@ def _whole_stage(attrs, lay, shapes, n):
     """On a model axis the op takes its inputs as they are: its stages'
     ops see the parameters' slices through the mesh step's hooks."""
     return TP()
+
+
+def _seq_stage(attrs, lay, shapes, n):
+    """On the sequence axis the stages run on this rank's slice of the
+    sequence: the op takes its inputs as they are (the stages' ops see
+    the slices through the mesh step's hooks, and each stage's output is
+    laid out as its input), so ``Out`` keeps X's layout; the microbatch
+    exchange pairs the ranks of one sequence coordinate (the pp axis's
+    group)."""
+    return TP(out={"Out": lay["X"][0]}, inner=True)
 
 
 def _stream_base(ctx):
@@ -109,7 +121,7 @@ def _micro(m, b):
     return lambda a: a.reshape((m, b // m) + tuple(a.shape[1:]))
 
 
-@register_op("pipeline", dp=ROWS, tp=_whole_stage)
+@register_op("pipeline", dp=ROWS, tp=_whole_stage, sp=_seq_stage)
 def _pipeline(ctx, inputs, attrs):
     from ..parallel.pipeline import run_stages
 
@@ -139,22 +151,31 @@ def _pipeline(ctx, inputs, attrs):
     def stage_names(s):
         return list(names_in[s * n_params:(s + 1) * n_params])
 
+    mesh = getattr(ctx, "mesh", None)
+    x_name = (ctx.in_names or {}).get("X", [None])[0]
+
     def run_stage(params_list, inp, bcaps, gen):
         env = dict(zip(param_names, params_list))
         env.update(static)
         env.update(zip(bc_names, bcaps))
         env[in_name] = inp
         _run_sub(ctx, block, env, gen)
-        return env[out_name]
+        y = env[out_name]
+        if mesh is not None:  # the stage's output on its input's layout
+            y = mesh.relayout(out_name, y, in_name)
+        return y
+
+    def alias(s):
+        if mesh is not None and names_in:
+            mesh.alias_layouts(param_names + [in_name],
+                               stage_names(s) + [x_name])
 
     if step is None:
         # no pp axis: the stages one after another on the whole batch
-        mesh = getattr(ctx, "mesh", None)
         y = x
         bcaps = [captures[i] for i in batched]
         for s in range(n_stages):
-            if mesh is not None and names_in:
-                mesh.alias_layouts(param_names, stage_names(s))
+            alias(s)
             y = run_stage(flat_params[s * n_params:(s + 1) * n_params], y,
                           bcaps, _stage_gen(ctx, base, s))
         return {"Out": [y]}
@@ -163,8 +184,7 @@ def _pipeline(ctx, inputs, attrs):
     if b % m:
         raise ValueError(f"pipeline: batch {b} not divisible by "
                          f"num_microbatches {m}")
-    if names_in:
-        step.alias_layouts(param_names, stage_names(i))
+    alias(i)
     micro = _micro(m, b)
 
     def run(ps, inp, f, side_f):

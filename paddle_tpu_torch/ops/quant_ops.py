@@ -27,10 +27,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import ROWS, Whole, register_op
 from .common import act_map, one, opt_input
 
 _ACTS = act_map()
+
+# on a data-parallel mesh: the abs-max scale is the whole batch's (the
+# batch gathered whole over the data axis, core/registry.py), and each
+# rank keeps its own rows of the quantized value; the channel-wise quantize
+# (one scale a dim-0 row), the dequantize by a global scale and the int8
+# runtime ops work row by row; the channel-wise dequantize, whose scales
+# may run along dim 0, runs on the whole batch
+_WHOLE_SCALE = Whole(rows=("Out",))
 
 
 class _STE(torch.autograd.Function):
@@ -66,7 +74,8 @@ def _absmax(x):
     return torch.max(torch.abs(x.detach()))
 
 
-@register_op("fake_quantize_abs_max", grad_fn=_ste_grad, nondiff_inputs=[])
+@register_op("fake_quantize_abs_max", grad_fn=_ste_grad, nondiff_inputs=[],
+             dp=_WHOLE_SCALE)
 def _fake_quantize_abs_max(ctx, inputs, attrs):
     (x,) = inputs["X"]
     bits = int(attrs.get("bit_length", 8))
@@ -75,7 +84,8 @@ def _fake_quantize_abs_max(ctx, inputs, attrs):
             "OutScale": [scale.reshape(1)]}
 
 
-@register_op("fake_channel_wise_quantize_abs_max", grad_fn=_ste_grad)
+@register_op("fake_channel_wise_quantize_abs_max", grad_fn=_ste_grad,
+             dp=ROWS)
 def _fake_cw_quantize_abs_max(ctx, inputs, attrs):
     (x,) = inputs["X"]
     bits = int(attrs.get("bit_length", 8))
@@ -88,7 +98,8 @@ def _fake_cw_quantize_abs_max(ctx, inputs, attrs):
 
 
 @register_op("fake_quantize_moving_average_abs_max", grad_fn=_ste_grad,
-             nondiff_inputs=["InScale", "InAccum", "InState"])
+             nondiff_inputs=["InScale", "InAccum", "InState"],
+             dp=_WHOLE_SCALE)
 def _fake_quantize_ma_abs_max(ctx, inputs, attrs):
     """activation quant: scale tracked by moving average of |x|max."""
     (x,) = inputs["X"]
@@ -108,7 +119,7 @@ def _fake_quantize_ma_abs_max(ctx, inputs, attrs):
 
 
 @register_op("fake_quantize_range_abs_max", grad_fn=_ste_grad,
-             nondiff_inputs=["InScale", "Iter"])
+             nondiff_inputs=["InScale", "Iter"], dp=_WHOLE_SCALE)
 def _fake_quantize_range_abs_max(ctx, inputs, attrs):
     (x,) = inputs["X"]
     (in_scale,) = inputs["InScale"]
@@ -122,7 +133,8 @@ def _fake_quantize_range_abs_max(ctx, inputs, attrs):
             "OutScale": [scale.reshape(1)]}
 
 
-@register_op("moving_average_abs_max_scale", differentiable=False)
+@register_op("moving_average_abs_max_scale", differentiable=False,
+             dp=_WHOLE_SCALE)
 def _moving_average_abs_max_scale(ctx, inputs, attrs):
     (x,) = inputs["X"]
     (in_scale,) = inputs["InScale"]
@@ -132,7 +144,8 @@ def _moving_average_abs_max_scale(ctx, inputs, attrs):
     return {"Out": [x.detach()], "OutScale": [scale.reshape(1)]}
 
 
-@register_op("fake_dequantize_max_abs")
+@register_op("fake_dequantize_max_abs",
+             dp=lambda a, s: None if "Scale" in s else ROWS)
 def _fake_dequantize_max_abs(ctx, inputs, attrs):
     (x,) = inputs["X"]
     (scale,) = inputs["Scale"]
@@ -189,7 +202,8 @@ def int8_matmul(xq, w):
     return acc[:m, :n]
 
 
-@register_op("quantized_fc", differentiable=False)
+@register_op("quantized_fc", differentiable=False,
+             dp=lambda a, s: None if "W" in s else ROWS)
 def _quantized_fc(ctx, inputs, attrs):
     """fused_fc rewritten by int8_quantize_pass: quantize the activation
     at the calibrated scale, int8 gemm into int32, dequant by
@@ -217,7 +231,8 @@ def _quantized_fc(ctx, inputs, attrs):
     return one(out.reshape(lead + (w.shape[-1],)))
 
 
-@register_op("quantized_lookup_table", differentiable=False)
+@register_op("quantized_lookup_table", differentiable=False,
+             dp=lambda a, s: None if "W" in s else ROWS)
 def _quantized_lookup_table(ctx, inputs, attrs):
     """lookup_table(/_v2) rewritten by int8_quantize_pass: gather int8
     rows and dequant with the per-table scale. `squeeze_last` keeps

@@ -7,6 +7,11 @@ variable-length batch is **padded dense [batch, max_len, ...] plus an
 explicit length var**: each op takes a Length input instead of reading LoD
 metadata, and its output keeps a static shape (positions past a length are
 zero or the pad value).
+
+On a data-parallel mesh every op here works row by row (``ROWS`` in
+``core/registry.py``): each batch row's output reads only that row and its
+length (im2sequence's rows come image by image), so a rank runs its own
+rows with their lengths.
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.dtypes import convert_dtype
-from ..core.registry import register_op
+from ..core.registry import ROWS, register_op
 from .common import one
 
 
@@ -36,7 +41,7 @@ def _take_steps(x, idx):
                                          + tuple(x.shape[2:])))
 
 
-@register_op("sequence_mask", differentiable=False)
+@register_op("sequence_mask", differentiable=False, dp=ROWS)
 def _sequence_mask(ctx, inputs, attrs):
     (x,) = inputs["X"]
     maxlen = attrs.get("maxlen", -1)
@@ -46,7 +51,7 @@ def _sequence_mask(ctx, inputs, attrs):
     return {"Y": [_mask_from_len(x, maxlen, dtype)]}
 
 
-@register_op("sequence_pool", nondiff_inputs=["Length"])
+@register_op("sequence_pool", nondiff_inputs=["Length"], dp=ROWS)
 def _sequence_pool(ctx, inputs, attrs):
     """sequence_pool_op.cc over padded [B, T, ...] + Length."""
     (x,) = inputs["X"]
@@ -74,7 +79,7 @@ def _sequence_pool(ctx, inputs, attrs):
     return one(out)
 
 
-@register_op("sequence_softmax", nondiff_inputs=["Length"])
+@register_op("sequence_softmax", nondiff_inputs=["Length"], dp=ROWS)
 def _sequence_softmax(ctx, inputs, attrs):
     (x,) = inputs["X"]
     (length,) = inputs["Length"]
@@ -83,7 +88,7 @@ def _sequence_softmax(ctx, inputs, attrs):
     return one(torch.softmax(logits, dim=1) * mask)
 
 
-@register_op("sequence_expand", nondiff_inputs=["Length"])
+@register_op("sequence_expand", nondiff_inputs=["Length"], dp=ROWS)
 def _sequence_expand(ctx, inputs, attrs):
     (x,) = inputs["X"]
     (y,) = inputs["Y"]
@@ -93,7 +98,7 @@ def _sequence_expand(ctx, inputs, attrs):
         tuple(y.shape[:2]) + tuple(x.shape[1:])))
 
 
-@register_op("sequence_reverse", nondiff_inputs=["Length"])
+@register_op("sequence_reverse", nondiff_inputs=["Length"], dp=ROWS)
 def _sequence_reverse(ctx, inputs, attrs):
     (x,) = inputs["X"]
     length = inputs.get("Length", [None])[0]
@@ -106,12 +111,12 @@ def _sequence_reverse(ctx, inputs, attrs):
     return {"Y": [_take_steps(x, rev)]}
 
 
-@register_op("sequence_concat")
+@register_op("sequence_concat", dp=ROWS)
 def _sequence_concat(ctx, inputs, attrs):
     return one(torch.cat(list(inputs["X"]), dim=1))
 
 
-@register_op("im2sequence")
+@register_op("im2sequence", dp=ROWS)
 def _im2sequence(ctx, inputs, attrs):
     """im2sequence_op.h:33: the kernel patches of NCHW images as sequence
     rows — Out[N·OH·OW, C·kh·kw], each image's output positions row-major,
@@ -125,7 +130,8 @@ def _im2sequence(ctx, inputs, attrs):
     return one(patches.transpose(1, 2).reshape(-1, patches.shape[1]))
 
 
-@register_op("sequence_pad", nondiff_inputs=["Length", "PadValue"])
+@register_op("sequence_pad", nondiff_inputs=["Length", "PadValue"],
+             dp=ROWS)
 def _sequence_pad(ctx, inputs, attrs):
     """sequence_pad_op.cc: re-pad [B, T, ...] + Length to `padded_length`
     time steps filled with PadValue beyond each length."""
@@ -148,7 +154,7 @@ def _sequence_pad(ctx, inputs, attrs):
     return {"Out": [out], "Length": [torch.clamp(length, max=padded_len)]}
 
 
-@register_op("sequence_unpad", nondiff_inputs=["Length"])
+@register_op("sequence_unpad", nondiff_inputs=["Length"], dp=ROWS)
 def _sequence_unpad(ctx, inputs, attrs):
     """sequence_unpad_op.cc: drop the pad region. Static shapes keep
     [B, T, ...]; padding positions are zeroed."""
@@ -158,7 +164,7 @@ def _sequence_unpad(ctx, inputs, attrs):
                           x.ndim))
 
 
-@register_op("sequence_conv", nondiff_inputs=["Length"])
+@register_op("sequence_conv", nondiff_inputs=["Length"], dp=ROWS)
 def _sequence_conv(ctx, inputs, attrs):
     """sequence_conv_op.cc: context-window projection over the time axis:
     a [ctx·D] window per step (zero beyond the sequence), then one
@@ -188,7 +194,8 @@ def _sequence_conv(ctx, inputs, attrs):
     return one(out)
 
 
-@register_op("sequence_slice", nondiff_inputs=["Offset", "Length"])
+@register_op("sequence_slice", nondiff_inputs=["Offset", "Length"],
+             dp=ROWS)
 def _sequence_slice(ctx, inputs, attrs):
     """sequence_slice_op.cc: per-row (offset, length) slice along time.
     Output stays [B, T, ...]; positions >= length are zeroed."""
@@ -201,7 +208,7 @@ def _sequence_slice(ctx, inputs, attrs):
     return one(out * _trail(_mask_from_len(length, t, x.dtype), x.ndim))
 
 
-@register_op("sequence_erase", differentiable=False)
+@register_op("sequence_erase", differentiable=False, dp=ROWS)
 def _sequence_erase(ctx, inputs, attrs):
     """sequence_erase_op.cc: remove the tokens in `tokens` and left-compact
     the rest. Output stays [B, T] zero-padded, with the new lengths."""
@@ -225,7 +232,7 @@ def _sequence_erase(ctx, inputs, attrs):
     return {"Out": [out], "Length": [new_len]}
 
 
-@register_op("sequence_expand_as", nondiff_inputs=["Y", "Length"])
+@register_op("sequence_expand_as", nondiff_inputs=["Y", "Length"], dp=ROWS)
 def _sequence_expand_as(ctx, inputs, attrs):
     """sequence_expand_as_op.cc: each row of X across Y's time axis, masked
     by Y's length."""
@@ -239,7 +246,7 @@ def _sequence_expand_as(ctx, inputs, attrs):
     return one(out)
 
 
-@register_op("sequence_enumerate", differentiable=False)
+@register_op("sequence_enumerate", differentiable=False, dp=ROWS)
 def _sequence_enumerate(ctx, inputs, attrs):
     """sequence_enumerate_op.cc: sliding win_size-grams along time;
     positions past the end take pad_value."""
@@ -257,7 +264,7 @@ def _sequence_enumerate(ctx, inputs, attrs):
     return one(torch.stack(grams, dim=-1))   # [B, T, win]
 
 
-@register_op("sequence_reshape", nondiff_inputs=["Length"])
+@register_op("sequence_reshape", nondiff_inputs=["Length"], dp=ROWS)
 def _sequence_reshape(ctx, inputs, attrs):
     """sequence_reshape_op.cc: re-chunk each sequence's row-major [T, D]
     stream into [T·D/new_dim, new_dim]; the tail padding stays contiguous,
@@ -275,7 +282,7 @@ def _sequence_reshape(ctx, inputs, attrs):
     return outs
 
 
-@register_op("sequence_scatter", nondiff_inputs=["Ids", "Length"])
+@register_op("sequence_scatter", nondiff_inputs=["Ids", "Length"], dp=ROWS)
 def _sequence_scatter(ctx, inputs, attrs):
     """sequence_scatter_op.cc: out[b, ids[b, s]] += updates[b, s] for
     s < length[b]."""
@@ -295,7 +302,7 @@ def _sequence_scatter(ctx, inputs, attrs):
 
 
 @register_op("sequence_topk_avg_pooling", differentiable=False,
-             nondiff_inputs=["Length"])
+             nondiff_inputs=["Length"], dp=ROWS)
 def _sequence_topk_avg_pooling(ctx, inputs, attrs):
     """sequence_topk_avg_pooling_op.cc: per (batch, channel), the average
     of the top-k values over the unmasked steps, one column per k."""

@@ -31,7 +31,10 @@ expert parallelism it also uses the Megatron conjugate pair ``copy_to``
 (g: sum forward, identity backward), ``gather_along`` (an all-gather along
 a dim whose backward takes this rank's slice), ``gather_summed`` (the same
 all-gather whose backward is a reduce-scatter: the sequence axis's keys
-and values, read by every rank's queries) and ``all_to_all_diff`` (whose
+and values, read by every rank's queries), ``gather_rows`` (several
+values' dim-0 rows made whole at once, each rank's row count its own,
+one all-gather a dtype; the backward a reduce-scatter a dtype: an op that
+works across the batch dim on a data axis) and ``all_to_all_diff`` (whose
 backward is the transposed exchange). The pipelines
 (``parallel/pipeline.py``) use ``exchange`` (point-to-point sends and
 receives) and ``broadcast_from`` (one rank's value on every rank; its
@@ -48,7 +51,8 @@ __all__ = ["psum", "pmean", "ppermute", "axis_index", "axis_size",
            "all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "all_to_all", "barrier", "axis_group", "reduce_scatter_into",
            "all_gather_into", "copy_to", "reduce_from", "gather_along",
-           "gather_summed", "all_to_all_diff", "exchange", "broadcast_from"]
+           "gather_summed", "all_to_all_diff", "exchange", "broadcast_from",
+           "row_counts", "gather_rows"]
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN}
@@ -234,6 +238,123 @@ def gather_summed(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _GatherSummed.apply(x, dim % x.ndim, group)
+
+
+def row_counts(xs, group):
+    """``counts[r][i]``: dim 0 of ``xs[i]`` on rank r of `group` (one
+    all-gather of every value's row count)."""
+    n = dist.get_world_size(group)
+    mine = torch.tensor([int(x.shape[0]) for x in xs], dtype=torch.int64,
+                        device=xs[0].device)
+    every = mine.new_empty(n * len(xs))
+    all_gather_into(every, mine, group)
+    return every.view(n, len(xs)).cpu().tolist()
+
+
+def _wire(dt):
+    # gloo gathers no bool tensors: they travel as bytes
+    return torch.uint8 if dt == torch.bool else dt
+
+
+def _rows_whole(xs, counts, group):
+    """Every rank's rows of each of `xs` laid end to end in rank order:
+    one all-gather a dtype over the values padded to the most rows any
+    rank holds."""
+    n = dist.get_world_size(group)
+    most = [max(c[i] for c in counts) for i in range(len(xs))]
+    out = [None] * len(xs)
+    by_dtype = {}
+    for i, x in enumerate(xs):
+        by_dtype.setdefault(_wire(x.dtype), []).append(i)
+    for dt, idx in by_dtype.items():
+        parts = []
+        for i in idx:
+            x = xs[i].detach().to(dt)
+            pad = most[i] - x.shape[0]
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            parts.append(x.reshape(-1))
+        widths = [p.numel() for p in parts]
+        mine = torch.cat(parts) if len(parts) > 1 else parts[0]
+        every = mine.new_empty(n * mine.numel())
+        all_gather_into(every, mine, group)
+        for i, col in zip(idx, every.view(n, -1).split(widths, dim=1)):
+            blocks = col.reshape((n, most[i]) + tuple(xs[i].shape[1:]))
+            whole = torch.cat([blocks[r, :counts[r][i]] for r in range(n)])
+            out[i] = whole.to(xs[i].dtype)
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    """``_rows_whole``; backward, each value's cotangent (every rank holds
+    a part of it) summed over the group with this rank's rows kept: one
+    reduce-scatter a dtype."""
+
+    @staticmethod
+    def forward(ctx, group, counts, *xs):
+        ctx.group, ctx.counts = group, counts
+        ctx.tails = [tuple(x.shape[1:]) for x in xs]
+        ctx.dtypes = [x.dtype for x in xs]
+        outs = tuple(_rows_whole(xs, counts, group))
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *gs):
+        counts, group = ctx.counts, ctx.group
+        n, me = len(counts), dist.get_rank(group)
+        grads = [None] * len(gs)
+        by_dtype = {}
+        for i in range(len(gs)):
+            if ctx.needs_input_grad[2 + i]:
+                by_dtype.setdefault(ctx.dtypes[i], []).append(i)
+        for dt, idx in by_dtype.items():
+            rows, widths = [], []
+            for i in idx:
+                most = max(c[i] for c in counts)
+                g = gs[i]
+                if g is None:
+                    g = torch.zeros((sum(c[i] for c in counts),)
+                                    + ctx.tails[i], dtype=dt,
+                                    device=_device_of(gs))
+                blocks = []
+                for r, piece in enumerate(g.split([c[i] for c in counts])):
+                    pad = most - piece.shape[0]
+                    if pad:
+                        piece = torch.cat([piece, piece.new_zeros(
+                            (pad,) + ctx.tails[i])])
+                    blocks.append(piece.reshape(1, -1))
+                rows.append(torch.cat(blocks))
+                widths.append(rows[-1].shape[1])
+            buf = torch.cat(rows, dim=1).contiguous()
+            out = buf.new_empty(buf.shape[1])
+            reduce_scatter_into(out, buf.view(-1), group)
+            for i, part in zip(idx, out.split(widths)):
+                most = max(c[i] for c in counts)
+                grads[i] = part.view((most,) + ctx.tails[i])[
+                    :counts[me][i]].contiguous()
+        return (None, None) + tuple(grads)
+
+
+def _device_of(gs):
+    return next(g.device for g in gs if g is not None)
+
+
+def gather_rows(xs, group, counts=None):
+    """Each of `xs` (this rank's rows of a value sharded along dim 0) made
+    whole over `group`, every rank's rows in rank order, differentiably:
+    the backward sums each cotangent over the group and keeps this rank's
+    rows (``lax.all_gather``'s transpose). `counts` (``row_counts``) lets
+    ranks hold different row counts; it is gathered when not given.
+    Returns (the whole values, counts)."""
+    if dist.get_world_size(group) == 1 or not xs:
+        return list(xs), [[int(x.shape[0]) for x in xs]]
+    if counts is None:
+        counts = row_counts(xs, group)
+    if any(x.requires_grad for x in xs) and torch.is_grad_enabled():
+        return list(_GatherRows.apply(group, counts, *xs)), counts
+    return _rows_whole(xs, counts, group), counts
 
 
 def all_to_all_diff(x: torch.Tensor, axis, split_axis: int,

@@ -5,8 +5,9 @@ port's counterpart of ``paddle_tpu.parallel.moe``).
   [E, C, D] buffer through one-hot einsums, every shape fixed by the token
   count, the expert count and the capacity factor.
 - Expert parallelism: tokens are sharded over the ``ep`` axis (the data
-  axis doubles as the expert axis), and so are the experts: each rank
-  keeps E/ep of them. One all-to-all sends each expert's token slots to
+  axis doubles as the expert axis, or, with ``moe_ffn_ep_chunks``, the
+  rank at ep coordinate j routes chunk j of tokens every rank of the axis
+  holds whole), and so are the experts: each rank keeps E/ep of them. One all-to-all sends each expert's token slots to
   its rank, a second brings the results home (``collective.
   all_to_all_diff``, whose backward is the transposed exchange).
 - Load-balance aux loss (Switch: E · Σ_e f_e·P_e) with the statistics
@@ -27,7 +28,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .collective import all_to_all_diff, axis_index, axis_size, pmean
+from .collective import (all_to_all_diff, axis_index, axis_size, copy_to,
+                         gather_along, pmean)
 
 
 class GateOutput(NamedTuple):
@@ -143,6 +145,44 @@ def moe_ffn_expert_parallel(x, gate_w, w1, b1, w2, b2, axis,
     return y, gate.aux_loss
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """The identity forward; the cotangent times `factor` backward."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+def moe_ffn_ep_chunks(x, gate_w, w1, b1, w2, b2, axis, k: int = 2,
+                      capacity_factor: float = 1.25, act=_gelu):
+    """Expert-parallel MoE FFN over `axis` on tokens every rank of it
+    holds whole (x: [N, D]; an ``ep`` axis that is not the data axis): the
+    rank at coordinate j routes chunk j of N/ep tokens with the chunk's
+    capacity (the JAX package's ``shard_map`` over ``P(axis)``), and the
+    chunks' outputs are gathered whole. Returns ([N, D], aux loss).
+
+    Every rank of the axis holds the whole inputs and outputs, each one
+    the whole cotangent of them: the inputs and weights enter through
+    ``copy_to`` (each rank's gradient is its chunk's part, summed over the
+    axis), the output leaves through ``gather_along`` (each rank's chunk
+    of the cotangent) and the aux loss with its cotangent divided among
+    the ranks (``pmean``'s transpose sums their parts)."""
+    ep = axis_size(axis)
+    n = x.shape[0] // ep
+    j = axis_index(axis)
+    x, gate_w, w1, b1, w2, b2 = (copy_to(t, axis)
+                                 for t in (x, gate_w, w1, b1, w2, b2))
+    y, aux = moe_ffn_expert_parallel(
+        x.narrow(0, j * n, n), gate_w, w1, b1, w2, b2, axis, k=k,
+        capacity_factor=capacity_factor, act=act)
+    return gather_along(y, 0, axis), _ScaleGrad.apply(aux, 1.0 / ep)
+
+
 def init_moe_params(generator: Optional[torch.Generator], d_model: int,
                     d_hidden: int, num_experts: int, dtype=torch.float32,
                     device=None):
@@ -163,4 +203,4 @@ def init_moe_params(generator: Optional[torch.Generator], d_model: int,
 
 
 __all__ = ["GateOutput", "top_k_gating", "moe_ffn",
-           "moe_ffn_expert_parallel", "init_moe_params"]
+           "moe_ffn_expert_parallel", "moe_ffn_ep_chunks", "init_moe_params"]

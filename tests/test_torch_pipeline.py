@@ -546,7 +546,9 @@ def test_pipeline_refusals(world):
     that num_microbatches does not divide, a hetero stage that changes
     the microbatch dim or the dtype, seq_axis equal to data_axis raise
     ValueError; a program whose stage count is not the pp axis size
-    raises ValueError; what is left for ROADMAP A9b3 names it."""
+    raises ValueError. An sp dim without seq_axis, an ep dim beside the
+    data axis and two model axes that no spec names compute replicated:
+    a step on each rank's rows has the plain run's loss."""
     import paddle_tpu_torch as tfluid
 
     for fluid in (jfluid, tfluid):
@@ -560,7 +562,9 @@ def test_pipeline_refusals(world):
     assert got["seq_is_data"].startswith("ValueError")
     assert "seq_axis and data_axis" in got["seq_is_data"]
     for k in ("sp_without_seq", "ep_not_data", "two_model_axes"):
-        assert got[k].startswith("NotImplementedError") and "A9b3" in got[k]
+        assert isinstance(got[k], float), (k, got[k])
+        np.testing.assert_allclose(got[k], got["plain"], rtol=1e-6,
+                                   atol=1e-7)
     checks = world().run("hetero_checks", dict(axes=PP2))[0]
     assert "changed the microbatch dim" in checks["mb"]
     assert "payload dtype" in checks["dtype"]

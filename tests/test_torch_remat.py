@@ -308,18 +308,21 @@ def test_tiny_bert_minimal_matches_jax(monkeypatch):
 
 
 def test_multi_device_surface_raises_naming_a9():
-    """What is left of ROADMAP A9 raises naming its item (A9b3: an sp dim
-    without seq_axis, checked on a stand-in for a mesh's named dims, as
-    with_mesh reads them; A9c: remat saveable_names); two places need a
-    world of two processes; a ZeRO stage on one device shards nothing
-    (the losses are stage off's, as the JAX package's on a one-device
-    mesh)."""
+    """What is left of ROADMAP A9 raises naming its item (A9c: remat
+    saveable_names); an sp dim without seq_axis computes replicated, as
+    in the JAX package (checked on a stand-in for a mesh's named dims, as
+    with_mesh reads them: no model, sequence or pipeline axis); two places
+    need a world of two processes; a ZeRO stage on one device shards
+    nothing (the losses are stage off's, as the JAX package's on a
+    one-device mesh)."""
     import types
 
     main, startup, feed, loss = _unit_mlp()
     dims = types.SimpleNamespace(mesh_dim_names=("dp", "sp"), shape=(1, 2))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tfluid.CompiledProgram(main).with_mesh(dims, data_axis="dp")
+    prog = tfluid.CompiledProgram(main).with_mesh(dims, data_axis="dp")
+    assert prog._mesh is dims and prog._data_axis == "dp"
+    assert (prog._model_axes, prog._seq_axis, prog._pp_axis) == ([], None,
+                                                                 None)
     with pytest.raises(RuntimeError, match="distributed.launch"):
         tfluid.CompiledProgram(main).with_data_parallel(
             places=[tfluid.CPUPlace(), tfluid.CPUPlace()])

@@ -687,7 +687,12 @@ def case_mesh_shapes():
 
 
 def case_surface():
-    """What the mesh surface refuses, naming the item."""
+    """The mesh surface: the meshes that run (an sp dim without seq_axis,
+    a pp dim without pipeline ops and an ep dim beside the data axis
+    compute replicated; each runs a step on this rank's rows: its loss and
+    the plain run's), and what it refuses, naming the item."""
+    import torch.distributed as dist
+
     fluid, names = _port()
     from paddle_tpu_torch.parallel import DistributedStrategy, make_mesh
     from paddle_tpu_torch.parallel import collective as C
@@ -696,21 +701,32 @@ def case_surface():
     got = {}
     with names.guard():
         main, startup, loss = build_zero_mlp(fluid)
+    feed = zero_mlp_feed()
+    exe = fluid.Executor(fluid.CPUPlace())
+
+    def step(axes):
+        prog = fluid.CompiledProgram(main).with_mesh(make_mesh(axes))
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            return float(np.asarray(exe.run(
+                prog, feed=rows(feed, dist.get_rank() // 2, world // 2),
+                fetch_list=[loss])[0]).reshape(-1)[0])
+
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        got["plain"] = float(np.asarray(exe.run(
+            main, feed=feed, fetch_list=[loss])[0]).reshape(-1)[0])
     for label, fn in (
-            ("seq_axis", lambda: fluid.CompiledProgram(main).with_mesh(
-                make_mesh({"dp": world // 2, "sp": 2}))),
-            ("pp", lambda: fluid.CompiledProgram(main).with_mesh(
-                make_mesh({"dp": world // 2, "pp": 2}))),
-            ("ep", lambda: fluid.CompiledProgram(main).with_mesh(
-                make_mesh({"dp": world // 2, "ep": 2}))),
+            ("seq_axis", lambda: step({"dp": world // 2, "sp": 2})),
+            ("pp", lambda: step({"dp": world // 2, "pp": 2})),
+            ("ep", lambda: step({"dp": world // 2, "ep": 2})),
             ("places", lambda: fluid.CompiledProgram(main).with_data_parallel(
                 places=[fluid.CPUPlace()] * (world + 1))),
             ("gm", lambda: fluid.CompiledProgram(main).with_mesh(
                 make_mesh({"dp": world}), strategy=_strategy(
                     DistributedStrategy, gradient_merge_steps=2)))):
         try:
-            fn()
-            got[label] = None
+            got[label] = fn()
         except (NotImplementedError, RuntimeError, ValueError) as e:
             got[label] = f"{type(e).__name__}: {e}"
     return got
@@ -954,7 +970,11 @@ def case_ragged_feed(feed, state, short_rows=None, short_step=1, steps=3):
 
 def case_across_batch(op):
     """One step of a program whose `op` works across the batch dim of a
-    batch-sharded value: returns the error it raised, or None."""
+    batch-sharded value, on this rank's rows and on the plain executor with
+    the whole batch: returns (the error it raised or None, the mesh run's
+    loss, the plain run's loss)."""
+    import torch.distributed as dist
+
     fluid, names = _port()
     with names.guard():
         main, startup = fluid.Program(), fluid.Program()
@@ -967,25 +987,30 @@ def case_across_batch(op):
                 h = fluid.layers.softmax(h, axis=0)
             elif op == "transpose":
                 h = fluid.layers.transpose(h, [1, 0])
-            elif op == "sequence_pool":   # a LoD op: refused before it runs
+            elif op == "sequence_pool":   # a LoD op, row by row
                 h = fluid.layers.sequence_pool(
                     fluid.layers.reshape(h, [-1, 2, 4]), "sum",
                     length=fluid.layers.data("len", [1], dtype="int64"))
             loss = fluid.layers.mean(h)
             fluid.optimizer.SGD(0.1).minimize(loss)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.rand(4 * world, 16).astype("float32")}
+    if op == "sequence_pool":
+        feed["len"] = rng.randint(1, 3, (4 * world, 1)).astype("int64")
     exe = fluid.Executor(fluid.CPUPlace())
-    with fluid.scope_guard(fluid.Scope()):
-        exe.run(startup)
-        prog = fluid.CompiledProgram(main).with_data_parallel(
-            loss_name=loss.name)
-        try:
-            exe.run(prog, feed={"x": np.ones((4, 16), np.float32),
-                                "len": np.full((4, 1), 2, np.int64)}
-                    if op == "sequence_pool" else
-                    {"x": np.ones((4, 16), np.float32)}, fetch_list=[loss])
-        except NotImplementedError as e:
-            return f"{type(e).__name__}: {e}"
-    return None
+    out = []
+    for prog_of, fd in ((lambda: fluid.CompiledProgram(main)
+                         .with_data_parallel(loss_name=loss.name),
+                         rows(feed, rank, world)), (lambda: main, feed)):
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            try:
+                got = exe.run(prog_of(), feed=fd, fetch_list=[loss])[0]
+                out.append(float(np.asarray(got).reshape(-1)[0]))
+            except NotImplementedError as e:
+                return f"{type(e).__name__}: {e}", None, None
+    return None, out[0], out[1]
 
 
 def _r_hashes(main, scope, tp_names):
@@ -1146,9 +1171,11 @@ def case_selected_rows(counts, height, tp_size=1):
 
 
 def case_tp_surface():
-    """What a tp mesh refuses: BERT's 30,522-row vocabulary over tp = 4, a
-    spec naming an axis the mesh lacks, a second model axis (under the
-    "pp" label) and a sequence axis beside the model axis."""
+    """What a tp mesh refuses: BERT's 30,522-row vocabulary over tp = 4 and
+    a spec naming an axis the mesh lacks; and what runs: a second model
+    axis (under the "pp" label: a program with no spec on either axis
+    computes replicated) and a sequence axis beside the model axis (tp
+    BERT on sp×tp). Each run's losses beside the plain run's."""
     fluid, names = _port()
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.parallel import make_mesh
@@ -1159,34 +1186,45 @@ def case_tp_surface():
 
     def attempt(label, fn):
         try:
-            fn()
-            got[label] = None
+            got[label] = fn()
         except (NotImplementedError, ValueError) as e:
             got[label] = f"{type(e).__name__}: {e}"
 
-    def run(vocab, axes):
+    def losses(main, startup, loss, feed, prog_of, steps=2):
+        exe = fluid.Executor(fluid.CPUPlace())
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            prog = prog_of(main)
+            return [float(np.asarray(exe.run(prog, feed=feed,
+                                             fetch_list=[loss])[0]))
+                    for _ in range(steps)]
+
+    def run(vocab, axes, seq_axis=None, data_axis="dp"):
         with names.guard():
             cfg = bert.BertConfig(vocab_size=vocab, hidden_size=32,
                                   num_layers=1, num_heads=4, ffn_size=64,
                                   max_position=32, hidden_dropout=0.0,
                                   attn_dropout=0.0, tp_axis="tp")
             main, startup, _, loss = bert.build_pretrain_program(cfg, 4, 16)
-        exe = fluid.Executor(fluid.CPUPlace())
-        with fluid.scope_guard(fluid.Scope()):
-            exe.run(startup)
-            prog = fluid.CompiledProgram(main).with_mesh(make_mesh(axes),
-                                                         data_axis="dp")
-            exe.run(prog, feed=tp_bert_feed(), fetch_list=[loss])
+        return losses(main, startup, loss, tp_bert_feed(),
+                      lambda m: m if axes is None else
+                      fluid.CompiledProgram(m).with_mesh(
+                          make_mesh(axes), data_axis=data_axis,
+                          seq_axis=seq_axis))
 
     attempt("vocab_30522_tp4", lambda: run(30522, {"dp": 1, "tp": world}))
     attempt("axis_missing", lambda: run(128, {"dp": world}))
     with names.guard():
-        main, _, _ = build_zero_mlp(fluid)
-    attempt("pp", lambda: fluid.CompiledProgram(main).with_mesh(
-        make_mesh({"tp": 2, "mp": world // 2}), data_axis=None))
-    attempt("seq_axis", lambda: fluid.CompiledProgram(main).with_mesh(
-        make_mesh({"sp": 2, "tp": world // 2}), data_axis=None,
-        seq_axis="sp"))
+        main, startup, loss = build_zero_mlp(fluid)
+    attempt("pp", lambda: losses(
+        main, startup, loss, zero_mlp_feed(),
+        lambda m: fluid.CompiledProgram(m).with_mesh(
+            make_mesh({"tp": 2, "mp": world // 2}), data_axis=None)))
+    got["pp_plain"] = losses(main, startup, loss, zero_mlp_feed(),
+                             lambda m: m)
+    attempt("seq_axis", lambda: run(128, {"sp": 2, "tp": world // 2},
+                                    seq_axis="sp", data_axis=None))
+    got["seq_axis_plain"] = run(128, None)
     return got
 
 

@@ -23,10 +23,11 @@ def _bert(fluid):
 
 def build_pipe_bert(fluid, pp_cut=True, num_layers=2, micro=2,
                     pipe_data_axis=None, opt="sgd", lr=0.1, tp_axis=None,
-                    drop=0.0, flash=False, seed=11):
+                    drop=0.0, flash=False, seed=11, clip=None):
     """tests/test_pipeline_optimizer.py's `_build` (and, with `tp_axis`,
-    tests/test_parallel.py's composed program): tiny BERT cut by layers.
-    Returns (main, startup, loss name)."""
+    tests/test_parallel.py's composed program): tiny BERT cut by layers;
+    `clip`: the optimizer's GradientClipByGlobalNorm(clip). Returns (main,
+    startup, loss name)."""
     bert = _bert(fluid)
     layers = fluid.layers
     cfg = bert.BertConfig(vocab_size=64, hidden_size=16,
@@ -35,8 +36,11 @@ def build_pipe_bert(fluid, pp_cut=True, num_layers=2, micro=2,
                           attn_dropout=drop, use_flash_attention=flash,
                           tp_axis=tp_axis)
     T = 8
-    opts = {"sgd": lambda: fluid.optimizer.SGD(lr),
-            "adam": lambda: fluid.optimizer.Adam(lr)}
+    kw = {}
+    if clip is not None:
+        kw["grad_clip"] = fluid.clip.GradientClipByGlobalNorm(clip)
+    opts = {"sgd": lambda: fluid.optimizer.SGD(lr, **kw),
+            "adam": lambda: fluid.optimizer.Adam(lr, **kw)}
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         main.random_seed = startup.random_seed = seed
@@ -574,7 +578,12 @@ def case_hetero_checks(axes):
 
 def case_surface(world_axes):
     """What the pipeline and sequence surface refuses on a mesh, naming
-    the JAX package's errors or ROADMAP A9b3."""
+    the JAX package's errors; and the meshes that run: seq_bert on an sp
+    dim without seq_axis, an ep dim beside the data axis and two model
+    axes no spec names (each computes replicated), a step each on this
+    rank's rows, their losses beside the plain run's (``plain``)."""
+    import torch.distributed as dist
+
     fluid, names = _port()
     from paddle_tpu_torch.parallel import make_mesh
 
@@ -582,8 +591,7 @@ def case_surface(world_axes):
 
     def attempt(label, fn):
         try:
-            fn()
-            got[label] = None
+            got[label] = fn()
         except (NotImplementedError, ValueError) as e:
             got[label] = f"{type(e).__name__}: {e}"
 
@@ -598,17 +606,29 @@ def case_surface(world_axes):
             exe.run(prog, feed=pipe_bert_feed(B), fetch_list=[loss])
 
     with names.guard():
-        main, _, _, _ = build(fluid, "seq_bert")
+        main, startup, loss, _ = build(fluid, "seq_bert")
+    feed = seq_bert_feed()
+    exe = fluid.Executor(fluid.CPUPlace())
+
+    def step(axes, data_axis):
+        prog = main if axes is None else fluid.CompiledProgram(
+            main).with_mesh(make_mesh(axes), data_axis=data_axis)
+        fd = feed if data_axis is None else {
+            k: v.reshape((2, -1) + v.shape[1:])[dist.get_rank() // 2]
+            for k, v in feed.items()}
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            return float(np.asarray(exe.run(prog, feed=fd,
+                                            fetch_list=[loss])[0]))
+
     attempt("batch_micro", lambda: run_bert(3, world_axes))
     attempt("stages_axis", lambda: run_bert(2, {"pp": 4}))
     attempt("seq_is_data", lambda: fluid.CompiledProgram(main).with_mesh(
         make_mesh({"dp": 2, "sp": 2}), data_axis="sp", seq_axis="sp"))
-    attempt("sp_without_seq", lambda: fluid.CompiledProgram(main).with_mesh(
-        make_mesh({"dp": 2, "sp": 2}), data_axis="dp"))
-    attempt("ep_not_data", lambda: fluid.CompiledProgram(main).with_mesh(
-        make_mesh({"dp": 2, "ep": 2}), data_axis="dp"))
-    attempt("two_model_axes", lambda: fluid.CompiledProgram(main).with_mesh(
-        make_mesh({"tp": 2, "mp": 2}), data_axis=None))
+    got["plain"] = step(None, None)
+    attempt("sp_without_seq", lambda: step({"dp": 2, "sp": 2}, "dp"))
+    attempt("ep_not_data", lambda: step({"dp": 2, "ep": 2}, "dp"))
+    attempt("two_model_axes", lambda: step({"tp": 2, "mp": 2}, None))
     return got
 
 
