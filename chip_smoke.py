@@ -454,6 +454,41 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              across the ranks after every step; rows 1-4 launched the
              expected number of times at the shapes each run gives them,
              none plain. Step ms, peak memory, state bytes a rank.
+24. fleet_cluster — fleet and cluster: (1) distributed.launch's env for
+             one trainer, fleet.init(PaddleCloudRoleMaker()) on an NCCL
+             group of one, fleet.distributed_optimizer(Adam,
+             DistributedStrategy()).minimize on BERT-base f32 (12 layers,
+             B = 8, T = 512, dropout 0) and 6 steps of fleet.main_program:
+             the first 3 losses bitwise the plain executor's, rows 1-2
+             and 3-4 (f32) launched 12 times a step, none plain; (2)
+             ResNet-50 bf16 AMP at B = 128, 224², under
+             DGCMomentumOptimizer (rampup_begin_step 2, sparsity 0.999), 4
+             steps: the 2 dense steps bitwise Momentum's (losses and every
+             parameter), in each sparse step every parameter changes in
+             exactly its kept count of entries; the step ms of both,
+             torch.topk's device ms a sparse step, rows 7-11's launches;
+             (3) a gloo pair on the one card (CUDA tensors): local SGD on
+             an MLP at k = 3 (the replicas differ between syncs and are
+             equal after each, the mean loss falls), dgc_allreduce and
+             sparse_allgather_exchange of a 4 Mi-element gradient at
+             ratio 0.001 against the dense
+             sum of both ranks' top-k, the bytes each form puts on the
+             wire; (4) run_elastic over the BERT-base fleet step in a
+             child process, SIGTERMed after step 3 and relaunched to step
+             6: the stitched losses bitwise (1)'s uninterrupted run's, the
+             final checkpoint's and the restore's ms (the relaunch runs
+             beside (6) and hbm_plan's process); (5), before (4) and with
+             the card to itself, planner.plan_for on (1)'s program: the
+             card's budget picks stage 0, no remat, K = 1; a budget a byte
+             under that estimate escalates; at B = 112, whose stage-0
+             step runs out of the card's memory, the ladder marks it as
+             not fitting and escalates to a plan whose step fits; each
+             measured estimate beside torch.cuda.max_memory_allocated of
+             the same candidate's steps (0.97-1.0); python -m
+             paddle_tpu_torch.tools.hbm_plan --json once; (6) DeepFM (vocab
+             1,000,000, B = 4096) on the deferred-row log through
+             with_data_parallel on an NCCL group of one across 2 folds:
+             losses within 1e-5 of the plain executor's, the log count 0.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -4901,7 +4936,8 @@ def p17_deferred_steps(fluid, exe, main, loss, init, feeds, around_fold=None,
     scope = scope_from(fluid, init)
     orig = exe._run_epilogue
     if around_fold is not None:
-        exe._run_epilogue = lambda eprog, sc: around_fold(orig, eprog, sc)
+        exe._run_epilogue = lambda eprog, sc, *rest: around_fold(
+            lambda e, s: orig(e, s, *rest), eprog, sc)
     out, ms, reads = [], [], []
     try:
         for i, f in enumerate(feeds):
@@ -9125,7 +9161,8 @@ def phase_model_parallel_rest(fluid, fa, smi):
                "dp_ep": p23_moe_once(fluid, p21_moe_feed(P23_QUAD // 2))}
     torch.cuda.empty_cache()
     r0, q0 = pair[0], quad[0]
-    factors = {k: [min(1.0, P23_CLIP / max(float(g), P23_CLIP))
+    factors = {k: [min(1.0, P23_CLIP / max(float(np.asarray(g).item()),
+                                          P23_CLIP))
                    for g in v] for k, v in (
         ("pp_f32", r0["pp_clip_f32"]["fetched_steps"]),
         ("pp_bf16", r0["pp_clip_bf16"]["fetched_steps"]),
@@ -9214,6 +9251,745 @@ def phase_model_parallel_rest(fluid, fa, smi):
     return out
 
 
+
+# -- phase 24: fleet and cluster (the fleet API and role makers, DGC
+# momentum, local SGD and the DGC exchanges, elastic training, the memory
+# planner, the deferred fold on a mesh) -----------------------------------
+
+P24_DEVICE = "cuda"
+P24_B, P24_T = 8, 512            # BERT-base f32 on the fleet path
+P24_STEPS, P24_PLAIN_STEPS = 6, 3  # fleet steps; the first 3 against plain
+P24_DGC_STEPS, P24_DGC_BEGIN, P24_DGC_SPARSITY = 4, 2, [0.999]
+P24_MLP = (64, 256, 16)          # local SGD: in, hidden, rows a rank
+P24_SGD_K, P24_SGD_STEPS, P24_SGD_LR = 3, 6, 0.01
+P24_EXCHANGE_N, P24_EXCHANGE_RATIO = 1 << 22, 0.001
+P24_KILL_AFTER = 3               # SIGTERM once this many steps printed
+P24_DEEPFM = {"vocab": 1_000_000, "B": 4096, "segments": 4, "steps": 8}
+P24_FOLD_REL = 1e-5
+P24_EXCHANGE_TOL = 1e-6
+# the planner's measured bytes over the allocator's peak of the same steps:
+# 0.9940-0.9963 over six candidates at B = 8 (two runs on an H100 80GB
+# HBM3, 700 W); the allocator's rounding and cuBLAS's workspace are not
+# ops' outputs, so the count stays under the peak
+P24_PLAN_RATIO = (0.97, 1.0)
+# BERT-base f32 at T = P24_T whose stage-0 step outgrows the card's 80 GB
+# (about 0.96 GB of activations a sequence, 9.45 GB in all at B = 8) and
+# whose remat "minimal" step (about 0.53 GB a sequence) fits its budget
+P24_OOM_B = 112
+P24_WORLD = 2
+
+
+def p24_place(fluid):
+    return fluid.CUDAPlace(0) if P24_DEVICE == "cuda" else fluid.CPUPlace()
+
+
+def p24_sync():
+    import torch
+
+    if P24_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def p24_fleet_program(fluid, bert):
+    """BERT-base f32 (dropout 0) through the fleet path: Adam(LR) wrapped
+    by ``fleet.distributed_optimizer(..., DistributedStrategy())``; the
+    fleet must be initialised. Returns (main, startup, loss, the fleet's
+    CompiledProgram)."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.parallel.fleet import fleet
+    from paddle_tpu_torch.parallel.mesh import DistributedStrategy
+
+    with unique_name.guard():
+        main, startup, loss = build_pretrain(
+            fluid, bert, P24_B, P24_T, False, dropout=0.0,
+            optimizer=lambda wrap: fleet.distributed_optimizer(
+                fluid.optimizer.Adam(LR), DistributedStrategy()))
+    return main, startup, loss, fleet.main_program
+
+
+def p24_steps(fluid, prog, startup, loss, feed, steps, scope=None):
+    """`steps` runs of `prog` from its startup (or from `scope`): (loss
+    bytes a step, losses, host ms a step, the scope)."""
+    exe = fluid.Executor(p24_place(fluid))
+    if scope is None:
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+    raw, losses, ms = [], [], []
+    for _ in range(steps):
+        p24_sync()
+        t0 = time.perf_counter()
+        (lv,) = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+        p24_sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        a = np.asarray(lv, np.float32).reshape(-1)
+        raw.append(a.tobytes())
+        losses.append(float(a[0]))
+    return raw, losses, ms, scope
+
+
+def p24_fleet(fluid, fa, bert, feed, port):
+    """(1) The fleet path on an NCCL group of one: distributed.launch's
+    env for one trainer, fleet.init(PaddleCloudRoleMaker()), minimize,
+    P24_STEPS steps of fleet.main_program; the first P24_PLAIN_STEPS
+    losses bitwise the plain executor's. Returns (record, the fleet
+    losses, the fleet's main program and loss)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import launch
+    from paddle_tpu_torch.parallel.fleet import PaddleCloudRoleMaker, fleet
+
+    env = launch.trainer_env(0, 1, port)
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        fleet.init(PaddleCloudRoleMaker())
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if not (fleet.is_worker() and fleet.is_first_worker()
+            and fleet.worker_num() == 1):
+        raise AssertionError("phase 24: the fleet is not one first worker")
+    main, startup, loss, prog = p24_fleet_program(fluid, bert)
+    with_mesh = prog._mesh is not None
+    flash_reset(fa)                                  # main path starts
+    raw, losses, ms, scope = p24_steps(fluid, prog, startup, loss, feed,
+                                       P24_STEPS)
+    launches = {"fwd": fa.flash_attention_fwd.launches,
+                "bwd": fa.flash_attention_bwd.launches}
+    plain_calls = (fa.flash_attention_fwd.plain_on_cuda
+                   + fa.flash_attention_bwd.plain_on_cuda)  # main path ends
+    del scope
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch.core import unique_name
+    with unique_name.guard():
+        pmain, pstartup, ploss = build_pretrain(
+            fluid, bert, P24_B, P24_T, False, dropout=0.0)
+    praw, plosses, pms, pscope = p24_steps(fluid, pmain, pstartup, ploss,
+                                           feed, P24_PLAIN_STEPS)
+    del pscope
+    torch.cuda.empty_cache()
+    rec = {"losses": losses, "plain_losses": plosses,
+           "bitwise_plain": raw[:P24_PLAIN_STEPS] == praw,
+           "step_ms": ms, "plain_step_ms": pms, "mesh": with_mesh,
+           "launches": launches, "plain_on_cuda": plain_calls}
+    bad = []
+    if not with_mesh:
+        bad.append("fleet.main_program has no mesh on the group of one")
+    if not rec["bitwise_plain"]:
+        bad.append(f"fleet losses {losses[:P24_PLAIN_STEPS]} differ from "
+                   f"the plain executor's {plosses}")
+    want = 12 * P24_STEPS
+    if launches != {"fwd": want, "bwd": want} or plain_calls:
+        bad.append(f"fleet flash launches {launches}, plain {plain_calls}; "
+                   f"expected {want} each")
+    if bad:
+        raise AssertionError(f"phase 24 fleet: {bad}")
+    return rec, losses, main, loss
+
+
+def p24_changed(before, after):
+    """{name: entries that changed} of two {name: tensor} snapshots."""
+    return {n: int((after[n] != before[n]).sum()) for n in before}
+
+
+def p24_dgc(fluid, fb):
+    """(2) ResNet-50 bf16 AMP at B=RESNET_B, 224², under DGC momentum
+    (rampup_begin_step=2, sparsity [0.999]) against Momentum: the dense
+    steps bitwise Momentum's (losses and every parameter), in the sparse
+    steps each parameter changes in exactly its kept count of entries;
+    the step ms of both, torch.topk's device ms a sparse step and the
+    fused-BN launches of the DGC run."""
+    import torch
+
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import resnet
+
+    os.environ["PDTPU_BN_MODE"] = "pallas"
+    feed = resnet_feed(RESNET_B, RESNET_HW, device=P24_DEVICE)
+
+    def build(dgc):
+        opt = None
+        if dgc:
+            def opt():
+                return fluid.optimizer.DGCMomentumOptimizer(
+                    0.1, 0.9, rampup_begin_step=P24_DGC_BEGIN,
+                    sparsity=P24_DGC_SPARSITY)
+        with unique_name.guard():
+            return resnet_program(fluid, resnet, RESNET_B, RESNET_HW, True,
+                                  optimizer=opt)
+
+    def params(main, scope):
+        return {p.name: scope.find_var(p.name).detach().clone()
+                for p in main.all_parameters()}
+
+    exe = fluid.Executor(p24_place(fluid))
+    main, startup, loss = build(False)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    mom_losses, mom_ms = [], []
+    for _ in range(P24_DGC_BEGIN):
+        p24_sync()
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        p24_sync()
+        mom_ms.append((time.perf_counter() - t0) * 1e3)
+        mom_losses.append(np.asarray(lv, np.float32).tobytes())
+    mom_params = params(main, scope)
+    del scope
+    torch.cuda.empty_cache()
+
+    main, startup, loss = build(True)
+    if sum(op.type == "dgc_momentum" for op in main.global_block().ops) \
+            != len(main.all_parameters()):
+        raise AssertionError("phase 24: not one dgc_momentum op a parameter")
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    reset_bn_counts(fb)                              # main path starts
+    losses, ms, snaps = [], [], [params(main, scope)]
+    for _ in range(P24_DGC_STEPS):
+        p24_sync()
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        p24_sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(np.asarray(lv, np.float32).tobytes())
+        snaps.append(params(main, scope))
+    counts = bn_counts(fb)                           # main path ends
+    kept = {n: max(1, int(v.numel() * (1.0 - P24_DGC_SPARSITY[-1])))
+            for n, v in snaps[0].items()}
+    sparse_changed = [p24_changed(snaps[i], snaps[i + 1])
+                      for i in range(P24_DGC_BEGIN, P24_DGC_STEPS)]
+    dense_equal = all(bool(torch.equal(snaps[P24_DGC_BEGIN][n], v))
+                      for n, v in mom_params.items())
+    topk = {}
+    if P24_DEVICE == "cuda":
+        per, _, _ = profile_device(lambda: exe.run(
+            main, feed=feed, fetch_list=[loss], scope=scope), iters=2)
+        topk = {k[:90]: v / 1e3 for k, v in per.items()
+                if any(s in k.lower() for s in ("topk", "radix", "kthvalue"))}
+    del scope, snaps
+    torch.cuda.empty_cache()
+    wrong = {n: (c, kept[n]) for changed in sparse_changed
+             for n, c in changed.items() if c != kept[n]}
+    rec = {"momentum_step_ms": mom_ms, "dgc_step_ms": ms,
+           "dense_losses_bitwise": losses[:P24_DGC_BEGIN] == mom_losses,
+           "dense_params_bitwise": dense_equal,
+           "losses": [float(np.frombuffer(b, np.float32)[0])
+                      for b in losses],
+           "kept_total": sum(kept.values()),
+           "changed_total": [sum(c.values()) for c in sparse_changed],
+           "params": len(kept), "topk_device_ms_a_step": sum(topk.values()),
+           "topk_kernels_ms": topk, "fused_bn_launches": counts}
+    bad = []
+    if not (rec["dense_losses_bitwise"] and dense_equal):
+        bad.append("the dense steps differ from Momentum's")
+    if wrong:
+        bad.append(f"changed entries differ from the kept counts: "
+                   f"{dict(list(wrong.items())[:8])}")
+    if not np.isfinite(rec["losses"]).all():
+        bad.append(f"losses {rec['losses']}")
+    per_step = {k: v / P24_DGC_STEPS for k, v in counts.items()}
+    if per_step != {k: float(v) for k, v in RESNET_PER_STEP.items()}:
+        bad.append(f"fused-BN launches per step {per_step}")
+    if bad:
+        raise AssertionError(f"phase 24 dgc: {bad}")
+    return rec, counts
+
+
+def p24_pair_job(rank, world):
+    """(3) On each rank of the gloo pair (CUDA tensors): local SGD on an
+    MLP at k=P24_SGD_K (every replica gathered after each step), and both
+    DGC exchanges of a 4 Mi-element gradient against the dense sum of
+    every rank's top-k (gathered)."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import (dgc_allreduce, local_sgd_step,
+                                           replicate_params,
+                                           sparse_allgather_exchange,
+                                           top_k_sparsify)
+    from paddle_tpu_torch.parallel.collective import all_gather_into
+
+    dev = P24_DEVICE
+    fin, hid, rows = P24_MLP
+    rng = np.random.RandomState(40 + rank)
+    x = torch.tensor(rng.rand(rows, fin).astype("float32"), device=dev)
+    y = torch.tensor(rng.rand(rows, 1).astype("float32"), device=dev)
+    init = np.random.RandomState(41)
+    params = replicate_params({
+        "w1": torch.tensor(init.randn(fin, hid).astype("float32") * 0.1,
+                           device=dev),
+        "w2": torch.tensor(init.randn(hid, 1).astype("float32") * 0.1,
+                           device=dev)}, world)
+
+    def grad_fn(p, batch):
+        w1 = p["w1"].detach().requires_grad_()
+        w2 = p["w2"].detach().requires_grad_()
+        loss = torch.mean((torch.tanh(batch[0] @ w1) @ w2 - batch[1]) ** 2)
+        g1, g2 = torch.autograd.grad(loss, [w1, w2])
+        return loss.detach(), {"w1": g1, "w2": g2}
+
+    def spread(p):
+        flat = torch.cat([p["w1"].reshape(-1), p["w2"].reshape(-1)])
+        every = flat.new_empty(world * flat.numel())
+        all_gather_into(every, flat, None)
+        every = every.view(world, -1)
+        return float((every - every[0]).abs().max())
+
+    step = local_sgd_step(grad_fn, k_steps=P24_SGD_K, lr=P24_SGD_LR)
+    sgd_losses, spreads = [], []
+    for i in range(P24_SGD_STEPS):
+        params, loss = step(params, (x, y), i)
+        sgd_losses.append(float(loss))
+        spreads.append(spread(params))
+
+    g = torch.tensor(np.random.RandomState(100 + rank).randn(
+        P24_EXCHANGE_N).astype("float32"), device=dev)
+    r = torch.zeros_like(g)
+    mine, _ = top_k_sparsify(g, P24_EXCHANGE_RATIO)
+    every = mine.new_empty(world * mine.numel())
+    all_gather_into(every, mine.contiguous(), None)
+    want = every.view(world, -1).sum(0)
+    dense, dres = dgc_allreduce(g, r, ratio=P24_EXCHANGE_RATIO)
+    sparse, sres = sparse_allgather_exchange(g, r, ratio=P24_EXCHANGE_RATIO)
+    k = max(1, int(P24_EXCHANGE_N * P24_EXCHANGE_RATIO))
+    out = {"sgd_losses": sgd_losses, "spreads": spreads,
+           "dense_err": float((dense - want).abs().max()),
+           "sparse_err": float((sparse - want).abs().max()),
+           "residuals_equal": bool(torch.equal(dres, sres)),
+           "residual_err": float((dres + mine - g).abs().max()),
+           "dense_bytes_a_rank": P24_EXCHANGE_N * 4,
+           "sparse_bytes_a_rank": k * (4 + 8)}
+    if P24_DEVICE == "cuda":
+        out["dense_ms"] = cuda_ms(lambda: dgc_allreduce(
+            g, r, ratio=P24_EXCHANGE_RATIO), iters=5, warmup=1)
+        out["sparse_ms"] = cuda_ms(lambda: sparse_allgather_exchange(
+            g, r, ratio=P24_EXCHANGE_RATIO), iters=5, warmup=1)
+    dist.barrier()
+    return out
+
+
+def p24_worker(rank, world, addr):
+    """Rank `rank` > 0 of the phase 24 pair (a process of this script)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if P24_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    from paddle_tpu_torch.parallel import init_parallel_env
+
+    init_parallel_env(addr, world, rank, device="cpu", timeout=600)
+    rec = p24_pair_job(rank, world)
+    every = [None] * world
+    dist.all_gather_object(every, rec)
+    dist.destroy_process_group()
+
+
+def p24_pair():
+    """(3) The gloo pair on the one card: this process is rank 0."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import init_parallel_env
+
+    addr = f"127.0.0.1:{p20_free_port()}"
+    workers = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--p24-rank", str(r), "--p24-world",
+                                 str(P24_WORLD), "--p24-addr", addr])
+               for r in range(1, P24_WORLD)]
+    try:
+        init_parallel_env(addr, P24_WORLD, 0, device="cpu", timeout=600)
+        rec = p24_pair_job(0, P24_WORLD)
+        every = [None] * P24_WORLD
+        dist.all_gather_object(every, rec)
+        dist.destroy_process_group()
+        for w in workers:
+            if w.wait(timeout=600) != 0:
+                raise AssertionError(f"phase 24 rank exited {w.returncode}")
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+    bad = []
+    for r, rec in enumerate(every):
+        for i, s in enumerate(rec["spreads"]):
+            synced = (i + 1) % P24_SGD_K == 0
+            if synced and s != 0.0:
+                bad.append(f"rank {r} step {i}: replicas differ by {s} "
+                           f"after the sync")
+            if not synced and not s > 0.0:
+                bad.append(f"rank {r} step {i}: replicas equal between syncs")
+        for key in ("dense_err", "sparse_err", "residual_err"):
+            if not rec[key] <= P24_EXCHANGE_TOL:
+                bad.append(f"rank {r} {key} {rec[key]}")
+        if not rec["residuals_equal"]:
+            bad.append(f"rank {r}: the two exchanges' residuals differ")
+    losses = every[0]["sgd_losses"]
+    if losses != every[1]["sgd_losses"]:
+        bad.append("the ranks' mean losses differ")
+    if not losses[-1] < losses[0]:
+        bad.append(f"local SGD did not train: losses {losses}")
+    if bad:
+        raise AssertionError(f"phase 24 pair: {bad}")
+    return every[0]
+
+
+def p24_elastic_child(ckdir, steps, port):
+    """(4) A trainer process: run_elastic over the BERT-base fleet step
+    (NCCL group of one); prints `step i <loss repr>` a step, then the
+    checkpoint's save and restore ms and `done <next step>`."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import launch, run_elastic
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.parallel import Checkpointer
+    from paddle_tpu_torch.parallel.fleet import PaddleCloudRoleMaker, fleet
+
+    build.build_all(["flash_attention_fwd", "flash_attention_bwd"])
+    os.environ.update(launch.trainer_env(0, 1, port))
+    fleet.init(PaddleCloudRoleMaker())
+    main, startup, loss, prog = p24_fleet_program(fluid, bert)
+    feed = pretrain_feed(P24_B, P24_T, np.random.RandomState(24))
+    timing = {"save_ms": [], "restore_ms": []}
+    save, restore = Checkpointer.save, Checkpointer.restore
+
+    def timed_save(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(self, *a, **kw)
+        if kw.get("blocking"):
+            timing["save_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_restore(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = restore(self, *a, **kw)
+        torch.cuda.synchronize()
+        timing["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    Checkpointer.save, Checkpointer.restore = timed_save, timed_restore
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+
+    def step_fn(i):
+        (lv,) = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+        print(f"step {i} {float(np.asarray(lv, np.float32).reshape(-1)[0])!r}",
+              flush=True)
+
+    nxt = run_elastic(step_fn, ckdir, steps, save_interval=10 * steps,
+                      program=main, scope=scope)
+    print("timing " + json.dumps(timing), flush=True)
+    print(f"done {nxt}", flush=True)
+
+
+def p24_elastic_parse(text):
+    """(losses by step, the timing record, the next step) of a child's
+    output."""
+    losses, timing, nxt = {}, None, None
+    for line in text.splitlines():
+        parts = line.split(None, 2)
+        if len(parts) == 3 and parts[0] == "step":
+            losses[int(parts[1])] = float(parts[2])
+        elif line.startswith("timing "):
+            timing = json.loads(line[7:])
+        elif len(parts) == 2 and parts[0] == "done":
+            nxt = int(parts[1])
+    return losses, timing, nxt
+
+
+def p24_elastic_child_proc(ckdir):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--p24-elastic", ckdir,
+         "--p24-steps", str(P24_STEPS), "--p24-port", str(p20_free_port())],
+        stdout=subprocess.PIPE, text=True)
+
+
+def p24_elastic_start():
+    """(4), first half: a trainer process SIGTERMed once it printed
+    P24_KILL_AFTER steps, then its relaunch started (it restores and runs
+    to P24_STEPS while the parent goes on: p24_elastic_finish reads it).
+    Returns the state p24_elastic_finish takes."""
+    import signal
+
+    ckdir = tempfile.mkdtemp(prefix="p24_elastic_")
+    t0 = time.perf_counter()
+    p = p24_elastic_child_proc(ckdir)
+    lines, seen = [], 0
+    while seen < P24_KILL_AFTER:
+        line = p.stdout.readline()
+        if not line:
+            break
+        lines.append(line)
+        seen += line.startswith("step ")
+    p.send_signal(signal.SIGTERM)
+    out, _ = p.communicate(timeout=600)
+    first_s = time.perf_counter() - t0
+    la, ta, resume_at = p24_elastic_parse("".join(lines) + out)
+    if p.returncode != 0 or resume_at is None:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        raise AssertionError(f"phase 24 elastic: the preempted run exited "
+                             f"{p.returncode}, done {resume_at}")
+    return {"ckdir": ckdir, "first": (la, ta, resume_at, first_s),
+            "proc": p24_elastic_child_proc(ckdir),
+            "t0": time.perf_counter()}
+
+
+def p24_elastic_finish(state, reference):
+    """(4), second half: the relaunched trainer's output; the stitched
+    losses bitwise `reference` (the uninterrupted fleet run's)."""
+    p = state["proc"]
+    try:
+        out, _ = p.communicate(timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        shutil.rmtree(state["ckdir"], ignore_errors=True)
+    second_s = time.perf_counter() - state["t0"]
+    la, ta, resume_at, first_s = state["first"]
+    lb, tb, nxt = p24_elastic_parse(out)
+    stitched = dict(la)
+    stitched.update(lb)
+    rec = {"resume_at": resume_at, "next": nxt,
+           "final_checkpoint_ms": ta["save_ms"],
+           "restore_ms": (tb or {}).get("restore_ms"),
+           "first_run_s": first_s, "second_run_s": second_s,
+           "stitched": [stitched.get(i) for i in range(P24_STEPS)]}
+    bad = []
+    if p.returncode != 0 or nxt != P24_STEPS:
+        bad.append(f"the resumed run exited {p.returncode}, done {nxt}")
+    if not P24_KILL_AFTER <= resume_at < P24_STEPS or \
+            min(lb or [-1]) != resume_at:
+        bad.append(f"resumed at {resume_at}, first step {min(lb or [-1])}")
+    if rec["stitched"] != list(reference):
+        bad.append(f"stitched losses {rec['stitched']} differ from the "
+                   f"uninterrupted run's {list(reference)}")
+    if bad:
+        raise AssertionError(f"phase 24 elastic: {bad}")
+    return rec
+
+
+def p24_hbm_plan_cli():
+    """`python -m paddle_tpu_torch.tools.hbm_plan --json`, started now and
+    read by p24_hbm_plan_read."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.hbm_plan", "--json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def p24_hbm_plan_read(cli):
+    """The hbm_plan process's JSON line: it fits, on a measured plan."""
+    cli_stdout, cli_stderr = cli.communicate(timeout=600)
+    if cli.returncode != 0:
+        raise AssertionError(f"phase 24 hbm_plan exited {cli.returncode}: "
+                             f"{cli_stderr[-2000:]}")
+    out = json.loads(cli_stdout.strip().splitlines()[-1])
+    if not out["fits"] or out["chosen"]["source"] != "measured":
+        raise AssertionError(f"phase 24 hbm_plan chose {out['chosen']}")
+    return {k: out[k] for k in ("model", "fits", "budget_bytes", "chosen")}
+
+
+def p24_planner(fluid, bert, main, loss, feed):
+    """(5) plan_for on the BERT-base fleet program (NCCL group of one,
+    the card to itself): the card's budget picks stage 0, no remat, K=1;
+    a budget one byte under the stage-0 estimate escalates; and at
+    B=P24_OOM_B, where the stage-0 step truly runs out of the card's
+    memory, the default ladder marks it (and each candidate that also
+    runs out) as not fitting and escalates to a plan whose step fits.
+    Each measured estimate beside torch.cuda.max_memory_allocated over
+    the same candidate's steps (less what was allocated before them)."""
+    import torch
+
+    from paddle_tpu_torch import planner
+    from paddle_tpu_torch.core import unique_name
+
+    peaks = []
+    measured = planner._measured_bytes
+
+    def beside(cp, program, mfeed, loss_name, place):
+        p24_sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        est, error = measured(cp, program, mfeed, loss_name, place)
+        peaks.append((est, torch.cuda.max_memory_allocated() - base, error))
+        return est, error
+
+    place = p24_place(fluid)
+    planner._measured_bytes = beside
+    try:
+        t0 = time.perf_counter()
+        chosen = planner.plan_for(main, feed, loss.name, place=place)
+        chosen_s = time.perf_counter() - t0
+        first = peaks[0]
+        t0 = time.perf_counter()
+        tight = planner.plan_for(main, feed, loss.name,
+                                 budget_bytes=chosen.est_bytes_per_device - 1,
+                                 place=place)
+        tight_s = time.perf_counter() - t0
+        ladder = [p.to_dict() for p in planner._last_candidates]
+        with unique_name.guard():
+            bmain, _, bloss = build_pretrain(fluid, bert, P24_OOM_B, P24_T,
+                                             False, dropout=0.0)
+        bfeed = pretrain_feed(P24_OOM_B, P24_T, np.random.RandomState(24))
+        t0 = time.perf_counter()
+        big = planner.plan_for(bmain, bfeed, bloss.name, place=place)
+        big_s = time.perf_counter() - t0
+        big_ladder = [p.to_dict() for p in planner._last_candidates]
+    finally:
+        planner._measured_bytes = measured
+    torch.cuda.empty_cache()
+    ok = [(e, p) for e, p, err in peaks if err is None]
+    ratios = [e / p for e, p in ok]
+    rec = {"chosen": chosen.to_dict(), "chosen_s": chosen_s,
+           "budget_bytes": chosen.budget_bytes,
+           "stage0_est_bytes": first[0], "stage0_peak_bytes": first[1],
+           "tight": tight.to_dict(), "tight_s": tight_s, "ladder": ladder,
+           "oom_batch": P24_OOM_B, "oom_chosen": big.to_dict(),
+           "oom_s": big_s, "oom_ladder": big_ladder,
+           "est_vs_peak": [{"est": e, "peak": p, "ratio": e / p}
+                           for e, p in ok],
+           "oom_peaks": [{"est": e, "peak": p, "error": err}
+                         for e, p, err in peaks if err is not None]}
+    bad = []
+    if (chosen.stage, chosen.remat, chosen.microbatch) != (0, "none", 1) \
+            or chosen.source != "measured":
+        bad.append(f"the card's budget chose {chosen.describe()}")
+    if (tight.stage, tight.remat, tight.microbatch) == (0, "none", 1) \
+            or not tight.fits:
+        bad.append(f"a budget under stage 0 chose {tight.describe()}")
+    b0 = big_ladder[0]
+    if (b0["stage"], b0["remat"], b0["microbatch"]) != (0, "none", 1) \
+            or b0["fits"] or not (b0["error"] or "").startswith(
+                "OutOfMemoryError"):
+        bad.append(f"stage 0 at B={P24_OOM_B} did not run out: {b0}")
+    if (big.stage, big.remat, big.microbatch) == (0, "none", 1) \
+            or not big.fits or big.error is not None \
+            or big.source != "measured":
+        bad.append(f"at B={P24_OOM_B} the ladder chose {big.describe()}")
+    if not all(P24_PLAN_RATIO[0] <= r <= P24_PLAN_RATIO[1] for r in ratios):
+        bad.append(f"measured bytes over the allocator's peak {ratios}")
+    if bad:
+        raise AssertionError(f"phase 24 planner: {bad}")
+    return rec
+
+
+def p24_deferred(fluid):
+    """(6) DeepFM on the deferred-row log through with_data_parallel on
+    the NCCL group of one, across 2 fold boundaries, against the plain
+    executor from the same state: losses within P24_FOLD_REL, the log
+    count 0 after the last fold."""
+    import torch
+
+    from paddle_tpu_torch.models import deepfm
+
+    cfg = P24_DEEPFM
+    rows = cfg["B"] * 26
+    main, startup, loss = deferred_program(fluid, deepfm, cfg["vocab"], rows,
+                                           segments=cfg["segments"])
+    rng = np.random.RandomState(24)
+    feeds = [deepfm_feed(rng, cfg["B"], cfg["vocab"], device=P24_DEVICE)
+             for _ in range(cfg["steps"])]
+    exe = fluid.Executor(p24_place(fluid))
+    sc0 = fluid.Scope()
+    exe.run(startup, scope=sc0)
+    init = clone_state(sc0, [v.name for v in main.list_vars()
+                             if v.persistable])
+    del sc0
+    out = {}
+    for label, prog in (("plain", main),
+                        ("mesh", fluid.CompiledProgram(main)
+                         .with_data_parallel(loss_name=loss.name))):
+        scope = scope_from(fluid, init)
+        losses, ms = [], []
+        for f in feeds:
+            p24_sync()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(prog, feed=f, fetch_list=[loss], scope=scope)
+            p24_sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(lv, np.float32).reshape(-1)[0]))
+        count = int(np.asarray(torch.as_tensor(
+            scope.find_var("fm_t@log_count")).cpu()).reshape(-1)[0])
+        out[label] = {"losses": losses, "step_ms": ms, "count": count}
+        del scope
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["mesh"]["losses"],
+                                                   out["plain"]["losses"]))
+    rec = dict(out, loss_rel=rel, folds=cfg["steps"] // cfg["segments"])
+    bad = []
+    if not rel <= P24_FOLD_REL:
+        bad.append(f"losses {rel} relative from the plain run's")
+    if out["mesh"]["count"] or out["plain"]["count"]:
+        bad.append(f"log counts {out['mesh']['count']}, "
+                   f"{out['plain']['count']} after the fold")
+    if bad:
+        raise AssertionError(f"phase 24 deferred: {bad}")
+    return rec
+
+
+def phase_fleet_cluster(fluid, fa, fb, smi):
+    """Phase 24 (module docstring): one line of numbers a part. Returns
+    the flash launches of the fleet path ({"fwd"|"bwd": n}, f32) and the
+    fused-BN launches of the DGC run (bf16)."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import init_parallel_env
+
+    t_phase = time.perf_counter()
+    feed = pretrain_feed(P24_B, P24_T, np.random.RandomState(24))
+    marks = {}
+
+    def done(name, rec):
+        marks[name] = time.perf_counter() - t_phase
+        log(f"fleet_cluster {name} " + json.dumps(rec, default=str))
+
+    cli = elastic = None
+    try:
+        fleet, reference, main, loss = p24_fleet(fluid, fa, bert, feed,
+                                                 p20_free_port())
+        done("fleet", fleet)
+        dgc, bn = p24_dgc(fluid, fb)
+        done("dgc", dgc)
+        dist.destroy_process_group()
+        done("pair", p24_pair())
+        init_parallel_env(f"127.0.0.1:{p20_free_port()}", 1, 0,
+                          device=P24_DEVICE, timeout=600)
+        try:
+            done("planner", p24_planner(fluid, bert, main, loss, feed))
+            # the preempted trainer runs alone; its relaunch, the hbm_plan
+            # process and the deferred fold then share the card (their
+            # checks hold; the fold's ms and the restore ms are shared)
+            elastic = p24_elastic_start()
+            marks["elastic_preempted"] = time.perf_counter() - t_phase
+            cli = p24_hbm_plan_cli()
+            done("deferred", p24_deferred(fluid))
+        finally:
+            dist.destroy_process_group()
+        done("hbm_plan_cli", p24_hbm_plan_read(cli))
+        done("elastic", p24_elastic_finish(elastic, reference))
+    finally:
+        for proc in (cli, elastic and elastic["proc"]):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    torch.cuda.empty_cache()
+    log("fleet_cluster " + json.dumps({
+        "marks_s": marks, "wall_s": time.perf_counter() - t_phase,
+        "device": smi}))
+    return fleet["launches"], bn
 
 def main():
     import torch
@@ -9374,6 +10150,15 @@ def main():
         for d in ("fwd", "bwd"):
             train_launches[(d, dt)] += p23["launches"][key][d]
 
+    # 24. fleet and cluster (the fleet path on BERT-base, DGC momentum on
+    # ResNet-50, local SGD and the DGC exchanges on a gloo pair, elastic
+    # resume, the memory planner, the deferred fold on a mesh)
+    p24_flash, p24_bn = phase_fleet_cluster(fluid, fa, fb, smi)
+    for d in ("fwd", "bwd"):
+        train_launches[(d, "float32")] += p24_flash[d]
+    for k, n in p24_bn.items():
+        bn_launches["bfloat16"][k] += n
+
     kernels = []
     for name in ("float32", "bfloat16"):
         rec = records[(name, 512)]
@@ -9481,6 +10266,16 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--p24-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        p24_worker(int(args["--p24-rank"]), int(args["--p24-world"]),
+                   args["--p24-addr"])
+        sys.exit(0)
+    if "--p24-elastic" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        p24_elastic_child(args["--p24-elastic"], int(args["--p24-steps"]),
+                          int(args["--p24-port"]))
+        sys.exit(0)
     if "--p22-probe" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         p22_probe_rank(int(args["--p22-probe"]), int(args["--p22-world"]),

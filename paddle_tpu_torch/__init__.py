@@ -105,6 +105,42 @@ if not _torch_free_entry():
         create_lod_tensor,
         create_random_int_lodtensor,
     )
-    from .param_attr import ParamAttr  # noqa: F401
+    from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
+    from . import faults  # noqa: F401
+    from . import observability  # noqa: F401
+    from . import planner  # noqa: F401
+    from . import profiler  # noqa: F401
+    from . import serving  # noqa: F401
+    from . import incubate  # noqa: F401
+    from . import compiler  # noqa: F401
+    from . import data_generator  # noqa: F401
+    from . import reader as py_reader_module  # noqa: F401
+    from .dataio import DeviceLoader, FetchHandle  # noqa: F401
+    from .dataset import DatasetFactory  # noqa: F401
+    from .evaluator import Evaluator  # noqa: F401
+    from .average import WeightedAverage  # noqa: F401
+    from .layers import learning_rate_scheduler  # noqa: F401
+    from .layers.math_op_patch import monkey_patch_variable  # noqa: F401
+    from .core import executor  # noqa: F401
+    from .core import program as framework  # noqa: F401
+    from .parallel.fleet import fleet  # noqa: F401
+
+    # the reference's common import forms (``from paddle_tpu_torch.framework
+    # import ...``) resolve as the JAX package's do, not just attributes
+    _sys.modules[__name__ + ".framework"] = framework
+    _sys.modules[__name__ + ".executor"] = executor
+
+    def CUDAPinnedPlace():
+        """place.h CUDAPinnedPlace parity: the host side of a transfer.
+        The loaders pin their own staging buffers (``dataio.DeviceLoader``),
+        so the place is the CPU's, as in the JAX package."""
+        return CPUPlace()
+
+    class backward:  # namespace parity: fluid.backward.append_backward
+        from .core.backward import append_backward, calc_gradient, gradients
+
+        append_backward = staticmethod(append_backward)
+        calc_gradient = staticmethod(calc_gradient)
+        gradients = staticmethod(gradients)
 
 __version__ = "0.1.0"

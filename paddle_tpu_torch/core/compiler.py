@@ -17,8 +17,7 @@ at once, and ``Executor.run`` runs each rank's step on its own rows
 replicated. Without a group, a CompiledProgram runs on the
 executor's one device, where a ZeRO stage shards over one device, that
 is, nothing. The ZeRO rules (``_zero_axis``, ``_zero_plan``,
-``_fsdp_param``, ``_zero_pad_map``) are the JAX package's. Remat
-``saveable_names`` is ROADMAP A9c.
+``_fsdp_param``, ``_zero_pad_map``) are the JAX package's.
 
 Remat. ``BuildStrategy.remat_policy`` (or ``PDTPU_REMAT_POLICY`` on the
 plain executor) resolves to a :class:`RematSpec`. Consecutive ops tagged
@@ -28,10 +27,23 @@ the unit's boundary values, and the backward recomputes the unit.
 "minimal" saves the outputs of the matmuls inside a unit (the JAX
 package's ``dots_saveable``) and recomputes the rest; "full" saves
 nothing. Outside units, ``RematSpec.op_set`` checkpoints single ops.
+
+``BuildStrategy.remat_saveable_names`` (the JAX package's
+``save_only_these_names``): the named intermediates of a unit are kept
+and everything else in it is recomputed. Torch's selective checkpoint
+keys on aten ops, not program variables, so the unit's function marks
+the program ops that write a named value while they run
+(``saving_named``), and the unit's selective policy saves the results of
+the aten ops run under that mark and recomputes every other one. In the
+backward the marked ops take their saved results; the rest of the unit
+runs again (every op whose saved tensors the backward needs, a matmul
+that only saved its inputs too).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -111,6 +123,27 @@ def _dots_saveable(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+_NAMED = threading.local()
+
+
+@contextlib.contextmanager
+def saving_named():
+    """While a unit runs a program op that writes a ``saveable_names``
+    value, the aten ops it runs are saved (`_names_saveable`)."""
+    _NAMED.on = True
+    try:
+        yield
+    finally:
+        _NAMED.on = False
+
+
+def _names_saveable(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if getattr(_NAMED, "on", False)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 class RematSpec:
     """Resolved remat policy — what a training step actually does.
 
@@ -119,30 +152,32 @@ class RematSpec:
     - ``unit_policy``: None (no unit grouping) or a callable
       ``unit_name -> False | True | "minimal" | "full"`` deciding whether a
       `fluid.remat_unit(...)` block runs as one checkpointed region.
-    - ``saveable_names``: var names the JAX package keeps as residuals
-      inside units (``save_only_these_names``). Torch's selective
-      checkpoint keys on aten ops, not on program variables, so the port
-      refuses a spec that carries them (ROADMAP A9c).
+    - ``saveable_names``: var names kept as residuals inside units (the
+      JAX package's ``save_only_these_names``; see the module
+      docstring).
     - ``token``: hashable identity for the executor's plan keys.
     """
 
     __slots__ = ("op_set", "unit_policy", "saveable_names", "token")
 
     def __init__(self, op_set, unit_policy, saveable_names, token):
-        if saveable_names:
-            raise NotImplementedError(
-                "remat saveable_names is ROADMAP A9c: torch.utils."
-                "checkpoint's selective policy keys on aten ops, not "
-                "program variables")
         self.op_set = op_set
         self.unit_policy = unit_policy
         self.saveable_names = saveable_names
         self.token = token
 
-    def context_fn(self, unit_decision):
+    def context_fn(self, unit_decision, named=False):
         """``context_fn`` for ``torch.utils.checkpoint`` of one unit's
         decision, or None for the plain checkpoint ("full"/True: save
-        nothing, recompute the whole unit)."""
+        nothing, recompute the whole unit). `named`: the unit writes a
+        ``saveable_names`` value, whose policy wins (as in the JAX
+        package)."""
+        if named:
+            from torch.utils.checkpoint import \
+                create_selective_checkpoint_contexts
+
+            return functools.partial(create_selective_checkpoint_contexts,
+                                     _names_saveable)
         if unit_decision == "minimal":
             from torch.utils.checkpoint import \
                 create_selective_checkpoint_contexts
@@ -217,7 +252,8 @@ class BuildStrategy:
         # (unit_name -> bool|"minimal"|"full"); None defers to the legacy
         # `remat` knob. See resolve_remat().
         self.remat_policy = None
-        self.remat_saveable_names = None       # ROADMAP A9c in the port
+        # var names kept inside remat units (save_only_these_names)
+        self.remat_saveable_names = None
         self.sharding_strategy = ShardingStrategy.off
         self.sync_batch_norm = False
         self.num_trainers = 1
@@ -253,6 +289,8 @@ class CompiledProgram:
         self._strategy_remat = False
         self._strategy_remat_policy = None
         self._mesh_steps = {}  # the executor's MeshStep, by its key
+        # the epilogue programs' CompiledPrograms on this mesh, by id
+        self._epilogue_compiled = {}
         self.build_strategy: Optional[BuildStrategy] = None
         self.exec_strategy: Optional[ExecutionStrategy] = None
 

@@ -100,7 +100,7 @@ import torch
 import torch.utils.checkpoint as torch_checkpoint
 
 from . import registry
-from .compiler import CompiledProgram, resolve_remat
+from .compiler import CompiledProgram, resolve_remat, saving_named
 from .dtypes import dtype_str, from_numpy, to_device, to_numpy
 from .program import (REMAT_UNIT_ATTR, Block, Program, Variable,
                       default_main_program, grad_var_name)
@@ -690,18 +690,26 @@ def _run_region(region: _Region, env, ctx: ExecContext, spec):
     sub = copy.copy(ctx)
     sub._gen = sub_gen
 
+    named = frozenset(spec.saveable_names or ()) if len(region.ops) > 1 \
+        else frozenset()
+
     def fn(*vals):
         sub_gen.set_state(start)
         local = dict(zip(region.reads, vals))
         for op in region.ops:
-            _run_op(op, local, sub)
+            if named.intersection(op.output_names()):
+                # save_only_these_names: this op's results are kept
+                with saving_named():
+                    _run_op(op, local, sub)
+            else:
+                _run_op(op, local, sub)
         return tuple(local.get(n) for n in region.outs)
 
     vals = [env[n].detach() if n in region.nondiff
             and isinstance(env[n], torch.Tensor) else env[n]
             for n in region.reads]
     kw = {}
-    context_fn = spec.context_fn(region.decision)
+    context_fn = spec.context_fn(region.decision, bool(named))
     if context_fn is not None:
         kw["context_fn"] = context_fn
     outs = torch_checkpoint.checkpoint(fn, *vals, use_reentrant=False, **kw)
@@ -1031,7 +1039,8 @@ class Executor:
             return self._run(program._program, feed, fetch_list, scope,
                              return_numpy, return_handle,
                              spec=program._remat_spec(), probe=False,
-                             mesh=self._mesh_step(program))
+                             mesh=self._mesh_step(program),
+                             compiled=program)
         return self._run(program, feed, fetch_list, scope, return_numpy,
                          return_handle)
 
@@ -1043,10 +1052,6 @@ class Executor:
             return None
         from .mesh_step import MeshStep, mesh_key
 
-        if getattr(compiled._program, "_epilogue_programs", None):
-            raise NotImplementedError(
-                "the deferred-row fold on a data-parallel mesh is ROADMAP "
-                "A9c")
         key = (mesh_key(compiled), self.device)
         steps = compiled._mesh_steps
         step = steps.get(key)
@@ -1056,7 +1061,7 @@ class Executor:
         return step
 
     def _run(self, program, feed, fetch_list, scope, return_numpy,
-             return_handle, spec=None, probe=True, mesh=None):
+             return_handle, spec=None, probe=True, mesh=None, compiled=None):
         program = program or default_main_program()
         scope = scope or _scope()
         fetch_names = [f.name if isinstance(f, Variable) else f
@@ -1096,7 +1101,7 @@ class Executor:
             mesh.record_state_bytes()
         # maintenance epilogues (the deferred-row fold): every `every` runs
         # of this program, plain or through a CompiledProgram
-        self._advance_epilogues(program, scope, 1)
+        self._advance_epilogues(program, scope, 1, compiled)
         if flag("check_nan_inf"):
             # every fetched value and updated state var, checked on the
             # device; the host pays one scalar read unless it trips
@@ -1196,6 +1201,7 @@ class Executor:
         the scope (run the startup program first). Returns one stacked
         array (or tensor) of shape [N, ...] per fetch. Accepts a
         CompiledProgram (its build strategy's remat policy)."""
+        compiled = program if isinstance(program, CompiledProgram) else None
         program, spec, mesh = self._unwrap(program)
         feed_list = list(feed_list)
         if not feed_list:
@@ -1219,7 +1225,8 @@ class Executor:
                                    for fd in feed_list])
                    for k in sorted(keys0)}
         return self._run_scan(program, spec, stacked, len(feed_list),
-                              fetch_names, scope, return_numpy, mesh=mesh)
+                              fetch_names, scope, return_numpy, mesh=mesh,
+                              compiled=compiled)
 
     def _unwrap(self, program):
         """(Program, remat spec or None, mesh step or None) of a Program or
@@ -1230,7 +1237,8 @@ class Executor:
         return program or default_main_program(), None, None
 
     def _run_scan(self, program, spec, stacked, n, fetch_names, scope,
-                  return_numpy, site="Executor.run_batched", mesh=None):
+                  return_numpy, site="Executor.run_batched", mesh=None,
+                  compiled=None):
         """Run `n` steps over pre-stacked device feeds ``{name: [n, ...]}``.
 
         The shared engine behind `run_batched` (host feed lists) and
@@ -1260,7 +1268,7 @@ class Executor:
         for i, (every, eprog, meta) in enumerate(epilogues):
             pend, key, _ = self._epilogue_pending(program, scope, i, meta)
             if pend[key] + n > every:
-                self._run_epilogue(eprog, scope)
+                self._run_epilogue(eprog, scope, compiled)
                 pend[key] = 0
         state_names = self._state_names(program, scope)
         block = program.global_block()
@@ -1297,7 +1305,7 @@ class Executor:
                       compiled=compiling, steps=n)
         if mesh is not None and compiling:
             mesh.record_state_bytes()
-        self._advance_epilogues(program, scope, n)
+        self._advance_epilogues(program, scope, n, compiled)
         if return_numpy:
             return [to_numpy(y) for y in ys]
         return ys
@@ -1328,11 +1336,24 @@ class Executor:
             weakref.finalize(program, _purge_pending, pend, id(program))
         return pend, key, fresh
 
-    def _run_epilogue(self, eprog, scope):
-        """One device: the epilogue is a plain run of its program."""
-        self.run(eprog, scope=scope, return_numpy=False)
+    def _run_epilogue(self, eprog, scope, compiled=None):
+        """The epilogue is a plain run of its program on one device; under
+        a CompiledProgram with a mesh it runs through the same mesh, data
+        axis and ZeRO stage (its CompiledProgram cached on `compiled`), as
+        the JAX package's ``_run_epilogue`` does, so every rank folds the
+        same log into its copy of the table."""
+        if compiled is None or compiled._mesh is None:
+            self.run(eprog, scope=scope, return_numpy=False)
+            return
+        cache = compiled._epilogue_compiled
+        ecp = cache.get(id(eprog))
+        if ecp is None or ecp._program is not eprog:
+            ecp = cache[id(eprog)] = CompiledProgram(eprog).with_mesh(
+                compiled._mesh, data_axis=compiled._data_axis)
+        ecp.build_strategy.sharding_strategy = compiled._zero_stage()
+        self.run(ecp, scope=scope, return_numpy=False)
 
-    def _advance_epilogues(self, program, scope, steps: int):
+    def _advance_epilogues(self, program, scope, steps: int, compiled=None):
         """Count `steps` more runs of `program`; run each epilogue that
         reaches its interval. The count mirrors the deferred log's `count`
         state: both reset when the fold runs."""
@@ -1347,7 +1368,7 @@ class Executor:
                 # already includes these steps
                 pend[key] += steps
             if pend[key] >= every:
-                self._run_epilogue(eprog, scope)
+                self._run_epilogue(eprog, scope, compiled)
                 pend[key] = 0
 
     def train_scanned(self, program=None, reader=None, scan_steps: int = 16,
@@ -1373,6 +1394,7 @@ class Executor:
         `fetch_list` is empty."""
         from ..dataio.loader import DeviceLoader
 
+        compiled = program if isinstance(program, CompiledProgram) else None
         program, spec, mesh = self._unwrap(program)
         if reader is None:
             raise ValueError("train_scanned: a reader (callable returning "
@@ -1399,7 +1421,8 @@ class Executor:
                     break
                 ys = self._run_scan(program, spec, stacked, m, fetch_names,
                                     scope, return_numpy=False,
-                                    site="Executor.train_scanned", mesh=mesh)
+                                    site="Executor.train_scanned", mesh=mesh,
+                                    compiled=compiled)
                 total += m
                 if pending is not None:
                     drains.append([to_numpy(y) for y in pending])

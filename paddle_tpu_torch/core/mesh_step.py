@@ -91,12 +91,22 @@ rank's query rows at once.
   optimizer state of the same shape that their update ops read, live as
   this rank's slice: a whole value in the scope (a startup, a restore) is
   sliced at load, and the step stores a ``DTensor`` with a ``Shard(d)``
-  placement on each of their mesh dims. ZeRO does not touch them (the JAX
-  package's ``_fsdp_param`` and ``shard_grad`` skip them too); their
-  gradients are summed over the data axis only. A spec that names the
-  data axis is ZeRO stage 3 for its parameter on the spec's dim, at any
-  stage: stored sharded, gathered whole at first use, its gradient
-  reduce-scattered and kept as a shard, its update run on the shard. A
+  placement on each of their mesh dims. ZeRO leaves the parameters as
+  they are (the JAX package's ``_fsdp_param`` and ``shard_grad`` skip them
+  too) and their gradients are summed over the data axis only. At stage
+  ≥ 1 their optimizer state is also cut over the data axis between steps,
+  along the largest dim of the slice that no other axis cuts and the
+  axis divides (``tpz``: 1/(dp·tp) a rank; the JAX package holds that
+  state at 1/dp). The step keeps that part (``zpart``): an elementwise
+  update runs on it, the parameter's and gradient's slices cut to this
+  rank's part beside it, and the updated parameter's part is all-gathered
+  over the data axis back to its slice, so the numbers are stage off's
+  and only the parameter crosses the wire; any other op that reads a part
+  gets it gathered to the slice. A spec
+  that names the data axis is ZeRO stage 3 for its parameter on the
+  spec's dim, at any stage: stored sharded, gathered whole at first use,
+  its gradient reduce-scattered and kept as a shard, its update run on
+  the shard. A
   spec naming an axis the mesh lacks, or a dim its axis does not divide,
   raises ValueError, as the JAX package's placement does.
 - **Ops.** Before an op runs, a P input is summed over the tp group
@@ -533,6 +543,11 @@ class MeshStep:
         self.tp_state = {n: d for n, cuts in self.sliced.items()
                          for ax, d in cuts if ax is self.tpx}
         self.owner = self._stage_owner()  # name -> its pp coordinate
+        # sliced optimizer state that ZeRO also shards over the data axis:
+        # name -> the dim of this rank's slice it is cut along
+        self.tpz = self._sliced_zero(compiled)
+        self.dpx = collections.namedtuple("DataAxis", "name size")(
+            self.axis, self.size)
         compiled._zero_pad_map()  # records program._zero_padded
         self.stored: Dict[str, _Plan] = {}   # sharded between steps
         self.param_plan: Dict[str, _Plan] = {}  # update / reduction layout
@@ -633,6 +648,32 @@ class MeshStep:
                         else:
                             on_dp[n] = on_dp[ps[0]]
         return sliced, on_dp
+
+    def _sliced_zero(self, compiled) -> Dict[str, int]:
+        """{name: dim}: the sliced persistables that the ZeRO stage shards
+        (optimizer state, as ``compiled._zero_plan`` decides for a whole
+        leaf) with a dim of this rank's slice that the data axis divides
+        and no model or sequence axis cuts (the largest such dim). Each
+        rank then holds 1/(dp·tp) of them, between steps and through the
+        update (``_parts_before``)."""
+        out: Dict[str, int] = {}
+        if self.group is None or self.size == 1:
+            return out
+        block = self.program.global_block()
+        for n, cuts in self.sliced.items():
+            var = block._find_var_recursive(n)
+            if var is None or n in self.owner or \
+                    compiled._zero_plan(var) is None:
+                continue
+            shape = [int(d) for d in var.shape]
+            for ax, d in cuts:
+                shape[d] //= ax.size
+            cut = {d for _, d in cuts}
+            dims = [i for i, d in enumerate(shape)
+                    if i not in cut and d % self.size == 0]
+            if dims:
+                out[n] = max(dims, key=lambda i: shape[i])
+        return out
 
     def _stage_owner(self) -> Dict[str, int]:
         """{name: pp coordinate} of every persistable one pipeline stage
@@ -740,6 +781,11 @@ class MeshStep:
         # rows) of this rank, the inputs it took out of `batch`), and the
         # global values whose dim 0 is the whole batch -> that triple
         self.gathered: Dict[int, tuple] = {}
+        # ``tpz``: env names holding this rank's part over the data axis of
+        # their slice -> the dim; update op -> (that dim, the slices of
+        # non-tpz persistables it read, cut for it)
+        self.zpart: Dict[str, int] = {}
+        self.pmode: Dict[int, tuple] = {}
         self.whole_rows: Dict[str, tuple] = {}
         self.gens: Dict[int, object] = {}   # op -> the generator it swapped
 
@@ -829,7 +875,10 @@ class MeshStep:
             if held[1].data_ptr() != local.data_ptr():
                 held[1].copy_(local)
             return
-        dt = self.sliced_dtensor(local, self.sliced[name])
+        cuts = list(self.sliced[name])
+        if name in self.tpz:
+            cuts.append((self.dpx, self.tpz[name]))
+        dt = self.sliced_dtensor(local, cuts)
         scope.set_var(name, dt)
         self._held[name] = (dt, dt.to_local())
 
@@ -861,13 +910,15 @@ class MeshStep:
         return DTensor.from_local(local, self.mesh, place, run_check=False,
                                   shape=torch.Size(shape), stride=stride)
 
-    def _fits(self, v, cuts) -> bool:
+    def _fits(self, v, cuts, zd=None) -> bool:
         """Whether a scope ``DTensor`` holds this rank's slices of `cuts`
-        as its local tensor."""
+        (and its part along `zd` over the data axis) as its local
+        tensor."""
         if not is_dtensor(v):
             return False
         names = list(self.mesh.mesh_dim_names)
         local = v.to_local()
+        cuts = list(cuts) + ([(self.dpx, zd)] if zd is not None else [])
         for ax, d in cuts:
             place = v.placements[names.index(ax.name)]
             if (not place.is_shard(d)
@@ -987,16 +1038,21 @@ class MeshStep:
                 for ax, d in cuts:
                     ax.lay[n] = d
                 held = self._held.get(n)
+                zd = self.tpz.get(n)
                 if held is not None and v is held[0]:
                     env[n] = held[1]
-                elif self._fits(v, cuts):
+                elif self._fits(v, cuts, zd):
                     env[n] = to_device(v.to_local(), self.device)
                 else:
                     full = to_device(logical_value(self.program, n, v),
                                      self.device)
                     for ax, d in cuts:
                         full = ax.slice(full, d)
+                    if zd is not None:
+                        full = full.chunk(self.size, zd)[self.rank]
                     env[n] = full.contiguous()
+                if zd is not None:  # this rank's part of the slice
+                    self.zpart[n] = zd
                 continue
             plan = self.stored.get(n)
             held = self._held.get(n)
@@ -1154,6 +1210,9 @@ class MeshStep:
         if not self.after_ad:
             if self.fsdp:
                 self.gather_params(op.input_names(), env, ctx)
+            for n in op.input_names():
+                if n in self.zpart:
+                    env[n] = gathered(env[n], self.zpart.pop(n), self.group)
             spec = self._spec(op, env)
             if spec is not None:
                 self.spec[id(op)] = spec
@@ -1183,6 +1242,13 @@ class MeshStep:
             return
         if id(op) in self.mixing:
             self._from_stages(op, env)
+        if self.batch and any(n in self.batch for n in op.input_names()):
+            # an update that reads a rank's rows (the deferred-row ops read
+            # the lookup's rows beside the gradient's global ids): the rows
+            # gathered whole in rank order, the SelectedRows gradient's order
+            self._gather_whole(op, env)
+        if self.zpart:
+            self._parts_before(op, env)
         if any(ax.lay for ax in self.axes) and self._axes_update(op, env):
             return
         names = op.input_names()
@@ -1201,6 +1267,58 @@ class MeshStep:
                 if n in self.local:
                     env[n] = self.gather(env[n], self.local.pop(n))
             self.mode[id(op)] = "whole"
+
+    def _parts_before(self, op, env):
+        """An update op that reads a part over the data axis (``zpart``):
+        elementwise, with every other input of more than one element the
+        parts' slice shape, it runs on the parts, those inputs cut to this
+        rank's part (``after_op`` gathers the parameters it writes back to
+        their slices); any other op gets the parts gathered to slices."""
+        names = op.input_names()
+        dims = {self.zpart[n] for n in names if n in self.zpart}
+        if not dims:
+            return
+        if op.type in _ELEMENTWISE and len(dims) == 1:
+            zd = dims.pop()
+            part = next(env[n] for n in names if n in self.zpart)
+            shape = list(part.shape)
+            shape[zd] *= self.size
+            cut = [n for n in names if n not in self.zpart
+                   and isinstance(env.get(n), torch.Tensor)
+                   and env[n].numel() > 1]
+            if all(list(env[n].shape) == shape for n in cut):
+                kept = {}
+                for n in cut:
+                    if n in self.sliced:
+                        kept[n] = env[n]
+                    env[n] = env[n].chunk(self.size, zd)[self.rank] \
+                        .contiguous()
+                    self.zpart[n] = zd
+                self.pmode[id(op)] = (zd, kept)
+                return
+        for n in names:
+            if n in self.zpart:
+                env[n] = gathered(env[n], self.zpart.pop(n), self.group)
+
+    def _parts_after(self, op, env):
+        """After an update on parts: a non-tpz persistable it wrote is
+        all-gathered over the data axis to its slice, one it only read
+        gets its slice back; tpz state and new values stay parts."""
+        zd, kept = self.pmode.pop(id(op))
+        outs = op.output_names()
+        for n in outs:
+            v = env.get(n)
+            if not isinstance(v, torch.Tensor):
+                continue
+            if n in self.sliced and n not in self.tpz:
+                env[n] = gathered(v, zd, self.group)
+                self.zpart.pop(n, None)
+            else:
+                self.zpart[n] = zd
+        for n, v in kept.items():
+            if n not in outs:
+                env[n] = v
+                self.zpart.pop(n, None)
 
     def _elementwise_ok(self, op, env) -> bool:
         """All planned inputs share one plan; every other tensor input is
@@ -1240,6 +1358,15 @@ class MeshStep:
                 if spec == ROWS or slot not in spec:
                     self.batch.update(outs)
             return
+        undo = self.gathered.pop(id(op), None)
+        if undo is not None:  # the update's rows back to this rank's
+            outs = op.output_names()
+            for n, v in undo[0].items():
+                if n not in outs:
+                    env[n] = v
+                    self.batch.add(n)
+        if id(op) in self.pmode:
+            self._parts_after(op, env)
         mode = self.mode.get(id(op))
         if isinstance(mode, tuple):  # ("tp", [(axis, dim or None)])
             ins = op.input_names()
@@ -1497,6 +1624,8 @@ class MeshStep:
                 for ax, d in self.sliced[n]:
                     if ax.lay.get(n) != d:
                         v = ax.slice(v, d)
+                if n in self.tpz and n not in self.zpart:
+                    v = v.chunk(self.size, self.tpz[n])[self.rank]
                 new_state[n] = v
                 self._store_sliced(scope, n, v.contiguous())
             elif plan is not None and n in self.stored:
@@ -1520,6 +1649,8 @@ class MeshStep:
         fetches = []
         for n in fetch_names:
             v = env[n]
+            if n in self.zpart:  # the slice, then the whole
+                v = gathered(v.detach(), self.zpart[n], self.group)
             for ax in self.axes:
                 v = ax.whole(v, n)
             if n in self.local:

@@ -7,9 +7,9 @@ QueueDataset:613 streaming) over the C++ MultiSlotDataFeed/Dataset
 (framework/data_set.cc, data_feed.cc).
 
 The native C++ loader (paddle_tpu_torch/native) does threaded file
-parsing into a blocking queue. ``global_shuffle`` runs in one process
-here: the cross-trainer record exchange of the JAX package comes with
-the multi-process work (ROADMAP A9c).
+parsing into a blocking queue. ``global_shuffle`` across trainers routes
+each record to a rank of the ``torch.distributed`` group over the TCP
+all-to-all of ``shuffle_service`` (the JAX package's routing).
 """
 from __future__ import annotations
 
@@ -155,22 +155,42 @@ class InMemoryDataset(QueueDataset):
         records a trainer never loaded can land on it — the true cross-
         trainer semantics, not a local partition. Collective contract: all
         trainers must call global_shuffle together (as in the reference).
+        The trainers are the ranks of the ``torch.distributed`` group; the
+        routing is the JAX package's (an md5 of the pickled record, its
+        position, the rank and the epoch), so the same records on the same
+        ranks land where they land there.
 
-        One process (the port today) keeps the hash-mod shard of a
-        deterministic permutation (no network hop, same statistics); the
-        multi-trainer exchange comes with ROADMAP A9c and raises until
-        then."""
+        Single-process falls back to keeping the hash-mod shard of a
+        deterministic permutation (no network hop, same statistics)."""
         if self._memory is None:
             raise RuntimeError("call load_into_memory() first")
         import torch.distributed as dist
         nranks, rank = 1, 0
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "InMemoryDataset.global_shuffle across trainers (the JAX "
-                "package's shuffle service) is not ported yet (ROADMAP A9c)")
+        if dist.is_available() and dist.is_initialized():
+            nranks, rank = dist.get_world_size(), dist.get_rank()
         self._shuffle_epoch = getattr(self, "_shuffle_epoch", 0) + 1
         rng = random.Random(12345 + self._shuffle_epoch)
+        if nranks > 1:
+            import hashlib
+            import pickle
+
+            from .shuffle_service import exchange_records
+            # deterministic routing (md5, not the per-process-salted
+            # builtin hash) keyed by (content, local position, epoch) —
+            # duplicates spread instead of piling onto one trainer, and a
+            # relaunched job reproduces the same distribution
+            buckets = [[] for _ in range(nranks)]
+            for i, rec in enumerate(self._memory):
+                digest = hashlib.md5(
+                    pickle.dumps((rec, i, rank, self._shuffle_epoch),
+                                 protocol=4)).digest()
+                h = int.from_bytes(digest[:8], "little")
+                buckets[h % nranks].append(rec)
+            self._memory = exchange_records(buckets, rank, nranks)
+            rng = random.Random(12345 + self._shuffle_epoch + rank)
+            rng.shuffle(self._memory)
+            self._sharded = True
+            return
         if not getattr(self, "_sharded", False):
             order = list(range(len(self._memory)))
             rng.shuffle(order)

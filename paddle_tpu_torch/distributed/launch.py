@@ -23,20 +23,25 @@ import sys
 import time
 
 
+def trainer_env(rank: int, nproc: int, started_port: int = 6170) -> dict:
+    """The variables the launcher gives trainer `rank` of `nproc` (the
+    reference names; ``parallel.init_parallel_env`` and the role makers
+    read them)."""
+    endpoints = ",".join(f"127.0.0.1:{started_port + i}" for i in range(nproc))
+    return {"PADDLE_TRAINER_ID": str(rank),
+            "PADDLE_TRAINERS_NUM": str(nproc),
+            "PADDLE_TRAINER_ENDPOINTS": endpoints,
+            "PADDLE_CURRENT_ENDPOINT": endpoints.split(",")[rank],
+            "FLAGS_selected_gpus": str(rank)}
+
+
 def start_procs(nproc: int, training_script: str, script_args,
                 started_port: int = 6170, log_dir: str | None = None):
-    endpoints = ",".join(f"127.0.0.1:{started_port + i}" for i in range(nproc))
     procs = []
     log_fds = []
     for rank in range(nproc):
         env = dict(os.environ)
-        env.update({
-            "PADDLE_TRAINER_ID": str(rank),
-            "PADDLE_TRAINERS_NUM": str(nproc),
-            "PADDLE_TRAINER_ENDPOINTS": endpoints,
-            "PADDLE_CURRENT_ENDPOINT": endpoints.split(",")[rank],
-            "FLAGS_selected_gpus": str(rank),
-        })
+        env.update(trainer_env(rank, nproc, started_port))
         cmd = [sys.executable, "-u", training_script] + list(script_args)
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)

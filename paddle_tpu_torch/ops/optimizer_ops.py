@@ -28,6 +28,10 @@ bitwise equal to its ops run one by one, on the CPU and on the card.
 """
 from __future__ import annotations
 
+import functools
+import math
+
+import numpy as np
 import torch
 
 from ..core.registry import register_op
@@ -334,3 +338,143 @@ def _ftrl(ctx, inputs, attrs):
                         torch.zeros_like(p))
     return {"ParamOut": [p_out], "SquaredAccumOut": [new_sq],
             "LinearAccumOut": [lin_out]}
+
+
+# -- DGC momentum --------------------------------------------------------------
+
+_DGC_CONSTS = {}  # (values, dtype, device) -> a small device tensor
+
+
+def _dgc_const(values, dtype, device):
+    key = (tuple(values), dtype, str(device))
+    t = _DGC_CONSTS.get(key)
+    if t is None:
+        t = _DGC_CONSTS[key] = torch.tensor(list(values), dtype=dtype,
+                                            device=device)
+    return t
+
+
+def top_k_set(absflat: torch.Tensor, k: int) -> torch.Tensor:
+    """The bool mask of ``lax.top_k(absflat, k)``'s index set: the k largest
+    values, ties at the k-th value going to the lower indices.
+    ``torch.topk`` gives the k-th value exactly but picks tied entries in
+    no promised order, so the set is rebuilt from that value: every entry
+    above it, then the first equal ones (a running count). No host
+    read."""
+    t = torch.topk(absflat, k).values[-1]
+    gt = absflat > t
+    eq = absflat == t
+    need = k - gt.sum()
+    return gt | (eq & (torch.cumsum(eq, 0) <= need))
+
+
+def top_k_order(absflat: torch.Tensor, k: int) -> torch.Tensor:
+    """``lax.top_k(absflat, k)``'s indices in its order: value descending,
+    ties by the lower index. The set from `top_k_set`, compacted in index
+    order by one scatter, then a stable sort of its k values."""
+    n = absflat.shape[0]
+    chosen = top_k_set(absflat, k)
+    pos = torch.cumsum(chosen, 0) - 1
+    buf = torch.empty(k + 1, dtype=torch.int64, device=absflat.device)
+    buf.scatter_(0, torch.where(chosen, pos, k),
+                 torch.arange(n, device=absflat.device))
+    ci = buf[:k]
+    order = torch.sort(absflat[ci], descending=True, stable=True).indices
+    return ci[order]
+
+
+@functools.lru_cache(maxsize=None)
+def _dgc_keep_counts(sparsity, n, k):
+    """How many of the k ranked candidates each stage keeps: the JAX
+    function's ``rank < max(1, ratio·n)`` over ``arange(k)``, with the
+    ratios and the product in float32 as it computes them (the ranks
+    below 2^24 are exact in float32, so the count is the cut's
+    ceiling)."""
+    out = []
+    for s in sparsity:
+        cut = max(np.float32(1.0), np.float32(1.0 - s) * np.float32(n))
+        out.append(min(k, math.ceil(float(cut))))
+    return tuple(out)
+
+
+@register_op("dgc_momentum", differentiable=False)
+def _dgc_momentum(ctx, inputs, attrs):
+    """DGC momentum (reference optimizer.py:799 math, the JAX package's
+    ``dgc_momentum``): momentum-correct into the send buffer, top-k select
+    with error feedback, sparse parameter update. Dense momentum until
+    rampup_begin_step (bitwise the ``momentum`` op); sparsity then steps
+    through attrs['sparsity'] over rampup_step steps. The candidates are
+    the LOOSEST sparsity's k, ranked as ``lax.top_k`` ranks them; each
+    stage keeps its leading ``max(1, ratio·n)``; after the rampup the
+    final sparsity's k_final. The stage comes from the float ``Step``
+    accumulator on the device: no host read.
+
+    On a mesh the update needs the whole parameter (a top-k over a shard
+    picks other entries): the mesh step runs every update op that is not
+    elementwise on its inputs gathered whole and cuts its outputs back
+    to the stored layout (``core/mesh_step.py``), so a ZeRO shard or a tp
+    slice of Param, Grad, Velocity and Residual is made whole first."""
+    (p,) = inputs["Param"]
+    (g,) = inputs["Grad"]
+    (v,) = inputs["Velocity"]
+    (r,) = inputs["Residual"]
+    (step,) = inputs["Step"]
+    mu = attrs["mu"]
+    lr = _lr(inputs)
+    sparsity = list(attrs.get("sparsity", [0.999]))
+    rampup_begin = attrs.get("rampup_begin_step", 0)
+    rampup_step = max(1, attrs.get("rampup_step", 1))
+    g = g.to(p.dtype)
+    s = step.reshape(())
+    dense_phase = s < rampup_begin
+
+    # DGC local gradient clipping, sparse phase only (the dense rampup is
+    # exactly plain momentum); clip_norm=0 disables
+    clip = attrs.get("clip_norm", 1.0)
+    if clip:
+        gn = torch.sqrt(torch.sum(g.float() ** 2))
+        factor = torch.clamp(clip / (gn + 1e-12), max=1.0)
+        g = torch.where(dense_phase, g, (g * factor).to(p.dtype))
+
+    # momentum correction: local momentum feeds the send buffer
+    v_out = mu * v + g
+    u = r + v_out
+    flat = u.reshape(-1)
+    n = flat.shape[0]
+    k = max(1, int(n * (1.0 - min(sparsity))))
+    k_final = max(1, int(n * (1.0 - sparsity[-1])))
+    counts = _dgc_keep_counts(tuple(sparsity), n, k)
+    per = max(1, rampup_step // max(1, len(sparsity)))
+    absflat = flat.abs()
+    if min(counts) >= k and k_final == k:
+        # every stage keeps all k candidates: the set alone decides
+        mask = top_k_set(absflat, k).to(p.dtype)
+    else:
+        stage = torch.clamp(torch.div(s - rampup_begin, per,
+                                      rounding_mode="floor"),
+                            0, len(sparsity) - 1).long()
+        m = _dgc_const(counts, torch.int64, flat.device)[stage]
+        if k_final != k:
+            # after the rampup: the final sparsity's top k_final
+            m = torch.where(s < rampup_begin + rampup_step, m,
+                            torch.clamp(m, max=k_final))
+        idx = top_k_order(absflat, k)
+        keep = (torch.arange(k, device=flat.device) < m).to(p.dtype)
+        mask = torch.zeros_like(flat).index_put_((idx,), keep)
+    mask = torch.where(dense_phase, torch.ones_like(mask), mask)
+    sparse = (flat * mask).reshape(p.shape)
+    r_out = (flat * (1.0 - mask)).reshape(p.shape)
+
+    # momentum factor masking: clear the velocity at the sent positions
+    # (the dense phase keeps the full velocity)
+    vel_keep = torch.where(dense_phase, torch.ones_like(mask), 1.0 - mask)
+    v_out = (v_out.reshape(-1) * vel_keep).reshape(p.shape)
+
+    if attrs.get("use_nesterov", False):
+        # the dense phase is the momentum op's Nesterov, p − lr·(g + mu·v');
+        # the sparse phase applies the selected mass only
+        p_out = p - lr * torch.where(dense_phase, g + mu * v_out, sparse)
+    else:
+        p_out = p - lr * sparse
+    return {"ParamOut": [p_out], "VelocityOut": [v_out],
+            "ResidualOut": [r_out], "StepOut": [step + 1]}

@@ -19,8 +19,8 @@ dygraph path is not ported.
 Also here, as in the JAX package: LarsMomentum, DecayedAdagrad, Adadelta,
 RMSProp, Adamax and Ftrl; GradientMergeOptimizer and LookaheadOptimizer,
 whose predicated parts run in a ``conditional_block``; ModelAverage (the
-JAX package's stub, copied as it is) and ExponentialMovingAverage. DGC
-momentum is not ported (ROADMAP A9c). PipelineOptimizer is the JAX
+JAX package's stub, copied as it is), ExponentialMovingAverage and
+DGCMomentumOptimizer (the ``dgc_momentum`` op). PipelineOptimizer is the JAX
 package's program transform, copied as it is: it cuts the program into
 ``pipeline``/``pipeline_hetero`` ops (``ops/pipeline_ops.py``).
 """
@@ -407,6 +407,62 @@ class MomentumOptimizer(Optimizer):
                     "LearningRate": [self._lr_var.name]},
             outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
             attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
+class DGCMomentumOptimizer(MomentumOptimizer):
+    """Deep Gradient Compression momentum (reference optimizer.py:799 +
+    sparse_all_reduce_op_handle.cc, the JAX package's program path).
+
+    Emits a `dgc_momentum` op per parameter implementing the reference's
+    update on the global gradient: momentum correction (u = mu·u + g;
+    v += u), top-k selection with error feedback (the unsent mass of v
+    carries over), and the sparse update p -= lr·topk(v). Before
+    `rampup_begin_step` it behaves as dense momentum; sparsity then ramps
+    through `sparsity` over `rampup_step` steps (reference schedule).
+
+    On a mesh the mesh step sums the gradients over the data axis before
+    the update, and the op runs on the whole parameter, so the
+    sparsification applies to the GLOBAL gradient, as in the JAX package;
+    the wire-level sparse exchange is the functional
+    ``paddle_tpu_torch.parallel.dgc`` transforms (dgc_allreduce /
+    sparse_allgather_exchange). ``dgc_step`` is a float [1] accumulator of
+    the parameter's dtype, as in the JAX package, so a checkpoint crosses
+    between the packages."""
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step=0,
+                 rampup_step=1, sparsity=(0.999,), use_nesterov=False,
+                 clip_norm=1.0, **kw):
+        super().__init__(learning_rate, momentum,
+                         use_nesterov=use_nesterov, **kw)
+        self.type = "dgc_momentum"
+        self._rampup_begin = int(rampup_begin_step)
+        self._rampup_step = max(1, int(rampup_step))
+        self._sparsity = list(sparsity)
+        self._clip_norm = float(clip_norm)  # 0 disables the local clip
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+            self._add_accumulator("dgc_residual", p)
+            self._add_accumulator("dgc_step", p, shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        r = self._get_accumulator("dgc_residual", p)
+        step = self._get_accumulator("dgc_step", p)
+        return block.append_op(
+            type="dgc_momentum",
+            inputs={"Param": [p.name], "Grad": [g.name], "Velocity": [v.name],
+                    "Residual": [r.name], "Step": [step.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name],
+                     "ResidualOut": [r.name], "StepOut": [step.name]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   "rampup_begin_step": self._rampup_begin,
+                   "rampup_step": self._rampup_step,
+                   "sparsity": self._sparsity,
+                   "clip_norm": self._clip_norm})
 
 
 class _AdamLike(Optimizer):

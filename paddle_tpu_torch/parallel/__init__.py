@@ -4,10 +4,9 @@ the process group (``env``), meshes (``mesh``), collectives
 (``ring_attention``), Megatron tensor-parallel rules
 (``tensor_parallel``), Mixture-of-Experts with expert parallelism
 (``moe``), pipelines (``pipeline``: GPipe, 1F1B and heterogeneous
-stages over a ``pp`` axis) and checkpoints (``checkpoint``).
-
-The fleet API, local SGD and DGC (``fleet``, ``local_sgd``, ``dgc``) are
-ROADMAP A9c. Their names raise ``NotImplementedError`` naming the item.
+stages over a ``pp`` axis), checkpoints (``checkpoint``), local SGD with
+one replica a rank (``local_sgd``), Deep Gradient Compression's
+exchanges (``dgc``) and the fleet API with its role makers (``fleet``).
 """
 from .checkpoint import (  # noqa: F401
     Checkpointer, load_checkpoint, save_checkpoint)
@@ -19,7 +18,11 @@ from .collective import (  # noqa: F401
     broadcast,
     reduce_scatter,
 )
+from .dgc import (dgc_allreduce, sparse_allgather_exchange,  # noqa: F401
+                  top_k_sparsify)
 from .env import get_rank, get_world_size, init_parallel_env  # noqa: F401
+from .local_sgd import (average_params, local_sgd_step,  # noqa: F401
+                        replicate_params)
 from .moe import (init_moe_params, moe_ffn,  # noqa: F401
                   moe_ffn_expert_parallel, top_k_gating)
 from .mesh import (DistributedStrategy, auto_mesh, make_mesh,  # noqa: F401
@@ -32,21 +35,6 @@ from .tensor_parallel import (DEEPFM_RULES, MEGATRON_RULES,  # noqa: F401
                               NMT_RULES, annotate_tp, annotate_tp_auto,
                               derive_tp_specs, embedding_shard_spec)
 
-_DEFERRED = {
-    "A9c": ("dgc_allreduce", "sparse_allgather_exchange", "top_k_sparsify",
-            "average_params", "local_sgd_step", "replicate_params"),
-}
-
-
-def __getattr__(name):
-    for item, names in _DEFERRED.items():
-        if name in names:
-            raise NotImplementedError(
-                f"paddle_tpu_torch.parallel.{name} is not ported yet "
-                f"(ROADMAP {item})")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = ["Checkpointer", "load_checkpoint", "save_checkpoint",
            "all_gather", "all_reduce", "all_to_all", "barrier", "broadcast",
            "reduce_scatter", "get_rank", "get_world_size",
@@ -56,4 +44,6 @@ __all__ = ["Checkpointer", "load_checkpoint", "save_checkpoint",
            "NMT_RULES", "DEEPFM_RULES", "annotate_tp", "annotate_tp_auto",
            "derive_tp_specs", "embedding_shard_spec", "init_moe_params",
            "moe_ffn", "moe_ffn_expert_parallel", "top_k_gating", "GPipe",
-           "pipeline_step", "pipeline_1f1b", "pipeline_hetero"]
+           "pipeline_step", "pipeline_1f1b", "pipeline_hetero",
+           "dgc_allreduce", "sparse_allgather_exchange", "top_k_sparsify",
+           "average_params", "local_sgd_step", "replicate_params"]

@@ -221,6 +221,14 @@ _IMG = _r(2, 4, 8, 8)
 _CONV_W = _r(6, 4, 3, 3, seed=1, scale=0.3)
 _BN_IN = {"Scale": [_pos(6, seed=2)], "Bias": [_r(6, seed=3)],
           "Mean": [_r(6, seed=4, scale=0.1)], "Variance": [_pos(6, seed=5)]}
+def _dgc_in(step):
+    """dgc_momentum's inputs at float step `step` (a [1] accumulator)."""
+    return {"Param": [X34], "Grad": [_r(3, 4, seed=1)],
+            "Velocity": [_r(3, 4, seed=2, scale=0.1)],
+            "Residual": [_r(3, 4, seed=3, scale=0.1)],
+            "Step": [np.float32([step])], "LearningRate": [_LR]}
+
+
 _VEL_IN = {"Param": [X34], "Grad": [_r(3, 4, seed=1)],
            "Velocity": [_r(3, 4, seed=2, scale=0.1)], "LearningRate": [_LR]}
 CASES += [
@@ -262,6 +270,20 @@ CASES += [
     ("momentum", "momentum", _VEL_IN, {"mu": 0.9}),
     ("momentum_nesterov", "momentum", _VEL_IN,
      {"mu": 0.9, "use_nesterov": True}),
+    # dgc_momentum: the dense phase (step 0 < 2), the sparse phase with the
+    # local clip and Nesterov, and a rampup of two stages (loose k, then
+    # the final k after the rampup)
+    ("dgc_momentum_dense", "dgc_momentum", _dgc_in(0.0),
+     {"mu": 0.9, "rampup_begin_step": 2, "sparsity": [0.75]}),
+    ("dgc_momentum_sparse_nesterov", "dgc_momentum", _dgc_in(3.0),
+     {"mu": 0.9, "rampup_begin_step": 2, "sparsity": [0.75],
+      "use_nesterov": True, "clip_norm": 0.5}),
+    ("dgc_momentum_rampup", "dgc_momentum", _dgc_in(2.0),
+     {"mu": 0.9, "rampup_begin_step": 2, "rampup_step": 4,
+      "sparsity": [0.5, 0.9], "clip_norm": 0.0}),
+    ("dgc_momentum_after_rampup", "dgc_momentum", _dgc_in(9.0),
+     {"mu": 0.9, "rampup_begin_step": 2, "rampup_step": 4,
+      "sparsity": [0.5, 0.9], "clip_norm": 0.0}),
     ("top_k", "top_k", {"X": [_r(4, 7)]}, {"k": 3}),
     # ties: the lower index first, as lax.top_k orders them
     ("top_k_ties", "top_k",

@@ -20,8 +20,8 @@ atol 1e-5; bf16 inputs rtol 0.1, atol 0.05), plus what the port adds:
   their parts in another order than one device sums the batch);
 - dropout under a data axis: every rank draws its own masks;
 - the mesh surface: with_mesh on a dp axis, run_batched with a mesh, the
-  dims that compute replicated and what is left for ROADMAP A9c raising
-  naming the item;
+  dims that compute replicated, the JAX package's own refusals, and the
+  parallel module's DGC and local-SGD names;
 - ops across the batch dim: a step on each rank's rows equals the plain
   run's.
 """
@@ -258,8 +258,9 @@ def test_with_mesh_dp_axis_and_run_batched(worlds):
 def test_mesh_surface_raises_naming_the_item(worlds):
     """An sp dim without seq_axis, a pp dim without pipeline ops and an ep
     dim beside the data axis compute replicated: a step on each rank's
-    rows has the plain run's loss. What is left of ROADMAP A9 (A9c) and
-    the JAX package's own refusals raise naming the item."""
+    rows has the plain run's loss. The JAX package's own refusals raise
+    naming the item; ``parallel.top_k_sparsify`` equals the JAX
+    package's, ties included."""
     got = worlds().run("surface")[0]
     for label in ("seq_axis", "pp", "ep"):
         assert isinstance(got[label], float), (label, got[label])
@@ -268,11 +269,20 @@ def test_mesh_surface_raises_naming_the_item(worlds):
     assert "RuntimeError" in got["places"] and "distributed.launch" in got[
         "places"]
     assert "gradient_merge_steps" in got["gm"]
+    import jax.numpy as jnp
+
+    from paddle_tpu.parallel import top_k_sparsify as jtop
     from paddle_tpu_torch import parallel
 
     assert callable(parallel.GPipe)
-    with pytest.raises(NotImplementedError, match="A9c"):
-        parallel.local_sgd_step  # noqa: B018
+    # top-k with error feedback, ties at the k-th value to the lower index
+    g = np.random.RandomState(4).randn(64).astype("float32")
+    g[[3, 17, 40, 41, 50]] = 2.5
+    sparse, resid = parallel.top_k_sparsify(torch.from_numpy(g), 0.0625)
+    jsparse, jresid = jtop(jnp.asarray(g), 0.0625)
+    np.testing.assert_array_equal(sparse.numpy(), np.asarray(jsparse))
+    np.testing.assert_array_equal(resid.numpy(), np.asarray(jresid))
+    assert callable(parallel.local_sgd_step)
 
 
 def _zero_mlp_state():

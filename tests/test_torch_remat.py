@@ -13,8 +13,8 @@ recompute), and to the run without remat. The tiny-BERT parity test holds
 "minimal" to the JAX package's "minimal" at test_torch_training.py's f32
 tolerances (losses rtol 1e-4; gradients rtol 1e-4, atol 1e-6).
 `test_stage3_*` are twinned on 4 ranks in test_torch_zero_sharding.py;
-`saveable_names` (ROADMAP A9c) and a sequence axis on `with_mesh` (A9b)
-raise."""
+`saveable_names` (kept named values, the rest recomputed) is held to the
+run without remat bitwise here and in test_torch_cluster.py."""
 import numpy as np
 import pytest
 import torch
@@ -308,10 +308,10 @@ def test_tiny_bert_minimal_matches_jax(monkeypatch):
 
 
 def test_multi_device_surface_raises_naming_a9():
-    """What is left of ROADMAP A9 raises naming its item (A9c: remat
-    saveable_names); an sp dim without seq_axis computes replicated, as
-    in the JAX package (checked on a stand-in for a mesh's named dims, as
-    with_mesh reads them: no model, sequence or pipeline axis); two places
+    """Remat saveable_names runs and keeps stage off's losses; an sp dim
+    without seq_axis computes replicated, as in the JAX package (checked
+    on a stand-in for a mesh's named dims, as with_mesh reads them: no
+    model, sequence or pipeline axis); two places
     need a world of two processes; a ZeRO stage on one device shards
     nothing (the losses are stage off's, as the JAX package's on a
     one-device mesh)."""
@@ -327,8 +327,9 @@ def test_multi_device_surface_raises_naming_a9():
         tfluid.CompiledProgram(main).with_data_parallel(
             places=[tfluid.CPUPlace(), tfluid.CPUPlace()])
     from paddle_tpu_torch.core.compiler import resolve_remat
-    with pytest.raises(NotImplementedError, match="A9c"):
-        resolve_remat("full", saveable_names=["fc_0.tmp_0"])
+    spec = resolve_remat("full", saveable_names=["fc_0.tmp_0"])
+    assert spec.saveable_names == ("fc_0.tmp_0",)
+    assert spec.token == ("full", ("fc_0.tmp_0",))
     exe = tfluid.Executor(tfluid.CPUPlace())
     losses = {}
     for stage in (tfluid.ShardingStrategy.off, tfluid.ShardingStrategy.stage3):
@@ -344,10 +345,14 @@ def test_multi_device_surface_raises_naming_a9():
                                     fetch_list=[loss])[0].tobytes()
     assert losses[tfluid.ShardingStrategy.off] == losses[
         tfluid.ShardingStrategy.stage3]
+    # remat with named residuals (`saving_named` marks the ops that write
+    # them, `_names_saveable` saves those): bitwise the losses of stage off
     bs = tfluid.BuildStrategy()
     bs.remat_policy = "full"
     bs.remat_saveable_names = ["fc_0.tmp_0"]
     prog = tfluid.CompiledProgram(main).with_data_parallel(
         loss_name=loss.name, build_strategy=bs)
-    with pytest.raises(NotImplementedError, match="A9c"):
-        exe.run(prog, feed=feed, fetch_list=[loss])
+    with tfluid.scope_guard(tfluid.Scope()):
+        exe.run(startup)
+        got = exe.run(prog, feed=feed, fetch_list=[loss])[0].tobytes()
+    assert got == losses[tfluid.ShardingStrategy.off]

@@ -1032,15 +1032,22 @@ def _r_hashes(main, scope, tp_names):
 
 def case_tp(model, feed, axes, state=None, steps=3, data_axis="dp",
             stage=0, tp=True, fetch_state=True, fetch=None, save=None,
-            restore=None, model_kw=None):
+            restore=None, model_kw=None, peak=False):
     """Build a TP_MODELS model, start from `state` (the JAX startup's) or
     from the port's startup, and run `steps` steps of this rank's `feed`
     on a mesh of `axes` at ZeRO `stage`. Returns the losses (bytes), the
     hashes of the replicated persistables after each step, the state
     layout, the final logical state and the extra fetches of the last
     step. `save`/`restore` is a checkpoint directory written after the
-    steps / read before them."""
+    steps / read before them. With `peak`, the last step runs under the
+    planner's live-bytes count (``planner._PeakBytes``, the state it
+    starts from included): its peak is returned as ``peak_bytes``."""
+    import contextlib
+
+    import torch
+
     fluid, names = _port()
+    from paddle_tpu_torch import planner
     from paddle_tpu_torch.parallel import Checkpointer, make_mesh
 
     with names.guard():
@@ -1064,15 +1071,27 @@ def case_tp(model, feed, axes, state=None, steps=3, data_axis="dp",
             prog.build_strategy = bs
         tp_names = {v.name for v in main.list_vars()
                     if getattr(v, "shard_spec", None)}
-        losses, hashes, extra = [], [], None
+        losses, hashes, extra, mode = [], [], None, None
         for i in range(steps):
-            out = exe.run(prog, feed=feed if not isinstance(feed, list)
-                          else feed[i], fetch_list=[loss] + list(fetch or ()))
+            count = contextlib.nullcontext()
+            if peak and i == steps - 1:
+                count = mode = planner._PeakBytes(torch.device("cpu"))
+                for t in planner._state_leaves(main, scope):
+                    mode.track(t)
+            with count:
+                out = exe.run(prog, feed=feed if not isinstance(feed, list)
+                              else feed[i],
+                              fetch_list=[loss] + list(fetch or ()))
             losses.append(np.asarray(out[0]).tobytes())
             extra = [np.asarray(o) for o in out[1:]]
             hashes.append(_r_hashes(main, scope, tp_names))
+        from paddle_tpu_torch.observability.registry import get_registry
+
         result = {"losses": losses, "hashes": hashes, "extra": extra,
-                  "info": _state_info(main, scope), "restored": step}
+                  "info": _state_info(main, scope), "restored": step,
+                  "state_bytes": get_registry().gauge(
+                      "memory/state_bytes_per_device").value,
+                  "peak_bytes": mode and mode.peak}
         if fetch_state:
             result["state"] = _logical_state(main, scope)
         if save is not None:

@@ -419,6 +419,7 @@ def case_global_dropout():
 CASES = dict(_PIPE_CASES)
 CASES["gather_rows"] = case_gather_rows
 CASES["global_dropout"] = case_global_dropout
+CASES["tp"] = R.case_tp  # the TP_MODELS models on these meshes
 
 
 def dropout_masks(model, **kw):
