@@ -407,9 +407,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              exchange the port uses; the four flash kernels' dropout bits
              at a head and row offset (heads 6.. of 12, 8.. of 16; rows
              256.. of 512) against the plain versions, f32 and bf16,
-             forward and backward; on two ranks: (b) BERT-base (12
+             forward and backward; on two ranks: (b) BERT-base (6
              layers, B = 8, T = 512, Adam) cut by PipelineOptimizer into
-             2 stages of 6 layers, 4 microbatches, f32 for 3 steps (and a
+             2 stages of 3 layers, 4 microbatches, f32 for 3 steps (and a
              pp checkpoint, then a 4th step) and bf16 AMP at dropout 0.1
              for 4 steps, and the microbatches' masks of a dropout-only
              pipeline; (c) BERT-base f32 at tp = 2 with attention and
@@ -423,14 +423,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              parameter changes within 1e-3 relative L2 (b, e), the
              restored step's loss, every replicated parameter bitwise
              equal across the ranks after every step, the launches of
-             rows 1-6 (24 a direction a step a rank in the pipeline, none
+             rows 1-6 (12 a direction a step a rank in the pipeline, none
              plain) at the heads and lengths each run gives them, masks
              that differ between microbatches. Step ms, peak memory,
              state bytes a rank, the schedule's ticks and bubble.
 23. model_parallel_rest — the rest of model parallelism, on gloo groups
              on the one card as phase 22 runs them: on two ranks (a)
-             BERT-base f32 (12 layers, B = 8, T = 512, Adam) cut into 2
-             stages of 6 layers (4 microbatches) under
+             BERT-base f32 (6 layers, B = 8, T = 512, Adam) cut into 2
+             stages of 3 layers (4 microbatches) under
              GradientClipByGlobalNorm(0.05), 3 steps (each rank brings the
              other stage's squared norms in one all-gather over pp), and
              the same in bf16 AMP at dropout 0.1 for 2 steps; (b)
@@ -489,6 +489,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              1,000,000, B = 4096) on the deferred-row log through
              with_data_parallel on an NCCL group of one across 2 folds:
              losses within 1e-5 of the plain executor's, the log count 0.
+25. root_cause — the root-cause loop, in a process of its own
+             (`chip_smoke.py --p25`: torch.profiler loses kernel records
+             in a process after other processes or threads used the
+             card): (1) the card's floors measured
+             into a fresh calibration cache (ten dependent 8192² bf16
+             matmuls, a 256 Mi-element bf16 multiply-add chain of 20, from
+             torch.profiler's kernel events; neither above the datasheet's
+             989 TFLOP/s and 3,350 GB/s); (2) BERT-base bf16 AMP training
+             (B = 8, T = 512, 12 layers) through Executor.run: one counted
+             perf-ledger entry, its flops beside the analytic walk's, 22
+             warm steps whose records carry achieved_tflops and mfu, the
+             perf/mfu and perf/roofline_fraction gauges in (0, 1.05], 12
+             flash launches a step each way; (3) profiler.profiler()
+             around 2 steps: the roofline table of the session's trace
+             (24 launches of each flash kernel, their declared counts
+             joined, no hand-kernel row over 1.05 of its datasheet bound,
+             a launch's ms beside rows 1-4's standalone times, the rows
+             against the measured floors too), timeline's summary and a
+             fleet merge; (4) a golden table, one 400 ms delay_ms fault at
+             exec.dispatch, the StepProfiler's slow_step arming the
+             ProfileTrigger, whose capture (from its own thread) holds
+             the trainer's flash launches and names culprit kernels
+             against the golden; exactly one slow_step capture; a
+             TrainStepTime page (budget half the warm median) enriched
+             with them and dumped; /alerts and /history 200;
+             postmortem --url and ops_console --once; (5) op_bench's
+             fused conv+BN and block-sparse attention cells at the JAX
+             package's defaults (f32) and at ResNet-50 stage-1 .c and the
+             NMT encoder (bf16), each kernel arm held to its plain arm.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -809,40 +838,6 @@ def bound(flops, nbytes, name, peak=None):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def kernel_label(mangled):
-    """A readable name of a flash or K2 kernel from its mangled one, e.g.
-    _ZN...flash_fwd_bf16_kernelILi64EE... -> flash_fwd_bf16_kernel<64>;
-    None for another kernel."""
-    import re
-
-    k = re.search(r"((?:flash|sparse)_[fb]wd_\w+?_kernel)ILi(\d+)E"
-                  r"(?:Li(\d+)E)?", mangled)
-    if k:
-        return (f"{k.group(1)}<{k.group(2)}"
-                f"{', ' + k.group(3) if k.group(3) else ''}>")
-    k = re.search(r"(apply_kernel|bwd_dx_kernel)I(f|13__nv_bfloat16)"
-                  r"Lb([01])ELb([01])E", mangled)
-    if k:
-        return (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, "
-                f"res={k.group(3)}, relu={k.group(4)}>")
-    k = re.search(r"conv_stats_f32_kernelILb([01])E", mangled)
-    if k:
-        return f"conv_stats_f32_kernel<resident W={k.group(1)}>"
-    k = re.search(r"conv_stats_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
-                  mangled)
-    if k:
-        return (f"conv_stats_bf16_kernel<BN={k.group(1)}, CTAs/SM="
-                f"{k.group(2)}, resident W={k.group(3)} B>")
-    k = re.search(r"(wide_[fb]wd_(?:f32|bf16)_kernel)ILb([01])E", mangled)
-    if k:
-        return f"{k.group(1)}<sparse={k.group(2)}>"
-    k = re.search(r"wide_role_f32_kernelILi(\d)ELb([01])E", mangled)
-    if k:
-        role = ("fwd", "dq", "dk", "dv")[int(k.group(1))]
-        return f"wide_role_f32_kernel<{role}, sparse={k.group(2)}>"
-    return None
-
-
 # the f32 kernels whose products run on the tensor cores in 3xTF32
 F32_TC_KERNELS = ("flash_fwd_f32", "flash_bwd_f32", "sparse_fwd_f32",
                   "sparse_bwd_f32", "conv_stats_f32")
@@ -863,6 +858,8 @@ def log_wgmma_build(build):
     products on wgmma), and of HGMMA and HMMA in K4."""
     import ctypes
     import re
+
+    from paddle_tpu_torch.observability.kernel_counts import kernel_label
 
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
@@ -999,10 +996,7 @@ def phase_kernel(fa):
                 lambda: fa.flash_attention_fwd_plain(q, k, v, bias),
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=sdpa_mask)))
-            flops = 4.0 * B * NH * t * t * D
-            nbytes = (4 * B * t * HIDDEN * q.element_size()   # q, k, v, out
-                      + B * NH * t * 4                       # lse
-                      + bias.numel() * bias.element_size())
+            flops, nbytes = fa.fwd_counts(q, k, bias)
             bound_ms, bound_by = bound(flops, nbytes, name)
             extra = {}
             if name == "float32":
@@ -1143,10 +1137,7 @@ def phase_kernel_bwd(fa):
                 lq, lk, lv, attn_mask=bias.expand(B, NH, t, t))
             library_ms = device_ms(lambda: torch.autograd.grad(
                 lout, (lq, lk, lv), dout, retain_graph=True))
-            flops = 10.0 * B * NH * t * t * D   # s, dp, dv, dk, dq
-            nbytes = (8 * B * t * HIDDEN * q.element_size()  # q k v out dO dq dk dv
-                      + 2 * B * NH * t * 4                  # lse, delta
-                      + bias.numel() * bias.element_size())
+            flops, nbytes = fa.bwd_counts(q, k, bias)
             bound_ms, bound_by = bound(flops, nbytes, name)
             extra = {}
             if name == "float32":
@@ -1723,13 +1714,8 @@ def wide_times(fa, fas, name, dense, sparse):
             lout, (lq, lk, lv), dout, retain_graph=True))
     recs = {key: {k_: device_ms(fn) for k_, fn in c.items()}
             for key, c in calls.items()}
-    rows = b * nh * t
-    isz = q.element_size()
-    for rec, flops, nbytes in (
-            (recs["fwd"], 4.0 * rows * t * d,
-             4 * rows * d * isz + rows * 4 + mask.numel() * isz),
-            (recs["bwd"], 10.0 * rows * t * d,
-             8 * rows * d * isz + 2 * rows * 4 + mask.numel() * isz)):
+    for rec, (flops, nbytes) in ((recs["fwd"], fa.fwd_counts(q, k, mask)),
+                                 (recs["bwd"], fa.bwd_counts(q, k, mask))):
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, name)
         rec.update(flops=flops, bytes=nbytes,
                    shape=f"B={b} nh={nh} T={t} d={d}, [B,1,1,T] mask")
@@ -2098,8 +2084,7 @@ def k2_time(fb, label, x2, mean, inv, scale, bias, act, res2, name,
         lambda: fb.apply2d(x2, mean, inv, scale, bias, act, res2),
         lambda: fb.apply_plain(x2, mean, inv * scale, bias, act, res2)))
     has_res = res2 is not None
-    nbytes = (2 + has_res) * m * c * x2.element_size() + 3 * c * 4
-    flops = (4.0 + has_res + (act == "relu")) * m * c
+    flops, nbytes = fb.apply_counts(m, c, x2.element_size(), act, has_res)
     bound_ms, bound_by = bound(flops, nbytes, name)
     rec = {"kernel": "fused_bn_apply", "dtype": name,
            "shape": f"{label}: M={m} C={c}, act={act!r} res={has_res}",
@@ -2185,8 +2170,7 @@ def phase_kernel_bn(fb):
                 lambda: fb.conv_stats(xs, w),
                 lambda: fb.conv_stats_plain(xs, w),
                 lambda: torch.matmul(x2, w.reshape(co, ci).t())))
-            flops = 2.0 * m * ci * co
-            nbytes = (m * ci + ci * co + m * co) * isz + 2 * co * 4
+            flops, nbytes = fb.conv_stats_counts(m, ci, co, isz)
             bound_ms, bound_by = bound(flops, nbytes, name)
             extra = {}
             if name == "float32":   # 3xTF32; the FMA bound beside it
@@ -2286,15 +2270,14 @@ def phase_kernel_bn(fb):
                         lambda: fb.bn_bwd_dx(dy, y2, None, mean, inv,
                                              inv * scale, pdb, pdg, float(m),
                                              False)))
-                nbytes = 3 * m * co * isz + 5 * co * 4
-                bound_ms, bound_by = bound(10.0 * m * co, nbytes, name)
+                flops, nbytes = fb.bwd_counts(m, co, isz)
+                bound_ms, bound_by = bound(flops, nbytes, name)
                 # each pass alone: the reduce reads dy and x once, the dx
                 # pass reads them again and writes dx; the two passes
                 # together move 5 M·C elements (the two-pass floor)
-                reduce_bound = bound(4.0 * m * co, 2 * m * co * isz
-                                     + 4 * co * 4, name)[0]
-                dx_bound = bound(6.0 * m * co, 3 * m * co * isz + 5 * co * 4,
-                                 name)[0]
+                reduce_bound = bound(*fb.bwd_reduce_counts(m, co, isz),
+                                     name)[0]
+                dx_bound = bound(*fb.bwd_dx_counts(m, co, isz), name)[0]
                 records[("fused_bn_bwd", name)] = rec = {
                     "kernel": "fused_bn_bwd", "dtype": name,
                     "shape": f"{label} BN: M={m} C={co}, no relu/res",
@@ -2337,8 +2320,8 @@ def phase_kernel_bn(fb):
                 lambda: fb.bn_stats(x),
                 lambda: fb.stats_plain(fb.to2d(x)),
                 lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0)))
-            nbytes = m * c * isz + 2 * c * 4
-            bound_ms, bound_by = bound(3.0 * m * c, nbytes, name)
+            flops, nbytes = fb.stats_counts(m, c, isz)
+            bound_ms, bound_by = bound(flops, nbytes, name)
             rec = {"kernel": "fused_bn_stats", "dtype": name,
                    "shape": f"{label}: M={m} C={c}", "max_err": errs,
                    "max_abs_err": abs_errs,
@@ -2678,16 +2661,10 @@ def sparse_timing(fas, dt, inputs, stats):
             F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask),
             (lq, lk, lv), dout)))))
     bwd["delta_ms"] = device_ms(lambda: fa.flash_attention_delta(out, dout))
-    b, nh, tq, d = q.shape
-    tk = k.shape[2]
-    isz = q.element_size()
     pairs = stats["visible_pairs"]
-    small = se.numel() * 4 + vis.numel() * 4
-    fwd_bytes = (2 * tq + 2 * tk) * b * nh * d * isz + b * nh * tq * 4 + small
-    bwd_bytes = ((4 * tq + 4 * tk) * b * nh * d * isz + 2 * b * nh * tq * 4
-                 + small)
-    for rec, flops, nbytes in ((fwd, 4.0 * d * pairs, fwd_bytes),
-                               (bwd, 10.0 * d * pairs, bwd_bytes)):
+    for rec, (flops, nbytes) in (
+            (fwd, fas.fwd_counts(q, k, se, vis, pairs)),
+            (bwd, fas.bwd_counts(q, k, se, vis, pairs))):
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dt)
         rec.update(flops=flops, bytes=nbytes)
     if dt == "float32":
@@ -3310,9 +3287,8 @@ def phase_kernel_sparse_adagrad(fsa, dr):
                                                DEEPFM_VIS, 1e-6)))
     # each valid slot reads its id, its summed gradient and the payload of
     # its row and writes the whole row; a SENTINEL slot reads its id
-    nbytes = nu * (8 + 4 * DEEPFM_VIS + 8 * DEEPFM_VIS + 2 * fsa.PACK_LANES) \
-        + (DEEPFM_ROWS - nu) * 8
-    bound_ms, bound_by = bound(6.0 * nu * DEEPFM_VIS, nbytes, "float32")
+    flops, nbytes = fsa.adagrad_counts(nu, DEEPFM_ROWS, DEEPFM_VIS)
+    bound_ms, bound_by = bound(flops, nbytes, "float32")
     records["sparse_adagrad_update"] = rec = {
         "shape": f"table [{DEEPFM_VOCAB}, 128] u16, {DEEPFM_ROWS} slots "
                  f"({nu} valid), vis {DEEPFM_VIS}",
@@ -3353,7 +3329,6 @@ def phase_kernel_sparse_adagrad(fsa, dr):
     # the padded tail repeats one slot (and one src): a row is read (and
     # written) once per distinct slot, the gather's output once per slot,
     # and every slot's ids are read
-    row_bytes = 2 * fsa.PACK_LANES
     n_slots, n_src = int(slots.unique().numel()), int(src.unique().numel())
     s16 = fsa.i16(slab)
     for kname, fn, plain_fn, lib_fn, lib, nbytes in (
@@ -3361,12 +3336,12 @@ def phase_kernel_sparse_adagrad(fsa, dr):
              lambda: fsa.fused_row_gather(slab, slots),
              lambda: fsa.fused_row_gather_plain(slab, slots),
              lambda: s16.index_select(0, slots), "Tensor.index_select",
-             (n_slots + n) * row_bytes + n * 8),
+             fsa.gather_counts(n_slots, n)[1]),
             ("sparse_row_scatter",
              lambda: fsa.fused_row_scatter(slab, slots, rows, src),
              lambda: fsa.fused_row_scatter_plain(slab, slots, rows, src),
              lambda: s16.index_copy_(0, slots, fsa.i16(rows)),
-             "Tensor.index_copy_", (n_src + n_slots) * row_bytes + n * 16)):
+             "Tensor.index_copy_", fsa.scatter_counts(n_src, n_slots, n)[1])):
         ms, plain_ms, library_ms = (cold_device_ms(f) for f in (
             fn, plain_fn, lib_fn))
         bound_ms, bound_by = bound(0.0, nbytes, "float32")
@@ -8256,7 +8231,10 @@ def phase_model_parallel(fluid, fa, fas, fsa, smi):
 
 # -- phase 22: pipelines, the sequence axis, attention dropout on a slice ---
 P22_WORLD, P22_COMPOSED_WORLD = 2, 4
-P22_B, P22_T, P22_LAYERS, P22_MICRO = 8, 512, 12, 4
+# 6 layers (12 before the script's time limit drew near; the pipelines
+# and model-parallel steps of phases 22-23 are gloo host traffic that
+# scales with the depth)
+P22_B, P22_T, P22_LAYERS, P22_MICRO = 8, 512, 6, 4
 P22_F32_STEPS, P22_BF16_STEPS, P22_DROP_STEPS = 3, 4, 2
 P22_COMPOSED_LAYERS, P22_NMT_STEPS = 4, 2
 P22_DROP = 0.1
@@ -9991,6 +9969,503 @@ def phase_fleet_cluster(fluid, fa, fb, smi):
         "device": smi}))
     return fleet["launches"], bn
 
+P25_B, P25_T = 8, 512        # BERT-base bf16 AMP training, 12 layers
+P25_WARM = 22                # warm steps: past the StepProfiler's 20-sample
+#                              baseline, so the fault's step is judged
+P25_DELAY_MS = 400.0         # one exec.dispatch delay: ~5 warm steps
+P25_UTIL_MAX = 1.05          # a hand-kernel row over this share of its
+#                              datasheet bound means its declared counts lie
+# rows 1-2 and 3-4 bf16 at B=8, nh=12, T=512, d=64 standalone, device ms a
+# call without and with dropout 0.1 (the step's rate): PERF.md §6, phase 3
+# of the final run before this phase existed
+P25_STANDALONE_MS = {"fwd": (0.03413, 0.06108), "bwd": (0.09405, 0.1502)}
+# op_bench cells: the JAX package's defaults (f32), then the main paths'
+# shapes (bf16): ResNet-50 stage-1 .c (B=128, 64->256, 56x56) and the NMT
+# encoder (B=16, T=256, hidden 1024, 16 heads)
+P25_CONV_BN = (((8, 64, 256, 32), "float32"), ((128, 64, 256, 56),
+                                                "bfloat16"))
+P25_SPARSE = (((2, 512, 256, 4), "float32"), ((16, 256, 1024, 16),
+                                               "bfloat16"))
+P25_DATASHEET = (989.0, 3350.0)   # H100 SXM: bf16 dense TFLOP/s, HBM GB/s
+# in bf16 the conv+BN cell's parameter gradients are sums over all M rows
+# (401,408 at stage 1) of bf16 products whose terms cancel: they are printed
+# beside the plain arm's, and held only in f32
+P25_BF16_SUMS = ("dw", "dscale", "dbias")
+
+
+def p25_calibrate(workdir, smi):
+    """get_calibration(recalibrate=True) into a fresh cache: measured, and
+    neither floor above the datasheet's."""
+    from paddle_tpu_torch.observability import calibrate
+
+    os.environ["PDTPU_CALIBRATION_DIR"] = os.path.join(workdir, "calib")
+    calibrate.reset()
+    c = calibrate.get_calibration(recalibrate=True)
+    rec = {"source": c.source, "device_kind": c.device_kind,
+           "matmul_tflops": c.matmul_tflops, "stream_gbs": c.stream_gbs,
+           "peak_flops": c.peak_flops,
+           "matmul_share_of_datasheet": c.matmul_tflops / P25_DATASHEET[0],
+           "stream_share_of_datasheet": c.stream_gbs / P25_DATASHEET[1],
+           "cache": os.path.basename(calibrate.cache_path()), "device": smi}
+    if c.source != "measured":
+        raise AssertionError(f"calibration: source {c.source!r}: {rec}")
+    if not (0 < c.matmul_tflops <= P25_DATASHEET[0]
+            and 0 < c.stream_gbs <= P25_DATASHEET[1]):
+        raise AssertionError(f"calibration: floors outside (0, datasheet]: "
+                             f"{rec}")
+    return c, rec
+
+
+def p25_ledger(fluid, fa, bert, smi):
+    """BERT-base bf16 training through Executor.run: one counted ledger
+    entry (its flops beside the analytic walk's), warm step records with
+    achieved_tflops and mfu, the perf gauges in (0, 1.05], no entry
+    registered by a replayed step. Returns (step fn, program key, record,
+    warm step ms)."""
+    from paddle_tpu_torch.observability import get_registry, perf
+    from paddle_tpu_torch.observability.steps import get_step_profiler
+
+    main, startup, loss = build_pretrain(fluid, bert, P25_B, P25_T, True)
+    feed = pretrain_feed(P25_B, P25_T, np.random.RandomState(25))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+
+    def step():
+        with fluid.scope_guard(scope):
+            return float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+
+    key = f"0x{id(main):x}"
+    get_step_profiler().reset()
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd):
+        fn.launches = fn.plain_on_cuda = 0
+    t0 = time.perf_counter()
+    losses = [step()]
+    first_s = time.perf_counter() - t0
+    mine = {k: v for k, v in perf.get_ledger().snapshot().items()
+            if k.startswith(key)}
+    if len(mine) != 1:
+        raise AssertionError(f"ledger: {len(mine)} entries for {key}")
+    (sig_key, entry), = mine.items()
+    if entry["source"] != "counted":
+        raise AssertionError(f"ledger: source {entry['source']!r}")
+    analytic = perf.analytic_cost(main, feed)
+    warm_ms = []
+    for _ in range(P25_WARM):
+        t0 = time.perf_counter()
+        losses.append(step())
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+    if set(k for k in perf.get_ledger().snapshot() if k.startswith(key)) \
+            != {sig_key}:
+        raise AssertionError("ledger: a replayed step registered")
+    recs = [r for r in get_step_profiler().records()
+            if r.get("program") == key and not r.get("compile")]
+    if len(recs) != P25_WARM or not all("achieved_tflops" in r
+                                        and "mfu" in r for r in recs):
+        raise AssertionError(f"ledger: {len(recs)} warm records, keys "
+                             f"{sorted(recs[-1]) if recs else None}")
+    gauges = {}
+    for s in get_registry().series():
+        if s["name"] in ("perf/mfu", "perf/roofline_fraction",
+                         "perf/achieved_tflops", "perf/achieved_gbs") \
+                and s["labels"].get("program") == key:
+            gauges[s["name"]] = s["value"]
+    for name in ("perf/mfu", "perf/roofline_fraction"):
+        if not 0.0 < gauges.get(name, 0.0) <= 1.05:
+            raise AssertionError(f"ledger: {name} = {gauges.get(name)}")
+    launches = {"fwd": fa.flash_attention_fwd.launches,
+                "bwd": fa.flash_attention_bwd.launches}
+    steps = 1 + P25_WARM
+    if launches != {"fwd": 12 * steps, "bwd": 12 * steps} or \
+            fa.flash_attention_fwd.plain_on_cuda or \
+            fa.flash_attention_bwd.plain_on_cuda:
+        raise AssertionError(f"ledger: flash launches {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ledger: losses {losses}")
+    rec = {"entry": {k: v for k, v in entry.items() if k != "last"},
+           "last_attribution": entry.get("last"),
+           "counted_tflop": entry["flops"] / 1e12,
+           "analytic_tflop": analytic["flops"] / 1e12,
+           "counted_over_analytic": entry["flops"] / analytic["flops"],
+           "counted_gb": entry["bytes_accessed"] / 1e9,
+           "first_run_s": first_s,
+           "warm_ms_median": float(np.median(warm_ms)),
+           "warm_ms": warm_ms, "gauges": gauges,
+           "last_record": {k: recs[-1][k] for k in
+                           ("wall_ms", "achieved_tflops", "mfu")},
+           "losses": [losses[0], losses[-1]], "launches": launches,
+           "device": smi}
+    return step, key, rec, warm_ms, launches
+
+
+def p25_calls(tab):
+    """{base name: calls} over a kernel table's rows."""
+    from paddle_tpu_torch.observability.kernel_counts import base_name
+
+    out = {}
+    for r in tab["kernels"]:
+        out[base_name(r["kernel"])] = out.get(base_name(r["kernel"]), 0) \
+            + r["calls"]
+    return out
+
+
+def p25_session(step, calib, workdir, smi):
+    """profiler.profiler() around 2 warm steps, then the roofline table of
+    the session's directory against the datasheet and the measured floors:
+    the flash rows with 12 launches a step each, no hand-kernel row over
+    P25_UTIL_MAX of its bound; timeline's summary and a fleet merge of the
+    trace with itself."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability.kernel_counts import HAND_KERNELS
+    from paddle_tpu_torch.tools import roofline, timeline
+
+    for attempt in range(3):
+        # a torch.profiler session has come back with no device events on
+        # the card: say so and take another, at most three
+        d = os.path.join(workdir, f"session{attempt}")
+        t0 = time.perf_counter()
+        with profiler.profiler(profile_path=d):
+            for _ in range(2):
+                step()
+        session_s = time.perf_counter() - t0
+        tr = roofline.load_trace(d)
+        if any(e.get("cat") in roofline.DEVICE_CATS
+               for e in tr["traceEvents"]):
+            break
+        log(f"root_cause session {attempt}: no device events in the trace")
+    tab = roofline.kernel_table(tr, P25_DATASHEET, steps=2, cutoff_ms=0.0)
+    if "error" in tab or not any(e.get("cat") in roofline.DEVICE_CATS
+                                 for e in tr["traceEvents"]):
+        raise AssertionError(f"session: no device time in three sessions "
+                             f"({tab.get('error')})")
+    rows = p25_calls(tab)
+    want = {"flash_fwd_bf16_kernel": 24, "flash_bwd_delta_kernel": 24,
+            "flash_bwd_dq_bf16_kernel": 24, "flash_bwd_dkv_bf16_kernel": 24}
+    got = {k: rows.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"session: flash rows {got}, want {want}")
+    hand = {h["name"]: h for h in tab.get("hand_kernels", ())}
+    over = [(h["name"], h["util_vs_bound"]) for h in hand.values()
+            if (h["util_vs_bound"] or 0.0) > P25_UTIL_MAX]
+    over += [(r["kernel"], r["util_vs_bound"]) for r in tab["kernels"]
+             if r["kernel"].split("<")[0] in HAND_KERNELS
+             and r["util_vs_bound"] > P25_UTIL_MAX]
+    for name in ("flash_attention_fwd[bf16]", "flash_attention_bwd[bf16]"):
+        if hand.get(name, {}).get("launches") != 24:
+            raise AssertionError(f"session: {name} {hand.get(name)}")
+    measured = roofline.kernel_table(tr, calib.floors, steps=2,
+                                     cutoff_ms=0.0)
+    m_hand = {h["name"]: h for h in measured.get("hand_kernels", ())}
+    per_launch = {
+        k: {"in_step_ms": hand[f"flash_attention_{k}[bf16]"]
+            ["ms_per_launch"], "standalone_ms": P25_STANDALONE_MS[k][0],
+            "standalone_dropout_ms": P25_STANDALONE_MS[k][1],
+            "ratio_to_dropout": hand[f"flash_attention_{k}[bf16]"]
+            ["ms_per_launch"] / P25_STANDALONE_MS[k][1],
+            "util_vs_datasheet": hand[f"flash_attention_{k}[bf16]"]
+            ["util_vs_bound"],
+            "util_vs_measured": m_hand[f"flash_attention_{k}[bf16]"]
+            ["util_vs_bound"]} for k in ("fwd", "bwd")}
+    summary = timeline.summarize(tr)
+    top = sorted(summary.items(), key=lambda kv: -kv[1]["total_ms"])[:5]
+    merged = timeline.merge_fleet_traces([tr, tr], ["step_a", "step_b"])
+    n_ev = len(tr["traceEvents"])
+    if len(merged["traceEvents"]) < 2 * n_ev:
+        raise AssertionError("timeline: the fleet merge lost events")
+    out = os.path.join(workdir, "timeline.json")
+    timeline.main(["--logdir", d, "--out", out])
+    rec = {"session_s": session_s, "sessions": attempt + 1,
+           "device_ms_per_step": tab["device_ms_per_step"],
+           "top_kernels": [{k: r[k] for k in ("kernel", "ms", "calls",
+                                              "util_vs_bound")}
+                           for r in tab["kernels"][:8]],
+           "hand_kernels": list(hand.values()), "flash_per_launch":
+           per_launch, "rows_over_bound": over,
+           "timeline_top": [[k, v["total_ms"], v["count"]] for k, v in top],
+           "trace_events": n_ev, "merged_events": len(merged["traceEvents"]),
+           "device": smi}
+    if over:
+        raise AssertionError(f"session: hand-kernel rows over "
+                             f"{P25_UTIL_MAX} of their bound: {over}")
+    return rec
+
+
+def p25_capture_flash(att):
+    """The capture's flash forward row: it began on the trigger's thread,
+    so it must still hold the trainer thread's launches and their device
+    time."""
+    hand = {h["name"]: h for h in att.get("hand_kernels", ())}
+    cap_fwd = hand.get("flash_attention_fwd[bf16]", {})
+    if cap_fwd.get("launches", 0) < 12 or not cap_fwd.get("ms"):
+        raise AssertionError(f"loop: the capture lacks the main thread's "
+                             f"flash launches: {hand}")
+    return cap_fwd
+
+
+def p25_loop(step, warm_ms, workdir, smi):
+    """The root-cause loop on the card: a golden on the healthy step, one
+    delay_ms fault at exec.dispatch, the StepProfiler's slow_step arming
+    the ProfileTrigger (its capture from its own thread), the attribution
+    naming kernels against the golden, a TrainStepTime page (budget half
+    the warm median) enriched with the culprits and dumped, /alerts and
+    /history answering 200, postmortem --url and ops_console --once."""
+    import statistics
+    import urllib.request
+
+    from paddle_tpu_torch import faults
+    from paddle_tpu_torch.observability import (
+        AlertManager, FederatedScraper, IntrospectionServer, MetricsHistory,
+        ProfileTrigger, ScrapeTarget, SloEngine, default_slos, get_registry,
+        install_alert_manager, install_history, install_scraper,
+        install_trigger, record_golden)
+    from paddle_tpu_torch.observability.steps import get_step_profiler
+    from paddle_tpu_torch.tools import ops_console, postmortem
+
+    for k, sub in (("PDTPU_GOLDEN_DIR", "golden"),
+                   ("PDTPU_FLIGHT_DIR", "flight")):
+        os.environ[k] = os.path.join(workdir, sub)
+    os.environ["PDTPU_PROFILE_ON_ANOMALY"] = "1"
+    reg = get_registry()
+    captures = reg.counter("profiler/captures", trigger="slow_step")
+    skipped = {r: reg.counter("profiler/skipped", reason=r)
+               for r in ("busy", "cooldown", "cap", "start_failed")}
+    before = (captures.value, {r: c.value for r, c in skipped.items()})
+    golden = record_golden(step, steps=2)
+    steps_prof = get_step_profiler()
+    trig = ProfileTrigger(window_steps=2, window_s=30.0, cooldown_s=3600.0)
+    install_trigger(trig)
+    trig.attach(step_profiler=steps_prof)
+    scraper = srv = None
+    rec = {"golden": os.path.basename(golden), "device": smi}
+    try:
+        faults.install("exec.dispatch", "delay_ms", P25_DELAY_MS, count=1)
+        step_s = []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            step()
+            step_s.append(time.perf_counter() - t0)
+            if trig.last_attribution() is not None:
+                break
+        if not trig.wait_idle(60):
+            raise AssertionError("loop: the capture did not end")
+        faults.clear()
+        att = trig.last_attribution()
+        rec["step_s"] = step_s
+        n_caps = captures.value - before[0]
+        rec["captures_slow_step"] = n_caps
+        if att is None or att.get("error") or n_caps != 1:
+            raise AssertionError(f"loop: captures {n_caps}, attribution "
+                                 f"{att}")
+        culprits = att.get("culprit_kernels") or []
+        if not culprits or not all(c.get("kernel") for c in culprits):
+            raise AssertionError(f"loop: no named culprit: {att}")
+        cap_fwd = p25_capture_flash(att)
+        rec.update(culprits=culprits, trigger=att.get("trigger"),
+                   capture_ms=att.get("capture_ms"),
+                   capture_flash_fwd=cap_fwd,
+                   device_ms_per_step=att.get("device_ms_per_step"),
+                   trace_diff=att.get("trace_diff"))
+
+        median = statistics.median(warm_ms)
+        am = AlertManager(for_s=0.0, resolved_hold_s=600.0)
+        install_alert_manager(am)
+        events = []
+        am.add_sink(events.append)
+        trig.attach(alert_manager=am)
+        hist = MetricsHistory(max_mb=2.0)
+        install_history(hist)
+        scraper = FederatedScraper([ScrapeTarget.local()], interval_s=0.25,
+                                   timeout=0.5)
+        hist.attach(scraper)
+        engine = SloEngine(default_slos(step_time_ms=0.5 * median),
+                           alert_manager=am, window_scale=1.0 / 720.0)
+        engine.attach(scraper)
+        install_scraper(scraper)
+        scraper.start()
+
+        def page():
+            for ev in events:
+                if (ev["event"] == "firing" and ev["severity"] == "page"
+                        and ev["name"] == "TrainStepTime"
+                        and (ev.get("annotations") or {}).get(
+                            "culprit_kernels")):
+                    return ev
+            return None
+
+        deadline = time.time() + 60.0
+        t_fire = time.time()
+        while page() is None and time.time() < deadline:
+            step()
+        ev = page()
+        if ev is None:
+            raise AssertionError(f"loop: no enriched TrainStepTime page; "
+                                 f"events {events}")
+        if not ev.get("dump_path") or not os.path.exists(ev["dump_path"]):
+            raise AssertionError(f"loop: the page wrote no flight dump: "
+                                 f"{ev}")
+        rec.update(page_after_s=time.time() - t_fire,
+                   page_culprits=[c.get("kernel") for c in
+                                  ev["annotations"]["culprit_kernels"]],
+                   page_budget_ms=0.5 * median,
+                   page_value=ev.get("value"),
+                   flight_dump=os.path.basename(ev["dump_path"]))
+
+        srv = IntrospectionServer(port=0).start()
+        codes = {}
+        for path in ("/alerts", "/history?window=300"):
+            with urllib.request.urlopen(srv.url + path, timeout=10) as r:
+                codes[path] = r.status
+                json.loads(r.read().decode())
+        if set(codes.values()) != {200}:
+            raise AssertionError(f"loop: {codes}")
+        md = os.path.join(workdir, "postmortem.md")
+        postmortem.main(["--url", srv.url, "--md", md])
+        text = open(md).read()
+        if rec["page_culprits"][0] not in text:
+            raise AssertionError("postmortem: the culprit is not named")
+        frame_rc = ops_console.main([srv.url, "--once", "--no-color"])
+        skips = {r: c.value - before[1][r] for r, c in skipped.items()}
+        rec.update(http=codes, postmortem_chars=len(text),
+                   ops_console_rc=frame_rc, skipped=skips,
+                   captures_slow_step_end=captures.value - before[0],
+                   history=hist.stats())
+        if rec["captures_slow_step_end"] != 1:
+            raise AssertionError(f"loop: captures "
+                                 f"{rec['captures_slow_step_end']}")
+    finally:
+        faults.clear()
+        if scraper is not None:
+            scraper.stop()
+        if srv is not None:
+            srv.stop()
+        install_scraper(None)
+        install_alert_manager(None)
+        install_history(None)
+        install_trigger(None)
+        steps_prof.remove_listener(trig.on_record)
+        steps_prof.remove_listener(trig.on_anomaly)
+        trig.wait_idle(30)
+    return rec
+
+
+def p25_op_bench(smi):
+    """The two op_bench cells at the JAX defaults and the main paths'
+    shapes; each kernel arm held to its plain arm (TOL / BN_TOL; the
+    bf16 parameter gradients printed, see P25_BF16_SUMS)."""
+    from paddle_tpu_torch.tools import op_bench
+
+    out = []
+    for (b, ci, co, hw), dt in P25_CONV_BN:
+        out.append(op_bench.bench_fused_conv_bn(
+            batch=b, ci=ci, co=co, hw=hw, dtype=dt, tol=BN_TOL[dt]))
+    for (b, t, h, nh), dt in P25_SPARSE:
+        out.append(op_bench.bench_block_sparse_attn(
+            batch=b, t=t, hidden=h, num_heads=nh, dtype=dt, tol=TOL[dt]))
+    for cell in out:
+        cell["device"] = smi
+        log("root_cause op_bench " + json.dumps(cell))
+        held = {k: v for k, v in cell["within_tol"].items()
+                if cell["dtype"] == "float32" or k not in P25_BF16_SUMS}
+        if not all(held.values()):
+            raise AssertionError(f"op_bench {cell['bench']} "
+                                 f"{cell['shape']} {cell['dtype']}: "
+                                 f"{cell['within_tol']}")
+    return out
+
+
+def p25_child():
+    """Phase 25 in a process of its own (``chip_smoke.py --p25``): in a
+    process where other processes or threads have used the card,
+    torch.profiler loses a growing share of its kernel records (ten
+    dependent matmuls read 20, then 17 after three other processes ran
+    and 15 after four threads; a fresh process reads 20), and this phase
+    reads profiles. Prints the phase's lines, then the launches."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import cuda_device
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    cuda_device(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    build.build_all(["flash_attention_fwd", "flash_attention_bwd",
+                     "flash_attention_sparse", "fused_bn"])
+    launches = phase_root_cause(fluid, fa, smi)
+    print("p25 launches " + json.dumps(launches), flush=True)
+    torch.cuda.synchronize()
+
+
+def phase_root_cause_proc():
+    """Phase 25 through `p25_child` in a fresh process; its lines pass
+    through. Returns the flash launches of its BERT-base bf16 steps."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--p25"], capture_output=True, text=True,
+                          timeout=900)
+    launches = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("p25 launches "):
+            launches = json.loads(line[len("p25 launches "):])
+        else:
+            log(line)
+    if proc.returncode != 0 or launches is None:
+        raise AssertionError(f"phase 25 (--p25) exited {proc.returncode}:"
+                             f" {proc.stderr[-4000:]}")
+    return launches
+
+
+def phase_root_cause(fluid, fa, smi):
+    """Phase 25 (module docstring). Returns the flash launches of its
+    BERT-base bf16 steps ({"fwd"|"bwd": n})."""
+    import torch
+
+    from paddle_tpu_torch.models import bert
+
+    t_phase = time.perf_counter()
+    marks = {}
+    saved = {k: os.environ.get(k) for k in (
+        "PDTPU_CALIBRATION_DIR", "PDTPU_GOLDEN_DIR", "PDTPU_FLIGHT_DIR",
+        "PDTPU_PROFILE_ON_ANOMALY")}
+    workdir = tempfile.mkdtemp(prefix="p25_")
+
+    def done(name, rec):
+        marks[name] = time.perf_counter() - t_phase
+        log(f"root_cause {name} " + json.dumps(rec, default=str))
+
+    try:
+        calib, rec = p25_calibrate(workdir, smi)
+        done("calibration", rec)
+        step, key, rec, warm_ms, launches = p25_ledger(fluid, fa, bert, smi)
+        done("ledger", rec)
+        done("session", p25_session(step, calib, workdir, smi))
+        fwd0, bwd0 = (fa.flash_attention_fwd.launches,
+                      fa.flash_attention_bwd.launches)
+        done("loop", p25_loop(step, warm_ms, workdir, smi))
+        launches = {"fwd": fa.flash_attention_fwd.launches,
+                    "bwd": fa.flash_attention_bwd.launches}
+        if launches["fwd"] - fwd0 < 12 or launches["bwd"] - bwd0 < 12:
+            raise AssertionError(f"loop: flash launches {launches}")
+        p25_op_bench(smi)
+        marks["op_bench"] = time.perf_counter() - t_phase
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    log("root_cause " + json.dumps({
+        "marks_s": marks, "wall_s": time.perf_counter() - t_phase,
+        "device": smi}))
+    return launches
+
+
 def main():
     import torch
 
@@ -10159,6 +10634,13 @@ def main():
     for k, n in p24_bn.items():
         bn_launches["bfloat16"][k] += n
 
+    # 25. the root-cause loop (calibrated floors, the perf ledger on
+    # BERT-base bf16 training, a profiler session's roofline and timeline,
+    # an anomaly-triggered capture paging with its culprits, op_bench)
+    p25 = phase_root_cause_proc()
+    for d in ("fwd", "bwd"):
+        train_launches[(d, "bfloat16")] += p25[d]
+
     kernels = []
     for name in ("float32", "bfloat16"):
         rec = records[(name, 512)]
@@ -10266,6 +10748,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--p25" in sys.argv:
+        p25_child()
+        sys.exit(0)
     if "--p24-rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         p24_worker(int(args["--p24-rank"]), int(args["--p24-world"]),

@@ -8,8 +8,9 @@ the caller asks for the CPU. Where the JAX package ran a Pallas kernel, the port
 written by hand for Hopper (``csrc/``), built at first use. This package
 imports torch and numpy, never JAX and never ``paddle_tpu``.
 
-The operator CLI ``python -m paddle_tpu_torch.tools.ps_admin`` runs on
-hosts without torch (a bastion, a pserver host): started that way, this
+The operator CLIs ``python -m paddle_tpu_torch.tools.ps_admin``,
+``.metrics_lint``, ``.postmortem`` and ``.ops_console`` run on hosts
+without torch (a bastion, a pserver host): started that way, this
 ``__init__`` skips the framework surface, and the tool imports only the
 stdlib and numpy modules it needs.
 
@@ -28,7 +29,10 @@ stdlib and numpy modules it needs.
 import sys as _sys
 
 # ``python -m`` entry points that must not load torch
-_TORCH_FREE_ENTRIES = ("paddle_tpu_torch.tools.ps_admin",)
+_TORCH_FREE_ENTRIES = ("paddle_tpu_torch.tools.ps_admin",
+                       "paddle_tpu_torch.tools.metrics_lint",
+                       "paddle_tpu_torch.tools.postmortem",
+                       "paddle_tpu_torch.tools.ops_console")
 
 
 def _torch_free_entry() -> bool:
@@ -110,6 +114,8 @@ if not _torch_free_entry():
     from . import observability  # noqa: F401
     from . import planner  # noqa: F401
     from . import profiler  # noqa: F401
+    from . import debugger  # noqa: F401
+    from . import net_drawer  # noqa: F401
     from . import serving  # noqa: F401
     from . import incubate  # noqa: F401
     from . import compiler  # noqa: F401

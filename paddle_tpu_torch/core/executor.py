@@ -110,6 +110,8 @@ from ..faults import fault_point
 from ..flags import flag
 from ..observability.flight import (get_flight_recorder,
                                     register_dump_section)
+from ..observability import perf as _perf
+from ..observability.memory import record_state_memory
 from ..observability.registry import get_registry
 from ..observability.steps import get_step_profiler
 from ..observability.tracer import trace_span
@@ -1085,12 +1087,18 @@ class Executor:
                 # chaos probe inside the timed region: a delay_ms fault
                 # here IS a slow step, which the StepProfiler must see
                 fault_point("exec.dispatch")
-            fetches, new_state = self._execute(plan, block, scope, feed_vals,
-                                               state_names, fetch_names, mesh)
+            # the plan's first run is counted once for the perf ledger
+            with _perf.count_first_run(compiling) as counted:
+                fetches, new_state = self._execute(plan, block, scope,
+                                                   feed_vals, state_names,
+                                                   fetch_names, mesh)
         dt_ms = (time.perf_counter() - t0) * 1e3
         if compiling:
             # the first run pays the prepare and the schedule's decisions
             _OBS.histogram("executor/compile_ms", sig=sig).observe(dt_ms)
+            _perf.get_ledger().register(
+                id(program), sig, counted=counted and counted.cost(),
+                program=program, feed=feed_vals)
         else:
             # host time of a replayed step (the card's kernels may still
             # be running: they are launched asynchronously)
@@ -1099,6 +1107,8 @@ class Executor:
                       compiled=compiling)
         if mesh is not None and compiling:
             mesh.record_state_bytes()
+        elif compiling:
+            record_state_memory(new_state.values(), self.device)
         # maintenance epilogues (the deferred-row fold): every `every` runs
         # of this program, plain or through a CompiledProgram
         self._advance_epilogues(program, scope, 1, compiled)
@@ -1281,15 +1291,22 @@ class Executor:
         if mesh is not None:
             mesh.check_feeds({k: v[0] for k, v in stacked.items()})
         check = flag("check_nan_inf")
+        counted = None
         per_step: List[List[torch.Tensor]] = []
         with _FLIGHT.guard(site, program=f"0x{id(program):x}", sig=sig,
                            steps=n, compiling=compiling), \
                 trace_span(site.replace("Executor.", "executor/"), steps=n,
                            sig=sig):
             for i in range(n):
-                fetches, new_state = self._execute(
-                    plan, block, scope, {k: v[i] for k, v in stacked.items()},
-                    state_names, fetch_names, mesh)
+                # the plan's first run: its first step is counted once, the
+                # ledger entry covers all n
+                with _perf.count_first_run(compiling and i == 0) as c:
+                    fetches, new_state = self._execute(
+                        plan, block, scope,
+                        {k: v[i] for k, v in stacked.items()},
+                        state_names, fetch_names, mesh)
+                if c is not None:
+                    counted = c.cost()
                 if check:
                     _check_finite(list(zip(fetch_names, fetches))
                                   + list(new_state.items()))
@@ -1299,6 +1316,12 @@ class Executor:
         dt_ms = (time.perf_counter() - t0) * 1e3
         if compiling:
             _OBS.histogram("executor/compile_ms", sig=sig).observe(dt_ms)
+            if counted:
+                counted = dict(counted, flops=counted["flops"] * n,
+                               bytes_accessed=counted["bytes_accessed"] * n)
+            _perf.get_ledger().register(
+                id(program), sig, counted=counted, program=program,
+                feed={k: v[0] for k, v in stacked.items()}, steps=n)
         else:
             _EXECUTE_MS.observe(dt_ms)
         _STEPS.record(dt_ms, program_id=id(program), sig=sig,

@@ -4,10 +4,10 @@ Counterpart of ``paddle_tpu.ir.pipeline`` (reference
 ``inference/analysis/ir_pass_manager.cc``). Every pass application is
 bracketed with the analytic IR cost walk, so each pass's flop/byte delta
 lands in ``program._pass_report`` (the full per-pass record list:
-neutrality contract, op/var counts, flop/byte deltas, wall ms). The JAX
-package also exports the report to its perf ledger and registry gauges;
-that export comes with the perf ledger (ROADMAP A10), so ``record`` is
-accepted and the report stays on the program either way.
+neutrality contract, op/var counts, flop/byte deltas, wall ms) and in the
+perf ledger (`CostLedger.record_passes`): the
+``ir/pass_flops_delta{program,ir_pass}`` (+ ``_bytes_delta``,
+``_ops_removed``) gauges and the ``ir_passes`` flight-dump section.
 """
 from __future__ import annotations
 
@@ -31,18 +31,21 @@ class PassPipeline:
     """Ordered pass run with before/after cost deltas per pass.
 
     ``passes`` is a name list or a :class:`PassBuilder`; ``label`` names
-    the program in the report (default: the program's id). ``record`` is
-    the JAX package's switch for the ledger export (module docstring).
+    the program in the report (default: the program's id). ``record``
+    exports the report to `ledger` (default: the process ledger).
     """
 
     def __init__(self, passes: Union[PassBuilder, List[str]],
-                 label: Optional[str] = None, record: bool = True):
+                 label: Optional[str] = None, ledger=None,
+                 record: bool = True):
         if isinstance(passes, PassBuilder):
             passes = passes.all_passes()
         self.names = list(passes)
         for n in self.names:
             get_pass(n)  # validate early, before any pass mutates anything
         self.label = label
+        self._ledger = ledger
+        self._record = record
 
     def run(self, program: Program, **kw) -> Program:
         from ..observability import perf
@@ -85,14 +88,18 @@ class PassPipeline:
             "bytes_total_delta": sum(r["bytes_delta"] for r in records),
         }
         program._pass_report = report
+        if self._record:
+            ledger = self._ledger if self._ledger is not None \
+                else perf.get_ledger()
+            ledger.record_passes(label, report)
         return program
 
 
 def optimize_inference_program(program: Program, config=None,
                                label: Optional[str] = None,
                                scope=None,
-                               fetch_names: Optional[List[str]] = None
-                               ) -> Program:
+                               fetch_names: Optional[List[str]] = None,
+                               ledger=None) -> Program:
     """Run the inference pass pipeline from a Config (or the default
     pipeline when ``config`` is None) over ``program`` — the one entry
     point the Predictor uses."""
@@ -106,6 +113,7 @@ def optimize_inference_program(program: Program, config=None,
         consumed = {n for op in blk.ops for n in op.input_names()}
         fetch_names = [n for op in blk.ops for n in op.output_names()
                        if n not in consumed]
-    pipeline = PassPipeline(config.pass_builder(), label=label)
+    pipeline = PassPipeline(config.pass_builder(), label=label,
+                            ledger=ledger)
     return pipeline.run(program, keep=fetch_names, fetch_names=fetch_names,
                         scope=scope)

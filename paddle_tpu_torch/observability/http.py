@@ -15,8 +15,13 @@ flight-recorder contents:
     GET /fleet           one federated scrape of every process (requires
                          an installed federate.FederatedScraper; 404
                          otherwise, 503 when any target is unreachable)
-    GET /alerts          501: the alert manager is ROADMAP A10
-    GET /history         501: the metrics history is ROADMAP A10
+    GET /alerts          live alert states (requires an installed
+                         alerts.AlertManager; 404 otherwise)
+    GET /history         windowed metrics history (requires an installed
+                         history.MetricsHistory; 404 otherwise) —
+                         ?prefix= series-name prefix, ?start=/?end= unix
+                         seconds, ?window=SECS (newest window shortcut),
+                         ?tier=raw|mid|long, ?max_points=N
     GET /healthz         named health checks, ok/degraded/failing
                          aggregation (200 for ok/degraded, 503 for failing)
     GET /debug/steps     recent StepProfiler records (?n=50 to limit)
@@ -55,8 +60,6 @@ __all__ = ["IntrospectionServer", "serve_introspection",
 
 logger = logging.getLogger("paddle_tpu_torch.observability.http")
 
-_A10 = ("is not ported to paddle_tpu_torch yet (ROADMAP A10: the alerts "
-        "and history modules)\n")
 
 _STATUS_ORDER = {"ok": 0, "degraded": 1, "failing": 2}
 
@@ -146,8 +149,49 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 else:
                     doc = scraper.scrape_once()
                     self._send_json(200 if doc["ok"] else 503, doc)
-            elif path in ("/alerts", "/history"):
-                self._send(501, f"{path} {_A10}", "text/plain")
+            elif path == "/alerts":
+                from . import alerts  # deferred: alerts imports us
+                mgr = alerts.get_alert_manager()
+                if mgr is None:
+                    self._send(404, "no AlertManager installed "
+                                    "(observability.alerts."
+                                    "install_alert_manager)\n",
+                               "text/plain")
+                else:
+                    self._send_json(200, mgr.doc())
+            elif path == "/history":
+                from . import history as history_mod  # deferred import
+                hist = history_mod.get_history()
+                if hist is None:
+                    self._send(404, "no MetricsHistory installed "
+                                    "(observability.history."
+                                    "install_history)\n", "text/plain")
+                else:
+                    qs = urllib.parse.parse_qs(parsed.query)
+
+                    def _qf(key):
+                        try:
+                            return float(qs[key][0])
+                        except (KeyError, ValueError, IndexError):
+                            return None
+
+                    start, end = _qf("start"), _qf("end")
+                    window = _qf("window")
+                    if window is not None and start is None:
+                        import time as _time
+                        start = _time.time() - window
+                    tier = (qs.get("tier", ["raw"])[0] or "raw")
+                    mp = _qf("max_points")
+                    try:
+                        series = hist.query(
+                            prefix=qs.get("prefix", [""])[0],
+                            start=start, end=end, tier=tier,
+                            max_points=int(mp) if mp else 512)
+                    except ValueError as ve:
+                        self._send(400, f"{ve}\n", "text/plain")
+                    else:
+                        self._send_json(200, {"stats": hist.stats(),
+                                              "series": series})
             elif path == "/healthz":
                 overall, detail = run_health_checks()
                 code = 200 if overall in ("ok", "degraded") else 503

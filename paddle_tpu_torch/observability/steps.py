@@ -159,6 +159,16 @@ class StepProfiler:
             rec.update(extra)
         if sample_env:
             self._sample_environment(rec)
+        if program_id is not None:
+            # perf-attribution join: when the dispatched program has a
+            # cost-ledger entry, the record gains achieved_tflops (and
+            # the live perf/* gauges update), so /debug/steps and
+            # straggler anomalies carry utilization context
+            try:
+                from . import perf
+                perf.get_ledger().annotate_record(rec)
+            except Exception:
+                pass
         stream = (rec.get("program"), rec.get("sig"))
         anomaly = None
         with self._lock:

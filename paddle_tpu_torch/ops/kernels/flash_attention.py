@@ -72,6 +72,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...observability import kernel_counts
+
 NEG_INF = -1e30
 # the tuned kernels' head dims; the wide kernels take the other multiples
 # of 64
@@ -355,6 +357,62 @@ def _use_kernel(fn, q) -> bool:
     return route == "kernel"
 
 
+def _bias_bytes(bias) -> int:
+    return 0 if bias is None else bias.numel() * bias.element_size()
+
+
+def fwd_counts(q, k, bias=None) -> Tuple[float, int]:
+    """(flops, bytes) of one attention forward launch: QKᵀ and PV,
+    4·B·nh·Tq·Tk·d flops; q, k, v read and out written once, the f32 lse
+    written, the bias read once. The chip check's bound and the perf
+    ledger's declared count read this."""
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    return (4.0 * b * nh * tq * tk * d,
+            (2 * tq + 2 * tk) * b * nh * d * q.element_size()
+            + b * nh * tq * 4 + _bias_bytes(bias))
+
+
+def bwd_counts(q, k, bias=None) -> Tuple[float, int]:
+    """(flops, bytes) of one attention backward launch: S, dP, dV, dK, dQ,
+    10·B·nh·Tq·Tk·d flops; q, k, v, out, dO read and dq, dk, dv written
+    once, lse read and delta written (f32), the bias read once."""
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    return (10.0 * b * nh * tq * tk * d,
+            (4 * tq + 4 * tk) * b * nh * d * q.element_size()
+            + 2 * b * nh * tq * 4 + _bias_bytes(bias))
+
+
+def launch_kernels(entry: str, dtype, d: int, sparse: bool = False):
+    """(row name, base names of the CUDA kernels) of one launch of the
+    `entry` ("fwd" or "bwd") wrapper at this dtype and head dim."""
+    t = "bf16" if dtype == torch.bfloat16 else "f32"
+    wide = d not in HEAD_DIMS
+    row = (f"flash_attention{'_sparse' if sparse else ''}_{entry}"
+           f"[{t}{',wide' if wide else ''}]")
+    if entry == "fwd":
+        if wide:
+            return row, (f"wide_fwd_{t}_kernel",)
+        return row, (f"{'sparse' if sparse else 'flash'}_fwd_{t}_kernel",)
+    if wide:
+        return row, (("flash_bwd_delta_kernel", "wide_bwd_bf16_kernel")
+                     if t == "bf16" else
+                     ("flash_bwd_delta_kernel", "wide_role_f32_kernel",
+                      "wide_bwd_f32_kernel"))
+    if sparse:
+        return row, ("flash_bwd_delta_kernel", f"sparse_bwd_{t}_kernel")
+    if t == "bf16":
+        return row, ("flash_bwd_delta_kernel", "flash_bwd_dq_bf16_kernel",
+                     "flash_bwd_dkv_bf16_kernel")
+    return row, ("flash_bwd_delta_kernel", "flash_bwd_f32_kernel")
+
+
+def _declare(entry, q, counts, sparse=False):
+    row, kernels = launch_kernels(entry, q.dtype, q.shape[-1], sparse)
+    kernel_counts.declare(row, kernels, *counts)
+
+
 def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
                         sm_scale: Optional[float] = None,
                         dropout_rate: float = 0.0, seed=0
@@ -371,6 +429,8 @@ def flash_attention_fwd(q, k, v, bias=None, causal: bool = False,
     if not _use_kernel(flash_attention_fwd, q):
         return flash_attention_fwd_plain(q, k, v, bias, causal, sm_scale,
                                          dropout_rate, seed)
+    if kernel_counts.active():
+        _declare("fwd", q, fwd_counts(q, k, bias))
     if q.shape[-1] not in HEAD_DIMS:
         return launch_wide_fwd(flash_attention_fwd, q, k, v, bias, None,
                                None, causal, sm_scale, dropout_rate, seed)
@@ -404,6 +464,8 @@ def flash_attention_bwd(q, k, v, out, lse, g, bias=None, causal: bool = False,
     if not _use_kernel(flash_attention_bwd, q):
         return flash_attention_bwd_plain(q, k, v, out, lse, g, bias, causal,
                                          sm_scale, dropout_rate, seed, dbias)
+    if kernel_counts.active():
+        _declare("bwd", q, bwd_counts(q, k, bias))
     if q.shape[-1] not in HEAD_DIMS:
         return launch_wide_bwd(flash_attention_bwd, q, k, v, out, lse, g,
                                bias, None, None, causal, sm_scale,

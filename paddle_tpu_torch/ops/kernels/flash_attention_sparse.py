@@ -56,6 +56,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...observability import kernel_counts
 from .flash_attention import (HEAD_DIMS, NEG_INF, _DROPOUT_ARGS, _DTYPE_CODE,
                               _I64, _check_rate, _descs, _dropout_args,
                               _dropped, _kernel_layout_ok, _launch_delta,
@@ -250,6 +251,46 @@ def _check(q, k, v, se, vis, causal, name):
                          f"{vis.device}")
 
 
+def visible_pairs(se, tq: int, tk: int, causal: bool, nh: int):
+    """(query, key) pairs a sparse launch attends to over its heads, a
+    0-dim tensor on se's device (no host read)."""
+    return _mask(se, None, tq, tk, causal).sum() * nh
+
+
+def fwd_counts(q, k, se, vis, pairs) -> Tuple[float, float]:
+    """(flops, bytes) of one sparse forward launch over `pairs` visible
+    (query, key) pairs: 4·d per pair; q, k, v read and out written once,
+    the f32 lse written, se and the tile table read."""
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    small = se.numel() * 4 + vis.numel() * 4
+    return (4.0 * d * pairs,
+            (2 * tq + 2 * tk) * b * nh * d * q.element_size()
+            + b * nh * tq * 4 + small)
+
+
+def bwd_counts(q, k, se, vis, pairs) -> Tuple[float, float]:
+    """(flops, bytes) of one sparse backward launch: 10·d per visible pair;
+    q, k, v, out, dO read and dq, dk, dv written once, lse read and delta
+    written (f32), se and the tile table read."""
+    b, nh, tq, d = q.shape
+    tk = k.shape[2]
+    small = se.numel() * 4 + vis.numel() * 4
+    return (10.0 * d * pairs,
+            (4 * tq + 4 * tk) * b * nh * d * q.element_size()
+            + 2 * b * nh * tq * 4 + small)
+
+
+def _declare(entry, q, k, se, vis, causal):
+    from .flash_attention import launch_kernels
+
+    row, kernels = launch_kernels(entry, q.dtype, q.shape[-1], sparse=True)
+    pairs = visible_pairs(se, q.shape[2], k.shape[2], causal, q.shape[1])
+    counts = (fwd_counts if entry == "fwd" else bwd_counts)(q, k, se, vis,
+                                                             pairs)
+    kernel_counts.declare(row, kernels, *counts)
+
+
 def flash_attention_sparse_fwd(q, k, v, se, vis, causal: bool = False,
                                sm_scale: Optional[float] = None,
                                dropout_rate: float = 0.0, seed=0
@@ -267,6 +308,8 @@ def flash_attention_sparse_fwd(q, k, v, se, vis, causal: bool = False,
     if not _use_kernel(flash_attention_sparse_fwd, q, k.shape[2]):
         return flash_attention_sparse_fwd_plain(q, k, v, se, vis, causal,
                                                 sm_scale, dropout_rate, seed)
+    if kernel_counts.active():
+        _declare("fwd", q, k, se, vis, causal)
     if q.shape[-1] not in HEAD_DIMS:
         _kernel_checks("flash_attention_sparse_fwd", vis)
         return launch_wide_fwd(flash_attention_sparse_fwd, q, k, v, None,
@@ -297,6 +340,8 @@ def flash_attention_sparse_bwd(q, k, v, out, lse, g, se, vis,
         return flash_attention_sparse_bwd_plain(q, k, v, out, lse, g, se,
                                                 vis, causal, sm_scale,
                                                 dropout_rate, seed)
+    if kernel_counts.active():
+        _declare("bwd", q, k, se, vis, causal)
     if q.shape[-1] not in HEAD_DIMS:
         _kernel_checks("flash_attention_sparse_bwd", vis)
         return launch_wide_bwd(flash_attention_sparse_bwd, q, k, v, out, lse,

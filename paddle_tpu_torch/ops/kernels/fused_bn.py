@@ -50,6 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...observability import kernel_counts
 from ...parallel.collective import axis_size, psum
 from ..common import (bn_batch_stats_xla1, bn_global_moments, bn_normalize,
                       conv2d_nchw)
@@ -191,6 +192,51 @@ def _route(t, name) -> bool:
     return True
 
 
+def stats_counts(m: int, c: int, itemsize: int) -> Tuple[float, int]:
+    """(flops, bytes) of one K1 launch (row 7) over an (M, C) matrix:
+    a sum and a sum of squares a value; x read once, mean and var written
+    (f32). The chip check's bound and the declared count read this."""
+    return 3.0 * m * c, m * c * itemsize + 2 * c * 4
+
+
+def apply_counts(m: int, c: int, itemsize: int, act: str = "",
+                 has_res: bool = False) -> Tuple[float, int]:
+    """(flops, bytes) of one K2 launch (rows 8 and 11): x (and the
+    residual) read and y written once, mean, inv·scale and bias read."""
+    return ((4.0 + has_res + (act == "relu")) * m * c,
+            (2 + has_res) * m * c * itemsize + 3 * c * 4)
+
+
+def bwd_reduce_counts(m: int, c: int, itemsize: int) -> Tuple[float, int]:
+    """(flops, bytes) of K3's reduction pass (row 9): dy and x read once,
+    the f32 partial sums in and dbeta, dgamma out."""
+    return 4.0 * m * c, 2 * m * c * itemsize + 4 * c * 4
+
+
+def bwd_dx_counts(m: int, c: int, itemsize: int) -> Tuple[float, int]:
+    """(flops, bytes) of K3's dx pass (row 9): dy and x read again and dx
+    written, five f32 vectors read."""
+    return 6.0 * m * c, 3 * m * c * itemsize + 5 * c * 4
+
+
+def bwd_counts(m: int, c: int, itemsize: int) -> Tuple[float, int]:
+    """(flops, bytes) of the whole K3 backward (both passes) at its
+    two-pass floor: dy and x read once, dx written once."""
+    return 10.0 * m * c, 3 * m * c * itemsize + 5 * c * 4
+
+
+def conv_stats_counts(m: int, ci: int, co: int,
+                      itemsize: int) -> Tuple[float, int]:
+    """(flops, bytes) of one K4 launch (row 10): the (M, Ci)·(Ci, Co)
+    product; X and W read and Y written once, mean and var written."""
+    return (2.0 * m * ci * co,
+            (m * ci + ci * co + m * co) * itemsize + 2 * co * 4)
+
+
+def _dt(t) -> str:
+    return "bf16" if t.dtype == torch.bfloat16 else "f32"
+
+
 def bn_stats(x) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (mean, var) of NCHW x, f32 [C] (row 7, K1)."""
     x2 = to2d(x)
@@ -198,6 +244,10 @@ def bn_stats(x) -> Tuple[torch.Tensor, torch.Tensor]:
         return stats_plain(x2)
     out = _launch_stats(x2)
     bn_stats.launches += 1
+    if kernel_counts.active():
+        kernel_counts.declare(f"fused_bn_stats[{_dt(x2)}]",
+                              ("colsum_kernel", "finish_kernel"),
+                              *stats_counts(*x2.shape, x2.element_size()))
     return out
 
 
@@ -228,6 +278,11 @@ def _apply(x2, mean, inv, scale, bias, act, res2, counter):
         return apply_plain(x2, mean, isc, bias, act, res2)
     y2 = _launch_apply(x2, mean, isc, bias, act, res2)
     counter.launches += 1
+    if kernel_counts.active():
+        kernel_counts.declare(
+            f"fused_bn_apply[{_dt(x2)}]", ("apply_kernel",),
+            *apply_counts(*x2.shape, x2.element_size(), act,
+                          res2 is not None))
     return y2
 
 
@@ -237,6 +292,11 @@ def bn_bwd_reduce(dy2, x2, y2, mean, inv):
         return bwd_reduce_plain(dy2, x2, y2, mean, inv)
     out = _launch_bwd_reduce(dy2, x2, y2, mean, inv)
     bn_bwd_reduce.launches += 1
+    if kernel_counts.active():
+        kernel_counts.declare(f"fused_bn_bwd_reduce[{_dt(x2)}]",
+                              ("colsum_kernel", "finish_kernel"),
+                              *bwd_reduce_counts(*x2.shape,
+                                                 x2.element_size()))
     return out
 
 
@@ -251,6 +311,10 @@ def bn_bwd_dx(dy2, x2, y2, mean, inv, isc, dbeta, dgamma, m, has_res):
     out = _launch_bwd_dx(dy2, x2, y2, mean, inv, isc, dbeta, dgamma, m,
                          has_res)
     bn_bwd_dx.launches += 1
+    if kernel_counts.active():
+        kernel_counts.declare(f"fused_bn_bwd_dx[{_dt(x2)}]",
+                              ("bwd_dx_kernel",),
+                              *bwd_dx_counts(*x2.shape, x2.element_size()))
     return out
 
 
@@ -282,6 +346,12 @@ def conv_stats(xs, w):
         return conv_stats_plain(xs, w)
     out = _launch_conv_stats(xs, w)
     conv_stats.launches += 1
+    if kernel_counts.active():
+        co, ci = w.shape[:2]
+        kernel_counts.declare(
+            f"fused_conv_stats[{_dt(xs)}]",
+            (f"conv_stats_{_dt(xs)}_kernel", "finish_kernel"),
+            *conv_stats_counts(xs.numel() // ci, ci, co, xs.element_size()))
     return out
 
 

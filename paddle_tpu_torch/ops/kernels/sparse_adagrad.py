@@ -42,6 +42,8 @@ import os
 
 import torch
 
+from ...observability import kernel_counts
+
 SENTINEL = 2 ** 31 - 1   # uid of an unused slot: sorts after every real id
 PACK_LANES = 128         # u16 lanes per packed row (64 f32 values at most)
 
@@ -164,6 +166,40 @@ def _lr_tensor(lr, like):
                            device=like.device).reshape(())
 
 
+def distinct(ids):
+    """Distinct values of a 1-D id tensor, a 0-dim tensor on its device
+    (a sort, no host read)."""
+    if not ids.numel():
+        return ids.new_zeros(())
+    s = ids.reshape(-1).sort().values
+    return (s[1:] != s[:-1]).sum() + 1
+
+
+def adagrad_counts(n_valid, n_slots: int, vis: int,
+                   lanes: int = PACK_LANES):
+    """(flops, bytes) of one row-12 launch: each valid slot reads its id,
+    its summed gradient and its row's payload and writes the whole row; a
+    SENTINEL slot reads its id. `n_valid` may be a 0-dim tensor."""
+    return (6.0 * n_valid * vis,
+            n_valid * (8 + 4 * vis + 8 * vis + 2 * lanes)
+            + (n_slots - n_valid) * 8)
+
+
+def gather_counts(n_distinct, n: int, lanes: int = PACK_LANES):
+    """(flops, bytes) of one row-13 launch of n slots: a row is read once
+    per distinct slot, the output written once per slot, every slot's id
+    read."""
+    return 0.0, (n_distinct + n) * 2 * lanes + n * 8
+
+
+def scatter_counts(n_src_distinct, n_distinct, n: int,
+                   lanes: int = PACK_LANES):
+    """(flops, bytes) of one row-14 launch of n (slot, src) pairs: a source
+    row read once per distinct src, a table row written once per distinct
+    slot, both ids of every pair read."""
+    return 0.0, (n_src_distinct + n_distinct) * 2 * lanes + n * 16
+
+
 def fused_adagrad_update(table, uids, utot, lr, *, vis: int, eps: float):
     """Exact Adagrad on ``table[uids]`` in place (row 12).
 
@@ -183,6 +219,11 @@ def fused_adagrad_update(table, uids, utot, lr, *, vis: int, eps: float):
         return fused_adagrad_update_plain(table, uids, utot, lr, vis, eps)
     _launch_adagrad(table, uids, utot, lr, vis, eps)
     fused_adagrad_update.launches += 1
+    if kernel_counts.active():
+        kernel_counts.declare(
+            "sparse_adagrad_update", ("adagrad_kernel",),
+            *adagrad_counts((uids != SENTINEL).sum(), uids.numel(), vis,
+                            lanes))
     return table
 
 
@@ -197,6 +238,10 @@ def fused_row_gather(table, slots):
         return fused_row_gather_plain(table, slots)
     out = _launch_gather(table, slots)
     fused_row_gather.launches += 1
+    if kernel_counts.active():
+        kernel_counts.declare(
+            "sparse_row_gather", ("gather_kernel",),
+            *gather_counts(distinct(slots), slots.numel(), table.shape[1]))
     return out
 
 
@@ -216,6 +261,11 @@ def fused_row_scatter(table, slots, rows, src=None):
         return fused_row_scatter_plain(table, slots, rows, src)
     _launch_scatter(table, slots, rows, src)
     fused_row_scatter.launches += 1
+    if kernel_counts.active():
+        kernel_counts.declare(
+            "sparse_row_scatter", ("scatter_kernel",),
+            *scatter_counts(distinct(src), distinct(slots), slots.numel(),
+                            table.shape[1]))
     return table
 
 

@@ -339,8 +339,10 @@ def estimate_plan(plan: Plan, program, feed, loss_name: str,
                   place=None) -> Plan:
     """Fill in `est_bytes_per_device` + `source` for one candidate: its
     analytic bound when that is already over ``plan.budget_bytes``, else
-    its measured step; a step that ran out of device memory sets
-    ``error`` and ``fits=False``, its estimate over the budget. `place`:
+    its measured step, with `predicted_flops` and
+    `predicted_bytes_accessed` from the perf ledger's count of the step's
+    first run; a step that ran out of device memory sets ``error`` and
+    ``fits=False``, its estimate over the budget. `place`:
     where the step runs (``CUDAPlace(0)`` unless the caller passes
     another)."""
     from .core.executor import CUDAPlace
@@ -353,7 +355,30 @@ def estimate_plan(plan: Plan, program, feed, loss_name: str,
         plan.est_bytes_per_device = bound
         plan.source = "analytic"
         return plan
+    from .observability import perf
+
+    before = perf.get_ledger().snapshot()
     est, plan.error = _measured_bytes(cp, program, mfeed, loss_name, place)
+    # the measured steps' first run registered its cost in the ledger (and
+    # the second attributed it): the entry of this program that changed
+    mine = f"0x{id(program):x}"
+    for key, entry in perf.get_ledger().snapshot().items():
+        if key.split(" ")[0] == mine and entry != before.get(key):
+            plan.predicted_flops = entry["flops"] / entry["steps"]
+            plan.predicted_bytes_accessed = (entry["bytes_accessed"]
+                                             / entry["steps"])
+    if cp._mesh is not None:
+        # each rank counted its own dispatch: the group's largest, as the
+        # byte estimate
+        import torch.distributed as dist
+
+        t = torch.tensor([plan.predicted_flops or 0.0,
+                          plan.predicted_bytes_accessed or 0.0],
+                         dtype=torch.float64, device=place.torch_device())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        flops, nbytes = t.tolist()
+        plan.predicted_flops = flops or None
+        plan.predicted_bytes_accessed = nbytes or None
     if plan.error is not None:  # out of memory: over any budget
         plan.fits = False
         if plan.budget_bytes is not None:

@@ -48,7 +48,14 @@ Commands:
   and the derived ``autoscale/*`` signals; ``--json`` prints the full
   ``/fleet`` document. Exit 1 when ANY scrape failed. ``--watch N``
   re-scrapes and re-renders every N seconds (screen cleared each pass,
-  Ctrl-C exits 0).
+  Ctrl-C exits 0);
+* ``history``     — the coordinator's ring TSDB (``/history`` on the
+  ``--worker`` URL): one row per stored series with point count, last
+  value, and a sparkline of the requested window. ``--prefix`` filters
+  by series-name prefix (e.g. ``autoscale/``), ``--window`` is the
+  lookback in seconds (default 300), ``--tier raw|mid|long`` picks the
+  downsampling tier; ``--json`` prints the raw document. Exit 1 when
+  no MetricsHistory is installed.
 
 The hot-row cache lives in the WORKER process, not on the shards, so
 its ``ps/cache_*`` series come from the worker's introspection plane:
@@ -229,7 +236,7 @@ def main(argv=None) -> int:
         prog="ps_admin",
         description="inspect a running PS shard fleet")
     ap.add_argument("cmd", choices=["ping", "stats", "meta", "dump-health",
-                                    "fleet"])
+                                    "fleet", "history"])
     ap.add_argument("--endpoints", default="",
                     help="comma-separated host:port list (default: "
                          "PADDLE_PSERVER_ENDPOINTS)")
@@ -248,7 +255,61 @@ def main(argv=None) -> int:
     ap.add_argument("--watch", type=float, default=None, metavar="N",
                     help="fleet: re-scrape and re-render every N seconds "
                          "(clear screen each pass; Ctrl-C exits cleanly)")
+    ap.add_argument("--prefix", default="",
+                    help="history: series-name prefix filter")
+    ap.add_argument("--window", type=float, default=300.0,
+                    help="history: lookback window, seconds (default 300)")
+    ap.add_argument("--tier", default="raw", choices=["raw", "mid", "long"],
+                    help="history: downsampling tier (default raw)")
     args = ap.parse_args(argv)
+
+    if args.cmd == "history":
+        if not args.worker:
+            raise SystemExit("ps_admin: history needs --worker "
+                             "http://host:port (the introspection URL)")
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+        qs = urllib.parse.urlencode({
+            "prefix": args.prefix, "window": args.window,
+            "tier": args.tier})
+        url = args.worker.rstrip("/") + "/history?" + qs
+        try:
+            with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+                doc = json.load(resp)
+        except urllib.error.HTTPError as e:
+            print(f"ps_admin: {url}: HTTP {e.code} "
+                  f"({e.read().decode(errors='replace').strip()})",
+                  file=sys.stderr)
+            return 1
+        except Exception as e:
+            print(f"ps_admin: {url}: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+            return 1
+        if args.json:
+            print(json.dumps(doc, sort_keys=True, default=str))
+            return 0
+        from .postmortem import sparkline
+        stats = doc.get("stats") or {}
+        print(f"history: {stats.get('series', '?')} series, "
+              f"{stats.get('raw_points', '?')} raw points, "
+              f"~{stats.get('est_bytes', 0)} / "
+              f"{stats.get('max_bytes', '?')} bytes")
+        print(f"{'series':<52}{'pts':>5}{'last':>12}  trend")
+        for s in doc.get("series", ()):
+            label = s["name"]
+            if s.get("labels"):
+                label += "{" + ",".join(
+                    f"{k}={v}"
+                    for k, v in sorted(s["labels"].items())) + "}"
+            if s.get("field") != "value":
+                label += f" [{s['field']}]"
+            pts = s.get("points") or []
+            vals = [p[1] for p in pts if len(p) > 1]
+            last = f"{vals[-1]:.4g}" if vals else "-"
+            print(f"{label[:51]:<52}{len(pts):>5}{last:>12}  "
+                  f"{sparkline(vals)}")
+        return 0
 
     if args.cmd == "fleet":
         workers = [w.strip() for w in args.workers.split(",") if w.strip()]

@@ -3,8 +3,9 @@ port, on the CPU: /metrics (Prometheus text), /metrics.json, /debug/steps,
 /debug/flight, 404, /healthz aggregation and its 503, the process-wide
 server's idempotence and its env switch, and the serving tier's health
 checks. The exposition text of the same metrics is held to the JAX
-package's renderer (equal); /alerts and /history answer 501 until ROADMAP
-A10 ports their modules."""
+package's renderer (equal); /alerts and /history answer 404 until an
+alert manager / metrics history is installed (their 200s are in
+test_torch_root_cause.py and test_torch_slo_alerts.py)."""
 import json
 
 import numpy as np
@@ -92,9 +93,11 @@ def test_http_debug_and_404(introspection):
     assert {"steps", "events", "last_dump_path", "last_dump"} <= set(flight)
     code, _ = _http_get(introspection.url + "/nope")
     assert code == 404
-    for path in ("/alerts", "/history"):
+    # nothing installed: 404 naming the installer, as the JAX package's
+    for path, hint in (("/alerts", "install_alert_manager"),
+                       ("/history", "install_history")):
         code, body = _http_get(introspection.url + path)
-        assert code == 501 and "A10" in body
+        assert code == 404 and hint in body
     code, _ = _http_get(introspection.url + "/fleet")
     assert code == 404  # no FederatedScraper installed
 

@@ -8,9 +8,8 @@ Held to the JAX package: with the JAX package's activation scales the
 port's rewritten program has the same ops and attributes and bitwise the
 same int8 weights and scales, its outputs agree within 1e-6 of the largest
 output, and the port's own calibration takes the same gate decision with a
-delta within 1e-4. (The perf-ledger lines of the JAX test,
-`test_predictor_pass_report_lands_in_ledger`'s last assertion, wait for
-the ledger: ROADMAP A10.)"""
+delta within 1e-4. The pass report lands in the port's perf ledger under
+the predictor's label, as in the JAX package."""
 import numpy as np
 import pytest
 import torch
@@ -83,6 +82,8 @@ def test_predictor_pass_report_lands_in_ledger(mlp_dir):
     assert report["ops_total_removed"] >= (
         fc["ops_before"] - fc["ops_after"])
     assert report["label"].startswith("infer:")
+    from paddle_tpu_torch.observability import perf as tperf
+    assert tperf.get_ledger().pass_reports().get(report["label"]) is not None
     assert pred._program._layout_plan["matmul_ops"]
     # the same passes, in the same order, with the same op counts as the
     # JAX package's report
