@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits non-zero; nothing is caught):
+Phases (any failure raises and exits non-zero; nothing is caught), in this
+order except that the kernel phases 6, 8 and 10 run right after phase 3,
+before any main path:
 1. device  — the card's name and power limit.
 2. build   — builds every hand-written kernel from paddle_tpu_torch/csrc/
              (one nvcc per source, all started together).
@@ -319,7 +321,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 19. the PS tier and streaming — one JSON line, the card's name and power
              limit in it. DeepFM (hidden 64, B = 4096, packed Adagrad on
              106,496 rows a step) over 8 in-thread loopback socket shards
-             of a 2,097,152-row table, 36 steps (3 warm-up), arms
+             of a 2,097,152-row table, 18 steps (3 warm-up), arms
              (pull_ahead, push_depth) = (0,0), (2,0), (2,1), (2,1) with a
              212,992-row hot cache (its first 6 steps: the arm's host
              planning loop takes 5-7 s a step), (2,1)
@@ -336,14 +338,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              save holds the loop, bytes, restore ms. The aggregate
              67,108,864-row (17.18 GB) table over 8 socket shards at
              (2,1): finite losses, examples/s, RSS. A pserver SIGKILLed
-             mid-run (B = 1024, V = 262,144, 2 runner processes, 12
-             steps, killed before step 5, restarted after 0.25 s; with
+             mid-run (B = 1024, V = 262,144, 2 runner processes, 6
+             steps, killed before step 3, restarted after 0.25 s; with
              and without a 53,248-row hot cache): losses bitwise equal to
              the uninterrupted run, one recovery, RPC retries, the
              recovery pause, journal bytes, /healthz through a
              ShardMonitor ok -> degraded -> ok with the times. Online
              learning (the JAX bench's cell: 200,000-id stream, 2 dynamic
-             shards of 16,384 rows, 375 steps of 256, a PsLookupPredictor
+             shards of 16,384 rows, 225 steps of 256, a PsLookupPredictor
              on the card fed by a DeltaPublisher with a 1 s budget): AUC
              rises, rows materialized past the capacity while live rows
              stay within it, staleness p99 within the budget, the serving
@@ -353,7 +355,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              2 ProcessReplicas (--ps-endpoints, on the card) answering 64
              batches of 8 bitwise like a ThreadReplica over an in-process
              table; ps_admin stats, dump-health and fleet exit 0 where
-             torch cannot be imported. The phase's wall time.
+             torch cannot be imported. The phase's wall time. Cut for
+             phase 26's time: the socket arms from 36 steps to 18, the
+             recovery runs from 12 steps to 6 (53.3 s → 38.4 s at 8), the
+             online cell from 375 steps to 225 (25.6 s → 13.2 s; two runs
+             on the H100, the second on a slower host).
 20. parallel — data and sequence parallelism on an NCCL group of
              torch.cuda.device_count() ranks (at most 8; this process is
              rank 0, the others run this script with --p20-rank): every
@@ -379,12 +385,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              gloo with both ranks on the one card (NCCL refuses two ranks
              of a communicator on one device), first recording which
              collectives the backend takes on CUDA tensors. On a
-             {"dp": 1, "tp": 2} mesh: BERT-base (12 layers, hidden 768, 12
+             {"dp": 1, "tp": 2} mesh: BERT-base (6 layers, hidden 768, 12
              heads, T = 512, B = 8, Adam, dropout 0, the Megatron specs of
              tp_axis="tp") 3 f32 steps (TF32 off), saved as a tp-sharded
-             checkpoint, one more step; 4 bf16 AMP steps; Transformer-big
-             NMT (packed, sparse attention, annotate_tp(NMT_RULES)) 3 bf16
-             AMP steps at full depth and 3 f32 steps at 2+2 layers;
+             checkpoint, one more step; 2 bf16 AMP steps; Transformer-big
+             NMT (packed, sparse attention, annotate_tp(NMT_RULES)) 2 bf16
+             AMP steps at full depth and 2 f32 steps at 2+2 layers;
              DeepFM (shard_axis="tp", V = 33,554,432 packed rows on the
              fused sparse-Adagrad update, B = 4096) 3 steps. On an
              {"ep": 2} mesh: layers.moe_ffn (8 experts, d 1024, hidden
@@ -398,7 +404,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              heads (6 of 12, 8 of 16) the expected number of times, row
              12 once a step a rank, no plain call on the card; step ms,
              peak memory and the state bytes a rank beside the plain
-             run's.
+             run's. Cut for phase 26's time: BERT-base from 12 layers to
+             6, its bf16 run from 4 steps to 2, the NMT runs from 3 to 2
+             (the phase took 65.4 s at 12 layers on the H100; 95.9 s at
+             6 layers on a slower host, where gloo's steps ran 1.5-2x
+             longer).
 22. pipelines — pipelines, the sequence axis and attention dropout on a
              slice, on gloo groups on the one card (NCCL where there are
              enough cards; ranks 1.. run this script with --p22-rank):
@@ -518,6 +528,54 @@ Phases (any failure raises and exits non-zero; nothing is caught):
              fused conv+BN and block-sparse attention cells at the JAX
              package's defaults (f32) and at ResNet-50 stage-1 .c and the
              NMT encoder (bf16), each kernel arm held to its plain arm.
+26. dygraph — the dygraph mode, in a process of its own (`chip_smoke.py
+             --p26`, as phase 25): (a) ResNet-50 built from dygraph.nn
+             Conv2D / BatchNorm / Pool2D / Linear at full width (64 to
+             2,048 channels, 224², 1,000 classes, 53 BatchNorms; the
+             reference's test_imperative_resnet.py pattern) trained in
+             f32 at B = 32 under PDTPU_BN_MODE=pallas with
+             Momentum(0.01, 0.9) for 4 steps on a seeded batch: rows 7,
+             8 and 9 (reduce and dx) launched 53 times a step each, none
+             through K4 (every batch_norm call takes the kernels); the
+             same network in the static DSL (layers.conv2d / batch_norm /
+             pool2d / fc, no fused conv+BN) from the same weights on the
+             static executor: the first 3 losses within 1e-4 relative,
+             each parameter's change within 1e-3 relative L2, the last
+             BatchNorm's running mean and variance within 1e-4; the warm
+             step ms of both, their ratio, a profiled dygraph step's
+             device ms and busy share, peak memory; (b) dygraph.jit of
+             the trained model in eval mode against its eager eval
+             forward, within 1e-6 relative; (c) profiler.op_profiler
+             around one training step: its calls equal the ops the
+             network traces, its top rows printed; (d)
+             tools.op_bench.bench_dygraph_mlp at the JAX package's
+             defaults (50 steps, batch 64, width 256, depth 4): the
+             cached and uncached step ms and their spread; (e)
+             DataParallel on a gloo pair on the one card (CUDA tensors;
+             rank 1 runs this script with --p26-rank; NCCL refuses two
+             ranks on one card): tests/torch_dist_dygraph_runner.py's
+             MLP for 5 steps, the same batch on both ranks, each rank's
+             losses within 1e-5 of one process's, the all-reduce bytes
+             a step.
+Profiler sessions. torch.profiler loses kernel records in a process after
+other processes or threads used the card (in the H100 runs from phase 6
+on when it ran after the first main paths; phases 19-24 run after phase
+18's process fleet). So every session here (`profile_device` and the helpers on it,
+`p19_profile_once`) reads the hand-kernel wrappers' launch counters before
+and after it and holds the session's records of each hand kernel to what
+those counts give (`check_session`: K1 colsum + finish, K2 apply, K3
+colsum + dx, K4 conv + finish, a flash forward one kernel, a flash
+backward delta + main, bf16's main dq + dk/dv; the sparse-Adagrad and row
+kernels one each). A short session is taken again: `device_ms` up to six
+sessions for a good one (three when the first three are all short),
+`profile_record` up to six, phase 24's DGC step and `p19_profile_once`
+never (a session of the DGC step takes ~9 s to read; `p19_profile_once`
+profiles a training step, which another session would change).
+One still short prints its reading as incomplete, with no device numbers;
+a kernel's timing then comes from CUDA events around back-to-back calls
+instead, said so in its session's record. A session with no hand kernel
+in it is unchecked. The line "profile sessions" counts them at the end,
+by phase.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}; the line before them gives the
 script's wall seconds. Exits non-zero without a result when torch sees no
@@ -623,6 +681,11 @@ def log(msg):
     print(msg, flush=True)
 
 
+def ratio(a, b):
+    """a / b, or None where a reading is incomplete (None)."""
+    return None if a is None or b is None or not b else a / b
+
+
 def cuda_ms(fn, iters=20, warmup=3):
     """ms per call between CUDA events around back-to-back calls: the
     device time, or the host's launch time where that is longer."""
@@ -647,15 +710,155 @@ def _device_us(evt):
     return 0.0
 
 
-def profile_device(fn, iters=10, counts=None):
-    """Device time by kernel name over `iters` calls of fn, from
-    torch.profiler: ({name: us per call}, wall us per call, device
-    events per call). `counts`, if given, gets {name: launches per call}."""
+# -- profiler sessions held to the hand kernels' launch counters --------------
+# torch.profiler loses kernel records in a process after other processes or
+# threads have used the card. Every session here reads the hand-kernel
+# wrappers' launch counters before and after it: each wrapper launches a
+# fixed set of kernels a call (K1 is colsum + finish, K3 reduce + dx, K4
+# conv + finish, a flash backward delta + main, bf16's main being dq + dk/dv),
+# so the session's records of each hand kernel must equal what the counters'
+# delta gives. A session with no hand kernel in it is "unchecked".
+SESSIONS = []   # every session's check: {"label", "phase", "status", ...}
+PHASE = ["1"]   # the phase main is in (each session records it)
+
+_COUNTERS = (
+    # (key, module, wrapper, counter)
+    ("fwd", "flash_attention", "flash_attention_fwd", "launches"),
+    ("fwd_wide", "flash_attention", "flash_attention_fwd", "wide_launches"),
+    ("bwd", "flash_attention", "flash_attention_bwd", "launches"),
+    ("bwd_wide", "flash_attention", "flash_attention_bwd", "wide_launches"),
+    ("delta", "flash_attention", "flash_attention_delta", "launches"),
+    ("sfwd", "flash_attention_sparse", "flash_attention_sparse_fwd",
+     "launches"),
+    ("sfwd_wide", "flash_attention_sparse", "flash_attention_sparse_fwd",
+     "wide_launches"),
+    ("sbwd", "flash_attention_sparse", "flash_attention_sparse_bwd",
+     "launches"),
+    ("sbwd_wide", "flash_attention_sparse", "flash_attention_sparse_bwd",
+     "wide_launches"),
+    ("bn_stats", "fused_bn", "bn_stats", "launches"),
+    ("bn_apply", "fused_bn", "bn_apply", "launches"),
+    ("apply2d", "fused_bn", "apply2d", "launches"),
+    ("bn_bwd_reduce", "fused_bn", "bn_bwd_reduce", "launches"),
+    ("bn_bwd_dx", "fused_bn", "bn_bwd_dx", "launches"),
+    ("conv_stats", "fused_bn", "conv_stats", "launches"),
+    ("adagrad", "sparse_adagrad", "fused_adagrad_update", "launches"),
+    ("gather", "sparse_adagrad", "fused_row_gather", "launches"),
+    ("scatter", "sparse_adagrad", "fused_row_scatter", "launches"))
+
+
+def hand_launches():
+    """Every hand-kernel wrapper's launch counter now (0 for a kernel
+    module the run has not imported)."""
+    out = {}
+    for key, mod, fn, attr in _COUNTERS:
+        m = sys.modules.get(f"paddle_tpu_torch.ops.kernels.{mod}")
+        out[key] = getattr(getattr(m, fn, None), attr, 0) if m else 0
+    return out
+
+
+def expected_records(d):
+    """[(kernel base names, least, most records)] that the counter deltas
+    `d` give (one group a kernel family; a wide f32 backward launches
+    its three roles apart or together, so its group is a range)."""
+    dense_bwd, sparse_bwd = d["bwd"] - d["bwd_wide"], d["sbwd"] - d["sbwd_wide"]
+    wide_bwd = d["bwd_wide"] + d["sbwd_wide"]
+
+    def exact(names, n):
+        return (names, n, n)
+
+    return [
+        exact(("flash_fwd_f32_kernel", "flash_fwd_bf16_kernel"),
+              d["fwd"] - d["fwd_wide"]),
+        exact(("sparse_fwd_f32_kernel", "sparse_fwd_bf16_kernel"),
+              d["sfwd"] - d["sfwd_wide"]),
+        exact(("wide_fwd_f32_kernel", "wide_fwd_bf16_kernel"),
+              d["fwd_wide"] + d["sfwd_wide"]),
+        exact(("flash_bwd_delta_kernel",), d["bwd"] + d["sbwd"] + d["delta"]),
+        exact(("flash_bwd_f32_kernel", "flash_bwd_dq_bf16_kernel"),
+              dense_bwd),
+        exact(("sparse_bwd_f32_kernel", "sparse_bwd_bf16_kernel"),
+              sparse_bwd),
+        (("wide_bwd_bf16_kernel", "wide_bwd_f32_kernel",
+          "wide_role_f32_kernel"), wide_bwd, 3 * wide_bwd),
+        exact(("colsum_kernel",), d["bn_stats"] + d["bn_bwd_reduce"]),
+        exact(("finish_kernel",),
+              d["bn_stats"] + d["bn_bwd_reduce"] + d["conv_stats"]),
+        exact(("apply_kernel",), d["bn_apply"] + d["apply2d"]),
+        exact(("bwd_dx_kernel",), d["bn_bwd_dx"]),
+        exact(("conv_stats_f32_kernel", "conv_stats_bf16_kernel"),
+              d["conv_stats"]),
+        exact(("adagrad_kernel",), d["adagrad"]),
+        exact(("gather_kernel",), d["gather"]),
+        exact(("scatter_kernel",), d["scatter"])]
+
+
+def check_session(before, after, records):
+    """A session's check: `records` {kernel base name: records} of its
+    trace against the counters' delta. Returns {"status": "checked" |
+    "short" | "over" | "unchecked", "want", "got"}: "short" where a group
+    has fewer records than the counters launched, "over" where it has
+    more (a launch no counter saw)."""
+    d = {k: after[k] - before[k] for k in after}
+    want, got, status = {}, {}, "checked"
+    for names, lo, hi in expected_records(d):
+        n = sum(records.get(k, 0) for k in names)
+        if lo == hi == n == 0:
+            continue
+        key = "|".join(names)
+        want[key], got[key] = (lo if lo == hi else [lo, hi]), n
+        if n < lo:
+            status = "short"
+        elif n > hi and status != "short":
+            status = "over"
+    dq, dkv = (records.get("flash_bwd_dq_bf16_kernel", 0),
+               records.get("flash_bwd_dkv_bf16_kernel", 0))
+    if dq or dkv:
+        want["flash_bwd_dkv_bf16_kernel"], got[
+            "flash_bwd_dkv_bf16_kernel"] = dq, dkv
+        if dkv < dq:
+            status = "short"
+        elif dkv > dq and status != "short":
+            status = "over"
+    if not want:
+        status = "unchecked"
+    return {"status": status, "want": want, "got": got}
+
+
+def session_records(prof):
+    """{hand kernel base name: records} of a torch.profiler session."""
+    from paddle_tpu_torch.observability.kernel_counts import (HAND_KERNELS,
+                                                               base_name)
+
+    out = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) is None \
+                or "cuda" not in str(evt.device_type).lower():
+            continue
+        b = base_name(evt.key)
+        if b in HAND_KERNELS:
+            out[b] = out.get(b, 0) + evt.count
+    return out
+
+
+def note_session(label, chk, tries):
+    """Keep a session's check; print it when it is not a clean one."""
+    rec = {"label": label, "phase": PHASE[0], "status": chk["status"],
+           "tries": tries}
+    if chk["status"] not in ("checked", "unchecked"):
+        rec.update(want=chk["want"], got=chk["got"])
+        log("profile session " + json.dumps(rec))
+    SESSIONS.append(rec)
+    return rec
+
+
+def _profile_once(fn, iters):
+    """One torch.profiler session over `iters` calls of fn: (prof, wall us
+    per call, its check)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
+    before = hand_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -663,6 +866,33 @@ def profile_device(fn, iters=10, counts=None):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e6 / iters
+    return prof, wall, check_session(before, hand_launches(),
+                                     session_records(prof))
+
+
+def profile_device(fn, iters=10, counts=None, tries=1, label=None):
+    """Device time by kernel name over `iters` calls of fn, from
+    torch.profiler: ({name: us per call}, wall us per call, device
+    events per call). `counts`, if given, gets {name: launches per call}.
+    The session is held to the launch counters (`check_session`); a short
+    one is taken again, up to `tries` sessions in all, and one still short
+    returns no device numbers ({}, wall, 0): the reading is incomplete."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        prof, wall, chk = _profile_once(fn, iters)
+        if chk["status"] in ("checked", "unchecked"):
+            break
+    code = getattr(fn, "__code__", None)
+    rec = note_session(label or (f"{fn.__name__}:{code.co_firstlineno}"
+                                 if code else "session"), chk, attempt + 1)
+    profile_device.last = rec
+    if rec["status"] not in ("checked", "unchecked"):
+        log(f"profile {rec['label']}: incomplete after {attempt + 1} "
+            f"sessions; no device numbers")
+        return {}, wall, 0
     per, events = {}, 0
     for evt in prof.key_averages():
         us = _device_us(evt)
@@ -675,26 +905,41 @@ def profile_device(fn, iters=10, counts=None):
     return per, wall, events / iters
 
 
+profile_device.last = None
+
+
 def device_ms(fn):
-    """ms of device time per call of fn, summed over its kernels: the
-    median of three profiler sessions that report device events (a session
-    has come back with none, and once with a fraction of them), from at
-    most six."""
-    sums = []
-    for _ in range(6):
+    """ms of device time per call of fn, summed over its kernels, from the
+    first profiler session that passes the launch-counter check and
+    reports device events, of at most six (three, when the first three
+    all come back short: a process that drops records keeps dropping
+    them). It was the median of three sessions, a guard against sessions
+    that came back with none or a fraction of their kernels, which the
+    check now catches. When none passes, the profile
+    is incomplete and the time comes from CUDA events around 20
+    back-to-back calls instead (`cuda_ms`: the device time, or the host's
+    launch time where that is longer), said so in the session's record."""
+    for i in range(6):
         per, _, _ = profile_device(fn)
         if per:
-            sums.append(sum(per.values()) / 1e3)
-        if len(sums) == 3:
+            return sum(per.values()) / 1e3
+        if i == 2 and profile_device.last["status"] not in (
+                "checked", "unchecked"):
             break
-    return float(np.median(sums)) if sums else 0.0
+    ms = cuda_ms(fn)
+    profile_device.last["cuda_event_ms"] = ms
+    log(f"profile {profile_device.last['label']}: CUDA-event ms {ms:.6f} "
+        f"in place of the incomplete profile")
+    return ms
 
 
 def cold_device_ms(fn, iters=10):
     """ms of device time per call of fn with the L2 cache flushed before
     each call (a 64 MB in-place bitwise_not, whose own kernel is left out of
     the sum): a row kernel called back to back on the same rows would
-    otherwise find them in the 50 MB L2 and beat the HBM bound."""
+    otherwise find them in the 50 MB L2 and beat the HBM bound. At most
+    three sessions; CUDA events in their place when none passes the
+    launch-counter check (as `device_ms`)."""
     import torch
 
     buf = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
@@ -703,12 +948,21 @@ def cold_device_ms(fn, iters=10):
         buf.bitwise_not_()
         fn()
 
+    per = {}
     for _ in range(3):
         per, _, _ = profile_device(call, iters)
         per = {k: v for k, v in per.items() if "bitwise_not" not in k}
         if per:
             break
-    return sum(per.values()) / 1e3
+    if per:
+        return sum(per.values()) / 1e3
+    # an incomplete profile: CUDA events around the flushed calls, less
+    # the flush's own time
+    ms = cuda_ms(call, iters) - cuda_ms(buf.bitwise_not_, iters)
+    profile_device.last["cuda_event_ms"] = ms
+    log(f"profile {profile_device.last['label']}: CUDA-event ms {ms:.6f} "
+        f"(cold) in place of the incomplete profile")
+    return ms
 
 
 def category(name):
@@ -778,7 +1032,16 @@ def profile_record(label, fn, iters):
     import torch
 
     counts = {}
-    per, wall_us, events = profile_device(fn, iters=iters, counts=counts)
+    per, wall_us, events = profile_device(fn, iters=iters, counts=counts,
+                                          tries=6, label=label)
+    if profile_device.last["status"] not in ("checked", "unchecked"):
+        return {"call": label, "wall_ms": wall_us / 1e3,
+                "profile": "incomplete", "device_busy_ms": None,
+                "device_busy_share": None, "device_events": None,
+                "peak_memory_MiB": torch.cuda.max_memory_allocated() / 2**20,
+                "by_category_ms": {}, "by_category_events": {},
+                "top_kernels_ms": [], "top_other_kernels_ms": [],
+                "copy_kernels_per_call": []}
     busy = sum(per.values())
     ranked = sorted(per.items(), key=lambda kv: -kv[1])
     cats, cat_n = {}, {}
@@ -786,6 +1049,7 @@ def profile_record(label, fn, iters):
         cats[category(name)] = cats.get(category(name), 0.0) + us / 1e3
         cat_n[category(name)] = cat_n.get(category(name), 0) + counts[name]
     return {"call": label, "wall_ms": wall_us / 1e3,
+            "profile": profile_device.last["status"],
             "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us if wall_us else None,
             "device_events": events,
@@ -1982,7 +2246,9 @@ def phase_train(fluid, fa):
             flash_ms = sum(ms for kind, ms in rec["by_category_ms"].items()
                            if kind.startswith("flash fwd")
                            or kind.startswith("flash bwd"))
-            log(f"train {name}: flash kernels {flash_ms:.4f} device ms a "
+            flash_ms = "incomplete" if rec["device_busy_ms"] is None \
+                else f"{flash_ms:.4f}"
+            log(f"train {name}: flash kernels {flash_ms} device ms a "
                 f"step (PERF.md §5: 1.415 f32 and 7.027 bf16 with the "
                 f"earlier mma.sync kernels)")
             # warm steps without the profiler, whose own host work inflates
@@ -1997,7 +2263,8 @@ def phase_train(fluid, fa):
             log("train warm " + json.dumps({
                 "call": rec["call"], "step_ms": warm, "median_ms": med,
                 "tokens_per_s": B * t / med * 1e3,
-                "device_busy_share_of_median": rec["device_busy_ms"] / med}))
+                "device_busy_share_of_median": ratio(rec["device_busy_ms"],
+                                                     med)}))
         if amp:
             # bf16 against f32: the f32 program from the same startup and
             # generator (same init, same dropout masks), its step-0 loss
@@ -2425,7 +2692,7 @@ def run_resnet(fluid, fb, b, amp, label):
                 "first_steps_ms": first_ms, "warm_step_ms": warm,
                 "median_ms": med, "range_ms": [min(warm), max(warm)],
                 "img_per_s": b / med * 1e3,
-                "device_busy_share_of_median": rec["device_busy_ms"] / med,
+                "device_busy_share_of_median": ratio(rec["device_busy_ms"], med),
                 "peak_memory_MiB_run": peak,
                 "ops_per_step": len(main.global_block().ops),
                 "fused_bn_launches": counts})
@@ -3031,7 +3298,7 @@ def phase_nmt(fluid, fas):
                 * 1e3, "non_pad_target_tokens_per_batch": [
                     n for _, n in batches],
                 "target_fill": [n / (NMT_B * NMT_T) for _, n in batches],
-                "device_busy_share_of_median": rec["device_busy_ms"] / med,
+                "device_busy_share_of_median": ratio(rec["device_busy_ms"], med),
                 "peak_memory_MiB_run": peak,
                 "ops_per_step": len(main.global_block().ops),
                 "sparse_launches": counts})
@@ -3080,10 +3347,10 @@ def phase_nmt(fluid, fas):
     rec.update({"losses": f32_losses, "step_ms": f32_ms,
                 "warm_unprofiled_step_ms": f32_ms[1],
                 "device_busy_share_of_warm_step":
-                    rec["device_busy_ms"] / f32_ms[1],
+                    ratio(rec["device_busy_ms"], f32_ms[1]),
                 "sparse_flash_ms": sparse_ms,
                 "sparse_flash_share_of_busy":
-                    sum(sparse_ms.values()) / rec["device_busy_ms"],
+                    ratio(sum(sparse_ms.values()), rec["device_busy_ms"]),
                 "sparse_launches": f32_counts})
     tf32["cublas_ms_tf32_off"] = rec["by_category_ms"].get("GEMMs (cuBLAS)")
     log("nmt f32 full depth " + json.dumps(rec))
@@ -3451,7 +3718,7 @@ def phase_deepfm(fluid, fsa):
                 "first_steps_ms": step_ms[:2], "warm_step_ms": warm,
                 "median_ms": med, "range_ms": [min(warm), max(warm)],
                 "examples_per_s": DEEPFM_B / med * 1e3,
-                "device_busy_share_of_median": rec["device_busy_ms"] / med,
+                "device_busy_share_of_median": ratio(rec["device_busy_ms"], med),
                 "peak_memory_MiB_run": peak,
                 "ops_per_step": len(main.global_block().ops),
                 "sparse_adagrad_launches": launches})
@@ -4725,10 +4992,10 @@ def p16_bert(fluid, fa, rec):
     prof_loader = prof_loader_rec
     rec["plain_busy_ms"] = prof_plain["device_busy_ms"]
     rec["loader_busy_ms"] = prof_loader["device_busy_ms"]
-    rec["plain_busy_share"] = (prof_plain["device_busy_ms"]
-                               / rec["plain_median_step_ms"])
-    rec["loader_busy_share"] = (prof_loader["device_busy_ms"]
-                                / rec["loader_median_step_ms"])
+    rec["plain_busy_share"] = ratio(prof_plain["device_busy_ms"],
+                                    rec["plain_median_step_ms"])
+    rec["loader_busy_share"] = ratio(prof_loader["device_busy_ms"],
+                                     rec["loader_median_step_ms"])
     rec["loader_h2d_copy_kernels"] = prof_loader["copy_kernels_per_call"]
     rec["plain_h2d_copy_kernels"] = prof_plain["copy_kernels_per_call"]
     rec["plain_losses"] = l1
@@ -6287,8 +6554,11 @@ def phase_inference_serving(fluid, fa, smi):
 # loopback socket shards of a zero 2,097,152-row table, B = 4096, packed
 # Adagrad on 106,496 rows a step, 36 steps of which 3 warm up; the
 # aggregate arm (bench.py:851) trains a 67,108,864-row table 6 steps
+# the socket arms' depth: cut from 36 steps to 18 for phase 26's time
+# (the four arms without the hot cache took 11.6-16.4 s each on a slower
+# host, ~180-280 ms a step)
 P19_B, P19_VOCAB, P19_SHARDS, P19_STEPS, P19_WARMUP = (
-    4096, 2_097_152, 8, 36, 3)
+    4096, 2_097_152, 8, 18, 3)
 P19_ROWS = P19_B * 26
 P19_ARMS = ((0, 0, 0, False), (2, 0, 0, False), (2, 1, 0, False),
             (2, 1, 2 * P19_ROWS, False), (2, 1, 0, True))
@@ -6304,14 +6574,18 @@ P19_SAVE_AT, P19_DELTAS_AT = 2, (3, 5)
 P19_HOT_STEPS = 6
 # bench.py:926-1070: B = 1024 over 2 runner pservers of a 262,144-row
 # table, SIGKILL shard 1, restart it 0.25 s later; cut from 18 steps
-# (kill before step 8) to 12 (kill before step 5) for phase 22's time
-P19_KILL = {"batch": 1024, "vocab": 262_144, "steps": 12, "kill_step": 5,
+# (kill before step 8) to 12 (kill before step 5) for phase 22's time, and
+# to 6 (kill before step 3) for phase 26's: the hot-cache runs take
+# ~1.7 s a step (the arm took 53.3 s at 12 steps on the H100, 39.4 s at
+# 8)
+P19_KILL = {"batch": 1024, "vocab": 262_144, "steps": 6, "kill_step": 3,
             "restart_s": 0.25}
 P19_KNOBS = {"PDTPU_PS_RETRIES": "60", "PDTPU_PS_RETRY_BACKOFF_MS": "20",
              "PDTPU_PS_TIMEOUT": "10"}
 # bench.py:1938-2095 at its TPU sizes, cut from 600 steps to 375 (five
-# AUC evaluations) for phase 22's time
-P19_ONLINE = {"vocab": 200_000, "cap": 16_384, "steps": 375, "batch": 256,
+# AUC evaluations) for phase 22's time, and to 225 (three; ~10 s of the
+# arm's 25.6 s at ~68 ms a step) for phase 26's
+P19_ONLINE = {"vocab": 200_000, "cap": 16_384, "steps": 225, "batch": 256,
               "fields": 8, "d": 8, "mult": 2, "hot_ids": 5000,
               "staleness_s": 1.0, "sweep_every": 60, "delta_every": 75,
               "compact_every": 4, "eval_every": 75, "resident_steps": 30}
@@ -6352,23 +6626,33 @@ def p19_rss_mb():
 
 
 def p19_profile_once(fn):
-    """(fn(), {wall, device busy ms and share}) of one profiled call."""
+    """(fn(), {wall, device busy ms and share}) of one profiled call, held
+    to the launch counters (`check_session`). The call is a training step,
+    which another session would change, so a short session is not taken
+    again: its reading is incomplete and carries no device numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    before = hand_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    rec = note_session("p19 step", check_session(
+        before, hand_launches(), session_records(prof)), 1)
+    if rec["status"] not in ("checked", "unchecked"):
+        return out, {"wall_ms": wall, "profile": "incomplete",
+                     "device_busy_ms": None, "device_busy_share": None}
     busy = 0.0
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) is not None \
                 and "cuda" in str(evt.device_type).lower():
             busy += _device_us(evt) / 1e3
-    return out, {"wall_ms": wall, "device_busy_ms": busy,
+    return out, {"wall_ms": wall, "profile": rec["status"],
+                 "device_busy_ms": busy,
                  "device_busy_share": busy / wall if wall else None}
 
 
@@ -7708,9 +7992,14 @@ def phase_parallel(fluid, fa, fb, smi):
 # sharded tables, MoE expert parallelism, a tp-sharded checkpoint) --------
 
 P21_WORLD = 2
-P21_B, P21_T, P21_BERT_LAYERS = 8, 512, 12
-P21_F32_STEPS, P21_BF16_STEPS = 3, 4
-P21_NMT_F32_LAYERS, P21_NMT_STEPS = 2, 3
+# BERT-base cut from 12 layers to 6 for phase 26's time, as phases 22-23
+# were cut before (65.4 s for the phase at 12 layers on the H100)
+P21_B, P21_T, P21_BERT_LAYERS = 8, 512, 6
+# bf16 BERT cut from 4 steps to 2 and the NMT runs from 3 to 2 for phase
+# 26's time (gloo at tp = 2 took 2.0-4.1 s a BERT step and 3.0-6.8 s an
+# NMT bf16 step on a slower host)
+P21_F32_STEPS, P21_BF16_STEPS = 3, 2
+P21_NMT_F32_LAYERS, P21_NMT_STEPS = 2, 2
 P21_DEEPFM_STEPS = 3
 P21_MOE = {"experts": 8, "d": 1024, "hidden": 4096, "k": 2,
            "tokens": 8192, "cf": 2.0, "steps": 2}
@@ -9442,12 +9731,16 @@ def p24_dgc(fluid, fb):
                       for i in range(P24_DGC_BEGIN, P24_DGC_STEPS)]
     dense_equal = all(bool(torch.equal(snaps[P24_DGC_BEGIN][n], v))
                       for n, v in mom_params.items())
-    topk = {}
+    topk, per = {}, {}
     if P24_DEVICE == "cuda":
+        # not retaken: a session of this step takes ~9 s to read
         per, _, _ = profile_device(lambda: exe.run(
-            main, feed=feed, fetch_list=[loss], scope=scope), iters=2)
+            main, feed=feed, fetch_list=[loss], scope=scope), iters=2,
+            label="p24 dgc step")
         topk = {k[:90]: v / 1e3 for k, v in per.items()
                 if any(s in k.lower() for s in ("topk", "radix", "kthvalue"))}
+    # an incomplete session gives no reading (None), not a zero
+    topk_ms = sum(topk.values()) if per else None
     del scope, snaps
     torch.cuda.empty_cache()
     wrong = {n: (c, kept[n]) for changed in sparse_changed
@@ -9459,7 +9752,7 @@ def p24_dgc(fluid, fb):
                       for b in losses],
            "kept_total": sum(kept.values()),
            "changed_total": [sum(c.values()) for c in sparse_changed],
-           "params": len(kept), "topk_device_ms_a_step": sum(topk.values()),
+           "params": len(kept), "topk_device_ms_a_step": topk_ms,
            "topk_kernels_ms": topk, "fused_bn_launches": counts}
     bad = []
     if not (rec["dense_losses_bitwise"] and dense_equal):
@@ -10466,6 +10759,502 @@ def phase_root_cause(fluid, fa, smi):
     return launches
 
 
+# -- phase 26: dygraph ---------------------------------------------------------
+P26_DEVICE = "cuda"
+P26_B, P26_HW, P26_CLASSES = 32, 224, 1000
+P26_DEPTH, P26_FILTERS = (3, 4, 6, 3), (64, 128, 256, 512)  # ResNet-50
+P26_BN = 53                      # BatchNorm layers: 1 + 16·3 + 4 shortcuts
+P26_STEPS, P26_CHECKED, P26_WARM = 4, 3, 3
+P26_LR, P26_MOMENTUM = 0.01, 0.9
+P26_LOSS_REL, P26_DELTA_REL, P26_STAT_REL, P26_JIT_REL = 1e-4, 1e-3, 1e-4, 1e-6
+P26_DP_WORLD, P26_DP_STEPS, P26_DP_REL = 2, 5, 1e-5
+P26_BN_KEYS = ("bn_stats", "bn_apply", "apply2d", "bn_bwd_reduce",
+               "bn_bwd_dx", "conv_stats")
+
+
+def p26_place(fluid):
+    return fluid.CUDAPlace(0) if P26_DEVICE == "cuda" else fluid.CPUPlace()
+
+
+def p26_resnet(dy, trace):
+    """ResNet-50 from dygraph.nn layers (the reference's
+    test_imperative_resnet.py pattern): Conv2D + BatchNorm units, bottleneck
+    blocks with a projection shortcut first in each stage, global average
+    pool, Linear. Returns the model and the ops one forward traces."""
+
+    class ConvBN(dy.Layer):
+        def __init__(self, ci, co, k, stride=1, act=None):
+            super().__init__()
+            self.conv = dy.Conv2D(ci, co, k, stride=stride,
+                                  padding=(k - 1) // 2, bias_attr=False)
+            self.bn = dy.BatchNorm(co, act=act)
+            self.cfg = (co, k, stride, act)
+
+        def forward(self, x):
+            return self.bn(self.conv(x))
+
+    class Bottleneck(dy.Layer):
+        def __init__(self, ci, f, stride, project):
+            super().__init__()
+            self.conv0 = ConvBN(ci, f, 1, act="relu")
+            self.conv1 = ConvBN(f, f, 3, stride, act="relu")
+            self.conv2 = ConvBN(f, 4 * f, 1)
+            self.short = ConvBN(ci, 4 * f, 1, stride) if project else None
+
+        def forward(self, x):
+            y = self.conv2(self.conv1(self.conv0(x)))
+            s = x if self.short is None else self.short(x)
+            return trace("relu", {"X": [s + y]}, {})["Out"][0]
+
+    class ResNet50(dy.Layer):
+        def __init__(self):
+            super().__init__()
+            self.stem = ConvBN(3, 64, 7, 2, act="relu")
+            self.pool = dy.Pool2D(pool_size=3, pool_stride=2,
+                                  pool_padding=1, pool_type="max")
+            self.blocks, ci = [], 64
+            for s, (n, f) in enumerate(zip(P26_DEPTH, P26_FILTERS)):
+                for i in range(n):
+                    self.blocks.append(self.add_sublayer(
+                        f"b{s}_{i}", Bottleneck(ci, f, 2 if i == 0 and s
+                                                else 1, i == 0)))
+                    ci = 4 * f
+            self.gap = dy.Pool2D(pool_type="avg", global_pooling=True)
+            self.fc = dy.Linear(ci, P26_CLASSES)
+
+        def forward(self, x):
+            h = self.pool(self.stem(x))
+            for b in self.blocks:
+                h = b(h)
+            h = trace("reshape", {"X": [self.gap(h)]},
+                      {"shape": [-1, h.shape[1]]})["Out"][0]
+            return self.fc(h)
+
+    model = ResNet50()
+    units = [l for l in model.sublayers() if isinstance(l, ConvBN)]
+    blocks = len(model.blocks)
+    ops = {"conv2d": len(units), "batch_norm": len(units),
+           "relu": sum(u.cfg[3] == "relu" for u in units) + blocks,
+           "elementwise_add": blocks + 1, "pool2d": 2, "reshape": 1,
+           "mul": 1}
+    return model, ops
+
+
+def p26_static(fluid, model, b):
+    """The same network in the static DSL (layers.conv2d / batch_norm /
+    pool2d / fc, no fused conv+BN), each parameter and running statistic
+    named after its dygraph twin, Momentum. Returns (main, startup,
+    loss)."""
+    from paddle_tpu_torch.core import unique_name
+
+    main, startup = fluid.Program(), fluid.Program()
+    L = fluid.layers
+
+    def unit(h, u):
+        co, k, stride, act = u.cfg
+        h = L.conv2d(h, co, k, stride=stride, padding=(k - 1) // 2,
+                     bias_attr=False,
+                     param_attr=fluid.ParamAttr(name=u.conv.weight.name))
+        return L.batch_norm(h, act=act,
+                            param_attr=fluid.ParamAttr(name=u.bn.weight.name),
+                            bias_attr=fluid.ParamAttr(name=u.bn.bias.name),
+                            moving_mean_name=u.bn._mean.name,
+                            moving_variance_name=u.bn._variance.name)
+
+    with fluid.program_guard(main, startup), unique_name.guard():
+        x = L.data("img", [3, P26_HW, P26_HW])
+        label = L.data("label", [1], dtype="int64")
+        h = L.pool2d(unit(x, model.stem), pool_size=3, pool_stride=2,
+                     pool_padding=1, pool_type="max")
+        for blk in model.blocks:
+            y = unit(unit(unit(h, blk.conv0), blk.conv1), blk.conv2)
+            s = h if blk.short is None else unit(h, blk.short)
+            h = L.relu(L.elementwise_add(s, y))
+        h = L.pool2d(h, pool_type="avg", global_pooling=True)
+        h = L.reshape(h, [-1, h.shape[1]])
+        logits = L.fc(h, P26_CLASSES,
+                      param_attr=fluid.ParamAttr(name=model.fc.weight.name),
+                      bias_attr=fluid.ParamAttr(name=model.fc.bias.name))
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.Momentum(P26_LR, P26_MOMENTUM).minimize(loss)
+    return main, startup, loss
+
+
+def p26_state(model):
+    """{name: a copy of the tensor} of every parameter and buffer."""
+    out = {p.name: p.value.detach().clone() for p in model.parameters()}
+    out.update({b.name: b.value.detach().clone()
+                for _, b in model.named_buffers()})
+    return out
+
+
+def p26_rel_l2(a, b):
+    import torch
+
+    den = float(torch.linalg.vector_norm(b.double()))
+    return float(torch.linalg.vector_norm((a - b).double())) / den \
+        if den else float(torch.linalg.vector_norm(a.double()))
+
+
+def p26_deterministic(on: bool):
+    """cuDNN's deterministic algorithms (and torch's) on or off. With the
+    default algorithms two runs of the same static program on the card
+    differ: cuDNN's backward sums in no fixed order, and four steps of
+    this single-batch run grow 1e-6 at step 1 into 1.6e-3 at step 2 and a
+    ~47 % relative L2 spread of the parameters' changes (PERF.md §6,
+    the dygraph finding). With them, dygraph and static are bitwise
+    equal."""
+    import torch
+
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def p26_train(fluid, fb, smi):
+    """(a) ResNet-50 in dygraph at full width against the static executor
+    on the same weights (both on deterministic algorithms), then timed on
+    the default ones; (b) jit against the eager eval forward; (c)
+    op_profiler around one step. Returns (record, the fused-BN launches of
+    the dygraph and static runs)."""
+    import torch
+
+    from paddle_tpu_torch import dygraph as dy
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.dygraph.tracer import trace_op
+
+    feed = resnet_feed(P26_B, P26_HW, seed=26, classes=P26_CLASSES,
+                       device=P26_DEVICE)
+    place = p26_place(fluid)
+    with dy.guard(place, seed=26):
+        model, ops = p26_resnet(dy, trace_op)
+    bns = [l for l in model.sublayers() if isinstance(l, dy.BatchNorm)]
+    if len(bns) != P26_BN:
+        raise AssertionError(f"dygraph resnet: {len(bns)} BatchNorms")
+    init = p26_state(model)
+    params = model.parameters()
+    pnames = [p.name for p in params]
+    want_bn = {k: (0 if k in ("apply2d", "conv_stats") else P26_BN)
+               for k in P26_BN_KEYS}
+    launches = {}
+
+    # the static executor on the same network and initial weights
+    main, startup, loss = p26_static(fluid, model, P26_B)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    for name, t in init.items():
+        if scope.find_var(name) is None:
+            raise AssertionError(f"static resnet: no var {name}")
+        scope.set_var(name, t.clone())
+
+    def st_step():
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        return float(lv)
+
+    p26_deterministic(True)
+    try:
+        reset_bn_counts(fb)
+        st_losses = [st_step() for _ in range(P26_STEPS)]
+        launches["static"] = {k: getattr(fb, k).launches
+                              for k in P26_BN_KEYS}
+        st_state = {n: scope.find_var(n).detach().clone() for n in init}
+        with dy.guard(place, seed=26):
+            opt = fluid.optimizer.Momentum(P26_LR, P26_MOMENTUM)
+            x = dy.to_variable(feed["img"])
+            y = dy.to_variable(feed["label"])
+
+            def step():
+                logits = model(x)
+                ce = trace_op("softmax_with_cross_entropy",
+                              {"Logits": [logits], "Label": [y]},
+                              {})["Loss"][0]
+                lv = trace_op("mean", {"X": [ce]}, {})["Out"][0]
+                lv.backward()
+                opt.minimize(lv, parameter_list=params)
+                model.clear_gradients()
+                return lv
+
+            # (a) the dygraph main path: P26_STEPS checked steps
+            if P26_DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            reset_bn_counts(fb)
+            dy_losses = [float(step().numpy()) for _ in range(P26_STEPS)]
+            launches["dygraph"] = {k: getattr(fb, k).launches
+                                   for k in P26_BN_KEYS}
+            dy_state = p26_state(model)
+            p26_deterministic(False)
+            # where the time of one warm step goes (held to the launch
+            # counters), and the warm steps, on the default algorithms
+            prof = profile_record(f"dygraph resnet50 f32 B={P26_B}", step, 1)
+            warm = []
+            for _ in range(P26_WARM):
+                t0 = time.perf_counter()
+                step().numpy()
+                warm.append((time.perf_counter() - t0) * 1e3)
+            peak = (torch.cuda.max_memory_allocated() / 2**20
+                    if P26_DEVICE == "cuda" else None)
+
+            # (c) op_profiler around one training step
+            with profiler.op_profiler() as timer:
+                step().numpy()
+            traced = dict(timer.counts)
+            top = [[op, timer.counts[op], timer.times[op] * 1e3] for op in
+                   sorted(timer.times, key=lambda o: -timer.times[o])]
+
+            # (b) jit against the eager eval forward on one batch
+            model.eval()
+            eager = model(x).value
+            jitted = dy.jit(model)(feed["img"]).value
+            jit_rel = float((jitted - eager).abs().max()
+                            / eager.abs().max())
+            model.train()
+    finally:
+        p26_deterministic(False)
+    st_warm = []
+    for _ in range(P26_WARM):
+        t0 = time.perf_counter()
+        st_step()
+        st_warm.append((time.perf_counter() - t0) * 1e3)
+    del scope
+
+    loss_rel = [abs(a - b) / abs(b) for a, b in
+                zip(dy_losses[:P26_CHECKED], st_losses[:P26_CHECKED])]
+    deltas = {n: p26_rel_l2(dy_state[n] - init[n], st_state[n] - init[n])
+              for n in pnames}
+    last = bns[-1]
+    stat_rel = {k: float((dy_state[b.name] - st_state[b.name]).abs().max()
+                         / st_state[b.name].abs().max())
+                for k, b in (("mean", last._mean), ("var", last._variance))}
+    worst = max(deltas.items(), key=lambda kv: kv[1])
+    med, st_med = float(np.median(warm)), float(np.median(st_warm))
+    want_ops = dict(ops, softmax_with_cross_entropy=1, mean=1)
+    rec = {"device": smi, "config": f"ResNet-50 f32 B={P26_B} "
+           f"{P26_HW}^2, {P26_CLASSES} classes, Momentum({P26_LR}, "
+           f"{P26_MOMENTUM}), PDTPU_BN_MODE=pallas",
+           "dygraph_losses": dy_losses, "static_losses": st_losses,
+           "loss_rel": loss_rel, "delta_rel_worst": list(worst),
+           "delta_rel_median": float(np.median(list(deltas.values()))),
+           "last_bn_stat_rel": stat_rel,
+           "dygraph_warm_ms": warm, "static_warm_ms": st_warm,
+           "dygraph_median_ms": med, "static_median_ms": st_med,
+           "dygraph_vs_static": med / st_med,
+           "dygraph_profile": {k: prof[k] for k in (
+               "profile", "wall_ms", "device_busy_ms", "by_category_ms",
+               "top_kernels_ms")},
+           "device_busy_share_of_median": ratio(prof["device_busy_ms"], med),
+           "peak_memory_MiB": peak, "fused_bn_launches": launches,
+           "jit_rel": jit_rel, "op_profiler_top": top[:8],
+           "op_profiler_calls": traced}
+    log("dygraph resnet50 " + json.dumps(rec))
+    bad = []
+    if not all(r <= P26_LOSS_REL for r in loss_rel):
+        bad.append(f"losses {loss_rel}")
+    if not worst[1] <= P26_DELTA_REL:
+        bad.append(f"parameter change {worst}")
+    if not all(v <= P26_STAT_REL for v in stat_rel.values()):
+        bad.append(f"last BN statistics {stat_rel}")
+    if not np.isfinite(dy_losses).all() or not dy_losses[-1] < dy_losses[0]:
+        bad.append(f"dygraph losses {dy_losses}")
+    if traced != want_ops:
+        bad.append(f"op_profiler {traced}, traced {want_ops}")
+    if not jit_rel <= P26_JIT_REL:
+        bad.append(f"dygraph.jit vs eager {jit_rel}")
+    if P26_DEVICE == "cuda":
+        for run in ("dygraph", "static"):
+            per_step = {k: v / P26_STEPS for k, v in launches[run].items()}
+            if per_step != want_bn:
+                bad.append(f"{run} fused-BN launches a step {per_step}, "
+                           f"want {want_bn}")
+    if bad:
+        raise AssertionError(f"dygraph resnet50: {bad}")
+    return rec, launches
+
+
+def p26_mlp_losses(fluid, dp, steps=P26_DP_STEPS):
+    """tests/torch_dist_dygraph_runner.py's loop on the card: Linear 16 → 1
+    (no bias) from a seeded weight, a square loss, SGD 0.1, the same batch
+    on every rank; with `dp` the DataParallel recipe. Returns (losses,
+    all-reduce bytes a step)."""
+    from paddle_tpu_torch import dygraph as dy
+    from paddle_tpu_torch.dygraph.tracer import trace_op
+
+    rng = np.random.RandomState(0)
+    X = rng.rand(32, 16).astype("float32")
+    Y = (X @ rng.rand(16, 1)).astype("float32")
+    w0 = np.random.RandomState(3).rand(16, 1).astype("float32") * 0.1
+    with dy.guard(p26_place(fluid), seed=3):
+        model = dy.Linear(16, 1, bias_attr=False)
+        model.set_dict({"weight": w0})
+        wrapped = dy.DataParallel(model) if dp else model
+        opt = fluid.optimizer.SGD(0.1)
+        losses = []
+        for _ in range(steps):
+            out = wrapped(dy.to_variable(X))
+            diff = trace_op("elementwise_sub",
+                            {"X": [out], "Y": [dy.to_variable(Y)]},
+                            {"axis": -1})["Out"][0]
+            loss = trace_op("mean", {"X": [trace_op(
+                "square", {"X": [diff]}, {})["Out"][0]]}, {})["Out"][0]
+            losses.append(float(loss.numpy()))
+            if dp:
+                wrapped.scale_loss(loss).backward()
+                wrapped.apply_collective_grads()
+            else:
+                loss.backward()
+            opt.minimize(loss, parameter_list=model.parameters())
+            model.clear_gradients()
+        return losses, (wrapped.last_allreduce_bytes if dp else 0)
+
+
+def p26_dp_rank(rank, world, addr):
+    """Rank `rank` of the DataParallel pair: a gloo group over CUDA
+    tensors on the one card (NCCL refuses two ranks on one card). Returns
+    its (losses, all-reduce bytes a step)."""
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import init_parallel_env
+
+    # the card only after the rendezvous: rank 1 starts beside the
+    # ResNet-50 part, whose profile must see no other process on the card
+    init_parallel_env(addr, world, rank, device="cpu", timeout=600)
+    if P26_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    out = p26_mlp_losses(fluid, True)
+    every = [None] * world
+    dist.all_gather_object(every, out)
+    dist.destroy_process_group()
+    return every
+
+
+def p26_worker(rank, world, addr):
+    """A rank > 0 of the pair (`chip_smoke.py --p26-rank`)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    p26_dp_rank(rank, world, addr)
+
+
+def p26_spawn():
+    """The pair's ranks > 0 (this script with --p26-rank), started early:
+    each imports the port, then waits at the rendezvous without touching
+    the card. Returns (the rendezvous address, the processes)."""
+    addr = f"127.0.0.1:{p20_free_port()}"
+    return addr, [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                    "--p26-rank", str(r), "--p26-world",
+                                    str(P26_DP_WORLD), "--p26-addr", addr])
+                  for r in range(1, P26_DP_WORLD)]
+
+
+def p26_data_parallel(fluid, smi, addr, workers):
+    """(e) DataParallel on a gloo pair: this process is rank 0, `workers`
+    the other ranks (`p26_spawn`). Each rank's losses within P26_DP_REL of
+    one process's."""
+    single, _ = p26_mlp_losses(fluid, False)
+    try:
+        every = p26_dp_rank(0, P26_DP_WORLD, addr)
+        for w in workers:
+            if w.wait(timeout=600) != 0:
+                raise AssertionError(f"phase 26 rank exited {w.returncode}")
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+    rel = [max(abs(a - b) / abs(b) for a, b in zip(losses, single))
+           for losses, _ in every]
+    rec = {"device": smi, "single_losses": single,
+           "rank_losses": [l for l, _ in every], "rank_max_rel": rel,
+           "allreduce_bytes_per_step": [n for _, n in every]}
+    log("dygraph data_parallel " + json.dumps(rec))
+    if not all(r <= P26_DP_REL for r in rel) or not single[-1] < single[0]:
+        raise AssertionError(f"dygraph DataParallel: {rec}")
+    return rec
+
+
+def p26_child():
+    """Phase 26 in a process of its own (``chip_smoke.py --p26``), so that
+    its profile is read in a process no other process or thread has used
+    the card beside. Prints the phase's lines, then its fused-BN launches
+    and its sessions' checks."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import cuda_device
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+
+    cuda_device(0)
+    PHASE[0] = "26"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    build.build_all(["fused_bn"])
+    launches = phase_dygraph(fluid, fb, smi)
+    print("p26 launches " + json.dumps(launches), flush=True)
+    print("p26 sessions " + json.dumps(SESSIONS), flush=True)
+    torch.cuda.synchronize()
+
+
+def phase_dygraph_proc():
+    """Phase 26 through `p26_child` in a fresh process; its lines pass
+    through. Returns (its fused-BN launches, its sessions' checks)."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--p26"], capture_output=True, text=True,
+                          timeout=600)
+    launches = sessions = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("p26 launches "):
+            launches = json.loads(line[len("p26 launches "):])
+        elif line.startswith("p26 sessions "):
+            sessions = json.loads(line[len("p26 sessions "):])
+        else:
+            log(line)
+    if proc.returncode != 0 or launches is None:
+        raise AssertionError(f"phase 26 (--p26) exited {proc.returncode}:"
+                             f" {proc.stderr[-4000:]}")
+    return launches, sessions
+
+
+def phase_dygraph(fluid, fb, smi):
+    """Phase 26 (module docstring). Returns the fused-BN launches of its
+    ResNet-50 training runs (dygraph + static), by counter."""
+    from paddle_tpu_torch.tools import op_bench
+
+    t_phase = time.perf_counter()
+    marks = {}
+    saved = {k: os.environ.get(k) for k in (
+        "PDTPU_BN_MODE", "PDTPU_CONV_BN_FUSION", "PDTPU_EAGER_JIT")}
+    os.environ["PDTPU_BN_MODE"] = "pallas"
+    os.environ.pop("PDTPU_CONV_BN_FUSION", None)
+    os.environ.pop("PDTPU_EAGER_JIT", None)
+    addr, workers = p26_spawn()
+    try:
+        rec, launches = p26_train(fluid, fb, smi)
+        marks["resnet"] = time.perf_counter() - t_phase
+        bench = op_bench.bench_dygraph_mlp(device=P26_DEVICE)
+        log("dygraph op_bench " + json.dumps(dict(bench, device=smi)))
+        marks["op_bench"] = time.perf_counter() - t_phase
+        p26_data_parallel(fluid, smi, addr, workers)
+        marks["data_parallel"] = time.perf_counter() - t_phase
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log("dygraph " + json.dumps({
+        "marks_s": marks, "wall_s": time.perf_counter() - t_phase,
+        "device": smi}))
+    return {k: launches["dygraph"][k] + launches["static"][k]
+            for k in P26_BN_KEYS}
+
+
 def main():
     import torch
 
@@ -10502,7 +11291,16 @@ def main():
     log(f"device: {kind} | {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    # 2. build
+    phase_s, prev = {}, ["2", time.perf_counter()]
+    PHASE[0] = "2"
+
+    def mark(name):
+        """The seconds of the phase that ends here; `name` begins."""
+        phase_s[prev[0]] = time.perf_counter() - prev[1]
+        prev[:] = [name, time.perf_counter()]
+        PHASE[0] = name
+
+    # 2. build (each phase's seconds land in phase_s)
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"build: {json.dumps(built)} ({time.perf_counter() - t0:.1f} s wall)")
@@ -10512,6 +11310,8 @@ def main():
                 log(f"build {name}: {line.strip()}")
     log_wgmma_build(build)
 
+    mark("3")
+
     # 3. kernel
     records = phase_kernel(fa)
     bwd_records = phase_kernel_bwd(fa)
@@ -10519,67 +11319,106 @@ def main():
     phase_kernel_wide(fa, fas)
     wide_records = phase_kernel_wider(fa, fas)
 
-    # 4. serve (main path 1)
-    launches = phase_serve(fluid, fa)
-
-    # 5. train (main path 2)
-    train_launches = phase_train(fluid, fa)
+    # the other kernel phases (6, 8, 10) run next, before any main path:
+    # after phases 4-5 their profiler sessions came back short (ROADMAP
+    # §C)
+    mark("6")
 
     # 6. fused batch-norm kernels
     bn_records = phase_kernel_bn(fb)
 
-    # 7. resnet (main path 3)
-    bn_launches = phase_resnet(fluid, fb)
+    mark("8")
 
     # 8. block-sparse attention kernels
     sparse_records = phase_kernel_sparse(fas)
     phase_sparse_f32_head_dims(fas)
     phase_sparse_routes(fas)
 
-    # 9. nmt (main path 4)
-    nmt_launches = phase_nmt(fluid, fas)
-
-    # 9b. the wide kernels (main path 7)
-    wide_launches = phase_wide_path(fluid, fa, fas)
+    mark("10")
 
     # 10. sparse-Adagrad and row kernels
     sa_records = phase_kernel_sparse_adagrad(fsa, dr)
 
+    mark("4")
+
+    # 4. serve (main path 1)
+    launches = phase_serve(fluid, fa)
+
+    mark("5")
+
+    # 5. train (main path 2)
+    train_launches = phase_train(fluid, fa)
+
+    mark("7")
+
+    # 7. resnet (main path 3)
+    bn_launches = phase_resnet(fluid, fb)
+
+    mark("9")
+
+    # 9. nmt (main path 4)
+    nmt_launches = phase_nmt(fluid, fas)
+
+    mark("9b")
+
+    # 9b. the wide kernels (main path 7)
+    wide_launches = phase_wide_path(fluid, fa, fas)
+
+    mark("11")
+
     # 11. deepfm (main path 5)
     sa_launches = {"sparse_adagrad_update": phase_deepfm(fluid, fsa)}
+
+    mark("12")
 
     # 12. ps hot cache (main path 6)
     hot = phase_ps_hot_cache(fluid, fsa)
     sa_launches.update(sparse_row_gather=hot["fused_row_gather"],
                        sparse_row_scatter=hot["fused_row_scatter"])
 
+    mark("13")
+
     # 13. deepfm GPU vs CPU
     phase_deepfm_gpu_vs_cpu(fluid)
+
+    mark("14")
 
     # 14. the executor's step surface (remat, update fusion, NaN probe,
     # fetch handles)
     phase_step_surface(fluid, fa, fb)
+
+    mark("15")
 
     # 15. the training surface (schedules, optimizers, conditional_block,
     # auc, LeNet; ResNet-50 on LARS, Transformer-big on noam, BERT-base on
     # gradient-merged LAMB)
     phase_training_surface(fluid, fa, fas, fb, smi)
 
+    mark("16")
+
     # 16. the input pipeline and checkpoints (DeviceLoader, the drivers,
     # Checkpointer, reference-format serving, the PS prefetcher)
     phase_input_pipeline(fluid, fa, fsa, smi)
+
+    mark("17")
 
     # 17. the deferred-row log and the A6 paths (the space-to-depth
     # ResNet-50 stem, ResNet-50 serving, bucketed NMT, sequence/beam ops)
     phase_deferred_and_a6(fluid, fb, smi)
 
+    mark("18")
+
     # 18. inference and serving (int8, the InferenceServer, the fleet,
     # PS-backed CTR serving)
     launches["float32"] += phase_inference_serving(fluid, fa, smi)
 
+    mark("19")
+
     # 19. the PS tier over sockets, shard recovery, PS checkpoints,
     # online learning and serving from socket shards
     phase_ps_tier_and_streaming(fluid, fsa, smi)
+
+    mark("20")
 
     # 20. data and sequence parallelism on an NCCL group (the collectives,
     # BERT-base and ResNet-50 under with_data_parallel at ZeRO stages
@@ -10589,6 +11428,8 @@ def main():
         train_launches[key] += n
     for k, n in p20_bn.items():
         bn_launches["bfloat16"][k] += n
+
+    mark("21")
 
     # 21. model parallelism on a group of two (tensor parallelism on a tp
     # axis: BERT-base, Transformer-big NMT, DeepFM's vocab-sharded packed
@@ -10600,6 +11441,8 @@ def main():
             train_launches[(d, dt)] += p21["launches"][bert_key][d]
             nmt_launches[dt][d] += p21["launches"][nmt_key][d]
     sa_launches["sparse_adagrad_update"] += p21["row12"]
+
+    mark("22")
 
     # 22. pipelines and the sequence axis (GPipe over pp = 2 on BERT-base,
     # attention dropout under tp = 2 on BERT-base and Transformer-big,
@@ -10615,6 +11458,8 @@ def main():
     for d in ("fwd", "bwd"):
         nmt_launches["bfloat16"][d] += p22["launches"]["tp_nmt_bf16_drop"][d]
 
+    mark("23")
+
     # 23. model parallelism, the rest (a global-norm clip across pp = 2
     # stages on BERT-base, BERT-base on tp2×sp2 with dropout, moe_ffn's
     # dense path on dp = 2 and on {"dp": 2, "ep": 2}, a rule-A op in a
@@ -10625,6 +11470,8 @@ def main():
         for d in ("fwd", "bwd"):
             train_launches[(d, dt)] += p23["launches"][key][d]
 
+    mark("24")
+
     # 24. fleet and cluster (the fleet path on BERT-base, DGC momentum on
     # ResNet-50, local SGD and the DGC exchanges on a gloo pair, elastic
     # resume, the memory planner, the deferred fold on a mesh)
@@ -10634,12 +11481,43 @@ def main():
     for k, n in p24_bn.items():
         bn_launches["bfloat16"][k] += n
 
+    mark("25")
+
     # 25. the root-cause loop (calibrated floors, the perf ledger on
     # BERT-base bf16 training, a profiler session's roofline and timeline,
     # an anomaly-triggered capture paging with its culprits, op_bench)
     p25 = phase_root_cause_proc()
     for d in ("fwd", "bwd"):
         train_launches[(d, "bfloat16")] += p25[d]
+
+    mark("26")
+
+    # 26. dygraph (ResNet-50 in dygraph on the fused-BN kernels against the
+    # static executor, dygraph.jit, op_profiler, the dygraph op_bench,
+    # DataParallel on a gloo pair), in a process of its own
+    p26, p26_sessions = phase_dygraph_proc()
+    for k, n in p26.items():
+        bn_launches["float32"][k] += n
+
+    mark("end")
+    log("phase seconds " + json.dumps(phase_s))
+
+    # every profiler session's check against the launch counters
+    sessions = SESSIONS + (p26_sessions or [])
+    by_status = {}
+    for rec in sessions:
+        by_status[rec["status"]] = by_status.get(rec["status"], 0) + 1
+    by_phase = {}
+    for rec in sessions:
+        ph = by_phase.setdefault(rec["phase"], {})
+        ph[rec["status"]] = ph.get(rec["status"], 0) + 1
+    log("profile sessions " + json.dumps({
+        "sessions": len(sessions), "by_status": by_status,
+        "by_phase": by_phase,
+        "retaken": [[r["phase"], r["label"], r["tries"]] for r in sessions
+                    if r["tries"] > 1],
+        "incomplete": [r for r in sessions
+                       if r["status"] not in ("checked", "unchecked")]}))
 
     kernels = []
     for name in ("float32", "bfloat16"):
@@ -10750,6 +11628,14 @@ def main():
 if __name__ == "__main__":
     if "--p25" in sys.argv:
         p25_child()
+        sys.exit(0)
+    if "--p26" in sys.argv:
+        p26_child()
+        sys.exit(0)
+    if "--p26-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        p26_worker(int(args["--p26-rank"]), int(args["--p26-world"]),
+                   args["--p26-addr"])
         sys.exit(0)
     if "--p24-rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))

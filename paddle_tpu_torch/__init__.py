@@ -72,6 +72,8 @@ if not _torch_free_entry():
     from . import native  # noqa: F401
     from . import parallel  # noqa: F401
     from . import distributed  # noqa: F401
+    from . import dygraph  # noqa: F401
+    from . import dygraph_grad_clip  # noqa: F401
     from .parallel_executor import ParallelExecutor  # noqa: F401
     from .data_feed_desc import DataFeedDesc  # noqa: F401
     from .data_feeder import DataFeeder  # noqa: F401
@@ -97,6 +99,7 @@ if not _torch_free_entry():
         default_startup_program,
         global_scope,
         gradients,
+        in_dygraph_mode,
         program_guard,
         remat_unit,
         scope_guard,

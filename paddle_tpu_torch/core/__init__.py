@@ -16,6 +16,7 @@ from .program import (  # noqa: F401
     default_main_program,
     default_startup_program,
     grad_var_name,
+    in_dygraph_mode,
     program_guard,
     remat_unit,
 )

@@ -419,3 +419,22 @@ def remat_unit(name: str):
 
 def current_remat_unit() -> Optional[str]:
     return _REMAT_UNIT_STACK[-1] if _REMAT_UNIT_STACK else None
+
+
+# ---------------------------------------------------------------------------
+# Dygraph mode: ``dygraph.guard`` installs its tracer here, as in the JAX
+# package; ``Optimizer.minimize`` takes its dygraph path while one is set.
+_dygraph_tracer = None
+
+
+def in_dygraph_mode() -> bool:
+    return _dygraph_tracer is not None
+
+
+def _set_dygraph_tracer(tracer):
+    global _dygraph_tracer
+    _dygraph_tracer = tracer
+
+
+def _current_tracer():
+    return _dygraph_tracer

@@ -51,3 +51,14 @@ def _softmax_tp(attrs, lay, shapes, n):
 def _softmax(ctx, inputs, attrs):
     (x,) = inputs["X"]
     return one(torch.softmax(x, dim=attrs.get("axis", -1)))
+
+
+@register_op("prelu", dp=ROWS)
+def _prelu(ctx, inputs, attrs):
+    """prelu_op.cc: x where x > 0, alpha·x elsewhere; alpha is one value
+    ("all"), one a channel ("channel") or one an element ("element")."""
+    (x,) = inputs["X"]
+    (alpha,) = inputs["Alpha"]
+    if attrs.get("mode", "all") == "channel" and alpha.ndim == 1:
+        alpha = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    return one(torch.where(x > 0, x, alpha * x))

@@ -511,7 +511,8 @@ def flash_attention_delta(out, g) -> torch.Tensor:
     """delta = Σ_d dO·out ([B, nh, T] f32): the backward's first kernel for
     f32 or bf16 CUDA tensors, the plain version for CPU tensors; another
     dtype or device raises. `flash_attention_bwd` runs the kernel itself;
-    this entry lets a check hold it against `flash_attention_delta_plain`."""
+    this entry lets a check hold it against `flash_attention_delta_plain`.
+    Its own launches count in ``.launches``."""
     if out.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention_delta: no kernel for dtype "
                         f"{out.dtype}")
@@ -526,7 +527,11 @@ def flash_attention_delta(out, g) -> torch.Tensor:
     with torch.cuda.device(out.device):
         rows = _launch_delta(out, g, torch.cuda.current_stream(
             out.device).cuda_stream)
+    flash_attention_delta.launches += 1
     return rows[:, :t].view(b, nh, t)
+
+
+flash_attention_delta.launches = 0
 
 
 # ---------------------------------------------------------------------------

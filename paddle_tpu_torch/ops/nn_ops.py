@@ -60,6 +60,59 @@ def _conv2d(ctx, inputs, attrs):
     return one(conv2d_nchw(x, w, strides, padding, dilations, groups))
 
 
+def _out_pads_from_output_size(x, w, attrs, nd):
+    """Resolve the reference's output_size attr into trailing output
+    padding (the JAX package's rule): output_size must lie in
+    [default, default + stride)."""
+    output_size = attrs.get("output_size")
+    if not output_size:
+        return (0,) * nd
+    strides = _pair(attrs.get("strides", [1] * nd), nd)
+    pads = _pair(attrs.get("paddings", [0] * nd), nd)
+    dils = _pair(attrs.get("dilations", [1] * nd), nd)
+    ks = w.shape[2:]
+    out_pads = []
+    for i, want in enumerate(_pair(output_size, nd)):
+        default = ((x.shape[2 + i] - 1) * strides[i] - 2 * pads[i]
+                   + dils[i] * (ks[i] - 1) + 1)
+        extra = int(want) - default
+        if not 0 <= extra < strides[i]:
+            raise ValueError(
+                f"conv_transpose output_size[{i}]={want} must be in "
+                f"[{default}, {default + strides[i] - 1}]")
+        out_pads.append(extra)
+    return tuple(out_pads)
+
+
+def conv_transpose_nd(x, w, attrs, nd):
+    """conv_transpose_op.cc: out = (i-1)·s − 2p + d·(k−1) + 1 (+ the
+    output_size's trailing padding); `w` is the reference layout
+    [C_in, C_out/groups, *k], torch's own for a transposed conv."""
+    fn = {2: F.conv_transpose2d, 3: F.conv_transpose3d}[nd]
+    return fn(x, w, None, _pair(attrs.get("strides", [1] * nd), nd),
+              _pair(attrs.get("paddings", [0] * nd), nd),
+              _out_pads_from_output_size(x, w, attrs, nd),
+              int(attrs.get("groups", 1)),
+              _pair(attrs.get("dilations", [1] * nd), nd))
+
+
+@register_op("conv2d_transpose", dp=ROWS)
+def _conv2d_transpose(ctx, inputs, attrs):
+    (x,) = inputs["Input"]
+    (w,) = inputs["Filter"]
+    return one(conv_transpose_nd(x, w, attrs, 2))
+
+
+@register_op("conv3d", dp=ROWS)
+def _conv3d(ctx, inputs, attrs):
+    (x,) = inputs["Input"]
+    (w,) = inputs["Filter"]
+    return one(F.conv3d(x, w, None, _pair(attrs.get("strides", [1] * 3), 3),
+                        _pair(attrs.get("paddings", [0] * 3), 3),
+                        _pair(attrs.get("dilations", [1] * 3), 3),
+                        int(attrs.get("groups", 1))))
+
+
 @register_op("pool2d", dp=ROWS)
 def _pool2d(ctx, inputs, attrs):
     """pool_op.cc: max pools pad with -inf; exclusive average pools divide
@@ -163,6 +216,37 @@ def _layer_norm_sp(attrs, lay, shapes, n):
 
 # normalized from dim 0 on a data axis: the whole batch's statistics, each
 # rank keeping its rows of Y (core/registry.py's Whole)
+@register_op("group_norm", dp=ROWS)
+def _group_norm(ctx, inputs, attrs):
+    """group_norm_op.cc: each sample's channels in `groups` groups,
+    normalised over (channels of the group, spatial); NHWC is normalised
+    channels-first and restored."""
+    (x,) = inputs["X"]
+    scale = inputs.get("Scale", [None])[0]
+    bias = inputs.get("Bias", [None])[0]
+    eps = attrs.get("epsilon", 1e-5)
+    groups = attrs["groups"]
+    nhwc = attrs.get("data_layout", "NCHW") == "NHWC"
+    if nhwc:
+        x = torch.movedim(x, -1, 1)
+    n, c = x.shape[0], x.shape[1]
+    rest = tuple(x.shape[2:])
+    xg = x.reshape((n, groups, c // groups) + rest)
+    axes = tuple(range(2, xg.ndim))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = xg.var(dim=axes, unbiased=False, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    cshape = (1, c) + (1,) * len(rest)
+    if scale is not None:
+        y = y * scale.reshape(cshape)
+    if bias is not None:
+        y = y + bias.reshape(cshape)
+    if nhwc:
+        y = torch.movedim(y, 1, -1)
+    return {"Y": [y], "Mean": [mean.reshape(n, groups)],
+            "Variance": [var.reshape(n, groups)]}
+
+
 @register_op("layer_norm", dp=lambda a, s: Whole(rows=("Y",)) if a.get(
     "begin_norm_axis", 1) % s["X"] == 0 else ROWS, sp=_layer_norm_sp)
 def _layer_norm(ctx, inputs, attrs):

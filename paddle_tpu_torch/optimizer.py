@@ -13,8 +13,16 @@ the table's own rows; ``deferred_rows=`` (SGD, Adagrad, Adam) puts an
 state vars named as in the JAX package (``{p}@pending_pos``, ``@log_ids``,
 ``@log_raw``, ``@log_cum``, ``@log_count``), the lookup site rewired to
 read through them, a ``*_row_deferred`` update op and a fold program the
-executor runs every ``segments`` steps (``main._epilogue_programs``). The
-dygraph path is not ported.
+executor runs every ``segments`` steps (``main._epilogue_programs``).
+
+The dygraph path (``minimize`` under ``dygraph.guard``): the JAX package's
+scratch program of the same update ops (clip → regularize → update), built
+once per parameter set and run under ``torch.no_grad()`` by the port's
+one-device block runner (with ``PDTPU_FUSE_UPDATES``'s multi-tensor update
+groups where they apply), then copied into each parameter's tensor in
+place, so every VarBase keeps the same autograd leaf. The JAX package jits
+the whole update block; the port runs it op by op (one CUDA graph of it is
+ROADMAP A2's).
 
 Also here, as in the JAX package: LarsMomentum, DecayedAdagrad, Adadelta,
 RMSProp, Adamax and Ftrl; GradientMergeOptimizer and LookaheadOptimizer,
@@ -349,9 +357,160 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, grad_clip=None) -> Tuple[List, List]:
+        from .core.program import in_dygraph_mode
+        if in_dygraph_mode():
+            return self._dygraph_minimize(loss, parameter_list)
         params_grads = self.backward(loss, startup_program, parameter_list, no_grad_set)
         optimize_ops = self.apply_gradients(params_grads)
         return optimize_ops, params_grads
+
+    # -- dygraph path --------------------------------------------------------
+    # Reuses the per-class static op emission on a scratch Program executed
+    # eagerly: the scratch program IS the optimizer step (one op per param +
+    # accumulator updates), the dygraph analog of apply_gradients. Reference
+    # parity: dygraph optimizers share op kernels with static mode
+    # (imperative/prepared_operator.h).
+    def _dygraph_setup(self, params):
+        from .core.executor import (ExecContext, _SubPlan, _fuse_updates_mode,
+                                    _run_block)
+        from .core.program import grad_var_name, program_guard
+
+        # rebuild from scratch: cached lr/accumulator vars belong to the
+        # previous scratch program; names are deterministic, so accumulated
+        # values transfer via the old-env merge below
+        self._lr_var = None
+        self._accumulators = {}
+        self._dy_prog = Program()
+        dy_startup = Program()
+        with program_guard(self._dy_prog, dy_startup):
+            block = self._dy_prog.global_block()
+            pvars = []
+            for p in params:
+                pv = block.create_parameter(name=p.name, shape=list(p.shape),
+                                            dtype=p.dtype, trainable=True)
+                pv.regularizer = getattr(p, "regularizer", None)
+                pv.need_clip = getattr(p, "need_clip", True)
+                block.create_var(name=grad_var_name(p.name),
+                                 shape=list(p.shape), dtype=p.dtype)
+                pvars.append(pv)
+            # same pipeline as static apply_gradients: clip → regularize →
+            # update
+            params_grads = [(pv, block.var(grad_var_name(pv.name)))
+                            for pv in pvars]
+            if self._grad_clip is not None:
+                params_grads = self._grad_clip(params_grads)
+            params_grads = append_regularization_ops(params_grads,
+                                                     self.regularization)
+            self._create_global_learning_rate()
+            self._create_accumulators(block, [pg[0] for pg in params_grads])
+            for pg in params_grads:
+                self._append_optimize_op(block, pg)
+        # init accumulators/lr by running the scratch startup program on the
+        # parameters' device
+        device = params[0].value.device
+        env = {}
+        _run_block(dy_startup.global_block(), env, ExecContext(device))
+        # param-list change (e.g. unfreezing): keep accumulated state for
+        # params that persist across rebuilds
+        old_env = getattr(self, "_dy_env", None)
+        if old_env:
+            for k, v in old_env.items():
+                if k in env:
+                    env[k] = v
+        self._dy_env = env
+        self._dy_param_names = tuple(sorted(p.name for p in params))
+        # optimizer update ops are never differentiated
+        self._dy_ctx = ExecContext(device, is_test=True)
+        self._dy_plan = _SubPlan(self._dy_prog.global_block(),
+                                 _fuse_updates_mode())
+
+    def set_lr(self, value: float):
+        """Update the learning rate (works in both modes)."""
+        import torch
+
+        if getattr(self, "_dy_env", None) is not None \
+                and self._lr_var is not None:
+            old = self._dy_env[self._lr_var.name]
+            self._dy_env[self._lr_var.name] = torch.tensor(
+                [float(value)], dtype=torch.float32, device=old.device)
+        elif self._lr_var is not None:
+            old = global_scope().find_var(self._lr_var.name)
+            global_scope().set_var(self._lr_var.name, torch.tensor(
+                [float(value)], dtype=torch.float32,
+                device=getattr(old, "device", "cpu")))
+        else:
+            self._learning_rate = float(value)
+
+    def state_dict(self):
+        """Optimizer state for checkpointing (dygraph: the scratch env;
+        static: accumulator vars from the scope), as numpy arrays."""
+        from .core.dtypes import to_numpy
+
+        if getattr(self, "_dy_env", None) is not None:
+            d = {k: to_numpy(v) for k, v in self._dy_env.items()}
+        else:
+            scope = global_scope()
+            d = {}
+            for (name, pname), acc in self._accumulators.items():
+                v = scope.find_var(acc.name)
+                if v is not None:
+                    d[acc.name] = to_numpy(v)
+        d["@optimizer_state@"] = np.asarray(1)
+        return d
+
+    def set_state_dict(self, state):
+        from .core.dtypes import from_numpy
+
+        state = {k: v for k, v in state.items() if k != "@optimizer_state@"}
+        if getattr(self, "_dy_env", None) is not None:
+            for k, v in state.items():
+                old = self._dy_env.get(k)
+                self._dy_env[k] = from_numpy(
+                    v, device=getattr(old, "device", None))
+        else:
+            scope = global_scope()
+            for k, v in state.items():
+                old = scope.find_var(k)
+                scope.set_var(k, from_numpy(
+                    v, device=getattr(old, "device", None)))
+
+    load_state_dict = set_state_dict
+
+    def _dygraph_minimize(self, loss, parameter_list=None):
+        import torch
+
+        from .core.executor import _run_block
+        from .core.program import grad_var_name
+        from .dygraph.tracer import _active_tracer
+
+        params = list(parameter_list if parameter_list is not None
+                      else getattr(self, "_parameter_list", None) or [])
+        if not params:
+            raise ValueError(
+                "dygraph minimize needs parameter_list (pass "
+                "model.parameters())")
+        tr = _active_tracer()
+        if tr is not None and tr.tape:
+            tr.run_backward(loss)
+        names = tuple(sorted(p.name for p in params))
+        if (getattr(self, "_dy_prog", None) is None
+                or getattr(self, "_dy_param_names", None) != names):
+            self._dygraph_setup(params)
+        env = self._dy_env
+        with torch.no_grad():
+            for p in params:
+                env[p.name] = p.value.detach()
+                env[grad_var_name(p.name)] = (
+                    p.grad_value if p.grad_value is not None
+                    else torch.zeros_like(p.value))
+            _run_block(self._dy_prog.global_block(), env, self._dy_ctx,
+                       self._dy_plan)
+            for p in params:
+                new = env[p.name]
+                # in place: the VarBase keeps the same autograd leaf
+                if new.data_ptr() != p.value.data_ptr():
+                    p.value.copy_(new)
+        return [], [(p, p.grad_value) for p in params]
 
 
 class SGDOptimizer(Optimizer):

@@ -52,7 +52,7 @@ __all__ = ["psum", "pmean", "ppermute", "axis_index", "axis_size",
            "all_to_all", "barrier", "axis_group", "reduce_scatter_into",
            "all_gather_into", "copy_to", "reduce_from", "gather_along",
            "gather_summed", "all_to_all_diff", "exchange", "broadcast_from",
-           "row_counts", "gather_rows"]
+           "row_counts", "gather_rows", "summed_coalesced"]
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN}
@@ -123,6 +123,27 @@ def summed(x: torch.Tensor, group) -> torch.Tensor:
     if dist.get_world_size(group) > 1:
         dist.all_reduce(y, group=group)
     return y
+
+
+def summed_coalesced(xs, group=None):
+    """The sums over the group of the tensors `xs` (new tensors, no graph),
+    through one all-reduce a dtype over a flat buffer of that dtype's
+    tensors in order (the reference's coalesced gradient buckets)."""
+    by_dtype = {}
+    for i, x in enumerate(xs):
+        by_dtype.setdefault(x.dtype, []).append(i)
+    out = [None] * len(xs)
+    for idx in by_dtype.values():
+        with torch.no_grad():
+            flat = torch.cat([xs[i].detach().reshape(-1) for i in idx])
+            if dist.get_world_size(group) > 1:
+                dist.all_reduce(flat, group=group)
+        pos = 0
+        for i in idx:
+            n = xs[i].numel()
+            out[i] = flat[pos:pos + n].view(xs[i].shape)
+            pos += n
+    return out
 
 
 class _CopyTo(torch.autograd.Function):

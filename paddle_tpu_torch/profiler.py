@@ -19,8 +19,8 @@ One session can run in a process (Kineto's limit): `start_profiler`,
 captures share one guard, and a second start raises "already active"
 instead of clobbering the session. `record_event` marks a named region in
 the trace and in the host tracer alike. `op_profiler` (per-op eager
-timings) patches the dygraph tracer, which the port does not have yet
-(ROADMAP A11); its table type and registry export are here.
+timings) patches the dygraph tracer (``dygraph/tracer.py``) and exports its
+table to the registry.
 """
 from __future__ import annotations
 
@@ -257,13 +257,40 @@ def export_op_profile(timer: _OpTimer) -> None:
         reg.counter("eager/op_calls", op=op).inc(timer.counts[op])
 
 
+@contextlib.contextmanager
 def op_profiler():
-    """Eager per-op timing patches the dygraph tracer's dispatch; the port
-    has no dygraph mode yet."""
-    raise NotImplementedError(
-        "profiler.op_profiler patches the dygraph tracer, which is not "
-        "ported to paddle_tpu_torch yet (ROADMAP A11: dygraph); "
-        "profiler.profiler() and record_event are")
+    """Eager per-op timing: patches the dygraph tracer's dispatch and
+    records each op's host time once its outputs are ready (on the card
+    after ``torch.cuda.synchronize``, where the JAX package blocks until
+    its arrays are ready). On exit the table is exported to the registry
+    (``export_op_profile``) and stays readable as ``timer.summary()``."""
+    global _op_timer
+    import torch
+
+    from .dygraph import tracer as tr_mod
+
+    _op_timer = _OpTimer()
+    orig = tr_mod.Tracer.trace_op
+
+    def timed(self, op_type, inputs, attrs=None):
+        t0 = time.perf_counter()
+        out = orig(self, op_type, inputs, attrs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        _op_timer.times[op_type] += time.perf_counter() - t0
+        _op_timer.counts[op_type] += 1
+        return out
+
+    tr_mod.Tracer.trace_op = timed
+    try:
+        yield _op_timer
+    finally:
+        tr_mod.Tracer.trace_op = orig
+        timer, _op_timer = _op_timer, None
+        try:
+            export_op_profile(timer)
+        except Exception:
+            pass
 
 
 def reset_profiler():

@@ -12,6 +12,10 @@ for the CPU), with the plan's first run timed apart as ``compile_ms`` so
 steady-state latency is reported separately. On the card each timed call
 ends in ``torch.cuda.synchronize()``.
 
+`bench_dygraph_mlp` times a dygraph train step of a linear → layer_norm →
+gelu MLP with the eager dispatch's prepared-op cache on and off
+(``PDTPU_EAGER_JIT=0``), as interleaved 10-step segments.
+
 Two A/B cells hold the hand kernels against what they replace, as
 interleaved timed segments (`_interleaved_ab`):
 
@@ -37,6 +41,7 @@ CLI::
     python -m paddle_tpu_torch.tools.op_bench --config bench_ops.json
     python -m paddle_tpu_torch.tools.op_bench --fused-conv-bn \\
         --block-sparse-attn
+    python -m paddle_tpu_torch.tools.op_bench --dygraph [--device cpu]
 
 Config file: a JSON list of {"op", "inputs": {slot: {"shape", "dtype"}},
 "attrs", "outputs", "repeat"}. Output: one JSON line per config with
@@ -142,6 +147,87 @@ def _parse_input_flag(s: str):
 def _iqr(xs) -> float:
     qs = statistics.quantiles(xs, n=4) if len(xs) >= 2 else [0, 0, 0]
     return round(qs[2] - qs[0], 3)
+
+
+def bench_dygraph_mlp(steps: int = 50, batch: int = 64, width: int = 256,
+                      depth: int = 4, device: str = "cuda"):
+    """Dygraph transformer-style MLP train-step micro-bench (the JAX
+    package's, same defaults): linear → layer_norm → gelu blocks, a square
+    loss, SGD. The eager dispatch's prepared-op cache (``ops/eager.py``,
+    the PreparedOp analog, imperative/prepared_operator.h) against direct
+    dispatch (``PDTPU_EAGER_JIT=0``), as INTERLEAVED 10-step segments with
+    per-arm medians and IQRs (host dispatch time drifts over a run, so
+    back-to-back A/B runs would compare the drift). Each segment ends in a
+    host read of the loss. Returns {cached_ms, uncached_ms, speedup, ...}."""
+    import os
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.dygraph.tracer import trace_op
+
+    rng = np.random.RandomState(0)
+    X = rng.rand(batch, width).astype("float32")
+    Y = rng.rand(batch, 1).astype("float32")
+    seg = 10
+    n_seg = max(2, steps // seg)
+    place = fluid.CPUPlace() if device == "cpu" else fluid.CUDAPlace(0)
+
+    old = os.environ.get("PDTPU_EAGER_JIT")
+    try:
+        with dygraph.guard(place, seed=7):
+            layers_ = [dygraph.nn.Linear(width, width)
+                       for _ in range(depth)] + [dygraph.nn.Linear(width, 1)]
+            lns = [dygraph.nn.LayerNorm(width) for _ in range(depth)]
+            opt = fluid.optimizer.SGD(0.01)
+            xv = dygraph.to_variable(X)
+            yv = dygraph.to_variable(Y)
+            params = [q for ly in layers_ + lns for q in ly.parameters()]
+
+            def step():
+                h = xv
+                for i, ly in enumerate(layers_[:-1]):
+                    h = lns[i](ly(h))
+                    h = trace_op("gelu", {"X": [h]}, {})["Out"][0]
+                h = layers_[-1](h)
+                diff = trace_op("elementwise_sub", {"X": [h], "Y": [yv]},
+                                {"axis": -1})["Out"][0]
+                sq = trace_op("square", {"X": [diff]}, {})["Out"][0]
+                loss = trace_op("mean", {"X": [sq]}, {})["Out"][0]
+                loss.backward()
+                opt.minimize(loss, parameter_list=params)
+                for ly in layers_ + lns:
+                    ly.clear_gradients()
+                return loss
+
+            def segment(cached: bool):
+                if cached:
+                    os.environ.pop("PDTPU_EAGER_JIT", None)
+                else:
+                    os.environ["PDTPU_EAGER_JIT"] = "0"
+                step()  # warm-up for this arm
+                t0 = time.perf_counter()
+                for _ in range(seg):
+                    loss = step()
+                loss.numpy()
+                return (time.perf_counter() - t0) / seg * 1e3
+
+            cached_t, uncached_t = [], []
+            for _ in range(n_seg):
+                cached_t.append(segment(True))
+                uncached_t.append(segment(False))
+    finally:
+        if old is not None:
+            os.environ["PDTPU_EAGER_JIT"] = old
+        else:
+            os.environ.pop("PDTPU_EAGER_JIT", None)
+    cached = statistics.median(cached_t)
+    uncached = statistics.median(uncached_t)
+    return {"bench": "dygraph_mlp_step", "steps": steps, "device": device,
+            "cached_ms": round(cached, 3), "uncached_ms": round(uncached, 3),
+            "cached_iqr_ms": _iqr(cached_t),
+            "uncached_iqr_ms": _iqr(uncached_t),
+            "n_segments": n_seg,
+            "speedup": round(uncached / cached, 2)}
 
 
 def _interleaved_ab(arms: Dict[str, Callable], n_seg: int = 5,
@@ -357,6 +443,9 @@ def bench_block_sparse_attn(batch: int = 2, t: int = 512, hidden: int = 256,
 
 def main(argv: Optional[List[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dygraph", action="store_true",
+                    help="run the dygraph MLP step bench (the eager "
+                         "prepared-op cache on vs off)")
     ap.add_argument("--fused-conv-bn", action="store_true",
                     help="A/B the fused conv+BN hand kernels vs their plain "
                          "composition")
@@ -391,6 +480,9 @@ def main(argv: Optional[List[str]] = None):
                       "attrs": json.loads(args.attrs),
                       "outputs": outputs or None, "repeat": args.repeat})
     ran_cell = False
+    if args.dygraph:
+        print(json.dumps(bench_dygraph_mlp(device=args.device)))
+        ran_cell = True
     if args.fused_conv_bn:
         print(json.dumps(bench_fused_conv_bn(device=args.device)))
         ran_cell = True

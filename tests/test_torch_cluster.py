@@ -2,7 +2,9 @@
 
 - the top-level namespace: every name ``paddle_tpu/__init__.py`` exports
   that the port has ported resolves in both packages (the 17 names of
-  the first open fault, ``fleet`` and the modules of this slice);
+  the first open fault, ``fleet``, the modules of the fleet slice and
+  the dygraph mode's ``dygraph``, ``dygraph_grad_clip`` and
+  ``in_dygraph_mode``);
 - the fleet API and role makers: tests/test_parallel.py's
   test_fleet_api_single_process (the loss equal to the JAX package's,
   rtol 1e-6) and the four fleet tests of tests/test_ps_embedding.py
@@ -94,7 +96,8 @@ FAULT_1_NAMES = ["DatasetFactory", "DeviceLoader", "FetchHandle", "Evaluator",
 
 
 @pytest.mark.parametrize("name", FAULT_1_NAMES + [
-    "fleet", "planner", "incubate", "faults", "observability"])
+    "fleet", "planner", "incubate", "faults", "observability", "dygraph",
+    "dygraph_grad_clip", "in_dygraph_mode"])
 def test_top_level_name_resolves_in_both_packages(name):
     j, t = getattr(jfluid, name), getattr(tfluid, name)
     assert type(j).__name__ == type(t).__name__ or (

@@ -509,10 +509,17 @@ QUANT_OPS = ("fake_quantize_abs_max", "fake_channel_wise_quantize_abs_max",
              "quantized_lookup_table")
 
 
+# the ops the dygraph layer zoo traces: tests/test_torch_dygraph_ops.py
+# holds each forward and input gradient to jax.vjp
+DYGRAPH_OPS = ("conv2d_transpose", "conv3d", "group_norm",
+               "conv3d_transpose", "prelu", "bilinear_tensor_product",
+               "row_conv", "spectral_norm", "nce", "tree_conv")
+
+
 def test_cases_cover_every_ported_op():
     covered = ({op for _, op, _, _ in CASES} | set(RANDOM_OPS)
                | set(SELECTED_ROWS_OPS) | set(BLOCK_OPS)
-               | set(DEFERRED_ROW_OPS) | set(QUANT_OPS))
+               | set(DEFERRED_ROW_OPS) | set(QUANT_OPS) | set(DYGRAPH_OPS))
     assert covered == set(treg.registered_ops())
     # the port registers nothing the JAX package does not have
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())

@@ -220,7 +220,13 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
             "paddle_tpu_torch.streaming.delta_push, "
             "paddle_tpu_torch.streaming.trainer, "
             "paddle_tpu_torch.data_generator, paddle_tpu_torch.tools, "
-            "paddle_tpu_torch.tools.ps_admin; "
+            "paddle_tpu_torch.tools.ps_admin, paddle_tpu_torch.dygraph, "
+            "paddle_tpu_torch.dygraph.parallel, "
+            "paddle_tpu_torch.dygraph_grad_clip, "
+            "paddle_tpu_torch.ops.eager, paddle_tpu_torch.ops.vision_ops, "
+            "paddle_tpu_torch.ops.sampled_ops, "
+            "paddle_tpu_torch.ops.parity_ops, "
+            "paddle_tpu_torch.tools.op_bench; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
