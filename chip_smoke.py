@@ -557,6 +557,39 @@ before any main path:
              MLP for 5 steps, the same batch on both ranks, each rank's
              losses within 1e-5 of one process's, the all-reduce bytes
              a step.
+27. recurrent — control flow, recurrent nets and the CRF, in a process of
+             its own (`chip_smoke.py --p27`): (a) the reference book's
+             semantic-role-labelling db_lstm (models.label_semantic_roles)
+             at conll05's widths (44,068 words, 3,162 predicates, 59
+             labels; word_dim 32, 8 LSTMs of H = 128 with peepholes,
+             relu candidates, sigmoid cells, directions alternating;
+             linear_chain_crf, crf_decoding, chunk_eval IOB), B = 10 f32,
+             lengths uniform in 8–64: 5 SGD steps on the card and 3 on
+             the CPU from the same weights and feeds, the 3 losses within
+             1e-4 relative; after step 3 both decode one batch, the
+             paths equal (a differing row must be a tie: its two paths'
+             Viterbi scores on the CPU's emission within 1e-5 relative)
+             and chunk_eval's three counts equal (also on the card over
+             the CPU's path); no host read inside the recurrent ops
+             (torch.cuda sync debug mode over one step); the warm step on
+             a cached plan, each new length's first run, the decode,
+             one profiled step's launches, device ms, busy share and
+             peak memory (no hand kernel: unchecked), the CUDA-event
+             span; (b) tests/test_control_flow_rnn.py's loops at width
+             512 on the card against the CPU: a While filling a tensor
+             array (bitwise), a bounded While(max_iters=8) and its input
+             gradient (within 1e-6, no host read inside the ops),
+             DynamicRNN against StaticRNN over lengths 12, 9, 5, 1
+             (within 1e-6, zeros past each length), array writes and
+             reads at i = max_len + 3 and i < 0 (wrapped once, clamped;
+             no device assert); (c) tools.serving_bench at its defaults
+             (the MLP 512 → 2048 → 2048 → 16, 256 closed-loop requests at
+             concurrency 32): the served outputs against the sequential
+             Predictor's within rtol = atol = 1e-6, then fp32, int8 and
+             `--models ads:2,feed:1 --replicas 3 --slo-p99-ms 500`, each
+             exit code the tool's contract for its rows; (d)
+             tools.pipeline_bench at its defaults (30 steps, batch 256,
+             dim 512, depth 4): outputs identical, both arms' steps/s.
 Profiler sessions. torch.profiler loses kernel records in a process after
 other processes or threads used the card (in the H100 runs from phase 6
 on when it ran after the first main paths; phases 19-24 run after phase
@@ -11255,6 +11288,547 @@ def phase_dygraph(fluid, fb, smi):
             for k in P26_BN_KEYS}
 
 
+# -- phase 27: control flow, recurrent nets and the CRF -------------------------
+P27_DEVICE = "cuda"
+P27_B, P27_STEPS, P27_CHECKED = 10, 5, 3   # the book's batch; 5 steps
+P27_LOSS_REL, P27_TIE_REL = 1e-4, 1e-5
+P27_SRL = {}                  # SRLConfig overrides (none: conll05, full width)
+P27_W = 512                   # the loop programs' width
+P27_ARRAY_LEN, P27_WHILE_B, P27_WHILE_N, P27_WHILE_MAX = 8, 4, 6, 8
+P27_RNN_B, P27_RNN_T = 4, 12
+P27_GRAD_TOL, P27_SERVE_TOL = 1e-6, 1e-6
+P27_SERVE = ["--requests", "256", "--concurrency", "32",
+             "--buckets", "1,2,4,8,16,32"]
+P27_SERVE_ROWS, P27_SERVE_DIM = 256, 512   # the tool's defaults
+P27_PIPE = {"steps": 30, "batch": 256, "dim": 512, "depth": 4}
+P27_OWN_SITES = ("rnn_ops.py", "crf_ops.py", "control_flow_ops.py")
+
+
+def p27_place(fluid):
+    return fluid.CUDAPlace(0) if P27_DEVICE == "cuda" else fluid.CPUPlace()
+
+
+def p27_sync():
+    import torch
+
+    if P27_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def p27_path_score(em, trans, path):
+    """A tag path's Viterbi score in f64: start + end weights, the
+    emissions along it and its pairwise transitions."""
+    em, trans = em.astype(np.float64), trans.astype(np.float64)
+    s = trans[0, path[0]] + trans[1, path[-1]]
+    s += em[np.arange(len(path)), path].sum()
+    return float(s + trans[2:][path[:-1], path[1:]].sum())
+
+
+def p27_srl(fluid, smi):
+    """(a): the book's db_lstm at conll05's widths trained P27_STEPS steps
+    and decoded on the card and on the CPU from the same weights and
+    feeds; then one step profiled and its host syncs counted."""
+    import torch
+
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+    from paddle_tpu_torch.ops import coverage_ops
+
+    cfg = srl.SRLConfig(**P27_SRL)
+    with unique_name.guard():
+        main, startup, loss = srl.build_train_program(cfg)
+    with unique_name.guard():
+        dprog, path, chunks = srl.build_decode_program(cfg)
+    (dec_op,) = [o for o in dprog.global_block().ops
+                 if o.type == "crf_decoding"]
+    emission = dec_op.inputs["Emission"][0]
+    feeds = [srl.make_batch(cfg, P27_B, seed=2700 + i)
+             for i in range(P27_STEPS)]
+    dfeed = srl.make_batch(cfg, P27_B, seed=2799)
+    dfetch = [path, *chunks[3:], emission]
+    names = [v.name for v in main.list_vars() if v.persistable]
+
+    marks, t_part = {}, time.perf_counter()
+
+    def mark(name):
+        marks[name] = round(time.perf_counter() - t_part, 3)
+
+    gpu_scope = fluid.Scope()
+    exe = fluid.Executor(p27_place(fluid))
+    exe.run(startup, scope=gpu_scope)
+    state = {n: gpu_scope.find_np(n) for n in names if gpu_scope.has_var(n)}
+    # P27_CHECKED steps, the decode both devices compare, then the rest;
+    # each batch is padded to its own longest row: a new feed signature,
+    # so each of these steps is its plan's first run
+    gpu_losses, step_ms, dec_ms = [], [], []
+    for k, f in enumerate(feeds):
+        if k == P27_CHECKED:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                gdec = exe.run(dprog, feed=dfeed, fetch_list=dfetch,
+                               scope=gpu_scope)
+                dec_ms.append((time.perf_counter() - t0) * 1e3)
+            crfw_gpu = gpu_scope.find_np("crfw")
+        t0 = time.perf_counter()
+        gpu_losses.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                        scope=gpu_scope)[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    mark("gpu_train_decode")
+
+    cpu_scope = fluid.Scope()
+    fluid.io.load_params_from_numpy(state, scope=cpu_scope)
+    cexe = fluid.Executor(fluid.CPUPlace())
+    t0 = time.perf_counter()
+    cpu_losses = [float(cexe.run(main, feed=f, fetch_list=[loss],
+                                 scope=cpu_scope)[0])
+                  for f in feeds[:P27_CHECKED]]
+    cdec = cexe.run(dprog, feed=dfeed, fetch_list=dfetch, scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    crfw_cpu = cpu_scope.find_np("crfw")
+    mark("cpu_train_decode")
+
+    loss_rel = [abs(g - c) / abs(c) for g, c in
+                zip(gpu_losses[:P27_CHECKED], cpu_losses[:P27_CHECKED])]
+    gpath, cpath = gdec[0], cdec[0]
+    lens = dfeed["length"]
+    differ = [b for b in range(P27_B)
+              if not np.array_equal(gpath[b, :lens[b]], cpath[b, :lens[b]])]
+    ties = []
+    for b in differ:   # each row's two paths scored on the CPU's emission
+        L = int(lens[b])
+        gs = p27_path_score(cdec[-1][b, :L], crfw_cpu, gpath[b, :L])
+        cs = p27_path_score(cdec[-1][b, :L], crfw_cpu, cpath[b, :L])
+        ties.append({"row": b, "positions": int(
+            (gpath[b, :L] != cpath[b, :L]).sum()), "gpu_path_score": gs,
+            "cpu_path_score": cs, "rel": abs(gs - cs) / abs(cs)})
+    counts = [int(np.asarray(v).ravel()[0]) for v in gdec[1:4]]
+    cpu_counts = [int(np.asarray(v).ravel()[0]) for v in cdec[1:4]]
+    # chunk_eval on the card over the CPU's decoded path
+    dev = torch.device(P27_DEVICE)
+    on_cpu_path = coverage_ops._chunk_eval(None, {
+        "Inference": [torch.as_tensor(cpath, device=dev)],
+        "Label": [torch.as_tensor(dfeed["target"], device=dev)],
+        "Length": [torch.as_tensor(lens, device=dev)]},
+        {"chunk_scheme": "IOB", "num_chunk_types": cfg.num_chunk_types})
+    counts_on_cpu_path = [int(on_cpu_path[k][0]) for k in (
+        "NumInferChunks", "NumLabelChunks", "NumCorrectChunks")]
+
+    # one step profiled and one step's host reads, from the trained state
+    m_scope = fluid.Scope()
+    fluid.io.load_params_from_numpy(
+        {n: gpu_scope.find_np(n) for n in state}, scope=m_scope)
+    dev_feed = {k: torch.as_tensor(v, device=dev) for k, v in
+                feeds[0].items()}
+
+    def step():
+        return exe.run(main, feed=dev_feed, fetch_list=[loss],
+                       scope=m_scope, return_handle=True)
+
+    step().numpy()
+    warm_ms = []
+    for _ in range(3):   # a repeated signature: the plan is cached
+        t0 = time.perf_counter()
+        step().numpy()
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+    mark("warm_steps")
+    P17_READ_SITES.clear()
+    handle, reads = count_host_reads(step)
+    handle.numpy()
+    sites = dict(P17_READ_SITES)
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_record("p27 srl train step", lambda: step().numpy(), 1)
+    mark("profile")
+    span_ms = cuda_ms(lambda: step().numpy(), iters=2, warmup=0)
+    mark("span")
+    busy = prof["device_busy_ms"]
+    rec = {
+        "config": {"word_dict_len": cfg.word_dict_len,
+                   "pred_dict_len": cfg.pred_dict_len,
+                   "label_dict_len": cfg.label_dict_len,
+                   "hidden_dim": cfg.hidden_dim, "lstm_H": cfg.hidden_dim // 4,
+                   "depth": cfg.depth, "B": P27_B, "dtype": "float32",
+                   "T": [int(f["length"].max()) for f in feeds]},
+        "gpu_losses": gpu_losses, "cpu_losses": cpu_losses,
+        "loss_rel": loss_rel,
+        "warm_step_ms_median": float(np.median(warm_ms)),
+        "warm_step_ms": warm_ms, "first_run_step_ms": step_ms,
+        "decode_ms_median": float(np.median(dec_ms[1:])),
+        "cpu_train_and_decode_s": cpu_s,
+        "crfw_rel_l2": rel_l2(crfw_gpu, crfw_cpu),
+        "decode_rows_differing": len(differ), "ties": ties,
+        "chunk_counts": counts, "cpu_chunk_counts": cpu_counts,
+        "chunk_counts_on_cpu_path": counts_on_cpu_path,
+        "host_reads_per_step": reads, "host_read_sites": sites,
+        "launches_per_step": prof["device_events"],
+        "device_ms_per_step": busy,
+        "device_busy_share": prof["device_busy_share"],
+        "profile": prof["profile"],
+        "cuda_event_span_ms": span_ms,
+        "span_check": ("not applicable: host-bound (busy share < 0.8)"
+                       if busy is None or prof["device_busy_share"] is None
+                       or prof["device_busy_share"] < 0.8 else
+                       busy / span_ms),
+        "peak_memory_MiB": prof["peak_memory_MiB"],
+        "by_category_ms": prof["by_category_ms"],
+        "top_kernels_ms": prof["top_kernels_ms"][:5], "marks_s": marks,
+        "device": smi}
+    log("recurrent srl " + json.dumps(rec, default=str))
+    bad = []
+    if max(loss_rel) > P27_LOSS_REL:
+        bad.append(f"losses {loss_rel} > {P27_LOSS_REL}")
+    if any(t["rel"] > P27_TIE_REL for t in ties):
+        bad.append(f"decoded paths differ beyond a tie: {ties}")
+    if not differ and counts != cpu_counts:
+        bad.append(f"chunk counts {counts} != CPU {cpu_counts}")
+    if counts_on_cpu_path != cpu_counts:
+        bad.append(f"chunk counts on the CPU path {counts_on_cpu_path} != "
+                   f"{cpu_counts}")
+    if not all(np.isfinite(gpu_losses)):
+        bad.append(f"losses {gpu_losses}")
+    own = p27_own_reads(sites)
+    if own:
+        bad.append(f"host reads inside the recurrent ops: {own}")
+    if bad:
+        raise AssertionError("phase 27 srl: " + "; ".join(bad))
+    return rec
+
+
+def p27_own_reads(sites):
+    """The host-read sites inside the recurrent and control-flow ops."""
+    return {s: n for s, n in sites.items()
+            if any(f"{o}:" in s for o in P27_OWN_SITES)}
+
+
+def p27_run(fluid, build, feed, device, fetch_n, count=False):
+    """Build (under a fresh name guard), start and run `build` once on
+    `device` ("cuda" | "cpu"): (numpy fetches, None or {"reads": the
+    run's host reads, "sites": where they came from})."""
+    from paddle_tpu_torch.core import unique_name
+
+    with unique_name.guard():
+        main, startup, fetch = build()
+    place = fluid.CPUPlace() if device == "cpu" else p27_place(fluid)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    if not count:
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=scope), None
+    P17_READ_SITES.clear()
+    handle, reads = count_host_reads(
+        lambda: exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                        return_handle=True))
+    return handle.numpy(), {"reads": reads, "sites": dict(P17_READ_SITES)}
+
+
+def p27_loops(fluid, smi):
+    """(b): tests/test_control_flow_rnn.py's loop programs at width
+    P27_W on the card against the CPU."""
+    L = fluid.layers
+    W = P27_W
+    rng = np.random.RandomState(27)
+    out = {}
+
+    def while_array():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = L.data("x", [W], append_batch_size=False)
+            i = L.fill_constant([1], "int64", 0)
+            limit = L.fill_constant([1], "int64", P27_ARRAY_LEN)
+            arr = L.create_array("float32", element_shape=[W],
+                                 max_len=P27_ARRAY_LEN)
+            cond = L.less_than(i, limit)
+            cur = L.scale(x, scale=1.0)
+            with L.While(cond):
+                nxt = L.scale(L.elementwise_mul(cur, cur), scale=0.5,
+                              bias=0.25)
+                L.array_write(nxt, i, arr)
+                L.assign(nxt, cur)
+                L.increment(i, value=1)
+                L.less_than(i, limit, cond=cond)
+            n = L.array_length(arr)
+        return main, startup, [arr, n, i]
+
+    feed = {"x": rng.uniform(-1, 1, W).astype(np.float32)}
+    g, reads = p27_run(fluid, while_array, feed, P27_DEVICE, 3, count=True)
+    c, _ = p27_run(fluid, while_array, feed, "cpu", 3)
+    out["while_array"] = {
+        "bitwise": all(np.array_equal(a, b) for a, b in zip(g, c)),
+        "length": int(np.asarray(g[1]).ravel()[0]),
+        "host_reads": reads, "iterations": P27_ARRAY_LEN}
+
+    def bounded(max_iters):
+        def build():
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup):
+                x = L.data("x", [P27_WHILE_B, W], append_batch_size=False)
+                acc = L.scale(x, scale=1.0)
+                i = L.fill_constant([1], "int64", 0)
+                n = L.fill_constant([1], "int64", P27_WHILE_N)
+                cond = L.less_than(i, n)
+                with L.While(cond, max_iters=max_iters):
+                    L.assign(L.elementwise_add(L.scale(acc, scale=0.5),
+                                               L.tanh(acc)), acc)
+                    L.assign(L.increment(i, value=1), i)
+                    L.assign(L.less_than(i, n), cond)
+                loss = L.reduce_sum(acc)
+                (gx,) = fluid.gradients([loss], [x])
+            return main, startup, [loss, gx]
+        return build
+
+    feed = {"x": rng.uniform(-1, 1, (P27_WHILE_B, W)).astype(np.float32)}
+    g, reads = p27_run(fluid, bounded(P27_WHILE_MAX), feed, P27_DEVICE, 2,
+                       count=True)
+    c, _ = p27_run(fluid, bounded(P27_WHILE_MAX), feed, "cpu", 2)
+    import torch
+
+    errs = [max_err(torch.as_tensor(np.asarray(a)),
+                    torch.as_tensor(np.asarray(b)), P27_GRAD_TOL)
+            for a, b in zip(g, c)]
+    out["bounded_while"] = {
+        "max_iters": P27_WHILE_MAX, "trip": P27_WHILE_N,
+        "loss_err": errs[0][0], "grad_err": errs[1][0],
+        "within": all(ok for _, ok in errs), "host_reads": reads}
+
+    lengths = np.array([P27_RNN_T, 9, 5, 1], np.int64)[:P27_RNN_B]
+
+    def rnn(dynamic):
+        def build():
+            B, T = P27_RNN_B, P27_RNN_T
+            main, startup = fluid.Program(), fluid.Program()
+            main.random_seed = startup.random_seed = 27
+            with fluid.program_guard(main, startup):
+                x = L.data("x", [B, T, W], append_batch_size=False)
+                h0 = L.fill_constant([B, W], "float32", 0.0)
+                if dynamic:
+                    ln = L.data("len", [B], dtype="int64",
+                                append_batch_size=False)
+                    r = L.DynamicRNN()
+                    guard = r.block()
+                else:
+                    r = L.StaticRNN()
+                    guard = r.step()
+                with guard:
+                    xt = r.step_input(x, length=ln) if dynamic \
+                        else r.step_input(x)
+                    h = r.memory(init=h0)
+                    nh = L.fc(L.concat([xt, h], axis=1), size=W, act="tanh",
+                              param_attr=fluid.ParamAttr(name="rnn_w"),
+                              bias_attr=fluid.ParamAttr(name="rnn_b"))
+                    r.update_memory(h, nh)
+                    r.output(nh)
+                o = r()
+            return main, startup, [o]
+        return build
+
+    feed = {"x": rng.uniform(-1, 1, (P27_RNN_B, P27_RNN_T, W)).astype(
+        np.float32), "len": lengths}
+    (dyn,), _ = p27_run(fluid, rnn(True), feed, P27_DEVICE, 1)
+    (sta,), _ = p27_run(fluid, rnn(False), {"x": feed["x"]}, P27_DEVICE, 1)
+    valid = np.arange(P27_RNN_T)[None, :] < lengths[:, None]
+    diff = np.abs(dyn - sta)[valid].max()
+    out["dynamic_vs_static"] = {
+        "max_abs_err_valid": float(diff),
+        "padded_zero": bool((dyn[~valid] == 0).all()),
+        "lengths": lengths.tolist()}
+
+    def clamps():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            a = L.data("a", [W], append_batch_size=False)
+            b = L.data("b", [W], append_batch_size=False)
+            i_hi = L.data("i_hi", [1], dtype="int64", append_batch_size=False)
+            i_neg = L.data("i_neg", [1], dtype="int64",
+                           append_batch_size=False)
+            i_last = L.data("i_last", [1], dtype="int64",
+                            append_batch_size=False)
+            arr = L.create_array("float32", element_shape=[W], max_len=5)
+            L.array_write(a, i_hi, arr)
+            L.array_write(b, i_neg, arr)
+            r_hi = L.array_read(arr, i_hi)
+            r_last = L.array_read(arr, i_last)
+            n = L.array_length(arr)
+        return main, startup, [arr, r_hi, r_last, n]
+
+    va = rng.randn(W).astype(np.float32)
+    vb = rng.randn(W).astype(np.float32)
+    feed = {"a": va, "b": vb, "i_hi": np.array([5 + 3]),
+            "i_neg": np.array([-2]), "i_last": np.array([-1])}
+    g, _ = p27_run(fluid, clamps, feed, P27_DEVICE, 4)
+    p27_sync()   # a device-side assert would surface here
+    c, _ = p27_run(fluid, clamps, feed, "cpu", 4)
+    want = np.zeros((5, W), np.float32)
+    want[4], want[3] = va, vb
+    out["array_clamps"] = {
+        "bitwise_vs_cpu": all(np.array_equal(x, y) for x, y in zip(g, c)),
+        "as_expected": bool(np.array_equal(g[0], want)
+                            and np.array_equal(g[1], va)
+                            and np.array_equal(g[2], va)
+                            and int(np.asarray(g[3]).ravel()[0]) == 9),
+        "writes": {"i=8 (max_len + 3)": "slot 4", "i=-2": "slot 3"},
+        "reads": {"i=8": "slot 4", "i=-1": "slot 4"}}
+    log("recurrent loops " + json.dumps(dict(out, device=smi), default=str))
+    bad = []
+    if not out["while_array"]["bitwise"]:
+        bad.append("while/array not bitwise the CPU's")
+    if not out["bounded_while"]["within"]:
+        bad.append(f"bounded while: {out['bounded_while']}")
+    own = p27_own_reads(out["bounded_while"]["host_reads"]["sites"])
+    if own:
+        bad.append(f"the bounded while read the host inside the ops: {own}")
+    if out["dynamic_vs_static"]["max_abs_err_valid"] > P27_GRAD_TOL or \
+            not out["dynamic_vs_static"]["padded_zero"]:
+        bad.append(f"DynamicRNN vs StaticRNN: {out['dynamic_vs_static']}")
+    if not (out["array_clamps"]["bitwise_vs_cpu"]
+            and out["array_clamps"]["as_expected"]):
+        bad.append(f"array clamps: {out['array_clamps']}")
+    if bad:
+        raise AssertionError("phase 27 loops: " + "; ".join(bad))
+    return out
+
+
+def p27_bench_main(args):
+    """serving_bench.main(args) with --metrics-out: (exit code, the
+    metrics file's bench/* records)."""
+    import io
+
+    from paddle_tpu_torch.tools import serving_bench as sb
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "m.json")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = sb.main(args + ["--device", P27_DEVICE,
+                                 "--metrics-out", path])
+        with open(path) as f:
+            snap = json.load(f)
+    return rc, {k: v for k, v in snap.items() if k.startswith("bench/")}
+
+
+def p27_row(r):
+    return {k: r.get(k) for k in ("mode", "requests", "throughput_rps",
+                                  "p50_ms", "p99_ms", "errors", "throttled")
+            if k in r}
+
+
+def p27_serving(fluid, smi):
+    """(c): serving_bench at its defaults (the MLP 512 → 2048 → 2048 → 16,
+    256 closed-loop requests at concurrency 32, buckets 1…32): the served
+    outputs against the sequential Predictor's, then the tool's three
+    runs and their exit codes."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.tools import serving_bench as sb
+
+    rows = sb._gen_rows(P27_SERVE_ROWS, P27_SERVE_DIM)
+    pred = sb.build_predictor(in_dim=P27_SERVE_DIM, device=P27_DEVICE)
+    want = [pred.run_padded({"x": r}, 1)[0] for r in rows]
+    server = serving.InferenceServer(pred, buckets=(1, 2, 4, 8, 16, 32),
+                                     max_batch_delay_ms=2.0,
+                                     max_queue_size=1024)
+    server.warmup(example_feed={"x": rows[0]})
+    with server:
+        futs = [server.submit({"x": r}) for r in rows]
+        got = [f.result()[0] for f in futs]
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    within = all(np.allclose(g, w, rtol=P27_SERVE_TOL, atol=P27_SERVE_TOL)
+                 for g, w in zip(got, want))
+    runs = {}
+    for name, extra in (("fp32", []), ("int8", ["--precision", "int8"]),
+                        ("tenants", ["--models", "ads:2,feed:1",
+                                     "--replicas", "3",
+                                     "--slo-p99-ms", "500"])):
+        rc, bench = p27_bench_main(P27_SERVE + extra)
+        seq, served = bench.get("bench/sequential"), bench["bench/served"]
+        rec = {"rc": rc, "sequential": p27_row(seq) if seq else None,
+               "served": p27_row(served)}
+        want_rc = 1 if seq and served["throughput_rps"] <= \
+            seq["throughput_rps"] else 0
+        if name == "tenants":
+            ten = bench["bench/tenants"]
+            rec["tenants"] = {n: p27_row(r) for n, r in
+                              ten["per_tenant"].items()}
+            breach = any(r["p99_ms"] > 500 or r["errors"] > 0
+                         for r in ten["per_tenant"].values())
+            want_rc = want_rc or (2 if breach else 0)
+        rec["rc_by_contract"] = want_rc
+        runs[name] = rec
+    rec = {"served_vs_sequential_max_abs_err": err,
+           "within_1e-6": within, "runs": runs, "device": smi}
+    log("recurrent serving_bench " + json.dumps(rec, default=str))
+    bad = [n for n, r in runs.items() if r["rc"] != r["rc_by_contract"]]
+    if not within or bad:
+        raise AssertionError(f"phase 27 serving_bench: within={within} "
+                             f"err={err} exit codes off the contract: {bad}")
+    return rec
+
+
+def p27_pipeline(fluid, smi):
+    """(d): pipeline_bench at its defaults on the card."""
+    from paddle_tpu_torch.tools import pipeline_bench as pb
+
+    res = pb.run_pipeline_bench(device=P27_DEVICE, **P27_PIPE)
+    res.pop("sync_losses")
+    log("recurrent pipeline_bench " + json.dumps(dict(res, device=smi)))
+    if res["outputs_identical"] is not True:
+        raise AssertionError(f"phase 27 pipeline_bench: {res}")
+    return res
+
+
+def phase_recurrent(fluid, smi):
+    """Phase 27 (module docstring)."""
+    t_phase = time.perf_counter()
+    marks = {}
+    for name, part in (("srl", p27_srl), ("loops", p27_loops),
+                       ("serving_bench", p27_serving),
+                       ("pipeline_bench", p27_pipeline)):
+        part(fluid, smi)
+        marks[name] = time.perf_counter() - t_phase
+    log("recurrent " + json.dumps({
+        "marks_s": marks, "wall_s": time.perf_counter() - t_phase,
+        "device": smi}))
+
+
+def p27_child():
+    """Phase 27 in a process of its own (``chip_smoke.py --p27``), so that
+    its profile is read in a process no other process or thread has used
+    the card beside. Prints the phase's lines, then its sessions' checks."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import cuda_device
+
+    cuda_device(0)
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on at start")
+    PHASE[0] = "27"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    phase_recurrent(fluid, smi)
+    print("p27 sessions " + json.dumps(SESSIONS), flush=True)
+    torch.cuda.synchronize()
+
+
+def phase_recurrent_proc():
+    """Phase 27 through `p27_child` in a fresh process; its lines pass
+    through. Returns its sessions' checks."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--p27"], capture_output=True, text=True,
+                          timeout=600)
+    sessions = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("p27 sessions "):
+            sessions = json.loads(line[len("p27 sessions "):])
+        else:
+            log(line)
+    if proc.returncode != 0 or sessions is None:
+        raise AssertionError(f"phase 27 (--p27) exited {proc.returncode}:"
+                             f" {proc.stderr[-4000:]}")
+    return sessions
+
+
 def main():
     import torch
 
@@ -11499,11 +12073,19 @@ def main():
     for k, n in p26.items():
         bn_launches["float32"][k] += n
 
+    mark("27")
+
+    # 27. control flow, recurrent nets and the CRF (the book's SRL db_lstm
+    # trained and decoded at full width against the CPU, the loops and
+    # tensor arrays against the CPU, serving_bench and pipeline_bench at
+    # their defaults), in a process of its own
+    p27_sessions = phase_recurrent_proc()
+
     mark("end")
     log("phase seconds " + json.dumps(phase_s))
 
     # every profiler session's check against the launch counters
-    sessions = SESSIONS + (p26_sessions or [])
+    sessions = SESSIONS + (p26_sessions or []) + (p27_sessions or [])
     by_status = {}
     for rec in sessions:
         by_status[rec["status"]] = by_status.get(rec["status"], 0) + 1
@@ -11626,6 +12208,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--p27" in sys.argv:
+        p27_child()
+        sys.exit(0)
     if "--p25" in sys.argv:
         p25_child()
         sys.exit(0)

@@ -50,12 +50,14 @@ flight recorder, the tracer and the executor's metrics
 ``execute_ms``, ``update_flushes``, ``fused_update_groups``,
 ``fused_update_ops``).
 
-Sub-blocks. A control-flow op (``conditional_block``) runs its sub-block
-through ``run_sub_block``: the ops in order, with the run's update fusion
-on a sub-plan of their own (decided on the sub-block's first run and
+Sub-blocks. A control-flow op (``conditional_block``, ``while``,
+``static_rnn``, ``cond``, ``switch``) runs its sub-block through
+``run_sub_block``: the ops in order, with the run's update fusion on a
+sub-plan of their own (decided on the sub-block's first run and
 replayed, every pending group flushed before the sub-block returns),
 without the program's AMP casts (as the JAX package lowers a sub-block),
-and under ``torch.no_grad()`` (the op is not differentiable). The
+under ``torch.no_grad()`` where the op is not differentiable and under
+autograd where it is (``static_rnn``, ``while`` with ``max_iters``). The
 plan's set of names some op reads covers every block, and what a
 sub-block writes to a persistable comes back through the op's outputs to
 the scope.
@@ -358,7 +360,8 @@ def _run_op_local(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
     if hook is not None:
         _run_sparse_site(op, opdef, hook, in_vals, env, ctx)
         return
-    if ctx.training and opdef.differentiable:
+    diff = opdef.is_differentiable(op.attrs)
+    if ctx.training and diff:
         for slot, names in op.inputs.items():
             nondiff = slot in opdef.nondiff_inputs
             in_vals[slot] = [
@@ -367,7 +370,7 @@ def _run_op_local(op, env: Dict[str, torch.Tensor], ctx: ExecContext):
                 for n, v in zip(names, in_vals[slot])]
     in_vals = _amp_cast(in_vals, op.type, ctx.amp)
     ctx.out_names = op.outputs
-    if opdef.differentiable:
+    if diff:
         out = opdef.fn(ctx, in_vals, op.attrs)
     else:
         with torch.no_grad():
@@ -569,7 +572,7 @@ def _remat_eligible(op) -> bool:
     if not registry.has_op(op.type):
         return False
     opdef = registry.get_op(op.type)
-    if opdef.grad_fn is not None or not opdef.differentiable:
+    if opdef.grad_fn is not None or not opdef.is_differentiable(op.attrs):
         return False
     return not any(isinstance(v, Block) for v in op.attrs.values())
 

@@ -23,7 +23,10 @@ Implementation contract::
 - returns dict slot -> list of values matching the op's output slots.
 
 In training the executor reads the metadata: a non-differentiable op runs
-under ``torch.no_grad()``, and inputs in `nondiff_inputs` are detached. The
+under ``torch.no_grad()``, and inputs in `nondiff_inputs` are detached.
+`differentiable` is a bool or a callable on the op's attrs (``while`` is
+differentiable only with a trip bound): ``OpDef.is_differentiable(attrs)``
+resolves it. The
 `grad_fn` hook is kept for the sparse-row gradients (not ported yet).
 
 `dp` declares what the op does with a batch-sharded input on a
@@ -146,6 +149,11 @@ class OpDef:
         self.dp = dp  # the op on a data-parallel mesh (module docstring)
         self.tp = tp  # the op on a model axis (module docstring)
         self.sp = sp  # the op on a sequence axis (module docstring)
+
+    def is_differentiable(self, attrs) -> bool:
+        """`differentiable` under these attrs (a callable decides per op)."""
+        diff = self.differentiable
+        return bool(diff(attrs) if callable(diff) else diff)
 
 
 _REGISTRY: Dict[str, OpDef] = {}

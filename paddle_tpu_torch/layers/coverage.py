@@ -1,8 +1,9 @@
 """Part of ``paddle_tpu.layers.coverage``: the reader layers (reference
 ``layers/io.py``: ``py_reader``, ``create_py_reader_by_data``,
 ``double_buffer``) and the layout layers the space-to-depth ResNet stem
-uses (``pad``, ``pad2d``, ``space_to_depth``). The rest of the JAX
-package's coverage layers are not ported yet (ROADMAP A12).
+uses (``pad``, ``pad2d``, ``space_to_depth``), ``sum``/``sums`` and
+``chunk_eval``. The rest of the JAX package's coverage layers are not
+ported yet (ROADMAP A12).
 
 The reader layers take a ``place``: the double buffer puts batches on it,
 on ``CUDAPlace(0)`` unless the caller passes another place (``CPUPlace()``
@@ -14,7 +15,7 @@ from ..core.program import Variable
 from ..layer_helper import LayerHelper
 
 __all__ = ["py_reader", "create_py_reader_by_data", "double_buffer", "pad",
-           "pad2d", "space_to_depth"]
+           "pad2d", "space_to_depth", "sum", "sums", "chunk_eval"]
 
 
 def _emit(op_type, x, attrs, name=None, out_shape=None):
@@ -102,3 +103,38 @@ def double_buffer(reader, place=None, name=None):
         yield from loader
 
     return double_buffered
+
+
+def sum(x):
+    """The elementwise sum of a list of Variables (the `sum` op)."""
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    helper = LayerHelper("sum")
+    out = helper.create_variable_for_type_inference(xs[0].dtype,
+                                                    shape=xs[0].shape)
+    helper.append_op(type="sum", inputs={"X": [v.name for v in xs]},
+                     outputs={"Out": [out.name]}, attrs={})
+    return out
+
+
+sums = sum
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """(precision, recall, f1, num_infer_chunks, num_label_chunks,
+    num_correct_chunks) of the `chunk_eval` op; `excluded_chunk_types` is
+    accepted and ignored, as in the JAX package."""
+    helper = LayerHelper("chunk_eval")
+    inputs = {"Inference": [input.name], "Label": [label.name]}
+    if seq_length is not None:
+        inputs["Length"] = [seq_length.name]
+    slots = (("Precision", "float32"), ("Recall", "float32"),
+             ("F1-Score", "float32"), ("NumInferChunks", "int64"),
+             ("NumLabelChunks", "int64"), ("NumCorrectChunks", "int64"))
+    outs = [helper.create_variable_for_type_inference(dt, shape=[1])
+            for _, dt in slots]
+    helper.append_op(type="chunk_eval", inputs=inputs,
+                     outputs={s: [o.name] for (s, _), o in zip(slots, outs)},
+                     attrs={"chunk_scheme": chunk_scheme,
+                            "num_chunk_types": num_chunk_types})
+    return tuple(outs)

@@ -322,6 +322,59 @@ def matmul(x: Variable, y: Variable, transpose_x: bool = False,
     return out
 
 
+def linear_chain_crf(input, label, length=None, param_attr=None, name=None):
+    """CRF log-likelihood (reference nn.py linear_chain_crf over
+    linear_chain_crf_op.cc). input: emissions [B, T, D]; label [B, T] (or
+    [B, T, 1]); length [B]. Transition param is [D+2, D] (row0 start, row1
+    end). Returns negative log-likelihood [B, 1] suitable for mean()."""
+    helper = LayerHelper("linear_chain_crf", name=name)
+    D = input.shape[-1]
+    transition = helper.create_parameter(param_attr, shape=[D + 2, D],
+                                         dtype=input.dtype)
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    em_exps = helper.create_variable_for_type_inference(input.dtype)
+    tr_exps = helper.create_variable_for_type_inference(input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"Emission": [input.name], "Transition": [transition.name],
+              "Label": [label.name]}
+    if length is not None:
+        inputs["Length"] = [length.name]
+    helper.append_op(
+        type="linear_chain_crf", inputs=inputs,
+        outputs={"LogLikelihood": [ll.name], "EmissionExps": [em_exps.name],
+                 "TransitionExps": [tr_exps.name], "Alpha": [alpha.name]},
+        attrs={})
+    neg = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="scale", inputs={"X": [ll.name]},
+                     outputs={"Out": [neg.name]},
+                     attrs={"scale": -1.0, "bias": 0.0})
+    return neg
+
+
+def crf_decoding(input, param_attr=None, length=None, label=None, name=None):
+    """Viterbi decode [B, T] int64 (crf_decoding_op.cc). param_attr must name
+    the transition parameter trained by linear_chain_crf."""
+    helper = LayerHelper("crf_decoding", name=name)
+    from ..param_attr import ParamAttr
+    attr = ParamAttr._to_attr(param_attr)
+    if attr is None or attr.name is None:
+        raise ValueError("crf_decoding needs param_attr naming the trained "
+                         "transition parameter")
+    blk = helper.main_program.global_block()
+    if not blk.has_var(attr.name):
+        D = input.shape[-1]
+        helper.create_parameter(attr, shape=[D + 2, D], dtype=input.dtype)
+    path = helper.create_variable_for_type_inference("int64")
+    inputs = {"Emission": [input.name], "Transition": [attr.name]}
+    if length is not None:
+        inputs["Length"] = [length.name]
+    if label is not None:
+        inputs["Label"] = [label.name]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [path.name]}, attrs={})
+    return path
+
+
 def flash_attention(q: Variable, k: Variable, v: Variable,
                     attn_bias: Optional[Variable] = None,
                     causal: bool = False, dropout_prob: float = 0.0,

@@ -37,3 +37,23 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
 
 def reduce_mean(input, dim=None, keep_dim=False, name=None):
     return _reduce_layer("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_prod", input, dim, keep_dim, name)
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_all", input, dim, keep_dim, name)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_any", input, dim, keep_dim, name)

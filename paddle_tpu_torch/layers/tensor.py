@@ -1,5 +1,6 @@
 """Tensor-manipulation layers — the subset of ``paddle_tpu.layers.tensor``
-the ported models use (reference python/paddle/fluid/layers/tensor.py)."""
+the ported models and the control-flow layers use (reference
+python/paddle/fluid/layers/tensor.py)."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
@@ -134,4 +135,36 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None) -> 
     helper.append_op(type="fill_constant", outputs={"Out": [out.name]},
                      attrs={"shape": list(shape), "dtype": dtype_str(convert_dtype(dtype)),
                             "value": float(value)})
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value, input_dim_idx=0,
+                                  output_dim_idx=0) -> Variable:
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": [input.name]}, outputs={"Out": [out.name]},
+                     attrs={"shape": list(shape),
+                            "dtype": dtype_str(convert_dtype(dtype)),
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    return out
+
+
+def increment(x: Variable, value: float = 1.0, in_place: bool = True) -> Variable:
+    """x + value; in place by default (the op writes x's own name: the
+    executor rebinds the name to a new tensor)."""
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="increment", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"step": value})
+    return out
+
+
+def stack(x: Sequence[Variable], axis: int = 0) -> Variable:
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": [v.name for v in x]},
+                     outputs={"Y": [out.name]}, attrs={"axis": axis})
     return out

@@ -1,3 +1,4 @@
 """Model builders ported so far: BERT/ERNIE-base, ResNet-50, Transformer
-NMT, DeepFM and LeNet."""
-from . import bert, deepfm, lenet, resnet, transformer_nmt  # noqa: F401
+NMT, DeepFM, LeNet and the semantic-role-labelling db_lstm."""
+from . import (bert, deepfm, label_semantic_roles, lenet, resnet,  # noqa: F401
+               transformer_nmt)

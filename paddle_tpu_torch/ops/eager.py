@@ -55,10 +55,7 @@ class Prepared:
     def __init__(self, op_type: str, attrs: Dict):
         self.opdef = registry.get_op(op_type)
         self.attrs = dict(attrs)
-        diff = self.opdef.differentiable
-        if callable(diff):  # attr-dependent (e.g. `while` with a trip bound)
-            diff = diff(self.attrs)
-        self.differentiable = bool(diff)
+        self.differentiable = self.opdef.is_differentiable(self.attrs)
         self.nondiff_inputs = frozenset(self.opdef.nondiff_inputs)
 
 

@@ -1,6 +1,10 @@
 """Reduction ops (counterpart of ``paddle_tpu.ops.reduce_ops``; reference
 operators/reduce_ops/, mean_op.cc).
 
+``reduce_max``/``reduce_min`` split the gradient evenly between tied
+maxima (``torch.amax``/``amin``), as the JAX package's ``jnp.max`` does;
+``reduce_any``/``reduce_all`` are not differentiable.
+
 On a data-parallel mesh (``core/mesh_step.py``) a reduction over dim 0 of a
 batch-sharded input is global: the local sums are summed over the dp
 group and a mean divides by the global count, as GSPMD reduces the JAX
@@ -76,6 +80,48 @@ def _reduce(name, mean: bool):
 
 _reduce("reduce_sum", mean=False)
 _reduce("reduce_mean", mean=True)
+
+
+def _dims(x, attrs):
+    """The reduced dims, ascending (all of them under `reduce_all`)."""
+    if attrs.get("reduce_all", False):
+        return tuple(range(x.ndim))
+    dim = attrs.get("dim", [0])
+    dim = dim if isinstance(dim, (list, tuple)) else [dim]
+    return tuple(sorted({int(d) % max(x.ndim, 1) for d in dim}))
+
+
+def _reduce_each(fn):
+    """A reduction torch takes one dim at a time (prod, any, all): the
+    dims in descending order so the later ones keep their index."""
+    def run(x, dims, keep):
+        for d in sorted(dims, reverse=True):
+            x = fn(x, dim=d, keepdim=keep)
+        return x
+    return run
+
+
+def _register_reduction(name, fn, differentiable=True):
+    @register_op(name, differentiable=differentiable)
+    def _impl(ctx, inputs, attrs):
+        (x,) = inputs["X"]
+        dims = _dims(x, attrs)
+        keep = attrs.get("keep_dim", False)
+        if not dims:  # a 0-d input
+            return one(fn(x.reshape(1), (0,), False).reshape(()))
+        return one(fn(x, dims, keep))
+    return _impl
+
+
+_register_reduction("reduce_max",
+                    lambda x, d, k: torch.amax(x, dim=d, keepdim=k))
+_register_reduction("reduce_min",
+                    lambda x, d, k: torch.amin(x, dim=d, keepdim=k))
+_register_reduction("reduce_prod", _reduce_each(torch.prod))
+_register_reduction("reduce_any", _reduce_each(torch.any),
+                    differentiable=False)
+_register_reduction("reduce_all", _reduce_each(torch.all),
+                    differentiable=False)
 
 
 @register_op("mean", dp=GLOBAL)

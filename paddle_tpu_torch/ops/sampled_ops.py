@@ -1,6 +1,7 @@
 """Sampled classifiers of ``paddle_tpu.ops.sampled_ops`` (reference
-nce_op.cc/.h): ``nce``, which the dygraph layer zoo traces. The rest of the
-module is not ported yet (ROADMAP A12).
+nce_op.cc/.h): ``nce``, which the dygraph layer zoo traces, and
+``max_sequence_len`` (max_sequence_len_op.cc), which the recurrent layers
+use. The rest of the module is not ported yet (ROADMAP A12).
 
 The noise samples come from the run's ``torch.Generator``
 (``ctx.rng()``); the JAX package draws them from its PRNG key, so the two
@@ -14,6 +15,15 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import ROWS, register_op
+from .common import one
+
+
+@register_op("max_sequence_len", differentiable=False)
+def _max_sequence_len(ctx, inputs, attrs):
+    """The longest row of a [B] length vector, as a [1] int64 tensor on
+    the device (the padded stand-in for the reference's rank table)."""
+    (lens,) = inputs["RankTable"]
+    return one(torch.amax(lens).reshape(1).to(torch.int64))
 
 
 @register_op("nce", nondiff_inputs=["Label", "SampleWeight",

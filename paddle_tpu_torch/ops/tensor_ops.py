@@ -1,7 +1,9 @@
 """Tensor manipulation + creation ops (counterpart of
 ``paddle_tpu.ops.tensor_ops``; reference reshape_op.cc, transpose_op.cc,
 concat_op.cc, slice_op.cc, split_op.cc, unsqueeze_op.cc, gather_op.cc, cast_op.cc, assign_op.cc,
-fill_constant_op.cc, assign_value_op.cc and the random initializer ops).
+stack_op.cc, increment_op.cc, fill_constant_op.cc,
+fill_constant_batch_size_like_op.cc, assign_value_op.cc and the random
+initializer ops).
 
 The random ops draw from the run's seeded ``torch.Generator``
 (``ctx.rng()``); the same seed gives other numbers than the JAX package's
@@ -81,6 +83,11 @@ def _transpose(ctx, inputs, attrs):
 @register_op("concat", dp=_not_dim0(lambda a, n: [a.get("axis", 0)]))
 def _concat(ctx, inputs, attrs):
     return one(torch.cat(inputs["X"], dim=attrs.get("axis", 0)))
+
+
+@register_op("stack", dp=_not_dim0(lambda a, n: [a.get("axis", 0)]))
+def _stack(ctx, inputs, attrs):
+    return {"Y": [torch.stack(inputs["X"], dim=attrs.get("axis", 0))]}
 
 
 @register_op("slice", dp=_not_dim0(lambda a, n: a["axes"]))
@@ -215,6 +222,28 @@ def _fill_constant(ctx, inputs, attrs):
     return one(torch.full(list(attrs.get("shape", [1])),
                           attrs.get("value", 0.0), dtype=dtype,
                           device=ctx.device))
+
+
+@register_op("fill_constant_batch_size_like", differentiable=False)
+def _fill_constant_batch_size_like(ctx, inputs, attrs):
+    """`shape` with dim `output_dim_idx` taken from dim `input_dim_idx` of
+    Input, filled with `value`."""
+    (ref,) = inputs["Input"]
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = ref.shape[
+        attrs.get("input_dim_idx", 0)]
+    return one(torch.full(shape, attrs.get("value", 0.0),
+                          dtype=convert_dtype(attrs.get("dtype", "float32")),
+                          device=ref.device))
+
+
+@register_op("increment", differentiable=False, dp=ROWS)
+def _increment(ctx, inputs, attrs):
+    """X + step, in the dtype the sum promotes to (an integer counter
+    stepped by an integer stays integer), as a new tensor: a loop's
+    counter is never written in place."""
+    (x,) = inputs["X"]
+    return one(x + attrs.get("step", 1.0))
 
 
 @register_op("assign_value", differentiable=False)

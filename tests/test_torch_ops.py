@@ -516,10 +516,22 @@ DYGRAPH_OPS = ("conv2d_transpose", "conv3d", "group_norm",
                "row_conv", "spectral_norm", "nce", "tree_conv")
 
 
+# the control-flow slice's 25 ops: tests/test_torch_control_flow_ops.py
+# holds each forward and input gradient to jax.vjp
+CONTROL_FLOW_SLICE_OPS = (
+    "increment", "fill_constant_batch_size_like", "stack", "reduce_max",
+    "reduce_min", "reduce_prod", "reduce_any", "reduce_all",
+    "max_sequence_len", "while", "static_rnn", "cond", "switch", "select",
+    "array_write", "array_read", "array_length", "lstm", "gru", "gru_unit",
+    "lstm_unit", "cudnn_lstm", "linear_chain_crf", "crf_decoding",
+    "chunk_eval")
+
+
 def test_cases_cover_every_ported_op():
     covered = ({op for _, op, _, _ in CASES} | set(RANDOM_OPS)
                | set(SELECTED_ROWS_OPS) | set(BLOCK_OPS)
-               | set(DEFERRED_ROW_OPS) | set(QUANT_OPS) | set(DYGRAPH_OPS))
+               | set(DEFERRED_ROW_OPS) | set(QUANT_OPS) | set(DYGRAPH_OPS)
+               | set(CONTROL_FLOW_SLICE_OPS))
     assert covered == set(treg.registered_ops())
     # the port registers nothing the JAX package does not have
     assert set(treg.registered_ops()) <= set(jreg.registered_ops())

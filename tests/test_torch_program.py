@@ -186,6 +186,13 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
             "paddle_tpu_torch.layers.control_flow, "
             "paddle_tpu_torch.layers.math_op_patch, "
             "paddle_tpu_torch.ops.control_flow_ops, "
+            "paddle_tpu_torch.ops.rnn_ops, paddle_tpu_torch.ops.crf_ops, "
+            "paddle_tpu_torch.ops.coverage_ops, "
+            "paddle_tpu_torch.contrib.decoder, "
+            "paddle_tpu_torch.contrib.layers, "
+            "paddle_tpu_torch.models.label_semantic_roles, "
+            "paddle_tpu_torch.tools.serving_bench, "
+            "paddle_tpu_torch.tools.pipeline_bench, "
             "paddle_tpu_torch.parallel, paddle_tpu_torch.parallel.checkpoint, "
             "paddle_tpu_torch.dataio.loader, paddle_tpu_torch.native, "
             "paddle_tpu_torch.compat, "

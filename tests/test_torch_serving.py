@@ -3,9 +3,9 @@ over the port's Predictor (bucket-padded results equal to the unbatched
 Predictor's within rtol = atol = 1e-6 across ragged sizes), backpressure,
 deadlines, warmup over every bucket, metrics, drain and its /healthz
 state, and the precision knob. The model is the JAX test's, saved by the
-JAX package. (`test_serving_bench_smoke` waits for tools/serving_bench.py,
-ROADMAP A10; `test_run_batched_rejects_mismatched_feed_keys` has its twin
-in tests/test_torch_scan_driver.py.)"""
+JAX package. (`test_serving_bench_smoke` has its twin in
+tests/test_torch_load_tools.py; `test_run_batched_rejects_mismatched_feed_keys`
+has its twin in tests/test_torch_scan_driver.py.)"""
 import threading
 import time
 

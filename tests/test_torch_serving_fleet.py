@@ -7,8 +7,8 @@ each replica holds only its row cache. The models are the JAX test's,
 saved by the JAX package; "correct" is within rtol 1e-5, atol 1e-6 of the
 port's own unbatched Predictor, as in the JAX test. Replicas serve on the
 CPU (``device="cpu"``; a process replica's worker gets ``--device cpu``).
-(`test_serving_bench_slo_gate_exit_codes` waits for
-tools/serving_bench.py, ROADMAP A10.)"""
+(`test_serving_bench_slo_gate_exit_codes` has its twin in
+tests/test_torch_load_tools.py.)"""
 import os
 import threading
 import time
